@@ -3,18 +3,34 @@ they give.
 
 ``random_quantized_params`` builds the JAX package's param tree with random
 packed weights (the shapes, dtypes and bytes of a real checkpoint, with
-``int4_storage_k`` padding and the lm_head padded to 65536) straight on the
-device — no float weights, no quantize pass, no host copy.  The root
+``int4_storage_k`` padding and the lm_head padded to 65536, the padding
+filled as the loader fills it) straight on the device — no float weights,
+no quantize pass, no host copy.  The root
 ``chip_smoke.py`` drives ``decode_rate`` with them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from .ops.quant import LMHEAD_N_MULTIPLE, int4_storage_k
 
-SCALE = 0.01  # mean group / channel scale of the random weights
+
+def grid_std(qmax: int) -> float:
+    """Standard deviation of the uniform integers in [-qmax, qmax]."""
+    return math.sqrt(((2 * qmax + 1) ** 2 - 1) / 12)
+
+
+def unit_gain_scale(k: int, qmax: int) -> float:
+    """The mean scale that gives a (k, n) linear of uniform grid values gain
+    about 1: outputs of the input's RMS.  A larger gain compounds through
+    the layers (q·k scores of std ~7 at 6B widths for a gain of 2.75), the
+    softmax turns near-hard, and a one-ulp bf16 difference upstream flips
+    which key wins: two correct paths then differ by up to a tenth of
+    max|logits| at depth 2."""
+    return 1.0 / (math.sqrt(k) * grid_std(qmax))
 
 
 def random_quantized_params(config: ChatGLM2Config, quant_type: str,
@@ -25,48 +41,72 @@ def random_quantized_params(config: ChatGLM2Config, quant_type: str,
     H, I = config.hidden_size, config.inner_hidden_size
     V, L = config.vocab_size, config.num_layers
 
-    def bits(shape, dtype=torch.uint8):
-        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
-        return torch.randint(lo, hi, shape, dtype=dtype, device=device, generator=generator)
+    def grid(shape, qmax):
+        """Uniform values of the symmetric RTN grid [-qmax, qmax], int8.  Its
+        mean is 0: random bytes (int4 nibbles in [-8, 7]) have a mean that
+        adds one common component to every output, onto which the whole
+        model collapses (every greedy token the same)."""
+        return torch.randint(-qmax, qmax + 1, shape, dtype=torch.int8, device=device,
+                             generator=generator)
 
-    def normal(shape):
-        return (torch.randn(shape, device=device, generator=generator) * 0.02).to(torch.bfloat16)
+    def pack4(q):
+        """(.., K, N) grid values → (.., K/2, N) bytes, K row 2i in the low
+        nibble (ops/quant.py)."""
+        u = (q & 0xF).to(torch.uint8)
+        return u[..., 0::2, :] | (u[..., 1::2, :] << 4)
 
-    def scales(shape, dtype):
-        # random per group / channel, in [0.5, 1.5) * SCALE: a scale read from
+    def normal(shape, std):
+        return (torch.randn(shape, device=device, generator=generator) * std).to(torch.bfloat16)
+
+    def scales(shape, dtype, mean):
+        # random per group / channel, in [0.5, 1.5) * mean: a scale read from
         # the wrong group or column changes the output
         u = torch.rand(shape, device=device, generator=generator)
-        return (SCALE * (0.5 + u)).to(dtype)
+        return (mean * (0.5 + u)).to(dtype)
 
-    def linear(k, n, lead, bias=False):
+    def linear(k, n, lead, bias=False, ks=None, ns=None):
+        """A (k, n) linear stored as (ks, ns): the storage padding holds what
+        the loader pads with (zero weights, scale 1.0), so the tree is one a
+        checkpoint could load into, and a padded column computes 0.  Its gain
+        is about 1 (``unit_gain_scale``)."""
+        ks, ns = ks or k, ns or n
         if quant_type == "int4g32":
-            p = {"weight": bits((*lead, k // 2, n)),
-                 "weight_scale": scales((*lead, k // 32, n), torch.bfloat16)}
+            p = {"weight": pack4(grid((*lead, ks, ns), 7)),  # tpu order
+                 "weight_scale": scales((*lead, ks // 32, ns), torch.bfloat16,
+                                        unit_gain_scale(k, 7))}
+            p["weight"][..., k // 2:, :] = 0
+            p["weight"][..., n:] = 0
+            p["weight_scale"][..., k // 32:, :] = 1.0
+            p["weight_scale"][..., n:] = 1.0
         elif quant_type == "int8":
-            p = {"weight": bits((*lead, k, n), torch.int8),
-                 "weight_scale": scales((*lead, n), torch.float32)}
+            p = {"weight": grid((*lead, ks, ns), 127),
+                 "weight_scale": scales((*lead, ns), torch.float32, unit_gain_scale(k, 127))}
+            p["weight"][..., k:, :] = 0
+            p["weight"][..., n:] = 0
+            p["weight_scale"][..., n:] = 1.0
         else:
-            p = {"weight": normal((*lead, k, n))}
+            p = {"weight": normal((*lead, ks, ns), k ** -0.5)}
         if bias:
-            p["bias"] = torch.zeros((*lead, n), dtype=torch.bfloat16, device=device)
+            p["bias"] = torch.zeros((*lead, ns), dtype=torch.bfloat16, device=device)
         return p
 
     def layer_linear(k, n, bias=False):
         # storage padding: 13696 → 13824 on K (w_out) and on N (the w_in halves)
-        return linear(int4_storage_k(k), int4_storage_k(n), (L,), bias)
+        return linear(k, n, (L,), bias, int4_storage_k(k), int4_storage_k(n))
 
     vp = V
     if quant_type != "none" and V >= LMHEAD_N_MULTIPLE:
         vp = -(-V // LMHEAD_N_MULTIPLE) * LMHEAD_N_MULTIPLE  # 65024 → 65536
 
+    # embeddings of about unit RMS, the scale of what the layers add to them
     if quant_type == "int4g32":
-        emb = {"weight": bits((V // 2, H)),
-               "weight_scale": scales((V // 32, H), torch.float32)}
+        emb = {"weight": pack4(grid((V, H), 7) + 8),  # reference order
+               "weight_scale": scales((V // 32, H), torch.float32, 1 / grid_std(7))}
     elif quant_type == "int8":
-        emb = {"weight": bits((V, H), torch.int8),
-               "weight_scale": scales((H,), torch.float32)}
+        emb = {"weight": grid((V, H), 127),
+               "weight_scale": scales((H,), torch.float32, 1 / grid_std(127))}
     else:
-        emb = {"weight": normal((V, H))}
+        emb = {"weight": normal((V, H), 1.0)}
 
     ones = lambda *shape: torch.ones(shape, dtype=torch.bfloat16, device=device)  # noqa: E731
     return {
@@ -82,7 +122,7 @@ def random_quantized_params(config: ChatGLM2Config, quant_type: str,
             "w_out": layer_linear(I, H),
         },
         "final_ln": {"weight": ones(H)},
-        "lm_head": linear(int4_storage_k(H), vp, ()),
+        "lm_head": linear(H, V, (), ks=int4_storage_k(H), ns=vp),
     }
 
 

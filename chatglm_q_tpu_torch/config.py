@@ -107,6 +107,15 @@ class TorchRuntimeConfig:
         the in-place KV write) in the serving paths.  None = follow
         use_kernels.  False takes the masked-softmax path
         (``models/chatglm2.py``), which is plain PyTorch.
+    dynamic_int8: dynamic per-row int8 activation quantization
+        (chatglm_q_tpu/config.py:139-145): every int8 linear runs s8×s8 dots
+        with int32 accumulation (ops/dyn_matmul.py, B7), and every int4g32
+        linear at M ≤ 64 rows widens its nibbles to s8 for group-32 s8×s8
+        dots (B8).  A different numerics mode from weight-only (about
+        0.3–1% activation quantization error), so opt-in.  Unlike the JAX
+        package, where the flag lives in its Pallas path only, it also
+        selects the dynamic plain versions under ``use_kernels=False``: the
+        reference path the kernels are held against.
 
     The JAX package's block sizes (attn_block_q/k, decode_block_k) have no
     counterpart: the CUDA kernels' tiles are compile-time constants in
@@ -116,6 +125,7 @@ class TorchRuntimeConfig:
 
     use_kernels: Optional[bool] = None
     use_flash_attention: Optional[bool] = None
+    dynamic_int8: bool = False
 
     def kernels_enabled(self, device: torch.device) -> bool:
         if self.use_kernels is not None:

@@ -21,8 +21,8 @@
 //   a few hundred column threads and most of the card idle; the kernel
 //   therefore splits K across blocks (grid.y) and across the 4 warps of a
 //   block.  Warps reduce in shared memory in a fixed order, blocks write f32
-//   partials to a workspace, and splitk_reduce_kernel sums the splits in a
-//   fixed order and casts: deterministic, no atomics.
+//   partials to a workspace, and splitk_reduce_kernel (common.cuh) sums the
+//   splits in a fixed order and casts: deterministic, no atomics.
 // * int4_mma_kernel (bf16, large M, prefill): bound by operations.  A
 //   64x128 output tile per block; each stage copies 128 K-columns of x and
 //   64 packed byte rows into shared memory, and eight warps run
@@ -37,23 +37,14 @@
 
 namespace {
 
-constexpr int GEMV_COLS = 8;    // columns per lane: one 8-byte load per byte row
-constexpr int GEMV_LANES = 32;  // lanes along N: a block covers 256 columns
-constexpr int GEMV_KW = 4;      // warps along K inside a block
-constexpr int GEMV_BN = GEMV_LANES * GEMV_COLS;
+// GEMV_COLS / GEMV_LANES / GEMV_KW (common.cuh): 8 columns per lane, one
+// 8-byte load per byte row; 32 lanes cover 256 columns; 4 warps along K.
 
 __device__ __forceinline__ float nib_lo(uint32_t b) {
   return (float)((int)((b & 0xFu) ^ 0x8u) - 8);
 }
 __device__ __forceinline__ float nib_hi(uint32_t b) {
   return (float)((int)(((b >> 4) & 0xFu) ^ 0x8u) - 8);
-}
-
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 template <typename T, int MT>
@@ -151,16 +142,6 @@ int4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-template <typename T>
-__global__ void splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ y,
-                                     int nsplit, size_t MN) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int p = 0; p < nsplit; ++p) s += ws[(size_t)p * MN + i];
-  y[i] = from_f32<T>(s);
-}
-
 template <typename T, int MT>
 void launch_gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, float* ws,
                  int M, int K, int N, int nsplit, int gps, cudaStream_t stream) {
@@ -180,8 +161,7 @@ void gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, T* y, f
     launch_gemv<T, 4>(x, packed, scale, ws, M, K, N, nsplit, gps, stream);
   else
     launch_gemv<T, 8>(x, packed, scale, ws, M, K, N, nsplit, gps, stream);
-  const size_t MN = (size_t)M * N;
-  splitk_reduce_kernel<T><<<(unsigned)((MN + 255) / 256), 256, 0, stream>>>(ws, y, nsplit, MN);
+  splitk_reduce<float, T>(ws, nullptr, nullptr, y, nsplit, M, N, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -199,14 +179,6 @@ constexpr int PS_STRIDE = MMA_BN + 16;     // bytes per packed row in smem (16-a
 __device__ __forceinline__ uint32_t nib_pair_bf16(uint32_t b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(nib_lo(b), nib_hi(b));
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __global__ void __launch_bounds__(256)

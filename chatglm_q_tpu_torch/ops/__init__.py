@@ -10,11 +10,19 @@ main path went through.
 def kernel_wrappers() -> dict:
     """name → wrapper function, for every CUDA kernel of the port."""
     from . import attention as A
+    from . import dyn_matmul as D
+    from . import int8_matmul as I8
     from . import quant_matmul as QM
 
     return {
         "int4g32_gemv": QM.int4g32_gemv,
         "int4g32_mma": QM.int4g32_mma,
+        "int8_gemv": I8.int8_gemv,
+        "int8_mma": I8.int8_mma,
+        "int8_dyn_gemv": D.int8_dyn_gemv,
+        "int8_dyn_mma": D.int8_dyn_mma,
+        "int4_dyn_gemv": D.int4_dyn_gemv,
+        "int4_dyn_mma": D.int4_dyn_mma,
         "kv_cache_write_idx": A.kv_cache_write_idx,
         "flash_attention_decode": A.flash_attention_decode,
         "flash_attention_prefill": A.flash_attention_prefill,

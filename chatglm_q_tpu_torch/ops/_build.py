@@ -37,6 +37,16 @@ SIGNATURES = {
     "chatglm_int4_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
     # x, packed, scale, y, M, K, N, stream
     "chatglm_int4_mma": [P, P, P, P, I, I, I, P],
+    # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
+    "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, w, scale, y, M, K, N, stream
+    "chatglm_int8_mma": [P, P, P, P, I, I, I, P],
+    # xq, sx, w, scale, y, workspace, M, K, N, y_is_bf16, nsplit, groups_per_split, stream
+    "chatglm_int8_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "chatglm_int4_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # xq, sx, w, scale, y, M, K, N, y_is_bf16, stream
+    "chatglm_int8_dyn_mma": [P, P, P, P, P, I, I, I, I, P],
+    "chatglm_int4_dyn_mma": [P, P, P, P, P, I, I, I, I, P],
     # cache_layer, new, starts, B, G, T, D, stream (bf16)
     "chatglm_kv_write": [P, P, P, I, I, I, I, P],
     # q, k, v, lengths, out, B, G, Hg, T, D, sm_scale, stream (bf16)

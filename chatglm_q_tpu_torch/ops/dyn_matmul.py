@@ -1,0 +1,203 @@
+"""Dynamic-activation int8 matmuls (B7, B8): the per-row activation
+quantizer, the wrappers over the CUDA kernels, their plain versions, and
+their launch counts.
+
+``TorchRuntimeConfig.dynamic_int8`` routes the quantized linears here
+(ops/linear.py).  The activations are quantized per row to int8
+(``dyn_quantize_rows``, the JAX package's ``_dyn_quantize_rows``,
+chatglm_q_tpu/ops/pallas_matmul.py:1076-1082: plain PyTorch, as the JAX
+prologue is jnp outside any kernel); the kernels in ``csrc/dyn_matmul.cu``
+then take s8 × s8 products with int32 sums:
+
+* ``int8_dyn_matmul`` (B7, replaces :_int8_dyn_kernel) on int8 weights:
+  y = (float(xq @ w) · sx) · scale.  Its kernels equal the plain version
+  bit for bit: int32 sums are exact in any order and the f32 epilogue is
+  the same operations in the same order.
+* ``int4_dyn_matmul`` (B8, replaces :_int4_dyn_kernel) on int4g32 weights,
+  nibbles widened to s8: y = (Σ_g float(xq_g @ w8_g) · scale_g) · sx over
+  groups of 32 along K.  Each group dot is exact; the f32 sum over groups
+  is taken in another order than the plain version's.
+
+Each has a split-K ``__dp4a`` kernel for M ≤ MMA_MIN_M (decode) and an
+``mma.sync`` m16n8k32 s8 kernel above it (``uses_mma``).
+
+``int8_dyn_supported`` / ``int4_dyn_supported`` repeat the shape gates of
+the JAX wrappers (pallas_matmul.py:991-994, :1098-1101), which return None,
+and so fall back to the weight-only kernels, unless N has a divisor that is
+a multiple of 128 and K a block size.  The gate decides which numerics a
+call gets, so the port keeps it to match JAX's outputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .quant import unpack_int4_tpu_q
+from .quant_matmul import MMA_MIN_M, aligned, gemv_plan
+
+PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few launches)
+
+
+def dyn_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: sx = max(max|x| / 127, 1e-10) (M, 1) f32 and
+    xq = clip(round(x / sx), -127, 127) int8 (M, K).  ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-10)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def int8_dyn_supported(K: int, N: int) -> bool:
+    return K % 32 == 0 and N % 128 == 0
+
+
+def int4_dyn_supported(K: int, N: int) -> bool:
+    return K % 128 == 0 and N % 128 == 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def int8_dyn_acc_plain(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact int32 accumulator xq (M, K) s8 @ w (K, N) s8, as float64.
+    (|acc| ≤ 127·127·K stays far below 2^53; a float32 dot would be exact
+    only below 2^24, and CUDA PyTorch has no integer matmul to offer.)"""
+    return xq.double() @ w.double()
+
+
+def int8_dyn_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """B7's function: (float(xq @ w) · sx) · scale in f32, cast to x's dtype."""
+    xq, sx = dyn_quantize_rows(x)
+    acc = int8_dyn_acc_plain(xq, w).float()
+    return ((acc * sx) * scale.float()).to(x.dtype)
+
+
+def int4_dyn_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """B8's function: per-group float64 dots (exact), times the f32 group
+    scales, summed in f32, times sx; cast to x's dtype."""
+    xq, sx = dyn_quantize_rows(x)
+    M, K = xq.shape
+    G, N = scale.shape
+    xg = xq.double().reshape(M, G, K // G).transpose(0, 1)      # (G, M, 32)
+    wg = unpack_int4_tpu_q(packed).double().reshape(G, K // G, N)  # (G, 32, N)
+    s = scale.float()
+    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    step = max(1, PLAIN_CHUNK_BYTES // (8 * M * N))
+    for g0 in range(0, G, step):
+        dots = torch.bmm(xg[g0:g0 + step], wg[g0:g0 + step]).float()  # exact: |dot| < 2^15
+        acc += (dots * s[g0:g0 + step, None, :]).sum(0)
+    return (acc * sx).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, x, w, scale, int4):
+    if not (x.is_cuda and w.device == x.device and scale.device == x.device):
+        raise ValueError(f"{name}: x, weights and scale must be on one CUDA device")
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"{name}: x (M, K) and 2-D weights")
+    K, N = x.shape[1], w.shape[1]
+    if int4:
+        ok = (w.shape[0] * 2 == K and scale.shape == (K // 32, N)
+              and w.dtype == torch.uint8 and scale.dtype == torch.bfloat16)
+    else:
+        ok = (w.shape[0] == K and scale.shape == (N,)
+              and w.dtype == torch.int8 and scale.dtype == torch.float32)
+    if not ok or K % 32 or N % 8:
+        raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, weights "
+                         f"{tuple(w.shape)} {w.dtype}, scale {tuple(scale.shape)} {scale.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: x must be bf16 or f32, not {x.dtype}")
+    for label, t in (("weights", w), ("scale", scale)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
+
+
+def uses_mma(M: int, N: int) -> bool:
+    """The s8 tensor-core kernel, for any output dtype (its inputs are s8)."""
+    return M > MMA_MIN_M and N % 16 == 0
+
+
+def _gemv(entry, xq, sx, w, scale, out_dtype, acc_dtype):
+    M, K = xq.shape
+    N = w.shape[1]
+    nsplit, gps = gemv_plan(M, K, N)
+    y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    ws = torch.empty((nsplit, M, N), dtype=acc_dtype, device=xq.device)
+    _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), ws.data_ptr(), M, K, N, int(out_dtype == torch.bfloat16),
+                nsplit, gps, _build.stream_ptr(xq))
+    return y
+
+
+def _mma(entry, xq, sx, w, scale, out_dtype):
+    M, K = xq.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), M, K, N, int(out_dtype == torch.bfloat16), _build.stream_ptr(xq))
+    return y
+
+
+def int8_dyn_gemv(xq, sx, w, scale, out_dtype):
+    """Launch B7's split-K __dp4a kernel (checked inputs on the card)."""
+    y = _gemv("chatglm_int8_dyn_gemv", xq, sx, w, scale, out_dtype, torch.int32)
+    int8_dyn_gemv.launches += 1
+    return y
+
+
+def int8_dyn_mma(xq, sx, w, scale, out_dtype):
+    """Launch B7's s8 tensor-core kernel (checked inputs on the card)."""
+    y = _mma("chatglm_int8_dyn_mma", xq, sx, w, scale, out_dtype)
+    int8_dyn_mma.launches += 1
+    return y
+
+
+def int4_dyn_gemv(xq, sx, packed, scale, out_dtype):
+    """Launch B8's split-K __dp4a kernel (checked inputs on the card)."""
+    y = _gemv("chatglm_int4_dyn_gemv", xq, sx, packed, scale, out_dtype, torch.float32)
+    int4_dyn_gemv.launches += 1
+    return y
+
+
+def int4_dyn_mma(xq, sx, packed, scale, out_dtype):
+    """Launch B8's s8 tensor-core kernel (checked inputs on the card)."""
+    y = _mma("chatglm_int4_dyn_mma", xq, sx, packed, scale, out_dtype)
+    int4_dyn_mma.launches += 1
+    return y
+
+
+for _fn in (int8_dyn_gemv, int8_dyn_mma, int4_dyn_gemv, int4_dyn_mma):
+    _fn.launches = 0
+
+
+def int8_dyn_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16/f32, quantized per row, @ w (K, N) int8, times sx and
+    scale (N,) f32 → (M, N) in x's dtype.  On a CPU tensor this is the plain
+    version; on a CUDA tensor it launches a kernel or raises."""
+    if not x.is_cuda:
+        return int8_dyn_matmul_plain(x, w, scale)
+    _check("int8_dyn_matmul", x, w, scale, int4=False)
+    xq, sx = dyn_quantize_rows(x)
+    xq, sx = aligned(xq), aligned(sx)
+    fn = int8_dyn_mma if uses_mma(xq.shape[0], w.shape[1]) else int8_dyn_gemv
+    return fn(xq, sx, w, scale, x.dtype)
+
+
+def int4_dyn_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16/f32, quantized per row, @ s8(packed (K/2, N) tpu order)
+    in groups of 32 rows with scale (K/32, N) bf16 → (M, N) in x's dtype.
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    a kernel or raises."""
+    if not x.is_cuda:
+        return int4_dyn_matmul_plain(x, packed, scale)
+    _check("int4_dyn_matmul", x, packed, scale, int4=True)
+    xq, sx = dyn_quantize_rows(x)
+    xq, sx = aligned(xq), aligned(sx)
+    fn = int4_dyn_mma if uses_mma(xq.shape[0], packed.shape[1]) else int4_dyn_gemv
+    return fn(xq, sx, packed, scale, x.dtype)

@@ -1,0 +1,95 @@
+"""int8 weight-only matmul (B6): the wrapper over the CUDA kernels, its plain
+version, and its launch counts.
+
+Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
+(``int8_matmul_pallas`` and its layer-indexed twin).  One wrapper,
+``int8_matmul``, over two kernels in ``csrc/int8_matmul.cu`` chosen by M as
+for the int4 matmul (ops/quant_matmul.py):
+
+* ``int8_gemv`` — small M (decode) or f32 activations: split-K CUDA-core
+  kernel, bound by the weight bytes, with a fixed-order second pass that
+  sums the f32 partials and applies the per-column scale.
+* ``int8_mma`` — bf16 activations at M > MMA_MIN_M (prefill, ``uses_mma``):
+  mma.sync tensor-core tiles, the int8 weights converted to bf16 in the
+  fragments.
+
+Both multiply the f32 accumulator by the per-column scale once, after the K
+sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
+weights before the dot instead: the same function, rounded elsewhere.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .quant_matmul import aligned, gemv_plan, uses_mma
+
+
+def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(x (M, K) @ w (K, N) int8 in f32) * scale (N,), cast to x's dtype.
+    The function the kernels are held against."""
+    return ((x.float() @ w.float()) * scale.float()).to(x.dtype)
+
+
+def _check(x, w, scale):
+    if not (x.is_cuda and w.device == x.device and scale.device == x.device):
+        raise ValueError("int8_matmul: x, w and scale must be on one CUDA device")
+    if x.dim() != 2 or w.dim() != 2 or scale.dim() != 1:
+        raise ValueError("int8_matmul: x (M, K), w (K, N), scale (N,)")
+    M, K = x.shape
+    if w.shape[0] != K or K % 32 or scale.shape[0] != w.shape[1] or w.shape[1] % 8:
+        raise ValueError(f"int8_matmul: unsupported shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, scale {tuple(scale.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_matmul: x must be bf16 or f32, not {x.dtype}")
+    if w.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("int8_matmul: w must be int8 and scale f32")
+    for name, t in (("w", w), ("scale", scale)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul: {name} must be contiguous and 16-byte aligned")
+
+
+def int8_gemv(x, w, scale):
+    """Launch the split-K kernel (checked inputs on the card)."""
+    M, K = x.shape
+    N = w.shape[1]
+    nsplit, cps = gemv_plan(M, K, N)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
+    _build.call("chatglm_int8_gemv", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16), nsplit, cps,
+                _build.stream_ptr(x))
+    int8_gemv.launches += 1
+    return y
+
+
+int8_gemv.launches = 0
+
+
+def int8_mma(x, w, scale):
+    """Launch the tensor-core kernel (checked bf16 inputs on the card)."""
+    M, K = x.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.call("chatglm_int8_mma", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                M, K, N, _build.stream_ptr(x))
+    int8_mma.launches += 1
+    return y
+
+
+int8_mma.launches = 0
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16/f32 @ (w (K, N) int8 · scale (N,) f32) → (M, N) in x's
+    dtype.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    a kernel or raises.  ``w``/``scale`` may be a layer's view ``stack[l]``."""
+    if not x.is_cuda:
+        return int8_matmul_plain(x, w, scale)
+    _check(x, w, scale)
+    x = aligned(x)
+    if uses_mma(x.shape[0], w.shape[1], x.dtype):
+        return int8_mma(x, w, scale)
+    return int8_gemv(x, w, scale)

@@ -1,9 +1,21 @@
 """Quantized/dense linear layers and the embedding lookup.
 
-The counterpart of chatglm_q_tpu/ops/linear.py (forward only).  The JAX
-package's ``StackedWeight`` and its ``_idx`` kernel variants exist because
-XLA copies a sliced layer; in PyTorch ``stack[l]`` is a contiguous view, so
-the layer loop passes each layer's views and the kernel reads them in place.
+The counterpart of chatglm_q_tpu/ops/linear.py (forward only), with its
+dispatch (:65-234):
+
+* int8 → B6 (ops/int8_matmul.py), or B7 (ops/dyn_matmul.py) under
+  ``rt.dynamic_int8``;
+* int4g32 → B1/B2 (ops/quant_matmul.py), or B8 under ``rt.dynamic_int8``
+  when the call has at most ``_INT4_DYN_M_MAX`` rows.
+
+Where a dynamic kernel's shape gate refuses (``*_dyn_supported``), the call
+takes the weight-only kernel, as JAX's does.  ``rt.kernels_enabled`` picks
+the kernel wrappers or the plain versions of the same functions.
+
+The JAX package's ``StackedWeight`` and its ``_idx`` kernel variants exist
+because XLA copies a sliced layer; in PyTorch ``stack[l]`` is a contiguous
+view, so the layer loop passes each layer's views and the kernel reads them
+in place.
 """
 from __future__ import annotations
 
@@ -11,10 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TorchRuntimeConfig
+from . import dyn_matmul as D
 from . import quant as Q
+from .int8_matmul import int8_matmul, int8_matmul_plain
 from .quant_matmul import int4g32_matmul, int4g32_matmul_plain
 
 _DEFAULT_RT = TorchRuntimeConfig()
+
+# int4-dyn ceiling of chatglm_q_tpu/ops/linear.py:55-58, measured on the
+# TPU.  It decides which numerics a call gets, so it stays as it is to keep
+# the port's outputs equal to JAX's; PERF.md has the H100's crossover.
+_INT4_DYN_M_MAX = 64
 
 
 def _pad_x_to_storage(x2: torch.Tensor, k_storage: int) -> torch.Tensor:
@@ -23,12 +42,6 @@ def _pad_x_to_storage(x2: torch.Tensor, k_storage: int) -> torch.Tensor:
     if x2.shape[1] < k_storage:
         x2 = F.pad(x2, (0, k_storage - x2.shape[1]))
     return x2
-
-
-def int8_matmul_plain(x2, w, scale):
-    """x (M, K) @ (w (Ks, N) int8 * scale (N,)), in x's dtype."""
-    x2 = _pad_x_to_storage(x2, w.shape[0])
-    return x2 @ (w.to(x2.dtype) * scale.to(x2.dtype))
 
 
 def quant_linear(x: torch.Tensor, params: dict, quant_type: str,
@@ -42,16 +55,25 @@ def quant_linear(x: torch.Tensor, params: dict, quant_type: str,
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    kernels = rt.kernels_enabled(x.device)
     if quant_type == "none":
         y = x2 @ params["weight"].to(x.dtype)
     elif quant_type == "int8":
-        if x.is_cuda:
-            raise NotImplementedError("int8 kernel (B6) not ported yet")
-        y = int8_matmul_plain(x2, params["weight"], params["weight_scale"])
+        w, scale = params["weight"], params["weight_scale"]
+        x2 = _pad_x_to_storage(x2, w.shape[0])
+        if rt.dynamic_int8 and D.int8_dyn_supported(w.shape[0], w.shape[1]):
+            fn = D.int8_dyn_matmul if kernels else D.int8_dyn_matmul_plain
+        else:
+            fn = int8_matmul if kernels else int8_matmul_plain
+        y = fn(x2, w, scale)
     elif quant_type == "int4g32":
         packed, scale = params["weight"], params["weight_scale"]
         x2 = _pad_x_to_storage(x2, 2 * packed.shape[0])
-        fn = int4g32_matmul if rt.kernels_enabled(x.device) else int4g32_matmul_plain
+        if (rt.dynamic_int8 and x2.shape[0] <= _INT4_DYN_M_MAX
+                and D.int4_dyn_supported(2 * packed.shape[0], packed.shape[1])):
+            fn = D.int4_dyn_matmul if kernels else D.int4_dyn_matmul_plain
+        else:
+            fn = int4g32_matmul if kernels else int4g32_matmul_plain
         y = fn(x2, packed, scale)
     else:
         raise NotImplementedError(f"quant_type {quant_type!r}")

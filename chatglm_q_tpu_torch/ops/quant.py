@@ -111,18 +111,23 @@ def _sign_extend_nibble(v: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_xor(v, 0x8) - 0x8
 
 
+def unpack_int4_tpu_q(packed: torch.Tensor) -> torch.Tensor:
+    """tpu-order packed (K//2, N) → the integer grid (K, N) int8 in [-8, 7]."""
+    K2, N = packed.shape
+    p = packed.to(torch.int32)
+    lo = _sign_extend_nibble(p & 0xF)
+    hi = _sign_extend_nibble((p >> 4) & 0xF)
+    return torch.stack([lo, hi], dim=1).reshape(2 * K2, N).to(torch.int8)
+
+
 def unpack_int4_tpu(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """tpu-order packed (K//2, N) + scale (G, N) → dequantized (K, N) f32.
 
     The plain dequantization the int4 kernel is held against."""
-    K2, N = packed.shape
-    K = 2 * K2
+    K = 2 * packed.shape[0]
+    N = packed.shape[1]
     G = scale.shape[0]
-    p = packed.to(torch.int32)
-    lo = _sign_extend_nibble(p & 0xF)
-    hi = _sign_extend_nibble((p >> 4) & 0xF)
-    q = torch.stack([lo, hi], dim=1).reshape(K, N)
-    q = q.reshape(G, K // G, N).float() * scale.float()[:, None, :]
+    q = unpack_int4_tpu_q(packed).reshape(G, K // G, N).float() * scale.float()[:, None, :]
     return q.reshape(K, N)
 
 

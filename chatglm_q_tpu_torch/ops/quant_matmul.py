@@ -73,7 +73,9 @@ def _check(x, packed, scale):
             raise ValueError(f"int4g32_matmul: {name} must be contiguous and 16-byte aligned")
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address (a copy where needed):
+    the kernels read it in 16-byte vectors."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -121,7 +123,7 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
     if not x.is_cuda:
         return int4g32_matmul_plain(x, packed, scale)
     _check(x, packed, scale)
-    x = _aligned(x)
+    x = aligned(x)
     if uses_mma(x.shape[0], packed.shape[1], x.dtype):
         return int4g32_mma(x, packed, scale)
     return int4g32_gemv(x, packed, scale)

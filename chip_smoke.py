@@ -2,61 +2,100 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py            # all phases, about a minute after the build
+    python3 chip_smoke.py    # all phases, a few minutes with the build
 
 Phases (any failure raises and exits non-zero):
 
 1. Card and build: the card's name and power limit, torch/CUDA versions,
    the kernels built from csrc/ (build seconds), and the device-to-device
    copy bandwidth (for comparison with the published rate the bounds use).
-2. Each CUDA kernel against its plain PyTorch version on the card, in bf16,
-   at the shapes of the ChatGLM2-6B main path: error, kernel time (CUDA
-   events), plain time, the bound (the least time for the same work: bytes
-   over the published HBM rate, or operations over the bf16 tensor-core
-   peak, whichever is larger) and, where one PyTorch call computes the same
+2. Each CUDA kernel against its plain PyTorch version on the card, at the
+   shapes of the ChatGLM2-6B main path: error, kernel time (CUDA events),
+   plain time, the bound (the least time for the same work: bytes over the
+   published HBM rate, or operations over the tensor-core peak of their
+   type, whichever is larger) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``, a yardstick only: SDPA for
-   the attentions, ``index_put_`` for the KV write, and PyTorch's int4
-   group-32 weight-only matmul ``torch._weight_int4pack_mm`` for the int4
-   matmul, on the same weights repacked into its layout).
+   the attentions, ``index_put_`` for the KV write,
+   ``torch._weight_int4pack_mm`` for the int4 matmul on the same weights
+   repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
+   matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
+   int4 matmul with dynamic int8 activations (B8) has no such call.  Then
+   B8 against B1 at M = 32, 64, 128: the crossover that ``_INT4_DYN_M_MAX``
+   (64) stands for.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
-   steps.
-4. The slice at full size: ChatGLM2-6B (28 layers) int4g32 with random
-   weights built on the card, 4 right-padded requests through prefill and
-   32 greedy decode steps plus one top-p request, with every kernel's launch
-   count from that run; then prefill and decode timings at batch 1 and 4,
-   and where a batch-1 decode step's time goes (torch.profiler's device
-   time by kernel, cProfile's host time by function).
+   steps, for int4g32, int8, int8 with dynamic int8 activations and
+   int4g32 with dynamic int8 activations, with control bugs that must fail
+   the same limit.
+4. The first slice at full size: ChatGLM2-6B (28 layers) int4g32 with
+   random weights built on the card, 4 right-padded requests through
+   prefill and 32 greedy decode steps plus one top-p request, with every
+   kernel's launch count from that run; then prefill and decode timings at
+   batch 1 and 4, and where a batch-1 decode step's time goes
+   (torch.profiler's device time by kernel, cProfile's host time by
+   function).
+5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
+   int8 with dynamic int8 activations, then int4g32 with dynamic int8
+   activations, each through ``GLMDecoder.generate`` (greedy, a chat
+   prompt, 32 tokens) with a tokenizer built in process whose every id
+   below 65024 is a text piece or a special token; the text must equal
+   the model-level text of ``prefill`` + ``multi_step_decode`` on the same
+   ids.  Decode ms/step at batch 1 for each mode.  Then a round trip at 6B
+   widths, depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
+   for int8 and int4g32, with identical tensors and equal logits.
 
-The last lines are the ``kernels`` JSON object, the nvidia-smi line of the
-card, and ``{"ok": true, "device": {...}}``.
+The last lines are ``detail:`` and every measured row as one JSON object,
+the ``kernels`` JSON object, the nvidia-smi line of the card, and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 # bf16 output tolerance of a kernel against its plain version, as a fraction
 # of max|plain|: both sum exact products in f32 and differ only in order, so
 # the outputs differ by about one bf16 rounding (2^-8 = 3.9e-3 relative).
 KERNEL_TOL = 1e-2
-# end-to-end tolerance (phase 3), as a fraction of max|logits|: two layers of
-# bf16 activations, where each one-ulp difference of a kernel output is
-# carried through norms, attention and seven linears per layer.  About 3x the
-# largest reading of the sound kernels on an H100 (3.9e-3).
+# End-to-end tolerance (phase 3), as a fraction of max|logits| over two
+# layers of bf16 activations, on the unit-gain random tree of
+# ``bench.random_quantized_params``.  Weight-only: about 3x one kernel
+# output's bf16 rounding carried through norms, attention and seven linears
+# per layer.  Under dynamic int8 every linear's input is rounded to 8 bits
+# per row (a step of 1/127 of the row's max|x|), and a one-ulp bf16
+# difference upstream can move an activation by a whole step, so two
+# correct paths sit about 4x further apart.  The largest
+# readings over seeds 21-23 on an H100 were 9.95e-3 and 4.04e-2; each limit
+# is about 1.5x that.  Each mode's run also plants a control bug that must
+# exceed its limit (readings 2.7e-2 to 2.0e-1).
 E2E_TOL = 1.5e-2
+E2E_DYN_TOL = 6e-2
 
-MATMUL_SHAPES = [  # (name, K, N) at storage sizes
-    ("q_proj", 4096, 4096), ("kv_proj", 4096, 256), ("o_proj", 4096, 4096),
+MATMUL_SHAPES = [  # (name, K, N) at storage sizes; kv_proj outputs 2 * kv_size
+    ("q_proj", 4096, 4096), ("kv_proj", 4096, 512), ("o_proj", 4096, 4096),
     ("w_in_h/w_in_gate", 4096, 13824), ("w_out", 13824, 4096), ("lm_head", 4096, 65536),
 ]
 MATMUL_M = (1, 4, 512)
+DYN_M = (1, 4, 64, 512)      # B7 and B8 rows: decode, batch 4, the int4-dyn ceiling, prefill
+CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
 PROMPT_LENGTHS = (128, 77, 33, 5)
+INT4_PATH_KERNELS = ("int4g32_gemv", "int4g32_mma", "kv_cache_write_idx",
+                     "flash_attention_decode", "flash_attention_prefill")
+# phase 5: each mode and the kernels its GLMDecoder.generate run must launch
+# (the chat prompt has 16 < S <= 64 tokens: the tensor-core kernels run in
+# prefill, the split-K ones in decode, and int4g32 + dyn stays on B8)
+CHAT_MODES = [("int8", False, ("int8_gemv", "int8_mma")),
+              ("int8", True, ("int8_dyn_gemv", "int8_dyn_mma")),
+              ("int4g32", True, ("int4_dyn_gemv", "int4_dyn_mma"))]
+CHAT_QUESTION = "Hello, who are you?"
+CHAT_TOKENS = 32
 CACHE_LEN = 1024
 
 
@@ -99,13 +138,20 @@ def copy_bandwidth(torch) -> float:
     return 2 * n / (ms * 1e-3)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, ops, peak=PEAK_BF16_FLOPS):
     """The least time for the work: each input byte read once and each
     output byte written once over the HBM peak, or the operations over the
-    bf16 peak, whichever is larger; and which of the two it is."""
+    tensor-core peak of their type (bf16 by default, ``PEAK_INT8_OPS`` for
+    s8 products), whichever is larger; and which of the two it is."""
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def weight_copies(wbytes):
+    """Enough copies of one weight to exceed the 50 MB L2: decode reads the
+    weights cold."""
+    return max(2, min(64, math.ceil(160e6 / wbytes)))
 
 
 # ---------------------------------------------------------------------------
@@ -159,16 +205,28 @@ def int4_library(torch, x, lib_w, want):
     return cuda_event_ms(lambda i: mm(x, lib_w[i % n][0], 32, lib_w[i % n][1]), iters=30)
 
 
+def log_row(fn, r):
+    lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    call_s = f"  call {r['call_ms']:.4f} ms" if "call_ms" in r else ""
+    log(f"  {fn:15s} {r['linear']:17s} M={r['M']:4d} K={r['K']:5d} N={r['N']:5d} "
+        f"[{r['kernel']}] rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms{call_s}  bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.3f} ms  library {lib_s}")
+
+
 def check_matmul(torch):
+    """B1/B2 (int4g32 weight-only) and B8 (int4g32 with dynamic int8
+    activations) on the same int4 weights, and the B8/B1 crossover."""
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
     from chatglm_q_tpu_torch.ops import quant_matmul as QM
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    rows = []
+    rows, crossover = [], []
+    log("    B8 library: none (no PyTorch call quantizes activations per row and takes "
+        "s8 dots with int4 group-32 weights)")
     for name, K, N in MATMUL_SHAPES:
         wbytes = K // 2 * N + K // 32 * N * 2
-        # enough weight copies to exceed the 50 MB L2: decode reads them cold
-        copies = max(2, min(64, math.ceil(160e6 / wbytes)))
+        copies = weight_copies(wbytes)
         packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8,
                                device="cuda", generator=gen)
         scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
@@ -190,15 +248,147 @@ def check_matmul(torch):
             lib = int4_library(torch, x, lib_w, want)
             b, by = bound_ms(M * K * 2 + wbytes + M * N * 2, 2.0 * M * K * N)
             kernel = "int4g32_mma" if QM.uses_mma(M, N, x.dtype) else "int4g32_gemv"
-            row = {"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
-                   "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b, "bound_by": by, "library_ms": lib}
-            rows.append(row)
-            lib_s = "none" if lib is None else f"{lib:.4f} ms"
-            log(f"  int4g32_matmul {name:17s} M={M:4d} K={K:5d} N={N:5d} [{kernel}] "
-                f"rel_err {rel:.2e}  {ms:.4f} ms  bound {b:.4f} ms ({by})  "
-                f"plain {plain:.3f} ms  library {lib_s}")
-        del packed, scale, lib_w
+            rows.append({"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+                         "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib})
+            log_row("int4g32_matmul", rows[-1])
+        del lib_w
+        for M in DYN_M:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            got = D.int4_dyn_matmul(x, packed[0], scale[0])
+            torch.cuda.synchronize()
+            want = D.int4_dyn_matmul_plain(x, packed[0], scale[0])
+            err, rel = rel_err(got, want)
+            require(torch.isfinite(got).all(), f"int4_dyn_matmul {name} M={M}: non-finite")
+            require(rel <= KERNEL_TOL,
+                    f"int4_dyn_matmul {name} M={M}: rel err {rel} > {KERNEL_TOL}")
+            xq, sx = D.dyn_quantize_rows(x)
+            kfn = D.int4_dyn_mma if D.uses_mma(M, N) else D.int4_dyn_gemv
+            ms = cuda_event_ms(lambda i: kfn(xq, sx, packed[i % copies], scale[i % copies],
+                                             x.dtype), iters=30)
+            call = cuda_event_ms(lambda i: D.int4_dyn_matmul(x, packed[i % copies],
+                                                             scale[i % copies]), iters=30)
+            plain = cuda_event_ms(lambda i: D.int4_dyn_matmul_plain(x, packed[0], scale[0]),
+                                  iters=3, warmup=1)
+            b, by = bound_ms(M * K + 4 * M + wbytes + M * N * 2, 2.0 * M * K * N, PEAK_INT8_OPS)
+            rows.append({"kernel": kfn.__name__, "linear": name, "M": M, "K": K, "N": N,
+                         "max_abs_err": err, "rel_err": rel, "ms": ms, "call_ms": call,
+                         "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": None})
+            log_row("int4_dyn_matmul", rows[-1])
+        for M in CROSSOVER_M:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            b8 = cuda_event_ms(lambda i: D.int4_dyn_matmul(x, packed[i % copies],
+                                                           scale[i % copies]), iters=30)
+            b1 = cuda_event_ms(lambda i: QM.int4g32_matmul(x, packed[i % copies],
+                                                           scale[i % copies]), iters=30)
+            crossover.append({"linear": name, "M": M, "K": K, "N": N, "b8_ms": b8, "b1_ms": b1})
+            log(f"  crossover {name:17s} M={M:4d}: B8 (with its quantize prologue) {b8:.4f} ms, "
+                f"B1 {b1:.4f} ms, B8/B1 {b8 / b1:.2f}")
+        del packed, scale
+    return rows, crossover
+
+
+def int8_library(torch, x, w_t, scale_bf16, want):
+    """ms of ``torch._weight_int8pack_mm`` (x @ w_t (N, K) int8ᵀ · scales in
+    x's dtype) over the rotated transposed weights, after checking it
+    computes the plain version's function; None where this torch has no
+    CUDA implementation for it."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
+    if mm is None:
+        return None
+    try:
+        got = mm(x, w_t[0], scale_bf16[0])
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"    library: _weight_int8pack_mm refused M={x.shape[0]}: {str(e)[:160]}")
+        return None
+    rel = rel_err(got, want)[1]
+    require(rel <= KERNEL_TOL, f"_weight_int8pack_mm disagrees with the plain version: {rel}")
+    n = len(w_t)
+    return cuda_event_ms(lambda i: mm(x, w_t[i % n], scale_bf16[i % n]), iters=30)
+
+
+def int_mm_library(torch, xq, w, want_acc):
+    """ms of ``torch._int_mm`` (the s8 × s8 → s32 accumulator alone, B7's
+    core; it takes more than 16 rows, so xq is zero-padded to 32 rows at
+    least), after checking its accumulator is exact; None if it refuses."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    M, K = xq.shape
+    xp = torch.zeros((max(32, -(-M // 8) * 8), K), dtype=torch.int8, device=xq.device)
+    xp[:M] = xq
+    try:
+        acc = torch._int_mm(xp, w[0])
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"    library: _int_mm refused M={M}: {str(e)[:160]}")
+        return None
+    require(torch.equal(acc[:M].double(), want_acc), "_int_mm accumulator differs from plain")
+    n = len(w)
+    return cuda_event_ms(lambda i: torch._int_mm(xp, w[i % n]), iters=30)
+
+
+def check_int8_matmul(torch):
+    """B6 (int8 weight-only) and B7 (int8 with dynamic int8 activations) on
+    the same int8 weights."""
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for name, K, N in MATMUL_SHAPES:
+        wbytes = K * N + 4 * N
+        copies = weight_copies(wbytes)
+        w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+        w_t = w.transpose(1, 2).contiguous()
+        scale_bf16 = scale.to(torch.bfloat16)
+        for M in MATMUL_M:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            got = I8.int8_matmul(x, w[0], scale[0])
+            torch.cuda.synchronize()
+            want = I8.int8_matmul_plain(x, w[0], scale[0])
+            err, rel = rel_err(got, want)
+            require(torch.isfinite(got).all(), f"int8_matmul {name} M={M}: non-finite output")
+            require(rel <= KERNEL_TOL, f"int8_matmul {name} M={M}: rel err {rel} > {KERNEL_TOL}")
+            ms = cuda_event_ms(lambda i: I8.int8_matmul(x, w[i % copies], scale[i % copies]),
+                               iters=30)
+            plain = cuda_event_ms(lambda i: I8.int8_matmul_plain(x, w[0], scale[0]),
+                                  iters=3, warmup=1)
+            lib = int8_library(torch, x, w_t, scale_bf16, want)
+            b, by = bound_ms(M * K * 2 + wbytes + M * N * 2, 2.0 * M * K * N)
+            kernel = "int8_mma" if QM.uses_mma(M, N, x.dtype) else "int8_gemv"
+            rows.append({"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+                         "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib})
+            log_row("int8_matmul", rows[-1])
+        del w_t, scale_bf16
+        for M in DYN_M:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            got = D.int8_dyn_matmul(x, w[0], scale[0])
+            torch.cuda.synchronize()
+            want = D.int8_dyn_matmul_plain(x, w[0], scale[0])
+            err, rel = rel_err(got, want)
+            require(torch.equal(got, want),
+                    f"int8_dyn_matmul {name} M={M}: not bit-exact (max abs err {err})")
+            xq, sx = D.dyn_quantize_rows(x)
+            kfn = D.int8_dyn_mma if D.uses_mma(M, N) else D.int8_dyn_gemv
+            ms = cuda_event_ms(lambda i: kfn(xq, sx, w[i % copies], scale[i % copies],
+                                             x.dtype), iters=30)
+            call = cuda_event_ms(lambda i: D.int8_dyn_matmul(x, w[i % copies],
+                                                             scale[i % copies]), iters=30)
+            plain = cuda_event_ms(lambda i: D.int8_dyn_matmul_plain(x, w[0], scale[0]),
+                                  iters=3, warmup=1)
+            lib = int_mm_library(torch, xq, w, D.int8_dyn_acc_plain(xq, w[0]))
+            b, by = bound_ms(M * K + 4 * M + wbytes + M * N * 2, 2.0 * M * K * N, PEAK_INT8_OPS)
+            rows.append({"kernel": kfn.__name__, "linear": name, "M": M, "K": K, "N": N,
+                         "max_abs_err": err, "rel_err": rel, "ms": ms, "call_ms": call,
+                         "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": lib})
+            log_row("int8_dyn_matmul", rows[-1])
+        del w, scale
     return rows
 
 
@@ -311,26 +501,54 @@ def make_prompts(torch, cfg, gen):
     return ids.masked_fill(pad, 0), lengths  # right-padded
 
 
-def end_to_end_parity(torch):
+PARITY_MODES = [("int4g32", False), ("int8", False), ("int8", True), ("int4g32", True)]
+
+
+def mode_name(quant, dyn):
+    return quant + ("+dyn" if dyn else "")
+
+
+def wrong_scale_tree(params):
+    """``params`` with an indexing bug planted: layer 1's o_proj reads each
+    group's (int4g32) or column's (int8) scale from its neighbour."""
+    o = dict(params["layers"]["o_proj"])
+    scale = o["weight_scale"].clone()
+    scale[1] = scale[1].roll(1, dims=0)
+    o["weight_scale"] = scale
+    return {**params, "layers": {**params["layers"], "o_proj": o}}
+
+
+def end_to_end_parity(torch, quant, dyn, seed=21):
+    """Kernel path vs plain path and vs the masked-softmax path at 6B widths
+    and depth 2: max |Δlogits| / max|logits| over prefill and 8
+    teacher-forced decode steps, each within the mode's limit; and two
+    controls that must exceed it: the plain path on a tree with a wrong
+    scale index, and (weight-only modes) the plain path in the other
+    numerics mode, a wrong dispatch."""
     from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
     from chatglm_q_tpu_torch.bench import random_quantized_params
     from chatglm_q_tpu_torch.models import chatglm2 as M
 
     cfg = ChatGLM2Config(num_layers=2)
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    params = random_quantized_params(cfg, "int4g32", gen)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = random_quantized_params(cfg, quant, gen)
     ids, lengths = make_prompts(torch, cfg, gen)
     B, bf16 = ids.shape[0], torch.bfloat16
-    paths = {
-        "kernel": TorchRuntimeConfig(),
-        "plain": TorchRuntimeConfig(use_kernels=False, use_flash_attention=True),
-        "masked": TorchRuntimeConfig(use_kernels=False, use_flash_attention=False),
-    }
+    tol = E2E_DYN_TOL if dyn else E2E_TOL
+
+    def plain(d, flash=True):
+        return TorchRuntimeConfig(use_kernels=False, use_flash_attention=flash, dynamic_int8=d)
+
+    paths = {"kernel": (params, TorchRuntimeConfig(dynamic_int8=dyn)),
+             "plain": (params, plain(dyn)), "masked": (params, plain(dyn, flash=False)),
+             "wrong scale": (wrong_scale_tree(params), plain(dyn))}
+    if not dyn:
+        paths["wrong numerics"] = (params, plain(True))
     caches = {k: M.init_kv_cache(cfg, B, 256, bf16) for k in paths}
     logits = {}
-    for k, rt in paths.items():
-        logits[k], caches[k] = M.prefill(params, cfg, ids, lengths, caches[k], "int4g32", bf16, rt)
-    worst = {"plain": 0.0, "masked": 0.0}
+    for k, (p, rt) in paths.items():
+        logits[k], caches[k] = M.prefill(p, cfg, ids, lengths, caches[k], quant, bf16, rt)
+    worst = dict.fromkeys(list(paths)[1:], 0.0)
     for step in range(9):
         require(torch.isfinite(logits["kernel"]).all(), f"non-finite logits at step {step}")
         for ref in worst:
@@ -338,13 +556,16 @@ def end_to_end_parity(torch):
         if step == 8:
             break
         tok = torch.argmax(logits["kernel"], -1).to(torch.int32)  # teacher forcing
-        for k, rt in paths.items():
-            logits[k], caches[k] = M.decode_step(params, cfg, tok, caches[k], "int4g32", bf16, rt)
-    log(f"  6B widths, 2 layers, batch {B}: kernel vs plain path max rel logits err "
-        f"{worst['plain']:.3e}; vs masked-softmax path {worst['masked']:.3e} "
-        f"(tolerance {E2E_TOL})")
+        for k, (p, rt) in paths.items():
+            logits[k], caches[k] = M.decode_step(p, cfg, tok, caches[k], quant, bf16, rt)
+    log(f"  {mode_name(quant, dyn):12s} 6B widths, 2 layers, batch {B}, max rel logits err of "
+        f"the kernel path vs: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limit {tol:.1e}; the controls, after masked, must exceed it)")
     for ref, v in worst.items():
-        require(v <= E2E_TOL, f"kernel path vs {ref} path: rel err {v} > {E2E_TOL}")
+        if ref in ("plain", "masked"):
+            require(v <= tol, f"{mode_name(quant, dyn)}: kernel path vs {ref} path: {v} > {tol}")
+        else:
+            require(v > tol, f"{mode_name(quant, dyn)}: the {ref} control passes ({v} <= {tol})")
     return worst
 
 
@@ -393,7 +614,7 @@ def full_slice(torch, smi):
     require(torch.equal(cache.lengths.cpu(), want_len), f"cache lengths {cache.lengths.tolist()}")
     log(f"  greedy tokens (first 8 per request): {toks[:, :8].tolist()}")
     log(f"  top-p tokens: {toks1[0].tolist()}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in INT4_PATH_KERNELS if counts[k] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
 
     # launches of one batch-4 decode step, for the kernel table
@@ -417,7 +638,7 @@ def full_slice(torch, smi):
     return counts, perf
 
 
-def profile_decode(torch, params, cfg, rt):
+def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     """Device time of decode steps at batch 1, by kernel, from a
     torch.profiler trace; then the host's time by function (cProfile)."""
     from torch.autograd import DeviceType
@@ -428,13 +649,13 @@ def profile_decode(torch, params, cfg, rt):
     cache = M.init_kv_cache(cfg, 1, CACHE_LEN, torch.bfloat16)
     ids = torch.zeros((1, 128), dtype=torch.long, device="cuda")
     lengths = torch.full((1,), 128, dtype=torch.int32, device="cuda")
-    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", torch.bfloat16, rt)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, torch.bfloat16, rt)
     first = torch.argmax(logits, -1).to(torch.int32)
     steps = 8
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        M.multi_step_decode(params, cfg, first, cache, steps, None, "int4g32", torch.bfloat16, rt)
+        M.multi_step_decode(params, cfg, first, cache, steps, None, quant, torch.bfloat16, rt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): an operator's device time
@@ -460,7 +681,7 @@ def profile_decode(torch, params, cfg, rt):
     prof_host = cProfile.Profile()
     torch.cuda.synchronize()
     prof_host.enable()
-    M.multi_step_decode(params, cfg, first, cache, steps, None, "int4g32", torch.bfloat16, rt)
+    M.multi_step_decode(params, cfg, first, cache, steps, None, quant, torch.bfloat16, rt)
     torch.cuda.synchronize()
     prof_host.disable()
     buf = io.StringIO()
@@ -473,6 +694,188 @@ def profile_decode(torch, params, cfg, rt):
             "top_us_per_step": top}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the chat entry point
+# ---------------------------------------------------------------------------
+
+def chat_tokenizer():
+    """A tokenizer with ChatGLM2-6B's 65024 ids: 3 control and 256 byte
+    pieces, synthetic text pieces, and the 5 special tokens at the top, so
+    every id the model can emit decodes to text or is a special token (a
+    small vocabulary would decode most random-weight tokens to nothing)."""
+    from chatglm_q_tpu_torch.tokenizer import ChatGLM2Tokenizer
+    from chatglm_q_tpu_torch.tokenizer.build import build_unigram_model
+
+    n = 65024 - 5 - 3 - 256
+    return ChatGLM2Tokenizer(build_unigram_model({f"w{i}": -float(i) for i in range(n)}))
+
+
+def model_level_text(torch, params, cfg, quant, rt, tokenizer, ids, eos):
+    """The greedy text of ``prefill`` + ``multi_step_decode`` on ``ids``, cut
+    after eos as the decoder cuts it; and the launches of that prefill and of
+    one batch-1 decode step."""
+    from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import process_response
+
+    bf16 = torch.bfloat16
+    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, bf16)
+    prompt = torch.tensor([ids], device="cuda")
+    lengths = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    logits, cache = M.prefill(params, cfg, prompt, lengths, cache, quant, bf16, rt)
+    per_prefill = ops.launch_counts()
+    first = torch.argmax(logits, -1).to(torch.int32)
+    toks, cache = M.multi_step_decode(params, cfg, first, cache, CHAT_TOKENS - 1, None, quant,
+                                      bf16, rt)
+    ops.reset_launch_counts()
+    M.decode_step(params, cfg, toks[:, -1], cache, quant, bf16, rt)
+    per_step = ops.launch_counts()
+    ops.reset_launch_counts()
+    out = [int(first[0])] + toks[0].tolist()
+    if eos in out:
+        out = out[: out.index(eos) + 1]
+    launches = {"per_prefill": {k: v for k, v in per_prefill.items() if v},
+                "per_decode_step": {k: v for k, v in per_step.items() if v}}
+    return process_response(tokenizer.decode(out)), out, launches
+
+
+def run_generate(decoder, prompt):
+    it = decoder.generate(prompt, max_generated_tokens=CHAT_TOKENS, temperature=0.0)
+    stream = []
+    while True:
+        try:
+            stream.append(next(it))
+        except StopIteration as e:
+            return stream, e.value
+
+
+def map_tree(tree, fn):
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def round_trip(torch, quant, tokenizer):
+    """save_pretrained → GLMDecoder.from_pretrained at 6B widths, depth 2,
+    in a temporary directory under the (gitignored) build directory:
+    identical tensors and equal logits."""
+    import tempfile
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.serving import GLMDecoder
+
+    bf16 = torch.bfloat16
+    cfg = ChatGLM2Config(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    # the values a bfloat16 checkpoint stores: every float leaf rounded to bf16
+    params = map_tree(random_quantized_params(cfg, quant, gen),
+                      lambda t: t.to(bf16).to(t.dtype) if t.is_floating_point() else t)
+    rt = TorchRuntimeConfig()
+    decoder = GLMDecoder(GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="bfloat16"),
+                         params, tokenizer, rt=rt)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        decoder.save_pretrained(tmp)
+        t1 = time.perf_counter()
+        loaded = GLMDecoder.from_pretrained(tmp, rt=rt)
+        t2 = time.perf_counter()
+        disk = sum(f.stat().st_size for f in pathlib.Path(tmp).iterdir())
+        files = len(loaded.config.weight_files)
+    a, b = dict(tree_leaves(params)), dict(tree_leaves(loaded.params))
+    require(a.keys() == b.keys(), f"round trip {quant}: keys differ")
+    for k in a:
+        require(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and b[k].device == a[k].device
+                and torch.equal(a[k], b[k]), f"round trip {quant}: {k} differs")
+    ids, lengths = make_prompts(torch, cfg, gen)
+    logits = []
+    for p in (params, loaded.params):
+        cache = M.init_kv_cache(cfg, ids.shape[0], 256, bf16)
+        logits.append(M.prefill(p, cfg, ids, lengths, cache, quant, bf16, rt)[0])
+    require(torch.equal(logits[0], logits[1]), f"round trip {quant}: logits differ")
+    log(f"  round trip {quant}: 6B widths, 2 layers, {disk / 1e9:.3f} GB in {files} safetensors "
+        f"files; save {t1 - t0:.1f} s, from_pretrained {t2 - t1:.1f} s; {len(a)} tensors "
+        f"identical, prefill logits equal")
+    return {"bytes_on_disk": disk, "files": files, "save_s": t1 - t0, "load_s": t2 - t1}
+
+
+def chat_slice(torch, smi):
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.bench import decode_rate, random_quantized_params, \
+        weight_bytes_per_token
+    from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+
+    cfg = ChatGLM2Config()
+    t0 = time.perf_counter()
+    tokenizer = chat_tokenizer()
+    require(len(tokenizer) == cfg.vocab_size, f"tokenizer has {len(tokenizer)} ids")
+    prompt = chat_template([], CHAT_QUESTION)
+    ids = tokenizer.encode(prompt)
+    require(16 < len(ids) <= 64, f"chat prompt of {len(ids)} tokens")
+    log(f"  tokenizer of {len(tokenizer)} ids built in {time.perf_counter() - t0:.1f} s; "
+        f"chat prompt {len(ids)} tokens")
+    counts, perf, params, loaded = {}, {}, None, None
+    for quant, dyn, kernels in CHAT_MODES:
+        name = mode_name(quant, dyn)
+        if loaded != quant:
+            params = None
+            torch.cuda.empty_cache()
+            params = random_quantized_params(cfg, quant,
+                                             torch.Generator(device="cuda").manual_seed(41))
+            torch.cuda.synchronize()
+            loaded = quant
+            log(f"  ChatGLM2-6B {quant}, 28 layers, random weights: "
+                f"{weight_bytes_per_token(params) / 1e9:.3f} GB of weights per decode token")
+        rt = TorchRuntimeConfig(dynamic_int8=dyn)
+        decoder = GLMDecoder(GLMLoadConfig(model_config=cfg, quant_type=quant,
+                                           torch_dtype="bfloat16"),
+                             params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
+        ops.reset_launch_counts()
+        stream, final = run_generate(decoder, prompt)
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        counts[name] = c
+        want, toks, launches = model_level_text(torch, params, cfg, quant, rt, tokenizer, ids,
+                                                decoder.eos_token_id)
+        require(final == want, f"{name}: GLMDecoder text {final[:80]!r} differs from the "
+                               f"model-level text {want[:80]!r}")
+        require(len(final) > 0, f"{name}: empty text")
+        path = kernels + ("kv_cache_write_idx", "flash_attention_decode", "flash_attention_prefill")
+        missing = [k for k in path if c[k] == 0]
+        require(not missing, f"{name}: kernels not launched by GLMDecoder.generate: {missing}")
+        log(f"  {name}: GLMDecoder.generate gave {len(toks)} tokens and {len(stream)} streamed "
+            f"texts; its final text equals the model-level text: {final[:70]!r}")
+        log(f"  {name} launch counts of the generate run: "
+            f"{json.dumps({k: v for k, v in c.items() if v})}")
+        log(f"  {name} launches per prefill ({len(ids)} tokens): "
+            f"{json.dumps(launches['per_prefill'])}; per batch-1 decode step: "
+            f"{json.dumps(launches['per_decode_step'])}")
+        r = decode_rate(params, cfg, quant, 1, 128, CACHE_LEN, rt)
+        perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params)}
+        log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode "
+            f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
+        if name == "int8":  # where an int8 decode step's time goes
+            perf[name]["profile"] = profile_decode(torch, params, cfg, rt, quant)
+            busy = perf[name]["profile"]["device_ms_per_step"] / r["decode_ms_per_step"]
+            perf[name]["profile"]["device_busy_share_untraced"] = busy
+            log(f"  {name} batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
+        del decoder
+    del params
+    torch.cuda.empty_cache()
+    perf["round_trip"] = {q: round_trip(torch, q, tokenizer) for q in ("int8", "int4g32")}
+    return counts, perf
+
+
 def main() -> int:
     import torch
 
@@ -481,7 +884,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from chatglm_q_tpu_torch import ops
         from chatglm_q_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
@@ -502,42 +904,58 @@ def main() -> int:
         f"{PEAK_HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
     log("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
-    mm_rows = check_matmul(torch)
+    mm_rows, crossover = check_matmul(torch)
+    int8_rows = check_int8_matmul(torch)
     att = check_attention(torch)
 
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
-    e2e = end_to_end_parity(torch)
+    e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
 
     log("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
     counts, perf = full_slice(torch, smi)
+    torch.cuda.empty_cache()
 
-    # the kernels line: per kernel, its representative main-path shape
-    def mm_pick(kernel, M, name):
-        return next(r for r in mm_rows if r["kernel"] == kernel and r["M"] == M
+    log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, 28 layers")
+    chat_counts, chat_perf = chat_slice(torch, smi)
+
+    # the kernels line: per kernel, its representative main-path shape, and
+    # its launches from the main-path run that drives it
+    def pick(kernel, M, name="w_in_h/w_in_gate"):
+        return next(r for r in mm_rows + int8_rows if r["kernel"] == kernel and r["M"] == M
                     and r["linear"] == name)
 
-    entries = []
+    mm4, mm8, dyn = ("chatglm_q_tpu_torch/csrc/int4_matmul.cu",
+                     "chatglm_q_tpu_torch/csrc/int8_matmul.cu",
+                     "chatglm_q_tpu_torch/csrc/dyn_matmul.cu")
+    att_src, pm, pa = ("chatglm_q_tpu_torch/csrc/attention.cu",
+                       "chatglm_q_tpu/ops/pallas_matmul.py", "chatglm_q_tpu/ops/pallas_attention.py")
     specs = [
-        ("int4g32_gemv", "chatglm_q_tpu_torch/csrc/int4_matmul.cu",
-         "chatglm_q_tpu/ops/pallas_matmul.py:826", mm_pick("int4g32_gemv", 1, "w_in_h/w_in_gate")),
-        ("int4g32_mma", "chatglm_q_tpu_torch/csrc/int4_matmul.cu",
-         "chatglm_q_tpu/ops/pallas_matmul.py:244", mm_pick("int4g32_mma", 512, "w_in_h/w_in_gate")),
-        ("kv_cache_write_idx", "chatglm_q_tpu_torch/csrc/attention.cu",
-         "chatglm_q_tpu/ops/pallas_attention.py:427", att["kv_cache_write_idx"]),
-        ("flash_attention_decode", "chatglm_q_tpu_torch/csrc/attention.cu",
-         "chatglm_q_tpu/ops/pallas_attention.py:207", att["flash_attention_decode"]),
-        ("flash_attention_prefill", "chatglm_q_tpu_torch/csrc/attention.cu",
-         "chatglm_q_tpu/ops/pallas_attention.py:43", att["flash_attention_prefill"]),
+        ("int4g32_gemv", mm4, f"{pm}:826", pick("int4g32_gemv", 1), counts),
+        ("int4g32_mma", mm4, f"{pm}:244", pick("int4g32_mma", 512), counts),
+        ("int8_gemv", mm8, f"{pm}:188", pick("int8_gemv", 1), chat_counts["int8"]),
+        ("int8_mma", mm8, f"{pm}:188", pick("int8_mma", 512), chat_counts["int8"]),
+        ("int8_dyn_gemv", dyn, f"{pm}:960", pick("int8_dyn_gemv", 1), chat_counts["int8+dyn"]),
+        ("int8_dyn_mma", dyn, f"{pm}:960", pick("int8_dyn_mma", 64), chat_counts["int8+dyn"]),
+        ("int4_dyn_gemv", dyn, f"{pm}:1040", pick("int4_dyn_gemv", 1),
+         chat_counts["int4g32+dyn"]),
+        ("int4_dyn_mma", dyn, f"{pm}:1040", pick("int4_dyn_mma", 64), chat_counts["int4g32+dyn"]),
+        ("kv_cache_write_idx", att_src, f"{pa}:427", att["kv_cache_write_idx"], counts),
+        ("flash_attention_decode", att_src, f"{pa}:207", att["flash_attention_decode"], counts),
+        ("flash_attention_prefill", att_src, f"{pa}:43", att["flash_attention_prefill"], counts),
     ]
-    for name, src, replaces, r in specs:
+    entries = []
+    for name, src, replaces, r, run_counts in specs:
+        require(run_counts[name] > 0, f"{name}: no launch on its main-path run")
         shape = r.get("shape") or f"M={r['M']} K={r['K']} N={r['N']} ({r['linear']})"
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": run_counts[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
-    log("int4g32_matmul shapes: " + json.dumps(mm_rows))
-    log("end to end: " + json.dumps({"e2e_rel_err": e2e, **perf}))
+    detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "b8_b1_crossover": crossover,
+              "attention": att, "e2e_rel_err": e2e, "int4g32_28_layers": perf,
+              "chat_28_layers": chat_perf}
+    log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -6,7 +6,10 @@ fixture, never at import).  On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
 
 Shapes cover the edges the main path does not: odd M, N not a multiple of
-the tile, f32 activations for the int4 matmul, fewer heads per group.  The
+the tile, f32 activations for the matmuls, fewer heads per group, the M
+where a matmul switches from its split-K kernel to its tensor-core kernel,
+and an all-zero activation row (the 1e-10 clamp of the dynamic scale).
+B7 (``int8_dyn_matmul``) is held bit-exact: its int32 sums are exact.  The
 attention kernels and the KV write take bf16 only.  The tolerance is the
 bf16 one of chip_smoke.py (1e-2 of max|plain|; f32 1e-5): kernels and plain
 versions sum the same exact products in another order.
@@ -18,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chatglm_q_tpu_torch.ops import attention as A  # noqa: E402
+from chatglm_q_tpu_torch.ops import dyn_matmul as D  # noqa: E402
+from chatglm_q_tpu_torch.ops import int8_matmul as I8  # noqa: E402
 from chatglm_q_tpu_torch.ops import quant_matmul as QM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +124,85 @@ def test_attention_kernels_take_bf16_only(gen):
         A.flash_attention_prefill(q[:, None], k, k, lengths, 0.1)
     with pytest.raises(TypeError):
         A.kv_cache_write_idx(k[None], q[:, :, 0], 0, lengths)
+
+
+# M across the split-K / tensor-core switch (16 | 17) and the int4-dyn
+# ceiling (64); K = 13824 (w_out's storage K), N = 512 (kv_proj)
+MATMUL_EDGES = [(1, 13824, 512), (3, 13824, 512), (16, 13824, 512), (17, 13824, 512),
+                (64, 13824, 512), (5, 4096, 65536), (130, 4096, 4224)]
+
+
+def _x(gen, M, K, dtype):
+    x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
+    x[M // 2] = 0  # a zero row: sx takes the 1e-10 clamp, xq is all 0
+    return x
+
+
+def _int8_weights(gen, K, N):
+    w = torch.randint(-128, 128, (K, N), dtype=torch.int8, device="cuda", generator=gen)
+    scale = torch.rand((N,), device="cuda", generator=gen) * 0.02 + 0.005
+    return w, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", MATMUL_EDGES)
+def test_int8_matmul_matches_plain(gen, dtype, M, K, N):
+    w, scale = _int8_weights(gen, K, N)
+    x = _x(gen, M, K, dtype)
+    got = I8.int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert _rel(got, I8.int8_matmul_plain(x, w, scale)) <= _tol(dtype)
+    assert not got[M // 2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", MATMUL_EDGES)
+def test_int8_dyn_matmul_is_bit_exact(gen, dtype, M, K, N):
+    w, scale = _int8_weights(gen, K, N)
+    x = _x(gen, M, K, dtype)
+    got = D.int8_dyn_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = D.int8_dyn_matmul_plain(x, w, scale)
+    assert torch.equal(got, want), _rel(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", MATMUL_EDGES)
+def test_int4_dyn_matmul_matches_plain(gen, dtype, M, K, N):
+    packed = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, device="cuda", generator=gen)
+    scale = (torch.rand((K // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    x = _x(gen, M, K, dtype)
+    got = D.int4_dyn_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert _rel(got, D.int4_dyn_matmul_plain(x, packed, scale)) <= _tol(dtype)
+    assert not got[M // 2].any()
+
+
+def test_int8_kernels_read_a_layer_view(gen):
+    stack = torch.randint(-128, 128, (3, 1024, 4096), dtype=torch.int8, device="cuda",
+                          generator=gen)
+    scales = torch.rand((3, 4096), device="cuda", generator=gen) * 0.02
+    for M in (1, 40):
+        x = torch.randn((M, 1024), device="cuda", generator=gen).to(torch.bfloat16)
+        got = I8.int8_matmul(x, stack[2], scales[2])
+        assert _rel(got, I8.int8_matmul_plain(x, stack[2].clone(), scales[2].clone())) <= 1e-2
+        got = D.int8_dyn_matmul(x, stack[1], scales[1])
+        assert torch.equal(got, D.int8_dyn_matmul_plain(x, stack[1].clone(), scales[1].clone()))
+
+
+def test_int8_kernels_reject_what_they_cannot_take(gen):
+    x = torch.randn((2, 64), device="cuda", generator=gen)
+    w = torch.zeros((64, 12), dtype=torch.int8, device="cuda")  # N % 8 != 0
+    with pytest.raises(ValueError):
+        I8.int8_matmul(x, w, torch.ones((12,), device="cuda"))
+    with pytest.raises(ValueError):
+        D.int8_dyn_matmul(x, w, torch.ones((12,), device="cuda"))
+    w = torch.zeros((64, 16), dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError):
+        I8.int8_matmul(x, w, torch.ones((16,), dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError):  # B8 takes bf16 group scales only
+        D.int4_dyn_matmul(x, torch.zeros((32, 16), dtype=torch.uint8, device="cuda"),
+                          torch.ones((2, 16), device="cuda"))

@@ -1,6 +1,8 @@
 """The port stands alone: no module of chatglm_q_tpu_torch (nor the root
-chip_smoke.py that drives it) imports jax or chatglm_q_tpu, and its entry
-points run on CUDA unless the caller asks for the CPU."""
+chip_smoke.py that drives it) imports jax or chatglm_q_tpu, nor the
+``safetensors`` and ``ml_dtypes`` packages the JAX loader needs (the machine
+with the card has neither), and its entry points run on CUDA unless the
+caller asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -12,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "chatglm_q_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "chatglm_q_tpu", "flax")
+FORBIDDEN = ("jax", "jaxlib", "chatglm_q_tpu", "flax", "safetensors", "ml_dtypes")
 
 
 def _port_files():
@@ -37,12 +39,19 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_port_imports_with_jax_blocked():
-    mods = sorted(
+def _port_modules():
+    return sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_with_jax_blocked():
+    mods = _port_modules()
+    assert {"chatglm_q_tpu_torch.loader", "chatglm_q_tpu_torch.serving.decoder",
+            "chatglm_q_tpu_torch.tokenizer.sp_core", "chatglm_q_tpu_torch.ops.dyn_matmul",
+            "chatglm_q_tpu_torch.ops.int8_matmul"} <= set(mods)
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'chatglm_q_tpu'):\n"
+            f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
@@ -51,6 +60,22 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("module", ["chatglm_q_tpu_torch.loader",
+                                    "chatglm_q_tpu_torch.serving.decoder",
+                                    "chatglm_q_tpu_torch.tokenizer",
+                                    "chatglm_q_tpu_torch.ops.linear"])
+def test_no_forbidden_package_in_sys_modules_after_import(module):
+    """Imported unblocked in a fresh interpreter, a module pulls in none of
+    the forbidden packages."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", (res.stdout, res.stderr)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

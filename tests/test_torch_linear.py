@@ -108,9 +108,16 @@ def test_gemv_plan_covers_every_group():
     assert not QM.uses_mma(512, 13824, torch.float32)
 
 
-def test_int8_on_cuda_is_not_ported():
-    """int8 runs on the CPU through its plain path only."""
-    jp = _linear_params("int8", 64, 32, 0)
+class _Launched(Exception):
+    pass
+
+
+def _int8_on_fake_cuda(monkeypatch, dynamic_int8):
+    """Route a tensor that says it is on CUDA through quant_linear, with the
+    kernel library replaced by a recorder: the call must reach a launch."""
+    from chatglm_q_tpu_torch.ops import _build
+
+    jp = _linear_params("int8", 64, 128, 0)
     tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, "cpu")
 
     class FakeCuda(torch.Tensor):
@@ -118,6 +125,23 @@ def test_int8_on_cuda_is_not_ported():
         def is_cuda(self):
             return True
 
+    def call(name, *args):
+        raise _Launched(name)
+
+    monkeypatch.setattr(_build, "call", call)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
     x = torch.zeros((1, 64)).as_subclass(FakeCuda)
-    with pytest.raises(NotImplementedError, match="B6"):
-        TL.quant_linear(x, tp, "int8")
+    rt = TorchRuntimeConfig(use_kernels=True, dynamic_int8=dynamic_int8)
+    with pytest.raises(_Launched) as launched:
+        TL.quant_linear(x, tp, "int8", rt)
+    return str(launched.value)
+
+
+def test_int8_on_cuda_is_not_ported(monkeypatch):
+    """int8 on a CUDA tensor no longer raises NotImplementedError: it goes to
+    the B6 kernel (the split-K kernel at M = 1), never the plain version."""
+    assert _int8_on_fake_cuda(monkeypatch, False) == "chatglm_int8_gemv"
+
+
+def test_dynamic_int8_on_cuda_goes_to_the_b7_kernel(monkeypatch):
+    assert _int8_on_fake_cuda(monkeypatch, True) == "chatglm_int8_dyn_gemv"
