@@ -14,11 +14,16 @@ Conventions carried exactly:
 * Prefill rows are right-padded: padded slots are written to the cache and
   masked by ``lengths``; logits come from position ``lengths - 1``.
 * Decode writes slot ``lengths[b]``, attends slots 0..lengths[b], and the
-  new length is ``lengths + 1``.
+  new length is ``lengths + 1``.  A write at or past the cache's last slot
+  lands on that slot, as JAX's ``dynamic_update_slice`` clamps it (the
+  engines decode past the wall by design and roll the tokens back).
+* ``prefill_chunk`` writes a chunk at per-row offsets and attends the whole
+  cache below each query, optionally through a compact ``slot_map``.
 * The FFN is ``silu(w_in_h(h)) * w_in_gate(h)``.
 
 Unlike the JAX package (pure functions), the cache tensors are updated in
-place: a step writes a few slots, never a whole new cache.
+place: a step writes a few slots, never a whole new cache.  The paged pool
+(models/paged_kv.py) goes through the same ``block_forward``.
 """
 from __future__ import annotations
 
@@ -82,10 +87,11 @@ def _freqs_table(dim: int, length: int, device: str, dtype: torch.dtype) -> torc
 
 def _serving_freqs(config: ChatGLM2Config, positions: torch.Tensor, dtype) -> torch.Tensor:
     # +1 row: positions are 1-based, so a full-context sequence's last token
-    # indexes row max_sequence_length
-    table = _freqs_table(config.head_hidden_size, config.max_sequence_length + 1,
-                         str(positions.device), dtype)
-    return table[positions]
+    # indexes row max_sequence_length.  Positions past the table (decode past
+    # the wall, whose tokens the engines roll back) clamp, as JAX's gather does
+    n = config.max_sequence_length + 1
+    table = _freqs_table(config.head_hidden_size, n, str(positions.device), dtype)
+    return table[positions.long().clamp(0, n - 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +131,7 @@ def init_kv_cache(config: ChatGLM2Config, batch_size: int,
 def _attention_scores(q, k, v, mask_bias):
     """Masked-softmax MQA attention.  q (B, S, G, Hg, D); k, v the cache
     layout (B, G, T, D); mask_bias additive f32, broadcastable to
-    (B, G, Hg, S, T)."""
+    (B, G, Hg, S, T).  Returns (B, S, G·Hg·D)."""
     B, S, G, Hg, D = q.shape
     q = q / torch.tensor(math.sqrt(D), dtype=q.dtype, device=q.device)
     scores = torch.einsum("bsghd,bgtd->bghst", q, k)
@@ -135,17 +141,36 @@ def _attention_scores(q, k, v, mask_bias):
     return out.reshape(B, S, G * Hg * D)
 
 
+def write_rows(cache_layer: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+               rows: Optional[torch.Tensor] = None) -> None:
+    """Write ``new`` (B, G, S, D) into ``cache_layer`` (Bc, G, T, D) at slots
+    start[b]..start[b]+S-1 of cache row ``rows[b]`` (row b when None), in
+    place.  The start clamps to [0, T − S], as JAX's dynamic_update_slice
+    clamps it.  Plain PyTorch indexing: JAX leaves this write to XLA."""
+    B, G, S, D = new.shape
+    T = cache_layer.shape[2]
+    dev = cache_layer.device
+    pos = start.to(dev).long().clamp(0, T - S)[:, None] + torch.arange(S, device=dev)[None, :]
+    r = torch.arange(B, device=dev) if rows is None else rows.to(dev).long()
+    cache_layer[r[:, None], :, pos] = new.transpose(1, 2).to(cache_layer.dtype)
+
+
 def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
                   attn, config: ChatGLM2Config, quant_type: str,
                   rt: TorchRuntimeConfig, kv_write) -> torch.Tensor:
     """One pre-norm transformer block over the serving cache.
 
-    attn: ("flash_prefill", lengths) | ("flash_decode", lengths) | an
-        additive mask bias (the masked-softmax path).
-    kv_write: (cache_k, cache_v, layer, start): the full (L, B, G, T, D)
-        caches, this block's layer, and start = None for a prefill (slots
-        0..S-1) or a (B,) tensor of per-row slots for a one-token decode.
+    attn: ("flash_prefill", lengths) | ("flash_prefill_chunk", (lengths,
+        starts, row_map or None)) | ("flash_decode", lengths) | an additive
+        mask bias (the masked-softmax path).
+    kv_write: (cache_k, cache_v, layer, start[, slot_map]) — the full
+        (L, B, G, T, D) caches, this block's layer, and start = None for a
+        prefill (slots 0..S-1) or a (B,) tensor of per-row first slots;
+        ``slot_map`` (B,) sends row b to cache row slot_map[b] (a compact
+        chunk batch) — or a ``paged_kv.PagedWrite`` for the paged pool.
     """
+    from . import paged_kv as PK
+
     B, S, _ = x.shape
     G = config.num_multi_query_groups
     D = config.head_hidden_size
@@ -161,32 +186,15 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     q = apply_rotary_emb(q.reshape(B, S, G, Hg, D), f)
     k = apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
     v = v.reshape(B, S, G, D)
-
-    ck, cv, layer, start = kv_write
     kw = k.transpose(1, 2)  # (B, G, S, D): the cache layout
     vw = v.transpose(1, 2)
-    if start is None:
-        ck[layer, :, :, :S] = kw.to(ck.dtype)
-        cv[layer, :, :, :S] = vw.to(cv.dtype)
-    else:
-        write = A.kv_cache_write_idx if (kernels and isinstance(attn, tuple)) \
-            else A.kv_cache_write_idx_plain
-        write(ck, kw[:, :, 0], layer, start)
-        write(cv, vw[:, :, 0], layer, start)
 
     sm_scale = 1.0 / math.sqrt(D)
-    if isinstance(attn, tuple):
-        kind, lengths = attn
-        kc = ck[layer].to(q.dtype)  # no-op view when the cache has q's dtype
-        vc = cv[layer].to(q.dtype)
-        if kind == "flash_prefill":
-            fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
-            ctx = fn(q, kc, vc, lengths, sm_scale).reshape(B, S, G * Hg * D)
-        else:
-            fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
-            ctx = fn(q[:, 0], kc, vc, lengths, sm_scale).reshape(B, 1, G * Hg * D)
+    if isinstance(kv_write, PK.PagedWrite):
+        ctx = PK.paged_attention(q, kw, vw, attn, kv_write, kernels, sm_scale)
     else:
-        ctx = _attention_scores(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype), attn)
+        ctx = _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale)
+    ctx = ctx.reshape(B, S, G * Hg * D)
 
     x = x + quant_linear(ctx, layer_params["o_proj"], quant_type, rt)
     h2 = rms_norm(x, layer_params["ffn_ln"]["weight"], config.layernorm_epsilon)
@@ -196,15 +204,53 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     return x + quant_linear(act, layer_params["w_out"], quant_type, rt)
 
 
+def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
+    """Write this block's K/V (B, G, S, D) into the dense cache, then attend."""
+    ck, cv, layer, start, *rest = kv_write
+    slot_map = rest[0] if rest else None
+    S = q.shape[1]
+    if start is None:
+        ck[layer, :, :, :S] = kw.to(ck.dtype)
+        cv[layer, :, :, :S] = vw.to(cv.dtype)
+    elif S == 1 and slot_map is None:
+        write = A.kv_cache_write_idx if (kernels and isinstance(attn, tuple)) \
+            else A.kv_cache_write_idx_plain
+        write(ck, kw[:, :, 0], layer, start)
+        write(cv, vw[:, :, 0], layer, start)
+    else:
+        write_rows(ck[layer], kw, start, slot_map)
+        write_rows(cv[layer], vw, start, slot_map)
+
+    kc = ck[layer].to(q.dtype)  # no-op view when the cache has q's dtype
+    vc = cv[layer].to(q.dtype)
+    if not isinstance(attn, tuple):
+        if slot_map is not None:  # a compact chunk: the mapped cache rows
+            kc, vc = kc[slot_map.long()], vc[slot_map.long()]
+        return _attention_scores(q, kc, vc, attn)
+    kind, lengths = attn
+    if kind == "flash_prefill":
+        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+        return fn(q, kc, vc, lengths, sm_scale)
+    if kind == "flash_prefill_chunk":
+        lengths, starts, row_map = lengths
+        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+        return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+    fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
+    return fn(q[:, 0], kc, vc, lengths, sm_scale)
+
+
 def _layer(tree: dict, l: int) -> dict:
     """Layer ``l``'s views of the stacked (L, ...) leaves."""
     return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in tree.items()}
 
 
-def _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache, start):
+def _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache, start,
+                    slot_map=None):
     for l in range(config.num_layers):
+        kv_write = (cache.k, cache.v, l, start) if slot_map is None \
+            else (cache.k, cache.v, l, start, slot_map)
         h = block_forward(_layer(params["layers"], l), h, freqs_cis, attn, config,
-                          quant_type, rt, (cache.k, cache.v, l, start))
+                          quant_type, rt, kv_write)
     return h
 
 
@@ -239,6 +285,57 @@ def prefill(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
     last = h[torch.arange(B, device=dev), (lengths - 1).long()]
     logits = quant_linear(last, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    return logits, KVCache(cache.k, cache.v, lengths)
+
+
+def prefill_chunk(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
+                  starts: torch.Tensor, chunk_valid: torch.Tensor, cache: KVCache,
+                  quant_type: str = "none", dtype=torch.bfloat16,
+                  rt: TorchRuntimeConfig = _DEFAULT_RT,
+                  slot_map: Optional[torch.Tensor] = None, return_all_logits: bool = False):
+    """One chunk ``input_ids`` (B, Sc) of each row's prompt: write its KV at
+    ``starts`` (B,) and attend causally over the whole cache below each
+    query's absolute position ``starts[b] + r``.  Rows' lengths become
+    ``starts + chunk_valid``; returns the logits at each row's last valid
+    chunk position (B, V), or at every position (B, Sc, V) with
+    ``return_all_logits`` (speculative verification), and the cache.
+
+    With ``slot_map`` (B,) the batch is compact: row b belongs to cache row
+    ``slot_map[b]`` (writes and attention follow the map, no row copies) and
+    the other rows' lengths stay as they were.  ``prefill`` is a single
+    chunk at starts = 0."""
+    B, Sc = input_ids.shape
+    T = cache.max_length
+    dev = input_ids.device
+    starts = starts.to(device=dev, dtype=torch.int32)
+    chunk_valid = chunk_valid.to(device=dev, dtype=torch.int32)
+    positions = starts.long()[:, None] + torch.arange(1, Sc + 1, device=dev)[None, :]
+    freqs_cis = _serving_freqs(config, positions, dtype)
+    h = quant_embedding_lookup(params["word_embedding"], input_ids, quant_type, dtype)
+
+    row_lengths = starts + chunk_valid
+    if slot_map is not None:
+        slot_map = slot_map.to(device=dev, dtype=torch.int32)
+    if rt.flash_enabled(dev):
+        attn = ("flash_prefill_chunk", (row_lengths, starts, slot_map))
+    else:
+        # query r of row b sits at starts[b] + r and attends slots ≤ it
+        tq = torch.arange(Sc, device=dev)[None, :, None]
+        tk = torch.arange(T, device=dev)[None, None, :]
+        causal = tk <= starts.long()[:, None, None] + tq
+        attn = torch.where(causal, 0.0, MASK_VALUE).float()[:, None, None]
+
+    h = _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache, starts,
+                        slot_map)
+    h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
+    if not return_all_logits:
+        h = h[torch.arange(B, device=dev), (chunk_valid - 1).long()]
+    logits = quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    if slot_map is None:
+        lengths = row_lengths
+    else:
+        lengths = cache.lengths.clone()
+        lengths[slot_map.long()] = row_lengths
     return logits, KVCache(cache.k, cache.v, lengths)
 
 

@@ -1,0 +1,243 @@
+"""Paged KV cache: a shared pool of fixed-size pages and per-row page
+tables — the counterpart of chatglm_q_tpu/models/paged_kv.py.
+
+* pool (L, NP, G, P, D): NP pages of P token rows each, allocated to
+  sequences on demand, so memory scales with the tokens in flight;
+* page_table (B, MP) int32: logical block j of row b lives at physical page
+  ``page_table[b, j]``; physical page 0 is a reserved garbage page (padding
+  and inactive rows write there);
+* lengths (B,) int32: the valid positions of each row.
+
+As in the dense cache (models/chatglm2.py), the pools are updated in place
+where the JAX code returns a new array; ``PagedKVCache.replace`` swaps the
+small tensors (page table, lengths) and shares the pools.
+
+Decode writes one row per sequence through the pool-write kernel and reads
+pages with the paged ragged-decode kernel (ops/attention.py).  Prefill
+attends the freshly computed K/V and never the pool; chunked prefill attends
+the pool, through the chunk kernel for chunks of S·Hg ≤ 512 rows and through
+a gathered dense view and the chunked flash prefill for larger ones.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
+from ..ops import attention as A
+from ..ops.linear import quant_embedding_lookup, quant_linear
+from . import chatglm2 as M
+
+_DEFAULT_RT = TorchRuntimeConfig()
+CHUNK_KERNEL_MAX_ROWS = 512  # S·Hg of the largest chunk the chunk kernel attends
+
+
+@dataclass
+class PagedKVCache:
+    k_pool: torch.Tensor      # (L, NP, G, P, D)
+    v_pool: torch.Tensor      # (L, NP, G, P, D)
+    page_table: torch.Tensor  # (B, MP) int32
+    lengths: torch.Tensor     # (B,) int32
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pool.shape[3]
+
+    @property
+    def max_length(self) -> int:
+        return self.page_table.shape[1] * self.page_size
+
+    def replace(self, **changes) -> "PagedKVCache":
+        return dataclasses.replace(self, **changes)
+
+
+class PagedWrite(NamedTuple):
+    """``block_forward``'s kv_write payload for the paged path."""
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    layer: int
+    page_table: torch.Tensor
+    start: torch.Tensor      # (B,) first position written per row (prefill: zeros)
+    aligned: bool = True     # False: S > 1 tokens at arbitrary (unaligned) starts
+
+
+def init_paged_kv_cache(config: ChatGLM2Config, batch_size: int, num_pages: int,
+                        max_length: Optional[int] = None, page_size: int = 256,
+                        dtype=torch.bfloat16, device=None) -> PagedKVCache:
+    """A zeroed pool with every table entry on the garbage page.
+    ``device=None`` means CUDA (and raises without it)."""
+    device = resolve_device(device)
+    S = max_length or config.max_sequence_length
+    mp = -(-S // page_size)
+    shape = (config.num_layers, num_pages, config.num_multi_query_groups, page_size,
+             config.head_hidden_size)
+    return PagedKVCache(
+        k_pool=torch.zeros(shape, dtype=dtype, device=device),
+        v_pool=torch.zeros(shape, dtype=dtype, device=device),
+        page_table=torch.zeros((batch_size, mp), dtype=torch.int32, device=device),
+        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device),
+    )
+
+
+def write_pages(pool: torch.Tensor, new: torch.Tensor, layer: int, page_table: torch.Tensor,
+                start: torch.Tensor, aligned: bool = True) -> torch.Tensor:
+    """Write ``new`` (B, G, S, D) at positions start[b]..start[b]+S-1 of the
+    pool (L, NP, G, P, D), in place; returns ``pool``.
+
+    S == 1 and ``aligned=False`` (speculative verification) clamp each
+    position to the table's capacity − 1: in-chunk over-generation past the
+    last slot overwrites that slot (the host rolls those tokens back) and
+    never wraps into a page's earlier, valid rows.  ``aligned`` S > 1 writes
+    (prefill; starts page-aligned) clamp the logical block instead, as the
+    JAX package's page-by-page write does.  Plain PyTorch indexing: JAX
+    leaves this write to XLA."""
+    B, G, S, D = new.shape
+    P, MP = pool.shape[3], page_table.shape[1]
+    dev = pool.device
+    pos = start.to(dev).long()[:, None] + torch.arange(S, device=dev)[None, :]  # (B, S)
+    if S == 1 or not aligned:
+        pos = pos.clamp(max=MP * P - 1)
+        blk = pos // P
+    else:
+        blk = (pos // P).clamp(max=MP - 1)
+    page = page_table.to(dev).long().gather(1, blk)
+    pool[layer][page, :, pos % P] = new.transpose(1, 2).to(pool.dtype)
+    return pool
+
+
+def gather_layer(pool: torch.Tensor, layer: int, page_table: torch.Tensor) -> torch.Tensor:
+    """One layer of the pool as a dense (B, G, MP·P, D) copy (the masked
+    path and large prefill chunks)."""
+    return A.gather_pages(pool[layer], page_table)
+
+
+def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_scale: float):
+    """``block_forward``'s paged branch: write this block's K/V (B, G, S, D)
+    into the pool, then attend."""
+    kp, vp, layer, pt = kv_write.k_pool, kv_write.v_pool, kv_write.layer, kv_write.page_table
+    S, Hg = q.shape[1], q.shape[3]
+    if S == 1:
+        write = A.kv_pool_write_idx if kernels else A.kv_pool_write_idx_plain
+        write(kp, kw[:, :, 0], layer, pt, kv_write.start)
+        write(vp, vw[:, :, 0], layer, pt, kv_write.start)
+    else:
+        write_pages(kp, kw, layer, pt, kv_write.start, kv_write.aligned)
+        write_pages(vp, vw, layer, pt, kv_write.start, kv_write.aligned)
+
+    if not isinstance(attn, tuple):
+        # masked path: a dense view of the pool, masked over its full length
+        kc = gather_layer(kp, layer, pt).to(q.dtype)
+        vc = gather_layer(vp, layer, pt).to(q.dtype)
+        return M._attention_scores(q, kc, vc, attn)
+    kind, lengths = attn
+    if kind == "flash_prefill":  # causality never reaches the pool
+        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+        return fn(q, kw.contiguous(), vw.contiguous(), lengths, sm_scale)
+    if kind == "flash_prefill_chunk":
+        lengths, starts, row_map = lengths
+        if S * Hg <= CHUNK_KERNEL_MAX_ROWS:
+            fn = A.flash_attention_chunk_paged if kernels else A.flash_attention_chunk_paged_plain
+            return fn(q, kp, vp, layer, pt, starts, sm_scale, row_map)
+        kc = gather_layer(kp, layer, pt).to(q.dtype)
+        vc = gather_layer(vp, layer, pt).to(q.dtype)
+        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+        return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+    fn = A.flash_attention_decode_paged if kernels else A.flash_attention_decode_paged_plain
+    return fn(q[:, 0], kp, vp, layer, pt, lengths, sm_scale)
+
+
+def _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache: PagedKVCache,
+                  start, aligned=True):
+    for l in range(config.num_layers):
+        h = M.block_forward(M._layer(params["layers"], l), h, freqs_cis, attn, config,
+                            quant_type, rt,
+                            PagedWrite(cache.k_pool, cache.v_pool, l, cache.page_table, start,
+                                       aligned))
+    return h
+
+
+def _logits(params, config, quant_type, rt, h):
+    h = M.rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
+    return quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+
+
+def prefill_paged(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
+                  lengths: torch.Tensor, cache: PagedKVCache, quant_type: str = "none",
+                  dtype=torch.bfloat16, rt: TorchRuntimeConfig = _DEFAULT_RT):
+    """Prefill right-padded rows (B, S) of true ``lengths`` from position 0
+    into their pages (which must cover S positions); returns last-token
+    logits (B, V) and the cache.  Attention runs on the fresh K/V."""
+    B, S = input_ids.shape
+    dev = input_ids.device
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    positions = torch.arange(1, S + 1, device=dev)[None, :].expand(B, S)
+    freqs_cis = M._serving_freqs(config, positions, dtype)
+    h = quant_embedding_lookup(params["word_embedding"], input_ids, quant_type, dtype)
+    if rt.flash_enabled(dev):
+        attn = ("flash_prefill", lengths)
+    else:
+        # the masked path attends a gathered view over the pool's full length
+        tq = torch.arange(S, device=dev)[:, None]
+        tk = torch.arange(cache.max_length, device=dev)[None, :]
+        attn = torch.where(tk <= tq, 0.0, M.MASK_VALUE).float()[None, None, None]
+    start = torch.zeros((B,), dtype=torch.int32, device=dev)
+    h = _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache, start)
+    last = h[torch.arange(B, device=dev), (lengths - 1).long()]
+    return _logits(params, config, quant_type, rt, last), cache.replace(lengths=lengths)
+
+
+def prefill_chunk_paged(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
+                        starts: torch.Tensor, chunk_valid: torch.Tensor, cache: PagedKVCache,
+                        quant_type: str = "none", dtype=torch.bfloat16,
+                        rt: TorchRuntimeConfig = _DEFAULT_RT, return_all_logits: bool = False,
+                        page_aligned: bool = True):
+    """Chunked prefill over the pool (see ``chatglm2.prefill_chunk``): chunk
+    rows (B, Sc) at ``starts`` (page-aligned unless ``page_aligned=False``)
+    attend everything below them.  Lengths become ``starts + chunk_valid``,
+    clamped to the table's capacity − 1 as the JAX package clamps them."""
+    B, Sc = input_ids.shape
+    dev = input_ids.device
+    starts = starts.to(device=dev, dtype=torch.int32)
+    chunk_valid = chunk_valid.to(device=dev, dtype=torch.int32)
+    positions = starts.long()[:, None] + torch.arange(1, Sc + 1, device=dev)[None, :]
+    freqs_cis = M._serving_freqs(config, positions, dtype)
+    h = quant_embedding_lookup(params["word_embedding"], input_ids, quant_type, dtype)
+    new_lengths = (starts + chunk_valid).clamp(max=cache.max_length - 1).to(torch.int32)
+    if rt.flash_enabled(dev):
+        attn = ("flash_prefill_chunk", (new_lengths, starts, None))
+    else:
+        tq = torch.arange(Sc, device=dev)[None, :, None]
+        tk = torch.arange(cache.max_length, device=dev)[None, None, :]
+        causal = tk <= starts.long()[:, None, None] + tq
+        attn = torch.where(causal, 0.0, M.MASK_VALUE).float()[:, None, None]
+    h = _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache, starts,
+                      page_aligned)
+    if not return_all_logits:
+        h = h[torch.arange(B, device=dev), (chunk_valid - 1).long()]
+    return _logits(params, config, quant_type, rt, h), cache.replace(lengths=new_lengths)
+
+
+def decode_step_paged(params: dict, config: ChatGLM2Config, next_ids: torch.Tensor,
+                      cache: PagedKVCache, quant_type: str = "none", dtype=torch.bfloat16,
+                      rt: TorchRuntimeConfig = _DEFAULT_RT):
+    """One token per row: write position ``lengths`` (inside the mapped
+    page), attend positions ≤ ``lengths``; return logits (B, V) and the
+    cache with ``min(lengths + 1, max_length − 1)``: in-chunk steps past the
+    capacity keep overwriting the last slot, and the host rolls their
+    tokens back."""
+    dev = next_ids.device
+    lengths = cache.lengths
+    freqs_cis = M._serving_freqs(config, (lengths + 1)[:, None].long(), dtype)
+    h = quant_embedding_lookup(params["word_embedding"], next_ids[:, None], quant_type, dtype)
+    if rt.flash_enabled(dev):
+        attn = ("flash_decode", lengths)
+    else:
+        valid = torch.arange(cache.max_length, device=dev)[None, :] <= lengths[:, None]
+        attn = torch.where(valid, 0.0, M.MASK_VALUE).float()[:, None, None, None, :]
+    h = _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache, lengths)
+    logits = _logits(params, config, quant_type, rt, h[:, 0])
+    new_lengths = (lengths + 1).clamp(max=cache.max_length - 1).to(torch.int32)
+    return logits, cache.replace(lengths=new_lengths)

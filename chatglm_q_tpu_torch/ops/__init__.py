@@ -26,6 +26,10 @@ def kernel_wrappers() -> dict:
         "kv_cache_write_idx": A.kv_cache_write_idx,
         "flash_attention_decode": A.flash_attention_decode,
         "flash_attention_prefill": A.flash_attention_prefill,
+        "flash_attention_prefill_chunk": A.flash_attention_prefill_chunk,
+        "kv_pool_write_idx": A.kv_pool_write_idx,
+        "flash_attention_decode_paged": A.flash_attention_decode_paged,
+        "flash_attention_chunk_paged": A.flash_attention_chunk_paged,
     }
 
 

@@ -51,8 +51,15 @@ SIGNATURES = {
     "chatglm_kv_write": [P, P, P, I, I, I, I, P],
     # q, k, v, lengths, out, B, G, Hg, T, D, sm_scale, stream (bf16)
     "chatglm_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
-    # q, k, v, lengths, out, B, S, G, Hg, T, D, sm_scale, stream (bf16)
-    "chatglm_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale,
+    # stream (bf16; q_starts / kv_row_map may be null)
+    "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # pool_layer, new, page_table, starts, B, G, P, D, MP, stream (bf16)
+    "chatglm_pool_write": [P, P, P, P, I, I, I, I, I, P],
+    # q, k_layer, v_layer, page_table, lengths, out, B, G, Hg, P, D, MP, sm_scale, stream
+    "chatglm_decode_paged": [P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k_layer, v_layer, page_table, starts, out, B, S, G, Hg, P, D, MP, sm_scale, stream
+    "chatglm_chunk_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 }
 
 _LIB = None

@@ -1,22 +1,39 @@
-"""Serving attention: flash prefill, ragged decode and the in-place KV write —
-wrappers over the CUDA kernels (csrc/attention.cu), their plain versions, and
-their launch counts.
+"""Serving attention: flash prefill (whole-prompt and chunked), ragged
+decode, the in-place KV writes, and their paged-pool twins — wrappers over
+the CUDA kernels (csrc/attention.cu), their plain versions, and their launch
+counts.
 
 * ``flash_attention_prefill`` replaces chatglm_q_tpu/ops/pallas_attention.py
   :_prefill_kernel.  Causal attention with per-row lengths; query position s
   attends key slots j ≤ s with j < lengths[b]; a length-0 row outputs 0.
+  With ``q_starts`` (the chunked-prefill form, counted apart as
+  ``flash_attention_prefill_chunk``) query row r of batch b sits at absolute
+  position ``q_starts[b] + r`` and attends the whole cache below it;
+  ``kv_row_map`` makes row b read K/V from cache row ``kv_row_map[b]``.
 * ``flash_attention_decode`` replaces :_decode_kernel (flash_attention_decode
   and its stacked-cache ``_idx`` form: here the caller passes the layer's
   view ``cache[l]``).  Row b attends slots 0..lengths[b] inclusive — the
   token of this step is already written — and reads nothing past them.
 * ``kv_cache_write_idx`` replaces :_kv_write_kernel.  Writes one token per
-  row into cache[layer, b, :, starts[b], :] in place; ``starts`` is read on
-  the device, so a decode step never syncs to the host.
+  row into cache[layer, b, :, starts[b], :] in place, with starts clamped
+  to T − 1 (JAX's dynamic_update_slice clamp: the engines decode past the
+  wall by design and roll the tokens back); ``starts`` is read on the
+  device, so a decode step never syncs to the host.
+* ``kv_pool_write_idx`` replaces :_pool_write_kernel: the same write into
+  the paged pool (L, NP, G, P, D), at position min(starts[b], MP·P − 1) of
+  page ``page_table[b, pos // P]``.
+* ``flash_attention_decode_paged`` replaces :_decode_paged_kernel (stride 1,
+  phase 0): ragged decode over the pool's pages, positions 0..lengths[b],
+  pages clamped to the table's MP.
+* ``flash_attention_chunk_paged`` replaces :_chunk_paged_kernel: S queries
+  per row at absolute positions starts[b] + t over the pool's pages.
 
-Numerics shared with the TPU kernels: scores in f32 scaled by ``sm_scale``,
-masked scores at MASK_VALUE, probabilities cast to v's dtype before the PV
-product.  The kernels' design notes (what bounds them on an H100 and what
-they do about it) are at the top of csrc/attention.cu.
+Numerics shared with the TPU kernels.  Prefill and decode: scores in f32
+scaled by ``sm_scale``, masked scores at MASK_VALUE, probabilities cast to
+v's dtype before the PV product.  The paged decode and chunk kernels, as
+on the TPU, scale q by ``sm_scale`` in q's dtype before the dot and keep
+the probabilities in f32.  The kernels' design notes (what bounds them on
+an H100 and what they do about it) are at the top of csrc/attention.cu.
 """
 from __future__ import annotations
 
@@ -34,18 +51,25 @@ MAX_PREFILL_HG = 64  # query heads per KV group the prefill tile can fold
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def flash_attention_prefill_plain(q, k, v, lengths, sm_scale):
-    """q (B, S, G, Hg, D); k, v (B, G, T, D) with T ≥ S (slots < S are the
-    prompt's); lengths (B,).  Returns (B, S, G, Hg, D)."""
+def flash_attention_prefill_plain(q, k, v, lengths, sm_scale, q_starts=None,
+                                  kv_row_map=None):
+    """q (B, S, G, Hg, D); k, v (Bk, G, T, D); lengths (B,).  Without
+    ``q_starts`` query s sits at position s and reads slots < S (T ≥ S);
+    with it, at q_starts[b] + s over all T slots.  Returns (B, S, G, Hg, D)."""
     B, S, G, Hg, D = q.shape
-    kk = k[:, :, :S].float()
-    vv = v[:, :, :S]
-    s = torch.einsum("bsghd,bgtd->bghst", q.float(), kk) * sm_scale
-    pos = torch.arange(S, device=q.device)
-    mask = (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lengths[:, None, None])
+    if kv_row_map is not None:
+        k, v = k[kv_row_map.long()], v[kv_row_map.long()]
+    if q_starts is None:
+        k, v = k[:, :, :S], v[:, :, :S]
+        q_starts = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    T = k.shape[2]
+    s = torch.einsum("bsghd,bgtd->bghst", q.float(), k.float()) * sm_scale
+    qpos = q_starts.long()[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
+    cols = torch.arange(T, device=q.device)[None, None, :]
+    mask = (cols <= qpos[:, :, None]) & (cols < lengths.long()[:, None, None])  # (B, S, T)
     s = s.masked_fill(~mask[:, None, None], MASK_VALUE)
-    p = torch.softmax(s, dim=-1).to(vv.dtype)
-    out = torch.einsum("bghst,bgtd->bsghd", p.float(), vv.float())
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bghst,bgtd->bsghd", p.float(), v.float())
     out = out * (lengths > 0).to(out.dtype)[:, None, None, None, None]
     return out.to(q.dtype)
 
@@ -62,11 +86,70 @@ def flash_attention_decode_plain(q, k, v, lengths, sm_scale):
 
 
 def kv_cache_write_idx_plain(cache, new, layer: int, starts):
-    """cache (L, B, G, T, D); new (B, G, D); starts (B,).  In place."""
-    B = new.shape[0]
+    """cache (L, B, G, T, D); new (B, G, D); starts (B,), clamped to
+    [0, T − 1].  In place."""
+    B, T = new.shape[0], cache.shape[3]
     rows = torch.arange(B, device=cache.device)
-    cache[layer][rows, :, starts.long()] = new.to(cache.dtype)
+    cache[layer][rows, :, starts.long().clamp(0, T - 1)] = new.to(cache.dtype)
     return cache
+
+
+def gather_pages(pool_layer, page_table):
+    """One pool layer (NP, G, P, D) read through ``page_table`` (B, MP) as a
+    dense (B, G, MP·P, D) view (a copy)."""
+    NP, G, P, D = pool_layer.shape
+    B, MP = page_table.shape
+    return pool_layer[page_table.long()].permute(0, 2, 1, 3, 4).reshape(B, G, MP * P, D)
+
+
+def kv_pool_write_idx_plain(pool, new, layer: int, page_table, starts):
+    """pool (L, NP, G, P, D); new (B, G, D); page_table (B, MP); starts (B,).
+    Position min(starts[b], MP·P − 1) of row b.  In place."""
+    P, MP = pool.shape[3], page_table.shape[1]
+    pos = starts.long().clamp(0, MP * P - 1)
+    rows = torch.arange(new.shape[0], device=pool.device)
+    page = page_table.long()[rows, pos // P]
+    pool[layer][page, :, pos % P] = new.to(pool.dtype)
+    return pool
+
+
+def _prescaled(q, sm_scale):
+    """q scaled in its own dtype, as B10/B11 scale it on the TPU."""
+    return (q.float() * sm_scale).to(q.dtype).float()
+
+
+def flash_attention_decode_paged_plain(q, k_pool, v_pool, layer: int, page_table, lengths,
+                                       sm_scale):
+    """q (B, G, Hg, D); pools (L, NP, G, P, D); page_table (B, MP); lengths
+    (B,) = the cache length before this token.  Row b attends logical
+    positions < min(lengths[b] + 1, MP·P).  Returns (B, G, Hg, D)."""
+    k = gather_pages(k_pool[layer], page_table).float()
+    v = gather_pages(v_pool[layer], page_table).float()
+    T = k.shape[2]
+    s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k)
+    valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bght,bgtd->bghd", p, v).to(q.dtype)
+
+
+def flash_attention_chunk_paged_plain(q, k_pool, v_pool, layer: int, page_table, starts,
+                                      sm_scale, row_map=None):
+    """q (B, S, G, Hg, D); pools (L, NP, G, P, D); page_table (Bt, MP), read
+    at rows ``row_map`` (B,) when given; starts (B,).  Query t of row b
+    attends logical positions ≤ starts[b] + t.  Returns (B, S, G, Hg, D)."""
+    if row_map is not None:
+        page_table = page_table[row_map.long()]
+    B, S = q.shape[:2]
+    k = gather_pages(k_pool[layer], page_table).float()
+    v = gather_pages(v_pool[layer], page_table).float()
+    T = k.shape[2]
+    s = torch.einsum("bsghd,bgtd->bghst", _prescaled(q, sm_scale), k)
+    qpos = starts.long()[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
+    mask = torch.arange(T, device=q.device)[None, None, :] <= qpos[:, :, None]
+    s = s.masked_fill(~mask[:, None, None], MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bghst,bgtd->bsghd", p, v).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -89,28 +172,51 @@ def _check_bf16(name, *tensors):
                         f"(got {[t.dtype for t in tensors]})")
 
 
-def flash_attention_prefill(q, k, v, lengths, sm_scale):
-    """Causal prefill attention over the layer's (B, G, T, D) cache view.
-    Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+def _int32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_map=None):
+    """Causal prefill attention over the layer's (Bk, G, T, D) cache view;
+    with ``q_starts`` the chunked form (see the module note).  Plain version
+    on CPU tensors; the CUDA kernel on CUDA tensors."""
     if not q.is_cuda:
-        return flash_attention_prefill_plain(q, k, v, lengths, sm_scale)
+        return flash_attention_prefill_plain(q, k, v, lengths, sm_scale, q_starts, kv_row_map)
     B, S, G, Hg, D = q.shape
-    T = k.shape[2]
-    lengths = lengths.to(torch.int32).contiguous()
-    _check_cuda("flash_attention_prefill", q, k, v, lengths)
+    Bk, T = k.shape[0], k.shape[2]
+    lengths = _int32(lengths)
+    q_starts = None if q_starts is None else _int32(q_starts)
+    kv_row_map = None if kv_row_map is None else _int32(kv_row_map)
+    _check_cuda("flash_attention_prefill", q, k, v, lengths,
+                *[t for t in (q_starts, kv_row_map) if t is not None])
     _check_bf16("flash_attention_prefill", q, k, v)
-    if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or k.shape != (B, G, T, D)
-            or v.shape != k.shape or T < S):
+    if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or k.shape != (Bk, G, T, D)
+            or v.shape != k.shape or (q_starts is None and T < S)
+            or (kv_row_map is None and Bk != B)):
         raise ValueError(f"flash_attention_prefill: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    starts_ptr = None if q_starts is None else q_starts.data_ptr()
+    rmap_ptr = None if kv_row_map is None else kv_row_map.data_ptr()
     out = torch.empty_like(q)
     _build.call("chatglm_prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, S, G, Hg, T, D, float(sm_scale), _build.stream_ptr(q))
-    flash_attention_prefill.launches += 1
+                lengths.data_ptr(), starts_ptr, rmap_ptr, out.data_ptr(), B, S, G, Hg, T, D,
+                float(sm_scale), _build.stream_ptr(q))
+    counter = flash_attention_prefill if q_starts is None else flash_attention_prefill_chunk
+    counter.launches += 1
     return out
 
 
 flash_attention_prefill.launches = 0
+
+
+def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_map=None):
+    """B5's chunked-prefill form: ``flash_attention_prefill`` with
+    ``q_starts`` (and ``kv_row_map``).  Its launches count here, apart from
+    the whole-prompt form's."""
+    return flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts, kv_row_map)
+
+
+flash_attention_prefill_chunk.launches = 0
 
 
 def flash_attention_decode(q, k, v, lengths, sm_scale):
@@ -157,3 +263,94 @@ def kv_cache_write_idx(cache, new, layer: int, starts):
 
 
 kv_cache_write_idx.launches = 0
+
+
+def _check_pool(name, pool, page_table, L_idx):
+    L, NP, G, P, D = pool.shape
+    if page_table.dim() != 2 or not 0 <= L_idx < L:
+        raise ValueError(f"{name}: page_table {tuple(page_table.shape)}, layer {L_idx} of {L}")
+
+
+def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
+    """Write ``new`` (B, G, D) at logical position min(starts[b], MP·P − 1)
+    of each row's pages in ``pool`` (L, NP, G, P, D), in place; returns
+    ``pool``.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if not pool.is_cuda:
+        return kv_pool_write_idx_plain(pool, new, layer, page_table, starts)
+    L, NP, G, P, D = pool.shape
+    B, MP = page_table.shape
+    src = new.to(pool.dtype).contiguous()
+    page_table, starts = _int32(page_table), _int32(starts)
+    _check_cuda("kv_pool_write_idx", pool, src, page_table, starts)
+    _check_bf16("kv_pool_write_idx", pool)
+    _check_pool("kv_pool_write_idx", pool, page_table, layer)
+    if src.shape != (B, G, D) or starts.shape != (B,):
+        raise ValueError(f"kv_pool_write_idx: unsupported new {tuple(new.shape)}")
+    _build.call("chatglm_pool_write", pool[layer].data_ptr(), src.data_ptr(),
+                page_table.data_ptr(), starts.data_ptr(), B, G, P, D, MP,
+                _build.stream_ptr(pool))
+    kv_pool_write_idx.launches += 1
+    return pool
+
+
+kv_pool_write_idx.launches = 0
+
+
+def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):
+    """Ragged single-token attention over the pool's pages (see the module
+    note).  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if not q.is_cuda:
+        return flash_attention_decode_paged_plain(q, k_pool, v_pool, layer, page_table,
+                                                  lengths, sm_scale)
+    B, G, Hg, D = q.shape
+    L, NP, Gp, P, Dp = k_pool.shape
+    page_table, lengths = _int32(page_table), _int32(lengths)
+    _check_cuda("flash_attention_decode_paged", q, k_pool, v_pool, page_table, lengths)
+    _check_bf16("flash_attention_decode_paged", q, k_pool, v_pool)
+    _check_pool("flash_attention_decode_paged", k_pool, page_table, layer)
+    if (D != HEAD_DIM or Hg > MAX_DECODE_HG or (Gp, Dp) != (G, D)
+            or v_pool.shape != k_pool.shape or page_table.shape[0] != B):
+        raise ValueError(f"flash_attention_decode_paged: unsupported shapes q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}")
+    out = torch.empty_like(q)
+    _build.call("chatglm_decode_paged", q.data_ptr(), k_pool[layer].data_ptr(),
+                v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, G, Hg, P, D, page_table.shape[1], float(sm_scale),
+                _build.stream_ptr(q))
+    flash_attention_decode_paged.launches += 1
+    return out
+
+
+flash_attention_decode_paged.launches = 0
+
+
+def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
+                                row_map=None):
+    """Chunk attention over the pool's pages (see the module note); with
+    ``row_map`` row b reads table row ``row_map[b]`` (gathered before the
+    launch).  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if not q.is_cuda:
+        return flash_attention_chunk_paged_plain(q, k_pool, v_pool, layer, page_table, starts,
+                                                 sm_scale, row_map)
+    B, S, G, Hg, D = q.shape
+    L, NP, Gp, P, Dp = k_pool.shape
+    if row_map is not None:
+        page_table = page_table.index_select(0, row_map.long())
+    page_table, starts = _int32(page_table), _int32(starts)
+    _check_cuda("flash_attention_chunk_paged", q, k_pool, v_pool, page_table, starts)
+    _check_bf16("flash_attention_chunk_paged", q, k_pool, v_pool)
+    _check_pool("flash_attention_chunk_paged", k_pool, page_table, layer)
+    if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or (Gp, Dp) != (G, D)
+            or v_pool.shape != k_pool.shape or page_table.shape[0] != B):
+        raise ValueError(f"flash_attention_chunk_paged: unsupported shapes q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}")
+    out = torch.empty_like(q)
+    _build.call("chatglm_chunk_paged", q.data_ptr(), k_pool[layer].data_ptr(),
+                v_pool[layer].data_ptr(), page_table.data_ptr(), starts.data_ptr(),
+                out.data_ptr(), B, S, G, Hg, P, D, page_table.shape[1], float(sm_scale),
+                _build.stream_ptr(q))
+    flash_attention_chunk_paged.launches += 1
+    return out
+
+
+flash_attention_chunk_paged.launches = 0

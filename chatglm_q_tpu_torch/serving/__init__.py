@@ -1,3 +1,6 @@
-"""Serving: the chat prompt format and the streaming decoder."""
+"""Serving: the chat prompt format, the streaming decoder, and the
+continuous-batching engines (dense slots and the paged pool)."""
 from .chat import chat_template, process_response
 from .decoder import GLMDecoder
+from .engine import ServingEngine
+from .paged_engine import PagedServingEngine

@@ -18,8 +18,11 @@ What differs:
 * Sampling draws from a ``torch.Generator`` on the params' device, seeded
   from ``seed``; its draws differ from ``jax.random``'s.
 * Only a local directory loads: the hub download needs a network.
-* ``speculative_k > 0`` raises: prompt-lookup speculation needs the chunked
-  prefill (``prefill_chunk``), which the port does not have yet.
+
+``speculative_k > 0`` turns on prompt-lookup speculation for greedy
+generation (serving/speculative.py): drafts from the sequence's own n-gram
+repeats are verified k + 1 at a time by one ``prefill_chunk`` with all
+logits; the output is token-for-token the plain greedy output.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..config import GLMLoadConfig, TorchRuntimeConfig
 from ..models import chatglm2 as M
 from ..ops.sampling import greedy_sampling, top_p_sampling
 from .chat import process_response
+from .speculative import find_draft, greedy_accept
 
 _DEFAULT_RT = TorchRuntimeConfig()
 
@@ -95,21 +99,15 @@ class GLMDecoder:
         temperature: float = 1.0,
         seed: Optional[int] = None,
         speculative_k: int = 0,
+        speculative_ngram: int = 3,
     ):
         """Streaming generator: yields the re-decoded response after each
         token (suppressing a trailing partial-UTF8 U+FFFD); returns the
         final processed response.  ``temperature == 0`` is greedy.
 
-        ``speculative_k > 0`` raises here, at the call, rather than decoding
-        without speculation."""
-        if speculative_k > 0:
-            raise NotImplementedError(
-                "speculative_k > 0: prompt-lookup speculation needs the chunked "
-                "prefill (prefill_chunk), which the port does not have yet")
-        return self._generate(prefix_text, max_generated_tokens, top_k, top_p, temperature,
-                              seed)
-
-    def _generate(self, prefix_text, max_generated_tokens, top_k, top_p, temperature, seed):
+        ``speculative_k > 0`` verifies up to k drafted tokens per device step
+        when decoding greedily (identical output, fewer weight passes); it is
+        ignored when sampling.  ``self.spec_stats`` counts the steps."""
         tokenizer = self.tokenizer
         qt = self.config.quant_type
         mc = self.config.model_config
@@ -127,6 +125,8 @@ class GLMDecoder:
 
         generated: list[int] = []
         generate_time: list[float] = []
+        speculate = speculative_k > 0 and temperature == 0.0
+        self.spec_stats = {"verify_steps": 0, "decode_steps": 0, "accepted_tokens": 0}
         start = time.perf_counter()
         logits, cache = M.prefill(self.params, mc, prompt, lengths, cache, qt, self.dtype, self.rt)
         while (len(generated) < max_generated_tokens
@@ -146,7 +146,58 @@ class GLMDecoder:
             response_text = process_response(tokenizer.decode(generated))
             if response_text and response_text[-1] != "�":
                 yield response_text
-            logits, cache = M.decode_step(self.params, mc, tok, cache, qt, self.dtype, self.rt)
+
+            draft = None
+            if speculate:
+                # the cache holds prefix + generated[:-1]
+                cur_len = len(prefix_ids) + len(generated) - 1
+                room = min(self.max_sequence_length - cur_len - 1,
+                           max_generated_tokens - len(generated))
+                # the verify step writes a whole (k+1)-wide window at cur_len:
+                # near the end of the cache the write would clamp down over
+                # valid KV, so decode plainly there
+                if room >= 1 and cur_len + speculative_k + 1 <= self.max_sequence_length:
+                    draft = find_draft(prefix_ids + generated, speculative_ngram,
+                                       min(speculative_k, room))
+            if not draft:
+                logits, cache = M.decode_step(self.params, mc, tok, cache, qt, self.dtype,
+                                              self.rt)
+                self.spec_stats["decode_steps"] += 1
+                continue
+            seq = [next_token] + draft
+            ids = torch.zeros((1, speculative_k + 1), dtype=torch.long, device=self.device)
+            ids[0, : len(seq)] = torch.tensor(seq)
+            all_logits, cache = M.prefill_chunk(
+                self.params, mc, ids, torch.tensor([cur_len], device=self.device),
+                torch.tensor([len(seq)], device=self.device), cache, qt, self.dtype, self.rt,
+                return_all_logits=True)
+            self.spec_stats["verify_steps"] += 1
+            accepted = greedy_accept(draft, all_logits[0, : len(seq)].argmax(-1).tolist())
+            if self.eos_token_id in draft[:accepted]:
+                # nothing after an accepted eos counts
+                accepted = draft[:accepted].index(self.eos_token_id) + 1
+            stop = False
+            for d in draft[:accepted]:
+                generated.append(d)
+                generate_time.append(time.perf_counter() - start)
+                start = time.perf_counter()
+                if d == self.eos_token_id:
+                    stop = True
+                    break
+                response_text = process_response(tokenizer.decode(generated))
+                if response_text and response_text[-1] != "�":
+                    yield response_text
+            self.spec_stats["accepted_tokens"] += accepted
+            # keep the pending token and the accepted drafts; the rejected
+            # positions' KV sits above the length and is overwritten later
+            cache = M.KVCache(cache.k, cache.v,
+                              torch.tensor([cur_len + 1 + accepted], dtype=torch.int32,
+                                           device=self.device))
+            if stop:
+                break
+            # row `accepted` is the distribution after the accepted prefix:
+            # exactly the next greedy step's logits
+            logits = all_logits[:, accepted]
 
         if self.time_log and generate_time:
             init_time, *rest_time = generate_time

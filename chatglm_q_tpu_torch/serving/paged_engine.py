@@ -1,0 +1,358 @@
+"""Continuous batching over a paged KV pool: the counterpart of
+chatglm_q_tpu/serving/paged_engine.py (``PagedServingEngine``).
+
+The scheduler and slot semantics are ``ServingEngine``'s (greedy tokens
+equal the dense engine's), but KV lives in a shared page pool
+(models/paged_kv.py) instead of per-slot max-length rows:
+
+* admission allocates ``ceil(tokens_needed / page_size)`` pages from a free
+  list into the slot's page-table row; a request whose pages do not fit
+  waits at the head of the queue until finishes free pages (backpressure,
+  not an out-of-memory error);
+* physical page 0 is a reserved garbage page: padding rows of a compact
+  decode write there, and a finished slot's table row is reset to it, so a
+  recycled page is never written through a stale table;
+* pages are refcounted: slots and prefix-cache entries each hold one
+  reference, and a page returns to the free list at zero;
+* ``prefix_cache``: every page-aligned prefix of a prefilled prompt is
+  registered in an LRU; a later prompt that shares one reuses its pages and
+  resumes its chunked prefill after them; entries are evicted under
+  pressure, but only when eviction can cover the shortage;
+* decode is compact: only the decoding slots' rows run, bucketed to a power
+  of two, padding rows on the garbage table at length 0;
+* ``speculative_k``: when every decoding request is greedy, the chunk runs
+  in-loop prompt-lookup speculation (models/spec_decode.py); a chunk with a
+  sampling request falls back to plain decode.
+
+The JAX package's data-parallel groups and model-sharded pool phases
+(``n_data``, ``n_phase``, ``full_batch_decode``) belong to its multi-chip
+engine and are not carried: this engine is one group with one phase, and
+keeps the arithmetic that reduces to it.  ``speculative_sampled=True``
+raises ``NotImplementedError``; ``lookahead`` is a dense-engine option.
+"""
+from __future__ import annotations
+
+from collections import Counter, OrderedDict
+
+import numpy as np
+import torch
+
+from ..models import paged_kv as PK
+from ..models import spec_decode as SD
+from .engine import ServingEngine
+
+
+class PagedServingEngine(ServingEngine):
+    def __init__(self, config, params, tokenizer=None, *, num_pages: int = 64,
+                 page_size: int = 256, prefix_cache: bool = False, speculative_k: int = 0,
+                 speculative_ngram: int = 3, speculative_sampled: bool = False, **kwargs):
+        if speculative_sampled:
+            raise NotImplementedError(SD.SAMPLED_NOT_PORTED)
+        if kwargs.get("lookahead"):
+            raise ValueError("lookahead is a dense-engine option; speculative_k is the paged "
+                             "engine's way to amortize the host round trip")
+        if num_pages < 2:
+            raise ValueError("the pool needs a garbage page and one usable page")
+        # read by _make_cache, which ServingEngine.__init__ calls
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.prefix_cache = prefix_cache
+        self.speculative_k = speculative_k
+        self.speculative_ngram = speculative_ngram
+        super().__init__(config, params, tokenizer, **kwargs)
+        if self.prefill_chunk_size is not None and self.prefill_chunk_size % page_size:
+            raise ValueError("chunked prefill over pages needs page-aligned chunks")
+        if prefix_cache and self.prefill_chunk_size is None:
+            # a prefix hit resumes the prefill at a page-aligned offset: the
+            # chunked-prefill entry point
+            raise ValueError("prefix_cache needs prefill_chunk_size")
+        self._free = list(range(1, num_pages))  # page 0: the garbage page
+        self._slot_pages: dict[int, list[int]] = {}
+        self._page_refs: dict[int, int] = {}
+        # page-aligned token prefix -> its pages, in LRU order
+        self._prefix_lru: "OrderedDict[tuple, list[int]]" = OrderedDict()
+        self._garbage_row = torch.zeros_like(self.cache.page_table[0])
+        self.stats.update(prefix_hits=0, prefix_tokens_reused=0, spec_accepted=0,
+                          spec_steps=0)
+        # device token history per slot (valid below the lengths) for n-gram
+        # drafting; the prompt is written at admission
+        self._tokbuf = torch.zeros((self.max_batch, self.max_seq_len), dtype=torch.int32,
+                                   device=self.device)
+
+    def _make_cache(self):
+        return PK.init_paged_kv_cache(self.mc, self.max_batch, self.num_pages, self.max_seq_len,
+                                      self.page_size, self.kv_dtype, self.device)
+
+    @property
+    def pages_in_use(self) -> int:
+        return sum(len(p) for p in self._slot_pages.values())
+
+    @property
+    def pages_cached(self) -> int:
+        return sum(len(p) for p in self._prefix_lru.values())
+
+    @property
+    def _free_pages(self) -> list:
+        return list(self._free)
+
+    # -- page refcounting ----------------------------------------------------
+
+    def _retain(self, pages):
+        for p in pages:
+            self._page_refs[p] = self._page_refs.get(p, 0) + 1
+
+    def _release(self, pages):
+        for p in pages:
+            self._page_refs[p] -= 1
+            if self._page_refs[p] == 0:
+                del self._page_refs[p]
+                self._free.append(p)
+
+    def _alloc(self, n: int):
+        """Take n fresh pages (one reference each), evicting LRU prefix
+        entries under pressure; None if the pool cannot supply them.  A page
+        that a slot also holds stays allocated when its registry reference
+        drops, so eviction runs only if the registry-only pages cover the
+        shortage: emptying the LRU for nothing would wipe the prefixes the
+        next requests need."""
+        if len(self._free) < n:
+            if not self._prefix_lru:
+                return None
+            reg_refs = Counter()
+            for pages in self._prefix_lru.values():
+                reg_refs.update(pages)
+            potential = sum(1 for p, r in reg_refs.items() if self._page_refs.get(p, 0) == r)
+            if len(self._free) + potential < n:
+                return None
+            while len(self._free) < n and self._prefix_lru:
+                key, pages = self._prefix_lru.popitem(last=False)
+                self._release(pages)
+                if self.logger:
+                    self.logger.log("prefix_evict", tokens=len(key), pages=len(pages))
+            if len(self._free) < n:
+                return None
+        pages = [self._free.pop() for _ in range(n)]
+        self._retain(pages)
+        return pages
+
+    # -- prefix cache --------------------------------------------------------
+
+    def _match_prefix(self, ids: list):
+        """The longest registered page-aligned prefix strictly shorter than
+        the prompt (its last token must prefill, for its logits)."""
+        P = self.page_size
+        for k in range((len(ids) - 1) // P, 0, -1):
+            key = tuple(ids[: k * P])
+            if key in self._prefix_lru:
+                self._prefix_lru.move_to_end(key)
+                return list(self._prefix_lru[key]), k * P
+        return [], 0
+
+    def _start_decoding(self, slot_idx, req, logits, n_ids):
+        if self.prefix_cache:
+            # the prompt's KV is written: publish every page-aligned prefix,
+            # so a prompt sharing only the head (a system prompt) matches the
+            # shared pages; the registry holds one reference per entry per page
+            ids = self._sliced_prompt(req)
+            for k in range(1, (len(ids) - 1) // self.page_size + 1):
+                key = tuple(ids[: k * self.page_size])
+                if key not in self._prefix_lru:
+                    pages = self._slot_pages[slot_idx][:k]
+                    self._retain(pages)
+                    self._prefix_lru[key] = pages
+        super()._start_decoding(slot_idx, req, logits, n_ids)
+
+    def clear_prefix_cache(self):
+        while self._prefix_lru:
+            _, pages = self._prefix_lru.popitem(last=False)
+            self._release(pages)
+
+    # -- device programs -----------------------------------------------------
+
+    def _prefill_into_slot(self, ids: list, slot: int, bucket: int) -> torch.Tensor:
+        """Whole-prompt admission: a one-row view of the pool through the
+        slot's table row; attention runs on the fresh K/V."""
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, : len(ids)] = ids
+        sub = PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool,
+                              self.cache.page_table[slot:slot + 1],
+                              torch.zeros((1,), dtype=torch.int32, device=self.device))
+        logits, _ = PK.prefill_paged(self.params, self.mc, self._ids(padded).long(),
+                                     self._ids([len(ids)]), sub, self.config.quant_type,
+                                     self.dtype, self.rt)
+        self.cache.lengths[slot] = len(ids)
+        return logits[0]
+
+    def _prefill_chunk_compact(self, ids, starts, valids, slots) -> torch.Tensor:
+        """A compact chunk: only the mid-prefill slots' rows run, through
+        their own table rows; no pool copies."""
+        slots_t = self._ids(slots).long()
+        starts_t = self._ids(starts)
+        sub = PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool,
+                              self.cache.page_table[slots_t], starts_t)
+        logits, sub = PK.prefill_chunk_paged(self.params, self.mc, self._ids(ids).long(),
+                                             starts_t, self._ids(valids), sub,
+                                             self.config.quant_type, self.dtype, self.rt)
+        self.cache.lengths[slots_t] = sub.lengths
+        return logits
+
+    def _compact_view(self, slots: list, n_real: int) -> PK.PagedKVCache:
+        """The decode batch: slots[:n_real] are decoding slots; the padding
+        rows after them get the garbage table row and length 0, so their
+        writes land on the garbage page."""
+        slots_t = self._ids(slots).long()
+        pt = self.cache.page_table[slots_t]
+        lens = self.cache.lengths[slots_t]
+        pt[n_real:] = self._garbage_row
+        lens[n_real:] = 0
+        return PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool, pt, lens)
+
+    def _store_lengths(self, active: list, sub_lengths: torch.Tensor):
+        self.cache.lengths[self._ids(active).long()] = sub_lengths[: len(active)]
+
+    def step(self) -> list:
+        """Admit, advance prefill chunks, then one compact decode chunk over
+        the decoding slots only."""
+        self._admit()
+        self._advance_prefills()
+        started, self._started_events = self._started_events, []
+        active = [b for b, s in enumerate(self.slots) if s.decoding]
+        self.stats["steps"] += 1
+        if not active:
+            return started
+        n = self.chunk
+        PB = min(1 << (len(active) - 1).bit_length(), self.max_batch)
+        slots = active + [0] * (PB - len(active))
+        rows = active + [None] * (PB - len(active))
+        self.stats["decode_chunks"] += 1
+        if self.speculative_k and all(self.slots[b].request.temperature == 0 for b in active):
+            return self._spec_step(started, active, slots, n)
+
+        sampling, sort_k = self._row_params(rows)
+        sub = self._compact_view(slots, len(active))
+        tok = self._ids([self._last_tok[b] for b in slots])
+        toks = []
+        for _ in range(n):
+            logits, sub = PK.decode_step_paged(self.params, self.mc, tok, sub,
+                                               self.config.quant_type, self.dtype, self.rt)
+            tok = self._sample(logits, sampling, sort_k)
+            toks.append(tok)
+        self._store_lengths(active, sub.lengths)
+        toks = self._fetch(torch.stack(toks, dim=1))  # (PB, n)
+        out = started
+        for i, b in enumerate(active):
+            prev_pending = int(self._last_tok[b])
+            res = self._consume_slot_tokens(b, toks[i], n)
+            out.append(res)
+            if self.speculative_k:
+                # keep the token history in step for later speculative
+                # chunks: the positions gained hold the previous pending token
+                # and all but the last emitted one (the new pending token is
+                # not placed yet)
+                placed = [prev_pending] + res[1][:-1]
+                l_after = int(self._host_lengths[b])
+                SD._write_token_rows(self._tokbuf[b:b + 1], self._ids([placed]),
+                                     self._ids([l_after - len(placed)]))
+        return out
+
+    def _spec_step(self, started, active, slots, n):
+        sub = self._compact_view(slots, len(active))
+        tb = self._tokbuf[self._ids(slots).long()]
+        drafts, accepts, nexts, sub, tb = SD.speculative_decode_paged(
+            self.params, self.mc, self._ids([self._last_tok[b] for b in slots]), sub, tb, n,
+            self.speculative_k, self.speculative_ngram, self.config.quant_type, self.dtype,
+            self.rt)
+        self._store_lengths(active, sub.lengths)
+        self._tokbuf[self._ids(active).long()] = tb[: len(active)]
+        drafts, accepts, nexts = map(self._fetch, (drafts, accepts, nexts))
+        out = started
+        for i, b in enumerate(active):
+            row = []
+            for s in range(n):
+                a = int(accepts[s, i])
+                row += drafts[s, i, :a].tolist() + [int(nexts[s, i])]
+                self.stats["spec_accepted"] += a
+            out.append(self._consume_slot_tokens(b, row, len(row)))
+        self.stats["spec_steps"] += n
+        return out
+
+    # -- page allocation -----------------------------------------------------
+
+    def _pages_needed(self, req) -> int:
+        n_ids = len(self._sliced_prompt(req))
+        # + slack: in-chunk over-generation past the budget writes before the
+        # host rolls it back, and must stay inside owned pages (a speculative
+        # step advances up to k + 1 positions)
+        slack = self.chunk * (self.speculative_k + 1 if self.speculative_k else 1)
+        tokens = min(max(self._bucket(n_ids), n_ids + req.max_new_tokens + slack),
+                     self.max_seq_len)
+        return -(-tokens // self.page_size)
+
+    def submit(self, prompt_ids: list, **kwargs) -> int:
+        """Reject a request that can never fit the pool: it would wait at the
+        head of the queue forever while ``has_work`` stayed True."""
+        rid = super().submit(prompt_ids, **kwargs)
+        need = self._pages_needed(self.queue[-1])
+        usable = self.num_pages - 1  # one garbage page
+        if need > usable:
+            self.queue.pop()
+            raise ValueError(f"request needs {need} KV pages but the pool holds only {usable} "
+                             "usable pages: raise num_pages or lower max_new_tokens / the "
+                             "prompt length")
+        return rid
+
+    def _admit(self):
+        for slot_idx, slot in enumerate(self.slots):
+            if slot.request is not None or not self.queue:
+                continue
+            if not self._try_admit(slot_idx, self.queue[0]):
+                return  # backpressure: wait for finishes to free pages
+            self.queue.pop(0)
+
+    def _try_admit(self, slot_idx: int, req) -> bool:
+        """Allocate pages and start ``req`` in ``slot_idx``; False (nothing
+        changed) if the pool cannot supply them."""
+        ids = self._sliced_prompt(req)
+        shared, shared_tokens = self._match_prefix(ids) if self.prefix_cache else ([], 0)
+        fresh_needed = self._pages_needed(req) - len(shared)
+        # retain before _alloc: its eviction could free the pages just matched
+        self._retain(shared)
+        fresh = self._alloc(max(fresh_needed, 0))
+        if fresh is None:
+            self._release(shared)
+            if self.logger:
+                self.logger.log("admit_wait", req_id=req.req_id, pages_needed=fresh_needed,
+                                pages_free=len(self._free))
+            return False
+        pages = shared + fresh
+        self._slot_pages[slot_idx] = pages
+        row = np.zeros((self.cache.page_table.shape[1],), np.int32)  # the garbage page
+        row[: len(pages)] = pages
+        self.cache.page_table[slot_idx] = self._ids(row)
+        if self.speculative_k:
+            hist = np.zeros((self.max_seq_len,), np.int32)
+            hist[: len(ids)] = ids
+            self._tokbuf[slot_idx] = self._ids(hist)
+        if shared_tokens:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += shared_tokens
+            if self.logger:
+                self.logger.log("prefix_hit", req_id=req.req_id, tokens=shared_tokens,
+                                pages=len(shared))
+        if self.prefill_chunk_size is not None:
+            self._assign_chunked(slot_idx, req)
+            # resume the prefill after the reused (page-aligned) prefix
+            self.slots[slot_idx].pending_pos = shared_tokens
+            self._host_lengths[slot_idx] = shared_tokens
+            self.cache.lengths[slot_idx] = shared_tokens
+        else:
+            self._admit_into_slot(slot_idx, req)
+        return True
+
+    def _maybe_finish(self, slot_idx: int):
+        super()._maybe_finish(slot_idx)
+        if self.slots[slot_idx].request is None and self._slot_pages.get(slot_idx):
+            self._release(self._slot_pages.pop(slot_idx))
+            # reset the table row: a recycled page must not be written
+            # through a stale mapping
+            self.cache.page_table[slot_idx] = self._garbage_row

@@ -10,12 +10,14 @@ Phases (any failure raises and exits non-zero):
    the kernels built from csrc/ (build seconds), and the device-to-device
    copy bandwidth (for comparison with the published rate the bounds use).
 2. Each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes of the ChatGLM2-6B main path: error, kernel time (CUDA events),
+   shapes of the ChatGLM2-6B main paths (the paged kernels at a 64-page pool
+   of 256-row pages, 2048-slot rows): error, kernel time (CUDA events),
    plain time, the bound (the least time for the same work: bytes over the
    published HBM rate, or operations over the tensor-core peak of their
    type, whichever is larger) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``, a yardstick only: SDPA for
-   the attentions, ``index_put_`` for the KV write,
+   the attentions, a page or row gather + SDPA for the paged and chunked
+   attentions, ``index_put_`` for the KV writes,
    ``torch._weight_int4pack_mm`` for the int4 matmul on the same weights
    repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
@@ -43,6 +45,24 @@ Phases (any failure raises and exits non-zero):
    ids.  Decode ms/step at batch 1 for each mode.  Then a round trip at 6B
    widths, depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
    for int8 and int4g32, with identical tensors and equal logits.
+6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
+   random weights, no tokenizer (eos id 2), token-id prompts from a seeded
+   generator.  (a) ``PagedServingEngine`` with 256-token chunked admission
+   and the prefix cache: six greedy requests of 300-1100 tokens, four
+   sharing a 512-token head, and one top-p request, 64 new tokens each;
+   (b) the paged engine with whole-prompt admission and in-loop speculation
+   (k = 8) on three prompts repeating a 40-token span, and the same without
+   speculation (the tokens they share are reported); (c) the dense
+   ``ServingEngine`` with chunked admission and lookahead on four of (a)'s
+   prompts.  Checks: every request finishes within its budget; no page in
+   use after the drain and every usable page free after
+   ``clear_prefix_cache()``; prefix hits in (a); each kernel launched by the
+   run that should drive it, and B3/B4 never by the paged runs; every
+   emitted greedy token is within ``GREEDY_GAP_TOL`` of the argmax of the
+   dense, unpaged, unchunked ``prefill_chunk`` over prompt + stream, and the
+   stream shifted by one token is not.  Printed per run: time to first
+   token per request, aggregate tokens/s, and the device's busy share of
+   one decode chunk.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object, the nvidia-smi line of the card, and
@@ -489,6 +509,165 @@ def check_attention(torch):
     return out
 
 
+# paged-pool shapes of phase 2 and 6: 64 pages of 256 rows, 2048-slot rows
+POOL_PAGES, PAGE, SEQ = 64, 256, 2048
+PAGED_LENGTHS = (1000, 600, 200, 0)
+
+
+def check_paged_attention(torch):
+    """B9 (pool write), B10 (paged decode), B11 (chunk attention over the
+    pool, S = 9 and 32) and B5's chunked form (Sc = 256 against a 2048-slot
+    cache with a row map) against their plain versions; each timed with
+    CUDA events over the 28 layers, beside the bytes bound and a library
+    yardstick the port never calls (``index_put_`` for B9; a page gather +
+    SDPA for B10/B11; a row gather + SDPA for B5's chunked form)."""
+    import torch.nn.functional as F
+
+    from chatglm_q_tpu_torch.ops import attention as A
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    L, G, Hg, D, B = 28, 2, 16, 128, len(PAGED_LENGTHS)
+    MP, sm = SEQ // PAGE, 1.0 / math.sqrt(D)
+    shape = (L, POOL_PAGES, G, PAGE, D)
+    kp = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    vp = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    # scattered pages, distinct per row, page 0 (the garbage page) unused
+    pt = (torch.randperm(POOL_PAGES - 1, device="cuda", generator=gen)[: B * MP] + 1
+          ).reshape(B, MP).to(torch.int32)
+    out = {}
+
+    def put(name, err, rel, ms, plain, nbytes, ops, lib, shape_s):
+        b, by = bound_ms(nbytes, ops)
+        out[name] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b,
+                         bound_by=by, library_ms=lib, shape=shape_s)
+
+    # B9: one token per row into the pool, exact
+    new = torch.randn((B, G, D), device="cuda", generator=gen).to(torch.bfloat16)
+    starts = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    ref = kp.clone()
+    A.kv_pool_write_idx(kp, new, 3, pt, starts)
+    torch.cuda.synchronize()
+    A.kv_pool_write_idx_plain(ref, new, 3, pt, starts)
+    err, rel = rel_err(kp, ref)
+    require(err == 0.0, f"kv_pool_write_idx differs from plain: {err}")
+    del ref
+    ms = cuda_event_ms(lambda i: A.kv_pool_write_idx(kp, new, i % L, pt, starts), iters=56)
+    plain = cuda_event_ms(lambda i: A.kv_pool_write_idx_plain(kp, new, i % L, pt, starts),
+                          iters=56)
+    pos = starts.long()
+    page = pt.long()[torch.arange(B, device="cuda"), pos // PAGE]
+    lib = cuda_event_ms(lambda i: kp[i % L].index_put_(
+        (page[:, None], torch.arange(G, device="cuda")[None, :], (pos % PAGE)[:, None]), new),
+        iters=56)
+    put("kv_pool_write_idx", err, rel, ms, plain, 2 * new.numel() * 2 + 2 * B * 4, 0.0, lib,
+        f"pool (L={L}, NP={POOL_PAGES}, G={G}, P={PAGE}, D={D}), B={B}, "
+        f"starts={list(PAGED_LENGTHS)}")
+
+    # B10: paged ragged decode
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    got = A.flash_attention_decode_paged(q, kp, vp, 0, pt, lens, sm)
+    torch.cuda.synchronize()
+    want = A.flash_attention_decode_paged_plain(q, kp, vp, 0, pt, lens, sm)
+    err, rel = rel_err(got, want)
+    require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
+            f"flash_attention_decode_paged rel err {rel}")
+    ms = cuda_event_ms(lambda i: A.flash_attention_decode_paged(q, kp, vp, i % L, pt, lens, sm),
+                       iters=56)
+    plain = cuda_event_ms(lambda i: A.flash_attention_decode_paged_plain(q, kp, vp, i % L, pt,
+                                                                         lens, sm), iters=5)
+    dmask = (torch.arange(MP * PAGE, device="cuda")[None, :] <= lens[:, None])[:, None, None]
+
+    def lib_decode(i):
+        kd, vd = A.gather_pages(kp[i % L], pt), A.gather_pages(vp[i % L], pt)
+        return F.scaled_dot_product_attention(q.reshape(B, G * Hg, 1, D), kd, vd,
+                                              attn_mask=dmask, scale=sm, enable_gqa=True)
+
+    lib = cuda_event_ms(lib_decode, iters=56)
+    n = [min(x + 1, MP * PAGE) for x in PAGED_LENGTHS]
+    put("flash_attention_decode_paged", err, rel, ms, plain,
+        2 * q.numel() * 2 + sum(n) * G * D * 2 * 2 + B * MP * 4 + B * 4,
+        4.0 * sum(n) * G * Hg * D, lib,
+        f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)}")
+
+    # B11: chunk attention over the pool, S = 9 (a k = 8 verify step) and 32
+    for S in (9, 32):
+        qc = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+        got = A.flash_attention_chunk_paged(qc, kp, vp, 0, pt, starts, sm)
+        torch.cuda.synchronize()
+        want = A.flash_attention_chunk_paged_plain(qc, kp, vp, 0, pt, starts, sm)
+        err, rel = rel_err(got, want)
+        require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
+                f"flash_attention_chunk_paged S={S} rel err {rel}")
+        ms = cuda_event_ms(lambda i: A.flash_attention_chunk_paged(qc, kp, vp, i % L, pt,
+                                                                   starts, sm), iters=56)
+        plain = cuda_event_ms(lambda i: A.flash_attention_chunk_paged_plain(
+            qc, kp, vp, i % L, pt, starts, sm), iters=5)
+        qpos = starts.long()[:, None] + torch.arange(S, device="cuda")[None, :]
+        cmask = (torch.arange(MP * PAGE, device="cuda")[None, None, :] <= qpos[:, :, None])
+
+        def lib_chunk(i, qc=qc, cmask=cmask):
+            kd, vd = A.gather_pages(kp[i % L], pt), A.gather_pages(vp[i % L], pt)
+            qs = qc.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, qc.shape[1], D)
+            return F.scaled_dot_product_attention(qs, kd, vd, attn_mask=cmask[:, None],
+                                                  scale=sm, enable_gqa=True)
+
+        lib = cuda_event_ms(lib_chunk, iters=56)
+        rows = [min(st + S, MP * PAGE) for st in PAGED_LENGTHS]
+        pairs = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S))
+        put(f"flash_attention_chunk_paged S={S}", err, rel, ms, plain,
+            2 * qc.numel() * 2 + sum(rows) * G * D * 2 * 2 + B * MP * 4 + B * 4,
+            4.0 * pairs * G * Hg * D, lib,
+            f"B={B} S={S} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)}")
+    del kp, vp
+
+    # B5's chunked form: 256-token chunks of 4 compact rows against a 4-row,
+    # 2048-slot cache, rows mapped in another order
+    Sc = 256
+    kc = torch.randn((L, B, G, SEQ, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vc = torch.randn((L, B, G, SEQ, D), device="cuda", generator=gen).to(torch.bfloat16)
+    qp = torch.randn((B, Sc, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    cstarts = torch.tensor([768, 512, 256, 0], dtype=torch.int32, device="cuda")
+    clens = cstarts + torch.tensor([256, 256, 200, 256], dtype=torch.int32, device="cuda")
+    rmap = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device="cuda")
+    got = A.flash_attention_prefill_chunk(qp, kc[0], vc[0], clens, cstarts, sm, rmap)
+    torch.cuda.synchronize()
+    want = A.flash_attention_prefill_plain(qp, kc[0], vc[0], clens, sm, cstarts, rmap)
+    err, rel = rel_err(got, want)
+    require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
+            f"flash_attention_prefill_chunk rel err {rel}")
+    ms = cuda_event_ms(lambda i: A.flash_attention_prefill_chunk(qp, kc[i % L], vc[i % L], clens,
+                                                                 cstarts, sm, rmap), iters=56)
+    plain = cuda_event_ms(lambda i: A.flash_attention_prefill_plain(
+        qp, kc[i % L], vc[i % L], clens, sm, cstarts, rmap), iters=5)
+    qpos = cstarts.long()[:, None] + torch.arange(Sc, device="cuda")[None, :]
+    cols = torch.arange(SEQ, device="cuda")[None, None, :]
+    pmask = (cols <= qpos[:, :, None]) & (cols < clens.long()[:, None, None])
+    qsp = qp.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, Sc, D)
+
+    def lib_prefill_chunk(i):
+        kd = kc[i % L].index_select(0, rmap.long())
+        vd = vc[i % L].index_select(0, rmap.long())
+        return F.scaled_dot_product_attention(qsp, kd, vd, attn_mask=pmask[:, None], scale=sm,
+                                              enable_gqa=True)
+
+    lib = cuda_event_ms(lib_prefill_chunk, iters=56)
+    kv_rows = sum(min(int(ln), int(st) + Sc) for st, ln in zip(cstarts.tolist(), clens.tolist()))
+    pairs = sum(min(st + t + 1, ln) for st, ln in zip(cstarts.tolist(), clens.tolist())
+                for t in range(Sc))
+    put("flash_attention_prefill_chunk", err, rel, ms, plain,
+        2 * qp.numel() * 2 + kv_rows * G * D * 2 * 2 + 3 * B * 4, 4.0 * pairs * G * Hg * D,
+        lib, f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
+             f"lengths={clens.tolist()} kv_row_map={rmap.tolist()}")
+    del kc, vc
+    for k, r in out.items():
+        log(f"  {k:32s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
+            f"library {r['library_ms']:.4f} ms  [{r['shape']}]")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the model
 # ---------------------------------------------------------------------------
@@ -876,6 +1055,263 @@ def chat_slice(torch, smi):
     return counts, perf
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the serving engines
+# ---------------------------------------------------------------------------
+
+ENGINE_KW = dict(max_batch=4, max_seq_len=SEQ, decode_chunk=16)
+NEW_TOKENS = 64
+EOS = 2  # no tokenizer: the engines' eos id
+# Greedy consistency: the largest gap, over every emitted greedy token, between
+# the dense unpaged unchunked path's max logit and its logit of the emitted
+# token, as a fraction of max|logits| at that position.  The engines' paths
+# round bf16 differently from that path (paged or chunked attention, other
+# matmul shapes), so a near-tie may flip; on an H100 the largest readings over
+# seeds 61, 71 and 81 were 1.43e-2, and the limit is about 1.5x that.  The
+# stream shifted by one token read 1.05 to 1.60.
+GREEDY_GAP_TOL = 2.2e-2
+PAGED_KERNELS = ("kv_pool_write_idx", "flash_attention_decode_paged",
+                 "flash_attention_chunk_paged", "flash_attention_prefill_chunk")
+DENSE_KERNELS = ("kv_cache_write_idx", "flash_attention_decode")
+
+
+def engine_prompts(torch, seed=61):
+    """Run (a)'s seven requests (six greedy of 300-1100 tokens, the ones of
+    700, 1100, 900 and 620 tokens sharing a 512-token head, and one sampled)
+    and run (b)'s three prompts, each repeating a 40-token span; ids from a
+    seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ids(n):
+        return torch.randint(3, 65000, (n,), generator=g).tolist()
+
+    head = ids(512)
+    greedy = dict(temperature=0.0, max_new_tokens=NEW_TOKENS)
+    a = [(head + ids(188), greedy), (ids(300), greedy), (ids(850), greedy),
+         (ids(400), dict(temperature=0.8, top_p=0.8, max_new_tokens=NEW_TOKENS)),
+         (head + ids(588), greedy), (head + ids(388), greedy), (head + ids(108), greedy)]
+    b = []
+    for _ in range(3):
+        span = ids(40)
+        b.append((ids(60) + span * 6 + ids(20), greedy))
+    return a, b
+
+
+def _decode_only(engine) -> bool:
+    """Whether the next step can only decode: no prompt mid-prefill, and
+    nothing queued that a free slot could admit."""
+    free = any(s.request is None for s in engine.slots)
+    return (not any(s.pending_ids is not None for s in engine.slots)
+            and not (engine.queue and free))
+
+
+def drive(torch, engine, reqs, name):
+    """Submit ``reqs`` at once and step the engine until it drains: the host
+    time to first token of each request (when ``step()`` returns it, which
+    includes that step's decode chunk), aggregate tokens/s over the drain,
+    the median wall of a decode-only step, and every kernel's launches."""
+    from chatglm_q_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [engine.submit(p, **kw) for p, kw in reqs]
+    first, walls = {}, {"decode": [], "admit": []}
+    while engine.has_work:
+        kind = "decode" if _decode_only(engine) else "admit"
+        ts = time.perf_counter()
+        events = engine.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[kind].append(now - ts)
+        for rid, _ in events:
+            first.setdefault(rid, now - t0)
+        require(engine.stats["steps"] < 1000, f"{name}: the engine did not drain")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_id = {r.req_id: r for r in engine.finished}
+    reqs_done = [by_id[i] for i in ids]
+    for r, (_, kw) in zip(reqs_done, reqs):
+        require(r.done and len(r.generated) <= kw["max_new_tokens"],
+                f"{name}: request {r.req_id} unfinished or over budget ({len(r.generated)})")
+    tokens = sum(len(r.generated) for r in reqs_done)
+    med = {k: sorted(v)[len(v) // 2] * 1e3 if v else None for k, v in walls.items()}
+    res = {"ttft_s": [first.get(i) for i in ids], "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall, "steps": len(walls["decode"]) + len(walls["admit"]),
+           "decode_step_ms_median": med["decode"], "admit_step_ms_median": med["admit"],
+           "admit_steps": len(walls["admit"]), "launches": counts, "stats": dict(engine.stats)}
+    log(f"  {name}: {len(reqs)} requests, {tokens} tokens in {wall:.2f} s "
+        f"({res['tok_per_s']:.1f} tok/s aggregate); time to first token "
+        + ", ".join(f"{t:.2f}" for t in res["ttft_s"]) + " s")
+    log(f"    {len(walls['admit'])} steps with admission or prefill work (median "
+        f"{med['admit'] or 0:.1f} ms), {len(walls['decode'])} decode-only steps (median "
+        f"{med['decode'] or 0:.1f} ms, {engine.chunk} decode steps each)")
+    log(f"    launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    return reqs_done, res
+
+
+def chunk_busy(torch, engine, reqs, name):
+    """The device's busy share of one decode-only step (``decode_chunk``
+    decode steps): torch.profiler's device time of a traced step over the
+    host wall of the untraced decode-only step before it, in a short run of
+    its own (tracing inflates the host's time, so the drain above is
+    untraced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    ids = [engine.submit(p, **kw) for p, kw in reqs]
+    untraced = res = None
+    while engine.has_work:
+        if res is None and _decode_only(engine) and engine.queue == []:
+            if untraced is None:
+                ts = time.perf_counter()
+                engine.step()
+                torch.cuda.synchronize()
+                untraced = time.perf_counter() - ts
+                continue
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine.step()
+                torch.cuda.synchronize()
+            dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA) / 1e3
+            res = {"device_ms": dev_ms, "wall_ms": untraced * 1e3,
+                   "busy_share": dev_ms / (untraced * 1e3)}
+            for rid in ids:  # measured: the rest of the run is not needed
+                engine.cancel(rid)
+            continue
+        engine.step()
+    require(res is not None, f"{name}: no two decode-only steps to profile")
+    log(f"    {name}: one decode-only step ({engine.chunk} decode steps): device "
+        f"{res['device_ms']:.2f} ms of {res['wall_ms']:.2f} ms untraced wall, busy "
+        f"{100 * res['busy_share']:.1f}%")
+    return res
+
+
+def greedy_gaps(torch, params, cfg, reqs_done, prompts):
+    """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
+    fresh dense cache (one chunk, all logits), and the largest relative gap
+    between each position's max logit and the emitted token's logit; and the
+    same over the stream shifted by one token (the control)."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    dev = params["final_ln"]["weight"].device
+    worst = control = 0.0
+    for req, (prompt, kw) in zip(reqs_done, prompts):
+        if kw["temperature"] > 0 or len(req.generated) < 2:
+            continue
+        seq = prompt + req.generated[:-1]
+        cache = M.init_kv_cache(cfg, 1, SEQ, torch.bfloat16, dev)
+        ids = torch.tensor([seq], device=dev)
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        logits, _ = M.prefill_chunk(params, cfg, ids, zero, zero + len(seq), cache, "int4g32",
+                                    torch.bfloat16, TorchRuntimeConfig(), return_all_logits=True)
+        lg = logits[0, len(prompt) - 1:].float()  # row i predicts generated[i]
+        top = lg.max(dim=-1).values
+        scale = lg.abs().max(dim=-1).values
+        toks = torch.tensor(req.generated, device=dev)
+        gap = (top - lg.gather(1, toks[:, None])[:, 0]) / scale
+        shifted = (top[:-1] - lg[:-1].gather(1, toks[1:, None])[:, 0]) / scale[:-1]
+        worst = max(worst, gap.max().item())
+        control = max(control, shifted.max().item())
+        del cache, logits, lg
+    return worst, control
+
+
+def engines_slice(torch, smi, seed=61):
+    """Runs (a), (b) and (c) on a tree and prompts made from ``seed``."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    cfg = ChatGLM2Config()
+    params = random_quantized_params(cfg, "int4g32",
+                                     torch.Generator(device="cuda").manual_seed(seed + 2))
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    rt = TorchRuntimeConfig()
+    a_reqs, b_reqs = engine_prompts(torch, seed)
+    # the busy-share runs: four 128-token prompts (cancelled once measured)
+    short = [(p[:128], {**kw, "temperature": 0.0, "max_new_tokens": 256})
+             for p, kw in a_reqs[:4]]
+    out = {}
+
+    # (a) paged, chunked admission through the prefix cache
+    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                             prefill_chunk_size=PAGE, prefix_cache=True, rt=rt, seed=seed + 3,
+                             **ENGINE_KW)
+    a_done, out["a"] = drive(torch, eng, a_reqs, "(a) paged, chunked + prefix cache")
+    require(eng.pages_in_use == 0, f"(a): {eng.pages_in_use} pages in use after the drain")
+    require(eng.stats["prefix_hits"] > 0, "(a): no prefix hit")
+    eng.clear_prefix_cache()
+    require(len(eng._free_pages) == POOL_PAGES - 1,
+            f"(a): {len(eng._free_pages)} pages free after clearing the prefix cache")
+    log(f"    prefix hits {eng.stats['prefix_hits']}, {eng.stats['prefix_tokens_reused']} tokens "
+        f"reused; every usable page free after the drain and clear_prefix_cache()")
+    out["a"]["busy"] = chunk_busy(torch, eng, short, "(a)")
+    del eng
+
+    # (b) paged, whole-prompt admission, in-loop speculation, and the same
+    # requests without it
+    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                             speculative_k=8, speculative_ngram=3, rt=rt, **ENGINE_KW)
+    b_done, out["b"] = drive(torch, eng, b_reqs, "(b) paged, speculative k=8")
+    require(eng.pages_in_use == 0, f"(b): {eng.pages_in_use} pages in use after the drain")
+    out["b"]["spec_accepted"] = eng.stats["spec_accepted"]
+    out["b"]["busy"] = chunk_busy(torch, eng, [(p, {**kw, "max_new_tokens": 256})
+                                               for p, kw in b_reqs], "(b)")
+    del eng
+    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE, rt=rt,
+                             **ENGINE_KW)
+    b_plain, out["b_plain"] = drive(torch, eng, b_reqs, "(b') the same without speculation")
+    del eng
+    shared = []
+    for x, y in zip(b_done, b_plain):
+        n = 0
+        while n < min(len(x.generated), len(y.generated)) and x.generated[n] == y.generated[n]:
+            n += 1
+        shared.append((n, len(x.generated)))
+    out["b"]["tokens_shared_with_plain"] = shared
+    log(f"    (b) accepted {out['b']['spec_accepted']} drafted tokens; tokens equal to the run "
+        f"without speculation (common prefix / emitted): {shared}")
+
+    # (c) the dense engine: chunked admission, lookahead
+    eng = ServingEngine(load, params, prefill_chunk_size=PAGE, lookahead=True, rt=rt,
+                        **ENGINE_KW)
+    c_reqs = [a_reqs[i] for i in (0, 1, 2, 4)]
+    c_done, out["c"] = drive(torch, eng, c_reqs, "(c) dense, chunked + lookahead")
+    out["c"]["busy"] = chunk_busy(torch, eng, short, "(c)")
+    del eng
+
+    ca, cb, cc = (out[k]["launches"] for k in ("a", "b", "c"))
+    for kern in ("int4g32_gemv", "int4g32_mma", "kv_pool_write_idx",
+                 "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
+        require(ca[kern] > 0, f"(a) did not launch {kern}")
+    for kern in ("flash_attention_chunk_paged", "flash_attention_prefill"):
+        require(cb[kern] > 0, f"(b) did not launch {kern}")
+    for kern in ("flash_attention_prefill_chunk",) + DENSE_KERNELS:
+        require(cc[kern] > 0, f"(c) did not launch {kern}")
+    for run, c in (("a", ca), ("b", cb)):
+        require(all(c[k] == 0 for k in DENSE_KERNELS), f"({run}) launched B3/B4: {c}")
+    require(all(cc[k] == 0 for k in PAGED_KERNELS[:3]), f"(c) launched a paged kernel: {cc}")
+
+    gaps = {}
+    for run, done, reqs in (("a", a_done, a_reqs), ("b", b_done, b_reqs),
+                            ("c", c_done, c_reqs)):
+        gaps[run] = greedy_gaps(torch, params, cfg, done, reqs)
+    worst = max(g[0] for g in gaps.values())
+    control = min(g[1] for g in gaps.values())
+    out["greedy_gap"] = {k: {"emitted": v[0], "shifted_control": v[1]} for k, v in gaps.items()}
+    log(f"  greedy consistency (dense unpaged unchunked prefill_chunk): largest gap of an "
+        f"emitted token " + ", ".join(f"({k}) {v[0]:.3e}" for k, v in gaps.items())
+        + f"; shifted-stream control " + ", ".join(f"({k}) {v[1]:.3e}" for k, v in gaps.items())
+        + f" (limit {GREEDY_GAP_TOL:.1e}; the control must exceed it)")
+    require(worst <= GREEDY_GAP_TOL, f"greedy consistency: gap {worst} > {GREEDY_GAP_TOL}")
+    require(control > GREEDY_GAP_TOL,
+            f"greedy consistency: the shifted control passes ({control} <= {GREEDY_GAP_TOL})")
+    counts = {k: ca[k] + cb[k] + cc[k] for k in PAGED_KERNELS}
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -907,6 +1343,7 @@ def main() -> int:
     mm_rows, crossover = check_matmul(torch)
     int8_rows = check_int8_matmul(torch)
     att = check_attention(torch)
+    att.update(check_paged_attention(torch))
 
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -917,6 +1354,10 @@ def main() -> int:
 
     log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, 28 layers")
     chat_counts, chat_perf = chat_slice(torch, smi)
+    torch.cuda.empty_cache()
+
+    log("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
+    engine_counts, engine_perf = engines_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -942,6 +1383,13 @@ def main() -> int:
         ("kv_cache_write_idx", att_src, f"{pa}:427", att["kv_cache_write_idx"], counts),
         ("flash_attention_decode", att_src, f"{pa}:207", att["flash_attention_decode"], counts),
         ("flash_attention_prefill", att_src, f"{pa}:43", att["flash_attention_prefill"], counts),
+        ("flash_attention_prefill_chunk", att_src, f"{pa}:43",
+         att["flash_attention_prefill_chunk"], engine_counts),
+        ("kv_pool_write_idx", att_src, f"{pa}:480", att["kv_pool_write_idx"], engine_counts),
+        ("flash_attention_decode_paged", att_src, f"{pa}:787",
+         att["flash_attention_decode_paged"], engine_counts),
+        ("flash_attention_chunk_paged", att_src, f"{pa}:951",
+         att["flash_attention_chunk_paged S=9"], engine_counts),
     ]
     entries = []
     for name, src, replaces, r, run_counts in specs:
@@ -954,7 +1402,7 @@ def main() -> int:
                         "shape": shape})
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "b8_b1_crossover": crossover,
               "attention": att, "e2e_rel_err": e2e, "int4g32_28_layers": perf,
-              "chat_28_layers": chat_perf}
+              "chat_28_layers": chat_perf, "engines_28_layers": engine_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

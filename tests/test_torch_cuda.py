@@ -114,6 +114,107 @@ def test_kv_write_matches_plain(gen):
     assert torch.equal(cache, ref)
 
 
+def test_kv_write_clamps_at_the_wall(gen):
+    """starts == T and past it land on slot T - 1, as JAX's write clamps."""
+    L, B, G, T, D = 2, 2, 2, 16, 128
+    cache = torch.randn((L, B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    ref = cache.clone()
+    new = torch.randn((B, G, D), device="cuda", generator=gen).to(torch.bfloat16)
+    starts = torch.tensor([T, T + 5], dtype=torch.int32, device="cuda")
+    A.kv_cache_write_idx(cache, new, 1, starts)
+    A.kv_cache_write_idx_plain(ref, new, 1, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref) and torch.equal(cache[1, :, :, T - 1], new)
+
+
+def _paged_pool(gen, L, NP, G, P, D=128):
+    shape = (L, NP, G, P, D)
+    return (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16),
+            torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16))
+
+
+def _scattered_table(gen, B, MP, NP):
+    """Distinct pages per row, page 0 (garbage) never used."""
+    perm = torch.randperm(NP - 1, device="cuda", generator=gen)[: B * MP] + 1
+    return perm.reshape(B, MP).to(torch.int32)
+
+
+@pytest.mark.parametrize("P", [16, 256])
+def test_pool_write_matches_plain(gen, P):
+    L, G, D, MP = 3, 2, 128, 4
+    B, NP = 4, 4 * MP + 1
+    pool, _ = _paged_pool(gen, L, NP, G, P)
+    ref = pool.clone()
+    pt = _scattered_table(gen, B, MP, NP)
+    new = torch.randn((B, G, D), device="cuda", generator=gen).to(torch.bfloat16)
+    starts = torch.tensor([0, P + 3, MP * P - 1, MP * P + 40], dtype=torch.int32, device="cuda")
+    A.kv_pool_write_idx(pool, new, 2, pt, starts)
+    A.kv_pool_write_idx_plain(ref, new, 2, pt, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(pool, ref)
+
+
+@pytest.mark.parametrize("P", [16, 256])
+@pytest.mark.parametrize("Hg", [16, 4])
+def test_decode_paged_matches_plain(gen, P, Hg):
+    """Lengths 0, mid, capacity - 1 and past capacity, and a length-0
+    padding row whose table is all garbage page; read from layer 1."""
+    L, G, D, MP = 2, 2, 128, 4
+    B, NP = 5, 5 * MP + 1
+    kp, vp = _paged_pool(gen, L, NP, G, P)
+    pt = _scattered_table(gen, B, MP, NP)
+    pt[4] = 0
+    lengths = torch.tensor([0, P + 5, MP * P - 1, MP * P + 30, 0], dtype=torch.int32,
+                           device="cuda")
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    sm = 1 / math.sqrt(D)
+    got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
+    torch.cuda.synchronize()
+    want = A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("P", [16, 256])
+@pytest.mark.parametrize("S", [1, 9, 32])
+def test_chunk_paged_matches_plain(gen, P, S):
+    """Starts 0, mid-page, ending at capacity and past it; with and without
+    a row map; read from layer 1."""
+    L, G, Hg, D, MP = 2, 2, 16, 128, 4
+    Bt, B, NP = 5, 4, 5 * MP + 1
+    kp, vp = _paged_pool(gen, L, NP, G, P)
+    pt = _scattered_table(gen, Bt, MP, NP)
+    starts = torch.tensor([0, P + 3, MP * P - S, MP * P - 1], dtype=torch.int32, device="cuda")
+    rmap = torch.tensor([4, 0, 2, 1], dtype=torch.int32, device="cuda")
+    q = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    sm = 1 / math.sqrt(D)
+    for table, row_map in ((pt[:B].contiguous(), None), (pt, rmap)):
+        got = A.flash_attention_chunk_paged(q, kp, vp, 1, table, starts, sm, row_map)
+        torch.cuda.synchronize()
+        want = A.flash_attention_chunk_paged_plain(q, kp, vp, 1, table, starts, sm, row_map)
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("Hg", [16, 4])
+def test_prefill_chunk_form_matches_plain(gen, Hg):
+    """A compact batch of 3 chunk rows against a 4-row cache of T = 512 at
+    chunk offsets, with a row map and a length-0 padding row."""
+    G, D, T, S = 2, 128, 512, 64
+    q = torch.randn((3, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn((4, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((4, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    starts = torch.tensor([256, 0, 448], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([256 + 40, 64, 0], dtype=torch.int32, device="cuda")
+    rmap = torch.tensor([3, 1, 0], dtype=torch.int32, device="cuda")
+    sm = 1 / math.sqrt(D)
+    got = A.flash_attention_prefill_chunk(q, k, v, lengths, starts, sm, rmap)
+    torch.cuda.synchronize()
+    want = A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap)
+    assert _rel(got, want) <= 1e-2
+    assert not got[2].float().any()
+
+
 def test_attention_kernels_take_bf16_only(gen):
     q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen)
     k = torch.randn((1, 2, 8, 128), device="cuda", generator=gen)

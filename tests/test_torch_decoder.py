@@ -2,8 +2,9 @@
 checkpoint (built as tests/test_decoder.py builds one) saved once and loaded
 by both packages' ``from_pretrained``; greedy ``generate`` yields the same
 text stream and returns the same final text, for none / int8 / int4g32.
-Also: ``speculative_k > 0``, a path that is not a directory, and
-``device=None`` without CUDA all raise."""
+Greedy ``generate(speculative_k=...)`` (prompt-lookup speculation) gives
+JAX's text and the plain greedy text.  Also: a path that is not a directory,
+and ``device=None`` without CUDA, raise."""
 import numpy as np
 import pytest
 
@@ -103,10 +104,25 @@ def test_save_pretrained_round_trips(ckpt, tmp_path):
         _run(td2.generate("hello", max_generated_tokens=5, temperature=0.0))
 
 
-def test_what_the_port_refuses(ckpt, tmp_path, monkeypatch):
+def test_speculative_generate_equals_jax(ckpt):
+    """Greedy generation with k = 4 drafts: the same text stream as JAX's
+    speculative decoder and as the port's own plain greedy run, with
+    verify steps taken."""
+    jd = JDecoder.from_pretrained(ckpt, rt=TpuRuntimeConfig(use_pallas=False))
     td = GLMDecoder.from_pretrained(ckpt, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative_k"):
-        td.generate("hello", temperature=0.0, speculative_k=2)
+    verified = 0
+    for prompt in PROMPTS:
+        kw = dict(max_generated_tokens=16, temperature=0.0)
+        want = _run(jd.generate(prompt, speculative_k=4, speculative_ngram=2, **kw))
+        got = _run(td.generate(prompt, speculative_k=4, speculative_ngram=2, **kw))
+        stats = dict(td.spec_stats)
+        assert stats == jd.spec_stats, prompt
+        verified += stats["verify_steps"]
+        assert got == want == _run(td.generate(prompt, **kw)), prompt
+    assert verified > 0
+
+
+def test_what_the_port_refuses(ckpt, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="local"):
         GLMDecoder.from_pretrained("THUDM/chatglm2-6b")  # a hub id: no network
     (tmp_path / "file").write_text("x")

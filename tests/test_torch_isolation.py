@@ -49,7 +49,10 @@ def test_port_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"chatglm_q_tpu_torch.loader", "chatglm_q_tpu_torch.serving.decoder",
             "chatglm_q_tpu_torch.tokenizer.sp_core", "chatglm_q_tpu_torch.ops.dyn_matmul",
-            "chatglm_q_tpu_torch.ops.int8_matmul"} <= set(mods)
+            "chatglm_q_tpu_torch.ops.int8_matmul", "chatglm_q_tpu_torch.serving.engine",
+            "chatglm_q_tpu_torch.serving.paged_engine", "chatglm_q_tpu_torch.serving.speculative",
+            "chatglm_q_tpu_torch.models.paged_kv", "chatglm_q_tpu_torch.models.spec_decode",
+            "chatglm_q_tpu_torch.utils.logging"} <= set(mods)
     code = ("import sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
@@ -64,6 +67,7 @@ def test_port_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("module", ["chatglm_q_tpu_torch.loader",
                                     "chatglm_q_tpu_torch.serving.decoder",
+                                    "chatglm_q_tpu_torch.serving.paged_engine",
                                     "chatglm_q_tpu_torch.tokenizer",
                                     "chatglm_q_tpu_torch.ops.linear"])
 def test_no_forbidden_package_in_sys_modules_after_import(module):
@@ -82,7 +86,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from chatglm_q_tpu_torch import ChatGLM2Config
     from chatglm_q_tpu_torch.bench import random_quantized_params
     from chatglm_q_tpu_torch.convert import params_from_numpy
+    from chatglm_q_tpu_torch import GLMLoadConfig
     from chatglm_q_tpu_torch.models.chatglm2 import init_kv_cache
+    from chatglm_q_tpu_torch.models.paged_kv import init_paged_kv_cache
+    from chatglm_q_tpu_torch.serving import PagedServingEngine, ServingEngine
 
     import numpy as np
 
@@ -96,10 +103,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         params_from_numpy({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         random_quantized_params(cfg, "int4g32", torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_paged_kv_cache(cfg, 1, 4, 16, 8)
     # asked for explicitly, the CPU works
     assert init_kv_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
+    assert init_paged_kv_cache(cfg, 1, 4, 16, 8, device="cpu").k_pool.device.type == "cpu"
     params = random_quantized_params(cfg, "int4g32", torch.Generator().manual_seed(0), "cpu")
     assert params["layers"]["q_proj"]["weight"].shape == (1, 32, 64)
+    # the engines: device=None means CUDA and raises without it; params on
+    # another device than the one asked for raise
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32")
+    for engine, kw in ((ServingEngine, {}), (PagedServingEngine, dict(num_pages=4, page_size=8))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(load, params, max_batch=1, max_seq_len=16, **kw)
+        with pytest.raises(ValueError, match="params live on cpu"):
+            engine(load, params, max_batch=1, max_seq_len=16, device="meta", **kw)
+        eng = engine(load, params, max_batch=1, max_seq_len=16, device="cpu", **kw)
+        assert eng.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
