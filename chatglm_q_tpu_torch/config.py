@@ -116,6 +116,16 @@ class TorchRuntimeConfig:
         package, where the flag lives in its Pallas path only, it also
         selects the dynamic plain versions under ``use_kernels=False``: the
         reference path the kernels are held against.
+    decode_attn_v2: the dense decode step attends through B12
+        (``ops/attention.py::flash_attention_decode_v2``: the cache split
+        over T across blocks, q prescaled in its dtype, f32 probabilities)
+        instead of B4.  Read by ``decode_step``, ``multi_step_decode``,
+        ``GLMDecoder`` and ``ServingEngine``; the paged engine ignores it,
+        as in the JAX package (chatglm_q_tpu/config.py:164).
+    remat_layers: ``models/chatglm2.py::forward`` recomputes each layer in
+        the backward pass (``torch.utils.checkpoint``) instead of keeping
+        its activations: training memory drops from O(layers) to O(1)
+        layers for one more forward (chatglm_q_tpu/config.py:180).
 
     The JAX package's block sizes (attn_block_q/k, decode_block_k) have no
     counterpart: the CUDA kernels' tiles are compile-time constants in
@@ -126,6 +136,8 @@ class TorchRuntimeConfig:
     use_kernels: Optional[bool] = None
     use_flash_attention: Optional[bool] = None
     dynamic_int8: bool = False
+    decode_attn_v2: bool = False
+    remat_layers: bool = False
 
     def kernels_enabled(self, device: torch.device) -> bool:
         if self.use_kernels is not None:

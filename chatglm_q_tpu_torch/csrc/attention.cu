@@ -18,15 +18,16 @@
 // The TPU kernel rewrites an aligned 8-row window; here one block writes the
 // row itself, so any page size P works.
 //
-// decode_attn_kernel replaces pallas_attention.py:_decode_kernel
+// decode_attn_kernel<false> replaces pallas_attention.py:_decode_kernel
 // (flash_attention_decode / _idx).  Bound by bytes: it reads each valid K/V
 // row once and does ~4 operations per byte.  One block per (b, g): the 16
 // query heads of a KV group share every K/V row the block stages into
 // shared memory, and only slots 0..lengths[b] (inclusive) are read — the
 // O(length) property.  Online softmax in f32; probabilities are rounded to
 // the value dtype before the PV product.  At batch 1 that is B*G = 2 blocks,
-// so a long cache leaves most SMs idle: splitting over T (flash-decoding) is
-// later work.
+// so a long cache leaves most SMs idle: the span grid of B12 below, with
+// B4's numerics, is the planned answer (a launch with part set, and the
+// merge kernel).
 //
 // decode_paged_kernel replaces pallas_attention.py:_decode_paged_kernel
 // (flash_attention_decode_paged, stride 1 / phase 0).  Bound by bytes, as
@@ -58,6 +59,18 @@
 // pages (the same staging answer to the TPU's 256 KB of page buffers), with
 // B10's numerics: q pre-scaled and rounded to bf16, probabilities f32.
 // Bound by bytes at S = 9 (each valid K/V row read once per query tile).
+//
+// decode_attn_kernel<true> + decode_merge_kernel replace
+// pallas_attention.py:_decode_v2_kernel (flash_attention_decode_v2, the
+// decode_attn_v2 option).  B4's body with B12's numerics: q scaled by
+// sm_scale and rounded to bf16 before the dot, probabilities f32 in the PV
+// product, a row with no valid slot outputs 0.  Bound by bytes, like B4; the
+// TPU kernel's point is reads that grow with the length, not with T.  Here
+// the grid runs over (b, g, span of rows): a span at or past lengths[b] + 1
+// exits before it reads anything, the others write f32 (m, l, acc)
+// partials, and a second small kernel merges them in span order.  At batch
+// 1-4, where B4's one block per (b, g) runs 2-8 blocks, the spans give the
+// card up to B*G*T/span blocks; the wrapper picks the span.
 #include "common.cuh"
 
 namespace {
@@ -86,28 +99,54 @@ constexpr int ATT_THREADS = 256;
 constexpr int DEC_TK = 32;        // KV rows per tile (= warp size: one lane per row)
 constexpr int DEC_MAXH = 16;      // query heads per KV group
 constexpr int DEC_HPT = DEC_MAXH * ATT_D / ATT_THREADS;  // heads per thread in PV
+constexpr int VEC = 8;            // bf16 elements per 16-byte load
 
 using bf16 = __nv_bfloat16;
 
+// 8 bf16 (one 16-byte load) to f32
+__device__ __forceinline__ void unpack_bf16x8(const uint4& u, float* dst) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < VEC / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    dst[2 * j] = f.x;
+    dst[2 * j + 1] = f.y;
+  }
+}
+
+// Block (b*G + g, sp) attends rows [sp*span, min((sp+1)*span, n_valid)) of
+// its (b, g) cache.  kV2 picks B12's numerics (q pre-scaled and rounded to
+// bf16, probabilities f32 in the PV product) over B4's (the score scaled in
+// f32, probabilities rounded to bf16).  With part null (B4: one span of Tc
+// rows) the block writes the normalised output; otherwise it writes the f32
+// partials (m, l, unnormalised acc) of its Hg heads for decode_merge_kernel,
+// and a block whose span starts at or past n_valid exits at once.
+template <bool kV2>
 __global__ void __launch_bounds__(ATT_THREADS)
 decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ lengths, bf16* __restrict__ out, int G, int Hg, int Tc,
-                   float sm_scale) {
+                   const bf16* __restrict__ v, const int* __restrict__ lengths,
+                   bf16* __restrict__ out, float* __restrict__ part, int G, int Hg, int Tc,
+                   int span, int nspan, float sm_scale) {
   __shared__ float qs[DEC_MAXH][ATT_D];
   __shared__ float ks[DEC_TK][ATT_D + 1];
   __shared__ float vs[DEC_TK][ATT_D];
   __shared__ float ps[DEC_MAXH][DEC_TK];
   __shared__ float m_s[DEC_MAXH], l_s[DEC_MAXH], alpha_s[DEC_MAXH];
 
-  const int bg = blockIdx.x;  // b * G + g
+  const int bg = blockIdx.x, sp = blockIdx.y;  // bg = b * G + g
   const int b = bg / G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_valid = min(lengths[b] + 1, Tc);  // slots 0..lengths[b] inclusive
+  const int t_begin = sp * span;
+  if (part && t_begin >= n_valid) return;  // O(length): spans past the row read nothing
+  const int t_end = min(t_begin + span, n_valid);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* qb = q + (size_t)bg * Hg * ATT_D;
   const bf16* kb = k + (size_t)bg * Tc * ATT_D;
   const bf16* vb = v + (size_t)bg * Tc * ATT_D;
 
-  for (int i = tid; i < Hg * ATT_D; i += ATT_THREADS) qs[i / ATT_D][i % ATT_D] = to_f32(qb[i]);
+  // B12: q pre-scaled in its own dtype, as the TPU kernel's wrapper does
+  for (int i = tid; i < Hg * ATT_D; i += ATT_THREADS)
+    qs[i / ATT_D][i % ATT_D] = kV2 ? round_to<bf16>(to_f32(qb[i]) * sm_scale) : to_f32(qb[i]);
   if (tid < DEC_MAXH) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -117,12 +156,23 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < DEC_HPT; ++j) acc[j] = 0.f;
 
-  for (int t0 = 0; t0 < n_valid; t0 += DEC_TK) {
-    for (int i = tid; i < DEC_TK * ATT_D; i += ATT_THREADS) {
-      const int t = i / ATT_D, dd = i % ATT_D, pos = t0 + t;
-      const bool ok = pos < n_valid;
-      ks[t][dd] = ok ? to_f32(kb[(size_t)pos * ATT_D + dd]) : 0.f;
-      vs[t][dd] = ok ? to_f32(vb[(size_t)pos * ATT_D + dd]) : 0.f;
+  constexpr int CH = ATT_D / VEC;  // 16-byte chunks per row
+  for (int t0 = t_begin; t0 < t_end; t0 += DEC_TK) {
+    for (int i = tid; i < DEC_TK * CH; i += ATT_THREADS) {
+      const int t = i / CH, c = i % CH, pos = t0 + t;
+      float kf[VEC], vf[VEC];
+      if (pos < t_end) {
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(kb + (size_t)pos * ATT_D + c * VEC), kf);
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(vb + (size_t)pos * ATT_D + c * VEC), vf);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) kf[j] = vf[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        ks[t][c * VEC + j] = kf[j];
+        vs[t][c * VEC + j] = vf[j];
+      }
     }
     __syncthreads();
     for (int i = tid; i < Hg * DEC_TK; i += ATT_THREADS) {
@@ -130,7 +180,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float s = 0.f;
 #pragma unroll 8
       for (int dd = 0; dd < ATT_D; ++dd) s = fmaf(qs[h][dd], ks[t][dd], s);
-      ps[h][t] = (t0 + t < n_valid) ? s * sm_scale : CHATGLM_MASK_VALUE;
+      ps[h][t] = (t0 + t < t_end) ? (kV2 ? s : s * sm_scale) : CHATGLM_MASK_VALUE;
     }
     __syncthreads();
     for (int h = warp; h < Hg; h += ATT_THREADS / 32) {
@@ -140,7 +190,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float alpha = expf(m_prev - m_next);
       const float p = expf(s - m_next);
       const float psum = warp_sum(p);
-      ps[h][lane] = round_to<bf16>(p);
+      ps[h][lane] = kV2 ? p : round_to<bf16>(p);  // B12: f32 into the PV product
       if (lane == 0) {
         m_s[h] = m_next;
         l_s[h] = alpha * l_s[h] + psum;
@@ -160,13 +210,47 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
   }
+  // partial layout per (bg, sp): Hg rows of [m, l, acc[0..D)]
+  float* pb = part ? part + ((size_t)bg * nspan + sp) * Hg * (ATT_D + 2) : nullptr;
 #pragma unroll
   for (int j = 0; j < DEC_HPT; ++j) {
     const int h = hs + j * (ATT_THREADS / ATT_D);
-    if (h < Hg) {
+    if (h >= Hg) continue;
+    if (!pb) {
       const float l = l_s[h];
       out[((size_t)bg * Hg + h) * ATT_D + d] = from_f32<bf16>(acc[j] / (l == 0.f ? 1.f : l));
+    } else {
+      pb[h * (ATT_D + 2) + 2 + d] = acc[j];
+      if (d == 0) {
+        pb[h * (ATT_D + 2)] = m_s[h];
+        pb[h * (ATT_D + 2) + 1] = l_s[h];
+      }
     }
+  }
+}
+
+// One block per (b, g): merge the partials of the spans that ran, in span
+// order (deterministic).  A row with no valid slot outputs 0, as the TPU
+// kernel's l == 0 guard gives.
+__global__ void __launch_bounds__(ATT_THREADS)
+decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ lengths,
+                    bf16* __restrict__ out, int G, int Hg, int Tc, int span, int nspan) {
+  const int bg = blockIdx.x, b = bg / G;
+  const int n_valid = min(lengths[b] + 1, Tc);
+  const int ran = n_valid > 0 ? (n_valid + span - 1) / span : 0;
+  const float* pb = part + (size_t)bg * nspan * Hg * (ATT_D + 2);
+  for (int i = threadIdx.x; i < Hg * ATT_D; i += ATT_THREADS) {
+    const int h = i / ATT_D, d = i % ATT_D;
+    float m = -INFINITY;
+    for (int s = 0; s < ran; ++s) m = fmaxf(m, pb[((size_t)s * Hg + h) * (ATT_D + 2)]);
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < ran; ++s) {
+      const float* r = pb + ((size_t)s * Hg + h) * (ATT_D + 2);
+      const float w = expf(r[0] - m);
+      l = fmaf(r[1], w, l);
+      a = fmaf(r[2 + d], w, a);
+    }
+    out[((size_t)bg * Hg + h) * ATT_D + d] = from_f32<bf16>(ran ? a / (l == 0.f ? 1.f : l) : 0.f);
   }
 }
 
@@ -297,19 +381,6 @@ int launch_prefill(const bf16* q, const bf16* k, const bf16* v, const int* lengt
 // ---------------------------------------------------------------------------
 // Paged pool: write, ragged decode, chunk attention
 // ---------------------------------------------------------------------------
-
-constexpr int VEC = 8;  // bf16 elements per 16-byte load
-
-// 8 bf16 (one 16-byte load) to f32
-__device__ __forceinline__ void unpack_bf16x8(const uint4& u, float* dst) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < VEC / 2; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    dst[2 * j] = f.x;
-    dst[2 * j + 1] = f.y;
-  }
-}
 
 // Stage K/V rows t0 .. t0+TK-1 of KV group g into shared memory (f32), each
 // row read from the page the table maps its position to; rows at or past
@@ -544,9 +615,10 @@ int chatglm_decode_attention(const void* q, const void* k, const void* v, const 
                              void* out, int B, int G, int Hg, int T, int D, float sm_scale,
                              void* stream) {
   if (D != ATT_D || Hg > DEC_MAXH) return (int)cudaErrorInvalidValue;
-  decode_attn_kernel<<<B * G, ATT_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  decode_attn_kernel<false><<<B * G, ATT_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), G, Hg, T, sm_scale);
+      static_cast<const int*>(lengths), static_cast<bf16*>(out), nullptr, G, Hg, T, T, 1,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -607,6 +679,27 @@ int chatglm_chunk_paged(const void* q, const void* k, const void* v, const void*
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(page_table), static_cast<const int*>(starts),
       static_cast<bf16*>(out), S, G, Hg, P, MP, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// q, out (B, G, Hg, D); k, v (B, G, T, D) layer views; lengths (B,) int32 =
+// the cache length before this token; part holds B*G*ceil(T/span)*Hg*(D+2)
+// floats.  All bf16; D == 128, Hg <= 16.
+int chatglm_decode_v2(const void* q, const void* k, const void* v, const void* lengths, void* part,
+                      void* out, int B, int G, int Hg, int T, int D, int span, float sm_scale,
+                      void* stream) {
+  if (D != ATT_D || Hg > DEC_MAXH || span < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int nspan = (T + span - 1) / span;
+  decode_attn_kernel<true><<<dim3(B * G, nspan), ATT_THREADS, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(lengths), nullptr, static_cast<float*>(part), G, Hg, T, span, nspan,
+      sm_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_merge_kernel<<<B * G, ATT_THREADS, 0, s>>>(
+      static_cast<const float*>(part), static_cast<const int*>(lengths), static_cast<bf16*>(out),
+      G, Hg, T, span, nspan);
   return (int)cudaGetLastError();
 }
 

@@ -103,6 +103,245 @@ __device__ __forceinline__ uint32_t nibbles_hi_s8(uint32_t w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
+// Eight neighbouring elements of a row (16 bytes of bf16, 32 of f32) as
+// floats; p is 16-byte aligned.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    dst[2 * j] = f.x;
+    dst[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// The transposed (grad_x) tensor-core kernels of int8_matmul.cu and
+// int4_matmul.cu: out (M, K) = A (M, N) · W (K, N)ᵀ, the contraction over N.
+// A block holds a 64 x 128 output tile (8 warps: 2 along M, 4 along K); each
+// stage puts 64 contraction columns of A and of the block's 128 weight rows
+// into shared memory as bf16, both N-contiguous.  The m16n8k16 B fragment is
+// two neighbouring contraction elements of one output column: one 32-bit
+// word of a weight row, so W needs no transpose.
+// ---------------------------------------------------------------------------
+constexpr int TMM_BM = 64;               // rows of g / out per block
+constexpr int TMM_BK = 128;              // output columns (weight rows) per block
+constexpr int TMM_BN = 64;               // contraction columns per stage
+constexpr int TMM_STRIDE = TMM_BN + 8;   // bf16 per smem row (pad: no bank conflicts)
+constexpr int TMM_THREADS = 256;         // 8 warps; a compile-time stride lets staging loops unroll
+
+// Stage A rows m_base..+63, columns n0..+63 into as.  With fold, each
+// element is g * fold[n] in bf16, the scale rounded to bf16 first (the
+// plain version's ``g * scale.to(g.dtype)``); without, g as it is.  Needs
+// N % 16 == 0 and 16-byte aligned rows.
+__device__ __forceinline__ void tmm_stage_a(const __nv_bfloat16* __restrict__ g,
+                                            const float* __restrict__ fold,
+                                            __nv_bfloat16* as, int m_base, int n0, int M, int N) {
+  for (int i = threadIdx.x; i < TMM_BM * (TMM_BN / 8); i += blockDim.x) {
+    const int r = i / (TMM_BN / 8), c = (i % (TMM_BN / 8)) * 8;
+    const int row = m_base + r, n = n0 + c;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < M && n < N) {
+      v = *reinterpret_cast<const uint4*>(g + (size_t)row * N + n);
+      if (fold) {
+        float gv[8], s[8];
+        load8(g + (size_t)row * N + n, gv);
+        load8(fold + n, s);
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[j] = bf16x2_bits(gv[2 * j] * round_to<__nv_bfloat16>(s[2 * j]),
+                             gv[2 * j + 1] * round_to<__nv_bfloat16>(s[2 * j + 1]));
+        v = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(as + r * TMM_STRIDE + c) = v;
+  }
+}
+
+// acc (this warp's 2 x 4 m16n8 tiles) += as (64 x 64) · bs (128 x 64)ᵀ.
+__device__ __forceinline__ void tmm_product(const __nv_bfloat16* as, const __nv_bfloat16* bs,
+                                            float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int kk = 0; kk < TMM_BN; kk += 16) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const __nv_bfloat16* base = as + (wm + mi * 16 + gid) * TMM_STRIDE + kk + tig * 2;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * TMM_STRIDE);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * TMM_STRIDE + 8);
+    }
+    uint32_t b[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const __nv_bfloat16* pb = bs + (wn + ni * 8 + gid) * TMM_STRIDE + kk + tig * 2;
+      b[ni][0] = *reinterpret_cast<const uint32_t*>(pb);
+      b[ni][1] = *reinterpret_cast<const uint32_t*>(pb + 8);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// Write the block's output tile (bf16); K is even, so a column pair is
+// either inside K or past it.
+__device__ __forceinline__ void tmm_store(const float (&acc)[2][4][4], __nv_bfloat16* out,
+                                          int m_base, int k_base, int M, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int row = m_base + wm + mi * 16 + gid;
+      const int col = k_base + wn + ni * 8 + tig * 2;
+      if (col >= K) continue;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * K + col) =
+            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
+      if (row + 8 < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * K + col) =
+            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+// The transposed kernels' bodies, one for B13 (int8) and B14 (int4g32).  A
+// weight view W (int8_matmul.cu's Int8TView, int4_matmul.cu's Int4TView)
+// says how its rows become numbers:
+//   W::kCols                  output columns (weight rows) one warp of
+//                             t_gemv_kernel owns, inside one scale group
+//   W::kFoldG                 the scale folds into g (B13) or into the
+//                             weights (B14)
+//   w.fold<T>(n, s)           (kFoldG) the 8 scales at n, rounded to T
+//   w.cols<T>(k0, n, N, wq)   the weights of columns k0..k0+kCols-1 at
+//                             n..n+7, as floats (with the scale rounded to T
+//                             under !kFoldG)
+//   w.fold_ptr()              the f32 scale tmm_stage_a folds into g, or null
+//   w.stage_b(bs, k_base, n0, K, N)  the bf16 TMM_BK x TMM_BN weight tile
+namespace {
+
+// CUDA-core form (f32 g, or M <= 16): one warp per kCols output columns.
+// Weight row k is N-contiguous, so the lanes read 8 neighbouring elements of
+// each of the warp's rows (8-byte loads along N), every g load serves all
+// kCols columns, and the sums over N run in registers and then across lanes
+// in a fixed order.  Bound by the weight bytes.
+template <typename W, typename T, int MT>
+__global__ void __launch_bounds__(256)
+t_gemv_kernel(const T* __restrict__ g, const W w, T* __restrict__ out, int M, int K, int N) {
+  constexpr int R = W::kCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = (blockIdx.x * 8 + warp) * R;  // K % 32 == 0: all R columns exist
+  const int m0 = blockIdx.y * MT;
+  if (k0 >= K) return;
+  const T* gr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) gr[m] = g + (size_t)min(m0 + m, M - 1) * N;
+  float acc[R][MT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
+  for (int n = lane * 8; n < N; n += 256) {
+    float wq[R][8], s[8];
+    w.template cols<T>(k0, n, N, wq);
+    if constexpr (W::kFoldG) w.template fold<T>(n, s);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float gv[8];
+      load8(gr[m] + n, gv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float gs = gv[j];
+        if constexpr (W::kFoldG) gs = round_to<T>(gv[j] * s[j]);  // g * scale in g's dtype
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r][m] = fmaf(gs, wq[r][j], acc[r][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float v = warp_sum(acc[r][m]);
+      if (lane == 0 && m0 + m < M) out[(size_t)(m0 + m) * K + k0 + r] = from_f32<T>(v);
+    }
+}
+
+template <typename W, typename T, int MT>
+void launch_t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t stream) {
+  const dim3 grid((K / W::kCols + 7) / 8, (M + MT - 1) / MT);
+  t_gemv_kernel<W, T, MT><<<grid, 256, 0, stream>>>(g, w, out, M, K, N);
+}
+
+template <typename W, typename T>
+void t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t stream) {
+  if (M == 1)
+    launch_t_gemv<W, T, 1>(g, w, out, M, K, N, stream);
+  else if (M == 2)
+    launch_t_gemv<W, T, 2>(g, w, out, M, K, N, stream);
+  else if (M <= 4)
+    launch_t_gemv<W, T, 4>(g, w, out, M, K, N, stream);
+  else
+    launch_t_gemv<W, T, 8>(g, w, out, M, K, N, stream);
+}
+
+// Tensor-core form (bf16 g, M > 16): the TMM tiles above.  The scale (B13)
+// folds into the g tile as it is staged; the weight view stages its rows as
+// bf16 (B13: exact int8 converts; B14: bf16(q * s)).
+template <typename W>
+__global__ void __launch_bounds__(TMM_THREADS)
+t_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w, __nv_bfloat16* __restrict__ out,
+             int M, int K, int N) {
+  __shared__ __align__(16) __nv_bfloat16 as[TMM_BM * TMM_STRIDE];
+  __shared__ __align__(16) __nv_bfloat16 bs[TMM_BK * TMM_STRIDE];
+  const int m_base = blockIdx.y * TMM_BM, k_base = blockIdx.x * TMM_BK;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += TMM_BN) {
+    tmm_stage_a(g, w.fold_ptr(), as, m_base, n0, M, N);
+    w.stage_b(bs, k_base, n0, K, N);
+    __syncthreads();
+    tmm_product(as, bs, acc);
+    __syncthreads();
+  }
+  tmm_store(acc, out, m_base, k_base, M, K);
+}
+
+template <typename W>
+void t_mma(const __nv_bfloat16* g, const W& w, __nv_bfloat16* out, int M, int K, int N,
+           cudaStream_t stream) {
+  const dim3 grid((K + TMM_BK - 1) / TMM_BK, (M + TMM_BM - 1) / TMM_BM);
+  t_mma_kernel<W><<<grid, TMM_THREADS, 0, stream>>>(g, w, out, M, K, N);
+}
+
+}  // namespace
+
 // The second pass of every split-K kernel: y[i] = T(float(the nsplit
 // partials summed in order) * row_scale[m] * col_scale[n]), in that order;
 // a null scale is skipped.  Acc is float (f32 partials) or int (int32

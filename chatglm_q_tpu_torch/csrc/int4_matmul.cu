@@ -33,6 +33,19 @@
 //   of mma.sync is known per lane, so the per-column group scale multiplies
 //   the f32 group partial in registers.  No TMA, wgmma or multi-stage
 //   pipeline yet: that is later work.
+//
+// The backward kernels (B14) replace pallas_matmul.py:_int4_t_kernel
+// (int4_matmul_t_pallas): grad_x (M,K) = g (M,N) @ dequant(packed, scale)ᵀ,
+// the contraction over N.  The scale changes along both K/32 and N, so it
+// folds into neither g nor the output: each weight is dequantized to g's
+// dtype, bf16(q * s) under bf16, before the dot, as both JAX forms round it.
+// Byte row i of packed holds output columns 2i (low nibble) and 2i+1 (high).
+// Both are common.cuh's transposed bodies over Int4TView:
+// * t_gemv_kernel<Int4TView> (f32 g, or M <= 16): bound by the packed bytes;
+//   one warp per two byte rows (four output columns), 8-byte loads along N.
+// * t_mma_kernel<Int4TView> (bf16, M > 16): bound by operations; the TMM
+//   tiles, the nibbles dequantized to bf16 as they are staged into shared
+//   memory (one multiply per weight per block).
 #include "common.cuh"
 
 namespace {
@@ -295,6 +308,71 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
     }
 }
 
+// ---------------------------------------------------------------------------
+// Transposed kernels (B14): grad_x (M, K) = g (M, N) @ dequant(packed, scale)ᵀ
+// ---------------------------------------------------------------------------
+
+// The int4g32 weight view of common.cuh's transposed kernels: the scale
+// changes along K/32 and N, so each weight is dequantized, bf16(q * s) in g's
+// dtype, before the dot.  Output columns 2i and 2i+1 are the low and high
+// nibbles of byte row i.
+struct Int4TView {
+  const uint8_t* packed;
+  const __nv_bfloat16* scale;
+  static constexpr int kCols = 4;  // two byte rows, inside one 32-row group
+  static constexpr bool kFoldG = false;
+
+  template <typename T>
+  __device__ __forceinline__ void cols(int k0, int n, int N, float (&wq)[kCols][8]) const {
+    float s[8];
+    load8(scale + (size_t)(k0 / 32) * N + n, s);
+#pragma unroll
+    for (int br = 0; br < kCols / 2; ++br) {
+      const uint2 pv =
+          __ldg(reinterpret_cast<const uint2*>(packed + (size_t)(k0 / 2 + br) * N + n));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t b = ((j < 4 ? pv.x : pv.y) >> (8 * (j & 3))) & 0xFFu;
+        wq[2 * br][j] = round_to<T>(nib_lo(b) * s[j]);  // the weight in g's dtype
+        wq[2 * br + 1][j] = round_to<T>(nib_hi(b) * s[j]);
+      }
+    }
+  }
+  __device__ __forceinline__ const float* fold_ptr() const { return nullptr; }
+  // 64 byte rows (128 output columns) x 64 columns: one 16-byte chunk a thread
+  __device__ __forceinline__ void stage_b(__nv_bfloat16* bs, int k_base, int n0, int K,
+                                          int N) const {
+    const uint8_t* __restrict__ pk = packed;
+    for (int i = threadIdx.x; i < (TMM_BK / 2) * (TMM_BN / 16); i += TMM_THREADS) {
+      const int pr = i / (TMM_BN / 16), c = (i % (TMM_BN / 16)) * 16;
+      const int kr = k_base / 2 + pr, n = n0 + c;
+      uint32_t lo[8], hi[8];
+      if (kr < K / 2 && n < N) {
+        const uint4 v = *reinterpret_cast<const uint4*>(pk + (size_t)kr * N + n);
+        const __nv_bfloat16* sp = scale + (size_t)(2 * kr / 32) * N + n;
+        float s[16];
+        load8(sp, s);
+        load8(sp + 8, s + 8);
+        const uint8_t* p = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          lo[j] = bf16x2_bits(nib_lo(p[2 * j]) * s[2 * j], nib_lo(p[2 * j + 1]) * s[2 * j + 1]);
+          hi[j] = bf16x2_bits(nib_hi(p[2 * j]) * s[2 * j], nib_hi(p[2 * j + 1]) * s[2 * j + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0u;
+      }
+      __nv_bfloat16* even = bs + (2 * pr) * TMM_STRIDE + c;
+      __nv_bfloat16* odd = even + TMM_STRIDE;
+      *reinterpret_cast<uint4*>(even) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(even + 8) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      *reinterpret_cast<uint4*>(odd) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(odd + 8) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -327,6 +405,32 @@ int chatglm_int4_mma(const void* x, const void* packed, const void* scale, void*
                                        static_cast<const uint8_t*>(packed),
                                        static_cast<const __nv_bfloat16*>(scale),
                                        static_cast<__nv_bfloat16*>(y), M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// B14, CUDA-core form: out (M, K) = g (M, N) @ dequant(packed (K/2, N),
+// scale (K/32, N))ᵀ.  g bf16 (g_is_bf16) or f32, out the same; K % 32 == 0,
+// N % 8 == 0, aligned pointers.
+int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, void* out, int M,
+                        int K, int N, int g_is_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const Int4TView wv{static_cast<const uint8_t*>(packed),
+                     static_cast<const __nv_bfloat16*>(scale)};
+  if (g_is_bf16)
+    t_gemv(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
+           s);
+  else
+    t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N, s);
+  return (int)cudaGetLastError();
+}
+
+// B14, tensor-core form, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
+int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, void* out, int M,
+                       int K, int N, void* stream) {
+  const Int4TView wv{static_cast<const uint8_t*>(packed),
+                     static_cast<const __nv_bfloat16*>(scale)};
+  t_mma(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
+        reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

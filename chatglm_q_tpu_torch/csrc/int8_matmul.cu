@@ -24,6 +24,20 @@
 //   (bf16 in, f32 out).  The B fragment holds K rows (2t, 2t+1) and
 //   (2t+8, 2t+9) of one column: each lane converts those four bytes to bf16
 //   in registers.  No TMA, wgmma or multi-stage pipeline yet.
+//
+// The backward kernels (B13) replace pallas_matmul.py:_int8_t_kernel
+// (int8_matmul_t_pallas): grad_x (M,K) = (g (M,N) * scale) @ w (K,N)ᵀ, the
+// contraction over N.  As on the TPU, the per-N scale folds into g in g's
+// dtype (rounded to bf16 under bf16) before the dot, so the kernels differ
+// from the plain version (ops/int8_matmul.py::int8_matmul_t_plain) only in
+// the order of the f32 sums.  Output column k reads weight row k, which is
+// N-contiguous: no second weight layout is kept.
+// Both are common.cuh's transposed bodies over Int8TView:
+// * t_gemv_kernel<Int8TView> (f32 g, or M <= 16): bound by the weight bytes;
+//   one warp per 4 output columns, 8-byte loads along N.
+// * t_mma_kernel<Int8TView> (bf16, M > 16, training's M = B*S): bound by
+//   operations; 64x128 output tiles of mma.sync.m16n8k16 over 64-column
+//   stages of N, the int8 rows converted to bf16 in shared memory.
 #include "common.cuh"
 
 namespace {
@@ -227,6 +241,55 @@ int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Transposed kernels (B13): grad_x (M, K) = (g (M, N) * scale) @ w (K, N)ᵀ
+// ---------------------------------------------------------------------------
+
+// The int8 weight view of common.cuh's transposed kernels: the scale folds
+// into g; the int8 rows convert to floats / bf16 exactly.
+struct Int8TView {
+  const int8_t* w;
+  const float* scale;
+  static constexpr int kCols = 4;
+  static constexpr bool kFoldG = true;
+
+  template <typename T>
+  __device__ __forceinline__ void fold(int n, float* s) const {
+    load8(scale + n, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = round_to<T>(s[j]);  // the scale in g's dtype
+  }
+  template <typename T>
+  __device__ __forceinline__ void cols(int k0, int n, int N, float (&wq)[kCols][8]) const {
+#pragma unroll
+    for (int r = 0; r < kCols; ++r) {
+      const uint2 wv = __ldg(reinterpret_cast<const uint2*>(w + (size_t)(k0 + r) * N + n));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wq[r][j] = s8_at(wv.x, j);
+        wq[r][4 + j] = s8_at(wv.y, j);
+      }
+    }
+  }
+  __device__ __forceinline__ const float* fold_ptr() const { return scale; }
+  __device__ __forceinline__ void stage_b(__nv_bfloat16* bs, int k_base, int n0, int K,
+                                          int N) const {
+    const int8_t* __restrict__ wr = w;
+    for (int i = threadIdx.x; i < TMM_BK * (TMM_BN / 16); i += TMM_THREADS) {
+      const int r = i / (TMM_BN / 16), c = (i % (TMM_BN / 16)) * 16;
+      const int k = k_base + r, n = n0 + c;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < K && n < N) v = *reinterpret_cast<const uint4*>(wr + (size_t)k * N + n);
+      const int8_t* q = reinterpret_cast<const int8_t*>(&v);
+      uint32_t o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = s8_pair_bf16(q[2 * j], q[2 * j + 1]);
+      *reinterpret_cast<uint4*>(bs + r * TMM_STRIDE + c) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(bs + r * TMM_STRIDE + c + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -259,6 +322,29 @@ int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, i
                                        static_cast<const int8_t*>(w),
                                        static_cast<const float*>(scale),
                                        static_cast<__nv_bfloat16*>(y), M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// B13, CUDA-core form: out (M, K) = (g (M, N) * scale (N,)) @ w (K, N)ᵀ.  g
+// bf16 (g_is_bf16) or f32, out the same; N % 8 == 0, aligned pointers.
+int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* out, int M, int K,
+                        int N, int g_is_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+  if (g_is_bf16)
+    t_gemv(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
+           s);
+  else
+    t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N, s);
+  return (int)cudaGetLastError();
+}
+
+// B13, tensor-core form, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
+int chatglm_int8_t_mma(const void* g, const void* w, const void* scale, void* out, int M, int K,
+                       int N, void* stream) {
+  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+  t_mma(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
+        reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

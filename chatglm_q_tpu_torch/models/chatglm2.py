@@ -1,7 +1,7 @@
-"""ChatGLM2 serving forward in PyTorch: prefill and decode over a
-preallocated KV cache.
+"""ChatGLM2 in PyTorch: the parity forward (training and evaluation), and
+prefill and decode over a preallocated KV cache (serving).
 
-The serving half of chatglm_q_tpu/models/chatglm2.py.  Parameters are the
+The counterpart of chatglm_q_tpu/models/chatglm2.py.  Parameters are the
 JAX package's tree as a plain dict of tensors (same keys, per-layer leaves
 stacked on a leading L axis); the JAX ``lax.scan`` over layers is a Python
 loop here, and layer ``l`` uses the views ``stack[l]``.
@@ -24,6 +24,14 @@ Conventions carried exactly:
 Unlike the JAX package (pure functions), the cache tensors are updated in
 place: a step writes a few slots, never a whole new cache.  The paged pool
 (models/paged_kv.py) goes through the same ``block_forward``.
+
+Parity mode (``forward``, JAX :530-672) keeps the reference's semantics: an
+additive −1e10 mask (causal ∨ padding) with cumsum positions, keys
+(B, T, G, D) of this call and of ``past_key_values``, train-mode dropout
+from an explicit ``torch.Generator``, and the shifted −100 cross-entropy.
+Its quantized linears differentiate through ``ops/linear.QuantMatmul``
+(B13/B14 in the backward); ``rt.remat_layers`` recomputes each layer in the
+backward pass.
 """
 from __future__ import annotations
 
@@ -35,13 +43,14 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
 from ..ops.linear import quant_embedding_lookup, quant_linear
 from ..ops.sampling import greedy_sampling, top_p_sampling
 
-MASK_VALUE = -1e10  # additive mask of the masked-softmax path
+MASK_VALUE = -1e10  # additive mask of the masked-softmax path (reference model.py:314)
 
 _DEFAULT_RT = TorchRuntimeConfig()
 
@@ -128,16 +137,26 @@ def init_kv_cache(config: ChatGLM2Config, batch_size: int,
 # Attention + block
 # ---------------------------------------------------------------------------
 
-def _attention_scores(q, k, v, mask_bias):
-    """Masked-softmax MQA attention.  q (B, S, G, Hg, D); k, v the cache
-    layout (B, G, T, D); mask_bias additive f32, broadcastable to
-    (B, G, Hg, S, T).  Returns (B, S, G·Hg·D)."""
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (train mode only; the reference's nn.Dropout): keep
+    each element with probability 1 − rate, scaled by 1 / (1 − rate)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _attention_scores(q, k, v, mask_bias, dropout=None, kv_layout="btgd"):
+    """Masked-softmax MQA attention.  q (B, S, G, Hg, D); k, v (B, T, G, D)
+    (parity, ``btgd``) or the cache layout (B, G, T, D) (``bgtd``);
+    mask_bias additive f32, broadcastable to (B, G, Hg, S, T); ``dropout`` =
+    (rate, generator) drops attention probabilities.  Returns (B, S, G·Hg·D)."""
     B, S, G, Hg, D = q.shape
     q = q / torch.tensor(math.sqrt(D), dtype=q.dtype, device=q.device)
-    scores = torch.einsum("bsghd,bgtd->bghst", q, k)
+    scores = torch.einsum(f"bsghd,{kv_layout}->bghst", q, k)
     scores = scores.float() + mask_bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bghst,bgtd->bsghd", probs, v)
+    if dropout is not None:
+        probs = _dropout(probs, *dropout)
+    out = torch.einsum(f"bghst,{kv_layout}->bsghd", probs, v)
     return out.reshape(B, S, G * Hg * D)
 
 
@@ -157,8 +176,8 @@ def write_rows(cache_layer: torch.Tensor, new: torch.Tensor, start: torch.Tensor
 
 def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
                   attn, config: ChatGLM2Config, quant_type: str,
-                  rt: TorchRuntimeConfig, kv_write) -> torch.Tensor:
-    """One pre-norm transformer block over the serving cache.
+                  rt: TorchRuntimeConfig, kv_write=None, past_kv=None, dropout=None):
+    """One pre-norm transformer block.
 
     attn: ("flash_prefill", lengths) | ("flash_prefill_chunk", (lengths,
         starts, row_map or None)) | ("flash_decode", lengths) | an additive
@@ -168,6 +187,12 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
         prefill (slots 0..S-1) or a (B,) tensor of per-row first slots;
         ``slot_map`` (B,) sends row b to cache row slot_map[b] (a compact
         chunk batch) — or a ``paged_kv.PagedWrite`` for the paged pool.
+        Returns the block's output.
+    kv_write=None is parity mode: keys are ``past_kv`` (pk, pv), each
+        (B, T_past, G, D), followed by this call's; ``attn`` is the additive
+        mask; ``dropout`` = (rate, generator) drops the attention
+        probabilities, then the FFN activation.  Returns (output, (k_full,
+        v_full)), each (B, T, G, D), as JAX's does.
     """
     from . import paged_kv as PK
 
@@ -186,14 +211,21 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     q = apply_rotary_emb(q.reshape(B, S, G, Hg, D), f)
     k = apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
     v = v.reshape(B, S, G, D)
-    kw = k.transpose(1, 2)  # (B, G, S, D): the cache layout
-    vw = v.transpose(1, 2)
 
     sm_scale = 1.0 / math.sqrt(D)
-    if isinstance(kv_write, PK.PagedWrite):
-        ctx = PK.paged_attention(q, kw, vw, attn, kv_write, kernels, sm_scale)
+    kv_out = None
+    if kv_write is None:
+        if past_kv is not None:
+            k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
+            v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
+        kv_out = (k, v)
+        ctx = _attention_scores(q, k, v, attn, dropout=dropout, kv_layout="btgd")
+    elif isinstance(kv_write, PK.PagedWrite):
+        ctx = PK.paged_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
+                                 kernels, sm_scale)
     else:
-        ctx = _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale)
+        ctx = _dense_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
+                               kernels, sm_scale, rt.decode_attn_v2)
     ctx = ctx.reshape(B, S, G * Hg * D)
 
     x = x + quant_linear(ctx, layer_params["o_proj"], quant_type, rt)
@@ -201,11 +233,15 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     gate_in = quant_linear(h2, layer_params["w_in_h"], quant_type, rt)
     gate = quant_linear(h2, layer_params["w_in_gate"], quant_type, rt)
     act = F.silu(gate_in) * gate
-    return x + quant_linear(act, layer_params["w_out"], quant_type, rt)
+    if dropout is not None:
+        act = _dropout(act, *dropout)
+    x = x + quant_linear(act, layer_params["w_out"], quant_type, rt)
+    return x if kv_write is not None else (x, kv_out)
 
 
-def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
-    """Write this block's K/V (B, G, S, D) into the dense cache, then attend."""
+def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale, decode_v2=False):
+    """Write this block's K/V (B, G, S, D) into the dense cache, then attend;
+    ``decode_v2`` sends a flash decode to B12 instead of B4."""
     ck, cv, layer, start, *rest = kv_write
     slot_map = rest[0] if rest else None
     S = q.shape[1]
@@ -226,7 +262,7 @@ def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
     if not isinstance(attn, tuple):
         if slot_map is not None:  # a compact chunk: the mapped cache rows
             kc, vc = kc[slot_map.long()], vc[slot_map.long()]
-        return _attention_scores(q, kc, vc, attn)
+        return _attention_scores(q, kc, vc, attn, kv_layout="bgtd")
     kind, lengths = attn
     if kind == "flash_prefill":
         fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
@@ -235,7 +271,10 @@ def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
         lengths, starts, row_map = lengths
         fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
         return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
-    fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
+    if decode_v2:
+        fn = A.flash_attention_decode_v2 if kernels else A.flash_attention_decode_v2_plain
+    else:
+        fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
     return fn(q[:, 0], kc, vc, lengths, sm_scale)
 
 
@@ -252,6 +291,122 @@ def _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache, s
         h = block_forward(_layer(params["layers"], l), h, freqs_cis, attn, config,
                           quant_type, rt, kv_write)
     return h
+
+
+# ---------------------------------------------------------------------------
+# Parity-mode forward (reference semantics: mask, positions, loss)
+# ---------------------------------------------------------------------------
+
+def build_parity_mask_and_positions(attention_mask: torch.Tensor, n_new: int):
+    """(B, S) 1/0 mask → additive (B, n_new, S) f32 mask and (B, n_new)
+    position ids, as the reference's ``prepare_input`` (model.py:303-318):
+    causal ∨ padding, × −1e10; positions = cumsum(mask), starting at 1; both
+    for the last ``n_new`` query positions.  The mask stays additive and
+    finite: a query row whose keys are all masked gets a uniform softmax,
+    not NaN."""
+    S = attention_mask.shape[1]
+    dev = attention_mask.device
+    position_ids = torch.cumsum(attention_mask.long(), dim=1)
+    seq = torch.arange(S, device=dev)
+    causal = seq[:, None] < seq[None, :]
+    pad = ~attention_mask[:, None, :].bool()
+    bias = (causal[None] | pad).float() * MASK_VALUE
+    return bias[:, -n_new:, :], position_ids[:, -n_new:]
+
+
+def _stacked_past(past_key_values, device):
+    """The reference's per-layer ``((k, v), ...)`` — each (B, T, G, D) or
+    (B, T, G, 1, D) — or a pre-stacked ``(k (L, B, T, G, D), v)`` pair, as
+    two stacked (L, B, T, G, D) tensors."""
+    if isinstance(past_key_values[0], torch.Tensor):
+        return past_key_values[0].to(device), past_key_values[1].to(device)
+
+    def norm(t):
+        t = torch.as_tensor(t, device=device)
+        return t[:, :, :, 0] if t.dim() == 5 else t
+
+    return (torch.stack([norm(k) for k, _ in past_key_values]),
+            torch.stack([norm(v) for _, v in past_key_values]))
+
+
+def forward(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
+            attention_mask: Optional[torch.Tensor] = None,
+            position_ids: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None, quant_type: str = "none",
+            dtype=torch.float32, rt: TorchRuntimeConfig = _DEFAULT_RT,
+            past_key_values=None, generator: Optional[torch.Generator] = None,
+            return_kv: bool = False):
+    """Full-sequence forward with the reference's semantics (model.py:329-392).
+
+    ``input_ids`` (B, S_new); ``attention_mask`` (B, S_past + S_new) 1/0
+    (default all ones); ``position_ids`` (B, S_new) (default the mask's
+    cumsum); ``labels`` (B, S_new) with −100 ignored.  ``past_key_values``
+    (see ``_stacked_past``) is the reference's stateless incremental API:
+    the new tokens attend over past + new keys.  ``generator`` turns on
+    train-mode dropout at ``config.dropout_rate`` (embedding output,
+    attention probabilities, FFN activation); without it the forward is
+    deterministic.  ``rt.remat_layers`` recomputes each layer in the
+    backward pass.
+
+    Returns ``(loss or None, logits (B, S_new, V))``; with ``return_kv`` or
+    ``past_key_values``, the reference's 3-tuple with the per-layer
+    ``(k, v)``, each (B, T_total, G, 1, D), appended.
+    """
+    B, S = input_ids.shape
+    L = config.num_layers
+    dev = input_ids.device
+    past = None if past_key_values is None else _stacked_past(past_key_values, dev)
+    n_past = 0 if past is None else past[0].shape[2]
+    if attention_mask is None:
+        attention_mask = torch.ones((B, n_past + S), dtype=torch.int32, device=dev)
+    mask_bias, pos = build_parity_mask_and_positions(attention_mask.to(dev), S)
+    if position_ids is not None:
+        pos = position_ids.to(dev)
+    freqs_cis = _serving_freqs(config, pos, dtype)
+    h = quant_embedding_lookup(params["word_embedding"], input_ids, quant_type, dtype)
+    mask5 = mask_bias[:, None, None]
+
+    rate = config.dropout_rate
+    seeds = None
+    if generator is not None and rate > 0:
+        h = _dropout(h, rate, generator)
+        # one seed per layer, drawn up front; each layer builds its generator
+        # from its seed, so a recomputation under remat draws the same masks
+        # (checkpoint restores the default generators only)
+        seeds = torch.randint(0, 2 ** 62, (L,), generator=generator,
+                              device=generator.device).tolist()
+
+    def layer(l, h):
+        drop = None
+        if seeds is not None:
+            drop = (rate, torch.Generator(device=h.device).manual_seed(seeds[l]))
+        pkv = None if past is None else (past[0][l], past[1][l])
+        return block_forward(_layer(params["layers"], l), h, freqs_cis, mask5, config,
+                             quant_type, rt, past_kv=pkv, dropout=drop)
+
+    kvs = []
+    for l in range(L):
+        if rt.remat_layers:
+            h, kv = checkpoint(layer, l, h, use_reentrant=False)
+        else:
+            h, kv = layer(l, h)
+        kvs.append(kv)
+    h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
+    logits = quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    loss = None if labels is None else cross_entropy_loss(logits, labels.to(dev))
+    if return_kv or past_key_values is not None:
+        return loss, logits, tuple((k[:, :, :, None], v[:, :, :, None]) for k, v in kvs)
+    return loss, logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted cross-entropy in f32, −100 ignored, the mean over the valid
+    positions (at least 1) (model.py:384-388)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    total = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
+                            shift_labels.reshape(-1), ignore_index=-100, reduction="sum")
+    return total / (shift_labels != -100).sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------

@@ -131,7 +131,7 @@ def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_sca
         # masked path: a dense view of the pool, masked over its full length
         kc = gather_layer(kp, layer, pt).to(q.dtype)
         vc = gather_layer(vp, layer, pt).to(q.dtype)
-        return M._attention_scores(q, kc, vc, attn)
+        return M._attention_scores(q, kc, vc, attn, kv_layout="bgtd")
     kind, lengths = attn
     if kind == "flash_prefill":  # causality never reaches the pool
         fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain

@@ -19,12 +19,17 @@ def kernel_wrappers() -> dict:
         "int4g32_mma": QM.int4g32_mma,
         "int8_gemv": I8.int8_gemv,
         "int8_mma": I8.int8_mma,
+        "int4g32_t_gemv": QM.int4g32_t_gemv,
+        "int4g32_t_mma": QM.int4g32_t_mma,
+        "int8_t_gemv": I8.int8_t_gemv,
+        "int8_t_mma": I8.int8_t_mma,
         "int8_dyn_gemv": D.int8_dyn_gemv,
         "int8_dyn_mma": D.int8_dyn_mma,
         "int4_dyn_gemv": D.int4_dyn_gemv,
         "int4_dyn_mma": D.int4_dyn_mma,
         "kv_cache_write_idx": A.kv_cache_write_idx,
         "flash_attention_decode": A.flash_attention_decode,
+        "flash_attention_decode_v2": A.flash_attention_decode_v2,
         "flash_attention_prefill": A.flash_attention_prefill,
         "flash_attention_prefill_chunk": A.flash_attention_prefill_chunk,
         "kv_pool_write_idx": A.kv_pool_write_idx,

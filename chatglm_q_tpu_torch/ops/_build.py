@@ -41,6 +41,12 @@ SIGNATURES = {
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
     # x, w, scale, y, M, K, N, stream
     "chatglm_int8_mma": [P, P, P, P, I, I, I, P],
+    # g, w (or packed), scale, out, M, K, N, g_is_bf16, stream (B13 / B14)
+    "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
+    "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
+    # g, w (or packed), scale, out, M, K, N, stream
+    "chatglm_int8_t_mma": [P, P, P, P, I, I, I, P],
+    "chatglm_int4_t_mma": [P, P, P, P, I, I, I, P],
     # xq, sx, w, scale, y, workspace, M, K, N, y_is_bf16, nsplit, groups_per_split, stream
     "chatglm_int8_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -51,6 +57,8 @@ SIGNATURES = {
     "chatglm_kv_write": [P, P, P, I, I, I, I, P],
     # q, k, v, lengths, out, B, G, Hg, T, D, sm_scale, stream (bf16)
     "chatglm_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
+    # q, k, v, lengths, part, out, B, G, Hg, T, D, span, sm_scale, stream (bf16)
+    "chatglm_decode_v2": [P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale,
     # stream (bf16; q_starts / kv_row_map may be null)
     "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],

@@ -14,6 +14,9 @@ counts.
   and its stacked-cache ``_idx`` form: here the caller passes the layer's
   view ``cache[l]``).  Row b attends slots 0..lengths[b] inclusive — the
   token of this step is already written — and reads nothing past them.
+* ``flash_attention_decode_v2`` replaces :_decode_v2_kernel (the
+  ``decode_attn_v2`` option): B4's function with B10's numerics (below),
+  the cache split over T across blocks; a row of length −1 outputs 0.
 * ``kv_cache_write_idx`` replaces :_kv_write_kernel.  Writes one token per
   row into cache[layer, b, :, starts[b], :] in place, with starts clamped
   to T − 1 (JAX's dynamic_update_slice clamp: the engines decode past the
@@ -45,6 +48,8 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 128       # the head dim the kernels are built for
 MAX_DECODE_HG = 16   # query heads per KV group the decode kernel holds
 MAX_PREFILL_HG = 64  # query heads per KV group the prefill tile can fold
+V2_MIN_SPAN = 64     # fewest cache rows one B12 block reads
+V2_TARGET_BLOCKS = 132  # B12 spans shrink until the grid covers the H100's SMs
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +121,18 @@ def kv_pool_write_idx_plain(pool, new, layer: int, page_table, starts):
 def _prescaled(q, sm_scale):
     """q scaled in its own dtype, as B10/B11 scale it on the TPU."""
     return (q.float() * sm_scale).to(q.dtype).float()
+
+
+def flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k: int = 512):
+    """B4's arguments with B12's numerics: q scaled in its dtype, K, V and
+    the probabilities f32.  Rows 0..lengths[b] count; a row with none (length
+    −1) outputs 0.  ``block_k`` only splits the kernel's work."""
+    T = k.shape[2]
+    s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k.float())
+    valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
+    p = torch.softmax(s, dim=-1) * (lengths >= 0).float()[:, None, None, None]
+    return torch.einsum("bght,bgtd->bghd", p, v.float()).to(q.dtype)
 
 
 def flash_attention_decode_paged_plain(q, k_pool, v_pool, layer: int, page_table, lengths,
@@ -240,6 +257,44 @@ def flash_attention_decode(q, k, v, lengths, sm_scale):
 
 
 flash_attention_decode.launches = 0
+
+
+def decode_v2_span(batch_groups: int, T: int, block_k: int) -> int:
+    """Cache rows per B12 block: ``block_k`` (capped at T), halved down to
+    V2_MIN_SPAN while the grid of batch_groups · ceil(T / span) blocks would
+    leave SMs of the card idle."""
+    span = max(1, min(block_k, T))
+    while span > V2_MIN_SPAN and batch_groups * -(-T // span) < V2_TARGET_BLOCKS:
+        span = max(V2_MIN_SPAN, span // 2)
+    return span
+
+
+def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
+    """B12: ragged single-token attention over the layer's (B, G, T, D) cache
+    view, split over T (see the module note).  Plain version on CPU tensors;
+    the CUDA kernels on CUDA tensors."""
+    if not q.is_cuda:
+        return flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k)
+    B, G, Hg, D = q.shape
+    T = k.shape[2]
+    lengths = _int32(lengths)
+    _check_cuda("flash_attention_decode_v2", q, k, v, lengths)
+    _check_bf16("flash_attention_decode_v2", q, k, v)
+    if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention_decode_v2: unsupported shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    span = decode_v2_span(B * G, T, block_k)
+    part = torch.empty((B * G * -(-T // span) * Hg * (D + 2),), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    _build.call("chatglm_decode_v2", q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                part.data_ptr(), out.data_ptr(), B, G, Hg, T, D, span, float(sm_scale),
+                _build.stream_ptr(q))
+    flash_attention_decode_v2.launches += 1
+    return out
+
+
+flash_attention_decode_v2.launches = 0
 
 
 def kv_cache_write_idx(cache, new, layer: int, starts):

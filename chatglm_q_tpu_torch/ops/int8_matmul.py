@@ -1,5 +1,5 @@
-"""int8 weight-only matmul (B6): the wrapper over the CUDA kernels, its plain
-version, and its launch counts.
+"""int8 weight-only matmul (B6) and its transposed form (B13): the wrappers
+over the CUDA kernels, their plain versions, and their launch counts.
 
 Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
 (``int8_matmul_pallas`` and its layer-indexed twin).  One wrapper,
@@ -16,6 +16,14 @@ for the int4 matmul (ops/quant_matmul.py):
 Both multiply the f32 accumulator by the per-column scale once, after the K
 sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
 weights before the dot instead: the same function, rounded elsewhere.
+
+``int8_matmul_t`` (B13) replaces pallas_matmul.py:_int8_t_kernel
+(``int8_matmul_t_pallas``): the backward of the int8 linear, grad_x =
+(g · scale) @ wᵀ, over the same (K, N) weights.  As the TPU kernel does, the
+scale folds into g in g's dtype before the dot; JAX's jnp fallback
+(``linear.py::_int8_matmul_t_fallback``) scales w instead.  Two kernels in
+``csrc/int8_matmul.cu``, split as B6's: ``int8_t_gemv`` (f32 g or M ≤ 16)
+and ``int8_t_mma`` (bf16, M > 16).
 """
 from __future__ import annotations
 
@@ -93,3 +101,75 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.
     if uses_mma(x.shape[0], w.shape[1], x.dtype):
         return int8_mma(x, w, scale)
     return int8_gemv(x, w, scale)
+
+
+# ---------------------------------------------------------------------------
+# Transposed (backward) form, B13
+# ---------------------------------------------------------------------------
+
+def int8_matmul_t_plain(g: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(g (M, N) · scale (N,) in g's dtype) @ w (K, N)ᵀ in f32, cast to g's
+    dtype → (M, K).  The function the B13 kernels are held against."""
+    gs = g * scale.to(g.dtype)
+    return (gs.float() @ w.float().T).to(g.dtype)
+
+
+def _check_t(g, w, scale):
+    if not (g.is_cuda and w.device == g.device and scale.device == g.device):
+        raise ValueError("int8_matmul_t: g, w and scale must be on one CUDA device")
+    if g.dim() != 2 or w.dim() != 2 or scale.dim() != 1:
+        raise ValueError("int8_matmul_t: g (M, N), w (K, N), scale (N,)")
+    K, N = w.shape
+    if g.shape[1] != N or K % 32 or scale.shape[0] != N or N % 8:
+        raise ValueError(f"int8_matmul_t: unsupported shapes g {tuple(g.shape)}, "
+                         f"w {tuple(w.shape)}, scale {tuple(scale.shape)}")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_matmul_t: g must be bf16 or f32, not {g.dtype}")
+    if w.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("int8_matmul_t: w must be int8 and scale f32")
+    for name, t in (("w", w), ("scale", scale)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul_t: {name} must be contiguous and 16-byte aligned")
+
+
+def int8_t_gemv(g, w, scale):
+    """Launch B13's CUDA-core kernel (checked inputs on the card)."""
+    M, N = g.shape
+    K = w.shape[0]
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    _build.call("chatglm_int8_t_gemv", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
+    int8_t_gemv.launches += 1
+    return out
+
+
+int8_t_gemv.launches = 0
+
+
+def int8_t_mma(g, w, scale):
+    """Launch B13's tensor-core kernel (checked bf16 inputs on the card)."""
+    M, N = g.shape
+    K = w.shape[0]
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    _build.call("chatglm_int8_t_mma", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+    int8_t_mma.launches += 1
+    return out
+
+
+int8_t_mma.launches = 0
+
+
+def int8_matmul_t(g: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """g (M, N) bf16/f32 @ (w (K, N) int8 · scale (N,) f32)ᵀ → (M, K) in g's
+    dtype: the int8 linear's grad_x at the weights' storage K.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    a kernel or raises."""
+    if not g.is_cuda:
+        return int8_matmul_t_plain(g, w, scale)
+    _check_t(g, w, scale)
+    g = aligned(g)
+    if uses_mma(g.shape[0], g.shape[1], g.dtype):
+        return int8_t_mma(g, w, scale)
+    return int8_t_gemv(g, w, scale)

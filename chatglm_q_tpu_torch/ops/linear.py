@@ -1,7 +1,7 @@
 """Quantized/dense linear layers and the embedding lookup.
 
-The counterpart of chatglm_q_tpu/ops/linear.py (forward only), with its
-dispatch (:65-234):
+The counterpart of chatglm_q_tpu/ops/linear.py, with its dispatch
+(:65-234):
 
 * int8 → B6 (ops/int8_matmul.py), or B7 (ops/dyn_matmul.py) under
   ``rt.dynamic_int8``;
@@ -11,6 +11,16 @@ dispatch (:65-234):
 Where a dynamic kernel's shape gate refuses (``*_dyn_supported``), the call
 takes the weight-only kernel, as JAX's does.  ``rt.kernels_enabled`` picks
 the kernel wrappers or the plain versions of the same functions.
+
+Autograd (JAX's ``custom_vjp``, :75-178): where ``x`` needs a gradient, the
+quantized matmul runs inside ``QuantMatmul``, whose backward sends the
+gradient to ``x`` only (the packed weights, scales and biases stay frozen)
+through the weight-only transposed kernel — B13 (``int8_matmul_t``) or B14
+(``int4g32_matmul_t``), also under ``dynamic_int8``, as JAX's
+``_int8_matmul_bwd`` / ``_int4_matmul_bwd`` do — and strips the storage
+padding from grad_x.  Without a gradient (serving) the forward is called
+directly.  ``quant_type="none"`` is a plain ``x @ w`` that autograd
+differentiates.
 
 The JAX package's ``StackedWeight`` and its ``_idx`` kernel variants exist
 because XLA copies a sliced layer; in PyTorch ``stack[l]`` is a contiguous
@@ -25,8 +35,9 @@ import torch.nn.functional as F
 from ..config import TorchRuntimeConfig
 from . import dyn_matmul as D
 from . import quant as Q
-from .int8_matmul import int8_matmul, int8_matmul_plain
-from .quant_matmul import int4g32_matmul, int4g32_matmul_plain
+from .int8_matmul import int8_matmul, int8_matmul_plain, int8_matmul_t, int8_matmul_t_plain
+from .quant_matmul import (int4g32_matmul, int4g32_matmul_plain, int4g32_matmul_t,
+                           int4g32_matmul_t_plain)
 
 _DEFAULT_RT = TorchRuntimeConfig()
 
@@ -42,6 +53,30 @@ def _pad_x_to_storage(x2: torch.Tensor, k_storage: int) -> torch.Tensor:
     if x2.shape[1] < k_storage:
         x2 = F.pad(x2, (0, k_storage - x2.shape[1]))
     return x2
+
+
+class QuantMatmul(torch.autograd.Function):
+    """y = fwd(x zero-padded to the storage K, w, scale); grad_x =
+    bwd(g, w, scale) with the padding columns stripped.  No gradient for
+    w or scale."""
+
+    @staticmethod
+    def forward(ctx, x2, w, scale, k_storage, fwd, bwd):
+        ctx.save_for_backward(w, scale)
+        ctx.k, ctx.bwd = x2.shape[1], bwd
+        return fwd(_pad_x_to_storage(x2, k_storage), w, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, scale = ctx.saved_tensors
+        gx = ctx.bwd(g.contiguous(), w, scale)[:, : ctx.k]
+        return gx, None, None, None, None, None
+
+
+def _quant_matmul(x2, w, scale, k_storage, fwd, bwd):
+    if x2.requires_grad and torch.is_grad_enabled():
+        return QuantMatmul.apply(x2, w, scale, k_storage, fwd, bwd)
+    return fwd(_pad_x_to_storage(x2, k_storage), w, scale)
 
 
 def quant_linear(x: torch.Tensor, params: dict, quant_type: str,
@@ -60,21 +95,21 @@ def quant_linear(x: torch.Tensor, params: dict, quant_type: str,
         y = x2 @ params["weight"].to(x.dtype)
     elif quant_type == "int8":
         w, scale = params["weight"], params["weight_scale"]
-        x2 = _pad_x_to_storage(x2, w.shape[0])
         if rt.dynamic_int8 and D.int8_dyn_supported(w.shape[0], w.shape[1]):
             fn = D.int8_dyn_matmul if kernels else D.int8_dyn_matmul_plain
         else:
             fn = int8_matmul if kernels else int8_matmul_plain
-        y = fn(x2, w, scale)
+        bwd = int8_matmul_t if kernels else int8_matmul_t_plain
+        y = _quant_matmul(x2, w, scale, w.shape[0], fn, bwd)
     elif quant_type == "int4g32":
         packed, scale = params["weight"], params["weight_scale"]
-        x2 = _pad_x_to_storage(x2, 2 * packed.shape[0])
         if (rt.dynamic_int8 and x2.shape[0] <= _INT4_DYN_M_MAX
                 and D.int4_dyn_supported(2 * packed.shape[0], packed.shape[1])):
             fn = D.int4_dyn_matmul if kernels else D.int4_dyn_matmul_plain
         else:
             fn = int4g32_matmul if kernels else int4g32_matmul_plain
-        y = fn(x2, packed, scale)
+        bwd = int4g32_matmul_t if kernels else int4g32_matmul_t_plain
+        y = _quant_matmul(x2, packed, scale, 2 * packed.shape[0], fn, bwd)
     else:
         raise NotImplementedError(f"quant_type {quant_type!r}")
     bias = params.get("bias")

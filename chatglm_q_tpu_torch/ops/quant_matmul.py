@@ -1,5 +1,5 @@
-"""int4g32 dequant-matmul: the wrapper over the CUDA kernels, its plain
-version, and its launch counts.
+"""int4g32 dequant-matmul (B1/B2) and its transposed form (B14): the wrappers
+over the CUDA kernels, their plain versions, and their launch counts.
 
 Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int4_fwd_kernel (grid form) and
 :_int4_pipelined_kernel (decode-M form).  They compute one function, so here
@@ -16,6 +16,14 @@ they are one wrapper, ``int4g32_matmul``, over two kernels in
 Both apply each 32-row group's scale to the f32 partial of that group, so
 with integer weights and bf16 activations they differ from the plain
 version only in the order of the f32 sums.
+
+``int4g32_matmul_t`` (B14) replaces pallas_matmul.py:_int4_t_kernel
+(``int4_matmul_t_pallas``): the backward of the int4g32 linear, grad_x =
+g @ dequant(packed, scale)ᵀ over the same packed weights.  The scale varies
+along K/32 and N, so each weight is rounded once to g's dtype, bf16(q·s)
+under bf16, before the dot, as both JAX forms do.  Two kernels in
+``csrc/int4_matmul.cu``: ``int4g32_t_gemv`` (f32 g or M ≤ 16) and
+``int4g32_t_mma`` (bf16, M > 16).
 """
 from __future__ import annotations
 
@@ -127,3 +135,79 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
     if uses_mma(x.shape[0], packed.shape[1], x.dtype):
         return int4g32_mma(x, packed, scale)
     return int4g32_gemv(x, packed, scale)
+
+
+# ---------------------------------------------------------------------------
+# Transposed (backward) form, B14
+# ---------------------------------------------------------------------------
+
+def int4g32_matmul_t_plain(g: torch.Tensor, packed: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """g (M, N) @ dequant(packed (K/2, N), scale (K/32, N))ᵀ → (M, K): each
+    weight rounded to g's dtype, the dot in f32, cast to g's dtype.  The
+    function the B14 kernels are held against."""
+    w = unpack_int4_tpu(packed, scale).to(g.dtype).float()
+    return (g.float() @ w.T).to(g.dtype)
+
+
+def _check_t(g, packed, scale):
+    if not (g.is_cuda and packed.device == g.device and scale.device == g.device):
+        raise ValueError("int4g32_matmul_t: g, packed and scale must be on one CUDA device")
+    if g.dim() != 2 or packed.dim() != 2 or scale.dim() != 2:
+        raise ValueError("int4g32_matmul_t: g (M, N), packed (K/2, N), scale (K/32, N)")
+    K2, N = packed.shape
+    K = 2 * K2
+    if g.shape[1] != N or K % 32 or scale.shape != (K // 32, N) or N % 8:
+        raise ValueError(f"int4g32_matmul_t: unsupported shapes g {tuple(g.shape)}, "
+                         f"packed {tuple(packed.shape)}, scale {tuple(scale.shape)}")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4g32_matmul_t: g must be bf16 or f32, not {g.dtype}")
+    if packed.dtype != torch.uint8 or scale.dtype != torch.bfloat16:
+        raise TypeError("int4g32_matmul_t: packed must be uint8 and scale bf16")
+    for name, t in (("packed", packed), ("scale", scale)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int4g32_matmul_t: {name} must be contiguous and 16-byte aligned")
+
+
+def int4g32_t_gemv(g, packed, scale):
+    """Launch B14's CUDA-core kernel (checked inputs on the card)."""
+    M, N = g.shape
+    K = 2 * packed.shape[0]
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    _build.call("chatglm_int4_t_gemv", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
+    int4g32_t_gemv.launches += 1
+    return out
+
+
+int4g32_t_gemv.launches = 0
+
+
+def int4g32_t_mma(g, packed, scale):
+    """Launch B14's tensor-core kernel (checked bf16 inputs on the card)."""
+    M, N = g.shape
+    K = 2 * packed.shape[0]
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    _build.call("chatglm_int4_t_mma", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+    int4g32_t_mma.launches += 1
+    return out
+
+
+int4g32_t_mma.launches = 0
+
+
+def int4g32_matmul_t(g: torch.Tensor, packed: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """g (M, N) bf16/f32 @ dequant(packed (K/2, N) u8, scale (K/32, N) bf16)ᵀ
+    → (M, K) in g's dtype: the int4g32 linear's grad_x at the storage K.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    a kernel or raises."""
+    if not g.is_cuda:
+        return int4g32_matmul_t_plain(g, packed, scale)
+    _check_t(g, packed, scale)
+    g = aligned(g)
+    if uses_mma(g.shape[0], g.shape[1], g.dtype):
+        return int4g32_t_mma(g, packed, scale)
+    return int4g32_t_gemv(g, packed, scale)

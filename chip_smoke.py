@@ -23,17 +23,29 @@ Phases (any failure raises and exits non-zero):
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
    int4 matmul with dynamic int8 activations (B8) has no such call.  Then
    B8 against B1 at M = 32, 64, 128: the crossover that ``_INT4_DYN_M_MAX``
-   (64) stands for.
+   (64) stands for.  The backward matmuls B13 (``int8_matmul_t``; library
+   ``_weight_int8pack_mm`` on g · s) and B14 (``int4g32_matmul_t``; no
+   library call, the dense ``g @ w_deq.T`` time as a reference) at the six
+   shapes transposed, M = 512 bf16, M = 16 bf16 (phase 7's 16-token step)
+   and M = 8 f32; B12
+   (``flash_attention_decode_v2``) beside B4's row.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
-   int4g32 with dynamic int8 activations, with control bugs that must fail
+   int4g32 with dynamic int8 activations, and int4g32 with
+   ``decode_attn_v2`` (B12, never B4), with control bugs that must fail
    the same limit.
+3b. Gradients at full width and depth 2, bf16, 2 x 128 tokens: the loss and
+   every trainable leaf's grad of the kernel path against the plain path
+   for int4g32, int8 and int8 with dynamic int8 activations over three
+   seeds, and a planted backward bug (B14 reading the next group's scale,
+   B13 its neighbour column's) that must exceed the limit.
 4. The first slice at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights built on the card, 4 right-padded requests through
    prefill and 32 greedy decode steps plus one top-p request, with every
    kernel's launch count from that run; then prefill and decode timings at
-   batch 1 and 4, and where a batch-1 decode step's time goes
+   batch 1 and 4, the decode again with ``decode_attn_v2`` (B12) in turns
+   with B4, and where a batch-1 decode step's time goes
    (torch.profiler's device time by kernel, cProfile's host time by
    function).
 5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
@@ -63,6 +75,14 @@ Phases (any failure raises and exits non-zero):
    stream shifted by one token is not.  Printed per run: time to first
    token per request, aggregate tokens/s, and the device's busy share of
    one decode chunk.
+7. Fine-tuning at full size through the frozen quantized weights
+   (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
+   over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
+   tokens (the first 64 labels ignored): a falling loss, 169 B1 and 169 B14
+   launches a step, the first step's loss and grads again with
+   ``remat_layers`` within phase 3b's limits, one 16-token step (the
+   CUDA-core B14), every frozen leaf bit-unchanged; then the int8 tree for
+   3 steps (B6 and B13).  ms and tokens/s a step, peak device memory.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object, the nvidia-smi line of the card, and
@@ -79,11 +99,13 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores: the CUDA-core kernels' f32 rows
 
 # bf16 output tolerance of a kernel against its plain version, as a fraction
 # of max|plain|: both sum exact products in f32 and differ only in order, so
 # the outputs differ by about one bf16 rounding (2^-8 = 3.9e-3 relative).
 KERNEL_TOL = 1e-2
+F32_TOL = 1e-5  # f32 outputs: the order of f32 sums alone
 # End-to-end tolerance (phase 3), as a fraction of max|logits| over two
 # layers of bf16 activations, on the unit-gain random tree of
 # ``bench.random_quantized_params``.  Weight-only: about 3x one kernel
@@ -97,6 +119,15 @@ KERNEL_TOL = 1e-2
 # exceed its limit (readings 2.7e-2 to 2.0e-1).
 E2E_TOL = 1.5e-2
 E2E_DYN_TOL = 6e-2
+# Phase 3b (gradient parity, 6B widths, depth 2, bf16): |Δloss| / |loss| and,
+# over the trainable leaves, max |Δgrad| / max |grad| of the kernel path
+# against the plain path.  The forward kernels round each linear's output to
+# bf16 at another place than the plain path, and the backward carries that
+# through two layers: the largest readings over GRAD_SEEDS on an H100 were
+# 3.9e-5 (loss) and 1.21e-2 (grads); each limit is about 1.5x that.  The
+# planted backward bugs read 3.2e+2 to 2.2e+3.
+GRAD_LOSS_TOL = 6e-5
+GRAD_TOL = 1.8e-2
 
 MATMUL_SHAPES = [  # (name, K, N) at storage sizes; kv_proj outputs 2 * kv_size
     ("q_proj", 4096, 4096), ("kv_proj", 4096, 512), ("o_proj", 4096, 4096),
@@ -105,6 +136,9 @@ MATMUL_SHAPES = [  # (name, K, N) at storage sizes; kv_proj outputs 2 * kv_size
 MATMUL_M = (1, 4, 512)
 DYN_M = (1, 4, 64, 512)      # B7 and B8 rows: decode, batch 4, the int4-dyn ceiling, prefill
 CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
+# B13/B14 rows: training's tensor-core M; the CUDA-core kernels at phase 7's
+# 16-token step (bf16, M = 16: the row the kernels line reports) and in f32
+T_ROWS = ((512, "bfloat16"), (16, "bfloat16"), (8, "float32"))
 PROMPT_LENGTHS = (128, 77, 33, 5)
 INT4_PATH_KERNELS = ("int4g32_gemv", "int4g32_mma", "kv_cache_write_idx",
                      "flash_attention_decode", "flash_attention_prefill")
@@ -412,6 +446,104 @@ def check_int8_matmul(torch):
     return rows
 
 
+def int8_t_library(torch, g, w, scale, want):
+    """ms of ``torch._weight_int8pack_mm(g * s, w, ones(K))`` over the
+    rotated (K, N) weights — its (out, in) layout — with the fold of the
+    scale into g timed along with it, after checking it computes the plain
+    version's function; None where this torch refuses it."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
+    if mm is None:
+        return None
+    ones = torch.ones((w.shape[1],), dtype=g.dtype, device=g.device)
+    try:
+        got = mm(g * scale[0].to(g.dtype), w[0], ones)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"    library: _weight_int8pack_mm refused g {tuple(g.shape)} {g.dtype}: "
+            f"{str(e)[:160]}")
+        return None
+    rel = rel_err(got, want)[1]
+    require(rel <= KERNEL_TOL, f"_weight_int8pack_mm (B13 yardstick) disagrees: {rel}")
+    n = len(w)
+    return cuda_event_ms(lambda i: mm(g * scale[i % n].to(g.dtype), w[i % n], ones), iters=30)
+
+
+def check_transposed(torch):
+    """B13 (``int8_matmul_t``) and B14 (``int4g32_matmul_t``), the backward
+    matmuls, at the six main-path shapes transposed (g (M, N) → (M, K)), at
+    M = 512 bf16 (the tensor-core kernels) and M = 8 f32 (the CUDA-core
+    kernels).  Library: ``_weight_int8pack_mm`` for B13; none for B14 (no
+    PyTorch call takes group scales along the output dimension), whose rows
+    carry the dense ``g @ w_deq.T`` time on the dequantized weights as a
+    reference (``dense_ms``)."""
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    log("    B14 library: none (no PyTorch call takes int4 group scales along the output "
+        "dimension); dense_ms is g @ w_deq.T on the dequantized weights, a reference only")
+
+    def row(fn, plain, kernel, name, M, K, N, g, wts, wbytes, lib=None, dense=None):
+        copies = len(wts[0])
+        got = fn(g, wts[0][0], wts[1][0])
+        torch.cuda.synchronize()
+        want = plain(g, wts[0][0], wts[1][0])
+        err, rel = rel_err(got, want)
+        tol = KERNEL_TOL if g.dtype == torch.bfloat16 else F32_TOL
+        require(torch.isfinite(got).all(), f"{fn.__name__} {name} M={M}: non-finite output")
+        require(rel <= tol, f"{fn.__name__} {name} M={M} {g.dtype}: rel err {rel} > {tol}")
+        ms = cuda_event_ms(lambda i: fn(g, wts[0][i % copies], wts[1][i % copies]), iters=30)
+        plain_ms = cuda_event_ms(lambda i: plain(g, wts[0][0], wts[1][0]), iters=3, warmup=1)
+        es = g.element_size()
+        peak = PEAK_BF16_FLOPS if g.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        b, by = bound_ms(M * N * es + wbytes + M * K * es, 2.0 * M * K * N, peak)
+        r = {"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+             "dtype": str(g.dtype).replace("torch.", ""), "max_abs_err": err, "rel_err": rel,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": lib(want) if lib else None}
+        if dense is not None:
+            r["dense_ms"] = dense
+        rows.append(r)
+        log_row(fn.__name__, r)
+        if dense is not None:
+            log(f"    dense g @ w_deq.T reference {dense:.4f} ms")
+
+    for name, K, N in MATMUL_SHAPES:
+        wbytes = K * N + 4 * N
+        copies = weight_copies(wbytes)
+        w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+        for M, dname in T_ROWS:
+            dtype = getattr(torch, dname)
+            g = torch.randn((M, N), device="cuda", generator=gen).to(dtype)
+            kernel = "int8_t_mma" if QM.uses_mma(M, N, dtype) else "int8_t_gemv"
+            row(I8.int8_matmul_t, I8.int8_matmul_t_plain, kernel, name, M, K, N, g, (w, scale),
+                wbytes, lib=lambda want, g=g: int8_t_library(torch, g, w, scale, want))
+        del w, scale
+        wbytes = K // 2 * N + K // 32 * N * 2
+        copies = weight_copies(wbytes)
+        packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
+                 ).to(torch.bfloat16)
+        for M, dname in T_ROWS:
+            dtype = getattr(torch, dname)
+            g = torch.randn((M, N), device="cuda", generator=gen).to(dtype)
+            w_deq = unpack_int4_tpu(packed[0], scale[0]).to(dtype)
+            dense = cuda_event_ms(lambda i: g @ w_deq.T, iters=30)
+            del w_deq
+            kernel = "int4g32_t_mma" if QM.uses_mma(M, N, dtype) else "int4g32_t_gemv"
+            row(QM.int4g32_matmul_t, QM.int4g32_matmul_t_plain, kernel, name, M, K, N, g,
+                (packed, scale), wbytes, dense=dense)
+        del packed, scale
+    return rows
+
+
 def check_attention(torch):
     import torch.nn.functional as F
 
@@ -451,6 +583,23 @@ def check_attention(torch):
                                          bound_ms=b, bound_by=by, library_ms=lib,
                                          shape=f"B={B} G={G} Hg={Hg} D={D} T={T} "
                                                f"lengths={lens.tolist()}")
+
+    # B12: the same decode split over T, with its own numerics; the same
+    # SDPA call (timed just above on the same inputs) is its yardstick
+    got = A.flash_attention_decode_v2(q, kc[0], vc[0], lens, sm)
+    torch.cuda.synchronize()
+    want = A.flash_attention_decode_v2_plain(q, kc[0], vc[0], lens, sm)
+    err, rel = rel_err(got, want)
+    require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
+            f"flash_attention_decode_v2 rel err {rel}")
+    ms = cuda_event_ms(lambda i: A.flash_attention_decode_v2(q, kc[i % L], vc[i % L], lens, sm),
+                       iters=56)
+    plain = cuda_event_ms(lambda i: A.flash_attention_decode_v2_plain(q, kc[0], vc[0], lens, sm),
+                          iters=5)
+    out["flash_attention_decode_v2"] = dict(
+        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=lib, shape=f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} "
+                              f"span={A.decode_v2_span(B * G, T, 512)}")
 
     # flash prefill
     S = max(PROMPT_LENGTHS)
@@ -697,13 +846,16 @@ def wrong_scale_tree(params):
     return {**params, "layers": {**params["layers"], "o_proj": o}}
 
 
-def end_to_end_parity(torch, quant, dyn, seed=21):
+def end_to_end_parity(torch, quant, dyn, seed=21, v2=False):
     """Kernel path vs plain path and vs the masked-softmax path at 6B widths
     and depth 2: max |Δlogits| / max|logits| over prefill and 8
     teacher-forced decode steps, each within the mode's limit; and two
     controls that must exceed it: the plain path on a tree with a wrong
     scale index, and (weight-only modes) the plain path in the other
-    numerics mode, a wrong dispatch."""
+    numerics mode, a wrong dispatch.  With ``v2`` every path's decode
+    attends through B12 (``decode_attn_v2``): the kernel path must launch
+    it and never B4."""
+    from chatglm_q_tpu_torch import ops
     from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
     from chatglm_q_tpu_torch.bench import random_quantized_params
     from chatglm_q_tpu_torch.models import chatglm2 as M
@@ -716,14 +868,16 @@ def end_to_end_parity(torch, quant, dyn, seed=21):
     tol = E2E_DYN_TOL if dyn else E2E_TOL
 
     def plain(d, flash=True):
-        return TorchRuntimeConfig(use_kernels=False, use_flash_attention=flash, dynamic_int8=d)
+        return TorchRuntimeConfig(use_kernels=False, use_flash_attention=flash, dynamic_int8=d,
+                                  decode_attn_v2=v2)
 
-    paths = {"kernel": (params, TorchRuntimeConfig(dynamic_int8=dyn)),
+    paths = {"kernel": (params, TorchRuntimeConfig(dynamic_int8=dyn, decode_attn_v2=v2)),
              "plain": (params, plain(dyn)), "masked": (params, plain(dyn, flash=False)),
              "wrong scale": (wrong_scale_tree(params), plain(dyn))}
     if not dyn:
         paths["wrong numerics"] = (params, plain(True))
     caches = {k: M.init_kv_cache(cfg, B, 256, bf16) for k in paths}
+    ops.reset_launch_counts()
     logits = {}
     for k, (p, rt) in paths.items():
         logits[k], caches[k] = M.prefill(p, cfg, ids, lengths, caches[k], quant, bf16, rt)
@@ -737,15 +891,101 @@ def end_to_end_parity(torch, quant, dyn, seed=21):
         tok = torch.argmax(logits["kernel"], -1).to(torch.int32)  # teacher forcing
         for k, (p, rt) in paths.items():
             logits[k], caches[k] = M.decode_step(p, cfg, tok, caches[k], quant, bf16, rt)
-    log(f"  {mode_name(quant, dyn):12s} 6B widths, 2 layers, batch {B}, max rel logits err of "
+    name = mode_name(quant, dyn) + (" v2" if v2 else "")
+    if v2:
+        counts = ops.launch_counts()
+        require(counts["flash_attention_decode_v2"] > 0 and counts["flash_attention_decode"] == 0,
+                f"{name}: decode_attn_v2 launched B12 {counts['flash_attention_decode_v2']}, "
+                f"B4 {counts['flash_attention_decode']} times")
+    log(f"  {name:12s} 6B widths, 2 layers, batch {B}, max rel logits err of "
         f"the kernel path vs: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" (limit {tol:.1e}; the controls, after masked, must exceed it)")
     for ref, v in worst.items():
         if ref in ("plain", "masked"):
-            require(v <= tol, f"{mode_name(quant, dyn)}: kernel path vs {ref} path: {v} > {tol}")
+            require(v <= tol, f"{name}: kernel path vs {ref} path: {v} > {tol}")
         else:
-            require(v > tol, f"{mode_name(quant, dyn)}: the {ref} control passes ({v} <= {tol})")
+            require(v > tol, f"{name}: the {ref} control passes ({v} <= {tol})")
     return worst
+
+
+GRAD_MODES = [("int4g32", False), ("int8", False), ("int8", True)]
+GRAD_SEEDS = (91, 92, 93)
+
+
+def wrong_backward(torch, quant):
+    """A planted bug in the backward's kernel call: B14 reading each group's
+    scale from the next group, or B13 folding each column's scale from its
+    neighbour.  Returns the name in ``ops.linear`` it replaces, and the
+    function to put there."""
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+
+    if quant == "int4g32":
+        return "int4g32_matmul_t", lambda g, p, s: QM.int4g32_matmul_t(g, p, s.roll(-1, dims=0))
+    return "int8_matmul_t", lambda g, w, s: I8.int8_matmul_t(g, w, s.roll(1))
+
+
+def grad_rel(torch, a, b):
+    """(|Δloss| / |loss|, the largest over leaves of max |Δgrad| / max |grad|)
+    of run ``a`` against run ``b``, each a (loss, grads) pair."""
+    dl = abs(a[0].item() - b[0].item()) / abs(b[0].item())
+    dg = max(rel_err(x, y)[1] for x, y in zip(a[1], b[1]))
+    return dl, dg
+
+
+def grad_parity(torch, quant, dyn, seed):
+    """Phase 3b: at 6B widths and depth 2, bf16, batch 2 × 128 tokens, the
+    loss and every trainable leaf's grad (the f32 norm masters) of the
+    kernel path against the plain path on the same tree, and of the kernel
+    path with a planted backward bug."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.ops import linear as TL
+    from chatglm_q_tpu_torch.utils.train import loss_and_grads, partition_params
+
+    cfg = ChatGLM2Config(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = random_quantized_params(cfg, quant, gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda", generator=gen)
+    labels = ids.clone()
+    labels[:, :16] = -100
+    trainable, frozen = partition_params(params)
+
+    def run(use_kernels):
+        rt = TorchRuntimeConfig(use_kernels=use_kernels, dynamic_int8=dyn)
+        return loss_and_grads(cfg, quant, trainable, frozen, ids, labels, torch.bfloat16, rt)
+
+    kern, plain = run(True), run(False)
+    name, bug = wrong_backward(torch, quant)
+    good = getattr(TL, name)
+    setattr(TL, name, bug)
+    try:
+        control = run(True)
+    finally:
+        setattr(TL, name, good)
+    for lo, gr in (kern, plain):
+        require(math.isfinite(lo.item()) and all(torch.isfinite(g).all() for g in gr),
+                f"{mode_name(quant, dyn)} seed {seed}: non-finite loss or grads")
+    return {"kernel_vs_plain": grad_rel(torch, kern, plain),
+            "control_vs_plain": grad_rel(torch, control, plain)}
+
+
+def check_grad_parity(torch):
+    """Phase 3b over GRAD_MODES × GRAD_SEEDS: each reading within
+    (GRAD_LOSS_TOL, GRAD_TOL), each planted control's grads above GRAD_TOL."""
+    out = {}
+    for quant, dyn in GRAD_MODES:
+        name = mode_name(quant, dyn)
+        for seed in GRAD_SEEDS:
+            r = grad_parity(torch, quant, dyn, seed)
+            out[f"{name} seed {seed}"] = r
+            (dl, dg), (_, cg) = r["kernel_vs_plain"], r["control_vs_plain"]
+            log(f"  {name:12s} seed {seed}: kernel vs plain |Δloss|/|loss| {dl:.3e}, grads "
+                f"{dg:.3e}; control grads {cg:.3e} (limits {GRAD_LOSS_TOL:.1e}, {GRAD_TOL:.1e})")
+            require(dl <= GRAD_LOSS_TOL and dg <= GRAD_TOL,
+                    f"{name} seed {seed}: kernel vs plain path loss {dl}, grads {dg}")
+            require(cg > GRAD_TOL, f"{name} seed {seed}: the planted backward bug passes ({cg})")
+    return out
 
 
 def full_slice(torch, smi):
@@ -810,11 +1050,29 @@ def full_slice(torch, smi):
         perf[f"batch{batch}"] = r
         log(f"  batch {batch}: prefill {batch}x128 tokens {r['prefill_ms']:.2f} ms; decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
+    # decode_attn_v2 (B12) paired with B4 in turns: B4 (above), v2, v2, B4
+    rt_v2 = TorchRuntimeConfig(decode_attn_v2=True)
+    ops.reset_launch_counts()
+    for batch in (1, B):
+        perf[f"v2_batch{batch}"] = [decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN,
+                                                rt_v2) for _ in range(2)]
+    v2_counts = ops.launch_counts()
+    require(v2_counts["flash_attention_decode_v2"] > 0 and v2_counts["flash_attention_decode"] == 0,
+            f"decode_attn_v2 runs launched B12 {v2_counts['flash_attention_decode_v2']}, "
+            f"B4 {v2_counts['flash_attention_decode']} times")
+    for batch in (1, B):
+        again = decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN, rt)
+        perf[f"batch{batch}_again"] = again
+        v2 = [r["decode_ms_per_step"] for r in perf[f"v2_batch{batch}"]]
+        log(f"  batch {batch} decode, cache {CACHE_LEN}: B4 {perf[f'batch{batch}']['decode_ms_per_step']:.3f}"
+            f" / {again['decode_ms_per_step']:.3f} ms/step, decode_attn_v2 (B12) {v2[0]:.3f} / "
+            f"{v2[1]:.3f} ms/step  [{smi}]")
+    log(f"  decode_attn_v2 runs: B12 launched {v2_counts['flash_attention_decode_v2']} times, B4 0")
     perf["profile"] = profile_decode(torch, params, cfg, rt)
     busy = perf["profile"]["device_ms_per_step"] / perf["batch1"]["decode_ms_per_step"]
     perf["profile"]["device_busy_share_untraced"] = busy
     log(f"  batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
-    return counts, perf
+    return counts, v2_counts, perf
 
 
 def profile_decode(torch, params, cfg, rt, quant="int4g32"):
@@ -1312,6 +1570,165 @@ def engines_slice(torch, smi, seed=61):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: fine-tuning through the frozen quantized weights
+# ---------------------------------------------------------------------------
+
+FT_BATCH, FT_SEQ, FT_IGNORED = 2, 512, 64  # 2 x 512 tokens, the first 64 labels at -100
+FT_TRAINABLE = 28 * 4096 * 2 + 4096       # the stacked attn_ln / ffn_ln and final_ln
+PER_STEP = 6 * 28 + 1                     # quantized matmuls a step runs: 6 a layer + lm_head
+
+
+def fine_tune(torch, smi, quant, steps, seed):
+    """ChatGLM2-6B (28 layers) of ``quant`` random weights: ``steps`` AdamW
+    steps over the f32 norm masters on one seeded batch, each step's loss,
+    time and launches; then (int4g32) the first step's loss and grads again
+    with and without ``remat_layers`` from the same start; then one step on
+    a 16-token sample, which takes the CUDA-core backward kernels.  Every
+    frozen leaf must come out bit-unchanged and every norm moved."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.utils.train import (loss_and_grads, make_train_step,
+                                                 partition_params, trainable_leaves)
+
+    cfg = ChatGLM2Config()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = random_quantized_params(cfg, quant, gen)
+    trainable, frozen = partition_params(params)
+    leaves = trainable_leaves(trainable)
+    n_train = sum(t.numel() for t in leaves)
+    require(n_train == FT_TRAINABLE, f"{quant}: {n_train} trainable values")
+    frozen_before = {k: v.clone() for k, v in tree_leaves(frozen) if v is not None}
+    start = map_tree(trainable, lambda t: None if t is None else
+                     t.detach().clone().requires_grad_(True))
+    ids = torch.randint(0, cfg.vocab_size, (FT_BATCH, FT_SEQ), device="cuda", generator=gen)
+    labels = ids.clone()
+    labels[:, :FT_IGNORED] = -100
+    rt = TorchRuntimeConfig()
+    opt = torch.optim.AdamW(leaves, lr=1e-3, weight_decay=0.0)
+    step = make_train_step(cfg, quant, opt, bf16, rt)
+    t_fwd, t_bwd = (("int4g32_mma", "int4g32_t_mma") if quant == "int4g32"
+                    else ("int8_mma", "int8_t_mma"))
+    out = {"card": smi, "quant": quant, "trainable_values": n_train, "steps": []}
+    counts_total = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts_total[k] += v
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step(trainable, frozen, ids, labels).item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c = ops.launch_counts()
+        add(c)
+        require(math.isfinite(loss), f"{quant} step {i + 1}: loss {loss}")
+        require(c[t_bwd] == PER_STEP and c[t_fwd] == PER_STEP,
+                f"{quant} step {i + 1}: {c[t_fwd]} forward and {c[t_bwd]} backward launches, "
+                f"not {PER_STEP}")
+        out["steps"].append({"loss": loss, "ms": ms, "tok_per_s": FT_BATCH * FT_SEQ / ms * 1e3,
+                             "launches": {k: v for k, v in c.items() if v}})
+        log(f"  {quant} step {i + 1}: loss {loss:.6f}, {ms:.1f} ms, "
+            f"{FT_BATCH * FT_SEQ / ms * 1e3:.0f} tokens/s; launches {c[t_fwd]} {t_fwd}, "
+            f"{c[t_bwd]} {t_bwd}  [{smi}]")
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    losses = [s_["loss"] for s_ in out["steps"]]
+    # the forward casts the f32 masters to bf16, whose step near 1.0 is 2^-8
+    # below and 2^-7 above: an AdamW step of ~1e-3 shows in the forward only
+    # from the third step on, so a run takes at least three
+    require(steps >= 3 and losses[-1] < losses[0], f"{quant}: the loss did not fall: {losses}")
+    moved = [not torch.equal(a.detach(), b) for a, b in
+             zip(leaves, trainable_leaves(start))]
+    require(all(moved), f"{quant}: a norm did not move")
+    log(f"  {quant}: {steps} steps of {FT_BATCH}x{FT_SEQ} tokens, {n_train} trainable values; "
+        f"peak device memory {out['peak_mem_bytes'] / 2**30:.2f} GiB  [{smi}]")
+
+    if quant == "int4g32":  # a traced step; the first step again, with and without remat
+        out["profile"] = profile_train_step(torch, step, trainable, frozen, ids, labels,
+                                            out["steps"][-1]["ms"])
+        runs = {}
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[remat] = loss_and_grads(cfg, quant, start, frozen, ids, labels, bf16,
+                                         TorchRuntimeConfig(remat_layers=remat))
+            torch.cuda.synchronize()
+            out[f"remat_{remat}"] = {"fwd_bwd_ms": (time.perf_counter() - t0) * 1e3,
+                                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                                     "forward_launches": ops.launch_counts()[t_fwd]}
+            add(ops.launch_counts())
+        dl, dg = grad_rel(torch, runs[True], runs[False])
+        d1 = abs(runs[False][0].item() - losses[0]) / abs(losses[0])
+        out["remat_vs_plain"] = {"loss": dl, "grads": dg, "first_step_loss": d1}
+        log(f"  remat_layers from the same start: |Δloss|/|loss| {dl:.3e}, grads {dg:.3e} "
+            f"(limits {GRAD_LOSS_TOL:.1e}, {GRAD_TOL:.1e}); fwd+bwd "
+            f"{out['remat_False']['fwd_bwd_ms']:.1f} ms, peak "
+            f"{out['remat_False']['peak_mem_bytes'] / 2**30:.2f} GiB without, "
+            f"{out['remat_True']['fwd_bwd_ms']:.1f} ms, "
+            f"{out['remat_True']['peak_mem_bytes'] / 2**30:.2f} GiB with (forward launches "
+            f"{out['remat_False']['forward_launches']} / {out['remat_True']['forward_launches']})")
+        require(dl <= GRAD_LOSS_TOL and dg <= GRAD_TOL and d1 <= GRAD_LOSS_TOL,
+                f"remat_layers: loss {dl}, grads {dg}, first step {d1}")
+        del runs
+
+    # a 16-token sample (labels past the ignored head): M = 16 rows take the
+    # CUDA-core backward kernels
+    ops.reset_launch_counts()
+    short = step(trainable, frozen, ids[:1, FT_IGNORED:FT_IGNORED + 16],
+                 labels[:1, FT_IGNORED:FT_IGNORED + 16]).item()
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    add(c)
+    t_gemv = t_bwd.replace("_mma", "_gemv")
+    require(math.isfinite(short) and short > 0 and c[t_gemv] == PER_STEP,
+            f"{quant} 16-token step: loss {short}, {c[t_gemv]} {t_gemv} launches")
+    log(f"  {quant} 16-token step: loss {short:.6f}; {c[t_gemv]} {t_gemv} launches")
+    for k, v in tree_leaves(frozen):
+        if v is not None:
+            require(torch.equal(v, frozen_before[k]), f"{quant}: frozen leaf {k} changed")
+    log(f"  {quant}: all {len(frozen_before)} frozen leaves (packed weights, scales, biases, "
+        f"embedding) bit-unchanged")
+    return counts_total, out
+
+
+def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms):
+    """One more training step under torch.profiler: device time by kernel,
+    and the device's busy share of the untraced step before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(trainable, frozen, ids, labels)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = [(e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:10]]
+    log(f"  profile of one int4g32 training step: device busy {dev_ms:.1f} ms, "
+        f"{100 * dev_ms / untraced_ms:.1f}% of the untraced step ({untraced_ms:.1f} ms)")
+    for name, ms, n in top:
+        log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+    return {"device_ms": dev_ms, "busy_share_untraced": dev_ms / untraced_ms, "top_ms": top}
+
+
+def fine_tune_slice(torch, smi):
+    counts, out = {}, {}
+    counts["int4g32"], out["int4g32"] = fine_tune(torch, smi, "int4g32", 4, 71)
+    torch.cuda.empty_cache()
+    counts["int8"], out["int8"] = fine_tune(torch, smi, "int8", 3, 72)
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -1342,14 +1759,20 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
     mm_rows, crossover = check_matmul(torch)
     int8_rows = check_int8_matmul(torch)
+    t_rows = check_transposed(torch)
     att = check_attention(torch)
     att.update(check_paged_attention(torch))
 
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
+    e2e["int4g32 decode_attn_v2"] = end_to_end_parity(torch, "int4g32", False, v2=True)
+
+    log("== phase 3b: gradients at 6B widths, depth 2, bf16, 2 x 128 tokens, kernel path vs "
+        "plain path")
+    grads = check_grad_parity(torch)
 
     log("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
-    counts, perf = full_slice(torch, smi)
+    counts, v2_counts, perf = full_slice(torch, smi)
     torch.cuda.empty_cache()
 
     log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, 28 layers")
@@ -1358,12 +1781,17 @@ def main() -> int:
 
     log("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
     engine_counts, engine_perf = engines_slice(torch, smi)
+    torch.cuda.empty_cache()
+
+    log("== phase 7: fine-tuning ChatGLM2-6B, 28 layers, int4g32 then int8, through the frozen "
+        "quantized weights")
+    ft_counts, ft_perf = fine_tune_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
     def pick(kernel, M, name="w_in_h/w_in_gate"):
-        return next(r for r in mm_rows + int8_rows if r["kernel"] == kernel and r["M"] == M
-                    and r["linear"] == name)
+        return next(r for r in mm_rows + int8_rows + t_rows if r["kernel"] == kernel
+                    and r["M"] == M and r["linear"] == name)
 
     mm4, mm8, dyn = ("chatglm_q_tpu_torch/csrc/int4_matmul.cu",
                      "chatglm_q_tpu_torch/csrc/int8_matmul.cu",
@@ -1381,7 +1809,13 @@ def main() -> int:
          chat_counts["int4g32+dyn"]),
         ("int4_dyn_mma", dyn, f"{pm}:1040", pick("int4_dyn_mma", 64), chat_counts["int4g32+dyn"]),
         ("kv_cache_write_idx", att_src, f"{pa}:427", att["kv_cache_write_idx"], counts),
+        ("int4g32_t_gemv", mm4, f"{pm}:671", pick("int4g32_t_gemv", 16), ft_counts["int4g32"]),
+        ("int4g32_t_mma", mm4, f"{pm}:671", pick("int4g32_t_mma", 512), ft_counts["int4g32"]),
+        ("int8_t_gemv", mm8, f"{pm}:653", pick("int8_t_gemv", 16), ft_counts["int8"]),
+        ("int8_t_mma", mm8, f"{pm}:653", pick("int8_t_mma", 512), ft_counts["int8"]),
         ("flash_attention_decode", att_src, f"{pa}:207", att["flash_attention_decode"], counts),
+        ("flash_attention_decode_v2", att_src, f"{pa}:662", att["flash_attention_decode_v2"],
+         v2_counts),
         ("flash_attention_prefill", att_src, f"{pa}:43", att["flash_attention_prefill"], counts),
         ("flash_attention_prefill_chunk", att_src, f"{pa}:43",
          att["flash_attention_prefill_chunk"], engine_counts),
@@ -1395,14 +1829,17 @@ def main() -> int:
     for name, src, replaces, r, run_counts in specs:
         require(run_counts[name] > 0, f"{name}: no launch on its main-path run")
         shape = r.get("shape") or f"M={r['M']} K={r['K']} N={r['N']} ({r['linear']})"
+        if "dtype" in r:  # a backward matmul: g (M, N) → (M, K)
+            shape = f"g (M={r['M']}, N={r['N']}) {r['dtype']} -> K={r['K']} ({r['linear']})"
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": run_counts[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
-    detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "b8_b1_crossover": crossover,
-              "attention": att, "e2e_rel_err": e2e, "int4g32_28_layers": perf,
-              "chat_28_layers": chat_perf, "engines_28_layers": engine_perf}
+    detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
+              "b8_b1_crossover": crossover, "attention": att, "e2e_rel_err": e2e,
+              "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
+              "engines_28_layers": engine_perf, "fine_tune_28_layers": ft_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

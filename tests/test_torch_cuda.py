@@ -307,3 +307,109 @@ def test_int8_kernels_reject_what_they_cannot_take(gen):
     with pytest.raises(ValueError):  # B8 takes bf16 group scales only
         D.int4_dyn_matmul(x, torch.zeros((32, 16), dtype=torch.uint8, device="cuda"),
                           torch.ones((2, 16), device="cuda"))
+
+
+# B13 / B14 (the backward matmuls): g (M, N) -> (M, K).  M across the
+# split-K / tensor-core switch, N = 264 (not a multiple of 16: the CUDA-core
+# kernel even in bf16), the storage K of w_out, and the lm_head's N.
+T_EDGES = [(1, 4096, 512), (3, 256, 264), (16, 13824, 4096), (17, 4096, 4096),
+           (130, 13824, 4096), (70, 4096, 65536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", T_EDGES)
+def test_int8_matmul_t_matches_plain(gen, dtype, M, K, N):
+    w, scale = _int8_weights(gen, K, N)
+    g = _x(gen, M, N, dtype)
+    got = I8.int8_matmul_t(g, w, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, K)
+    assert _rel(got, I8.int8_matmul_t_plain(g, w, scale)) <= _tol(dtype)
+    assert not got[M // 2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", T_EDGES)
+def test_int4g32_matmul_t_matches_plain(gen, dtype, M, K, N):
+    packed = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, device="cuda", generator=gen)
+    scale = (torch.rand((K // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    g = _x(gen, M, N, dtype)
+    got = QM.int4g32_matmul_t(g, packed, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, K)
+    assert _rel(got, QM.int4g32_matmul_t_plain(g, packed, scale)) <= _tol(dtype)
+
+
+def test_transposed_kernels_read_a_layer_view(gen):
+    stack = torch.randint(0, 256, (3, 512, 4096), dtype=torch.uint8, device="cuda", generator=gen)
+    scales = (torch.rand((3, 32, 4096), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    w8 = torch.randint(-128, 128, (3, 1024, 4096), dtype=torch.int8, device="cuda", generator=gen)
+    s8 = torch.rand((3, 4096), device="cuda", generator=gen) * 0.02
+    for M in (2, 64):
+        g = torch.randn((M, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+        got = QM.int4g32_matmul_t(g, stack[2], scales[2])
+        assert _rel(got, QM.int4g32_matmul_t_plain(g, stack[2].clone(), scales[2].clone())) <= 1e-2
+        got = I8.int8_matmul_t(g, w8[1], s8[1])
+        assert _rel(got, I8.int8_matmul_t_plain(g, w8[1].clone(), s8[1].clone())) <= 1e-2
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4g32"])
+def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, quant):
+    """On CUDA tensors quant_linear's backward launches B13/B14 (never their
+    plain versions) and its grad_x agrees with the plain path's; K = 4000
+    is stored padded to 4096 and comes back stripped."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.ops import linear as TL
+
+    K, Ks, N = 4000, 4096, 1024
+    if quant == "int8":
+        w, scale = _int8_weights(gen, Ks, N)
+        w[K:] = 0
+        params, kernels = {"weight": w, "weight_scale": scale}, ("int8_t_gemv", "int8_t_mma")
+        plain_name = "int8_matmul_t_plain"
+    else:
+        packed = torch.randint(0, 256, (Ks // 2, N), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        packed[K // 2:] = 0
+        scale = (torch.rand((Ks // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+        params, kernels = {"weight": packed, "weight_scale": scale}, ("int4g32_t_gemv",
+                                                                      "int4g32_t_mma")
+        plain_name = "int4g32_matmul_t_plain"
+    fns = [getattr(I8 if quant == "int8" else QM, k) for k in kernels]
+    plain = getattr(TL, plain_name)
+    xs = {M: torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+          for M in (8, 256)}
+    grads = {}
+    for use_kernels in (False, True):
+        if use_kernels:
+            monkeypatch.setattr(TL, plain_name, lambda *a: pytest.fail("plain backward ran"))
+        before = [f.launches for f in fns]
+        for M, x0 in xs.items():
+            x = x0.clone().requires_grad_(True)
+            y = TL.quant_linear(x, params, quant, TorchRuntimeConfig(use_kernels=use_kernels))
+            y.float().square().sum().backward()
+            torch.cuda.synchronize()
+            assert x.grad.shape == (M, K)
+            grads[use_kernels, M] = x.grad
+        launched = [f.launches - b for f, b in zip(fns, before)]
+        assert launched == ([1, 1] if use_kernels else [0, 0]), launched
+    monkeypatch.setattr(TL, plain_name, plain)
+    for M in (8, 256):
+        assert _rel(grads[True, M], grads[False, M]) <= 2e-2
+
+
+@pytest.mark.parametrize("Hg", [16, 4])
+def test_decode_v2_matches_plain(gen, Hg):
+    """T = 1000 (not a multiple of any span), lengths −1 (outputs 0), 0,
+    mid and past the cache."""
+    B, G, D, T = 4, 2, 128, 1000
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([-1, 0, 437, T + 5], dtype=torch.int32, device="cuda")
+    sm = 1 / math.sqrt(D)
+    for block_k in (512, 64, 1000):
+        got = A.flash_attention_decode_v2(q, k, v, lengths, sm, block_k)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and not got[0].float().any()
+        assert _rel(got, A.flash_attention_decode_v2_plain(q, k, v, lengths, sm)) <= 1e-2

@@ -52,7 +52,7 @@ def test_port_imports_with_jax_blocked():
             "chatglm_q_tpu_torch.ops.int8_matmul", "chatglm_q_tpu_torch.serving.engine",
             "chatglm_q_tpu_torch.serving.paged_engine", "chatglm_q_tpu_torch.serving.speculative",
             "chatglm_q_tpu_torch.models.paged_kv", "chatglm_q_tpu_torch.models.spec_decode",
-            "chatglm_q_tpu_torch.utils.logging"} <= set(mods)
+            "chatglm_q_tpu_torch.utils.logging", "chatglm_q_tpu_torch.utils.train"} <= set(mods)
     code = ("import sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
@@ -69,7 +69,8 @@ def test_port_imports_with_jax_blocked():
                                     "chatglm_q_tpu_torch.serving.decoder",
                                     "chatglm_q_tpu_torch.serving.paged_engine",
                                     "chatglm_q_tpu_torch.tokenizer",
-                                    "chatglm_q_tpu_torch.ops.linear"])
+                                    "chatglm_q_tpu_torch.ops.linear",
+                                    "chatglm_q_tpu_torch.utils.train"])
 def test_no_forbidden_package_in_sys_modules_after_import(module):
     """Imported unblocked in a fresh interpreter, a module pulls in none of
     the forbidden packages."""
