@@ -68,6 +68,43 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// m16n8k16 fragments of the attention kernels.  A (16 x 16, row-major in
+// shared memory) and B (16 x 8) come from ldmatrix: x4 loads four 8 x 8
+// bf16 matrices, lanes 8i..8i+7 giving the row addresses of matrix i;
+// .trans hands each lane the transposed elements (B from a k-major tile).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// 16-byte global -> shared copy in flight (cp.async, L2 only); with fill
+// false nothing is read and the 16 bytes are zeroed.  src must be a valid
+// address either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // d += a @ b, s8 in, s32 accumulate (exact); the m16n8k32 fragment layout:
 // a0/a2 hold row gid, a1/a3 row gid+8, four K bytes each at tig*4 (a0, a1)
 // and 16 + tig*4 (a2, a3); b0/b1 hold column gid at K bytes tig*4 and

@@ -55,10 +55,9 @@ SIGNATURES = {
     "chatglm_int4_dyn_mma": [P, P, P, P, P, I, I, I, I, P],
     # cache_layer, new, starts, B, G, T, D, stream (bf16)
     "chatglm_kv_write": [P, P, P, I, I, I, I, P],
-    # q, k, v, lengths, out, B, G, Hg, T, D, sm_scale, stream (bf16)
-    "chatglm_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
-    # q, k, v, lengths, part, out, B, G, Hg, T, D, span, sm_scale, stream (bf16)
-    "chatglm_decode_v2": [P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # q, k, v, lengths, part, arrivals, out, B, G, Hg, T, D, span, v2, sm_scale,
+    # stream (bf16; B4 and B12; part may be null)
+    "chatglm_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale,
     # stream (bf16; q_starts / kv_row_map may be null)
     "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],

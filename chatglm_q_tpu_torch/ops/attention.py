@@ -13,10 +13,14 @@ counts.
 * ``flash_attention_decode`` replaces :_decode_kernel (flash_attention_decode
   and its stacked-cache ``_idx`` form: here the caller passes the layer's
   view ``cache[l]``).  Row b attends slots 0..lengths[b] inclusive — the
-  token of this step is already written — and reads nothing past them.
+  token of this step is already written — and reads nothing past them; a
+  row of length −1 has no valid slot and outputs 0 (the TPU kernel's
+  l == 0 guard; the plain version too).
 * ``flash_attention_decode_v2`` replaces :_decode_v2_kernel (the
-  ``decode_attn_v2`` option): B4's function with B10's numerics (below),
-  the cache split over T across blocks; a row of length −1 outputs 0.
+  ``decode_attn_v2`` option): B4's function with B10's numerics (below).
+  Both decode forms launch one kernel over (b·g, span of rows), the span
+  from ``decode_span``; the blocks merge their spans in the same launch,
+  and a row of at most DECODE_SOLO_ROWS valid slots is one span.
 * ``kv_cache_write_idx`` replaces :_kv_write_kernel.  Writes one token per
   row into cache[layer, b, :, starts[b], :] in place, with starts clamped
   to T − 1 (JAX's dynamic_update_slice clamp: the engines decode past the
@@ -33,12 +37,14 @@ counts.
 
 Numerics shared with the TPU kernels.  Prefill and decode: scores in f32
 scaled by ``sm_scale``, masked scores at MASK_VALUE, probabilities cast to
-v's dtype before the PV product.  The paged decode and chunk kernels, as
-on the TPU, scale q by ``sm_scale`` in q's dtype before the dot and keep
-the probabilities in f32.  The kernels' design notes (what bounds them on
+v's dtype before the PV product.  The paged decode and chunk kernels and
+B12, as on the TPU, scale q by ``sm_scale`` in q's dtype before the dot and
+keep the probabilities in f32.  The kernels' design notes (what bounds them on
 an H100 and what they do about it) are at the top of csrc/attention.cu.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -48,8 +54,11 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 128       # the head dim the kernels are built for
 MAX_DECODE_HG = 16   # query heads per KV group the decode kernel holds
 MAX_PREFILL_HG = 64  # query heads per KV group the prefill tile can fold
-V2_MIN_SPAN = 64     # fewest cache rows one B12 block reads
-V2_TARGET_BLOCKS = 132  # B12 spans shrink until the grid covers the H100's SMs
+DECODE_TILE = 64     # K/V rows per tile of the decode kernel: spans are multiples
+DECODE_TARGET_BLOCKS = 132  # decode spans shrink until the grid covers the H100's SMs
+DECODE_BLOCK_K = 512  # B4's starting span (B12 takes its ``block_k``)
+DECODE_SOLO_ROWS = 256  # the kernel's bound (DA_SOLO_ROWS): a (b, g) with at most
+                        # this many valid rows is one span, with no cross-block merge
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +90,13 @@ def flash_attention_prefill_plain(q, k, v, lengths, sm_scale, q_starts=None,
 
 def flash_attention_decode_plain(q, k, v, lengths, sm_scale):
     """q (B, G, Hg, D); k, v (B, G, T, D); lengths (B,) = the cache length
-    before this token.  Returns (B, G, Hg, D)."""
+    before this token.  A row with no valid slot (length −1) outputs 0, as
+    the TPU kernel's l == 0 guard gives.  Returns (B, G, Hg, D)."""
     T = k.shape[2]
     s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
-    valid = torch.arange(T, device=q.device)[None, :] <= lengths[:, None]
+    valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
     s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
+    p = torch.softmax(s, dim=-1).to(v.dtype) * (lengths >= 0).to(v.dtype)[:, None, None, None]
     return torch.einsum("bght,bgtd->bghd", p.float(), v.float()).to(q.dtype)
 
 
@@ -236,22 +246,66 @@ def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_m
 flash_attention_prefill_chunk.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def decode_span(batch_groups: int, T: int, block_k: int) -> int:
+    """Cache rows per decode block (B4 and B12): ``block_k`` capped at T,
+    rounded up to a whole number of DECODE_TILE-row tiles, then halved (and
+    rounded up again) down to one tile while the grid of batch_groups ·
+    ceil(T / span) blocks would leave SMs of the card idle."""
+    def tiles(n):
+        return -(-n // DECODE_TILE) * DECODE_TILE
+
+    span = tiles(max(1, min(block_k, T)))
+    while span > DECODE_TILE and batch_groups * -(-T // span) < DECODE_TARGET_BLOCKS:
+        span = tiles(span // 2)
+    return span
+
+
+_DECODE_SCRATCH: dict = {}
+
+
+def _decode_scratch(kind: str, device, n: int, dtype):
+    """The decode kernel's buffers on ``device``, kept across calls and
+    grown when too small: ``arrivals``, the per-(b, g) arrival counters
+    (zeroed once and left at zero by every launch: the merging block resets
+    its counter), and ``part``, the spans' f32 partials.  One stream at a
+    time per device."""
+    buf = _DECODE_SCRATCH.get((kind, device))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 256),), dtype=dtype, device=device)
+        _DECODE_SCRATCH[kind, device] = buf
+    return buf
+
+
+def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2):
+    B, G, Hg, D = q.shape
+    T = k.shape[2]
+    lengths = _int32(lengths)
+    _check_cuda(name, q, k, v, lengths)
+    _check_bf16(name, q, k, v)
+    if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    span = decode_span(B * G, T, block_k)
+    nspan = -(-T // span)
+    # partials only where a (b, g) can hold more than one span
+    part = (None if nspan == 1 or T <= DECODE_SOLO_ROWS else
+            _decode_scratch("part", q.device, B * G * nspan * Hg * (D + 2), torch.float32))
+    out = torch.empty_like(q)
+    _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                lengths.data_ptr(), None if part is None else part.data_ptr(),
+                _decode_scratch("arrivals", q.device, B * G, torch.int32).data_ptr(),
+                out.data_ptr(), B, G, Hg, T, D, span, int(v2), float(sm_scale),
+                _build.stream_ptr(q))
+    return out
+
+
 def flash_attention_decode(q, k, v, lengths, sm_scale):
     """Ragged single-token attention over the layer's (B, G, T, D) cache
     view.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if not q.is_cuda:
         return flash_attention_decode_plain(q, k, v, lengths, sm_scale)
-    B, G, Hg, D = q.shape
-    T = k.shape[2]
-    lengths = lengths.to(torch.int32).contiguous()
-    _check_cuda("flash_attention_decode", q, k, v, lengths)
-    _check_bf16("flash_attention_decode", q, k, v)
-    if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_decode: unsupported shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    out = torch.empty_like(q)
-    _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, G, Hg, T, D, float(sm_scale), _build.stream_ptr(q))
+    out = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale, DECODE_BLOCK_K,
+                         False)
     flash_attention_decode.launches += 1
     return out
 
@@ -259,37 +313,13 @@ def flash_attention_decode(q, k, v, lengths, sm_scale):
 flash_attention_decode.launches = 0
 
 
-def decode_v2_span(batch_groups: int, T: int, block_k: int) -> int:
-    """Cache rows per B12 block: ``block_k`` (capped at T), halved down to
-    V2_MIN_SPAN while the grid of batch_groups · ceil(T / span) blocks would
-    leave SMs of the card idle."""
-    span = max(1, min(block_k, T))
-    while span > V2_MIN_SPAN and batch_groups * -(-T // span) < V2_TARGET_BLOCKS:
-        span = max(V2_MIN_SPAN, span // 2)
-    return span
-
-
 def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
     """B12: ragged single-token attention over the layer's (B, G, T, D) cache
-    view, split over T (see the module note).  Plain version on CPU tensors;
-    the CUDA kernels on CUDA tensors."""
+    view with B12's numerics (see the module note).  Plain version on CPU
+    tensors; the CUDA kernel on CUDA tensors."""
     if not q.is_cuda:
         return flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k)
-    B, G, Hg, D = q.shape
-    T = k.shape[2]
-    lengths = _int32(lengths)
-    _check_cuda("flash_attention_decode_v2", q, k, v, lengths)
-    _check_bf16("flash_attention_decode_v2", q, k, v)
-    if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_decode_v2: unsupported shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    span = decode_v2_span(B * G, T, block_k)
-    part = torch.empty((B * G * -(-T // span) * Hg * (D + 2),), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty_like(q)
-    _build.call("chatglm_decode_v2", q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                part.data_ptr(), out.data_ptr(), B, G, Hg, T, D, span, float(sm_scale),
-                _build.stream_ptr(q))
+    out = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k, True)
     flash_attention_decode_v2.launches += 1
     return out
 

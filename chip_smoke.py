@@ -28,7 +28,12 @@ Phases (any failure raises and exits non-zero):
    library call, the dense ``g @ w_deq.T`` time as a reference) at the six
    shapes transposed, M = 512 bf16, M = 16 bf16 (phase 7's 16-token step)
    and M = 8 f32; B12
-   (``flash_attention_decode_v2``) beside B4's row.
+   (``flash_attention_decode_v2``) beside B4's row, held also to its own
+   limit on the error beyond the output's bf16 rounding (``B12_TOL``), with
+   a control that rounds p to bf16 and must exceed it; B4 at the decoder's
+   batch-1 shape (lengths 140 of 1024), B5 (both forms), and the decode and
+   prefill kernels at the edge cases their main-path shapes miss
+   (``check_attention_edges``).
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -46,8 +51,8 @@ Phases (any failure raises and exits non-zero):
    kernel's launch count from that run; then prefill and decode timings at
    batch 1 and 4, the decode again with ``decode_attn_v2`` (B12) in turns
    with B4, and where a batch-1 decode step's time goes
-   (torch.profiler's device time by kernel, cProfile's host time by
-   function).
+   (torch.profiler's device time by kernel, ``decode_attn_kernel``'s apart,
+   cProfile's host time by function).
 5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
    int8 with dynamic int8 activations, then int4g32 with dynamic int8
    activations, each through ``GLMDecoder.generate`` (greedy, a chat
@@ -106,6 +111,16 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores: the CUDA-core kernels' f32 r
 # the outputs differ by about one bf16 rounding (2^-8 = 3.9e-3 relative).
 KERNEL_TOL = 1e-2
 F32_TOL = 1e-5  # f32 outputs: the order of f32 sums alone
+# B12 keeps p in f32 through PV (two bf16 fragments, ~16 bits of p), which
+# KERNEL_TOL cannot tell from B4's p rounded to bf16: both sit under one
+# bf16 rounding of the output.  So B12 is also held to the error beyond
+# that rounding (``beyond_rounding``) against its plain version in f32, and a
+# control on the same inputs, B12's function with p rounded to bf16 (what
+# the kernel gives without its second fragment), must exceed the limit.  On
+# an H100 the kernel read 3.3e-8 to 4.2e-7 over the main shape and the edge
+# cases, the control 1.6e-4 to 4.4e-4, and the kernel with its second
+# fragment deleted 1.7e-4 to 3.7e-4; the limit sits about 20x from each side.
+B12_TOL = 1e-5
 # End-to-end tolerance (phase 3), as a fraction of max|logits| over two
 # layers of bf16 activations, on the unit-gain random tree of
 # ``bench.random_quantized_params``.  Weight-only: about 3x one kernel
@@ -544,6 +559,115 @@ def check_transposed(torch):
     return rows
 
 
+def decode_v2_f32(torch, q, k, v, lengths, sm_scale, p_bf16=False):
+    """B12's function in f32, before the output's bf16 rounding: the plain
+    version's steps (``flash_attention_decode_v2_plain``), with l summed
+    from f32 p; with ``p_bf16`` p is rounded to bf16 before PV (the control:
+    B4's rounding of p in B12's function)."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    T = k.shape[2]
+    s = torch.einsum("bghd,bgtd->bght", A._prescaled(q, sm_scale), k.float())
+    valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * (lengths >= 0).float()[:, None, None, None]
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    return torch.einsum("bght,bgtd->bghd", pv, v.float()) / torch.where(l > 0, l, 1.0)
+
+
+def beyond_rounding(torch, got, want32) -> float:
+    """max(|got - want32| - half a bf16 ulp of want32) over max|want32|: the
+    error of a bf16 output beyond its own rounding of the f32 result."""
+    half_ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32).exponent - 9)
+    half_ulp = torch.where(want32 == 0, 0.0, half_ulp)
+    excess = ((got.float() - want32).abs() - half_ulp).clamp_min(0.0).max().item()
+    return excess / max(want32.abs().max().item(), 1e-30)
+
+
+def hold_b12(torch, got, q, k, v, lengths, sm, where) -> tuple[float, float]:
+    """B12's own limit: its error beyond the output's rounding within
+    B12_TOL, and the control's beyond it.  Returns (kernel, control)."""
+    want32 = decode_v2_f32(torch, q, k, v, lengths, sm)
+    err = beyond_rounding(torch, got, want32)
+    ctrl = beyond_rounding(torch, decode_v2_f32(torch, q, k, v, lengths, sm, p_bf16=True)
+                           .to(torch.bfloat16), want32)
+    require(err <= B12_TOL < ctrl, f"flash_attention_decode_v2 {where}: error beyond the bf16 "
+                                   f"rounding {err} (limit {B12_TOL}), control {ctrl}")
+    return err, ctrl
+
+
+def check_attention_edges(torch):
+    """B4, B12 and B5 (both forms) against their plain versions at the edges
+    the main-path shapes miss: decode at lengths -1 (outputs 0), 0, span - 1,
+    span, span + 1, T - 1 (and T + 5 for B12), 255 and 256 (the last row
+    of one span and the first of the cross-block merge), T = 1000 (no
+    multiple of the 64-row tile), spans of 128 and 512 rows, Hg 16 and 4;
+    prefill at S = 130 (no multiple of the tile), a length-0 row, q_starts
+    on and off the tiles, a kv_row_map, Hg 16, 4 and 64.  Each within
+    KERNEL_TOL of max|plain| and finite; B12 also within B12_TOL beyond
+    the output's rounding, with its control above it."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    G, D = 2, 128
+    sm = 1.0 / math.sqrt(D)
+    worst = {}
+
+    def bf(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def hold(name, got, want, zero_rows):
+        torch.cuda.synchronize()
+        _, rel = rel_err(got, want)
+        require(torch.isfinite(got.float()).all() and rel <= KERNEL_TOL,
+                f"{name} edge case: rel err {rel}")
+        for r in zero_rows:
+            require(not got[r].float().any(), f"{name} edge case: row {r} is not 0")
+        worst[name] = max(worst.get(name, 0.0), rel)
+
+    solo = A.DECODE_SOLO_ROWS
+    b12 = [0.0, math.inf]  # B12's largest error beyond rounding, the control's least
+    for Hg in (16, 4):
+        for B, T in ((10, 1000), (70, 1000)):  # spans of 128 and of 512 rows
+            q, k, v = bf(B, G, Hg, D), bf(B, G, T, D), bf(B, G, T, D)
+            for name, fn, plain, v2 in (
+                    ("flash_attention_decode", A.flash_attention_decode,
+                     A.flash_attention_decode_plain, False),
+                    ("flash_attention_decode_v2", A.flash_attention_decode_v2,
+                     A.flash_attention_decode_v2_plain, True)):
+                span = A.decode_span(B * G, T, 512)
+                edges = [-1, 0, span - 1, span, span + 1, solo - 1, solo, T - 1] + (
+                    [T + 5] if v2 else [])
+                lengths = torch.tensor(edges + [(37 * i) % T for i in range(B - len(edges))],
+                                       dtype=torch.int32, device="cuda")
+                got = fn(q, k, v, lengths, sm)
+                hold(name, got, plain(q, k, v, lengths, sm), [0])
+                if v2:
+                    err, ctrl = hold_b12(torch, got, q, k, v, lengths, sm,
+                                         f"edge case B={B} Hg={Hg}")
+                    b12 = [max(b12[0], err), min(b12[1], ctrl)]
+    for Hg in (16, 4, 64):
+        S, T = 130, 192
+        q, k, v = bf(4, S, G, Hg, D), bf(4, G, T, D), bf(4, G, T, D)
+        lengths = torch.tensor([S, 0, 12, 77], dtype=torch.int32, device="cuda")
+        hold("flash_attention_prefill", A.flash_attention_prefill(q, k, v, lengths, sm),
+             A.flash_attention_prefill_plain(q, k, v, lengths, sm), [1])
+        S, T = 64, 512
+        q, k, v = bf(4, S, G, Hg, D), bf(5, G, T, D), bf(5, G, T, D)
+        starts = torch.tensor([256, 3, 447, 0], dtype=torch.int32, device="cuda")
+        lengths = starts + torch.tensor([40, 64, 0, 64], dtype=torch.int32, device="cuda")
+        lengths[2] = 0
+        rmap = torch.tensor([3, 1, 0, 4], dtype=torch.int32, device="cuda")
+        hold("flash_attention_prefill_chunk",
+             A.flash_attention_prefill_chunk(q, k, v, lengths, starts, sm, rmap),
+             A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap), [2])
+    worst["flash_attention_decode_v2 beyond rounding"] = b12[0]
+    worst["flash_attention_decode_v2 control beyond rounding"] = b12[1]
+    log(f"  attention edge cases: max rel err {json.dumps(worst)}")
+    return worst
+
+
 def check_attention(torch):
     import torch.nn.functional as F
 
@@ -582,7 +706,35 @@ def check_attention(torch):
     out["flash_attention_decode"] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain,
                                          bound_ms=b, bound_by=by, library_ms=lib,
                                          shape=f"B={B} G={G} Hg={Hg} D={D} T={T} "
-                                               f"lengths={lens.tolist()}")
+                                               f"lengths={lens.tolist()} "
+                                               f"span={A.decode_span(B * G, T, A.DECODE_BLOCK_K)}")
+
+    # B4 at the decoder's own batch-1 shape: GLMDecoder.generate after a
+    # 128-token prompt reads 141 slots of a 1024-slot cache
+    q1, l1 = q[:1].contiguous(), torch.tensor([140], dtype=torch.int32, device="cuda")
+    got = A.flash_attention_decode(q1, kc[0][:1], vc[0][:1], l1, sm)
+    torch.cuda.synchronize()
+    want = A.flash_attention_decode_plain(q1, kc[0][:1], vc[0][:1], l1, sm)
+    err1, rel1 = rel_err(got, want)
+    require(torch.isfinite(got).all() and rel1 <= KERNEL_TOL,
+            f"flash_attention_decode B=1 rel err {rel1}")
+    ms1 = cuda_event_ms(lambda i: A.flash_attention_decode(q1, kc[i % L][:1], vc[i % L][:1], l1,
+                                                           sm), iters=56)
+    plain1 = cuda_event_ms(lambda i: A.flash_attention_decode_plain(q1, kc[0][:1], vc[0][:1], l1,
+                                                                    sm), iters=5)
+    mask1 = (torch.arange(T, device="cuda") <= 140)[None, None, None, :]
+    lib1 = cuda_event_ms(lambda i: F.scaled_dot_product_attention(
+        q1.reshape(1, G * Hg, 1, D), kc[i % L][:1], vc[i % L][:1], attn_mask=mask1, scale=sm,
+        enable_gqa=True), iters=56)
+    b1, by1 = bound_ms(2 * q1.numel() * 2 + 141 * G * D * 2 * 2 + 4, 4.0 * 141 * G * Hg * D)
+    out["flash_attention_decode B=1"] = dict(
+        max_abs_err=err1, rel_err=rel1, ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+        library_ms=lib1, shape=f"B=1 G={G} Hg={Hg} D={D} T={T} lengths=[140] "
+                               f"span={A.decode_span(G, T, A.DECODE_BLOCK_K)}")
+    # the fused span merge is deterministic: a second call is bit-equal
+    require(torch.equal(A.flash_attention_decode(q, kc[0], vc[0], lens, sm),
+                        A.flash_attention_decode(q, kc[0], vc[0], lens, sm)),
+            "flash_attention_decode: two calls on the same inputs differ")
 
     # B12: the same decode split over T, with its own numerics; the same
     # SDPA call (timed just above on the same inputs) is its yardstick
@@ -592,14 +744,16 @@ def check_attention(torch):
     err, rel = rel_err(got, want)
     require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
             f"flash_attention_decode_v2 rel err {rel}")
+    beyond, ctrl = hold_b12(torch, got, q, kc[0], vc[0], lens, sm, "main shape")
     ms = cuda_event_ms(lambda i: A.flash_attention_decode_v2(q, kc[i % L], vc[i % L], lens, sm),
                        iters=56)
     plain = cuda_event_ms(lambda i: A.flash_attention_decode_v2_plain(q, kc[0], vc[0], lens, sm),
                           iters=5)
     out["flash_attention_decode_v2"] = dict(
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=lib, shape=f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} "
-                              f"span={A.decode_v2_span(B * G, T, 512)}")
+        library_ms=lib, beyond_rounding=beyond, control_beyond_rounding=ctrl,
+        shape=f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} "
+              f"span={A.decode_span(B * G, T, 512)}")
 
     # flash prefill
     S = max(PROMPT_LENGTHS)
@@ -1042,6 +1196,8 @@ def full_slice(torch, smi):
     per_step = ops.launch_counts()
     ops.reset_launch_counts()
     log(f"  launches per decode step: {json.dumps(per_step)}")
+    require(per_step["flash_attention_decode"] == cfg.num_layers,
+            f"flash_attention_decode launched {per_step['flash_attention_decode']} times a step")
     del cache, cache1
 
     perf = {"card": smi, "weight_bytes_per_token": wbytes, "launches_per_decode_step": per_step}
@@ -1103,11 +1259,16 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     dev_us = sum(e.self_device_time_total for e in events)
     top = [(e.key[:80], round(e.self_device_time_total / steps, 1), e.count // steps)
            for e in events[:12]]
+    attn = [e for e in events if "decode_attn_kernel" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+    attn_launches = sum(e.count for e in attn) / steps
     log(f"  profile: {steps} decode steps at batch 1, wall {wall * 1e3 / steps:.3f} ms/step "
         f"(traced), device busy {dev_us / 1e3 / steps:.3f} ms/step "
         f"({100 * dev_us / 1e6 / wall:.1f}% of wall)")
     for name, us, n in top:
         log(f"    {us:9.1f} us/step  x{n:<4d} {name}")
+    log(f"  decode_attn_kernel: {attn_ms:.4f} ms of device time per batch-1 step "
+        f"({attn_launches:.0f} launches; 1.2 ms before its redesign)")
 
     # where the host's time goes (cProfile inflates Python-heavy frames;
     # read it for ranking, not for absolute times)
@@ -1128,7 +1289,8 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
         if line.strip():
             log("    " + line.strip()[:150])
     return {"wall_ms_per_step": wall * 1e3 / steps, "device_ms_per_step": dev_us / 1e3 / steps,
-            "top_us_per_step": top}
+            "top_us_per_step": top, "decode_attn_kernel_ms_per_step": attn_ms,
+            "decode_attn_kernel_launches_per_step": attn_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1762,6 +1924,7 @@ def main() -> int:
     t_rows = check_transposed(torch)
     att = check_attention(torch)
     att.update(check_paged_attention(torch))
+    att["edge_cases_max_rel_err"] = check_attention_edges(torch)
 
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}

@@ -43,6 +43,9 @@ def _tol(dtype):
     return 1e-2 if dtype == torch.bfloat16 else 1e-5
 
 
+B12_TOL = 1e-5  # chip_smoke.py's limit on B12's error beyond its output's bf16 rounding
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K,N", [(1, 64, 8), (3, 4096, 264), (17, 1024, 272),
                                    (70, 13824, 512), (5, 320, 65536)])
@@ -74,32 +77,74 @@ def test_int4g32_matmul_rejects_what_it_cannot_take(gen):
         QM.int4g32_matmul(x, packed, torch.ones((2, 16), dtype=torch.float32, device="cuda"))
 
 
+def _decode_edges(B, T, span, past_end=False):
+    """Lengths −1 (outputs 0), 0, span − 1, span, span + 1 and T − 1 (and
+    T + 5 with ``past_end``), then the kernel's one-span bound less 1 and
+    the bound (the last one-span row and the first merged across blocks),
+    for the first rows; the rest spread over T."""
+    edges = [-1, 0, span - 1, span, span + 1, T - 1] + ([T + 5] if past_end else [])
+    edges += [A.DECODE_SOLO_ROWS - 1, A.DECODE_SOLO_ROWS]
+    rest = [(37 * i) % T for i in range(B - len(edges))]
+    return torch.tensor((edges + rest)[:B], dtype=torch.int32, device="cuda")
+
+
+def _decode_inputs(gen, B, G, Hg, T, D=128):
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+    return q, k, v
+
+
+# (B, T): T = 200 (no multiple of the tile; every row one span, no
+# partials), spans of 128 rows at T = 1000 (a 257-row row merged from three
+# blocks), and a grid of B*G = 132 (b, g) where spans stay 512 rows (8 tiles)
+@pytest.mark.parametrize("B,T", [(6, 200), (10, 1000), (66, 1000)])
 @pytest.mark.parametrize("Hg", [16, 4])
-def test_decode_attention_matches_plain(gen, Hg):
-    dtype = torch.bfloat16
-    B, G, D, T = 3, 2, 128, 200
-    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(dtype)
-    k = torch.randn((B, G, T, D), device="cuda", generator=gen).to(dtype)
-    v = torch.randn((B, G, T, D), device="cuda", generator=gen).to(dtype)
-    lengths = torch.tensor([0, 31, T - 1], dtype=torch.int32, device="cuda")
+def test_decode_attention_matches_plain(gen, Hg, B, T):
+    G, D = 2, 128
+    q, k, v = _decode_inputs(gen, B, G, Hg, T)
+    lengths = _decode_edges(B, T, A.decode_span(B * G, T, A.DECODE_BLOCK_K))
     sm = 1 / math.sqrt(D)
     got = A.flash_attention_decode(q, k, v, lengths, sm)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and not got[0].float().any()
     assert _rel(got, A.flash_attention_decode_plain(q, k, v, lengths, sm)) <= 1e-2
 
 
-@pytest.mark.parametrize("Hg", [16, 4])
-def test_prefill_attention_matches_plain(gen, Hg):
+@pytest.mark.parametrize("v2", [False, True])
+def test_decode_attention_is_deterministic_in_one_launch(gen, v2):
+    """Two calls on the same inputs are bit-equal (the fused span merge runs
+    in span order and resets its counters), and one call is one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, G, Hg, T = 4, 2, 16, 1024
+    q, k, v = _decode_inputs(gen, B, G, Hg, T)
+    lengths = torch.tensor([1000, 600, 200, 0], dtype=torch.int32, device="cuda")
+    fn = A.flash_attention_decode_v2 if v2 else A.flash_attention_decode
+    first = fn(q, k, v, lengths, 0.088)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = fn(q, k, v, lengths, 0.088)
+        torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_attn_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("S", [37, 130])
+@pytest.mark.parametrize("Hg", [16, 4, 64])
+def test_prefill_attention_matches_plain(gen, Hg, S):
+    """S no multiple of the 64-row tile, a length-0 row, a short row."""
     dtype = torch.bfloat16
-    B, S, G, D, T = 3, 37, 2, 128, 64
+    B, G, D, T = 3, 2, 128, 192
     q = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(dtype)
     k = torch.randn((B, G, T, D), device="cuda", generator=gen).to(dtype)
     v = torch.randn((B, G, T, D), device="cuda", generator=gen).to(dtype)
-    lengths = torch.tensor([37, 0, 12], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([S, 0, 12], dtype=torch.int32, device="cuda")
     sm = 1 / math.sqrt(D)
     got = A.flash_attention_prefill(q, k, v, lengths, sm)
     torch.cuda.synchronize()
-    assert not got[1].any()
+    assert torch.isfinite(got.float()).all() and not got[1].any()
     assert _rel(got, A.flash_attention_prefill_plain(q, k, v, lengths, sm)) <= 1e-2
 
 
@@ -196,21 +241,25 @@ def test_chunk_paged_matches_plain(gen, P, S):
         assert _rel(got, want) <= 1e-2
 
 
-@pytest.mark.parametrize("Hg", [16, 4])
-def test_prefill_chunk_form_matches_plain(gen, Hg):
+@pytest.mark.parametrize("starts", [[256, 0, 448], [200, 3, 447]])
+@pytest.mark.parametrize("Hg", [16, 4, 64])
+def test_prefill_chunk_form_matches_plain(gen, Hg, starts):
     """A compact batch of 3 chunk rows against a 4-row cache of T = 512 at
-    chunk offsets, with a row map and a length-0 padding row."""
+    chunk offsets on and off the 64-row tiles, with a row map and a
+    length-0 padding row."""
     G, D, T, S = 2, 128, 512, 64
     q = torch.randn((3, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn((4, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
     v = torch.randn((4, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
-    starts = torch.tensor([256, 0, 448], dtype=torch.int32, device="cuda")
-    lengths = torch.tensor([256 + 40, 64, 0], dtype=torch.int32, device="cuda")
+    starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    lengths = starts + torch.tensor([40, 64, 0], dtype=torch.int32, device="cuda")
+    lengths[2] = 0
     rmap = torch.tensor([3, 1, 0], dtype=torch.int32, device="cuda")
     sm = 1 / math.sqrt(D)
     got = A.flash_attention_prefill_chunk(q, k, v, lengths, starts, sm, rmap)
     torch.cuda.synchronize()
     want = A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap)
+    assert torch.isfinite(got.float()).all()
     assert _rel(got, want) <= 1e-2
     assert not got[2].float().any()
 
@@ -398,18 +447,43 @@ def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, qua
         assert _rel(grads[True, M], grads[False, M]) <= 2e-2
 
 
+def _decode_v2_f32(q, k, v, lengths, sm_scale, p_bf16=False):
+    """B12's function in f32, before the output's bf16 rounding (with
+    ``p_bf16``, p rounded to bf16 before PV: the control)."""
+    s = torch.einsum("bghd,bgtd->bght", A._prescaled(q, sm_scale), k.float())
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * (lengths >= 0).float()[:, None, None, None]
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    return torch.einsum("bght,bgtd->bghd", pv, v.float()) / torch.where(l > 0, l, 1.0)
+
+
+def _beyond_rounding(got, want32):
+    """max(|got − want32| − half a bf16 ulp of want32) / max|want32|."""
+    half_ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32).exponent - 9)
+    half_ulp = torch.where(want32 == 0, 0.0, half_ulp)
+    excess = ((got.float() - want32).abs() - half_ulp).clamp_min(0.0).max().item()
+    return excess / want32.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T", [(10, 1000), (66, 1000)])
 @pytest.mark.parametrize("Hg", [16, 4])
-def test_decode_v2_matches_plain(gen, Hg):
-    """T = 1000 (not a multiple of any span), lengths −1 (outputs 0), 0,
-    mid and past the cache."""
-    B, G, D, T = 4, 2, 128, 1000
-    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
-    k = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn((B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
-    lengths = torch.tensor([-1, 0, 437, T + 5], dtype=torch.int32, device="cuda")
+def test_decode_v2_matches_plain(gen, Hg, B, T):
+    """T = 1000 (no multiple of the tile), lengths −1 (outputs 0), 0, around
+    the span and the one-span bound, and past the cache, at several
+    block_k.  B12 keeps p in f32 through PV, so besides 1e-2 of max|plain|
+    its error beyond the output's bf16 rounding stays within chip_smoke.py's
+    B12_TOL, where B12's function with p rounded to bf16 lands above it."""
+    G, D = 2, 128
+    q, k, v = _decode_inputs(gen, B, G, Hg, T)
     sm = 1 / math.sqrt(D)
     for block_k in (512, 64, 1000):
+        lengths = _decode_edges(B, T, A.decode_span(B * G, T, block_k), past_end=True)
         got = A.flash_attention_decode_v2(q, k, v, lengths, sm, block_k)
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all() and not got[0].float().any()
         assert _rel(got, A.flash_attention_decode_v2_plain(q, k, v, lengths, sm)) <= 1e-2
+        want32 = _decode_v2_f32(q, k, v, lengths, sm)
+        control = _decode_v2_f32(q, k, v, lengths, sm, p_bf16=True).to(torch.bfloat16)
+        assert _beyond_rounding(got, want32) <= B12_TOL < _beyond_rounding(control, want32)

@@ -80,21 +80,27 @@ class _FakeCuda(torch.Tensor):
 
 
 def test_v2_wrapper_launches_on_cuda_and_splits_over_t(monkeypatch):
-    monkeypatch.setattr(_build, "call", lambda name, *a: (_ for _ in ()).throw(_Launched(name)))
+    def call(name, *args):
+        raise _Launched(name, args)
+
+    monkeypatch.setattr(_build, "call", call)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
     q = torch.zeros((4, 2, 16, 128), dtype=torch.bfloat16).as_subclass(_FakeCuda)
     k = torch.zeros((4, 2, 1024, 128), dtype=torch.bfloat16).as_subclass(_FakeCuda)
     lens = torch.zeros((4,), dtype=torch.int32).as_subclass(_FakeCuda)
-    with pytest.raises(_Launched, match="chatglm_decode_v2"):
+    with pytest.raises(_Launched, match="chatglm_decode_attention") as launched:
         A.flash_attention_decode_v2(q, k, k, lens, 0.1)
+    span, v2 = launched.value.args[1][12:14]  # one launch of B4's entry, B12's flag
+    assert (span, v2) == (64, 1)
     with pytest.raises(TypeError):
         A.flash_attention_decode_v2(q.float(), k.float(), k.float(), lens, 0.1)
-    # the span: block_k, halved until the grid covers the card, down to 64
-    assert A.decode_v2_span(8, 1024, 512) == 64
-    assert A.decode_v2_span(2, 8192, 512) == 64
-    assert A.decode_v2_span(128, 8192, 512) == 512
-    assert A.decode_v2_span(8, 100, 512) == 64
-    assert A.decode_v2_span(8, 40, 512) == 40
+    # the span: block_k, halved until the grid covers the card, down to one
+    # 64-row tile, and always whole tiles
+    assert A.decode_span(8, 1024, 512) == 64
+    assert A.decode_span(2, 8192, 512) == 64
+    assert A.decode_span(128, 8192, 512) == 512
+    assert A.decode_span(8, 100, 512) == 64
+    assert A.decode_span(8, 40, 512) == 64
 
 
 TINY = dict(hidden_size=64, inner_hidden_size=128, head_hidden_size=16,
