@@ -63,10 +63,12 @@ SIGNATURES = {
     "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     # pool_layer, new, page_table, starts, B, G, P, D, MP, stream (bf16)
     "chatglm_pool_write": [P, P, P, P, I, I, I, I, I, P],
-    # q, k_layer, v_layer, page_table, lengths, out, B, G, Hg, P, D, MP, sm_scale, stream
-    "chatglm_decode_paged": [P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-    # q, k_layer, v_layer, page_table, starts, out, B, S, G, Hg, P, D, MP, sm_scale, stream
-    "chatglm_chunk_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    # q, k_layer, v_layer, page_table, lengths, part, arrivals, out, B, G, Hg, P, D, MP,
+    # span, sm_scale, stream (part may be null)
+    "chatglm_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    # q, k_layer, v_layer, page_table, row_map, starts, part, arrivals, out, B, S, G, Hg,
+    # P, D, MP, span, sm_scale, stream (row_map and part may be null)
+    "chatglm_chunk_paged": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 }
 
 _LIB = None

@@ -31,9 +31,14 @@ counts.
   page ``page_table[b, pos // P]``.
 * ``flash_attention_decode_paged`` replaces :_decode_paged_kernel (stride 1,
   phase 0): ragged decode over the pool's pages, positions 0..lengths[b],
-  pages clamped to the table's MP.
+  pages clamped to the table's MP; a row of length −1 outputs 0.  B12's
+  kernel reading through the page table: the span from
+  ``decode_paged_span``, the same in-launch merge and one-span rule.
 * ``flash_attention_chunk_paged`` replaces :_chunk_paged_kernel: S queries
-  per row at absolute positions starts[b] + t over the pool's pages.
+  per row at absolute positions starts[b] + t over the pool's pages.  B5's
+  folded kernel with B10's numerics, reading through the page table (at
+  table row ``row_map[b]``), its K/V rows split into ``chunk_span`` spans
+  merged in the same launch.
 
 Numerics shared with the TPU kernels.  Prefill and decode: scores in f32
 scaled by ``sm_scale``, masked scores at MASK_VALUE, probabilities cast to
@@ -59,6 +64,11 @@ DECODE_TARGET_BLOCKS = 132  # decode spans shrink until the grid covers the H100
 DECODE_BLOCK_K = 512  # B4's starting span (B12 takes its ``block_k``)
 DECODE_SOLO_ROWS = 256  # the kernel's bound (DA_SOLO_ROWS): a (b, g) with at most
                         # this many valid rows is one span, with no cross-block merge
+PREFILL_ROWS = 128   # folded (position, head) query rows per prefill / chunk block (PF_ROWS)
+CHUNK_MIN_SPAN = 256  # B11's spans halve no further than four tiles: each span adds a
+                      # (PREFILL_ROWS, D) f32 partial that the merging block reads back
+CHUNK_MAX_SPANS = 32  # and number at most this many (the merge holds every span's (m, l)
+                      # and weight of a block's rows in its shared memory)
 
 
 # ---------------------------------------------------------------------------
@@ -149,14 +159,15 @@ def flash_attention_decode_paged_plain(q, k_pool, v_pool, layer: int, page_table
                                        sm_scale):
     """q (B, G, Hg, D); pools (L, NP, G, P, D); page_table (B, MP); lengths
     (B,) = the cache length before this token.  Row b attends logical
-    positions < min(lengths[b] + 1, MP·P).  Returns (B, G, Hg, D)."""
+    positions < min(lengths[b] + 1, MP·P); a row with none (length −1)
+    outputs 0, as the TPU kernel's l == 0 guard gives.  Returns (B, G, Hg, D)."""
     k = gather_pages(k_pool[layer], page_table).float()
     v = gather_pages(v_pool[layer], page_table).float()
     T = k.shape[2]
     s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k)
     valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
     s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1) * (lengths >= 0).float()[:, None, None, None]
     return torch.einsum("bght,bgtd->bghd", p, v).to(q.dtype)
 
 
@@ -246,35 +257,83 @@ def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_m
 flash_attention_prefill_chunk.launches = 0
 
 
+def _tiles(n):
+    return -(-n // DECODE_TILE) * DECODE_TILE
+
+
 @functools.lru_cache(maxsize=None)
 def decode_span(batch_groups: int, T: int, block_k: int) -> int:
-    """Cache rows per decode block (B4 and B12): ``block_k`` capped at T,
-    rounded up to a whole number of DECODE_TILE-row tiles, then halved (and
-    rounded up again) down to one tile while the grid of batch_groups ·
+    """Cache rows per decode block (B4, B12 and B10): ``block_k`` capped at
+    T, rounded up to a whole number of DECODE_TILE-row tiles, then halved
+    (and rounded up again) down to one tile while the grid of batch_groups ·
     ceil(T / span) blocks would leave SMs of the card idle."""
-    def tiles(n):
-        return -(-n // DECODE_TILE) * DECODE_TILE
-
-    span = tiles(max(1, min(block_k, T)))
+    span = _tiles(max(1, min(block_k, T)))
     while span > DECODE_TILE and batch_groups * -(-T // span) < DECODE_TARGET_BLOCKS:
-        span = tiles(span // 2)
+        span = _tiles(span // 2)
     return span
+
+
+def decode_paged_span(batch_groups: int, P: int, MP: int) -> int:
+    """B10's span: B4's rule over the table's capacity MP·P."""
+    return decode_span(batch_groups, MP * P, DECODE_BLOCK_K)
+
+
+def chunk_units(B: int, G: int, S: int, Hg: int) -> int:
+    """(b, g, query block) units of B11's grid: PREFILL_ROWS folded rows,
+    PREFILL_ROWS // Hg positions, per block."""
+    return B * G * -(-S // (PREFILL_ROWS // Hg))
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_span(units: int, T: int) -> int:
+    """K/V rows per B11 block: the capacity T in whole tiles, halved (and
+    rounded up again) while the grid of units · ceil(T / span) blocks would
+    leave SMs of the card idle, down to CHUNK_MIN_SPAN rows and to no more
+    than CHUNK_MAX_SPANS spans.  A halving happens only below 132 blocks, so
+    the partials stay under about 2 · 132 blocks' worth whatever S · Hg is."""
+    floor = max(CHUNK_MIN_SPAN, _tiles(-(-T // CHUNK_MAX_SPANS)))
+    span = _tiles(max(T, 1))
+    while span > floor and units * -(-T // span) < DECODE_TARGET_BLOCKS:
+        span = max(_tiles(span // 2), floor)
+    return span
+
+
+def chunk_partial_floats(units: int, T: int) -> int:
+    """f32 partials of B11 at ``chunk_span``: (units, nspan, PREFILL_ROWS,
+    D + 2), or 0 with one span."""
+    nspan = -(-T // chunk_span(units, T))
+    return 0 if nspan == 1 else units * nspan * PREFILL_ROWS * (HEAD_DIM + 2)
 
 
 _DECODE_SCRATCH: dict = {}
 
 
 def _decode_scratch(kind: str, device, n: int, dtype):
-    """The decode kernel's buffers on ``device``, kept across calls and
-    grown when too small: ``arrivals``, the per-(b, g) arrival counters
-    (zeroed once and left at zero by every launch: the merging block resets
-    its counter), and ``part``, the spans' f32 partials.  One stream at a
-    time per device."""
+    """The split kernels' buffers on ``device`` (B4, B12, B10 and B11),
+    kept across calls and grown when too small: ``arrivals``, the arrival
+    counters (zeroed once and left at zero by every launch: the merging
+    block resets its counter), and ``part``, the spans' f32 partials.  One
+    stream at a time per device: launches on it run in order."""
     buf = _DECODE_SCRATCH.get((kind, device))
     if buf is None or buf.numel() < n:
         buf = torch.zeros((max(n, 256),), dtype=dtype, device=device)
         _DECODE_SCRATCH[kind, device] = buf
     return buf
+
+
+def _decode_part_ptr(q, T, span):
+    """The decode partials' address, or None where no (b, g) can hold more
+    than one span."""
+    B, G, Hg, D = q.shape
+    nspan = -(-T // span)
+    if nspan == 1 or T <= DECODE_SOLO_ROWS:
+        return None
+    return _decode_scratch("part", q.device, B * G * nspan * Hg * (D + 2),
+                           torch.float32).data_ptr()
+
+
+def _arrivals_ptr(device, n):
+    return _decode_scratch("arrivals", device, n, torch.int32).data_ptr()
 
 
 def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2):
@@ -286,14 +345,9 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2):
     if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
     span = decode_span(B * G, T, block_k)
-    nspan = -(-T // span)
-    # partials only where a (b, g) can hold more than one span
-    part = (None if nspan == 1 or T <= DECODE_SOLO_ROWS else
-            _decode_scratch("part", q.device, B * G * nspan * Hg * (D + 2), torch.float32))
     out = torch.empty_like(q)
     _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), None if part is None else part.data_ptr(),
-                _decode_scratch("arrivals", q.device, B * G, torch.int32).data_ptr(),
+                lengths.data_ptr(), _decode_part_ptr(q, T, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, T, D, span, int(v2), float(sm_scale),
                 _build.stream_ptr(q))
     return out
@@ -397,11 +451,13 @@ def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, leng
             or v_pool.shape != k_pool.shape or page_table.shape[0] != B):
         raise ValueError(f"flash_attention_decode_paged: unsupported shapes q {tuple(q.shape)}, "
                          f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}")
+    MP = page_table.shape[1]
+    span = decode_paged_span(B * G, P, MP)
     out = torch.empty_like(q)
     _build.call("chatglm_decode_paged", q.data_ptr(), k_pool[layer].data_ptr(),
                 v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, G, Hg, P, D, page_table.shape[1], float(sm_scale),
-                _build.stream_ptr(q))
+                _decode_part_ptr(q, MP * P, span), _arrivals_ptr(q.device, B * G),
+                out.data_ptr(), B, G, Hg, P, D, MP, span, float(sm_scale), _build.stream_ptr(q))
     flash_attention_decode_paged.launches += 1
     return out
 
@@ -412,28 +468,36 @@ flash_attention_decode_paged.launches = 0
 def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
                                 row_map=None):
     """Chunk attention over the pool's pages (see the module note); with
-    ``row_map`` row b reads table row ``row_map[b]`` (gathered before the
-    launch).  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    ``row_map`` row b reads table row ``row_map[b]``.  Plain version on CPU
+    tensors; the CUDA kernel on CUDA tensors."""
     if not q.is_cuda:
         return flash_attention_chunk_paged_plain(q, k_pool, v_pool, layer, page_table, starts,
                                                  sm_scale, row_map)
     B, S, G, Hg, D = q.shape
     L, NP, Gp, P, Dp = k_pool.shape
-    if row_map is not None:
-        page_table = page_table.index_select(0, row_map.long())
     page_table, starts = _int32(page_table), _int32(starts)
-    _check_cuda("flash_attention_chunk_paged", q, k_pool, v_pool, page_table, starts)
+    row_map = None if row_map is None else _int32(row_map)
+    _check_cuda("flash_attention_chunk_paged", q, k_pool, v_pool, page_table, starts,
+                *([] if row_map is None else [row_map]))
     _check_bf16("flash_attention_chunk_paged", q, k_pool, v_pool)
     _check_pool("flash_attention_chunk_paged", k_pool, page_table, layer)
     if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or (Gp, Dp) != (G, D)
-            or v_pool.shape != k_pool.shape or page_table.shape[0] != B):
+            or v_pool.shape != k_pool.shape or starts.shape != (B,)
+            or (row_map is None and page_table.shape[0] != B)
+            or (row_map is not None and row_map.shape != (B,))):
         raise ValueError(f"flash_attention_chunk_paged: unsupported shapes q {tuple(q.shape)}, "
                          f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}")
+    MP = page_table.shape[1]
+    units, T = chunk_units(B, G, S, Hg), MP * P
+    span = chunk_span(units, T)
+    n_part = chunk_partial_floats(units, T)
+    part = _decode_scratch("part", q.device, n_part, torch.float32).data_ptr() if n_part else None
     out = torch.empty_like(q)
     _build.call("chatglm_chunk_paged", q.data_ptr(), k_pool[layer].data_ptr(),
-                v_pool[layer].data_ptr(), page_table.data_ptr(), starts.data_ptr(),
-                out.data_ptr(), B, S, G, Hg, P, D, page_table.shape[1], float(sm_scale),
-                _build.stream_ptr(q))
+                v_pool[layer].data_ptr(), page_table.data_ptr(),
+                None if row_map is None else row_map.data_ptr(), starts.data_ptr(), part,
+                _arrivals_ptr(q.device, units), out.data_ptr(), B, S, G, Hg, P, D, MP, span,
+                float(sm_scale), _build.stream_ptr(q))
     flash_attention_chunk_paged.launches += 1
     return out
 

@@ -30,7 +30,9 @@ Phases (any failure raises and exits non-zero):
    and M = 8 f32; B12
    (``flash_attention_decode_v2``) beside B4's row, held also to its own
    limit on the error beyond the output's bf16 rounding (``B12_TOL``), with
-   a control that rounds p to bf16 and must exceed it; B4 at the decoder's
+   a control that rounds p to bf16 and must exceed it, and B10 / B11 (the
+   paged decode and chunk attention) likewise to ``B10_TOL`` / ``B11_TOL``,
+   each called twice for a bit-equal result; B4 at the decoder's
    batch-1 shape (lengths 140 of 1024), B5 (both forms), and the decode and
    prefill kernels at the edge cases their main-path shapes miss
    (``check_attention_edges``).
@@ -79,7 +81,8 @@ Phases (any failure raises and exits non-zero):
    dense, unpaged, unchunked ``prefill_chunk`` over prompt + stream, and the
    stream shifted by one token is not.  Printed per run: time to first
    token per request, aggregate tokens/s, and the device's busy share of
-   one decode chunk.
+   one decode chunk, with its device ms a decode step, the paged attention
+   kernels' share and the three largest kernels.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -121,6 +124,15 @@ F32_TOL = 1e-5  # f32 outputs: the order of f32 sums alone
 # cases, the control 1.6e-4 to 4.4e-4, and the kernel with its second
 # fragment deleted 1.7e-4 to 3.7e-4; the limit sits about 20x from each side.
 B12_TOL = 1e-5
+# B10 (paged decode) and B11 (chunk attention over the pool) keep p in f32
+# the same way, and are held the same way, each to a limit of its own near
+# the geometric mean of its two sides.  On an H100 B10 read 4.6e-8 to
+# 4.3e-7 over the main shape and the edge cases, its control 1.29e-4 to
+# 1.70e-4 (about 17x from each side); B11 read 7.3e-7 to 1.34e-6, its
+# control 1.55e-4 to 8.9e-4 (about 11x and 10x: its sums over spans leave
+# less room).
+B10_TOL = 7.5e-6
+B11_TOL = 1.5e-5
 # End-to-end tolerance (phase 3), as a fraction of max|logits| over two
 # layers of bf16 activations, on the unit-gain random tree of
 # ``bench.random_quantized_params``.  Weight-only: about 3x one kernel
@@ -585,28 +597,78 @@ def beyond_rounding(torch, got, want32) -> float:
     return excess / max(want32.abs().max().item(), 1e-30)
 
 
-def hold_b12(torch, got, q, k, v, lengths, sm, where) -> tuple[float, float]:
-    """B12's own limit: its error beyond the output's rounding within
-    B12_TOL, and the control's beyond it.  Returns (kernel, control)."""
-    want32 = decode_v2_f32(torch, q, k, v, lengths, sm)
+def hold_beyond(torch, name, got, want32, control32, limit, where) -> tuple[float, float]:
+    """A kernel that keeps p in f32 through PV, held to its own limit: its
+    error beyond the output's rounding of ``want32`` (its function in f32)
+    within ``limit``, and the control's (``control32``: the same function
+    with p rounded to bf16) beyond it.  Returns (kernel, control)."""
     err = beyond_rounding(torch, got, want32)
-    ctrl = beyond_rounding(torch, decode_v2_f32(torch, q, k, v, lengths, sm, p_bf16=True)
-                           .to(torch.bfloat16), want32)
-    require(err <= B12_TOL < ctrl, f"flash_attention_decode_v2 {where}: error beyond the bf16 "
-                                   f"rounding {err} (limit {B12_TOL}), control {ctrl}")
+    ctrl = beyond_rounding(torch, control32.to(torch.bfloat16), want32)
+    require(err <= limit < ctrl, f"{name} {where}: error beyond the bf16 rounding {err} "
+                                 f"(limit {limit}), control {ctrl}")
     return err, ctrl
 
 
+def hold_b12(torch, got, q, k, v, lengths, sm, where) -> tuple[float, float]:
+    """B12 held to B12_TOL against ``decode_v2_f32``."""
+    return hold_beyond(torch, "flash_attention_decode_v2", got,
+                       decode_v2_f32(torch, q, k, v, lengths, sm),
+                       decode_v2_f32(torch, q, k, v, lengths, sm, p_bf16=True), B12_TOL, where)
+
+
+def hold_b10(torch, got, q, kp, vp, layer, pt, lengths, sm, where) -> tuple[float, float]:
+    """B10 held to B10_TOL: B12's function in f32 over the gathered pages."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    k, v = A.gather_pages(kp[layer], pt), A.gather_pages(vp[layer], pt)
+    return hold_beyond(torch, "flash_attention_decode_paged", got,
+                       decode_v2_f32(torch, q, k, v, lengths, sm),
+                       decode_v2_f32(torch, q, k, v, lengths, sm, p_bf16=True), B10_TOL, where)
+
+
+def chunk_paged_f32(torch, q, kp, vp, layer, pt, starts, sm_scale, row_map=None, p_bf16=False):
+    """B11's function in f32, before the output's bf16 rounding: the plain
+    version's steps (``flash_attention_chunk_paged_plain``), with l summed
+    from f32 p; with ``p_bf16`` p is rounded to bf16 before PV (the
+    control)."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    if row_map is not None:
+        pt = pt[row_map.long()]
+    k, v = A.gather_pages(kp[layer], pt).float(), A.gather_pages(vp[layer], pt).float()
+    S, T = q.shape[1], k.shape[2]
+    s = torch.einsum("bsghd,bgtd->bghst", A._prescaled(q, sm_scale), k)
+    qpos = starts.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    mask = torch.arange(T, device=q.device)[None, None, :] <= qpos[:, :, None]
+    s = s.masked_fill(~mask[:, None, None], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    return (torch.einsum("bghst,bgtd->bghsd", pv, v) / l).permute(0, 3, 1, 2, 4)
+
+
+def hold_b11(torch, got, q, kp, vp, layer, pt, starts, sm, row_map, where) -> tuple[float, float]:
+    """B11 held to B11_TOL against ``chunk_paged_f32``."""
+    args = (torch, q, kp, vp, layer, pt, starts, sm, row_map)
+    return hold_beyond(torch, "flash_attention_chunk_paged", got, chunk_paged_f32(*args),
+                       chunk_paged_f32(*args, p_bf16=True), B11_TOL, where)
+
+
 def check_attention_edges(torch):
-    """B4, B12 and B5 (both forms) against their plain versions at the edges
-    the main-path shapes miss: decode at lengths -1 (outputs 0), 0, span - 1,
-    span, span + 1, T - 1 (and T + 5 for B12), 255 and 256 (the last row
-    of one span and the first of the cross-block merge), T = 1000 (no
-    multiple of the 64-row tile), spans of 128 and 512 rows, Hg 16 and 4;
-    prefill at S = 130 (no multiple of the tile), a length-0 row, q_starts
-    on and off the tiles, a kv_row_map, Hg 16, 4 and 64.  Each within
-    KERNEL_TOL of max|plain| and finite; B12 also within B12_TOL beyond
-    the output's rounding, with its control above it."""
+    """B4, B12, B5 (both forms), B10 and B11 against their plain versions at
+    the edges the main-path shapes miss: decode at lengths -1 (outputs 0),
+    0, span - 1, span, span + 1, T - 1 (and T + 5 for B12), 255 and 256 (the
+    last row of one span and the first of the cross-block merge), T = 1000
+    (no multiple of the 64-row tile), spans of 128 and 512 rows, Hg 16 and
+    4; prefill at S = 130 (no multiple of the tile), a length-0 row,
+    q_starts on and off the tiles, a kv_row_map, Hg 16, 4 and 64; B10 at
+    page sizes 16, 96 and 256, Hg 16 and 4, lengths -1 (outputs 0), 0,
+    P - 1, P, P + 1, 255, 256, MP·P - 1 and past capacity, and a padding row
+    on the garbage page; B11 at S = 1, 9, 32 (Hg 16) and 128 (Hg 4: S·Hg
+    512), starts 0, across a page edge, at capacity - S and past it, and 700
+    (split over spans), with and without a row map.  Each within KERNEL_TOL
+    of max|plain| and finite; B12, B10 and B11 also within their own limits
+    beyond the output's rounding, with their controls above them."""
     from chatglm_q_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -662,8 +724,47 @@ def check_attention_edges(torch):
         hold("flash_attention_prefill_chunk",
              A.flash_attention_prefill_chunk(q, k, v, lengths, starts, sm, rmap),
              A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap), [2])
-    worst["flash_attention_decode_v2 beyond rounding"] = b12[0]
-    worst["flash_attention_decode_v2 control beyond rounding"] = b12[1]
+    # B10 and B11 through scattered pages: P = 16 (four pages a tile), 96 (no
+    # multiple of the tile: tiles straddle pages) and 256 (the engines'), at
+    # capacities of about 1024 rows, so that long rows span several blocks
+    b10, b11 = [0.0, math.inf], [0.0, math.inf]
+    for P, MP in ((16, 64), (96, 11), (256, 4)):
+        cap, Bd, Bc = MP * P, 12, 5
+        NP = Bd * MP + 1
+        kp, vp = bf(2, NP, G, P, D), bf(2, NP, G, P, D)
+        pt = (torch.randperm(NP - 1, device="cuda", generator=gen)[: Bd * MP] + 1
+              ).reshape(Bd, MP).to(torch.int32)
+        pt[9] = 0  # a padding row: every page the garbage page
+        edges = [-1, 0, P - 1, P, P + 1, solo - 1, solo, cap - 1, cap + 30, 0]
+        lengths = torch.tensor(edges + [(371 * i) % cap for i in range(1, Bd - len(edges) + 1)],
+                               dtype=torch.int32, device="cuda")
+        for Hg in (16, 4):
+            q = bf(Bd, G, Hg, D)
+            got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
+            hold("flash_attention_decode_paged", got,
+                 A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm), [0])
+            err, ctrl = hold_b10(torch, got, q, kp, vp, 1, pt, lengths, sm,
+                                 f"edge case P={P} Hg={Hg}")
+            b10 = [max(b10[0], err), min(b10[1], ctrl)]
+        for S, Hg in ((1, 16), (9, 16), (32, 16), (128, 4)):  # S·Hg up to the engines' 512
+            q = bf(Bc, S, G, Hg, D)
+            starts = torch.tensor([0, P - 2, cap - S, cap - S + 5, 700], dtype=torch.int32,
+                                  device="cuda")
+            rmap = torch.tensor([5, 0, 3, 1, 2], dtype=torch.int32, device="cuda")
+            for table, row_map in ((pt[:Bc].contiguous(), None), (pt[:6].contiguous(), rmap)):
+                got = A.flash_attention_chunk_paged(q, kp, vp, 1, table, starts, sm, row_map)
+                hold("flash_attention_chunk_paged", got, A.flash_attention_chunk_paged_plain(
+                    q, kp, vp, 1, table, starts, sm, row_map), [])
+                err, ctrl = hold_b11(torch, got, q, kp, vp, 1, table, starts, sm, row_map,
+                                     f"edge case P={P} S={S} Hg={Hg} "
+                                     f"row_map={row_map is not None}")
+                b11 = [max(b11[0], err), min(b11[1], ctrl)]
+        del kp, vp
+    for name, (err, ctrl) in (("flash_attention_decode_v2", b12),
+                              ("flash_attention_decode_paged", b10),
+                              ("flash_attention_chunk_paged", b11)):
+        worst[f"{name} beyond rounding"] = err
+        worst[f"{name} control beyond rounding"] = ctrl
     log(f"  attention edge cases: max rel err {json.dumps(worst)}")
     return worst
 
@@ -876,6 +977,10 @@ def check_paged_attention(torch):
     err, rel = rel_err(got, want)
     require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
             f"flash_attention_decode_paged rel err {rel}")
+    beyond, ctrl = hold_b10(torch, got, q, kp, vp, 0, pt, lens, sm, "main shape")
+    require(torch.equal(A.flash_attention_decode_paged(q, kp, vp, 0, pt, lens, sm),
+                        A.flash_attention_decode_paged(q, kp, vp, 0, pt, lens, sm)),
+            "flash_attention_decode_paged: two calls on the same inputs differ")
     ms = cuda_event_ms(lambda i: A.flash_attention_decode_paged(q, kp, vp, i % L, pt, lens, sm),
                        iters=56)
     plain = cuda_event_ms(lambda i: A.flash_attention_decode_paged_plain(q, kp, vp, i % L, pt,
@@ -892,7 +997,10 @@ def check_paged_attention(torch):
     put("flash_attention_decode_paged", err, rel, ms, plain,
         2 * q.numel() * 2 + sum(n) * G * D * 2 * 2 + B * MP * 4 + B * 4,
         4.0 * sum(n) * G * Hg * D, lib,
-        f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)}")
+        f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)} "
+        f"span={A.decode_paged_span(B * G, PAGE, MP)}")
+    out["flash_attention_decode_paged"].update(beyond_rounding=beyond,
+                                               control_beyond_rounding=ctrl)
 
     # B11: chunk attention over the pool, S = 9 (a k = 8 verify step) and 32
     for S in (9, 32):
@@ -903,6 +1011,11 @@ def check_paged_attention(torch):
         err, rel = rel_err(got, want)
         require(torch.isfinite(got).all() and rel <= KERNEL_TOL,
                 f"flash_attention_chunk_paged S={S} rel err {rel}")
+        beyond, ctrl = hold_b11(torch, got, qc, kp, vp, 0, pt, starts, sm, None,
+                                f"main shape S={S}")
+        require(torch.equal(A.flash_attention_chunk_paged(qc, kp, vp, 0, pt, starts, sm),
+                            A.flash_attention_chunk_paged(qc, kp, vp, 0, pt, starts, sm)),
+                f"flash_attention_chunk_paged S={S}: two calls on the same inputs differ")
         ms = cuda_event_ms(lambda i: A.flash_attention_chunk_paged(qc, kp, vp, i % L, pt,
                                                                    starts, sm), iters=56)
         plain = cuda_event_ms(lambda i: A.flash_attention_chunk_paged_plain(
@@ -919,10 +1032,15 @@ def check_paged_attention(torch):
         lib = cuda_event_ms(lib_chunk, iters=56)
         rows = [min(st + S, MP * PAGE) for st in PAGED_LENGTHS]
         pairs = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S))
+        units = A.chunk_units(B, G, S, Hg)
         put(f"flash_attention_chunk_paged S={S}", err, rel, ms, plain,
             2 * qc.numel() * 2 + sum(rows) * G * D * 2 * 2 + B * MP * 4 + B * 4,
             4.0 * pairs * G * Hg * D, lib,
-            f"B={B} S={S} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)}")
+            f"B={B} S={S} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} "
+            f"span={A.chunk_span(units, MP * PAGE)} "
+            f"partials={4 * A.chunk_partial_floats(units, MP * PAGE)} B")
+        out[f"flash_attention_chunk_paged S={S}"].update(beyond_rounding=beyond,
+                                                         control_beyond_rounding=ctrl)
     del kp, vp
 
     # B5's chunked form: 256-token chunks of 4 compact rows against a 4-row,
@@ -1592,10 +1710,17 @@ def chunk_busy(torch, engine, reqs, name):
             with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 engine.step()
                 torch.cuda.synchronize()
-            dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA) / 1e3
-            res = {"device_ms": dev_ms, "wall_ms": untraced * 1e3,
-                   "busy_share": dev_ms / (untraced * 1e3)}
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+            # the paged attention kernels' share: B10 (decode_attn_kernel) and
+            # B11 (prefill_attn_kernel, the verify step)
+            attn = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+                    for k in ("decode_attn_kernel", "prefill_attn_kernel")}
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+            res = {"device_ms": dev_ms, "wall_ms": untraced * 1e3, "attention_device_ms": attn,
+                   "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+                   "busy_share": dev_ms / (untraced * 1e3),
+                   "device_ms_per_decode_step": dev_ms / engine.chunk}
             for rid in ids:  # measured: the rest of the run is not needed
                 engine.cancel(rid)
             continue
@@ -1603,7 +1728,9 @@ def chunk_busy(torch, engine, reqs, name):
     require(res is not None, f"{name}: no two decode-only steps to profile")
     log(f"    {name}: one decode-only step ({engine.chunk} decode steps): device "
         f"{res['device_ms']:.2f} ms of {res['wall_ms']:.2f} ms untraced wall, busy "
-        f"{100 * res['busy_share']:.1f}%")
+        f"{100 * res['busy_share']:.1f}%; device {res['device_ms_per_decode_step']:.2f} ms "
+        f"a decode step; attention kernels (ms) {json.dumps(res['attention_device_ms'])}; "
+        f"largest (ms) {json.dumps(res['top_kernels_ms'])}")
     return res
 
 

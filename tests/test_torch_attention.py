@@ -198,3 +198,142 @@ def test_decode_split_emulation_matches_pallas(v2, dtype, span, solo_rows):
         np.testing.assert_allclose(got, want, **TOL)
     else:
         assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("batch_groups", [2, 8, 24, 132])
+@pytest.mark.parametrize("P,MP", [(16, 64), (96, 11), (256, 8), (8, 3)])
+def test_decode_paged_span_is_decodes_rule_over_the_capacity(batch_groups, P, MP):
+    """B10 splits the table's capacity MP·P as B4 splits T: whole tiles, the
+    grid filled where the rows allow; at the engines' shape (B = 4, G = 2,
+    P = 256, MP = 8) that is one 64-row tile a block."""
+    span = TA.decode_paged_span(batch_groups, P, MP)
+    assert span == TA.decode_span(batch_groups, MP * P, TA.DECODE_BLOCK_K)
+    assert span % TA.DECODE_TILE == 0
+    blocks = batch_groups * -(-(MP * P) // span)
+    assert blocks >= min(TA.DECODE_TARGET_BLOCKS, batch_groups * -(-(MP * P) // TA.DECODE_TILE))
+    assert TA.decode_paged_span(8, 256, 8) == TA.DECODE_TILE
+
+
+@pytest.mark.parametrize("B,S,Hg", [(4, 9, 16), (4, 32, 16), (1, 128, 4), (1, 1, 16),
+                                    (64, 32, 16)])
+@pytest.mark.parametrize("T", [64, 200, 1056, 2048, 65536])
+def test_chunk_span_fills_the_card_within_bounded_partials(B, S, Hg, T):
+    """B11's span: whole tiles, at least CHUNK_MIN_SPAN rows (or the whole
+    capacity), at most CHUNK_MAX_SPANS spans, halved only while the grid
+    has fewer blocks than the H100 has SMs, so that the f32 partials stay
+    within about 2·132 blocks' worth (17.6 MB) whatever S·Hg is; one span
+    needs none."""
+    G = 2
+    units = TA.chunk_units(B, G, S, Hg)
+    assert units == B * G * -(-S // (TA.PREFILL_ROWS // Hg))
+    span = TA.chunk_span(units, T)
+    nspan = -(-T // span)
+    assert span % TA.DECODE_TILE == 0
+    assert span >= min(TA.CHUNK_MIN_SPAN, -(-T // TA.DECODE_TILE) * TA.DECODE_TILE)
+    assert nspan <= TA.CHUNK_MAX_SPANS
+    if span > max(TA.CHUNK_MIN_SPAN, -(-T // TA.CHUNK_MAX_SPANS)):  # stopped by the grid
+        assert nspan == 1 or units * nspan >= TA.DECODE_TARGET_BLOCKS
+    floats = TA.chunk_partial_floats(units, T)
+    per_block = TA.PREFILL_ROWS * (TA.HEAD_DIM + 2)
+    assert floats == (0 if nspan == 1 else units * nspan * per_block)
+    assert floats * 4 <= 2 * TA.DECODE_TARGET_BLOCKS * per_block * 4 or nspan == TA.CHUNK_MAX_SPANS
+
+
+def test_chunk_spans_fit_the_merge_in_shared_memory():
+    """The merging block holds every span's (m, l) and weight of its rows
+    (12 bytes a row a span, then 4 a row for the l-sum) in the bytes of the
+    prefill tile's shared memory; the wrapper's CHUNK_MAX_SPANS keeps
+    within them, and its PREFILL_ROWS is the kernel's PF_ROWS."""
+    src = (pathlib.Path(TA.__file__).parents[1] / "csrc" / "attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    rows = const("PF_WARPS") * 16
+    assert rows == TA.PREFILL_ROWS
+    smem = (rows + 2 * const("PF_STAGES") * const("KV_TK")) * (const("ATT_D") + 8) * 2
+    assert TA.CHUNK_MAX_SPANS * rows * 12 + rows * 4 <= smem
+
+
+def _chunk_split_emulation(q, k_pool, v_pool, layer, page_table, starts, sm_scale, span):
+    """The CUDA chunk kernel's arithmetic (B11), in torch: per (b, g), query
+    blocks of PREFILL_ROWS folded rows (position r // Hg, head r % Hg); per
+    block the K/V positions below its last causal bound (and the capacity)
+    in spans of ``span`` rows; in a span, 64-row tiles, each warp of 16 rows
+    with its own online softmax (q pre-scaled in its dtype, f32 p), skipping
+    a tile wholly above its rows and masking at MASK_VALUE past a row's
+    position or the span; the spans then merge by their (m, l)."""
+    B, S, G, Hg, D = q.shape
+    cap = page_table.shape[1] * k_pool.shape[3]
+    k = TA.gather_pages(k_pool[layer], page_table).float()
+    v = TA.gather_pages(v_pool[layer], page_table).float()
+    qf = TA._prescaled(q, sm_scale)
+    qt = TA.PREFILL_ROWS // Hg
+    out = torch.zeros((B, S, G, Hg, D), dtype=torch.float32)
+    for b in range(B):
+        start = int(starts[b])
+        for g in range(G):
+            for q0 in range(0, S, qt):
+                rows = min(qt, S - q0) * Hg
+                qpos = start + q0 + torch.arange(rows) // Hg
+                qrows = qf[b, q0:q0 + rows // Hg, g].reshape(rows, D)
+                n_read = min(start + q0 + rows // Hg, cap)
+                spans = []
+                for t_begin in range(0, n_read, span):
+                    t_end = min(t_begin + span, n_read)
+                    m = torch.full((rows,), -math.inf)
+                    l, acc = torch.zeros(rows), torch.zeros(rows, D)
+                    for r0 in range(0, rows, 16):
+                        w = slice(r0, min(r0 + 16, rows))
+                        for t0 in range(t_begin, t_end, 64):
+                            if t0 > int(qpos[w].max()):
+                                continue
+                            pos = torch.arange(t0, t0 + 64)
+                            s = qrows[w] @ k[b, g, pos.clamp(max=cap - 1)].T
+                            ok = (pos[None, :] <= qpos[w, None]) & (pos[None, :] < t_end)
+                            s = s.masked_fill(~ok, TA.MASK_VALUE)
+                            m_next = torch.maximum(m[w], s.max(1).values)
+                            alpha = torch.exp(m[w] - m_next)
+                            p = torch.exp(s - m_next[:, None])
+                            vt = v[b, g, pos.clamp(max=cap - 1)] * (pos < t_end)[:, None]
+                            l[w] = alpha * l[w] + p.sum(1)
+                            acc[w] = acc[w] * alpha[:, None] + p @ vt
+                            m[w] = m_next
+                    spans.append((m, l, acc))
+                mx = torch.stack([s[0] for s in spans]).max(0).values
+                lsum = sum(s[1] * torch.exp(s[0] - mx) for s in spans)
+                a = sum(s[2] * torch.exp(s[0] - mx)[:, None] for s in spans)
+                out[b, q0:q0 + rows // Hg, g] = (a / lsum[:, None]).reshape(rows // Hg, Hg, D)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("span", [64, 128])
+@pytest.mark.parametrize("Hg", [4, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_split_emulation_matches_pallas(dtype, Hg, span):
+    """B11's split over K/V spans and its merge, held on the CPU against
+    JAX's B11 in interpret mode: capacity 192 (12 pages of 16), S = 5,
+    starts 0, 14 (across a page edge), 100, capacity − S and past it, so
+    that spans hold none, some or all of a query's positions (a span above a
+    query weighs 0 in the merge); Hg = 64 puts two positions in a block.
+    f32 within 1e-5, bf16 within 1e-2 of max|ref|."""
+    L, NP, G, P, D, MP, S = 2, 61, 2, 16, 16, 12, 5
+    cap = MP * P
+    r = np.random.default_rng(21)
+    kp = r.standard_normal((L, NP, G, P, D)).astype(np.float32)
+    vp = r.standard_normal((L, NP, G, P, D)).astype(np.float32)
+    q = r.standard_normal((5, S, G, Hg, D)).astype(np.float32)
+    pt = (r.permutation(NP - 1)[: 5 * MP].reshape(5, MP) + 1).astype(np.int32)
+    starts = np.array([0, 14, 100, cap - S, cap - 2], np.int32)
+    sm = 0.3
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(PA.flash_attention_chunk_paged(
+        *(jnp.asarray(a, jd) for a in (q, kp, vp)), jnp.asarray(1), jnp.asarray(pt),
+        jnp.asarray(starts), sm, interpret=True).astype(jnp.float32))
+    got = _chunk_split_emulation(*(torch.from_numpy(a).to(td) for a in (q, kp, vp)), 1,
+                                 torch.from_numpy(pt), torch.from_numpy(starts), sm,
+                                 span).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()

@@ -43,7 +43,11 @@ def _tol(dtype):
     return 1e-2 if dtype == torch.bfloat16 else 1e-5
 
 
-B12_TOL = 1e-5  # chip_smoke.py's limit on B12's error beyond its output's bf16 rounding
+# chip_smoke.py's limits on the error beyond the output's bf16 rounding of
+# the kernels that keep p in f32 through PV
+B12_TOL = 1e-5
+B10_TOL = 7.5e-6
+B11_TOL = 1.5e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -123,7 +127,7 @@ def test_decode_attention_is_deterministic_in_one_launch(gen, v2):
     fn = A.flash_attention_decode_v2 if v2 else A.flash_attention_decode
     first = fn(q, k, v, lengths, 0.088)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         again = fn(q, k, v, lengths, 0.088)
         torch.cuda.synchronize()
     assert torch.equal(first, again)
@@ -199,38 +203,87 @@ def test_pool_write_matches_plain(gen, P):
     assert torch.equal(pool, ref)
 
 
-@pytest.mark.parametrize("P", [16, 256])
+# (P, MP): capacities of about 1024 rows, so rows past DECODE_SOLO_ROWS span
+# several blocks; P = 16 (the CPU tests' size, four pages a tile), 96 (no
+# multiple of the 64-row tile: tiles straddle pages) and 256 (the engines')
+PAGED_SHAPES = [(16, 64), (96, 11), (256, 4)]
+
+
+def _paged_decode_edges(P, MP, B):
+    """Lengths −1 (outputs 0), 0, P − 1, P, P + 1, 255 and 256 (the last
+    one-span row and the first merged across blocks), MP·P − 1 and past
+    capacity, 0 for the garbage-table padding row (row 9), the rest spread."""
+    cap = MP * P
+    edges = [-1, 0, P - 1, P, P + 1, 255, 256, cap - 1, cap + 30, 0]
+    rest = [(371 * i) % cap for i in range(1, B - len(edges) + 1)]
+    return torch.tensor(edges + rest, dtype=torch.int32, device="cuda")
+
+
+def _paged_decode_f32(q, kp, vp, layer, pt, lengths, sm_scale, p_bf16=False):
+    """B10's function in f32 (B12's over the gathered pages)."""
+    return _decode_v2_f32(q, A.gather_pages(kp[layer], pt), A.gather_pages(vp[layer], pt),
+                          lengths, sm_scale, p_bf16)
+
+
+@pytest.mark.parametrize("P,MP", PAGED_SHAPES)
 @pytest.mark.parametrize("Hg", [16, 4])
-def test_decode_paged_matches_plain(gen, P, Hg):
-    """Lengths 0, mid, capacity - 1 and past capacity, and a length-0
-    padding row whose table is all garbage page; read from layer 1."""
-    L, G, D, MP = 2, 2, 128, 4
-    B, NP = 5, 5 * MP + 1
+def test_decode_paged_matches_plain(gen, P, MP, Hg):
+    """The edges of ``_paged_decode_edges``, read from layer 1 through
+    scattered pages.  Within 1e-2 of max|plain| and, since B10 keeps p in f32
+    through PV, within B10_TOL beyond the output's bf16 rounding, where p
+    rounded to bf16 lands above it."""
+    L, G, D, B = 2, 2, 128, 12
+    NP = B * MP + 1
     kp, vp = _paged_pool(gen, L, NP, G, P)
     pt = _scattered_table(gen, B, MP, NP)
-    pt[4] = 0
-    lengths = torch.tensor([0, P + 5, MP * P - 1, MP * P + 30, 0], dtype=torch.int32,
-                           device="cuda")
+    pt[9] = 0
+    lengths = _paged_decode_edges(P, MP, B)
     q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
     sm = 1 / math.sqrt(D)
     got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
     torch.cuda.synchronize()
     want = A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm)
-    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(got.float()).all() and not got[0].float().any()
     assert _rel(got, want) <= 1e-2
+    want32 = _paged_decode_f32(q, kp, vp, 1, pt, lengths, sm)
+    control = _paged_decode_f32(q, kp, vp, 1, pt, lengths, sm, p_bf16=True).to(torch.bfloat16)
+    assert _beyond_rounding(got, want32) <= B10_TOL < _beyond_rounding(control, want32)
 
 
-@pytest.mark.parametrize("P", [16, 256])
-@pytest.mark.parametrize("S", [1, 9, 32])
-def test_chunk_paged_matches_plain(gen, P, S):
-    """Starts 0, mid-page, ending at capacity and past it; with and without
-    a row map; read from layer 1."""
-    L, G, Hg, D, MP = 2, 2, 16, 128, 4
-    Bt, B, NP = 5, 4, 5 * MP + 1
+def _chunk_paged_f32(q, kp, vp, layer, pt, starts, sm_scale, row_map=None, p_bf16=False):
+    """B11's function in f32, before the output's bf16 rounding: q scaled
+    in its dtype, l from f32 p; with ``p_bf16`` p rounded to bf16 before PV
+    (the control)."""
+    if row_map is not None:
+        pt = pt[row_map.long()]
+    k, v = A.gather_pages(kp[layer], pt).float(), A.gather_pages(vp[layer], pt).float()
+    S, T = q.shape[1], k.shape[2]
+    s = torch.einsum("bsghd,bgtd->bghst", A._prescaled(q, sm_scale), k)
+    qpos = starts.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    mask = torch.arange(T, device=q.device)[None, None, :] <= qpos[:, :, None]
+    s = s.masked_fill(~mask[:, None, None], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    return (torch.einsum("bghst,bgtd->bghsd", pv, v) / l).permute(0, 3, 1, 2, 4)
+
+
+@pytest.mark.parametrize("P,MP", PAGED_SHAPES)
+@pytest.mark.parametrize("S,Hg", [(1, 16), (9, 16), (32, 16), (128, 4)])
+def test_chunk_paged_matches_plain(gen, P, MP, S, Hg):
+    """Starts 0, across a page edge, at capacity − S and past it, and 700
+    (its K/V rows split into spans merged in the launch); with and without
+    a row map; read from layer 1; S·Hg up to 512 (the engines' bound).
+    Within 1e-2 of max|plain| and within B11_TOL beyond the output's bf16
+    rounding, where p rounded to bf16 lands above it."""
+    L, G, D = 2, 2, 128
+    Bt, B, cap = 6, 5, MP * P
+    NP = Bt * MP + 1
     kp, vp = _paged_pool(gen, L, NP, G, P)
     pt = _scattered_table(gen, Bt, MP, NP)
-    starts = torch.tensor([0, P + 3, MP * P - S, MP * P - 1], dtype=torch.int32, device="cuda")
-    rmap = torch.tensor([4, 0, 2, 1], dtype=torch.int32, device="cuda")
+    starts = torch.tensor([0, P - 2, cap - S, cap - S + 5, 700], dtype=torch.int32,
+                          device="cuda")
+    rmap = torch.tensor([5, 0, 3, 1, 2], dtype=torch.int32, device="cuda")
     q = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
     sm = 1 / math.sqrt(D)
     for table, row_map in ((pt[:B].contiguous(), None), (pt, rmap)):
@@ -239,6 +292,44 @@ def test_chunk_paged_matches_plain(gen, P, S):
         want = A.flash_attention_chunk_paged_plain(q, kp, vp, 1, table, starts, sm, row_map)
         assert torch.isfinite(got.float()).all()
         assert _rel(got, want) <= 1e-2
+        want32 = _chunk_paged_f32(q, kp, vp, 1, table, starts, sm, row_map)
+        control = _chunk_paged_f32(q, kp, vp, 1, table, starts, sm, row_map,
+                                   p_bf16=True).to(torch.bfloat16)
+        assert _beyond_rounding(got, want32) <= B11_TOL < _beyond_rounding(control, want32)
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+def test_paged_attention_is_deterministic_in_one_launch(gen, kind):
+    """B10 and B11 at the engines' shapes (P = 256, 2048-slot rows, rows of
+    1000 / 600 / 200 / 0 slots): two calls on the same inputs are bit-equal
+    (the spans merge in order and the counters reset in the launch), and one
+    call, row map included, is one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L, G, Hg, D, P, MP, B = 2, 2, 16, 128, 256, 8, 4
+    kp, vp = _paged_pool(gen, L, B * MP + 1, G, P)
+    pt = _scattered_table(gen, B, MP, B * MP + 1)
+    lens = torch.tensor([1000, 600, 200, 0], dtype=torch.int32, device="cuda")
+    if kind == "decode":
+        q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+
+        def call():
+            return A.flash_attention_decode_paged(q, kp, vp, 1, pt, lens, 0.088)
+    else:
+        q = torch.randn((B, 9, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+        rmap = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device="cuda")
+
+        def call():
+            return A.flash_attention_chunk_paged(q, kp, vp, 1, pt, lens, 0.088, rmap)
+    first = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = call()
+        torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = "decode_attn_kernel" if kind == "decode" else "prefill_attn_kernel"
+    assert len(kernels) == 1 and want in kernels[0], kernels
 
 
 @pytest.mark.parametrize("starts", [[256, 0, 448], [200, 3, 447]])

@@ -95,6 +95,31 @@ def test_decode_paged_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_paged_outputs_zero_for_a_row_with_no_valid_slot(dtype):
+    """A row of length −1 has no valid slot: JAX's B10 reads no page and its
+    l == 0 guard outputs 0, and so must the plain version (it once averaged
+    V over the masked slots, max|out| 0.381 against 0.0 on this input).
+    L = 2, P = 16, MP = 3, read from layer 1, the other rows at 0, 10, 40."""
+    Lx, NPx, MPx, Dx = 2, 14, 3, 128
+    r = _rng(8)
+    kp = r.standard_normal((Lx, NPx, G, P, Dx)).astype(np.float32)
+    vp = r.standard_normal((Lx, NPx, G, P, Dx)).astype(np.float32)
+    q = r.standard_normal((4, G, Hg, Dx)).astype(np.float32)
+    pt = (r.permutation(NPx - 1)[: 4 * MPx].reshape(4, MPx) + 1).astype(np.int32)
+    lengths = np.array([-1, 0, 10, 40], np.int32)
+    sm = 1.0 / np.sqrt(Dx)
+    (jq, tq), (jk, tk), (jv, tv) = _to(q, dtype), _to(kp, dtype), _to(vp, dtype)
+    want = PA.flash_attention_decode_paged(jq, jk, jv, jnp.asarray(1), jnp.asarray(pt),
+                                           jnp.asarray(lengths), sm, interpret=True)
+    args = (tq, tk, tv, 1, torch.from_numpy(pt), torch.from_numpy(lengths), sm)
+    plain = TA.flash_attention_decode_paged_plain(*args)
+    assert not np.asarray(want.astype(jnp.float32))[0].any()
+    assert not plain[0].float().any()
+    _cmp(plain, want, dtype)
+    assert torch.equal(TA.flash_attention_decode_paged(*args), plain)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S", [1, 5])
 def test_chunk_paged_matches_pallas(dtype, S):
     """Starts 0, across a page edge, ending at capacity and running past it;
