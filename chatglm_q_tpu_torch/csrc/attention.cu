@@ -547,9 +547,7 @@ int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, 
                   bf16* out, int B, int G, int Hg, int T, int span, float sm_scale,
                   cudaStream_t stream) {
   const int smem = (int)sizeof(DecodeSmem);
-  // the opt-in to > 48 KiB of dynamic shared memory holds for the process
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      decode_attn_kernel<kV2, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int nspan = (T + span - 1) / span;
   decode_attn_kernel<kV2, KV><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
@@ -776,10 +774,7 @@ int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q
                    const int* kv_row_map, bf16* out, float* part, int* arrivals, int B, int S,
                    int G, int Hg, int span, int nspan, float sm_scale, cudaStream_t stream) {
   const int smem = (int)sizeof(PrefillTileSmem);
-  // the opt-in to > 48 KiB of dynamic shared memory holds for the process:
-  // set it at the first launch only, not on every layer of every prefill
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      prefill_attn_kernel<KV, kV2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t opt_in = smem_opt_in<prefill_attn_kernel<KV, kV2>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int qt = PF_ROWS / Hg;
   const dim3 grid((S + qt - 1) / qt * nspan, G, B);

@@ -32,6 +32,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Opt Kernel into `bytes` of dynamic shared memory (past 48 KB) on the current
+// device.  The attribute holds per device and per process, so each
+// instantiation makes it once for each device it launches on, not on every
+// launch.
+constexpr int SMEM_OPT_IN_DEVICES = 64;
+template <auto Kernel>
+inline cudaError_t smem_opt_in(int bytes) {
+  static bool done[SMEM_OPT_IN_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < SMEM_OPT_IN_DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < SMEM_OPT_IN_DEVICES) done[dev] = true;
+  return e;
+}
+
 // ---------------------------------------------------------------------------
 // Matmul helpers shared by int4_matmul.cu, int8_matmul.cu and dyn_matmul.cu
 // ---------------------------------------------------------------------------
@@ -132,6 +148,26 @@ __device__ __forceinline__ uint32_t nibbles_lo_s8(uint32_t w) {
 }
 __device__ __forceinline__ uint32_t nibbles_hi_s8(uint32_t w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// Byte p (0..3) of w, two tpu-order int4 nibbles, as the bf16x2 pair of an
+// mma fragment (low nibble, the lower K row, in bits 0-15) without an
+// int-to-float conversion: one PRMT puts the low nibble of byte p of w at
+// bits 0-3 and that of w >> 4 (the byte's high nibble) at bits 16-19; one
+// LOP3 keeps them and writes them over the mantissa of bf16 128 with the
+// nibble's sign bit flipped, (v & 0x000F000F) ^ 0x43084308, which is the
+// bf16 value 136 + q for the two's-complement nibble q; one bf16x2 FMA
+// subtracts 136.  Exact for all 16 values.  w_shr4 is w >> 4, shared by the
+// word's four bytes.
+__device__ __forceinline__ uint32_t int4_pair_bf16x2(uint32_t w, uint32_t w_shr4, int p) {
+  const uint32_t sel = p | (p << 4) | ((4 + p) << 8) | ((4 + p) << 12);
+  uint32_t v, r;
+  // (a & b) ^ c as one LOP3 (LUT 0x6a): written out, ptxas splits it in two
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+      : "=r"(v)
+      : "r"(__byte_perm(w, w_shr4, sel)), "r"(0x000F000Fu), "r"(0x43084308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
 }
 
 // Eight neighbouring elements of a row (16 bytes of bf16, 32 of f32) as

@@ -15,6 +15,7 @@ def kernel_wrappers() -> dict:
     from . import quant_matmul as QM
 
     return {
+        "int4g32_splitk": QM.int4g32_splitk,
         "int4g32_gemv": QM.int4g32_gemv,
         "int4g32_mma": QM.int4g32_mma,
         "int8_gemv": I8.int8_gemv,

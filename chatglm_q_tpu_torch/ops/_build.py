@@ -35,6 +35,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, packed, scale, y, workspace, M, K, N, x_is_bf16, nsplit, groups_per_split, stream
     "chatglm_int4_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, packed, scale, y, workspace, arrivals, M, K, N, mt, cols, nsplit, groups_per_split,
+    # groups_per_chunk, stream
+    "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # x, packed, scale, y, M, K, N, stream
     "chatglm_int4_mma": [P, P, P, P, I, I, I, P],
     # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
@@ -72,6 +75,7 @@ SIGNATURES = {
 }
 
 _LIB = None
+_SCRATCH: dict = {}
 
 
 def nvcc_path() -> str:
@@ -155,6 +159,21 @@ def call(name: str, *args) -> None:
     if code != 0:
         msg = handle.chatglm_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def scratch(kind: str, device, n: int, dtype):
+    """A kernel family's device buffer ``kind`` on ``device``, kept across
+    calls and grown when smaller than ``n``: the split kernels' f32
+    partials and their arrival counters (zeroed once and left at zero by
+    every launch: the merging block resets its counter).  One stream at a
+    time per device: launches on it run in order."""
+    import torch
+
+    buf = _SCRATCH.get((kind, device))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=dtype, device=device)
+        _SCRATCH[kind, device] = buf
+    return buf
 
 
 def stream_ptr(t) -> int:

@@ -305,22 +305,6 @@ def chunk_partial_floats(units: int, T: int) -> int:
     return 0 if nspan == 1 else units * nspan * PREFILL_ROWS * (HEAD_DIM + 2)
 
 
-_DECODE_SCRATCH: dict = {}
-
-
-def _decode_scratch(kind: str, device, n: int, dtype):
-    """The split kernels' buffers on ``device`` (B4, B12, B10 and B11),
-    kept across calls and grown when too small: ``arrivals``, the arrival
-    counters (zeroed once and left at zero by every launch: the merging
-    block resets its counter), and ``part``, the spans' f32 partials.  One
-    stream at a time per device: launches on it run in order."""
-    buf = _DECODE_SCRATCH.get((kind, device))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 256),), dtype=dtype, device=device)
-        _DECODE_SCRATCH[kind, device] = buf
-    return buf
-
-
 def _decode_part_ptr(q, T, span):
     """The decode partials' address, or None where no (b, g) can hold more
     than one span."""
@@ -328,12 +312,12 @@ def _decode_part_ptr(q, T, span):
     nspan = -(-T // span)
     if nspan == 1 or T <= DECODE_SOLO_ROWS:
         return None
-    return _decode_scratch("part", q.device, B * G * nspan * Hg * (D + 2),
+    return _build.scratch("part", q.device, B * G * nspan * Hg * (D + 2),
                            torch.float32).data_ptr()
 
 
 def _arrivals_ptr(device, n):
-    return _decode_scratch("arrivals", device, n, torch.int32).data_ptr()
+    return _build.scratch("arrivals", device, n, torch.int32).data_ptr()
 
 
 def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2):
@@ -491,7 +475,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
     units, T = chunk_units(B, G, S, Hg), MP * P
     span = chunk_span(units, T)
     n_part = chunk_partial_floats(units, T)
-    part = _decode_scratch("part", q.device, n_part, torch.float32).data_ptr() if n_part else None
+    part = _build.scratch("part", q.device, n_part, torch.float32).data_ptr() if n_part else None
     out = torch.empty_like(q)
     _build.call("chatglm_chunk_paged", q.data_ptr(), k_pool[layer].data_ptr(),
                 v_pool[layer].data_ptr(), page_table.data_ptr(),

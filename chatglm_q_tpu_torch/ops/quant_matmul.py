@@ -3,17 +3,21 @@ over the CUDA kernels, their plain versions, and their launch counts.
 
 Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int4_fwd_kernel (grid form) and
 :_int4_pipelined_kernel (decode-M form).  They compute one function, so here
-they are one wrapper, ``int4g32_matmul``, over two kernels in
-``csrc/int4_matmul.cu`` chosen by M:
+they are one wrapper, ``int4g32_matmul``, over three kernels in
+``csrc/int4_matmul.cu`` chosen by ``int4_route``:
 
-* ``int4g32_gemv`` — small M (decode) or f32 activations: CUDA cores, split
-  over K across blocks so a narrow N still fills the card; bound by the
-  weight bytes.  A second pass sums the f32 partials in a fixed order.
-* ``int4g32_mma`` — bf16 activations at M > MMA_MIN_M (prefill): mma.sync
+* ``int4g32_splitk`` — bf16 activations at M ≤ SMALL_M_MAX (decode at batch
+  1-4, the speculative verify step): mma.sync with the weights as A and x's
+  rows as B, split over K so a narrow N still fills the card, the splits'
+  f32 partials summed in split order by the last block of each column tile
+  to arrive, in the same launch.  Bound by the weight bytes.
+* ``int4g32_mma`` — bf16 activations above it (prefill): mma.sync
   tensor-core tiles with the nibbles dequantized straight into the B
   fragments; bound by operations at large M.
+* ``int4g32_gemv`` — f32 activations: CUDA cores, split over K; a second
+  pass sums the f32 partials in a fixed order.
 
-Both apply each 32-row group's scale to the f32 partial of that group, so
+All apply each 32-row group's scale to the f32 partial of that group, so
 with integer weights and bf16 activations they differ from the plain
 version only in the order of the f32 sums.
 
@@ -24,6 +28,10 @@ along K/32 and N, so each weight is rounded once to g's dtype, bf16(q·s)
 under bf16, before the dot, as both JAX forms do.  Two kernels in
 ``csrc/int4_matmul.cu``: ``int4g32_t_gemv`` (f32 g or M ≤ 16) and
 ``int4g32_t_mma`` (bf16, M > 16).
+
+``gemv_plan``, ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and
+dynamic int8 matmuls (B6/B7/B8) and the transposed kernels; B1's own routing
+and plan are ``int4_route`` and ``splitk_plan``.
 """
 from __future__ import annotations
 
@@ -38,6 +46,12 @@ GEMV_BN = 256            # columns per gemv block (csrc: GEMV_LANES * GEMV_COLS)
 GEMV_KW = 4              # K warps per gemv block
 GEMV_TARGET_BLOCKS = 1056  # ~8 blocks per SM on a 132-SM H100
 MMA_MIN_M = 16           # bf16 rows above which the tensor-core kernel runs
+
+# B1's split-K tensor-core kernel (csrc/int4_matmul.cu: SK_*)
+SMALL_M_MAX = 64         # bf16 rows up to which it runs (the JAX decode-M limit)
+SPLITK_KW = 4            # warps per block, along K
+SPLITK_SMEM_MAX = 72 * 1024  # shared bytes a block (csrc: SK_SMEM_MAX); 48 KB up to mt = 2
+SPLITK_SMS = 132         # H100 SXM
 
 
 def int4g32_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -60,6 +74,53 @@ def gemv_plan(M: int, K: int, N: int) -> tuple[int, int]:
 
 def uses_mma(M: int, N: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and M > MMA_MIN_M and N % 16 == 0
+
+
+def int4_route(M: int, N: int, dtype: torch.dtype) -> str:
+    """B1's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16,
+    M ≤ SMALL_M_MAX), "mma" (bf16 above it) or "gemv" (f32, and bf16 where
+    the tensor-core kernel cannot take N)."""
+    if dtype == torch.bfloat16 and M <= SMALL_M_MAX:
+        return "splitk"
+    return "mma" if uses_mma(M, N, dtype) else "gemv"
+
+
+def splitk_smem(M: int, cg: int, cols: int) -> int:
+    """Shared bytes of a split-K block (csrc: sk_smem_bytes): x's M rows over
+    a chunk of cg groups, rows padded by 32 bf16; after the loop the same
+    bytes hold each of the 4 warps' (M, 8·cols + 1) f32 sum."""
+    return max(M * (cg * 32 + 32) * 2, SPLITK_KW * M * (8 * cols + 1) * 4)
+
+
+def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
+    """(mt, cols, nsplit, groups_per_split, groups_per_chunk) of the split-K
+    kernel for bf16 x (M ≤ SMALL_M_MAX, K) and N columns.
+
+    mt m-tiles of 8 rows (1-6, or 8); cols columns a lane, 16 at mt = 1 where N % 16 ==
+    0 and N ≥ 2048, else 8 (twice the column tiles for a narrow N, and room
+    in registers for the accumulators and both sets of loads), so 8·cols a
+    block; as many K splits as keep every SM holding as many blocks as fit
+    (4 up to mt = 2, else 2), with at least two groups a warp (one leaves a
+    block too little work for its fixed costs); x staged in chunks of as
+    many groups (a multiple of 8) as 48 KB of shared memory hold (4 blocks
+    an SM; 72 KB from mt = 3 on).  The partials, tiles · nsplit · M · 8·cols
+    floats, stay under SPLITK_SMS · 2 · 64 · 64 floats (4.3 MB): fewer
+    splits as N grows, one from ~64K columns on.  The times behind these
+    choices are in PERF.md."""
+    if not 1 <= M <= SMALL_M_MAX:
+        raise ValueError(f"splitk_plan: M = {M} outside 1..{SMALL_M_MAX}")
+    mt = -(-M // 8)
+    mt += mt == 7  # no 7-tile form
+    cols = 16 if mt == 1 and N % 16 == 0 and N >= 2048 else 8
+    G = K // 32
+    tiles = -(-N // (8 * cols))
+    want = max(1, SPLITK_SMS * (4 if mt <= 2 else 2) // tiles)
+    gps = max(-(-G // want), min(G, 2 * SPLITK_KW))
+    cg = -(-gps // 8) * 8
+    smem_max = 48 * 1024 if mt <= 2 else SPLITK_SMEM_MAX
+    while cg > 8 and splitk_smem(M, cg, cols) > smem_max:
+        cg -= 8
+    return mt, cols, -(-G // gps), gps, cg
 
 
 def _check(x, packed, scale):
@@ -118,6 +179,26 @@ def int4g32_mma(x, packed, scale):
 
 int4g32_mma.launches = 0
 
+def int4g32_splitk(x, packed, scale):
+    """Launch the split-K tensor-core kernel (checked bf16 inputs on the
+    card, M ≤ SMALL_M_MAX): one launch, the splits merged inside it."""
+    M, K = x.shape
+    N = packed.shape[1]
+    mt, cols, nsplit, gps, cg = splitk_plan(M, K, N)
+    tiles = -(-N // (8 * cols))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part = (_build.scratch("splitk_part", x.device, tiles * nsplit * M * 8 * cols,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    arrivals = _build.scratch("splitk_arrivals", x.device, tiles, torch.int32)
+    _build.call("chatglm_int4_splitk_mma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), part, arrivals.data_ptr(), M, K, N, mt, cols, nsplit, gps, cg,
+                _build.stream_ptr(x))
+    int4g32_splitk.launches += 1
+    return y
+
+
+int4g32_splitk.launches = 0
+
 
 def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
@@ -132,7 +213,10 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
         return int4g32_matmul_plain(x, packed, scale)
     _check(x, packed, scale)
     x = aligned(x)
-    if uses_mma(x.shape[0], packed.shape[1], x.dtype):
+    route = int4_route(x.shape[0], packed.shape[1], x.dtype)
+    if route == "splitk":
+        return int4g32_splitk(x, packed, scale)
+    if route == "mma":
         return int4g32_mma(x, packed, scale)
     return int4g32_gemv(x, packed, scale)
 

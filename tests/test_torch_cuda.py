@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chatglm_q_tpu_torch.ops import _build  # noqa: E402
 from chatglm_q_tpu_torch.ops import attention as A  # noqa: E402
 from chatglm_q_tpu_torch.ops import dyn_matmul as D  # noqa: E402
 from chatglm_q_tpu_torch.ops import int8_matmul as I8  # noqa: E402
@@ -79,6 +80,130 @@ def test_int4g32_matmul_rejects_what_it_cannot_take(gen):
     packed = torch.zeros((32, 16), dtype=torch.uint8, device="cuda")
     with pytest.raises(TypeError):
         QM.int4g32_matmul(x, packed, torch.ones((2, 16), dtype=torch.float32, device="cuda"))
+
+
+def _int4_weights(gen, K, N, layers=None):
+    lead = () if layers is None else (layers,)
+    packed = torch.randint(0, 256, lead + (K // 2, N), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    scale = (torch.rand(lead + (K // 32, N), device="cuda", generator=gen) * 0.02
+             ).to(torch.bfloat16)
+    return packed, scale
+
+
+# B1's split-K tensor-core kernel: every m-tile count (1-6 and 8 tiles of 8
+# rows) and its edges, the verify step's 27 and 36, N = 264 / 272 (8 columns
+# a lane, or a 16-column tile past N), K = 13824 (w_out), the lm_head's N
+SPLITK_M = (1, 2, 3, 4, 5, 8, 16, 17, 27, 32, 33, 36, 48, 56, 64)
+SPLITK_SHAPES = [(4096, 264), (1024, 272), (13824, 512), (4096, 4096), (320, 65536)]
+
+
+@pytest.mark.parametrize("K,N", SPLITK_SHAPES)
+@pytest.mark.parametrize("M", SPLITK_M)
+def test_int4g32_splitk_matches_plain(gen, M, K, N):
+    packed, scale = _int4_weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    assert QM.int4_route(M, N, torch.bfloat16) == "splitk"
+    before = QM.int4g32_splitk.launches, QM.int4g32_gemv.launches, QM.int4g32_mma.launches
+    got = QM.int4g32_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    after = QM.int4g32_splitk.launches, QM.int4g32_gemv.launches, QM.int4g32_mma.launches
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0]  # one launch, no second pass
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, QM.int4g32_matmul_plain(x, packed, scale)) <= 1e-2
+
+
+@pytest.mark.parametrize("K,N", SPLITK_SHAPES)
+@pytest.mark.parametrize("M", (1, 2, 3, 4, 9, 20, 27, 36, 48, 64))
+def test_int4g32_splitk_error_is_its_bf16_rounding(gen, M, K, N):
+    """Every output is the exact result rounded to bf16, give or take the
+    f32 sums: beyond half a bf16 ulp, its error is within one f32 epsilon
+    (2^-23) of sum|x·w| over its K terms (on an H100 the kernel read at
+    most 4.5e-9 of it, the plain f32 product 1.7e-8).  A wrong group,
+    scale, nibble, row or split is off by ~1/K of sum|x·w| or more, which
+    the 1e-2 · max|y| limit above would let through.  (Measured in ulps of
+    the output instead, every path, the plain one too, fails where an
+    output cancels to ~1e-6 of its terms.)"""
+    packed, scale = _int4_weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    got = QM.int4g32_matmul(x, packed, scale).double()
+    w = QM.unpack_int4_tpu(packed, scale).double()
+    want = x.double() @ w
+    terms = x.double().abs() @ w.abs()
+    half_ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 9)  # bf16: 8 bits
+    beyond = ((got - want).abs() - half_ulp).clamp_min(0) / terms
+    assert beyond.max().item() <= 2.0 ** -23, beyond.max().item()
+
+
+@pytest.mark.parametrize("M", (1, 4, 27))
+def test_int4g32_splitk_reads_a_layer_view(gen, M):
+    stack, scales = _int4_weights(gen, 4096, 4096, layers=3)
+    x = torch.randn((M, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    got = QM.int4g32_matmul(x, stack[2], scales[2])
+    assert _rel(got, QM.int4g32_matmul_plain(x, stack[2].clone(), scales[2].clone())) <= 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 512), (4, 13824, 4096), (27, 4096, 13824),
+                                   (64, 4096, 264)])
+def test_int4g32_splitk_is_deterministic_and_replays_in_a_graph(gen, M, K, N):
+    """Two calls are bit-equal and leave every arrival counter at 0 (the
+    merging block resets its own); one call captured in a CUDA graph and
+    replayed twice is bit-equal to the eager call."""
+    packed, scale = _int4_weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    first = QM.int4g32_matmul(x, packed, scale)
+    second = QM.int4g32_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _, cols, _, _, _ = QM.splitk_plan(M, K, N)
+    tiles = -(-N // (8 * cols))
+    assert not _build.scratch("splitk_arrivals", x.device, tiles, torch.int32)[:tiles].any()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        QM.int4g32_matmul(x, packed, scale)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = QM.int4g32_matmul(x, packed, scale)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+def test_int4g32_routes_by_m_and_dtype(gen):
+    packed, scale = _int4_weights(gen, 1024, 512)
+    cases = [(QM.SMALL_M_MAX, torch.bfloat16, QM.int4g32_splitk),
+             (QM.SMALL_M_MAX + 1, torch.bfloat16, QM.int4g32_mma),
+             (1, torch.float32, QM.int4g32_gemv)]
+    for M, dtype, fn in cases:
+        x = torch.randn((M, 1024), device="cuda", generator=gen).to(dtype)
+        before = fn.launches
+        got = QM.int4g32_matmul(x, packed, scale)
+        assert fn.launches == before + 1
+        assert _rel(got, QM.int4g32_matmul_plain(x, packed, scale)) <= _tol(dtype)
+
+
+def test_int4g32_splitk_rejects_what_it_cannot_take(gen):
+    packed, scale = _int4_weights(gen, 64, 16)
+    x = torch.randn((2, 64), device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(TypeError):  # int activations
+        QM.int4g32_matmul(x.to(torch.int32), packed, scale)
+    with pytest.raises(ValueError):  # K of x and of the weights differ
+        QM.int4g32_matmul(x[:, :32], packed, scale)
+    with pytest.raises(ValueError):  # weights on the CPU
+        QM.int4g32_matmul(x, packed.cpu(), scale.cpu())
+    with pytest.raises(ValueError):  # past SMALL_M_MAX the plan has no tile
+        QM.splitk_plan(QM.SMALL_M_MAX + 1, 64, 16)
+    x9 = torch.zeros((9, 64), dtype=torch.bfloat16, device="cuda")
+    y9 = torch.empty((9, 16), dtype=torch.bfloat16, device="cuda")
+    arrivals = torch.zeros((16,), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError):  # a plan the kernel refuses: M over mt's rows
+        _build.call("chatglm_int4_splitk_mma", x9.data_ptr(), packed.data_ptr(),
+                    scale.data_ptr(), y9.data_ptr(), None, arrivals.data_ptr(),
+                    9, 64, 16, 1, 16, 1, 2, 8, _build.stream_ptr(x9))
 
 
 def _decode_edges(B, T, span, past_end=False):
