@@ -48,17 +48,30 @@
 //   block.  Warps reduce in shared memory in a fixed order, blocks write f32
 //   partials to a workspace, and splitk_reduce_kernel (common.cuh) sums the
 //   splits in a fixed order and casts: deterministic, no atomics.
-// * int4_mma_kernel (bf16 above SMALL_M_MAX: prefill, training): bound by
-//   operations.  A
-//   64x128 output tile per block; each stage copies 128 K-columns of x and
-//   64 packed byte rows into shared memory, and eight warps run
-//   mma.sync.m16n8k16 (bf16 in, f32 out).  The B fragment of m16n8k16 holds
-//   K-rows (2t, 2t+1) of one column — exactly the two nibbles of one packed
-//   byte — so each lane dequantizes its fragment straight from the packed
-//   tile, with no dequantized copy in shared memory.  The accumulator layout
-//   of mma.sync is known per lane, so the per-column group scale multiplies
-//   the f32 group partial in registers.  No TMA, wgmma or multi-stage
-//   pipeline yet: that is later work.
+// * int4_wgmma_kernel (bf16 above SMALL_M_MAX: prefill, engine chunks,
+//   training): bound by operations (each weight serves every row of x).
+//   A persistent Hopper kernel: a producer warpgroup keeps an 8-stage ring
+//   of TMA tiles in flight (x's rows, the packed bytes, the scales),
+//   ordered by mbarriers; two consumer warpgroups each take 64 of a tile's
+//   128 columns and run wgmma with the weights as A from registers (the
+//   split-K kernel's orientation: each packed byte one A register through
+//   int4_pair_bf16x2, no int-to-float conversion; a thread's two columns
+//   are neighbours, so a u16 load feeds two registers and a bf16x2 store
+//   writes two outputs) and x's rows as B straight from the 128B-swizzled
+//   TMA tile, so each weight is dequantized once per block and stage.  Numerics are the exact
+//   per-group scheme above, as design (a): each group's partial comes from
+//   its own wgmmas (the first with scale-d = 0) into one of two partial
+//   accumulators, and the CUDA cores fold the previous group's partial
+//   into the f32 accumulator with its scale while the tensor cores run the
+//   next group (wgmma.wait_group 1).  The other exact design, bf16 hi + lo
+//   halves of q·s, needs no per-group fold but twice the MMAs; the fold
+//   costs one FMA per 32 MACs, which the pipeline hides.  mma_plan
+//   (ops/quant_matmul.py) picks 128- or 64-row tiles and splits K where a
+//   narrow N (kv_proj) or small M leaves the card idle; the splits merge in
+//   the same launch as in the split-K kernel below (last block to arrive,
+//   split order, counter reset: deterministic, graph-safe).  The producer
+//   gives up its registers (setmaxnreg) for the consumers' three 64-row
+//   accumulators.
 //
 // The backward kernels (B14) replace pallas_matmul.py:_int4_t_kernel
 // (int4_matmul_t_pallas): grad_x (M,K) = g (M,N) @ dequant(packed, scale)ᵀ,
@@ -72,6 +85,8 @@
 // * t_mma_kernel<Int4TView> (bf16, M > 16): bound by operations; the TMM
 //   tiles, the nibbles dequantized to bf16 as they are staged into shared
 //   memory (one multiply per weight per block).
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
+
 #include "common.cuh"
 
 namespace {
@@ -204,134 +219,331 @@ void gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, T* y, f
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16 activations, large M)
+// Hopper tensor-core kernel (bf16 activations, M > SMALL_M_MAX: prefill,
+// training)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BM = 64;
-constexpr int MMA_BN = 128;
-constexpr int MMA_BKG = 4;                 // 32-row groups per stage
-constexpr int MMA_BK = MMA_BKG * 32;       // 128 K-columns per stage
-constexpr int XS_STRIDE = MMA_BK + 8;      // bf16 per x row in smem (pad: no bank conflicts)
-constexpr int PS_STRIDE = MMA_BN + 16;     // bytes per packed row in smem (16-aligned pad)
+// A tile is BM rows of x by WG_BN weight columns; a stage WG_STAGE_GROUPS
+// groups (64 K).  ops/quant_matmul.py::mma_plan and mma_smem mirror these.
+constexpr int WG_BN = 128;                 // two consumer warpgroups x 64 columns
+constexpr int WG_STAGE_GROUPS = 2;
+constexpr int WG_STAGES = 8;
+constexpr int WG_THREADS = 3 * 128;        // two consumer warpgroups, then the producer's
+constexpr int WG_CONSUMER_WARPS = 8;
+constexpr int WG_PRODUCER_REGS = 24;       // setmaxnreg: the producer's registers go to the
+constexpr int WG_CONSUMER_REGS = 240;      // consumers (3 x 128 x 168 >= 2 x 128 x 240 + 128 x 24)
 
-// one packed byte -> the bf16x2 B-fragment register (low nibble = lower K row)
-__device__ __forceinline__ uint32_t nib_pair_bf16(uint32_t b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(nib_lo(b), nib_hi(b));
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int BM>
+struct WgSmem {
+  static constexpr int XS = BM * 128;                 // x: BM rows x 64 bf16, 128B swizzle
+  static constexpr int PS = 16 * WG_STAGE_GROUPS * WG_BN;  // packed: 32 byte rows x 128 cols
+  static constexpr int SS = WG_STAGE_GROUPS * WG_BN * 2;   // scales: 2 groups x 128 bf16
+  static constexpr int P_OFF = WG_STAGES * XS;
+  static constexpr int S_OFF = P_OFF + WG_STAGES * PS;
+  static constexpr int BAR_OFF = S_OFF + WG_STAGES * SS;
+  static constexpr int FLAG_OFF = BAR_OFF + 2 * WG_STAGES * 8;
+  static constexpr int BYTES = FLAG_OFF + 16 + 1024;  // + slack to align the base to 1024
+};
+
+// One group's A fragments and scales for this thread: the weights of D rows
+// gid and gid + 8 (tile columns c and c + 1), from the packed stage tile
+// (TMA's 128B swizzle: 16-byte chunk q of byte row r sits at chunk q ^ (r &
+// 7)).  k16 step h of the group reads byte rows 8h + t (A regs 0/1: K rows
+// 2t, 2t + 1) and 8h + t + 4 (regs 2/3: K rows 2t + 8, 2t + 9); each byte is
+// one register, turned into its bf16x2 pair with no int-to-float conversion.
+struct WgGroup {
+  uint32_t a[2][4];
+  float s_lo, s_hi;
+};
+
+__device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __nv_bfloat16* ss,
+                                        int o0, int o1, int c, int gi) {
+  const uint8_t* p = ps + gi * 16 * WG_BN;
+  uint32_t v[4] = {*reinterpret_cast<const uint16_t*>(p + o0),
+                   *reinterpret_cast<const uint16_t*>(p + o1),
+                   *reinterpret_cast<const uint16_t*>(p + o0 + 8 * WG_BN),
+                   *reinterpret_cast<const uint16_t*>(p + o1 + 8 * WG_BN)};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t lo = v[2 * h], hi = v[2 * h + 1];
+    const uint32_t lo4 = lo >> 4, hi4 = hi >> 4;
+    g.a[h][0] = int4_pair_bf16x2(lo, lo4, 0);  // column c
+    g.a[h][1] = int4_pair_bf16x2(lo, lo4, 1);  // column c + 1
+    g.a[h][2] = int4_pair_bf16x2(hi, hi4, 0);
+    g.a[h][3] = int4_pair_bf16x2(hi, hi4, 1);
+  }
+  const uint32_t s = *reinterpret_cast<const uint32_t*>(ss + gi * WG_BN + c);
+  g.s_lo = __uint_as_float(s << 16);
+  g.s_hi = __uint_as_float(s & 0xFFFF0000u);
 }
 
-__global__ void __launch_bounds__(256)
-int4_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ y,
-                int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MMA_BM * XS_STRIDE];
-  __shared__ __align__(16) uint8_t ps[(MMA_BK / 2) * PS_STRIDE];
-  __shared__ float ss[MMA_BKG * MMA_BN];
+template <int BM>
+__device__ __forceinline__ void wg_mma(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc,
+                                       int scale_d) {
+  if constexpr (BM == 128)
+    wgmma_rs_n128(d, a, desc, scale_d);
+  else
+    wgmma_rs_n64(d, a, desc, scale_d);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 32;  // 2 warps along M, 32 rows each
-  const int wn = (warp & 3) * 32;   // 4 warps along N, 32 columns each
-  const int m_base = blockIdx.y * MMA_BM;
-  const int n_base = blockIdx.x * MMA_BN;
+// The group's f32 partial (its first wgmma with scale-d = 0, so nothing is
+// carried over) into part; asynchronous, waited for by wg_finish.
+template <int BM>
+__device__ __forceinline__ void wg_issue(float (&part)[BM / 2], WgGroup& g, uint64_t desc) {
+  wgmma_fence();
+  wg_mma<BM>(part, g.a[0], desc, 0);
+  wg_mma<BM>(part, g.a[1], desc + 2, 1);
+  wgmma_commit();
+}
+// Wait until at most PENDING groups are in flight (this one done), then acc
+// += part * scale (row gid: column c, row gid + 8: column c + 1), one
+// rounding each.
+template <int BM, int PENDING>
+__device__ __forceinline__ void wg_finish(float (&acc)[BM / 2], float (&part)[BM / 2], WgGroup& g) {
+  wgmma_wait<PENDING>();
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) pin(part[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pin(g.a[h][r]);
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    acc[4 * j] = fmaf(part[4 * j], g.s_lo, acc[4 * j]);
+    acc[4 * j + 1] = fmaf(part[4 * j + 1], g.s_lo, acc[4 * j + 1]);
+    acc[4 * j + 2] = fmaf(part[4 * j + 2], g.s_hi, acc[4 * j + 2]);
+    acc[4 * j + 3] = fmaf(part[4 * j + 3], g.s_hi, acc[4 * j + 3]);
+  }
+}
+
+// Accumulator (4j + e) of this thread is x row 8j + 2t + (e & 1) and weight
+// column n + (e >> 1): a column pair is one bf16x2 store.
+template <int BM>
+__device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat16* __restrict__ y,
+                                         int m0, int n, int M, int N) {
+  if (n >= N) return;  // N % 16 == 0: n + 1 < N as well
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    const int m = m0 + 8 * j + 2 * t;
+    if (m < M)
+      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
+    if (m + 1 < M)
+      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m + 1) * N + n) =
+          __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+}
+
+// Persistent: block b takes work units b, b + grid, ...; unit u is m-tile u
+// % mtiles, then K split, then column tile (so the blocks at work together
+// share a column tile's weights and x's rows through L2).  Warpgroup 2 is
+// the producer: lane 0 of its first warp keeps WG_STAGES stages of TMA
+// loads in flight (x's BM x 64 tile, the 32 x 128 packed tile, the 2 x 128
+// scales), each stage's `full` barrier counting the bytes, its `empty`
+// barrier the 8 consumer warps' release.  Warpgroups 0 and 1 each own 64
+// of the tile's columns: per group, 4 packed u16 loads become the A
+// fragments of two wgmma m64n{BM}k16 (weights as A from registers, x's
+// K-major rows as B from the swizzled tile) into one of two partial
+// accumulators, and while they run the CUDA cores fold the other partial,
+// the previous group's, into acc with that group's scale.
+template <int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap pmap,
+                  const __grid_constant__ CUtensorMap smap, __nv_bfloat16* __restrict__ y,
+                  float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
+                  int gps, int nsplit, int mtiles, int units) {
+  using L = WgSmem<BM>;
+  extern __shared__ uint8_t wg_smem_raw[];
+  const uint32_t raw = smem_u32(wg_smem_raw);
+  uint8_t* smem = wg_smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + WG_STAGES;
+  int* merge_flag = reinterpret_cast<int*>(smem + L::FLAG_OFF);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int G = K / 32;
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  for (int g0 = 0; g0 < G; g0 += MMA_BKG) {
-    const int ng = min(MMA_BKG, G - g0);
-    const int k0 = g0 * 32;
-    for (int i = tid; i < MMA_BM * (MMA_BK / 8); i += 256) {
-      const int r = i / (MMA_BK / 8), c = (i % (MMA_BK / 8)) * 8;
-      const int row = m_base + r, k = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M && k < K) v = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k);
-      *reinterpret_cast<uint4*>(xs + r * XS_STRIDE + c) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMER_WARPS);
     }
-    for (int i = tid; i < (MMA_BK / 2) * (MMA_BN / 16); i += 256) {
-      const int r = i / (MMA_BN / 16), c = (i % (MMA_BN / 16)) * 16;
-      const int kr = k0 / 2 + r, n = n_base + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kr < K / 2 && n < N) v = *reinterpret_cast<const uint4*>(packed + (size_t)kr * N + n);
-      *reinterpret_cast<uint4*>(ps + r * PS_STRIDE + c) = v;
-    }
-    for (int i = tid; i < MMA_BKG * MMA_BN; i += 256) {
-      const int gi = i / MMA_BN, c = i % MMA_BN;
-      const int g = g0 + gi, n = n_base + c;
-      ss[i] = (g < G && n < N) ? __bfloat162float(scale[(size_t)g * N + n]) : 0.f;
-    }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    for (int gi = 0; gi < ng; ++gi) {
-      float part[2][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
-
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int kk = gi * 32 + ks * 16;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const __nv_bfloat16* base = xs + (wm + mi * 16 + gid) * XS_STRIDE + kk + tig * 2;
-          a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-          a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * XS_STRIDE);
-          a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-          a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * XS_STRIDE + 8);
-        }
-        uint32_t b[4][2];
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const uint8_t* pb = ps + (kk / 2 + tig) * PS_STRIDE + wn + ni * 8 + gid;
-          b[ni][0] = nib_pair_bf16(pb[0]);
-          b[ni][1] = nib_pair_bf16(pb[4 * PS_STRIDE]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(part[mi][ni], a[mi], b[ni]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + tig * 2;
-        const float s0 = ss[gi * MMA_BN + c], s1 = ss[gi * MMA_BN + c + 1];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          acc[mi][ni][0] = fmaf(part[mi][ni][0], s0, acc[mi][ni][0]);
-          acc[mi][ni][1] = fmaf(part[mi][ni][1], s1, acc[mi][ni][1]);
-          acc[mi][ni][2] = fmaf(part[mi][ni][2], s0, acc[mi][ni][2]);
-          acc[mi][ni][3] = fmaf(part[mi][ni][3], s1, acc[mi][ni][3]);
+  if (warp >= WG_CONSUMER_WARPS) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (warp != WG_CONSUMER_WARPS || lane != 0) return;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int mt = u % mtiles, rest = u / mtiles;
+      const int sp = rest % nsplit, nt = rest / nsplit;
+      const int g1 = min(G, (sp + 1) * gps);
+      for (int g = sp * gps; g < g1; g += WG_STAGE_GROUPS) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], L::XS + L::PS + L::SS);
+        tma_load_2d(smem + st * L::XS, &xmap, g * 32, mt * BM, &full[st]);
+        tma_load_2d(smem + L::P_OFF + st * L::PS, &pmap, nt * WG_BN, g * 16, &full[st]);
+        tma_load_2d(smem + L::S_OFF + st * L::SS, &smap, nt * WG_BN, g, &full[st]);
+        if (++st == WG_STAGES) {
+          st = 0;
+          ph ^= 1;
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int wg = warp >> 2, w = warp & 3, gid = lane >> 2, t = lane & 3;
+  const int c = wg * 64 + 16 * w + 2 * gid;  // tile columns of D rows gid (c) and gid + 8 (c + 1)
+  const int q = c >> 4;                      // its 16-byte chunk of a packed row
+  const int o0 = t * WG_BN + ((q ^ t) << 4) + 2 * gid;              // byte row t
+  const int o1 = (t + 4) * WG_BN + ((q ^ (t + 4)) << 4) + 2 * gid;  // byte row t + 4
+  const int tid = threadIdx.x & 127;
+  const auto stage_p = [&](int s) { return smem + L::P_OFF + s * L::PS; };
+  const auto stage_s = [&](int s) {
+    return reinterpret_cast<const __nv_bfloat16*>(smem + L::S_OFF + s * L::SS);
+  };
+  // group 2i of a unit (a stage's first) goes through ga and p0, group 2i +
+  // 1 through gb and p1; at most two groups' wgmmas in flight
+  float acc[BM / 2], p0[BM / 2], p1[BM / 2];
+  int st = 0;
+  uint32_t ph = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int mt = u % mtiles, rest = u / mtiles;
+    const int sp = rest % nsplit, nt = rest / nsplit;
+    const int g0 = sp * gps, ng = min(G, g0 + gps) - g0;
+    const int nstages = (ng + WG_STAGE_GROUPS - 1) / WG_STAGE_GROUPS;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m_base + wm + mi * 16 + gid;
-      const int col = n_base + wn + ni * 8 + tig * 2;
-      if (col >= N) continue;  // N % 16 == 0, so col + 1 < N as well
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+
+    // Steady state: a stage of two groups with another stage after it; then
+    // the unit's last stage, of one group or two.  The loop body has no
+    // branch, so ptxas sees one group (p0's) in flight on every path into
+    // and out of it and keeps the wgmmas asynchronous.
+    WgGroup ga, gb;
+    mbar_wait(&full[st], ph);
+    wg_load(ga, stage_p(st), stage_s(st), o0, o1, c, 0);
+    wg_issue<BM>(p0, ga, sw128_desc(smem + st * L::XS));
+    for (int i = 0; i + 1 < nstages; ++i) {
+      const int nst = st + 1 == WG_STAGES ? 0 : st + 1;
+      const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
+      wg_load(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
+      wg_issue<BM>(p1, gb, sw128_desc(smem + st * L::XS) + 4);  // the stage's k16 steps 2, 3
+      wg_finish<BM, 1>(acc, p0, ga);
+      mbar_wait(&full[nst], nph);
+      wg_load(ga, stage_p(nst), stage_s(nst), o0, o1, c, 0);
+      wg_issue<BM>(p0, ga, sw128_desc(smem + nst * L::XS));
+      wg_finish<BM, 1>(acc, p1, gb);
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp's wgmmas and loads of it are done
+      st = nst;
+      ph = nph;
     }
+    if (ng % WG_STAGE_GROUPS == 0) {
+      wg_load(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
+      wg_issue<BM>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
+      wg_finish<BM, 1>(acc, p0, ga);
+      wg_finish<BM, 0>(acc, p1, gb);
+    } else {
+      wg_finish<BM, 0>(acc, p0, ga);
+    }
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == WG_STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+
+    const int m0 = mt * BM, n = nt * WG_BN + c;
+    if (nsplit == 1) {
+      wg_store<BM>(acc, y, m0, n, M, N);
+      continue;
+    }
+    // K split: each warpgroup writes its f32 partial in register order; the
+    // last of the tile's splits to arrive sums them in split order and
+    // resets its counter (deterministic; nothing to reset between launches)
+    const int tile = nt * mtiles + mt;
+    const size_t slab = (size_t)(BM / 2) * 128;
+    float* mine = ws + ((size_t)(tile * nsplit + sp) * 2 + wg) * slab;
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) mine[i * 128 + tid] = acc[i];
+    __threadfence();
+    named_bar_sync(1 + wg, 128);
+    if (tid == 0) merge_flag[wg] = atomicAdd(&arrivals[2 * tile + wg], 1) == nsplit - 1;
+    named_bar_sync(1 + wg, 128);
+    if (!merge_flag[wg]) continue;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    for (int p = 0; p < nsplit; ++p) {
+      const float* src = ws + ((size_t)(tile * nsplit + p) * 2 + wg) * slab + tid;
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) acc[i] += __ldcg(src + i * 128);
+    }
+    wg_store<BM>(acc, y, m0, n, M, N);
+    if (tid == 0) arrivals[2 * tile + wg] = 0;
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links no -lcuda); null where the driver has none.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) tensor of `type` with rows `row_bytes` apart, in
+// boxes of box_rows x box_cols.
+bool tensor_map_2d(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
+                   CUtensorMapDataType type, const void* base, int rows, int cols,
+                   size_t row_bytes, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM>
+int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
+                 void* arrivals, int M, int K, int N, int nsplit, int gps, int ctas,
+                 cudaStream_t stream) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, pmap, smap;
+  if (!tensor_map_2d(encode, &xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, (size_t)K * 2, BM,
+                     64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(encode, &pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, K / 2, N, (size_t)N,
+                     16 * WG_STAGE_GROUPS, WG_BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(encode, &smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, K / 32, N,
+                     (size_t)N * 2, WG_STAGE_GROUPS, WG_BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM>>(WgSmem<BM>::BYTES);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int mtiles = (M + BM - 1) / BM, ntiles = (N + WG_BN - 1) / WG_BN;
+  int4_wgmma_kernel<BM><<<ctas, WG_THREADS, WgSmem<BM>::BYTES, stream>>>(
+      xmap, pmap, smap, static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+      static_cast<int*>(arrivals), M, K, N, gps, nsplit, mtiles, mtiles * ntiles * nsplit);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -692,16 +904,24 @@ int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core kernel, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
-int chatglm_int4_mma(const void* x, const void* packed, const void* scale, void* y, int M, int K,
-                     int N, void* stream) {
+// Hopper tensor-core kernel, bf16 only, one launch: tiles of bm (64 or 128)
+// rows x 128 columns, nsplit K splits of gps groups over ctas persistent
+// blocks (ops/quant_matmul.py::mma_plan); ws holds tiles * nsplit * bm *
+// 128 floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
+// launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
+                       void* arrivals, int M, int K, int N, int bm, int nsplit, int gps, int ctas,
+                       void* stream) {
+  const int G = K / 32;
+  if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 || nsplit < 1 || gps < 1 || ctas < 1 ||
+      (nsplit - 1) * gps >= G || nsplit * gps < G || (nsplit > 1 && (ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-  int4_mma_kernel<<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                       static_cast<const uint8_t*>(packed),
-                                       static_cast<const __nv_bfloat16*>(scale),
-                                       static_cast<__nv_bfloat16*>(y), M, K, N);
-  return (int)cudaGetLastError();
+  if (bm == 128)
+    return launch_wgmma<128>(x, packed, scale, y, ws, arrivals, M, K, N, nsplit, gps, ctas, s);
+  if (bm == 64)
+    return launch_wgmma<64>(x, packed, scale, y, ws, arrivals, M, K, N, nsplit, gps, ctas, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // B14, CUDA-core form: out (M, K) = g (M, N) @ dequant(packed (K/2, N),

@@ -38,8 +38,9 @@ SIGNATURES = {
     # x, packed, scale, y, workspace, arrivals, M, K, N, mt, cols, nsplit, groups_per_split,
     # groups_per_chunk, stream
     "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # x, packed, scale, y, M, K, N, stream
-    "chatglm_int4_mma": [P, P, P, P, I, I, I, P],
+    # x, packed, scale, y, workspace, arrivals, M, K, N, bm, nsplit, groups_per_split, ctas,
+    # stream
+    "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
     # x, w, scale, y, M, K, N, stream

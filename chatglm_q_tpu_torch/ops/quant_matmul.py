@@ -11,9 +11,12 @@ they are one wrapper, ``int4g32_matmul``, over three kernels in
   rows as B, split over K so a narrow N still fills the card, the splits'
   f32 partials summed in split order by the last block of each column tile
   to arrive, in the same launch.  Bound by the weight bytes.
-* ``int4g32_mma`` — bf16 activations above it (prefill): mma.sync
-  tensor-core tiles with the nibbles dequantized straight into the B
-  fragments; bound by operations at large M.
+* ``int4g32_mma`` — bf16 activations above it (prefill, engine chunks,
+  training): a persistent Hopper kernel, TMA tiles in an mbarrier ring and
+  wgmma with the weights as A from registers, each group's f32 partial
+  folded in with its scale while the next group's MMAs run; ``mma_plan``
+  picks the tile and the K splits (merged in the same launch).  Bound by
+  operations.
 * ``int4g32_gemv`` — f32 activations: CUDA cores, split over K; a second
   pass sums the f32 partials in a fixed order.
 
@@ -31,7 +34,7 @@ under bf16, before the dot, as both JAX forms do.  Two kernels in
 
 ``gemv_plan``, ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and
 dynamic int8 matmuls (B6/B7/B8) and the transposed kernels; B1's own routing
-and plan are ``int4_route`` and ``splitk_plan``.
+and plans are ``int4_route``, ``splitk_plan`` and ``mma_plan``.
 """
 from __future__ import annotations
 
@@ -52,6 +55,16 @@ SMALL_M_MAX = 64         # bf16 rows up to which it runs (the JAX decode-M limit
 SPLITK_KW = 4            # warps per block, along K
 SPLITK_SMEM_MAX = 72 * 1024  # shared bytes a block (csrc: SK_SMEM_MAX); 48 KB up to mt = 2
 SPLITK_SMS = 132         # H100 SXM
+
+# B1's Hopper kernel above SMALL_M_MAX (csrc/int4_matmul.cu: WG_*)
+MMA_BN = 128             # weight columns a tile (two consumer warpgroups of 64)
+MMA_STAGE_GROUPS = 2     # 32-row groups a pipeline stage
+MMA_STAGES = 8           # stages in the shared-memory ring
+MMA_SMEM_MAX = 227 * 1024  # shared bytes a block may opt into on an H100
+# mma_plan's cost model, in group steps of a 128-row tile (a stage is two)
+MMA_FILL = 6             # a work unit's pipeline fill and epilogue
+MMA_MERGE = 2.5          # each K split's share of its tile's merge, per 128 rows
+MMA_BM64_STEP = 0.6      # a 64-row group step: half the MMAs, the same dequant
 
 
 def int4g32_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -123,6 +136,53 @@ def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
     return mt, cols, -(-G // gps), gps, cg
 
 
+def mma_smem(bm: int) -> int:
+    """Shared bytes of a block of the Hopper kernel (csrc: WgSmem<bm>::BYTES):
+    per stage x's bm × 64 tile, 32 packed byte rows × 128 and 2 × 128
+    scales; a full and an empty barrier per stage, two merge flags, and the
+    slack that aligns the ring to 1024 bytes."""
+    stage = bm * 128 + 16 * MMA_STAGE_GROUPS * MMA_BN + MMA_STAGE_GROUPS * MMA_BN * 2
+    return MMA_STAGES * stage + 2 * MMA_STAGES * 8 + 16 + 1024
+
+
+def mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """(bm, nsplit, groups_per_split, ctas) of the Hopper kernel for bf16 x
+    (M, K) and N columns.
+
+    Tiles of bm (128 or 64) rows × 128 columns, each split over K into
+    nsplit ranges of groups_per_split groups (even, so a split starts on a
+    stage); the tiles × nsplit work units go to ctas ≤ SPLITK_SMS
+    persistent blocks, one an SM.  The choice minimises a cost in group
+    steps: waves of units × (a unit's steps + MMA_FILL + its merge), where a
+    64-row step costs MMA_BM64_STEP of a 128-row one and a split adds
+    MMA_MERGE · bm/128 to its tile's merge (the last block reads every
+    split's partial).  Splits only while the units stay within two waves
+    and each split keeps at least two stages: a narrow N (kv_proj) or a
+    small M fills the card, the wide linears run whole K."""
+    G = K // 32
+    ntiles = -(-N // MMA_BN)
+    best = None
+    for bm in (128, 64):
+        tiles = -(-M // bm) * ntiles
+        step = 1.0 if bm == 128 else MMA_BM64_STEP
+        last = 0
+        for want in (1, 2, 4, 8, 16, 32):
+            gps = -(-G // want)
+            gps += gps % 2 if want > 1 else 0
+            nsplit = -(-G // gps)
+            if nsplit == last:
+                continue
+            if nsplit > 1 and (gps < 2 * MMA_STAGE_GROUPS or tiles * nsplit > 2 * SPLITK_SMS):
+                break
+            last = nsplit
+            units = tiles * nsplit
+            merge = 0.0 if nsplit == 1 else 1.0 + MMA_MERGE * nsplit * bm / 128
+            cost = -(-units // SPLITK_SMS) * (gps * step + MMA_FILL + merge)
+            if best is None or cost < best[0]:
+                best = (cost, (bm, nsplit, gps, min(units, SPLITK_SMS)))
+    return best[1]
+
+
 def _check(x, packed, scale):
     if not (x.is_cuda and packed.device == x.device and scale.device == x.device):
         raise ValueError("int4g32_matmul: x, packed and scale must be on one CUDA device")
@@ -167,12 +227,19 @@ int4g32_gemv.launches = 0
 
 
 def int4g32_mma(x, packed, scale):
-    """Launch the tensor-core kernel (checked bf16 inputs on the card)."""
+    """Launch the Hopper tensor-core kernel (checked bf16 inputs on the card,
+    N % 16 == 0): one launch, any K splits merged inside it."""
     M, K = x.shape
     N = packed.shape[1]
+    bm, nsplit, gps, ctas = mma_plan(M, K, N)
+    tiles = -(-M // bm) * -(-N // MMA_BN)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _build.call("chatglm_int4_mma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), M, K, N, _build.stream_ptr(x))
+    part = (_build.scratch("mma_part", x.device, tiles * nsplit * bm * MMA_BN,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    arrivals = _build.scratch("mma_arrivals", x.device, 2 * tiles, torch.int32)
+    _build.call("chatglm_int4_wgmma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), part, arrivals.data_ptr(), M, K, N, bm, nsplit, gps, ctas,
+                _build.stream_ptr(x))
     int4g32_mma.launches += 1
     return y
 

@@ -11,8 +11,8 @@ Phases (any failure raises and exits non-zero):
    the kernels built from csrc/ (build seconds), and the device-to-device
    copy bandwidth (for comparison with the published rate the bounds use).
 2. Each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes of the ChatGLM2-6B main paths (B1 at M = 1, 4, 16, 20, 32, 36, 48
-   and 512 in bf16 and M = 1 in f32; the paged kernels at a 64-page pool
+   shapes of the ChatGLM2-6B main paths (B1 at M = 1, 4, 16, 20, 32, 36, 48,
+   128, 512 and 1024 in bf16 and M = 1 in f32; the paged kernels at a 64-page pool
    of 256-row pages, 2048-slot rows): error, kernel time (CUDA events),
    plain time, the bound (the least time for the same work: bytes over the
    published HBM rate, or operations over the tensor-core peak of their
@@ -23,7 +23,10 @@ Phases (any failure raises and exits non-zero):
    ``torch._weight_int4pack_mm`` for the int4 matmul on the same weights
    repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
-   int4 matmul with dynamic int8 activations (B8) has no such call.  Then
+   int4 matmul with dynamic int8 activations (B8) has no such call.  B1's
+   rows above 64 (its Hopper kernel) also carry ``dense_ms``, ``x @ w_deq``
+   in cuBLAS on weights dequantized to bf16 beforehand: another function,
+   never called by the port, a yardstick of the tensor cores only.  Then
    B1's split-K tensor-core kernel against its prefill kernel, both forced,
    at M = 16, 32, 64 (the crossover ``SMALL_M_MAX`` stands for), and B8
    against B1 at M = 32, 64, 128: the crossover that ``_INT4_DYN_M_MAX``
@@ -62,7 +65,8 @@ Phases (any failure raises and exits non-zero):
    with B4, and where a batch-1 decode step's time goes
    (torch.profiler's device time by kernel, ``decode_attn_kernel``'s and
    ``int4_splitk_mma_kernel``'s apart, no ``splitk_reduce_kernel``;
-   cProfile's host time by function).
+   cProfile's host time by function), and a 1 x 128 and a 4 x 128 prefill
+   traced the same way, ``int4_wgmma_kernel``'s 168 launches apart.
 5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
    int8 with dynamic int8 activations, then int4g32 with dynamic int8
    activations, each through ``GLMDecoder.generate`` (greedy, a chat
@@ -92,7 +96,9 @@ Phases (any failure raises and exits non-zero):
    token per request, aggregate tokens/s, and the device's busy share of
    one decode chunk, with its device ms a decode step (in (b) a verify
    step), the paged attention kernels' and B1's split-K kernel's share and
-   the three largest kernels.
+   the three largest kernels; in (a) also one chunk step (four 256-token
+   prompt chunks, 1024 rows) split into device and host time, with B1's
+   Hopper kernel apart.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -100,11 +106,12 @@ Phases (any failure raises and exits non-zero):
    launches a step, the first step's loss and grads again with
    ``remat_layers`` within phase 3b's limits, one 16-token step (the
    CUDA-core B14), every frozen leaf bit-unchanged; then the int8 tree for
-   3 steps (B6 and B13).  ms and tokens/s a step, peak device memory.
+   3 steps (B6 and B13).  ms and tokens/s a step, peak device memory, and
+   a traced step's device time by kernel with B1's Hopper kernel's share.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
-the ``kernels`` JSON object, the nvidia-smi line of the card, and
-``{"ok": true, "device": {...}}``.
+the ``kernels`` JSON object (B1's entries also name their CUDA kernel), the
+nvidia-smi line of the card, and ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -176,9 +183,10 @@ MATMUL_SHAPES = [  # (name, K, N) at storage sizes; kv_proj outputs 2 * kv_size
     ("w_in_h/w_in_gate", 4096, 13824), ("w_out", 13824, 4096), ("lm_head", 4096, 65536),
 ]
 # decode at batch 1 and 4; the split-K kernel's 2-, 3-, 4-, 5- and 6-tile forms
-# (36: a verify step, 4 rows x (k + 1) = 9); prefill.  Its 8-tile form: M = 64 in
-# SPLITK_CROSSOVER_M.
-MATMUL_M = (1, 4, 16, 20, 32, 36, 48, 512)
+# (36: a verify step, 4 rows x (k + 1) = 9); the Hopper kernel at a 1 x 128
+# prefill, a 4 x 128 prefill and a 4 x 256 engine chunk or 2 x 512 training
+# step.  The split-K kernel's 8-tile form: M = 64 in SPLITK_CROSSOVER_M.
+MATMUL_M = (1, 4, 16, 20, 32, 36, 48, 128, 512, 1024)
 SPLITK_CROSSOVER_M = (16, 32, 64)  # B1's split-K kernel against its prefill kernel: SMALL_M_MAX
 DYN_M = (1, 4, 64, 512)      # B7 and B8 rows: decode, batch 4, the int4-dyn ceiling, prefill
 CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
@@ -315,6 +323,9 @@ def log_row(fn, r):
 
 
 B1_KERNELS = {"splitk": "int4g32_splitk", "mma": "int4g32_mma", "gemv": "int4g32_gemv"}
+# the CUDA kernels behind B1's wrappers, named in the kernels line
+CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_wgmma_kernel",
+               "int4g32_gemv": "int4_gemv_kernel"}
 
 
 def check_matmul(torch):
@@ -325,6 +336,7 @@ def check_matmul(torch):
     crossover."""
     from chatglm_q_tpu_torch.ops import dyn_matmul as D
     from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -339,6 +351,7 @@ def check_matmul(torch):
         scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
                  ).to(torch.bfloat16)
         lib_w = library_weights(torch, packed, scale)
+        w_deq = unpack_int4_tpu(packed[0], scale[0]).to(torch.bfloat16)  # dense_ms only
         for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M] + [(1, torch.float32)]:
             x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
             kernel = B1_KERNELS[QM.int4_route(M, N, dtype)]
@@ -364,8 +377,14 @@ def check_matmul(torch):
                          "x_dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                          "rel_err": rel, "ms": ms, "plain_ms": plain, "bound_ms": b,
                          "bound_by": by, "library_ms": lib})
+            if kernel == "int4g32_mma":
+                rows[-1]["dense_ms"] = cuda_event_ms(lambda i: x @ w_deq, iters=30)
+                rows[-1]["plan"] = QM.mma_plan(M, K, N)
             log_row("int4g32_matmul", rows[-1])
-        del lib_w
+            if kernel == "int4g32_mma":
+                log(f"    plan (bm, nsplit, groups/split, blocks) {rows[-1]['plan']}; dense "
+                    f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms")
+        del lib_w, w_deq
         for M in SPLITK_CROSSOVER_M:  # both kernels forced on checked inputs
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             want = QM.int4g32_matmul_plain(x, packed[0], scale[0])
@@ -380,7 +399,7 @@ def check_matmul(torch):
                                      "splitk_ms": times["int4g32_splitk"],
                                      "mma_ms": times["int4g32_mma"]})
             log(f"  B1 crossover {name:17s} M={M:4d}: split-K {times['int4g32_splitk']:.5f} ms, "
-                f"int4_mma_kernel {times['int4g32_mma']:.5f} ms, split-K/mma "
+                f"int4_wgmma_kernel {times['int4g32_mma']:.5f} ms, split-K/wgmma "
                 f"{times['int4g32_splitk'] / times['int4g32_mma']:.2f}")
         for M in DYN_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
@@ -1438,7 +1457,47 @@ def full_slice(torch, smi):
     busy = perf["profile"]["device_ms_per_step"] / perf["batch1"]["decode_ms_per_step"]
     perf["profile"]["device_busy_share_untraced"] = busy
     log(f"  batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
+    perf["prefill_profile"] = {b: profile_prefill(torch, params, cfg, rt, b, perf[f"batch{b}"])
+                               for b in (1, B)}
     return counts, v2_counts, perf
+
+
+def profile_prefill(torch, params, cfg, rt, batch, timed):
+    """Device time of one prefill of ``batch`` 128-token prompts, by kernel,
+    from a torch.profiler trace, B1's Hopper kernel apart (its 6 x 28
+    launches run at M = 128 x batch), beside the untraced host-clock
+    prefill of ``decode_rate`` (``timed``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    ids = torch.randint(0, cfg.vocab_size, (batch, 128), device="cuda", generator=gen)
+    lengths = torch.full((batch,), 128, dtype=torch.int32, device="cuda")
+    run = lambda: M.prefill(params, cfg, ids, lengths,  # noqa: E731
+                            M.init_kv_cache(cfg, batch, CACHE_LEN, torch.bfloat16), "int4g32",
+                            torch.bfloat16, rt)
+    run()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    b1 = [e for e in events if "int4_wgmma_kernel" in e.key]
+    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
+    b1_n = sum(e.count for e in b1)
+    require(b1_n == 6 * cfg.num_layers, f"a {batch}x128 prefill ran {b1_n} int4_wgmma_kernel "
+            f"launches, not {6 * cfg.num_layers}")
+    top = [(e.key[:60], round(e.self_device_time_total / 1e3, 4), e.count) for e in events[:6]]
+    log(f"  prefill {batch}x128 profile: device {dev_ms:.3f} ms against {timed['prefill_ms']:.2f} "
+        f"ms untraced; int4_wgmma_kernel (B1) {b1_ms:.3f} ms in {b1_n} launches "
+        f"({100 * b1_ms / dev_ms:.1f}% of the device time); largest (ms) {json.dumps(top)}")
+    return {"device_ms": dev_ms, "untraced_ms": timed["prefill_ms"],
+            "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_launches": b1_n, "top_ms": top}
 
 
 def profile_decode(torch, params, cfg, rt, quant="int4g32"):
@@ -1709,11 +1768,11 @@ EOS = 2  # no tokenizer: the engines' eos id
 # rounding that makes every gap a whole number of bf16 ulps: 7.4e-3 of a logit
 # near 17).  The engines' paths round bf16 differently from that path (paged
 # or chunked attention, other matmul shapes), so a near-tie may flip.  The
-# limit was set at about 1.5x the largest bf16 reading over seeds 61, 71 and
-# 81 (1.43e-2); over seeds 61-111 (--gap-seeds) on an H100 the f32 readings
-# reach 2.03e-2, and 2.14e-2 with B1's decode rows on its CUDA-core gemv.  The
-# stream shifted by one token read 1.09 to 1.60.
-GREEDY_GAP_TOL = 2.2e-2
+# limit is 1.5x the largest f32 reading over seeds 61-171 (--gap-seeds, twelve
+# seeds, runs a, b, c) on the tree before B1's Hopper kernel: 2.70e-2 on an
+# H100 (seed 121), where that tree also read 2.25e-2 and the tree with the
+# kernel at most 2.49e-2.  The stream shifted by one token read 1.03 to 1.60.
+GREEDY_GAP_TOL = 4.04e-2
 PAGED_KERNELS = ("kv_pool_write_idx", "flash_attention_decode_paged",
                  "flash_attention_chunk_paged", "flash_attention_prefill_chunk")
 DENSE_KERNELS = ("kv_cache_write_idx", "flash_attention_decode")
@@ -1845,6 +1904,53 @@ def chunk_busy(torch, engine, reqs, name):
     return res
 
 
+CHUNK_PROMPT = 1024  # tokens of each prompt of the chunk-step profile: four 256-token chunks
+
+
+def chunk_step_busy(torch, engine, name, seed):
+    """Where an admission step's time goes: four fresh prompts of
+    CHUNK_PROMPT tokens (no prefix hit), so the engine's second and third
+    steps each prefill one 256-token chunk of all four (1024 rows through
+    every linear) and decode nothing.  The second step's untraced host wall
+    against the third's device time under torch.profiler, B1's Hopper
+    kernel apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    g = torch.Generator().manual_seed(seed)
+    ids = [engine.submit(torch.randint(3, 65000, (CHUNK_PROMPT,), generator=g).tolist(),
+                         temperature=0.0, max_new_tokens=8) for _ in range(4)]
+    engine.step()  # admission and the first chunks
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - ts
+    require(not any(s.decoding for s in engine.slots), f"{name}: a chunk step decoded")
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    for rid in ids:
+        engine.cancel(rid)
+    while engine.has_work:
+        engine.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    b1 = [e for e in events if "int4_wgmma_kernel" in e.key]
+    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    res = {"device_ms": dev_ms, "wall_ms": untraced * 1e3, "busy_share": dev_ms / (untraced * 1e3),
+           "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_launches": sum(e.count for e in b1),
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+    log(f"    {name}: one chunk step (4 x 256 prompt rows): device {dev_ms:.2f} ms of "
+        f"{res['wall_ms']:.2f} ms untraced wall, busy {100 * res['busy_share']:.1f}%, host "
+        f"{res['wall_ms'] - dev_ms:.2f} ms; B1 int4_wgmma_kernel {b1_ms:.3f} ms in "
+        f"{res['int4_wgmma_kernel_launches']} launches; largest (ms) "
+        f"{json.dumps(res['top_kernels_ms'])}")
+    return res
+
+
 def greedy_gaps(torch, params, cfg, reqs_done, prompts):
     """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
     fresh dense cache (one chunk, all logits), and the largest relative gap
@@ -1930,6 +2036,7 @@ def engines_slice(torch, smi, seed=61, survey=False):
         f"reused; every usable page free after the drain and clear_prefix_cache()")
     if not survey:
         out["a"]["busy"] = chunk_busy(torch, eng, short, "(a)")
+        out["a"]["chunk_step"] = chunk_step_busy(torch, eng, "(a)", seed + 5)
     del eng
 
     # (b) paged, whole-prompt admission, in-loop speculation, and the same
@@ -2148,11 +2255,16 @@ def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms)
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:10]]
+    b1 = [e for e in events if "int4_wgmma_kernel" in e.key]
+    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
     log(f"  profile of one int4g32 training step: device busy {dev_ms:.1f} ms, "
-        f"{100 * dev_ms / untraced_ms:.1f}% of the untraced step ({untraced_ms:.1f} ms)")
+        f"{100 * dev_ms / untraced_ms:.1f}% of the untraced step ({untraced_ms:.1f} ms); B1 "
+        f"int4_wgmma_kernel {b1_ms:.2f} ms in {sum(e.count for e in b1)} launches, "
+        f"{100 * b1_ms / dev_ms:.1f}% of the device time, {100 * b1_ms / untraced_ms:.1f}% of the step")
     for name, ms, n in top:
         log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
-    return {"device_ms": dev_ms, "busy_share_untraced": dev_ms / untraced_ms, "top_ms": top}
+    return {"device_ms": dev_ms, "busy_share_untraced": dev_ms / untraced_ms, "top_ms": top,
+            "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_share_of_step": b1_ms / untraced_ms}
 
 
 def fine_tune_slice(torch, smi):
@@ -2291,6 +2403,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
+        if name in CUDA_KERNEL:
+            entries[-1]["kernel"] = CUDA_KERNEL[name]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "attention": att, "e2e_rel_err": e2e,

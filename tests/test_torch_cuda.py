@@ -173,6 +173,89 @@ def test_int4g32_splitk_is_deterministic_and_replays_in_a_graph(gen, M, K, N):
         assert torch.equal(captured, first)
 
 
+# B1's Hopper kernel (bf16 above SMALL_M_MAX): prefill, engine-chunk and
+# training M on kv_proj (K splits), q_proj and w_out shapes, and a ragged M
+# and N (the last row and column tiles masked)
+MMA_CASES = [(M, K, N) for M in (65, 128, 512, 1024)
+             for K, N in ((4096, 512), (4096, 4096), (13824, 4096))] + [(200, 1024, 272)]
+
+
+def _b1_launches():
+    return QM.int4g32_splitk.launches, QM.int4g32_gemv.launches, QM.int4g32_mma.launches
+
+
+@pytest.mark.parametrize("M,K,N", MMA_CASES)
+def test_int4g32_mma_error_is_its_bf16_rounding(gen, M, K, N):
+    """The split-K kernel's bound, on the Hopper kernel: one launch, and
+    every output within 2^-23 of sum|x·w| of its exact value beyond half a
+    bf16 ulp (see test_int4g32_splitk_error_is_its_bf16_rounding)."""
+    packed, scale = _int4_weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    assert QM.int4_route(M, N, torch.bfloat16) == "mma"
+    before = _b1_launches()
+    got = QM.int4g32_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_b1_launches(), before)] == [0, 0, 1]
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    got = got.double()
+    w = QM.unpack_int4_tpu(packed, scale).double()
+    want = x.double() @ w
+    terms = x.double().abs() @ w.abs()
+    half_ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 9)  # bf16: 8 bits
+    beyond = ((got - want).abs() - half_ulp).clamp_min(0) / terms
+    assert beyond.max().item() <= 2.0 ** -23, beyond.max().item()
+
+
+def test_int4g32_mma_reads_a_layer_view(gen):
+    stack, scales = _int4_weights(gen, 4096, 4096, layers=3)
+    x = torch.randn((130, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    got = QM.int4g32_matmul(x, stack[2], scales[2])
+    assert _rel(got, QM.int4g32_matmul_plain(x, stack[2].clone(), scales[2].clone())) <= 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 4096, 512), (512, 4096, 4096), (65, 13824, 512),
+                                   (130, 1024, 272)])
+def test_int4g32_mma_is_deterministic_and_replays_in_a_graph(gen, M, K, N):
+    """Two calls are bit-equal and leave every arrival counter at 0 (the
+    merging warpgroup resets its own); one call captured in a CUDA graph
+    and replayed twice is bit-equal to the eager call."""
+    packed, scale = _int4_weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    first = QM.int4g32_matmul(x, packed, scale)
+    second = QM.int4g32_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    bm = QM.mma_plan(M, K, N)[0]
+    tiles = -(-M // bm) * -(-N // QM.MMA_BN)
+    assert not _build.scratch("mma_arrivals", x.device, 2 * tiles, torch.int32)[:2 * tiles].any()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        QM.int4g32_matmul(x, packed, scale)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = QM.int4g32_matmul(x, packed, scale)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+def test_int4g32_mma_rejects_a_plan_it_cannot_take(gen):
+    packed, scale = _int4_weights(gen, 1024, 512)  # 32 groups
+    x = torch.randn((100, 1024), device="cuda", generator=gen).to(torch.bfloat16)
+    y = torch.empty((100, 512), dtype=torch.bfloat16, device="cuda")
+    ws = torch.empty((1 << 20,), dtype=torch.float32, device="cuda")
+    arrivals = torch.zeros((64,), dtype=torch.int32, device="cuda")
+    for bm, nsplit, gps in ((128, 2, 8), (128, 4, 16), (96, 1, 32)):  # groups uncovered,
+        with pytest.raises(RuntimeError):                            # an empty split, no tile
+            _build.call("chatglm_int4_wgmma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                        y.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), 100, 1024, 512, bm,
+                        nsplit, gps, 8, _build.stream_ptr(x))
+
+
 def test_int4g32_routes_by_m_and_dtype(gen):
     packed, scale = _int4_weights(gen, 1024, 512)
     cases = [(QM.SMALL_M_MAX, torch.bfloat16, QM.int4g32_splitk),
