@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #include <math.h>
 #include <stdint.h>
 
@@ -276,23 +277,61 @@ __device__ __forceinline__ uint32_t nibbles_hi_s8(uint32_t w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
+// Bits 0-3 and 16-19 of v, two tpu-order (two's-complement) int4 nibbles,
+// as a bf16x2 pair without an int-to-float conversion: one LOP3 keeps them
+// and writes them over the mantissa of bf16 128 with the nibble's sign bit
+// flipped, (v & 0x000F000F) ^ 0x43084308, which is the bf16 value 136 + q
+// for the nibble q; one bf16x2 FMA subtracts 136.  Exact for all 16 values.
+__device__ __forceinline__ uint32_t nibble_pair_bf16x2(uint32_t v) {
+  uint32_t m, r;
+  // (a & b) ^ c as one LOP3 (LUT 0x6a): written out, ptxas splits it in two
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(m) : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(m), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
 // Byte p (0..3) of w, two tpu-order int4 nibbles, as the bf16x2 pair of an
-// mma fragment (low nibble, the lower K row, in bits 0-15) without an
-// int-to-float conversion: one PRMT puts the low nibble of byte p of w at
-// bits 0-3 and that of w >> 4 (the byte's high nibble) at bits 16-19; one
-// LOP3 keeps them and writes them over the mantissa of bf16 128 with the
-// nibble's sign bit flipped, (v & 0x000F000F) ^ 0x43084308, which is the
-// bf16 value 136 + q for the two's-complement nibble q; one bf16x2 FMA
-// subtracts 136.  Exact for all 16 values.  w_shr4 is w >> 4, shared by the
-// word's four bytes.
+// mma fragment (low nibble, the lower K row, in bits 0-15): one PRMT puts
+// the low nibble of byte p of w at bits 0-3 and that of w >> 4 (the byte's
+// high nibble) at bits 16-19.  w_shr4 is w >> 4, shared by the word's four
+// bytes.
 __device__ __forceinline__ uint32_t int4_pair_bf16x2(uint32_t w, uint32_t w_shr4, int p) {
   const uint32_t sel = p | (p << 4) | ((4 + p) << 8) | ((4 + p) << 12);
-  uint32_t v, r;
-  // (a & b) ^ c as one LOP3 (LUT 0x6a): written out, ptxas splits it in two
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
-      : "=r"(v)
-      : "r"(__byte_perm(w, w_shr4, sel)), "r"(0x000F000Fu), "r"(0x43084308u));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return nibble_pair_bf16x2(__byte_perm(w, w_shr4, sel));
+}
+
+// Two packed bytes b0 (bits 0-7 of v) and b1 (bits 8-15), neighbours along
+// a byte row, as two bf16x2 pairs: lo = (low nibble of b0, of b1), hi =
+// (high nibble of b0, of b1).  The transposed kernel's A fragment: a byte
+// row holds two output rows (its low and high nibbles), its neighbouring
+// bytes two neighbouring contraction elements.
+__device__ __forceinline__ void int4_rows_bf16x2(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t v4 = v >> 4;
+  lo = nibble_pair_bf16x2(__byte_perm(v, v4, 0x4140));  // b0 -> bits 0-7, b1 -> bits 16-23
+  hi = nibble_pair_bf16x2(__byte_perm(v, v4, 0x0504));  // b0 >> 4, b1 >> 4 likewise
+}
+
+// Four int8 bytes of w as two exact bf16x2 pairs (lo: bytes 0, 1; hi:
+// bytes 2, 3; the lower byte in bits 0-15).  bf16 holds 8 significant bits,
+// too few for a magic-bias trick of its own, so each byte goes through f32:
+// PRMT writes the biased byte b + 128 under the exponent of 2^23, an FADD
+// subtracts 2^23 + 128, and since the result has at most 8 significant
+// bits, its high half is its bf16 value (one PRMT packs two).
+__device__ __forceinline__ void s8x4_bf16x2(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + i)) -
+                           8388736.f);
+  lo = __byte_perm(f[0], f[1], 0x7632);
+  hi = __byte_perm(f[2], f[3], 0x7632);
+}
+
+// a * b for two bf16x2 pairs, each product rounded once to bf16
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
   return r;
 }
 
@@ -320,107 +359,9 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---------------------------------------------------------------------------
-// The transposed (grad_x) tensor-core kernels of int8_matmul.cu and
-// int4_matmul.cu: out (M, K) = A (M, N) · W (K, N)ᵀ, the contraction over N.
-// A block holds a 64 x 128 output tile (8 warps: 2 along M, 4 along K); each
-// stage puts 64 contraction columns of A and of the block's 128 weight rows
-// into shared memory as bf16, both N-contiguous.  The m16n8k16 B fragment is
-// two neighbouring contraction elements of one output column: one 32-bit
-// word of a weight row, so W needs no transpose.
-// ---------------------------------------------------------------------------
-constexpr int TMM_BM = 64;               // rows of g / out per block
-constexpr int TMM_BK = 128;              // output columns (weight rows) per block
-constexpr int TMM_BN = 64;               // contraction columns per stage
-constexpr int TMM_STRIDE = TMM_BN + 8;   // bf16 per smem row (pad: no bank conflicts)
-constexpr int TMM_THREADS = 256;         // 8 warps; a compile-time stride lets staging loops unroll
-
-// Stage A rows m_base..+63, columns n0..+63 into as.  With fold, each
-// element is g * fold[n] in bf16, the scale rounded to bf16 first (the
-// plain version's ``g * scale.to(g.dtype)``); without, g as it is.  Needs
-// N % 16 == 0 and 16-byte aligned rows.
-__device__ __forceinline__ void tmm_stage_a(const __nv_bfloat16* __restrict__ g,
-                                            const float* __restrict__ fold,
-                                            __nv_bfloat16* as, int m_base, int n0, int M, int N) {
-  for (int i = threadIdx.x; i < TMM_BM * (TMM_BN / 8); i += blockDim.x) {
-    const int r = i / (TMM_BN / 8), c = (i % (TMM_BN / 8)) * 8;
-    const int row = m_base + r, n = n0 + c;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < M && n < N) {
-      v = *reinterpret_cast<const uint4*>(g + (size_t)row * N + n);
-      if (fold) {
-        float gv[8], s[8];
-        load8(g + (size_t)row * N + n, gv);
-        load8(fold + n, s);
-        uint32_t o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          o[j] = bf16x2_bits(gv[2 * j] * round_to<__nv_bfloat16>(s[2 * j]),
-                             gv[2 * j + 1] * round_to<__nv_bfloat16>(s[2 * j + 1]));
-        v = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(as + r * TMM_STRIDE + c) = v;
-  }
-}
-
-// acc (this warp's 2 x 4 m16n8 tiles) += as (64 x 64) · bs (128 x 64)ᵀ.
-__device__ __forceinline__ void tmm_product(const __nv_bfloat16* as, const __nv_bfloat16* bs,
-                                            float (&acc)[2][4][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-#pragma unroll
-  for (int kk = 0; kk < TMM_BN; kk += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* base = as + (wm + mi * 16 + gid) * TMM_STRIDE + kk + tig * 2;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * TMM_STRIDE);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * TMM_STRIDE + 8);
-    }
-    uint32_t b[4][2];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* pb = bs + (wn + ni * 8 + gid) * TMM_STRIDE + kk + tig * 2;
-      b[ni][0] = *reinterpret_cast<const uint32_t*>(pb);
-      b[ni][1] = *reinterpret_cast<const uint32_t*>(pb + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-// Write the block's output tile (bf16); K is even, so a column pair is
-// either inside K or past it.
-__device__ __forceinline__ void tmm_store(const float (&acc)[2][4][4], __nv_bfloat16* out,
-                                          int m_base, int k_base, int M, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m_base + wm + mi * 16 + gid;
-      const int col = k_base + wn + ni * 8 + tig * 2;
-      if (col >= K) continue;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * K + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * K + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-}
-
 // The transposed kernels' bodies, one for B13 (int8) and B14 (int4g32).  A
 // weight view W (int8_matmul.cu's Int8TView, int4_matmul.cu's Int4TView)
-// says how its rows become numbers:
+// says how its rows become numbers; for t_gemv_kernel:
 //   W::kCols                  output columns (weight rows) one warp of
 //                             t_gemv_kernel owns, inside one scale group
 //   W::kFoldG                 the scale folds into g (B13) or into the
@@ -429,8 +370,7 @@ __device__ __forceinline__ void tmm_store(const float (&acc)[2][4][4], __nv_bflo
 //   w.cols<T>(k0, n, N, wq)   the weights of columns k0..k0+kCols-1 at
 //                             n..n+7, as floats (with the scale rounded to T
 //                             under !kFoldG)
-//   w.fold_ptr()              the f32 scale tmm_stage_a folds into g, or null
-//   w.stage_b(bs, k_base, n0, K, N)  the bf16 TMM_BK x TMM_BN weight tile
+// and for t_wgmma_kernel the Hopper view of wg_consume below.
 namespace {
 
 // CUDA-core form (f32 g, or M <= 16): one warp per kCols output columns.
@@ -498,39 +438,474 @@ void t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t st
     launch_t_gemv<W, T, 8>(g, w, out, M, K, N, stream);
 }
 
-// Tensor-core form (bf16 g, M > 16): the TMM tiles above.  The scale (B13)
-// folds into the g tile as it is staged; the weight view stages its rows as
-// bf16 (B13: exact int8 converts; B14: bf16(q * s)).
-template <typename W>
-__global__ void __launch_bounds__(TMM_THREADS)
-t_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w, __nv_bfloat16* __restrict__ out,
-             int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 as[TMM_BM * TMM_STRIDE];
-  __shared__ __align__(16) __nv_bfloat16 bs[TMM_BK * TMM_STRIDE];
-  const int m_base = blockIdx.y * TMM_BM, k_base = blockIdx.x * TMM_BK;
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+}  // namespace
 
-  for (int n0 = 0; n0 < N; n0 += TMM_BN) {
-    tmm_stage_a(g, w.fold_ptr(), as, m_base, n0, M, N);
-    w.stage_b(bs, k_base, n0, K, N);
-    __syncthreads();
-    tmm_product(as, bs, acc);
-    __syncthreads();
+// ---------------------------------------------------------------------------
+// The Hopper weight-only kernels (sm_90a): int4_matmul.cu's
+// int4_wgmma_kernel (B1 above 64 rows), int8_matmul.cu's int8_wgmma_kernel
+// (B6) and t_wgmma_kernel below (B13, B14) share the ring, the producer,
+// the plan checks and the epilogue; the last two share the mainloop too.
+//
+// Each computes D (WG_N weight-side rows x BM activation rows) = W · Aᵀ per
+// output tile, the contraction in stages of WG_STEP elements: D's rows are
+// the output columns (N of B1 and B6, K of B13 and B14), its columns the
+// rows of x or g.  The weights are wgmma's A from registers (each consumer
+// thread turns its share of the stage's weight tile into bf16 fragments,
+// once per block and stage), the activations its B straight from the
+// 128B-swizzled TMA tile.  A persistent block takes work units b, b + grid,
+// ...: unit u is activation tile u % mtiles, then contraction split, then
+// weight tile, so that the blocks at work together share a weight tile and
+// the activation rows through L2.  Warpgroup 2 is the producer: lane 0 of
+// its first warp keeps WG_STAGES stages of TMA loads in flight (the
+// activation tile, the weight tile, the scale tile), each stage's `full`
+// barrier counting the bytes, its `empty` barrier the 8 consumer warps'
+// release.  Warpgroups 0 and 1 each own 64 of the tile's weight rows.  With
+// more than one contraction split the last unit of a tile to arrive sums
+// the splits' f32 partials in split order and resets its arrival counter
+// (deterministic; nothing to reset between launches, so a CUDA graph can
+// replay it).  The producer gives its registers up (setmaxnreg) to the
+// consumers.  ops/quant_matmul.py's wg_plan (and mma_plan, t_mma_plan over
+// it) and mma_smem mirror the constants below.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_N = 128;                  // weight rows (output columns) a tile
+constexpr int WG_STEP = 64;                // contraction elements a stage
+constexpr int WG_STAGES = 8;
+constexpr int WG_THREADS = 3 * 128;        // two consumer warpgroups, then the producer's
+constexpr int WG_CONSUMER_WARPS = 8;
+constexpr int WG_PRODUCER_REGS = 24;       // setmaxnreg: the producer's registers go to the
+constexpr int WG_CONSUMER_REGS = 240;      // consumers (3 x 128 x 168 >= 2 x 128 x 240 + 128 x 24)
+constexpr int WG_FOLD_BAR = 3;             // named barrier of B13's fold (1 + wg: the merge)
+
+// The ring: per stage the activation tile (BM rows x 64 bf16, 128B
+// swizzle), WB bytes of weights and SB of scales; then a full and an empty
+// barrier per stage and two merge flags.  The base is aligned to 1024 bytes
+// (the swizzle's period) in the dynamic shared memory.
+template <int BM, int WB, int SB>
+struct WgRing {
+  static constexpr int XS = BM * 128;
+  static constexpr int W_OFF = WG_STAGES * XS;
+  static constexpr int S_OFF = W_OFF + WG_STAGES * WB;
+  static constexpr int BAR_OFF = S_OFF + WG_STAGES * SB;
+  static constexpr int FLAG_OFF = BAR_OFF + 2 * WG_STAGES * 8;
+  static constexpr int BYTES = FLAG_OFF + 16 + 1024;  // + slack to align the base
+};
+
+// The persistent schedule: unit u is activation tile u % mtiles, split
+// (u / mtiles) % nsplit, weight tile u / (mtiles * nsplit); a split takes
+// contraction stages [sp * sps, min(steps, (sp + 1) * sps)).
+struct WgSchedule {
+  int mtiles, nsplit, sps, steps, units;
+  __device__ __forceinline__ void unit(int u, int& mt, int& sp, int& nt, int& s0,
+                                       int& s1) const {
+    mt = u % mtiles;
+    const int rest = u / mtiles;
+    sp = rest % nsplit;
+    nt = rest / nsplit;
+    s0 = sp * sps;
+    s1 = min(steps, s0 + sps);
   }
-  tmm_store(acc, out, m_base, k_base, M, K);
+};
+
+// A plan the kernels take: every split non-empty, the splits covering all
+// `steps` stages, bm a tile they have, a workspace where splits merge.
+inline bool wg_plan_ok(int steps, int bm, int nsplit, int sps, int ctas, const void* ws) {
+  return steps >= 1 && (bm == 64 || bm == 128) && nsplit >= 1 && sps >= 1 && ctas >= 1 &&
+         (nsplit - 1) * sps < steps && nsplit * sps >= steps && (nsplit == 1 || ws != nullptr);
 }
 
+inline WgSchedule wg_schedule(int M, int bm, int n_out, int steps, int nsplit, int sps) {
+  const int mtiles = (M + bm - 1) / bm, ntiles = (n_out + WG_N - 1) / WG_N;
+  return {mtiles, nsplit, sps, steps, mtiles * ntiles * nsplit};
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links no -lcuda); null where the driver has none.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) tensor of `type` with rows `row_bytes` apart, in
+// boxes of box_rows x box_cols.
+inline bool tensor_map_2d(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
+                          CUtensorMapDataType type, const void* base, int rows, int cols,
+                          size_t row_bytes, int box_rows, int box_cols,
+                          CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The activation tiles: bf16 (rows, cols) in boxes of bm rows x 64.
+inline bool act_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, const void* base,
+                    int rows, int cols, int bm) {
+  return tensor_map_2d(encode, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols,
+                       (size_t)cols * 2, bm, WG_STEP, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Align the ring, initialise its barriers; every thread returns the base.
+template <typename R>
+__device__ __forceinline__ uint8_t* wg_setup(uint8_t* raw, uint64_t*& full, uint64_t*& empty,
+                                             int*& flags) {
+  const uint32_t a = smem_u32(raw);
+  uint8_t* smem = raw + (((a + 1023u) & ~1023u) - a);
+  full = reinterpret_cast<uint64_t*>(smem + R::BAR_OFF);
+  empty = full + WG_STAGES;
+  flags = reinterpret_cast<int*>(smem + R::FLAG_OFF);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return smem;
+}
+
+// The producer warpgroup (threads 256-383): lane 0 of its first warp loads
+// every stage of every unit of this block.  V::tma issues the weight and
+// scale tiles of weight tile nt, stage s.
+template <int BM, typename V>
+__device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtensorMap* wmap,
+                                           const CUtensorMap* smap, uint8_t* smem,
+                                           uint64_t* full, uint64_t* empty,
+                                           const WgSchedule& sc) {
+  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+  if (threadIdx.x != WG_CONSUMER_WARPS * 32) return;
+  int st = 0;
+  uint32_t ph = 0;
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x) {
+    int mt, sp, nt, s0, s1;
+    sc.unit(u, mt, sp, nt, s0, s1);
+    for (int s = s0; s < s1; ++s) {
+      mbar_wait(&empty[st], ph ^ 1);
+      mbar_arrive_expect_tx(&full[st], R::XS + V::kWBytes + V::kSBytes);
+      tma_load_2d(smem + st * R::XS, amap, s * WG_STEP, mt * BM, &full[st]);
+      V::tma(wmap, smap, smem + R::W_OFF + st * V::kWBytes, smem + R::S_OFF + st * V::kSBytes,
+             nt, s, &full[st]);
+      if (++st == WG_STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+  }
+}
+
+// Accumulator 4j + e of a consumer thread (the m64nBMk16 layout) is D row
+// gid for e < 2, gid + 8 for e >= 2, and activation row 8j + 2t + (e & 1).
+// D row gid is output column c, D row gid + 8 column c + STEP: STEP 1 (the
+// two columns of a bf16x2 store) or 8.  With SCALE, column n's output is
+// multiplied by col_scale[n] first (B6's per-column scale).
+template <int BM, int STEP, bool SCALE>
+__device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat16* __restrict__ y,
+                                         int m0, int c, int M, int N, const float* col_scale) {
+  if (c >= N) return;  // N % 16 == 0: a 16-column slab is all in or all out
+  const int t = threadIdx.x & 3;
+  float s0 = 1.f, s1 = 1.f;
+  if constexpr (SCALE) {
+    s0 = __ldg(col_scale + c);
+    s1 = __ldg(col_scale + c + STEP);
+  }
+  const auto v = [&](int i, float s) { return SCALE ? acc[i] * s : acc[i]; };
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    const int m = m0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (m + e >= M) continue;
+      __nv_bfloat16* row = y + (size_t)(m + e) * N + c;
+      if constexpr (STEP == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(row) =
+            __floats2bfloat162_rn(v(4 * j + e, s0), v(4 * j + 2 + e, s1));
+      } else {
+        row[0] = __float2bfloat16_rn(v(4 * j + e, s0));
+        row[STEP] = __float2bfloat16_rn(v(4 * j + 2 + e, s1));
+      }
+    }
+  }
+}
+
+// The end of a unit: the output tile's columns c (and c + STEP) of this
+// thread, rows mt * BM.., stored at once without splits; with splits each
+// warpgroup writes its f32 partial in register order, and the last of the
+// tile's splits to arrive sums them in split order, stores and resets its
+// counter.
+template <int BM, typename V>
+__device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
+                                               __nv_bfloat16* __restrict__ y,
+                                               float* __restrict__ ws, int* __restrict__ arrivals,
+                                               int* merge_flag, const WgSchedule& sc, int mt,
+                                               int sp, int nt, int c, int M, int N) {
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int m0 = mt * BM, n = nt * WG_N + c;
+  if (sc.nsplit == 1) {
+    wg_store<BM, V::kRowStep, V::kColScale>(acc, y, m0, n, M, N, v.col_scale());
+    return;
+  }
+  const int tile = nt * sc.mtiles + mt;
+  const size_t slab = (size_t)(BM / 2) * 128;
+  float* mine = ws + ((size_t)(tile * sc.nsplit + sp) * 2 + wg) * slab;
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) mine[i * 128 + tid] = acc[i];
+  __threadfence();
+  named_bar_sync(1 + wg, 128);
+  if (tid == 0) merge_flag[wg] = atomicAdd(&arrivals[2 * tile + wg], 1) == sc.nsplit - 1;
+  named_bar_sync(1 + wg, 128);
+  if (!merge_flag[wg]) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  for (int p = 0; p < sc.nsplit; ++p) {
+    const float* src = ws + ((size_t)(tile * sc.nsplit + p) * 2 + wg) * slab + tid;
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] += __ldcg(src + i * 128);
+  }
+  wg_store<BM, V::kRowStep, V::kColScale>(acc, y, m0, n, M, N, v.col_scale());
+  if (tid == 0) arrivals[2 * tile + wg] = 0;
+}
+
+template <int BM>
+__device__ __forceinline__ void wg_mma(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc,
+                                       int scale_d) {
+  if constexpr (BM == 128)
+    wgmma_rs_n128(d, a, desc, scale_d);
+  else
+    wgmma_rs_n64(d, a, desc, scale_d);
+}
+
+// Half a stage (two k16 steps, fragments f) into the stage's partial P, the
+// first half with scale-d = 0 (nothing carried over); asynchronous.
+template <int BM>
+__device__ __forceinline__ void wg_issue_half(float (&P)[BM / 2], const uint32_t (&f)[2][4],
+                                              uint64_t desc, int first) {
+  wgmma_fence();
+  wg_mma<BM>(P, f[0], desc, first ? 0 : 1);
+  wg_mma<BM>(P, f[1], desc + 2, 1);
+  wgmma_commit();
+}
+
+// Wait until at most PENDING halves are in flight, then pin the fragments
+// of the half that finished (their registers stay untouched until then).
+template <int PENDING>
+__device__ __forceinline__ void wg_release_half(uint32_t (&f)[2][4]) {
+  wgmma_wait<PENDING>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pin(f[h][r]);
+}
+
+// acc += P, one rounding each, once P's wgmmas are done
+template <int BM>
+__device__ __forceinline__ void wg_fold(float (&acc)[BM / 2], float (&P)[BM / 2]) {
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) {
+    pin(P[i]);
+    acc[i] += P[i];
+  }
+}
+
+// The state a consumer thread carries from stage to stage.
+template <int BM, typename V>
+struct WgConsumer {
+  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  const V& v;
+  const typename V::Lane ln;
+  uint8_t* smem;
+  uint64_t *full, *empty;
+  int st;       // the ring slot of the stage last issued
+  uint32_t ph;  // its phase
+  uint32_t fa[2][4], fb[2][4];
+
+  __device__ __forceinline__ const uint8_t* wt(int s) const {
+    return smem + R::W_OFF + s * V::kWBytes;
+  }
+  __device__ __forceinline__ uint8_t* stile(int s) const {
+    return smem + R::S_OFF + s * V::kSBytes;
+  }
+  __device__ __forceinline__ uint64_t desc(int s) const { return sw128_desc(smem + s * R::XS); }
+  __device__ __forceinline__ void ready(int s, uint32_t p) {
+    mbar_wait(&full[s], p);
+    if constexpr (V::kFoldG) v.template fold_tile<BM>(smem + s * R::XS, stile(s));
+  }
+  // the unit's first stage into P; then half 1 of it is in flight
+  __device__ __forceinline__ void first(float (&P)[BM / 2]) {
+    ready(st, ph);
+    v.template load<0>(fa, wt(st), stile(st), ln);
+    wg_issue_half<BM>(P, fa, desc(st), 1);
+    v.template load<1>(fb, wt(st), stile(st), ln);
+    wg_issue_half<BM>(P, fb, desc(st) + 4, 0);  // the stage's k16 steps 2, 3
+    wg_release_half<1>(fa);
+  }
+  // the next stage into P while the previous one's partial Q (its half 1
+  // still in flight) is finished and folded into acc
+  __device__ __forceinline__ void next(float (&acc)[BM / 2], float (&P)[BM / 2],
+                                       float (&Q)[BM / 2]) {
+    const int nst = st + 1 == WG_STAGES ? 0 : st + 1;
+    const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
+    ready(nst, nph);
+    v.template load<0>(fa, wt(nst), stile(nst), ln);
+    wg_issue_half<BM>(P, fa, desc(nst), 1);
+    wg_release_half<1>(fb);  // the previous stage is done
+    wg_fold<BM>(acc, Q);     // on the CUDA cores, while this stage's half 0 runs
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    v.template load<1>(fb, wt(nst), stile(nst), ln);
+    wg_issue_half<BM>(P, fb, desc(nst) + 4, 0);
+    wg_release_half<1>(fa);
+    st = nst;
+    ph = nph;
+  }
+  // the unit's last stage, of partial P, done and folded; its slot released
+  __device__ __forceinline__ void last(float (&acc)[BM / 2], float (&P)[BM / 2]) {
+    wg_release_half<0>(fb);
+    wg_fold<BM>(acc, P);
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    if (++st == WG_STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The consumers of B6, B13 and B14.  A weight view V gives, besides its
+// tiles (kWBytes, kSBytes, tma):
+//   V::Lane, V::lane(tid)      this thread's output column c (D row gid) and
+//                              its offsets into the stage's tiles
+//   kRowStep                   D row gid + 8 is column c + kRowStep
+//   v.load<H>(f, wt, st, ln)   the A fragments of half H of the stage (k16
+//                              steps 2H, 2H + 1) from its weight and scale tiles
+//   kFoldG, v.fold_tile<BM>(xs, st)  (B13) fold the scale into the
+//                              activation tile before any wgmma reads it
+//   kColScale, v.col_scale()   (B6) the per-column scale of the epilogue
+// No scale changes inside these contractions, so the f32 sum needs no
+// per-group fold; but the tensor cores' accumulation over one long wgmma
+// chain drifts from round-to-nearest (on an H100 the error grew with the
+// chain, to ~17x 2^-23 of sum|terms| over 4096 k16 steps), so each stage's
+// 64 products go into a fresh partial (p0 and p1 in turn), added to the f32
+// accumulator by the CUDA cores while the next stage's wgmmas run: the sums
+// B1's per-group fold gives.  The loop body takes two stages (p1, then p0)
+// and has no branch, so ptxas sees one half in flight on every path into
+// and out of it and keeps the wgmmas asynchronous.
+template <int BM, typename V>
+__device__ __forceinline__ void wg_consume(const V& v, uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty, int* merge_flag, const WgSchedule& sc,
+                                           __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                                           int* __restrict__ arrivals, int M, int N) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  WgConsumer<BM, V> cs{v, V::lane(threadIdx.x), smem, full, empty, 0, 0, {}, {}};
+  float acc[BM / 2], p0[BM / 2], p1[BM / 2];
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x) {
+    int mt, sp, nt, s0, s1;
+    sc.unit(u, mt, sp, nt, s0, s1);
+    const int rest = s1 - s0 - 1;  // stages after the first
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    cs.first(p0);
+    for (int i = 0; i + 1 < rest; i += 2) {
+      cs.next(acc, p1, p0);
+      cs.next(acc, p0, p1);
+    }
+    if (rest & 1) {
+      cs.next(acc, p1, p0);
+      cs.last(acc, p1);
+    } else {
+      cs.last(acc, p0);
+    }
+    wg_finish_unit<BM, V>(acc, v, y, ws, arrivals, merge_flag, sc, mt, sp, nt, cs.ln.c, M, N);
+  }
+}
+
+// The body of the kernels on wg_consume's mainloop; raw is the kernel's
+// dynamic shared memory.
+template <int BM, typename V>
+__device__ __forceinline__ void wg_body(uint8_t* raw, const CUtensorMap* amap,
+                                        const CUtensorMap* wmap, const CUtensorMap* smap,
+                                        const V& v, __nv_bfloat16* __restrict__ y,
+                                        float* __restrict__ ws, int* __restrict__ arrivals, int M,
+                                        int N, const WgSchedule& sc) {
+  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  uint64_t *full, *empty;
+  int* merge_flag;
+  uint8_t* smem = wg_setup<R>(raw, full, empty, merge_flag);
+  if (threadIdx.x >= WG_CONSUMER_WARPS * 32)
+    wg_produce<BM, V>(amap, wmap, smap, smem, full, empty, sc);
+  else
+    wg_consume<BM, V>(v, smem, full, empty, merge_flag, sc, y, ws, arrivals, M, N);
+}
+
+namespace {
+
+// The transposed tensor-core kernel (bf16 g, M > 16; training's M = B*S):
+// out (M, K) = g (M, N) · Ŵᵀ, the contraction over N, on wg_consume's
+// mainloop.  D's rows are output columns k (weight rows), its columns g's
+// rows; the weight view turns a stage's weight rows into bf16 fragments
+// (B14: bf16(q * s), B13: the exact int8 values, with the scale folded into
+// the g tile).
+template <typename W, int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+t_wgmma_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap smap, const W w,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+               int* __restrict__ arrivals, int M, int K, const WgSchedule sc) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  wg_body<BM, W>(wg_smem_raw, &gmap, &wmap, &smap, w, out, ws, arrivals, M, K, sc);
+}
+
+template <typename W, int BM>
+int launch_t_wgmma_bm(const CUtensorMap& gmap, const CUtensorMap& wmap, const CUtensorMap& smap,
+                      const W& w, void* out, void* ws, void* arrivals, int M, int K,
+                      const WgSchedule& sc, int ctas, cudaStream_t stream) {
+  constexpr int bytes = WgRing<BM, W::kWBytes, W::kSBytes>::BYTES;
+  const cudaError_t opt_in = smem_opt_in<t_wgmma_kernel<W, BM>>(bytes);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  t_wgmma_kernel<W, BM><<<ctas, WG_THREADS, bytes, stream>>>(
+      gmap, wmap, smap, w, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(arrivals), M, K, sc);
+  return (int)cudaGetLastError();
+}
+
+// g (M, N) bf16, the weights and scales of view w (their tensor maps from
+// W::maps), out (M, K); the plan of ops/quant_matmul.py::t_mma_plan.
 template <typename W>
-void t_mma(const __nv_bfloat16* g, const W& w, __nv_bfloat16* out, int M, int K, int N,
-           cudaStream_t stream) {
-  const dim3 grid((K + TMM_BK - 1) / TMM_BK, (M + TMM_BM - 1) / TMM_BM);
-  t_mma_kernel<W><<<grid, TMM_THREADS, 0, stream>>>(g, w, out, M, K, N);
+int launch_t_wgmma(const W& w, const void* g, const void* weights, const void* scale, void* out,
+                   void* ws, void* arrivals, int M, int K, int N, int bm, int nsplit, int sps,
+                   int ctas, cudaStream_t stream) {
+  const int steps = (N + WG_STEP - 1) / WG_STEP;
+  if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 ||
+      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws))
+    return (int)cudaErrorInvalidValue;
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap gmap, wmap, smap;
+  if (!act_map(encode, &gmap, g, M, N, bm) ||
+      !W::maps(encode, &wmap, &smap, weights, scale, K, N))
+    return (int)cudaErrorInvalidValue;
+  const WgSchedule sc = wg_schedule(M, bm, K, steps, nsplit, sps);
+  if (bm == 128)
+    return launch_t_wgmma_bm<W, 128>(gmap, wmap, smap, w, out, ws, arrivals, M, K, sc, ctas,
+                                      stream);
+  return launch_t_wgmma_bm<W, 64>(gmap, wmap, smap, w, out, ws, arrivals, M, K, sc, ctas,
+                                   stream);
 }
 
 }  // namespace

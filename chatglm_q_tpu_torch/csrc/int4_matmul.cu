@@ -71,7 +71,8 @@
 //   the same launch as in the split-K kernel below (last block to arrive,
 //   split order, counter reset: deterministic, graph-safe).  The producer
 //   gives up its registers (setmaxnreg) for the consumers' three 64-row
-//   accumulators.
+//   accumulators.  The ring, the producer, the plan checks and the
+//   epilogue are common.cuh's, shared with B6 and the transposed kernel.
 //
 // The backward kernels (B14) replace pallas_matmul.py:_int4_t_kernel
 // (int4_matmul_t_pallas): grad_x (M,K) = g (M,N) @ dequant(packed, scale)ᵀ,
@@ -82,11 +83,17 @@
 // Both are common.cuh's transposed bodies over Int4TView:
 // * t_gemv_kernel<Int4TView> (f32 g, or M <= 16): bound by the packed bytes;
 //   one warp per two byte rows (four output columns), 8-byte loads along N.
-// * t_mma_kernel<Int4TView> (bf16, M > 16): bound by operations; the TMM
-//   tiles, the nibbles dequantized to bf16 as they are staged into shared
-//   memory (one multiply per weight per block).
-#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
-
+// * t_wgmma_kernel<Int4TView> (bf16, M > 16; training's M = B*S): bound by
+//   operations.  common.cuh's Hopper mainloop (B1's ring, producer and
+//   orientation: the weights as wgmma's A from registers, g's rows as B
+//   from the swizzled TMA tile); no per-group fold, since each weight is
+//   rounded before the dot, only the per-stage partials of wg_consume.  A
+//   packed byte row
+//   holds two output columns (its nibbles), so D rows gid and gid + 8 of a
+//   warp are made those two columns: one u16 load of two neighbouring
+//   bytes gives both rows' A registers for two contraction elements, each
+//   weight bf16(q * s) by one bf16x2 multiply of the exact nibble value
+//   (int4_rows_bf16x2), one scale pair for both rows.
 #include "common.cuh"
 
 namespace {
@@ -223,27 +230,27 @@ void gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, T* y, f
 // training)
 // ---------------------------------------------------------------------------
 
-// A tile is BM rows of x by WG_BN weight columns; a stage WG_STAGE_GROUPS
-// groups (64 K).  ops/quant_matmul.py::mma_plan and mma_smem mirror these.
-constexpr int WG_BN = 128;                 // two consumer warpgroups x 64 columns
+// A tile is BM rows of x by WG_N weight columns (common.cuh's ring and
+// producer); a stage WG_STAGE_GROUPS groups (WG_STEP = 64 K).
+// ops/quant_matmul.py::mma_plan and mma_smem mirror these.
 constexpr int WG_STAGE_GROUPS = 2;
-constexpr int WG_STAGES = 8;
-constexpr int WG_THREADS = 3 * 128;        // two consumer warpgroups, then the producer's
-constexpr int WG_CONSUMER_WARPS = 8;
-constexpr int WG_PRODUCER_REGS = 24;       // setmaxnreg: the producer's registers go to the
-constexpr int WG_CONSUMER_REGS = 240;      // consumers (3 x 128 x 168 >= 2 x 128 x 240 + 128 x 24)
 
-template <int BM>
-struct WgSmem {
-  static constexpr int XS = BM * 128;                 // x: BM rows x 64 bf16, 128B swizzle
-  static constexpr int PS = 16 * WG_STAGE_GROUPS * WG_BN;  // packed: 32 byte rows x 128 cols
-  static constexpr int SS = WG_STAGE_GROUPS * WG_BN * 2;   // scales: 2 groups x 128 bf16
-  static constexpr int P_OFF = WG_STAGES * XS;
-  static constexpr int S_OFF = P_OFF + WG_STAGES * PS;
-  static constexpr int BAR_OFF = S_OFF + WG_STAGES * SS;
-  static constexpr int FLAG_OFF = BAR_OFF + 2 * WG_STAGES * 8;
-  static constexpr int BYTES = FLAG_OFF + 16 + 1024;  // + slack to align the base to 1024
+// B1's weight and scale tiles a stage, after x's: 32 packed byte rows x 128
+// columns (128B swizzle) and 2 x 128 scales.
+struct Int4FwdTiles {
+  static constexpr int kWBytes = 16 * WG_STAGE_GROUPS * WG_N;
+  static constexpr int kSBytes = WG_STAGE_GROUPS * WG_N * 2;
+  static constexpr int kRowStep = 1;  // D rows gid, gid + 8: columns c, c + 1
+  static constexpr bool kColScale = false;
+  __device__ static void tma(const CUtensorMap* pmap, const CUtensorMap* smap, uint8_t* pdst,
+                             uint8_t* sdst, int nt, int s, uint64_t* bar) {
+    tma_load_2d(pdst, pmap, nt * WG_N, s * 16 * WG_STAGE_GROUPS, bar);
+    tma_load_2d(sdst, smap, nt * WG_N, s * WG_STAGE_GROUPS, bar);
+  }
+  __device__ const float* col_scale() const { return nullptr; }
 };
+template <int BM>
+using WgSmem = WgRing<BM, Int4FwdTiles::kWBytes, Int4FwdTiles::kSBytes>;
 
 // One group's A fragments and scales for this thread: the weights of D rows
 // gid and gid + 8 (tile columns c and c + 1), from the packed stage tile
@@ -258,11 +265,11 @@ struct WgGroup {
 
 __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __nv_bfloat16* ss,
                                         int o0, int o1, int c, int gi) {
-  const uint8_t* p = ps + gi * 16 * WG_BN;
+  const uint8_t* p = ps + gi * 16 * WG_N;
   uint32_t v[4] = {*reinterpret_cast<const uint16_t*>(p + o0),
                    *reinterpret_cast<const uint16_t*>(p + o1),
-                   *reinterpret_cast<const uint16_t*>(p + o0 + 8 * WG_BN),
-                   *reinterpret_cast<const uint16_t*>(p + o1 + 8 * WG_BN)};
+                   *reinterpret_cast<const uint16_t*>(p + o0 + 8 * WG_N),
+                   *reinterpret_cast<const uint16_t*>(p + o1 + 8 * WG_N)};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const uint32_t lo = v[2 * h], hi = v[2 * h + 1];
@@ -272,18 +279,9 @@ __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __n
     g.a[h][2] = int4_pair_bf16x2(hi, hi4, 0);
     g.a[h][3] = int4_pair_bf16x2(hi, hi4, 1);
   }
-  const uint32_t s = *reinterpret_cast<const uint32_t*>(ss + gi * WG_BN + c);
+  const uint32_t s = *reinterpret_cast<const uint32_t*>(ss + gi * WG_N + c);
   g.s_lo = __uint_as_float(s << 16);
   g.s_hi = __uint_as_float(s & 0xFFFF0000u);
-}
-
-template <int BM>
-__device__ __forceinline__ void wg_mma(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc,
-                                       int scale_d) {
-  if constexpr (BM == 128)
-    wgmma_rs_n128(d, a, desc, scale_d);
-  else
-    wgmma_rs_n64(d, a, desc, scale_d);
 }
 
 // The group's f32 partial (its first wgmma with scale-d = 0, so nothing is
@@ -316,109 +314,53 @@ __device__ __forceinline__ void wg_finish(float (&acc)[BM / 2], float (&part)[BM
   }
 }
 
-// Accumulator (4j + e) of this thread is x row 8j + 2t + (e & 1) and weight
-// column n + (e >> 1): a column pair is one bf16x2 store.
-template <int BM>
-__device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat16* __restrict__ y,
-                                         int m0, int n, int M, int N) {
-  if (n >= N) return;  // N % 16 == 0: n + 1 < N as well
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < BM / 8; ++j) {
-    const int m = m0 + 8 * j + 2 * t;
-    if (m < M)
-      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
-          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
-    if (m + 1 < M)
-      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m + 1) * N + n) =
-          __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
-  }
-}
-
-// Persistent: block b takes work units b, b + grid, ...; unit u is m-tile u
-// % mtiles, then K split, then column tile (so the blocks at work together
-// share a column tile's weights and x's rows through L2).  Warpgroup 2 is
-// the producer: lane 0 of its first warp keeps WG_STAGES stages of TMA
-// loads in flight (x's BM x 64 tile, the 32 x 128 packed tile, the 2 x 128
-// scales), each stage's `full` barrier counting the bytes, its `empty`
-// barrier the 8 consumer warps' release.  Warpgroups 0 and 1 each own 64
-// of the tile's columns: per group, 4 packed u16 loads become the A
-// fragments of two wgmma m64n{BM}k16 (weights as A from registers, x's
-// K-major rows as B from the swizzled tile) into one of two partial
-// accumulators, and while they run the CUDA cores fold the other partial,
-// the previous group's, into acc with that group's scale.
+// Persistent, on common.cuh's ring, producer and epilogue (the producer's
+// stage: x's BM x 64 tile, the 32 x 128 packed tile, the 2 x 128 scales).
+// Warpgroups 0 and 1 each own 64 of the tile's columns: per group, 4 packed
+// u16 loads become the A fragments of two wgmma m64n{BM}k16 (weights as A
+// from registers, x's K-major rows as B from the swizzled tile) into one of
+// two partial accumulators, and while they run the CUDA cores fold the
+// other partial, the previous group's, into acc with that group's scale.
 template <int BM>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap pmap,
                   const __grid_constant__ CUtensorMap smap, __nv_bfloat16* __restrict__ y,
                   float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
-                  int gps, int nsplit, int mtiles, int units) {
+                  const WgSchedule sc) {
   using L = WgSmem<BM>;
   extern __shared__ uint8_t wg_smem_raw[];
-  const uint32_t raw = smem_u32(wg_smem_raw);
-  uint8_t* smem = wg_smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* empty = full + WG_STAGES;
-  int* merge_flag = reinterpret_cast<int*>(smem + L::FLAG_OFF);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int G = K / 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG_CONSUMER_WARPS);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp >= WG_CONSUMER_WARPS) {  // the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
-    if (warp != WG_CONSUMER_WARPS || lane != 0) return;
-    int st = 0;
-    uint32_t ph = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const int mt = u % mtiles, rest = u / mtiles;
-      const int sp = rest % nsplit, nt = rest / nsplit;
-      const int g1 = min(G, (sp + 1) * gps);
-      for (int g = sp * gps; g < g1; g += WG_STAGE_GROUPS) {
-        mbar_wait(&empty[st], ph ^ 1);
-        mbar_arrive_expect_tx(&full[st], L::XS + L::PS + L::SS);
-        tma_load_2d(smem + st * L::XS, &xmap, g * 32, mt * BM, &full[st]);
-        tma_load_2d(smem + L::P_OFF + st * L::PS, &pmap, nt * WG_BN, g * 16, &full[st]);
-        tma_load_2d(smem + L::S_OFF + st * L::SS, &smap, nt * WG_BN, g, &full[st]);
-        if (++st == WG_STAGES) {
-          st = 0;
-          ph ^= 1;
-        }
-      }
-    }
+  uint64_t *full, *empty;
+  int* merge_flag;
+  uint8_t* smem = wg_setup<L>(wg_smem_raw, full, empty, merge_flag);
+  if (threadIdx.x >= WG_CONSUMER_WARPS * 32) {
+    wg_produce<BM, Int4FwdTiles>(&xmap, &pmap, &smap, smem, full, empty, sc);
     return;
   }
 
   // the consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int G = K / 32;
   const int wg = warp >> 2, w = warp & 3, gid = lane >> 2, t = lane & 3;
   const int c = wg * 64 + 16 * w + 2 * gid;  // tile columns of D rows gid (c) and gid + 8 (c + 1)
   const int q = c >> 4;                      // its 16-byte chunk of a packed row
-  const int o0 = t * WG_BN + ((q ^ t) << 4) + 2 * gid;              // byte row t
-  const int o1 = (t + 4) * WG_BN + ((q ^ (t + 4)) << 4) + 2 * gid;  // byte row t + 4
-  const int tid = threadIdx.x & 127;
-  const auto stage_p = [&](int s) { return smem + L::P_OFF + s * L::PS; };
+  const int o0 = t * WG_N + ((q ^ t) << 4) + 2 * gid;              // byte row t
+  const int o1 = (t + 4) * WG_N + ((q ^ (t + 4)) << 4) + 2 * gid;  // byte row t + 4
+  const auto stage_p = [&](int s) { return smem + L::W_OFF + s * Int4FwdTiles::kWBytes; };
   const auto stage_s = [&](int s) {
-    return reinterpret_cast<const __nv_bfloat16*>(smem + L::S_OFF + s * L::SS);
+    return reinterpret_cast<const __nv_bfloat16*>(smem + L::S_OFF + s * Int4FwdTiles::kSBytes);
   };
   // group 2i of a unit (a stage's first) goes through ga and p0, group 2i +
   // 1 through gb and p1; at most two groups' wgmmas in flight
   float acc[BM / 2], p0[BM / 2], p1[BM / 2];
   int st = 0;
   uint32_t ph = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int mt = u % mtiles, rest = u / mtiles;
-    const int sp = rest % nsplit, nt = rest / nsplit;
-    const int g0 = sp * gps, ng = min(G, g0 + gps) - g0;
-    const int nstages = (ng + WG_STAGE_GROUPS - 1) / WG_STAGE_GROUPS;
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x) {
+    int mt, sp, nt, s0, s1;
+    sc.unit(u, mt, sp, nt, s0, s1);
+    const int ng = min(G, s1 * WG_STAGE_GROUPS) - s0 * WG_STAGE_GROUPS;
+    const int nstages = s1 - s0;
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
 
@@ -457,92 +399,29 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       st = 0;
       ph ^= 1;
     }
-
-    const int m0 = mt * BM, n = nt * WG_BN + c;
-    if (nsplit == 1) {
-      wg_store<BM>(acc, y, m0, n, M, N);
-      continue;
-    }
-    // K split: each warpgroup writes its f32 partial in register order; the
-    // last of the tile's splits to arrive sums them in split order and
-    // resets its counter (deterministic; nothing to reset between launches)
-    const int tile = nt * mtiles + mt;
-    const size_t slab = (size_t)(BM / 2) * 128;
-    float* mine = ws + ((size_t)(tile * nsplit + sp) * 2 + wg) * slab;
-#pragma unroll
-    for (int i = 0; i < BM / 2; ++i) mine[i * 128 + tid] = acc[i];
-    __threadfence();
-    named_bar_sync(1 + wg, 128);
-    if (tid == 0) merge_flag[wg] = atomicAdd(&arrivals[2 * tile + wg], 1) == nsplit - 1;
-    named_bar_sync(1 + wg, 128);
-    if (!merge_flag[wg]) continue;
-    __threadfence();
-#pragma unroll
-    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
-    for (int p = 0; p < nsplit; ++p) {
-      const float* src = ws + ((size_t)(tile * nsplit + p) * 2 + wg) * slab + tid;
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) acc[i] += __ldcg(src + i * 128);
-    }
-    wg_store<BM>(acc, y, m0, n, M, N);
-    if (tid == 0) arrivals[2 * tile + wg] = 0;
+    wg_finish_unit<BM>(acc, Int4FwdTiles{}, y, ws, arrivals, merge_flag, sc, mt, sp, nt, c, M,
+                       N);
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found at run time (the library
-// links no -lcuda); null where the driver has none.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A row-major (rows, cols) tensor of `type` with rows `row_bytes` apart, in
-// boxes of box_rows x box_cols.
-bool tensor_map_2d(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
-                   CUtensorMapDataType type, const void* base, int rows, int cols,
-                   size_t row_bytes, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BM>
 int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
-                 void* arrivals, int M, int K, int N, int nsplit, int gps, int ctas,
+                 void* arrivals, int M, int K, int N, const WgSchedule& sc, int ctas,
                  cudaStream_t stream) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, pmap, smap;
-  if (!tensor_map_2d(encode, &xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, (size_t)K * 2, BM,
-                     64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!act_map(encode, &xmap, x, M, K, BM) ||
       !tensor_map_2d(encode, &pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, K / 2, N, (size_t)N,
-                     16 * WG_STAGE_GROUPS, WG_BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+                     16 * WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map_2d(encode, &smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, K / 32, N,
-                     (size_t)N * 2, WG_STAGE_GROUPS, WG_BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+                     (size_t)N * 2, WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM>>(WgSmem<BM>::BYTES);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  const int mtiles = (M + BM - 1) / BM, ntiles = (N + WG_BN - 1) / WG_BN;
   int4_wgmma_kernel<BM><<<ctas, WG_THREADS, WgSmem<BM>::BYTES, stream>>>(
       xmap, pmap, smap, static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
-      static_cast<int*>(arrivals), M, K, N, gps, nsplit, mtiles, mtiles * ntiles * nsplit);
+      static_cast<int*>(arrivals), M, K, N, sc);
   return (int)cudaGetLastError();
 }
 
@@ -817,37 +696,67 @@ struct Int4TView {
       }
     }
   }
-  __device__ __forceinline__ const float* fold_ptr() const { return nullptr; }
-  // 64 byte rows (128 output columns) x 64 columns: one 16-byte chunk a thread
-  __device__ __forceinline__ void stage_b(__nv_bfloat16* bs, int k_base, int n0, int K,
-                                          int N) const {
-    const uint8_t* __restrict__ pk = packed;
-    for (int i = threadIdx.x; i < (TMM_BK / 2) * (TMM_BN / 16); i += TMM_THREADS) {
-      const int pr = i / (TMM_BN / 16), c = (i % (TMM_BN / 16)) * 16;
-      const int kr = k_base / 2 + pr, n = n0 + c;
-      uint32_t lo[8], hi[8];
-      if (kr < K / 2 && n < N) {
-        const uint4 v = *reinterpret_cast<const uint4*>(pk + (size_t)kr * N + n);
-        const __nv_bfloat16* sp = scale + (size_t)(2 * kr / 32) * N + n;
-        float s[16];
-        load8(sp, s);
-        load8(sp + 8, s + 8);
-        const uint8_t* p = reinterpret_cast<const uint8_t*>(&v);
+
+  // t_wgmma_kernel's view.  A stage: 64 byte rows (128 output columns) x 64
+  // contraction bytes of packed (64B swizzle: 16-byte chunk h of byte row r
+  // sits at chunk h ^ ((r >> 1) & 3)) and those rows' 4 x 64 scales.  D rows
+  // gid and gid + 8 of a warp are the low and high nibbles of one byte row
+  // (output columns c and c + 1): a u16 load of two neighbouring bytes gives
+  // both rows' A registers for two contraction elements, each weight
+  // bf16(q * s) by one bf16x2 multiply of the exact q, one scale pair for
+  // both rows (they share a group).
+  static constexpr int kWBytes = (WG_N / 2) * WG_STEP;
+  static constexpr int kSBytes = (WG_N / 32) * WG_STEP * 2;
+  static constexpr int kRowStep = 1;
+  static constexpr bool kColScale = false;
+  __device__ const float* col_scale() const { return nullptr; }
+
+  __device__ static void tma(const CUtensorMap* pmap, const CUtensorMap* smap, uint8_t* pdst,
+                             uint8_t* sdst, int nt, int s, uint64_t* bar) {
+    tma_load_2d(pdst, pmap, s * WG_STEP, nt * (WG_N / 2), bar);
+    tma_load_2d(sdst, smap, s * WG_STEP, nt * (WG_N / 32), bar);
+  }
+  static bool maps(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* pmap, CUtensorMap* smap,
+                   const void* packed, const void* scale, int K, int N) {
+    return tensor_map_2d(encode, pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, K / 2, N,
+                         (size_t)N, WG_N / 2, WG_STEP, CU_TENSOR_MAP_SWIZZLE_64B) &&
+           tensor_map_2d(encode, smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, K / 32, N,
+                         (size_t)N * 2, WG_N / 32, WG_STEP, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+
+  // c: the output column of D row gid; o[h]: the bytes 16h + 2t, 2t + 1 of
+  // its byte row (k16 step h; + 8 for 16h + 2t + 8); so: its scale row at
+  // contraction 2t
+  struct Lane {
+    int c, so, o[4];
+  };
+  __device__ static Lane lane(int tid) {
+    const int wg = tid >> 7, w = (tid >> 5) & 3, gid = (tid >> 2) & 7, t = tid & 3;
+    Lane ln;
+    ln.c = wg * 64 + 16 * w + 2 * gid;
+    const int r = ln.c >> 1;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          lo[j] = bf16x2_bits(nib_lo(p[2 * j]) * s[2 * j], nib_lo(p[2 * j + 1]) * s[2 * j + 1]);
-          hi[j] = bf16x2_bits(nib_hi(p[2 * j]) * s[2 * j], nib_hi(p[2 * j + 1]) * s[2 * j + 1]);
-        }
-      } else {
+    for (int h = 0; h < 4; ++h) ln.o[h] = r * WG_STEP + ((h ^ ((r >> 1) & 3)) << 4) + 2 * t;
+    ln.so = (ln.c >> 5) * WG_STEP * 2 + 4 * t;
+    return ln;
+  }
+  template <int H>
+  __device__ __forceinline__ void load(uint32_t (&f)[2][4], const uint8_t* wt, const uint8_t* st,
+                                       const Lane& ln) const {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0u;
-      }
-      __nv_bfloat16* even = bs + (2 * pr) * TMM_STRIDE + c;
-      __nv_bfloat16* odd = even + TMM_STRIDE;
-      *reinterpret_cast<uint4*>(even) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(even + 8) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      *reinterpret_cast<uint4*>(odd) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(odd + 8) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    for (int i = 0; i < 2; ++i) {
+      const int h = 2 * H + i;
+      const uint32_t v0 = *reinterpret_cast<const uint16_t*>(wt + ln.o[h]);
+      const uint32_t v1 = *reinterpret_cast<const uint16_t*>(wt + ln.o[h] + 8);
+      const uint32_t s0 = *reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h);
+      const uint32_t s1 = *reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h + 16);
+      uint32_t lo, hi;
+      int4_rows_bf16x2(v0, lo, hi);
+      f[i][0] = bf16x2_mul(lo, s0);
+      f[i][1] = bf16x2_mul(hi, s0);
+      int4_rows_bf16x2(v1, lo, hi);
+      f[i][2] = bf16x2_mul(lo, s1);
+      f[i][3] = bf16x2_mul(hi, s1);
     }
   }
 };
@@ -905,23 +814,25 @@ int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale
 }
 
 // Hopper tensor-core kernel, bf16 only, one launch: tiles of bm (64 or 128)
-// rows x 128 columns, nsplit K splits of gps groups over ctas persistent
-// blocks (ops/quant_matmul.py::mma_plan); ws holds tiles * nsplit * bm *
-// 128 floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
+// rows x 128 columns, nsplit K splits of gps groups (even where nsplit > 1:
+// a split starts on a stage) over ctas persistent blocks
+// (ops/quant_matmul.py::mma_plan); ws holds tiles * nsplit * bm * 128
+// floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
 // launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
 int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
                        void* arrivals, int M, int K, int N, int bm, int nsplit, int gps, int ctas,
                        void* stream) {
-  const int G = K / 32;
-  if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 || nsplit < 1 || gps < 1 || ctas < 1 ||
-      (nsplit - 1) * gps >= G || nsplit * gps < G || (nsplit > 1 && (ws == nullptr)))
+  const int G = K / 32, steps = (G + WG_STAGE_GROUPS - 1) / WG_STAGE_GROUPS;
+  if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 || gps < 1 || (nsplit > 1 && gps % 2) ||
+      (nsplit - 1) * gps >= G || nsplit * gps < G)
     return (int)cudaErrorInvalidValue;
+  const int sps = nsplit > 1 ? gps / WG_STAGE_GROUPS : steps;
+  if (!wg_plan_ok(steps, bm, nsplit, sps, ctas, ws)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
   if (bm == 128)
-    return launch_wgmma<128>(x, packed, scale, y, ws, arrivals, M, K, N, nsplit, gps, ctas, s);
-  if (bm == 64)
-    return launch_wgmma<64>(x, packed, scale, y, ws, arrivals, M, K, N, nsplit, gps, ctas, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_wgmma<128>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+  return launch_wgmma<64>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
 }
 
 // B14, CUDA-core form: out (M, K) = g (M, N) @ dequant(packed (K/2, N),
@@ -940,14 +851,19 @@ int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, vo
   return (int)cudaGetLastError();
 }
 
-// B14, tensor-core form, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
-int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, void* out, int M,
-                       int K, int N, void* stream) {
+// B14, tensor-core form (t_wgmma_kernel), bf16 only, one launch: tiles of
+// bm (64 or 128) rows of g x 128 output columns, nsplit splits of sps
+// 64-column stages of N over ctas persistent blocks
+// (ops/quant_matmul.py::t_mma_plan); ws holds tiles * nsplit * bm * 128
+// floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
+// launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, void* out,
+                         void* ws, void* arrivals, int M, int K, int N, int bm, int nsplit,
+                         int sps, int ctas, void* stream) {
   const Int4TView wv{static_cast<const uint8_t*>(packed),
                      static_cast<const __nv_bfloat16*>(scale)};
-  t_mma(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
-        reinterpret_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_t_wgmma(wv, g, packed, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
+                        reinterpret_cast<cudaStream_t>(stream));
 }
 
 const char* chatglm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -18,12 +18,17 @@
 //   warps reduce in shared memory in a fixed order, and splitk_reduce_kernel
 //   (common.cuh) sums the f32 partials of the splits in a fixed order,
 //   applies the scale and casts.  Deterministic, no atomics.
-// * int8_mma_kernel (bf16, large M, prefill): bound by operations.  A 64x128
-//   output tile per block; each stage copies 128 K-columns of x and 128 int8
-//   weight rows into shared memory, and eight warps run mma.sync.m16n8k16
-//   (bf16 in, f32 out).  The B fragment holds K rows (2t, 2t+1) and
-//   (2t+8, 2t+9) of one column: each lane converts those four bytes to bf16
-//   in registers.  No TMA, wgmma or multi-stage pipeline yet.
+// * int8_wgmma_kernel (bf16, M > MMA_MIN_M: prefill, engine chunks,
+//   training): bound by operations.  common.cuh's Hopper mainloop (B1's
+//   persistent TMA + mbarrier ring and producer warpgroup, wgmma with the
+//   weights as A from registers and x's rows as B from the swizzled tile,
+//   contraction splits merged in the launch; wg_plan picks the tile and
+//   splits, so kv_proj's 4 column tiles still fill the card), the scale on
+//   the f32 sum in the epilogue.  A K pair of one column
+//   is two bytes N apart: D rows gid and gid + 8 are columns c and c + 1,
+//   so two u16 loads (K rows k and k + 1 at c, c + 1) interleaved by one
+//   PRMT hold both rows' pairs, converted exactly through f32
+//   (s8x4_bf16x2: bf16 holds 8 significant bits, too few for a bias trick).
 //
 // The backward kernels (B13) replace pallas_matmul.py:_int8_t_kernel
 // (int8_matmul_t_pallas): grad_x (M,K) = (g (M,N) * scale) @ w (K,N)ᵀ, the
@@ -35,9 +40,10 @@
 // Both are common.cuh's transposed bodies over Int8TView:
 // * t_gemv_kernel<Int8TView> (f32 g, or M <= 16): bound by the weight bytes;
 //   one warp per 4 output columns, 8-byte loads along N.
-// * t_mma_kernel<Int8TView> (bf16, M > 16, training's M = B*S): bound by
-//   operations; 64x128 output tiles of mma.sync.m16n8k16 over 64-column
-//   stages of N, the int8 rows converted to bf16 in shared memory.
+// * t_wgmma_kernel<Int8TView> (bf16, M > 16, training's M = B*S): bound by
+//   operations; the Hopper mainloop above with the weight rows as A (each
+//   u16 load one exact bf16x2 register) and the scale folded into each g
+//   stage in shared memory before its wgmmas (Int8TView::fold_tile).
 #include "common.cuh"
 
 namespace {
@@ -143,102 +149,83 @@ void gemv(const T* x, const int8_t* w, const float* scale, T* y, float* ws, int 
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16 activations, large M)
+// Hopper tensor-core kernel (bf16 activations, M > MMA_MIN_M)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BM = 64;
-constexpr int MMA_BN = 128;
-constexpr int MMA_BK = 128;
-constexpr int XS_STRIDE = MMA_BK + 8;   // bf16 per x row in smem (pad: no bank conflicts)
-constexpr int WS_STRIDE = MMA_BN + 16;  // bytes per weight row in smem (16-aligned pad)
+// B6's view of common.cuh's mainloop.  A stage: 64 K rows x 128 columns of w
+// (128B swizzle: 16-byte chunk q of row r sits at chunk q ^ (r & 7)).  D
+// rows gid and gid + 8 of a warp are columns c and c + 1, so the u16 loads
+// of K rows k and k + 1 at columns c, c + 1 hold both rows' K pairs: one
+// PRMT interleaves them and s8x4_bf16x2 converts them exactly.  No scale
+// tile: the per-column scale multiplies the f32 sum in the epilogue.
+struct Int8FwdView {
+  const float* scale;
+  static constexpr int kWBytes = WG_STEP * WG_N;
+  static constexpr int kSBytes = 0;
+  static constexpr int kRowStep = 1;
+  static constexpr bool kColScale = true;
+  static constexpr bool kFoldG = false;
+  __device__ const float* col_scale() const { return scale; }
 
-__device__ __forceinline__ uint32_t s8_pair_bf16(int8_t lo, int8_t hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn((float)lo, (float)hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  __device__ static void tma(const CUtensorMap* wmap, const CUtensorMap*, uint8_t* wdst, uint8_t*,
+                             int nt, int s, uint64_t* bar) {
+    tma_load_2d(wdst, wmap, nt * WG_N, s * WG_STEP, bar);
+  }
+
+  // c: the output column of D row gid; o[i]: its bytes (c, c + 1) in K rows
+  // 2t, 2t + 1, 2t + 8, 2t + 9 of k16 step 0 (step h: + 16h rows)
+  struct Lane {
+    int c, o[4];
+  };
+  __device__ static Lane lane(int tid) {
+    const int wg = tid >> 7, w = (tid >> 5) & 3, gid = (tid >> 2) & 7, t = tid & 3;
+    Lane ln;
+    ln.c = wg * 64 + 16 * w + 2 * gid;
+    const int q = ln.c >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 2 * t + (i & 1) + 8 * (i >> 1);
+      ln.o[i] = r * WG_N + ((q ^ (r & 7)) << 4) + (ln.c & 15);
+    }
+    return ln;
+  }
+  template <int H>
+  __device__ __forceinline__ void load(uint32_t (&f)[2][4], const uint8_t* wt, const uint8_t*,
+                                       const Lane& ln) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint8_t* p = wt + (2 * H + i) * 16 * WG_N;
+      uint32_t r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = *reinterpret_cast<const uint16_t*>(p + ln.o[e]);
+      // (k, c), (k + 1, c), (k, c + 1), (k + 1, c + 1): D row gid's pair, then gid + 8's
+      s8x4_bf16x2(__byte_perm(r[0], r[1], 0x5140), f[i][0], f[i][1]);
+      s8x4_bf16x2(__byte_perm(r[2], r[3], 0x5140), f[i][2], f[i][3]);
+    }
+  }
+};
+
+template <int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap, const Int8FwdView v,
+                  __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                  int* __restrict__ arrivals, int M, int N, const WgSchedule sc) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  wg_body<BM, Int8FwdView>(wg_smem_raw, &xmap, &wmap, &wmap, v, y, ws, arrivals, M, N, sc);
 }
 
-__global__ void __launch_bounds__(256)
-int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int M, int K,
-                int N) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MMA_BM * XS_STRIDE];
-  __shared__ __align__(16) int8_t wsm[MMA_BK * WS_STRIDE];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 32;  // 2 warps along M, 32 rows each
-  const int wn = (warp & 3) * 32;   // 4 warps along N, 32 columns each
-  const int m_base = blockIdx.y * MMA_BM;
-  const int n_base = blockIdx.x * MMA_BN;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += MMA_BK) {
-    for (int i = tid; i < MMA_BM * (MMA_BK / 8); i += 256) {
-      const int r = i / (MMA_BK / 8), c = (i % (MMA_BK / 8)) * 8;
-      const int row = m_base + r, k = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M && k < K) v = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k);
-      *reinterpret_cast<uint4*>(xs + r * XS_STRIDE + c) = v;
-    }
-    for (int i = tid; i < MMA_BK * (MMA_BN / 16); i += 256) {
-      const int r = i / (MMA_BN / 16), c = (i % (MMA_BN / 16)) * 16;
-      const int k = k0 + r, n = n_base + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < K && n < N) v = *reinterpret_cast<const uint4*>(w + (size_t)k * N + n);
-      *reinterpret_cast<uint4*>(wsm + r * WS_STRIDE + c) = v;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < MMA_BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* base = xs + (wm + mi * 16 + gid) * XS_STRIDE + kk + tig * 2;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * XS_STRIDE);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * XS_STRIDE + 8);
-      }
-      uint32_t b[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* pb = wsm + (kk + tig * 2) * WS_STRIDE + wn + ni * 8 + gid;
-        b[ni][0] = s8_pair_bf16(pb[0], pb[WS_STRIDE]);
-        b[ni][1] = s8_pair_bf16(pb[8 * WS_STRIDE], pb[9 * WS_STRIDE]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n_base + wn + ni * 8 + tig * 2;
-    if (col >= N) continue;  // N % 16 == 0, so col + 1 < N as well
-    const float s0 = scale[col], s1 = scale[col + 1];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int row = m_base + wm + mi * 16 + gid;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0] * s0, acc[mi][ni][1] * s1);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2] * s0, acc[mi][ni][3] * s1);
-    }
-  }
+template <int BM>
+int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8FwdView& v, void* y,
+                 void* ws, void* arrivals, int M, int N, const WgSchedule& sc, int ctas,
+                 cudaStream_t stream) {
+  constexpr int bytes = WgRing<BM, Int8FwdView::kWBytes, Int8FwdView::kSBytes>::BYTES;
+  const cudaError_t opt_in = smem_opt_in<int8_wgmma_kernel<BM>>(bytes);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  int8_wgmma_kernel<BM><<<ctas, WG_THREADS, bytes, stream>>>(
+      xmap, wmap, v, static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+      static_cast<int*>(arrivals), M, N, sc);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -271,22 +258,90 @@ struct Int8TView {
       }
     }
   }
-  __device__ __forceinline__ const float* fold_ptr() const { return scale; }
-  __device__ __forceinline__ void stage_b(__nv_bfloat16* bs, int k_base, int n0, int K,
-                                          int N) const {
-    const int8_t* __restrict__ wr = w;
-    for (int i = threadIdx.x; i < TMM_BK * (TMM_BN / 16); i += TMM_THREADS) {
-      const int r = i / (TMM_BN / 16), c = (i % (TMM_BN / 16)) * 16;
-      const int k = k_base + r, n = n0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < K && n < N) v = *reinterpret_cast<const uint4*>(wr + (size_t)k * N + n);
-      const int8_t* q = reinterpret_cast<const int8_t*>(&v);
-      uint32_t o[8];
+
+  // t_wgmma_kernel's view.  A stage: 128 weight rows (output columns) x 64
+  // contraction bytes (64B swizzle: 16-byte chunk h of row r sits at chunk
+  // h ^ ((r >> 1) & 3)) and the 64 f32 scales of those contraction columns.
+  // D rows gid and gid + 8 are output columns c and c + 8 (neighbouring
+  // rows would meet in one bank), each u16 load one A register.  The scale
+  // folds into g: the consumers rewrite each g stage in place as bf16(g *
+  // bf16(s)) before its wgmmas (fold_tile); a pre-pass kernel would cost a
+  // launch and an M x N read and write, and g as A from registers an int8
+  // -> bf16 B tile written back to shared memory.
+  static constexpr int kWBytes = WG_N * WG_STEP;
+  static constexpr int kSBytes = WG_STEP * 4;
+  static constexpr int kRowStep = 8;
+  static constexpr bool kColScale = false;
+  __device__ const float* col_scale() const { return nullptr; }
+
+  __device__ static void tma(const CUtensorMap* wmap, const CUtensorMap* smap, uint8_t* wdst,
+                             uint8_t* sdst, int nt, int s, uint64_t* bar) {
+    tma_load_2d(wdst, wmap, s * WG_STEP, nt * WG_N, bar);
+    tma_load_2d(sdst, smap, s * WG_STEP, 0, bar);
+  }
+  static bool maps(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* wmap, CUtensorMap* smap,
+                   const void* w, const void* scale, int K, int N) {
+    return tensor_map_2d(encode, wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N, WG_N,
+                         WG_STEP, CU_TENSOR_MAP_SWIZZLE_64B) &&
+           tensor_map_2d(encode, smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, 1, N,
+                         (size_t)N * 4, 1, WG_STEP, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+
+  // c: the output column of D row gid; o[h]: its bytes 16h + 2t, 2t + 1 (+ 8
+  // for 16h + 2t + 8; row c + 8 is 8 rows on, with the same swizzle)
+  struct Lane {
+    int c, o[4];
+  };
+  __device__ static Lane lane(int tid) {
+    const int wg = tid >> 7, w = (tid >> 5) & 3, gid = (tid >> 2) & 7, t = tid & 3;
+    Lane ln;
+    ln.c = wg * 64 + 16 * w + gid;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = s8_pair_bf16(q[2 * j], q[2 * j + 1]);
-      *reinterpret_cast<uint4*>(bs + r * TMM_STRIDE + c) = make_uint4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<uint4*>(bs + r * TMM_STRIDE + c + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    for (int h = 0; h < 4; ++h)
+      ln.o[h] = ln.c * WG_STEP + ((h ^ ((ln.c >> 1) & 3)) << 4) + 2 * t;
+    return ln;
+  }
+  template <int H>
+  __device__ __forceinline__ void load(uint32_t (&f)[2][4], const uint8_t* wt, const uint8_t*,
+                                       const Lane& ln) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint8_t* p = wt + ln.o[2 * H + i];
+      const uint32_t r0 = *reinterpret_cast<const uint16_t*>(p);  // row c
+      const uint32_t r1 = *reinterpret_cast<const uint16_t*>(p + 8 * WG_STEP);  // row c + 8
+      const uint32_t r2 = *reinterpret_cast<const uint16_t*>(p + 8);
+      const uint32_t r3 = *reinterpret_cast<const uint16_t*>(p + 8 * WG_STEP + 8);
+      s8x4_bf16x2(__byte_perm(r0, r1, 0x5410), f[i][0], f[i][1]);
+      s8x4_bf16x2(__byte_perm(r2, r3, 0x5410), f[i][2], f[i][3]);
     }
+  }
+  // g's stage tile (BM rows x 64 bf16, 128B swizzle) times the stage's
+  // scales rounded to bf16, each product rounded once to bf16 (the plain
+  // version's g * scale.to(bf16)), in place.  Thread i of the 256 consumers
+  // takes 16-byte chunk i % 8 of rows i / 8 + 32j: the same logical columns
+  // on each row (the swizzle repeats every 8 rows), so its 8 scales load
+  // once.  Then the writes are made visible to the wgmmas' async proxy and
+  // both consumer warpgroups meet.
+  template <int BM>
+  __device__ __forceinline__ void fold_tile(uint8_t* xs, const uint8_t* st) const {
+    const int i = threadIdx.x, p = i & 7, r0 = i >> 3;
+    const int q = p ^ (r0 & 7);  // columns 8q .. 8q + 7
+    const float4 a = *reinterpret_cast<const float4*>(st + 32 * q);
+    const float4 b = *reinterpret_cast<const float4*>(st + 32 * q + 16);
+    const uint32_t s[4] = {bf16x2_bits(a.x, a.y), bf16x2_bits(a.z, a.w), bf16x2_bits(b.x, b.y),
+                           bf16x2_bits(b.z, b.w)};
+#pragma unroll
+    for (int j = 0; j < BM / 32; ++j) {
+      uint4* chunk = reinterpret_cast<uint4*>(xs + (r0 + 32 * j) * 128 + 16 * p);
+      uint4 v = *chunk;
+      v.x = bf16x2_mul(v.x, s[0]);
+      v.y = bf16x2_mul(v.y, s[1]);
+      v.z = bf16x2_mul(v.z, s[2]);
+      v.w = bf16x2_mul(v.w, s[3]);
+      *chunk = v;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_bar_sync(WG_FOLD_BAR, WG_CONSUMER_WARPS * 32);
   }
 };
 
@@ -313,16 +368,31 @@ int chatglm_int8_gemv(const void* x, const void* w, const void* scale, void* y, 
   return (int)cudaGetLastError();
 }
 
-// Tensor-core kernel, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
-int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, int M, int K,
-                     int N, void* stream) {
+// Hopper tensor-core kernel (int8_wgmma_kernel), bf16 only, one launch:
+// tiles of bm (64 or 128) rows x 128 columns, nsplit K splits of sps
+// 64-row stages over ctas persistent blocks (ops/quant_matmul.py::wg_plan);
+// ws holds tiles * nsplit * bm * 128 floats (unused at nsplit 1), arrivals
+// 2 * tiles zeroed ints that every launch leaves at 0; K % 32 == 0,
+// N % 16 == 0, 16-byte aligned pointers.
+int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
+                       void* arrivals, int M, int K, int N, int bm, int nsplit, int sps, int ctas,
+                       void* stream) {
+  const int steps = (K + WG_STEP - 1) / WG_STEP;
+  if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 ||
+      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws))
+    return (int)cudaErrorInvalidValue;
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  if (!act_map(encode, &xmap, x, M, K, bm) ||
+      !tensor_map_2d(encode, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N, WG_STEP,
+                     WG_N, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const Int8FwdView v{static_cast<const float*>(scale)};
+  const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-  int8_mma_kernel<<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                       static_cast<const int8_t*>(w),
-                                       static_cast<const float*>(scale),
-                                       static_cast<__nv_bfloat16*>(y), M, K, N);
-  return (int)cudaGetLastError();
+  if (bm == 128) return launch_wgmma<128>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
+  return launch_wgmma<64>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
 }
 
 // B13, CUDA-core form: out (M, K) = (g (M, N) * scale (N,)) @ w (K, N)ᵀ.  g
@@ -339,13 +409,15 @@ int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* o
   return (int)cudaGetLastError();
 }
 
-// B13, tensor-core form, bf16 only; K % 32 == 0, N % 16 == 0, aligned pointers.
-int chatglm_int8_t_mma(const void* g, const void* w, const void* scale, void* out, int M, int K,
-                       int N, void* stream) {
+// B13, tensor-core form (t_wgmma_kernel), bf16 only, one launch: the plan
+// and buffers of chatglm_int4_t_mma (ops/quant_matmul.py::t_mma_plan);
+// K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+int chatglm_int8_t_mma(const void* g, const void* w, const void* scale, void* out, void* ws,
+                         void* arrivals, int M, int K, int N, int bm, int nsplit, int sps,
+                         int ctas, void* stream) {
   const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
-  t_mma(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
-        reinterpret_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_t_wgmma(wv, g, w, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
+                        reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

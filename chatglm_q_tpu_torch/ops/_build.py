@@ -38,19 +38,17 @@ SIGNATURES = {
     # x, packed, scale, y, workspace, arrivals, M, K, N, mt, cols, nsplit, groups_per_split,
     # groups_per_chunk, stream
     "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # x, packed, scale, y, workspace, arrivals, M, K, N, bm, nsplit, groups_per_split, ctas,
-    # stream
+    # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N, bm,
+    # nsplit, per split (B1: groups, the others: 64-element stages), ctas, stream
     "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "chatglm_int8_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "chatglm_int4_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # x, w, scale, y, M, K, N, stream
-    "chatglm_int8_mma": [P, P, P, P, I, I, I, P],
     # g, w (or packed), scale, out, M, K, N, g_is_bf16, stream (B13 / B14)
     "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
     "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
-    # g, w (or packed), scale, out, M, K, N, stream
-    "chatglm_int8_t_mma": [P, P, P, P, I, I, I, P],
-    "chatglm_int4_t_mma": [P, P, P, P, I, I, I, P],
     # xq, sx, w, scale, y, workspace, M, K, N, y_is_bf16, nsplit, groups_per_split, stream
     "chatglm_int8_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],

@@ -10,8 +10,10 @@ for the int4 matmul (ops/quant_matmul.py):
   kernel, bound by the weight bytes, with a fixed-order second pass that
   sums the f32 partials and applies the per-column scale.
 * ``int8_mma`` — bf16 activations at M > MMA_MIN_M (prefill, ``uses_mma``):
-  mma.sync tensor-core tiles, the int8 weights converted to bf16 in the
-  fragments.
+  ``int8_wgmma_kernel``, a persistent Hopper kernel on B1's mainloop (TMA
+  tiles in an mbarrier ring, wgmma with the weights as A from registers,
+  each int8 converted exactly to bf16); ``wg_plan`` picks the tile and the
+  K splits, merged in the same launch.
 
 Both multiply the f32 accumulator by the per-column scale once, after the K
 sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
@@ -21,16 +23,19 @@ weights before the dot instead: the same function, rounded elsewhere.
 (``int8_matmul_t_pallas``): the backward of the int8 linear, grad_x =
 (g · scale) @ wᵀ, over the same (K, N) weights.  As the TPU kernel does, the
 scale folds into g in g's dtype before the dot; JAX's jnp fallback
-(``linear.py::_int8_matmul_t_fallback``) scales w instead.  Two kernels in
-``csrc/int8_matmul.cu``, split as B6's: ``int8_t_gemv`` (f32 g or M ≤ 16)
-and ``int8_t_mma`` (bf16, M > 16).
+(``linear.py::_int8_matmul_t_fallback``) scales w instead.  Two kernels,
+split as B6's: ``int8_t_gemv`` (f32 g or M ≤ 16; ``csrc/int8_matmul.cu``)
+and ``int8_t_mma`` (bf16, M > 16): ``csrc/common.cuh``'s Hopper
+``t_wgmma_kernel`` over the int8 view, which folds the scale into each g
+stage in shared memory; ``t_mma_plan`` picks the tile and the contraction
+splits.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .quant_matmul import aligned, gemv_plan, uses_mma
+from .quant_matmul import aligned, gemv_plan, t_mma_plan, uses_mma, wg_call, wg_plan
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -75,12 +80,12 @@ int8_gemv.launches = 0
 
 
 def int8_mma(x, w, scale):
-    """Launch the tensor-core kernel (checked bf16 inputs on the card)."""
+    """Launch the Hopper tensor-core kernel (checked bf16 inputs on the card,
+    N % 16 == 0): one launch, any K splits merged inside it."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _build.call("chatglm_int8_mma", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                M, K, N, _build.stream_ptr(x))
+    wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, wg_plan(M, K, N))
     int8_mma.launches += 1
     return y
 
@@ -147,12 +152,12 @@ int8_t_gemv.launches = 0
 
 
 def int8_t_mma(g, w, scale):
-    """Launch B13's tensor-core kernel (checked bf16 inputs on the card)."""
+    """Launch B13's Hopper tensor-core kernel (checked bf16 inputs on the
+    card, N % 16 == 0): one launch, any contraction splits merged inside it."""
     M, N = g.shape
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    _build.call("chatglm_int8_t_mma", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+    wg_call("chatglm_int8_t_mma", g, w, scale, out, M, K, N, K, t_mma_plan(M, K, N))
     int8_t_mma.launches += 1
     return out
 

@@ -28,13 +28,19 @@ version only in the order of the f32 sums.
 (``int4_matmul_t_pallas``): the backward of the int4g32 linear, grad_x =
 g @ dequant(packed, scale)ᵀ over the same packed weights.  The scale varies
 along K/32 and N, so each weight is rounded once to g's dtype, bf16(q·s)
-under bf16, before the dot, as both JAX forms do.  Two kernels in
-``csrc/int4_matmul.cu``: ``int4g32_t_gemv`` (f32 g or M ≤ 16) and
-``int4g32_t_mma`` (bf16, M > 16).
+under bf16, before the dot, as both JAX forms do.  Two kernels:
+``int4g32_t_gemv`` (f32 g or M ≤ 16; ``csrc/int4_matmul.cu``) and
+``int4g32_t_mma`` (bf16, M > 16): ``csrc/common.cuh``'s Hopper
+``t_wgmma_kernel`` over the int4g32 view, B1's mainloop with the weights as
+A from registers (each bf16(q·s) one bf16x2 multiply), each stage's f32
+partial added to the accumulator on the CUDA cores; ``t_mma_plan`` picks
+the tile and the contraction splits.
 
 ``gemv_plan``, ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and
-dynamic int8 matmuls (B6/B7/B8) and the transposed kernels; B1's own routing
-and plans are ``int4_route``, ``splitk_plan`` and ``mma_plan``.
+dynamic int8 matmuls (B6/B7/B8) and the transposed kernels, and ``wg_plan``,
+``mma_smem`` and ``wg_call`` with every Hopper kernel (B1, B6, B13, B14);
+B1's own routing and plans are ``int4_route``, ``splitk_plan`` and
+``mma_plan``.
 """
 from __future__ import annotations
 
@@ -56,15 +62,23 @@ SPLITK_KW = 4            # warps per block, along K
 SPLITK_SMEM_MAX = 72 * 1024  # shared bytes a block (csrc: SK_SMEM_MAX); 48 KB up to mt = 2
 SPLITK_SMS = 132         # H100 SXM
 
-# B1's Hopper kernel above SMALL_M_MAX (csrc/int4_matmul.cu: WG_*)
-MMA_BN = 128             # weight columns a tile (two consumer warpgroups of 64)
-MMA_STAGE_GROUPS = 2     # 32-row groups a pipeline stage
+# The Hopper kernels (csrc/common.cuh: WG_*): B1 above SMALL_M_MAX, B6, B13, B14
+MMA_BN = 128             # output columns a tile (two consumer warpgroups of 64)
+MMA_STEP = 64            # contraction elements a pipeline stage
+MMA_STAGE_GROUPS = 2     # B1: 32-row groups a stage
 MMA_STAGES = 8           # stages in the shared-memory ring
 MMA_SMEM_MAX = 227 * 1024  # shared bytes a block may opt into on an H100
-# mma_plan's cost model, in group steps of a 128-row tile (a stage is two)
-MMA_FILL = 6             # a work unit's pipeline fill and epilogue
-MMA_MERGE = 2.5          # each K split's share of its tile's merge, per 128 rows
-MMA_BM64_STEP = 0.6      # a 64-row group step: half the MMAs, the same dequant
+# weight and scale bytes a stage (the views' kWBytes / kSBytes)
+MMA_TILE_BYTES = {
+    "int4g32": (16 * MMA_STAGE_GROUPS * MMA_BN, MMA_STAGE_GROUPS * MMA_BN * 2),  # B1
+    "int8": (MMA_STEP * MMA_BN, 0),                                              # B6
+    "int4g32_t": (MMA_BN // 2 * MMA_STEP, MMA_BN // 32 * MMA_STEP * 2),         # B14
+    "int8_t": (MMA_BN * MMA_STEP, MMA_STEP * 4),                                 # B13
+}
+# wg_plan's cost model, in stages of a 128-row tile
+MMA_FILL = 3.0           # a work unit's pipeline fill and epilogue
+MMA_MERGE = 1.25         # each split's share of its tile's merge, per 128 rows
+MMA_BM64_STEP = 0.6      # a 64-row stage: half the MMAs, the same weight conversion
 
 
 def int4g32_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -136,51 +150,84 @@ def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
     return mt, cols, -(-G // gps), gps, cg
 
 
-def mma_smem(bm: int) -> int:
-    """Shared bytes of a block of the Hopper kernel (csrc: WgSmem<bm>::BYTES):
-    per stage x's bm × 64 tile, 32 packed byte rows × 128 and 2 × 128
-    scales; a full and an empty barrier per stage, two merge flags, and the
-    slack that aligns the ring to 1024 bytes."""
-    stage = bm * 128 + 16 * MMA_STAGE_GROUPS * MMA_BN + MMA_STAGE_GROUPS * MMA_BN * 2
-    return MMA_STAGES * stage + 2 * MMA_STAGES * 8 + 16 + 1024
+def mma_smem(bm: int, kind: str = "int4g32") -> int:
+    """Shared bytes of a block of a Hopper kernel (csrc: WgRing<bm, ...>::BYTES):
+    per stage the activations' bm × 64 bf16 tile and the weight and scale
+    tiles of ``kind`` (MMA_TILE_BYTES: B1 32 packed byte rows × 128 and 2 ×
+    128 scales; B6 64 × 128 int8 bytes; B14 64 byte rows × 64 and 4 × 64
+    scales; B13 128 × 64 int8 bytes and 64 f32 scales); a full and an empty
+    barrier per stage, two merge flags, and the slack that aligns the ring
+    to 1024 bytes."""
+    wbytes, sbytes = MMA_TILE_BYTES[kind]
+    return MMA_STAGES * (bm * 128 + wbytes + sbytes) + 2 * MMA_STAGES * 8 + 16 + 1024
 
 
-def mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
-    """(bm, nsplit, groups_per_split, ctas) of the Hopper kernel for bf16 x
-    (M, K) and N columns.
+def wg_plan(M: int, C: int, n_out: int) -> tuple[int, int, int, int]:
+    """(bm, nsplit, stages_per_split, ctas) of a Hopper kernel with M
+    activation rows, a contraction of C elements (stages of MMA_STEP) and
+    n_out output columns.
 
-    Tiles of bm (128 or 64) rows × 128 columns, each split over K into
-    nsplit ranges of groups_per_split groups (even, so a split starts on a
-    stage); the tiles × nsplit work units go to ctas ≤ SPLITK_SMS
-    persistent blocks, one an SM.  The choice minimises a cost in group
-    steps: waves of units × (a unit's steps + MMA_FILL + its merge), where a
-    64-row step costs MMA_BM64_STEP of a 128-row one and a split adds
-    MMA_MERGE · bm/128 to its tile's merge (the last block reads every
-    split's partial).  Splits only while the units stay within two waves
-    and each split keeps at least two stages: a narrow N (kv_proj) or a
-    small M fills the card, the wide linears run whole K."""
-    G = K // 32
-    ntiles = -(-N // MMA_BN)
+    Tiles of bm (128 or 64) rows × 128 columns, each split over the
+    contraction into nsplit ranges of stages_per_split stages; the tiles ×
+    nsplit work units go to ctas ≤ SPLITK_SMS persistent blocks, one an SM.
+    The choice minimises a cost in stages: waves of units × (a unit's stages
+    + MMA_FILL + its merge), where a 64-row stage costs MMA_BM64_STEP of a
+    128-row one and a split adds MMA_MERGE · bm/128 to its tile's merge (the
+    last block reads every split's partial).  Splits only while the units
+    stay within two waves and each split keeps at least two stages: a narrow
+    output (kv_proj) or a small M fills the card, the wide linears run
+    whole."""
+    S = -(-C // MMA_STEP)
+    ntiles = -(-n_out // MMA_BN)
     best = None
     for bm in (128, 64):
         tiles = -(-M // bm) * ntiles
         step = 1.0 if bm == 128 else MMA_BM64_STEP
         last = 0
         for want in (1, 2, 4, 8, 16, 32):
-            gps = -(-G // want)
-            gps += gps % 2 if want > 1 else 0
-            nsplit = -(-G // gps)
+            sps = -(-S // want)
+            nsplit = -(-S // sps)
             if nsplit == last:
                 continue
-            if nsplit > 1 and (gps < 2 * MMA_STAGE_GROUPS or tiles * nsplit > 2 * SPLITK_SMS):
+            if nsplit > 1 and (sps < 2 or tiles * nsplit > 2 * SPLITK_SMS):
                 break
             last = nsplit
             units = tiles * nsplit
-            merge = 0.0 if nsplit == 1 else 1.0 + MMA_MERGE * nsplit * bm / 128
-            cost = -(-units // SPLITK_SMS) * (gps * step + MMA_FILL + merge)
+            merge = 0.0 if nsplit == 1 else 0.5 + MMA_MERGE * nsplit * bm / 128
+            cost = -(-units // SPLITK_SMS) * (sps * step + MMA_FILL + merge)
             if best is None or cost < best[0]:
-                best = (cost, (bm, nsplit, gps, min(units, SPLITK_SMS)))
+                best = (cost, (bm, nsplit, sps, min(units, SPLITK_SMS)))
     return best[1]
+
+
+def mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """(bm, nsplit, groups_per_split, ctas) of B1's Hopper kernel for bf16 x
+    (M, K) and N columns: ``wg_plan`` over K, each split's stages counted in
+    32-row groups (all K / 32 groups where K is not split)."""
+    bm, nsplit, sps, ctas = wg_plan(M, K, N)
+    return bm, nsplit, (MMA_STAGE_GROUPS * sps if nsplit > 1 else K // 32), ctas
+
+
+def t_mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """(bm, nsplit, stages_per_split, ctas) of the transposed Hopper kernel
+    (B13, B14) for g (M, N) and K output columns: ``wg_plan`` over the
+    contraction N."""
+    return wg_plan(M, N, K)
+
+
+def wg_call(name: str, a, w, scale, out, M: int, K: int, N: int, n_out: int, plan) -> None:
+    """Launch Hopper kernel ``name`` (csrc: chatglm_*_wgmma) on checked
+    tensors of the card with ``plan`` (bm, nsplit, per_split, ctas), the
+    split partials and arrival counters from the scratch buffers all these
+    kernels share (launches on a stream run in order; each leaves its
+    counters at 0)."""
+    bm, nsplit, per_split, ctas = plan
+    tiles = -(-M // bm) * -(-n_out // MMA_BN)
+    part = (_build.scratch("mma_part", a.device, tiles * nsplit * bm * MMA_BN,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    arrivals = _build.scratch("mma_arrivals", a.device, 2 * tiles, torch.int32)
+    _build.call(name, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
+                arrivals.data_ptr(), M, K, N, bm, nsplit, per_split, ctas, _build.stream_ptr(a))
 
 
 def _check(x, packed, scale):
@@ -231,15 +278,8 @@ def int4g32_mma(x, packed, scale):
     N % 16 == 0): one launch, any K splits merged inside it."""
     M, K = x.shape
     N = packed.shape[1]
-    bm, nsplit, gps, ctas = mma_plan(M, K, N)
-    tiles = -(-M // bm) * -(-N // MMA_BN)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = (_build.scratch("mma_part", x.device, tiles * nsplit * bm * MMA_BN,
-                           torch.float32).data_ptr() if nsplit > 1 else None)
-    arrivals = _build.scratch("mma_arrivals", x.device, 2 * tiles, torch.int32)
-    _build.call("chatglm_int4_wgmma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), part, arrivals.data_ptr(), M, K, N, bm, nsplit, gps, ctas,
-                _build.stream_ptr(x))
+    wg_call("chatglm_int4_wgmma", x, packed, scale, y, M, K, N, N, mma_plan(M, K, N))
     int4g32_mma.launches += 1
     return y
 
@@ -335,12 +375,12 @@ int4g32_t_gemv.launches = 0
 
 
 def int4g32_t_mma(g, packed, scale):
-    """Launch B14's tensor-core kernel (checked bf16 inputs on the card)."""
+    """Launch B14's Hopper tensor-core kernel (checked bf16 inputs on the
+    card, N % 16 == 0): one launch, any contraction splits merged inside it."""
     M, N = g.shape
     K = 2 * packed.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    _build.call("chatglm_int4_t_mma", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+    wg_call("chatglm_int4_t_mma", g, packed, scale, out, M, K, N, K, t_mma_plan(M, K, N))
     int4g32_t_mma.launches += 1
     return out
 

@@ -33,8 +33,10 @@ Phases (any failure raises and exits non-zero):
    (64) stands for.  The backward matmuls B13 (``int8_matmul_t``; library
    ``_weight_int8pack_mm`` on g · s) and B14 (``int4g32_matmul_t``; no
    library call, the dense ``g @ w_deq.T`` time as a reference) at the six
-   shapes transposed, M = 512 bf16, M = 16 bf16 (phase 7's 16-token step)
-   and M = 8 f32; B12
+   shapes transposed, M = 512 and 1024 bf16, M = 16 bf16 (phase 7's 16-token step)
+   and M = 8 f32, the Hopper rows of B1, B6, B13 and B14 also within
+   ``SUM_TOL`` of their exact value beyond its bf16 rounding and beside a
+   cuBLAS dense product on bf16 weights (``dense_ms``); B12
    (``flash_attention_decode_v2``) beside B4's row, held also to its own
    limit on the error beyond the output's bf16 rounding (``B12_TOL``), with
    a control that rounds p to bf16 and must exceed it, and B10 / B11 (the
@@ -73,7 +75,8 @@ Phases (any failure raises and exits non-zero):
    prompt, 32 tokens) with a tokenizer built in process whose every id
    below 65024 is a text piece or a special token; the text must equal
    the model-level text of ``prefill`` + ``multi_step_decode`` on the same
-   ids.  Decode ms/step at batch 1 for each mode.  Then a round trip at 6B
+   ids.  Decode ms/step at batch 1 for each mode; in int8 a traced 4 x 128
+   prefill, ``int8_wgmma_kernel``'s 168 launches apart.  Then a round trip at 6B
    widths, depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
    for int8 and int4g32, with identical tensors and equal logits.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
@@ -107,10 +110,11 @@ Phases (any failure raises and exits non-zero):
    ``remat_layers`` within phase 3b's limits, one 16-token step (the
    CUDA-core B14), every frozen leaf bit-unchanged; then the int8 tree for
    3 steps (B6 and B13).  ms and tokens/s a step, peak device memory, and
-   a traced step's device time by kernel with B1's Hopper kernel's share.
+   for each tree a traced step's device time by kernel, with its forward
+   and backward Hopper kernels' shares (B1 and B14, B6 and B13).
 
 The last lines are ``detail:`` and every measured row as one JSON object,
-the ``kernels`` JSON object (B1's entries also name their CUDA kernel), the
+the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
 nvidia-smi line of the card, and ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -131,6 +135,11 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores: the CUDA-core kernels' f32 r
 # the outputs differ by about one bf16 rounding (2^-8 = 3.9e-3 relative).
 KERNEL_TOL = 1e-2
 F32_TOL = 1e-5  # f32 outputs: the order of f32 sums alone
+# The Hopper matmuls (B1 above 64 rows, B6, B13, B14) are also held to the
+# card tests' bound on B1's kernels: every output within SUM_TOL of the sum
+# of its terms' magnitudes (f64) of its exact value beyond half a bf16 ulp,
+# i.e. an f32 sum of exact products, one rounding to bf16.
+SUM_TOL = 2.0 ** -23
 # The f32 parity forward (phase 3) at depth 2 through B1's CUDA-core gemv
 # against the plain path: f32 sums in another order, carried through two
 # layers of norms, attention and six linears.  On an H100 it read 1.35e-6,
@@ -190,9 +199,10 @@ MATMUL_M = (1, 4, 16, 20, 32, 36, 48, 128, 512, 1024)
 SPLITK_CROSSOVER_M = (16, 32, 64)  # B1's split-K kernel against its prefill kernel: SMALL_M_MAX
 DYN_M = (1, 4, 64, 512)      # B7 and B8 rows: decode, batch 4, the int4-dyn ceiling, prefill
 CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
-# B13/B14 rows: training's tensor-core M; the CUDA-core kernels at phase 7's
-# 16-token step (bf16, M = 16: the row the kernels line reports) and in f32
-T_ROWS = ((512, "bfloat16"), (16, "bfloat16"), (8, "float32"))
+# B13/B14 rows: the tensor-core kernel at a 4 x 128 batch and at training's
+# M = 1024; the CUDA-core kernels at phase 7's 16-token step (bf16, M = 16:
+# the row the kernels line reports) and in f32
+T_ROWS = ((512, "bfloat16"), (1024, "bfloat16"), (16, "bfloat16"), (8, "float32"))
 PROMPT_LENGTHS = (128, 77, 33, 5)
 INT4_PATH_KERNELS = ("int4g32_splitk", "int4g32_mma", "kv_cache_write_idx",
                      "flash_attention_decode", "flash_attention_prefill")
@@ -254,6 +264,21 @@ def bound_ms(nbytes, ops, peak=PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def beyond_sum(torch, got, exact, terms) -> float:
+    """The largest error of a bf16 output beyond half a bf16 ulp of its
+    exact value (f64), over the sum of its terms' magnitudes (f64)."""
+    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - 9)
+    excess = ((got.double() - exact).abs() - half_ulp).clamp_min(0.0)
+    return (excess / terms.clamp_min(1e-300)).max().item()
+
+
+def hold_sum(torch, name, got, exact, terms) -> float:
+    b = beyond_sum(torch, got, exact, terms)
+    require(b <= SUM_TOL, f"{name}: error beyond the bf16 rounding {b:.3e} of sum|terms| "
+                          f"> {SUM_TOL:.3e}")
+    return b
 
 
 def weight_copies(wbytes):
@@ -323,9 +348,15 @@ def log_row(fn, r):
 
 
 B1_KERNELS = {"splitk": "int4g32_splitk", "mma": "int4g32_mma", "gemv": "int4g32_gemv"}
-# the CUDA kernels behind B1's wrappers, named in the kernels line
+# the CUDA kernels behind the matmul wrappers of B1, B6, B13 and B14, named
+# in the kernels line (t_wgmma_kernel's body is csrc/common.cuh's)
 CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_wgmma_kernel",
-               "int4g32_gemv": "int4_gemv_kernel"}
+               "int4g32_gemv": "int4_gemv_kernel", "int8_mma": "int8_wgmma_kernel",
+               "int8_gemv": "int8_gemv_kernel",
+               "int4g32_t_mma": "t_wgmma_kernel<Int4TView> (csrc/common.cuh)",
+               "int4g32_t_gemv": "t_gemv_kernel<Int4TView> (csrc/common.cuh)",
+               "int8_t_mma": "t_wgmma_kernel<Int8TView> (csrc/common.cuh)",
+               "int8_t_gemv": "t_gemv_kernel<Int8TView> (csrc/common.cuh)"}
 
 
 def check_matmul(torch):
@@ -380,10 +411,15 @@ def check_matmul(torch):
             if kernel == "int4g32_mma":
                 rows[-1]["dense_ms"] = cuda_event_ms(lambda i: x @ w_deq, iters=30)
                 rows[-1]["plan"] = QM.mma_plan(M, K, N)
+                w64 = unpack_int4_tpu(packed[0], scale[0]).double()  # q·s, exact in f32
+                rows[-1]["beyond_sum"] = hold_sum(torch, f"int4g32_matmul {name} M={M}", got,
+                                                  x.double() @ w64, x.double().abs() @ w64.abs())
+                del w64
             log_row("int4g32_matmul", rows[-1])
             if kernel == "int4g32_mma":
                 log(f"    plan (bm, nsplit, groups/split, blocks) {rows[-1]['plan']}; dense "
-                    f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms")
+                    f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms; "
+                    f"beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} of sum|terms|")
         del lib_w, w_deq
         for M in SPLITK_CROSSOVER_M:  # both kernels forced on checked inputs
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
@@ -494,6 +530,8 @@ def check_int8_matmul(torch):
         scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
         w_t = w.transpose(1, 2).contiguous()
         scale_bf16 = scale.to(torch.bfloat16)
+        w64 = w[0].double()  # the exact function of the Hopper rows
+        w_deq = (w[0].float() * scale[0]).to(torch.bfloat16)  # dense_ms only
         for M in MATMUL_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             got = I8.int8_matmul(x, w[0], scale[0])
@@ -512,8 +550,19 @@ def check_int8_matmul(torch):
             rows.append({"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
                          "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain,
                          "bound_ms": b, "bound_by": by, "library_ms": lib})
+            if kernel == "int8_mma":
+                s64 = scale[0].double()
+                rows[-1]["beyond_sum"] = hold_sum(torch, f"int8_matmul {name} M={M}", got,
+                                                  (x.double() @ w64) * s64,
+                                                  (x.double().abs() @ w64.abs()) * s64)
+                rows[-1]["dense_ms"] = cuda_event_ms(lambda i: x @ w_deq, iters=30)
+                rows[-1]["plan"] = QM.wg_plan(M, K, N)
             log_row("int8_matmul", rows[-1])
-        del w_t, scale_bf16
+            if kernel == "int8_mma":
+                log(f"    plan (bm, nsplit, stages/split, blocks) {rows[-1]['plan']}; dense "
+                    f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms; "
+                    f"beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} of sum|terms|")
+        del w_t, scale_bf16, w64, w_deq
         for M in DYN_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             got = D.int8_dyn_matmul(x, w[0], scale[0])
@@ -566,11 +615,12 @@ def int8_t_library(torch, g, w, scale, want):
 def check_transposed(torch):
     """B13 (``int8_matmul_t``) and B14 (``int4g32_matmul_t``), the backward
     matmuls, at the six main-path shapes transposed (g (M, N) → (M, K)), at
-    M = 512 bf16 (the tensor-core kernels) and M = 8 f32 (the CUDA-core
-    kernels).  Library: ``_weight_int8pack_mm`` for B13; none for B14 (no
-    PyTorch call takes group scales along the output dimension), whose rows
-    carry the dense ``g @ w_deq.T`` time on the dequantized weights as a
-    reference (``dense_ms``)."""
+    M = 512 and 1024 bf16 (the Hopper kernel, also held to SUM_TOL), M = 16
+    bf16 and M = 8 f32 (the CUDA-core kernels).  Library:
+    ``_weight_int8pack_mm`` for B13; none for B14 (no PyTorch call takes
+    group scales along the output dimension).  Every row carries the dense
+    ``g @ w_deq.T`` time on weights dequantized beforehand, a cuBLAS
+    yardstick (``dense_ms``)."""
     from chatglm_q_tpu_torch.ops import int8_matmul as I8
     from chatglm_q_tpu_torch.ops import quant_matmul as QM
     from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
@@ -581,7 +631,8 @@ def check_transposed(torch):
     log("    B14 library: none (no PyTorch call takes int4 group scales along the output "
         "dimension); dense_ms is g @ w_deq.T on the dequantized weights, a reference only")
 
-    def row(fn, plain, kernel, name, M, K, N, g, wts, wbytes, lib=None, dense=None):
+    def row(fn, plain, kernel, name, M, K, N, g, wts, wbytes, lib=None, dense=None,
+            exact=None):
         copies = len(wts[0])
         got = fn(g, wts[0][0], wts[1][0])
         torch.cuda.synchronize()
@@ -601,10 +652,15 @@ def check_transposed(torch):
              "library_ms": lib(want) if lib else None}
         if dense is not None:
             r["dense_ms"] = dense
+        if kernel.endswith("_mma"):  # the Hopper kernel: its plan and the sum bound
+            r["plan"] = QM.t_mma_plan(M, K, N)
+            r["beyond_sum"] = hold_sum(torch, f"{fn.__name__} {name} M={M}", got, *exact())
         rows.append(r)
         log_row(fn.__name__, r)
         if dense is not None:
-            log(f"    dense g @ w_deq.T reference {dense:.4f} ms")
+            log(f"    dense g @ w_deq.T (cuBLAS, bf16 weights, a yardstick) {dense:.4f} ms"
+                + (f"; plan (bm, nsplit, stages/split, blocks) {r['plan']}; beyond the bf16 "
+                   f"rounding {r['beyond_sum']:.2e} of sum|terms|" if "plan" in r else ""))
 
     for name, K, N in MATMUL_SHAPES:
         wbytes = K * N + 4 * N
@@ -612,19 +668,26 @@ def check_transposed(torch):
         w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
                           generator=gen)
         scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+        w64 = w[0].double()
         for M, dname in T_ROWS:
             dtype = getattr(torch, dname)
             g = torch.randn((M, N), device="cuda", generator=gen).to(dtype)
             kernel = "int8_t_mma" if QM.uses_mma(M, N, dtype) else "int8_t_gemv"
+            w_deq = (w[0].float() * scale[0]).to(dtype)
+            dense = cuda_event_ms(lambda i: g @ w_deq.T, iters=30)
+            del w_deq
+            gs = (g * scale[0].to(dtype)).double()  # the fold of the plain version, exact
             row(I8.int8_matmul_t, I8.int8_matmul_t_plain, kernel, name, M, K, N, g, (w, scale),
-                wbytes, lib=lambda want, g=g: int8_t_library(torch, g, w, scale, want))
-        del w, scale
+                wbytes, lib=lambda want, g=g: int8_t_library(torch, g, w, scale, want),
+                dense=dense, exact=lambda gs=gs: (gs @ w64.T, gs.abs() @ w64.abs().T))
+        del w, scale, w64
         wbytes = K // 2 * N + K // 32 * N * 2
         copies = weight_copies(wbytes)
         packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
                                generator=gen)
         scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
                  ).to(torch.bfloat16)
+        w64 = unpack_int4_tpu(packed[0], scale[0]).to(torch.bfloat16).double()  # bf16(q·s)
         for M, dname in T_ROWS:
             dtype = getattr(torch, dname)
             g = torch.randn((M, N), device="cuda", generator=gen).to(dtype)
@@ -633,7 +696,9 @@ def check_transposed(torch):
             del w_deq
             kernel = "int4g32_t_mma" if QM.uses_mma(M, N, dtype) else "int4g32_t_gemv"
             row(QM.int4g32_matmul_t, QM.int4g32_matmul_t_plain, kernel, name, M, K, N, g,
-                (packed, scale), wbytes, dense=dense)
+                (packed, scale), wbytes, dense=dense,
+                exact=lambda g=g: (g.double() @ w64.T, g.double().abs() @ w64.abs().T))
+        del w64
         del packed, scale
     return rows
 
@@ -1457,29 +1522,29 @@ def full_slice(torch, smi):
     busy = perf["profile"]["device_ms_per_step"] / perf["batch1"]["decode_ms_per_step"]
     perf["profile"]["device_busy_share_untraced"] = busy
     log(f"  batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
-    perf["prefill_profile"] = {b: profile_prefill(torch, params, cfg, rt, b, perf[f"batch{b}"])
-                               for b in (1, B)}
+    perf["prefill_profile"] = {b: profile_prefill(torch, params, cfg, rt, b) for b in (1, B)}
     return counts, v2_counts, perf
 
 
-def profile_prefill(torch, params, cfg, rt, batch, timed):
-    """Device time of one prefill of ``batch`` 128-token prompts, by kernel,
-    from a torch.profiler trace, B1's Hopper kernel apart (its 6 x 28
-    launches run at M = 128 x batch), beside the untraced host-clock
-    prefill of ``decode_rate`` (``timed``)."""
+def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4_wgmma_kernel"):
+    """Device time of one prefill of ``batch`` 128-token prompts of
+    ``quant`` weights, by kernel, from a torch.profiler trace, the Hopper
+    matmul ``kernel`` apart (its 6 x 28 launches run at M = 128 x batch),
+    beside the untraced host-clock prefill (the median of three)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.utils.timing import wall_s
 
     gen = torch.Generator(device="cuda").manual_seed(33)
     ids = torch.randint(0, cfg.vocab_size, (batch, 128), device="cuda", generator=gen)
     lengths = torch.full((batch,), 128, dtype=torch.int32, device="cuda")
     run = lambda: M.prefill(params, cfg, ids, lengths,  # noqa: E731
-                            M.init_kv_cache(cfg, batch, CACHE_LEN, torch.bfloat16), "int4g32",
+                            M.init_kv_cache(cfg, batch, CACHE_LEN, torch.bfloat16), quant,
                             torch.bfloat16, rt)
     run()
-    torch.cuda.synchronize()
+    untraced_ms = wall_s(run) * 1e3
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -1487,17 +1552,17 @@ def profile_prefill(torch, params, cfg, rt, batch, timed):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    b1 = [e for e in events if "int4_wgmma_kernel" in e.key]
-    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
-    b1_n = sum(e.count for e in b1)
-    require(b1_n == 6 * cfg.num_layers, f"a {batch}x128 prefill ran {b1_n} int4_wgmma_kernel "
+    mm = [e for e in events if kernel in e.key]
+    mm_ms = sum(e.self_device_time_total for e in mm) / 1e3
+    mm_n = sum(e.count for e in mm)
+    require(mm_n == 6 * cfg.num_layers, f"a {batch}x128 {quant} prefill ran {mm_n} {kernel} "
             f"launches, not {6 * cfg.num_layers}")
     top = [(e.key[:60], round(e.self_device_time_total / 1e3, 4), e.count) for e in events[:6]]
-    log(f"  prefill {batch}x128 profile: device {dev_ms:.3f} ms against {timed['prefill_ms']:.2f} "
-        f"ms untraced; int4_wgmma_kernel (B1) {b1_ms:.3f} ms in {b1_n} launches "
-        f"({100 * b1_ms / dev_ms:.1f}% of the device time); largest (ms) {json.dumps(top)}")
-    return {"device_ms": dev_ms, "untraced_ms": timed["prefill_ms"],
-            "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_launches": b1_n, "top_ms": top}
+    log(f"  {quant} prefill {batch}x128 profile: device {dev_ms:.3f} ms against "
+        f"{untraced_ms:.2f} ms untraced; {kernel} {mm_ms:.3f} ms in {mm_n} launches "
+        f"({100 * mm_ms / dev_ms:.1f}% of the device time); largest (ms) {json.dumps(top)}")
+    return {"device_ms": dev_ms, "untraced_ms": untraced_ms, "kernel": kernel,
+            "kernel_ms": mm_ms, "kernel_launches": mm_n, "top_ms": top}
 
 
 def profile_decode(torch, params, cfg, rt, quant="int4g32"):
@@ -1742,11 +1807,13 @@ def chat_slice(torch, smi):
         perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params)}
         log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
-        if name == "int8":  # where an int8 decode step's time goes
+        if name == "int8":  # where an int8 decode step's and a 4 x 128 prefill's time go
             perf[name]["profile"] = profile_decode(torch, params, cfg, rt, quant)
             busy = perf[name]["profile"]["device_ms_per_step"] / r["decode_ms_per_step"]
             perf[name]["profile"]["device_busy_share_untraced"] = busy
             log(f"  {name} batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
+            perf[name]["prefill_profile"] = profile_prefill(torch, params, cfg, rt, 4, quant,
+                                                            "int8_wgmma_kernel")
         del decoder
     del params
     torch.cuda.empty_cache()
@@ -2190,9 +2257,9 @@ def fine_tune(torch, smi, quant, steps, seed):
     log(f"  {quant}: {steps} steps of {FT_BATCH}x{FT_SEQ} tokens, {n_train} trainable values; "
         f"peak device memory {out['peak_mem_bytes'] / 2**30:.2f} GiB  [{smi}]")
 
-    if quant == "int4g32":  # a traced step; the first step again, with and without remat
-        out["profile"] = profile_train_step(torch, step, trainable, frozen, ids, labels,
-                                            out["steps"][-1]["ms"])
+    out["profile"] = profile_train_step(torch, step, trainable, frozen, ids, labels,
+                                        out["steps"][-1]["ms"], quant)
+    if quant == "int4g32":  # the first step again, with and without remat
         runs = {}
         for remat in (False, True):
             torch.cuda.synchronize()
@@ -2240,9 +2307,20 @@ def fine_tune(torch, smi, quant, steps, seed):
     return counts_total, out
 
 
-def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms):
+# the Hopper matmuls of a training step, by quantization: (ID, substrings of
+# the profiler's kernel name)
+TRAIN_KERNELS = {
+    "int4g32": (("B1 int4_wgmma_kernel", ("int4_wgmma_kernel",)),
+                ("B14 t_wgmma_kernel<Int4TView>", ("t_wgmma_kernel", "Int4TView"))),
+    "int8": (("B6 int8_wgmma_kernel", ("int8_wgmma_kernel",)),
+             ("B13 t_wgmma_kernel<Int8TView>", ("t_wgmma_kernel", "Int8TView"))),
+}
+
+
+def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms, quant):
     """One more training step under torch.profiler: device time by kernel,
-    and the device's busy share of the untraced step before it."""
+    the device's busy share of the untraced step before it, and the forward
+    and backward Hopper matmuls' device ms (PER_STEP launches each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -2255,16 +2333,23 @@ def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms)
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:10]]
-    b1 = [e for e in events if "int4_wgmma_kernel" in e.key]
-    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
-    log(f"  profile of one int4g32 training step: device busy {dev_ms:.1f} ms, "
-        f"{100 * dev_ms / untraced_ms:.1f}% of the untraced step ({untraced_ms:.1f} ms); B1 "
-        f"int4_wgmma_kernel {b1_ms:.2f} ms in {sum(e.count for e in b1)} launches, "
-        f"{100 * b1_ms / dev_ms:.1f}% of the device time, {100 * b1_ms / untraced_ms:.1f}% of the step")
+    res = {"device_ms": dev_ms, "busy_share_untraced": dev_ms / untraced_ms, "top_ms": top,
+           "kernels": {}}
+    parts = []
+    for label, subs in TRAIN_KERNELS[quant]:
+        hit = [e for e in events if all(k in e.key for k in subs)]
+        ms, n = sum(e.self_device_time_total for e in hit) / 1e3, sum(e.count for e in hit)
+        require(n == PER_STEP, f"a traced {quant} step ran {n} {label} launches, not {PER_STEP}")
+        res["kernels"][label] = {"ms": ms, "launches": n, "share_of_device": ms / dev_ms,
+                                 "share_of_step": ms / untraced_ms}
+        parts.append(f"{label} {ms:.2f} ms in {n} launches ({100 * ms / dev_ms:.1f}% of the "
+                     f"device time)")
+    log(f"  profile of one {quant} training step: device busy {dev_ms:.1f} ms, "
+        f"{100 * dev_ms / untraced_ms:.1f}% of the untraced step ({untraced_ms:.1f} ms); "
+        + "; ".join(parts))
     for name, ms, n in top:
         log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
-    return {"device_ms": dev_ms, "busy_share_untraced": dev_ms / untraced_ms, "top_ms": top,
-            "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_share_of_step": b1_ms / untraced_ms}
+    return res
 
 
 def fine_tune_slice(torch, smi):

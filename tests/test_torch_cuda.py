@@ -746,6 +746,120 @@ def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, qua
         assert _rel(grads[True, M], grads[False, M]) <= 2e-2
 
 
+# The Hopper kernels of B6 (int8_mma), B13 (int8_t_mma) and B14
+# (int4g32_t_mma): every main-path linear (K, N) — q/o, kv, w_in, w_out and
+# the lm_head's 65536 — at a verify step's and a short prompt's M, a ragged
+# M, a 4 x 128 prefill and a training step's M.  The transposed forms take
+# g (M, N) to (M, K).
+WG_LINEARS = [(4096, 4096), (4096, 512), (4096, 13824), (13824, 4096), (4096, 65536)]
+WG_M = (17, 48, 65, 200, 512, 1024)
+
+
+def _beyond_sum(got, exact, terms):
+    """chip_smoke.py's SUM_TOL reading: the error beyond half a bf16 ulp of
+    the exact value (f64), over the sum of the terms' magnitudes (f64)."""
+    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact)[1] - 9)
+    excess = ((got.double() - exact).abs() - half_ulp).clamp_min(0)
+    return (excess / terms.clamp_min(1e-300)).max().item()
+
+
+def _int4_t_weights(gen, K, N):
+    packed = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, device="cuda", generator=gen)
+    scale = (torch.rand((K // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    return packed, scale
+
+
+def _wg_case(gen, kind, M, K, N):
+    """(call, its wrapper, plain version, exact f64 value, f64 sum|terms|)
+    of one Hopper matmul on random inputs."""
+    if kind == "int8":
+        w, scale = _int8_weights(gen, K, N)
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        w64, s64 = w.double(), scale.double()
+        return (lambda: I8.int8_matmul(x, w, scale), I8.int8_mma,
+                lambda: I8.int8_matmul_plain(x, w, scale),
+                lambda: ((x.double() @ w64) * s64, (x.double().abs() @ w64.abs()) * s64))
+    g = torch.randn((M, N), device="cuda", generator=gen).to(torch.bfloat16)
+    if kind == "int8_t":
+        w, scale = _int8_weights(gen, K, N)
+        gs, w64 = (g * scale.to(torch.bfloat16)).double(), w.double()
+        return (lambda: I8.int8_matmul_t(g, w, scale), I8.int8_t_mma,
+                lambda: I8.int8_matmul_t_plain(g, w, scale),
+                lambda: (gs @ w64.T, gs.abs() @ w64.abs().T))
+    packed, scale = _int4_t_weights(gen, K, N)
+    w64 = QM.unpack_int4_tpu(packed, scale).to(torch.bfloat16).double()  # bf16(q·s)
+    return (lambda: QM.int4g32_matmul_t(g, packed, scale), QM.int4g32_t_mma,
+            lambda: QM.int4g32_matmul_t_plain(g, packed, scale),
+            lambda: (g.double() @ w64.T, g.double().abs() @ w64.abs().T))
+
+
+@pytest.mark.parametrize("K,N", WG_LINEARS)
+@pytest.mark.parametrize("M", WG_M)
+@pytest.mark.parametrize("kind", ["int8", "int8_t", "int4g32_t"])
+def test_wgmma_kernels_error_is_their_bf16_rounding(gen, kind, M, K, N):
+    """One launch of the Hopper kernel, within the bf16 tolerance of the
+    plain version and within 2^-23 of sum|terms| of the exact value beyond
+    half a bf16 ulp (B1's bound: f32 sums of exact products, one rounding)."""
+    call, kernel, plain, exact = _wg_case(gen, kind, M, K, N)
+    before = kernel.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N if kind == "int8" else K)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, plain()) <= 1e-2
+    assert _beyond_sum(got, *exact()) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("M,K,N", [(65, 4096, 512), (512, 4096, 4096), (200, 1024, 272)])
+@pytest.mark.parametrize("kind", ["int8", "int8_t", "int4g32_t"])
+def test_wgmma_kernels_are_deterministic_and_replay_in_a_graph(gen, kind, M, K, N):
+    """Two calls are bit-equal and leave every arrival counter at 0 (the
+    merging warpgroup resets its own; the first shape splits the
+    contraction); one call captured in a CUDA graph and replayed twice is
+    bit-equal to the eager call."""
+    call, _, _, _ = _wg_case(gen, kind, M, K, N)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    bm, nsplit = (QM.wg_plan(M, K, N) if kind == "int8" else QM.t_mma_plan(M, K, N))[:2]
+    assert nsplit > 1 or (M, K, N) != (65, 4096, 512)
+    tiles = -(-M // bm) * -(-(N if kind == "int8" else K) // QM.MMA_BN)
+    assert not _build.scratch("mma_arrivals", first.device, 2 * tiles,
+                              torch.int32)[:2 * tiles].any()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("entry", ["chatglm_int8_mma", "chatglm_int8_t_mma",
+                                   "chatglm_int4_t_mma"])
+def test_wgmma_kernels_reject_a_plan_they_cannot_take(gen, entry):
+    a = torch.randn((100, 1024), device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.zeros((1024, 1024), dtype=torch.int8, device="cuda")  # bytes enough for any view
+    scale = torch.ones((1024, 1024), device="cuda")
+    out = torch.empty((100, 1024), dtype=torch.bfloat16, device="cuda")
+    ws = torch.empty((1 << 20,), dtype=torch.float32, device="cuda")
+    arrivals = torch.zeros((64,), dtype=torch.int32, device="cuda")
+    # 16 stages of 64: stages uncovered, an empty split, no such tile, splits without a workspace
+    for bm, nsplit, sps, part in ((128, 2, 4, ws), (128, 4, 8, ws), (96, 1, 16, ws),
+                                  (64, 2, 8, None)):
+        with pytest.raises(RuntimeError):
+            _build.call(entry, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                        None if part is None else part.data_ptr(), arrivals.data_ptr(), 100,
+                        1024, 1024, bm, nsplit, sps, 8, _build.stream_ptr(a))
+
+
 def _decode_v2_f32(q, k, v, lengths, sm_scale, p_bf16=False):
     """B12's function in f32, before the output's bf16 rounding (with
     ``p_bf16``, p rounded to bf16 before PV: the control)."""
