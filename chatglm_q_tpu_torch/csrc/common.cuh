@@ -98,6 +98,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(smem_u32(p))
                : "memory");
 }
+// two matrices, their row addresses from lanes 0-15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
 
 // 16-byte global -> shared copy in flight (cp.async, L2 only); with fill
 // false nothing is read and the 16 bytes are zeroed.  src must be a valid
@@ -242,17 +249,54 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// d += a @ b, s8 in, s32 accumulate (exact); the m16n8k32 fragment layout:
-// a0/a2 hold row gid, a1/a3 row gid+8, four K bytes each at tig*4 (a0, a1)
-// and 16 + tig*4 (a2, a3); b0/b1 hold column gid at K bytes tig*4 and
-// 16 + tig*4; d0/d1 row gid, d2/d3 row gid+8, columns tig*2 and tig*2+1.
-__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, const uint32_t* b) {
+// d (64 x N, s32, exact) = a (64 x 32, s8, registers) · b (32 x N, s8,
+// K-major in shared memory, desc) + (scale_d ? d : 0); asynchronous, as the
+// bf16 forms.  The A fragment of warp w: four K bytes in a register, a0
+// row 16w + gid at K 4t..4t+3, a1 row 16w + gid + 8 there, a2 / a3 the same
+// at K 16 + 4t (the m16n8k32 layout); d as wgmma_rs_n64's.  A k32 step
+// spans 32 bytes of a 128B-swizzled row, as a bf16 k16 step does: add 2
+// to the descriptor per step.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r) : : "memory"); }
 
 // Transpose a 4x4 byte block: on entry byte j of r[i] is (row i, column j);
 // on exit byte i of r[j] is.  Turns four N-contiguous weight rows into one
@@ -441,16 +485,18 @@ void t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t st
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The Hopper weight-only kernels (sm_90a): int4_matmul.cu's
-// int4_wgmma_kernel (B1 above 64 rows), int8_matmul.cu's int8_wgmma_kernel
-// (B6) and t_wgmma_kernel below (B13, B14) share the ring, the producer,
-// the plan checks and the epilogue; the last two share the mainloop too.
+// The Hopper kernels (sm_90a): int4_matmul.cu's int4_wgmma_kernel (B1
+// above 64 rows), int8_matmul.cu's int8_wgmma_kernel (B6), t_wgmma_kernel
+// below (B13, B14) and dyn_matmul.cu's s8 dyn_wgmma_kernel (B7, B8) share
+// the ring, the producer, the plan checks and the split merge; B6, B13 and
+// B14 share the mainloop and the bf16 epilogue too.
 //
 // Each computes D (WG_N weight-side rows x BM activation rows) = W · Aᵀ per
-// output tile, the contraction in stages of WG_STEP elements: D's rows are
+// output tile, the contraction in stages of WG_STEP elements (DYN_STEP
+// for the s8 kernels; either way 128 bytes of an activation row): D's rows are
 // the output columns (N of B1 and B6, K of B13 and B14), its columns the
 // rows of x or g.  The weights are wgmma's A from registers (each consumer
-// thread turns its share of the stage's weight tile into bf16 fragments,
+// thread turns its share of the stage's weight tile into bf16 or s8 fragments,
 // once per block and stage), the activations its B straight from the
 // 128B-swizzled TMA tile.  A persistent block takes work units b, b + grid,
 // ...: unit u is activation tile u % mtiles, then contraction split, then
@@ -477,18 +523,23 @@ constexpr int WG_PRODUCER_REGS = 24;       // setmaxnreg: the producer's registe
 constexpr int WG_CONSUMER_REGS = 240;      // consumers (3 x 128 x 168 >= 2 x 128 x 240 + 128 x 24)
 constexpr int WG_FOLD_BAR = 3;             // named barrier of B13's fold (1 + wg: the merge)
 
-// The ring: per stage the activation tile (BM rows x 64 bf16, 128B
-// swizzle), WB bytes of weights and SB of scales; then a full and an empty
-// barrier per stage and two merge flags.  The base is aligned to 1024 bytes
-// (the swizzle's period) in the dynamic shared memory.
-template <int BM, int WB, int SB>
+// The ring: per stage the activation tile (BM rows x 128 bytes: 64 bf16,
+// or 128 s8 for the dynamic kernels; 128B swizzle), WB bytes of weights and
+// SB of scales; then a full and an empty barrier per stage and two merge
+// flags.  The base is aligned to 1024 bytes (the swizzle's period) in the
+// dynamic shared memory.  STAGES stages: WG_STAGES, or as many as fit
+// (dyn_matmul.cu's 32 KB stages at BM = 128).
+constexpr int WG_SMEM_MAX = 232448;  // the H100's opt-in limit a block
+template <int BM, int WB, int SB, int STAGES = WG_STAGES>
 struct WgRing {
+  static constexpr int kStages = STAGES;
   static constexpr int XS = BM * 128;
-  static constexpr int W_OFF = WG_STAGES * XS;
-  static constexpr int S_OFF = W_OFF + WG_STAGES * WB;
-  static constexpr int BAR_OFF = S_OFF + WG_STAGES * SB;
-  static constexpr int FLAG_OFF = BAR_OFF + 2 * WG_STAGES * 8;
+  static constexpr int W_OFF = STAGES * XS;
+  static constexpr int S_OFF = W_OFF + STAGES * WB;
+  static constexpr int BAR_OFF = S_OFF + STAGES * SB;
+  static constexpr int FLAG_OFF = BAR_OFF + 2 * STAGES * 8;
   static constexpr int BYTES = FLAG_OFF + 16 + 1024;  // + slack to align the base
+  static_assert(BYTES <= WG_SMEM_MAX, "the ring exceeds a block's shared memory");
 };
 
 // The persistent schedule: unit u is activation tile u % mtiles, split
@@ -568,10 +619,10 @@ __device__ __forceinline__ uint8_t* wg_setup(uint8_t* raw, uint64_t*& full, uint
   const uint32_t a = smem_u32(raw);
   uint8_t* smem = raw + (((a + 1023u) & ~1023u) - a);
   full = reinterpret_cast<uint64_t*>(smem + R::BAR_OFF);
-  empty = full + WG_STAGES;
+  empty = full + R::kStages;
   flags = reinterpret_cast<int*>(smem + R::FLAG_OFF);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < R::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], WG_CONSUMER_WARPS);
     }
@@ -582,14 +633,15 @@ __device__ __forceinline__ uint8_t* wg_setup(uint8_t* raw, uint64_t*& full, uint
 }
 
 // The producer warpgroup (threads 256-383): lane 0 of its first warp loads
-// every stage of every unit of this block.  V::tma issues the weight and
-// scale tiles of weight tile nt, stage s.
-template <int BM, typename V>
+// every stage of every unit of this block, STEP activation columns a stage
+// (WG_STEP bf16; dyn_matmul.cu: DYN_STEP s8) into a ring of STAGES.  V::tma
+// issues the weight and scale tiles of weight tile nt, stage s.
+template <int BM, typename V, int STEP = WG_STEP, int STAGES = WG_STAGES>
 __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtensorMap* wmap,
                                            const CUtensorMap* smap, uint8_t* smem,
                                            uint64_t* full, uint64_t* empty,
                                            const WgSchedule& sc) {
-  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  using R = WgRing<BM, V::kWBytes, V::kSBytes, STAGES>;
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
   if (threadIdx.x != WG_CONSUMER_WARPS * 32) return;
   int st = 0;
@@ -600,10 +652,10 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtens
     for (int s = s0; s < s1; ++s) {
       mbar_wait(&empty[st], ph ^ 1);
       mbar_arrive_expect_tx(&full[st], R::XS + V::kWBytes + V::kSBytes);
-      tma_load_2d(smem + st * R::XS, amap, s * WG_STEP, mt * BM, &full[st]);
+      tma_load_2d(smem + st * R::XS, amap, s * STEP, mt * BM, &full[st]);
       V::tma(wmap, smap, smem + R::W_OFF + st * V::kWBytes, smem + R::S_OFF + st * V::kSBytes,
              nt, s, &full[st]);
-      if (++st == WG_STAGES) {
+      if (++st == STAGES) {
         st = 0;
         ph ^= 1;
       }
@@ -645,26 +697,26 @@ __device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat
   }
 }
 
-// The end of a unit: the output tile's columns c (and c + STEP) of this
-// thread, rows mt * BM.., stored at once without splits; with splits each
-// warpgroup writes its f32 partial in register order, and the last of the
-// tile's splits to arrive sums them in split order, stores and resets its
-// counter.
-template <int BM, typename V>
-__device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
-                                               __nv_bfloat16* __restrict__ y,
-                                               float* __restrict__ ws, int* __restrict__ arrivals,
-                                               int* merge_flag, const WgSchedule& sc, int mt,
-                                               int sp, int nt, int c, int M, int N) {
+// The end of a unit, split or not: store(acc, m0) writes this thread's
+// outputs of the tile's rows m0.. (wg_store, or dyn_matmul.cu's).  Without
+// splits it stores at once; with splits each warpgroup writes its partial
+// in register order, and the last of the tile's splits to arrive sums them
+// in split order, stores and resets its counter.  Acc is float (f32
+// partials) or int (B7's exact int32 sums, merged exactly).
+template <int BM, typename Acc, typename Store>
+__device__ __forceinline__ void wg_merge(Acc (&acc)[BM / 2], Acc* __restrict__ ws,
+                                         int* __restrict__ arrivals, int* merge_flag,
+                                         const WgSchedule& sc, int mt, int sp, int nt,
+                                         const Store& store) {
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  const int m0 = mt * BM, n = nt * WG_N + c;
+  const int m0 = mt * BM;
   if (sc.nsplit == 1) {
-    wg_store<BM, V::kRowStep, V::kColScale>(acc, y, m0, n, M, N, v.col_scale());
+    store(acc, m0);
     return;
   }
   const int tile = nt * sc.mtiles + mt;
   const size_t slab = (size_t)(BM / 2) * 128;
-  float* mine = ws + ((size_t)(tile * sc.nsplit + sp) * 2 + wg) * slab;
+  Acc* mine = ws + ((size_t)(tile * sc.nsplit + sp) * 2 + wg) * slab;
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) mine[i * 128 + tid] = acc[i];
   __threadfence();
@@ -674,14 +726,29 @@ __device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
   if (!merge_flag[wg]) return;
   __threadfence();
 #pragma unroll
-  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0;
   for (int p = 0; p < sc.nsplit; ++p) {
-    const float* src = ws + ((size_t)(tile * sc.nsplit + p) * 2 + wg) * slab + tid;
+    const Acc* src = ws + ((size_t)(tile * sc.nsplit + p) * 2 + wg) * slab + tid;
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[i] += __ldcg(src + i * 128);
   }
-  wg_store<BM, V::kRowStep, V::kColScale>(acc, y, m0, n, M, N, v.col_scale());
+  store(acc, m0);
   if (tid == 0) arrivals[2 * tile + wg] = 0;
+}
+
+// The end of a unit of B1, B6, B13, B14: the output tile's columns c (and c
+// + STEP) of this thread, bf16.
+template <int BM, typename V>
+__device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
+                                               __nv_bfloat16* __restrict__ y,
+                                               float* __restrict__ ws, int* __restrict__ arrivals,
+                                               int* merge_flag, const WgSchedule& sc, int mt,
+                                               int sp, int nt, int c, int M, int N) {
+  wg_merge<BM>(acc, ws, arrivals, merge_flag, sc, mt, sp, nt,
+               [&](const float (&a)[BM / 2], int m0) {
+                 wg_store<BM, V::kRowStep, V::kColScale>(a, y, m0, nt * WG_N + c, M, N,
+                                                         v.col_scale());
+               });
 }
 
 template <int BM>

@@ -52,9 +52,10 @@ SIGNATURES = {
     # xq, sx, w, scale, y, workspace, M, K, N, y_is_bf16, nsplit, groups_per_split, stream
     "chatglm_int8_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    # xq, sx, w, scale, y, M, K, N, y_is_bf16, stream
-    "chatglm_int8_dyn_mma": [P, P, P, P, P, I, I, I, I, P],
-    "chatglm_int4_dyn_mma": [P, P, P, P, P, I, I, I, I, P],
+    # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y_is_bf16, bm, nsplit,
+    # 128-element stages per split, ctas, stream
+    "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int4_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # cache_layer, new, starts, B, G, T, D, stream (bf16)
     "chatglm_kv_write": [P, P, P, I, I, I, I, P],
     # q, k, v, lengths, part, arrivals, out, B, G, Hg, T, D, span, v2, sm_scale,

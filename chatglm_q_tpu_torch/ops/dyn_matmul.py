@@ -18,8 +18,12 @@ then take s8 × s8 products with int32 sums:
   groups of 32 along K.  Each group dot is exact; the f32 sum over groups
   is taken in another order than the plain version's.
 
-Each has a split-K ``__dp4a`` kernel for M ≤ MMA_MIN_M (decode) and an
-``mma.sync`` m16n8k32 s8 kernel above it (``uses_mma``).
+Each has a split-K ``__dp4a`` kernel for M ≤ MMA_MIN_M (decode) and, above
+it (``uses_mma``), ``dyn_wgmma_kernel``: a persistent Hopper kernel on the
+ring of the other Hopper matmuls (TMA stages of 128 s8 elements in an
+mbarrier ring, s8 wgmma with the weights as A from registers, K splits from
+``dyn_plan`` merged in the launch; B7 one exact int32 accumulator, B8 one
+s32 partial per group folded into f32 with its scale).
 
 ``int8_dyn_supported`` / ``int4_dyn_supported`` repeat the shape gates of
 the JAX wrappers (pallas_matmul.py:991-994, :1098-1101), which return None,
@@ -33,7 +37,7 @@ import torch
 
 from . import _build
 from .quant import unpack_int4_tpu_q
-from .quant_matmul import MMA_MIN_M, aligned, gemv_plan
+from .quant_matmul import DYN_STEP, MMA_MIN_M, aligned, gemv_plan, wg_plan, wg_scratch
 
 PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few launches)
 
@@ -123,6 +127,15 @@ def uses_mma(M: int, N: int) -> bool:
     return M > MMA_MIN_M and N % 16 == 0
 
 
+def dyn_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """(bm, nsplit, stages_per_split, ctas) of ``dyn_wgmma_kernel`` for xq
+    (M, K) and N columns: ``wg_plan`` over stages of DYN_STEP s8 elements
+    (csrc: DYN_STEP).  At the prefill M it splits K 4 ways where N is narrow:
+    q/o/w_out's 32 column tiles become 128 blocks; kv_proj's 4 become 16,
+    since each further split adds more to its tile's merge than it saves."""
+    return wg_plan(M, K, N, step=DYN_STEP)
+
+
 def _gemv(entry, xq, sx, w, scale, out_dtype, acc_dtype):
     M, K = xq.shape
     N = w.shape[1]
@@ -138,9 +151,13 @@ def _gemv(entry, xq, sx, w, scale, out_dtype, acc_dtype):
 def _mma(entry, xq, sx, w, scale, out_dtype):
     M, K = xq.shape
     N = w.shape[1]
+    plan = dyn_plan(M, K, N)
+    bm, nsplit, sps, ctas = plan
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    part, arrivals = wg_scratch(xq.device, M, N, plan)
     _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), M, K, N, int(out_dtype == torch.bfloat16), _build.stream_ptr(xq))
+                y.data_ptr(), part, arrivals, M, K, N, int(out_dtype == torch.bfloat16), bm,
+                nsplit, sps, ctas, _build.stream_ptr(xq))
     return y
 
 
@@ -152,7 +169,8 @@ def int8_dyn_gemv(xq, sx, w, scale, out_dtype):
 
 
 def int8_dyn_mma(xq, sx, w, scale, out_dtype):
-    """Launch B7's s8 tensor-core kernel (checked inputs on the card)."""
+    """Launch B7's Hopper kernel (checked inputs on the card, N % 16 == 0):
+    one launch, any K splits merged inside it in int32."""
     y = _mma("chatglm_int8_dyn_mma", xq, sx, w, scale, out_dtype)
     int8_dyn_mma.launches += 1
     return y
@@ -166,7 +184,8 @@ def int4_dyn_gemv(xq, sx, packed, scale, out_dtype):
 
 
 def int4_dyn_mma(xq, sx, packed, scale, out_dtype):
-    """Launch B8's s8 tensor-core kernel (checked inputs on the card)."""
+    """Launch B8's Hopper kernel (checked inputs on the card, N % 16 == 0):
+    one launch, any K splits merged inside it."""
     y = _mma("chatglm_int4_dyn_mma", xq, sx, packed, scale, out_dtype)
     int4_dyn_mma.launches += 1
     return y

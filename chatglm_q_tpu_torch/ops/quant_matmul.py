@@ -38,7 +38,8 @@ the tile and the contraction splits.
 
 ``gemv_plan``, ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and
 dynamic int8 matmuls (B6/B7/B8) and the transposed kernels, and ``wg_plan``,
-``mma_smem`` and ``wg_call`` with every Hopper kernel (B1, B6, B13, B14);
+``mma_smem`` and ``wg_scratch`` with every Hopper kernel (B1, B6, B7, B8,
+B13, B14);
 B1's own routing and plans are ``int4_route``, ``splitk_plan`` and
 ``mma_plan``.
 """
@@ -68,12 +69,15 @@ MMA_STEP = 64            # contraction elements a pipeline stage
 MMA_STAGE_GROUPS = 2     # B1: 32-row groups a stage
 MMA_STAGES = 8           # stages in the shared-memory ring
 MMA_SMEM_MAX = 227 * 1024  # shared bytes a block may opt into on an H100
+DYN_STEP = 128           # B7/B8 (csrc/dyn_matmul.cu): s8 contraction elements a stage
 # weight and scale bytes a stage (the views' kWBytes / kSBytes)
 MMA_TILE_BYTES = {
     "int4g32": (16 * MMA_STAGE_GROUPS * MMA_BN, MMA_STAGE_GROUPS * MMA_BN * 2),  # B1
     "int8": (MMA_STEP * MMA_BN, 0),                                              # B6
     "int4g32_t": (MMA_BN // 2 * MMA_STEP, MMA_BN // 32 * MMA_STEP * 2),         # B14
     "int8_t": (MMA_BN * MMA_STEP, MMA_STEP * 4),                                 # B13
+    "int8_dyn": (DYN_STEP * MMA_BN, 0),                                          # B7
+    "int4g32_dyn": (DYN_STEP // 2 * MMA_BN, DYN_STEP // 32 * MMA_BN * 2),       # B8
 }
 # wg_plan's cost model, in stages of a 128-row tile
 MMA_FILL = 3.0           # a work unit's pipeline fill and epilogue
@@ -150,22 +154,32 @@ def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
     return mt, cols, -(-G // gps), gps, cg
 
 
+def mma_stages(bm: int, kind: str = "int4g32") -> int:
+    """Stages of a Hopper kernel's ring (csrc: WgRing's STAGES): MMA_STAGES,
+    or as many as fit the opt-in limit (csrc: dyn_stages; B7 at bm 128)."""
+    wbytes, sbytes = MMA_TILE_BYTES[kind]
+    return min(MMA_STAGES, (MMA_SMEM_MAX - 16 - 1024) // (bm * 128 + wbytes + sbytes + 16))
+
+
 def mma_smem(bm: int, kind: str = "int4g32") -> int:
     """Shared bytes of a block of a Hopper kernel (csrc: WgRing<bm, ...>::BYTES):
-    per stage the activations' bm × 64 bf16 tile and the weight and scale
-    tiles of ``kind`` (MMA_TILE_BYTES: B1 32 packed byte rows × 128 and 2 ×
-    128 scales; B6 64 × 128 int8 bytes; B14 64 byte rows × 64 and 4 × 64
-    scales; B13 128 × 64 int8 bytes and 64 f32 scales); a full and an empty
-    barrier per stage, two merge flags, and the slack that aligns the ring
-    to 1024 bytes."""
+    per stage the activations' bm × 128-byte tile (64 bf16, or 128 s8 for
+    B7/B8) and the weight and scale tiles of ``kind`` (MMA_TILE_BYTES: B1 32
+    packed byte rows × 128 and 2 × 128 scales; B6 64 × 128 int8 bytes; B14
+    64 byte rows × 64 and 4 × 64 scales; B13 128 × 64 int8 bytes and 64 f32
+    scales; B7 128 × 128 int8 bytes; B8 64 packed byte rows × 128 and 4 ×
+    128 scales); a full and an empty barrier per stage, two merge flags,
+    and the slack that aligns the ring to 1024 bytes."""
     wbytes, sbytes = MMA_TILE_BYTES[kind]
-    return MMA_STAGES * (bm * 128 + wbytes + sbytes) + 2 * MMA_STAGES * 8 + 16 + 1024
+    stages = mma_stages(bm, kind)
+    return stages * (bm * 128 + wbytes + sbytes) + 2 * stages * 8 + 16 + 1024
 
 
-def wg_plan(M: int, C: int, n_out: int) -> tuple[int, int, int, int]:
+def wg_plan(M: int, C: int, n_out: int, step: int = MMA_STEP) -> tuple[int, int, int, int]:
     """(bm, nsplit, stages_per_split, ctas) of a Hopper kernel with M
-    activation rows, a contraction of C elements (stages of MMA_STEP) and
-    n_out output columns.
+    activation rows, a contraction of C elements (stages of ``step``:
+    MMA_STEP bf16, DYN_STEP s8; either is 128 bytes of a row and four
+    wgmma steps) and n_out output columns.
 
     Tiles of bm (128 or 64) rows × 128 columns, each split over the
     contraction into nsplit ranges of stages_per_split stages; the tiles ×
@@ -177,7 +191,7 @@ def wg_plan(M: int, C: int, n_out: int) -> tuple[int, int, int, int]:
     stay within two waves and each split keeps at least two stages: a narrow
     output (kv_proj) or a small M fills the card, the wide linears run
     whole."""
-    S = -(-C // MMA_STEP)
+    S = -(-C // step)
     ntiles = -(-n_out // MMA_BN)
     best = None
     for bm in (128, 64):
@@ -215,19 +229,25 @@ def t_mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
     return wg_plan(M, N, K)
 
 
+def wg_scratch(device, M: int, n_out: int, plan) -> tuple:
+    """(split partials or None, arrival counters) of a Hopper kernel's
+    ``plan``: the scratch buffers all these kernels share, 4-byte partials
+    (f32, or B7's int32) and counters that each launch leaves at 0
+    (launches on a stream run in order)."""
+    bm, nsplit, _, _ = plan
+    tiles = -(-M // bm) * -(-n_out // MMA_BN)
+    part = (_build.scratch("mma_part", device, tiles * nsplit * bm * MMA_BN,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    return part, _build.scratch("mma_arrivals", device, 2 * tiles, torch.int32).data_ptr()
+
+
 def wg_call(name: str, a, w, scale, out, M: int, K: int, N: int, n_out: int, plan) -> None:
     """Launch Hopper kernel ``name`` (csrc: chatglm_*_wgmma) on checked
-    tensors of the card with ``plan`` (bm, nsplit, per_split, ctas), the
-    split partials and arrival counters from the scratch buffers all these
-    kernels share (launches on a stream run in order; each leaves its
-    counters at 0)."""
+    tensors of the card with ``plan`` (bm, nsplit, per_split, ctas)."""
     bm, nsplit, per_split, ctas = plan
-    tiles = -(-M // bm) * -(-n_out // MMA_BN)
-    part = (_build.scratch("mma_part", a.device, tiles * nsplit * bm * MMA_BN,
-                           torch.float32).data_ptr() if nsplit > 1 else None)
-    arrivals = _build.scratch("mma_arrivals", a.device, 2 * tiles, torch.int32)
+    part, arrivals = wg_scratch(a.device, M, n_out, plan)
     _build.call(name, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
-                arrivals.data_ptr(), M, K, N, bm, nsplit, per_split, ctas, _build.stream_ptr(a))
+                arrivals, M, K, N, bm, nsplit, per_split, ctas, _build.stream_ptr(a))
 
 
 def _check(x, packed, scale):

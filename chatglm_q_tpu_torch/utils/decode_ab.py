@@ -1,6 +1,6 @@
 """Decode and prefill speed of two checkouts of the port, in turns, on one card.
 
-    python -m chatglm_q_tpu_torch.utils.decode_ab OTHER_CHECKOUT [--rounds 1]
+    python -m chatglm_q_tpu_torch.utils.decode_ab OTHER_CHECKOUT [--rounds 1] [--dyn]
 
 Each turn is a fresh process in one checkout's root (so each builds and
 imports its own ``chatglm_q_tpu_torch``): ChatGLM2-6B int4g32 with 28 layers
@@ -12,6 +12,14 @@ this, other per round, so a drift of the host over the call falls on both
 sides alike.  Prints the card's name and power limit, one JSON line per
 turn, and a last JSON line with every reading by checkout.  Both checkouts need only ``bench.random_quantized_params``
 and ``bench.decode_rate``, which the port has had since its first slice.
+
+With ``--dyn`` a turn times the prefills of the dynamic-int8 modes instead:
+28 layers of int8 and of int4g32 random weights (seed 1) under
+``TorchRuntimeConfig(dynamic_int8=True)``, one prefill of a 57-token prompt
+(phase 5's chat prompt length) in each and of 4 x 128 tokens in int8: the
+device ms of one traced prefill (torch.profiler, every kernel's time) and
+the host-clock ms (the median of three, ending in a sync).  It needs
+``models.chatglm2.prefill`` and ``init_kv_cache``, there since slice 1.
 """
 from __future__ import annotations
 
@@ -35,9 +43,46 @@ for batch in (1, 4):
 print(json.dumps(out))
 """
 
+DYN_CHILD = """
+import json, time, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
+from chatglm_q_tpu_torch.bench import random_quantized_params
+from chatglm_q_tpu_torch.models import chatglm2 as M
+cfg = ChatGLM2Config()
+rt = TorchRuntimeConfig(dynamic_int8=True)
+gen = torch.Generator(device="cuda").manual_seed(2)
+out = {}
+for quant, shapes in (("int8", ((1, 57), (4, 128))), ("int4g32", ((1, 57),))):
+    params = random_quantized_params(cfg, quant, torch.Generator(device="cuda").manual_seed(1))
+    for batch, S in shapes:
+        ids = torch.randint(0, cfg.vocab_size, (batch, S), device="cuda", generator=gen)
+        lengths = torch.full((batch,), S, dtype=torch.int32, device="cuda")
+        cache = lambda: M.init_kv_cache(cfg, batch, 1024, torch.bfloat16)
+        run = lambda: M.prefill(params, cfg, ids, lengths, cache(), quant, torch.bfloat16, rt)
+        run()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+        out[f"{quant}+dyn {batch}x{S}"] = {"device_ms": dev, "host_ms": sorted(walls)[1]}
+    del params
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
 
-def run_turn(root: pathlib.Path) -> dict:
-    res = subprocess.run([sys.executable, "-c", CHILD], cwd=root, capture_output=True, text=True,
+
+def run_turn(root: pathlib.Path, child: str = CHILD) -> dict:
+    res = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True,
                          timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"decode turn in {root} failed:\n{res.stderr[-4000:]}")
@@ -48,12 +93,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=pathlib.Path, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--dyn", action="store_true", help="the dynamic-int8 prefills instead")
     args = ap.parse_args(argv)
     this = pathlib.Path(__file__).resolve().parents[2]
     sides = {"other": args.other.resolve(), "this": this}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.dyn:
+        turns = {side: [] for side in sides}
+        for _ in range(args.rounds):
+            for side in ("other", "this", "this", "other"):
+                turns[side].append(run_turn(sides[side], DYN_CHILD))
+                print(json.dumps({"side": side, "root": str(sides[side]), **turns[side][-1]}),
+                      flush=True)
+        print(json.dumps({"card": smi, **turns}))
+        return 0
     keys = ("decode_ms_per_step", "prefill_ms")
     readings = {k: {side: {"1": [], "4": []} for side in sides} for k in keys}
     for _ in range(args.rounds):

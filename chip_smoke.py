@@ -23,7 +23,12 @@ Phases (any failure raises and exits non-zero):
    ``torch._weight_int4pack_mm`` for the int4 matmul on the same weights
    repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
-   int4 matmul with dynamic int8 activations (B8) has no such call.  B1's
+   int4 matmul with dynamic int8 activations (B8) has no such call.  B7
+   at M = 1, 4, 64, 128, 512, 1024 and B8 at M = 1, 4, 32, 48, 64, 512,
+   each with ``call_ms`` (the wrapper with its per-row quantize prologue)
+   beside the kernel's ms; their Hopper rows (``dyn_wgmma_kernel``, M > 16)
+   with their plan and ``dense_ms``, B7 bit for bit, B8 also within
+   ``SUM_TOL`` of its exact value beyond its bf16 rounding.  B1's
    rows above 64 (its Hopper kernel) also carry ``dense_ms``, ``x @ w_deq``
    in cuBLAS on weights dequantized to bf16 beforehand: another function,
    never called by the port, a yardstick of the tensor cores only.  Then
@@ -76,7 +81,10 @@ Phases (any failure raises and exits non-zero):
    below 65024 is a text piece or a special token; the text must equal
    the model-level text of ``prefill`` + ``multi_step_decode`` on the same
    ids.  Decode ms/step at batch 1 for each mode; in int8 a traced 4 x 128
-   prefill, ``int8_wgmma_kernel``'s 168 launches apart.  Then a round trip at 6B
+   prefill, ``int8_wgmma_kernel``'s 168 launches apart; in int8+dyn and
+   int4g32+dyn a traced prefill of the chat prompt (and in int8+dyn a 4 x
+   128 one), ``dyn_wgmma_kernel``'s 168 launches and the quantize
+   prologue's device ms apart.  Then a round trip at 6B
    widths, depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
    for int8 and int4g32, with identical tensors and equal logits.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
@@ -197,7 +205,13 @@ MATMUL_SHAPES = [  # (name, K, N) at storage sizes; kv_proj outputs 2 * kv_size
 # step.  The split-K kernel's 8-tile form: M = 64 in SPLITK_CROSSOVER_M.
 MATMUL_M = (1, 4, 16, 20, 32, 36, 48, 128, 512, 1024)
 SPLITK_CROSSOVER_M = (16, 32, 64)  # B1's split-K kernel against its prefill kernel: SMALL_M_MAX
-DYN_M = (1, 4, 64, 512)      # B7 and B8 rows: decode, batch 4, the int4-dyn ceiling, prefill
+# B7 rows: decode, batch 4 (the split-K gemv), then its Hopper kernel at the
+# int4-dyn ceiling (M = 57-64: a chat prompt), a 1 x 128 prefill, a 4 x 128
+# prefill and a 4 x 256 chunk step; B8 rows: decode, batch 4, then its Hopper
+# kernel at 32, 48 and 64 rows (where int4g32 + dyn takes it) and 512 for the
+# record (above the ceiling the main path takes B1)
+B7_M = (1, 4, 64, 128, 512, 1024)
+B8_M = (1, 4, 32, 48, 64, 512)
 CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
 # B13/B14 rows: the tensor-core kernel at a 4 x 128 batch and at training's
 # M = 1024; the CUDA-core kernels at phase 7's 16-token step (bf16, M = 16:
@@ -338,6 +352,16 @@ def int4_library(torch, x, lib_w, want):
     return cuda_event_ms(lambda i: mm(x, lib_w[i % n][0], 32, lib_w[i % n][1]), iters=30)
 
 
+def dyn_hopper_extras(torch, r, x, w_deq, plan):
+    """A dynamic-int8 Hopper row's plan and cuBLAS's dense bf16 product on
+    the dequantized weights (a yardstick of the tensor cores, another
+    function); logged by log_row."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    r["plan"] = plan
+    r["dense_ms"] = cuda_event_ms(lambda i: x @ w_deq, iters=30)
+
+
 def log_row(fn, r):
     lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     call_s = f"  call {r['call_ms']:.4f} ms" if "call_ms" in r else ""
@@ -345,6 +369,11 @@ def log_row(fn, r):
     log(f"  {fn:15s} {r['linear']:17s} M={r['M']:4d}{x_s} K={r['K']:5d} N={r['N']:5d} "
         f"[{r['kernel']}] rel_err {r['rel_err']:.2e}  {r['ms']:.5f} ms{call_s}  bound "
         f"{r['bound_ms']:.5f} ms ({r['bound_by']})  plain {r['plain_ms']:.3f} ms  library {lib_s}")
+    if r["kernel"] in ("int8_dyn_mma", "int4_dyn_mma"):
+        beyond = (f"; beyond the bf16 rounding {r['beyond_sum']:.2e} of sum|terms|"
+                  if "beyond_sum" in r else "")
+        log(f"    plan (bm, nsplit, stages/split, blocks) {r['plan']}; dense x @ w_deq (cuBLAS, "
+            f"bf16 weights, a yardstick) {r['dense_ms']:.5f} ms{beyond}")
 
 
 B1_KERNELS = {"splitk": "int4g32_splitk", "mma": "int4g32_mma", "gemv": "int4g32_gemv"}
@@ -353,6 +382,9 @@ B1_KERNELS = {"splitk": "int4g32_splitk", "mma": "int4g32_mma", "gemv": "int4g32
 CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_wgmma_kernel",
                "int4g32_gemv": "int4_gemv_kernel", "int8_mma": "int8_wgmma_kernel",
                "int8_gemv": "int8_gemv_kernel",
+               "int8_dyn_mma": "dyn_wgmma_kernel<Int8DynView>",
+               "int4_dyn_mma": "dyn_wgmma_kernel<Int4DynView>",
+               "int8_dyn_gemv": "dyn_gemv_kernel<false>", "int4_dyn_gemv": "dyn_gemv_kernel<true>",
                "int4g32_t_mma": "t_wgmma_kernel<Int4TView> (csrc/common.cuh)",
                "int4g32_t_gemv": "t_gemv_kernel<Int4TView> (csrc/common.cuh)",
                "int8_t_mma": "t_wgmma_kernel<Int8TView> (csrc/common.cuh)",
@@ -420,7 +452,7 @@ def check_matmul(torch):
                 log(f"    plan (bm, nsplit, groups/split, blocks) {rows[-1]['plan']}; dense "
                     f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms; "
                     f"beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} of sum|terms|")
-        del lib_w, w_deq
+        del lib_w
         for M in SPLITK_CROSSOVER_M:  # both kernels forced on checked inputs
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             want = QM.int4g32_matmul_plain(x, packed[0], scale[0])
@@ -437,7 +469,7 @@ def check_matmul(torch):
             log(f"  B1 crossover {name:17s} M={M:4d}: split-K {times['int4g32_splitk']:.5f} ms, "
                 f"int4_wgmma_kernel {times['int4g32_mma']:.5f} ms, split-K/wgmma "
                 f"{times['int4g32_splitk'] / times['int4g32_mma']:.2f}")
-        for M in DYN_M:
+        for M in B8_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             got = D.int4_dyn_matmul(x, packed[0], scale[0])
             torch.cuda.synchronize()
@@ -458,6 +490,13 @@ def check_matmul(torch):
             rows.append({"kernel": kfn.__name__, "linear": name, "M": M, "K": K, "N": N,
                          "max_abs_err": err, "rel_err": rel, "ms": ms, "call_ms": call,
                          "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": None})
+            if kfn is D.int4_dyn_mma:  # the exact function: (xq @ q·s) · sx in f64
+                w64, s64 = unpack_int4_tpu(packed[0], scale[0]).double(), sx.double()
+                rows[-1]["beyond_sum"] = hold_sum(torch, f"int4_dyn_matmul {name} M={M}", got,
+                                                  (xq.double() @ w64) * s64,
+                                                  (xq.double().abs() @ w64.abs()) * s64)
+                del w64
+                dyn_hopper_extras(torch, rows[-1], x, w_deq, D.dyn_plan(M, K, N))
             log_row("int4_dyn_matmul", rows[-1])
         for M in CROSSOVER_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
@@ -468,7 +507,7 @@ def check_matmul(torch):
             crossover.append({"linear": name, "M": M, "K": K, "N": N, "b8_ms": b8, "b1_ms": b1})
             log(f"  crossover {name:17s} M={M:4d}: B8 (with its quantize prologue) {b8:.4f} ms, "
                 f"B1 {b1:.4f} ms, B8/B1 {b8 / b1:.2f}")
-        del packed, scale
+        del packed, scale, w_deq
     return rows, crossover, splitk_crossover
 
 
@@ -562,8 +601,8 @@ def check_int8_matmul(torch):
                 log(f"    plan (bm, nsplit, stages/split, blocks) {rows[-1]['plan']}; dense "
                     f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms; "
                     f"beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} of sum|terms|")
-        del w_t, scale_bf16, w64, w_deq
-        for M in DYN_M:
+        del w_t, scale_bf16, w64
+        for M in B7_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
             got = D.int8_dyn_matmul(x, w[0], scale[0])
             torch.cuda.synchronize()
@@ -584,8 +623,10 @@ def check_int8_matmul(torch):
             rows.append({"kernel": kfn.__name__, "linear": name, "M": M, "K": K, "N": N,
                          "max_abs_err": err, "rel_err": rel, "ms": ms, "call_ms": call,
                          "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": lib})
+            if kfn is D.int8_dyn_mma:
+                dyn_hopper_extras(torch, rows[-1], x, w_deq, D.dyn_plan(M, K, N))
             log_row("int8_dyn_matmul", rows[-1])
-        del w, scale
+        del w, scale, w_deq
     return rows
 
 
@@ -1526,43 +1567,69 @@ def full_slice(torch, smi):
     return counts, v2_counts, perf
 
 
-def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4_wgmma_kernel"):
-    """Device time of one prefill of ``batch`` 128-token prompts of
-    ``quant`` weights, by kernel, from a torch.profiler trace, the Hopper
-    matmul ``kernel`` apart (its 6 x 28 launches run at M = 128 x batch),
-    beside the untraced host-clock prefill (the median of three)."""
+def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4_wgmma_kernel",
+                    ids=None):
+    """Device time of one prefill of ``batch`` 128-token prompts (or of the
+    prompt ``ids`` (1, S)) of ``quant`` weights, by kernel, from a
+    torch.profiler trace, the Hopper matmul ``kernel`` apart (its 6 x 28
+    launches run at M = batch x S), beside the untraced host-clock prefill
+    (the median of three).  Under ``rt.dynamic_int8`` the per-row quantizer
+    (``dyn_quantize_rows``, the prologue of every dynamic matmul) runs in a
+    traced range of its own for that one run: its kernels' device ms."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import ProfilerActivity, profile as tprofile, record_function
 
     from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
     from chatglm_q_tpu_torch.utils.timing import wall_s
 
-    gen = torch.Generator(device="cuda").manual_seed(33)
-    ids = torch.randint(0, cfg.vocab_size, (batch, 128), device="cuda", generator=gen)
-    lengths = torch.full((batch,), 128, dtype=torch.int32, device="cuda")
+    if ids is None:
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        ids = torch.randint(0, cfg.vocab_size, (batch, 128), device="cuda", generator=gen)
+    batch, S = ids.shape
+    lengths = torch.full((batch,), S, dtype=torch.int32, device="cuda")
     run = lambda: M.prefill(params, cfg, ids, lengths,  # noqa: E731
                             M.init_kv_cache(cfg, batch, CACHE_LEN, torch.bfloat16), quant,
                             torch.bfloat16, rt)
     run()
     untraced_ms = wall_s(run) * 1e3
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    quantize = D.dyn_quantize_rows
+
+    def traced_quantize(x):
+        with record_function("dyn_quantize_rows"):
+            return quantize(x)
+
+    D.dyn_quantize_rows = traced_quantize
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        D.dyn_quantize_rows = quantize
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key != "dyn_quantize_rows"]
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     mm = [e for e in events if kernel in e.key]
     mm_ms = sum(e.self_device_time_total for e in mm) / 1e3
     mm_n = sum(e.count for e in mm)
-    require(mm_n == 6 * cfg.num_layers, f"a {batch}x128 {quant} prefill ran {mm_n} {kernel} "
+    require(mm_n == 6 * cfg.num_layers, f"a {batch}x{S} {quant} prefill ran {mm_n} {kernel} "
             f"launches, not {6 * cfg.num_layers}")
+    pro = [e for e in averages if e.key == "dyn_quantize_rows" and e.device_type == DeviceType.CPU]
+    pro_ms = sum(e.device_time_total for e in pro) / 1e3
+    pro_n = sum(e.count for e in pro)
+    require(pro_n == (6 * cfg.num_layers + 1 if rt.dynamic_int8 else 0),
+            f"a {batch}x{S} {quant} prefill quantized {pro_n} activations")
     top = [(e.key[:60], round(e.self_device_time_total / 1e3, 4), e.count) for e in events[:6]]
-    log(f"  {quant} prefill {batch}x128 profile: device {dev_ms:.3f} ms against "
-        f"{untraced_ms:.2f} ms untraced; {kernel} {mm_ms:.3f} ms in {mm_n} launches "
-        f"({100 * mm_ms / dev_ms:.1f}% of the device time); largest (ms) {json.dumps(top)}")
+    pro_s = (f"; the quantize prologue {pro_ms:.3f} ms in {pro_n} calls" if pro_n else "")
+    log(f"  {quant}{'+dyn' if rt.dynamic_int8 else ''} prefill {batch}x{S} profile: device "
+        f"{dev_ms:.3f} ms against {untraced_ms:.2f} ms untraced; {kernel} {mm_ms:.3f} ms in "
+        f"{mm_n} launches ({100 * mm_ms / dev_ms:.1f}% of the device time){pro_s}; largest (ms) "
+        f"{json.dumps(top)}")
     return {"device_ms": dev_ms, "untraced_ms": untraced_ms, "kernel": kernel,
-            "kernel_ms": mm_ms, "kernel_launches": mm_n, "top_ms": top}
+            "kernel_ms": mm_ms, "kernel_launches": mm_n, "prologue_ms": pro_ms,
+            "prologue_calls": pro_n, "top_ms": top}
 
 
 def profile_decode(torch, params, cfg, rt, quant="int4g32"):
@@ -1814,6 +1881,13 @@ def chat_slice(torch, smi):
             log(f"  {name} batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
             perf[name]["prefill_profile"] = profile_prefill(torch, params, cfg, rt, 4, quant,
                                                             "int8_wgmma_kernel")
+        if dyn:  # the chat prompt's prefill (and int8's 4 x 128) on B7 / B8's Hopper kernel
+            perf[name]["prefill_profile"] = profile_prefill(
+                torch, params, cfg, rt, 1, quant, "dyn_wgmma_kernel",
+                ids=torch.tensor([ids], device="cuda"))
+            if quant == "int8":
+                perf[name]["prefill_profile_4x128"] = profile_prefill(
+                    torch, params, cfg, rt, 4, quant, "dyn_wgmma_kernel")
         del decoder
     del params
     torch.cuda.empty_cache()

@@ -860,6 +860,119 @@ def test_wgmma_kernels_reject_a_plan_they_cannot_take(gen, entry):
                         1024, 1024, bm, nsplit, sps, 8, _build.stream_ptr(a))
 
 
+# B7 / B8 above 16 rows (dyn_wgmma_kernel): every main-path linear (q/o,
+# kv, w_in, w_out, the lm_head's 65536) at a short prompt's, a verify
+# step's, the 57-token chat prompt's, the int4-dyn ceiling's and prefill M.
+DYN_M = (17, 36, 57, 64, 65, 128, 512)
+
+
+def _beyond_sum_of(got, exact, terms, bits):
+    """_beyond_sum for an output of ``bits`` significant bits (bf16 8, f32 24)."""
+    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact)[1] - (bits + 1))
+    excess = ((got.double() - exact).abs() - half_ulp).clamp_min(0)
+    return (excess / terms.clamp_min(1e-300)).max().item()
+
+
+def _dyn_case(gen, kind, M, K, N, dtype):
+    """(call, its Hopper wrapper, plain version, exact f64 value and f64
+    sum|terms| of B8) of one dynamic matmul on random inputs with a zero
+    row (sx at its 1e-10 clamp)."""
+    x = _x(gen, M, K, dtype)
+    if kind == "int8":
+        w, scale = _int8_weights(gen, K, N)
+        return (lambda: D.int8_dyn_matmul(x, w, scale), D.int8_dyn_mma,
+                lambda: D.int8_dyn_matmul_plain(x, w, scale), None)
+    packed, scale = _int4_t_weights(gen, K, N)
+
+    def exact():
+        xq, sx = D.dyn_quantize_rows(x)
+        w64 = QM.unpack_int4_tpu(packed, scale).double()  # q·s, exact
+        s64 = sx.double()
+        return (xq.double() @ w64) * s64, (xq.double().abs() @ w64.abs()) * s64
+
+    return (lambda: D.int4_dyn_matmul(x, packed, scale), D.int4_dyn_mma,
+            lambda: D.int4_dyn_matmul_plain(x, packed, scale), exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", WG_LINEARS)
+@pytest.mark.parametrize("M", DYN_M)
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_dyn_wgmma_kernel_matches_plain(gen, kind, M, K, N, dtype):
+    """One launch of the Hopper kernel in x's dtype.  B7 equals its plain
+    version bit for bit (exact int32 sums, the same f32 epilogue); B8 is
+    within 1e-2 (f32: 1e-5) of max|plain| and within 2^-23 of sum|terms| of
+    its exact value beyond half an ulp of the output (its f32 sum over
+    groups in another order).  A second launch is bit-equal and every
+    arrival counter is back at 0."""
+    call, kernel, plain, exact = _dyn_case(gen, kind, M, K, N, dtype)
+    before = kernel.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all() and not got[M // 2].any()
+    want = plain()
+    if kind == "int8":
+        assert torch.equal(got, want), _rel(got, want)
+    else:
+        assert _rel(got, want) <= _tol(dtype)
+        bits = 8 if dtype == torch.bfloat16 else 24
+        assert _beyond_sum_of(got, *exact(), bits) <= 2.0 ** -23
+    assert torch.equal(call(), got)
+    bm = D.dyn_plan(M, K, N)[0]
+    tiles = -(-M // bm) * -(-N // QM.MMA_BN)
+    torch.cuda.synchronize()
+    assert not _build.scratch("mma_arrivals", got.device, 2 * tiles,
+                              torch.int32)[:2 * tiles].any()
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 4096, 512), (512, 4096, 4096), (200, 1024, 272),
+                                   (40, 4000, 4224)])
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_dyn_wgmma_kernel_replays_in_a_graph_and_takes_ragged_shapes(gen, kind, M, K, N):
+    """Ragged M, N and K (4000: a last stage of 32 elements, B8's of one
+    group) and a split plan; one call captured in a CUDA graph and replayed
+    twice is bit-equal to the eager call."""
+    call, _, plain, _ = _dyn_case(gen, kind, M, K, N, torch.bfloat16)
+    first = call()
+    torch.cuda.synchronize()
+    want = plain()
+    assert torch.equal(first, want) if kind == "int8" else _rel(first, want) <= 1e-2
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("entry", ["chatglm_int8_dyn_mma", "chatglm_int4_dyn_mma"])
+def test_dyn_wgmma_kernel_rejects_a_plan_it_cannot_take(gen, entry):
+    xq = torch.zeros((100, 2048), dtype=torch.int8, device="cuda")
+    sx = torch.ones((100,), device="cuda")
+    w = torch.zeros((2048, 1024), dtype=torch.int8, device="cuda")  # bytes enough for either
+    scale = torch.ones((2048, 1024), device="cuda")
+    y = torch.empty((100, 1024), dtype=torch.bfloat16, device="cuda")
+    ws = torch.empty((1 << 20,), dtype=torch.float32, device="cuda")
+    arrivals = torch.zeros((64,), dtype=torch.int32, device="cuda")
+    # 16 stages of 128: stages uncovered, an empty split, no such tile, splits without a workspace
+    for bm, nsplit, sps, part in ((128, 2, 4, ws), (128, 4, 8, ws), (96, 1, 16, ws),
+                                  (64, 2, 8, None)):
+        with pytest.raises(RuntimeError):
+            _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                        y.data_ptr(), None if part is None else part.data_ptr(),
+                        arrivals.data_ptr(), 100, 2048, 1024, 1, bm, nsplit, sps, 8,
+                        _build.stream_ptr(xq))
+
+
 def _decode_v2_f32(q, k, v, lengths, sm_scale, p_bf16=False):
     """B12's function in f32, before the output's bf16 rounding (with
     ``p_bf16``, p rounded to bf16 before PV: the control)."""
