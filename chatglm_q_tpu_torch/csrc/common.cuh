@@ -7,6 +7,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // Masked attention score: the JAX package's MASK_VALUE, -0.7 * f32 max.
 #define CHATGLM_MASK_VALUE (-0.7f * 3.4028234663852886e38f)
 
@@ -77,6 +79,18 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, cons
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a @ b, s8 in, s32 accumulate (exact); the m16n8k32 fragment layout:
+// a0 / a1 rows gid / gid + 8 at K 4t..4t+3, a2 / a3 the same at K 16 + 4t..,
+// b0 K 4t..4t+3 and b1 K 16 + 4t.. of column gid, four bytes a register
+// (the lower K in the lower byte); d as m16n8k16's.
+__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // m16n8k16 fragments of the attention kernels.  A (16 x 16, row-major in
@@ -300,7 +314,7 @@ __device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r) : : "mem
 
 // Transpose a 4x4 byte block: on entry byte j of r[i] is (row i, column j);
 // on exit byte i of r[j] is.  Turns four N-contiguous weight rows into one
-// K-ordered word per column, the form __dp4a and the s8 mma B fragment take.
+// K-ordered word per column, the form the s8 mma A fragment takes.
 __device__ __forceinline__ void transpose4x4_bytes(uint32_t* r) {
   const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
   const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
@@ -310,15 +324,6 @@ __device__ __forceinline__ void transpose4x4_bytes(uint32_t* r) {
   r[1] = __byte_perm(t0, t2, 0x7632);
   r[2] = __byte_perm(t1, t3, 0x5410);
   r[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-// The low / high nibbles of four packed tpu-order bytes, each sign-extended
-// from two's-complement int4 to s8 ((v ^ 8) - 8 per byte, no carries).
-__device__ __forceinline__ uint32_t nibbles_lo_s8(uint32_t w) {
-  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-__device__ __forceinline__ uint32_t nibbles_hi_s8(uint32_t w) {
-  return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 // Bits 0-3 and 16-19 of v, two tpu-order (two's-complement) int4 nibbles,
@@ -401,6 +406,265 @@ __device__ __forceinline__ void load8(const float* p, float* dst) {
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// Split-K tensor-core kernels (decode and the verify step): B1 at bf16 M <=
+// 64 (int4_matmul.cu), B6 at bf16 M <= 16 (int8_matmul.cu), B7 and B8 at
+// M <= 16 on s8 activations (dyn_matmul.cu).  Bound by the weight bytes.
+//
+// One body, sk_body, over a weight view V:
+//   V::X, V::Acc        x's element as staged (bf16, or s8 for B7/B8) and
+//                       the accumulator (f32, or B7's exact int32)
+//   V::Group<COLS>      one 32-row K group's weights (and scales) of a
+//                       lane's COLS columns, in registers
+//   V::Lane, v.lane(n)  the lane's column pointers at column n
+//   v.load(d, ln, g, t, N, ok)   group g's loads for lane quad t (zeros
+//                       where !ok: columns past N)
+//   v.group<MT>(d, xs, xs_stride, kl, M, acc)   the group's products with
+//                       x's staged rows (K offset kl in the chunk) into acc
+//   v.out<T>(sum, m, n) y[m, n] from the merged sum (the epilogue: scales)
+// The mma's A is the weights (16 columns x one K step: tile j of a lane
+// group holds its columns 2j and 2j + 1 as rows gid and gid + 8), B is x (8
+// rows an m-tile, zero past M), so M pads to 8 per m-tile and each weight
+// converts once whatever M is.  Lane quad t takes K rows 8t..8t+7 of each
+// group (any K order serves while A and B agree), which makes its x
+// fragment one contiguous 16-byte (bf16) or 8-byte (s8) read.
+// The accumulator (mt, j, e) is x row mt*8 + 2t + (e & 1), column gid*COLS +
+// 2j + (e >> 1).  Each kernel takes its pointers as __restrict__ parameters
+// and builds its view inside: through a struct parameter they lose
+// __restrict__, and ptxas scheduled B1's two-tile form 2-5% slower (H100).
+// ---------------------------------------------------------------------------
+
+constexpr int SK_KW = 4;                 // warps per block, all along K
+constexpr int SK_THREADS = 32 * SK_KW;
+constexpr int SK_SMEM_MAX = 72 * 1024;   // opted in once per instantiation
+
+// The block's shared memory: x's M rows over a chunk of cg groups (rows
+// padded by 32 elements, so that the lanes' fragment reads hit distinct
+// banks); after the loop, the same bytes hold each warp's (M, 8 * cols + 1)
+// 4-byte sum.  ops/quant_matmul.py::splitk_smem mirrors it.
+__host__ __device__ constexpr int sk_xs_stride(int cg) { return cg * 32 + 32; }
+__host__ __device__ constexpr int sk_smem_bytes(int M, int cg, int cols, int xbytes) {
+  return M * sk_xs_stride(cg) * xbytes > SK_KW * M * (8 * cols + 1) * 4
+             ? M * sk_xs_stride(cg) * xbytes
+             : SK_KW * M * (8 * cols + 1) * 4;
+}
+
+// One int4g32 group (B1, B8) for this lane, by ld.global.nc (which streams
+// this pattern ~1.7x faster than cp.async on an H100): byte rows 4t..4t+3
+// (K rows 8t..8t+7; byte row i holds K rows 2i, 2i + 1 in its low / high
+// nibble) at its COLS columns, and the group's COLS scales (s[j]: columns
+// 2j, 2j+1 as bf16x2).  Zeros past N.
+template <int COLS>
+struct SkGroup {
+  uint32_t w[4][COLS / 4];
+  uint32_t s[COLS / 2];
+};
+
+template <int COLS>
+__device__ __forceinline__ void sk_load(SkGroup<COLS>& d, const uint8_t* __restrict__ pcol,
+                                        const __nv_bfloat16* __restrict__ scol, int g, int t,
+                                        int N, bool ok) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint8_t* p = pcol + (size_t)(g * 16 + 4 * t + r) * N;
+    if constexpr (COLS == 16) {
+      const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+      d.w[r][0] = v.x; d.w[r][1] = v.y; d.w[r][2] = v.z; d.w[r][3] = v.w;
+    } else {
+      const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+      d.w[r][0] = v.x; d.w[r][1] = v.y;
+    }
+  }
+  const uint4* sp = reinterpret_cast<const uint4*>(scol + (size_t)g * N);
+#pragma unroll
+  for (int q = 0; q < COLS / 8; ++q) {
+    const uint4 v = ok ? __ldg(sp + q) : make_uint4(0u, 0u, 0u, 0u);
+    d.s[4 * q] = v.x; d.s[4 * q + 1] = v.y; d.s[4 * q + 2] = v.z; d.s[4 * q + 3] = v.w;
+  }
+}
+
+// One int8 group (B6, B7) for this lane: K rows 8t..8t+7 at its COLS
+// columns (w[r][q]: row 8t + r, columns 4q..4q+3), 16-byte loads where COLS
+// is 16.  Zeros past N.
+template <int COLS>
+struct Int8SkGroup {
+  uint32_t w[8][COLS / 4];
+};
+
+template <int COLS>
+__device__ __forceinline__ void int8_sk_load(Int8SkGroup<COLS>& d,
+                                             const int8_t* __restrict__ wcol, int g, int t,
+                                             int N, bool ok) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int8_t* p = wcol + (size_t)(g * 32 + 8 * t + r) * N;
+    if constexpr (COLS == 16) {
+      const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+      d.w[r][0] = v.x; d.w[r][1] = v.y; d.w[r][2] = v.z; d.w[r][3] = v.w;
+    } else {
+      const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+      d.w[r][0] = v.x; d.w[r][1] = v.y;
+    }
+  }
+}
+
+// Grid (N / (8 COLS) column tiles, nsplit K splits of gps groups); a
+// block's 4 warps take its groups in turn (warp w: groups g0 + w, g0 + w +
+// 4, ...), through two register sets, so that two groups' loads are in
+// flight while one is computed (the sets alternate: a copy from one to the
+// other would wait for the loads).  x's rows are staged cg groups at a time
+// (cg a multiple of 8, so a chunk gives each warp an even number of groups;
+// one chunk unless M is large).  The warps' sums meet in shared memory in
+// warp order; one split writes y, more write partials, and the last block
+// of a tile to arrive (__threadfence, then atomicAdd on its counter) sums
+// them in split order, writes y and resets the counter: deterministic, and
+// nothing to reset between launches, so a CUDA graph can replay it.
+template <typename V, typename T, int MT, int COLS>
+__device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restrict__ x,
+                                        T* __restrict__ y, typename V::Acc* __restrict__ ws,
+                                        int* __restrict__ arrivals, int M, int K, int N, int gps,
+                                        int cg, unsigned char* smem) {
+  using X = typename V::X;
+  using Acc = typename V::Acc;
+  constexpr int BN = 8 * COLS, RS = BN + 1;
+  constexpr int EPC = 16 / (int)sizeof(X);  // x elements a 16-byte chunk
+  __shared__ bool merge_here;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int n0 = tile * BN;
+  const int g0 = split * gps, g1 = min(K / 32, g0 + gps);
+  const int xs_stride = sk_xs_stride(cg);
+  X* xs = reinterpret_cast<X*>(smem);
+  Acc* red = reinterpret_cast<Acc*>(smem);  // after the loop: 4 warps' (M, BN + 1)
+
+  const int n = n0 + gid * COLS;  // N % COLS == 0: all COLS columns or none
+  const bool ok = n < N;
+  const typename V::Lane ln = v.lane(ok ? n : 0);
+  Acc acc[MT][COLS / 2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+
+  typename V::template Group<COLS> ga, gb;  // groups g and g + 4: both in flight from the start
+  int g = g0 + warp;
+  if (g < g1) v.load(ga, ln, g, t, N, ok);
+  if (g + SK_KW < g1) v.load(gb, ln, g + SK_KW, t, N, ok);
+  for (int c0 = g0; c0 < g1; c0 += cg) {
+    const int c1 = min(g1, c0 + cg);
+    const int kwc = (c1 - c0) * 32 / EPC;  // 16-byte chunks of a staged x row
+    for (int i = tid; i < M * kwc; i += SK_THREADS) {
+      const int r = i / kwc, c = (i % kwc) * EPC;
+      *reinterpret_cast<uint4*>(xs + r * xs_stride + c) =
+          *reinterpret_cast<const uint4*>(x + (size_t)r * K + c0 * 32 + c);
+    }
+    __syncthreads();
+    for (; g < c1; g += 2 * SK_KW) {  // ga holds group g, gb group g + 4
+      v.template group<MT>(ga, xs, xs_stride, (g - c0) * 32, M, acc);
+      if (g + 2 * SK_KW < g1) v.load(ga, ln, g + 2 * SK_KW, t, N, ok);
+      if (g + SK_KW >= c1) break;  // the last chunk's odd group
+      v.template group<MT>(gb, xs, xs_stride, (g + SK_KW - c0) * 32, M, acc);
+      if (g + 3 * SK_KW < g1) v.load(gb, ln, g + 3 * SK_KW, t, N, ok);
+    }
+    __syncthreads();
+  }
+
+  // each warp's sum into a slab of its own (x's rows are dead: every warp
+  // is past the chunk loop's last barrier), then the four in warp order
+  Acc* slab = red + warp * M * RS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mt * 8 + 2 * t + (e & 1);
+        if (m < M) slab[m * RS + gid * COLS + 2 * j + (e >> 1)] = acc[mt][j][e];
+      }
+  __syncthreads();
+  auto block_sum = [&](int i) {  // element i of the block's (M, BN) tile
+    const int o = (i / BN) * RS + i % BN;
+    return ((red[o] + red[M * RS + o]) + red[2 * M * RS + o]) + red[3 * M * RS + o];
+  };
+
+  if (nsplit == 1) {
+    for (int i = tid; i < M * BN; i += SK_THREADS) {
+      const int m = i / BN, c = i % BN;
+      if (n0 + c < N) y[(size_t)m * N + n0 + c] = v.template out<T>(block_sum(i), m, n0 + c);
+    }
+    return;
+  }
+  Acc* part = ws + ((size_t)tile * nsplit + split) * M * BN;
+  for (int i = tid; i < M * BN; i += SK_THREADS) part[i] = block_sum(i);
+  // the block that finishes this tile last sums its splits, in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) merge_here = atomicAdd(&arrivals[tile], 1) == nsplit - 1;
+  __syncthreads();
+  if (!merge_here) return;
+  __threadfence();
+  const Acc* tp = ws + (size_t)tile * nsplit * M * BN;
+  const size_t stride = (size_t)M * BN;
+  for (int i = tid; i < M * BN; i += SK_THREADS) {
+    Acc s = 0;
+    int p = 0;
+    for (; p + 8 <= nsplit; p += 8) {  // eight loads in flight, then their sum in order
+      Acc u[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[k] = __ldcg(tp + (p + k) * stride + i);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += u[k];
+    }
+    for (; p < nsplit; ++p) s += __ldcg(tp + p * stride + i);
+    const int m = i / BN, c = i % BN;
+    if (n0 + c < N) y[(size_t)m * N + n0 + c] = v.template out<T>(s, m, n0 + c);
+  }
+  if (tid == 0) arrivals[tile] = 0;  // ready for the next launch (and a graph replay)
+}
+
+// One launch of Kernel, a __global__ over sk_body: the (column tiles,
+// nsplit) grid, smem bytes of dynamic shared memory.
+template <auto Kernel, typename... Args>
+int sk_launch(int N, int cols, int nsplit, int smem, cudaStream_t stream, Args... args) {
+  const cudaError_t opt_in = smem_opt_in<Kernel>(SK_SMEM_MAX);  // past 48 KB (large M)
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  Kernel<<<dim3((N + 8 * cols - 1) / (8 * cols), nsplit), SK_THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// launch(integral_constant MT, integral_constant COLS) for the plan's mt
+// (1-6 or 8 tiles of 8 rows, at most MAX_MT) and cols (8, or 16 at mt 1)
+// after the checks every split-K entry shares; cudaErrorInvalidValue for a
+// plan no kernel takes.
+template <int MAX_MT, typename F>
+int sk_dispatch(int M, int N, int mt, int cols, int nsplit, int gps, int cg, int xbytes,
+                F&& launch) {
+  using std::integral_constant;
+  if (M < 1 || M > 8 * mt || nsplit < 1 || gps < 1 || cg < 8 || cg % 8 ||
+      (cols == 16 && (N % 16 || mt != 1)) || sk_smem_bytes(M, cg, cols, xbytes) > SK_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (cols == 16) return launch(integral_constant<int, 1>{}, integral_constant<int, 16>{});
+  if (cols != 8) return (int)cudaErrorInvalidValue;
+  using C8 = integral_constant<int, 8>;
+  switch (mt) {
+    case 1: return launch(integral_constant<int, 1>{}, C8{});
+    case 2: return launch(integral_constant<int, 2>{}, C8{});
+  }
+  if constexpr (MAX_MT == 8) {
+    switch (mt) {
+      case 3: return launch(integral_constant<int, 3>{}, C8{});
+      case 4: return launch(integral_constant<int, 4>{}, C8{});
+      case 5: return launch(integral_constant<int, 5>{}, C8{});
+      case 6: return launch(integral_constant<int, 6>{}, C8{});
+      case 8: return launch(integral_constant<int, 8>{}, C8{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The transposed kernels' bodies, one for B13 (int8) and B14 (int4g32).  A
@@ -977,32 +1241,29 @@ int launch_t_wgmma(const W& w, const void* g, const void* weights, const void* s
 
 }  // namespace
 
-// The second pass of every split-K kernel: y[i] = T(float(the nsplit
-// partials summed in order) * row_scale[m] * col_scale[n]), in that order;
-// a null scale is skipped.  Acc is float (f32 partials) or int (int32
-// partials, summed exactly).  Deterministic, no atomics.
+// The second pass of the CUDA-core split-K kernels (B1's and B6's gemv):
+// y[i] = T(float(the nsplit f32 partials summed in order) * col_scale[n]);
+// a null scale is skipped.  Deterministic, no atomics.
 namespace {
 
-template <typename Acc, typename T>
-__global__ void splitk_reduce_kernel(const Acc* __restrict__ ws, const float* __restrict__ row_scale,
+template <typename T>
+__global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ col_scale, T* __restrict__ y,
                                      int nsplit, int N, size_t MN) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
-  Acc s = 0;
-  for (int p = 0; p < nsplit; ++p) s += ws[(size_t)p * MN + i];
-  float v = (float)s;
-  if (row_scale) v *= row_scale[i / N];
+  float v = 0.f;
+  for (int p = 0; p < nsplit; ++p) v += ws[(size_t)p * MN + i];
   if (col_scale) v *= col_scale[i % N];
   y[i] = from_f32<T>(v);
 }
 
-template <typename Acc, typename T>
-void splitk_reduce(const Acc* ws, const float* row_scale, const float* col_scale, T* y, int nsplit,
-                   int M, int N, cudaStream_t stream) {
+template <typename T>
+void splitk_reduce(const float* ws, const float* col_scale, T* y, int nsplit, int M, int N,
+                   cudaStream_t stream) {
   const size_t MN = (size_t)M * N;
-  splitk_reduce_kernel<Acc, T><<<(unsigned)((MN + 255) / 256), 256, 0, stream>>>(
-      ws, row_scale, col_scale, y, nsplit, N, MN);
+  splitk_reduce_kernel<T><<<(unsigned)((MN + 255) / 256), 256, 0, stream>>>(ws, col_scale, y,
+                                                                            nsplit, N, MN);
 }
 
 }  // namespace

@@ -18,15 +18,24 @@
 //   Padded K rows (nibble 0, scale 1, zero activations) add exactly 0.
 //
 // Kernels, two per function:
-// * *_dyn_gemv_kernel (M <= 16, decode): bound by the weight bytes.  The
-//   split-K layout of int4_matmul.cu's gemv (8 columns per lane from one
-//   8-byte load per weight row, K split over blocks and 4 warps in groups
-//   of 32 rows), with __dp4a doing four s8 products per instruction.  The
-//   weights are N-contiguous, so a lane loads four rows of its 8 columns
-//   and transposes each 4x4 byte block with __byte_perm into one K-ordered
-//   word per column.  B7 keeps int32 partials (the second pass sums them
-//   exactly), B8 f32 partials of the scaled group dots (summed in a fixed
-//   order).
+// * dyn_splitk_mma_kernel (M <= 16: decode), one for both over common.cuh's
+//   split-K body (B1's decode design): bound by the weight bytes.  s8
+//   mma.sync m16n8k32 with the weights as A (16 columns x 32 K) and xq's
+//   rows as B (8 rows an m-tile, zero past M), so the products cost nothing
+//   per row up to 8 rows and the CUDA cores only rearrange bytes.  Lane
+//   quad t takes K rows 8t..8t+7 of a 32-row group, so its B registers are
+//   8 contiguous bytes of a staged xq row and its A registers come from
+//   4x4 __byte_perm transposes of the N-contiguous weight words (B8: each
+//   nibble first moved to the high half of its byte, where it reads as the
+//   exact s8 16 q).  Each lane streams 16 contiguous bytes (8 where N is
+//   narrow or M > 8, and for B7 where 16 would leave a warp fewer than four
+//   groups: splitk_plan) of a group's rows by ld.global.nc into two alternating
+//   register sets; K splits fill the card at a narrow N and merge in the
+//   same launch (last arrival, split order, counter reset: deterministic,
+//   graph-safe).  B7 keeps one exact s32 accumulator and merges splits in
+//   int32, then the plain version's f32 epilogue; B8 takes each group into
+//   a fresh s32 partial and folds it into f32 with the group's scale / 16,
+//   as the Hopper form does.
 // * dyn_wgmma_kernel (M > 16: prefill, chunk and verify steps), one
 //   persistent Hopper kernel for both on common.cuh's ring: TMA stages of
 //   the s8 activations (BM rows x 128 K, 128B swizzle) and the weights in
@@ -52,154 +61,181 @@
 
 namespace {
 
+// int32 p as f32, exact for |p| < 2^22: p + 0x4B400000 is the bit pattern
+// of 2^23 + 2^22 + p, less 2^23 + 2^22 in f32 (one IADD and one FADD where
+// cvt.rn.f32.s32 issues at 16 a clock on an SM).
+__device__ __forceinline__ float s32_to_f32_exact(int p) {
+  return __int_as_float(p + 0x4B400000) - 12582912.f;
+}
+
 // ---------------------------------------------------------------------------
-// Split-K CUDA-core kernels (__dp4a)
+// Split-K tensor-core kernel (s8 mma.sync, M <= 16)
 // ---------------------------------------------------------------------------
 
-// The K-ordered s8 words of a lane's 8 columns at K rows k..k+3 (B7: four
-// int8 weight rows).
-__device__ __forceinline__ void int8_quads(const int8_t* wrow, int N, uint32_t* q) {
-  uint32_t lo[4], hi[4];
+// xq's 8 s8 K-values of each m-tile's row gid at kl + 8t (zero past M): the
+// B registers of one k32 step, K 8t..8t+3 then 8t+4..8t+7 (logical K 4t..
+// and 16 + 4t..).
+template <int MT>
+__device__ __forceinline__ void sk_xq(uint2 (&b)[MT], const int8_t* xs, int xs_stride, int kl,
+                                      int M) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(wrow + (size_t)i * N));
-    lo[i] = v.x;
-    hi[i] = v.y;
-  }
-  transpose4x4_bytes(lo);
-  transpose4x4_bytes(hi);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    q[j] = lo[j];
-    q[4 + j] = hi[j];
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = mt * 8 + gid;
+    b[mt] = row < M ? *reinterpret_cast<const uint2*>(xs + row * xs_stride + kl + 8 * t)
+                    : make_uint2(0u, 0u);
   }
 }
 
-// The same from two packed int4 byte rows (B8: K rows 2i, 2i+1, 2i+2, 2i+3).
-__device__ __forceinline__ void int4_quads(const uint8_t* prow, int N, uint32_t* q) {
-  const uint2 a = __ldg(reinterpret_cast<const uint2*>(prow));
-  const uint2 b = __ldg(reinterpret_cast<const uint2*>(prow + N));
-  uint32_t lo[4] = {nibbles_lo_s8(a.x), nibbles_hi_s8(a.x), nibbles_lo_s8(b.x), nibbles_hi_s8(b.x)};
-  uint32_t hi[4] = {nibbles_lo_s8(a.y), nibbles_hi_s8(a.y), nibbles_lo_s8(b.y), nibbles_hi_s8(b.y)};
-  transpose4x4_bytes(lo);
-  transpose4x4_bytes(hi);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    q[j] = lo[j];
-    q[4 + j] = hi[j];
+// B7's view: a group is Int8SkGroup (K rows 8t..8t+7 of the lane's
+// columns).  Rows 0-3 and 4-7 of each 4-column word transpose into one
+// K-ordered word per column: A registers 0 / 1 (columns 2j, 2j + 1 at K
+// 8t..8t+3) and 2 / 3 (K 8t+4..).  One exact s32 accumulator.
+struct Int8DynSkView {
+  using X = int8_t;
+  using Acc = int;
+  using W = const int8_t*;
+  using S = const float*;
+  template <int COLS>
+  using Group = Int8SkGroup<COLS>;
+  using Lane = const int8_t*;
+  const int8_t* w;
+  const float* scale;
+  const float* sx;
+
+  __device__ __forceinline__ Lane lane(int n) const { return w + n; }
+  template <int COLS>
+  __device__ __forceinline__ void load(Int8SkGroup<COLS>& d, Lane wcol, int g, int t, int N,
+                                       bool ok) const {
+    int8_sk_load<COLS>(d, wcol, g, t, N, ok);
   }
-}
-
-// INT4: the packed (K/2, N) int4 weights with (K/32, N) bf16 scales (B8);
-// else the (K, N) int8 weights (B7).  Acc is int (B7) or float (B8).
-template <bool INT4, int MT, typename Acc>
-__global__ void __launch_bounds__(GEMV_LANES* GEMV_KW)
-dyn_gemv_kernel(const int8_t* __restrict__ xq, const void* __restrict__ wv,
-                const __nv_bfloat16* __restrict__ gscale, Acc* __restrict__ ws, int M, int K,
-                int N, int groups_per_split) {
-  const int lane = threadIdx.x;
-  const int wy = threadIdx.y;
-  const int n0 = (blockIdx.x * GEMV_LANES + lane) * GEMV_COLS;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
-  const int G = K / 32;
-  const int g_begin = split * groups_per_split;
-  const int g_end = min(G, g_begin + groups_per_split);
-
-  const int8_t* xr[MT];
+  template <int MT, int COLS>
+  __device__ __forceinline__ void group(const Int8SkGroup<COLS>& d, const int8_t* xs,
+                                        int xs_stride, int kl, int M,
+                                        int (&acc)[MT][COLS / 2][4]) const {
+    uint2 b[MT];
+    sk_xq<MT>(b, xs, xs_stride, kl, M);
 #pragma unroll
-  for (int m = 0; m < MT; ++m) xr[m] = xq + (size_t)min(m0 + m, M - 1) * K;
-
-  Acc acc[MT][GEMV_COLS];
+    for (int q = 0; q < COLS / 4; ++q) {
+      uint32_t lo[4] = {d.w[0][q], d.w[1][q], d.w[2][q], d.w[3][q]};
+      uint32_t hi[4] = {d.w[4][q], d.w[5][q], d.w[6][q], d.w[7][q]};
+      transpose4x4_bytes(lo);
+      transpose4x4_bytes(hi);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+      for (int jj = 0; jj < 2; ++jj) {
+        const uint32_t a[4] = {lo[2 * jj], lo[2 * jj + 1], hi[2 * jj], hi[2 * jj + 1]};
 #pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] = 0;
-
-  if (n0 < N) {
-    for (int g = g_begin + wy; g < g_end; g += GEMV_KW) {
-      int dot[MT][GEMV_COLS];
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) dot[m][j] = 0;
-#pragma unroll 2
-      for (int r = 0; r < 8; ++r) {  // K rows g*32 + 4r .. + 3
-        uint32_t q[GEMV_COLS];
-        if constexpr (INT4)
-          int4_quads(static_cast<const uint8_t*>(wv) + (size_t)(g * 16 + 2 * r) * N + n0, N, q);
-        else
-          int8_quads(static_cast<const int8_t*>(wv) + (size_t)(g * 32 + 4 * r) * N + n0, N, q);
-        const int k = g * 32 + 4 * r;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int xw = *reinterpret_cast<const int*>(xr[m] + k);
-#pragma unroll
-          for (int j = 0; j < GEMV_COLS; ++j) dot[m][j] = __dp4a(xw, (int)q[j], dot[m][j]);
-        }
-      }
-      if constexpr (INT4) {
-        const uint4 sv = __ldg(reinterpret_cast<const uint4*>(gscale + (size_t)g * N + n0));
-        const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&sv);
-        float s[GEMV_COLS];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(s2[j]);
-          s[2 * j] = f.x;
-          s[2 * j + 1] = f.y;
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int j = 0; j < GEMV_COLS; ++j)
-            acc[m][j] = fmaf((float)dot[m][j], s[j], acc[m][j]);
-      } else {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] += dot[m][j];
+        for (int mt = 0; mt < MT; ++mt) mma_s8_16832(acc[mt][2 * q + jj], a, b[mt].x, b[mt].y);
       }
     }
   }
+  // the plain version's f32 operations in its order
+  template <typename T>
+  __device__ __forceinline__ T out(int v, int m, int n) const {
+    return from_f32<T>((__int2float_rn(v) * __ldg(sx + m)) * __ldg(scale + n));
+  }
+};
 
-  // fixed-order reduction over the K warps
-  __shared__ Acc red[MT][GEMV_BN];
-  for (int v = GEMV_KW - 1; v >= 0; --v) {
-    if (wy == v) {
+// B8's view: a group is SkGroup (byte rows 4t..4t+3 of the packed weights,
+// K rows 8t..8t+7, and the group's scales).  Each nibble goes to the high
+// half of its byte (the low one by byte << 4, the high one by byte & 0xF0),
+// where it reads as the s8 16 q, then the transposes of B7; the group's
+// products go to a fresh s32 partial, exact in f32 (|p| < 2^22), folded with
+// scale / 16 by one FMA: the plain version's float(dot) * scale, unrounded.
+struct Int4DynSkView {
+  using X = int8_t;
+  using Acc = float;
+  using W = const uint8_t*;
+  using S = const __nv_bfloat16*;
+  template <int COLS>
+  using Group = SkGroup<COLS>;
+  struct Lane {
+    const uint8_t* pcol;
+    const __nv_bfloat16* scol;
+  };
+  const uint8_t* packed;
+  const __nv_bfloat16* scale;
+  const float* sx;
+
+  __device__ __forceinline__ Lane lane(int n) const { return {packed + n, scale + n}; }
+  template <int COLS>
+  __device__ __forceinline__ void load(SkGroup<COLS>& d, const Lane& ln, int g, int t, int N,
+                                       bool ok) const {
+    sk_load<COLS>(d, ln.pcol, ln.scol, g, t, N, ok);
+  }
+  template <int MT, int COLS>
+  __device__ __forceinline__ void group(const SkGroup<COLS>& d, const int8_t* xs, int xs_stride,
+                                        int kl, int M, float (&acc)[MT][COLS / 2][4]) const {
+    uint2 b[MT];
+    sk_xq<MT>(b, xs, xs_stride, kl, M);
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+    for (int q = 0; q < COLS / 4; ++q) {
+      const uint32_t w0 = d.w[0][q], w1 = d.w[1][q], w2 = d.w[2][q], w3 = d.w[3][q];
+      uint32_t lo[4] = {(w0 << 4) & 0xF0F0F0F0u, w0 & 0xF0F0F0F0u, (w1 << 4) & 0xF0F0F0F0u,
+                        w1 & 0xF0F0F0F0u};
+      uint32_t hi[4] = {(w2 << 4) & 0xF0F0F0F0u, w2 & 0xF0F0F0F0u, (w3 << 4) & 0xF0F0F0F0u,
+                        w3 & 0xF0F0F0F0u};
+      transpose4x4_bytes(lo);
+      transpose4x4_bytes(hi);
 #pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) {
-          const int col = lane * GEMV_COLS + j;
-          red[m][col] = (v == GEMV_KW - 1) ? acc[m][j] : red[m][col] + acc[m][j];
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * q + jj;
+        const uint32_t a[4] = {lo[2 * jj], lo[2 * jj + 1], hi[2 * jj], hi[2 * jj + 1]};
+        const float s_lo = __uint_as_float(d.s[j] << 16) * 0.0625f;          // column 2j
+        const float s_hi = __uint_as_float(d.s[j] & 0xFFFF0000u) * 0.0625f;  // column 2j + 1
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          int p[4] = {0, 0, 0, 0};
+          mma_s8_16832(p, a, b[mt].x, b[mt].y);
+          acc[mt][j][0] = fmaf(s32_to_f32_exact(p[0]), s_lo, acc[mt][j][0]);
+          acc[mt][j][1] = fmaf(s32_to_f32_exact(p[1]), s_lo, acc[mt][j][1]);
+          acc[mt][j][2] = fmaf(s32_to_f32_exact(p[2]), s_hi, acc[mt][j][2]);
+          acc[mt][j][3] = fmaf(s32_to_f32_exact(p[3]), s_hi, acc[mt][j][3]);
         }
+      }
     }
-    __syncthreads();
   }
-  for (int i = wy * GEMV_LANES + lane; i < MT * GEMV_BN; i += GEMV_LANES * GEMV_KW) {
-    const int m = i / GEMV_BN, col = i % GEMV_BN;
-    const int row = m0 + m, n = blockIdx.x * GEMV_BN + col;
-    if (row < M && n < N) ws[((size_t)split * M + row) * N + n] = red[m][col];
+  template <typename T>
+  __device__ __forceinline__ T out(float v, int m, int) const {
+    return from_f32<T>(v * __ldg(sx + m));
   }
+};
+
+template <typename V, typename T, int MT, int COLS>
+__global__ void __launch_bounds__(SK_THREADS, 4)
+dyn_splitk_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                      typename V::W __restrict__ w, typename V::S __restrict__ scale,
+                      T* __restrict__ y, typename V::Acc* __restrict__ ws,
+                      int* __restrict__ arrivals, int M, int K, int N, int gps, int cg) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  sk_body<V, T, MT, COLS>(V{w, scale, sx}, xq, y, ws, arrivals, M, K, N, gps, cg, sk_smem);
 }
 
-template <bool INT4, typename Acc>
-void launch_dyn_gemv(const int8_t* xq, const void* w, const __nv_bfloat16* gscale, Acc* ws,
-                     int M, int K, int N, int nsplit, int gps, cudaStream_t stream) {
-  const dim3 block(GEMV_LANES, GEMV_KW);
-  const int nb = (N + GEMV_BN - 1) / GEMV_BN;
-  if (M == 1)
-    dyn_gemv_kernel<INT4, 1, Acc><<<dim3(nb, nsplit, M), block, 0, stream>>>(
-        xq, w, gscale, ws, M, K, N, gps);
-  else if (M == 2)
-    dyn_gemv_kernel<INT4, 2, Acc><<<dim3(nb, nsplit, 1), block, 0, stream>>>(
-        xq, w, gscale, ws, M, K, N, gps);
-  else if (M <= 4)
-    dyn_gemv_kernel<INT4, 4, Acc><<<dim3(nb, nsplit, 1), block, 0, stream>>>(
-        xq, w, gscale, ws, M, K, N, gps);
-  else
-    dyn_gemv_kernel<INT4, 8, Acc><<<dim3(nb, nsplit, (M + 7) / 8), block, 0, stream>>>(
-        xq, w, gscale, ws, M, K, N, gps);
+// xq (M, K) s8, sx (M,) f32, view V's weights and scale, y (M, N) bf16
+// (y_is_bf16) or f32; the plan of ops/quant_matmul.py::splitk_plan (mt 1
+// or 2) over s8 rows.
+template <typename V>
+int launch_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale, void* y,
+                      void* ws, void* arrivals, int M, int K, int N, int y_is_bf16, int mt,
+                      int cols, int nsplit, int gps, int cg, cudaStream_t stream) {
+  using Acc = typename V::Acc;
+  return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 1, [&](auto MT, auto COLS) {
+    constexpr int kMT = decltype(MT)::value, kCOLS = decltype(COLS)::value;
+    const int smem = sk_smem_bytes(M, cg, cols, 1);
+    const auto* x = static_cast<const int8_t*>(xq);
+    const auto* sxf = static_cast<const float*>(sx);
+    const auto wv = static_cast<typename V::W>(w);
+    const auto sv = static_cast<typename V::S>(scale);
+    auto* part = static_cast<Acc*>(ws);
+    auto* arr = static_cast<int*>(arrivals);
+    if (y_is_bf16)
+      return sk_launch<dyn_splitk_mma_kernel<V, __nv_bfloat16, kMT, kCOLS>>(
+          N, cols, nsplit, smem, stream, x, sxf, wv, sv, static_cast<__nv_bfloat16*>(y), part,
+          arr, M, K, N, gps, cg);
+    return sk_launch<dyn_splitk_mma_kernel<V, float, kMT, kCOLS>>(
+        N, cols, nsplit, smem, stream, x, sxf, wv, sv, static_cast<float*>(y), part, arr, M, K,
+        N, gps, cg);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -326,13 +362,6 @@ struct Int4DynView {
                        __uint_as_float(s & 0xFFFF0000u) * 0.0625f);
   }
 };
-
-// int32 p as f32, exact for |p| < 2^22: p + 0x4B400000 is the bit pattern
-// of 2^23 + 2^22 + p, less 2^23 + 2^22 in f32 (one IADD and one FADD where
-// cvt.rn.f32.s32 issues at 16 a clock on an SM).
-__device__ __forceinline__ float s32_to_f32_exact(int p) {
-  return __int_as_float(p + 0x4B400000) - 12582912.f;
-}
 
 template <int BM>
 __device__ __forceinline__ void wg_mma_s8(int (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc,
@@ -614,25 +643,16 @@ int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
 
 extern "C" {
 
-// B7, split-K __dp4a kernel.  xq (M,K) s8, sx (M,) f32, w (K,N) s8, scale (N,)
-// f32, y (M,N) bf16 (y_is_bf16) or f32; ws holds nsplit * M * N int32;
-// K % 32 == 0, N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
-int chatglm_int8_dyn_gemv(const void* xq, const void* sx, const void* w, const void* scale,
-                          void* y, void* ws, int M, int K, int N, int y_is_bf16, int nsplit,
-                          int groups_per_split, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  int* part = static_cast<int*>(ws);
-  launch_dyn_gemv<false, int>(static_cast<const int8_t*>(xq), w, nullptr, part, M, K, N, nsplit,
-                              groups_per_split, s);
-  // y = (float(acc) * sx[m]) * scale[n]: the plain version's order
-  const float* sxf = static_cast<const float*>(sx);
-  const float* sc = static_cast<const float*>(scale);
-  if (y_is_bf16)
-    splitk_reduce<int, __nv_bfloat16>(part, sxf, sc, static_cast<__nv_bfloat16*>(y), nsplit, M, N,
-                                      s);
-  else
-    splitk_reduce<int, float>(part, sxf, sc, static_cast<float*>(y), nsplit, M, N, s);
-  return (int)cudaGetLastError();
+// B7, split-K tensor-core kernel (dyn_splitk_mma_kernel), one launch.  xq
+// (M,K) s8, sx (M,) f32, w (K,N) s8, scale (N,) f32, y (M,N) bf16
+// (y_is_bf16) or f32; the plan and buffers of chatglm_int8_splitk_mma, ws as
+// int32 partials; K % 32 == 0, N % 8 == 0, 16-byte aligned pointers.
+int chatglm_int8_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale,
+                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                            int mt, int cols, int nsplit, int gps, int cg, void* stream) {
+  return launch_dyn_splitk<Int8DynSkView>(xq, sx, w, scale, y, ws, arrivals, M, K, N, y_is_bf16,
+                                          mt, cols, nsplit, gps, cg,
+                                          reinterpret_cast<cudaStream_t>(stream));
 }
 
 // B7, Hopper tensor-core kernel (dyn_wgmma_kernel), one launch: tiles of bm
@@ -649,24 +669,15 @@ int chatglm_int8_dyn_mma(const void* xq, const void* sx, const void* w, const vo
                           sps, ctas, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// B8, split-K __dp4a kernel.  packed (K/2,N) u8 tpu order, scale (K/32,N)
-// bf16; ws holds nsplit * M * N floats; K % 32 == 0, N % 8 == 0.
-int chatglm_int4_dyn_gemv(const void* xq, const void* sx, const void* packed, const void* scale,
-                          void* y, void* ws, int M, int K, int N, int y_is_bf16, int nsplit,
-                          int groups_per_split, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(ws);
-  launch_dyn_gemv<true, float>(static_cast<const int8_t*>(xq), packed,
-                               static_cast<const __nv_bfloat16*>(scale), part, M, K, N, nsplit,
-                               groups_per_split, s);
-  // y = (sum of the scaled group dots) * sx[m]
-  const float* sxf = static_cast<const float*>(sx);
-  if (y_is_bf16)
-    splitk_reduce<float, __nv_bfloat16>(part, sxf, nullptr, static_cast<__nv_bfloat16*>(y),
-                                        nsplit, M, N, s);
-  else
-    splitk_reduce<float, float>(part, sxf, nullptr, static_cast<float*>(y), nsplit, M, N, s);
-  return (int)cudaGetLastError();
+// B8, split-K tensor-core kernel (dyn_splitk_mma_kernel), one launch:
+// packed (K/2, N) u8 tpu order, scale (K/32, N) bf16; the plan and buffers
+// of chatglm_int8_dyn_splitk, ws as f32 partials.
+int chatglm_int4_dyn_splitk(const void* xq, const void* sx, const void* packed, const void* scale,
+                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                            int mt, int cols, int nsplit, int gps, int cg, void* stream) {
+  return launch_dyn_splitk<Int4DynSkView>(xq, sx, packed, scale, y, ws, arrivals, M, K, N,
+                                          y_is_bf16, mt, cols, nsplit, gps, cg,
+                                          reinterpret_cast<cudaStream_t>(stream));
 }
 
 // B8, Hopper tensor-core kernel (dyn_wgmma_kernel), one launch: packed (K/2,

@@ -37,6 +37,8 @@
 //     resets to 0) sums the splits' f32 partials in split order and writes
 //     y.  Deterministic, nothing to reset between launches, so a CUDA graph
 //     can replay it.
+//   The body is common.cuh's sk_body over Int4SkView, shared with B6's, B7's
+//   and B8's decode kernels.
 // * int4_gemv_kernel (f32 activations, and bf16 above SMALL_M_MAX where
 //   N % 16 != 0): bound by bytes — every weight byte is read once per call
 //   and there are only ~2 operations per byte.  Each lane
@@ -222,7 +224,7 @@ void gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, T* y, f
     launch_gemv<T, 4>(x, packed, scale, ws, M, K, N, nsplit, gps, stream);
   else
     launch_gemv<T, 8>(x, packed, scale, ws, M, K, N, nsplit, gps, stream);
-  splitk_reduce<float, T>(ws, nullptr, nullptr, y, nsplit, M, N, stream);
+  splitk_reduce<T>(ws, nullptr, y, nsplit, M, N, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -429,241 +431,98 @@ int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, 
 // Split-K tensor-core kernel (bf16 activations, M <= 64: decode, verify)
 // ---------------------------------------------------------------------------
 
-constexpr int SK_KW = 4;                 // warps per block, all along K
-constexpr int SK_THREADS = 32 * SK_KW;
-constexpr int SK_SMEM_MAX = 72 * 1024;   // opted in once per instantiation
+// B1's view of common.cuh's split-K body.  A group is SkGroup: its packed
+// bytes and scales.  Any order of a group's 16 K-row pairs serves, as long
+// as A and B agree: lane quad t takes byte rows 4t..4t+3 (K rows 8t..8t+7),
+// its x fragment the 16 contiguous bytes of a row there.  Its K half h (the
+// mma's k16 step) takes byte rows 4t + 2h (A regs 0/1, B reg 0) and 4t + 2h
+// + 1 (A regs 2/3, B reg 1); each packed byte is one A register (its two
+// nibbles neighbouring K rows); each group's f32 partial is multiplied by
+// its scale into the accumulator.
+struct Int4SkView {
+  using X = __nv_bfloat16;
+  using Acc = float;
+  template <int COLS>
+  using Group = SkGroup<COLS>;
+  struct Lane {
+    const uint8_t* pcol;
+    const __nv_bfloat16* scol;
+  };
+  const uint8_t* packed;
+  const __nv_bfloat16* scale;
 
-// The block's shared memory: x's M rows over a chunk of cg groups (rows
-// padded by 32 bf16, so that the lanes' 16-byte fragment reads hit distinct
-// banks); after the loop, the same bytes hold each warp's (M, 8 * cols + 1)
-// f32 sum.  ops/quant_matmul.py::splitk_smem mirrors it.
-__host__ __device__ constexpr int sk_xs_stride(int cg) { return cg * 32 + 32; }
-__host__ __device__ constexpr int sk_smem_bytes(int M, int cg, int cols) {
-  return M * sk_xs_stride(cg) * 2 > SK_KW * M * (8 * cols + 1) * 4
-             ? M * sk_xs_stride(cg) * 2
-             : SK_KW * M * (8 * cols + 1) * 4;
-}
-
-// The K order inside a group.  Any order of the 16 K-row pairs serves, as
-// long as A and B agree: lane quad t takes byte rows 4t..4t+3 (K rows
-// 8t..8t+7), which makes its x fragment 16 contiguous bytes of a row.  Its
-// K half h (the mma's k16 step) takes byte rows 4t + 2h (A regs 0/1, B reg
-// 0) and 4t + 2h + 1 (A regs 2/3, B reg 1).
-//
-// One group's loads for this lane, by ld.global.nc (which streams this
-// pattern ~1.7x faster than cp.async on an H100): byte rows 4t..4t+3 at its
-// COLS columns, and the group's COLS scales (s[j]: columns 2j, 2j+1 as
-// bf16x2).  Zeros past N.
-template <int COLS>
-struct SkGroup {
-  uint32_t w[4][COLS / 4];
-  uint32_t s[COLS / 2];
-};
-
-template <int COLS>
-__device__ __forceinline__ void sk_load(SkGroup<COLS>& d, const uint8_t* __restrict__ pcol,
-                                        const __nv_bfloat16* __restrict__ scol, int g, int t,
-                                        int N, bool ok) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const uint8_t* p = pcol + (size_t)(g * 16 + 4 * t + r) * N;
-    if constexpr (COLS == 16) {
-      const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
-      d.w[r][0] = v.x; d.w[r][1] = v.y; d.w[r][2] = v.z; d.w[r][3] = v.w;
-    } else {
-      const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
-      d.w[r][0] = v.x; d.w[r][1] = v.y;
-    }
+  __device__ __forceinline__ Lane lane(int n) const { return {packed + n, scale + n}; }
+  template <int COLS>
+  __device__ __forceinline__ void load(SkGroup<COLS>& d, const Lane& ln, int g, int t, int N,
+                                       bool ok) const {
+    sk_load<COLS>(d, ln.pcol, ln.scol, g, t, N, ok);
   }
-  const uint4* sp = reinterpret_cast<const uint4*>(scol + (size_t)g * N);
-#pragma unroll
-  for (int q = 0; q < COLS / 8; ++q) {
-    const uint4 v = ok ? __ldg(sp + q) : make_uint4(0u, 0u, 0u, 0u);
-    d.s[4 * q] = v.x; d.s[4 * q + 1] = v.y; d.s[4 * q + 2] = v.z; d.s[4 * q + 3] = v.w;
-  }
-}
 
-// acc += one group's products, its f32 partial times its scale.  The mma's
-// A is the weights (16 columns x 16 K: mma tile j holds this lane group's
-// columns 2j and 2j+1, one packed byte a register), B is x (16 K x 8 rows,
-// zero past M), so M is padded to 8 per m-tile, not 16.
-template <int MT, int COLS>
-__device__ __forceinline__ void sk_group(const SkGroup<COLS>& d, const __nv_bfloat16* xs,
-                                         int xs_stride, int kl, int M,
-                                         float (&acc)[MT][COLS / 2][4]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
-  uint4 b[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int row = mt * 8 + gid;
-    b[mt] = row < M ? *reinterpret_cast<const uint4*>(xs + row * xs_stride + kl + 8 * t)
-                    : make_uint4(0u, 0u, 0u, 0u);
-  }
-  uint32_t wsh[4][COLS / 4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < COLS / 4; ++q) wsh[r][q] = d.w[r][q] >> 4;
-#pragma unroll
-  for (int j = 0; j < COLS / 2; ++j) {
-    const int q = j >> 1, p = 2 * (j & 1);
-    float part[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t a[4] = {int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p),
-                             int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p + 1),
-                             int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p),
-                             int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p + 1)};
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const uint32_t bb[2] = {h ? b[mt].z : b[mt].x, h ? b[mt].w : b[mt].y};
-        mma_bf16_16816(part[mt], a, bb);
-      }
-    }
-    const float s_lo = __uint_as_float(d.s[j] << 16);          // column 2j
-    const float s_hi = __uint_as_float(d.s[j] & 0xFFFF0000u);  // column 2j + 1
+  // acc += the group's products, its f32 partial of each column pair times
+  // the pair's scales
+  template <int MT, int COLS>
+  __device__ __forceinline__ void group(const SkGroup<COLS>& d, const __nv_bfloat16* xs,
+                                        int xs_stride, int kl, int M,
+                                        float (&acc)[MT][COLS / 2][4]) const {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
+    uint4 b[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      acc[mt][j][0] = fmaf(part[mt][0], s_lo, acc[mt][j][0]);
-      acc[mt][j][1] = fmaf(part[mt][1], s_lo, acc[mt][j][1]);
-      acc[mt][j][2] = fmaf(part[mt][2], s_hi, acc[mt][j][2]);
-      acc[mt][j][3] = fmaf(part[mt][3], s_hi, acc[mt][j][3]);
+      const int row = mt * 8 + gid;
+      b[mt] = row < M ? *reinterpret_cast<const uint4*>(xs + row * xs_stride + kl + 8 * t)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+    uint32_t wsh[4][COLS / 4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < COLS / 4; ++q) wsh[r][q] = d.w[r][q] >> 4;
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j) {
+      const int q = j >> 1, p = 2 * (j & 1);
+      float part[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t a[4] = {int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p),
+                               int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p + 1),
+                               int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p),
+                               int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p + 1)};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t bb[2] = {h ? b[mt].z : b[mt].x, h ? b[mt].w : b[mt].y};
+          mma_bf16_16816(part[mt], a, bb);
+        }
+      }
+      const float s_lo = __uint_as_float(d.s[j] << 16);          // column 2j
+      const float s_hi = __uint_as_float(d.s[j] & 0xFFFF0000u);  // column 2j + 1
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        acc[mt][j][0] = fmaf(part[mt][0], s_lo, acc[mt][j][0]);
+        acc[mt][j][1] = fmaf(part[mt][1], s_lo, acc[mt][j][1]);
+        acc[mt][j][2] = fmaf(part[mt][2], s_hi, acc[mt][j][2]);
+        acc[mt][j][3] = fmaf(part[mt][3], s_hi, acc[mt][j][3]);
+      }
     }
   }
-}
+  template <typename T>
+  __device__ __forceinline__ T out(float v, int, int) const {
+    return __float2bfloat16_rn(v);
+  }
+};
 
-// Grid (N / BN column tiles, nsplit K splits of gps groups); a block's 4
-// warps take its groups in turn (warp w: groups g0 + w, g0 + w + 4, ...),
-// through two register sets, so that two groups' loads are in flight
-// while one is computed (the sets alternate: a copy from one to the other
-// would wait for the loads).  x's rows are staged cg groups at
-// a time (cg a multiple of 8, so a chunk gives each warp an even number of
-// groups; one chunk unless M is large).  The warps' sums meet in shared
-// memory in warp order; one split writes y, more write f32 partials, and
-// the last block of a tile to arrive sums them in split order.
 template <int MT, int COLS>
 __global__ void __launch_bounds__(SK_THREADS, MT <= 2 ? 4 : 2)
 int4_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
                        const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ y,
                        float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
                        int gps, int cg) {
-  constexpr int BN = 8 * COLS, RS = BN + 1;
   extern __shared__ __align__(16) unsigned char sk_smem[];
-  __shared__ bool merge_here;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, t = lane & 3;
-  const int tile = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int n0 = tile * BN;
-  const int g0 = split * gps, g1 = min(K / 32, g0 + gps);
-  const int xs_stride = sk_xs_stride(cg);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(sk_smem);
-  float* red = reinterpret_cast<float*>(sk_smem);  // after the loop: 4 warps' (M, BN + 1)
-
-  const int n = n0 + gid * COLS;  // N % COLS == 0: all COLS columns or none
-  const bool ok = n < N;
-  const uint8_t* pcol = packed + (ok ? n : 0);
-  const __nv_bfloat16* scol = scale + (ok ? n : 0);
-  float acc[MT][COLS / 2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < COLS / 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  SkGroup<COLS> ga, gb;  // groups g and g + 4: both in flight from the start
-  int g = g0 + warp;
-  if (g < g1) sk_load<COLS>(ga, pcol, scol, g, t, N, ok);
-  if (g + SK_KW < g1) sk_load<COLS>(gb, pcol, scol, g + SK_KW, t, N, ok);
-  for (int c0 = g0; c0 < g1; c0 += cg) {
-    const int c1 = min(g1, c0 + cg);
-    const int kw8 = (c1 - c0) * 4;  // 16-byte chunks of a staged x row
-    for (int i = tid; i < M * kw8; i += SK_THREADS) {
-      const int r = i / kw8, c = (i % kw8) * 8;
-      *reinterpret_cast<uint4*>(xs + r * xs_stride + c) =
-          *reinterpret_cast<const uint4*>(x + (size_t)r * K + c0 * 32 + c);
-    }
-    __syncthreads();
-    for (; g < c1; g += 2 * SK_KW) {  // ga holds group g, gb group g + 4
-      sk_group<MT, COLS>(ga, xs, xs_stride, (g - c0) * 32, M, acc);
-      if (g + 2 * SK_KW < g1) sk_load<COLS>(ga, pcol, scol, g + 2 * SK_KW, t, N, ok);
-      if (g + SK_KW >= c1) break;  // the last chunk's odd group
-      sk_group<MT, COLS>(gb, xs, xs_stride, (g + SK_KW - c0) * 32, M, acc);
-      if (g + 3 * SK_KW < g1) sk_load<COLS>(gb, pcol, scol, g + 3 * SK_KW, t, N, ok);
-    }
-    __syncthreads();
-  }
-
-  // each warp's sum into a slab of its own (x's rows are dead: every warp
-  // is past the chunk loop's last barrier), then the four in warp order;
-  // accumulator (mt, j, e) is row mt*8 + 2t + (e & 1), column
-  // gid*COLS + 2j + (e >> 1)
-  float* slab = red + warp * M * RS;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < COLS / 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = mt * 8 + 2 * t + (e & 1);
-        if (m < M) slab[m * RS + gid * COLS + 2 * j + (e >> 1)] = acc[mt][j][e];
-      }
-  __syncthreads();
-  auto block_sum = [&](int i) {  // element i of the block's (M, BN) tile
-    const int o = (i / BN) * RS + i % BN;
-    return ((red[o] + red[M * RS + o]) + red[2 * M * RS + o]) + red[3 * M * RS + o];
-  };
-
-  if (nsplit == 1) {
-    for (int i = tid; i < M * BN; i += SK_THREADS) {
-      const int m = i / BN, c = i % BN;
-      if (n0 + c < N) y[(size_t)m * N + n0 + c] = __float2bfloat16_rn(block_sum(i));
-    }
-    return;
-  }
-  float* part = ws + ((size_t)tile * nsplit + split) * M * BN;
-  for (int i = tid; i < M * BN; i += SK_THREADS) part[i] = block_sum(i);
-  // the block that finishes this tile last sums its splits, in split order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) merge_here = atomicAdd(&arrivals[tile], 1) == nsplit - 1;
-  __syncthreads();
-  if (!merge_here) return;
-  __threadfence();
-  const float* tp = ws + (size_t)tile * nsplit * M * BN;
-  const size_t stride = (size_t)M * BN;
-  for (int i = tid; i < M * BN; i += SK_THREADS) {
-    float v = 0.f;
-    int p = 0;
-    for (; p + 8 <= nsplit; p += 8) {  // eight loads in flight, then their sum in order
-      float u[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) u[k] = __ldcg(tp + (p + k) * stride + i);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v += u[k];
-    }
-    for (; p < nsplit; ++p) v += __ldcg(tp + p * stride + i);
-    const int m = i / BN, c = i % BN;
-    if (n0 + c < N) y[(size_t)m * N + n0 + c] = __float2bfloat16_rn(v);
-  }
-  if (tid == 0) arrivals[tile] = 0;  // ready for the next launch (and a graph replay)
-}
-
-template <int MT, int COLS>
-int launch_splitk(const __nv_bfloat16* x, const uint8_t* packed, const __nv_bfloat16* scale,
-                  __nv_bfloat16* y, float* ws, int* arrivals, int M, int K, int N, int nsplit,
-                  int gps, int cg, cudaStream_t stream) {
-  // shared memory past 48 KB (large M)
-  const cudaError_t opt_in = smem_opt_in<int4_splitk_mma_kernel<MT, COLS>>(SK_SMEM_MAX);
-  if (opt_in != cudaSuccess) return (int)opt_in;
-  const dim3 grid((N + 8 * COLS - 1) / (8 * COLS), nsplit);
-  int4_splitk_mma_kernel<MT, COLS><<<grid, SK_THREADS, sk_smem_bytes(M, cg, COLS), stream>>>(
-      x, packed, scale, y, ws, arrivals, M, K, N, gps, cg);
-  return (int)cudaGetLastError();
+  sk_body<Int4SkView, __nv_bfloat16, MT, COLS>(Int4SkView{packed, scale}, x, y, ws, arrivals, M,
+                                               K, N, gps, cg, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -793,24 +652,13 @@ int chatglm_int4_gemv(const void* x, const void* packed, const void* scale, void
 int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale, void* y,
                             void* ws, void* arrivals, int M, int K, int N, int mt, int cols,
                             int nsplit, int gps, int cg, void* stream) {
-  if (M < 1 || M > 8 * mt || nsplit < 1 || gps < 1 || cg < 8 || cg % 8 ||
-      (cols == 16 && N % 16) || sk_smem_bytes(M, cg, cols) > SK_SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* p = static_cast<const uint8_t*>(packed);
-  const auto* sc = static_cast<const __nv_bfloat16*>(scale);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
-  auto* w = static_cast<float*>(ws);
-  auto* a = static_cast<int*>(arrivals);
-#define CHATGLM_SPLITK(MT, COLS)                                                         \
-  if (mt == MT && cols == COLS)                                                          \
-    return launch_splitk<MT, COLS>(xb, p, sc, yb, w, a, M, K, N, nsplit, gps, cg, s);
-  CHATGLM_SPLITK(1, 16) CHATGLM_SPLITK(2, 16) CHATGLM_SPLITK(1, 8) CHATGLM_SPLITK(2, 8)
-  CHATGLM_SPLITK(3, 8) CHATGLM_SPLITK(4, 8) CHATGLM_SPLITK(5, 8) CHATGLM_SPLITK(6, 8)
-  CHATGLM_SPLITK(8, 8)
-#undef CHATGLM_SPLITK
-  return (int)cudaErrorInvalidValue;
+  return sk_dispatch<8>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+    return sk_launch<int4_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value>>(
+        N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
+        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y),
+        static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, gps, cg);
+  });
 }
 
 // Hopper tensor-core kernel, bf16 only, one launch: tiles of bm (64 or 128)

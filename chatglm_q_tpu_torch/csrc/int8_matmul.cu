@@ -10,14 +10,35 @@
 // The TPU's "bt" scheme (a workaround for the TPU's int-to-float convert) is
 // not carried: the card converts natively.
 //
-// * int8_gemv_kernel (small M, decode): bound by bytes — every weight byte is
-//   read once and there are two operations per byte.  The split-K design of
-//   int4_matmul.cu's gemv: each lane reads 8 neighbouring N bytes of a weight
-//   row (one 8-byte load; a warp reads 256 contiguous bytes), K is split
-//   across blocks (grid.y) and the 4 warps of a block in chunks of 32 rows,
-//   warps reduce in shared memory in a fixed order, and splitk_reduce_kernel
-//   (common.cuh) sums the f32 partials of the splits in a fixed order,
-//   applies the scale and casts.  Deterministic, no atomics.
+// * int8_splitk_mma_kernel (bf16, M <= MMA_MIN_M = 16: decode at batch 1-16):
+//   bound by the weight bytes (one byte a weight, two operations a byte per
+//   row of x).  common.cuh's split-K body, B1's decode design, over
+//   Int8SkView: mma.sync m16n8k16 bf16 with the weights as A and x's rows as
+//   B (8 rows an m-tile, zero past M), so each weight converts once whatever
+//   M is, and the conversion, not the products, is the CUDA cores' work.  A
+//   CUDA-core loop would convert each byte by I2F, which issues at 16 a
+//   clock on an SM while the card streams ~14.5 bytes a clock an SM: here
+//   one PRMT pairs two K rows' bytes of a column pair and s8x4_bf16x2 turns
+//   four bytes into two exact bf16x2 registers by PRMT, FADD and PRMT (bf16
+//   holds 8 significant bits, too few for a bias trick of its own).  Each
+//   lane reads 16 contiguous bytes (8 where N is narrow, where 16 would
+//   leave a warp fewer than four groups, or where M > 8: splitk_plan) of
+//   eight K rows a group by ld.global.nc into two alternating register sets; K
+//   splits fill the card at a narrow N and merge in the same launch (the
+//   last block of a column tile to arrive sums them in split order, applies
+//   the scale, writes y and resets its counter: deterministic, graph-safe).
+//   One f32 mma accumulator over a split's whole K would drift from
+//   round-to-nearest (~17 x 2^-23 of sum|terms| over 4096 k16 steps), so
+//   each 32-row group's products go to a fresh partial, added to the f32
+//   sum.
+// * int8_gemv_kernel (f32 activations, and bf16 above 16 rows where N % 16
+//   != 0): the CUDA-core split-K form, each
+//   lane reading 8 neighbouring N bytes of a weight row (one 8-byte load; a
+//   warp reads 256 contiguous bytes), K split across blocks (grid.y) and the
+//   4 warps of a block in chunks of 32 rows, warps reduced in shared memory
+//   in a fixed order, and splitk_reduce_kernel (common.cuh) summing the f32
+//   partials of the splits in a fixed order, applying the scale and
+//   casting.  Deterministic, no atomics.
 // * int8_wgmma_kernel (bf16, M > MMA_MIN_M: prefill, engine chunks,
 //   training): bound by operations.  common.cuh's Hopper mainloop (B1's
 //   persistent TMA + mbarrier ring and producer warpgroup, wgmma with the
@@ -145,7 +166,90 @@ void gemv(const T* x, const int8_t* w, const float* scale, T* y, float* ws, int 
     launch_gemv<T, 4>(x, w, ws, M, K, N, nsplit, cps, stream);
   else
     launch_gemv<T, 8>(x, w, ws, M, K, N, nsplit, cps, stream);
-  splitk_reduce<float, T>(ws, nullptr, scale, y, nsplit, M, N, stream);
+  splitk_reduce<T>(ws, scale, y, nsplit, M, N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Split-K tensor-core kernel (bf16 activations, M <= MMA_MIN_M: decode)
+// ---------------------------------------------------------------------------
+
+// B6's view of common.cuh's split-K body.  A group is Int8SkGroup: K rows
+// 8t..8t+7 of the lane's columns.  K half h (the mma's k16 step) takes rows
+// 4h, 4h + 1 (A regs 0/1 with x's elements 8t + 4h, + 1 as B reg 0) and 4h
+// + 2, 4h + 3 (A regs 2/3, B reg 1).  Tile j's columns 2j, 2j + 1 are bytes
+// p, p + 1 (p = 2 (j & 1)) of word j / 2 of each row: one PRMT interleaves
+// two rows' pairs, (r0.c, r1.c, r0.c1, r1.c1), and s8x4_bf16x2 makes them A
+// registers 0 and 1 (or 2 and 3).  Each group's products go to a fresh f32
+// partial (two k16 steps), added to the accumulator; the scale multiplies
+// the merged sum.
+struct Int8SkView {
+  using X = __nv_bfloat16;
+  using Acc = float;
+  template <int COLS>
+  using Group = Int8SkGroup<COLS>;
+  using Lane = const int8_t*;
+  const int8_t* w;
+  const float* scale;
+
+  __device__ __forceinline__ Lane lane(int n) const { return w + n; }
+  template <int COLS>
+  __device__ __forceinline__ void load(Int8SkGroup<COLS>& d, Lane wcol, int g, int t, int N,
+                                       bool ok) const {
+    int8_sk_load<COLS>(d, wcol, g, t, N, ok);
+  }
+  template <int MT, int COLS>
+  __device__ __forceinline__ void group(const Int8SkGroup<COLS>& d, const __nv_bfloat16* xs,
+                                        int xs_stride, int kl, int M,
+                                        float (&acc)[MT][COLS / 2][4]) const {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
+    uint4 b[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row = mt * 8 + gid;
+      b[mt] = row < M ? *reinterpret_cast<const uint4*>(xs + row * xs_stride + kl + 8 * t)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j) {
+      const int q = j >> 1;
+      const uint32_t sel = (j & 1) ? 0x7362u : 0x5140u;
+      float part[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a[4];
+        s8x4_bf16x2(__byte_perm(d.w[4 * h][q], d.w[4 * h + 1][q], sel), a[0], a[1]);
+        s8x4_bf16x2(__byte_perm(d.w[4 * h + 2][q], d.w[4 * h + 3][q], sel), a[2], a[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t bb[2] = {h ? b[mt].z : b[mt].x, h ? b[mt].w : b[mt].y};
+          mma_bf16_16816(part[mt], a, bb);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][e];
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ T out(float v, int, int n) const {
+    return __float2bfloat16_rn(v * __ldg(scale + n));
+  }
+};
+
+template <int MT, int COLS>
+__global__ void __launch_bounds__(SK_THREADS, 4)
+int8_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                       const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+                       float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
+                       int gps, int cg) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  sk_body<Int8SkView, __nv_bfloat16, MT, COLS>(Int8SkView{w, scale}, x, y, ws, arrivals, M, K, N,
+                                               gps, cg, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -366,6 +470,24 @@ int chatglm_int8_gemv(const void* x, const void* w, const void* scale, void* y, 
     gemv<float>(static_cast<const float*>(x), wq, sc, static_cast<float*>(y), part, M, K, N,
                 nsplit, chunks_per_split, s);
   return (int)cudaGetLastError();
+}
+
+// Split-K tensor-core kernel (int8_splitk_mma_kernel), bf16 only, one
+// launch: M <= 8 * mt (mt 1 or 2), cols 16 (mt 1, N % 16 == 0) or 8 columns
+// a lane, nsplit splits of gps groups, x staged cg groups at a time (cg % 8
+// == 0); ws holds N/(8 cols) * nsplit * M * 8 cols floats (unused at nsplit
+// 1), arrivals N/(8 cols) zeroed ints that every launch leaves at 0; K % 32
+// == 0, N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
+int chatglm_int8_splitk_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
+                            void* arrivals, int M, int K, int N, int mt, int cols, int nsplit,
+                            int gps, int cg, void* stream) {
+  return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+    return sk_launch<int8_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value>>(
+        N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
+        static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, gps, cg);
+  });
 }
 
 // Hopper tensor-core kernel (int8_wgmma_kernel), bf16 only, one launch:

@@ -18,15 +18,16 @@ def kernel_wrappers() -> dict:
         "int4g32_splitk": QM.int4g32_splitk,
         "int4g32_gemv": QM.int4g32_gemv,
         "int4g32_mma": QM.int4g32_mma,
+        "int8_splitk": I8.int8_splitk,
         "int8_gemv": I8.int8_gemv,
         "int8_mma": I8.int8_mma,
         "int4g32_t_gemv": QM.int4g32_t_gemv,
         "int4g32_t_mma": QM.int4g32_t_mma,
         "int8_t_gemv": I8.int8_t_gemv,
         "int8_t_mma": I8.int8_t_mma,
-        "int8_dyn_gemv": D.int8_dyn_gemv,
+        "int8_dyn_splitk": D.int8_dyn_splitk,
         "int8_dyn_mma": D.int8_dyn_mma,
-        "int4_dyn_gemv": D.int4_dyn_gemv,
+        "int4_dyn_splitk": D.int4_dyn_splitk,
         "int4_dyn_mma": D.int4_dyn_mma,
         "kv_cache_write_idx": A.kv_cache_write_idx,
         "flash_attention_decode": A.flash_attention_decode,

@@ -35,9 +35,14 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, packed, scale, y, workspace, M, K, N, x_is_bf16, nsplit, groups_per_split, stream
     "chatglm_int4_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # x, packed, scale, y, workspace, arrivals, M, K, N, mt, cols, nsplit, groups_per_split,
-    # groups_per_chunk, stream
+    # the split-K kernels: x, weights, scale, y, workspace, arrivals, M, K, N, mt, cols,
+    # nsplit, groups_per_split, groups_per_chunk, stream
     "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int8_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y_is_bf16, mt, cols, nsplit,
+    # groups_per_split, groups_per_chunk, stream
+    "chatglm_int8_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "chatglm_int4_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N, bm,
     # nsplit, per split (B1: groups, the others: 64-element stages), ctas, stream
     "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
@@ -49,9 +54,6 @@ SIGNATURES = {
     # g, w (or packed), scale, out, M, K, N, g_is_bf16, stream (B13 / B14)
     "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
     "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
-    # xq, sx, w, scale, y, workspace, M, K, N, y_is_bf16, nsplit, groups_per_split, stream
-    "chatglm_int8_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "chatglm_int4_dyn_gemv": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y_is_bf16, bm, nsplit,
     # 128-element stages per split, ctas, stream
     "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
@@ -163,7 +165,7 @@ def call(name: str, *args) -> None:
 
 def scratch(kind: str, device, n: int, dtype):
     """A kernel family's device buffer ``kind`` on ``device``, kept across
-    calls and grown when smaller than ``n``: the split kernels' f32
+    calls and grown when smaller than ``n``: the split kernels' 4-byte
     partials and their arrival counters (zeroed once and left at zero by
     every launch: the merging block resets its counter).  One stream at a
     time per device: launches on it run in order."""

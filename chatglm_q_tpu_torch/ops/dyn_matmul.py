@@ -18,12 +18,20 @@ then take s8 × s8 products with int32 sums:
   groups of 32 along K.  Each group dot is exact; the f32 sum over groups
   is taken in another order than the plain version's.
 
-Each has a split-K ``__dp4a`` kernel for M ≤ MMA_MIN_M (decode) and, above
-it (``uses_mma``), ``dyn_wgmma_kernel``: a persistent Hopper kernel on the
-ring of the other Hopper matmuls (TMA stages of 128 s8 elements in an
-mbarrier ring, s8 wgmma with the weights as A from registers, K splits from
-``dyn_plan`` merged in the launch; B7 one exact int32 accumulator, B8 one
-s32 partial per group folded into f32 with its scale).
+Each has two kernels, in bf16 or f32 output alike (their inputs are s8):
+
+* at M ≤ MMA_MIN_M (decode), ``dyn_splitk_mma_kernel``: B1's split-K design
+  on common.cuh's split-K body with s8 mma.sync (the weights as A, xq's rows
+  as B), K split so a narrow N fills the card (``splitk_plan`` over s8
+  rows), the splits merged in split order by the last block of each column
+  tile to arrive, in the same launch; B7 in int32, B8 one s32 partial per
+  group folded into f32 with its scale;
+* above it (``uses_mma``), ``dyn_wgmma_kernel``: a persistent Hopper kernel
+  on the ring of the other Hopper matmuls (TMA stages of 128 s8 elements in
+  an mbarrier ring, s8 wgmma with the weights as A from registers, K splits
+  from ``dyn_plan`` merged in the launch; B7 one exact int32 accumulator, B8
+  one s32 partial per group folded into f32 with its scale).  It needs N %
+  16 == 0; the wrappers refuse more than MMA_MIN_M rows otherwise.
 
 ``int8_dyn_supported`` / ``int4_dyn_supported`` repeat the shape gates of
 the JAX wrappers (pallas_matmul.py:991-994, :1098-1101), which return None,
@@ -37,7 +45,8 @@ import torch
 
 from . import _build
 from .quant import unpack_int4_tpu_q
-from .quant_matmul import DYN_STEP, MMA_MIN_M, aligned, gemv_plan, wg_plan, wg_scratch
+from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, splitk_plan, splitk_scratch, wg_plan,
+                           wg_scratch)
 
 PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few launches)
 
@@ -112,7 +121,7 @@ def _check(name, x, w, scale, int4):
     else:
         ok = (w.shape[0] == K and scale.shape == (N,)
               and w.dtype == torch.int8 and scale.dtype == torch.float32)
-    if not ok or K % 32 or N % 8:
+    if not ok or K % 32 or N % 8 or (x.shape[0] > MMA_MIN_M and N % 16):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, weights "
                          f"{tuple(w.shape)} {w.dtype}, scale {tuple(scale.shape)} {scale.dtype}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -136,15 +145,15 @@ def dyn_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
     return wg_plan(M, K, N, step=DYN_STEP)
 
 
-def _gemv(entry, xq, sx, w, scale, out_dtype, acc_dtype):
+def _splitk(entry, xq, sx, w, scale, out_dtype):
     M, K = xq.shape
     N = w.shape[1]
-    nsplit, gps = gemv_plan(M, K, N)
+    plan = splitk_plan(M, K, N, xbytes=1, int8_weights=w.dtype == torch.int8)
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    ws = torch.empty((nsplit, M, N), dtype=acc_dtype, device=xq.device)
+    part, arrivals = splitk_scratch(xq.device, M, N, plan)
     _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), ws.data_ptr(), M, K, N, int(out_dtype == torch.bfloat16),
-                nsplit, gps, _build.stream_ptr(xq))
+                y.data_ptr(), part, arrivals, M, K, N, int(out_dtype == torch.bfloat16), *plan,
+                _build.stream_ptr(xq))
     return y
 
 
@@ -161,10 +170,11 @@ def _mma(entry, xq, sx, w, scale, out_dtype):
     return y
 
 
-def int8_dyn_gemv(xq, sx, w, scale, out_dtype):
-    """Launch B7's split-K __dp4a kernel (checked inputs on the card)."""
-    y = _gemv("chatglm_int8_dyn_gemv", xq, sx, w, scale, out_dtype, torch.int32)
-    int8_dyn_gemv.launches += 1
+def int8_dyn_splitk(xq, sx, w, scale, out_dtype):
+    """Launch B7's split-K tensor-core kernel (checked inputs on the card,
+    M ≤ MMA_MIN_M): one launch, the splits merged inside it in int32."""
+    y = _splitk("chatglm_int8_dyn_splitk", xq, sx, w, scale, out_dtype)
+    int8_dyn_splitk.launches += 1
     return y
 
 
@@ -176,10 +186,11 @@ def int8_dyn_mma(xq, sx, w, scale, out_dtype):
     return y
 
 
-def int4_dyn_gemv(xq, sx, packed, scale, out_dtype):
-    """Launch B8's split-K __dp4a kernel (checked inputs on the card)."""
-    y = _gemv("chatglm_int4_dyn_gemv", xq, sx, packed, scale, out_dtype, torch.float32)
-    int4_dyn_gemv.launches += 1
+def int4_dyn_splitk(xq, sx, packed, scale, out_dtype):
+    """Launch B8's split-K tensor-core kernel (checked inputs on the card,
+    M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
+    y = _splitk("chatglm_int4_dyn_splitk", xq, sx, packed, scale, out_dtype)
+    int4_dyn_splitk.launches += 1
     return y
 
 
@@ -191,7 +202,7 @@ def int4_dyn_mma(xq, sx, packed, scale, out_dtype):
     return y
 
 
-for _fn in (int8_dyn_gemv, int8_dyn_mma, int4_dyn_gemv, int4_dyn_mma):
+for _fn in (int8_dyn_splitk, int8_dyn_mma, int4_dyn_splitk, int4_dyn_mma):
     _fn.launches = 0
 
 
@@ -204,7 +215,7 @@ def int8_dyn_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> to
     _check("int8_dyn_matmul", x, w, scale, int4=False)
     xq, sx = dyn_quantize_rows(x)
     xq, sx = aligned(xq), aligned(sx)
-    fn = int8_dyn_mma if uses_mma(xq.shape[0], w.shape[1]) else int8_dyn_gemv
+    fn = int8_dyn_mma if uses_mma(xq.shape[0], w.shape[1]) else int8_dyn_splitk
     return fn(xq, sx, w, scale, x.dtype)
 
 
@@ -218,5 +229,5 @@ def int4_dyn_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) 
     _check("int4_dyn_matmul", x, packed, scale, int4=True)
     xq, sx = dyn_quantize_rows(x)
     xq, sx = aligned(xq), aligned(sx)
-    fn = int4_dyn_mma if uses_mma(xq.shape[0], packed.shape[1]) else int4_dyn_gemv
+    fn = int4_dyn_mma if uses_mma(xq.shape[0], packed.shape[1]) else int4_dyn_splitk
     return fn(xq, sx, packed, scale, x.dtype)

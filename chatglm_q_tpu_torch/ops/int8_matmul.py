@@ -3,19 +3,26 @@ over the CUDA kernels, their plain versions, and their launch counts.
 
 Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
 (``int8_matmul_pallas`` and its layer-indexed twin).  One wrapper,
-``int8_matmul``, over two kernels in ``csrc/int8_matmul.cu`` chosen by M as
-for the int4 matmul (ops/quant_matmul.py):
+``int8_matmul``, over three kernels in ``csrc/int8_matmul.cu`` chosen by
+``int8_route``:
 
-* ``int8_gemv`` — small M (decode) or f32 activations: split-K CUDA-core
-  kernel, bound by the weight bytes, with a fixed-order second pass that
-  sums the f32 partials and applies the per-column scale.
-* ``int8_mma`` — bf16 activations at M > MMA_MIN_M (prefill, ``uses_mma``):
+* ``int8_splitk`` — bf16 activations at M ≤ MMA_MIN_M (decode):
+  ``int8_splitk_mma_kernel``, B1's split-K design on common.cuh's split-K
+  body: mma.sync with the weights as A (each int8 converted exactly to
+  bf16 once, whatever M is) and x's rows as B, K split so a narrow N fills
+  the card, the splits' f32 partials summed in split order by the last
+  block of each column tile to arrive, in the same launch.  Bound by the
+  weight bytes; plan ``splitk_plan``.
+* ``int8_mma`` — bf16 activations above it (prefill, ``uses_mma``):
   ``int8_wgmma_kernel``, a persistent Hopper kernel on B1's mainloop (TMA
   tiles in an mbarrier ring, wgmma with the weights as A from registers,
   each int8 converted exactly to bf16); ``wg_plan`` picks the tile and the
   K splits, merged in the same launch.
+* ``int8_gemv`` — f32 activations (and bf16 above MMA_MIN_M where N % 16
+  != 0): split-K CUDA-core kernel with a fixed-order second pass that sums
+  the f32 partials and applies the per-column scale.
 
-Both multiply the f32 accumulator by the per-column scale once, after the K
+All multiply the f32 accumulator by the per-column scale once, after the K
 sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
 weights before the dot instead: the same function, rounded elsewhere.
 
@@ -35,7 +42,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .quant_matmul import aligned, gemv_plan, t_mma_plan, uses_mma, wg_call, wg_plan
+from .quant_matmul import (MMA_MIN_M, aligned, gemv_plan, splitk_call, splitk_plan, t_mma_plan,
+                           uses_mma, wg_call, wg_plan)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -62,8 +70,30 @@ def _check(x, w, scale):
             raise ValueError(f"int8_matmul: {name} must be contiguous and 16-byte aligned")
 
 
+def int8_route(M: int, N: int, dtype: torch.dtype) -> str:
+    """B6's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16,
+    M ≤ MMA_MIN_M), "mma" (bf16 above it, N % 16 == 0) or "gemv" (f32, and
+    bf16 above it where N % 16 != 0)."""
+    if dtype == torch.bfloat16 and M <= MMA_MIN_M:
+        return "splitk"
+    return "mma" if uses_mma(M, N, dtype) else "gemv"
+
+
+def int8_splitk(x, w, scale):
+    """Launch the split-K tensor-core kernel (checked bf16 inputs on the
+    card, M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
+    M, K = x.shape
+    y = splitk_call("chatglm_int8_splitk_mma", x, w, scale,
+                    splitk_plan(M, K, w.shape[1], int8_weights=True))
+    int8_splitk.launches += 1
+    return y
+
+
+int8_splitk.launches = 0
+
+
 def int8_gemv(x, w, scale):
-    """Launch the split-K kernel (checked inputs on the card)."""
+    """Launch the CUDA-core split-K kernel (checked inputs on the card)."""
     M, K = x.shape
     N = w.shape[1]
     nsplit, cps = gemv_plan(M, K, N)
@@ -103,7 +133,10 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.
         return int8_matmul_plain(x, w, scale)
     _check(x, w, scale)
     x = aligned(x)
-    if uses_mma(x.shape[0], w.shape[1], x.dtype):
+    route = int8_route(x.shape[0], w.shape[1], x.dtype)
+    if route == "splitk":
+        return int8_splitk(x, w, scale)
+    if route == "mma":
         return int8_mma(x, w, scale)
     return int8_gemv(x, w, scale)
 

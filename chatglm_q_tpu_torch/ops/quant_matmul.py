@@ -36,12 +36,13 @@ A from registers (each bf16(q·s) one bf16x2 multiply), each stage's f32
 partial added to the accumulator on the CUDA cores; ``t_mma_plan`` picks
 the tile and the contraction splits.
 
-``gemv_plan``, ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and
-dynamic int8 matmuls (B6/B7/B8) and the transposed kernels, and ``wg_plan``,
-``mma_smem`` and ``wg_scratch`` with every Hopper kernel (B1, B6, B7, B8,
-B13, B14);
-B1's own routing and plans are ``int4_route``, ``splitk_plan`` and
-``mma_plan``.
+``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and dynamic int8
+matmuls (B6/B7/B8) and the transposed kernels, ``gemv_plan`` with B6's
+CUDA-core kernel, ``splitk_plan``, ``splitk_scratch`` and ``splitk_call``
+with the split-K kernels of B6, B7 and B8 (bf16 or s8 rows at M ≤
+MMA_MIN_M: decode), and ``wg_plan``, ``mma_smem`` and ``wg_scratch`` with
+every Hopper kernel (B1, B6, B7, B8, B13, B14); B1's own routing and plans
+are ``int4_route`` and ``mma_plan``.
 """
 from __future__ import annotations
 
@@ -57,8 +58,9 @@ GEMV_KW = 4              # K warps per gemv block
 GEMV_TARGET_BLOCKS = 1056  # ~8 blocks per SM on a 132-SM H100
 MMA_MIN_M = 16           # bf16 rows above which the tensor-core kernel runs
 
-# B1's split-K tensor-core kernel (csrc/int4_matmul.cu: SK_*)
-SMALL_M_MAX = 64         # bf16 rows up to which it runs (the JAX decode-M limit)
+# The split-K tensor-core kernels (csrc/common.cuh: SK_*): B1's, and B6's, B7's
+# and B8's at M <= MMA_MIN_M
+SMALL_M_MAX = 64         # B1's bf16 rows up to which it runs (the JAX decode-M limit)
 SPLITK_KW = 4            # warps per block, along K
 SPLITK_SMEM_MAX = 72 * 1024  # shared bytes a block (csrc: SK_SMEM_MAX); 48 KB up to mt = 2
 SPLITK_SMS = 132         # H100 SXM
@@ -116,16 +118,21 @@ def int4_route(M: int, N: int, dtype: torch.dtype) -> str:
     return "mma" if uses_mma(M, N, dtype) else "gemv"
 
 
-def splitk_smem(M: int, cg: int, cols: int) -> int:
+def splitk_smem(M: int, cg: int, cols: int, xbytes: int = 2) -> int:
     """Shared bytes of a split-K block (csrc: sk_smem_bytes): x's M rows over
-    a chunk of cg groups, rows padded by 32 bf16; after the loop the same
-    bytes hold each of the 4 warps' (M, 8·cols + 1) f32 sum."""
-    return max(M * (cg * 32 + 32) * 2, SPLITK_KW * M * (8 * cols + 1) * 4)
+    a chunk of cg groups, rows padded by 32 elements of ``xbytes`` (bf16 2,
+    B7/B8's s8 1); after the loop the same bytes hold each of the 4 warps'
+    (M, 8·cols + 1) 4-byte sum."""
+    return max(M * (cg * 32 + 32) * xbytes, SPLITK_KW * M * (8 * cols + 1) * 4)
 
 
-def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
+def splitk_plan(M: int, K: int, N: int, xbytes: int = 2,
+                int8_weights: bool = False) -> tuple[int, int, int, int, int]:
     """(mt, cols, nsplit, groups_per_split, groups_per_chunk) of the split-K
-    kernel for bf16 x (M ≤ SMALL_M_MAX, K) and N columns.
+    kernels (csrc/common.cuh: sk_body) for x (M ≤ SMALL_M_MAX, K) of
+    ``xbytes`` an element (bf16: B1, and B6 at M ≤ MMA_MIN_M; s8: B7 and
+    B8 at M ≤ MMA_MIN_M) and N columns of int4g32 weights (B1, B8) or int8
+    weights (``int8_weights``: B6, B7).
 
     mt m-tiles of 8 rows (1-6, or 8); cols columns a lane, 16 at mt = 1 where N % 16 ==
     0 and N ≥ 2048, else 8 (twice the column tiles for a narrow N, and room
@@ -136,22 +143,55 @@ def splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int, int]:
     many groups (a multiple of 8) as 48 KB of shared memory hold (4 blocks
     an SM; 72 KB from mt = 3 on).  The partials, tiles · nsplit · M · 8·cols
     floats, stay under SPLITK_SMS · 2 · 64 · 64 floats (4.3 MB): fewer
-    splits as N grows, one from ~64K columns on.  The times behind these
-    choices are in PERF.md."""
+    splits as N grows, one from ~64K columns on.  int8 weights (twice the
+    bytes a group) take 16 columns a lane only where each warp still gets
+    four groups: at q_proj's 4096 columns 8 columns a lane and 8 splits beat
+    16 and 16 splits.  The times behind these choices are in PERF.md."""
     if not 1 <= M <= SMALL_M_MAX:
         raise ValueError(f"splitk_plan: M = {M} outside 1..{SMALL_M_MAX}")
     mt = -(-M // 8)
     mt += mt == 7  # no 7-tile form
-    cols = 16 if mt == 1 and N % 16 == 0 and N >= 2048 else 8
     G = K // 32
-    tiles = -(-N // (8 * cols))
-    want = max(1, SPLITK_SMS * (4 if mt <= 2 else 2) // tiles)
-    gps = max(-(-G // want), min(G, 2 * SPLITK_KW))
+
+    def splits(cols):  # (column tiles, groups a split)
+        tiles = -(-N // (8 * cols))
+        want = max(1, SPLITK_SMS * (4 if mt <= 2 else 2) // tiles)
+        return tiles, max(-(-G // want), min(G, 2 * SPLITK_KW))
+
+    cols = 16 if mt == 1 and N % 16 == 0 and N >= 2048 else 8
+    if int8_weights and cols == 16 and splits(16)[1] < min(G, 4 * SPLITK_KW):
+        cols = 8
+    _, gps = splits(cols)
     cg = -(-gps // 8) * 8
     smem_max = 48 * 1024 if mt <= 2 else SPLITK_SMEM_MAX
-    while cg > 8 and splitk_smem(M, cg, cols) > smem_max:
+    while cg > 8 and splitk_smem(M, cg, cols, xbytes) > smem_max:
         cg -= 8
     return mt, cols, -(-G // gps), gps, cg
+
+
+def splitk_scratch(device, M: int, N: int, plan) -> tuple:
+    """(split partials or None, arrival counters) of a split-K ``plan``: the
+    buffers every split-K kernel shares, 4-byte partials (f32, or B7's
+    int32) and counters that each launch leaves at 0 (launches on a stream
+    run in order)."""
+    _, cols, nsplit, _, _ = plan
+    tiles = -(-N // (8 * cols))
+    part = (_build.scratch("splitk_part", device, tiles * nsplit * M * 8 * cols,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    return part, _build.scratch("splitk_arrivals", device, tiles, torch.int32).data_ptr()
+
+
+def splitk_call(name: str, x, w, scale, plan):
+    """Launch split-K kernel ``name`` (csrc: chatglm_int4_splitk_mma,
+    chatglm_int8_splitk_mma) on checked bf16 tensors of the card with
+    ``plan``; returns y (M, N) in x's dtype."""
+    M, K = x.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part, arrivals = splitk_scratch(x.device, M, N, plan)
+    _build.call(name, x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
+                arrivals, M, K, N, *plan, _build.stream_ptr(x))
+    return y
 
 
 def mma_stages(bm: int, kind: str = "int4g32") -> int:
@@ -306,20 +346,13 @@ def int4g32_mma(x, packed, scale):
 
 int4g32_mma.launches = 0
 
+
 def int4g32_splitk(x, packed, scale):
     """Launch the split-K tensor-core kernel (checked bf16 inputs on the
     card, M ≤ SMALL_M_MAX): one launch, the splits merged inside it."""
     M, K = x.shape
-    N = packed.shape[1]
-    mt, cols, nsplit, gps, cg = splitk_plan(M, K, N)
-    tiles = -(-N // (8 * cols))
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = (_build.scratch("splitk_part", x.device, tiles * nsplit * M * 8 * cols,
-                           torch.float32).data_ptr() if nsplit > 1 else None)
-    arrivals = _build.scratch("splitk_arrivals", x.device, tiles, torch.int32)
-    _build.call("chatglm_int4_splitk_mma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), part, arrivals.data_ptr(), M, K, N, mt, cols, nsplit, gps, cg,
-                _build.stream_ptr(x))
+    y = splitk_call("chatglm_int4_splitk_mma", x, packed, scale,
+                    splitk_plan(M, K, packed.shape[1]))
     int4g32_splitk.launches += 1
     return y
 

@@ -1,6 +1,6 @@
 """Decode and prefill speed of two checkouts of the port, in turns, on one card.
 
-    python -m chatglm_q_tpu_torch.utils.decode_ab OTHER_CHECKOUT [--rounds 1] [--dyn]
+    python -m chatglm_q_tpu_torch.utils.decode_ab OTHER_CHECKOUT [--rounds 1] [--dyn | --device]
 
 Each turn is a fresh process in one checkout's root (so each builds and
 imports its own ``chatglm_q_tpu_torch``): ChatGLM2-6B int4g32 with 28 layers
@@ -20,6 +20,14 @@ With ``--dyn`` a turn times the prefills of the dynamic-int8 modes instead:
 device ms of one traced prefill (torch.profiler, every kernel's time) and
 the host-clock ms (the median of three, ending in a sync).  It needs
 ``models.chatglm2.prefill`` and ``init_kv_cache``, there since slice 1.
+
+With ``--device`` a turn reads a batch-1 decode step's device time in the
+int8 decode modes: 28 layers of int8 random weights (seed 1) weight-only and
+under ``dynamic_int8``, then of int4g32 under ``dynamic_int8``; a 128-token
+prompt, a 1024-slot cache, then 8 greedy steps of ``multi_step_decode``
+under torch.profiler: device ms a step (every kernel's time), the host-clock
+ms a step of the same traced steps, and the largest kernels (device us and
+launches a step).  It needs ``multi_step_decode``, there since slice 1.
 """
 from __future__ import annotations
 
@@ -81,6 +89,44 @@ print(json.dumps(out))
 """
 
 
+DEVICE_CHILD = """
+import json, time, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
+from chatglm_q_tpu_torch.bench import random_quantized_params
+from chatglm_q_tpu_torch.models import chatglm2 as M
+cfg = ChatGLM2Config()
+out, steps = {}, 8
+for quant, modes in (("int8", (False, True)), ("int4g32", (True,))):
+    params = random_quantized_params(cfg, quant, torch.Generator(device="cuda").manual_seed(1))
+    for dyn in modes:
+        rt = TorchRuntimeConfig(dynamic_int8=dyn)
+        cache = M.init_kv_cache(cfg, 1, 1024, torch.bfloat16)
+        ids = torch.zeros((1, 128), dtype=torch.long, device="cuda")
+        lengths = torch.full((1,), 128, dtype=torch.int32, device="cuda")
+        logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, torch.bfloat16, rt)
+        first = torch.argmax(logits, -1).to(torch.int32)
+        M.multi_step_decode(params, cfg, first, cache, 2, None, quant, torch.bfloat16, rt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.multi_step_decode(params, cfg, first, cache, steps, None, quant, torch.bfloat16, rt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        out[quant + ("+dyn" if dyn else "")] = {
+            "device_ms_per_step": sum(e.self_device_time_total for e in ev) / 1e3 / steps,
+            "traced_host_ms_per_step": wall * 1e3 / steps,
+            "top_us_per_step": [(e.key[:70], e.self_device_time_total / steps, e.count / steps)
+                                for e in ev[:6]]}
+    del params
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
 def run_turn(root: pathlib.Path, child: str = CHILD) -> dict:
     res = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True,
                          timeout=600)
@@ -94,17 +140,20 @@ def main(argv=None) -> int:
     ap.add_argument("other", type=pathlib.Path, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--dyn", action="store_true", help="the dynamic-int8 prefills instead")
+    ap.add_argument("--device", action="store_true",
+                    help="the int8 modes' batch-1 decode device time instead")
     args = ap.parse_args(argv)
     this = pathlib.Path(__file__).resolve().parents[2]
     sides = {"other": args.other.resolve(), "this": this}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if args.dyn:
+    if args.dyn or args.device:
+        child = DEVICE_CHILD if args.device else DYN_CHILD
         turns = {side: [] for side in sides}
         for _ in range(args.rounds):
             for side in ("other", "this", "this", "other"):
-                turns[side].append(run_turn(sides[side], DYN_CHILD))
+                turns[side].append(run_turn(sides[side], child))
                 print(json.dumps({"side": side, "root": str(sides[side]), **turns[side][-1]}),
                       flush=True)
         print(json.dumps({"card": smi, **turns}))

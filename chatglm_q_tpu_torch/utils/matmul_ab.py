@@ -1,7 +1,6 @@
-"""The tensor-core int8 and transposed matmuls of two checkouts of the port,
-in turns, on one card.
+"""The quantized matmuls of two checkouts of the port, in turns, on one card.
 
-    python -m chatglm_q_tpu_torch.utils.matmul_ab OTHER_CHECKOUT [--rounds 1]
+    python -m chatglm_q_tpu_torch.utils.matmul_ab OTHER_CHECKOUT [--rounds 1] [--decode]
 
 Each turn is a fresh process in one checkout's root (so each builds and
 imports its own ``chatglm_q_tpu_torch``) that times, by CUDA events with the
@@ -16,6 +15,13 @@ round.  Prints the card's name and power limit, one JSON line per turn,
 and a last JSON line with every reading by checkout: ms[kernel][linear][M].
 Both checkouts need only those three wrappers, which the port has had
 since its fourth slice.
+
+With ``--decode`` a turn times the decode forms instead, at M = 1, 4 and 16
+on the same linears: ``int4g32_matmul`` (B1's split-K kernel), B6's
+``int8_matmul``, and B7's and B8's kernels alone on activations quantized
+beforehand (the wrapper under its name in either checkout:
+``int8_dyn_splitk`` / ``int4_dyn_splitk``, or before them ``int8_dyn_gemv`` /
+``int4_dyn_gemv``, which include their second pass).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import subprocess
 import sys
 
 M_ROWS = (17, 48, 128, 512, 1024)
+DECODE_M_ROWS = (1, 4, 16)
 LINEARS = [("q_proj", 4096, 4096), ("kv_proj", 4096, 512), ("o_proj", 4096, 4096),
            ("w_in", 4096, 13824), ("w_out", 13824, 4096), ("lm_head", 4096, 65536)]
 
@@ -56,11 +63,43 @@ for name, K, N in LINEARS:
 print(json.dumps(out))
 """
 
+DECODE_CHILD = """
+import json, math, sys, torch
+from chatglm_q_tpu_torch.ops import dyn_matmul as D, int8_matmul as I8, quant_matmul as QM
+from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+M_ROWS, LINEARS = json.loads(sys.argv[1])
+b7 = getattr(D, "int8_dyn_splitk", None) or D.int8_dyn_gemv
+b8 = getattr(D, "int4_dyn_splitk", None) or D.int4_dyn_gemv
+gen = torch.Generator(device="cuda").manual_seed(3)
+out = {"int4g32_matmul": {}, "int8_matmul": {}, b7.__name__: {}, b8.__name__: {}}
+for name, K, N in LINEARS:
+    copies = max(2, min(64, math.ceil(160e6 / (K * N))))
+    w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda", generator=gen)
+    s8 = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+    packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    s4 = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    for key in out:
+        out[key][name] = {}
+    for M in M_ROWS:
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        xq, sx = D.dyn_quantize_rows(x)
+        for key, fn, (wt, st) in (
+                ("int4g32_matmul", lambda a, b: QM.int4g32_matmul(x, a, b), (packed, s4)),
+                ("int8_matmul", lambda a, b: I8.int8_matmul(x, a, b), (w, s8)),
+                (b7.__name__, lambda a, b: b7(xq, sx, a, b, x.dtype), (w, s8)),
+                (b8.__name__, lambda a, b: b8(xq, sx, a, b, x.dtype), (packed, s4))):
+            out[key][name][M] = cuda_event_ms(lambda i: fn(wt[i % copies], st[i % copies]),
+                                              iters=30)
+    del w, s8, packed, s4
+print(json.dumps(out))
+"""
 
-def run_turn(root: pathlib.Path) -> dict:
-    arg = json.dumps([list(M_ROWS), LINEARS])
-    res = subprocess.run([sys.executable, "-c", CHILD, arg], cwd=root, capture_output=True,
-                         text=True, timeout=900)
+
+def run_turn(root: pathlib.Path, decode: bool = False) -> dict:
+    arg = json.dumps([list(DECODE_M_ROWS if decode else M_ROWS), LINEARS])
+    res = subprocess.run([sys.executable, "-c", DECODE_CHILD if decode else CHILD, arg],
+                         cwd=root, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"matmul turn in {root} failed:\n{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -70,6 +109,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=pathlib.Path, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--decode", action="store_true", help="the decode forms instead")
     args = ap.parse_args(argv)
     this = pathlib.Path(__file__).resolve().parents[2]
     sides = {"other": args.other.resolve(), "this": this}
@@ -79,7 +119,7 @@ def main(argv=None) -> int:
     readings = {side: [] for side in sides}
     for _ in range(args.rounds):
         for side in ("other", "this", "this", "other"):
-            r = run_turn(sides[side])
+            r = run_turn(sides[side], args.decode)
             readings[side].append(r)
             print(json.dumps({"side": side, "root": str(sides[side]), "ms": r}), flush=True)
     print(json.dumps({"card": smi, "ms": readings}))

@@ -23,12 +23,15 @@ Phases (any failure raises and exits non-zero):
    ``torch._weight_int4pack_mm`` for the int4 matmul on the same weights
    repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
-   int4 matmul with dynamic int8 activations (B8) has no such call.  B7
-   at M = 1, 4, 64, 128, 512, 1024 and B8 at M = 1, 4, 32, 48, 64, 512,
-   each with ``call_ms`` (the wrapper with its per-row quantize prologue)
-   beside the kernel's ms; their Hopper rows (``dyn_wgmma_kernel``, M > 16)
-   with their plan and ``dense_ms``, B7 bit for bit, B8 also within
-   ``SUM_TOL`` of its exact value beyond its bf16 rounding.  B1's
+   int4 matmul with dynamic int8 activations (B8) has no such call.  B6 at
+   B1's M in bf16 and M = 1 in f32, its bf16 rows (the split-K kernel at M
+   <= 16, the Hopper kernel above) also within ``SUM_TOL`` of their exact
+   value beyond the bf16 rounding.  B7 at M = 1, 4, 64, 128, 512, 1024 and
+   B8 at M = 1, 4, 32, 48, 64, 512, each with ``call_ms`` (the wrapper with
+   its per-row quantize prologue) beside the kernel's ms and its plan
+   (``dyn_splitk_mma_kernel`` at M <= 16, ``dyn_wgmma_kernel`` above, with
+   ``dense_ms``), B7 bit for bit, B8 also within ``SUM_TOL`` of its exact
+   value beyond its bf16 rounding.  B1's
    rows above 64 (its Hopper kernel) also carry ``dense_ms``, ``x @ w_deq``
    in cuBLAS on weights dequantized to bf16 beforehand: another function,
    never called by the port, a yardstick of the tensor cores only.  Then
@@ -56,8 +59,9 @@ Phases (any failure raises and exits non-zero):
    int4g32 with dynamic int8 activations, and int4g32 with
    ``decode_attn_v2`` (B12, never B4), with control bugs that must fail
    the same limit; then the f32 parity forward (``models.chatglm2.forward``)
-   in int4g32, whose linears take B1's CUDA-core gemv, within
-   ``F32_E2E_TOL`` of the plain path (the launches of that kernel's line).
+   in int4g32 and in int8, whose linears take B1's and B6's CUDA-core
+   gemvs, within ``F32_E2E_TOL`` of the plain path (the launches of those
+   kernels' lines).
 3b. Gradients at full width and depth 2, bf16, 2 x 128 tokens: the loss and
    every trainable leaf's grad of the kernel path against the plain path
    for int4g32, int8 and int8 with dynamic int8 activations over three
@@ -80,12 +84,14 @@ Phases (any failure raises and exits non-zero):
    prompt, 32 tokens) with a tokenizer built in process whose every id
    below 65024 is a text piece or a special token; the text must equal
    the model-level text of ``prefill`` + ``multi_step_decode`` on the same
-   ids.  Decode ms/step at batch 1 for each mode; in int8 a traced 4 x 128
-   prefill, ``int8_wgmma_kernel``'s 168 launches apart; in int8+dyn and
-   int4g32+dyn a traced prefill of the chat prompt (and in int8+dyn a 4 x
-   128 one), ``dyn_wgmma_kernel``'s 168 launches and the quantize
-   prologue's device ms apart.  Then a round trip at 6B
-   widths, depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
+   ids.  Decode ms/step at batch 1 for each mode, and a traced batch-1
+   decode step: its split-K matmul kernel's device ms (``DECODE_KERNELS``:
+   169 launches a step) apart, no ``splitk_reduce_kernel``; in int8 a
+   traced 4 x 128 prefill, ``int8_wgmma_kernel``'s 168 launches apart; in
+   int8+dyn and int4g32+dyn a traced prefill of the chat prompt (and in
+   int8+dyn a 4 x 128 one), ``dyn_wgmma_kernel``'s 168 launches and the
+   quantize prologue's device ms apart.  Then a round trip at 6B widths,
+   depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
    for int8 and int4g32, with identical tensors and equal logits.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights, no tokenizer (eos id 2), token-id prompts from a seeded
@@ -223,9 +229,19 @@ INT4_PATH_KERNELS = ("int4g32_splitk", "int4g32_mma", "kv_cache_write_idx",
 # phase 5: each mode and the kernels its GLMDecoder.generate run must launch
 # (the chat prompt has 16 < S <= 64 tokens: the tensor-core kernels run in
 # prefill, the split-K ones in decode, and int4g32 + dyn stays on B8)
-CHAT_MODES = [("int8", False, ("int8_gemv", "int8_mma")),
-              ("int8", True, ("int8_dyn_gemv", "int8_dyn_mma")),
-              ("int4g32", True, ("int4_dyn_gemv", "int4_dyn_mma"))]
+CHAT_MODES = [("int8", False, ("int8_splitk", "int8_mma")),
+              ("int8", True, ("int8_dyn_splitk", "int8_dyn_mma")),
+              ("int4g32", True, ("int4_dyn_splitk", "int4_dyn_mma"))]
+# each decode mode's split-K matmul kernel, as the profiler names it: (label,
+# substrings of its name)
+DECODE_KERNELS = {
+    "int4g32": ("B1 int4_splitk_mma_kernel", ("int4_splitk_mma_kernel",)),
+    "int8": ("B6 int8_splitk_mma_kernel", ("int8_splitk_mma_kernel",)),
+    "int8+dyn": ("B7 dyn_splitk_mma_kernel<Int8DynSkView>", ("dyn_splitk_mma_kernel",
+                                                              "Int8DynSkView")),
+    "int4g32+dyn": ("B8 dyn_splitk_mma_kernel<Int4DynSkView>", ("dyn_splitk_mma_kernel",
+                                                                 "Int4DynSkView")),
+}
 CHAT_QUESTION = "Hello, who are you?"
 CHAT_TOKENS = 32
 CACHE_LEN = 1024
@@ -369,22 +385,26 @@ def log_row(fn, r):
     log(f"  {fn:15s} {r['linear']:17s} M={r['M']:4d}{x_s} K={r['K']:5d} N={r['N']:5d} "
         f"[{r['kernel']}] rel_err {r['rel_err']:.2e}  {r['ms']:.5f} ms{call_s}  bound "
         f"{r['bound_ms']:.5f} ms ({r['bound_by']})  plain {r['plain_ms']:.3f} ms  library {lib_s}")
+    beyond = (f"; beyond the bf16 rounding {r['beyond_sum']:.2e} of sum|terms|"
+              if "beyond_sum" in r else "")
     if r["kernel"] in ("int8_dyn_mma", "int4_dyn_mma"):
-        beyond = (f"; beyond the bf16 rounding {r['beyond_sum']:.2e} of sum|terms|"
-                  if "beyond_sum" in r else "")
         log(f"    plan (bm, nsplit, stages/split, blocks) {r['plan']}; dense x @ w_deq (cuBLAS, "
             f"bf16 weights, a yardstick) {r['dense_ms']:.5f} ms{beyond}")
+    elif r["kernel"] in ("int8_dyn_splitk", "int4_dyn_splitk"):
+        log(f"    plan (m-tiles, cols, nsplit, groups/split, groups/chunk) {r['plan']}{beyond}")
 
 
 B1_KERNELS = {"splitk": "int4g32_splitk", "mma": "int4g32_mma", "gemv": "int4g32_gemv"}
-# the CUDA kernels behind the matmul wrappers of B1, B6, B13 and B14, named
-# in the kernels line (t_wgmma_kernel's body is csrc/common.cuh's)
+# the CUDA kernels behind the matmul wrappers of B1, B6, B7, B8, B13 and
+# B14, named in the kernels line (the split-K kernels' body, sk_body, and
+# t_wgmma_kernel's are csrc/common.cuh's)
 CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_wgmma_kernel",
                "int4g32_gemv": "int4_gemv_kernel", "int8_mma": "int8_wgmma_kernel",
-               "int8_gemv": "int8_gemv_kernel",
+               "int8_gemv": "int8_gemv_kernel", "int8_splitk": "int8_splitk_mma_kernel",
                "int8_dyn_mma": "dyn_wgmma_kernel<Int8DynView>",
                "int4_dyn_mma": "dyn_wgmma_kernel<Int4DynView>",
-               "int8_dyn_gemv": "dyn_gemv_kernel<false>", "int4_dyn_gemv": "dyn_gemv_kernel<true>",
+               "int8_dyn_splitk": "dyn_splitk_mma_kernel<Int8DynSkView>",
+               "int4_dyn_splitk": "dyn_splitk_mma_kernel<Int4DynSkView>",
                "int4g32_t_mma": "t_wgmma_kernel<Int4TView> (csrc/common.cuh)",
                "int4g32_t_gemv": "t_gemv_kernel<Int4TView> (csrc/common.cuh)",
                "int8_t_mma": "t_wgmma_kernel<Int8TView> (csrc/common.cuh)",
@@ -479,7 +499,7 @@ def check_matmul(torch):
             require(rel <= KERNEL_TOL,
                     f"int4_dyn_matmul {name} M={M}: rel err {rel} > {KERNEL_TOL}")
             xq, sx = D.dyn_quantize_rows(x)
-            kfn = D.int4_dyn_mma if D.uses_mma(M, N) else D.int4_dyn_gemv
+            kfn = D.int4_dyn_mma if D.uses_mma(M, N) else D.int4_dyn_splitk
             ms = cuda_event_ms(lambda i: kfn(xq, sx, packed[i % copies], scale[i % copies],
                                              x.dtype), iters=30)
             call = cuda_event_ms(lambda i: D.int4_dyn_matmul(x, packed[i % copies],
@@ -490,13 +510,16 @@ def check_matmul(torch):
             rows.append({"kernel": kfn.__name__, "linear": name, "M": M, "K": K, "N": N,
                          "max_abs_err": err, "rel_err": rel, "ms": ms, "call_ms": call,
                          "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": None})
-            if kfn is D.int4_dyn_mma:  # the exact function: (xq @ q·s) · sx in f64
-                w64, s64 = unpack_int4_tpu(packed[0], scale[0]).double(), sx.double()
-                rows[-1]["beyond_sum"] = hold_sum(torch, f"int4_dyn_matmul {name} M={M}", got,
-                                                  (xq.double() @ w64) * s64,
-                                                  (xq.double().abs() @ w64.abs()) * s64)
-                del w64
+            # the exact function: (xq @ q·s) · sx in f64
+            w64, s64 = unpack_int4_tpu(packed[0], scale[0]).double(), sx.double()
+            rows[-1]["beyond_sum"] = hold_sum(torch, f"int4_dyn_matmul {name} M={M}", got,
+                                              (xq.double() @ w64) * s64,
+                                              (xq.double().abs() @ w64.abs()) * s64)
+            del w64
+            if kfn is D.int4_dyn_mma:
                 dyn_hopper_extras(torch, rows[-1], x, w_deq, D.dyn_plan(M, K, N))
+            else:
+                rows[-1]["plan"] = QM.splitk_plan(M, K, N, xbytes=1)
             log_row("int4_dyn_matmul", rows[-1])
         for M in CROSSOVER_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
@@ -571,36 +594,50 @@ def check_int8_matmul(torch):
         scale_bf16 = scale.to(torch.bfloat16)
         w64 = w[0].double()  # the exact function of the Hopper rows
         w_deq = (w[0].float() * scale[0]).to(torch.bfloat16)  # dense_ms only
-        for M in MATMUL_M:
-            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M] + [(1, torch.float32)]:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
+            kernel = "int8_" + I8.int8_route(M, N, dtype)
+            fn = getattr(I8, kernel)
+            launched = fn.launches
             got = I8.int8_matmul(x, w[0], scale[0])
             torch.cuda.synchronize()
+            require(fn.launches == launched + 1, f"int8_matmul {name} M={M}: not one {kernel}")
             want = I8.int8_matmul_plain(x, w[0], scale[0])
             err, rel = rel_err(got, want)
+            tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL
             require(torch.isfinite(got).all(), f"int8_matmul {name} M={M}: non-finite output")
-            require(rel <= KERNEL_TOL, f"int8_matmul {name} M={M}: rel err {rel} > {KERNEL_TOL}")
+            require(rel <= tol, f"int8_matmul {name} M={M} {dtype}: rel err {rel} > {tol}")
             ms = cuda_event_ms(lambda i: I8.int8_matmul(x, w[i % copies], scale[i % copies]),
                                iters=30)
             plain = cuda_event_ms(lambda i: I8.int8_matmul_plain(x, w[0], scale[0]),
                                   iters=3, warmup=1)
-            lib = int8_library(torch, x, w_t, scale_bf16, want)
-            b, by = bound_ms(M * K * 2 + wbytes + M * N * 2, 2.0 * M * K * N)
-            kernel = "int8_mma" if QM.uses_mma(M, N, x.dtype) else "int8_gemv"
+            lib = int8_library(torch, x, w_t, scale_bf16, want) if dtype == torch.bfloat16 else None
+            xb = x.element_size()
+            b, by = bound_ms(M * K * xb + wbytes + M * N * xb, 2.0 * M * K * N,
+                             PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
             rows.append({"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
-                         "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain,
-                         "bound_ms": b, "bound_by": by, "library_ms": lib})
-            if kernel == "int8_mma":
+                         "x_dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                         "rel_err": rel, "ms": ms, "plain_ms": plain, "bound_ms": b,
+                         "bound_by": by, "library_ms": lib})
+            if dtype == torch.bfloat16:  # the split-K and Hopper kernels: exact products
                 s64 = scale[0].double()
                 rows[-1]["beyond_sum"] = hold_sum(torch, f"int8_matmul {name} M={M}", got,
                                                   (x.double() @ w64) * s64,
                                                   (x.double().abs() @ w64.abs()) * s64)
+            if kernel == "int8_mma":
                 rows[-1]["dense_ms"] = cuda_event_ms(lambda i: x @ w_deq, iters=30)
                 rows[-1]["plan"] = QM.wg_plan(M, K, N)
+            elif kernel == "int8_splitk":
+                rows[-1]["plan"] = QM.splitk_plan(M, K, N, int8_weights=True)
             log_row("int8_matmul", rows[-1])
             if kernel == "int8_mma":
                 log(f"    plan (bm, nsplit, stages/split, blocks) {rows[-1]['plan']}; dense "
                     f"x @ w_deq (cuBLAS, bf16 weights, a yardstick) {rows[-1]['dense_ms']:.5f} ms; "
                     f"beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} of sum|terms|")
+            elif kernel == "int8_splitk":
+                log(f"    plan (m-tiles, cols, nsplit, groups/split, groups/chunk) "
+                    f"{rows[-1]['plan']}; beyond the bf16 rounding {rows[-1]['beyond_sum']:.2e} "
+                    f"of sum|terms|")
         del w_t, scale_bf16, w64
         for M in B7_M:
             x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
@@ -611,7 +648,7 @@ def check_int8_matmul(torch):
             require(torch.equal(got, want),
                     f"int8_dyn_matmul {name} M={M}: not bit-exact (max abs err {err})")
             xq, sx = D.dyn_quantize_rows(x)
-            kfn = D.int8_dyn_mma if D.uses_mma(M, N) else D.int8_dyn_gemv
+            kfn = D.int8_dyn_mma if D.uses_mma(M, N) else D.int8_dyn_splitk
             ms = cuda_event_ms(lambda i: kfn(xq, sx, w[i % copies], scale[i % copies],
                                              x.dtype), iters=30)
             call = cuda_event_ms(lambda i: D.int8_dyn_matmul(x, w[i % copies],
@@ -625,6 +662,8 @@ def check_int8_matmul(torch):
                          "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": lib})
             if kfn is D.int8_dyn_mma:
                 dyn_hopper_extras(torch, rows[-1], x, w_deq, D.dyn_plan(M, K, N))
+            else:
+                rows[-1]["plan"] = QM.splitk_plan(M, K, N, xbytes=1, int8_weights=True)
             log_row("int8_dyn_matmul", rows[-1])
         del w, scale, w_deq
     return rows
@@ -1353,14 +1392,20 @@ def end_to_end_parity(torch, quant, dyn, seed=21, v2=False):
     return worst
 
 
-def f32_forward_parity(torch, seed=24):
+# the CUDA-core gemv each quantization's f32 forward takes, and the kernels
+# of the same matmul it must not launch
+F32_KERNELS = {"int4g32": ("int4g32_gemv", ("int4g32_splitk", "int4g32_mma")),
+               "int8": ("int8_gemv", ("int8_splitk", "int8_mma"))}
+
+
+def f32_forward_parity(torch, quant, seed=24):
     """The parity forward (``models.chatglm2.forward``, the reference's
-    semantics; f32 activations by default) at 6B widths, depth 2, int4g32,
-    2 x 64 tokens: the kernel path, whose linears take B1's CUDA-core gemv
-    (f32 x), against the plain path, max |Δlogits| / max|logits| within
-    F32_E2E_TOL, and the plain path on a tree with a wrong scale index (the
-    control) outside it.  Returns the readings and the kernel run's launch
-    counts."""
+    semantics; f32 activations by default) at 6B widths, depth 2, in
+    ``quant``, 2 x 64 tokens: the kernel path, whose linears take the
+    CUDA-core gemv (f32 x; B1's or B6's), against the plain path, max
+    |Δlogits| / max|logits| within F32_E2E_TOL, and the plain path on a tree
+    with a wrong scale index (the control) outside it.  Returns the readings
+    and the kernel run's launch counts."""
     from chatglm_q_tpu_torch import ops
     from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
     from chatglm_q_tpu_torch.bench import random_quantized_params
@@ -1368,27 +1413,28 @@ def f32_forward_parity(torch, seed=24):
 
     cfg = ChatGLM2Config(num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = random_quantized_params(cfg, "int4g32", gen)
+    params = random_quantized_params(cfg, quant, gen)
     ids = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda", generator=gen)
     ops.reset_launch_counts()
-    _, got = M.forward(params, cfg, ids, quant_type="int4g32", dtype=torch.float32,
+    _, got = M.forward(params, cfg, ids, quant_type=quant, dtype=torch.float32,
                        rt=TorchRuntimeConfig())
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     plain_rt = TorchRuntimeConfig(use_kernels=False)
-    _, want = M.forward(params, cfg, ids, quant_type="int4g32", dtype=torch.float32, rt=plain_rt)
-    _, wrong = M.forward(wrong_scale_tree(params), cfg, ids, quant_type="int4g32",
+    _, want = M.forward(params, cfg, ids, quant_type=quant, dtype=torch.float32, rt=plain_rt)
+    _, wrong = M.forward(wrong_scale_tree(params), cfg, ids, quant_type=quant,
                          dtype=torch.float32, rt=plain_rt)
     require(got.dtype == torch.float32 and torch.isfinite(got).all(), "f32 forward: bad logits")
     rel, control = rel_err(got, want)[1], rel_err(got, wrong)[1]
-    log(f"  int4g32 f32 parity forward, 6B widths, 2 layers, 2 x 64 tokens: max rel logits err "
+    gemv, others = F32_KERNELS[quant]
+    log(f"  {quant} f32 parity forward, 6B widths, 2 layers, 2 x 64 tokens: max rel logits err "
         f"of the kernel path vs plain {rel:.3e}, vs the wrong-scale control {control:.3e} (limit "
-        f"{F32_E2E_TOL:.0e}); B1 launches: gemv {counts['int4g32_gemv']}, split-K "
-        f"{counts['int4g32_splitk']}, mma {counts['int4g32_mma']}")
-    require(rel <= F32_E2E_TOL, f"f32 forward: kernel path vs plain {rel} > {F32_E2E_TOL}")
-    require(control > F32_E2E_TOL, f"f32 forward: the wrong-scale control passes ({control})")
-    require(counts["int4g32_gemv"] == 6 * cfg.num_layers + 1 and counts["int4g32_splitk"] == 0,
-            f"f32 forward: B1 launches {counts}")
+        f"{F32_E2E_TOL:.0e}); launches: {json.dumps({k: counts[k] for k in (gemv,) + others})}")
+    require(rel <= F32_E2E_TOL, f"{quant} f32 forward: kernel path vs plain {rel} > {F32_E2E_TOL}")
+    require(control > F32_E2E_TOL,
+            f"{quant} f32 forward: the wrong-scale control passes ({control})")
+    require(counts[gemv] == 6 * cfg.num_layers + 1 and not any(counts[k] for k in others),
+            f"{quant} f32 forward: launches {counts}")
     return {"rel_err": rel, "wrong_scale_control": control}, counts
 
 
@@ -1567,6 +1613,43 @@ def full_slice(torch, smi):
     return counts, v2_counts, perf
 
 
+# torch.profiler can drop CUDA activity records in a burst of launches (seen
+# once on an H100: a 4 x 128 int8+dyn prefill's trace held 166 of the 168
+# Hopper launches its wrappers count in every run).  A trace whose count of
+# the kernel it reads falls short of the launches the run makes is taken
+# again, up to TRACE_TRIES times; the count must then be exact.
+TRACE_TRIES = 3
+
+
+def launches_in(prof, steps, *subs):
+    """(launches / steps, device ms / steps) of the kernels whose profiler
+    name holds every substring of ``subs``."""
+    from torch.autograd import DeviceType
+
+    hit = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0 and all(k in e.key for k in subs)]
+    return (sum(e.count for e in hit) / steps,
+            sum(e.self_device_time_total for e in hit) / 1e3 / steps)
+
+
+def trace_until(torch, run, want, steps, subs, what):
+    """torch.profiler's trace of ``run()`` (its result kept) in which the
+    kernels ``subs`` name show ``want`` launches a step, after up to
+    TRACE_TRIES tries; (profile, run's result)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(TRACE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        n = launches_in(prof, steps, *subs)[0]
+        if n == want:
+            return prof, out
+        log(f"    the trace of {what} holds {n} {subs[0]} launches a step, not {want}: "
+            f"traced again")
+    require(False, f"{what} ran {n} {subs[0]} launches a step by its trace, not {want}")
+
+
 def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4_wgmma_kernel",
                     ids=None):
     """Device time of one prefill of ``batch`` 128-token prompts (or of the
@@ -1577,7 +1660,7 @@ def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4
     (``dyn_quantize_rows``, the prologue of every dynamic matmul) runs in a
     traced range of its own for that one run: its kernels' device ms."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile, record_function
+    from torch.profiler import record_function
 
     from chatglm_q_tpu_torch.models import chatglm2 as M
     from chatglm_q_tpu_torch.ops import dyn_matmul as D
@@ -1601,9 +1684,8 @@ def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4
 
     D.dyn_quantize_rows = traced_quantize
     try:
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        prof, _ = trace_until(torch, run, 6 * cfg.num_layers, 1, (kernel,),
+                              f"a {batch}x{S} {quant} prefill")
     finally:
         D.dyn_quantize_rows = quantize
     averages = prof.key_averages()
@@ -1611,11 +1693,7 @@ def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4
               and e.self_device_time_total > 0 and e.key != "dyn_quantize_rows"]
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    mm = [e for e in events if kernel in e.key]
-    mm_ms = sum(e.self_device_time_total for e in mm) / 1e3
-    mm_n = sum(e.count for e in mm)
-    require(mm_n == 6 * cfg.num_layers, f"a {batch}x{S} {quant} prefill ran {mm_n} {kernel} "
-            f"launches, not {6 * cfg.num_layers}")
+    mm_n, mm_ms = launches_in(prof, 1, kernel)
     pro = [e for e in averages if e.key == "dyn_quantize_rows" and e.device_type == DeviceType.CPU]
     pro_ms = sum(e.device_time_total for e in pro) / 1e3
     pro_n = sum(e.count for e in pro)
@@ -1636,7 +1714,6 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     """Device time of decode steps at batch 1, by kernel, from a
     torch.profiler trace; then the host's time by function (cProfile)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from chatglm_q_tpu_torch.models import chatglm2 as M
 
@@ -1646,12 +1723,19 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, torch.bfloat16, rt)
     first = torch.argmax(logits, -1).to(torch.int32)
     steps = 8
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    mode = mode_name(quant, rt.dynamic_int8)
+    label, subs = DECODE_KERNELS[mode]
+
+    def timed():
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         M.multi_step_decode(params, cfg, first, cache, steps, None, quant, torch.bfloat16, rt)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    # one launch a linear, no second pass
+    prof, wall = trace_until(torch, timed, 6 * cfg.num_layers + 1, steps, subs,
+                             f"a batch-1 {mode} decode step")
     # device-side events only (kernels, copies): an operator's device time
     # is its kernels' time, so summing both would count it twice
     events = [e for e in prof.key_averages()
@@ -1663,21 +1747,18 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     attn = [e for e in events if "decode_attn_kernel" in e.key]
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
     attn_launches = sum(e.count for e in attn) / steps
-    b1 = [e for e in events if "int4_splitk_mma_kernel" in e.key]
-    b1_ms = sum(e.self_device_time_total for e in b1) / 1e3 / steps
-    b1_launches = sum(e.count for e in b1) / steps
-    if quant == "int4g32" and not rt.dynamic_int8:  # B1: one launch a linear, no second pass
-        require(not any("splitk_reduce_kernel" in e.key for e in events),
-                "the int4g32 decode ran splitk_reduce_kernel")
-    log(f"  profile: {steps} decode steps at batch 1, wall {wall * 1e3 / steps:.3f} ms/step "
-        f"(traced), device busy {dev_us / 1e3 / steps:.3f} ms/step "
+    mm_launches, mm_ms = launches_in(prof, steps, *subs)
+    require(not any("splitk_reduce_kernel" in e.key for e in events),
+            f"the {mode} decode ran splitk_reduce_kernel")
+    log(f"  {mode} profile: {steps} decode steps at batch 1, wall {wall * 1e3 / steps:.3f} "
+        f"ms/step (traced), device busy {dev_us / 1e3 / steps:.3f} ms/step "
         f"({100 * dev_us / 1e6 / wall:.1f}% of wall)")
     for name, us, n in top:
         log(f"    {us:9.1f} us/step  x{n:<4d} {name}")
     log(f"  decode_attn_kernel: {attn_ms:.4f} ms of device time per batch-1 step "
         f"({attn_launches:.0f} launches; 1.2 ms before its redesign)")
-    log(f"  int4_splitk_mma_kernel (B1): {b1_ms:.4f} ms of device time per batch-1 step "
-        f"({b1_launches:.0f} launches; the CUDA-core gemv and its second pass took ~2.2 ms)")
+    log(f"  {label}: {mm_ms:.4f} ms of device time per batch-1 {mode} step "
+        f"({mm_launches:.0f} launches; no splitk_reduce_kernel)")
 
     # where the host's time goes (cProfile inflates Python-heavy frames;
     # read it for ranking, not for absolute times)
@@ -1700,8 +1781,8 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     return {"wall_ms_per_step": wall * 1e3 / steps, "device_ms_per_step": dev_us / 1e3 / steps,
             "top_us_per_step": top, "decode_attn_kernel_ms_per_step": attn_ms,
             "decode_attn_kernel_launches_per_step": attn_launches,
-            "int4_splitk_mma_kernel_ms_per_step": b1_ms,
-            "int4_splitk_mma_kernel_launches_per_step": b1_launches}
+            "splitk_kernel": label, "splitk_ms_per_step": mm_ms,
+            "splitk_launches_per_step": mm_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1874,11 +1955,12 @@ def chat_slice(torch, smi):
         perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params)}
         log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
-        if name == "int8":  # where an int8 decode step's and a 4 x 128 prefill's time go
-            perf[name]["profile"] = profile_decode(torch, params, cfg, rt, quant)
-            busy = perf[name]["profile"]["device_ms_per_step"] / r["decode_ms_per_step"]
-            perf[name]["profile"]["device_busy_share_untraced"] = busy
-            log(f"  {name} batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
+        # where a batch-1 decode step's time goes (and an int8 4 x 128 prefill's)
+        perf[name]["profile"] = profile_decode(torch, params, cfg, rt, quant)
+        busy = perf[name]["profile"]["device_ms_per_step"] / r["decode_ms_per_step"]
+        perf[name]["profile"]["device_busy_share_untraced"] = busy
+        log(f"  {name} batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
+        if name == "int8":
             perf[name]["prefill_profile"] = profile_prefill(torch, params, cfg, rt, 4, quant,
                                                             "int8_wgmma_kernel")
         if dyn:  # the chat prompt's prefill (and int8's 4 x 128) on B7 / B8's Hopper kernel
@@ -2488,7 +2570,9 @@ def main() -> int:
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
     e2e["int4g32 decode_attn_v2"] = end_to_end_parity(torch, "int4g32", False, v2=True)
-    e2e["int4g32 f32 forward"], f32_counts = f32_forward_parity(torch)
+    f32_counts = {}
+    for quant in F32_KERNELS:
+        e2e[f"{quant} f32 forward"], f32_counts[quant] = f32_forward_parity(torch, quant)
 
     log("== phase 3b: gradients at 6B widths, depth 2, bf16, 2 x 128 tokens, kernel path vs "
         "plain path")
@@ -2524,12 +2608,14 @@ def main() -> int:
     specs = [
         ("int4g32_splitk", mm4, f"{pm}:826", pick("int4g32_splitk", 1), counts),
         ("int4g32_mma", mm4, f"{pm}:244", pick("int4g32_mma", 512), counts),
-        ("int4g32_gemv", mm4, f"{pm}:244", pick("int4g32_gemv", 1), f32_counts),
-        ("int8_gemv", mm8, f"{pm}:188", pick("int8_gemv", 1), chat_counts["int8"]),
+        ("int4g32_gemv", mm4, f"{pm}:244", pick("int4g32_gemv", 1), f32_counts["int4g32"]),
+        ("int8_splitk", mm8, f"{pm}:188", pick("int8_splitk", 1), chat_counts["int8"]),
+        ("int8_gemv", mm8, f"{pm}:188", pick("int8_gemv", 1), f32_counts["int8"]),
         ("int8_mma", mm8, f"{pm}:188", pick("int8_mma", 512), chat_counts["int8"]),
-        ("int8_dyn_gemv", dyn, f"{pm}:960", pick("int8_dyn_gemv", 1), chat_counts["int8+dyn"]),
+        ("int8_dyn_splitk", dyn, f"{pm}:960", pick("int8_dyn_splitk", 1),
+         chat_counts["int8+dyn"]),
         ("int8_dyn_mma", dyn, f"{pm}:960", pick("int8_dyn_mma", 64), chat_counts["int8+dyn"]),
-        ("int4_dyn_gemv", dyn, f"{pm}:1040", pick("int4_dyn_gemv", 1),
+        ("int4_dyn_splitk", dyn, f"{pm}:1040", pick("int4_dyn_splitk", 1),
          chat_counts["int4g32+dyn"]),
         ("int4_dyn_mma", dyn, f"{pm}:1040", pick("int4_dyn_mma", 64), chat_counts["int4g32+dyn"]),
         ("kv_cache_write_idx", att_src, f"{pa}:427", att["kv_cache_write_idx"], counts),

@@ -657,6 +657,154 @@ def test_int8_kernels_reject_what_they_cannot_take(gen):
                           torch.ones((2, 16), device="cuda"))
 
 
+# The int8 decode matmuls' split-K tensor-core kernels (B6 bf16; B7 / B8 in
+# bf16 and f32 output): one and two m-tiles and their edges, N = 264 (8
+# columns a lane, the last tile past N), N = 2064 (16 columns a lane at M
+# <= 8, the last tile past N), w_out's K, kv_proj's N (K splits), the lm_head
+SPLITK8_M = (1, 2, 3, 4, 5, 8, 9, 16)
+SPLITK8_SHAPES = [(4096, 264), (1024, 2064), (13824, 512), (4096, 4096), (320, 65536)]
+
+
+def _beyond_sum(got, exact, terms):
+    """The largest error of a bf16 output beyond half a bf16 ulp of its
+    exact value, over the sum of its terms' magnitudes (all f64)."""
+    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact)[1] - 9)
+    excess = ((got.double() - exact).abs() - half_ulp).clamp_min(0)
+    return (excess / terms.clamp_min(1e-300)).max().item()
+
+
+def _b6_launches():
+    return I8.int8_splitk.launches, I8.int8_gemv.launches, I8.int8_mma.launches
+
+
+@pytest.mark.parametrize("K,N", SPLITK8_SHAPES)
+@pytest.mark.parametrize("M", SPLITK8_M)
+def test_int8_splitk_error_is_its_bf16_rounding(gen, M, K, N):
+    """One launch of B6's split-K kernel, no second pass; every output within
+    2^-23 of sum|x·w|·s of its exact value beyond half a bf16 ulp (a fresh
+    f32 partial every 32 K rows keeps the mma's sums from drifting)."""
+    w, scale = _int8_weights(gen, K, N)
+    x = _x(gen, M, K, torch.bfloat16)
+    assert I8.int8_route(M, N, torch.bfloat16) == "splitk"
+    before = _b6_launches()
+    got = I8.int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_b6_launches(), before)] == [1, 0, 0]
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, I8.int8_matmul_plain(x, w, scale)) <= 1e-2
+    s64 = scale.double()
+    exact = (x.double() @ w.double()) * s64
+    assert _beyond_sum(got, exact, (x.double().abs() @ w.double().abs()) * s64) <= 2.0 ** -23
+    assert not got[M // 2].any()
+
+
+def _int4_dyn_exact(x, packed, scale):
+    """B8's exact function and the sum of its terms' magnitudes, f64."""
+    xq, sx = D.dyn_quantize_rows(x)
+    w = QM.unpack_int4_tpu(packed, scale).double()
+    s = sx.double()
+    return (xq.double() @ w) * s, (xq.double().abs() @ w.abs()) * s
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", SPLITK8_SHAPES)
+@pytest.mark.parametrize("M", SPLITK8_M)
+@pytest.mark.parametrize("kind", ["int8_dyn", "int4_dyn"])
+def test_dyn_splitk_matches_plain(gen, kind, M, K, N, dtype):
+    """One launch of B7's / B8's split-K kernel; B7 bit for bit, B8 within
+    the kernels' tolerance and (bf16) within 2^-23 of sum|terms| of its
+    exact value beyond its bf16 rounding."""
+    x = _x(gen, M, K, dtype)
+    if kind == "int8_dyn":
+        w, scale = _int8_weights(gen, K, N)
+        fn, plain, kernel = D.int8_dyn_matmul, D.int8_dyn_matmul_plain, D.int8_dyn_splitk
+    else:
+        w, scale = _int4_weights(gen, K, N)
+        fn, plain, kernel = D.int4_dyn_matmul, D.int4_dyn_matmul_plain, D.int4_dyn_splitk
+    before = kernel.launches, D.int8_dyn_mma.launches + D.int4_dyn_mma.launches
+    got = fn(x, w, scale)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0],
+            D.int8_dyn_mma.launches + D.int4_dyn_mma.launches - before[1]) == (1, 0)
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = plain(x, w, scale)
+    if kind == "int8_dyn":
+        assert torch.equal(got, want), _rel(got, want)
+        return
+    assert _rel(got, want) <= _tol(dtype)
+    assert not got[M // 2].any()
+    if dtype == torch.bfloat16:
+        exact, terms = _int4_dyn_exact(x, w, scale)
+        assert _beyond_sum(got, exact, terms) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 512), (4, 13824, 4096), (16, 4096, 264),
+                                   (1, 1024, 2064)])
+@pytest.mark.parametrize("kind", ["int8", "int8_dyn", "int4_dyn"])
+def test_int8_splitk_kernels_are_deterministic_and_replay_in_a_graph(gen, kind, M, K, N):
+    """Two calls are bit-equal and leave every arrival counter at 0 (the
+    merging block resets its own); one call captured in a CUDA graph and
+    replayed twice is bit-equal to the eager call."""
+    if kind == "int4_dyn":
+        w, scale = _int4_weights(gen, K, N)
+        fn, xbytes = D.int4_dyn_matmul, 1
+    else:
+        w, scale = _int8_weights(gen, K, N)
+        fn, xbytes = (I8.int8_matmul, 2) if kind == "int8" else (D.int8_dyn_matmul, 1)
+    plan = QM.splitk_plan(M, K, N, xbytes, int8_weights=kind != "int4_dyn")
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    first = fn(x, w, scale)
+    second = fn(x, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    tiles = -(-N // (8 * plan[1]))
+    assert not _build.scratch("splitk_arrivals", x.device, tiles, torch.int32)[:tiles].any()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(x, w, scale)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(x, w, scale)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("entry", ["chatglm_int8_splitk_mma", "chatglm_int8_dyn_splitk",
+                                   "chatglm_int4_dyn_splitk"])
+def test_int8_splitk_kernels_reject_a_plan_they_cannot_take(gen, entry):
+    """More rows than the plan's m-tiles hold, more than two m-tiles, 16
+    columns a lane at two m-tiles: refused at the launch, never run."""
+    x = torch.zeros((24, 64), dtype=torch.bfloat16, device="cuda")
+    sx = torch.ones((24,), device="cuda")
+    w = torch.zeros((64, 16), dtype=torch.int8, device="cuda")
+    scale = torch.ones((64, 16), device="cuda")  # bytes enough for either scale
+    y = torch.empty((24, 16), dtype=torch.bfloat16, device="cuda")
+    arrivals = torch.zeros((16,), dtype=torch.int32, device="cuda")
+    for M, mt, cols in ((9, 1, 8), (24, 3, 8), (9, 2, 16)):
+        lead = [x.data_ptr()] if "dyn" not in entry else [x.data_ptr(), sx.data_ptr()]
+        mid = [] if "dyn" not in entry else [1]
+        with pytest.raises(RuntimeError):
+            _build.call(entry, *lead, w.data_ptr(), scale.data_ptr(), y.data_ptr(), None,
+                        arrivals.data_ptr(), M, 64, 16, *mid, mt, cols, 1, 2, 8,
+                        _build.stream_ptr(x))
+
+
+def test_dyn_matmuls_refuse_many_rows_at_a_narrow_n(gen):
+    """Above MMA_MIN_M rows the dynamic kernels need N % 16 == 0."""
+    x = torch.randn((17, 64), device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.zeros((64, 264), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):
+        D.int8_dyn_matmul(x, w, torch.ones((264,), device="cuda"))
+    with pytest.raises(ValueError):
+        D.int4_dyn_matmul(x, torch.zeros((32, 264), dtype=torch.uint8, device="cuda"),
+                          torch.ones((2, 264), dtype=torch.bfloat16, device="cuda"))
+
+
 # B13 / B14 (the backward matmuls): g (M, N) -> (M, K).  M across the
 # split-K / tensor-core switch, N = 264 (not a multiple of 16: the CUDA-core
 # kernel even in bf16), the storage K of w_out, and the lm_head's N.

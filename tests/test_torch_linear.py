@@ -144,4 +144,4 @@ def test_int8_on_cuda_is_not_ported(monkeypatch):
 
 
 def test_dynamic_int8_on_cuda_goes_to_the_b7_kernel(monkeypatch):
-    assert _int8_on_fake_cuda(monkeypatch, True) == "chatglm_int8_dyn_gemv"
+    assert _int8_on_fake_cuda(monkeypatch, True) == "chatglm_int8_dyn_splitk"
