@@ -1,25 +1,39 @@
-// Attention-side kernels of the serving path: the in-place KV writes (dense
-// cache and paged pool), ragged decode attention (dense and paged), flash
-// prefill attention (with its chunked-prefill form) and chunk attention over
-// the paged pool.  The dense kernels read the cache in its (B, G, T, D)
-// per-layer layout (a view of the (L, B, G, T, D) cache); the paged ones read
-// one layer's (NP, G, P, D) view of the (L, NP, G, P, D) pool through a
-// per-row page table.  All read lengths / starts / page tables from device
-// tensors, so a decode step never syncs to the host.
+// Attention-side kernels of the serving path: the decode step's fused RoPE +
+// KV append (dense cache and paged pool, and its write-only form), ragged
+// decode attention (dense and paged), flash prefill attention (with its
+// chunked-prefill form) and chunk attention over the paged pool.  The dense
+// kernels read the cache in its (B, G, T, D) per-layer layout (a view of the
+// (L, B, G, T, D) cache); the paged ones read one layer's (NP, G, P, D) view
+// of the (L, NP, G, P, D) pool through a per-row page table.  All read
+// lengths / starts / page tables from device tensors, so a decode step never
+// syncs to the host.
 //
-// kv_write_kernel replaces chatglm_q_tpu/ops/pallas_attention.py:_kv_write_kernel.
-//   Bound by bytes (B*G*D elements read and written) and, at these sizes,
-//   by launch latency.  One block per row; the slot is starts[b] clamped to
-//   T-1, as JAX's dynamic_update_slice clamps the same write.
+// rope_kv_append_kernel<DenseKV> replaces
+// chatglm_q_tpu/ops/pallas_attention.py:_kv_write_kernel (B3,
+// kv_cache_write_idx) and rope_kv_append_kernel<PagedKV> replaces
+// :_pool_write_kernel (B9, kv_pool_write_idx), each fused with the RoPE of
+// q and k that XLA fuses around them on the TPU.  One launch per layer takes
+// the decode token's q_proj row (B, H*D) and kv_proj row (B, 2*G*D, read
+// through its row stride), rotates q and k by the step's freqs_cis row (B,
+// D), writes the rotated q (B, G, Hg, D) for the decode attention and the
+// rotated k and raw v into the slot: starts[b] clamped to [0, T - 1] in the
+// dense cache (JAX's dynamic_update_slice clamp), min(starts[b], MP*P - 1)
+// of page page_table[b, pos / P] at row pos % P in the pool.  Bound by
+// bytes (~18.5 KB a row at 6B widths), which take nanoseconds: what bounds
+// it is the launch.  So it replaces the 14 elementwise launches of the two
+// plain RoPEs, the copy of the strided v and the two writes with one launch
+// of one block per row, one 16-byte vector of q, k or v per thread.  Each
+// pair is rotated as PyTorch's bf16 ops round it: every product and every
+// sum in f32 (__fmul_rn / __fsub_rn / __fadd_rn: no contraction into an FMA)
+// and rounded to bf16 at once, so the kernel is bit-equal to its plain
+// version (an f32 rotation rounded once differs in ~14% of elements).  The
+// table's bypass half (1, 0) goes through the same arithmetic.  kRope = false
+// is the write-only form behind the bare B3 / B9 API: one (B, G, D) source
+// into the slot, no rotation, no q.
 //
-// pool_write_kernel replaces pallas_attention.py:_pool_write_kernel
-// (kv_pool_write_idx).  The paged twin of kv_write_kernel: position
-// min(starts[b], MP*P-1) lands in page page_table[b, pos / P] at row pos % P.
-// The TPU kernel rewrites an aligned 8-row window; here one block writes the
-// row itself, so any page size P works.
-//
-// Where K/V rows live (DenseKV, PagedKV below): the decode and prefill bodies
-// are each one template over the addressing of the rows they read.  Dense:
+// Where K/V rows live (DenseKV, PagedKV below): the decode and prefill bodies,
+// and the KV append, are each one template over the addressing of the rows
+// they read (or write).  Dense:
 // row pos of (row, g) at ((row*G + g)*T + pos)*D.  Paged: position pos of
 // (row, g) in page page_table[row, pos / P] at row pos % P, resolved per
 // 16-byte cp.async chunk, so any P works (a 64-row tile straddles pages when
@@ -106,21 +120,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
-// KV write
-// ---------------------------------------------------------------------------
-
-// Elements move as 16-bit words: the cache is bf16.
-__global__ void kv_write_kernel(uint16_t* __restrict__ cache, const uint16_t* __restrict__ src,
-                                const int* __restrict__ starts, int G, int T, int D) {
-  const int b = blockIdx.x;
-  const int slot = min(max(starts[b], 0), T - 1);  // clamped, as JAX's write clamps
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    cache[(((size_t)b * G + g) * T + slot) * D + d] = src[(size_t)b * G * D + i];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Tensor-core tiles of the decode and prefill kernels
 // ---------------------------------------------------------------------------
 
@@ -177,6 +176,75 @@ struct PagedKV {
     return {k, v, page_table + (size_t)r * MP, G, g, P};
   }
 };
+
+// ---------------------------------------------------------------------------
+// Decode KV append (B3, B9), with the RoPE of q and k
+// ---------------------------------------------------------------------------
+
+constexpr int VEC = 8;  // bf16 per 16-byte vector
+
+// Four interleaved (x0, x1) pairs rotated by their (f0, f1) table entries,
+// rounded as the plain bf16 ops round them: o_r = bf16(bf16(x0*f0) -
+// bf16(x1*f1)), o_i = bf16(bf16(x0*f1) + bf16(x1*f0)), each operation in f32.
+__device__ __forceinline__ uint4 rope8(uint4 x, uint4 f) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, fs[4] = {f.x, f.y, f.z, f.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 xp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
+    const float2 fp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&fs[j]));
+    const float rr = __fsub_rn(round_to<bf16>(__fmul_rn(xp.x, fp.x)),
+                               round_to<bf16>(__fmul_rn(xp.y, fp.y)));
+    const float ri = __fadd_rn(round_to<bf16>(__fmul_rn(xp.x, fp.y)),
+                               round_to<bf16>(__fmul_rn(xp.y, fp.x)));
+    o[j] = bf16x2_bits(rr, ri);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// One block per row b, one 16-byte vector a thread (a loop where the row
+// has more vectors than a block has threads): first the row's G*Hg*D q
+// elements (kRope only), then its kv row, k's G*D elements and (kRope only)
+// v's.  The cache views are the attention kernels' read-only views; the
+// slot this kernel writes is read by no other thread of the launch.
+template <class KV, bool kRope>
+__global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restrict__ q_out,
+                                      const bf16* __restrict__ kv, int kv_stride,
+                                      const bf16* __restrict__ freqs, const KV cache,
+                                      const int* __restrict__ starts, int nq, int nkv) {
+  const int b = blockIdx.x;
+  const bf16* f_row = freqs + (size_t)b * ATT_D;
+  const int pos = min(max(starts[b], 0), cache.capacity() - 1);  // B3's / B9's clamp
+  for (int i = threadIdx.x; i < nq + (kRope ? 2 : 1) * nkv; i += blockDim.x) {
+    if (i < nq) {
+      const int e = i * VEC;
+      const uint4 x = *reinterpret_cast<const uint4*>(q + (size_t)b * nq * VEC + e);
+      const uint4 f = *reinterpret_cast<const uint4*>(f_row + e % ATT_D);
+      *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * VEC + e) = rope8(x, f);
+      continue;
+    }
+    const int j = i - nq;  // vector j of the kv row
+    const bool is_k = j < nkv;
+    const int e = (is_k ? j : j - nkv) * VEC;  // element of k (or v): group e / D, lane e % D
+    uint4 x = *reinterpret_cast<const uint4*>(kv + (size_t)b * kv_stride + (size_t)j * VEC);
+    if (kRope && is_k) x = rope8(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
+    const auto slab = cache.slab(b, e / ATT_D);
+    bf16* dst = const_cast<bf16*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D;
+    *reinterpret_cast<uint4*>(dst) = x;
+  }
+}
+
+template <class KV, bool kRope>
+int launch_append(const bf16* q, bf16* q_out, const bf16* kv, int kv_stride,
+                  const bf16* freqs, const KV& cache, const int* starts, int B, int G, int Hg,
+                  cudaStream_t stream) {
+  const int nq = kRope ? G * Hg * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
+  const int n = nq + (kRope ? 2 : 1) * nkv;
+  const int threads = n < 1024 ? (n + 31) / 32 * 32 : 1024;
+  rope_kv_append_kernel<KV, kRope><<<B, threads, 0, stream>>>(q, q_out, kv, kv_stride, freqs,
+                                                             cache, starts, nq, nkv);
+  return (int)cudaGetLastError();
+}
 
 // Copy K/V rows t0 .. t0+KV_TK-1 of one slab into a ring stage with
 // cp.async; rows at or past `end` are zero-filled and read nothing (nor
@@ -784,37 +852,48 @@ int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Paged pool write
-// ---------------------------------------------------------------------------
-
-__global__ void pool_write_kernel(uint16_t* __restrict__ pool_layer, const uint16_t* __restrict__ src,
-                                  const int* __restrict__ page_table, const int* __restrict__ starts,
-                                  int G, int P, int D, int MP) {
-  const int b = blockIdx.x;
-  const int pos = min(max(starts[b], 0), MP * P - 1);  // capacity clamp
-  const int page = page_table[(size_t)b * MP + pos / P];
-  const int off = pos % P;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    pool_layer[(((size_t)page * G + g) * P + off) * D + d] = src[(size_t)b * G * D + i];
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// cache_layer: the (B, G, T, D) bf16 view of one layer; src: (B, G, D) bf16;
-// starts: (B,) int32 on the device.
-int chatglm_kv_write(void* cache_layer, const void* src, const void* starts, int B, int G, int T,
-                     int D, void* stream) {
-  const int want = ((G * D + 31) / 32) * 32;
-  const int threads = want < 1024 ? want : 1024;
-  kv_write_kernel<<<B, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(cache_layer), static_cast<const uint16_t*>(src),
-      static_cast<const int*>(starts), G, T, D);
-  return (int)cudaGetLastError();
+// B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, G, Hg,
+// D) contiguous; kv (B, 2*G*D), k then v, rows kv_stride elements apart;
+// freqs (B, D); k_layer, v_layer the (B, G, T, D) views of one cache layer
+// when page_table is null, else the (NP, G, P, D) views of one pool layer,
+// read through page_table (B, MP), with T = P; starts (B,) int32.  All bf16,
+// 16-byte aligned (kv_stride a multiple of 8), D == 128.
+int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_stride,
+                           const void* freqs, void* k_layer, void* v_layer, const void* page_table,
+                           const void* starts, int B, int G, int Hg, int D, int T, int MP,
+                           void* stream) {
+  if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC)
+    return (int)cudaErrorInvalidValue;
+  const bf16 *qb = static_cast<const bf16*>(q), *kvb = static_cast<const bf16*>(kv),
+             *fb = static_cast<const bf16*>(freqs), *kl = static_cast<const bf16*>(k_layer),
+             *vl = static_cast<const bf16*>(v_layer);
+  const int* st = static_cast<const int*>(starts);
+  bf16* qo = static_cast<bf16*>(q_out);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!page_table)
+    return launch_append<DenseKV, true>(qb, qo, kvb, kv_stride, fb, DenseKV{kl, vl, G, T}, st, B,
+                                        G, Hg, s);
+  const PagedKV pool{kl, vl, static_cast<const int*>(page_table), G, T, MP};
+  return launch_append<PagedKV, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hg, s);
+}
+
+// The write-only form (kv_cache_write_idx, kv_pool_write_idx): src (B, G, D)
+// into the slot of dst_layer, a cache or pool layer view as above.
+int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, const void* starts,
+                      int B, int G, int D, int T, int MP, void* stream) {
+  if (D != ATT_D || T < 1 || (page_table && MP < 1)) return (int)cudaErrorInvalidValue;
+  const bf16 *dst = static_cast<const bf16*>(dst_layer), *sb = static_cast<const bf16*>(src);
+  const int* st = static_cast<const int*>(starts);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!page_table)
+    return launch_append<DenseKV, false>(nullptr, nullptr, sb, G * D, nullptr,
+                                         DenseKV{dst, dst, G, T}, st, B, G, 0, s);
+  const PagedKV pool{dst, dst, static_cast<const int*>(page_table), G, T, MP};
+  return launch_append<PagedKV, false>(nullptr, nullptr, sb, G * D, nullptr, pool, st, B, G, 0, s);
 }
 
 // B4 (v2 = 0) and B12 (v2 = 1).  q, out (B, G, Hg, D); k, v (B, G, T, D)
@@ -849,18 +928,6 @@ int chatglm_prefill_attention(const void* q, const void* k, const void* v, const
       static_cast<const int*>(q_starts), static_cast<const int*>(kv_row_map),
       static_cast<bf16*>(out), nullptr, nullptr, B, S, G, Hg, span, 1, sm_scale,
       reinterpret_cast<cudaStream_t>(stream));
-}
-
-// pool_layer: the (NP, G, P, D) bf16 view of one pool layer; src (B, G, D)
-// bf16; page_table (B, MP) and starts (B,) int32 on the device.
-int chatglm_pool_write(void* pool_layer, const void* src, const void* page_table, const void* starts,
-                       int B, int G, int P, int D, int MP, void* stream) {
-  const int want = ((G * D + 31) / 32) * 32;
-  const int threads = want < 1024 ? want : 1024;
-  pool_write_kernel<<<B, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(pool_layer), static_cast<const uint16_t*>(src),
-      static_cast<const int*>(page_table), static_cast<const int*>(starts), G, P, D, MP);
-  return (int)cudaGetLastError();
 }
 
 // B10.  q, out (B, G, Hg, D); k, v (NP, G, P, D) pool layer views;

@@ -56,7 +56,7 @@ _DEFAULT_RT = TorchRuntimeConfig()
 
 
 # ---------------------------------------------------------------------------
-# RoPE, norm
+# RoPE (applied by ops/attention.py's apply_rotary_emb), norm
 # ---------------------------------------------------------------------------
 
 def precompute_freqs_cis(dim: int, length: int, theta: float = 10000.0) -> np.ndarray:
@@ -70,16 +70,6 @@ def precompute_freqs_cis(dim: int, length: int, theta: float = 10000.0) -> np.nd
     byp = np.stack([np.ones_like(angles), np.zeros_like(angles)], axis=-1)
     table = np.concatenate([rot, byp], axis=-2)
     return table.reshape(length, dim)
-
-
-def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
-    """x (..., S, G, H, D); freqs_cis broadcastable (..., S, 1, 1, D)."""
-    xs = x.shape
-    x2 = x.reshape(*xs[:-1], xs[-1] // 2, 2)
-    f2 = freqs_cis.reshape(*freqs_cis.shape[:-1], xs[-1] // 2, 2)
-    o_r = x2[..., 0] * f2[..., 0] - x2[..., 1] * f2[..., 1]
-    o_i = x2[..., 0] * f2[..., 1] + x2[..., 1] * f2[..., 0]
-    return torch.stack([o_r, o_i], dim=-1).reshape(xs)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -205,27 +195,35 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     h = rms_norm(x, layer_params["attn_ln"]["weight"], config.layernorm_epsilon)
     q = quant_linear(h, layer_params["q_proj"], quant_type, rt)
     kv = quant_linear(h, layer_params["kv_proj"], quant_type, rt)
-    k, v = kv.split(config.kv_size, dim=-1)
-
-    f = freqs_cis[:, :, None, None, :]
-    q = apply_rotary_emb(q.reshape(B, S, G, Hg, D), f)
-    k = apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
-    v = v.reshape(B, S, G, D)
 
     sm_scale = 1.0 / math.sqrt(D)
     kv_out = None
-    if kv_write is None:
-        if past_kv is not None:
-            k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
-            v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
-        kv_out = (k, v)
-        ctx = _attention_scores(q, k, v, attn, dropout=dropout, kv_layout="btgd")
-    elif isinstance(kv_write, PK.PagedWrite):
-        ctx = PK.paged_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
-                                 kernels, sm_scale)
+    if isinstance(attn, tuple) and attn[0] == "flash_decode":
+        # one token a row: RoPE and the K/V write in one op, then attend
+        qd, kvd, fd = q.reshape(B, G, Hg, D), kv[:, 0], freqs_cis[:, 0]
+        if isinstance(kv_write, PK.PagedWrite):
+            ctx = PK.paged_decode(qd, kvd, fd, attn[1], kv_write, kernels, sm_scale)
+        else:
+            ctx = _dense_decode(qd, kvd, fd, attn[1], kv_write, kernels, sm_scale,
+                                rt.decode_attn_v2)
     else:
-        ctx = _dense_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
-                               kernels, sm_scale, rt.decode_attn_v2)
+        k, v = kv.split(config.kv_size, dim=-1)
+        f = freqs_cis[:, :, None, None, :]
+        q = A.apply_rotary_emb(q.reshape(B, S, G, Hg, D), f)
+        k = A.apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
+        v = v.reshape(B, S, G, D)
+        if kv_write is None:
+            if past_kv is not None:
+                k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
+                v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
+            kv_out = (k, v)
+            ctx = _attention_scores(q, k, v, attn, dropout=dropout, kv_layout="btgd")
+        elif isinstance(kv_write, PK.PagedWrite):
+            ctx = PK.paged_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
+                                     kernels, sm_scale)
+        else:
+            ctx = _dense_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
+                                   kernels, sm_scale)
     ctx = ctx.reshape(B, S, G * Hg * D)
 
     x = x + quant_linear(ctx, layer_params["o_proj"], quant_type, rt)
@@ -239,9 +237,9 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     return x if kv_write is not None else (x, kv_out)
 
 
-def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale, decode_v2=False):
-    """Write this block's K/V (B, G, S, D) into the dense cache, then attend;
-    ``decode_v2`` sends a flash decode to B12 instead of B4."""
+def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
+    """Write this block's K/V (B, G, S, D) into the dense cache, then attend
+    (a prefill, a chunk, or the masked path)."""
     ck, cv, layer, start, *rest = kv_write
     slot_map = rest[0] if rest else None
     S = q.shape[1]
@@ -264,18 +262,28 @@ def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale, decode_v2=Fal
             kc, vc = kc[slot_map.long()], vc[slot_map.long()]
         return _attention_scores(q, kc, vc, attn, kv_layout="bgtd")
     kind, lengths = attn
+    fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
     if kind == "flash_prefill":
-        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
         return fn(q, kc, vc, lengths, sm_scale)
-    if kind == "flash_prefill_chunk":
-        lengths, starts, row_map = lengths
-        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
-        return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+    lengths, starts, row_map = lengths  # "flash_prefill_chunk"
+    return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+
+
+def _dense_decode(q, kv, freqs, lengths, kv_write, kernels, sm_scale, decode_v2=False):
+    """The flash decode step over the dense cache: q (B, G, Hg, D) and kv
+    (B, 2·G·D) of one token a row, its RoPE row freqs (B, D).  Rotates q and
+    k and writes k and v at slot ``start`` in one op (B3 with the RoPE), then
+    attends slots 0..lengths through B4, or B12 under ``decode_v2``."""
+    ck, cv, layer, start, *rest = kv_write
+    if start is None or rest:
+        raise ValueError("a flash decode writes at per-row starts into every cache row")
+    append = A.rope_kv_append if kernels else A.rope_kv_append_plain
+    q = append(q, kv, freqs, ck, cv, layer, start)
     if decode_v2:
         fn = A.flash_attention_decode_v2 if kernels else A.flash_attention_decode_v2_plain
     else:
         fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
-    return fn(q[:, 0], kc, vc, lengths, sm_scale)
+    return fn(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype), lengths, sm_scale)
 
 
 def _layer(tree: dict, l: int) -> dict:

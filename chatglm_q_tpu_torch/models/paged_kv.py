@@ -12,11 +12,12 @@ As in the dense cache (models/chatglm2.py), the pools are updated in place
 where the JAX code returns a new array; ``PagedKVCache.replace`` swaps the
 small tensors (page table, lengths) and shares the pools.
 
-Decode writes one row per sequence through the pool-write kernel and reads
-pages with the paged ragged-decode kernel (ops/attention.py).  Prefill
-attends the freshly computed K/V and never the pool; chunked prefill attends
-the pool, through the chunk kernel for chunks of S·Hg ≤ 512 rows and through
-a gathered dense view and the chunked flash prefill for larger ones.
+Decode rotates q and k and writes one row per sequence in one launch of the
+append kernel, then reads pages with the paged ragged-decode kernel
+(ops/attention.py).  Prefill attends the freshly computed K/V and never the
+pool; chunked prefill attends the pool, through the chunk kernel for chunks
+of S·Hg ≤ 512 rows and through a gathered dense view and the chunked flash
+prefill for larger ones.
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def gather_layer(pool: torch.Tensor, layer: int, page_table: torch.Tensor) -> to
 
 def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_scale: float):
     """``block_forward``'s paged branch: write this block's K/V (B, G, S, D)
-    into the pool, then attend."""
+    into the pool, then attend (a prefill, a chunk, or the masked path)."""
     kp, vp, layer, pt = kv_write.k_pool, kv_write.v_pool, kv_write.layer, kv_write.page_table
     S, Hg = q.shape[1], q.shape[3]
     if S == 1:
@@ -136,17 +137,26 @@ def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_sca
     if kind == "flash_prefill":  # causality never reaches the pool
         fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
         return fn(q, kw.contiguous(), vw.contiguous(), lengths, sm_scale)
-    if kind == "flash_prefill_chunk":
-        lengths, starts, row_map = lengths
-        if S * Hg <= CHUNK_KERNEL_MAX_ROWS:
-            fn = A.flash_attention_chunk_paged if kernels else A.flash_attention_chunk_paged_plain
-            return fn(q, kp, vp, layer, pt, starts, sm_scale, row_map)
-        kc = gather_layer(kp, layer, pt).to(q.dtype)
-        vc = gather_layer(vp, layer, pt).to(q.dtype)
-        fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
-        return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+    lengths, starts, row_map = lengths  # "flash_prefill_chunk"
+    if S * Hg <= CHUNK_KERNEL_MAX_ROWS:
+        fn = A.flash_attention_chunk_paged if kernels else A.flash_attention_chunk_paged_plain
+        return fn(q, kp, vp, layer, pt, starts, sm_scale, row_map)
+    kc = gather_layer(kp, layer, pt).to(q.dtype)
+    vc = gather_layer(vp, layer, pt).to(q.dtype)
+    fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+    return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
+
+
+def paged_decode(q, kv, freqs, lengths, kv_write: PagedWrite, kernels: bool, sm_scale: float):
+    """The flash decode step over the pool: q (B, G, Hg, D) and kv (B, 2·G·D)
+    of one token a row, its RoPE row freqs (B, D).  Rotates q and k and
+    writes k and v at position ``start`` in one op (B9 with the RoPE), then
+    attends positions 0..lengths through B10."""
+    kp, vp, layer, pt = kv_write.k_pool, kv_write.v_pool, kv_write.layer, kv_write.page_table
+    append = A.rope_kv_append if kernels else A.rope_kv_append_plain
+    q = append(q, kv, freqs, kp, vp, layer, kv_write.start, pt)
     fn = A.flash_attention_decode_paged if kernels else A.flash_attention_decode_paged_plain
-    return fn(q[:, 0], kp, vp, layer, pt, lengths, sm_scale)
+    return fn(q, kp, vp, layer, pt, lengths, sm_scale)
 
 
 def _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache: PagedKVCache,

@@ -29,6 +29,7 @@ def kernel_wrappers() -> dict:
         "int8_dyn_mma": D.int8_dyn_mma,
         "int4_dyn_splitk": D.int4_dyn_splitk,
         "int4_dyn_mma": D.int4_dyn_mma,
+        "rope_kv_append": A.rope_kv_append,
         "kv_cache_write_idx": A.kv_cache_write_idx,
         "flash_attention_decode": A.flash_attention_decode,
         "flash_attention_decode_v2": A.flash_attention_decode_v2,

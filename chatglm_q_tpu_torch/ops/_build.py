@@ -58,16 +58,17 @@ SIGNATURES = {
     # 128-element stages per split, ctas, stream
     "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # cache_layer, new, starts, B, G, T, D, stream (bf16)
-    "chatglm_kv_write": [P, P, P, I, I, I, I, P],
+    # q, q_out, kv, kv_stride, freqs, k_layer, v_layer, page_table, starts, B, G, Hg, D, T
+    # (the pool's P), MP, stream (bf16; page_table null for the dense cache)
+    "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
+    # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, stream (the write-only form)
+    "chatglm_kv_append": [P, P, P, P, I, I, I, I, I, P],
     # q, k, v, lengths, part, arrivals, out, B, G, Hg, T, D, span, v2, sm_scale,
     # stream (bf16; B4 and B12; part may be null)
     "chatglm_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale,
     # stream (bf16; q_starts / kv_row_map may be null)
     "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-    # pool_layer, new, page_table, starts, B, G, P, D, MP, stream (bf16)
-    "chatglm_pool_write": [P, P, P, P, I, I, I, I, I, P],
     # q, k_layer, v_layer, page_table, lengths, part, arrivals, out, B, G, Hg, P, D, MP,
     # span, sm_scale, stream (part may be null)
     "chatglm_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],

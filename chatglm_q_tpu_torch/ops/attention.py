@@ -21,14 +21,22 @@ counts.
   Both decode forms launch one kernel over (b·g, span of rows), the span
   from ``decode_span``; the blocks merge their spans in the same launch,
   and a row of at most DECODE_SOLO_ROWS valid slots is one span.
-* ``kv_cache_write_idx`` replaces :_kv_write_kernel.  Writes one token per
-  row into cache[layer, b, :, starts[b], :] in place, with starts clamped
-  to T − 1 (JAX's dynamic_update_slice clamp: the engines decode past the
-  wall by design and roll the tokens back); ``starts`` is read on the
-  device, so a decode step never syncs to the host.
-* ``kv_pool_write_idx`` replaces :_pool_write_kernel: the same write into
-  the paged pool (L, NP, G, P, D), at position min(starts[b], MP·P − 1) of
-  page ``page_table[b, pos // P]``.
+* ``rope_kv_append`` replaces :_kv_write_kernel (B3) and :_pool_write_kernel
+  (B9) on the decode step, fused with the RoPE of q and k that XLA fuses
+  around them on the TPU: one launch per layer rotates the token's q and k
+  (``apply_rotary_emb``'s rounding, bit for bit), writes k and v into the
+  dense cache's slot or the pool's page slot, and returns the rotated q for
+  the decode attention.  ``rope_kv_append_plain`` is the sequence it
+  replaces: two ``apply_rotary_emb`` and two plain writes.
+* ``kv_cache_write_idx`` (B3's API) writes one token per row into
+  cache[layer, b, :, starts[b], :] in place, with starts clamped to T − 1
+  (JAX's dynamic_update_slice clamp: the engines decode past the wall by
+  design and roll the tokens back); ``starts`` is read on the device, so a
+  decode step never syncs to the host.  It launches the append kernel's
+  write-only form.
+* ``kv_pool_write_idx`` (B9's API): the same write into the paged pool (L,
+  NP, G, P, D), at position min(starts[b], MP·P − 1) of page
+  ``page_table[b, pos // P]``; the write-only form too.
 * ``flash_attention_decode_paged`` replaces :_decode_paged_kernel (stride 1,
   phase 0): ragged decode over the pool's pages, positions 0..lengths[b],
   pages clamped to the table's MP; a row of length −1 outputs 0.  B12's
@@ -136,6 +144,37 @@ def kv_pool_write_idx_plain(pool, new, layer: int, page_table, starts):
     page = page_table.long()[rows, pos // P]
     pool[layer][page, :, pos % P] = new.to(pool.dtype)
     return pool
+
+
+def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
+    """x (..., S, G, H, D); freqs_cis broadcastable (..., S, 1, 1, D): the
+    interleaved pairs rotated by their [cos, sin] entries, each product and
+    sum rounded to x's dtype (chatglm_q_tpu/models/chatglm2.py:68)."""
+    xs = x.shape
+    x2 = x.reshape(*xs[:-1], xs[-1] // 2, 2)
+    f2 = freqs_cis.reshape(*freqs_cis.shape[:-1], xs[-1] // 2, 2)
+    o_r = x2[..., 0] * f2[..., 0] - x2[..., 1] * f2[..., 1]
+    o_i = x2[..., 0] * f2[..., 1] + x2[..., 1] * f2[..., 0]
+    return torch.stack([o_r, o_i], dim=-1).reshape(xs)
+
+
+def rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_table=None):
+    """One decode token per row: q (B, G, Hg, D); kv (B, 2·G·D), k then v;
+    freqs (B, D), the token's RoPE row.  Rotates q and k, writes k and v at
+    slot ``starts[b]`` of the (L, B, G, T, D) caches, or with ``page_table``
+    (B, MP) into the (L, NP, G, P, D) pools, as the plain writes clamp it.
+    In place; returns the rotated q (B, G, Hg, D)."""
+    B, G, Hg, D = q.shape
+    f = freqs[:, None, None, :]
+    k, v = kv.reshape(B, 2, G, D).unbind(1)
+    k = apply_rotary_emb(k[:, :, None], f)[:, :, 0]
+    if page_table is None:
+        kv_cache_write_idx_plain(k_cache, k, layer, starts)
+        kv_cache_write_idx_plain(v_cache, v, layer, starts)
+    else:
+        kv_pool_write_idx_plain(k_cache, k, layer, page_table, starts)
+        kv_pool_write_idx_plain(v_cache, v, layer, page_table, starts)
+    return apply_rotary_emb(q, f)
 
 
 def _prescaled(q, sm_scale):
@@ -365,22 +404,50 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
 flash_attention_decode_v2.launches = 0
 
 
+def _aligned(name, *tensors):
+    """The append kernel moves 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
+
+
+def _layer_ptr(t, layer: int) -> int:
+    """The address of ``t[layer]`` without making the view."""
+    return t.data_ptr() + layer * t.stride(0) * t.element_size()
+
+
+def _write_one(name, dst, new, layer: int, starts, page_table=None):
+    """The append kernel's write-only form: ``new`` (B, G, D) into the slot
+    of ``dst[layer]``, a cache (L, B, G, T, D) or, with ``page_table``, a
+    pool (L, NP, G, P, D)."""
+    L, _, G, T, D = dst.shape
+    B = new.shape[0]
+    src = new.to(dst.dtype).contiguous()
+    if src.data_ptr() % 16:
+        src = src.clone()
+    starts = _int32(starts)
+    page_table = None if page_table is None else _int32(page_table)
+    _check_cuda(name, dst, src, starts, *([] if page_table is None else [page_table]))
+    _check_bf16(name, dst)
+    if (src.shape != (B, G, D) or starts.shape != (B,) or D != HEAD_DIM
+            or not 0 <= layer < L or (page_table is None and dst.shape[1] != B)
+            or (page_table is not None and (page_table.dim() != 2
+                                            or page_table.shape[0] != B))):
+        raise ValueError(f"{name}: unsupported new {tuple(new.shape)}, dst {tuple(dst.shape)}, "
+                         f"layer {layer}")
+    _aligned(name, dst)
+    MP = 0 if page_table is None else page_table.shape[1]
+    _build.call("chatglm_kv_append", _layer_ptr(dst, layer), src.data_ptr(),
+                None if page_table is None else page_table.data_ptr(), starts.data_ptr(),
+                B, G, D, T, MP, _build.stream_ptr(dst))
+
+
 def kv_cache_write_idx(cache, new, layer: int, starts):
     """Write ``new`` (B, G, D) into cache[layer, b, :, starts[b], :] in place
-    and return ``cache``.  Plain version on CPU tensors; the CUDA kernel on
-    CUDA tensors."""
+    and return ``cache``.  Plain version on CPU tensors; the append kernel's
+    write-only form on CUDA tensors."""
     if not cache.is_cuda:
         return kv_cache_write_idx_plain(cache, new, layer, starts)
-    L, B, G, T, D = cache.shape
-    src = new.to(cache.dtype).contiguous()
-    starts = starts.to(torch.int32).contiguous()
-    _check_cuda("kv_cache_write_idx", cache, src, starts)
-    _check_bf16("kv_cache_write_idx", cache)
-    if src.shape != (B, G, D):
-        raise ValueError(f"kv_cache_write_idx: unsupported new {tuple(new.shape)}")
-    layer_view = cache[layer]  # contiguous (B, G, T, D); 64-bit address
-    _build.call("chatglm_kv_write", layer_view.data_ptr(), src.data_ptr(), starts.data_ptr(),
-                B, G, T, D, _build.stream_ptr(cache))
+    _write_one("kv_cache_write_idx", cache, new, layer, starts)
     kv_cache_write_idx.launches += 1
     return cache
 
@@ -397,26 +464,57 @@ def _check_pool(name, pool, page_table, L_idx):
 def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
     """Write ``new`` (B, G, D) at logical position min(starts[b], MP·P − 1)
     of each row's pages in ``pool`` (L, NP, G, P, D), in place; returns
-    ``pool``.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    ``pool``.  Plain version on CPU tensors; the append kernel's write-only
+    form on CUDA tensors."""
     if not pool.is_cuda:
         return kv_pool_write_idx_plain(pool, new, layer, page_table, starts)
-    L, NP, G, P, D = pool.shape
-    B, MP = page_table.shape
-    src = new.to(pool.dtype).contiguous()
-    page_table, starts = _int32(page_table), _int32(starts)
-    _check_cuda("kv_pool_write_idx", pool, src, page_table, starts)
-    _check_bf16("kv_pool_write_idx", pool)
-    _check_pool("kv_pool_write_idx", pool, page_table, layer)
-    if src.shape != (B, G, D) or starts.shape != (B,):
-        raise ValueError(f"kv_pool_write_idx: unsupported new {tuple(new.shape)}")
-    _build.call("chatglm_pool_write", pool[layer].data_ptr(), src.data_ptr(),
-                page_table.data_ptr(), starts.data_ptr(), B, G, P, D, MP,
-                _build.stream_ptr(pool))
+    _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
     kv_pool_write_idx.launches += 1
     return pool
 
 
 kv_pool_write_idx.launches = 0
+
+
+def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_table=None):
+    """The decode step's RoPE and KV write in one launch (see
+    ``rope_kv_append_plain`` for the arguments); ``kv`` may be a view with a
+    row stride.  Plain version on CPU tensors; the CUDA kernel on CUDA
+    tensors.  Returns the rotated q (B, G, Hg, D)."""
+    if not q.is_cuda:
+        return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
+    name = "rope_kv_append"
+    B, G, Hg, D = q.shape
+    q, freqs, starts = q.contiguous(), freqs.contiguous(), _int32(starts)
+    if kv.dim() != 2 or kv.stride(1) != 1 or kv.stride(0) % 8:
+        kv = kv.contiguous()
+    paged = page_table is not None
+    if paged:
+        page_table = _int32(page_table)
+    _check_cuda(name, q, freqs, k_cache, v_cache, starts, *([page_table] if paged else []))
+    if not kv.is_cuda or kv.device != q.device:
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    _check_bf16(name, q, kv, freqs, k_cache, v_cache)
+    L, rows, Gc, T, Dc = k_cache.shape
+    if (D != HEAD_DIM or (Gc, Dc) != (G, D) or v_cache.shape != k_cache.shape
+            or kv.shape != (B, 2 * G * D) or freqs.shape != (B, D) or starts.shape != (B,)
+            or not 0 <= layer < L or (not paged and rows != B)
+            or (paged and (page_table.dim() != 2 or page_table.shape[0] != B))):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, kv {tuple(kv.shape)}, "
+                         f"freqs {tuple(freqs.shape)}, cache {tuple(k_cache.shape)}, "
+                         f"layer {layer}")
+    _aligned(name, q, kv, freqs, k_cache, v_cache)
+    out = torch.empty_like(q)
+    MP = page_table.shape[1] if paged else 0
+    _build.call("chatglm_rope_kv_append", q.data_ptr(), out.data_ptr(), kv.data_ptr(),
+                kv.stride(0), freqs.data_ptr(), _layer_ptr(k_cache, layer),
+                _layer_ptr(v_cache, layer), page_table.data_ptr() if paged else None,
+                starts.data_ptr(), B, G, Hg, D, T, MP, _build.stream_ptr(q))
+    rope_kv_append.launches += 1
+    return out
+
+
+rope_kv_append.launches = 0
 
 
 def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):

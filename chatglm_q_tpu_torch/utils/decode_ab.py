@@ -21,13 +21,16 @@ device ms of one traced prefill (torch.profiler, every kernel's time) and
 the host-clock ms (the median of three, ending in a sync).  It needs
 ``models.chatglm2.prefill`` and ``init_kv_cache``, there since slice 1.
 
-With ``--device`` a turn reads a batch-1 decode step's device time in the
-int8 decode modes: 28 layers of int8 random weights (seed 1) weight-only and
-under ``dynamic_int8``, then of int4g32 under ``dynamic_int8``; a 128-token
-prompt, a 1024-slot cache, then 8 greedy steps of ``multi_step_decode``
-under torch.profiler: device ms a step (every kernel's time), the host-clock
-ms a step of the same traced steps, and the largest kernels (device us and
-launches a step).  It needs ``multi_step_decode``, there since slice 1.
+With ``--device`` a turn reads a batch-1 decode step's device time in four
+modes: 28 layers of int8 random weights (seed 1) weight-only and under
+``dynamic_int8``, then of int4g32 weight-only and under ``dynamic_int8``; a
+128-token prompt, a 1024-slot cache, then 8 greedy steps of
+``multi_step_decode`` under torch.profiler; then int4g32's paged decode at
+batch 4 (``decode_step_paged`` over four 128-token rows on pages of 256):
+device ms a step (every kernel's time), the device launches a step
+(kernels, copies and fills) and by kernel, the host-clock ms a step of the
+same traced steps, and the largest kernels (device us and launches a step).
+It needs ``multi_step_decode`` and ``paged_kv``, there since slice 3.
 """
 from __future__ import annotations
 
@@ -96,31 +99,56 @@ from torch.profiler import ProfilerActivity, profile
 from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
 from chatglm_q_tpu_torch.bench import random_quantized_params
 from chatglm_q_tpu_torch.models import chatglm2 as M
+from chatglm_q_tpu_torch.models import paged_kv as PK
 cfg = ChatGLM2Config()
 out, steps = {}, 8
-for quant, modes in (("int8", (False, True)), ("int4g32", (True,))):
+bf16 = torch.bfloat16
+
+
+def traced(run):
+    run(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    return {"device_ms_per_step": sum(e.self_device_time_total for e in ev) / 1e3 / steps,
+            "device_launches_per_step": sum(e.count for e in ev) / steps,
+            "traced_host_ms_per_step": wall * 1e3 / steps,
+            "top_us_per_step": [(e.key[:70], e.self_device_time_total / steps, e.count / steps)
+                                for e in ev[:6]],
+            "launches_by_kernel": {e.key: e.count / steps for e in ev}}
+
+
+for quant, modes in (("int8", (False, True)), ("int4g32", (False, True))):
     params = random_quantized_params(cfg, quant, torch.Generator(device="cuda").manual_seed(1))
     for dyn in modes:
         rt = TorchRuntimeConfig(dynamic_int8=dyn)
-        cache = M.init_kv_cache(cfg, 1, 1024, torch.bfloat16)
+        cache = M.init_kv_cache(cfg, 1, 1024, bf16)
         ids = torch.zeros((1, 128), dtype=torch.long, device="cuda")
         lengths = torch.full((1,), 128, dtype=torch.int32, device="cuda")
-        logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, torch.bfloat16, rt)
+        logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, bf16, rt)
         first = torch.argmax(logits, -1).to(torch.int32)
-        M.multi_step_decode(params, cfg, first, cache, 2, None, quant, torch.bfloat16, rt)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            M.multi_step_decode(params, cfg, first, cache, steps, None, quant, torch.bfloat16, rt)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                     and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
-        out[quant + ("+dyn" if dyn else "")] = {
-            "device_ms_per_step": sum(e.self_device_time_total for e in ev) / 1e3 / steps,
-            "traced_host_ms_per_step": wall * 1e3 / steps,
-            "top_us_per_step": [(e.key[:70], e.self_device_time_total / steps, e.count / steps)
-                                for e in ev[:6]]}
+        out[quant + ("+dyn" if dyn else "")] = traced(
+            lambda n: M.multi_step_decode(params, cfg, first, cache, n, None, quant, bf16, rt))
+    if quant == "int4g32":  # a paged decode step at batch 4: 4 rows of 4 pages of 256
+        rt = TorchRuntimeConfig()
+        pc = PK.init_paged_kv_cache(cfg, 4, 17, 1024, 256, bf16)
+        pc.page_table.copy_(torch.arange(1, 17, dtype=torch.int32, device="cuda").reshape(4, 4))
+        ids = torch.zeros((4, 128), dtype=torch.long, device="cuda")
+        lengths = torch.full((4,), 128, dtype=torch.int32, device="cuda")
+        logits, pc = PK.prefill_paged(params, cfg, ids, lengths, pc, quant, bf16, rt)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+
+        def paged(n, pc=pc):
+            for _ in range(n):
+                logits, pc = PK.decode_step_paged(params, cfg, tok, pc, quant, bf16, rt)
+            return logits
+
+        out["int4g32 paged batch 4"] = traced(paged)
     del params
     torch.cuda.empty_cache()
 print(json.dumps(out))
@@ -141,7 +169,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--dyn", action="store_true", help="the dynamic-int8 prefills instead")
     ap.add_argument("--device", action="store_true",
-                    help="the int8 modes' batch-1 decode device time instead")
+                    help="a batch-1 decode step's device time and launches instead")
     args = ap.parse_args(argv)
     this = pathlib.Path(__file__).resolve().parents[2]
     sides = {"other": args.other.resolve(), "this": this}

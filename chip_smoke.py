@@ -224,7 +224,7 @@ CROSSOVER_M = (32, 64, 128)  # B8 against B1 around _INT4_DYN_M_MAX = 64
 # the row the kernels line reports) and in f32
 T_ROWS = ((512, "bfloat16"), (1024, "bfloat16"), (16, "bfloat16"), (8, "float32"))
 PROMPT_LENGTHS = (128, 77, 33, 5)
-INT4_PATH_KERNELS = ("int4g32_splitk", "int4g32_mma", "kv_cache_write_idx",
+INT4_PATH_KERNELS = ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
                      "flash_attention_decode", "flash_attention_prefill")
 # phase 5: each mode and the kernels its GLMDecoder.generate run must launch
 # (the chat prompt has 16 < S <= 64 tokens: the tensor-core kernels run in
@@ -408,7 +408,9 @@ CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_
                "int4g32_t_mma": "t_wgmma_kernel<Int4TView> (csrc/common.cuh)",
                "int4g32_t_gemv": "t_gemv_kernel<Int4TView> (csrc/common.cuh)",
                "int8_t_mma": "t_wgmma_kernel<Int8TView> (csrc/common.cuh)",
-               "int8_t_gemv": "t_gemv_kernel<Int8TView> (csrc/common.cuh)"}
+               "int8_t_gemv": "t_gemv_kernel<Int8TView> (csrc/common.cuh)",
+               "rope_kv_append": "rope_kv_append_kernel<DenseKV, true>",
+               "rope_kv_append paged": "rope_kv_append_kernel<PagedKV, true>"}
 
 
 def check_matmul(torch):
@@ -981,6 +983,73 @@ def check_attention_edges(torch):
     return worst
 
 
+def rope_append_row(torch, gen, k, v, pt, starts_sets):
+    """The decode step's fused RoPE + KV append (B3 with ``pt`` None, B9 with
+    a page table) at 6B's heads, one row per starts: bit-equal to its plain
+    version for every set of starts, then timed over the 28 layers at the
+    first set: the kernel, its plain version, and the path it replaced as a
+    yardstick (``old_path_ms``: two plain RoPEs, then B3's / B9's write-only
+    launches for k and for v, a strided view of the kv row that the wrapper
+    copies, as ``block_forward`` ran them).  No one PyTorch call computes
+    the same function: ``library_ms`` is None."""
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+    from chatglm_q_tpu_torch.ops import attention as A
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    L, G, D, Hg = k.shape[0], k.shape[2], k.shape[4], 16
+    B = starts_sets[0].shape[0]
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kv = torch.randn((B, 2 * G * D), device="cuda", generator=gen).to(torch.bfloat16)
+    table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", torch.bfloat16)
+    freqs = table[torch.tensor([5, 700, 1500, 2048], device="cuda")[:B]]
+    for st in starts_sets:
+        kr, vr = k.clone(), v.clone()
+        got = A.rope_kv_append(q, kv, freqs, k, v, 3, st, pt)
+        torch.cuda.synchronize()
+        want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 3, st, pt)
+        require(torch.equal(got, want) and torch.equal(k, kr) and torch.equal(v, vr),
+                f"rope_kv_append (B={B}, starts {st.tolist()}) differs from its plain version")
+        del kr, vr
+    st = starts_sets[0]
+    ms = cuda_event_ms(lambda i: A.rope_kv_append(q, kv, freqs, k, v, i % L, st, pt), iters=56)
+    plain = cuda_event_ms(lambda i: A.rope_kv_append_plain(q, kv, freqs, k, v, i % L, st, pt),
+                          iters=14)
+
+    def old_path(i):
+        kk, vv = kv.split(G * D, dim=-1)
+        f = freqs[:, None, None, :]
+        A.apply_rotary_emb(q, f)
+        kk = A.apply_rotary_emb(kk.reshape(B, G, 1, D), f).reshape(B, G, D)
+        if pt is None:
+            A.kv_cache_write_idx(k, kk, i % L, st)
+            A.kv_cache_write_idx(v, vv.reshape(B, G, D), i % L, st)
+        else:
+            A.kv_pool_write_idx(k, kk, i % L, pt, st)
+            A.kv_pool_write_idx(v, vv.reshape(B, G, D), i % L, pt, st)
+
+    old = cuda_event_ms(old_path, iters=14)
+    # q read and written, the kv row and the freqs row read, k and v written,
+    # starts (and a page id) read; 6 f32 operations a rotated pair
+    nbytes = B * (2 * q[0].numel() * 2 + 2 * kv[0].numel() * 2 + D * 2 + 4) \
+        + (0 if pt is None else B * 4)
+    b, by = bound_ms(nbytes, 6.0 * B * (G * Hg + G) * D / 2, PEAK_F32_FLOPS)
+    where = (f"cache (L={L}, B={B}, G={G}, T={k.shape[3]}, D={D})" if pt is None else
+             f"pool (L={L}, NP={k.shape[1]}, G={G}, P={k.shape[3]}, D={D}), MP={pt.shape[1]}")
+    return dict(max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=None, old_path_ms=old,
+                shape=f"q (B={B}, G={G}, Hg={Hg}, D={D}), {where}, "
+                      f"starts {[x.tolist() for x in starts_sets]}")
+
+
+def log_attention_rows(out, width):
+    for k, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        old = f"  old path {r['old_path_ms']:.4f} ms" if "old_path_ms" in r else ""
+        log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
+            f"library {lib}{old}  [{r['shape']}]")
+
+
 def check_attention(torch):
     import torch.nn.functional as F
 
@@ -1117,11 +1186,20 @@ def check_attention(torch):
                                      bound_ms=b, bound_by=by, library_ms=lib,
                                      shape=f"cache (L={L}, B={B}, G={G}, T={T}, D={D}) "
                                            f"starts={list(PROMPT_LENGTHS)}")
-    for k, r in out.items():
-        log(f"  {k:24s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
-            f"library {r['library_ms']:.4f} ms  [{r['shape']}]")
-    del kc, vc
+
+    # B3 with the RoPE (the decode step's launch): exact at B = 4 on this
+    # cache and at B = 1 on a 1-row cache, in the middle, at the wall, past it
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    out["rope_kv_append"] = rope_append_row(torch, gen, kc, vc, None,
+                                            [starts, i32(T - 1, T, T + 5, 2)])
+    k1, v1 = (torch.randn((L, 1, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    out["rope_kv_append B=1"] = rope_append_row(torch, gen, k1, v1, None,
+                                                [i32(140), i32(T - 1), i32(T + 7)])
+    log_attention_rows(out, 26)
+    del kc, vc, k1, v1
     return out
 
 
@@ -1179,6 +1257,17 @@ def check_paged_attention(torch):
     put("kv_pool_write_idx", err, rel, ms, plain, 2 * new.numel() * 2 + 2 * B * 4, 0.0, lib,
         f"pool (L={L}, NP={POOL_PAGES}, G={G}, P={PAGE}, D={D}), B={B}, "
         f"starts={list(PAGED_LENGTHS)}")
+    # B9 with the RoPE (the paged decode step's launch): exact at B = 4 and 1,
+    # in the middle, at the capacity's last position and past it
+    cap = MP * PAGE
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    out["rope_kv_append paged"] = rope_append_row(torch, gen, kp, vp, pt,
+                                                  [starts, i32(cap - 1, cap, cap + 100, 5)])
+    out["rope_kv_append paged B=1"] = rope_append_row(torch, gen, kp, vp, pt[:1].contiguous(),
+                                                      [i32(1000), i32(cap - 1), i32(cap + 3)])
 
     # B10: paged ragged decode
     q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
@@ -1294,10 +1383,7 @@ def check_paged_attention(torch):
         lib, f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
              f"lengths={clens.tolist()} kv_row_map={rmap.tolist()}")
     del kc, vc
-    for k, r in out.items():
-        log(f"  {k:32s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
-            f"library {r['library_ms']:.4f} ms  [{r['shape']}]")
+    log_attention_rows(out, 32)
     return out
 
 
@@ -1575,6 +1661,7 @@ def full_slice(torch, smi):
     log(f"  launches per decode step: {json.dumps(per_step)}")
     require(per_step["flash_attention_decode"] == cfg.num_layers,
             f"flash_attention_decode launched {per_step['flash_attention_decode']} times a step")
+    require_fused_append(per_step, cfg, "a batch-4 decode step")
     require(per_step["int4g32_splitk"] == 6 * cfg.num_layers + 1 and per_step["int4g32_gemv"] == 0
             and per_step["int4g32_mma"] == 0,
             f"a decode step's B1 launches: {per_step['int4g32_splitk']} split-K, "
@@ -1611,6 +1698,16 @@ def full_slice(torch, smi):
     log(f"  batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
     perf["prefill_profile"] = {b: profile_prefill(torch, params, cfg, rt, b) for b in (1, B)}
     return counts, v2_counts, perf
+
+
+def require_fused_append(counts, cfg, what):
+    """A decode step rotates and writes K/V in one launch a layer: the fused
+    kernel 28 times, the write-only B3 / B9 never."""
+    require(counts.get("rope_kv_append", 0) == cfg.num_layers
+            and not counts.get("kv_cache_write_idx") and not counts.get("kv_pool_write_idx"),
+            f"{what}: rope_kv_append launched {counts.get('rope_kv_append', 0)} times "
+            f"(want {cfg.num_layers}), B3 {counts.get('kv_cache_write_idx', 0)}, "
+            f"B9 {counts.get('kv_pool_write_idx', 0)}")
 
 
 # torch.profiler can drop CUDA activity records in a burst of launches (seen
@@ -1748,6 +1845,8 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
     attn_launches = sum(e.count for e in attn) / steps
     mm_launches, mm_ms = launches_in(prof, steps, *subs)
+    append_launches, append_ms = launches_in(prof, steps, "rope_kv_append_kernel")
+    launches = sum(e.count for e in events) / steps  # every kernel, copy and fill
     require(not any("splitk_reduce_kernel" in e.key for e in events),
             f"the {mode} decode ran splitk_reduce_kernel")
     log(f"  {mode} profile: {steps} decode steps at batch 1, wall {wall * 1e3 / steps:.3f} "
@@ -1759,6 +1858,8 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
         f"({attn_launches:.0f} launches; 1.2 ms before its redesign)")
     log(f"  {label}: {mm_ms:.4f} ms of device time per batch-1 {mode} step "
         f"({mm_launches:.0f} launches; no splitk_reduce_kernel)")
+    log(f"  rope_kv_append_kernel: {append_ms:.4f} ms of device time per batch-1 {mode} step "
+        f"({append_launches:.1f} launches); the traced step's device launches: {launches:.1f}")
 
     # where the host's time goes (cProfile inflates Python-heavy frames;
     # read it for ranking, not for absolute times)
@@ -1782,7 +1883,9 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
             "top_us_per_step": top, "decode_attn_kernel_ms_per_step": attn_ms,
             "decode_attn_kernel_launches_per_step": attn_launches,
             "splitk_kernel": label, "splitk_ms_per_step": mm_ms,
-            "splitk_launches_per_step": mm_launches}
+            "splitk_launches_per_step": mm_launches, "device_launches_per_step": launches,
+            "rope_kv_append_ms_per_step": append_ms,
+            "rope_kv_append_launches_per_step": append_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1941,9 +2044,10 @@ def chat_slice(torch, smi):
         require(final == want, f"{name}: GLMDecoder text {final[:80]!r} differs from the "
                                f"model-level text {want[:80]!r}")
         require(len(final) > 0, f"{name}: empty text")
-        path = kernels + ("kv_cache_write_idx", "flash_attention_decode", "flash_attention_prefill")
+        path = kernels + ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill")
         missing = [k for k in path if c[k] == 0]
         require(not missing, f"{name}: kernels not launched by GLMDecoder.generate: {missing}")
+        require_fused_append(launches["per_decode_step"], cfg, f"{name}: a batch-1 decode step")
         log(f"  {name}: GLMDecoder.generate gave {len(toks)} tokens and {len(stream)} streamed "
             f"texts; its final text equals the model-level text: {final[:70]!r}")
         log(f"  {name} launch counts of the generate run: "
@@ -1996,9 +2100,11 @@ EOS = 2  # no tokenizer: the engines' eos id
 # H100 (seed 121), where that tree also read 2.25e-2 and the tree with the
 # kernel at most 2.49e-2.  The stream shifted by one token read 1.03 to 1.60.
 GREEDY_GAP_TOL = 4.04e-2
-PAGED_KERNELS = ("kv_pool_write_idx", "flash_attention_decode_paged",
-                 "flash_attention_chunk_paged", "flash_attention_prefill_chunk")
-DENSE_KERNELS = ("kv_cache_write_idx", "flash_attention_decode")
+# what the paged runs (a) and (b) launch ((c) none of the first two), and the
+# dense run (c); the fused RoPE + KV append (B3 / B9) is on both paths
+PAGED_KERNELS = ("flash_attention_decode_paged", "flash_attention_chunk_paged",
+                 "flash_attention_prefill_chunk", "rope_kv_append")
+DENSE_KERNELS = ("flash_attention_decode", "rope_kv_append")
 
 
 def engine_prompts(torch, seed=61):
@@ -2085,6 +2191,8 @@ def chunk_busy(torch, engine, reqs, name):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from chatglm_q_tpu_torch import ops
+
     ids = [engine.submit(p, **kw) for p, kw in reqs]
     untraced = res = None
     while engine.has_work:
@@ -2095,9 +2203,11 @@ def chunk_busy(torch, engine, reqs, name):
                 torch.cuda.synchronize()
                 untraced = time.perf_counter() - ts
                 continue
+            ops.reset_launch_counts()
             with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 engine.step()
                 torch.cuda.synchronize()
+            per_step = {k: v / engine.chunk for k, v in ops.launch_counts().items() if v}
             events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             dev_ms = sum(e.self_device_time_total for e in events) / 1e3
             # the paged attention kernels' share: B10 (decode_attn_kernel) and
@@ -2111,7 +2221,10 @@ def chunk_busy(torch, engine, reqs, name):
                    "int4_splitk_mma_kernel_ms": b1_ms,
                    "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
                    "busy_share": dev_ms / (untraced * 1e3),
-                   "device_ms_per_decode_step": dev_ms / engine.chunk}
+                   "device_ms_per_decode_step": dev_ms / engine.chunk,
+                   "launches_per_decode_step": per_step,
+                   "device_launches_per_decode_step": sum(e.count for e in events)
+                   / engine.chunk}
             for rid in ids:  # measured: the rest of the run is not needed
                 engine.cancel(rid)
             continue
@@ -2123,7 +2236,9 @@ def chunk_busy(torch, engine, reqs, name):
         f"a decode step; attention kernels (ms) {json.dumps(res['attention_device_ms'])}; "
         f"B1 int4_splitk_mma_kernel {res['int4_splitk_mma_kernel_ms']:.3f} ms "
         f"({res['int4_splitk_mma_kernel_ms'] / engine.chunk:.3f} a decode step); "
-        f"largest (ms) {json.dumps(res['top_kernels_ms'])}")
+        f"largest (ms) {json.dumps(res['top_kernels_ms'])}; launches a decode step "
+        f"{json.dumps(res['launches_per_decode_step'])}, "
+        f"{res['device_launches_per_decode_step']:.1f} on the device")
     return res
 
 
@@ -2319,7 +2434,7 @@ def engines_slice(torch, smi, seed=61, survey=False):
             f"greedy consistency: the shifted control passes ({control} <= {GREEDY_GAP_TOL})")
 
     ca, cb, cc = (out[k]["launches"] for k in ("a", "b", "c"))
-    for kern in ("int4g32_splitk", "int4g32_mma", "kv_pool_write_idx",
+    for kern in ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
                  "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
         require(ca[kern] > 0, f"(a) did not launch {kern}")
     for kern in ("int4g32_splitk", "flash_attention_chunk_paged", "flash_attention_prefill"):
@@ -2329,9 +2444,14 @@ def engines_slice(torch, smi, seed=61, survey=False):
     for kern in ("flash_attention_prefill_chunk",) + DENSE_KERNELS:
         require(cc[kern] > 0, f"(c) did not launch {kern}")
     for run, c in (("a", ca), ("b", cb)):
-        require(all(c[k] == 0 for k in DENSE_KERNELS), f"({run}) launched B3/B4: {c}")
-    require(all(cc[k] == 0 for k in PAGED_KERNELS[:3]), f"(c) launched a paged kernel: {cc}")
+        require(c["kv_cache_write_idx"] == 0 and c["flash_attention_decode"] == 0,
+                f"({run}) launched B3/B4: {c}")
+    require(all(cc[k] == 0 for k in PAGED_KERNELS[:2]), f"(c) launched a paged kernel: {cc}")
+    for run in ("a", "c"):  # a decode-only step: 16 decode steps of the fused append
+        per_step = out[run]["busy"]["launches_per_decode_step"]
+        require_fused_append(per_step, cfg, f"({run}) a decode step")
     counts = {k: ca[k] + cb[k] + cc[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
+    counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"]
     return counts, out
 
 
@@ -2618,7 +2738,7 @@ def main() -> int:
         ("int4_dyn_splitk", dyn, f"{pm}:1040", pick("int4_dyn_splitk", 1),
          chat_counts["int4g32+dyn"]),
         ("int4_dyn_mma", dyn, f"{pm}:1040", pick("int4_dyn_mma", 64), chat_counts["int4g32+dyn"]),
-        ("kv_cache_write_idx", att_src, f"{pa}:427", att["kv_cache_write_idx"], counts),
+        ("rope_kv_append", att_src, f"{pa}:427", att["rope_kv_append"], counts),
         ("int4g32_t_gemv", mm4, f"{pm}:671", pick("int4g32_t_gemv", 16), ft_counts["int4g32"]),
         ("int4g32_t_mma", mm4, f"{pm}:671", pick("int4g32_t_mma", 512), ft_counts["int4g32"]),
         ("int8_t_gemv", mm8, f"{pm}:653", pick("int8_t_gemv", 16), ft_counts["int8"]),
@@ -2629,7 +2749,8 @@ def main() -> int:
         ("flash_attention_prefill", att_src, f"{pa}:43", att["flash_attention_prefill"], counts),
         ("flash_attention_prefill_chunk", att_src, f"{pa}:43",
          att["flash_attention_prefill_chunk"], engine_counts),
-        ("kv_pool_write_idx", att_src, f"{pa}:480", att["kv_pool_write_idx"], engine_counts),
+        ("rope_kv_append paged", att_src, f"{pa}:480", att["rope_kv_append paged"],
+         engine_counts),
         ("flash_attention_decode_paged", att_src, f"{pa}:787",
          att["flash_attention_decode_paged"], engine_counts),
         ("flash_attention_chunk_paged", att_src, f"{pa}:951",
@@ -2650,6 +2771,8 @@ def main() -> int:
                         "shape": shape})
         if name in CUDA_KERNEL:
             entries[-1]["kernel"] = CUDA_KERNEL[name]
+        if "old_path_ms" in r:
+            entries[-1]["old_path_ms"] = r["old_path_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "attention": att, "e2e_rel_err": e2e,

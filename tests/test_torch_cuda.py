@@ -411,6 +411,89 @@ def test_pool_write_matches_plain(gen, P):
     assert torch.equal(pool, ref)
 
 
+def _rope_case(gen, B, paged, P=256, T=1024, L=3):
+    """The decode step's inputs at 6B's heads (G = 2, Hg = 16, D = 128): q,
+    the kv row as a view with a row stride (kv_proj's output row of a wider
+    buffer), the freqs rows of positions 5 .. 2048, and a cache (L, B, G, T,
+    D) or a pool (L, NP, G, P, D) of 4 pages a row with its table."""
+    G, Hg, D = 2, 16, 128
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    wide = torch.randn((B, 2 * G * D + 64), device="cuda", generator=gen).to(torch.bfloat16)
+    kv = wide[:, : 2 * G * D]
+    pos = torch.tensor([5, 700, 1500, 2048][:B], device="cuda")
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+
+    table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", torch.bfloat16)
+    freqs = table[pos]
+    if not paged:
+        k, v = (torch.randn((L, B, G, T, D), device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        return q, kv, freqs, k, v, None, T
+    MP = 4
+    NP = B * MP + 1
+    k, v = _paged_pool(gen, L, NP, G, P)
+    return q, kv, freqs, k, v, _scattered_table(gen, B, MP, NP), MP * P
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+def test_rope_kv_append_is_bit_equal_to_plain(gen, B, paged):
+    """B3 / B9 fused with the RoPE of q and k: the rotated q, the cache or
+    pool bit-equal to the plain sequence (two apply_rotary_emb, two plain
+    writes), with the kv row strided and starts in the middle, at the wall
+    and past the capacity; one launch counted."""
+    q, kv, freqs, k, v, pt, cap = _rope_case(gen, B, paged)
+    assert kv.stride(0) != kv.shape[1]
+    starts = torch.tensor([7, cap - 1, cap, cap + 300][:B], dtype=torch.int32, device="cuda")
+    for st in (starts, torch.full_like(starts, cap + 9)):
+        kr, vr = k.clone(), v.clone()
+        before = A.rope_kv_append.launches
+        got = A.rope_kv_append(q, kv, freqs, k, v, 2, st, pt)
+        want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 2, st, pt)
+        torch.cuda.synchronize()
+        assert A.rope_kv_append.launches == before + 1
+        assert got.shape == (B, 2, 16, 128) and torch.equal(got, want)
+        assert torch.equal(k, kr) and torch.equal(v, vr)
+
+
+def test_rope_kv_append_replays_in_a_graph(gen):
+    """One launch captured in a CUDA graph (no host sync, no allocation in
+    the launch, no state between launches), replayed on new inputs copied
+    into the captured tensors: each replay bit-equal to the plain sequence."""
+    B = 4
+    q, kv, freqs, k, v, pt, cap = _rope_case(gen, B, True)
+    starts = torch.tensor([3, 300, 700, cap + 5], dtype=torch.int32, device="cuda")
+    A.rope_kv_append(q, kv, freqs, k, v, 1, starts, pt)  # warm-up (build, load)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.rope_kv_append(q, kv, freqs, k, v, 1, starts, pt)
+    for step in range(2):
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        kv.copy_(torch.randn(kv.shape, device="cuda", generator=gen))
+        starts.add_(1)
+        kr, vr = k.clone(), v.clone()
+        graph.replay()
+        want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 1, starts, pt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(k, kr) and torch.equal(v, vr), step
+
+
+def test_rope_kv_append_rejects_what_it_cannot_take(gen):
+    q, kv, freqs, k, v, _, _ = _rope_case(gen, 2, False, T=64)
+    starts = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        A.rope_kv_append(q.float(), kv, freqs, k, v, 0, starts)
+    narrow = [t[..., :64].contiguous() for t in (q, freqs, k, v)]
+    with pytest.raises(ValueError):  # D != 128
+        A.rope_kv_append(narrow[0], kv[:, :256].contiguous(), *narrow[1:], 0, starts)
+    with pytest.raises(ValueError):  # a layer the cache does not have
+        A.rope_kv_append(q, kv, freqs, k, v, 3, starts)
+    buf = torch.empty((q.numel() + 8,), dtype=q.dtype, device="cuda")
+    with pytest.raises(ValueError):  # q not on a 16-byte boundary
+        A.rope_kv_append(buf[1:1 + q.numel()].view(q.shape), kv, freqs, k, v, 0, starts)
+
+
 # (P, MP): capacities of about 1024 rows, so rows past DECODE_SOLO_ROWS span
 # several blocks; P = 16 (the CPU tests' size, four pages a tile), 96 (no
 # multiple of the 64-row tile: tiles straddle pages) and 256 (the engines')
