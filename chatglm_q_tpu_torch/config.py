@@ -127,10 +127,21 @@ class TorchRuntimeConfig:
         its activations: training memory drops from O(layers) to O(1)
         layers for one more forward (chatglm_q_tpu/config.py:180).
 
+    mesh: a ``parallel.sharding.Mesh``: the model runs tensor parallel
+        over its ranks (chatglm_q_tpu/config.py:149-188), each rank a
+        process holding its shard of the params (``shard_params``) and of
+        the cache.  Under a mesh the serving paths take the flash
+        structure (the kernels, or their plain versions on the CPU) and
+        every linear runs per shard (parallel/tp_linear.py).
+    kv_shard_t: the dense cache splits its T slots over the model axis:
+        prefill through ring attention, decode through K1 and an exact
+        merge (``ops/attention.py::flash_attention_decode_kv_tsharded``).
+    paged_shard_model: the paged pool splits its pages over the model axis
+        by logical-block phase (``DistributedPagedServingEngine(
+        shard_model_pages=True)`` sets it): decode through K2 and the merge.
     The JAX package's block sizes (attn_block_q/k, decode_block_k) have no
     counterpart: the CUDA kernels' tiles are compile-time constants in
-    csrc/, and the TPU-only knobs (mesh, sharding, sync_prefill_chunks,
-    tp_pallas) belong to later slices or to the TPU alone.
+    csrc/, and ``sync_prefill_chunks`` belongs to the TPU alone.
     """
 
     use_kernels: Optional[bool] = None
@@ -138,6 +149,9 @@ class TorchRuntimeConfig:
     dynamic_int8: bool = False
     decode_attn_v2: bool = False
     remat_layers: bool = False
+    mesh: object = None  # Optional[parallel.sharding.Mesh]
+    kv_shard_t: bool = False
+    paged_shard_model: bool = False
 
     def kernels_enabled(self, device: torch.device) -> bool:
         if self.use_kernels is not None:
@@ -145,6 +159,8 @@ class TorchRuntimeConfig:
         return torch.device(device).type == "cuda"
 
     def flash_enabled(self, device: torch.device) -> bool:
+        if self.mesh is not None:
+            return True
         if self.use_flash_attention is not None:
             return self.use_flash_attention
         return self.kernels_enabled(device)

@@ -29,7 +29,10 @@
 // version (an f32 rotation rounded once differs in ~14% of elements).  The
 // table's bypass half (1, 0) goes through the same arithmetic.  kRope = false
 // is the write-only form behind the bare B3 / B9 API: one (B, G, D) source
-// into the slot, no rotation, no q.
+// into the slot, no rotation, no q.  On a sharded cache (K3) the view says
+// whether it holds the clamped global position (DenseKV's T-shard, PagedKV's
+// phase of a strided table); a row whose slot another rank holds only has
+// its q rotated (q may hold a rank's heads only).
 //
 // Where K/V rows live (DenseKV, PagedKV below): the decode and prefill bodies,
 // and the KV append, are each one template over the addressing of the rows
@@ -47,8 +50,15 @@
 // (B4: flash_attention_decode / _idx), decode_attn_kernel<true, DenseKV>
 // replaces :_decode_v2_kernel (B12: flash_attention_decode_v2, the
 // decode_attn_v2 option), decode_attn_kernel<true, PagedKV> replaces
-// :_decode_paged_kernel (B10: flash_attention_decode_paged, stride 1 / phase
-// 0).  Bound by bytes in principle (each valid K/V row read once, ~4
+// :_decode_paged_kernel (B10: flash_attention_decode_paged).  The forms
+// tensor-parallel serving runs: kLse = true writes the merged (m, l) of
+// each (b, g, head) beside the output (the block that writes the output
+// writes them: block 0 of a one-span row, else the merging block), for K1
+// (B4's return_lse form, the view a T-shard: DenseKV's offset) and K2
+// (B10's stride / phase / return_lse form: PagedKV's strided table); the
+// views' valid() turns lengths[b] + 1 into the rows of the view that hold
+// slots 0..lengths[b], a prefix of the view, so the body is unchanged.
+// Bound by bytes in principle (each valid K/V row read once, ~4
 // operations per byte); at batch 1-4 those bytes take under a microsecond
 // at the HBM rate, so what bounds it is latency: how many SMs share the
 // reads and the chain of dependent steps in one block.  One (b, g) on the
@@ -137,17 +147,28 @@ constexpr int DA_SOLO_ROWS = 256;     // decode: a (b, g) with at most this many
 constexpr int PF_WARPS = 8;           // prefill: 16 folded query rows per warp
 constexpr int PF_ROWS = PF_WARPS * 16, PF_THREADS = PF_WARPS * 32;
 
-// The dense cache: the (Bk, G, T, D) layer view.
+// The dense cache: the (Bk, G, T, D) layer view.  A T-shard of a cache of
+// `total` slots (kv_shard_t) holds global slots offset .. offset + T - 1;
+// the whole cache is offset 0, total T.
 struct DenseKV {
   const bf16* k;
   const bf16* v;
-  int G, T;
+  int G, T, offset, total;
   struct Slab {  // the T rows of one (row, group)
     const bf16* k;
     const bf16* v;
     __device__ __forceinline__ size_t row(int pos) const { return (size_t)pos * ATT_D; }
   };
   __device__ __forceinline__ int capacity() const { return T; }
+  // local rows holding the global slots 0 .. n - 1: a prefix of the view
+  __device__ __forceinline__ int valid(int n) const { return min(max(n - offset, 0), T); }
+  // the global write position's clamp (JAX's dynamic_update_slice), and the
+  // local row of global slot pos where this view holds it
+  __device__ __forceinline__ int clamp_pos(int pos) const { return min(max(pos, 0), total - 1); }
+  __device__ __forceinline__ bool owns(int pos, int& t) const {
+    t = pos - offset;
+    return t >= 0 && t < T;
+  }
   __device__ __forceinline__ Slab slab(int r, int g) const {
     const size_t base = ((size_t)r * G + g) * T * ATT_D;
     return {k + base, v + base};
@@ -155,12 +176,16 @@ struct DenseKV {
 };
 
 // The paged pool: the (NP, G, P, D) view of one layer, read through a
-// (rows, MP) page table.
+// (rows, MP) page table.  A model-sharded pool's strided view (stride tp,
+// phase = the model rank) maps table column i to logical block i * stride +
+// phase of a row of `total` logical positions; the whole pool is stride 1,
+// phase 0, total MP * P.  Local positions (column i, row t % P at i * P +
+// t % P) are what Slab::row reads.
 struct PagedKV {
   const bf16* k;
   const bf16* v;
   const int* page_table;
-  int G, P, MP;
+  int G, P, MP, stride, phase, total;
   struct Slab {  // the MP * P positions of one (table row, group)
     const bf16* k;
     const bf16* v;
@@ -172,6 +197,22 @@ struct PagedKV {
     }
   };
   __device__ __forceinline__ int capacity() const { return MP * P; }
+  // local positions holding logical positions 0 .. n - 1, a prefix of the
+  // view: the columns whose logical block starts below n (at most MP,
+  // JAX's n_pages clamp), the last one up to n
+  __device__ __forceinline__ int valid(int n) const {
+    const int blocks = (n + P - 1) / P;  // logical blocks touched (n > 0)
+    if (n <= 0 || blocks <= phase) return 0;
+    const int cols = min((blocks - phase + stride - 1) / stride, MP);
+    const int last = (cols - 1) * stride + phase;  // its logical block
+    return (cols - 1) * P + min(P, n - last * P);
+  }
+  __device__ __forceinline__ int clamp_pos(int pos) const { return min(max(pos, 0), total - 1); }
+  __device__ __forceinline__ bool owns(int pos, int& t) const {
+    const int blk = pos / P, col = blk / stride;
+    t = col * P + (pos - blk * P);
+    return blk - col * stride == phase && col < MP;
+  }
   __device__ __forceinline__ Slab slab(int r, int g) const {
     return {k, v, page_table + (size_t)r * MP, G, g, P};
   }
@@ -214,7 +255,10 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
                                       const int* __restrict__ starts, int nq, int nkv) {
   const int b = blockIdx.x;
   const bf16* f_row = freqs + (size_t)b * ATT_D;
-  const int pos = min(max(starts[b], 0), cache.capacity() - 1);  // B3's / B9's clamp
+  // B3's / B9's clamp of the global position, then its row in this view:
+  // a shard that does not hold the slot rotates q and writes nothing
+  int pos;
+  const bool own = cache.owns(cache.clamp_pos(starts[b]), pos);
   for (int i = threadIdx.x; i < nq + (kRope ? 2 : 1) * nkv; i += blockDim.x) {
     if (i < nq) {
       const int e = i * VEC;
@@ -223,6 +267,7 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
       *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * VEC + e) = rope8(x, f);
       continue;
     }
+    if (!own) break;  // block-uniform: the q vectors come first
     const int j = i - nq;  // vector j of the kv row
     const bool is_k = j < nkv;
     const int e = (is_k ? j : j - nkv) * VEC;  // element of k (or v): group e / D, lane e % D
@@ -234,11 +279,12 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
   }
 }
 
+// Hq: the q heads of a row (G * Hg; a rank's heads under tensor parallelism)
 template <class KV, bool kRope>
 int launch_append(const bf16* q, bf16* q_out, const bf16* kv, int kv_stride,
-                  const bf16* freqs, const KV& cache, const int* starts, int B, int G, int Hg,
+                  const bf16* freqs, const KV& cache, const int* starts, int B, int G, int Hq,
                   cudaStream_t stream) {
-  const int nq = kRope ? G * Hg * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
+  const int nq = kRope ? Hq * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
   const int n = nq + (kRope ? 2 : 1) * nkv;
   const int threads = n < 1024 ? (n + 31) / 32 * 32 : 1024;
   rope_kv_append_kernel<KV, kRope><<<B, threads, 0, stream>>>(q, q_out, kv, kv_stride, freqs,
@@ -408,11 +454,12 @@ static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem), "merge state fits t
 // part: (B*G, nspan, Hg, D) f32 unnormalised acc, then (B*G, nspan, Hg, 2)
 // f32 (m, l), or null when no (b, g) has two spans; arrivals: B*G int32
 // counters, 0 between launches.
-template <bool kV2, class KV>
+template <bool kV2, class KV, bool kLse>
 __global__ void __launch_bounds__(DA_THREADS)
 decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
-                   bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ arrivals,
-                   int G, int Hg, int span, int nspan, float sm_scale) {
+                   bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                   float* __restrict__ part, int* __restrict__ arrivals, int G, int Hg, int span,
+                   int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DecodeSmem& sm = *reinterpret_cast<DecodeSmem*>(smem_raw);
   __shared__ bool merge_here;
@@ -429,14 +476,20 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
     const int i = tid + j * DA_THREADS, h = i / (ATT_D / 8);
     qv[j] = h < Hg ? *reinterpret_cast<const uint4*>(qb + i * 8) : make_uint4(0u, 0u, 0u, 0u);
   }
-  // slots 0..lengths[b] inclusive, clamped to the capacity (T, or MP * P)
-  const int n_valid = min(lengths[b] + 1, kv.capacity());
+  // slots 0..lengths[b] inclusive that this view holds: a prefix of its
+  // rows, clamped to its capacity (T, or MP * P)
+  const int n_valid = kv.valid(lengths[b] + 1);
   if (n_valid <= DA_SOLO_ROWS) span = max(span, (n_valid + KV_TK - 1) / KV_TK * KV_TK);
   const int ran = n_valid > 0 ? (n_valid + span - 1) / span : 0;  // spans with rows
   bf16* ob = out + (size_t)bg * Hg * ATT_D;
   if (ran == 0) {  // no valid slot: 0, as the TPU kernels' l == 0 guard gives
-    if (sp == 0)
+    if (sp == 0) {
       for (int i = tid; i < Hg * ATT_D; i += DA_THREADS) ob[i] = from_f32<bf16>(0.f);
+      if (kLse && tid < Hg) {  // and (m, l) = (-inf, 0): its merge weight is 0
+        m_out[(size_t)bg * Hg + tid] = -INFINITY;
+        l_out[(size_t)bg * Hg + tid] = 0.f;
+      }
+    }
     return;
   }
   if (sp >= ran) return;  // O(length): spans past the row read nothing
@@ -522,6 +575,10 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
     }
     if (ran == 1) {
       ob[i] = from_f32<bf16>(a / l);
+      if (kLse && d == 0) {  // the scaled scores' natural-log max and the sum under it
+        m_out[(size_t)bg * Hg + h] = mx;
+        l_out[(size_t)bg * Hg + h] = l;
+      }
     } else {
       pacc[i] = a;
       if (d == 0) {
@@ -559,6 +616,10 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
       l = fmaf(sml[s * Hg + tid].y, wt, l);
     }
     lsum[tid] = l;
+    if (kLse) {
+      m_out[(size_t)bg * Hg + tid] = mx;
+      l_out[(size_t)bg * Hg + tid] = l;
+    }
   }
   __syncthreads();
   // each thread's float4 slots of the (Hg, D) output, loaded MB spans at a
@@ -610,17 +671,29 @@ bool decode_args_ok(int D, int Hg, int T, int span) {
          nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem);
 }
 
-template <bool kV2, class KV>
-int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
-                  bf16* out, int B, int G, int Hg, int T, int span, float sm_scale,
-                  cudaStream_t stream) {
+template <bool kV2, class KV, bool kLse>
+int launch_decode_as(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
+                     bf16* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
+                     float sm_scale, cudaStream_t stream) {
   const int smem = (int)sizeof(DecodeSmem);
-  const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV>>(smem);
+  const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV, kLse>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int nspan = (T + span - 1) / span;
-  decode_attn_kernel<kV2, KV><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
-      q, kv, lengths, out, part, arrivals, G, Hg, span, nspan, sm_scale);
+  decode_attn_kernel<kV2, KV, kLse><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
+      q, kv, lengths, out, m_out, l_out, part, arrivals, G, Hg, span, nspan, sm_scale);
   return (int)cudaGetLastError();
+}
+
+// the (m, l) form where m_out and l_out are given (K1, K2), else the output only
+template <bool kV2, class KV>
+int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
+                  bf16* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
+                  float sm_scale, cudaStream_t stream) {
+  if (m_out && l_out)
+    return launch_decode_as<kV2, KV, true>(q, kv, lengths, part, arrivals, out, m_out, l_out, B,
+                                           G, Hg, T, span, sm_scale, stream);
+  return launch_decode_as<kV2, KV, false>(q, kv, lengths, part, arrivals, out, nullptr, nullptr,
+                                          B, G, Hg, T, span, sm_scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -856,17 +929,24 @@ int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q
 
 extern "C" {
 
-// B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, G, Hg,
-// D) contiguous; kv (B, 2*G*D), k then v, rows kv_stride elements apart;
-// freqs (B, D); k_layer, v_layer the (B, G, T, D) views of one cache layer
-// when page_table is null, else the (NP, G, P, D) views of one pool layer,
-// read through page_table (B, MP), with T = P; starts (B,) int32.  All bf16,
-// 16-byte aligned (kv_stride a multiple of 8), D == 128.
+// B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, Hq, D)
+// contiguous (Hq = G * Hg, or a rank's heads); kv (B, 2*G*D), k then v,
+// rows kv_stride elements apart; freqs (B, D); k_layer, v_layer the (B, G,
+// T, D) views of one cache layer when page_table is null, else the (NP, G,
+// P, D) views of one pool layer, read through page_table (B, MP), with T =
+// P; starts (B,) int32.  All bf16,
+// 16-byte aligned (kv_stride a multiple of 8), D == 128.  A sharded cache
+// (K3): the dense view holds global slots offset .. offset + T - 1, the
+// paged view's column i logical block i * stride + phase; total is the
+// global capacity the position clamps to (0: the view's own, unsharded:
+// offset 0, stride 1, phase 0).  A row whose slot another shard holds only
+// has its q rotated.
 int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_stride,
                            const void* freqs, void* k_layer, void* v_layer, const void* page_table,
-                           const void* starts, int B, int G, int Hg, int D, int T, int MP,
-                           void* stream) {
-  if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC)
+                           const void* starts, int B, int G, int Hq, int D, int T, int MP,
+                           int offset, int stride, int phase, int total, void* stream) {
+  if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC || offset < 0 ||
+      stride < 1 || phase < 0 || phase >= stride || total < 0)
     return (int)cudaErrorInvalidValue;
   const bf16 *qb = static_cast<const bf16*>(q), *kvb = static_cast<const bf16*>(kv),
              *fb = static_cast<const bf16*>(freqs), *kl = static_cast<const bf16*>(k_layer),
@@ -874,11 +954,13 @@ int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_st
   const int* st = static_cast<const int*>(starts);
   bf16* qo = static_cast<bf16*>(q_out);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!page_table)
-    return launch_append<DenseKV, true>(qb, qo, kvb, kv_stride, fb, DenseKV{kl, vl, G, T}, st, B,
-                                        G, Hg, s);
-  const PagedKV pool{kl, vl, static_cast<const int*>(page_table), G, T, MP};
-  return launch_append<PagedKV, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hg, s);
+  if (!page_table) {
+    const DenseKV cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};
+    return launch_append<DenseKV, true>(qb, qo, kvb, kv_stride, fb, cache, st, B, G, Hq, s);
+  }
+  const PagedKV pool{kl, vl, static_cast<const int*>(page_table), G, T, MP, stride, phase,
+                     total > 0 ? total : MP * T};
+  return launch_append<PagedKV, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hq, s);
 }
 
 // The write-only form (kv_cache_write_idx, kv_pool_write_idx): src (B, G, D)
@@ -891,8 +973,8 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (!page_table)
     return launch_append<DenseKV, false>(nullptr, nullptr, sb, G * D, nullptr,
-                                         DenseKV{dst, dst, G, T}, st, B, G, 0, s);
-  const PagedKV pool{dst, dst, static_cast<const int*>(page_table), G, T, MP};
+                                         DenseKV{dst, dst, G, T, 0, T}, st, B, G, 0, s);
+  const PagedKV pool{dst, dst, static_cast<const int*>(page_table), G, T, MP, 1, 0, MP * T};
   return launch_append<PagedKV, false>(nullptr, nullptr, sb, G * D, nullptr, pool, st, B, G, 0, s);
 }
 
@@ -901,16 +983,24 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
 // part holds B*G*ceil(T/span)*Hg*(D+2) floats, and may be null when no
 // (b, g) can have more than one span (ceil(T/span) == 1 or T <= 256);
 // arrivals B*G int32 zeros (left zero).  All bf16; D == 128, Hg <= 16, span
-// a multiple of 64.
+// a multiple of 64.  K1 (B4's return_lse form): m_out and l_out (B, G, Hg)
+// f32 receive the online softmax's max of the scaled scores (natural log)
+// and its sum (-inf and 0 for a (b, g) with no valid row), or are null;
+// the view holds global slots offset .. offset + T - 1 of a T-sharded cache
+// (0: the whole cache).
 int chatglm_decode_attention(const void* q, const void* k, const void* v, const void* lengths,
                              void* part, void* arrivals, void* out, int B, int G, int Hg, int T,
-                             int D, int span, int v2, float sm_scale, void* stream) {
-  if (!decode_args_ok(D, Hg, T, span)) return (int)cudaErrorInvalidValue;
-  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T};
+                             int D, int span, int v2, float sm_scale, void* m_out, void* l_out,
+                             int offset, void* stream) {
+  if (!decode_args_ok(D, Hg, T, span) || offset < 0 || !m_out != !l_out)
+    return (int)cudaErrorInvalidValue;
+  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T, offset,
+                   offset + T};
   auto launch = v2 ? launch_decode<true, DenseKV> : launch_decode<false, DenseKV>;
   return launch(static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-                static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out), B,
-                G, Hg, T, span, sm_scale, reinterpret_cast<cudaStream_t>(stream));
+                static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
+                static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, T, span,
+                sm_scale, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // q, out (B, S, G, Hg, D); k, v (Bk, G, T, D) layer views; lengths (B,)
@@ -921,7 +1011,7 @@ int chatglm_prefill_attention(const void* q, const void* k, const void* v, const
                               int S, int G, int Hg, int T, int D, float sm_scale,
                               void* stream) {
   if (D != ATT_D || Hg > 64) return (int)cudaErrorInvalidValue;
-  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T};
+  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T, 0, T};
   const int span = (T + KV_TK - 1) / KV_TK * KV_TK;  // one span: every row reads in one block
   return launch_prefill<DenseKV, false>(
       static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
@@ -933,16 +1023,23 @@ int chatglm_prefill_attention(const void* q, const void* k, const void* v, const
 // B10.  q, out (B, G, Hg, D); k, v (NP, G, P, D) pool layer views;
 // page_table (B, MP) and lengths (B,) int32 = the cache length before this
 // token; part and arrivals as chatglm_decode_attention's with T = MP * P.
-// All bf16; D == 128, Hg <= 16, span a multiple of 64.
+// All bf16; D == 128, Hg <= 16, span a multiple of 64.  K2 (B10's strided
+// return_lse form): table column i holds logical block i * stride + phase,
+// and m_out, l_out as chatglm_decode_attention's (or null; stride 1, phase
+// 0: the whole row).
 int chatglm_decode_paged(const void* q, const void* k, const void* v, const void* page_table,
                          const void* lengths, void* part, void* arrivals, void* out, int B, int G,
-                         int Hg, int P, int D, int MP, int span, float sm_scale, void* stream) {
-  if (P < 1 || MP < 1 || !decode_args_ok(D, Hg, MP * P, span)) return (int)cudaErrorInvalidValue;
+                         int Hg, int P, int D, int MP, int span, float sm_scale, void* m_out,
+                         void* l_out, int stride, int phase, void* stream) {
+  if (P < 1 || MP < 1 || !decode_args_ok(D, Hg, MP * P, span) || stride < 1 || phase < 0 ||
+      phase >= stride || !m_out != !l_out)
+    return (int)cudaErrorInvalidValue;
   const PagedKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                   static_cast<const int*>(page_table), G, P, MP};
+                   static_cast<const int*>(page_table), G, P, MP, stride, phase, MP * P * stride};
   return launch_decode<true, PagedKV>(
       static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths), static_cast<float*>(part),
-      static_cast<int*>(arrivals), static_cast<bf16*>(out), B, G, Hg, MP * P, span, sm_scale,
+      static_cast<int*>(arrivals), static_cast<bf16*>(out), static_cast<float*>(m_out),
+      static_cast<float*>(l_out), B, G, Hg, MP * P, span, sm_scale,
       reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -962,7 +1059,7 @@ int chatglm_chunk_paged(const void* q, const void* k, const void* v, const void*
       (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem))
     return (int)cudaErrorInvalidValue;
   const PagedKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                   static_cast<const int*>(page_table), G, P, MP};
+                   static_cast<const int*>(page_table), G, P, MP, 1, 0, MP * P};
   return launch_prefill<PagedKV, true>(
       static_cast<const bf16*>(q), kv, nullptr, static_cast<const int*>(starts),
       static_cast<const int*>(row_map), static_cast<bf16*>(out), static_cast<float*>(part),

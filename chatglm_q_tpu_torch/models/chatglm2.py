@@ -25,6 +25,16 @@ Unlike the JAX package (pure functions), the cache tensors are updated in
 place: a step writes a few slots, never a whole new cache.  The paged pool
 (models/paged_kv.py) goes through the same ``block_forward``.
 
+Under ``rt.mesh`` (tensor-parallel serving) ``block_forward`` runs each
+linear per shard (parallel/tp_linear.py) and its attention on the rank's
+part of the cache (``_mesh_attention``; the paged pool's in
+``paged_kv.mesh_paged_attention``): q_proj gives the rank its heads,
+kv_proj every group; a T-sharded cache (``kv_shard_t``) prefills through
+ring attention and decodes all heads over the rank's slots (q
+all-gathered, K1, the merge); the head-sharded one attends the rank's
+heads against its groups; the vocab-split logits are all-gathered before
+sampling.  The parity forward takes no mesh.
+
 Parity mode (``forward``, JAX :530-672) keeps the reference's semantics: an
 additive −1e10 mask (causal ∨ padding) with cumsum positions, keys
 (B, T, G, D) of this call and of ``past_key_values``, train-mode dropout
@@ -49,6 +59,9 @@ from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
 from ..ops.linear import quant_embedding_lookup, quant_linear
 from ..ops.sampling import greedy_sampling, top_p_sampling
+from ..parallel import ring_attention as RA
+from ..parallel import sharding as SH
+from ..parallel.tp_linear import tp_quant_linear
 
 MASK_VALUE = -1e10  # additive mask of the masked-softmax path (reference model.py:314)
 
@@ -193,12 +206,14 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     kernels = rt.kernels_enabled(x.device)
 
     h = rms_norm(x, layer_params["attn_ln"]["weight"], config.layernorm_epsilon)
-    q = quant_linear(h, layer_params["q_proj"], quant_type, rt)
-    kv = quant_linear(h, layer_params["kv_proj"], quant_type, rt)
+    q = _linear(h, layer_params["q_proj"], quant_type, rt, "col")
+    kv = _linear(h, layer_params["kv_proj"], quant_type, rt, "rep")
 
     sm_scale = 1.0 / math.sqrt(D)
     kv_out = None
-    if isinstance(attn, tuple) and attn[0] == "flash_decode":
+    if rt.mesh is not None:
+        ctx = _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_scale)
+    elif isinstance(attn, tuple) and attn[0] == "flash_decode":
         # one token a row: RoPE and the K/V write in one op, then attend
         qd, kvd, fd = q.reshape(B, G, Hg, D), kv[:, 0], freqs_cis[:, 0]
         if isinstance(kv_write, PK.PagedWrite):
@@ -224,17 +239,155 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
         else:
             ctx = _dense_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
                                    kernels, sm_scale)
-    ctx = ctx.reshape(B, S, G * Hg * D)
+    ctx = ctx.reshape(B, S, -1)  # every head, or under a mesh the rank's
 
-    x = x + quant_linear(ctx, layer_params["o_proj"], quant_type, rt)
+    x = x + _linear(ctx, layer_params["o_proj"], quant_type, rt, "row")
     h2 = rms_norm(x, layer_params["ffn_ln"]["weight"], config.layernorm_epsilon)
-    gate_in = quant_linear(h2, layer_params["w_in_h"], quant_type, rt)
-    gate = quant_linear(h2, layer_params["w_in_gate"], quant_type, rt)
+    gate_in = _linear(h2, layer_params["w_in_h"], quant_type, rt, "col")
+    gate = _linear(h2, layer_params["w_in_gate"], quant_type, rt, "col")
     act = F.silu(gate_in) * gate
     if dropout is not None:
         act = _dropout(act, *dropout)
-    x = x + quant_linear(act, layer_params["w_out"], quant_type, rt)
+    x = x + _linear(act, layer_params["w_out"], quant_type, rt, "row")
     return x if kv_write is not None else (x, kv_out)
+
+
+def _linear(x, params, quant_type, rt, tp_mode):
+    """A linear, run per shard in ``tp_mode`` under a mesh
+    (parallel/tp_linear.py), else whole."""
+    if rt.mesh is None:
+        return quant_linear(x, params, quant_type, rt)
+    return tp_quant_linear(x, params, quant_type, rt, tp_mode)
+
+
+def lm_head_logits(h, params, config, quant_type, rt):
+    """The lm_head's logits (..., vocab_size); under a mesh each rank's
+    vocab columns, all-gathered before sampling."""
+    y = _linear(h, params["lm_head"], quant_type, rt, "col")
+    if rt.mesh is not None:
+        y = rt.mesh.all_gather(y, "model")  # (tp, ..., V / tp)
+        y = y.movedim(0, -2).reshape(*y.shape[1:-1], -1)
+    return y[..., : config.vocab_size]
+
+
+# ---------------------------------------------------------------------------
+# Attention under a mesh (tensor-parallel serving)
+# ---------------------------------------------------------------------------
+
+def gather_heads(mesh, q_local):
+    """Every rank's heads (B, Gl, Hgl, D) → (B, G, Hg, D) on every rank:
+    rank m's heads are m·Hl .. of the flattened (group, head) order."""
+    B, D = q_local.shape[0], q_local.shape[-1]
+    parts = mesh.all_gather(q_local.reshape(B, -1, D), "model")  # (tp, B, Hl, D)
+    return parts.transpose(0, 1).reshape(B, -1, D)
+
+
+def own_heads(mesh, ctx):
+    """The rank's heads' columns of every head's output (B, ..., nH·D)."""
+    ctx = ctx.reshape(ctx.shape[0], -1)
+    width = ctx.shape[1] // mesh.n_model
+    return ctx[:, mesh.model_index * width:(mesh.model_index + 1) * width]
+
+
+def local_kv_row(kv, g0: int, Gl: int, G: int, D: int):
+    """The rank's KV groups of a decode token's kv row (B, 2·G·D), k then v
+    (a copy: the append kernel reads k and v as one row)."""
+    return torch.cat([kv[:, g0 * D:(g0 + Gl) * D], kv[:, (G + g0) * D:(G + g0 + Gl) * D]],
+                     dim=1)
+
+
+def write_rows_sharded(cache_layer, new, start, shard: "A.KVShard", rows=None) -> None:
+    """``write_rows`` on a T-shard (Bc, G, T_local, D) of a cache of
+    ``shard.total`` slots: the start clamps to [0, total − S] as on one
+    device, and only the positions this shard holds are written."""
+    B, G, S, D = new.shape
+    dev = cache_layer.device
+    pos = start.to(dev).long().clamp(0, shard.total - S)[:, None] + torch.arange(S, device=dev)
+    t = pos - shard.offset
+    b, s = ((t >= 0) & (t < cache_layer.shape[2])).nonzero(as_tuple=True)
+    r = b if rows is None else rows.to(dev).long()[b]
+    cache_layer[r, :, t[b, s]] = new[b, :, s].to(cache_layer.dtype)
+
+
+def gather_t_shards(mesh, cache_layer):
+    """The whole (Bc, G, T, D) layer of a T-sharded cache on every rank."""
+    parts = mesh.all_gather(cache_layer, "model")  # (tp, Bc, G, T_local, D)
+    return parts.permute(1, 2, 0, 3, 4).reshape(*cache_layer.shape[:2], -1,
+                                                  cache_layer.shape[3])
+
+
+def _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_scale):
+    """``block_forward``'s attention on one rank: q (B, S, Hl·D) its heads, kv
+    (B, S, 2·G·D) every group's (kv_proj is whole on every rank).  Returns
+    the rank's heads' output (B, S, Hl, D)."""
+    from . import paged_kv as PK
+
+    mesh = rt.mesh
+    B, S = q.shape[:2]
+    G, D = config.num_multi_query_groups, config.head_hidden_size
+    g0, Gl, Hgl = SH.head_split(config, mesh.n_model, mesh.model_index)
+    if not isinstance(attn, tuple):
+        raise ValueError("under a mesh the serving paths take the flash structure")
+    if isinstance(kv_write, PK.PagedWrite):
+        return PK.mesh_paged_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels,
+                                       sm_scale)
+    ck, cv, layer, start, *rest = kv_write
+    slot_map = rest[0] if rest else None
+    tp, T_loc = mesh.n_model, ck.shape[3]
+    shard = A.KVShard(offset=mesh.model_index * T_loc, total=T_loc * tp)
+    kind, lengths = attn
+    if kind == "flash_decode":
+        qd, kvd, fd = q.reshape(B, Gl, Hgl, D), kv[:, 0], freqs_cis[:, 0]
+        if rt.kv_shard_t:
+            append = A.rope_kv_append_sharded if kernels else A.rope_kv_append_sharded_plain
+            q_all = gather_heads(mesh, append(qd, kvd, fd, ck, cv, layer, start, shard))
+            ctx = A.flash_attention_decode_kv_tsharded(
+                q_all.reshape(B, G, -1, D), ck[layer], cv[layer], lengths, sm_scale, mesh,
+                kernels)
+            return own_heads(mesh, ctx)
+        append = A.rope_kv_append if kernels else A.rope_kv_append_plain
+        qd = append(qd, local_kv_row(kvd, g0, Gl, G, D), fd, ck, cv, layer, start)
+        decode = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
+        return decode(qd, ck[layer], cv[layer], lengths, sm_scale)
+
+    k, v = kv.split(config.kv_size, dim=-1)
+    f = freqs_cis[:, :, None, None, :]
+    q = A.apply_rotary_emb(q.reshape(B, S, Gl, Hgl, D), f)
+    k = A.apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
+    v = v.reshape(B, S, G, D)
+    kw, vw = k.transpose(1, 2), v.transpose(1, 2)  # (B, G, S, D)
+    own = slice(g0, g0 + Gl)
+    if rt.kv_shard_t:
+        if start is None:  # a prefill: slots 0 .. S - 1
+            start = torch.zeros((B,), dtype=torch.int32, device=q.device)
+        write_rows_sharded(ck[layer], kw, start, shard, slot_map)
+        write_rows_sharded(cv[layer], vw, start, shard, slot_map)
+    elif start is None:
+        ck[layer, :, :, :S] = kw[:, own].to(ck.dtype)
+        cv[layer, :, :, :S] = vw[:, own].to(cv.dtype)
+    else:
+        write_rows(ck[layer], kw[:, own], start, slot_map)
+        write_rows(cv[layer], vw[:, own], start, slot_map)
+
+    if kind == "flash_prefill" and rt.kv_shard_t:
+        # the ring over the prompt's sequence shards: rank m's queries (its
+        # heads, every position) against each shard of K and V in turn
+        if S % tp:
+            raise ValueError(f"ring prefill: {S} positions do not split over tp = {tp}")
+        S_loc = S // tp
+        mine = slice(mesh.model_index * S_loc, (mesh.model_index + 1) * S_loc)
+        return RA.ring_attention_local(q, torch.arange(S, device=q.device), k[:, mine],
+                                       v[:, mine], lengths, mesh, sm_scale, kv_groups=own)
+    prefill = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+    if kind == "flash_prefill":
+        return prefill(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype), lengths, sm_scale)
+    lengths, starts, row_map = lengths  # "flash_prefill_chunk"
+    if rt.kv_shard_t:  # the whole cache layer of the rank's groups
+        kc = gather_t_shards(mesh, ck[layer])[:, own].contiguous().to(q.dtype)
+        vc = gather_t_shards(mesh, cv[layer])[:, own].contiguous().to(q.dtype)
+    else:
+        kc, vc = ck[layer].to(q.dtype), cv[layer].to(q.dtype)
+    return prefill(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
 
 
 def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
@@ -447,7 +600,7 @@ def prefill(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
     h = _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache, None)
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
     last = h[torch.arange(B, device=dev), (lengths - 1).long()]
-    logits = quant_linear(last, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    logits = lm_head_logits(last, params, config, quant_type, rt)
     return logits, KVCache(cache.k, cache.v, lengths)
 
 
@@ -493,7 +646,7 @@ def prefill_chunk(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
     if not return_all_logits:
         h = h[torch.arange(B, device=dev), (chunk_valid - 1).long()]
-    logits = quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    logits = lm_head_logits(h, params, config, quant_type, rt)
     if slot_map is None:
         lengths = row_lengths
     else:
@@ -522,7 +675,7 @@ def decode_step(params: dict, config: ChatGLM2Config, next_ids: torch.Tensor,
     h = _layers_serving(params, config, quant_type, rt, h, freqs_cis, attn, cache,
                         cache.lengths)
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
-    logits = quant_linear(h[:, 0], params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    logits = lm_head_logits(h[:, 0], params, config, quant_type, rt)
     return logits, KVCache(cache.k, cache.v, cache.lengths + 1)
 
 

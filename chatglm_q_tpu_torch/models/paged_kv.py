@@ -18,6 +18,11 @@ append kernel, then reads pages with the paged ragged-decode kernel
 pool; chunked prefill attends the pool, through the chunk kernel for chunks
 of S·Hg ≤ 512 rows and through a gathered dense view and the chunked flash
 prefill for larger ones.
+
+Under a mesh each rank holds its part of the pool and reads it through a
+local table (``mesh_table``): its data group's pages, and with
+``rt.paged_shard_model`` only the logical blocks of its phase (K3 writes,
+K2 reads, chunks attend the all-gathered pages).
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 
 from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
-from ..ops.linear import quant_embedding_lookup, quant_linear
+from ..ops.linear import quant_embedding_lookup
+from ..parallel import sharding as SH
 from . import chatglm2 as M
 
 _DEFAULT_RT = TorchRuntimeConfig()
@@ -56,13 +62,16 @@ class PagedKVCache:
 
 
 class PagedWrite(NamedTuple):
-    """``block_forward``'s kv_write payload for the paged path."""
+    """``block_forward``'s kv_write payload for the paged path.  Under a mesh
+    the pools are the rank's part and ``page_table`` its local table
+    (``mesh_table``); ``shard`` is set on a model-sharded pool."""
     k_pool: torch.Tensor
     v_pool: torch.Tensor
     layer: int
     page_table: torch.Tensor
     start: torch.Tensor      # (B,) first position written per row (prefill: zeros)
     aligned: bool = True     # False: S > 1 tokens at arbitrary (unaligned) starts
+    shard: Optional[A.KVShard] = None
 
 
 def init_paged_kv_cache(config: ChatGLM2Config, batch_size: int, num_pages: int,
@@ -120,7 +129,9 @@ def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_sca
     into the pool, then attend (a prefill, a chunk, or the masked path)."""
     kp, vp, layer, pt = kv_write.k_pool, kv_write.v_pool, kv_write.layer, kv_write.page_table
     S, Hg = q.shape[1], q.shape[3]
-    if S == 1:
+    if kv_write.start is None:  # written already (under a mesh)
+        pass
+    elif S == 1:
         write = A.kv_pool_write_idx if kernels else A.kv_pool_write_idx_plain
         write(kp, kw[:, :, 0], layer, pt, kv_write.start)
         write(vp, vw[:, :, 0], layer, pt, kv_write.start)
@@ -159,19 +170,127 @@ def paged_decode(q, kv, freqs, lengths, kv_write: PagedWrite, kernels: bool, sm_
     return fn(q, kp, vp, layer, pt, lengths, sm_scale)
 
 
+def mesh_table(cache: PagedKVCache, rt: TorchRuntimeConfig):
+    """The rank's local page table of the global one (computed once a step)
+    and the shard of a model-sharded pool: the strided table at stride tp,
+    phase = the model rank (``rt.paged_shard_model``), else the data-sharded
+    pool's translated ids.  (table, None) without a mesh."""
+    if rt.mesh is None:
+        return cache.page_table, None
+    pages = cache.k_pool.shape[1]
+    if rt.paged_shard_model:
+        shard = A.KVShard(stride=rt.mesh.n_model, phase=rt.mesh.model_index,
+                          total=cache.max_length)
+        return A.msharded_page_table(cache.page_table, rt.mesh, pages), shard
+    return A.sharded_page_table(cache.page_table, rt.mesh, pages), None
+
+
 def _layers_paged(params, config, quant_type, rt, h, freqs_cis, attn, cache: PagedKVCache,
                   start, aligned=True):
+    table, shard = mesh_table(cache, rt)
     for l in range(config.num_layers):
         h = M.block_forward(M._layer(params["layers"], l), h, freqs_cis, attn, config,
                             quant_type, rt,
-                            PagedWrite(cache.k_pool, cache.v_pool, l, cache.page_table, start,
-                                       aligned))
+                            PagedWrite(cache.k_pool, cache.v_pool, l, table, start, aligned,
+                                       shard))
     return h
 
 
 def _logits(params, config, quant_type, rt, h):
     h = M.rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
-    return quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    return M.lm_head_logits(h, params, config, quant_type, rt)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh (tensor-parallel serving)
+# ---------------------------------------------------------------------------
+
+def write_pages_sharded(pool, new, layer: int, table, start, shard: A.KVShard,
+                        aligned: bool = True):
+    """``write_pages`` on a model-sharded pool: the positions clamp as on one
+    device (over the global table of ``shard.total // P`` blocks), and only
+    the logical blocks of this rank's phase are written, at their column of
+    the strided local ``table``."""
+    B, G, S, D = new.shape
+    P = pool.shape[3]
+    dev = pool.device
+    pos = start.to(dev).long()[:, None] + torch.arange(S, device=dev)[None, :]
+    if S == 1 or not aligned:
+        pos = pos.clamp(max=shard.total - 1)
+        blk = pos // P
+    else:
+        blk = (pos // P).clamp(max=shard.total // P - 1)
+    col = blk // shard.stride
+    b, s = ((blk % shard.stride == shard.phase) & (col < table.shape[1])).nonzero(as_tuple=True)
+    page = table.to(dev).long()[b, col[b, s]]
+    pool[layer][page, :, pos[b, s] % P] = new[b, :, s].to(pool.dtype)
+    return pool
+
+
+def gather_msharded(mesh, pool, layer: int, table, max_length: int):
+    """A model-sharded pool layer as a dense (B, G, MP·P, D) view on every
+    rank: each rank's strided columns, all-gathered over the model axis and
+    put back in logical-block order (JAX's ``gather_layer`` under GSPMD,
+    chatglm2.py:409-420)."""
+    own = A.gather_pages(pool[layer], table)  # (B, G, MPl·P, D)
+    B, G, _, D = own.shape
+    P, MPl = pool.shape[3], table.shape[1]
+    parts = mesh.all_gather(own, "model").reshape(mesh.n_model, B, G, MPl, P, D)
+    dense = parts.permute(1, 2, 3, 0, 4, 5).reshape(B, G, -1, D)
+    return dense[:, :, :max_length]
+
+
+def mesh_paged_attention(q, kv, freqs_cis, attn, kv_write: PagedWrite, config, rt, kernels,
+                         sm_scale):
+    """``block_forward``'s paged attention on one rank (see
+    ``chatglm2._mesh_attention``): the model-sharded pool (K3 and K2 at the
+    rank's phase, chunks over the all-gathered pages) or the data-sharded
+    one (the rank's groups' pages, the unsharded kernels)."""
+    mesh = rt.mesh
+    B, S = q.shape[:2]
+    G, D = config.num_multi_query_groups, config.head_hidden_size
+    g0, Gl, Hgl = SH.head_split(config, mesh.n_model, mesh.model_index)
+    own = slice(g0, g0 + Gl)
+    kp, vp, layer, table = kv_write.k_pool, kv_write.v_pool, kv_write.layer, kv_write.page_table
+    shard = kv_write.shard
+    kind, lengths = attn
+    if kind == "flash_decode":
+        qd, kvd, fd = q.reshape(B, Gl, Hgl, D), kv[:, 0], freqs_cis[:, 0]
+        if shard is not None:
+            append = A.rope_kv_append_sharded if kernels else A.rope_kv_append_sharded_plain
+            qd = append(qd, kvd, fd, kp, vp, layer, kv_write.start, shard, table)
+            ctx = A.flash_attention_decode_paged_msharded(
+                M.gather_heads(mesh, qd).reshape(B, G, -1, D), kp, vp, layer, table, lengths,
+                sm_scale, mesh, kernels)
+            return M.own_heads(mesh, ctx)
+        append = A.rope_kv_append if kernels else A.rope_kv_append_plain
+        qd = append(qd, M.local_kv_row(kvd, g0, Gl, G, D), fd, kp, vp, layer, kv_write.start,
+                    table)
+        decode = A.flash_attention_decode_paged if kernels else A.flash_attention_decode_paged_plain
+        return decode(qd, kp, vp, layer, table, lengths, sm_scale)
+
+    k, v = kv.split(config.kv_size, dim=-1)
+    f = freqs_cis[:, :, None, None, :]
+    q = A.apply_rotary_emb(q.reshape(B, S, Gl, Hgl, D), f)
+    k = A.apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
+    kw, vw = k.transpose(1, 2), v.reshape(B, S, G, D).transpose(1, 2)  # (B, G, S, D)
+    if shard is not None:
+        write_pages_sharded(kp, kw, layer, table, kv_write.start, shard, kv_write.aligned)
+        write_pages_sharded(vp, vw, layer, table, kv_write.start, shard, kv_write.aligned)
+    else:
+        write_pages(kp, kw[:, own], layer, table, kv_write.start, kv_write.aligned)
+        write_pages(vp, vw[:, own], layer, table, kv_write.start, kv_write.aligned)
+    prefill = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
+    if kind == "flash_prefill":  # causality never reaches the pool
+        return prefill(q, kw[:, own].contiguous(), vw[:, own].contiguous(), lengths, sm_scale)
+    lengths, starts, row_map = lengths  # "flash_prefill_chunk"
+    if shard is None:
+        return paged_attention(q, None, None, ("flash_prefill_chunk", (lengths, starts, row_map)),
+                               kv_write._replace(start=None), kernels, sm_scale)
+    kc = gather_msharded(mesh, kp, layer, table, shard.total)[:, own].contiguous()
+    vc = gather_msharded(mesh, vp, layer, table, shard.total)[:, own].contiguous()
+    return prefill(q, kc.to(q.dtype), vc.to(q.dtype), lengths, sm_scale, q_starts=starts,
+                   kv_row_map=row_map)
 
 
 def prefill_paged(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,

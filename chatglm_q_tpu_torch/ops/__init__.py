@@ -38,6 +38,9 @@ def kernel_wrappers() -> dict:
         "kv_pool_write_idx": A.kv_pool_write_idx,
         "flash_attention_decode_paged": A.flash_attention_decode_paged,
         "flash_attention_chunk_paged": A.flash_attention_chunk_paged,
+        "flash_attention_decode_lse": A.flash_attention_decode_lse,
+        "flash_attention_decode_paged_lse": A.flash_attention_decode_paged_lse,
+        "rope_kv_append_sharded": A.rope_kv_append_sharded,
     }
 
 

@@ -37,11 +37,24 @@ counts.
 * ``kv_pool_write_idx`` (B9's API): the same write into the paged pool (L,
   NP, G, P, D), at position min(starts[b], MP·P − 1) of page
   ``page_table[b, pos // P]``; the write-only form too.
-* ``flash_attention_decode_paged`` replaces :_decode_paged_kernel (stride 1,
-  phase 0): ragged decode over the pool's pages, positions 0..lengths[b],
-  pages clamped to the table's MP; a row of length −1 outputs 0.  B12's
-  kernel reading through the page table: the span from
-  ``decode_paged_span``, the same in-launch merge and one-span rule.
+* ``flash_attention_decode_paged`` replaces :_decode_paged_kernel: ragged
+  decode over the pool's pages, positions 0..lengths[b], pages clamped to
+  the table's MP; a row of length −1 outputs 0.  B12's kernel reading
+  through the page table: the span from ``decode_paged_span``, the same
+  in-launch merge and one-span rule.
+* The forms only the mesh runs (tensor-parallel serving, the sharded
+  wrappers at the end of this module):
+  ``flash_attention_decode_lse`` (K1) is :_decode_kernel with
+  ``return_lse`` on a T-shard of the cache: B4's output and the online
+  softmax's (m, l) of each (b, g, head), rows of global slots offset ..
+  offset + T − 1; ``flash_attention_decode_paged_lse`` (K2) is
+  :_decode_paged_kernel with ``stride``, ``phase`` and ``return_lse``:
+  table column i holds logical block i·stride + phase, masked by logical
+  position; ``merge_lse_partials`` merges the shards' (out, m, l) exactly;
+  ``rope_kv_append_sharded`` (K3) is the decode step's append on one shard
+  of a sharded cache, which writes a row's token only where the shard holds
+  its slot (``KVShard``).  A shard with no valid slot gives out 0, m −inf
+  and l 0.
 * ``flash_attention_chunk_paged`` replaces :_chunk_paged_kernel: S queries
   per row at absolute positions starts[b] + t over the pool's pages.  B5's
   folded kernel with B10's numerics, reading through the page table (at
@@ -58,6 +71,7 @@ an H100 and what they do about it) are at the top of csrc/attention.cu.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -77,6 +91,21 @@ CHUNK_MIN_SPAN = 256  # B11's spans halve no further than four tiles: each span 
                       # (PREFILL_ROWS, D) f32 partial that the merging block reads back
 CHUNK_MAX_SPANS = 32  # and number at most this many (the merge holds every span's (m, l)
                       # and weight of a block's rows in its shared memory)
+
+
+
+
+class KVShard(NamedTuple):
+    """Which slots of a sharded cache a view holds (K3's write, K1's and K2's
+    reads).  A T-shard of the dense cache holds global slots ``offset`` ..
+    ``offset + T_local - 1``; a model-sharded pool's strided table column i
+    holds logical block ``i * stride + phase``; ``total`` is the global
+    capacity a write position clamps to.  The default is the whole cache
+    (``total`` 0: the view's own capacity)."""
+    offset: int = 0
+    stride: int = 1
+    phase: int = 0
+    total: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +145,96 @@ def flash_attention_decode_plain(q, k, v, lengths, sm_scale):
     s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
     p = torch.softmax(s, dim=-1).to(v.dtype) * (lengths >= 0).to(v.dtype)[:, None, None, None]
     return torch.einsum("bght,bgtd->bghd", p.float(), v.float()).to(q.dtype)
+
+
+def _lse_softmax(s, valid):
+    """The online softmax's end state over masked scores s (..., T): m, the
+    max of the valid scores (−inf where none), l = Σ exp(s − m), and p."""
+    m = s.masked_fill(~valid, float("-inf")).amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None]) * valid
+    return m, p.sum(dim=-1), p
+
+
+def flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset: int = 0):
+    """K1 (B4 with ``return_lse``): q (B, G, Hg, D); k, v (B, G, T, D), the
+    T-shard of a cache holding global slots t_offset .. t_offset + T − 1;
+    lengths (B,) global.  Row b attends the shard's slots among 0..lengths[b]
+    (``clip(lengths + 1 − t_offset, 0, T)`` rows from the shard's start).
+    B4's numerics: scores in f32 scaled by sm_scale, p rounded to v's dtype
+    for PV.  Returns (out (B, G, Hg, D), m, l (B, G, Hg) f32): m the max of
+    the scaled scores, l = Σ exp(s − m); a shard with no valid slot gives 0,
+    −inf and 0."""
+    T = k.shape[2]
+    s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
+    n_local = (lengths.long() + 1 - t_offset).clamp(0, T)
+    valid = (torch.arange(T, device=q.device)[None, :] < n_local[:, None])[:, None, None, :]
+    m, l, p = _lse_softmax(s, valid)
+    acc = torch.einsum("bght,bgtd->bghd", p.to(v.dtype).float(), v.float())
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.to(q.dtype), m, l
+
+
+def flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer: int, page_table, lengths,
+                                           sm_scale, stride: int = 1, phase: int = 0):
+    """K2 (B10 with ``stride``, ``phase`` and ``return_lse``): table column i
+    of ``page_table`` (B, MP) holds logical block i·stride + phase, and row b
+    attends the logical positions ≤ lengths[b] among them (the columns past
+    the table's MP hold none).  B10's numerics (q scaled in its dtype, p in
+    f32).  Returns (out, m, l) as ``flash_attention_decode_lse_plain``."""
+    P, MP = k_pool.shape[3], page_table.shape[1]
+    k = gather_pages(k_pool[layer], page_table).float()
+    v = gather_pages(v_pool[layer], page_table).float()
+    s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k)
+    t = torch.arange(MP * P, device=q.device)
+    logical = ((t // P) * stride + phase) * P + t % P
+    valid = (logical[None, :] <= lengths.long()[:, None])[:, None, None, :]
+    m, l, p = _lse_softmax(s, valid)
+    out = torch.einsum("bght,bgtd->bghd", p, v) / torch.where(l == 0, 1.0, l)[..., None]
+    return out.to(q.dtype), m, l
+
+
+def merge_lse_partials(out, m, l, dtype):
+    """The exact merge of tp flash partials gathered on a leading axis: out
+    (tp, B, G, Hg, D), m and l (tp, B, G, Hg) — JAX's ``_merge_lse_partials``
+    after its all-gathers.  An empty shard (l = 0) drops out.  A row empty on
+    every shard gives 0, as the unsharded kernels give; JAX's exp(m − max m)
+    is exp(−inf + inf) = NaN there."""
+    m_max = m.amax(dim=0)
+    w = l * torch.exp(m - torch.where(torch.isfinite(m_max), m_max, 0.0)[None])
+    den = w.sum(dim=0).clamp_min(1e-30)
+    return ((out.float() * w[..., None]).sum(dim=0) / den[..., None]).to(dtype)
+
+
+def rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer: int, starts,
+                                 shard: KVShard, page_table=None):
+    """K3's plain version: ``rope_kv_append_plain`` on one shard of a
+    sharded cache.  q (B, Gq, Hq, D) is rotated on every rank; the write
+    position min(max(starts[b], 0), shard.total − 1) is written only where
+    this view holds it: slot − offset of the (L, B, G, T_local, D) T-shard,
+    or (with ``page_table``, the strided local table) logical block j on
+    the rank whose phase is j % stride, at column j // stride.  In place;
+    returns the rotated q."""
+    B, G, D = kv.shape[0], k_cache.shape[2], q.shape[-1]
+    f = freqs[:, None, None, :]
+    k, v = kv.reshape(B, 2, G, D).unbind(1)
+    k = apply_rotary_emb(k[:, :, None], f)[:, :, 0]
+    cap = k_cache.shape[3] * (1 if page_table is None else page_table.shape[1])
+    pos = starts.long().clamp(0, (shard.total or cap) - 1)
+    if page_table is None:
+        t = pos - shard.offset
+        rows = ((t >= 0) & (t < k_cache.shape[3])).nonzero()[:, 0]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[layer][rows, :, t[rows]] = new[rows].to(cache.dtype)
+    else:
+        P = k_cache.shape[3]
+        blk = pos // P
+        col = blk // shard.stride
+        rows = ((blk % shard.stride == shard.phase)
+                & (col < page_table.shape[1])).nonzero()[:, 0]
+        page = page_table.long()[rows, col[rows]]
+        for pool, new in ((k_cache, k), (v_cache, v)):
+            pool[layer][page, :, pos[rows] % P] = new[rows].to(pool.dtype)
+    return apply_rotary_emb(q, f)
 
 
 def kv_cache_write_idx_plain(cache, new, layer: int, starts):
@@ -359,21 +478,35 @@ def _arrivals_ptr(device, n):
     return _build.scratch("arrivals", device, n, torch.int32).data_ptr()
 
 
-def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2):
+def _lse_outputs(q, lse):
+    """K1's / K2's (m, l) outputs, (B, G, Hg) f32 each, or None."""
+    if not lse:
+        return None
+    return (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:3], dtype=torch.float32, device=q.device))
+
+
+def _ml_ptrs(ml):
+    return (None, None) if ml is None else (ml[0].data_ptr(), ml[1].data_ptr())
+
+
+def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_offset=0):
     B, G, Hg, D = q.shape
     T = k.shape[2]
     lengths = _int32(lengths)
     _check_cuda(name, q, k, v, lengths)
     _check_bf16(name, q, k, v)
-    if D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape:
+    if (D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape
+            or t_offset < 0):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
     span = decode_span(B * G, T, block_k)
     out = torch.empty_like(q)
+    ml = _lse_outputs(q, lse)
     _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 lengths.data_ptr(), _decode_part_ptr(q, T, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, T, D, span, int(v2), float(sm_scale),
-                _build.stream_ptr(q))
-    return out
+                *_ml_ptrs(ml), int(t_offset), _build.stream_ptr(q))
+    return out if ml is None else (out, *ml)
 
 
 def flash_attention_decode(q, k, v, lengths, sm_scale):
@@ -402,6 +535,21 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
 
 
 flash_attention_decode_v2.launches = 0
+
+
+def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
+    """K1: B4 with ``return_lse`` over one T-shard of the dense cache (see
+    ``flash_attention_decode_lse_plain``); returns (out, m, l).  Plain
+    version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if not q.is_cuda:
+        return flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset)
+    res = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
+                         DECODE_BLOCK_K, False, lse=True, t_offset=t_offset)
+    flash_attention_decode_lse.launches += 1
+    return res
+
+
+flash_attention_decode_lse.launches = 0
 
 
 def _aligned(name, *tensors):
@@ -483,8 +631,35 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
     tensors.  Returns the rotated q (B, G, Hg, D)."""
     if not q.is_cuda:
         return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
-    name = "rope_kv_append"
-    B, G, Hg, D = q.shape
+    out = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
+                         page_table, None)
+    rope_kv_append.launches += 1
+    return out
+
+
+rope_kv_append.launches = 0
+
+
+def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, shard: KVShard,
+                           page_table=None):
+    """K3: the decode step's RoPE and KV write on one shard of a sharded
+    cache (see ``rope_kv_append_sharded_plain``).  q (B, Gq, Hq, D) may hold
+    a rank's heads only.  Plain version on CPU tensors; the CUDA kernel on
+    CUDA tensors.  Returns the rotated q."""
+    if not q.is_cuda:
+        return rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer, starts, shard,
+                                            page_table)
+    out = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
+                         starts, page_table, shard)
+    rope_kv_append_sharded.launches += 1
+    return out
+
+
+rope_kv_append_sharded.launches = 0
+
+
+def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_table, shard):
+    B, Gq, Hq, D = q.shape
     q, freqs, starts = q.contiguous(), freqs.contiguous(), _int32(starts)
     if kv.dim() != 2 or kv.stride(1) != 1 or kv.stride(0) % 8:
         kv = kv.contiguous()
@@ -495,26 +670,26 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
     if not kv.is_cuda or kv.device != q.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     _check_bf16(name, q, kv, freqs, k_cache, v_cache)
-    L, rows, Gc, T, Dc = k_cache.shape
-    if (D != HEAD_DIM or (Gc, Dc) != (G, D) or v_cache.shape != k_cache.shape
+    L, rows, G, T, Dc = k_cache.shape
+    shard = shard or KVShard()
+    if (D != HEAD_DIM or Dc != D or v_cache.shape != k_cache.shape
+            or (shard == KVShard() and Gq != G)
             or kv.shape != (B, 2 * G * D) or freqs.shape != (B, D) or starts.shape != (B,)
             or not 0 <= layer < L or (not paged and rows != B)
-            or (paged and (page_table.dim() != 2 or page_table.shape[0] != B))):
+            or (paged and (page_table.dim() != 2 or page_table.shape[0] != B))
+            or shard.offset < 0 or not 0 <= shard.phase < shard.stride or shard.total < 0):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, kv {tuple(kv.shape)}, "
                          f"freqs {tuple(freqs.shape)}, cache {tuple(k_cache.shape)}, "
-                         f"layer {layer}")
+                         f"layer {layer}, {shard}")
     _aligned(name, q, kv, freqs, k_cache, v_cache)
     out = torch.empty_like(q)
     MP = page_table.shape[1] if paged else 0
     _build.call("chatglm_rope_kv_append", q.data_ptr(), out.data_ptr(), kv.data_ptr(),
                 kv.stride(0), freqs.data_ptr(), _layer_ptr(k_cache, layer),
                 _layer_ptr(v_cache, layer), page_table.data_ptr() if paged else None,
-                starts.data_ptr(), B, G, Hg, D, T, MP, _build.stream_ptr(q))
-    rope_kv_append.launches += 1
+                starts.data_ptr(), B, G, Gq * Hq, D, T, MP, shard.offset, shard.stride,
+                shard.phase, shard.total, _build.stream_ptr(q))
     return out
-
-
-rope_kv_append.launches = 0
 
 
 def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):
@@ -523,28 +698,57 @@ def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, leng
     if not q.is_cuda:
         return flash_attention_decode_paged_plain(q, k_pool, v_pool, layer, page_table,
                                                   lengths, sm_scale)
-    B, G, Hg, D = q.shape
-    L, NP, Gp, P, Dp = k_pool.shape
-    page_table, lengths = _int32(page_table), _int32(lengths)
-    _check_cuda("flash_attention_decode_paged", q, k_pool, v_pool, page_table, lengths)
-    _check_bf16("flash_attention_decode_paged", q, k_pool, v_pool)
-    _check_pool("flash_attention_decode_paged", k_pool, page_table, layer)
-    if (D != HEAD_DIM or Hg > MAX_DECODE_HG or (Gp, Dp) != (G, D)
-            or v_pool.shape != k_pool.shape or page_table.shape[0] != B):
-        raise ValueError(f"flash_attention_decode_paged: unsupported shapes q {tuple(q.shape)}, "
-                         f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}")
-    MP = page_table.shape[1]
-    span = decode_paged_span(B * G, P, MP)
-    out = torch.empty_like(q)
-    _build.call("chatglm_decode_paged", q.data_ptr(), k_pool[layer].data_ptr(),
-                v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-                _decode_part_ptr(q, MP * P, span), _arrivals_ptr(q.device, B * G),
-                out.data_ptr(), B, G, Hg, P, D, MP, span, float(sm_scale), _build.stream_ptr(q))
+    out = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
+                               page_table, lengths, sm_scale)
     flash_attention_decode_paged.launches += 1
     return out
 
 
+def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm_scale,
+                         stride=1, phase=0, lse=False):
+    B, G, Hg, D = q.shape
+    L, NP, Gp, P, Dp = k_pool.shape
+    page_table, lengths = _int32(page_table), _int32(lengths)
+    _check_cuda(name, q, k_pool, v_pool, page_table, lengths)
+    _check_bf16(name, q, k_pool, v_pool)
+    _check_pool(name, k_pool, page_table, layer)
+    if (D != HEAD_DIM or Hg > MAX_DECODE_HG or (Gp, Dp) != (G, D)
+            or v_pool.shape != k_pool.shape or page_table.shape[0] != B
+            or not 0 <= phase < stride):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)}, page_table {tuple(page_table.shape)}, "
+                         f"stride {stride}, phase {phase}")
+    MP = page_table.shape[1]
+    span = decode_paged_span(B * G, P, MP)
+    out = torch.empty_like(q)
+    ml = _lse_outputs(q, lse)
+    _build.call("chatglm_decode_paged", q.data_ptr(), k_pool[layer].data_ptr(),
+                v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+                _decode_part_ptr(q, MP * P, span), _arrivals_ptr(q.device, B * G),
+                out.data_ptr(), B, G, Hg, P, D, MP, span, float(sm_scale), *_ml_ptrs(ml),
+                int(stride), int(phase), _build.stream_ptr(q))
+    return out if ml is None else (out, *ml)
+
+
 flash_attention_decode_paged.launches = 0
+
+
+def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, lengths,
+                                     sm_scale, stride: int = 1, phase: int = 0):
+    """K2: B10 with ``stride``, ``phase`` and ``return_lse`` over a strided
+    local page table (see ``flash_attention_decode_paged_lse_plain``);
+    returns (out, m, l).  Plain version on CPU tensors; the CUDA kernel on
+    CUDA tensors."""
+    if not q.is_cuda:
+        return flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer, page_table,
+                                                      lengths, sm_scale, stride, phase)
+    res = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool, layer,
+                               page_table, lengths, sm_scale, stride, phase, lse=True)
+    flash_attention_decode_paged_lse.launches += 1
+    return res
+
+
+flash_attention_decode_paged_lse.launches = 0
 
 
 def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
@@ -585,3 +789,69 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
 
 
 flash_attention_chunk_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Sharded wrappers: tensor-parallel serving over a parallel.sharding.Mesh
+# ---------------------------------------------------------------------------
+#
+# The JAX package maps its kernels per device under shard_map inside one
+# global program (pallas_attention.py:552-600, 1074-1272); here each rank of
+# the mesh is a process that holds its shard and calls these on it.  Where
+# the rank's heads attend only the KV it holds (the head-sharded cache and
+# the data-sharded pool) no collective is needed; the T-sharded cache
+# (``kv_shard_t``) and the model-sharded pool (``shard_model_pages``) give
+# every rank all heads (q is all-gathered by the caller) over a part of each
+# row, and the tp partials (out, m, l) merge exactly after one all-gather.
+
+
+def sharded_page_table(page_table, mesh, pool_pages: int):
+    """The data-sharded pool's local table: data rank d holds global pages
+    d·pool_pages .. (d + 1)·pool_pages − 1 and its rows' tables point only
+    there (the engine's allocator keeps them so); the clip keeps a stray id
+    in bounds, as JAX's does."""
+    base = mesh.data_index * pool_pages
+    return (page_table.long() - base).clamp(0, pool_pages - 1).to(torch.int32)
+
+
+def msharded_page_table(page_table, mesh, pool_pages: int):
+    """The model-sharded pool's strided local table (B, ceil(MP / tp)):
+    column i of model rank r holds logical block i·tp + r, whose page lies
+    in that rank's sub-pool (global pages (d·tp + r)·pool_pages ..).  Tail
+    columns past MP repeat the last one; the kernel's count of columns never
+    reaches them (JAX :1176-1183)."""
+    tp, r = mesh.n_model, mesh.model_index
+    MP = page_table.shape[1]
+    idx = (r + tp * torch.arange(-(-MP // tp), device=page_table.device)).clamp(max=MP - 1)
+    base = (mesh.data_index * tp + r) * pool_pages
+    return (page_table.long()[:, idx] - base).clamp(0, pool_pages - 1).to(torch.int32)
+
+
+def _merge_over(mesh, out, m, l):
+    """All-gather the rank's partial (one f32 tensor: out, m, l side by
+    side) over the model axis and merge the tp of them."""
+    packed = torch.cat([out.float(), m[..., None], l[..., None]], dim=-1)
+    parts = mesh.all_gather(packed, "model")  # (tp, B, G, Hg, D + 2)
+    D = out.shape[-1]
+    return merge_lse_partials(parts[..., :D], parts[..., D], parts[..., D + 1], out.dtype)
+
+
+def flash_attention_decode_kv_tsharded(q, k, v, lengths, sm_scale, mesh, kernels: bool = True):
+    """Decode over the T-sharded cache: q (B, G, Hg, D) every head, k, v (B,
+    G, T_local, D) the rank's T-shard, which holds global slots r·T_local ..;
+    K1 over it, then the exact merge over the model axis.  Returns every
+    head's output (B, G, Hg, D) on every rank."""
+    offset = mesh.model_index * k.shape[2]
+    fn = flash_attention_decode_lse if kernels else flash_attention_decode_lse_plain
+    return _merge_over(mesh, *fn(q, k, v, lengths, sm_scale, offset))
+
+
+def flash_attention_decode_paged_msharded(q, k_pool, v_pool, layer: int, local_table, lengths,
+                                          sm_scale, mesh, kernels: bool = True):
+    """Decode over the model-sharded pool: q (B, G, Hg, D) every head, the
+    pool the rank's sub-pool, ``local_table`` from ``msharded_page_table``;
+    K2 at stride tp and phase = the model rank, then the exact merge over
+    the model axis.  Returns every head's output on every rank."""
+    fn = flash_attention_decode_paged_lse if kernels else flash_attention_decode_paged_lse_plain
+    return _merge_over(mesh, *fn(q, k_pool, v_pool, layer, local_table, lengths, sm_scale,
+                                 mesh.n_model, mesh.model_index))

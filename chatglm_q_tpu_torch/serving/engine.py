@@ -471,12 +471,15 @@ class ServingEngine:
                 break
         extra = n - len(new)
         if extra > 0:  # roll the device length back past the over-generation
-            self.cache.lengths[b] -= extra
+            self._roll_back(b, extra)
         self._last_tok[b] = new[-1]
         self._host_lengths[b] += len(new)
         self.stats["generated_tokens"] += len(new)
         self._maybe_finish(b)
         return (req.req_id, new)
+
+    def _roll_back(self, b: int, extra: int):
+        self.cache.lengths[b] -= extra
 
     def run_stream(self, prompts: list, **kwargs):
         """Submit all prompts and yield ``(req_id, new_token_ids)`` as each

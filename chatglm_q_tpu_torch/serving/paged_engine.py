@@ -12,6 +12,13 @@ equal the dense engine's), but KV lives in a shared page pool
 * physical page 0 is a reserved garbage page: padding rows of a compact
   decode write there, and a finished slot's table row is reset to it, so a
   recycled page is never written through a stale table;
+* allocation is per group and phase: the distributed engine
+  (serving/dist_engine.py) sets ``n_data`` slot groups, each with its own
+  pages (a data rank's), and with a model-sharded pool ``n_phase`` phase
+  sub-pools in each: logical page j of a row comes from sub-pool j % n_phase
+  (the model rank that holds it).  Every sub-pool's first page is its
+  garbage page, and a free slot's table points at its own sub-pools' (JAX
+  :47-76, 92-225).  This engine alone is one group of one phase;
 * pages are refcounted: slots and prefix-cache entries each hold one
   reference, and a page returns to the free list at zero;
 * ``prefix_cache``: every page-aligned prefix of a prefilled prompt is
@@ -24,11 +31,10 @@ equal the dense engine's), but KV lives in a shared page pool
   in-loop prompt-lookup speculation (models/spec_decode.py); a chunk with a
   sampling request falls back to plain decode.
 
-The JAX package's data-parallel groups and model-sharded pool phases
-(``n_data``, ``n_phase``, ``full_batch_decode``) belong to its multi-chip
-engine and are not carried: this engine is one group with one phase, and
-keeps the arithmetic that reduces to it.  ``speculative_sampled=True``
-raises ``NotImplementedError``; ``lookahead`` is a dense-engine option.
+JAX's ``full_batch_decode`` switch (a TPU backend workaround) is not
+carried: this engine decodes compact, the distributed one its group's rows.
+``speculative_sampled=True`` raises ``NotImplementedError``; ``lookahead``
+is a dense-engine option.
 """
 from __future__ import annotations
 
@@ -51,8 +57,14 @@ class PagedServingEngine(ServingEngine):
         if kwargs.get("lookahead"):
             raise ValueError("lookahead is a dense-engine option; speculative_k is the paged "
                              "engine's way to amortize the host round trip")
-        if num_pages < 2:
-            raise ValueError("the pool needs a garbage page and one usable page")
+        # page groups (the distributed engine sets n_data and n_phase first)
+        self._n_groups = getattr(self, "n_data", 1)
+        self._n_phase = getattr(self, "n_phase", 1)
+        n_subs = self._n_groups * self._n_phase
+        if num_pages % n_subs or num_pages // n_subs < 2:
+            raise ValueError(f"{num_pages} pages: each of the {n_subs} sub-pools needs a garbage "
+                             "page and one usable page")
+        self._sub_pages = num_pages // n_subs
         # read by _make_cache, which ServingEngine.__init__ calls
         self.num_pages = num_pages
         self.page_size = page_size
@@ -66,12 +78,21 @@ class PagedServingEngine(ServingEngine):
             # a prefix hit resumes the prefill at a page-aligned offset: the
             # chunked-prefill entry point
             raise ValueError("prefix_cache needs prefill_chunk_size")
-        self._free = list(range(1, num_pages))  # page 0: the garbage page
+        # free pages per (group, phase); each sub-pool's first page is its garbage page
+        sp, nph = self._sub_pages, self._n_phase
+        self._free = [[list(range((g * nph + m) * sp + 1, (g * nph + m + 1) * sp))
+                       for m in range(nph)] for g in range(self._n_groups)]
         self._slot_pages: dict[int, list[int]] = {}
         self._page_refs: dict[int, int] = {}
-        # page-aligned token prefix -> its pages, in LRU order
-        self._prefix_lru: "OrderedDict[tuple, list[int]]" = OrderedDict()
-        self._garbage_row = torch.zeros_like(self.cache.page_table[0])
+        # per group: page-aligned token prefix -> its pages, in LRU order
+        self._prefix_lrus = [OrderedDict() for _ in range(self._n_groups)]
+        # a free slot's table row: block j on the garbage page of its own
+        # (group, j % n_phase) sub-pool
+        mp = self.cache.page_table.shape[1]
+        self._garbage = np.array([[(self._slot_group(b) * nph + j % nph) * sp for j in range(mp)]
+                                  for b in range(self.max_batch)], np.int32)
+        self._garbage_t = self._ids(self._garbage)
+        self.cache.page_table.copy_(self._garbage_t)
         self.stats.update(prefix_hits=0, prefix_tokens_reused=0, spec_accepted=0,
                           spec_steps=0)
         # device token history per slot (valid below the lengths) for n-gram
@@ -89,11 +110,20 @@ class PagedServingEngine(ServingEngine):
 
     @property
     def pages_cached(self) -> int:
-        return sum(len(p) for p in self._prefix_lru.values())
+        return sum(len(p) for lru in self._prefix_lrus for p in lru.values())
 
     @property
     def _free_pages(self) -> list:
-        return list(self._free)
+        """Every free page, over groups and phases."""
+        return [p for g in self._free for fl in g for p in fl]
+
+    @property
+    def _prefix_lru(self):
+        """Group 0's registry: the whole registry of a one-group engine."""
+        return self._prefix_lrus[0]
+
+    def _slot_group(self, slot_idx: int) -> int:
+        return slot_idx // (self.max_batch // self._n_groups)
 
     # -- page refcounting ----------------------------------------------------
 
@@ -106,66 +136,85 @@ class PagedServingEngine(ServingEngine):
             self._page_refs[p] -= 1
             if self._page_refs[p] == 0:
                 del self._page_refs[p]
-                self._free.append(p)
+                g, m = divmod(p // self._sub_pages, self._n_phase)
+                self._free[g][m].append(p)
 
-    def _alloc(self, n: int):
-        """Take n fresh pages (one reference each), evicting LRU prefix
-        entries under pressure; None if the pool cannot supply them.  A page
-        that a slot also holds stays allocated when its registry reference
-        drops, so eviction runs only if the registry-only pages cover the
-        shortage: emptying the LRU for nothing would wipe the prefixes the
-        next requests need."""
-        if len(self._free) < n:
-            if not self._prefix_lru:
+    def _alloc(self, n: int, group: int = 0, start_block: int = 0):
+        """Take n fresh pages (one reference each) of ``group`` for a row's
+        logical blocks start_block .. start_block + n − 1 (block j from phase
+        sub-pool j % n_phase), evicting the group's LRU prefix entries under
+        pressure; None if the group cannot supply them.  A page that a slot
+        also holds stays allocated when its registry reference drops, so
+        eviction runs only if the registry-only pages cover the shortage:
+        emptying the LRU for nothing would wipe the prefixes the next
+        requests need."""
+        frees, lru, nph = self._free[group], self._prefix_lrus[group], self._n_phase
+        phases = [(start_block + i) % nph for i in range(n)]
+        need = [phases.count(m) for m in range(nph)]
+
+        def short():
+            return any(len(frees[m]) < need[m] for m in range(nph))
+
+        if short():
+            if not lru:
                 return None
             reg_refs = Counter()
-            for pages in self._prefix_lru.values():
+            for pages in lru.values():
                 reg_refs.update(pages)
-            potential = sum(1 for p, r in reg_refs.items() if self._page_refs.get(p, 0) == r)
-            if len(self._free) + potential < n:
+            potential = [0] * nph
+            for p, r in reg_refs.items():
+                if self._page_refs.get(p, 0) == r:  # held by the registry only
+                    potential[(p // self._sub_pages) % nph] += 1
+            if any(len(frees[m]) + potential[m] < need[m] for m in range(nph)):
                 return None
-            while len(self._free) < n and self._prefix_lru:
-                key, pages = self._prefix_lru.popitem(last=False)
+            while short() and lru:
+                key, pages = lru.popitem(last=False)
                 self._release(pages)
                 if self.logger:
                     self.logger.log("prefix_evict", tokens=len(key), pages=len(pages))
-            if len(self._free) < n:
+            if short():
                 return None
-        pages = [self._free.pop() for _ in range(n)]
+        pages = [frees[m].pop() for m in phases]
         self._retain(pages)
         return pages
 
     # -- prefix cache --------------------------------------------------------
 
-    def _match_prefix(self, ids: list):
-        """The longest registered page-aligned prefix strictly shorter than
-        the prompt (its last token must prefill, for its logits)."""
-        P = self.page_size
+    def _match_prefix(self, ids: list, group: int = 0, peek: bool = False):
+        """The longest prefix registered in ``group`` that is page-aligned
+        and strictly shorter than the prompt (its last token must prefill,
+        for its logits).  ``peek`` leaves the LRU order as it is (the
+        distributed admission's scoring)."""
+        P, lru = self.page_size, self._prefix_lrus[group]
         for k in range((len(ids) - 1) // P, 0, -1):
             key = tuple(ids[: k * P])
-            if key in self._prefix_lru:
-                self._prefix_lru.move_to_end(key)
-                return list(self._prefix_lru[key]), k * P
+            if key in lru:
+                if not peek:
+                    lru.move_to_end(key)
+                return list(lru[key]), k * P
         return [], 0
 
     def _start_decoding(self, slot_idx, req, logits, n_ids):
         if self.prefix_cache:
             # the prompt's KV is written: publish every page-aligned prefix,
             # so a prompt sharing only the head (a system prompt) matches the
-            # shared pages; the registry holds one reference per entry per page
+            # shared pages; the registry holds one reference per entry per
+            # page, in the slot's own group (its pages live there)
             ids = self._sliced_prompt(req)
+            lru = self._prefix_lrus[self._slot_group(slot_idx)]
             for k in range(1, (len(ids) - 1) // self.page_size + 1):
                 key = tuple(ids[: k * self.page_size])
-                if key not in self._prefix_lru:
+                if key not in lru:
                     pages = self._slot_pages[slot_idx][:k]
                     self._retain(pages)
-                    self._prefix_lru[key] = pages
+                    lru[key] = pages
         super()._start_decoding(slot_idx, req, logits, n_ids)
 
     def clear_prefix_cache(self):
-        while self._prefix_lru:
-            _, pages = self._prefix_lru.popitem(last=False)
-            self._release(pages)
+        for lru in self._prefix_lrus:
+            while lru:
+                _, pages = lru.popitem(last=False)
+                self._release(pages)
 
     # -- device programs -----------------------------------------------------
 
@@ -203,7 +252,7 @@ class PagedServingEngine(ServingEngine):
         slots_t = self._ids(slots).long()
         pt = self.cache.page_table[slots_t]
         lens = self.cache.lengths[slots_t]
-        pt[n_real:] = self._garbage_row
+        pt[n_real:] = self._garbage_t[slots_t[n_real:]]
         lens[n_real:] = 0
         return PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool, pt, lens)
 
@@ -293,12 +342,13 @@ class PagedServingEngine(ServingEngine):
         head of the queue forever while ``has_work`` stayed True."""
         rid = super().submit(prompt_ids, **kwargs)
         need = self._pages_needed(self.queue[-1])
-        usable = self.num_pages - 1  # one garbage page
-        if need > usable:
+        per_phase = -(-need // self._n_phase)
+        usable = self._sub_pages - 1  # one garbage page a sub-pool
+        if per_phase > usable:
             self.queue.pop()
-            raise ValueError(f"request needs {need} KV pages but the pool holds only {usable} "
-                             "usable pages: raise num_pages or lower max_new_tokens / the "
-                             "prompt length")
+            raise ValueError(f"request needs {need} KV pages ({per_phase} a phase) but a "
+                             f"sub-pool holds only {usable} usable pages: raise num_pages or "
+                             "lower max_new_tokens / the prompt length")
         return rid
 
     def _admit(self):
@@ -312,21 +362,24 @@ class PagedServingEngine(ServingEngine):
     def _try_admit(self, slot_idx: int, req) -> bool:
         """Allocate pages and start ``req`` in ``slot_idx``; False (nothing
         changed) if the pool cannot supply them."""
+        group = self._slot_group(slot_idx)
         ids = self._sliced_prompt(req)
-        shared, shared_tokens = self._match_prefix(ids) if self.prefix_cache else ([], 0)
+        shared, shared_tokens = (self._match_prefix(ids, group) if self.prefix_cache
+                                 else ([], 0))
         fresh_needed = self._pages_needed(req) - len(shared)
         # retain before _alloc: its eviction could free the pages just matched
         self._retain(shared)
-        fresh = self._alloc(max(fresh_needed, 0))
+        fresh = self._alloc(max(fresh_needed, 0), group, start_block=len(shared))
         if fresh is None:
             self._release(shared)
             if self.logger:
-                self.logger.log("admit_wait", req_id=req.req_id, pages_needed=fresh_needed,
-                                pages_free=len(self._free))
+                self.logger.log("admit_wait", req_id=req.req_id, group=group,
+                                pages_needed=fresh_needed,
+                                pages_free=sum(len(f) for f in self._free[group]))
             return False
         pages = shared + fresh
         self._slot_pages[slot_idx] = pages
-        row = np.zeros((self.cache.page_table.shape[1],), np.int32)  # the garbage page
+        row = self._garbage[slot_idx].copy()
         row[: len(pages)] = pages
         self.cache.page_table[slot_idx] = self._ids(row)
         if self.speculative_k:
@@ -355,4 +408,4 @@ class PagedServingEngine(ServingEngine):
             self._release(self._slot_pages.pop(slot_idx))
             # reset the table row: a recycled page must not be written
             # through a stale mapping
-            self.cache.page_table[slot_idx] = self._garbage_row
+            self.cache.page_table[slot_idx] = self._garbage_t[slot_idx]

@@ -4,6 +4,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py    # all phases, a few minutes with the build
     python3 chip_smoke.py --gap-seeds 61,71,81    # phase 6's greedy readings alone, per seed
+    python3 chip_smoke.py --sharded    # phase 2's sharded rows (K1, K2, K3) and phase 8 alone
+    python3 chip_smoke.py --nccl 4    # phase 8 alone over NCCL on 4 cards, one a rank
 
 Phases (any failure raises and exits non-zero):
 
@@ -126,6 +128,28 @@ Phases (any failure raises and exits non-zero):
    3 steps (B6 and B13).  ms and tokens/s a step, peak device memory, and
    for each tree a traced step's device time by kernel, with its forward
    and backward Hopper kernels' shares (B1 and B14, B6 and B13).
+
+8. Tensor-parallel serving at full size: the 28-layer int4g32 tree built
+   once, saved under the build directory and memory-mapped by two spawned
+   ranks of a (1, 2) mesh (gloo, both on this card), each taking its slice
+   (``shard_params``).  (a) ``DistributedServingEngine`` with ``kv_shard_t``
+   (an 8192-slot cache, 4096 a rank): five prompts of 512-4200 tokens
+   through ring prefill, the longest crossing into rank 1's slots; (b) ``DistributedPagedServingEngine(
+   shard_model_pages=True)``, pages of 256 split by phase, chunked
+   admission with the prefix cache: phase 6 (a)'s six greedy prompts; 32
+   greedy tokens each.  Checks: the ranks token-equal, every request within
+   its budget, K1 / K2 and K3 launched 28 times a decode step on each rank
+   and the unsharded decode forms never, every shard the traffic reaches
+   live in the decode merges on every rank, every greedy token within
+   ``GREEDY_GAP_TOL`` of the single-device dense ``prefill_chunk``
+   reference (phase 6's ``greedy_gaps``) and the shifted stream not.  Then
+   decode-only steps on four 256-token prompts: ms a decode step, the
+   collectives it runs and the host ms in them, per rank (gloo through the
+   host on one card: a correctness run, not a multi-GPU speed figure).
+   Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
+   (dense and paged, bit for bit) against their plain versions, the
+   shards merged against the unsharded function in f32 within the
+   roundings the design allows (``hold_merge``).
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
@@ -2289,7 +2313,7 @@ def chunk_step_busy(torch, engine, name, seed):
     return res
 
 
-def greedy_gaps(torch, params, cfg, reqs_done, prompts):
+def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ):
     """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
     fresh dense cache (one chunk, all logits), and the largest relative gap
     between each position's max logit and the emitted token's logit; and the
@@ -2318,7 +2342,7 @@ def greedy_gaps(torch, params, cfg, reqs_done, prompts):
             if kw["temperature"] > 0 or len(req.generated) < 2:
                 continue
             seq = prompt + req.generated[:-1]
-            cache = M.init_kv_cache(cfg, 1, SEQ, torch.bfloat16, dev)
+            cache = M.init_kv_cache(cfg, 1, cache_len, torch.bfloat16, dev)
             ids = torch.tensor([seq], device=dev)
             zero = torch.zeros((1,), dtype=torch.int32, device=dev)
             logits, _ = M.prefill_chunk(params, cfg, ids, zero, zero + len(seq), cache,
@@ -2452,6 +2476,612 @@ def engines_slice(torch, smi, seed=61, survey=False):
         require_fused_append(per_step, cfg, f"({run}) a decode step")
     counts = {k: ca[k] + cb[k] + cc[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
     counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"]
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 (sharded forms): K1, K2, K3 against their plain versions
+# ---------------------------------------------------------------------------
+
+# K1's and K2's (m, l) against their plain versions: the running max of the
+# scaled scores, f32 sums of bf16 products in another order, and its sum of
+# f32 exponentials; the relative error of each, beside its output's.
+LSE_TOL = 1e-4
+SHARD_TP = 2  # the model axis of the sharded rows and of phase 8
+SHARD_T = 8192  # phase 8 (a)'s cache: 4096 slots a rank
+SHARD_LENGTHS = (8000, 5000, 3000, -1)
+
+
+class _MeshAt:
+    """Model rank ``r`` of a (1, tp) mesh, for the local-table helpers in one
+    process."""
+
+    def __init__(self, tp, r):
+        self.n_data, self.n_model, self.data_index, self.model_index = 1, tp, 0, r
+
+
+def hold_lse(torch, name, got, want, where):
+    """K1's / K2's (out, m, l) against the plain version's: out within
+    KERNEL_TOL of max|plain|, m and l within LSE_TOL relative, −inf and 0
+    exactly where the shard holds no row of a (b, g).  Returns (max |Δout|,
+    its relative error, m's, l's)."""
+    (out, m, l), (out_p, m_p, l_p) = got, want
+    _, rel = rel_err(out, out_p)
+    empty = torch.isinf(m_p)
+    require(torch.equal(torch.isinf(m), empty) and not l[empty].any()
+            and not out[empty].float().any(),
+            f"{name} {where}: an empty shard's (out, m, l) are not (0, -inf, 0)")
+    fin = ~empty
+    dm = ((m[fin] - m_p[fin]).abs() / m_p[fin].abs().clamp_min(1.0)).max().item() \
+        if fin.any() else 0.0
+    dl = ((l[fin] - l_p[fin]).abs() / l_p[fin]).max().item() if fin.any() else 0.0
+    require(torch.isfinite(out.float()).all() and rel <= KERNEL_TOL and dm <= LSE_TOL
+            and dl <= LSE_TOL, f"{name} {where}: out {rel}, m {dm}, l {dl}")
+    return rel_err(out, out_p)[0], rel, dm, dl
+
+
+def hold_merge(torch, name, parts, want32, abs32, limit, where):
+    """The shards' partials (out, m, l) merged (``merge_lse_partials``) held
+    to the bound the design allows beyond the unsharded function in f32
+    (``want32``): the merged output's bf16 rounding (half an ulp of the
+    larger of it and want32), one bf16 rounding of each partial (2^-8 ·
+    Σ_r w_r|out_r| / Σ_r w_r, w_r the merge's weights) and, where the kernel
+    rounds p to bf16 for PV (K1), one rounding of each p (2^-8 · Σ p|v| / l,
+    ``abs32``: the function over |v|, else None).  The largest excess over
+    max|want32| must be within ``limit``, and a control that merges the live
+    shards with equal weights (what the merge gives if it drops m and l)
+    beyond it.  Returns (merged, excess, control's excess)."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    out, m, l = parts
+    m_max = m.amax(dim=0)
+    w = (l.double() * torch.exp(m.double() - torch.where(torch.isfinite(m_max), m_max,
+                                                         0.0).double()[None]))
+    allowed = (2.0 ** -8) * (out.double().abs() * w[..., None]).sum(0) / (
+        w.sum(0).clamp_min(1e-300)[..., None])
+    if abs32 is not None:
+        allowed = allowed + (2.0 ** -8) * abs32.double()
+    scale = max(want32.abs().max().item(), 1e-30)
+
+    def excess(got):
+        mag = torch.maximum(want32.abs(), got.float().abs())
+        half_ulp = torch.where(mag == 0, 0.0,
+                               torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 9))
+        return ((got.double() - want32.double()).abs() - half_ulp.double() - allowed
+                ).clamp_min(0.0).max().item() / scale
+
+    merged = A.merge_lse_partials(out, m, l, torch.bfloat16)
+    live = (l > 0).float()[..., None]
+    equal = ((out.float() * live).sum(0) / live.sum(0).clamp_min(1.0)).to(torch.bfloat16)
+    err, ctrl = excess(merged), excess(equal)
+    require(err <= limit < ctrl, f"{name} {where}: the merged shards beyond the design's bound "
+                                 f"{err} (limit {limit}), equal-weight control {ctrl}")
+    return merged, err, ctrl
+
+
+def lse_library(torch, q, k, v, valid, sm):
+    """One PyTorch call that computes the output and the log-sum-exp of the
+    same attention: the memory-efficient SDPA with ``compute_log_sumexp``, K
+    and V expanded to the heads beforehand (no GQA there), masked by an
+    additive bias.  A yardstick the port never calls; None if the call
+    refuses the shapes on this build."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    B, G, Hg, D = q.shape
+    qh = q.reshape(B, G * Hg, 1, D)
+    kh = [k[l][:, :, None].expand(B, G, Hg, *k.shape[-2:]).reshape(B, G * Hg, -1, D)
+          for l in range(2)]
+    vh = [v[l][:, :, None].expand(B, G, Hg, *v.shape[-2:]).reshape(B, G * Hg, -1, D)
+          for l in range(2)]
+    bias = torch.where(valid, 0.0, -1e30).to(q.dtype)[:, None, None, :].expand(
+        B, G * Hg, 1, valid.shape[1])
+    try:
+        return cuda_event_ms(lambda i: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh[i % 2], vh[i % 2], bias, True, scale=sm), iters=56)
+    except RuntimeError as e:  # a yardstick only: its absence fails nothing
+        log(f"  (the lse library call refused these shapes: {str(e).splitlines()[0]})")
+        return None
+
+
+def synced_ms(torch, fn, iters):
+    """Host-clock ms a call of ``fn(i)``, synchronized before and after the
+    loop: for a plain version that reads a device value on the host (a
+    ``nonzero``), which ``cuda_event_ms``'s hold of the stream cannot
+    outlast."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def check_sharded_attention(torch):
+    """K1 (B4's return_lse form on a T-shard), K2 (B10's strided return_lse
+    form on a phase of the pool) and K3 (the fused RoPE + KV append on a
+    sharded cache) at phase 8's shapes, both shards of a tp = 2 model axis
+    in this process.  K1 and K2 against their plain versions (out, m, l;
+    ``hold_lse``), the two shards merged (``merge_lse_partials``) held by
+    ``hold_merge`` to B12_TOL (K1) / B10_TOL (K2) beyond the roundings the
+    design allows against the unsharded function in f32 (each shard's output
+    is rounded to bf16 before the merge, as JAX's is), an equal-weight merge
+    beyond it, a row empty on every shard merged to 0; the merge against the
+    unsharded kernel is reported.  K3 bit-equal to its plain version on
+    each shard, the shards' writes together equal to the unsharded
+    append's, q rotated on every rank.  Each timed over the 28 layers beside its byte bound, its
+    plain version and, for K1 / K2, the memory-efficient SDPA with
+    ``compute_log_sumexp`` over the shard (K2's after a page gather)."""
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+    from chatglm_q_tpu_torch.ops import attention as A
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    L, B, G, Hg, D, tp = 28, len(SHARD_LENGTHS), 2, 16, 128, SHARD_TP
+    T, sm = SHARD_T, 1.0 / math.sqrt(D)
+    Tl = T // tp
+    out = {}
+
+    def bf(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    # K1 over the two T-shards of an 8192-slot cache
+    kc, vc = bf(L, B, G, T, D), bf(L, B, G, T, D)
+    ks = [kc[..., r * Tl:(r + 1) * Tl, :].contiguous() for r in range(tp)]
+    vs = [vc[..., r * Tl:(r + 1) * Tl, :].contiguous() for r in range(tp)]
+    q = bf(B, G, Hg, D)
+    lens = i32(*SHARD_LENGTHS)
+    parts, errs = [], []
+    for r in range(tp):
+        got = A.flash_attention_decode_lse(q, ks[r][0], vs[r][0], lens, sm, r * Tl)
+        torch.cuda.synchronize()
+        errs.append(hold_lse(torch, "flash_attention_decode_lse", got,
+                             A.flash_attention_decode_lse_plain(q, ks[r][0], vs[r][0], lens, sm,
+                                                                r * Tl), f"shard {r}"))
+        require(all(torch.equal(a, b) for a, b in zip(
+            got, A.flash_attention_decode_lse(q, ks[r][0], vs[r][0], lens, sm, r * Tl))),
+            "flash_attention_decode_lse: two calls on the same inputs differ")
+        parts.append(got)
+    # K1's function in f32 over the whole cache: its plain version on f32
+    # inputs (p is not rounded), and over |v| for the bound of p's rounding
+    qf, kf, vf = q.float(), kc[0].float(), vc[0].float()
+    want32 = A.flash_attention_decode_lse_plain(qf, kf, vf, lens, sm)[0]
+    abs32 = A.flash_attention_decode_lse_plain(qf, kf, vf.abs(), lens, sm)[0]
+    del qf, kf, vf
+    merged, k1_beyond, k1_ctrl = hold_merge(
+        torch, "K1", tuple(torch.stack(x) for x in zip(*parts)), want32, abs32, B12_TOL, "main")
+    whole = A.flash_attention_decode(q, kc[0], vc[0], lens, sm)
+    _, merge_rel = rel_err(merged, whole)
+    require(not merged[3].float().any(),
+            f"K1: row -1 merged to {merged[3].float().abs().max().item()}, not 0")
+    log(f"  K1 shards merged: beyond the design's bound {k1_beyond:.3e} of max|out| (limit "
+        f"{B12_TOL:.1e}), equal-weight control {k1_ctrl:.3e}; against the unsharded kernel "
+        f"{merge_rel:.3e} of max|out|")
+    del want32, abs32
+    for r in range(tp):
+        n = [max(0, min(x + 1 - r * Tl, Tl)) for x in SHARD_LENGTHS]
+        valid = torch.arange(Tl, device="cuda")[None, :] < torch.tensor(n, device="cuda")[:, None]
+        ms = cuda_event_ms(lambda i: A.flash_attention_decode_lse(q, ks[r][i % L], vs[r][i % L],
+                                                                  lens, sm, r * Tl), iters=56)
+        plain = cuda_event_ms(lambda i: A.flash_attention_decode_lse_plain(
+            q, ks[r][0], vs[r][0], lens, sm, r * Tl), iters=5)
+        lib = lse_library(torch, q, ks[r], vs[r], valid, sm)
+        b, by = bound_ms(2 * q.numel() * 2 + 2 * B * G * Hg * 4 + sum(n) * G * D * 2 * 2 + B * 4,
+                         4.0 * sum(n) * G * Hg * D)
+        key = "flash_attention_decode_lse" + ("" if r == 0 else f" shard {r}")
+        out[key] = dict(
+            max_abs_err=errs[r][0], rel_err=errs[r][1], m_rel_err=errs[r][2],
+            l_rel_err=errs[r][3], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=lib, merged_vs_unsharded_rel_err=merge_rel,
+            merged_beyond_bound=k1_beyond, merged_equal_weight_control=k1_ctrl,
+            shape=f"q (B={B}, G={G}, Hg={Hg}, D={D}), shard {r} of T={T}: (B, G, {Tl}, D) "
+                  f"slots {r * Tl}.., lengths={list(SHARD_LENGTHS)}, valid rows {n}")
+    del ks, vs
+
+    # K3 on the dense T-shards: bit-equal to its plain version on each shard,
+    # both shards' writes equal to the unsharded append, q rotated everywhere
+    table = torch.from_numpy(precompute_freqs_cis(D, T + 1)).to("cuda", torch.bfloat16)
+    kv = bf(B, 2 * G * D)
+    ql = bf(B, 1, Hg, D)  # rank 0's heads: group 0 (rank 1's: group 1)
+    for st in (i32(8000, 5000, 3000, 2), i32(T - 1, T, T + 5, Tl - 1), i32(Tl, Tl + 1, 0, 4095)):
+        freqs = table[(st.long() + 1).clamp(max=T)]
+        kw, vw = kc.clone(), vc.clone()
+        A.rope_kv_append_plain(q, kv, freqs, kw, vw, 5, st)
+        for r in range(tp):
+            shard = A.KVShard(offset=r * Tl, total=T)
+            k_r = kc[..., r * Tl:(r + 1) * Tl, :].contiguous()
+            v_r = vc[..., r * Tl:(r + 1) * Tl, :].contiguous()
+            k_p, v_p = k_r.clone(), v_r.clone()
+            got = A.rope_kv_append_sharded(ql, kv, freqs, k_r, v_r, 5, st, shard)
+            torch.cuda.synchronize()
+            want = A.rope_kv_append_sharded_plain(ql, kv, freqs, k_p, v_p, 5, st, shard)
+            require(torch.equal(got, want) and torch.equal(k_r, k_p) and torch.equal(v_r, v_p),
+                    f"rope_kv_append_sharded shard {r}, starts {st.tolist()}: differs from its "
+                    "plain version")
+            require(torch.equal(k_r, kw[..., r * Tl:(r + 1) * Tl, :])
+                    and torch.equal(v_r, vw[..., r * Tl:(r + 1) * Tl, :]),
+                    f"rope_kv_append_sharded shard {r}, starts {st.tolist()}: its writes differ "
+                    "from the unsharded append's")
+            del k_r, v_r, k_p, v_p
+        del kw, vw
+    st = i32(*[x if x >= 0 else 0 for x in SHARD_LENGTHS])
+    freqs = table[(st.long() + 1)]
+    k0, v0 = kc[..., :Tl, :].contiguous(), vc[..., :Tl, :].contiguous()
+    shard = A.KVShard(offset=0, total=T)
+    ms = cuda_event_ms(lambda i: A.rope_kv_append_sharded(ql, kv, freqs, k0, v0, i % L, st, shard),
+                       iters=56)
+    plain = synced_ms(torch, lambda i: A.rope_kv_append_sharded_plain(ql, kv, freqs, k0, v0,
+                                                                      i % L, st, shard), 14)
+    owned = sum(1 for x in st.tolist() if x < Tl)
+    # q read and written, the kv row and freqs row read, k and v written
+    # where the shard holds the slot, starts read
+    b, by = bound_ms(B * (2 * ql[0].numel() * 2 + G * D * 2 * 2 + D * 2 + 4)
+                     + owned * 2 * G * D * 2, 6.0 * B * (Hg + G) * D / 2, PEAK_F32_FLOPS)
+    out["rope_kv_append_sharded"] = dict(
+        max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None, shape=f"q (B={B}, 1, Hg={Hg}, D={D}) rank 0's heads, T-shard 0 "
+                               f"(L={L}, B={B}, G={G}, {Tl}, D={D}) of T={T}, starts "
+                               f"{st.tolist()}; exact on both shards, starts in each, at the "
+                               "wall and past it")
+    del kc, vc, k0, v0
+
+    # K2 over the two phases of a pool of 256-row pages: logical block j of a
+    # row on phase j % 2's sub-pool
+    P, MP = PAGE, 16
+    sp = B * MP // tp + 1  # a sub-pool: its garbage page, then the rows' pages
+    pt = torch.tensor([[(j % tp) * sp + 1 + b * (MP // tp) + j // tp for j in range(MP)]
+                       for b in range(B)], dtype=torch.int32, device="cuda")
+    kp, vp = bf(L, tp * sp, G, P, D), bf(L, tp * sp, G, P, D)
+    kps = [kp[:, r * sp:(r + 1) * sp].contiguous() for r in range(tp)]
+    vps = [vp[:, r * sp:(r + 1) * sp].contiguous() for r in range(tp)]
+    tables = [A.msharded_page_table(pt, _MeshAt(tp, r), sp) for r in range(tp)]
+    cap = MP * P
+    worst = {"out": 0.0, "m": 0.0, "l": 0.0, "merged": 0.0, "beyond": 0.0, "control": math.inf}
+    k2_rows = {}
+    for where, lens2 in (("main", i32(3500, 2100, 700, -1)),
+                         ("edges", i32(-1, 0, P - 1, P, 2 * P - 1, 2 * P, cap - 1, cap + 30))):
+        Bx = lens2.shape[0]
+        q2 = bf(Bx, G, Hg, D)
+        ptx = pt.repeat(2, 1)[:Bx] if Bx > B else pt
+        tabs = [t.repeat(2, 1)[:Bx] if Bx > B else t for t in tables]
+        parts = []
+        for r in range(tp):
+            got = A.flash_attention_decode_paged_lse(q2, kps[r], vps[r], 0, tabs[r], lens2, sm,
+                                                     tp, r)
+            torch.cuda.synchronize()
+            e = hold_lse(torch, "flash_attention_decode_paged_lse", got,
+                         A.flash_attention_decode_paged_lse_plain(q2, kps[r], vps[r], 0, tabs[r],
+                                                                  lens2, sm, tp, r),
+                         f"{where} phase {r}")
+            worst.update(out=max(worst["out"], e[1]), m=max(worst["m"], e[2]),
+                         l=max(worst["l"], e[3]))
+            parts.append(got)
+            if where == "main":
+                k2_rows[r] = e
+        # B10's function in f32 over the gathered pages (p in f32: no term
+        # for p's rounding)
+        want32 = decode_v2_f32(torch, q2, A.gather_pages(kp[0], ptx), A.gather_pages(vp[0], ptx),
+                               lens2, sm)
+        merged, beyond, ctrl = hold_merge(torch, "K2", tuple(torch.stack(x) for x in zip(*parts)),
+                                          want32, None, B10_TOL, where)
+        whole = A.flash_attention_decode_paged(q2, kp, vp, 0, ptx, lens2, sm)
+        _, mrel = rel_err(merged, whole)
+        require(not merged[(lens2 < 0).nonzero()[:, 0]].float().any(),
+                f"K2 {where}: a length -1 row merged to a nonzero output")
+        worst.update(merged=max(worst["merged"], mrel), beyond=max(worst["beyond"], beyond),
+                     control=min(worst["control"], ctrl))
+    log(f"  K2 phases against the plain version (out, m, l), the merge beyond the design's "
+        f"bound (limit {B10_TOL:.1e}), its equal-weight control (least) and the merge against "
+        f"the unsharded kernel: {json.dumps(worst)}")
+    lens2 = i32(3500, 2100, 700, -1)
+    for r in range(tp):
+        q2 = bf(B, G, Hg, D)
+        blocks = [(max(0, x + 1) + P - 1) // P for x in lens2.tolist()]
+        n = [sum(min(P, x + 1 - j * P) for j in range(nb) if j % tp == r)
+             for x, nb in zip(lens2.tolist(), blocks)]
+        ms = cuda_event_ms(lambda i: A.flash_attention_decode_paged_lse(
+            q2, kps[r], vps[r], i % L, tables[r], lens2, sm, tp, r), iters=56)
+        plain = cuda_event_ms(lambda i: A.flash_attention_decode_paged_lse_plain(
+            q2, kps[r], vps[r], 0, tables[r], lens2, sm, tp, r), iters=5)
+        t_loc = torch.arange(tables[r].shape[1] * P, device="cuda")
+        logical = ((t_loc // P) * tp + r) * P + t_loc % P
+        valid = logical[None, :] <= lens2.long()[:, None]
+        dense = [torch.stack([A.gather_pages(kps[r][l], tables[r]) for l in range(2)]),
+                 torch.stack([A.gather_pages(vps[r][l], tables[r]) for l in range(2)])]
+        lib = lse_library(torch, q2, dense[0], dense[1], valid, sm)
+        if lib is not None:  # with the page gather, as B10's library row
+            lib += cuda_event_ms(lambda i: (A.gather_pages(kps[r][i % L], tables[r]),
+                                            A.gather_pages(vps[r][i % L], tables[r])), iters=56)
+        b, by = bound_ms(2 * q2.numel() * 2 + 2 * B * G * Hg * 4 + sum(n) * G * D * 2 * 2
+                         + B * tables[r].shape[1] * 4 + B * 4, 4.0 * sum(n) * G * Hg * D)
+        key = "flash_attention_decode_paged_lse" + ("" if r == 0 else f" phase {r}")
+        out[key] = dict(max_abs_err=k2_rows[r][0], rel_err=k2_rows[r][1],
+                        m_rel_err=k2_rows[r][2], l_rel_err=k2_rows[r][3], ms=ms, plain_ms=plain,
+                        bound_ms=b, bound_by=by, library_ms=lib, merged_vs_unsharded_rel_err=worst["merged"],
+                        merged_beyond_bound=worst["beyond"],
+                        merged_equal_weight_control=worst["control"],
+                        shape=f"B={B} G={G} Hg={Hg} D={D} P={P}, phase {r} of stride {tp}: "
+                              f"local table (B, {tables[r].shape[1]}) of MP={MP}, lengths="
+                              f"{lens2.tolist()}, valid rows {n}")
+        del dense
+
+    # K3 on the model-sharded pool: each phase's writes, exact, and together
+    # the unsharded B9-with-RoPE's
+    for st in (i32(3500, 2100, 700, 5), i32(cap - 1, cap, cap + 100, 256)):
+        freqs = table[(st.long() + 1).clamp(max=T)]
+        kw, vw = kp.clone(), vp.clone()
+        A.rope_kv_append_plain(q, kv, freqs, kw, vw, 7, st, pt)
+        for r in range(tp):
+            shard = A.KVShard(stride=tp, phase=r, total=cap)
+            k_r, v_r = kps[r].clone(), vps[r].clone()
+            k_p, v_p = k_r.clone(), v_r.clone()
+            got = A.rope_kv_append_sharded(ql, kv, freqs, k_r, v_r, 7, st, shard, tables[r])
+            torch.cuda.synchronize()
+            want = A.rope_kv_append_sharded_plain(ql, kv, freqs, k_p, v_p, 7, st, shard,
+                                                  tables[r])
+            require(torch.equal(got, want) and torch.equal(k_r, k_p) and torch.equal(v_r, v_p),
+                    f"rope_kv_append_sharded phase {r}, starts {st.tolist()}: differs from its "
+                    "plain version")
+            require(torch.equal(k_r, kw[:, r * sp:(r + 1) * sp])
+                    and torch.equal(v_r, vw[:, r * sp:(r + 1) * sp]),
+                    f"rope_kv_append_sharded phase {r}, starts {st.tolist()}: its writes differ "
+                    "from the unsharded append's")
+            del k_r, v_r, k_p, v_p
+        del kw, vw
+    st = i32(3500, 2100, 700, 5)
+    freqs = table[(st.long() + 1)]
+    shard = A.KVShard(stride=tp, phase=0, total=cap)
+    ms = cuda_event_ms(lambda i: A.rope_kv_append_sharded(ql, kv, freqs, kps[0], vps[0], i % L,
+                                                          st, shard, tables[0]), iters=56)
+    plain = synced_ms(torch, lambda i: A.rope_kv_append_sharded_plain(
+        ql, kv, freqs, kps[0], vps[0], i % L, st, shard, tables[0]), 14)
+    b, by = bound_ms(B * (2 * ql[0].numel() * 2 + 2 * G * D * 2 + D * 2 + 8),
+                     6.0 * B * (Hg + G) * D / 2, PEAK_F32_FLOPS)
+    out["rope_kv_append_sharded paged"] = dict(
+        max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None, shape=f"q (B={B}, 1, Hg={Hg}, D={D}) rank 0's heads, phase 0 of "
+                               f"stride {tp}: pool (L={L}, {sp}, G={G}, P={P}, D={D}), local "
+                               f"table (B, {tables[0].shape[1]}), starts {st.tolist()}; exact "
+                               "on both phases, at the capacity and past it")
+    del kp, vp, kps, vps
+    log_attention_rows(out, 38)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: tensor-parallel serving on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_NEW_TOKENS = 32
+# the kernels a tensor-parallel decode step runs (28 each, per rank), and the
+# unsharded forms it must not
+SHARDED_DECODE = {"a": ("flash_attention_decode_lse", "rope_kv_append_sharded"),
+                  "b": ("flash_attention_decode_paged_lse", "rope_kv_append_sharded")}
+UNSHARDED_DECODE = ("flash_attention_decode", "flash_attention_decode_paged", "rope_kv_append",
+                    "kv_cache_write_idx", "kv_pool_write_idx", "flash_attention_decode_v2")
+
+
+def sharded_prompts(torch, seed):
+    """(a): five prompts of 512-4200 tokens (multiples of tp: the ring splits
+    each over the ranks); the 4200-token one crosses the 4096 slots of rank
+    0's T-shard, so its prefill writes on rank 1 and its decode merges two
+    live shards.  (b): phase 6 (a)'s six greedy prompts of 300-1100 tokens,
+    four sharing a 512-token head.  32 greedy tokens each."""
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(temperature=0.0, max_new_tokens=SHARD_NEW_TOKENS)
+    a = [(torch.randint(3, 65000, (n,), generator=g).tolist(), kw)
+         for n in (4200, 2048, 512, 1200, 760)]
+    b = [(p, kw) for p, k in engine_prompts(torch, seed)[0] if k["temperature"] == 0.0]
+    return a, b
+
+
+def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
+    """One rank of phase 8 on a (1, tp) mesh: its slice of the memory-mapped
+    tree on its card (gloo: every rank on this one; NCCL: card ``rank``),
+    then (a) the T-sharded dense engine and (b) the model-sharded paged
+    engine, each draining its requests; returns their tokens, launch counts,
+    decode steps, host times and, for each shard, the (layer, decode step,
+    b, g) whose partial the merge took with rows in it (l > 0)."""
+    import torch
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.ops import attention as A
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+    from chatglm_q_tpu_torch.serving import (DistributedPagedServingEngine,
+                                             DistributedServingEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ChatGLM2Config()
+    mesh = SH.make_mesh(1, tp)
+    t0 = time.perf_counter()
+    params = SH.shard_params(torch.load(tree_path, mmap=True, weights_only=True), mesh, cfg,
+                             "int4g32", device="cuda")
+    torch.cuda.synchronize()
+    res = {"load_s": time.perf_counter() - t0}
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    runs = {
+        "a": (lambda: DistributedServingEngine(
+            load, params, mesh=mesh, max_batch=4, max_seq_len=SHARD_T, decode_chunk=16,
+            rt=TorchRuntimeConfig(kv_shard_t=True)), prompts_a),
+        "b": (lambda: DistributedPagedServingEngine(
+            load, params, mesh=mesh, shard_model_pages=True, num_pages=POOL_PAGES,
+            page_size=PAGE, prefill_chunk_size=PAGE, prefix_cache=True, max_batch=4,
+            max_seq_len=SEQ, decode_chunk=16), prompts_b),
+    }
+    merge = A.merge_lse_partials
+    for run, (make, reqs) in runs.items():
+        eng = make()
+        live = torch.zeros(tp, dtype=torch.long, device="cuda")
+
+        def probe(out, m, l, dtype):  # the decode merges only: count each shard's live (b, g)
+            live.add_((l[..., 0] > 0).flatten(1).sum(1))
+            return merge(out, m, l, dtype)
+
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.sync_submissions([p for p, _ in reqs] if rank == 0 else None, **reqs[0][1])
+        decode_walls = []
+        A.merge_lse_partials = probe
+        try:
+            while eng.has_work:
+                decode = _decode_only(eng)
+                ts = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                if decode:
+                    decode_walls.append(time.perf_counter() - ts)
+                if eng.stats["steps"] >= 1000:
+                    raise RuntimeError(f"phase 8 ({run}): the engine did not drain")
+        finally:
+            A.merge_lse_partials = merge
+        wall = time.perf_counter() - t0
+        by_id = {r.req_id: r.generated for r in eng.finished}
+        walls = sorted(decode_walls)
+        res[run] = {"tokens": [by_id[i] for i in sorted(by_id)], "counts": ops.launch_counts(),
+                    "decode_steps": eng.stats["decode_chunks"] * eng.chunk, "wall_s": wall,
+                    "decode_ms_per_step_median": (walls[len(walls) // 2] * 1e3 / eng.chunk
+                                                  if walls else None),
+                    "live_per_shard": live.tolist(), "stats": dict(eng.stats)}
+        if run == "b":
+            res[run]["pages_in_use"] = eng.pages_in_use
+        res[run]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
+        del eng
+        torch.cuda.empty_cache()
+    return res
+
+
+def sharded_decode_timing(torch, eng, mesh):
+    """Decode-only steps of a drained engine on four fresh 256-token prompts
+    (no prefix hit): the host wall of each such step (``decode_chunk``
+    decode steps) and the collectives it ran and the host time inside them,
+    each per decode step."""
+    g = torch.Generator().manual_seed(SHARD_TP)
+    for _ in range(4):
+        eng.submit(torch.randint(3, 65000, (256,), generator=g).tolist(), temperature=0.0,
+                   max_new_tokens=3 * eng.chunk)
+    walls, calls, secs = [], [], []
+    while eng.has_work:
+        decode = _decode_only(eng)
+        c0, s0 = mesh.calls, mesh.seconds
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if decode:
+            walls.append((time.perf_counter() - ts) * 1e3 / eng.chunk)
+            calls.append((mesh.calls - c0) / eng.chunk)
+            secs.append((mesh.seconds - s0) * 1e3 / eng.chunk)
+    return {"decode_ms_per_step": walls, "collectives_per_step": calls,
+            "collective_ms_per_step": secs}
+
+
+def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP):
+    """Phase 8: the 28-layer int4g32 random tree built once here, saved to
+    the build directory and memory-mapped by ``tp`` spawned ranks (gloo: all
+    on this card; NCCL, ``--nccl``: one card a rank), each slicing its
+    shard; both distributed engines driven on them.  Checks: the ranks agree
+    token for token; every request finishes within its budget; K1 / K2 and
+    K3 launch 28 times a decode step on each rank and the unsharded decode
+    forms never; every shard that the longest request reaches (at least
+    two) gave the decode merges live partials, on every rank; every greedy
+    token within GREEDY_GAP_TOL of the argmax of the single-device dense
+    prefill_chunk over prompt + stream (phase 6's ``greedy_gaps``), the
+    shifted stream not."""
+    from types import SimpleNamespace
+
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.utils.distributed import run_spmd
+
+    cfg = ChatGLM2Config()
+    params = random_quantized_params(cfg, "int4g32",
+                                     torch.Generator(device="cuda").manual_seed(seed + 2))
+    a_reqs, b_reqs = sharded_prompts(torch, seed)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"sharded_tree_{seed}.pt"
+    t0 = time.perf_counter()
+    torch.save(map_tree(params, lambda t: t.cpu()), path)
+    save_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        ranks = run_spmd(sharded_rank, tp, backend, timeout=900,
+                         args=(str(path), a_reqs, b_reqs, tp))
+        spmd_s = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    out = {"card": smi, "backend": backend, "tp": tp, "tree_save_s": save_s, "ranks_s": spmd_s,
+           "load_s": [r["load_s"] for r in ranks]}
+    counts = {}
+    for run, reqs in (("a", a_reqs), ("b", b_reqs)):
+        r0 = ranks[0][run]
+        require(all(r[run]["tokens"] == r0["tokens"] for r in ranks),
+                f"phase 8 ({run}): the ranks' tokens differ")
+        require(len(r0["tokens"]) == len(reqs) and all(
+            0 < len(t) <= kw["max_new_tokens"] for t, (_, kw) in zip(r0["tokens"], reqs)),
+            f"phase 8 ({run}): unfinished or over budget: {[len(t) for t in r0['tokens']]}")
+        for i, r in enumerate(ranks):
+            c, steps = r[run]["counts"], r[run]["decode_steps"]
+            for kern in SHARDED_DECODE[run]:
+                require(c[kern] == cfg.num_layers * steps,
+                        f"phase 8 ({run}) rank {i}: {kern} launched {c[kern]} times in {steps} "
+                        f"decode steps (want {cfg.num_layers} a step)")
+            bad = {k: c[k] for k in UNSHARDED_DECODE if c[k]}
+            require(not bad, f"phase 8 ({run}) rank {i}: launched unsharded decode forms {bad}")
+        # the shards the longest request reaches: its positions cross rank
+        # r's first slot (a) or its first logical page of phase r (b)
+        first = SHARD_T // tp if run == "a" else PAGE
+        longest = max(len(p) for p, _ in reqs) + SHARD_NEW_TOKENS
+        reached = [j for j in range(tp) if j * first < longest]
+        require(len(reached) >= 2, f"phase 8 ({run}): the traffic reaches shard {reached} only")
+        for i, r in enumerate(ranks):
+            live = r[run]["live_per_shard"]
+            require(all(live[j] > 0 for j in reached),
+                    f"phase 8 ({run}) rank {i}: shards {reached} should all give live partials "
+                    f"to the decode merge, (layer, step, b, g) counts {live}")
+        if run == "b":
+            require(all(r["b"]["pages_in_use"] == 0 for r in ranks),
+                    "phase 8 (b): pages in use after the drain")
+        done = [SimpleNamespace(generated=t) for t in r0["tokens"]]
+        gaps = greedy_gaps(torch, params, cfg, done, reqs,
+                           cache_len=max(len(p) for p, _ in reqs) + SHARD_NEW_TOKENS)
+        out[run] = {"gaps": gaps, "decode_steps": r0["decode_steps"],
+                    "decode_ms_per_step_median": [r[run]["decode_ms_per_step_median"]
+                                                  for r in ranks],
+                    "decode_timing": [r[run]["decode_timing"] for r in ranks],
+                    "wall_s": [r[run]["wall_s"] for r in ranks],
+                    "launches_per_decode_step": {
+                        k: r0["counts"][k] / r0["decode_steps"] for k in SHARDED_DECODE[run]},
+                    "counts": {k: v for k, v in r0["counts"].items() if v},
+                    "live_per_shard": [r[run]["live_per_shard"] for r in ranks],
+                    "stats": r0["stats"]}
+        timing = [r[run]["decode_timing"] for r in ranks]
+        log(f"  ({run}) {len(reqs)} requests, {sum(len(t) for t in r0['tokens'])} tokens on {tp} "
+            f"ranks ({backend}) in {out[run]['wall_s'][0]:.1f} s; launches a decode step "
+            f"{json.dumps(out[run]['launches_per_decode_step'])}; live (layer, step, b, g) a "
+            f"shard {out[run]['live_per_shard'][0]}; greedy gap f32 "
+            f"{gaps['f32'][0]:.4e}, shifted control {gaps['f32'][1]:.3e}  [{smi}]")
+        log(f"    decode-only steps at batch 4 (256-token prompts; rank 0 / 1 / .., {backend}): "
+            f"ms a decode step "
+            + " / ".join(",".join(f"{x:.1f}" for x in t["decode_ms_per_step"]) for t in timing)
+            + "; collectives a decode step "
+            + " / ".join(",".join(f"{x:.0f}" for x in t["collectives_per_step"]) for t in timing)
+            + ", host ms in them "
+            + " / ".join(",".join(f"{x:.1f}" for x in t["collective_ms_per_step"])
+                         for t in timing))
+        require(gaps["f32"][0] <= GREEDY_GAP_TOL,
+                f"phase 8 ({run}): greedy gap {gaps['f32'][0]} > {GREEDY_GAP_TOL}")
+        require(gaps["f32"][1] > GREEDY_GAP_TOL,
+                f"phase 8 ({run}): the shifted control passes ({gaps['f32'][1]})")
+        for k, v in r0["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    counts["rope_kv_append_sharded"] = ranks[0]["a"]["counts"]["rope_kv_append_sharded"]
+    counts["rope_kv_append_sharded paged"] = ranks[0]["b"]["counts"]["rope_kv_append_sharded"]
+    log(f"  tree saved in {save_s:.1f} s; ranks done in {spmd_s:.1f} s (slices loaded in "
+        + " / ".join(f"{x:.1f}" for x in out["load_s"]) + " s)")
     return counts, out
 
 
@@ -2678,6 +3308,28 @@ def main() -> int:
     if "--gap-seeds" in sys.argv:
         seeds = sys.argv[sys.argv.index("--gap-seeds") + 1]
         return gap_survey(torch, smi, [int(v) for v in seeds.split(",")])
+    if "--nccl" in sys.argv:  # phase 8 alone over NCCL, one card a rank
+        tp = int(sys.argv[sys.argv.index("--nccl") + 1])
+        require(torch.cuda.device_count() >= tp,
+                f"--nccl {tp} needs {tp} cards, found {torch.cuda.device_count()}")
+        cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines()
+        log(f"== phase 8 over NCCL: tensor-parallel serving on a (1, {tp}) mesh, a card a "
+            f"rank; cards: {cards}")
+        _, sharded_perf = sharded_slice(torch, smi, backend="nccl", tp=tp)
+        log("detail: " + json.dumps({"card": smi, "sharded_28_layers": sharded_perf}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--sharded" in sys.argv:  # phase 2's sharded rows and phase 8 alone
+        log("== phase 2 (sharded forms): K1, K2, K3 against their plain versions")
+        sharded_rows = check_sharded_attention(torch)
+        log("== phase 8: tensor-parallel serving, 2 ranks on this card")
+        _, sharded_perf = sharded_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "sharded_rows": sharded_rows,
+                                     "sharded_28_layers": sharded_perf}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     log("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
     mm_rows, crossover, splitk_crossover = check_matmul(torch)
@@ -2686,6 +3338,7 @@ def main() -> int:
     att = check_attention(torch)
     att.update(check_paged_attention(torch))
     att["edge_cases_max_rel_err"] = check_attention_edges(torch)
+    att.update(check_sharded_attention(torch))
 
     log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -2713,6 +3366,11 @@ def main() -> int:
     log("== phase 7: fine-tuning ChatGLM2-6B, 28 layers, int4g32 then int8, through the frozen "
         "quantized weights")
     ft_counts, ft_perf = fine_tune_slice(torch, smi)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: tensor-parallel serving of ChatGLM2-6B int4g32, 28 layers, on a (1, 2) "
+        "mesh of two gloo ranks sharing this card")
+    sharded_counts, sharded_perf = sharded_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -2755,6 +3413,14 @@ def main() -> int:
          att["flash_attention_decode_paged"], engine_counts),
         ("flash_attention_chunk_paged", att_src, f"{pa}:951",
          att["flash_attention_chunk_paged S=9"], engine_counts),
+        ("flash_attention_decode_lse", att_src, f"{pa}:207",
+         att["flash_attention_decode_lse"], sharded_counts),
+        ("flash_attention_decode_paged_lse", att_src, f"{pa}:787",
+         att["flash_attention_decode_paged_lse"], sharded_counts),
+        ("rope_kv_append_sharded", att_src, f"{pa}:427", att["rope_kv_append_sharded"],
+         sharded_counts),
+        ("rope_kv_append_sharded paged", att_src, f"{pa}:480",
+         att["rope_kv_append_sharded paged"], sharded_counts),
     ]
     entries = []
     for name, src, replaces, r, run_counts in specs:
@@ -2777,7 +3443,8 @@ def main() -> int:
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "attention": att, "e2e_rel_err": e2e,
               "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
-              "engines_28_layers": engine_perf, "fine_tune_28_layers": ft_perf}
+              "engines_28_layers": engine_perf, "fine_tune_28_layers": ft_perf,
+              "sharded_28_layers": sharded_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -1244,3 +1244,157 @@ def test_decode_v2_matches_plain(gen, Hg, B, T):
         want32 = _decode_v2_f32(q, k, v, lengths, sm)
         control = _decode_v2_f32(q, k, v, lengths, sm, p_bf16=True).to(torch.bfloat16)
         assert _beyond_rounding(got, want32) <= B12_TOL < _beyond_rounding(control, want32)
+
+
+# ---------------------------------------------------------------------------
+# The sharded forms: K1 (B4 with return_lse on a T-shard), K2 (B10 strided,
+# with return_lse), K3 (the fused RoPE + KV append on a sharded cache)
+# ---------------------------------------------------------------------------
+
+LSE_TOL = 1e-4  # chip_smoke.py's: (m, l) of the kernel against its plain version
+
+
+def _hold_lse(got, want):
+    (o, m, l), (op, mp, lp) = got, want
+    empty = torch.isinf(mp)
+    assert torch.equal(torch.isinf(m), empty) and not l[empty].any()
+    assert not o[empty].float().any() and torch.isfinite(o.float()).all()
+    assert _rel(o, op) <= 1e-2
+    fin = ~empty
+    if fin.any():
+        assert ((m[fin] - mp[fin]).abs() / mp[fin].abs().clamp_min(1.0)).max() <= LSE_TOL
+        assert ((l[fin] - lp[fin]).abs() / lp[fin]).max() <= LSE_TOL
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("Hg", [16, 4])
+def test_decode_lse_matches_plain_on_a_t_shard(gen, Hg, shard):
+    """Shard ``shard`` of a 4-way split of a 4096-slot cache: rows ending
+    before it (0, −inf, 0), at its edges, across it (several spans, the
+    in-launch merge writing (m, l)) and a length −1 row; the shards merged
+    equal the unsharded kernel within 1e-2."""
+    B, G, D, T, tp = 8, 2, 128, 4096, 4
+    Tl = T // tp
+    q, k, v = _decode_inputs(gen, B, G, Hg, T)
+    sm = 1 / math.sqrt(D)
+    lengths = torch.tensor([-1, 5, Tl - 1, Tl, 2 * Tl + 300, 3 * Tl - 2, T - 1, 1500],
+                           dtype=torch.int32, device="cuda")
+    parts = []
+    for r in range(tp):
+        ks = k[:, :, r * Tl:(r + 1) * Tl].contiguous()
+        vs = v[:, :, r * Tl:(r + 1) * Tl].contiguous()
+        got = A.flash_attention_decode_lse(q, ks, vs, lengths, sm, r * Tl)
+        torch.cuda.synchronize()
+        if r == shard:
+            _hold_lse(got, A.flash_attention_decode_lse_plain(q, ks, vs, lengths, sm, r * Tl))
+        parts.append(got)
+    merged = A.merge_lse_partials(*(torch.stack(x) for x in zip(*parts)), torch.bfloat16)
+    assert _rel(merged, A.flash_attention_decode(q, k, v, lengths, sm)) <= 1e-2
+    assert not merged[0].float().any()
+
+
+@pytest.mark.parametrize("stride", [2, 4])
+@pytest.mark.parametrize("P,MPl", [(256, 4), (96, 6)])
+def test_decode_paged_lse_matches_plain(gen, stride, P, MPl):
+    """K2 at every phase of a strided local table: lengths −1, within the
+    first page, at page edges, spanning every column, past the capacity
+    (the column count clamps to the table); a page size off the tile."""
+    B, G, Hg, D, NP = 9, 2, 16, 128, 40
+    cap = MPl * stride * P
+    kp = torch.randn((2, NP, G, P, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vp = torch.randn((2, NP, G, P, D), device="cuda", generator=gen).to(torch.bfloat16)
+    table = torch.randint(0, NP, (B, MPl), dtype=torch.int32, device="cuda", generator=gen)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([-1, 0, P - 1, P, stride * P, cap // 2 + 7, cap - 1, cap + 50, 300],
+                           dtype=torch.int32, device="cuda")
+    sm = 1 / math.sqrt(D)
+    for phase in range(stride):
+        got = A.flash_attention_decode_paged_lse(q, kp, vp, 1, table, lengths, sm, stride, phase)
+        torch.cuda.synchronize()
+        _hold_lse(got, A.flash_attention_decode_paged_lse_plain(q, kp, vp, 1, table, lengths, sm,
+                                                                stride, phase))
+
+
+def test_decode_lse_forms_are_deterministic_and_replay_in_a_graph(gen):
+    """K1 and K2 bit-equal over two launches (the merging block resets its
+    counter), and each captured in a CUDA graph and replayed on new q:
+    bit-equal to an eager launch."""
+    B, G, Hg, D, T = 4, 2, 16, 128, 2048
+    q, k, v = _decode_inputs(gen, B, G, Hg, T)
+    lengths = torch.tensor([2000, 900, 100, -1], dtype=torch.int32, device="cuda")
+    kp = k.reshape(B * G * T // 256, 1, 256, D).expand(-1, G, -1, -1).contiguous()[None]
+    vp = v.reshape(B * G * T // 256, 1, 256, D).expand(-1, G, -1, -1).contiguous()[None]
+    table = torch.arange(B * 8, dtype=torch.int32, device="cuda").reshape(B, 8)
+    sm = 1 / math.sqrt(D)
+    calls = [lambda: A.flash_attention_decode_lse(q, k, v, lengths, sm, 512),
+             lambda: A.flash_attention_decode_paged_lse(q, kp, vp, 0, table, lengths, sm, 2, 1)]
+    for call in calls:
+        a, b = call(), call()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+            graph.replay()
+            want = call()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+def _sharded_append_case(gen, B, paged, tp):
+    G, Hg, D, L = 2, 16, 128, 3
+    q = torch.randn((B, 1, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kv = torch.randn((B, 2 * G * D), device="cuda", generator=gen).to(torch.bfloat16)
+    freqs = torch.randn((B, D), device="cuda", generator=gen).to(torch.bfloat16)
+    if not paged:
+        T = 1024
+        k = torch.randn((L, B, G, T // tp, D), device="cuda", generator=gen).to(torch.bfloat16)
+        return q, kv, freqs, k, k.clone().normal_(generator=gen), None, T
+    P, MP = 64, 8
+    sp = B * MP // tp + 1
+    k = torch.randn((L, sp, G, P, D), device="cuda", generator=gen).to(torch.bfloat16)
+    table = torch.randint(0, sp, (B, MP // tp), dtype=torch.int32, device="cuda",
+                          generator=gen)
+    return q, kv, freqs, k, k.clone().normal_(generator=gen), table, MP * P
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rope_kv_append_sharded_is_bit_equal_to_plain(gen, paged, tp):
+    """K3 on every shard: rows whose slot the shard holds and rows whose
+    slot another shard holds (q rotated, nothing written), at the wall and
+    past it; bit-equal to its plain version, cache and q."""
+    B = 6
+    q, kv, freqs, k, v, table, cap = _sharded_append_case(gen, B, paged, tp)
+    starts = torch.tensor([0, cap // tp - 1, cap // tp, cap // 2 + 70, cap - 1, cap + 9],
+                          dtype=torch.int32, device="cuda")
+    for r in range(tp):
+        shard = (A.KVShard(stride=tp, phase=r, total=cap) if paged
+                 else A.KVShard(offset=r * (cap // tp), total=cap))
+        kr, vr, kk, vv = k.clone(), v.clone(), k.clone(), v.clone()
+        got = A.rope_kv_append_sharded(q, kv, freqs, kr, vr, 2, starts, shard, table)
+        torch.cuda.synchronize()
+        want = A.rope_kv_append_sharded_plain(q, kv, freqs, kk, vv, 2, starts, shard, table)
+        assert torch.equal(got, want) and torch.equal(kr, kk) and torch.equal(vr, vv), r
+
+
+def test_rope_kv_append_sharded_replays_in_a_graph(gen):
+    q, kv, freqs, k, v, table, cap = _sharded_append_case(gen, 4, True, 2)
+    starts = torch.tensor([3, 300, 130, cap + 5], dtype=torch.int32, device="cuda")
+    shard = A.KVShard(stride=2, phase=1, total=cap)
+    A.rope_kv_append_sharded(q, kv, freqs, k, v, 1, starts, shard, table)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.rope_kv_append_sharded(q, kv, freqs, k, v, 1, starts, shard, table)
+    for step in range(2):
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        kv.copy_(torch.randn(kv.shape, device="cuda", generator=gen))
+        starts.add_(64)
+        kr, vr = k.clone(), v.clone()
+        graph.replay()
+        want = A.rope_kv_append_sharded_plain(q, kv, freqs, kr, vr, 1, starts, shard, table)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(k, kr) and torch.equal(v, vr), step

@@ -52,7 +52,11 @@ def test_port_imports_with_jax_blocked():
             "chatglm_q_tpu_torch.ops.int8_matmul", "chatglm_q_tpu_torch.serving.engine",
             "chatglm_q_tpu_torch.serving.paged_engine", "chatglm_q_tpu_torch.serving.speculative",
             "chatglm_q_tpu_torch.models.paged_kv", "chatglm_q_tpu_torch.models.spec_decode",
-            "chatglm_q_tpu_torch.utils.logging", "chatglm_q_tpu_torch.utils.train"} <= set(mods)
+            "chatglm_q_tpu_torch.utils.logging", "chatglm_q_tpu_torch.utils.train",
+            "chatglm_q_tpu_torch.parallel.sharding", "chatglm_q_tpu_torch.parallel.tp_linear",
+            "chatglm_q_tpu_torch.parallel.ring_attention",
+            "chatglm_q_tpu_torch.serving.dist_engine",
+            "chatglm_q_tpu_torch.utils.distributed"} <= set(mods)
     code = ("import sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
@@ -70,7 +74,9 @@ def test_port_imports_with_jax_blocked():
                                     "chatglm_q_tpu_torch.serving.paged_engine",
                                     "chatglm_q_tpu_torch.tokenizer",
                                     "chatglm_q_tpu_torch.ops.linear",
-                                    "chatglm_q_tpu_torch.utils.train"])
+                                    "chatglm_q_tpu_torch.utils.train",
+                                    "chatglm_q_tpu_torch.serving.dist_engine",
+                                    "chatglm_q_tpu_torch.parallel.ring_attention"])
 def test_no_forbidden_package_in_sys_modules_after_import(module):
     """Imported unblocked in a fresh interpreter, a module pulls in none of
     the forbidden packages."""
@@ -81,6 +87,16 @@ def test_no_forbidden_package_in_sys_modules_after_import(module):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "[]", (res.stdout, res.stderr)
+
+
+def test_spawned_rank_functions_import_no_jax():
+    """tests/torch_dist_workers.py runs in the ranks that run_spmd spawns:
+    it imports the port and torch only, never jax or a test module (which
+    would import jax into every rank)."""
+    path = ROOT / "tests" / "torch_dist_workers.py"
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+    assert not any(r.startswith("test_") for r in roots), roots
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
