@@ -139,6 +139,16 @@ class TorchRuntimeConfig:
     paged_shard_model: the paged pool splits its pages over the model axis
         by logical-block phase (``DistributedPagedServingEngine(
         shard_model_pages=True)`` sets it): decode through K2 and the merge.
+    cuda_graphs: the decode programs (``utils/graphs.py``: a decode step
+        and its sampler, a speculative verify or in-loop speculation step)
+        run as CUDA graphs, the counterpart of the JAX package's jitted
+        decode programs.  True (the default) captures CUDA decode on the
+        kernel path; False runs each step's launches from Python (an A/B
+        against the graphs, debugging).  A mesh refuses capture (gloo
+        collectives cannot be captured, and the sharded writes sync on
+        ``nonzero``), and so does the masked-softmax path on CUDA: both
+        decode eagerly and say so once (a warning).  On the CPU the
+        programs run eagerly through the same static buffers.
     The JAX package's block sizes (attn_block_q/k, decode_block_k) have no
     counterpart: the CUDA kernels' tiles are compile-time constants in
     csrc/, and ``sync_prefill_chunks`` belongs to the TPU alone.
@@ -152,6 +162,7 @@ class TorchRuntimeConfig:
     mesh: object = None  # Optional[parallel.sharding.Mesh]
     kv_shard_t: bool = False
     paged_shard_model: bool = False
+    cuda_graphs: bool = True
 
     def kernels_enabled(self, device: torch.device) -> bool:
         if self.use_kernels is not None:

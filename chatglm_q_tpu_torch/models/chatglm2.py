@@ -22,7 +22,10 @@ Conventions carried exactly:
 * The FFN is ``silu(w_in_h(h)) * w_in_gate(h)``.
 
 Unlike the JAX package (pure functions), the cache tensors are updated in
-place: a step writes a few slots, never a whole new cache.  The paged pool
+place: a step writes a few slots, never a whole new cache.  Where JAX jits
+its decode loop (``multi_step_decode``'s ``lax.scan``), the port captures one
+decode step with its sampler in a CUDA graph and replays it
+(``decode_program``, utils/graphs.py).  The paged pool
 (models/paged_kv.py) goes through the same ``block_forward``.
 
 Under ``rt.mesh`` (tensor-parallel serving) ``block_forward`` runs each
@@ -58,10 +61,11 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
 from ..ops.linear import quant_embedding_lookup, quant_linear
-from ..ops.sampling import greedy_sampling, top_p_sampling
+from ..ops.sampling import GREEDY, Sampling, fill_rows, top_p_rows
 from ..parallel import ring_attention as RA
 from ..parallel import sharding as SH
 from ..parallel.tp_linear import tp_quant_linear
+from ..utils import graphs as G
 
 MASK_VALUE = -1e10  # additive mask of the masked-softmax path (reference model.py:314)
 
@@ -679,6 +683,33 @@ def decode_step(params: dict, config: ChatGLM2Config, next_ids: torch.Tensor,
     return logits, KVCache(cache.k, cache.v, cache.lengths + 1)
 
 
+def decode_program(params: dict, config: ChatGLM2Config, cache: KVCache, quant_type: str,
+                   dtype, rt: TorchRuntimeConfig, sampling: Sampling = GREEDY):
+    """The decode step with its sampler as a step program (utils/graphs.py)
+    over ``cache``'s tensors: static "ids" and "lengths" (B,) int32 (and the
+    per-row sampling buffers of a "rows" sampler); each step writes the
+    sampled token into "ids" and the advanced lengths into "lengths".  Call
+    its steps with ``(params, cache.k, cache.v)``."""
+    B = cache.lengths.shape[0]
+    dev = cache.k.device
+    key = ("decode_step", G.tensor_key(cache.k), G.tensor_key(cache.v),
+           G.static_key(config, quant_type, dtype, rt), sampling.key)
+
+    def inputs():
+        return {"ids": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "lengths": torch.zeros((B,), dtype=torch.int32, device=dev),
+                **sampling.row_buffers(B, dev)}
+
+    def body(inp, params, k, v):
+        logits, c = decode_step(params, config, inp["ids"], KVCache(k, v, inp["lengths"]),
+                                quant_type, dtype, rt)
+        inp["ids"].copy_(sampling(logits, inp))
+        inp["lengths"].copy_(c.lengths)
+        return {}
+
+    return G.programs(params).get(key, "decode_step", inputs, body, dev, rt, sampling.generator)
+
+
 def multi_step_decode(params: dict, config: ChatGLM2Config, first_ids: torch.Tensor,
                       cache: KVCache, num_steps: int,
                       generator: Optional[torch.Generator] = None,
@@ -686,15 +717,14 @@ def multi_step_decode(params: dict, config: ChatGLM2Config, first_ids: torch.Ten
                       rt: TorchRuntimeConfig = _DEFAULT_RT, top_k: int = 100,
                       top_p: float = 0.8, temperature: float = 1.0):
     """``num_steps`` decode steps with in-loop sampling (greedy when
-    ``generator`` is None, else top-p).  Nothing syncs to the host per
-    token.  Returns (tokens (B, num_steps) int32, cache)."""
-    ids = first_ids.to(torch.int32)
-    toks = []
-    for _ in range(num_steps):
-        logits, cache = decode_step(params, config, ids, cache, quant_type, dtype, rt)
-        if generator is None:
-            ids = greedy_sampling(logits)
-        else:
-            ids = top_p_sampling(logits, top_k, top_p, temperature, generator=generator)
-        toks.append(ids)
-    return torch.stack(toks, dim=1), cache
+    ``generator`` is None, else top-p): ``num_steps`` replays of one
+    captured step (``decode_program``), the counterpart of JAX's jitted
+    ``lax.scan``.  Nothing syncs to the host per token.  Returns (tokens
+    (B, num_steps) int32, cache)."""
+    sampling = GREEDY if generator is None else top_p_rows(top_k, generator)
+    prog = decode_program(params, config, cache, quant_type, dtype, rt, sampling)
+    prog.load(ids=first_ids.to(torch.int32), lengths=cache.lengths)
+    if generator is not None:
+        fill_rows(prog.inputs, top_k, top_p, temperature)
+    toks = prog.run(num_steps, params, cache.k, cache.v, collect=("ids",))["ids"]
+    return toks.t().contiguous(), KVCache(cache.k, cache.v, prog.inputs["lengths"].clone())

@@ -35,7 +35,9 @@ import torch
 from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
 from ..ops.linear import quant_embedding_lookup
+from ..ops.sampling import GREEDY, Sampling
 from ..parallel import sharding as SH
+from ..utils import graphs as G
 from . import chatglm2 as M
 
 _DEFAULT_RT = TorchRuntimeConfig()
@@ -370,3 +372,35 @@ def decode_step_paged(params: dict, config: ChatGLM2Config, next_ids: torch.Tens
     logits = _logits(params, config, quant_type, rt, h[:, 0])
     new_lengths = (lengths + 1).clamp(max=cache.max_length - 1).to(torch.int32)
     return logits, cache.replace(lengths=new_lengths)
+
+
+def decode_paged_program(params: dict, config: ChatGLM2Config, cache: PagedKVCache,
+                         quant_type: str, dtype, rt: TorchRuntimeConfig,
+                         sampling: Sampling = GREEDY):
+    """``decode_step_paged`` with its sampler as a step program
+    (utils/graphs.py) over ``cache``'s pools, at ``cache``'s batch and table
+    width: static "ids", "lengths" (B,) int32, "page_table" (B, MP) int32
+    (and a "rows" sampler's buffers); each step writes the sampled token
+    into "ids" and the advanced lengths into "lengths".  Call its steps with
+    ``(params, cache.k_pool, cache.v_pool)``."""
+    B, MP = cache.page_table.shape
+    dev = cache.k_pool.device
+    key = ("decode_step_paged", G.tensor_key(cache.k_pool), G.tensor_key(cache.v_pool), B, MP,
+           G.static_key(config, quant_type, dtype, rt), sampling.key)
+
+    def inputs():
+        return {"ids": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "lengths": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "page_table": torch.zeros((B, MP), dtype=torch.int32, device=dev),
+                **sampling.row_buffers(B, dev)}
+
+    def body(inp, params, k_pool, v_pool):
+        logits, c = decode_step_paged(
+            params, config, inp["ids"], PagedKVCache(k_pool, v_pool, inp["page_table"],
+                                                     inp["lengths"]), quant_type, dtype, rt)
+        inp["ids"].copy_(sampling(logits, inp))
+        inp["lengths"].copy_(c.lengths)
+        return {}
+
+    return G.programs(params).get(key, "decode_step_paged", inputs, body, dev, rt,
+                                  sampling.generator)

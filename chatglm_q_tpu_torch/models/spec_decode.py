@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ChatGLM2Config, TorchRuntimeConfig
+from ..utils import graphs as G
 from . import paged_kv as PK
 
 _DEFAULT_RT = TorchRuntimeConfig()
@@ -73,43 +74,73 @@ def _write_token_rows(tokbuf: torch.Tensor, seq: torch.Tensor, starts: torch.Ten
     tokbuf.copy_(ext[:, :T])
 
 
-def speculative_decode_paged(params: dict, config: ChatGLM2Config, first_tok: torch.Tensor,
-                             cache: PK.PagedKVCache, tokbuf: torch.Tensor, n_steps: int,
-                             k: int = 8, ngram: int = 3, quant_type: str = "none",
-                             dtype=torch.bfloat16, rt: TorchRuntimeConfig = _DEFAULT_RT):
-    """Run ``n_steps`` greedy verify steps.  Each step consumes the carried
-    token, writes it and its k drafts, and advances each row by
-    ``1 + accept`` positions (clamped to the table's capacity − 1).
-
-    Returns (drafts (n, B, k), accepts (n, B), nexts (n, B), cache, tokbuf):
-    step s of row b emitted ``drafts[s, b, :accepts[s, b]]`` then
-    ``nexts[s, b]``.  Nothing syncs to the host."""
+def spec_program(params: dict, config: ChatGLM2Config, cache: PK.PagedKVCache, T: int,
+                 k: int = 8, ngram: int = 3, quant_type: str = "none", dtype=torch.bfloat16,
+                 rt: TorchRuntimeConfig = _DEFAULT_RT):
+    """One greedy verify step of ``speculative_decode_paged`` as a step
+    program (utils/graphs.py) over ``cache``'s pools, at its batch and table
+    width, with a token history of ``T`` columns: static "tok", "lengths"
+    (B,) int32, "page_table" (B, MP) int32 and "tokbuf" (B, T) int32; each
+    step writes the next token into "tok", the advanced lengths into
+    "lengths" and the step's tokens into "tokbuf", and returns "draft" (B,
+    k), "accept" and "next" (B,).  Call its steps with ``(params,
+    cache.k_pool, cache.v_pool)``."""
     KT = k + 1
-    B = first_tok.shape[0]
-    dev = first_tok.device
-    tok = first_tok.to(torch.int32)
-    full = torch.full((B,), KT, dtype=torch.int32, device=dev)
-    drafts, accepts, nexts = [], [], []
-    for _ in range(n_steps):
-        l0 = cache.lengths
+    B, MP = cache.page_table.shape
+    dev = cache.k_pool.device
+    key = ("spec_step", G.tensor_key(cache.k_pool), G.tensor_key(cache.v_pool), B, MP, T, k,
+           ngram, G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"tok": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "lengths": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "page_table": torch.zeros((B, MP), dtype=torch.int32, device=dev),
+                "tokbuf": torch.zeros((B, T), dtype=torch.int32, device=dev),
+                "full": torch.full((B,), KT, dtype=torch.int32, device=dev)}
+
+    def body(inp, params, k_pool, v_pool):
+        tok, tokbuf, l0 = inp["tok"], inp["tokbuf"], inp["lengths"]
         # the pending token joins the searched history (the n-gram tail ends
         # with it)
         _write_token_rows(tokbuf, tok[:, None], l0)
         draft = find_drafts(tokbuf, l0 + 1, ngram, k)
         safe_seq = torch.cat([tok[:, None], draft.clamp(min=0)], dim=1)
         _write_token_rows(tokbuf, safe_seq[:, 1:], l0 + 1)
+        cache = PK.PagedKVCache(k_pool, v_pool, inp["page_table"], l0)
         all_logits, cache = PK.prefill_chunk_paged(
-            params, config, safe_seq, l0, full, cache, quant_type, dtype, rt,
+            params, config, safe_seq, l0, inp["full"], cache, quant_type, dtype, rt,
             return_all_logits=True, page_aligned=False)
         argm = all_logits.argmax(dim=-1).to(torch.int32)  # (B, KT)
         accept = (argm[:, :k] == draft).to(torch.int32).cumprod(dim=1).sum(dim=1)
         nxt = argm.gather(1, accept[:, None].long())[:, 0]
         # past the capacity the writes clamp and the host rolls the tokens
         # back, so the lengths clamp too
-        new_len = (l0 + 1 + accept).clamp(max=cache.max_length - 1).to(torch.int32)
-        cache = cache.replace(lengths=new_len)
-        drafts.append(draft)
-        accepts.append(accept.to(torch.int32))
-        nexts.append(nxt)
-        tok = nxt
-    return (torch.stack(drafts), torch.stack(accepts), torch.stack(nexts), cache, tokbuf)
+        l0.copy_((l0 + 1 + accept).clamp(max=cache.max_length - 1))
+        tok.copy_(nxt)
+        return {"draft": draft, "accept": accept.to(torch.int32), "next": nxt}
+
+    return G.programs(params).get(key, "spec_step", inputs, body, dev, rt)
+
+
+def speculative_decode_paged(params: dict, config: ChatGLM2Config, first_tok: torch.Tensor,
+                             cache: PK.PagedKVCache, tokbuf: torch.Tensor, n_steps: int,
+                             k: int = 8, ngram: int = 3, quant_type: str = "none",
+                             dtype=torch.bfloat16, rt: TorchRuntimeConfig = _DEFAULT_RT):
+    """Run ``n_steps`` greedy verify steps: ``n_steps`` replays of one
+    captured step (``spec_program``), the counterpart of JAX's jitted
+    speculation chunk.  Each step consumes the carried token, writes it and
+    its k drafts, and advances each row by ``1 + accept`` positions (clamped
+    to the table's capacity − 1).
+
+    Returns (drafts (n, B, k), accepts (n, B), nexts (n, B), cache, tokbuf):
+    step s of row b emitted ``drafts[s, b, :accepts[s, b]]`` then
+    ``nexts[s, b]``; ``tokbuf`` is updated in place.  Nothing syncs to the
+    host."""
+    prog = spec_program(params, config, cache, tokbuf.shape[1], k, ngram, quant_type, dtype, rt)
+    prog.load(tok=first_tok.to(torch.int32), lengths=cache.lengths, page_table=cache.page_table,
+              tokbuf=tokbuf)
+    out = prog.run(n_steps, params, cache.k_pool, cache.v_pool,
+                   collect=("draft", "accept", "next"))
+    tokbuf.copy_(prog.inputs["tokbuf"])
+    return (out["draft"], out["accept"], out["next"],
+            cache.replace(lengths=prog.inputs["lengths"].clone()), tokbuf)

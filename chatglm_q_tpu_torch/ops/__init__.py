@@ -3,7 +3,10 @@
 Every kernel wrapper carries a ``launches`` count, raised by one where it
 launches its CUDA kernel and nowhere else; ``launch_counts`` reads them and
 ``reset_launch_counts`` sets them to 0, so a run can show which kernels its
-main path went through.
+main path went through.  A CUDA graph launches its kernels without running
+the wrappers: a step program (utils/graphs.py) records each wrapper's count
+during its capture and adds it back on every replay (``add_launch_counts``),
+so the counts stay the kernels' real launches.
 """
 
 
@@ -51,3 +54,15 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: dict) -> None:
+    wrappers = kernel_wrappers()
+    for name, n in counts.items():
+        wrappers[name].launches = n
+
+
+def add_launch_counts(delta: dict) -> None:
+    wrappers = kernel_wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n

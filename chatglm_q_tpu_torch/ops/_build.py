@@ -81,6 +81,12 @@ SIGNATURES = {
 
 _LIB = None
 _SCRATCH: dict = {}
+# (kind, device) whose current buffer a CUDA graph captured, and the buffers
+# replaced since then: a graph keeps the address it captured, so such a
+# buffer is never freed (its memory would go to another tensor that the
+# graph's replays then write into)
+_IN_GRAPH: set = set()
+_HELD: list = []
 
 
 def nvcc_path() -> str:
@@ -171,13 +177,30 @@ def scratch(kind: str, device, n: int, dtype):
     calls and grown when smaller than ``n``: the split kernels' 4-byte
     partials and their arrival counters (zeroed once and left at zero by
     every launch: the merging block resets its counter).  One stream at a
-    time per device: launches on it run in order."""
+    time per device: launches on it run in order.
+
+    Under a CUDA-graph capture the buffer must be large enough already (the
+    step's eager warm-up sizes it): growing it there would allocate from the
+    graph's pool and zero it only on replay.  A buffer a graph captured is
+    kept alive when a larger one replaces it."""
     import torch
 
-    buf = _SCRATCH.get((kind, device))
+    key = (kind, device)
+    buf = _SCRATCH.get(key)
+    capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
     if buf is None or buf.numel() < n:
+        if capturing:
+            raise RuntimeError(
+                f"scratch {kind!r}: {n} elements asked during a CUDA-graph capture, "
+                f"{0 if buf is None else buf.numel()} held: run the step eagerly once before "
+                "capturing it, so that its buffers are sized")
+        if key in _IN_GRAPH:
+            _HELD.append(buf)
+            _IN_GRAPH.discard(key)
         buf = torch.zeros((max(n, 1024),), dtype=dtype, device=device)
-        _SCRATCH[kind, device] = buf
+        _SCRATCH[key] = buf
+    if capturing:
+        _IN_GRAPH.add(key)
     return buf
 
 

@@ -12,11 +12,16 @@ chatglm_q_tpu/serving/decoder.py (``GLMDecoder``).
 
 What differs:
 
-* PyTorch runs eagerly, so the JAX package's power-of-two prompt buckets
-  (which bound the number of ``jax.jit`` programs) are dropped: the prompt
-  is prefilled at its own length.  Right padding changes no output.
-* Sampling draws from a ``torch.Generator`` on the params' device, seeded
-  from ``seed``; its draws differ from ``jax.random``'s.
+* The prefill runs eagerly, so the JAX package's power-of-two prompt
+  buckets (which bound the number of ``jax.jit`` programs) are dropped: the
+  prompt is prefilled at its own length.  Right padding changes no output.
+  The decode step with its sampler and the speculative verify step (JAX's
+  jitted ``_decode`` and ``_verify``) are step programs over the decoder's
+  cache, replayed from CUDA graphs (utils/graphs.py); the cache is kept
+  across calls (a stream still open when another starts gets its own).
+* Sampling draws from a ``torch.Generator`` on the params' device that is
+  kept with the cache and reseeded from ``seed`` each call; its draws
+  differ from ``jax.random``'s.
 * Only a local directory loads: the hub download needs a network.
 
 ``speculative_k > 0`` turns on prompt-lookup speculation for greedy
@@ -35,7 +40,8 @@ import torch
 
 from ..config import GLMLoadConfig, TorchRuntimeConfig
 from ..models import chatglm2 as M
-from ..ops.sampling import greedy_sampling, top_p_sampling
+from ..ops.sampling import GREEDY, fill_rows, greedy_sampling, top_p_rows
+from ..utils import graphs as G
 from .chat import process_response
 from .speculative import find_draft, greedy_accept
 
@@ -65,6 +71,9 @@ class GLMDecoder:
         self.dtype = dtype or config.activation_dtype
         self.kv_dtype = kv_dtype or self.dtype
         self.device = params["final_ln"]["weight"].device
+        # (cache, sampling generator) pairs kept across calls: a decode
+        # program is captured over the cache and draws from the generator
+        self._free_caches: list = []
 
     # -- persistence -------------------------------------------------------
 
@@ -108,33 +117,46 @@ class GLMDecoder:
         ``speculative_k > 0`` verifies up to k drafted tokens per device step
         when decoding greedily (identical output, fewer weight passes); it is
         ignored when sampling.  ``self.spec_stats`` counts the steps."""
-        tokenizer = self.tokenizer
-        qt = self.config.quant_type
         mc = self.config.model_config
-        prefix_ids = tokenizer.encode(prefix_text)
+        prefix_ids = self.tokenizer.encode(prefix_text)
         # keep the most recent context when the prompt exceeds the cache
         max_prefix = self.max_sequence_length - max(1, min(max_generated_tokens, 64))
         if len(prefix_ids) > max_prefix:
             prefix_ids = prefix_ids[-max_prefix:]
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(random.randrange(1 << 30) if seed is None else seed)
-
         prompt = torch.tensor([prefix_ids], dtype=torch.long, device=self.device)
         lengths = torch.tensor([len(prefix_ids)], dtype=torch.int32, device=self.device)
-        cache = M.init_kv_cache(mc, 1, self.max_sequence_length, self.kv_dtype, self.device)
+        # a kept cache and its generator; a stream still open elsewhere keeps
+        # its own pair, so interleaved streams draw independently
+        cache, gen = self._free_caches.pop() if self._free_caches else (
+            M.init_kv_cache(mc, 1, self.max_sequence_length, self.kv_dtype, self.device),
+            torch.Generator(device=self.device))
+        gen.manual_seed(random.randrange(1 << 30) if seed is None else seed)
+        sampling = GREEDY if temperature == 0.0 else top_p_rows(top_k, gen)
+        try:
+            return (yield from self._generate(prefix_ids, prompt, lengths, cache, sampling,
+                                              (top_k, top_p, temperature),
+                                              max_generated_tokens, speculative_k,
+                                              speculative_ngram))
+        finally:
+            self._free_caches.append((cache, gen))
 
+    def _generate(self, prefix_ids, prompt, lengths, cache, sampling, setting,
+                  max_generated_tokens, speculative_k, speculative_ngram):
+        tokenizer = self.tokenizer
+        qt = self.config.quant_type
+        mc = self.config.model_config
         generated: list[int] = []
         generate_time: list[float] = []
-        speculate = speculative_k > 0 and temperature == 0.0
+        speculate = speculative_k > 0 and sampling.mode == "greedy"
         self.spec_stats = {"verify_steps": 0, "decode_steps": 0, "accepted_tokens": 0}
         start = time.perf_counter()
         logits, cache = M.prefill(self.params, mc, prompt, lengths, cache, qt, self.dtype, self.rt)
+        step = M.decode_program(self.params, mc, cache, qt, self.dtype, self.rt, sampling)
+        if sampling.mode == "rows":
+            fill_rows(step.inputs, *setting)
+        tok = sampling(logits, step.inputs)
         while (len(generated) < max_generated_tokens
                and len(generated) + len(prefix_ids) < self.max_sequence_length):
-            if temperature == 0.0:
-                tok = greedy_sampling(logits)
-            else:
-                tok = top_p_sampling(logits, top_k, top_p, temperature, generator=gen)
             next_token = int(tok[0])
             generate_time.append(time.perf_counter() - start)
             start = time.perf_counter()
@@ -160,19 +182,24 @@ class GLMDecoder:
                     draft = find_draft(prefix_ids + generated, speculative_ngram,
                                        min(speculative_k, room))
             if not draft:
-                logits, cache = M.decode_step(self.params, mc, tok, cache, qt, self.dtype,
-                                              self.rt)
+                # JAX's _decode: the step and its sampler, replayed
+                step.load(ids=tok, lengths=cache.lengths)
+                step.step(self.params, cache.k, cache.v)
+                tok = step.inputs["ids"]
+                cache = M.KVCache(cache.k, cache.v, step.inputs["lengths"])
                 self.spec_stats["decode_steps"] += 1
                 continue
             seq = [next_token] + draft
-            ids = torch.zeros((1, speculative_k + 1), dtype=torch.long, device=self.device)
+            # JAX's _verify: a fixed (1, k + 1) window, the host's values
+            # copied into its buffers
+            verify = self._verify_program(cache, speculative_k)
+            ids = torch.zeros((1, speculative_k + 1), dtype=torch.long)
             ids[0, : len(seq)] = torch.tensor(seq)
-            all_logits, cache = M.prefill_chunk(
-                self.params, mc, ids, torch.tensor([cur_len], device=self.device),
-                torch.tensor([len(seq)], device=self.device), cache, qt, self.dtype, self.rt,
-                return_all_logits=True)
+            verify.load(ids=ids, starts=torch.tensor([cur_len], dtype=torch.int32),
+                        valid=torch.tensor([len(seq)], dtype=torch.int32))
+            out = verify.step(self.params, cache.k, cache.v)
             self.spec_stats["verify_steps"] += 1
-            accepted = greedy_accept(draft, all_logits[0, : len(seq)].argmax(-1).tolist())
+            accepted = greedy_accept(draft, out["argmax"][0, : len(seq)].tolist())
             if self.eos_token_id in draft[:accepted]:
                 # nothing after an accepted eos counts
                 accepted = draft[:accepted].index(self.eos_token_id) + 1
@@ -197,7 +224,7 @@ class GLMDecoder:
                 break
             # row `accepted` is the distribution after the accepted prefix:
             # exactly the next greedy step's logits
-            logits = all_logits[:, accepted]
+            tok = greedy_sampling(out["logits"][:, accepted])
 
         if self.time_log and generate_time:
             init_time, *rest_time = generate_time
@@ -210,3 +237,25 @@ class GLMDecoder:
             print(f"  avg: {len(generate_time) / sum(generate_time):.6f} tok/s")
 
         return process_response(tokenizer.decode(generated))
+
+    def _verify_program(self, cache, k: int):
+        """The speculative verify step (JAX's ``_verify``) as a step program:
+        ``prefill_chunk`` of a static (1, k + 1) window "ids" at "starts"
+        with "valid" tokens, all its logits and their argmax."""
+        mc, qt = self.config.model_config, self.config.quant_type
+        dtype, rt, dev = self.dtype, self.rt, self.device
+        key = ("verify", G.tensor_key(cache.k), G.tensor_key(cache.v), k,
+               G.static_key(mc, qt, dtype, rt))
+
+        def inputs():
+            return {"ids": torch.zeros((1, k + 1), dtype=torch.long, device=dev),
+                    "starts": torch.zeros((1,), dtype=torch.int32, device=dev),
+                    "valid": torch.zeros((1,), dtype=torch.int32, device=dev)}
+
+        def body(inp, params, ck, cv):
+            logits, _ = M.prefill_chunk(params, mc, inp["ids"], inp["starts"], inp["valid"],
+                                        M.KVCache(ck, cv, inp["starts"]), qt, dtype, rt,
+                                        return_all_logits=True)
+            return {"logits": logits, "argmax": logits.argmax(-1)}
+
+        return G.programs(self.params).get(key, "verify", inputs, body, dev, rt)

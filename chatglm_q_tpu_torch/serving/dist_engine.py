@@ -27,6 +27,9 @@ a request goes to the group whose registry holds its longest prefix.
 
 Not carried: lookahead (every chunk's tokens are all-gathered before the
 next is built) and in-loop speculation on the distributed paged engine.
+The decode chunks run from eager launches: a mesh refuses CUDA-graph
+capture (gloo collectives cannot be captured, and the sharded writes sync
+on ``nonzero``; utils/graphs.py ``MESH_REFUSAL``).
 """
 from __future__ import annotations
 

@@ -26,10 +26,13 @@ equal the dense engine's), but KV lives in a shared page pool
   resumes its chunked prefill after them; entries are evicted under
   pressure, but only when eviction can cover the shortage;
 * decode is compact: only the decoding slots' rows run, bucketed to a power
-  of two, padding rows on the garbage table at length 0;
+  of two, padding rows on the garbage table at length 0; each bucket's
+  decode step is a program of its own (``paged_kv.decode_paged_program``,
+  captured: utils/graphs.py), the compact view copied into its buffers;
 * ``speculative_k``: when every decoding request is greedy, the chunk runs
-  in-loop prompt-lookup speculation (models/spec_decode.py); a chunk with a
-  sampling request falls back to plain decode.
+  in-loop prompt-lookup speculation (models/spec_decode.py, its step
+  captured likewise); a chunk with a sampling request falls back to plain
+  decode.
 
 JAX's ``full_batch_decode`` switch (a TPU backend workaround) is not
 carried: this engine decodes compact, the distributed one its group's rows.
@@ -279,15 +282,16 @@ class PagedServingEngine(ServingEngine):
 
         sampling, sort_k = self._row_params(rows)
         sub = self._compact_view(slots, len(active))
-        tok = self._ids([self._last_tok[b] for b in slots])
-        toks = []
-        for _ in range(n):
-            logits, sub = PK.decode_step_paged(self.params, self.mc, tok, sub,
-                                               self.config.quant_type, self.dtype, self.rt)
-            tok = self._sample(logits, sampling, sort_k)
-            toks.append(tok)
-        self._store_lengths(active, sub.lengths)
-        toks = self._fetch(torch.stack(toks, dim=1))  # (PB, n)
+        # one program per power-of-two compact batch (JAX's jitted chunk),
+        # its page table and lengths copied in from the compact view
+        prog = PK.decode_paged_program(self.params, self.mc, sub, self.config.quant_type,
+                                       self.dtype, self.rt, self._row_sampler(sampling, sort_k))
+        prog.load(ids=self._ids([self._last_tok[b] for b in slots]), lengths=sub.lengths,
+                  page_table=sub.page_table)
+        self._load_rows(prog, sampling)
+        toks = prog.run(n, self.params, sub.k_pool, sub.v_pool, collect=("ids",))["ids"]
+        self._store_lengths(active, prog.inputs["lengths"])
+        toks = self._fetch(toks.t())  # (PB, n)
         out = started
         for i, b in enumerate(active):
             prev_pending = int(self._last_tok[b])

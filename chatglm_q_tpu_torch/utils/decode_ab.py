@@ -1,6 +1,7 @@
 """Decode and prefill speed of two checkouts of the port, in turns, on one card.
 
     python -m chatglm_q_tpu_torch.utils.decode_ab OTHER_CHECKOUT [--rounds 1] [--dyn | --device]
+    python -m chatglm_q_tpu_torch.utils.decode_ab --graphs [--rounds 1]
 
 Each turn is a fresh process in one checkout's root (so each builds and
 imports its own ``chatglm_q_tpu_torch``): ChatGLM2-6B int4g32 with 28 layers
@@ -31,6 +32,11 @@ device ms a step (every kernel's time), the device launches a step
 (kernels, copies and fills) and by kernel, the host-clock ms a step of the
 same traced steps, and the largest kernels (device us and launches a step).
 It needs ``multi_step_decode`` and ``paged_kv``, there since slice 3.
+
+With ``--graphs`` both sides are this checkout: the turns run the default
+measurement with the decode programs replayed from CUDA graphs ("captured")
+and from eager launches (``TorchRuntimeConfig(cuda_graphs=False)``,
+"eager"), in the order eager, captured, captured, eager.
 """
 from __future__ import annotations
 
@@ -53,6 +59,8 @@ for batch in (1, 4):
     out[batch] = {k: [r[k] for r in runs] for k in ("decode_ms_per_step", "prefill_ms")}
 print(json.dumps(out))
 """
+
+GRAPHS_CHILD = CHILD.replace("TorchRuntimeConfig()", "TorchRuntimeConfig(cuda_graphs=GRAPHS)")
 
 DYN_CHILD = """
 import json, time, torch
@@ -165,17 +173,30 @@ def run_turn(root: pathlib.Path, child: str = CHILD) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("other", type=pathlib.Path, help="root of the other checkout")
+    ap.add_argument("other", type=pathlib.Path, nargs="?", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--dyn", action="store_true", help="the dynamic-int8 prefills instead")
     ap.add_argument("--device", action="store_true",
                     help="a batch-1 decode step's device time and launches instead")
+    ap.add_argument("--graphs", action="store_true",
+                    help="this checkout's decode captured against eager, in turns")
     args = ap.parse_args(argv)
+    if (args.other is None) != args.graphs:
+        ap.error("give OTHER_CHECKOUT, or --graphs alone")
     this = pathlib.Path(__file__).resolve().parents[2]
-    sides = {"other": args.other.resolve(), "this": this}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.graphs:
+        turns = {"eager": [], "captured": []}
+        for _ in range(args.rounds):
+            for side in ("eager", "captured", "captured", "eager"):
+                child = GRAPHS_CHILD.replace("GRAPHS", "False" if side == "eager" else "True")
+                turns[side].append(run_turn(this, child))
+                print(json.dumps({"side": side, **turns[side][-1]}), flush=True)
+        print(json.dumps({"card": smi, **turns}))
+        return 0
+    sides = {"other": args.other.resolve(), "this": this}
     if args.dyn or args.device:
         child = DEVICE_CHILD if args.device else DYN_CHILD
         turns = {side: [] for side in sides}

@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --gap-seeds 61,71,81    # phase 6's greedy readings alone, per seed
     python3 chip_smoke.py --sharded    # phase 2's sharded rows (K1, K2, K3) and phase 8 alone
     python3 chip_smoke.py --nccl 4    # phase 8 alone over NCCL on 4 cards, one a rank
+    python3 chip_smoke.py --serving    # phases 4, 5, 6 and 9 alone (the captured decode)
 
 Phases (any failure raises and exits non-zero):
 
@@ -73,20 +74,28 @@ Phases (any failure raises and exits non-zero):
    random weights built on the card, 4 right-padded requests through
    prefill and 32 greedy decode steps plus one top-p request, with every
    kernel's launch count from that run (a decode step: 169 launches of B1's
-   split-K kernel, none of its gemv); then prefill and decode timings at
-   batch 1 and 4, the decode again with ``decode_attn_v2`` (B12) in turns
-   with B4, and where a batch-1 decode step's time goes
+   split-K kernel, none of its gemv), the decode replayed from a captured
+   CUDA graph (``decode_program``) with greedy and top-p tokens equal to the
+   eager loop's (``cuda_graphs=False``); then prefill and decode timings at
+   batch 1 and 4 in turns: eager, captured, captured ``decode_attn_v2``
+   (B12) twice, captured, eager; and where a batch-1 decode step's time goes
    (torch.profiler's device time by kernel, ``decode_attn_kernel``'s and
    ``int4_splitk_mma_kernel``'s apart, no ``splitk_reduce_kernel``;
    cProfile's host time by function), and a 1 x 128 and a 4 x 128 prefill
    traced the same way, ``int4_wgmma_kernel``'s 168 launches apart.
 5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
    int8 with dynamic int8 activations, then int4g32 with dynamic int8
-   activations, each through ``GLMDecoder.generate`` (greedy, a chat
-   prompt, 32 tokens) with a tokenizer built in process whose every id
+   activations, then int4g32, each through ``GLMDecoder.generate`` (greedy,
+   a chat prompt, 32 tokens) with a tokenizer built in process whose every id
    below 65024 is a text piece or a special token; the text must equal
    the model-level text of ``prefill`` + ``multi_step_decode`` on the same
-   ids.  Decode ms/step at batch 1 for each mode, and a traced batch-1
+   ids and the eager decoder's (``cuda_graphs=False``), its decode step
+   replayed from a graph; the decoder's ms a token and decode ms/step at
+   batch 1, each in turns (eager, captured, captured, eager); in int4g32
+   also ``speculative_k=4``, its verify step captured, with the eager
+   speculative decoder's text (a verify step attends through B5's chunked
+   form, so its greedy tokens may leave the plain decode's at a near-tie:
+   the characters they share are printed).  A traced batch-1
    decode step: its split-K matmul kernel's device ms (``DECODE_KERNELS``:
    169 launches a step) apart, no ``splitk_reduce_kernel``; in int8 a
    traced 4 x 128 prefill, ``int8_wgmma_kernel``'s 168 launches apart; in
@@ -117,7 +126,10 @@ Phases (any failure raises and exits non-zero):
    step), the paged attention kernels' and B1's split-K kernel's share and
    the three largest kernels; in (a) also one chunk step (four 256-token
    prompt chunks, 1024 rows) split into device and host time, with B1's
-   Hopper kernel apart.
+   Hopper kernel apart.  Every decode chunk replays captured programs (one
+   a compact batch; (b)'s speculation steps too); each run is driven again
+   from eager launches (``cuda_graphs=False``), its greedy tokens equal,
+   with its tokens/s, time to first token and (a), (c) busy share.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -149,7 +161,15 @@ Phases (any failure raises and exits non-zero):
    Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
    (dense and paged, bit for bit) against their plain versions, the
    shards merged against the unsharded function in f32 within the
-   roundings the design allows (``hold_merge``).
+   roundings the design allows (``hold_merge``).  The mesh decodes from
+   eager launches: it refuses CUDA-graph capture.
+9. The OpenAI-style API server at full size: ``GLMAPIServer`` on a 28-layer
+   int4g32 ``PagedServingEngine`` (whole-prompt admission) with phase 5's
+   tokenizer, on localhost: a chat completion, the same streamed, a text
+   completion, a stop string, ``n = 2`` and ``/metrics``; every greedy
+   text equals the engine's own
+   ``run`` of the same prompts, and the decode chunks replay captured
+   programs.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
@@ -255,7 +275,9 @@ INT4_PATH_KERNELS = ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
 # prefill, the split-K ones in decode, and int4g32 + dyn stays on B8)
 CHAT_MODES = [("int8", False, ("int8_splitk", "int8_mma")),
               ("int8", True, ("int8_dyn_splitk", "int8_dyn_mma")),
-              ("int4g32", True, ("int4_dyn_splitk", "int4_dyn_mma"))]
+              ("int4g32", True, ("int4_dyn_splitk", "int4_dyn_mma")),
+              ("int4g32", False, ("int4g32_splitk",))]  # its 57-token prefill: split-K too
+SPEC_K = 4  # phase 5's speculative GLMDecoder run (int4g32)
 # each decode mode's split-K matmul kernel, as the profiler names it: (label,
 # substrings of its name)
 DECODE_KERNELS = {
@@ -560,11 +582,11 @@ def check_matmul(torch):
     return rows, crossover, splitk_crossover
 
 
-def int8_library(torch, x, w_t, scale_bf16, want):
+def int8_library(torch, x, w_t, scale_bf16, want, refusal=None):
     """ms of ``torch._weight_int8pack_mm`` (x @ w_t (N, K) int8ᵀ · scales in
     x's dtype) over the rotated transposed weights, after checking it
     computes the plain version's function; None where this torch has no
-    CUDA implementation for it."""
+    CUDA implementation for it (its message appended to ``refusal``)."""
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
@@ -573,7 +595,9 @@ def int8_library(torch, x, w_t, scale_bf16, want):
     try:
         got = mm(x, w_t[0], scale_bf16[0])
     except (RuntimeError, NotImplementedError) as e:
-        log(f"    library: _weight_int8pack_mm refused M={x.shape[0]}: {str(e)[:160]}")
+        log(f"    library: _weight_int8pack_mm refused M={x.shape[0]} {x.dtype}: {str(e)[:160]}")
+        if refusal is not None:
+            refusal.append(str(e)[:300])
         return None
     rel = rel_err(got, want)[1]
     require(rel <= KERNEL_TOL, f"_weight_int8pack_mm disagrees with the plain version: {rel}")
@@ -637,7 +661,9 @@ def check_int8_matmul(torch):
                                iters=30)
             plain = cuda_event_ms(lambda i: I8.int8_matmul_plain(x, w[0], scale[0]),
                                   iters=3, warmup=1)
-            lib = int8_library(torch, x, w_t, scale_bf16, want) if dtype == torch.bfloat16 else None
+            refusal = []  # f32: the scales in f32, as the library takes x's dtype
+            lib = int8_library(torch, x, w_t, scale_bf16 if dtype == torch.bfloat16 else scale,
+                               want, refusal)
             xb = x.element_size()
             b, by = bound_ms(M * K * xb + wbytes + M * N * xb, 2.0 * M * K * N,
                              PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
@@ -645,6 +671,8 @@ def check_int8_matmul(torch):
                          "x_dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                          "rel_err": rel, "ms": ms, "plain_ms": plain, "bound_ms": b,
                          "bound_by": by, "library_ms": lib})
+            if refusal:
+                rows[-1]["library_refusal"] = refusal[0]
             if dtype == torch.bfloat16:  # the split-K and Hopper kernels: exact products
                 s64 = scale[0].double()
                 rows[-1]["beyond_sum"] = hold_sum(torch, f"int8_matmul {name} M={M}", got,
@@ -1634,6 +1662,7 @@ def full_slice(torch, smi):
     from chatglm_q_tpu_torch.bench import decode_rate, random_quantized_params, \
         weight_bytes_per_token
     from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.utils import graphs as G
 
     cfg = ChatGLM2Config()
     rt = TorchRuntimeConfig()
@@ -1676,6 +1705,26 @@ def full_slice(torch, smi):
     missing = [k for k in INT4_PATH_KERNELS if counts[k] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
     require(counts["int4g32_gemv"] == 0, "a bf16 run launched B1's f32 gemv")
+    # the decode ran from captured graphs, and its tokens are the eager loop's
+    prog = M.decode_program(params, cfg, cache, "int4g32", bf16, rt)
+    require(prog.graph is not None and prog.replays == 31,
+            f"the batch-4 decode was not replayed from a graph ({prog.replays} replays)")
+    eager = TorchRuntimeConfig(cuda_graphs=False)
+    ce = M.init_kv_cache(cfg, B, CACHE_LEN, bf16)
+    le, ce = M.prefill(params, cfg, ids, lengths, ce, "int4g32", bf16, eager)
+    toks_e, ce = M.multi_step_decode(params, cfg, torch.argmax(le, -1).to(torch.int32), ce, 32,
+                                     None, "int4g32", bf16, eager)
+    ce1 = M.init_kv_cache(cfg, 1, CACHE_LEN, bf16)
+    le1, ce1 = M.prefill(params, cfg, ids[:1], lengths[:1], ce1, "int4g32", bf16, eager)
+    sample_gen.manual_seed(32)
+    toks1_e, _ = M.multi_step_decode(params, cfg, torch.argmax(le1, -1).to(torch.int32), ce1, 16,
+                                     sample_gen, "int4g32", bf16, eager, top_k=100, top_p=0.8)
+    require(torch.equal(toks, toks_e), "the captured greedy tokens differ from the eager loop's")
+    require(torch.equal(toks1, toks1_e),
+            "the captured top-p tokens differ from the eager loop's on the same seed")
+    log(f"  decode from captured graphs ({G.programs(params).captures} captures): greedy and "
+        f"top-p tokens equal to the eager loop's (cuda_graphs=False)")
+    del ce, ce1
 
     # launches of one batch-4 decode step, for the kernel table
     ops.reset_launch_counts()
@@ -1693,28 +1742,34 @@ def full_slice(torch, smi):
     del cache, cache1
 
     perf = {"card": smi, "weight_bytes_per_token": wbytes, "launches_per_decode_step": per_step}
-    for batch in (1, B):
-        r = decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN, rt)
-        perf[f"batch{batch}"] = r
-        log(f"  batch {batch}: prefill {batch}x128 tokens {r['prefill_ms']:.2f} ms; decode "
-            f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
-    # decode_attn_v2 (B12) paired with B4 in turns: B4 (above), v2, v2, B4
+    # in turns, each at batch 1 and 4: eager, captured (B4), captured
+    # decode_attn_v2 (B12) twice, captured (B4), eager
     rt_v2 = TorchRuntimeConfig(decode_attn_v2=True)
+    order = (("eager", eager), ("captured", rt), ("v2", rt_v2), ("v2", rt_v2),
+             ("captured", rt), ("eager", eager))
+    turns = {batch: {k: [] for k in ("eager", "captured", "v2")} for batch in (1, B)}
+    v2_counts = {}
+    for name, r_t in order:
+        for batch in (1, B):
+            ops.reset_launch_counts()
+            turns[batch][name].append(decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN,
+                                                  r_t))
+            if name == "v2":
+                v2_counts = {k: v2_counts.get(k, 0) + n for k, n in ops.launch_counts().items()}
     ops.reset_launch_counts()
-    for batch in (1, B):
-        perf[f"v2_batch{batch}"] = [decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN,
-                                                rt_v2) for _ in range(2)]
-    v2_counts = ops.launch_counts()
     require(v2_counts["flash_attention_decode_v2"] > 0 and v2_counts["flash_attention_decode"] == 0,
             f"decode_attn_v2 runs launched B12 {v2_counts['flash_attention_decode_v2']}, "
             f"B4 {v2_counts['flash_attention_decode']} times")
     for batch in (1, B):
-        again = decode_rate(params, cfg, "int4g32", batch, 128, CACHE_LEN, rt)
-        perf[f"batch{batch}_again"] = again
-        v2 = [r["decode_ms_per_step"] for r in perf[f"v2_batch{batch}"]]
-        log(f"  batch {batch} decode, cache {CACHE_LEN}: B4 {perf[f'batch{batch}']['decode_ms_per_step']:.3f}"
-            f" / {again['decode_ms_per_step']:.3f} ms/step, decode_attn_v2 (B12) {v2[0]:.3f} / "
-            f"{v2[1]:.3f} ms/step  [{smi}]")
+        t = {k: [r["decode_ms_per_step"] for r in v] for k, v in turns[batch].items()}
+        perf[f"batch{batch}"] = turns[batch]["captured"][0]
+        perf[f"batch{batch}_turns_ms_per_step"] = t
+        perf[f"batch{batch}_prefill_ms"] = [r["prefill_ms"] for r in turns[batch]["captured"]]
+        log(f"  batch {batch} decode, cache {CACHE_LEN}, ms/step in turns: eager "
+            f"{t['eager'][0]:.3f}, captured {t['captured'][0]:.3f}, captured decode_attn_v2 (B12) "
+            f"{t['v2'][0]:.3f} / {t['v2'][1]:.3f}, captured {t['captured'][1]:.3f}, eager "
+            f"{t['eager'][1]:.3f}; prefill {batch}x128 tokens "
+            f"{turns[batch]['captured'][0]['prefill_ms']:.2f} ms  [{smi}]")
     log(f"  decode_attn_v2 runs: B12 launched {v2_counts['flash_attention_decode_v2']} times, B4 0")
     perf["profile"] = profile_decode(torch, params, cfg, rt)
     busy = perf["profile"]["device_ms_per_step"] / perf["batch1"]["decode_ms_per_step"]
@@ -1832,8 +1887,9 @@ def profile_prefill(torch, params, cfg, rt, batch, quant="int4g32", kernel="int4
 
 
 def profile_decode(torch, params, cfg, rt, quant="int4g32"):
-    """Device time of decode steps at batch 1, by kernel, from a
-    torch.profiler trace; then the host's time by function (cProfile)."""
+    """Device time of decode steps at batch 1 (replays of the captured step
+    unless ``rt.cuda_graphs`` is False), by kernel, from a torch.profiler
+    trace; then the host's time by function (cProfile)."""
     from torch.autograd import DeviceType
 
     from chatglm_q_tpu_torch.models import chatglm2 as M
@@ -1854,7 +1910,8 @@ def profile_decode(torch, params, cfg, rt, quant="int4g32"):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # one launch a linear, no second pass
+    timed()  # the decode program's warm-up step and capture, outside the trace
+    # one launch a linear, no second pass (counted in the replayed graph)
     prof, wall = trace_until(torch, timed, 6 * cfg.num_layers + 1, steps, subs,
                              f"a batch-1 {mode} decode step")
     # device-side events only (kernels, copies): an operator's device time
@@ -1958,14 +2015,18 @@ def model_level_text(torch, params, cfg, quant, rt, tokenizer, ids, eos):
     return process_response(tokenizer.decode(out)), out, launches
 
 
-def run_generate(decoder, prompt):
-    it = decoder.generate(prompt, max_generated_tokens=CHAT_TOKENS, temperature=0.0)
-    stream = []
+def run_generate(decoder, prompt, **kw):
+    """(the streamed texts, the final text, host ms a token between the
+    first and the last streamed text)."""
+    it = decoder.generate(prompt, max_generated_tokens=CHAT_TOKENS, temperature=0.0, **kw)
+    stream, stamps = [], []
     while True:
         try:
             stream.append(next(it))
+            stamps.append(time.perf_counter())
         except StopIteration as e:
-            return stream, e.value
+            require(len(stamps) >= 8, f"generate streamed {len(stamps)} texts")
+            return stream, e.value, (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
 
 
 def map_tree(tree, fn):
@@ -2031,6 +2092,7 @@ def chat_slice(torch, smi):
     from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
     from chatglm_q_tpu_torch.bench import decode_rate, random_quantized_params, \
         weight_bytes_per_token
+    from chatglm_q_tpu_torch.models import chatglm2 as M
     from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
 
     cfg = ChatGLM2Config()
@@ -2055,14 +2117,28 @@ def chat_slice(torch, smi):
             log(f"  ChatGLM2-6B {quant}, 28 layers, random weights: "
                 f"{weight_bytes_per_token(params) / 1e9:.3f} GB of weights per decode token")
         rt = TorchRuntimeConfig(dynamic_int8=dyn)
-        decoder = GLMDecoder(GLMLoadConfig(model_config=cfg, quant_type=quant,
-                                           torch_dtype="bfloat16"),
-                             params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
+        eager = TorchRuntimeConfig(dynamic_int8=dyn, cuda_graphs=False)
+        load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="bfloat16")
+        decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
+        eager_decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                                   rt=eager)
         ops.reset_launch_counts()
-        stream, final = run_generate(decoder, prompt)
+        stream, final, _ = run_generate(decoder, prompt)
         torch.cuda.synchronize()
         c = ops.launch_counts()
         counts[name] = c
+        step = M.decode_program(params, cfg, decoder._free_caches[0][0], quant, torch.bfloat16, rt)
+        require(step.graph is not None and step.replays >= CHAT_TOKENS - 3,
+                f"{name}: GLMDecoder's decode step was not replayed from a graph "
+                f"({step.replays} replays)")
+        # the eager loop's text, and the decoder's ms a token in turns
+        _, final_eager, _ = run_generate(eager_decoder, prompt)
+        require(final_eager == final, f"{name}: the captured decoder's text differs from the "
+                                      f"eager one's: {final[:60]!r} / {final_eager[:60]!r}")
+        tok_ms = {"eager": [], "captured": []}
+        for turn, d in (("eager", eager_decoder), ("captured", decoder),
+                        ("captured", decoder), ("eager", eager_decoder)):
+            tok_ms[turn].append(run_generate(d, prompt)[2])
         want, toks, launches = model_level_text(torch, params, cfg, quant, rt, tokenizer, ids,
                                                 decoder.eos_token_id)
         require(final == want, f"{name}: GLMDecoder text {final[:80]!r} differs from the "
@@ -2073,16 +2149,54 @@ def chat_slice(torch, smi):
         require(not missing, f"{name}: kernels not launched by GLMDecoder.generate: {missing}")
         require_fused_append(launches["per_decode_step"], cfg, f"{name}: a batch-1 decode step")
         log(f"  {name}: GLMDecoder.generate gave {len(toks)} tokens and {len(stream)} streamed "
-            f"texts; its final text equals the model-level text: {final[:70]!r}")
+            f"texts from {step.replays} replays of its captured decode step; its final text "
+            f"equals the model-level text and the eager decoder's: {final[:70]!r}")
+        log(f"  {name} GLMDecoder ms a token in turns: eager {tok_ms['eager'][0]:.3f}, captured "
+            f"{tok_ms['captured'][0]:.3f} / {tok_ms['captured'][1]:.3f}, eager "
+            f"{tok_ms['eager'][1]:.3f}  [{smi}]")
+        spec = None
+        if not dyn and quant == "int4g32":  # prompt-lookup speculation, its verify captured
+            sd = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
+            sd_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                                  rt=eager)
+            _, spec_eager, spec_eager_ms = run_generate(sd_eager, prompt, speculative_k=SPEC_K)
+            _, final_spec, spec_ms = run_generate(sd, prompt, speculative_k=SPEC_K)
+            verify = sd._verify_program(sd._free_caches[0][0], SPEC_K)
+            # the verify step attends through B5's chunked form where a decode
+            # step takes B4: bf16 rounds elsewhere, so a near-tie may flip
+            # (phase 6's greedy-gap check reads such runs); capture changes
+            # nothing, so the text must be the eager speculative decoder's
+            shared = next((i for i, (a, b) in enumerate(zip(final_spec, final)) if a != b),
+                          min(len(final_spec), len(final)))
+            spec = {**sd.spec_stats, "ms_per_token": spec_ms, "eager_ms_per_token": spec_eager_ms,
+                    "verify_replays": verify.replays, "chars_shared_with_greedy": shared}
+            require(final_spec == spec_eager, f"{name}: the captured speculative text "
+                                              f"{final_spec[:60]!r} differs from the eager one's "
+                                              f"{spec_eager[:60]!r}")
+            require(sd.spec_stats["verify_steps"] >= 2 and verify.graph is not None,
+                    f"{name}: speculation ran {sd.spec_stats} with no captured verify step")
+            log(f"  {name} GLMDecoder.generate(speculative_k={SPEC_K}): {json.dumps(sd.spec_stats)}"
+                f", the verify step replayed {verify.replays} times; the eager speculative "
+                f"decoder's text; its first {shared} of {len(final)} characters are the plain "
+                f"greedy text's; ms a token: captured {spec_ms:.3f}, eager {spec_eager_ms:.3f}  "
+                f"[{smi}]")
+            del sd, sd_eager
         log(f"  {name} launch counts of the generate run: "
             f"{json.dumps({k: v for k, v in c.items() if v})}")
         log(f"  {name} launches per prefill ({len(ids)} tokens): "
             f"{json.dumps(launches['per_prefill'])}; per batch-1 decode step: "
             f"{json.dumps(launches['per_decode_step'])}")
-        r = decode_rate(params, cfg, quant, 1, 128, CACHE_LEN, rt)
-        perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params)}
-        log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode "
-            f"{r['decode_ms_per_step']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s  [{smi}]")
+        turns = {"eager": [], "captured": []}
+        for turn, r_t in (("eager", eager), ("captured", rt), ("captured", rt), ("eager", eager)):
+            turns[turn].append(decode_rate(params, cfg, quant, 1, 128, CACHE_LEN, r_t))
+        r = turns["captured"][0]
+        ms = {k: [x["decode_ms_per_step"] for x in v] for k, v in turns.items()}
+        perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params),
+                      "decode_turns_ms_per_step": ms, "generate_turns_ms_per_token": tok_ms,
+                      "speculative": spec}
+        log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode ms/step in "
+            f"turns: eager {ms['eager'][0]:.3f}, captured {ms['captured'][0]:.3f} / "
+            f"{ms['captured'][1]:.3f}, eager {ms['eager'][1]:.3f}  [{smi}]")
         # where a batch-1 decode step's time goes (and an int8 4 x 128 prefill's)
         perf[name]["profile"] = profile_decode(torch, params, cfg, rt, quant)
         busy = perf[name]["profile"]["device_ms_per_step"] / r["decode_ms_per_step"]
@@ -2098,7 +2212,7 @@ def chat_slice(torch, smi):
             if quant == "int8":
                 perf[name]["prefill_profile_4x128"] = profile_prefill(
                     torch, params, cfg, rt, 4, quant, "dyn_wgmma_kernel")
-        del decoder
+        del decoder, eager_decoder
     del params
     torch.cuda.empty_cache()
     perf["round_trip"] = {q: round_trip(torch, q, tokenizer) for q in ("int8", "int4g32")}
@@ -2165,9 +2279,14 @@ def drive(torch, engine, reqs, name):
     """Submit ``reqs`` at once and step the engine until it drains: the host
     time to first token of each request (when ``step()`` returns it, which
     includes that step's decode chunk), aggregate tokens/s over the drain,
-    the median wall of a decode-only step, and every kernel's launches."""
+    the median wall of a decode-only step, every kernel's launches, and the
+    step programs captured in the run (a capture's warm-up and recording
+    fall inside the time to first token)."""
     from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.utils import graphs as G
 
+    registry = G.programs(engine.params)
+    captures = registry.captures
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2195,13 +2314,15 @@ def drive(torch, engine, reqs, name):
     res = {"ttft_s": [first.get(i) for i in ids], "tokens": tokens, "wall_s": wall,
            "tok_per_s": tokens / wall, "steps": len(walls["decode"]) + len(walls["admit"]),
            "decode_step_ms_median": med["decode"], "admit_step_ms_median": med["admit"],
-           "admit_steps": len(walls["admit"]), "launches": counts, "stats": dict(engine.stats)}
+           "admit_steps": len(walls["admit"]), "launches": counts, "stats": dict(engine.stats),
+           "captures": registry.captures - captures}
     log(f"  {name}: {len(reqs)} requests, {tokens} tokens in {wall:.2f} s "
         f"({res['tok_per_s']:.1f} tok/s aggregate); time to first token "
         + ", ".join(f"{t:.2f}" for t in res["ttft_s"]) + " s")
     log(f"    {len(walls['admit'])} steps with admission or prefill work (median "
         f"{med['admit'] or 0:.1f} ms), {len(walls['decode'])} decode-only steps (median "
-        f"{med['decode'] or 0:.1f} ms, {engine.chunk} decode steps each)")
+        f"{med['decode'] or 0:.1f} ms, {engine.chunk} decode steps each); "
+        f"{res['captures']} step programs captured in the run")
     log(f"    launches: {json.dumps({k: v for k, v in counts.items() if v})}")
     return reqs_done, res
 
@@ -2313,6 +2434,37 @@ def chunk_step_busy(torch, engine, name, seed):
     return res
 
 
+def eager_turn(torch, make, reqs, done, name, busy_reqs=None):
+    """The same run from eager launches (``cuda_graphs=False``): its greedy
+    tokens must equal the captured run's ``done``; tokens/s, time to first
+    token and (with ``busy_reqs``) the decode-only step's busy share."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+
+    eng = make(TorchRuntimeConfig(cuda_graphs=False))
+    e_done, res = drive(torch, eng, reqs, f"{name}, eager")
+    for x, y, (_, kw) in zip(done, e_done, reqs):
+        if kw["temperature"] == 0:
+            require(x.generated == y.generated, f"{name}: request {x.req_id}'s captured greedy "
+                                                f"tokens differ from the eager run's")
+    res["sampled_equal"] = all(x.generated == y.generated for x, y in zip(done, e_done))
+    log(f"    {name}: the captured run's greedy tokens equal the eager run's; sampled rows "
+        f"{'equal' if res['sampled_equal'] else 'differ'} on the same seed")
+    if busy_reqs is not None:
+        res["busy"] = chunk_busy(torch, eng, busy_reqs, f"{name} eager")
+    return res
+
+
+def captured_programs(params, name, kinds):
+    """The step programs of ``kinds`` that replayed from a graph."""
+    from chatglm_q_tpu_torch.utils import graphs as G
+
+    progs = [p for p in G.programs(params)._programs.values() if p.name in kinds and p.capture]
+    n = sum(p.replays for p in progs)
+    require(n > 0 and all(p.graph is not None for p in progs if p.calls > 1),
+            f"{name}: no captured {kinds} program replayed")
+    return {p.name: p.replays for p in progs}
+
+
 def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ):
     """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
     fresh dense cache (one chunk, all logits), and the largest relative gap
@@ -2384,11 +2536,23 @@ def engines_slice(torch, smi, seed=61, survey=False):
              for p, kw in a_reqs[:4]]
     out = {}
 
-    # (a) paged, chunked admission through the prefix cache
-    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
-                             prefill_chunk_size=PAGE, prefix_cache=True, rt=rt, seed=seed + 3,
+    def make_a(r_t):
+        return PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                                  prefill_chunk_size=PAGE, prefix_cache=True, rt=r_t,
+                                  seed=seed + 3, **ENGINE_KW)
+
+    def make_b(r_t, k=8):
+        return PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                                  speculative_k=k, speculative_ngram=3, rt=r_t, **ENGINE_KW)
+
+    def make_c(r_t):
+        return ServingEngine(load, params, prefill_chunk_size=PAGE, lookahead=True, rt=r_t,
                              **ENGINE_KW)
+
+    # (a) paged, chunked admission through the prefix cache
+    eng = make_a(rt)
     a_done, out["a"] = drive(torch, eng, a_reqs, "(a) paged, chunked + prefix cache")
+    out["a"]["replays"] = captured_programs(params, "(a)", ("decode_step_paged",))
     require(eng.pages_in_use == 0, f"(a): {eng.pages_in_use} pages in use after the drain")
     require(eng.stats["prefix_hits"] > 0, "(a): no prefix hit")
     eng.clear_prefix_cache()
@@ -2400,23 +2564,27 @@ def engines_slice(torch, smi, seed=61, survey=False):
         out["a"]["busy"] = chunk_busy(torch, eng, short, "(a)")
         out["a"]["chunk_step"] = chunk_step_busy(torch, eng, "(a)", seed + 5)
     del eng
+    if not survey:
+        out["a"]["eager"] = eager_turn(torch, make_a, a_reqs, a_done, "(a)", short)
 
     # (b) paged, whole-prompt admission, in-loop speculation, and the same
     # requests without it
-    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
-                             speculative_k=8, speculative_ngram=3, rt=rt, **ENGINE_KW)
+    eng = make_b(rt)
     b_done, out["b"] = drive(torch, eng, b_reqs, "(b) paged, speculative k=8")
     require(eng.pages_in_use == 0, f"(b): {eng.pages_in_use} pages in use after the drain")
     out["b"]["spec_accepted"] = eng.stats["spec_accepted"]
+    out["b"]["replays"] = captured_programs(params, "(b)", ("spec_step",))
     if not survey:
         out["b"]["busy"] = chunk_busy(torch, eng, [(p, {**kw, "max_new_tokens": 256})
                                                    for p, kw in b_reqs], "(b)")
     del eng
     if not survey:
-        eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE, rt=rt,
-                                 **ENGINE_KW)
+        out["b"]["eager"] = eager_turn(torch, make_b, b_reqs, b_done, "(b)")
+        eng = make_b(rt, 0)
         b_plain, out["b_plain"] = drive(torch, eng, b_reqs, "(b') the same without speculation")
         del eng
+        out["b_plain"]["eager"] = eager_turn(torch, lambda r_t: make_b(r_t, 0), b_reqs, b_plain,
+                                             "(b')")
         shared = []
         for x, y in zip(b_done, b_plain):
             n = 0
@@ -2429,13 +2597,15 @@ def engines_slice(torch, smi, seed=61, survey=False):
             f"run without speculation (common prefix / emitted): {shared}")
 
     # (c) the dense engine: chunked admission, lookahead
-    eng = ServingEngine(load, params, prefill_chunk_size=PAGE, lookahead=True, rt=rt,
-                        **ENGINE_KW)
+    eng = make_c(rt)
     c_reqs = [a_reqs[i] for i in (0, 1, 2, 4)]
     c_done, out["c"] = drive(torch, eng, c_reqs, "(c) dense, chunked + lookahead")
+    out["c"]["replays"] = captured_programs(params, "(c)", ("decode_step",))
     if not survey:
         out["c"]["busy"] = chunk_busy(torch, eng, short, "(c)")
     del eng
+    if not survey:
+        out["c"]["eager"] = eager_turn(torch, make_c, c_reqs, c_done, "(c)", short)
 
     gaps = {}
     for run, done, reqs in (("a", a_done, a_reqs), ("b", b_done, b_reqs),
@@ -2477,6 +2647,114 @@ def engines_slice(torch, smi, seed=61, survey=False):
     counts = {k: ca[k] + cb[k] + cc[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
     counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"]
     return counts, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the OpenAI-style API server over the paged engine
+# ---------------------------------------------------------------------------
+
+API_TOKENS = 24
+
+
+def api_slice(torch, smi, seed=91):
+    """``GLMAPIServer`` on the 28-layer int4g32 ``PagedServingEngine``
+    (whole-prompt admission, the in-process 65024-id tokenizer), answering
+    on localhost: a chat completion, the same streamed (SSE), a text
+    completion, a stop string, ``n = 2`` and ``/metrics``.  Each greedy text
+    must equal the engine's own ``run`` of the same prompt, run before the
+    server takes the engine; the decode chunks replay captured programs.
+    Whole-prompt admission prefills each prompt alone, and a decode row's
+    result does not depend on its batch (its split-K plan is the same from
+    1 to 8 rows), so a text does not depend on which requests the server
+    admitted together; a chunked prefill of two prompts runs B1's Hopper
+    kernel on twice the rows, another plan, and may flip a near-tie."""
+    import urllib.request
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, ops
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.serving import GLMAPIServer, PagedServingEngine
+    from chatglm_q_tpu_torch.serving.api_server import _messages_to_prompt
+
+    cfg = ChatGLM2Config()
+    params = random_quantized_params(cfg, "int4g32",
+                                     torch.Generator(device="cuda").manual_seed(seed))
+    tokenizer = chat_tokenizer()
+    eng = PagedServingEngine(GLMLoadConfig(model_config=cfg, quant_type="int4g32",
+                                           torch_dtype="bfloat16"),
+                             params, tokenizer, num_pages=POOL_PAGES, page_size=PAGE,
+                             seed=seed, **ENGINE_KW)
+    messages = [{"role": "user", "content": CHAT_QUESTION}]
+    chat_prompt, text_prompt = _messages_to_prompt(messages), "The quick brown fox"
+    greedy = dict(temperature=0.0, max_new_tokens=API_TOKENS)
+    want_chat = eng.run([chat_prompt], **greedy)[0]
+    want_text = eng.run([text_prompt], **greedy)[0]
+    require(len(want_chat) >= 8, f"phase 9: the engine's answer is {want_chat!r}")
+    stop = want_chat[len(want_chat) // 2: len(want_chat) // 2 + 3]
+    server = GLMAPIServer(eng, port=0, model_name="chatglm2-6b")
+    url = f"http://{server.host}:{server.port}"
+    chat_body = {"model": "chatglm2-6b", "messages": messages, "max_tokens": API_TOKENS,
+                 "temperature": 0.0}
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            data = resp.read().decode()
+        return data, (time.perf_counter() - t0) * 1e3
+
+    ms = {}
+    ops.reset_launch_counts()
+    server.start()
+    try:
+        data, ms["chat"] = post("/v1/chat/completions", chat_body)
+        chat = json.loads(data)
+        data, ms["stream"] = post("/v1/chat/completions", dict(chat_body, stream=True))
+        chunks = [json.loads(line[6:]) for line in data.splitlines()
+                  if line.startswith("data: {")]
+        require(data.rstrip().endswith("data: [DONE]"), "phase 9: the stream did not end in "
+                                                        "[DONE]")
+        streamed = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+        data, ms["completion"] = post("/v1/completions", {
+            "model": "chatglm2-6b", "prompt": text_prompt, "max_tokens": API_TOKENS,
+            "temperature": 0.0})
+        completion = json.loads(data)
+        data, ms["stop"] = post("/v1/chat/completions", dict(chat_body, stop=stop))
+        stopped = json.loads(data)
+        data, ms["n2"] = post("/v1/chat/completions", dict(chat_body, n=2))
+        pair = json.loads(data)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            metrics = resp.read().decode()
+    finally:
+        server.shutdown()
+    counts = ops.launch_counts()
+    got_chat = chat["choices"][0]["message"]["content"]
+    require(got_chat == want_chat, f"phase 9: chat {got_chat!r} differs from the engine's "
+                                   f"{want_chat!r}")
+    require(streamed == want_chat, f"phase 9: the stream {streamed!r} differs")
+    require(completion["choices"][0]["text"] == want_text,
+            f"phase 9: completion {completion['choices'][0]['text']!r} differs from {want_text!r}")
+    got_stop = stopped["choices"][0]
+    require(got_stop["message"]["content"] == want_chat[: want_chat.find(stop)]
+            and got_stop["finish_reason"] == "stop",
+            f"phase 9: stop {stop!r} gave {got_stop}")
+    require([c["message"]["content"] for c in pair["choices"]] == [want_chat] * 2,
+            f"phase 9: n = 2 gave {pair['choices']}")
+    require(pair["usage"]["prompt_tokens"] == 2 * chat["usage"]["prompt_tokens"],
+            f"phase 9: n = 2 usage {pair['usage']}")
+    gen_line = next(line for line in metrics.splitlines() if 'stat="generated_tokens"' in line)
+    require(int(gen_line.rsplit(" ", 1)[1]) > 0, f"phase 9: /metrics {gen_line}")
+    for kern in ("int4g32_splitk", "flash_attention_decode_paged", "rope_kv_append"):
+        require(counts[kern] > 0, f"phase 9: the served requests did not launch {kern}")
+    replays = captured_programs(params, "phase 9", ("decode_step_paged",))
+    log(f"  GLMAPIServer on {url}: chat, SSE stream ({len(chunks)} chunks), completion, stop "
+        f"{stop!r}, n = 2 and /metrics answered; every greedy text equals the engine's own run "
+        f"({chat['usage']['completion_tokens']} tokens: {got_chat[:60]!r}); the decode chunks "
+        f"replayed captured programs {json.dumps(replays)}")
+    log(f"  request ms (host clock, client side): {json.dumps({k: round(v, 1) for k, v in ms.items()})}"
+        f"  [{smi}]")
+    return {"request_ms": ms, "usage": chat["usage"], "replays": replays,
+            "launches": {k: v for k, v in counts.items() if v}}
 
 
 # ---------------------------------------------------------------------------
@@ -3321,6 +3599,25 @@ def main() -> int:
         log("detail: " + json.dumps({"card": smi, "sharded_28_layers": sharded_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--serving" in sys.argv:  # phases 4, 5, 6 and 9 alone
+        log("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
+        perf = full_slice(torch, smi)[2]
+        torch.cuda.empty_cache()
+        log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 "
+            "layers")
+        chat_perf = chat_slice(torch, smi)[1]
+        torch.cuda.empty_cache()
+        log("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
+        engine_perf = engines_slice(torch, smi)[1]
+        torch.cuda.empty_cache()
+        log("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B "
+            "int4g32, 28 layers")
+        api_perf = api_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "int4g32_28_layers": perf,
+                                     "chat_28_layers": chat_perf, "engines_28_layers": engine_perf,
+                                     "api_server_28_layers": api_perf}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--sharded" in sys.argv:  # phase 2's sharded rows and phase 8 alone
         log("== phase 2 (sharded forms): K1, K2, K3 against their plain versions")
         sharded_rows = check_sharded_attention(torch)
@@ -3355,7 +3652,7 @@ def main() -> int:
     counts, v2_counts, perf = full_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, 28 layers")
+    log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 layers")
     chat_counts, chat_perf = chat_slice(torch, smi)
     torch.cuda.empty_cache()
 
@@ -3371,6 +3668,10 @@ def main() -> int:
     log("== phase 8: tensor-parallel serving of ChatGLM2-6B int4g32, 28 layers, on a (1, 2) "
         "mesh of two gloo ranks sharing this card")
     sharded_counts, sharded_perf = sharded_slice(torch, smi)
+
+    log("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B int4g32, "
+        "28 layers")
+    api_perf = api_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -3443,7 +3744,8 @@ def main() -> int:
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "attention": att, "e2e_rel_err": e2e,
               "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
-              "engines_28_layers": engine_perf, "fine_tune_28_layers": ft_perf,
+              "engines_28_layers": engine_perf, "api_server_28_layers": api_perf,
+              "fine_tune_28_layers": ft_perf,
               "sharded_28_layers": sharded_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1398,3 +1398,227 @@ def test_rope_kv_append_sharded_replays_in_a_graph(gen):
         want = A.rope_kv_append_sharded_plain(q, kv, freqs, kr, vr, 1, starts, shard, table)
         torch.cuda.synchronize()
         assert torch.equal(out, want) and torch.equal(k, kr) and torch.equal(v, vr), step
+
+
+# -- CUDA graphs: the attention kernels and the captured decode programs ------
+
+def _attention_call(gen, kind):
+    """(zero-argument call of one attention kernel at a main-path shape,
+    the inputs it reads, which a replay test refreshes in place)."""
+    sm = 1 / math.sqrt(128)
+    B, G, Hg, D, T = 4, 2, 16, 128, 1024
+    if kind in ("decode", "decode_v2"):
+        q, k, v = _decode_inputs(gen, B, G, Hg, T)
+        lengths = torch.tensor([1000, 600, 200, 0], dtype=torch.int32, device="cuda")
+        fn = A.flash_attention_decode_v2 if kind == "decode_v2" else A.flash_attention_decode
+        return (lambda: fn(q, k, v, lengths, sm)), (q, k, v)
+    if kind in ("prefill", "prefill_chunk"):
+        S = 128 if kind == "prefill" else 64
+        q = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn((B, G, 256, D), device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        lengths = torch.tensor([128, 77, 33, 5], dtype=torch.int32, device="cuda")
+        if kind == "prefill":
+            return (lambda: A.flash_attention_prefill(q, k, v, lengths, sm)), (q, k, v)
+        starts = torch.tensor([192, 100, 0, 7], dtype=torch.int32, device="cuda")
+        ends = starts + 64
+        return (lambda: A.flash_attention_prefill(q, k, v, ends, sm, q_starts=starts)), (q, k, v)
+    P, MP, L = 256, 8, 2
+    NP = B * MP + 1
+    kp, vp = _paged_pool(gen, L, NP, G, P)
+    pt = _scattered_table(gen, B, MP, NP)
+    if kind == "decode_paged":
+        q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+        lengths = torch.tensor([1000, 600, 200, 0], dtype=torch.int32, device="cuda")
+        return (lambda: A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)), (q, kp, vp)
+    q = torch.randn((B, 9, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    starts = torch.tensor([1000, 600, 200, 0], dtype=torch.int32, device="cuda")
+    return (lambda: A.flash_attention_chunk_paged(q, kp, vp, 1, pt, starts, sm)), (q, kp, vp)
+
+
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "prefill", "prefill_chunk",
+                                  "decode_paged", "chunk_paged"])
+def test_attention_kernels_replay_in_a_graph(gen, kind):
+    """B4, B12, B5 (both forms), B10 and B11 captured in a CUDA graph and
+    replayed on new inputs copied into the captured tensors: every replay
+    bit-equal to one eager launch on the same inputs (the span merges'
+    counters reset in the launch, the partials are kept scratch)."""
+    call, inputs = _attention_call(gen, kind)
+    call()  # warm-up: build, load, size the scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in range(2):
+        for t in inputs:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(t.dtype))
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call()), (kind, step)
+
+
+def test_rope_kv_append_dense_replays_in_a_graph(gen):
+    """The dense form of the fused RoPE + K/V append (the paged one is above)
+    replayed: bit-equal to the plain sequence each time."""
+    q, kv, freqs, k, v, _, cap = _rope_case(gen, 4, False)
+    starts = torch.tensor([3, 300, 700, cap + 5], dtype=torch.int32, device="cuda")
+    A.rope_kv_append(q, kv, freqs, k, v, 1, starts)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.rope_kv_append(q, kv, freqs, k, v, 1, starts)
+    for step in range(2):
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        kv.copy_(torch.randn(kv.shape, device="cuda", generator=gen))
+        starts.add_(1)
+        kr, vr = k.clone(), v.clone()
+        graph.replay()
+        want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 1, starts)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(k, kr) and torch.equal(v, vr), step
+
+
+_DEPTH2 = {}
+
+
+def _depth2_tree(gen):
+    """ChatGLM2-6B widths at depth 2, int4g32, random unit-gain weights."""
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+
+    if not _DEPTH2:
+        cfg = ChatGLM2Config(num_layers=2)
+        _DEPTH2["tree"] = (cfg, random_quantized_params(cfg, "int4g32", gen))
+    return _DEPTH2["tree"]
+
+
+def test_captured_decode_steps_are_bit_equal_to_eager(gen):
+    """A depth-2 6B-width ``multi_step_decode`` (batch 4, ragged) and the
+    paged decode program (batch 4 on scattered pages), captured, over 8
+    steps: tokens, lengths and every cache / pool byte equal the eager
+    steps' (``cuda_graphs=False``), and the launch counts are 8 steps'."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.models import paged_kv as PK
+
+    cfg, params = _depth2_tree(gen)
+    bf16 = torch.bfloat16
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 40, 17, 3], dtype=torch.int32, device="cuda")
+    cache = M.init_kv_cache(cfg, 4, 256, bf16)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, "int4g32", bf16,
+                                        TorchRuntimeConfig(cuda_graphs=graphs))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and torch.equal(c0.lengths, c1.lengths)
+    assert torch.equal(c0.k, c1.k) and torch.equal(c0.v, c1.v)
+    assert n0 == n1 and n1["int4g32_splitk"] == 8 * (6 * cfg.num_layers + 1)
+    prog = M.decode_program(params, cfg, c1, "int4g32", bf16, TorchRuntimeConfig())
+    assert prog.graph is not None and prog.replays == 7
+
+    P, MP = 256, 2
+    pool = PK.init_paged_kv_cache(cfg, 4, 9, MP * P, P, bf16)
+    pool.page_table.copy_(torch.arange(1, 9, dtype=torch.int32, device="cuda").flip(0)
+                          .reshape(4, 2))
+    logits, pool = PK.prefill_paged(params, cfg, ids, lengths, pool, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    outs = []
+    for graphs in (False, True):
+        p = pool.replace(k_pool=pool.k_pool.clone(), v_pool=pool.v_pool.clone())
+        prog = PK.decode_paged_program(params, cfg, p, "int4g32", bf16,
+                                       TorchRuntimeConfig(cuda_graphs=graphs))
+        prog.load(ids=first, lengths=p.lengths, page_table=p.page_table)
+        toks = prog.run(8, params, p.k_pool, p.v_pool, collect=("ids",))["ids"]
+        torch.cuda.synchronize()
+        outs.append((toks, prog.inputs["lengths"].clone(), p, prog.graph is not None))
+    assert not outs[0][3] and outs[1][3]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][2].k_pool, outs[1][2].k_pool)
+    assert torch.equal(outs[0][2].v_pool, outs[1][2].v_pool)
+
+
+def test_a_capture_that_syncs_raises_and_runs_nothing(gen):
+    """A step whose body reads a value on the host cannot be captured: the
+    second call raises ``CaptureError`` and the step does not run eagerly in
+    its place; the card keeps working."""
+    from chatglm_q_tpu_torch.utils import graphs as G
+
+    def body(inp):
+        if inp["x"].sum().item() > 1e9:  # a host sync
+            inp["x"].zero_()
+        inp["x"].add_(1)
+        return {}
+
+    prog = G.StepProgram("syncing step", body, {"x": torch.zeros(4, device="cuda")}, True,
+                         G.Programs())
+    prog.step()
+    with pytest.raises(G.CaptureError, match="syncing step: CUDA-graph capture failed"):
+        prog.step()
+    torch.cuda.synchronize()
+    assert prog.graph is None and prog.inputs["x"].tolist() == [1.0] * 4
+    assert torch.ones(3, device="cuda").sum().item() == 3
+
+
+def test_scratch_a_graph_captured_outlives_a_larger_eager_call(gen):
+    """A split-K matmul captured at M = 1, then an eager call whose plan
+    needs more arrival counters than the captured buffer holds: the buffer
+    the graph captured is kept (not freed to the allocator, where another
+    tensor would take it), so a replay still gives the eager result."""
+    packed, scale = _int4_weights(gen, 4096, 4096)
+    x = torch.randn((1, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    want = QM.int4g32_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = QM.int4g32_matmul(x, packed, scale)
+    held = _build.scratch("splitk_arrivals", x.device, 1, torch.int32)
+    wide_packed, wide_scale = _int4_weights(gen, 256, 131072)
+    assert -(-131072 // (8 * QM.splitk_plan(9, 256, 131072)[1])) == 2048  # column tiles
+    QM.int4g32_matmul(torch.randn((9, 256), device="cuda", generator=gen).to(torch.bfloat16),
+                      wide_packed, wide_scale)
+    assert _build.scratch("splitk_arrivals", x.device, 1, torch.int32) is not held
+    shape = held.shape
+    del held  # only the scratch's own record may keep it alive now
+    junk = [torch.full(shape, 5, dtype=torch.int32, device="cuda") for _ in range(8)]
+    for _ in range(2):
+        y.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+    assert all((j == 5).all() for j in junk)  # no replay wrote into another tensor
+    assert len(_build._HELD) > 0
+
+
+def test_top_p_draws_advance_through_replays(gen):
+    """A sampled decode program draws from its registered generator: the
+    captured replays draw anew each step, and reseeding the generator
+    repeats the eager run's tokens exactly."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg, params = _depth2_tree(gen)
+    bf16 = torch.bfloat16
+    ids = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda", generator=gen)
+    cache = M.init_kv_cache(cfg, 2, 128, bf16)
+    logits, cache = M.prefill(params, cfg, ids, torch.tensor([16, 9], dtype=torch.int32,
+                                                              device="cuda"), cache, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    sg = torch.Generator(device="cuda")
+    runs = []
+    for graphs in (False, True, True):
+        sg.manual_seed(9)
+        c = M.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+        toks, _ = M.multi_step_decode(params, cfg, first, c, 12, sg, "int4g32", bf16,
+                                      TorchRuntimeConfig(cuda_graphs=graphs), top_k=100,
+                                      top_p=0.95, temperature=5.0)
+        runs.append(toks)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2])
+    assert len(set(runs[1][0].tolist())) > 3  # the draws move from step to step

@@ -56,7 +56,8 @@ def test_port_imports_with_jax_blocked():
             "chatglm_q_tpu_torch.parallel.sharding", "chatglm_q_tpu_torch.parallel.tp_linear",
             "chatglm_q_tpu_torch.parallel.ring_attention",
             "chatglm_q_tpu_torch.serving.dist_engine",
-            "chatglm_q_tpu_torch.utils.distributed"} <= set(mods)
+            "chatglm_q_tpu_torch.utils.distributed", "chatglm_q_tpu_torch.utils.graphs",
+            "chatglm_q_tpu_torch.serving.api_server"} <= set(mods)
     code = ("import sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
