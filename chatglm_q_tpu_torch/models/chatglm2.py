@@ -60,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ChatGLM2Config, TorchRuntimeConfig, resolve_device
 from ..ops import attention as A
+from ..ops import quant as Q
 from ..ops.linear import quant_embedding_lookup, quant_linear
 from ..ops.sampling import GREEDY, Sampling, fill_rows, top_p_rows
 from ..parallel import ring_attention as RA
@@ -183,7 +184,8 @@ def write_rows(cache_layer: torch.Tensor, new: torch.Tensor, start: torch.Tensor
 
 def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
                   attn, config: ChatGLM2Config, quant_type: str,
-                  rt: TorchRuntimeConfig, kv_write=None, past_kv=None, dropout=None):
+                  rt: TorchRuntimeConfig, kv_write=None, past_kv=None, dropout=None,
+                  collect_taps: bool = False):
     """One pre-norm transformer block.
 
     attn: ("flash_prefill", lengths) | ("flash_prefill_chunk", (lengths,
@@ -199,7 +201,10 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
         (B, T_past, G, D), followed by this call's; ``attn`` is the additive
         mask; ``dropout`` = (rate, generator) drops the attention
         probabilities, then the FFN activation.  Returns (output, (k_full,
-        v_full)), each (B, T, G, D), as JAX's does.
+        v_full)), each (B, T, G, D), as JAX's does; with ``collect_taps`` a
+        third element, the activations feeding each linear ({"qkv_in",
+        "o_in", "w_in_in", "w_out_in"}: what the GPTQ calibration's
+        Hessians are built from, quant/calibrate.py).
     """
     from . import paged_kv as PK
 
@@ -253,7 +258,11 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     if dropout is not None:
         act = _dropout(act, *dropout)
     x = x + _linear(act, layer_params["w_out"], quant_type, rt, "row")
-    return x if kv_write is not None else (x, kv_out)
+    if kv_write is not None:
+        return x
+    if collect_taps:
+        return x, kv_out, {"qkv_in": h, "o_in": ctx, "w_in_in": h2, "w_out_in": act}
+    return x, kv_out
 
 
 def _linear(x, params, quant_type, rt, tp_mode):
@@ -728,3 +737,71 @@ def multi_step_decode(params: dict, config: ChatGLM2Config, first_ids: torch.Ten
         fill_rows(prog.inputs, top_k, top_p, temperature)
     toks = prog.run(num_steps, params, cache.k, cache.v, collect=("ids",))["ids"]
     return toks.t().contiguous(), KVCache(cache.k, cache.v, prog.inputs["lengths"].clone())
+
+
+# ---------------------------------------------------------------------------
+# Random init (the structure is also the param-tree schema)
+# ---------------------------------------------------------------------------
+
+def _init_linear(generator: torch.Generator, k: int, n: int, bias: bool, quant_type: str,
+                 dtype, device, lead: tuple = (), scale: float = 0.02) -> dict:
+    """A (*lead, k, n) linear of N(0, scale²) weights (f32 draws), stored as
+    ``quant_type``; a zero bias.  Each leading index (a layer) is quantized
+    on its own."""
+    w = torch.randn((*lead, k, n), generator=generator, device=generator.device).to(device)
+    w.mul_(scale)
+    if quant_type == "none":
+        p = {"weight": w.to(dtype)}
+    elif quant_type == "int8":
+        p = Q.quantize_linear_int8(w)
+    elif quant_type == "int4g32":
+        p = Q.quantize_linear_int4(w)
+    else:
+        raise NotImplementedError(quant_type)
+    if bias:
+        p["bias"] = torch.zeros((*lead, n), dtype=dtype, device=device)
+    return p
+
+
+def init_params(generator: torch.Generator, config: ChatGLM2Config, quant_type: str = "none",
+                dtype=torch.float32, device=None) -> dict:
+    """Random-init parameter tree (tests, benchmarks, the quantizers' float
+    input): the JAX package's ``init_params`` keys, shapes, dtypes and N
+    padding, drawn from ``generator`` (its values differ from
+    ``jax.random``'s).  ``device=None`` means CUDA, and raises where CUDA is
+    absent; the draws run on the generator's device."""
+    device = resolve_device(device)
+    H, I = config.hidden_size, config.inner_hidden_size
+    V, L = config.vocab_size, config.num_layers
+
+    emb_w = torch.randn((V, H), generator=generator, device=generator.device).to(device) * 0.02
+    if quant_type == "none":
+        emb = {"weight": emb_w.to(dtype)}
+    elif quant_type == "int8":
+        emb = Q.quantize_embedding_int8(emb_w)
+    else:
+        emb = Q.quantize_embedding_int4(emb_w)
+    del emb_w
+
+    def stacked(k, n, bias, pad_n=False):
+        p = _init_linear(generator, k, n, bias, quant_type, dtype, device, lead=(L,))
+        return Q.pad_linear_n(p, quant_type) if pad_n and quant_type != "none" else p
+
+    ones = torch.ones((L, H), dtype=dtype, device=device)
+    layers = {
+        "attn_ln": {"weight": ones},
+        "q_proj": stacked(H, config.q_size, True),
+        "kv_proj": stacked(H, 2 * config.kv_size, True),
+        "o_proj": stacked(config.q_size, H, False),
+        "ffn_ln": {"weight": ones.clone()},
+        "w_in_h": stacked(H, I, False, pad_n=True),
+        "w_in_gate": stacked(H, I, False, pad_n=True),
+        "w_out": stacked(I, H, False),
+    }
+    return {
+        "word_embedding": emb,
+        "layers": layers,
+        "final_ln": {"weight": torch.ones((H,), dtype=dtype, device=device)},
+        "lm_head": Q.lmhead_pad(_init_linear(generator, H, V, False, quant_type, dtype, device),
+                                quant_type),
+    }

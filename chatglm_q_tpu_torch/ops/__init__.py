@@ -14,6 +14,7 @@ def kernel_wrappers() -> dict:
     """name → wrapper function, for every CUDA kernel of the port."""
     from . import attention as A
     from . import dyn_matmul as D
+    from . import gptq_sweep as GS
     from . import int8_matmul as I8
     from . import quant_matmul as QM
 
@@ -44,6 +45,8 @@ def kernel_wrappers() -> dict:
         "flash_attention_decode_lse": A.flash_attention_decode_lse,
         "flash_attention_decode_paged_lse": A.flash_attention_decode_paged_lse,
         "rope_kv_append_sharded": A.rope_kv_append_sharded,
+        "gptq_sweep_int8": GS.gptq_sweep_int8,
+        "gptq_sweep_int4": GS.gptq_sweep_int4,
     }
 
 

@@ -77,6 +77,9 @@ SIGNATURES = {
     # q, k_layer, v_layer, page_table, row_map, starts, part, arrivals, out, B, S, G, Hg,
     # P, D, MP, span, sm_scale, stream (row_map and part may be null)
     "chatglm_chunk_paged": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    # w, ld_w, hinv, ld_h, scale_n, q_out, err_out, loss_out, scales_out, N, bs, groupsize,
+    # stream (GPTQ's column sweep; scale_n null for int4, scales_out null for int8)
+    "chatglm_gptq_sweep": [P, I, P, I, P, P, P, P, P, I, I, I, P],
 }
 
 _LIB = None

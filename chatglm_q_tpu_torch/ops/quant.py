@@ -48,30 +48,56 @@ def lmhead_pad(p: dict, quant_type: str) -> dict:
 # RTN quantizers
 # ---------------------------------------------------------------------------
 
-def rtn_quantize_int8(w_kn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-out-channel int8 RTN over a (K, N) weight.
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d``, correctly rounded on every device, as JAX divides.
+    PyTorch's CUDA kernels multiply by the reciprocal of a Python-number
+    divisor (at times an ulp off the quotient), so the divisor goes in as a
+    0-dim tensor on x's device."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
-    Returns (q (K, N) int8, scale (N,) f32)."""
+
+def rtn_quantize_int8(w_kn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-out-channel int8 RTN over a (..., K, N) weight (leading
+    dims: a stack of layers, each quantized on its own).
+
+    Returns (q (..., K, N) int8, scale (..., N) f32)."""
     w = w_kn.float()
-    w_max = w.abs().amax(dim=0)
-    scale = torch.clamp(w_max / MAX_Q_INT8, min=1e-10)
-    q = torch.clamp(torch.round(w / scale), -MAX_Q_INT8, MAX_Q_INT8).to(torch.int8)
+    w_max = w.abs().amax(dim=-2)
+    scale = torch.clamp(div_exact(w_max, MAX_Q_INT8), min=1e-10)
+    q = torch.clamp(torch.round(w / scale[..., None, :]), -MAX_Q_INT8, MAX_Q_INT8).to(torch.int8)
     return q, scale
 
 
 def rtn_quantize_int4(w_kn: torch.Tensor, group_k: int = GROUP_K
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-(group-of-K × out-channel) int4 RTN over a (K, N) weight.
+    """Symmetric per-(group-of-K × out-channel) int4 RTN over a (..., K, N)
+    weight.
 
-    Returns (q (K, N) int8 in [-7, 7], scale (G, N) f32)."""
-    K, N = w_kn.shape
+    Returns (q (..., K, N) int8 in [-7, 7], scale (..., G, N) f32)."""
+    *lead, K, N = w_kn.shape
     assert K % group_k == 0, f"{K=} {group_k=}"
     G = K // group_k
-    w = w_kn.float().reshape(G, group_k, N)
-    w_max = w.abs().amax(dim=1, keepdim=True)
-    scale = torch.clamp(w_max / MAX_Q_INT4, min=1e-10)
+    w = w_kn.float().reshape(*lead, G, group_k, N)
+    w_max = w.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(div_exact(w_max, MAX_Q_INT4), min=1e-10)
     q = torch.clamp(torch.round(w / scale), -MAX_Q_INT4, MAX_Q_INT4).to(torch.int8)
-    return q.reshape(K, N), scale.reshape(G, N)
+    return q.reshape(*lead, K, N), scale.reshape(*lead, G, N)
+
+
+def quantize_with_scale_int8(w_kn: torch.Tensor, scale_n: torch.Tensor) -> torch.Tensor:
+    """(K, N) weight → int8 grid with a fixed (N,) scale."""
+    q = torch.round(w_kn.float() / scale_n.float())
+    return torch.clamp(q, -MAX_Q_INT8, MAX_Q_INT8).to(torch.int8)
+
+
+def quantize_with_scale_int4(w_kn: torch.Tensor, scale_gn: torch.Tensor) -> torch.Tensor:
+    """(K, N) weight → int4 grid values in [-7, 7] with fixed (G, N) scales."""
+    K, N = w_kn.shape
+    G = scale_gn.shape[0]
+    assert K % G == 0
+    w = w_kn.float().reshape(G, K // G, N)
+    q = torch.round(w / scale_gn.float()[:, None, :])
+    return torch.clamp(q, -MAX_Q_INT4, MAX_Q_INT4).to(torch.int8).reshape(K, N)
 
 
 # ---------------------------------------------------------------------------
@@ -98,12 +124,12 @@ def unpack_int4_ref(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def pack_int4_tpu(q_kn: torch.Tensor) -> torch.Tensor:
-    """[-7,7] int grid (K, N) → tpu-order packed uint8 (K//2, N): two's-
-    complement nibbles, ``k=2i`` low and ``k=2i+1`` high in byte row ``i``."""
-    K, N = q_kn.shape
-    assert K % 2 == 0
+    """[-7,7] int grid (..., K, N) → tpu-order packed uint8 (..., K//2, N):
+    two's-complement nibbles, ``k=2i`` low and ``k=2i+1`` high in byte row
+    ``i``."""
+    assert q_kn.shape[-2] % 2 == 0
     u = (q_kn.to(torch.int32) & 0xF).to(torch.uint8)
-    return u[0::2] | (u[1::2] << 4)
+    return u[..., 0::2, :] | (u[..., 1::2, :] << 4)
 
 
 def _sign_extend_nibble(v: torch.Tensor) -> torch.Tensor:
@@ -161,8 +187,8 @@ def int4_storage_k(K: int) -> int:
 
 
 def pad_int8_weight(q: torch.Tensor) -> torch.Tensor:
-    """Zero-pad an int8 (K, N) weight's K to the storage size."""
-    K = q.shape[0]
+    """Zero-pad an int8 (..., K, N) weight's K to the storage size."""
+    K = q.shape[-2]
     Ks = int4_storage_k(K)
     if Ks == K:
         return q
@@ -188,6 +214,8 @@ def pad_linear_n(p: dict, quant_type: str = "", multiple: int | None = None) -> 
 
 
 def quantize_linear_int8(w_kn: torch.Tensor, bias=None) -> dict:
+    """(..., K, N) float weight → the in-memory int8 linear (each leading
+    index quantized on its own: a stack of layers in one pass)."""
     q, scale = rtn_quantize_int8(w_kn)
     p = {"weight": pad_int8_weight(q), "weight_scale": scale}
     if bias is not None:
@@ -197,9 +225,10 @@ def quantize_linear_int8(w_kn: torch.Tensor, bias=None) -> dict:
 
 def pad_packed_int4(packed: torch.Tensor, scale: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pad a (K/2, N) packed + (K/32, N) scale pair to the storage K; padded
-    nibbles are 0 and padded scales 1.0, so the padded rows dequantize to 0."""
-    K = packed.shape[0] * 2
+    """Pad a (..., K/2, N) packed + (..., K/32, N) scale pair to the storage
+    K; padded nibbles are 0 and padded scales 1.0, so the padded rows
+    dequantize to 0."""
+    K = packed.shape[-2] * 2
     Ks = int4_storage_k(K)
     if Ks == K:
         return packed, scale
@@ -209,6 +238,7 @@ def pad_packed_int4(packed: torch.Tensor, scale: torch.Tensor
 
 
 def quantize_linear_int4(w_kn: torch.Tensor, bias=None) -> dict:
+    """(..., K, N) float weight → the in-memory int4g32 linear."""
     q, scale = rtn_quantize_int4(w_kn)
     packed, scale = pad_packed_int4(pack_int4_tpu(q), scale)
     p = {"weight": packed, "weight_scale": scale.to(SCALE_DTYPE)}

@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --sharded    # phase 2's sharded rows (K1, K2, K3) and phase 8 alone
     python3 chip_smoke.py --nccl 4    # phase 8 alone over NCCL on 4 cards, one a rank
     python3 chip_smoke.py --serving    # phases 4, 5, 6 and 9 alone (the captured decode)
+    python3 chip_smoke.py --quant    # phase 10 alone, then GPTQ int4g32 of the 28-layer model
 
 Phases (any failure raises and exits non-zero):
 
@@ -170,6 +171,30 @@ Phases (any failure raises and exits non-zero):
    text equals the engine's own
    ``run`` of the same prompts, and the decode chunks replay captured
    programs.
+10. The quantizers at 6B widths, depth 2, on a random float32 tree that
+   ``models.chatglm2.init_params`` builds on the card, calibrated on 8
+   prompts of the synthetic corpus (examples/data.py) of at most 128
+   tokens, tokenized by phase 5's tokenizer.  GPTQ's column-sweep kernel
+   (``csrc/gptq.cu``, int8 and int4g32 forms) against its plain version
+   (the per-column loop) at the seven linears (layer 0's six, on their
+   calibration Hessians, and the lm_head at N = 65024): the fraction of
+   integer grid points apart, max |Δscale| and the relative Δloss, each
+   within ``SWEEP_*_TOL`` (0: bit-equal), and a control without the
+   in-block error feedback beyond them; per linear the kernel's and the
+   plain loop's sweep seconds, the Cholesky / H⁻¹ and the Hessian
+   accumulation, one block's kernel ms against its bound, and the estimate
+   for 28 layers.  Then ``gptq_quantize_model`` (one sweep launch a
+   128-column block) and ``rtn_quantize_model`` in int8 and int4g32:
+   GPTQ's output MSE on the calibration activations below RTN's at all 13
+   linears; each tree saved as a float16 checkpoint and loaded back, every
+   tensor the tree's value as float16 stores it; the ppl protocol
+   (examples/ppl.py) on 8 other texts for the float tree and the four
+   quantized ones, through the kernels and the plain path, their logits
+   within ``E2E_TOL``; and 16 greedy tokens of the GPTQ int4g32 checkpoint
+   through ``GLMDecoder`` from a captured decode step, the eager decoder's
+   text.  ``--quant`` runs this phase alone, then GPTQ int4g32 of a random
+   float32 ChatGLM2-6B at 28 layers, its wall seconds: the offline cost a
+   user pays.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
@@ -456,7 +481,9 @@ CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_
                "int8_t_mma": "t_wgmma_kernel<Int8TView> (csrc/common.cuh)",
                "int8_t_gemv": "t_gemv_kernel<Int8TView> (csrc/common.cuh)",
                "rope_kv_append": "rope_kv_append_kernel<DenseKV, true>",
-               "rope_kv_append paged": "rope_kv_append_kernel<PagedKV, true>"}
+               "rope_kv_append paged": "rope_kv_append_kernel<PagedKV, true>",
+               "gptq_sweep_int8": "gptq_sweep_kernel<false>",
+               "gptq_sweep_int4": "gptq_sweep_kernel<true>"}
 
 
 def check_matmul(torch):
@@ -3545,6 +3572,407 @@ def fine_tune_slice(torch, smi):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the quantizers (RTN, GPTQ, the GPTQ column-sweep kernel)
+# ---------------------------------------------------------------------------
+
+QUANT_SEED = 101
+QUANT_PROMPTS = 8     # calibration prompts, each cut to QUANT_TOKENS tokens
+QUANT_TOKENS = 128
+QUANT_BATCH = 4       # two calibration batches: the Hessians average over both
+QUANT_EVAL_SEED = 7   # the perplexity texts: another draw of the synthetic corpus
+QUANT_DECODE_TOKENS = 16
+SWEEP_BS = 128
+# The sweep kernel against its plain version (the per-column PyTorch loop)
+# on the same factor of the same Hessian, per linear: the fraction of
+# integer grid points apart, max |Δscale| (int4) and |Δ mean loss| / mean
+# loss.  The kernel rounds each operation as PyTorch does (no FMA), so the
+# limits are 0: bit-equal.  The control (the sweep without its in-block
+# error feedback) must exceed them.
+SWEEP_GRID_TOL = 0.0
+SWEEP_SCALE_TOL = 0.0
+SWEEP_LOSS_TOL = 0.0
+
+
+def quant_batches(torch, tokenizer, seed, n=QUANT_PROMPTS):
+    """``n`` texts of the port's synthetic corpus, each at most QUANT_TOKENS
+    tokens, left padded in batches of QUANT_BATCH: [(ids, mask)]."""
+    from chatglm_q_tpu_torch.examples.data import synthetic_texts
+
+    texts = synthetic_texts(n, seed)
+    out = []
+    for i in range(0, n, QUANT_BATCH):
+        enc = tokenizer(texts[i:i + QUANT_BATCH], padding=True, max_length=QUANT_TOKENS,
+                        return_tensors="pt")
+        out.append((enc["input_ids"].cuda(), enc["attention_mask"].cuda()))
+    return texts, out
+
+
+def quant_hessians(torch, params, cfg, batches):
+    """The Hessians of layer 0's taps and of the final_ln's output over the
+    calibration batches (embedded through the float table, where
+    quant/calibrate.py takes the quantized one): {tap: (H, seconds of
+    accumulation)}."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.quant import gptq as G
+
+    rt, hs, acc_s = TorchRuntimeConfig(), {}, {}
+    prepared = []
+    for ids, mask in batches:
+        bias, pos = M.build_parity_mask_and_positions(mask, ids.shape[1])
+        h = params["word_embedding"]["weight"][ids].float()
+        prepared.append((h, M._serving_freqs(cfg, pos, torch.float32), bias[:, None, None]))
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            lp = M._layer(params["layers"], layer)
+            nxt = []
+            for h, f, m in prepared:
+                out, _, taps = M.block_forward(lp, h, f, m, cfg, "none", rt, collect_taps=True)
+                nxt.append((out, f, m))
+                for name, x in (taps.items() if layer == 0 else ()):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    hs[name] = G.accumulate_hessian(*hs.get(name, G.init_hessian(x.shape[-1],
+                                                                                 "cuda")), x)
+                    torch.cuda.synchronize()
+                    acc_s[name] = acc_s.get(name, 0.0) + time.perf_counter() - t0
+            prepared = nxt
+        for h, _, _ in prepared:
+            x = M.rms_norm(h, params["final_ln"]["weight"], cfg.layernorm_epsilon)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hs["final"] = G.accumulate_hessian(*hs.get("final", G.init_hessian(x.shape[-1],
+                                                                                "cuda")), x)
+            torch.cuda.synchronize()
+            acc_s["final"] = acc_s.get("final", 0.0) + time.perf_counter() - t0
+    return {k: (v[0], acc_s[k]) for k, v in hs.items()}
+
+
+def sweep_launches(cfg):
+    """One launch a 128-column block: per layer five linears at K = hidden
+    and w_out at K = inner, then the lm_head."""
+    blocks = lambda k: -(-k // SWEEP_BS)  # noqa: E731
+    return cfg.num_layers * (5 * blocks(cfg.hidden_size) + blocks(cfg.inner_hidden_size)) \
+        + blocks(cfg.hidden_size)
+
+
+def sweep_without_feedback(torch):
+    """The control: a block quantized column by column with the same scales
+    rule and the same errors out, but no error fed to its later columns."""
+    def block(w_blk, hinv_blk, scale_n, groupsize):
+        w = w_blk.float()
+        N, bs = w.shape
+        d = hinv_blk.diagonal()
+        if scale_n is None:
+            sc = torch.clamp(w.reshape(N, bs // groupsize, groupsize).abs().amax(dim=2) / 7,
+                             min=1e-10)
+            s, qmax = sc.repeat_interleave(groupsize, dim=1), 7
+        else:
+            s, qmax = scale_n[:, None], 127
+        qd = torch.clamp(torch.round(w / s), -qmax, qmax) * s
+        err = (w - qd) / d
+        loss = (w - qd) ** 2 / d ** 2
+        return (qd, err, loss, sc.T.contiguous()) if scale_n is None else (qd, err, loss)
+    return block
+
+
+def sweep_gap(torch, got, want, int4):
+    """(fraction of integer grid points apart, max |Δscale|, |Δ mean loss| /
+    mean loss) of sweep ``got`` against ``want``, each (grid, losses,
+    scales or None).  int8 rows share one fixed scale, so their grids
+    differ exactly where their integers do."""
+    (g1, l1, s1), (g2, l2, s2) = got, want
+    if int4:
+        q1 = torch.round(g1 / s1.repeat_interleave(32, dim=0).T)
+        q2 = torch.round(g2 / s2.repeat_interleave(32, dim=0).T)
+        dscale = (s1 - s2).abs().max().item()
+    else:
+        q1, q2, dscale = g1, g2, 0.0
+    m1, m2 = l1.mean().item(), l2.mean().item()
+    return (q1 != q2).float().mean().item(), dscale, abs(m1 - m2) / max(abs(m2), 1e-30)
+
+
+def synced_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sweep_bound_ms(N, bs, int4):
+    """The least time of one block: its f32 block and factor read once, the
+    three (N, bs) f32 outputs (and the int4 scales) written once; or the
+    update's multiply and subtract on the N x bs(bs+1)/2 elements it
+    touches (plus ~8 operations a weight for the quantization) at the
+    card's f32 CUDA-core peak."""
+    nbytes = 4 * (N * bs + bs * bs + 3 * N * bs + (N * bs // 32 if int4 else N))
+    ops = N * bs * (bs + 1) + 8 * N * bs
+    return bound_ms(nbytes, ops, PEAK_F32_FLOPS)
+
+
+def check_gptq_sweep(torch, smi, params, cfg, batches):
+    """Step 2 and 3: the sweep kernel against its plain version at the
+    seven linears of ChatGLM2-6B, both forms, on the calibration Hessians;
+    each linear's times.  Returns (rows, kernel line entries by form)."""
+    from chatglm_q_tpu_torch.ops import gptq_sweep as GS
+    from chatglm_q_tpu_torch.quant import gptq as G
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    hes = quant_hessians(torch, params, cfg, batches)
+    lay = params["layers"]
+    linears = [("q_proj", lay["q_proj"]["weight"][0], "qkv_in"),
+               ("kv_proj", lay["kv_proj"]["weight"][0], "qkv_in"),
+               ("o_proj", lay["o_proj"]["weight"][0], "o_in"),
+               ("w_in_h", lay["w_in_h"]["weight"][0], "w_in_in"),
+               ("w_in_gate", lay["w_in_gate"]["weight"][0], "w_in_in"),
+               ("w_out", lay["w_out"]["weight"][0], "w_out_in"),
+               ("lm_head", params["lm_head"]["weight"], "final")]
+    control = sweep_without_feedback(torch)
+    rows, entries = [], {}
+    for name, w_kn, tap in linears:
+        H, acc_s = hes[tap]
+        w_nk = w_kn.float().T.contiguous()
+        N, K = w_nk.shape
+        (_, wz, U, failed), prep_s = synced_s(torch, lambda: G._prepare_hinv(H, w_nk, 0.01))
+        G._check_hinv(U, failed)
+        for int4 in (False, True):
+            form = "int4" if int4 else "int8"
+            scale = None if int4 else G._naive_scale_int8(w_nk)[1]
+
+            def run(fn):
+                return G.sweep(wz, U, scale, SWEEP_BS, 32, fn)
+
+            kern, kern_s = synced_s(torch, lambda: run(GS.gptq_sweep_block))
+            plain, plain_s = synced_s(torch, lambda: run(GS.gptq_sweep_block_plain))
+            ctrl = run(control)
+            gap = sweep_gap(torch, kern, plain, int4)
+            cgap = sweep_gap(torch, ctrl, plain, int4)
+            max_abs = (kern[0] - plain[0]).abs().max().item()
+            del ctrl
+            blk_w, blk_u = wz[:, :SWEEP_BS], U[:SWEEP_BS, :SWEEP_BS]
+            blk_ms = cuda_event_ms(lambda i: GS.gptq_sweep_block(blk_w, blk_u, scale),
+                                   iters=10, warmup=2)
+            _, blk_plain_s = synced_s(torch, lambda: GS.gptq_sweep_block_plain(blk_w, blk_u,
+                                                                               scale))
+            b_ms, b_by = sweep_bound_ms(N, SWEEP_BS, int4)
+            blocks = -(-K // SWEEP_BS)
+            r = {"linear": name, "form": form, "N": N, "K": K, "blocks": blocks,
+                 "grid_mismatch": gap[0], "max_abs_dscale": gap[1], "rel_dloss": gap[2],
+                 "control_grid_mismatch": cgap[0], "control_max_abs_dscale": cgap[1],
+                 "control_rel_dloss": cgap[2], "max_abs_err": max_abs,
+                 "sweep_kernel_s": kern_s, "sweep_plain_s": plain_s, "prepare_hinv_s": prep_s,
+                 "hessian_accumulate_s": acc_s, "block_ms": blk_ms,
+                 "block_plain_ms": blk_plain_s * 1e3, "block_bound_ms": b_ms,
+                 "block_bound_by": b_by}
+            rows.append(r)
+            log(f"  sweep {form} {name:9s} N={N:5d} K={K:5d}: kernel vs plain: grid points "
+                f"apart {gap[0]:.3e}, max|Δscale| {gap[1]:.3e}, rel Δloss {gap[2]:.3e} "
+                f"(limits {SWEEP_GRID_TOL:g} / {SWEEP_SCALE_TOL:g} / {SWEEP_LOSS_TOL:g}); "
+                f"control (no in-block feedback) {cgap[0]:.3e} / {cgap[1]:.3e} / {cgap[2]:.3e}; "
+                f"sweep s: kernel {kern_s:.4f}, plain loop {plain_s:.4f}; Cholesky + H^-1 "
+                f"{prep_s:.4f}, Hessian accumulation {acc_s:.4f}; one {SWEEP_BS}-column block: "
+                f"kernel {blk_ms:.4f} ms, plain {blk_plain_s * 1e3:.3f} ms, bound {b_ms:.4f} "
+                f"({b_by})  [{smi}]")
+            require(gap[0] <= SWEEP_GRID_TOL and gap[1] <= SWEEP_SCALE_TOL
+                    and gap[2] <= SWEEP_LOSS_TOL,
+                    f"sweep {form} {name}: kernel vs plain {gap} beyond the limits")
+            require(cgap[0] > SWEEP_GRID_TOL and cgap[2] > SWEEP_LOSS_TOL,
+                    f"sweep {form} {name}: the no-feedback control passes ({cgap})")
+            if name == "q_proj":
+                entries[form] = {"ms": blk_ms, "plain_ms": blk_plain_s * 1e3,
+                                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs,
+                                 "shape": f"N={N} block of {SWEEP_BS} columns (q_proj, K={K})"}
+            del kern, plain
+        del wz, U, w_nk
+    del hes
+    torch.cuda.empty_cache()
+    # the 28-layer estimate from this run's per-linear times: per layer the
+    # six linears' preparation and kernel sweeps and their Hessians, then
+    # the lm_head
+    by = {(r["linear"], r["form"]): r for r in rows}
+    est = {}
+    for form in ("int8", "int4"):
+        layer_s = sum(by[(n, form)]["sweep_kernel_s"] + by[(n, form)]["prepare_hinv_s"]
+                      for n in ("q_proj", "kv_proj", "o_proj", "w_in_h", "w_in_gate", "w_out"))
+        layer_s += sum(by[(n, form)]["hessian_accumulate_s"]
+                       for n in ("q_proj", "o_proj", "w_in_h", "w_out"))
+        head = by[("lm_head", form)]
+        est[form] = 28 * layer_s + head["sweep_kernel_s"] + head["prepare_hinv_s"]
+        plain_layer = sum(by[(n, form)]["sweep_plain_s"] + by[(n, form)]["prepare_hinv_s"]
+                          for n in ("q_proj", "kv_proj", "o_proj", "w_in_h", "w_in_gate",
+                                    "w_out"))
+        est[form + "_plain"] = 28 * plain_layer + head["sweep_plain_s"] + head["prepare_hinv_s"]
+        log(f"  estimate for 28 layers + lm_head ({form}, sweeps and Cholesky, {QUANT_PROMPTS} "
+            f"prompts): kernel {est[form]:.1f} s, plain loop {est[form + '_plain']:.1f} s  "
+            f"[{smi}]")
+    return rows, entries, est
+
+
+def storage_rounded(torch, t):
+    """A float leaf as a float16 checkpoint stores it, read back in the
+    loader's dtype for it (integers as they are)."""
+    return t.to(torch.float16) if t.is_floating_point() else t
+
+
+def quant_slice(torch, smi):
+    """Phase 10 (the quantizers) at 6B widths, depth 2, on a random float32
+    tree built on the card.  Returns (launch counts by form, perf, kernel
+    line entries by form)."""
+    import tempfile
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.examples.ppl import perplexity
+    from chatglm_q_tpu_torch.loader import load_model_and_tokenizer, save_model_and_tokenizer
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.quant import gptq_quantize_model, rtn_quantize_model
+    from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+
+    cfg = ChatGLM2Config(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(QUANT_SEED)
+    (params, build_s) = synced_s(torch, lambda: M.init_params(gen, cfg, "none", torch.float32))
+    tokenizer = chat_tokenizer()
+    texts, batches = quant_batches(torch, tokenizer, 42)
+    n_tok = sum(int(m.sum()) for _, m in batches)
+    log(f"  float32 ChatGLM2-6B widths, 2 layers, init_params on the card in {build_s:.1f} s; "
+        f"calibration: {len(texts)} synthetic prompts, {n_tok} tokens in {len(batches)} batches")
+
+    rows, entries, est = check_gptq_sweep(torch, smi, params, cfg, batches)
+
+    # 4. the whole model, GPTQ (kernel path) and RTN, per linear MSE
+    trees, counts, stats, perf = {}, {}, {}, {"sweep_rows": rows, "estimate_28_layers_s": est}
+    for quant in ("int8", "int4g32"):
+        st = {}
+        ops.reset_launch_counts()
+        trees[f"gptq {quant}"], s = synced_s(
+            torch, lambda: gptq_quantize_model(params, cfg, batches, quant, stats=st))
+        counts[quant] = ops.launch_counts()
+        trees[f"rtn {quant}"], rtn_s = synced_s(torch, lambda: rtn_quantize_model(params, cfg,
+                                                                                  quant))
+        stats[quant] = st
+        form = "gptq_sweep_int8" if quant == "int8" else "gptq_sweep_int4"
+        want = sweep_launches(cfg)
+        require(counts[quant][form] == want,
+                f"gptq {quant}: {counts[quant][form]} sweep launches, {want} expected "
+                f"(one a 128-column block)")
+        worse = [t for t, v in st.items() if not v["debug_mse"] < v["rtn_debug_mse"]]
+        require(len(st) == 13 and not worse, f"gptq {quant}: MSE not below RTN's at {worse}")
+        ratio = max(v["debug_mse"] / v["rtn_debug_mse"] for v in st.values())
+        perf[f"gptq {quant}"] = {"seconds": s, "rtn_seconds": rtn_s, "sweep_launches":
+                                 counts[quant][form], "per_linear": st}
+        log(f"  gptq_quantize_model {quant}: {s:.2f} s, {counts[quant][form]} sweep launches "
+            f"(one a 128-column block); rtn_quantize_model {rtn_s:.2f} s; GPTQ's output MSE on "
+            f"the last batch's activations below RTN's at all 13 linears, at most "
+            f"{ratio:.3f} of it  [{smi}]")
+        for tag, v in st.items():
+            log(f"    {tag}: quant_loss {v['quant_loss']:.4e}, MSE gptq {v['debug_mse']:.4e} "
+                f"rtn {v['rtn_debug_mse']:.4e}")
+
+    # 5. save / load, and the ppl protocol through the kernel and plain paths
+    eval_texts, _ = quant_batches(torch, tokenizer, QUANT_EVAL_SEED)
+    kernel_rt, plain_rt = TorchRuntimeConfig(), TorchRuntimeConfig(use_kernels=False)
+    bf16 = torch.bfloat16
+    enc = tokenizer(eval_texts, padding=True, return_tensors="pt")
+    ids, mask = enc["input_ids"].cuda(), enc["attention_mask"].cuda()
+    loaded = {"float": (GLMLoadConfig(model_config=cfg, torch_dtype="float32"), params)}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name, tree in trees.items():
+        quant = name.split()[1]
+        lc = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="float16")
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            _, save_s = synced_s(torch, lambda: save_model_and_tokenizer(tmp, lc, tree, tokenizer))
+            (lcfg, back, _), load_s = synced_s(torch, lambda: load_model_and_tokenizer(
+                tmp, "bfloat16"))
+        a, b = dict(tree_leaves(tree)), dict(tree_leaves(back))
+        require(a.keys() == b.keys(), f"{name}: keys differ after the round trip")
+        for k in a:
+            want_t = storage_rounded(torch, a[k]).to(b[k].dtype)
+            require(b[k].shape == a[k].shape and torch.equal(b[k], want_t),
+                    f"{name}: {k} differs after the round trip")
+        log(f"  {name}: saved (float16 checkpoint) in {save_s:.1f} s and loaded in {load_s:.1f} "
+            f"s: {len(a)} tensors, each the tree's value as float16 stores it")
+        loaded[name] = (lcfg, back)
+    ppls = {}
+    for name, (lcfg, tree) in loaded.items():
+        quant = lcfg.quant_type
+        got = {}
+        for path, rt in (("kernel", kernel_rt), ("plain", plain_rt)):
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                got[path] = M.forward(tree, cfg, ids, attention_mask=mask, quant_type=quant,
+                                      dtype=bf16, rt=rt)[1]
+            if path == "kernel" and quant != "none":
+                c = ops.launch_counts()
+                mm = ("int8_mma", "int8_splitk") if quant == "int8" else ("int4g32_mma",
+                                                                          "int4g32_splitk")
+                require(sum(c[k] for k in mm) > 0, f"{name}: the kernel forward launched "
+                                                   f"none of {mm}")
+            got[path + "_ppl"] = perplexity(tree, lcfg, tokenizer, eval_texts, 20, bf16, rt)
+        require(torch.isfinite(got["kernel"]).all(), f"{name}: non-finite logits")
+        err = rel_err(got["kernel"], got["plain"])[1]
+        require(err <= E2E_TOL, f"{name}: kernel vs plain logits {err} > {E2E_TOL}")
+        require(math.isfinite(got["kernel_ppl"]), f"{name}: ppl {got['kernel_ppl']}")
+        ppls[name] = {"kernel": got["kernel_ppl"], "plain": got["plain_ppl"],
+                      "logits_rel_err": err}
+        log(f"  ppl ({len(eval_texts)} synthetic texts, batch 20, left padded) {name}: kernel "
+            f"path {got['kernel_ppl']:.4f}, plain path {got['plain_ppl']:.4f}; logits kernel vs "
+            f"plain {err:.3e} (limit {E2E_TOL:.1e})")
+    perf["ppl"] = ppls
+
+    # 6. the GPTQ int4g32 checkpoint decodes through the captured GLMDecoder
+    lcfg, tree = loaded["gptq int4g32"]
+    prompt = chat_template([], CHAT_QUESTION)
+    texts_out = {}
+    for label, rt in (("captured", kernel_rt), ("eager", TorchRuntimeConfig(cuda_graphs=False))):
+        dec = GLMDecoder(lcfg, tree, tokenizer, max_sequence_length=CACHE_LEN, rt=rt, dtype=bf16)
+        final = None
+        for final in dec.generate(prompt, max_generated_tokens=QUANT_DECODE_TOKENS,
+                                  temperature=0.0):
+            pass
+        texts_out[label] = final
+        if label == "captured":
+            step = M.decode_program(tree, lcfg.model_config, dec._free_caches[0][0], "int4g32",
+                                    bf16, rt)
+            require(step.graph is not None and step.replays >= QUANT_DECODE_TOKENS - 3,
+                    f"the GPTQ decoder's step was not replayed from a graph ({step.replays})")
+    require(texts_out["captured"] == texts_out["eager"],
+            f"GPTQ int4g32: captured text {texts_out['captured'][:60]!r} differs from the eager "
+            f"one {texts_out['eager'][:60]!r}")
+    log(f"  GPTQ int4g32 checkpoint through GLMDecoder: {QUANT_DECODE_TOKENS} greedy tokens "
+        f"from a captured decode step, the eager decoder's text: {texts_out['captured'][:60]!r}")
+    perf["decode_text"] = texts_out["captured"]
+    del trees, loaded, params
+    torch.cuda.empty_cache()
+    return counts, perf, entries
+
+
+def quant_28_layers(torch, smi):
+    """``--quant``: GPTQ int4g32 of a random float32 ChatGLM2-6B (28 layers)
+    on the card, the offline cost of quantizing the model: wall seconds."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.quant import gptq_quantize_model
+
+    cfg = ChatGLM2Config()
+    gen = torch.Generator(device="cuda").manual_seed(QUANT_SEED)
+    params, build_s = synced_s(torch, lambda: M.init_params(gen, cfg, "none", torch.float32))
+    _, batches = quant_batches(torch, chat_tokenizer(), 42)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tree, s = synced_s(torch, lambda: gptq_quantize_model(params, cfg, batches, "int4g32"))
+    launches = ops.launch_counts()["gptq_sweep_int4"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(launches == sweep_launches(cfg), f"{launches} sweep launches")
+    require(torch.isfinite(tree["layers"]["w_out"]["weight_scale"].float()).all(),
+            "non-finite scales")
+    log(f"  GPTQ int4g32 of ChatGLM2-6B (28 layers, float32 random weights built in "
+        f"{build_s:.1f} s), {QUANT_PROMPTS} calibration prompts: {s:.1f} s, {launches} sweep "
+        f"launches, peak device memory {peak:.1f} GB  [{smi}]")
+    return {"seconds": s, "sweep_launches": launches, "peak_gb": peak, "build_s": build_s}
+
+
 def gap_survey(torch, smi, seeds):
     """Phase 6's greedy readings alone, on each seed's tree and prompts, from
     bf16 and from f32 logits: the basis of GREEDY_GAP_TOL."""
@@ -3627,6 +4055,14 @@ def main() -> int:
                                      "sharded_28_layers": sharded_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--quant" in sys.argv:  # phase 10 alone, then the 28-layer GPTQ
+        log("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
+        _, quant_perf, _ = quant_slice(torch, smi)
+        log("== GPTQ int4g32 of ChatGLM2-6B, 28 layers")
+        quant_perf["gptq_int4g32_28_layers"] = quant_28_layers(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "quant_2_layers": quant_perf}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     log("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
     mm_rows, crossover, splitk_crossover = check_matmul(torch)
@@ -3672,6 +4108,10 @@ def main() -> int:
     log("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B int4g32, "
         "28 layers")
     api_perf = api_slice(torch, smi)
+    torch.cuda.empty_cache()
+
+    log("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
+    quant_counts, quant_perf, sweep_entries = quant_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -3684,6 +4124,7 @@ def main() -> int:
                      "chatglm_q_tpu_torch/csrc/dyn_matmul.cu")
     att_src, pm, pa = ("chatglm_q_tpu_torch/csrc/attention.cu",
                        "chatglm_q_tpu/ops/pallas_matmul.py", "chatglm_q_tpu/ops/pallas_attention.py")
+    gq, jg = "chatglm_q_tpu_torch/csrc/gptq.cu", "chatglm_q_tpu/quant/gptq.py"
     specs = [
         ("int4g32_splitk", mm4, f"{pm}:826", pick("int4g32_splitk", 1), counts),
         ("int4g32_mma", mm4, f"{pm}:244", pick("int4g32_mma", 512), counts),
@@ -3722,6 +4163,11 @@ def main() -> int:
          sharded_counts),
         ("rope_kv_append_sharded paged", att_src, f"{pa}:480",
          att["rope_kv_append_sharded paged"], sharded_counts),
+        # no pallas_call: the JAX package's jitted lax.fori_loop sweeps
+        ("gptq_sweep_int8", gq, f"{jg}:100", {**sweep_entries["int8"], "library_ms": None},
+         quant_counts["int8"]),
+        ("gptq_sweep_int4", gq, f"{jg}:141", {**sweep_entries["int4"], "library_ms": None},
+         quant_counts["int4g32"]),
     ]
     entries = []
     for name, src, replaces, r, run_counts in specs:
@@ -3746,7 +4192,7 @@ def main() -> int:
               "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
               "engines_28_layers": engine_perf, "api_server_28_layers": api_perf,
               "fine_tune_28_layers": ft_perf,
-              "sharded_28_layers": sharded_perf}
+              "sharded_28_layers": sharded_perf, "quant_2_layers": quant_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

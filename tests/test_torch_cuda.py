@@ -1622,3 +1622,89 @@ def test_top_p_draws_advance_through_replays(gen):
         runs.append(toks)
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2])
     assert len(set(runs[1][0].tolist())) > 3  # the draws move from step to step
+
+
+# ---------------------------------------------------------------------------
+# GPTQ's column sweep (csrc/gptq.cu): bit-equal to its plain version
+# ---------------------------------------------------------------------------
+
+def _sweep_factor(gen, bs):
+    """The upper Cholesky factor of H⁻¹ for a random positive-definite H."""
+    a = torch.randn((bs, 2 * bs), device="cuda", generator=gen)
+    h = a @ a.T / bs + 0.01 * torch.eye(bs, device="cuda")
+    return torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(h)), upper=True)
+
+
+@pytest.mark.parametrize("kind,N,bs", [(k, n, b) for k in ("int8", "int4")
+                                       for n, b in ((4099, 128), (37, 96), (8, 32), (1000, 64))]
+                         + [("int8", 300, 100)])
+def test_gptq_sweep_bit_equal_to_plain(gen, kind, N, bs):
+    """One block (a strided column slice, a dead column, N not a multiple
+    of the 12 rows a block sweeps at once): the kernel and the per-column
+    loop give the same bits, and two launches give the same bits."""
+    from chatglm_q_tpu_torch.ops import gptq_sweep as GS
+
+    full = torch.randn((N, bs + 24), device="cuda", generator=gen)
+    full[:, 24 + 5] = 0.0
+    w = full[:, 24:]
+    u = _sweep_factor(gen, bs)
+    scale = None if kind == "int4" else torch.clamp(w.abs().amax(dim=1) / 127, min=1e-10)
+    got = GS.gptq_sweep_block(w, u, scale)
+    again = GS.gptq_sweep_block(w, u, scale)
+    want = GS.gptq_sweep_block_plain(w, u, scale)
+    on_cpu = GS.gptq_sweep_block_plain(w.cpu(), u.cpu(), None if scale is None else scale.cpu())
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (4 if kind == "int4" else 3)
+    for a, b, c, d in zip(got, again, want, on_cpu):
+        assert a.shape == c.shape and a.dtype == torch.float32
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a.cpu(), d)
+    assert torch.all(got[0][:, 5] == 0)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_gptq_sweep_whole_linear_bit_equal_with_a_short_last_block(gen, kind):
+    """quant/gptq.py's sweep over K = 416 (three blocks of 128 and one of
+    32): one launch a block, the same grid, losses and scales as the plain
+    loop's."""
+    from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.ops import gptq_sweep as GS
+    from chatglm_q_tpu_torch.quant import gptq as TG
+
+    N, K = 520, 416
+    w = torch.randn((N, K), device="cuda", generator=gen)
+    u = _sweep_factor(gen, K)
+    scale = None if kind == "int4" else torch.clamp(w.abs().amax(dim=1) / 127, min=1e-10)
+    ops.reset_launch_counts()
+    got = TG.sweep(w, u, scale, 128, 32, GS.gptq_sweep_block)
+    counts = ops.launch_counts()
+    want = TG.sweep(w, u, scale, 128, 32, GS.gptq_sweep_block_plain)
+    torch.cuda.synchronize()
+    assert counts["gptq_sweep_int4" if kind == "int4" else "gptq_sweep_int8"] == 4
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_rtn_on_the_card_equals_the_cpu(gen, kind):
+    """The RTN quantizers give the CPU's (and so the JAX package's) bits on
+    the card: every scale divides by 127 or 7 correctly rounded (PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal)."""
+    from chatglm_q_tpu_torch.ops import quant as Q
+
+    w = torch.randn((4096, 1024), device="cuda", generator=gen) * 0.02
+    fn = Q.rtn_quantize_int8 if kind == "int8" else Q.rtn_quantize_int4
+    q, s = fn(w)
+    q_cpu, s_cpu = fn(w.cpu())
+    assert torch.equal(s.cpu(), s_cpu) and torch.equal(q.cpu(), q_cpu)
+
+
+def test_gptq_sweep_rejects_what_it_cannot_take(gen):
+    from chatglm_q_tpu_torch.ops import gptq_sweep as GS
+
+    w = torch.randn((16, 160), device="cuda", generator=gen)
+    with pytest.raises(ValueError):  # wider than 128 columns
+        GS.gptq_sweep_block(w, torch.eye(160, device="cuda"), w.abs().amax(dim=1))
+    with pytest.raises(ValueError):  # int4 block not whole groups
+        GS.gptq_sweep_block(w[:, :48], torch.eye(48, device="cuda"), None)
+    with pytest.raises(ValueError):  # f16
+        GS.gptq_sweep_block(w[:, :64].half(), torch.eye(64, device="cuda"), None)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of chatglm_q_tpu_torch (nor the root
 chip_smoke.py that drives it) imports jax or chatglm_q_tpu, nor the
 ``safetensors`` and ``ml_dtypes`` packages the JAX loader needs (the machine
-with the card has neither), and its entry points run on CUDA unless the
-caller asks for the CPU."""
+with the card has neither), nor the root ``examples`` scripts (the port
+keeps its own copies), and its entry points run on CUDA unless the caller
+asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "chatglm_q_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "chatglm_q_tpu", "flax", "safetensors", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "chatglm_q_tpu", "flax", "safetensors", "ml_dtypes", "examples")
 
 
 def _port_files():
@@ -57,7 +58,11 @@ def test_port_imports_with_jax_blocked():
             "chatglm_q_tpu_torch.parallel.ring_attention",
             "chatglm_q_tpu_torch.serving.dist_engine",
             "chatglm_q_tpu_torch.utils.distributed", "chatglm_q_tpu_torch.utils.graphs",
-            "chatglm_q_tpu_torch.serving.api_server"} <= set(mods)
+            "chatglm_q_tpu_torch.serving.api_server", "chatglm_q_tpu_torch.quant.rtn",
+            "chatglm_q_tpu_torch.quant.gptq", "chatglm_q_tpu_torch.quant.calibrate",
+            "chatglm_q_tpu_torch.ops.gptq_sweep", "chatglm_q_tpu_torch.examples.quantize_gptq",
+            "chatglm_q_tpu_torch.examples.quantize_naive", "chatglm_q_tpu_torch.examples.ppl",
+            "chatglm_q_tpu_torch.examples.ceval", "chatglm_q_tpu_torch.examples.data"} <= set(mods)
     code = ("import sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
@@ -77,7 +82,10 @@ def test_port_imports_with_jax_blocked():
                                     "chatglm_q_tpu_torch.ops.linear",
                                     "chatglm_q_tpu_torch.utils.train",
                                     "chatglm_q_tpu_torch.serving.dist_engine",
-                                    "chatglm_q_tpu_torch.parallel.ring_attention"])
+                                    "chatglm_q_tpu_torch.parallel.ring_attention",
+                                    "chatglm_q_tpu_torch.quant",
+                                    "chatglm_q_tpu_torch.examples.quantize_gptq",
+                                    "chatglm_q_tpu_torch.examples.ceval"])
 def test_no_forbidden_package_in_sys_modules_after_import(module):
     """Imported unblocked in a fresh interpreter, a module pulls in none of
     the forbidden packages."""
@@ -105,7 +113,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from chatglm_q_tpu_torch.bench import random_quantized_params
     from chatglm_q_tpu_torch.convert import params_from_numpy
     from chatglm_q_tpu_torch import GLMLoadConfig
-    from chatglm_q_tpu_torch.models.chatglm2 import init_kv_cache
+    from chatglm_q_tpu_torch.examples import quantize_naive
+    from chatglm_q_tpu_torch.models.chatglm2 import init_kv_cache, init_params
     from chatglm_q_tpu_torch.models.paged_kv import init_paged_kv_cache
     from chatglm_q_tpu_torch.serving import PagedServingEngine, ServingEngine
 
@@ -123,6 +132,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         random_quantized_params(cfg, "int4g32", torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_paged_kv_cache(cfg, 1, 4, 16, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quantize_naive.main(["--source", "nowhere", "--target", "nowhere"])
     # asked for explicitly, the CPU works
     assert init_kv_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
     assert init_paged_kv_cache(cfg, 1, 4, 16, 8, device="cpu").k_pool.device.type == "cpu"
