@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .quant import unpack_int4_tpu_q
+from .quant import div_exact, unpack_int4_tpu_q
 from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, splitk_plan, splitk_scratch, wg_plan,
                            wg_scratch)
 
@@ -52,11 +52,12 @@ PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few
 
 
 def dyn_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8: sx = max(max|x| / 127, 1e-10) (M, 1) f32 and
-    xq = clip(round(x / sx), -127, 127) int8 (M, K).  ``torch.round`` rounds
-    half to even, as ``jnp.round`` does."""
+    """Per-row symmetric int8: sx = max(max|x| / 127, 1e-10) (M, 1) f32, the
+    quotient correctly rounded on every device, and xq = clip(round(x / sx),
+    -127, 127) int8 (M, K).  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
     xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-10)
+    sx = torch.clamp(div_exact(xf.abs().amax(dim=1, keepdim=True), 127.0), min=1e-10)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 

@@ -48,12 +48,25 @@ def lmhead_pad(p: dict, quant_type: str) -> dict:
 # RTN quantizers
 # ---------------------------------------------------------------------------
 
+_DIVISORS: dict = {}  # (d, dtype, device) -> the 0-dim divisor div_exact divides by
+
+
 def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d``, correctly rounded on every device, as JAX divides.
     PyTorch's CUDA kernels multiply by the reciprocal of a Python-number
     divisor (at times an ulp off the quotient), so the divisor goes in as a
-    0-dim tensor on x's device."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+    0-dim tensor on x's device.  That tensor is made once a (d, dtype,
+    device), outside any capture (a program's eager warm-up step makes it),
+    so a captured step launches no fill for it."""
+    key = (d, x.dtype, x.device)
+    t = _DIVISORS.get(key)
+    if t is None:
+        if (x.device.type == "cuda" and torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"div_exact: the divisor {d} is made on the first eager call; "
+                               "capture a step only after one eager step")
+        t = _DIVISORS[key] = torch.full((), d, dtype=x.dtype, device=x.device)
+    return x / t
 
 
 def rtn_quantize_int8(w_kn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

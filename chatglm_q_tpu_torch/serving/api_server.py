@@ -5,7 +5,8 @@ A dependency-free HTTP server (stdlib ``http.server``) exposing
 ``/v1/chat/completions``, ``/v1/completions``, ``/v1/models``, ``/health``
 and ``/metrics``, with Server-Sent-Events streaming, stop strings and ``n``
 choices, multiplexing many concurrent HTTP clients onto ONE
-continuous-batching engine (``ServingEngine`` or ``PagedServingEngine``).
+continuous-batching engine (``ServingEngine``, ``PagedServingEngine`` or a
+distributed one, served from rank 0 while the other ranks ``follow``).
 Routes, bodies and SSE framing are the JAX package's.
 
 * **One device thread.**  All engine and device work happens on a single
@@ -22,6 +23,7 @@ Routes, bodies and SSE framing are the JAX package's.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import queue
 import threading
@@ -30,6 +32,7 @@ import itertools
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..utils import distributed as dist_utils
 from .chat import chat_template, process_response
 
 _DONE = object()  # sentinel closing a per-request event stream
@@ -97,20 +100,28 @@ class EngineWorker(threading.Thread):
 
     # -- worker loop ----------------------------------------------------
 
-    def _drain_mail(self):
-        while True:
+    def _drain_mail(self, stop: bool = False) -> bool:
+        """Apply the mailbox's submissions and cancels, in order, through
+        the engine's ``sync_events`` (on a distributed engine it hands them,
+        and ``stop``, to every rank: one broadcast a turn of the loop,
+        whether the mailbox holds anything or not, as ``follow`` expects).
+        Returns whether to stop."""
+        mail = []
+        while not stop:
             try:
-                kind, payload = self._mail.get_nowait()
+                mail.append(self._mail.get_nowait())
             except queue.Empty:
-                return
+                break
+        events = [("submit", [int(t) for t in p[0]], p[1]) if kind == "submit"
+                  else ("cancel", p) for kind, p in mail]
+        applied, stop = self.engine.sync_events(events, stop)
+        for (kind, payload), (_, rid) in zip(mail, applied):
             if kind == "submit":
-                prompt_ids, sampling, out, box, done = payload
-                rid = self.engine.submit(prompt_ids, **sampling)
+                _, _, out, box, done = payload
                 self._events[rid] = out
                 box["req_id"] = rid
                 done.set()
-            elif kind == "cancel":
-                self.engine.cancel(payload)
+        return stop
 
     def _route_finished(self):
         fin = self.engine.finished
@@ -134,13 +145,16 @@ class EngineWorker(threading.Thread):
             self._consumed = 0
 
     def run(self):
+        stop = False
         try:
-            while not self._stopping:
-                self._drain_mail()
+            while True:
+                stop = self._drain_mail(self._stopping)
                 # a cancel can retire a request without a further step (and
                 # may leave the engine with no work at all) — route its
                 # _DONE now, not only after the next step
                 self._route_finished()
+                if stop:
+                    break
                 if not self.engine.has_work:
                     # idle: block until a submission (or shutdown) arrives
                     self._wake.wait(timeout=1.0)
@@ -158,6 +172,31 @@ class EngineWorker(threading.Thread):
                 self._finish_reason.setdefault(rid, "error")
                 q.put(_DONE)
             self._events.clear()
+            if not stop:
+                # an exception: the ranks that follow wait on this loop's next
+                # broadcast, so send them the stop (best effort: a failure
+                # inside a collective leaves them to the process group's
+                # timeout)
+                with contextlib.suppress(Exception):
+                    self.engine.sync_events([], True)
+
+
+def follow(engine) -> list:
+    """The loop of a mesh rank other than 0 while rank 0's ``GLMAPIServer``
+    serves the distributed ``engine``: each turn takes rank 0's mailbox
+    (``sync_events``: the same submissions and cancels, in the same order),
+    then steps the engine if it has work, as rank 0's worker does, so every
+    collective meets its peers.  Opens no socket.  Returns, when rank 0's
+    server shuts down, the events applied here with their results."""
+    log = []
+    while True:
+        applied, stop = engine.sync_events()
+        log += applied
+        if stop:
+            return log
+        if engine.has_work:
+            engine.step()
+        engine.finished.clear()  # rank 0's worker routes the finished requests
 
 
 # chars process_response may rewrite when the NEXT char turns out CJK
@@ -280,16 +319,20 @@ class GLMAPIServer:
     """Binds an engine + tokenizer to an HTTP port.
 
     ``server = GLMAPIServer(engine); server.start()`` — or ``serve()`` to
-    block.  ``engine`` is a ``ServingEngine`` or ``PagedServingEngine``
-    built WITH a tokenizer.  (A distributed engine runs one process a rank,
-    every rank stepping in lockstep on the same submissions: a server would
-    front rank 0 only, so it is not served here.)
+    block.  ``engine`` is any of the serving engines (dense / paged / dist),
+    built WITH a tokenizer.  A distributed engine runs one process a rank:
+    the server runs on rank 0, whose worker hands every submission and
+    cancel to all ranks each turn (``sync_events``), and every other rank
+    runs ``follow(engine)``.
     """
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 8000,
                  model_name: str = "chatglm2-6b", default_max_tokens: int = 256):
         if engine.tokenizer is None:
             raise ValueError("API server needs an engine built with a tokenizer")
+        if not dist_utils.is_primary():
+            raise ValueError("the API server runs on rank 0 of a mesh; the other ranks run "
+                             "api_server.follow(engine)")
         self.engine = engine
         self.tokenizer = engine.tokenizer
         self.model_name = model_name

@@ -15,18 +15,30 @@ tokens:
   it, each row from its owner), so every rank samples the same first token;
 * **decode**: each data rank decodes its group's rows (the paged engine all
   of them, padding rows on their garbage pages: JAX's full-batch decode)
-  and ``_fetch`` all-gathers a chunk's tokens over the data axis;
-* **submissions**: ``sync_submissions`` broadcasts rank 0's prompts to every
-  rank, as one padded matrix behind a (count, width) header.
+  and ``_fetch`` all-gathers a chunk's tokens over the data axis; the
+  sampling settings, the sort width and the choice between a plain and a
+  speculative chunk are taken over every slot, so every rank draws from
+  its generator (seeded alike) in the same order and the ranks stay
+  token-equal;
+* **submissions and cancels**: ``sync_events`` broadcasts rank 0's events
+  (each submission with its own sampling settings, each cancel) to every
+  rank, which applies them in the same order; ``sync_submissions`` submits
+  a list of prompts through it.  The API server (serving/api_server.py)
+  runs on rank 0 and ``follow`` on the others.
 
 ``DistributedServingEngine(rt.kv_shard_t)`` splits the dense cache over T
-(ring prefill, K1 decode); ``DistributedPagedServingEngine(
-shard_model_pages=True)`` splits the pool by page phase (K2 decode) with
-the phase-aware allocator (paged_engine.py) and prefix-affinity admission:
-a request goes to the group whose registry holds its longest prefix.
+(ring prefill, K1 decode), and takes ``lookahead``: chunk N+1 is enqueued on
+chunk N's device tokens (each data rank chains its own rows) before chunk N
+is all-gathered, so the gather is deferred by one step on every rank alike.
+``DistributedPagedServingEngine(shard_model_pages=True)`` splits the pool
+by page phase (K2 decode) with the phase-aware allocator (paged_engine.py)
+and prefix-affinity admission: a request goes to the group whose registry
+holds its longest prefix.  It takes in-loop speculation (``speculative_k``,
+``speculative_sampled``) on either pool layout: the verify step writes
+through the rank's local table (on a model-sharded pool only its phase's
+blocks), and a step's drafts, accepts and next tokens are all-gathered as a
+plain chunk's tokens are.
 
-Not carried: lookahead (every chunk's tokens are all-gathered before the
-next is built) and in-loop speculation on the distributed paged engine.
 The decode chunks run from eager launches: a mesh refuses CUDA-graph
 capture (gloo collectives cannot be captured, and the sharded writes sync
 on ``nonzero``; utils/graphs.py ``MESH_REFUSAL``).
@@ -34,6 +46,7 @@ on ``nonzero``; utils/graphs.py ``MESH_REFUSAL``).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 import numpy as np
@@ -98,36 +111,37 @@ class _MeshEngine:
 
     def sync_submissions(self, requests: Optional[list] = None, **kwargs):
         """Rank 0's prompts (strings or token-id lists) submitted on every
-        rank in the same order; the other ranks' ``requests`` are ignored."""
-        def norm(prompts):
-            out = []
-            for p in prompts or []:
+        rank in the same order, each with rank 0's ``kwargs``; the other
+        ranks' arguments are ignored."""
+        events = None
+        if dist_utils.is_primary():
+            events = []
+            for p in requests or []:
                 if isinstance(p, str):
                     if self.tokenizer is None:
                         raise ValueError("string prompts need an engine tokenizer")
-                    out.append(self.tokenizer.encode(p))
-                else:
-                    out.append([int(t) for t in p])
-            return out
+                    p = self.tokenizer.encode(p)
+                events.append(("submit", [int(t) for t in p], kwargs))
+        self.sync_events(events)
 
-        if dist_utils.process_count() == 1:
-            for ids in norm(requests):
-                self.submit(ids, **kwargs)
-            return
-        host = self.mesh.backend == "gloo"
-        dev = torch.device("cpu") if host else self.device
-        prompts = norm(requests) if dist_utils.is_primary() else []
-        header = torch.tensor([len(prompts), max((len(p) for p in prompts), default=0)],
-                              dtype=torch.int64, device=dev)
-        n, width = dist_utils.broadcast(header, 0, None, host).tolist()
-        if n == 0 or width == 0:
-            return
-        mat = torch.full((n, width), -1, dtype=torch.int64)  # ids are >= 0; -1 pads
-        for i, p in enumerate(prompts):
-            mat[i, : len(p)] = torch.tensor(p)
-        mat = dist_utils.broadcast(mat.to(dev), 0, None, host).cpu()
-        for row in mat.tolist():
-            self.submit([t for t in row if t >= 0], **kwargs)
+    def sync_events(self, events: Optional[list] = None, stop: bool = False) -> tuple:
+        """Rank 0's ``events`` and ``stop`` applied on every rank, in order
+        (``ServingEngine.sync_events``), after one broadcast of them (JSON;
+        floats round-trip exactly); the other ranks pass None."""
+        if dist_utils.process_count() > 1:
+            host = self.mesh.backend == "gloo"
+            dev = torch.device("cpu") if host else self.device
+            payload = b""
+            if dist_utils.is_primary():
+                payload = json.dumps([list(events or []), bool(stop)]).encode()
+            size = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
+            size = int(dist_utils.broadcast(size, 0, None, host)[0])
+            buf = torch.zeros((size,), dtype=torch.uint8)
+            if dist_utils.is_primary():
+                buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+            buf = dist_utils.broadcast(buf.to(dev), 0, None, host).cpu()
+            events, stop = json.loads(buf.numpy().tobytes().decode())
+        return super().sync_events(events, stop)
 
 
 class DistributedServingEngine(_MeshEngine, ServingEngine):
@@ -137,8 +151,6 @@ class DistributedServingEngine(_MeshEngine, ServingEngine):
 
     def __init__(self, config: GLMLoadConfig, params: dict, tokenizer=None, *, mesh,
                  max_batch: int = 8, rt: Optional[TorchRuntimeConfig] = None, **kwargs):
-        if kwargs.get("lookahead"):
-            raise ValueError("lookahead is not carried by the distributed engine")
         self._init_mesh(mesh, max_batch)
         super().__init__(config, params, tokenizer, max_batch=max_batch,
                          rt=_mesh_rt(rt, mesh), **kwargs)
@@ -216,6 +228,14 @@ class DistributedServingEngine(_MeshEngine, ServingEngine):
         self.cache = M.KVCache(cache.k, cache.v, torch.where(active[rows], cache.lengths, orig))
         return torch.stack(toks, dim=1)
 
+    def _chain(self, first, prev_toks, prev_active):
+        """Lookahead: the group's rows continue from their own last device
+        token of the unread chunk (``prev_toks`` holds the group's rows)."""
+        rows = self._rows
+        first = first.clone()
+        first[rows] = torch.where(prev_active[rows], prev_toks[:, -1], first[rows])
+        return first
+
     def _roll_back(self, b: int, extra: int):
         if self._mine(b):
             self.cache.lengths[self._local(b)] -= extra
@@ -232,9 +252,6 @@ class DistributedPagedServingEngine(_MeshEngine, PagedServingEngine):
     def __init__(self, config: GLMLoadConfig, params: dict, tokenizer=None, *, mesh,
                  max_batch: int = 8, rt: Optional[TorchRuntimeConfig] = None,
                  shard_model_pages: bool = False, **kwargs):
-        if kwargs.get("speculative_k"):
-            raise NotImplementedError("in-loop speculation is not carried by the distributed "
-                                      "paged engine")
         self._init_mesh(mesh, max_batch)
         shard = shard_model_pages and mesh.n_model > 1
         self.n_phase = mesh.n_model if shard else 1
@@ -296,36 +313,19 @@ class DistributedPagedServingEngine(_MeshEngine, PagedServingEngine):
                                                     [slots[i] for i in mine])
         return self._sum_rows(logits, mine, len(slots))
 
-    def step(self) -> list:
-        """Admit, advance prefill chunks, then one decode chunk over the
-        group's rows (free and mid-prefill ones on their garbage pages at
-        length 0), its tokens all-gathered over the data axis."""
-        self._admit()
-        self._advance_prefills()
-        started, self._started_events = self._started_events, []
-        active = [b for b, s in enumerate(self.slots) if s.decoding]
-        self.stats["steps"] += 1
-        if not active:
-            return started
-        n = self.chunk
-        rows = list(range(self._rows.start, self._rows.stop))
-        real = [self.slots[b].decoding for b in rows]
-        self.stats["decode_chunks"] += 1
-        sampling, sort_k = self._row_params([b if r else None for b, r in zip(rows, real)])
-        rows_t, real_t = self._ids(rows).long(), self._to_device(np.array(real))
-        sub = PK.PagedKVCache(
-            self.cache.k_pool, self.cache.v_pool,
-            torch.where(real_t[:, None], self.cache.page_table[rows_t], self._garbage_t[rows_t]),
-            torch.where(real_t, self.cache.lengths[rows_t], 0))
-        tok, toks = self._ids([self._last_tok[b] for b in rows]), []
-        for _ in range(n):
-            logits, sub = PK.decode_step_paged(self.params, self.mc, tok, sub,
-                                               self.config.quant_type, self.dtype, self.rt)
-            tok = self._sample(logits, sampling, sort_k)
-            toks.append(tok)
-        self.cache.lengths[rows_t] = torch.where(real_t, sub.lengths, self.cache.lengths[rows_t])
-        toks = self._fetch(torch.stack(toks, dim=1))  # (max_batch, n), in slot order
-        out = started
-        for b in active:
-            out.append(self._consume_slot_tokens(b, toks[b], n))
-        return out
+    def _decode_batch(self, active: list) -> tuple[list, list]:
+        """The group's rows: free and mid-prefill ones are not real (they run
+        on their garbage pages at length 0)."""
+        slots = list(range(self._rows.start, self._rows.stop))
+        return slots, [self.slots[b].decoding for b in slots]
+
+    def _fetch_rows(self, slots: list, real: list) -> dict:
+        return {b: b for b in range(self.max_batch)}  # gathered in slot order
+
+    def _chunk_sampling(self, slots: list, real: list):
+        """Every slot's sampling settings and sort width, sliced to the
+        group's rows: every data rank draws the same number of values."""
+        (temperature, top_p, top_k_limit, any_sampled), sort_k = self._row_params(
+            [b if s.decoding else None for b, s in enumerate(self.slots)])
+        r = self._rows
+        return (temperature[r], top_p[r], top_k_limit[r], any_sampled), sort_k

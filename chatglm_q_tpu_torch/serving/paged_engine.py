@@ -29,19 +29,21 @@ equal the dense engine's), but KV lives in a shared page pool
   of two, padding rows on the garbage table at length 0; each bucket's
   decode step is a program of its own (``paged_kv.decode_paged_program``,
   captured: utils/graphs.py), the compact view copied into its buffers;
-* ``speculative_k``: when every decoding request is greedy, the chunk runs
-  in-loop prompt-lookup speculation (models/spec_decode.py, its step
-  captured likewise); a chunk with a sampling request falls back to plain
-  decode.
+* ``speculative_k``: the decode chunk runs in-loop prompt-lookup
+  speculation (models/spec_decode.py, its step captured likewise) when every
+  decoding request is greedy, or always with ``speculative_sampled``, where
+  sampled rows accept by exact rejection sampling (``spec_accept_next``) in
+  the same program as the greedy ones; otherwise a chunk with a sampling
+  request decodes plainly.  Padding rows stay greedy.
 
-JAX's ``full_batch_decode`` switch (a TPU backend workaround) is not
-carried: this engine decodes compact, the distributed one its group's rows.
-``speculative_sampled=True`` raises ``NotImplementedError``; ``lookahead``
-is a dense-engine option.
+JAX's ``full_batch_decode`` switch is a TPU backend workaround, left out
+of the port: this engine decodes compact, the distributed one its group's
+rows.  ``lookahead`` is a dense-engine option.
 """
 from __future__ import annotations
 
 from collections import Counter, OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,8 +57,6 @@ class PagedServingEngine(ServingEngine):
     def __init__(self, config, params, tokenizer=None, *, num_pages: int = 64,
                  page_size: int = 256, prefix_cache: bool = False, speculative_k: int = 0,
                  speculative_ngram: int = 3, speculative_sampled: bool = False, **kwargs):
-        if speculative_sampled:
-            raise NotImplementedError(SD.SAMPLED_NOT_PORTED)
         if kwargs.get("lookahead"):
             raise ValueError("lookahead is a dense-engine option; speculative_k is the paged "
                              "engine's way to amortize the host round trip")
@@ -74,6 +74,7 @@ class PagedServingEngine(ServingEngine):
         self.prefix_cache = prefix_cache
         self.speculative_k = speculative_k
         self.speculative_ngram = speculative_ngram
+        self.speculative_sampled = speculative_sampled
         super().__init__(config, params, tokenizer, **kwargs)
         if self.prefill_chunk_size is not None and self.prefill_chunk_size % page_size:
             raise ValueError("chunked prefill over pages needs page-aligned chunks")
@@ -248,23 +249,44 @@ class PagedServingEngine(ServingEngine):
         self.cache.lengths[slots_t] = sub.lengths
         return logits
 
-    def _compact_view(self, slots: list, n_real: int) -> PK.PagedKVCache:
-        """The decode batch: slots[:n_real] are decoding slots; the padding
-        rows after them get the garbage table row and length 0, so their
-        writes land on the garbage page."""
-        slots_t = self._ids(slots).long()
-        pt = self.cache.page_table[slots_t]
-        lens = self.cache.lengths[slots_t]
-        pt[n_real:] = self._garbage_t[slots_t[n_real:]]
-        lens[n_real:] = 0
+    def _decode_batch(self, active: list) -> tuple[list, list]:
+        """The rows of a decode chunk: (slots, real).  Compact: the decoding
+        slots, then padding rows (slot 0's, not real) up to a power of two."""
+        PB = min(1 << (len(active) - 1).bit_length(), self.max_batch)
+        pad = PB - len(active)
+        return active + [0] * pad, [True] * len(active) + [False] * pad
+
+    def _fetch_rows(self, slots: list, real: list) -> dict:
+        """A real row's slot → its row in the chunk's fetched tokens."""
+        return {b: i for i, (b, r) in enumerate(zip(slots, real)) if r}
+
+    def _chunk_sampling(self, slots: list, real: list):
+        """The chunk rows' sampling tensors and sort width (``_row_params``;
+        padding rows greedy)."""
+        return self._row_params([b if r else None for b, r in zip(slots, real)])
+
+    def _view(self, slots: list, real: list) -> PK.PagedKVCache:
+        """The chunk's rows of the pool: real rows through their slot's table
+        row and length, the others on their slot's garbage row at length 0,
+        so their writes land on a garbage page."""
+        slots_t, real_t = self._ids(slots).long(), self._to_device(np.array(real))
+        pt = torch.where(real_t[:, None], self.cache.page_table[slots_t], self._garbage_t[slots_t])
+        lens = torch.where(real_t, self.cache.lengths[slots_t], 0)
         return PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool, pt, lens)
 
-    def _store_lengths(self, active: list, sub_lengths: torch.Tensor):
-        self.cache.lengths[self._ids(active).long()] = sub_lengths[: len(active)]
+    def _store_rows(self, slots: list, real: list, lengths: torch.Tensor,
+                    tokbuf: Optional[torch.Tensor] = None):
+        """The real rows' advanced lengths (and token history) back into the
+        slots."""
+        idx = [i for i, r in enumerate(real) if r]
+        rows_t, slots_t = self._ids(idx).long(), self._ids([slots[i] for i in idx]).long()
+        self.cache.lengths[slots_t] = lengths[rows_t]
+        if tokbuf is not None:
+            self._tokbuf[slots_t] = tokbuf[rows_t]
 
     def step(self) -> list:
-        """Admit, advance prefill chunks, then one compact decode chunk over
-        the decoding slots only."""
+        """Admit, advance prefill chunks, then one decode chunk over the
+        decoding slots (compact; the distributed engine: its group's rows)."""
         self._admit()
         self._advance_prefills()
         started, self._started_events = self._started_events, []
@@ -273,29 +295,28 @@ class PagedServingEngine(ServingEngine):
         if not active:
             return started
         n = self.chunk
-        PB = min(1 << (len(active) - 1).bit_length(), self.max_batch)
-        slots = active + [0] * (PB - len(active))
-        rows = active + [None] * (PB - len(active))
+        slots, real = self._decode_batch(active)
         self.stats["decode_chunks"] += 1
-        if self.speculative_k and all(self.slots[b].request.temperature == 0 for b in active):
-            return self._spec_step(started, active, slots, n)
+        sub = self._view(slots, real)
+        sampling, sort_k = self._chunk_sampling(slots, real)
+        if self.speculative_k and (self.speculative_sampled or all(
+                self.slots[b].request.temperature == 0 for b in active)):
+            return self._spec_step(started, active, slots, real, sub, sampling, sort_k, n)
 
-        sampling, sort_k = self._row_params(rows)
-        sub = self._compact_view(slots, len(active))
-        # one program per power-of-two compact batch (JAX's jitted chunk),
-        # its page table and lengths copied in from the compact view
+        # one program per batch shape (JAX's jitted chunk), its page table and
+        # lengths copied in from the view
         prog = PK.decode_paged_program(self.params, self.mc, sub, self.config.quant_type,
                                        self.dtype, self.rt, self._row_sampler(sampling, sort_k))
         prog.load(ids=self._ids([self._last_tok[b] for b in slots]), lengths=sub.lengths,
                   page_table=sub.page_table)
         self._load_rows(prog, sampling)
         toks = prog.run(n, self.params, sub.k_pool, sub.v_pool, collect=("ids",))["ids"]
-        self._store_lengths(active, prog.inputs["lengths"])
-        toks = self._fetch(toks.t())  # (PB, n)
+        self._store_rows(slots, real, prog.inputs["lengths"])
+        toks, at = self._fetch(toks.t()), self._fetch_rows(slots, real)  # (rows, n)
         out = started
-        for i, b in enumerate(active):
+        for b in active:
             prev_pending = int(self._last_tok[b])
-            res = self._consume_slot_tokens(b, toks[i], n)
+            res = self._consume_slot_tokens(b, toks[at[b]], n)
             out.append(res)
             if self.speculative_k:
                 # keep the token history in step for later speculative
@@ -308,22 +329,29 @@ class PagedServingEngine(ServingEngine):
                                      self._ids([l_after - len(placed)]))
         return out
 
-    def _spec_step(self, started, active, slots, n):
-        sub = self._compact_view(slots, len(active))
+    def _spec_step(self, started, active, slots, real, sub, sampling, sort_k, n):
+        """``n`` in-loop speculation steps over the chunk's rows; sampled
+        rows (where any row samples) by rejection sampling, padding rows
+        greedy."""
+        extra = {}
+        if sampling[3]:
+            extra = dict(generator=self._gen, sampling=sampling[:3], top_k=sort_k)
         tb = self._tokbuf[self._ids(slots).long()]
         drafts, accepts, nexts, sub, tb = SD.speculative_decode_paged(
             self.params, self.mc, self._ids([self._last_tok[b] for b in slots]), sub, tb, n,
             self.speculative_k, self.speculative_ngram, self.config.quant_type, self.dtype,
-            self.rt)
-        self._store_lengths(active, sub.lengths)
-        self._tokbuf[self._ids(active).long()] = tb[: len(active)]
-        drafts, accepts, nexts = map(self._fetch, (drafts, accepts, nexts))
+            self.rt, **extra)
+        self._store_rows(slots, real, sub.lengths, tb)
+        # row-major for the fetch: (rows, n, k), (rows, n)
+        drafts, accepts, nexts = map(self._fetch, (drafts.transpose(0, 1), accepts.t(),
+                                                   nexts.t()))
+        at = self._fetch_rows(slots, real)
         out = started
-        for i, b in enumerate(active):
-            row = []
+        for b in active:
+            i, row = at[b], []
             for s in range(n):
-                a = int(accepts[s, i])
-                row += drafts[s, i, :a].tolist() + [int(nexts[s, i])]
+                a = int(accepts[i, s])
+                row += drafts[i, s, :a].tolist() + [int(nexts[i, s])]
                 self.stats["spec_accepted"] += a
             out.append(self._consume_slot_tokens(b, row, len(row)))
         self.stats["spec_steps"] += n

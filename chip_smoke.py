@@ -56,7 +56,10 @@ Phases (any failure raises and exits non-zero):
    each called twice for a bit-equal result; B4 at the decoder's
    batch-1 shape (lengths 140 of 1024), B5 (both forms), and the decode and
    prefill kernels at the edge cases their main-path shapes miss
-   (``check_attention_edges``).
+   (``check_attention_edges``).  The dynamic row quantizer (B7 / B8's
+   prologue) on rows where max|x| / 127 and max|x| · (1/127) round apart:
+   its sx and xq bit-equal to the CPU's, a Python-number divisor (the
+   control) not.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -112,9 +115,13 @@ Phases (any failure raises and exits non-zero):
    sharing a 512-token head, and one top-p request, 64 new tokens each;
    (b) the paged engine with whole-prompt admission and in-loop speculation
    (k = 8) on three prompts repeating a 40-token span, and the same without
-   speculation (the tokens they share are reported); (c) the dense
-   ``ServingEngine`` with chunked admission and lookahead on four of (a)'s
-   prompts.  Checks: every request finishes within its budget; no page in
+   speculation (the tokens they share are reported); (d) the paged engine
+   with ``speculative_k=8`` and ``speculative_sampled`` on a mixed batch of
+   (b)'s prompts, two greedy rows and two at temperature 0.8 / top-p 0.8,
+   captured then eager: the greedy rows must give (b)'s tokens and the
+   captured sampled rows the eager run's on the same seed, tokens/s and
+   accepted drafts beside (b) and (b'); (c) the dense ``ServingEngine`` with
+   chunked admission and lookahead on four of (a)'s prompts.  Checks: every request finishes within its budget; no page in
    use after the drain and every usable page free after
    ``clear_prefix_cache()``; prefix hits in (a); each kernel launched by the
    run that should drive it, and B3/B4 never by the paged runs; every
@@ -142,7 +149,8 @@ Phases (any failure raises and exits non-zero):
    for each tree a traced step's device time by kernel, with its forward
    and backward Hopper kernels' shares (B1 and B14, B6 and B13).
 
-8. Tensor-parallel serving at full size: the 28-layer int4g32 tree built
+8. Tensor-parallel serving at full width: an 8-layer int4g32 tree (28 layers
+   under ``--nccl``; ``SHARD_LAYERS``) built
    once, saved under the build directory and memory-mapped by two spawned
    ranks of a (1, 2) mesh (gloo, both on this card), each taking its slice
    (``shard_params``).  (a) ``DistributedServingEngine`` with ``kv_shard_t``
@@ -151,7 +159,7 @@ Phases (any failure raises and exits non-zero):
    shard_model_pages=True)``, pages of 256 split by phase, chunked
    admission with the prefix cache: phase 6 (a)'s six greedy prompts; 32
    greedy tokens each.  Checks: the ranks token-equal, every request within
-   its budget, K1 / K2 and K3 launched 28 times a decode step on each rank
+   its budget, K1 / K2 and K3 launched once a layer a decode step on each rank
    and the unsharded decode forms never, every shard the traffic reaches
    live in the decode merges on every rank, every greedy token within
    ``GREEDY_GAP_TOL`` of the single-device dense ``prefill_chunk``
@@ -159,6 +167,17 @@ Phases (any failure raises and exits non-zero):
    decode-only steps on four 256-token prompts: ms a decode step, the
    collectives it runs and the host ms in them, per rank (gloo through the
    host on one card: a correctness run, not a multi-GPU speed figure).
+   Then 8 tokens a request of: in-loop speculation (k = 8) on phase 6
+   (b)'s prompts and two short cycles (32 tokens, rows whose drafts the
+   random tree accepts: each run must accept some), greedy (c, e) and a
+   mixed batch with two sampled rows (d, f), on the model-sharded pool (c,
+   d) and the data-sharded one (e, f); (g)
+   the dense engine with ``lookahead`` on a T-sharded cache; and the API
+   server on rank 0 (``follow`` on the others) answering a chat, its SSE
+   stream and a stop string (12 tokens) with the engine's own greedy text.
+   The ranks token-equal in every run, the verify steps through the
+   attention their pool takes, every greedy token within ``GREEDY_GAP_TOL``
+   of the same reference.
    Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
    (dense and paged, bit for bit) against their plain versions, the
    shards merged against the unsharded function in f32 within the
@@ -748,6 +767,44 @@ def check_int8_matmul(torch):
             log_row("int8_dyn_matmul", rows[-1])
         del w, scale, w_deq
     return rows
+
+
+def reciprocal_split_rows(rows=64, K=4096, seed=5):
+    """(rows, K) f32 rows whose max|x| divided by 127 rounds apart from
+    max|x| times the f32 reciprocal of 127 (found on the host): on each row
+    one element of that magnitude, the rest below it (tests/test_torch_cuda.py
+    takes them from here)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cand = rng.uniform(0.5, 8.0, size=200 * rows).astype(np.float32)  # ~4.6% split
+    split = cand[cand * (np.float32(1) / np.float32(127)) != cand / np.float32(127)][:rows]
+    x = rng.uniform(-0.4, 0.4, size=(rows, K)).astype(np.float32)
+    x[np.arange(rows), rng.integers(0, K, size=rows)] = split * np.where(
+        rng.random(rows) < 0.5, -1, 1).astype(np.float32)
+    return x
+
+
+def check_dyn_division(torch, smi):
+    """The dynamic row quantizer (B7 / B8's prologue) on the card against the
+    CPU, on rows where max|x| / 127 and max|x| · (1/127) round apart: sx and
+    xq bit-equal (f32 and bf16 rows); the control, a Python-number divisor
+    on the card (a reciprocal product), must differ on them."""
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
+
+    x = torch.from_numpy(reciprocal_split_rows())
+    for dtype in (torch.float32, torch.bfloat16):
+        xq, sx = D.dyn_quantize_rows(x.to(dtype).cuda())
+        xq_cpu, sx_cpu = D.dyn_quantize_rows(x.to(dtype))
+        require(torch.equal(sx.cpu(), sx_cpu) and torch.equal(xq.cpu(), xq_cpu),
+                f"dyn_quantize_rows {dtype}: the card's sx or xq differ from the CPU's")
+    want = x.abs().amax(dim=1, keepdim=True) / 127.0
+    control = ((x.cuda().abs().amax(dim=1, keepdim=True) / 127.0).cpu() != want).float().mean()
+    require(control > 0.5, f"dyn division control: only {control:.2f} of the rows split")
+    log(f"  dyn_quantize_rows on the card equals the CPU bit for bit on {x.shape[0]} rows "
+        f"where the reciprocal product rounds apart (the control differs on "
+        f"{100 * control:.0f}% of them)  [{smi}]")
+    return {"rows": x.shape[0], "control_split_share": control.item()}
 
 
 def int8_t_library(torch, g, w, scale, want):
@@ -2481,6 +2538,44 @@ def eager_turn(torch, make, reqs, done, name, busy_reqs=None):
     return res
 
 
+def sampled_speculation(torch, make_d, b_reqs, b_done, params, smi):
+    """Run (d): the paged engine with ``speculative_k=8`` and
+    ``speculative_sampled`` on (b)'s prompts as a mixed batch, (b)'s first
+    two greedy and two rows at temperature 0.8 / top-p 0.8 (the third and
+    the first prompt), captured, then from eager launches on the same seed.
+    The greedy rows must give (b)'s tokens, the captured sampled rows the
+    eager run's, and the sampled verify program must replay."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.utils import graphs as G
+
+    sampled = dict(temperature=0.8, top_p=0.8, max_new_tokens=NEW_TOKENS)
+    reqs = [b_reqs[0], b_reqs[1], (b_reqs[2][0], sampled), (b_reqs[0][0], sampled)]
+    eng = make_d(TorchRuntimeConfig())
+    done, res = drive(torch, eng, reqs, "(d) paged, speculative k=8, two greedy and two sampled "
+                                        "rows")
+    require(eng.pages_in_use == 0, f"(d): {eng.pages_in_use} pages in use after the drain")
+    res["spec_accepted"] = eng.stats["spec_accepted"]
+    res["spec_steps"] = eng.stats["spec_steps"]
+    progs = [p for k, p in G.programs(params)._programs.items()
+             if k[0] == "spec_step" and k[-1][0] == "rows"]
+    res["sampled_replays"] = sum(p.replays for p in progs)
+    require(res["sampled_replays"] > 0 and all(p.graph is not None for p in progs
+                                               if p.calls > 1),
+            "(d): the sampled verify program did not replay from a graph")
+    for i in (0, 1):
+        require(done[i].generated == b_done[i].generated,
+                f"(d): greedy row {i}'s tokens differ from (b)'s")
+    del eng
+    res["eager"] = eager_turn(torch, make_d, reqs, done, "(d)")
+    require(res["eager"]["sampled_equal"],
+            "(d): the captured sampled rows' tokens differ from the eager run's on the same seed")
+    log(f"    (d) greedy rows equal (b)'s; the captured sampled rows equal the eager run's on "
+        f"one seed; {res['sampled_replays']} replays of the sampled verify program; "
+        f"{res['spec_accepted']} drafted tokens accepted in {res['spec_steps']} verify steps  "
+        f"[{smi}]")
+    return res
+
+
 def captured_programs(params, name, kinds):
     """The step programs of ``kinds`` that replayed from a graph."""
     from chatglm_q_tpu_torch.utils import graphs as G
@@ -2572,6 +2667,11 @@ def engines_slice(torch, smi, seed=61, survey=False):
         return PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
                                   speculative_k=k, speculative_ngram=3, rt=r_t, **ENGINE_KW)
 
+    def make_d(r_t):
+        return PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                                  speculative_k=8, speculative_ngram=3, speculative_sampled=True,
+                                  rt=r_t, seed=seed + 7, **ENGINE_KW)
+
     def make_c(r_t):
         return ServingEngine(load, params, prefill_chunk_size=PAGE, lookahead=True, rt=r_t,
                              **ENGINE_KW)
@@ -2622,6 +2722,14 @@ def engines_slice(torch, smi, seed=61, survey=False):
         out["b"]["tokens_shared_with_plain"] = shared
         log(f"    (b) accepted {out['b']['spec_accepted']} drafted tokens; tokens equal to the "
             f"run without speculation (common prefix / emitted): {shared}")
+        out["d"] = sampled_speculation(torch, make_d, b_reqs, b_done, params, smi)
+        out["d"]["vs"] = {k: (out[k]["tok_per_s"], out[k]["eager"]["tok_per_s"])
+                          for k in ("b", "b_plain", "d")}
+        log(f"    tok/s captured / eager: (b) {out['b']['tok_per_s']:.1f} / "
+            f"{out['b']['eager']['tok_per_s']:.1f}, (b') {out['b_plain']['tok_per_s']:.1f} / "
+            f"{out['b_plain']['eager']['tok_per_s']:.1f}, (d) {out['d']['tok_per_s']:.1f} / "
+            f"{out['d']['eager']['tok_per_s']:.1f}; drafted tokens accepted (b) "
+            f"{out['b']['spec_accepted']}, (d) {out['d']['spec_accepted']}  [{smi}]")
 
     # (c) the dense engine: chunked admission, lookahead
     eng = make_c(rt)
@@ -2655,6 +2763,10 @@ def engines_slice(torch, smi, seed=61, survey=False):
             f"greedy consistency: the shifted control passes ({control} <= {GREEDY_GAP_TOL})")
 
     ca, cb, cc = (out[k]["launches"] for k in ("a", "b", "c"))
+    for kern in ("int4g32_splitk", "flash_attention_chunk_paged"):
+        require(out["d"]["launches"][kern] > 0, f"(d) did not launch {kern}")
+    require(out["d"]["launches"]["kv_cache_write_idx"] == 0
+            and out["d"]["launches"]["flash_attention_decode"] == 0, "(d) launched B3/B4")
     for kern in ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
                  "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
         require(ca[kern] > 0, f"(a) did not launch {kern}")
@@ -2671,8 +2783,10 @@ def engines_slice(torch, smi, seed=61, survey=False):
     for run in ("a", "c"):  # a decode-only step: 16 decode steps of the fused append
         per_step = out[run]["busy"]["launches_per_decode_step"]
         require_fused_append(per_step, cfg, f"({run}) a decode step")
-    counts = {k: ca[k] + cb[k] + cc[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
-    counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"]
+    cd = out["d"]["launches"]
+    counts = {k: ca[k] + cb[k] + cc[k] + cd[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
+    counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"] + cd[
+        "rope_kv_append"]
     return counts, out
 
 
@@ -3161,7 +3275,18 @@ def check_sharded_attention(torch):
 # ---------------------------------------------------------------------------
 
 SHARD_NEW_TOKENS = 32
-# the kernels a tensor-parallel decode step runs (28 each, per rank), and the
+# phase 8's depth on gloo ranks sharing the card (every width full): its
+# eager steps pay the host transport once a layer; --nccl runs all 28
+SHARD_LAYERS = 8
+SHARD_SPEC_TOKENS = 8  # runs (c)-(g)
+SHARD_LOOP_TOKENS = 32  # the greedy rows of (c)-(f) on short cycles, which drafts must hit
+SHARD_HTTP_TOKENS = 12
+# what each run's verify steps must launch, once a layer a step: the
+# model-sharded pool's verify attends the all-gathered pages (B5's chunked
+# form), the data-sharded pool's through the chunk kernel (B11)
+SHARDED_VERIFY = {"c": "flash_attention_prefill_chunk", "d": "flash_attention_prefill_chunk",
+                  "e": "flash_attention_chunk_paged", "f": "flash_attention_chunk_paged"}
+# the kernels a tensor-parallel decode step runs (once a layer, per rank), and the
 # unsharded forms it must not
 SHARDED_DECODE = {"a": ("flash_attention_decode_lse", "rope_kv_append_sharded"),
                   "b": ("flash_attention_decode_paged_lse", "rope_kv_append_sharded")}
@@ -3174,22 +3299,48 @@ def sharded_prompts(torch, seed):
     each over the ranks); the 4200-token one crosses the 4096 slots of rank
     0's T-shard, so its prefill writes on rank 1 and its decode merges two
     live shards.  (b): phase 6 (a)'s six greedy prompts of 300-1100 tokens,
-    four sharing a 512-token head.  32 greedy tokens each."""
+    four sharing a 512-token head.  32 greedy tokens each.  (c) and (e):
+    two of phase 6 (b)'s prompts repeating a 40-token span, greedy, 8
+    tokens each, and two 120-token prompts cycling one and two tokens
+    (``cycles``), greedy, 32 tokens each; (d) and (f): a mixed batch, the
+    two cycles greedy and two sampled at temperature 0.8 / top-p 0.8 (the
+    third and the first span prompt, 8 tokens each).  (g): four prompts of
+    1100, 300, 700 and 500 tokens, 8 greedy tokens each (the longest
+    crosses into rank 1's T-shard of 1024)."""
     g = torch.Generator().manual_seed(seed)
     kw = dict(temperature=0.0, max_new_tokens=SHARD_NEW_TOKENS)
     a = [(torch.randint(3, 65000, (n,), generator=g).tolist(), kw)
          for n in (4200, 2048, 512, 1200, 760)]
-    b = [(p, kw) for p, k in engine_prompts(torch, seed)[0] if k["temperature"] == 0.0]
-    return a, b
+    a_six, b_three = engine_prompts(torch, seed)
+    b = [(p, kw) for p, k in a_six if k["temperature"] == 0.0]
+    greedy = dict(temperature=0.0, max_new_tokens=SHARD_SPEC_TOKENS)
+    sampled = dict(temperature=0.8, top_p=0.8, max_new_tokens=SHARD_SPEC_TOKENS)
+    spec = [(p, greedy) for p, _ in b_three]
+    look = [(torch.randint(3, 65000, (n,), generator=g).tolist(), greedy)
+            for n in (1100, 300, 700, 500)]
+    loops = [(p, dict(greedy, max_new_tokens=SHARD_LOOP_TOKENS)) for p in cycles(torch)]
+    mixed = loops + [(spec[2][0], sampled), (spec[0][0], sampled)]
+    return {"a": a, "b": b, "c": spec[:2] + loops, "d": mixed, "e": spec[:2] + loops,
+            "f": mixed, "g": look}
 
 
-def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
+def cycles(torch, seed=5):
+    """Two 120-token prompts, one token repeated and two cycling, on which a
+    random tree falls into a short loop of its own, so n-gram drafts are
+    accepted (on phase 8's trees, at 8 layers and at 28, where the 40-token
+    spans of phase 6 (b) accept next to none at 8 layers)."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(3, 65000, (n,), generator=g).tolist() * (120 // n) for n in (1, 2)]
+
+
+def sharded_rank(rank, tree_path, prompts, tp, layers):
     """One rank of phase 8 on a (1, tp) mesh: its slice of the memory-mapped
     tree on its card (gloo: every rank on this one; NCCL: card ``rank``),
-    then (a) the T-sharded dense engine and (b) the model-sharded paged
-    engine, each draining its requests; returns their tokens, launch counts,
-    decode steps, host times and, for each shard, the (layer, decode step,
-    b, g) whose partial the merge took with rows in it (l > 0)."""
+    then each run of ``prompts`` on its engine, each draining its requests
+    (submitted through rank 0's ``sync_events``), and the API server over
+    the mesh (``sharded_http``); returns their tokens, launch counts, decode
+    steps, host times and, for (a) and (b), each shard's (layer, decode
+    step, b, g) whose partial the merge took with rows in it (l > 0)."""
     import torch
 
     from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
@@ -3199,7 +3350,7 @@ def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
                                              DistributedServingEngine)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ChatGLM2Config()
+    cfg = ChatGLM2Config(num_layers=layers)
     mesh = SH.make_mesh(1, tp)
     t0 = time.perf_counter()
     params = SH.shard_params(torch.load(tree_path, mmap=True, weights_only=True), mesh, cfg,
@@ -3207,18 +3358,29 @@ def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
     torch.cuda.synchronize()
     res = {"load_s": time.perf_counter() - t0}
     load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
-    runs = {
-        "a": (lambda: DistributedServingEngine(
+    pool = dict(num_pages=POOL_PAGES, page_size=PAGE, max_batch=4, max_seq_len=SEQ)
+    spec = dict(pool, decode_chunk=4, speculative_k=8, speculative_ngram=3)
+
+    def paged(**kw):
+        return lambda: DistributedPagedServingEngine(load, params, mesh=mesh, **kw)
+
+    makers = {
+        "a": lambda: DistributedServingEngine(
             load, params, mesh=mesh, max_batch=4, max_seq_len=SHARD_T, decode_chunk=16,
-            rt=TorchRuntimeConfig(kv_shard_t=True)), prompts_a),
-        "b": (lambda: DistributedPagedServingEngine(
-            load, params, mesh=mesh, shard_model_pages=True, num_pages=POOL_PAGES,
-            page_size=PAGE, prefill_chunk_size=PAGE, prefix_cache=True, max_batch=4,
-            max_seq_len=SEQ, decode_chunk=16), prompts_b),
+            rt=TorchRuntimeConfig(kv_shard_t=True)),
+        "b": paged(shard_model_pages=True, prefill_chunk_size=PAGE, prefix_cache=True,
+                   decode_chunk=16, **pool),
+        "c": paged(shard_model_pages=True, **spec),
+        "d": paged(shard_model_pages=True, speculative_sampled=True, seed=SHARD_TP, **spec),
+        "e": paged(**spec),
+        "f": paged(speculative_sampled=True, seed=SHARD_TP, **spec),
+        "g": lambda: DistributedServingEngine(
+            load, params, mesh=mesh, max_batch=4, max_seq_len=SEQ, decode_chunk=4,
+            lookahead=True, rt=TorchRuntimeConfig(kv_shard_t=True)),
     }
     merge = A.merge_lse_partials
-    for run, (make, reqs) in runs.items():
-        eng = make()
+    for run, reqs in prompts.items():
+        eng = makers[run]()
         live = torch.zeros(tp, dtype=torch.long, device="cuda")
 
         def probe(out, m, l, dtype):  # the decode merges only: count each shard's live (b, g)
@@ -3228,7 +3390,7 @@ def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.sync_submissions([p for p, _ in reqs] if rank == 0 else None, **reqs[0][1])
+        eng.sync_events([("submit", p, kw) for p, kw in reqs] if rank == 0 else None)
         decode_walls = []
         A.merge_lse_partials = probe
         try:
@@ -3251,11 +3413,78 @@ def sharded_rank(rank, tree_path, prompts_a, prompts_b, tp):
                     "decode_ms_per_step_median": (walls[len(walls) // 2] * 1e3 / eng.chunk
                                                   if walls else None),
                     "live_per_shard": live.tolist(), "stats": dict(eng.stats)}
-        if run == "b":
+        if hasattr(eng, "pages_in_use"):
             res[run]["pages_in_use"] = eng.pages_in_use
-        res[run]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
+        if run in ("a", "b"):
+            res[run]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
         del eng
         torch.cuda.empty_cache()
+    res["http"] = sharded_http(rank, mesh, load, params)
+    return res
+
+
+def sharded_http(rank, mesh, load, params):
+    """The API server over the mesh: rank 0 runs ``GLMAPIServer`` on the
+    model-sharded paged engine (the 65024-id tokenizer), every other rank
+    ``follow``.  First the engine's own greedy run of the chat prompt (all
+    ranks in lockstep), then over HTTP on localhost a chat, the same
+    streamed and a stop string.  Returns the prompt's ids, the run's tokens
+    and text, and on rank 0 the answers and the request ms."""
+    import urllib.request
+
+    from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.serving import DistributedPagedServingEngine, GLMAPIServer
+    from chatglm_q_tpu_torch.serving.api_server import _messages_to_prompt, follow
+    from chatglm_q_tpu_torch.serving.chat import process_response
+
+    tok = chat_tokenizer()
+    eng = DistributedPagedServingEngine(load, params, tok, mesh=mesh, shard_model_pages=True,
+                                        num_pages=POOL_PAGES, page_size=PAGE, max_batch=4,
+                                        max_seq_len=SEQ, decode_chunk=4)
+    messages = [{"role": "user", "content": CHAT_QUESTION}]
+    ids = tok.encode(_messages_to_prompt(messages))
+    greedy = dict(temperature=0.0, max_new_tokens=SHARD_HTTP_TOKENS)
+    eng.sync_submissions([ids] if rank == 0 else None, **greedy)
+    while eng.has_work:
+        eng.step()
+    gen = eng.finished[-1].generated
+    res = {"ids": ids, "tokens": gen, "want": process_response(tok.decode(gen))}
+    eng.finished.clear()
+    ops.reset_launch_counts()
+    if rank != 0:
+        res["events"] = [e[0] for e, _ in follow(eng)]
+        res["counts"] = ops.launch_counts()
+        return res
+    server = GLMAPIServer(eng, port=0, model_name="chatglm2-6b")
+    url = f"http://{server.host}:{server.port}/v1/chat/completions"
+    body = {"model": "chatglm2-6b", "messages": messages, "temperature": 0.0,
+            "max_tokens": SHARD_HTTP_TOKENS}
+
+    def post(b):
+        req = urllib.request.Request(url, data=json.dumps(b).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            data = resp.read().decode()
+        return data, (time.perf_counter() - t0) * 1e3
+
+    want = res["want"]
+    stop = want[len(want) // 2: len(want) // 2 + 3]
+    ms = {}
+    server.start()
+    try:
+        data, ms["chat"] = post(body)
+        res["chat"] = json.loads(data)["choices"][0]["message"]["content"]
+        data, ms["stream"] = post(dict(body, stream=True))
+        chunks = [json.loads(line[6:]) for line in data.splitlines() if line.startswith("data: {")]
+        res["stream"] = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+        res["stream_done"] = data.rstrip().endswith("data: [DONE]")
+        data, ms["stop"] = post(dict(body, stop=stop))
+        res["stop"] = json.loads(data)["choices"][0]
+    finally:
+        server.shutdown()
+        server.worker.join(timeout=120)
+    res.update(stop_string=stop, request_ms=ms, counts=ops.launch_counts())
     return res
 
 
@@ -3283,13 +3512,100 @@ def sharded_decode_timing(torch, eng, mesh):
             "collective_ms_per_step": secs}
 
 
-def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP):
-    """Phase 8: the 28-layer int4g32 random tree built once here, saved to
+def sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp):
+    """Runs (c)-(g) and the API server of phase 8: in-loop speculation, greedy
+    (c, e) and a mixed batch with sampled rows (d, f), on the model-sharded
+    pool (c, d) and the data-sharded one (e, f); (g) the dense engine with
+    ``lookahead`` on a T-sharded cache; the server on rank 0 with ``follow``
+    on the others.  Checks: the ranks token-equal (sampled rows too), every
+    request within its budget, no page in use after a drain, each
+    speculation run's verify steps through the attention its pool takes
+    (``SHARDED_VERIFY``) and B1's split-K kernel, and drafts accepted on
+    every rank in each of them, (g) K1 and K3 once a layer a
+    decode step; every greedy token of (c)-(g) and of the server's engine
+    within ``GREEDY_GAP_TOL`` of the single-device dense reference, the
+    shifted stream not; the chat, the stream and the stop string answer with
+    the engine's own greedy text."""
+    from types import SimpleNamespace
+
+    out, idle = {}, []
+    for run in "cdefg":
+        reqs, r0 = prompts[run], ranks[0][run]
+        loops = [j for j, (_, kw) in enumerate(reqs) if kw["max_new_tokens"] == SHARD_LOOP_TOKENS]
+        require(all(r[run]["tokens"] == r0["tokens"] for r in ranks),
+                f"phase 8 ({run}): the ranks' tokens differ")
+        require(len(r0["tokens"]) == len(reqs) and all(
+            0 < len(t) <= kw["max_new_tokens"] for t, (_, kw) in zip(r0["tokens"], reqs)),
+            f"phase 8 ({run}): unfinished or over budget: {[len(t) for t in r0['tokens']]}")
+        for i, r in enumerate(ranks):
+            c = r[run]["counts"]
+            if run in SHARDED_VERIFY:
+                steps = r[run]["stats"]["spec_steps"]
+                kern = SHARDED_VERIFY[run]
+                require(steps > 0 and c[kern] == cfg.num_layers * steps,
+                        f"phase 8 ({run}) rank {i}: {kern} launched {c[kern]} times in {steps} "
+                        f"verify steps (want {cfg.num_layers} a step)")
+                require(c["int4g32_splitk"] > 0 and r[run]["pages_in_use"] == 0,
+                        f"phase 8 ({run}) rank {i}: no split-K launch, or pages in use")
+                if not r[run]["stats"]["spec_accepted"]:
+                    idle.append(f"({run}) rank {i} in {steps} verify steps, the cycle rows "
+                                f"{[r[run]['tokens'][j] for j in loops]}")
+            else:
+                for kern in SHARDED_DECODE["a"]:
+                    require(c[kern] == cfg.num_layers * r[run]["decode_steps"],
+                            f"phase 8 ({run}) rank {i}: {kern} launched {c[kern]} times in "
+                            f"{r[run]['decode_steps']} decode steps")
+        done = [SimpleNamespace(generated=t) for t in r0["tokens"]]
+        gaps = greedy_gaps(torch, params, cfg, done, reqs)
+        require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
+                f"phase 8 ({run}): greedy gap {gaps['f32'][0]}, shifted control {gaps['f32'][1]}")
+        out[run] = {"gaps": gaps, "wall_s": [r[run]["wall_s"] for r in ranks],
+                    "stats": r0["stats"], "tokens": sum(len(t) for t in r0["tokens"]),
+                    "counts": {k: v for k, v in r0["counts"].items() if v}}
+        log(f"  ({run}) {len(reqs)} requests, {out[run]['tokens']} tokens on {tp} ranks "
+            f"({backend}) in {out[run]['wall_s'][0]:.1f} s, ranks token-equal; "
+            + (f"{r0['stats']['spec_steps']} verify steps, {r0['stats']['spec_accepted']} drafted "
+               f"tokens accepted; " if run in SHARDED_VERIFY else
+               f"lookahead, {r0['decode_steps']} decode steps; ")
+            + f"greedy gap f32 {gaps['f32'][0]:.4e}, shifted control {gaps['f32'][1]:.3e}  "
+            f"[{smi}]")
+    # the verify's accept path (advance by 1 + accepted, roll back, all-gather
+    # the accepted drafts) ran on every rank of every speculation run
+    require(not idle, "phase 8: no drafted token accepted: " + "; ".join(idle))
+    h0 = ranks[0]["http"]
+    require(all(r["http"]["tokens"] == h0["tokens"] for r in ranks),
+            "phase 8 (http): the ranks' greedy runs differ")
+    want = h0["want"]
+    require(len(want) >= 8 and h0["chat"] == want and h0["stream"] == want and h0["stream_done"],
+            f"phase 8 (http): chat {h0['chat']!r} / stream {h0['stream']!r} differ from the "
+            f"engine's {want!r}")
+    stop = h0["stop_string"]
+    require(h0["stop"]["message"]["content"] == want[: want.find(stop)]
+            and h0["stop"]["finish_reason"] == "stop", f"phase 8 (http): stop gave {h0['stop']}")
+    require(all(r["http"]["events"].count("submit") == 3 for r in ranks[1:]),
+            "phase 8 (http): the followers did not apply the three submissions")
+    gaps = greedy_gaps(torch, params, cfg, [SimpleNamespace(generated=h0["tokens"])],
+                       [(h0["ids"], dict(temperature=0.0))])
+    require(gaps["f32"][0] <= GREEDY_GAP_TOL,
+            f"phase 8 (http): greedy gap {gaps['f32'][0]} > {GREEDY_GAP_TOL}")
+    out["http"] = {"request_ms": h0["request_ms"], "gaps": gaps,
+                   "events_per_rank": [len(r["http"].get("events", [])) for r in ranks[1:]]}
+    log(f"  (http) GLMAPIServer on rank 0, follow on {tp - 1} rank(s): chat, SSE stream and stop "
+        f"{stop!r} answered with the engine's own greedy text ({len(h0['tokens'])} tokens, "
+        f"greedy gap f32 {gaps['f32'][0]:.4e}); request ms "
+        f"{json.dumps({k: round(v, 1) for k, v in h0['request_ms'].items()})}  [{smi}]")
+    return out
+
+
+def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD_LAYERS):
+    """Phase 8: an int4g32 random tree of ``layers`` layers at ChatGLM2-6B's
+    widths built once here, saved to
     the build directory and memory-mapped by ``tp`` spawned ranks (gloo: all
     on this card; NCCL, ``--nccl``: one card a rank), each slicing its
-    shard; both distributed engines driven on them.  Checks: the ranks agree
+    shard; both distributed engines driven on them, (c)-(g) and the API
+    server too (``sharded_serving_checks``).  Checks: the ranks agree
     token for token; every request finishes within its budget; K1 / K2 and
-    K3 launch 28 times a decode step on each rank and the unsharded decode
+    K3 launch once a layer a decode step on each rank and the unsharded decode
     forms never; every shard that the longest request reaches (at least
     two) gave the decode merges live partials, on every rank; every greedy
     token within GREEDY_GAP_TOL of the argmax of the single-device dense
@@ -3302,10 +3618,11 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP):
     from chatglm_q_tpu_torch.ops import _build
     from chatglm_q_tpu_torch.utils.distributed import run_spmd
 
-    cfg = ChatGLM2Config()
+    cfg = ChatGLM2Config(num_layers=layers)
     params = random_quantized_params(cfg, "int4g32",
                                      torch.Generator(device="cuda").manual_seed(seed + 2))
-    a_reqs, b_reqs = sharded_prompts(torch, seed)
+    prompts = sharded_prompts(torch, seed)
+    a_reqs, b_reqs = prompts["a"], prompts["b"]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = _build.BUILD_DIR / f"sharded_tree_{seed}.pt"
     t0 = time.perf_counter()
@@ -3314,11 +3631,12 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP):
     try:
         t0 = time.perf_counter()
         ranks = run_spmd(sharded_rank, tp, backend, timeout=900,
-                         args=(str(path), a_reqs, b_reqs, tp))
+                         args=(str(path), prompts, tp, layers))
         spmd_s = time.perf_counter() - t0
     finally:
         path.unlink(missing_ok=True)
-    out = {"card": smi, "backend": backend, "tp": tp, "tree_save_s": save_s, "ranks_s": spmd_s,
+    out = {"card": smi, "backend": backend, "tp": tp, "layers": layers, "tree_save_s": save_s,
+           "ranks_s": spmd_s,
            "load_s": [r["load_s"] for r in ranks]}
     counts = {}
     for run, reqs in (("a", a_reqs), ("b", b_reqs)):
@@ -3383,6 +3701,7 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP):
                 f"phase 8 ({run}): the shifted control passes ({gaps['f32'][1]})")
         for k, v in r0["counts"].items():
             counts[k] = counts.get(k, 0) + v
+    out.update(sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp))
     counts["rope_kv_append_sharded"] = ranks[0]["a"]["counts"]["rope_kv_append_sharded"]
     counts["rope_kv_append_sharded paged"] = ranks[0]["b"]["counts"]["rope_kv_append_sharded"]
     log(f"  tree saved in {save_s:.1f} s; ranks done in {spmd_s:.1f} s (slices loaded in "
@@ -3531,16 +3850,25 @@ TRAIN_KERNELS = {
 def profile_train_step(torch, step, trainable, frozen, ids, labels, untraced_ms, quant):
     """One more training step under torch.profiler: device time by kernel,
     the device's busy share of the untraced step before it, and the forward
-    and backward Hopper matmuls' device ms (PER_STEP launches each)."""
+    and backward Hopper matmuls' device ms (PER_STEP launches each).  A trace
+    short of those launches (dropped activity records) is taken again on
+    the next step, up to TRACE_TRIES times, as ``trace_until`` does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(trainable, frozen, ids, labels)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    for _ in range(TRACE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(trainable, frozen, ids, labels)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        counts = [sum(e.count for e in events if all(k in e.key for k in subs))
+                  for _, subs in TRAIN_KERNELS[quant]]
+        if all(n == PER_STEP for n in counts):
+            break
+        log(f"    the trace of a {quant} training step holds {counts} launches of "
+            f"{[label for label, _ in TRAIN_KERNELS[quant]]}, not {PER_STEP} each: traced again")
     events.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:10]]
@@ -4001,7 +4329,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("== phase 1: card and build")
+    def phase(title):  # a phase's header, with the seconds since the start
+        log(f"{title}  [{time.perf_counter() - t_start:.1f} s]")
+
+    phase("== phase 1: card and build")
     smi = nvidia_smi_line()
     log(f"  card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -4021,24 +4352,24 @@ def main() -> int:
         cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                 "--format=csv,noheader"], capture_output=True, text=True,
                                check=True).stdout.strip().splitlines()
-        log(f"== phase 8 over NCCL: tensor-parallel serving on a (1, {tp}) mesh, a card a "
+        phase(f"== phase 8 over NCCL: tensor-parallel serving on a (1, {tp}) mesh, a card a "
             f"rank; cards: {cards}")
-        _, sharded_perf = sharded_slice(torch, smi, backend="nccl", tp=tp)
-        log("detail: " + json.dumps({"card": smi, "sharded_28_layers": sharded_perf}))
+        _, sharded_perf = sharded_slice(torch, smi, backend="nccl", tp=tp, layers=28)
+        log("detail: " + json.dumps({"card": smi, "sharded_serving": sharded_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--serving" in sys.argv:  # phases 4, 5, 6 and 9 alone
-        log("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
+        phase("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
         perf = full_slice(torch, smi)[2]
         torch.cuda.empty_cache()
-        log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 "
+        phase("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 "
             "layers")
         chat_perf = chat_slice(torch, smi)[1]
         torch.cuda.empty_cache()
-        log("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
+        phase("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
         engine_perf = engines_slice(torch, smi)[1]
         torch.cuda.empty_cache()
-        log("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B "
+        phase("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B "
             "int4g32, 28 layers")
         api_perf = api_slice(torch, smi)
         log("detail: " + json.dumps({"card": smi, "int4g32_28_layers": perf,
@@ -4047,16 +4378,16 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--sharded" in sys.argv:  # phase 2's sharded rows and phase 8 alone
-        log("== phase 2 (sharded forms): K1, K2, K3 against their plain versions")
+        phase("== phase 2 (sharded forms): K1, K2, K3 against their plain versions")
         sharded_rows = check_sharded_attention(torch)
-        log("== phase 8: tensor-parallel serving, 2 ranks on this card")
+        phase("== phase 8: tensor-parallel serving, 2 ranks on this card")
         _, sharded_perf = sharded_slice(torch, smi)
         log("detail: " + json.dumps({"card": smi, "sharded_rows": sharded_rows,
-                                     "sharded_28_layers": sharded_perf}))
+                                     "sharded_serving": sharded_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--quant" in sys.argv:  # phase 10 alone, then the 28-layer GPTQ
-        log("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
+        phase("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
         _, quant_perf, _ = quant_slice(torch, smi)
         log("== GPTQ int4g32 of ChatGLM2-6B, 28 layers")
         quant_perf["gptq_int4g32_28_layers"] = quant_28_layers(torch, smi)
@@ -4064,53 +4395,54 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    log("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
+    phase("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
     mm_rows, crossover, splitk_crossover = check_matmul(torch)
     int8_rows = check_int8_matmul(torch)
+    dyn_division = check_dyn_division(torch, smi)
     t_rows = check_transposed(torch)
     att = check_attention(torch)
     att.update(check_paged_attention(torch))
     att["edge_cases_max_rel_err"] = check_attention_edges(torch)
     att.update(check_sharded_attention(torch))
 
-    log("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
+    phase("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
     e2e["int4g32 decode_attn_v2"] = end_to_end_parity(torch, "int4g32", False, v2=True)
     f32_counts = {}
     for quant in F32_KERNELS:
         e2e[f"{quant} f32 forward"], f32_counts[quant] = f32_forward_parity(torch, quant)
 
-    log("== phase 3b: gradients at 6B widths, depth 2, bf16, 2 x 128 tokens, kernel path vs "
+    phase("== phase 3b: gradients at 6B widths, depth 2, bf16, 2 x 128 tokens, kernel path vs "
         "plain path")
     grads = check_grad_parity(torch)
 
-    log("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
+    phase("== phase 4: ChatGLM2-6B int4g32, 28 layers, 4 requests")
     counts, v2_counts, perf = full_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 layers")
+    phase("== phase 5: GLMDecoder on ChatGLM2-6B int8, int8+dyn, int4g32+dyn, int4g32, 28 layers")
     chat_counts, chat_perf = chat_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
+    phase("== phase 6: the serving engines on ChatGLM2-6B int4g32, 28 layers")
     engine_counts, engine_perf = engines_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 7: fine-tuning ChatGLM2-6B, 28 layers, int4g32 then int8, through the frozen "
+    phase("== phase 7: fine-tuning ChatGLM2-6B, 28 layers, int4g32 then int8, through the frozen "
         "quantized weights")
     ft_counts, ft_perf = fine_tune_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 8: tensor-parallel serving of ChatGLM2-6B int4g32, 28 layers, on a (1, 2) "
-        "mesh of two gloo ranks sharing this card")
+    phase(f"== phase 8: tensor-parallel serving of ChatGLM2-6B int4g32, {SHARD_LAYERS} layers, on "
+          "a (1, 2) mesh of two gloo ranks sharing this card")
     sharded_counts, sharded_perf = sharded_slice(torch, smi)
 
-    log("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B int4g32, "
+    phase("== phase 9: the OpenAI-style API server over the paged engine, ChatGLM2-6B int4g32, "
         "28 layers")
     api_perf = api_slice(torch, smi)
     torch.cuda.empty_cache()
 
-    log("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
+    phase("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
     quant_counts, quant_perf, sweep_entries = quant_slice(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
@@ -4188,11 +4520,12 @@ def main() -> int:
             entries[-1]["old_path_ms"] = r["old_path_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
+              "dyn_division": dyn_division,
               "attention": att, "e2e_rel_err": e2e,
               "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
               "engines_28_layers": engine_perf, "api_server_28_layers": api_perf,
               "fine_tune_28_layers": ft_perf,
-              "sharded_28_layers": sharded_perf, "quant_2_layers": quant_perf}
+              "sharded_serving": sharded_perf, "quant_2_layers": quant_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -274,6 +274,8 @@ def test_worker_crash_closes_streams():
         def cancel(self, rid):
             pass
 
+        sync_events = ServingEngine.sync_events  # the worker's way in
+
     w = EngineWorker(BoomEngine())
     w.start()
     rid, events = w.submit([1, 2, 3])
@@ -421,6 +423,8 @@ class ScriptedEngine:
     def cancel(self, rid):
         if rid in self._live:
             self.finished.append(self._live.pop(rid)[0])
+
+    sync_events = ServingEngine.sync_events  # the port's worker applies its mailbox so
 
     def step(self):
         self.stats["steps"] += 1

@@ -1624,6 +1624,47 @@ def test_top_p_draws_advance_through_replays(gen):
     assert len(set(runs[1][0].tolist())) > 3  # the draws move from step to step
 
 
+def test_sampled_speculation_captured_equals_eager(gen):
+    """The sampled verify step (``spec_accept_next`` in the program, draws
+    from a generator registered with the graph) over 6 steps of a mixed
+    batch, two rows greedy and two at temperature 0.8 / top-p 0.8:
+    captured, its drafts, accepts and next tokens equal the eager steps' on
+    one seed (twice), and its greedy rows equal the greedy program's."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.models import paged_kv as PK
+    from chatglm_q_tpu_torch.models import spec_decode as SD
+
+    cfg, params = _depth2_tree(gen)
+    bf16, P, MP, T = torch.bfloat16, 256, 2, 512
+    span = torch.randint(3, 60000, (12,), device="cuda", generator=gen)
+    ids = torch.cat([span] * 5)[None].expand(4, -1).contiguous()  # 60 tokens, repeating
+    lengths = torch.full((4,), 60, dtype=torch.int32, device="cuda")
+    pool = PK.init_paged_kv_cache(cfg, 4, 9, MP * P, P, bf16)
+    pool.page_table.copy_(torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(4, 2))
+    logits, pool = PK.prefill_paged(params, cfg, ids, lengths, pool, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    tokbuf = torch.zeros((4, T), dtype=torch.int32, device="cuda")
+    tokbuf[:, :60] = ids
+    rows = (torch.tensor([0.0, 0.8, 0.0, 0.8], device="cuda"),
+            torch.full((4,), 0.8, device="cuda"),
+            torch.full((4,), 100, dtype=torch.int32, device="cuda"))
+    sg = torch.Generator(device="cuda")
+    runs = []
+    for graphs, sampled in ((False, True), (True, True), (True, True), (True, False)):
+        sg.manual_seed(13)
+        p = pool.replace(k_pool=pool.k_pool.clone(), v_pool=pool.v_pool.clone())
+        kw = dict(generator=sg, sampling=rows) if sampled else {}
+        d, a, n, _, _ = SD.speculative_decode_paged(
+            params, cfg, first, p, tokbuf.clone(), 6, 8, 3, "int4g32", bf16,
+            TorchRuntimeConfig(cuda_graphs=graphs), **kw)
+        torch.cuda.synchronize()
+        runs.append((d, a, n))
+    for run in runs[1:3]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], run))
+    for x, y in zip(runs[1], runs[3]):  # the greedy rows, 0 and 2
+        assert torch.equal(x[:, 0::2], y[:, 0::2])
+
+
 # ---------------------------------------------------------------------------
 # GPTQ's column sweep (csrc/gptq.cu): bit-equal to its plain version
 # ---------------------------------------------------------------------------
@@ -1696,6 +1737,34 @@ def test_rtn_on_the_card_equals_the_cpu(gen, kind):
     q, s = fn(w)
     q_cpu, s_cpu = fn(w.cpu())
     assert torch.equal(s.cpu(), s_cpu) and torch.equal(q.cpu(), q_cpu)
+
+
+def reciprocal_split_rows():
+    """chip_smoke.py's rows whose max|x| / 127 and max|x| times the f32
+    reciprocal of 127 round apart (found on the host with numpy)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.reciprocal_split_rows()
+
+
+def test_dyn_quantize_rows_on_the_card_equals_the_cpu(gen):
+    """The dynamic row quantizer's sx = max|x| / 127 is the correctly rounded
+    quotient on the card, as on the CPU and in JAX, on rows where the
+    reciprocal product rounds apart (which a Python-number divisor gives
+    on the card: the control)."""
+    x = torch.from_numpy(reciprocal_split_rows())
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        xq, sx = D.dyn_quantize_rows(xc.cuda())
+        xq_cpu, sx_cpu = D.dyn_quantize_rows(xc)
+        assert torch.equal(sx.cpu(), sx_cpu) and torch.equal(xq.cpu(), xq_cpu)
+    control = (x.cuda().abs().amax(dim=1, keepdim=True) / 127.0).cpu()
+    assert (control != x.abs().amax(dim=1, keepdim=True) / 127.0).float().mean() > 0.5
 
 
 def test_gptq_sweep_rejects_what_it_cannot_take(gen):

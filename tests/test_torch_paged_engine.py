@@ -269,8 +269,6 @@ def test_sampled_runs_reproducible_from_seed(parts):
 
 
 def test_what_the_paged_engine_refuses(parts):
-    with pytest.raises(NotImplementedError, match="speculative_sampled"):
-        paged(parts, num_pages=8, speculative_k=2, speculative_sampled=True)
     with pytest.raises(ValueError, match="lookahead"):
         paged(parts, num_pages=8, lookahead=True)
     with pytest.raises(ValueError, match="page-aligned"):

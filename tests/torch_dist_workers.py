@@ -6,6 +6,8 @@ nor a test module, which imports jax), take their inputs as numpy arrays
 and return numpy arrays.  Each runs every case of one test module in one
 process group, so a module spawns its ranks once.
 """
+import time
+
 import numpy as np
 import torch
 
@@ -170,9 +172,11 @@ def engine_cases(rank, tree, cfg, quant, meshes):
     built in turn over one process group; cases {name: (engine, kwargs,
     batches of prompts, submit kwargs)} → {name: {tokens per request in
     submission order, pages in use after the drain, the data groups of the
-    last batch's admitted slots, page locality}}: each distributed engine on
-    the rank's shard, each batch submitted through rank 0's
-    ``sync_submissions`` and drained before the next."""
+    last batch's admitted slots, page locality, speculation stats}}: each
+    distributed engine on the rank's shard, each batch submitted through
+    rank 0's ``sync_submissions`` (one kwargs dict) or ``sync_events`` (a
+    list: each prompt its own kwargs) and drained before the next.  Engine
+    "server": ``_server_case``."""
     out = {}
     for nd, nm, cases in meshes:
         out.update(_engine_cases(rank, _mesh(nd, nm), tree, cfg, quant, cases))
@@ -193,11 +197,18 @@ def _engine_cases(rank, mesh, tree, cfg, quant, cases):
     for name, (engine, kw, batches, sub_kw) in cases.items():
         kw = dict(kw)
         rt = _rt(None, **kw.pop("rt", {}))
+        if engine == "server":
+            out[name] = _server_case(rank, load, params, mesh, rt, kw, batches, sub_kw)
+            continue
         cls = DistributedPagedServingEngine if engine == "paged" else DistributedServingEngine
         eng = cls(load, params, mesh=mesh, rt=rt, device="cpu", **kw)
         res = {"local": True}
         for batch in batches:
-            eng.sync_submissions(batch if rank == 0 else None, **sub_kw)
+            if isinstance(sub_kw, list):
+                eng.sync_events([("submit", p, k) for p, k in zip(batch, sub_kw)]
+                                if rank == 0 else None)
+            else:
+                eng.sync_submissions(batch if rank == 0 else None, **sub_kw)
             eng._admit()
             res["groups"] = sorted(eng._shard_of(i) for i, s in enumerate(eng.slots)
                                    if s.request)
@@ -213,5 +224,145 @@ def _engine_cases(rank, mesh, tree, cfg, quant, cases):
         res["tokens"] = [by_id[i] for i in sorted(by_id)]
         res["pages_in_use"] = getattr(eng, "pages_in_use", None)
         res["prefix_hits"] = eng.stats.get("prefix_hits")
+        res["spec_accepted"] = eng.stats.get("spec_accepted")
+        res["spec_steps"] = eng.stats.get("spec_steps")
         out[name] = res
     return out
+
+
+class StubTokenizer:
+    """Char-level codec over a small vocabulary: ids are codepoints mod the
+    vocabulary, decoded onto a CJK page (so every id is valid text)."""
+
+    BASE = 0x4E00
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def encode(self, text):
+        return [ord(c) % self.vocab for c in text]
+
+    def decode(self, ids):
+        return "".join(chr(self.BASE + int(i)) for i in ids)
+
+    def __getitem__(self, piece):
+        assert piece == "</s>"
+        return 2
+
+
+def _http(server, path, body, stream=False):
+    """A POST's parsed JSON body, or the SSE stream's (deltas, finish
+    reason)."""
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{server.host}:{server.port}{path}",
+                                 data=json.dumps(dict(body, stream=stream)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if not stream:
+            return json.loads(resp.read())
+        deltas, reason = [], None
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            choice = json.loads(line[6:])["choices"][0]
+            reason = choice.get("finish_reason") or reason
+            deltas.append(choice["delta"].get("content", ""))
+        return deltas, reason
+
+
+def _disconnect(server, body):
+    """Open an SSE chat, read until its first token's chunk, and close the
+    socket: the server's next writes fail and it cancels the request."""
+    import json
+    import socket
+
+    data = json.dumps(dict(body, stream=True)).encode()
+    with socket.create_connection((server.host, server.port), timeout=60) as sock:
+        sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(data)).encode() + b"\r\n\r\n" + data)
+        seen = b""
+        while seen.count(b"data: ") < 2:  # the role chunk, then a token's
+            chunk = sock.recv(4096)
+            if not chunk:
+                break
+            seen += chunk
+
+
+def _server_case(rank, load, params, mesh, rt, kw, batches, sub_kw):
+    """The API server over a distributed engine: on rank 0 ``GLMAPIServer``
+    (rank ≥ 1 runs ``follow``).  First the engine's own greedy text of the
+    chat prompt (every rank, in lockstep), then over HTTP: a chat, the same
+    streamed, a stop string, n = 2 and a client that disconnects
+    mid-stream.  Rank 0 returns the answers and its stats, the other ranks
+    the events they applied and their stats."""
+    from chatglm_q_tpu_torch.serving import DistributedPagedServingEngine, GLMAPIServer
+    from chatglm_q_tpu_torch.serving.api_server import _messages_to_prompt, follow
+    from chatglm_q_tpu_torch.serving.chat import process_response
+
+    tok = StubTokenizer(load.model_config.vocab_size)
+    eng = DistributedPagedServingEngine(load, params, tok, mesh=mesh, rt=rt, device="cpu", **kw)
+    messages = [{"role": "user", "content": batches[0]}]
+    greedy = dict(max_new_tokens=sub_kw["max_tokens"], temperature=0.0)
+    eng.sync_submissions([_messages_to_prompt(messages)] if rank == 0 else None, **greedy)
+    while eng.has_work:
+        eng.step()
+    want = process_response(tok.decode(eng.finished[-1].generated))
+    eng.finished.clear()
+    if rank != 0:
+        events = follow(eng)
+        return {"want": want, "stats": dict(eng.stats),
+                "events": [(e[0], int(e[1]) if e[0] == "cancel" else None, res)
+                           for e, res in events],
+                "failed": _failing_worker(rank, eng, tok.encode(batches[0]), greedy)}
+    server = GLMAPIServer(eng, port=0, model_name="tiny")
+    body = dict(sub_kw, model="tiny", messages=messages, temperature=0.0)
+    server.start()
+    try:
+        res = {"want": want, "chat": _http(server, "/v1/chat/completions", body)}
+        res["stream"] = _http(server, "/v1/chat/completions", body, stream=True)
+        stop = want[2:4]
+        res["stop_string"] = stop
+        res["stop"] = _http(server, "/v1/chat/completions", dict(body, stop=stop))
+        res["stop_stream"] = _http(server, "/v1/chat/completions", dict(body, stop=stop),
+                                   stream=True)
+        res["n2"] = _http(server, "/v1/chat/completions", dict(body, n=2))
+        _disconnect(server, dict(body, max_tokens=batches[1]))
+        for _ in range(600):  # until the server has retired the request
+            if not eng.has_work and not server.worker._events:
+                break
+            time.sleep(0.05)
+    finally:
+        server.shutdown()
+        server.worker.join(timeout=60)
+    res["stats"] = dict(eng.stats)
+    res["failed"] = _failing_worker(rank, eng, tok.encode(batches[0]), greedy)
+    return res
+
+
+def _failing_worker(rank, eng, prompt, greedy):
+    """Rank 0's ``EngineWorker`` whose first step raises after the ranks
+    stepped together, rank 1 ``follow``-ing it: the worker closes its
+    stream and hands the followers the stop, so ``follow`` returns.
+    Returns rank 0's stream end and finish reason, rank 1's events."""
+    from chatglm_q_tpu_torch.serving.api_server import _DONE, EngineWorker, follow
+
+    if rank != 0:
+        return {"events": [e[0] for e, _ in follow(eng)]}
+    step = eng.step
+
+    def failing():
+        step()
+        raise RuntimeError("rank 0 fell over")
+
+    eng.step = failing
+    worker = EngineWorker(eng)
+    worker.start()
+    rid, events = worker.submit(prompt, **greedy)
+    while events.get(timeout=60) is not _DONE:
+        pass
+    worker.join(timeout=60)
+    return {"reason": worker.finish_reason(rid), "alive": worker.is_alive()}
