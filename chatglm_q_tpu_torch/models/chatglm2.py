@@ -36,7 +36,10 @@ kv_proj every group; a T-sharded cache (``kv_shard_t``) prefills through
 ring attention and decodes all heads over the rank's slots (q
 all-gathered, K1, the merge); the head-sharded one attends the rank's
 heads against its groups; the vocab-split logits are all-gathered before
-sampling.  The parity forward takes no mesh.
+sampling.  The parity forward takes the same mesh (JAX's ``forward`` under
+GSPMD): each rank its data rows, its heads against every group's K/V, and
+the collectives differentiable (parallel/autograd_ops.py) so that a
+training step's gradients come out whole (utils/train.py).
 
 Parity mode (``forward``, JAX :530-672) keeps the reference's semantics: an
 additive −1e10 mask (causal ∨ padding) with cumsum positions, keys
@@ -63,6 +66,7 @@ from ..ops import attention as A
 from ..ops import quant as Q
 from ..ops.linear import quant_embedding_lookup, quant_linear
 from ..ops.sampling import GREEDY, Sampling, fill_rows, top_p_rows
+from ..parallel import autograd_ops as AO
 from ..parallel import ring_attention as RA
 from ..parallel import sharding as SH
 from ..parallel.tp_linear import tp_quant_linear
@@ -145,11 +149,25 @@ def init_kv_cache(config: ChatGLM2Config, batch_size: int,
 # Attention + block
 # ---------------------------------------------------------------------------
 
-def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator, full_shape=None,
+             part=None) -> torch.Tensor:
     """Inverted dropout (train mode only; the reference's nn.Dropout): keep
-    each element with probability 1 − rate, scaled by 1 / (1 − rate)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    each element with probability 1 − rate, scaled by 1 / (1 − rate).
+    Under a mesh x is a rank's part of the activation: the mask is drawn
+    over the whole (``full_shape``) and ``part`` cuts the rank's part from
+    it, so every rank draws alike and the masks are the single process's."""
+    keep = torch.rand(x.shape if full_shape is None else full_shape, generator=generator,
+                      device=x.device) >= rate
+    if part is not None:
+        keep = part(keep)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _own_rows(mesh, x: torch.Tensor):
+    """(full_shape, part) of a dropout on x (B, ...), the data rank's rows of
+    an activation of n_data · B rows."""
+    B, d = x.shape[0], mesh.data_index
+    return (B * mesh.n_data, *x.shape[1:]), lambda keep: keep[d * B:(d + 1) * B]
 
 
 def _attention_scores(q, k, v, mask_bias, dropout=None, kv_layout="btgd"):
@@ -214,13 +232,16 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
     Hg = config.num_attention_heads // G
     kernels = rt.kernels_enabled(x.device)
 
+    mesh = rt.mesh
     h = rms_norm(x, layer_params["attn_ln"]["weight"], config.layernorm_epsilon)
+    if mesh is not None:  # q_proj's and kv_proj's partial grad_x sum up
+        h = AO.copy_to_model(h, mesh)
     q = _linear(h, layer_params["q_proj"], quant_type, rt, "col")
     kv = _linear(h, layer_params["kv_proj"], quant_type, rt, "rep")
 
     sm_scale = 1.0 / math.sqrt(D)
     kv_out = None
-    if rt.mesh is not None:
+    if mesh is not None and kv_write is not None:
         ctx = _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_scale)
     elif isinstance(attn, tuple) and attn[0] == "flash_decode":
         # one token a row: RoPE and the K/V write in one op, then attend
@@ -231,9 +252,13 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
             ctx = _dense_decode(qd, kvd, fd, attn[1], kv_write, kernels, sm_scale,
                                 rt.decode_attn_v2)
     else:
+        # under a mesh (the parity forward) q holds the rank's heads, which
+        # read the KV groups from g0
+        g0, Gq, Hq = (0, G, Hg) if mesh is None else SH.head_split(config, mesh.n_model,
+                                                                     mesh.model_index)
         k, v = kv.split(config.kv_size, dim=-1)
         f = freqs_cis[:, :, None, None, :]
-        q = A.apply_rotary_emb(q.reshape(B, S, G, Hg, D), f)
+        q = A.apply_rotary_emb(q.reshape(B, S, Gq, Hq, D), f)
         k = A.apply_rotary_emb(k.reshape(B, S, G, 1, D), f).reshape(B, S, G, D)
         v = v.reshape(B, S, G, D)
         if kv_write is None:
@@ -241,7 +266,12 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
                 k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
                 v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
             kv_out = (k, v)
-            ctx = _attention_scores(q, k, v, attn, dropout=dropout, kv_layout="btgd")
+            drop = dropout
+            if dropout is not None and mesh is not None:
+                drop = (*dropout, *_own_heads(mesh, config, B, S, k.shape[1]))
+            own = slice(g0, g0 + Gq)
+            ctx = _attention_scores(q, k[:, :, own], v[:, :, own], attn, dropout=drop,
+                                    kv_layout="btgd")
         elif isinstance(kv_write, PK.PagedWrite):
             ctx = PK.paged_attention(q, k.transpose(1, 2), v.transpose(1, 2), attn, kv_write,
                                      kernels, sm_scale)
@@ -252,11 +282,15 @@ def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
 
     x = x + _linear(ctx, layer_params["o_proj"], quant_type, rt, "row")
     h2 = rms_norm(x, layer_params["ffn_ln"]["weight"], config.layernorm_epsilon)
+    if mesh is not None:
+        h2 = AO.copy_to_model(h2, mesh)
     gate_in = _linear(h2, layer_params["w_in_h"], quant_type, rt, "col")
     gate = _linear(h2, layer_params["w_in_gate"], quant_type, rt, "col")
     act = F.silu(gate_in) * gate
     if dropout is not None:
-        act = _dropout(act, *dropout)
+        part = () if mesh is None else _own_columns(mesh, act, layer_params["w_out"], config,
+                                                    quant_type)
+        act = _dropout(act, *dropout, *part)
     x = x + _linear(act, layer_params["w_out"], quant_type, rt, "row")
     if kv_write is not None:
         return x
@@ -275,12 +309,40 @@ def _linear(x, params, quant_type, rt, tp_mode):
 
 def lm_head_logits(h, params, config, quant_type, rt):
     """The lm_head's logits (..., vocab_size); under a mesh each rank's
-    vocab columns, all-gathered before sampling."""
-    y = _linear(h, params["lm_head"], quant_type, rt, "col")
-    if rt.mesh is not None:
-        y = rt.mesh.all_gather(y, "model")  # (tp, ..., V / tp)
-        y = y.movedim(0, -2).reshape(*y.shape[1:-1], -1)
-    return y[..., : config.vocab_size]
+    vocab columns, all-gathered (differentiably) before sampling or the
+    loss."""
+    if rt.mesh is None:
+        return quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
+    y = _linear(AO.copy_to_model(h, rt.mesh), params["lm_head"], quant_type, rt, "col")
+    return AO.gather_from_model(y, rt.mesh)[..., : config.vocab_size]
+
+
+def _own_heads(mesh, config, B, S, T):
+    """(full_shape, part) of a dropout on the attention probabilities of
+    this rank's heads (B, Gl, Hgl, S, T): the data rank's rows and the
+    rank's heads of every head's (n_data · B, G, Hg, S, T)."""
+    G = config.num_multi_query_groups
+    Hg = config.num_attention_heads // G
+    _, Gl, Hgl = SH.head_split(config, mesh.n_model, mesh.model_index)
+    d, h0 = mesh.data_index, mesh.model_index * Gl * Hgl
+
+    def part(keep):
+        keep = keep[d * B:(d + 1) * B].reshape(B, G * Hg, S, T)[:, h0:h0 + Gl * Hgl]
+        return keep.reshape(B, Gl, Hgl, S, T)
+
+    return (B * mesh.n_data, G, Hg, S, T), part
+
+
+def _own_columns(mesh, act, w_out, config, quant_type):
+    """(full_shape, part) of a dropout on the FFN activation's columns on
+    this rank (B, S, n): those of w_out's storage rows, from
+    min(m · Ks / tp, I), in the single process's activation of w_out's
+    storage K (Ks) columns, and the data rank's rows."""
+    B, S, n = act.shape
+    Ks_local = SH.storage_k(w_out, quant_type)
+    c0, d = min(mesh.model_index * Ks_local, config.inner_hidden_size), mesh.data_index
+    return ((B * mesh.n_data, S, Ks_local * mesh.n_model),
+            lambda keep: keep[d * B:(d + 1) * B, :, c0:c0 + n])
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +587,14 @@ def forward(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
     Returns ``(loss or None, logits (B, S_new, V))``; with ``return_kv`` or
     ``past_key_values``, the reference's 3-tuple with the per-layer
     ``(k, v)``, each (B, T_total, G, 1, D), appended.
+
+    Under ``rt.mesh`` (``params`` the rank's ``shard_params`` slice) the
+    inputs are the data rank's rows, the linears run per shard, each rank
+    attends its heads, and the logits come back whole on every model rank;
+    the loss is the mean over every data rank's valid labels
+    (``cross_entropy_loss``).  Dropout draws each mask over the global
+    activation, so a mesh drops what one process would from the same
+    generator.
     """
     B, S = input_ids.shape
     L = config.num_layers
@@ -539,11 +609,12 @@ def forward(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
     freqs_cis = _serving_freqs(config, pos, dtype)
     h = quant_embedding_lookup(params["word_embedding"], input_ids, quant_type, dtype)
     mask5 = mask_bias[:, None, None]
+    mesh = rt.mesh
 
     rate = config.dropout_rate
     seeds = None
     if generator is not None and rate > 0:
-        h = _dropout(h, rate, generator)
+        h = _dropout(h, rate, generator, *(() if mesh is None else _own_rows(mesh, h)))
         # one seed per layer, drawn up front; each layer builds its generator
         # from its seed, so a recomputation under remat draws the same masks
         # (checkpoint restores the default generators only)
@@ -566,21 +637,30 @@ def forward(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,
             h, kv = layer(l, h)
         kvs.append(kv)
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
-    logits = quant_linear(h, params["lm_head"], quant_type, rt)[..., : config.vocab_size]
-    loss = None if labels is None else cross_entropy_loss(logits, labels.to(dev))
+    logits = lm_head_logits(h, params, config, quant_type, rt)
+    loss = None if labels is None else cross_entropy_loss(logits, labels.to(dev), mesh)
     if return_kv or past_key_values is not None:
         return loss, logits, tuple((k[:, :, :, None], v[:, :, :, None]) for k, v in kvs)
     return loss, logits
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
     """Shifted cross-entropy in f32, −100 ignored, the mean over the valid
-    positions (at least 1) (model.py:384-388)."""
+    positions (at least 1) (model.py:384-388).  Under a mesh of several
+    data ranks, each holding its rows, the mean over every rank's valid
+    positions: the count is summed over the data axis, and each rank's sum
+    over it divided by that count is summed too (``reduce_from``: the
+    gradient of each rank's part is its rows' alone), so every rank holds
+    the global loss however the −100 labels fall."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     total = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
                             shift_labels.reshape(-1), ignore_index=-100, reduction="sum")
-    return total / (shift_labels != -100).sum().clamp_min(1)
+    count = (shift_labels != -100).sum()
+    if mesh is None or mesh.n_data == 1:
+        return total / count.clamp_min(1)
+    count = mesh.all_reduce(count, SH.DATA_AXIS)
+    return AO.reduce_from(total / count.clamp_min(1), mesh, SH.DATA_AXIS)
 
 
 # ---------------------------------------------------------------------------

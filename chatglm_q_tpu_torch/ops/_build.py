@@ -207,6 +207,38 @@ def scratch(kind: str, device, n: int, dtype):
     return buf
 
 
+# Debugging switches, set by utils/debug.py: ``INTERPRET`` makes every
+# kernel wrapper run its plain version (``interpret_kernels``), and
+# ``NAN_CHECKS`` makes every launch check its output (``enable_nan_checks``).
+INTERPRET = False
+NAN_CHECKS = False
+
+
+def on_card(t) -> bool:
+    """Whether a kernel wrapper given ``t`` launches its kernel: t lies on
+    the card and ``INTERPRET`` is off (else it runs its plain version)."""
+    return t.is_cuda and not INTERPRET
+
+
+def launched(wrapper, out):
+    """Count a launch of ``wrapper``'s kernel and return its output.  Under
+    ``NAN_CHECKS`` the output (a tuple's first tensor: an lse form's m is
+    −inf by design on a row with no valid slot) must be finite, or this
+    raises naming the kernel; that check syncs, so a CUDA-graph capture
+    refuses it."""
+    import torch
+
+    wrapper.launches += 1
+    if NAN_CHECKS:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{wrapper.__name__}: NaN checks sync with the host, which a "
+                               "CUDA-graph capture refuses; capture with them off")
+        t = out[0] if isinstance(out, tuple) else out
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"{wrapper.__name__}: its kernel gave a non-finite value")
+    return out
+
+
 def stream_ptr(t) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
     import torch

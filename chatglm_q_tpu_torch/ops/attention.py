@@ -376,7 +376,7 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
     """Causal prefill attention over the layer's (Bk, G, T, D) cache view;
     with ``q_starts`` the chunked form (see the module note).  Plain version
     on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_prefill_plain(q, k, v, lengths, sm_scale, q_starts, kv_row_map)
     B, S, G, Hg, D = q.shape
     Bk, T = k.shape[0], k.shape[2]
@@ -398,8 +398,7 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
                 lengths.data_ptr(), starts_ptr, rmap_ptr, out.data_ptr(), B, S, G, Hg, T, D,
                 float(sm_scale), _build.stream_ptr(q))
     counter = flash_attention_prefill if q_starts is None else flash_attention_prefill_chunk
-    counter.launches += 1
-    return out
+    return _build.launched(counter, out)
 
 
 flash_attention_prefill.launches = 0
@@ -512,12 +511,11 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
 def flash_attention_decode(q, k, v, lengths, sm_scale):
     """Ragged single-token attention over the layer's (B, G, T, D) cache
     view.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_decode_plain(q, k, v, lengths, sm_scale)
     out = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale, DECODE_BLOCK_K,
                          False)
-    flash_attention_decode.launches += 1
-    return out
+    return _build.launched(flash_attention_decode, out)
 
 
 flash_attention_decode.launches = 0
@@ -527,11 +525,10 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
     """B12: ragged single-token attention over the layer's (B, G, T, D) cache
     view with B12's numerics (see the module note).  Plain version on CPU
     tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k)
     out = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k, True)
-    flash_attention_decode_v2.launches += 1
-    return out
+    return _build.launched(flash_attention_decode_v2, out)
 
 
 flash_attention_decode_v2.launches = 0
@@ -541,12 +538,11 @@ def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
     """K1: B4 with ``return_lse`` over one T-shard of the dense cache (see
     ``flash_attention_decode_lse_plain``); returns (out, m, l).  Plain
     version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset)
     res = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
                          DECODE_BLOCK_K, False, lse=True, t_offset=t_offset)
-    flash_attention_decode_lse.launches += 1
-    return res
+    return _build.launched(flash_attention_decode_lse, res)
 
 
 flash_attention_decode_lse.launches = 0
@@ -593,11 +589,10 @@ def kv_cache_write_idx(cache, new, layer: int, starts):
     """Write ``new`` (B, G, D) into cache[layer, b, :, starts[b], :] in place
     and return ``cache``.  Plain version on CPU tensors; the append kernel's
     write-only form on CUDA tensors."""
-    if not cache.is_cuda:
+    if not _build.on_card(cache):
         return kv_cache_write_idx_plain(cache, new, layer, starts)
     _write_one("kv_cache_write_idx", cache, new, layer, starts)
-    kv_cache_write_idx.launches += 1
-    return cache
+    return _build.launched(kv_cache_write_idx, cache)
 
 
 kv_cache_write_idx.launches = 0
@@ -614,11 +609,10 @@ def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
     of each row's pages in ``pool`` (L, NP, G, P, D), in place; returns
     ``pool``.  Plain version on CPU tensors; the append kernel's write-only
     form on CUDA tensors."""
-    if not pool.is_cuda:
+    if not _build.on_card(pool):
         return kv_pool_write_idx_plain(pool, new, layer, page_table, starts)
     _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
-    kv_pool_write_idx.launches += 1
-    return pool
+    return _build.launched(kv_pool_write_idx, pool)
 
 
 kv_pool_write_idx.launches = 0
@@ -629,12 +623,11 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
     ``rope_kv_append_plain`` for the arguments); ``kv`` may be a view with a
     row stride.  Plain version on CPU tensors; the CUDA kernel on CUDA
     tensors.  Returns the rotated q (B, G, Hg, D)."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
     out = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
                          page_table, None)
-    rope_kv_append.launches += 1
-    return out
+    return _build.launched(rope_kv_append, out)
 
 
 rope_kv_append.launches = 0
@@ -646,13 +639,12 @@ def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, s
     cache (see ``rope_kv_append_sharded_plain``).  q (B, Gq, Hq, D) may hold
     a rank's heads only.  Plain version on CPU tensors; the CUDA kernel on
     CUDA tensors.  Returns the rotated q."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer, starts, shard,
                                             page_table)
     out = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
                          starts, page_table, shard)
-    rope_kv_append_sharded.launches += 1
-    return out
+    return _build.launched(rope_kv_append_sharded, out)
 
 
 rope_kv_append_sharded.launches = 0
@@ -695,13 +687,12 @@ def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_tab
 def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):
     """Ragged single-token attention over the pool's pages (see the module
     note).  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_decode_paged_plain(q, k_pool, v_pool, layer, page_table,
                                                   lengths, sm_scale)
     out = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
                                page_table, lengths, sm_scale)
-    flash_attention_decode_paged.launches += 1
-    return out
+    return _build.launched(flash_attention_decode_paged, out)
 
 
 def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm_scale,
@@ -739,13 +730,12 @@ def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, 
     local page table (see ``flash_attention_decode_paged_lse_plain``);
     returns (out, m, l).  Plain version on CPU tensors; the CUDA kernel on
     CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer, page_table,
                                                       lengths, sm_scale, stride, phase)
     res = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool, layer,
                                page_table, lengths, sm_scale, stride, phase, lse=True)
-    flash_attention_decode_paged_lse.launches += 1
-    return res
+    return _build.launched(flash_attention_decode_paged_lse, res)
 
 
 flash_attention_decode_paged_lse.launches = 0
@@ -756,7 +746,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
     """Chunk attention over the pool's pages (see the module note); with
     ``row_map`` row b reads table row ``row_map[b]``.  Plain version on CPU
     tensors; the CUDA kernel on CUDA tensors."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_chunk_paged_plain(q, k_pool, v_pool, layer, page_table, starts,
                                                  sm_scale, row_map)
     B, S, G, Hg, D = q.shape
@@ -784,8 +774,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
                 None if row_map is None else row_map.data_ptr(), starts.data_ptr(), part,
                 _arrivals_ptr(q.device, units), out.data_ptr(), B, S, G, Hg, P, D, MP, span,
                 float(sm_scale), _build.stream_ptr(q))
-    flash_attention_chunk_paged.launches += 1
-    return out
+    return _build.launched(flash_attention_chunk_paged, out)
 
 
 flash_attention_chunk_paged.launches = 0

@@ -175,32 +175,28 @@ def int8_dyn_splitk(xq, sx, w, scale, out_dtype):
     """Launch B7's split-K tensor-core kernel (checked inputs on the card,
     M ≤ MMA_MIN_M): one launch, the splits merged inside it in int32."""
     y = _splitk("chatglm_int8_dyn_splitk", xq, sx, w, scale, out_dtype)
-    int8_dyn_splitk.launches += 1
-    return y
+    return _build.launched(int8_dyn_splitk, y)
 
 
 def int8_dyn_mma(xq, sx, w, scale, out_dtype):
     """Launch B7's Hopper kernel (checked inputs on the card, N % 16 == 0):
     one launch, any K splits merged inside it in int32."""
     y = _mma("chatglm_int8_dyn_mma", xq, sx, w, scale, out_dtype)
-    int8_dyn_mma.launches += 1
-    return y
+    return _build.launched(int8_dyn_mma, y)
 
 
 def int4_dyn_splitk(xq, sx, packed, scale, out_dtype):
     """Launch B8's split-K tensor-core kernel (checked inputs on the card,
     M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
     y = _splitk("chatglm_int4_dyn_splitk", xq, sx, packed, scale, out_dtype)
-    int4_dyn_splitk.launches += 1
-    return y
+    return _build.launched(int4_dyn_splitk, y)
 
 
 def int4_dyn_mma(xq, sx, packed, scale, out_dtype):
     """Launch B8's Hopper kernel (checked inputs on the card, N % 16 == 0):
     one launch, any K splits merged inside it."""
     y = _mma("chatglm_int4_dyn_mma", xq, sx, packed, scale, out_dtype)
-    int4_dyn_mma.launches += 1
-    return y
+    return _build.launched(int4_dyn_mma, y)
 
 
 for _fn in (int8_dyn_splitk, int8_dyn_mma, int4_dyn_splitk, int4_dyn_mma):
@@ -211,7 +207,7 @@ def int8_dyn_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> to
     """x (M, K) bf16/f32, quantized per row, @ w (K, N) int8, times sx and
     scale (N,) f32 → (M, N) in x's dtype.  On a CPU tensor this is the plain
     version; on a CUDA tensor it launches a kernel or raises."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return int8_dyn_matmul_plain(x, w, scale)
     _check("int8_dyn_matmul", x, w, scale, int4=False)
     xq, sx = dyn_quantize_rows(x)
@@ -225,7 +221,7 @@ def int4_dyn_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) 
     in groups of 32 rows with scale (K/32, N) bf16 → (M, N) in x's dtype.
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return int4_dyn_matmul_plain(x, packed, scale)
     _check("int4_dyn_matmul", x, packed, scale, int4=True)
     xq, sx = dyn_quantize_rows(x)

@@ -109,8 +109,7 @@ def _launch(w_blk, hinv_blk, scale_n, groupsize):
 def gptq_sweep_int8(w_blk, hinv_blk, scale_n):
     """Launch the fixed-scale form (checked inputs on the card)."""
     out = _launch(w_blk, hinv_blk, scale_n, 32)
-    gptq_sweep_int8.launches += 1
-    return out
+    return _build.launched(gptq_sweep_int8, out)
 
 
 gptq_sweep_int8.launches = 0
@@ -119,8 +118,7 @@ gptq_sweep_int8.launches = 0
 def gptq_sweep_int4(w_blk, hinv_blk, groupsize):
     """Launch the group-rescale form (checked inputs on the card)."""
     out = _launch(w_blk, hinv_blk, None, groupsize)
-    gptq_sweep_int4.launches += 1
-    return out
+    return _build.launched(gptq_sweep_int4, out)
 
 
 gptq_sweep_int4.launches = 0
@@ -131,7 +129,7 @@ def gptq_sweep_block(w_blk: torch.Tensor, hinv_blk: torch.Tensor,
     """One block of the sweep (see the module docstring).  On a CPU tensor
     this is the plain version; on a CUDA tensor it launches the kernel or
     raises."""
-    if not w_blk.is_cuda:
+    if not _build.on_card(w_blk):
         return gptq_sweep_block_plain(w_blk, hinv_blk, scale_n, groupsize)
     _check(w_blk, hinv_blk, scale_n, groupsize)
     # the kernel reads rows at a stride: a column-major block (the upper

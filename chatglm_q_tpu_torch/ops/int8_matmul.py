@@ -85,8 +85,7 @@ def int8_splitk(x, w, scale):
     M, K = x.shape
     y = splitk_call("chatglm_int8_splitk_mma", x, w, scale,
                     splitk_plan(M, K, w.shape[1], int8_weights=True))
-    int8_splitk.launches += 1
-    return y
+    return _build.launched(int8_splitk, y)
 
 
 int8_splitk.launches = 0
@@ -102,8 +101,7 @@ def int8_gemv(x, w, scale):
     _build.call("chatglm_int8_gemv", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
                 ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16), nsplit, cps,
                 _build.stream_ptr(x))
-    int8_gemv.launches += 1
-    return y
+    return _build.launched(int8_gemv, y)
 
 
 int8_gemv.launches = 0
@@ -116,8 +114,7 @@ def int8_mma(x, w, scale):
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, wg_plan(M, K, N))
-    int8_mma.launches += 1
-    return y
+    return _build.launched(int8_mma, y)
 
 
 int8_mma.launches = 0
@@ -129,7 +126,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises.  ``w``/``scale`` may be a layer's view ``stack[l]``."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return int8_matmul_plain(x, w, scale)
     _check(x, w, scale)
     x = aligned(x)
@@ -177,8 +174,7 @@ def int8_t_gemv(g, w, scale):
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int8_t_gemv", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
-    int8_t_gemv.launches += 1
-    return out
+    return _build.launched(int8_t_gemv, out)
 
 
 int8_t_gemv.launches = 0
@@ -191,8 +187,7 @@ def int8_t_mma(g, w, scale):
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     wg_call("chatglm_int8_t_mma", g, w, scale, out, M, K, N, K, t_mma_plan(M, K, N))
-    int8_t_mma.launches += 1
-    return out
+    return _build.launched(int8_t_mma, out)
 
 
 int8_t_mma.launches = 0
@@ -204,7 +199,7 @@ def int8_matmul_t(g: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torc
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises."""
-    if not g.is_cuda:
+    if not _build.on_card(g):
         return int8_matmul_t_plain(g, w, scale)
     _check_t(g, w, scale)
     g = aligned(g)

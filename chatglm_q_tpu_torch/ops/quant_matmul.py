@@ -326,8 +326,7 @@ def int4g32_gemv(x, packed, scale):
     _build.call("chatglm_int4_gemv", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                 y.data_ptr(), ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16),
                 nsplit, gps, _build.stream_ptr(x))
-    int4g32_gemv.launches += 1
-    return y
+    return _build.launched(int4g32_gemv, y)
 
 
 int4g32_gemv.launches = 0
@@ -340,8 +339,7 @@ def int4g32_mma(x, packed, scale):
     N = packed.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     wg_call("chatglm_int4_wgmma", x, packed, scale, y, M, K, N, N, mma_plan(M, K, N))
-    int4g32_mma.launches += 1
-    return y
+    return _build.launched(int4g32_mma, y)
 
 
 int4g32_mma.launches = 0
@@ -353,8 +351,7 @@ def int4g32_splitk(x, packed, scale):
     M, K = x.shape
     y = splitk_call("chatglm_int4_splitk_mma", x, packed, scale,
                     splitk_plan(M, K, packed.shape[1]))
-    int4g32_splitk.launches += 1
-    return y
+    return _build.launched(int4g32_splitk, y)
 
 
 int4g32_splitk.launches = 0
@@ -369,7 +366,7 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
     a kernel or raises.  ``packed``/``scale`` may be a layer's view
     ``stack[l]`` of the stacked (L, ...) weights: such views are contiguous,
     and their 64-bit addresses come from ``data_ptr()``."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return int4g32_matmul_plain(x, packed, scale)
     _check(x, packed, scale)
     x = aligned(x)
@@ -420,8 +417,7 @@ def int4g32_t_gemv(g, packed, scale):
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int4_t_gemv", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
-    int4g32_t_gemv.launches += 1
-    return out
+    return _build.launched(int4g32_t_gemv, out)
 
 
 int4g32_t_gemv.launches = 0
@@ -434,8 +430,7 @@ def int4g32_t_mma(g, packed, scale):
     K = 2 * packed.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     wg_call("chatglm_int4_t_mma", g, packed, scale, out, M, K, N, K, t_mma_plan(M, K, N))
-    int4g32_t_mma.launches += 1
-    return out
+    return _build.launched(int4g32_t_mma, out)
 
 
 int4g32_t_mma.launches = 0
@@ -448,7 +443,7 @@ def int4g32_matmul_t(g: torch.Tensor, packed: torch.Tensor,
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises."""
-    if not g.is_cuda:
+    if not _build.on_card(g):
         return int4g32_matmul_t_plain(g, packed, scale)
     _check_t(g, packed, scale)
     g = aligned(g)

@@ -49,20 +49,26 @@ from ..utils import distributed as dist_utils
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"  # a pipeline's stages (parallel/pipeline.py)
 BACKENDS = ("gloo", "nccl")
 
 
 @dataclass(eq=False)
 class Mesh:
     """This rank's place in an (n_data, n_model) mesh of processes, the
-    process groups of its two axes and the collectives over them.
+    process groups of its axes and the collectives over them.
     ``backend`` "gloo" stages CUDA tensors through pinned host memory (ranks
-    that share a card; CPU runs), "nccl" hands them to NCCL (a GPU a rank)."""
+    that share a card; CPU runs), "nccl" hands them to NCCL (a GPU a rank).
+
+    A pipeline's mesh (parallel/pipeline.py) has a leading ``stage`` axis
+    of ``n_stage`` ranks: rank ``s · n_data · n_model + d · n_model + m``.
+    With ``n_stage`` 1 that is the (data, model) layout above."""
     n_data: int
     n_model: int
     rank: int
     backend: str = "gloo"
     groups: dict = dataclasses.field(default_factory=dict)  # axis -> (group, global ranks)
+    n_stage: int = 1
     # collectives run and the host seconds spent in them (copies and waits
     # included): what a step pays for the mesh
     calls: int = 0
@@ -70,18 +76,22 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_model
+        return self.rank // self.n_model % self.n_data
 
     @property
     def model_index(self) -> int:
         return self.rank % self.n_model
 
     @property
+    def stage_index(self) -> int:
+        return self.rank // (self.n_data * self.n_model)
+
+    @property
     def shape(self) -> tuple:
         return (self.n_data, self.n_model)
 
     def size(self, axis: str) -> int:
-        return self.n_model if axis == MODEL_AXIS else self.n_data
+        return {MODEL_AXIS: self.n_model, DATA_AXIS: self.n_data, STAGE_AXIS: self.n_stage}[axis]
 
     def ranks(self, axis: str) -> list:
         return self.groups[axis][1]
@@ -120,26 +130,46 @@ class Mesh:
             return t
         return self._run(dist_utils.ring_shift, t, self.ranks(axis), self._host())
 
+    def send(self, t: torch.Tensor, dst_index: int, axis: str = STAGE_AXIS) -> None:
+        """Send t to rank ``dst_index`` of the axis (its ``recv`` takes it)."""
+        self._run(dist_utils.send, t, self.ranks(axis)[dst_index], self._host())
 
-def make_mesh(n_data: int, n_model: int) -> Mesh:
-    """The mesh over the default process group, whose world must be n_data ·
-    n_model (one process: a (1, 1) mesh with no group), and whose backend
-    the mesh takes.  Every rank must call it: each builds every axis group,
-    in the same order."""
+    def recv(self, like: torch.Tensor, src_index: int, axis: str = STAGE_AXIS):
+        """A tensor of like's shape and dtype from rank ``src_index`` of the
+        axis."""
+        return self._run(dist_utils.recv, like, self.ranks(axis)[src_index], self._host())
+
+
+def make_mesh(n_data: int, n_model: int, n_stage: int = 1) -> Mesh:
+    """The mesh over the default process group, whose world must be
+    n_stage · n_data · n_model (one process: a (1, 1) mesh with no group),
+    and whose backend the mesh takes.  Every rank must call it: each builds
+    every axis group, in the same order."""
     import torch.distributed as dist
 
     backend = dist.get_backend() if dist.is_initialized() else "gloo"
     if backend not in BACKENDS:
         raise ValueError(f"mesh backend {backend!r}: one of {BACKENDS}")
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != n_data * n_model:
-        raise ValueError(f"a ({n_data}, {n_model}) mesh needs {n_data * n_model} ranks, "
-                         f"the process group has {world}")
+    if world != n_stage * n_data * n_model:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh of {n_stage} stages needs "
+                         f"{n_stage * n_data * n_model} ranks, the process group has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    mesh = Mesh(n_data, n_model, rank, backend)
-    model_sets = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
-    data_sets = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
-    for axis, sets in ((MODEL_AXIS, model_sets), (DATA_AXIS, data_sets)):
+    mesh = Mesh(n_data, n_model, rank, backend, n_stage=n_stage)
+    per = n_data * n_model
+
+    def at(s, d, m):
+        return s * per + d * n_model + m
+
+    axes = (
+        (MODEL_AXIS, [[at(s, d, m) for m in range(n_model)]
+                      for s in range(n_stage) for d in range(n_data)]),
+        (DATA_AXIS, [[at(s, d, m) for d in range(n_data)]
+                     for s in range(n_stage) for m in range(n_model)]),
+        (STAGE_AXIS, [[at(s, d, m) for s in range(n_stage)]
+                      for d in range(n_data) for m in range(n_model)]),
+    )
+    for axis, sets in axes:
         for ranks in sets:
             group = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
@@ -191,15 +221,28 @@ def head_split(config: ChatGLM2Config, tp: int, m: int) -> tuple:
 # The param tree
 # ---------------------------------------------------------------------------
 
-def _storage_k(p: dict, quant_type: str) -> int:
-    w = p["weight"]
-    return 2 * w.shape[-2] if quant_type == "int4g32" else w.shape[-2]
+def leaf_paths(tree: dict, prefix: tuple = ()) -> list:
+    """[(key path, leaf)] of a nested dict, in key order."""
+    out = []
+    for k, v in tree.items():
+        out.extend(leaf_paths(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)])
+    return out
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def storage_k(p: dict, quant_type: str) -> int:
+    """A linear's K as stored (int4: two rows a byte)."""
+    k = _shape(p["weight"])[-2]
+    return 2 * k if quant_type == "int4g32" else k
 
 
 def row_bounds(p: dict, quant_type: str, tp: int) -> list:
     """The row split of a row-parallel linear: tp + 1 storage-K boundaries,
     each part group-32 aligned for int4g32."""
-    Ks = _storage_k(p, quant_type)
+    Ks = storage_k(p, quant_type)
     unit = GROUP_K if quant_type == "int4g32" else 1
     if Ks % (tp * unit):
         raise ValueError(f"storage K {Ks} does not split over tp = {tp} in units of {unit}")
@@ -228,13 +271,29 @@ def shard_rows(p: dict, k0: int, k1: int, quant_type: str) -> dict:
     return out
 
 
-def shard_params(params: dict, mesh: Mesh, config: ChatGLM2Config, quant_type: str,
-                 device=None) -> dict:
-    """This rank's slice of the full tree (``convert.params_from_numpy``'s,
-    or ``bench.random_quantized_params``', on any device or memory-mapped),
-    copied to ``device`` (default: where the tree lies).  See the module
-    note for the placement."""
-    tp, m = mesh.n_model, mesh.model_index
+COL_LINEARS = ("q_proj", "w_in_h", "w_in_gate", "lm_head")
+ROW_LINEARS = ("o_proj", "w_out")
+
+
+def split_dim(path: tuple, quant_type: str) -> Optional[int]:
+    """The dim of leaf ``path`` (its keys, e.g. ("layers", "o_proj",
+    "weight")) that the model axis splits, or None where every rank holds
+    it whole."""
+    owner, leaf = (path[-2] if len(path) > 1 else None), path[-1]
+    if owner in COL_LINEARS:
+        return -1
+    if owner in ROW_LINEARS and (leaf == "weight" or
+                                 (leaf == "weight_scale" and quant_type == "int4g32")):
+        return -2
+    return None
+
+
+def shard_slices(params: dict, config: ChatGLM2Config, quant_type: str, tp: int,
+                 m: int) -> dict:
+    """Model rank m's part of every leaf of a full tree (tensors, or their
+    shapes): a tree of the same keys whose leaves are (dim, start, stop)
+    or None (whole).  ``shard_params`` takes these slices; a sharded
+    checkpoint (utils/dist_ckpt.py) reads them.  See the module note."""
     layers = params["layers"]
     o_b = row_bounds(layers["o_proj"], quant_type, tp)
     w_b = row_bounds(layers["w_out"], quant_type, tp)
@@ -243,31 +302,50 @@ def shard_params(params: dict, mesh: Mesh, config: ChatGLM2Config, quant_type: s
         raise ValueError(f"q_proj's {qs} columns (o_proj's storage K {o_b[-1]}) do not split "
                          f"into whole heads over tp = {tp}")
     head_split(config, tp, m)  # raises where the heads do not split
-    V = params["lm_head"]["weight"].shape[-1]
+    V = _shape(params["lm_head"]["weight"])[-1]
     if V % tp:
         raise ValueError(f"lm_head's {V} columns do not split over tp = {tp}")
-    out_layers = {
-        "attn_ln": layers["attn_ln"], "ffn_ln": layers["ffn_ln"],
-        "q_proj": shard_cols(layers["q_proj"], o_b[m], o_b[m + 1]),
-        "kv_proj": layers["kv_proj"],
-        "o_proj": shard_rows(layers["o_proj"], o_b[m], o_b[m + 1], quant_type),
-        # w_in's columns end where w_out's rows of real (unpadded) K do
-        "w_in_h": shard_cols(layers["w_in_h"], min(w_b[m], I), min(w_b[m + 1], I)),
-        "w_in_gate": shard_cols(layers["w_in_gate"], min(w_b[m], I), min(w_b[m + 1], I)),
-        "w_out": shard_rows(layers["w_out"], w_b[m], w_b[m + 1], quant_type),
-    }
-    tree = {"word_embedding": params["word_embedding"], "layers": out_layers,
-            "final_ln": params["final_ln"],
-            "lm_head": shard_cols(params["lm_head"], m * V // tp, (m + 1) * V // tp)}
+    ranges = {"q_proj": (o_b[m], o_b[m + 1]), "o_proj": (o_b[m], o_b[m + 1]),
+              # w_in's columns end where w_out's rows of real (unpadded) K do
+              "w_in_h": (min(w_b[m], I), min(w_b[m + 1], I)),
+              "w_in_gate": (min(w_b[m], I), min(w_b[m + 1], I)),
+              "w_out": (w_b[m], w_b[m + 1]), "lm_head": (m * V // tp, (m + 1) * V // tp)}
 
-    def move(t):
-        t = t.contiguous()
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        dim = split_dim(path, quant_type)
+        if dim is None:
+            return None
+        r0, r1 = ranges[path[-2]]
+        if dim == -2 and quant_type == "int4g32":  # nibble pairs, group-32 scale rows
+            unit = 2 if path[-1] == "weight" else GROUP_K
+            r0, r1 = r0 // unit, r1 // unit
+        return (dim, r0, r1)
+
+    return walk(params, ())
+
+
+def take_slice(t: torch.Tensor, sl) -> torch.Tensor:
+    """``t`` narrowed to ``sl`` (a ``shard_slices`` leaf), a view."""
+    return t if sl is None else t.narrow(sl[0], sl[1], sl[2] - sl[1])
+
+
+def shard_params(params: dict, mesh: Mesh, config: ChatGLM2Config, quant_type: str,
+                 device=None) -> dict:
+    """This rank's slice of the full tree (``convert.params_from_numpy``'s,
+    or ``bench.random_quantized_params``', on any device or memory-mapped),
+    copied to ``device`` (default: where the tree lies).  See the module
+    note for the placement."""
+    slices = shard_slices(params, config, quant_type, mesh.n_model, mesh.model_index)
+
+    def walk(node, sl):
+        if isinstance(node, dict):
+            return {k: walk(v, sl[k]) for k, v in node.items()}
+        t = take_slice(node, sl).contiguous()
         return t if device is None else t.to(device)
 
-    def walk(node):
-        return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else move(node)
-
-    return walk(tree)
+    return walk(params, slices)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ shard of the weights, placed by parallel/sharding.py:
 * ``row`` (o_proj, w_out): x the rank's slice of K (the columns the
   previous col-parallel linear gave it; the last rank's is zero-padded at
   its end to the storage K, where the global padding sits), a partial
-  product, one all-reduce over the model axis, then the bias once;
+  product, one all-reduce over the model axis (``reduce_from_model``:
+  its backward passes the whole gradient to each rank's part), then the
+  bias once;
 * ``rep`` (kv_proj): the whole weight on every rank.
 
 There is no GSPMD to hand a global product to, so under a mesh every linear
@@ -28,6 +30,7 @@ import torch
 
 from ..config import TorchRuntimeConfig
 from ..ops.linear import quant_linear
+from .autograd_ops import reduce_from_model
 
 MODES = ("col", "row", "rep")
 
@@ -54,5 +57,5 @@ def tp_quant_linear(x: torch.Tensor, params: dict, quant_type: str, rt: TorchRun
         return quant_linear(x, params, quant_type, run_rt)
     bias = params.get("bias")
     part = quant_linear(x, {k: v for k, v in params.items() if k != "bias"}, quant_type, run_rt)
-    y = rt.mesh.all_reduce(part, "model")
+    y = reduce_from_model(part, rt.mesh)
     return y if bias is None else y + bias.to(y.dtype)

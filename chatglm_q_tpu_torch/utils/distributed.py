@@ -9,12 +9,12 @@ talks to ``torch.distributed``).
 * ``initialize``, ``is_primary``, ``primary_only``, ``local_batch_slice``:
   as in the JAX package, over the default process group;
 * ``all_reduce`` (sum, max), ``all_gather``, ``broadcast``, ``ring_shift``
-  within a process group.  With ``host=True`` a CUDA tensor goes through a
-  pinned host buffer and back: the gloo backend's path, for ranks that
-  share one card (NCCL refuses two ranks on one GPU) and for CPU runs.  The
-  caller chooses it by the mesh's backend (parallel/sharding.py), never by
-  catching a failure.  NCCL (one GPU per rank) takes the tensors as they
-  are;
+  within a process group, and ``send`` / ``recv`` between two ranks.  With
+  ``host=True`` a CUDA tensor goes through a pinned host buffer and back:
+  the gloo backend's path, for ranks that share one card (NCCL refuses two
+  ranks on one GPU) and for CPU runs.  The caller chooses it by the mesh's
+  backend (parallel/sharding.py), never by catching a failure.  NCCL (one
+  GPU per rank) takes the tensors as they are;
 * ``run_spmd(fn, world, backend, timeout)`` starts ``world`` ranks with the
   ``spawn`` start method (CUDA may already be initialised in the caller),
   each in a process group of its own address (with NCCL each on GPU rank
@@ -155,6 +155,23 @@ def ring_shift(t: torch.Tensor, ranks: list, host: bool = False) -> torch.Tensor
                                        dist.P2POp(dist.irecv, recv, ranks[(me - 1) % n])]):
         req.wait()
     return _back(recv.view(t.dtype), t)
+
+
+def send(t: torch.Tensor, dst: int, host: bool = False) -> None:
+    """Send ``t`` to global rank ``dst``, whose ``recv`` takes it (a
+    pipeline's stage-to-stage pass)."""
+    req = dist.isend(_bits(_wire(t, host)), dst)
+    req.wait()
+
+
+def recv(like: torch.Tensor, src: int, host: bool = False) -> torch.Tensor:
+    """Receive a tensor of ``like``'s shape and dtype from global rank
+    ``src``, on like's device."""
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      pin_memory=host and like.is_cuda, device="cpu" if host else like.device)
+    req = dist.irecv(_bits(buf), src)
+    req.wait()
+    return _back(buf, like)
 
 
 # ---------------------------------------------------------------------------

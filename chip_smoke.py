@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py    # all phases, a few minutes with the build
     python3 chip_smoke.py --gap-seeds 61,71,81    # phase 6's greedy readings alone, per seed
     python3 chip_smoke.py --sharded    # phase 2's sharded rows (K1, K2, K3) and phase 8 alone
-    python3 chip_smoke.py --nccl 4    # phase 8 alone over NCCL on 4 cards, one a rank
+    python3 chip_smoke.py --nccl 4    # phases 8 and 11 alone over NCCL on 4 cards, one a rank
+    python3 chip_smoke.py --train-mesh    # phase 2's tp = 2 rows and phase 11 alone
     python3 chip_smoke.py --serving    # phases 4, 5, 6 and 9 alone (the captured decode)
     python3 chip_smoke.py --quant    # phase 10 alone, then GPTQ int4g32 of the 28-layer model
 
@@ -59,7 +60,11 @@ Phases (any failure raises and exits non-zero):
    (``check_attention_edges``).  The dynamic row quantizer (B7 / B8's
    prologue) on rows where max|x| / 127 and max|x| · (1/127) round apart:
    its sx and xq bit-equal to the CPU's, a Python-number divisor (the
-   control) not.
+   control) not.  B1, B6, B13 and B14 at phase 11's tp = 2 shard shapes (M
+   = 512: q_proj's 2048 columns, o_proj's 2048 storage rows, w_in's 6912 /
+   6784 columns on rank 0 / 1, w_out's 6912 storage rows with rank 1's 128
+   rows of padding, the lm_head's 32768 columns), each within KERNEL_TOL
+   and SUM_TOL (``check_shard_matmuls``).
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -214,6 +219,24 @@ Phases (any failure raises and exits non-zero):
    text.  ``--quant`` runs this phase alone, then GPTQ int4g32 of a random
    float32 ChatGLM2-6B at 28 layers, its wall seconds: the offline cost a
    user pays.
+
+11. Training across ranks at ChatGLM2-6B widths, 4 layers, bf16, 2 x 256
+   tokens (labels -100 on each row's first 32 / 96), int4g32 and int8 over
+   three seeds, each tree built from its seed on every card: (a) the
+   sharded training step (``utils/train.py`` with a mesh) on a (1, 2) mesh
+   of two gloo ranks sharing the card: the first pass's loss and grads and
+   two AdamW steps (lr 1e-3) against the single-process port's on the same
+   tree and batch (``TM_TOL``), with a control (a ``gather_from_model``
+   whose backward sums over the model axis) beyond the limit; (b) the
+   int4g32 trees through 2 GPipe stages of 2 micro-batches
+   (``parallel/pipeline.py``) over the same ranks, likewise, with a control
+   (the output gradient summed over the stages); (c) the first int4g32
+   tree's slices saved from the mesh (``utils/dist_ckpt.py``), loaded onto
+   the mesh and whole in this process, both bit-equal to ``shard_params``.
+   Every rank the same loss; each rank's B1 / B6 forward and B13 / B14
+   backward launches (6 a layer and the lm_head's, a pass); step ms,
+   collectives and their host ms per rank, peak device memory.  Under
+   ``--nccl 4`` phase 11 runs on four cards: a (2, 2) mesh and 4 stages.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
@@ -628,7 +651,7 @@ def check_matmul(torch):
     return rows, crossover, splitk_crossover
 
 
-def int8_library(torch, x, w_t, scale_bf16, want, refusal=None):
+def int8_library(torch, x, w_t, scale_bf16, want, refusal=None, iters=30):
     """ms of ``torch._weight_int8pack_mm`` (x @ w_t (N, K) int8ᵀ · scales in
     x's dtype) over the rotated transposed weights, after checking it
     computes the plain version's function; None where this torch has no
@@ -648,7 +671,7 @@ def int8_library(torch, x, w_t, scale_bf16, want, refusal=None):
     rel = rel_err(got, want)[1]
     require(rel <= KERNEL_TOL, f"_weight_int8pack_mm disagrees with the plain version: {rel}")
     n = len(w_t)
-    return cuda_event_ms(lambda i: mm(x, w_t[i % n], scale_bf16[i % n]), iters=30)
+    return cuda_event_ms(lambda i: mm(x, w_t[i % n], scale_bf16[i % n]), iters=iters)
 
 
 def int_mm_library(torch, xq, w, want_acc):
@@ -807,7 +830,7 @@ def check_dyn_division(torch, smi):
     return {"rows": x.shape[0], "control_split_share": control.item()}
 
 
-def int8_t_library(torch, g, w, scale, want):
+def int8_t_library(torch, g, w, scale, want, iters=30):
     """ms of ``torch._weight_int8pack_mm(g * s, w, ones(K))`` over the
     rotated (K, N) weights — its (out, in) layout — with the fold of the
     scale into g timed along with it, after checking it computes the plain
@@ -827,7 +850,8 @@ def int8_t_library(torch, g, w, scale, want):
     rel = rel_err(got, want)[1]
     require(rel <= KERNEL_TOL, f"_weight_int8pack_mm (B13 yardstick) disagrees: {rel}")
     n = len(w)
-    return cuda_event_ms(lambda i: mm(g * scale[i % n].to(g.dtype), w[i % n], ones), iters=30)
+    return cuda_event_ms(lambda i: mm(g * scale[i % n].to(g.dtype), w[i % n], ones),
+                         iters=iters)
 
 
 def check_transposed(torch):
@@ -4301,6 +4325,462 @@ def quant_28_layers(torch, smi):
     return {"seconds": s, "sweep_launches": launches, "peak_gb": peak, "build_s": build_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (tp = 2 shard shapes) and phase 11: training across ranks
+# ---------------------------------------------------------------------------
+
+# Phase 11's training step (2 x 256 tokens) on a (1, 2) mesh gives B1 and B6
+# (forward) and B13 and B14 (backward) these shapes on each rank at 6B
+# widths: q_proj's columns, o_proj's storage rows, w_in's columns on rank 0
+# and on rank 1 (the split ends where the logical 13696 columns do: 6912 and
+# 6784), w_out's storage rows (rank 1's end in the 128 rows of storage
+# padding, over zero activation columns) and the lm_head's columns
+TP2_SHAPES = [("q_proj rank", 4096, 2048), ("o_proj rank", 2048, 4096),
+              ("w_in rank 0", 4096, 6912), ("w_in rank 1", 4096, 6784),
+              ("w_out rank 1", 6912, 4096), ("lm_head rank", 4096, 32768)]
+TP2_M = 512
+TP2_PAD = {"w_out rank 1": 128}  # storage rows of padding at the end of the shard's K
+
+
+def check_shard_matmuls(torch):
+    """Phase 2 at the tp = 2 shard shapes (TP2_SHAPES, M = TP2_M bf16): B1
+    (``int4g32_matmul``) and B6 (``int8_matmul``) forward, B14
+    (``int4g32_matmul_t``) and B13 (``int8_matmul_t``) backward, each one
+    launch of its Hopper kernel, within KERNEL_TOL of its plain version and
+    within SUM_TOL of its exact value beyond its bf16 rounding; ms, plain
+    ms, bound and library ms (tinygemm for B1, ``_weight_int8pack_mm`` for
+    B6 and B13, timed over 3 calls: 9-150 ms each at M = 512; none for
+    B14)."""
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    M, bf16, rows = TP2_M, torch.bfloat16, []
+
+    def row(label, wrapper, name, K, N, wbytes, call, plain, exact, lib, plan):
+        before = wrapper.launches
+        got = call(0)
+        torch.cuda.synchronize()
+        require(wrapper.launches == before + 1, f"{label} {name}: not one {wrapper.__name__}")
+        want = plain()
+        err, rel = rel_err(got, want)
+        require(bool(torch.isfinite(got).all()) and rel <= KERNEL_TOL,
+                f"{label} {name}: rel err {rel} > {KERNEL_TOL} (or non-finite)")
+        beyond = hold_sum(torch, f"{label} {name}", got, *exact())
+        n_in, n_out = (K, N) if got.shape[1] == N else (N, K)
+        b, by = bound_ms(2 * M * n_in + wbytes + 2 * M * n_out, 2.0 * M * K * N)
+        r = {"kernel": wrapper.__name__, "linear": name, "M": M, "K": K, "N": N,
+             "max_abs_err": err, "rel_err": rel, "ms": cuda_event_ms(call, iters=30),
+             "plain_ms": cuda_event_ms(lambda i: plain(), iters=3, warmup=1), "bound_ms": b,
+             "bound_by": by, "library_ms": lib(want), "beyond_sum": beyond, "plan": plan}
+        if got.shape[1] == K:
+            r["dtype"] = "bfloat16"  # a backward matmul: g (M, N) -> (M, K)
+        rows.append(r)
+        log_row(label, r)
+        log(f"    plan (bm, nsplit, per split, blocks) {plan}; beyond the bf16 rounding "
+            f"{beyond:.2e} of sum|terms|")
+
+    for name, K, N in TP2_SHAPES:
+        pad = TP2_PAD.get(name, 0)
+        x = torch.randn((M, K), device="cuda", generator=gen).to(bf16)
+        x[:, K - pad:] = 0
+        g = torch.randn((M, N), device="cuda", generator=gen).to(bf16)
+        wbytes = K // 2 * N + K // 32 * N * 2
+        copies = weight_copies(wbytes)
+        packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        packed[:, (K - pad) // 2:] = 0
+        scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02).to(bf16)
+        lib_w = library_weights(torch, packed, scale)
+        w64 = unpack_int4_tpu(packed[0], scale[0]).double()  # q·s, exact in f32
+        row("int4g32_matmul", QM.int4g32_mma, name, K, N, wbytes,
+            lambda i: QM.int4g32_matmul(x, packed[i % copies], scale[i % copies]),
+            lambda: QM.int4g32_matmul_plain(x, packed[0], scale[0]),
+            lambda: (x.double() @ w64, x.double().abs() @ w64.abs()),
+            lambda want: int4_library(torch, x, lib_w, want), QM.mma_plan(M, K, N))
+        del lib_w
+        w64 = unpack_int4_tpu(packed[0], scale[0]).to(bf16).double()  # bf16(q·s)
+        row("int4g32_matmul_t", QM.int4g32_t_mma, name, K, N, wbytes,
+            lambda i: QM.int4g32_matmul_t(g, packed[i % copies], scale[i % copies]),
+            lambda: QM.int4g32_matmul_t_plain(g, packed[0], scale[0]),
+            lambda: (g.double() @ w64.T, g.double().abs() @ w64.abs().T),
+            lambda want: None, QM.t_mma_plan(M, K, N))
+        del packed, scale, w64
+        wbytes = K * N + 4 * N
+        copies = weight_copies(wbytes)
+        w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        w[:, K - pad:] = 0
+        scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+        w_t, scale_bf16 = w.transpose(1, 2).contiguous(), scale.to(bf16)
+        w64, s64 = w[0].double(), scale[0].double()
+        row("int8_matmul", I8.int8_mma, name, K, N, wbytes,
+            lambda i: I8.int8_matmul(x, w[i % copies], scale[i % copies]),
+            lambda: I8.int8_matmul_plain(x, w[0], scale[0]),
+            lambda: ((x.double() @ w64) * s64, (x.double().abs() @ w64.abs()) * s64),
+            lambda want: int8_library(torch, x, w_t, scale_bf16, want, iters=3),
+            QM.wg_plan(M, K, N))
+        del w_t, scale_bf16
+        gs = (g * scale[0].to(bf16)).double()  # the plain version's fold, exact
+        row("int8_matmul_t", I8.int8_t_mma, name, K, N, wbytes,
+            lambda i: I8.int8_matmul_t(g, w[i % copies], scale[i % copies]),
+            lambda: I8.int8_matmul_t_plain(g, w[0], scale[0]),
+            lambda: (gs @ w64.T, gs.abs() @ w64.abs().T),
+            lambda want: int8_t_library(torch, g, w, scale, want, iters=3),
+            QM.t_mma_plan(M, K, N))
+        del w, scale, w64, gs
+    return rows
+
+
+TM_LAYERS = 4          # phase 11's depth (every width ChatGLM2-6B's)
+TM_BATCH, TM_SEQ = 2, 256
+TM_IGNORED = (32, 96)  # each row's first labels at -100: uneven over data ranks
+TM_SEEDS = (111, 112, 113)
+TM_STEPS, TM_LR = 2, 1e-3  # AdamW steps over the norms from one start
+TM_MICRO = 2           # the pipeline's micro-batches
+TM_QUANTS = ("int4g32", "int8")  # (a); the pipeline (b) runs the int4g32 trees
+# Phase 11's limits, of a mesh rank's (a) or a stage's (b) reading against the
+# single-process port on the same tree and batch: |Δloss| / |loss| (the
+# first pass and the steps' losses), max over the trainable leaves of max
+# |Δgrad| / max |grad|, and of Σ |Δleaf| / Σ |the reference's update| after
+# TM_STEPS AdamW steps (AdamW moves each element about lr a step whatever
+# its gradient's size, so a max would read the few elements whose tiny
+# gradients differ in sign).  The mesh rounds each shard's product to bf16 and sums the row
+# shards in f32 (the single process rounds the whole product once), the
+# pipeline runs its micro-batches at half the rows, so the two paths round
+# at other places, as phase 3b's kernel and plain paths do.  Each limit is
+# 1.5x the largest reading over TM_SEEDS on an H100: (a) 8.1e-5, 1.62e-2,
+# 1.20e-2; (b) 4.2e-5, 1.57e-2, 1.09e-2.  The controls (a gather_from_model
+# whose backward sums the gradient over the model axis; the pipeline's
+# output gradient summed over the stages) read 1.00-1.01 in grads and must
+# exceed them.
+TM_TOL = {"mesh": {"loss": 1.2e-4, "grads": 2.4e-2, "leaves": 1.8e-2},
+          "pipeline": {"loss": 6.3e-5, "grads": 2.4e-2, "leaves": 1.6e-2}}
+TM_FWD = {"int4g32": ("int4g32_mma", "int4g32_t_mma"), "int8": ("int8_mma", "int8_t_mma")}
+
+
+def tm_batch(torch, cfg, seed):
+    """Phase 11's batch of a seed: TM_BATCH x TM_SEQ ids, labels the ids
+    with each row's first TM_IGNORED at -100 (the same on every rank)."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (TM_BATCH, TM_SEQ), generator=gen)
+    labels = ids.clone()
+    for b, n in enumerate(TM_IGNORED):
+        labels[b, :n] = -100
+    return ids, labels
+
+
+def tm_tree(torch, cfg, quant, seed, device):
+    """The random tree of (quant, seed), the same on every card."""
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+
+    return random_quantized_params(cfg, quant, torch.Generator(device=device).manual_seed(seed),
+                                   device=device)
+
+
+def tm_named(tree, leaves):
+    """{dotted name: f32 numpy array} of trainable leaves (or their grads),
+    in ``trainable_leaves`` order."""
+    names = [k for k, v in tree_leaves(tree) if v is not None]
+    return {k: t.detach().float().cpu().numpy().copy() for k, t in zip(names, leaves)}
+
+
+def tm_bit_equal(torch, got, want) -> bool:
+    """The same keys, and every tensor of ``got`` bit-equal to ``want``'s,
+    dtype included."""
+    got, want = dict(tree_leaves(got)), dict(tree_leaves(want))
+    return got.keys() == want.keys() and all(
+        got[k].dtype == w.dtype and torch.equal(got[k], w) for k, w in want.items())
+
+
+def tm_run(torch, fn, mesh):
+    """fn()'s result and its host ms (ending in a sync), with the
+    collectives it ran on ``mesh`` and their host ms."""
+    torch.cuda.synchronize()
+    calls, secs, t0 = mesh.calls, mesh.seconds, time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {"ms": (time.perf_counter() - t0) * 1e3, "collectives": mesh.calls - calls,
+                 "collective_ms": (mesh.seconds - secs) * 1e3}
+
+
+def tm_train(torch, cfg, quant, tr, fr, ids, labels, grads_fn, step_fn, mesh):
+    """One measured record: the first pass's loss and grads (and its launch
+    counts), then TM_STEPS AdamW steps from the same start, each timed."""
+    from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.utils.train import trainable_leaves
+
+    ops.reset_launch_counts()
+    (loss, grads), first = tm_run(torch, grads_fn, mesh)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    start = tm_named(tr, trainable_leaves(tr))
+    opt = torch.optim.AdamW(trainable_leaves(tr), lr=TM_LR, weight_decay=0.0)
+    steps = [tm_run(torch, lambda: step_fn(opt), mesh) for _ in range(TM_STEPS)]
+    return {"loss": loss.item(), "grads": tm_named(tr, grads), "counts": counts,
+            "first_pass": first, "losses": [s for s, _ in steps], "start": start,
+            "steps": [t for _, t in steps], "leaves": tm_named(tr, trainable_leaves(tr))}
+
+
+def train_mesh_rank(rank, shape, n_stage, ckpt_dir):
+    """One rank of phase 11: (a) the sharded training step on a (data,
+    model) mesh of ``shape`` for each tree of TM_QUANTS x TM_SEEDS (built on
+    its card from the seed, then sliced: ``shard_params``), with the
+    control on each quantization's first tree; (b) the int4g32 trees through
+    ``n_stage`` pipeline stages over the same ranks, with its control; (c)
+    the first int4g32 tree's slices saved from the mesh to ``ckpt_dir`` and
+    loaded onto it again.  Returns the records (numpy), the rank's place
+    and its peak device memory."""
+    import torch
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.parallel import autograd_ops as AO
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+    from chatglm_q_tpu_torch.utils import dist_ckpt as C
+    from chatglm_q_tpu_torch.utils import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, bf16, rt = ChatGLM2Config(num_layers=TM_LAYERS), torch.bfloat16, TorchRuntimeConfig()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = SH.make_mesh(*shape)
+    stages = SH.make_mesh(shape[0] * shape[1] // n_stage, 1, n_stage)
+    out = {"data": mesh.data_index, "model": mesh.model_index, "stage": stages.stage_index,
+           "mesh": {}, "pipeline": {}}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for quant in TM_QUANTS:
+        for seed in TM_SEEDS:
+            full = tm_tree(torch, cfg, quant, seed, dev)
+            ids, labels = (t.to(dev) for t in tm_batch(torch, cfg, seed))
+            params = SH.shard_params(full, mesh, cfg, quant)
+            tr, fr = T.partition_params(params)
+
+            def mesh_step(opt, tr=tr, fr=fr):
+                step = T.make_train_step(cfg, quant, opt, bf16, rt, mesh)
+                return step(tr, fr, ids, labels).item()
+
+            rec = tm_train(torch, cfg, quant, tr, fr, ids, labels,
+                           lambda: T.loss_and_grads(cfg, quant, tr, fr, ids, labels, bf16, rt,
+                                                    None, mesh), mesh_step, mesh)
+            if seed == TM_SEEDS[0]:  # the control: a gather backward that sums
+                keep = AO.own_columns
+                AO.own_columns = lambda m, g: keep(m, m.all_reduce(g.contiguous(), "model"))
+                try:
+                    tr_c, fr_c = T.partition_params(params)
+                    _, g_c = T.loss_and_grads(cfg, quant, tr_c, fr_c, ids, labels, bf16, rt,
+                                              None, mesh)
+                finally:
+                    AO.own_columns = keep
+                rec["control_grads"] = tm_named(tr_c, g_c)
+            out["mesh"][f"{quant} {seed}"] = rec
+            if quant == "int4g32" and seed == TM_SEEDS[0] and ckpt_dir:
+                t0 = time.perf_counter()
+                C.save_params(ckpt_dir, params, mesh, cfg, quant)
+                back = C.load_params(ckpt_dir, mesh=mesh, config=cfg, quant_type=quant,
+                                     device=dev)
+                out["ckpt"] = {"bit_equal": tm_bit_equal(torch, back, params),
+                               "save_load_s": time.perf_counter() - t0}
+            del params, tr, fr
+            if quant == "int4g32":  # (b): the same tree through the stages
+                pp = PP.shard_layers(full, stages)
+                tr, fr = T.partition_params(pp)
+
+                def pp_grads(tr, fr):
+                    loss = PP.pp_forward(T.merge_params(tr, fr), cfg, ids, labels, quant, bf16,
+                                         rt, stages, TM_MICRO)[0]
+                    return loss, torch.autograd.grad(loss, T.trainable_leaves(tr))
+
+                def pp_step(opt, tr=tr, fr=fr):
+                    loss, grads = pp_grads(tr, fr)
+                    for leaf, grad in zip(T.trainable_leaves(tr), grads):
+                        leaf.grad = grad
+                    opt.step()
+                    opt.zero_grad(set_to_none=True)
+                    return loss.item()
+
+                rec = tm_train(torch, cfg, quant, tr, fr, ids, labels,
+                               lambda: pp_grads(tr, fr), pp_step, stages)
+                if seed == TM_SEEDS[0]:  # the control: the output gradient summed over stages
+                    keep = PP.last_stage_grad
+                    PP.last_stage_grad = lambda g, m: m.all_reduce(g, "stage")
+                    try:
+                        tr_c, fr_c = T.partition_params(pp)
+                        rec["control_grads"] = tm_named(tr_c, pp_grads(tr_c, fr_c)[1])
+                    finally:
+                        PP.last_stage_grad = keep
+                out["pipeline"][f"{quant} {seed}"] = rec
+                del pp, tr, fr
+            del full
+            torch.cuda.empty_cache()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def tm_reference(torch, cfg, quant, seed):
+    """The single-process port's record on the same tree and batch."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.parallel.sharding import make_mesh
+    from chatglm_q_tpu_torch.utils.train import loss_and_grads, make_train_step, partition_params
+
+    rt, bf16 = TorchRuntimeConfig(), torch.bfloat16
+    params = tm_tree(torch, cfg, quant, seed, "cuda")
+    ids, labels = (t.cuda() for t in tm_batch(torch, cfg, seed))
+    tr, fr = partition_params(params)
+
+    def step(opt):
+        return make_train_step(cfg, quant, opt, bf16, rt)(tr, fr, ids, labels).item()
+
+    return tm_train(torch, cfg, quant, tr, fr, ids, labels,
+                    lambda: loss_and_grads(cfg, quant, tr, fr, ids, labels, bf16, rt), step,
+                    make_mesh(1, 1))
+
+
+def tm_readings(rec, ref, rows=None, key="grads"):
+    """(loss, grads, leaves) readings of a record against the reference: the
+    first loss and the steps' losses; each grad's max |Δ| over its max
+    |ref|; each leaf's Σ |Δ| after the steps over Σ |the reference's
+    update| (a stage's layer leaves against the reference's ``rows``)."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def part(name, a):
+        return a[rows] if rows is not None and name.startswith("layers.") else a
+
+    loss = max([abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])]
+               + [abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref["losses"])])
+    grads = max(rel(g, part(k, ref["grads"][k])) for k, g in rec[key].items())
+    leaves = max(float(np.abs(v - part(k, ref["leaves"][k])).sum()
+                       / max(np.abs(part(k, ref["leaves"][k] - ref["start"][k])).sum(), 1e-30))
+                 for k, v in rec["leaves"].items())
+    return loss, grads, leaves
+
+
+def train_mesh_slice(torch, smi, backend="gloo", shape=(1, 2), n_stage=2):
+    """Phase 11: the single-process reference records here, then the ranks
+    (``train_mesh_rank``: gloo, all on this card; NCCL, ``--nccl``: a card a
+    rank), then every check: each rank's (a) and each stage's (b) readings
+    within TM_TOL over every seed and quantization, the controls beyond
+    them, every rank the same loss, each forward and backward Hopper matmul
+    launched on every rank (6 a layer and the lm_head's, a pass), and (c):
+    the mesh's save loaded onto the mesh and whole here, both bit-equal to
+    ``shard_params``' slices."""
+    import shutil
+
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+    from chatglm_q_tpu_torch.utils import dist_ckpt as C
+    from chatglm_q_tpu_torch.utils.distributed import run_spmd
+
+    cfg = ChatGLM2Config(num_layers=TM_LAYERS)
+    refs = {}
+    for quant in TM_QUANTS:
+        for seed in TM_SEEDS:
+            refs[f"{quant} {seed}"] = tm_reference(torch, cfg, quant, seed)
+            torch.cuda.empty_cache()
+    ref_ms = [r["steps"][-1]["ms"] for r in refs.values()]
+    ckpt = _build.BUILD_DIR / "train_mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_spmd(train_mesh_rank, shape[0] * shape[1], backend, timeout=900,
+                         args=(shape, n_stage, str(ckpt)))
+        spmd_s = time.perf_counter() - t0
+        whole = C.load_params(ckpt, device="cuda")
+        want = SH.shard_params(tm_tree(torch, cfg, "int4g32", TM_SEEDS[0], "cuda"),
+                               SH.make_mesh(1, 1), cfg, "int4g32")
+        whole_equal = tm_bit_equal(torch, whole, want)
+        del whole, want
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    layers_per_stage = TM_LAYERS // n_stage
+    out = {"card": smi, "backend": backend, "mesh": list(shape), "stages": n_stage,
+           "layers": TM_LAYERS, "ranks_s": spmd_s, "reference_step_ms": ref_ms,
+           "readings": {}, "control": {}, "ranks": []}
+    failed = []
+    for part, tol in TM_TOL.items():
+        for key, ref in refs.items():
+            if key not in ranks[0][part]:
+                continue
+            for i, r in enumerate(ranks):
+                rec = r[part][key]
+                rows = None
+                if part == "pipeline":
+                    rows = slice(r["stage"] * layers_per_stage,
+                                 (r["stage"] + 1) * layers_per_stage)
+                dl, dg, dv = tm_readings(rec, ref, rows)
+                out["readings"].setdefault(part, []).append([key, r["data"], r["model"],
+                                                            r["stage"], dl, dg, dv])
+                if not (dl <= tol["loss"] and dg <= tol["grads"] and dv <= tol["leaves"]):
+                    failed.append(f"({part}) {key} rank {i}: loss {dl:.3e}, grads {dg:.3e}, "
+                                  f"leaves {dv:.3e}")
+                if rec["loss"] != ranks[0][part][key]["loss"]:
+                    failed.append(f"({part}) {key}: the ranks' losses differ")
+                if "control_grads" in rec:
+                    cg = tm_readings(rec, ref, rows, key="control_grads")[1]
+                    out["control"].setdefault(part, []).append([key, i, cg])
+                    if not cg > tol["grads"]:
+                        failed.append(f"({part}) {key} rank {i}: the control passes ({cg:.3e})")
+                passes = (6 * (TM_LAYERS if part == "mesh" else layers_per_stage * TM_MICRO)
+                          + 1)
+                fwd, bwd = TM_FWD[key.split()[0]]
+                c = rec["counts"]
+                if not (c.get(fwd) == passes and c.get(bwd) == passes):
+                    failed.append(f"({part}) {key} rank {i}: {c.get(fwd)} {fwd} and "
+                                  f"{c.get(bwd)} {bwd} launches in a pass, not {passes} each")
+        worst = [max(x[i] for x in out["readings"][part]) for i in (4, 5, 6)]
+        log(f"  ({'a' if part == 'mesh' else 'b'}) {part}: largest readings over "
+            f"{len(out['readings'][part])} (tree, rank) pairs: |Δloss|/|loss| {worst[0]:.3e}, "
+            f"grads {worst[1]:.3e}, leaves {worst[2]:.3e} (limits {tol['loss']:.1e}, "
+            f"{tol['grads']:.1e}, {tol['leaves']:.1e}); controls "
+            + ", ".join(f"{cg:.3e}" for _, _, cg in out["control"][part]) + f"  [{smi}]")
+        for key in refs:
+            got = [x for x in out["readings"][part] if x[0] == key]
+            if got:
+                log(f"    {key}: " + "; ".join(f"{x[4]:.3e} {x[5]:.3e} {x[6]:.3e}" for x in got))
+    for i, r in enumerate(ranks):
+        ckpt_ok = r.get("ckpt", {}).get("bit_equal")
+        require(ckpt_ok, f"phase 11 (c) rank {i}: the mesh's checkpoint loaded onto the mesh is "
+                         "not bit-equal to its slices")
+        row = {"rank": i, "data": r["data"], "model": r["model"], "stage": r["stage"],
+               "peak_mem_bytes": r["peak_mem_bytes"],
+               "ckpt_save_load_s": r["ckpt"]["save_load_s"]}
+        for part in ("mesh", "pipeline"):
+            for key, rec in r[part].items():
+                row[f"{part} {key}"] = {"counts": rec["counts"], "first_pass": rec["first_pass"],
+                                        "steps": rec["steps"]}
+        out["ranks"].append(row)
+        for part in ("mesh", "pipeline"):
+            for key in [k for k in r[part] if k.endswith(str(TM_SEEDS[0]))]:
+                rec = r[part][key]
+                fwd, bwd = TM_FWD[key.split()[0]]
+                log(f"  rank {i} ({part} {key}; data {r['data']}, model {r['model']}, stage "
+                    f"{r['stage']}): {rec['counts'][fwd]} {fwd}, {rec['counts'][bwd]} {bwd} in "
+                    f"the first pass; step ms "
+                    + ", ".join(f"{s['ms']:.1f}" for s in rec["steps"])
+                    + "; collectives a step "
+                    + ", ".join(str(s["collectives"]) for s in rec["steps"]) + ", host ms in them "
+                    + ", ".join(f"{s['collective_ms']:.1f}" for s in rec["steps"]))
+        log(f"  rank {i}: peak device memory {r['peak_mem_bytes'] / 2**30:.2f} GiB  [{smi}]")
+    require(whole_equal, "phase 11 (c): the mesh's checkpoint loaded whole is not bit-equal to "
+                         "the one-process shard_params")
+    require(not failed, "phase 11: " + "; ".join(failed))
+    log(f"  (c) checkpoint: saved from the ({shape[0]}, {shape[1]}) mesh, loaded onto it and "
+        f"whole here, both bit-equal ({ranks[0]['ckpt']['save_load_s']:.1f} s to save and load "
+        f"on rank 0); the single process's step "
+        + ", ".join(f"{x:.1f}" for x in ref_ms) + f" ms; ranks done in {spmd_s:.1f} s  [{smi}]")
+    counts = {}
+    for r in ranks:
+        for part in ("mesh", "pipeline"):
+            for rec in r[part].values():
+                for k, v in rec["counts"].items():
+                    counts[k] = counts.get(k, 0) + v
+    return counts, out
+
+
 def gap_survey(torch, smi, seeds):
     """Phase 6's greedy readings alone, on each seed's tree and prompts, from
     bf16 and from f32 logits: the basis of GREEDY_GAP_TOL."""
@@ -4355,7 +4835,12 @@ def main() -> int:
         phase(f"== phase 8 over NCCL: tensor-parallel serving on a (1, {tp}) mesh, a card a "
             f"rank; cards: {cards}")
         _, sharded_perf = sharded_slice(torch, smi, backend="nccl", tp=tp, layers=28)
-        log("detail: " + json.dumps({"card": smi, "sharded_serving": sharded_perf}))
+        shape = (tp // 2, 2) if tp % 2 == 0 else (1, tp)
+        phase(f"== phase 11 over NCCL: training across ranks, a {shape} mesh and {tp} pipeline "
+              f"stages, a card a rank")
+        _, train_perf = train_mesh_slice(torch, smi, backend="nccl", shape=shape, n_stage=tp)
+        log("detail: " + json.dumps({"card": smi, "cards": cards,
+                                     "sharded_serving": sharded_perf, "train_mesh": train_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--serving" in sys.argv:  # phases 4, 5, 6 and 9 alone
@@ -4386,6 +4871,16 @@ def main() -> int:
                                      "sharded_serving": sharded_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--train-mesh" in sys.argv:  # phase 2's tp = 2 rows and phase 11 alone
+        phase("== phase 2 (tp = 2 shard shapes): B1, B6, B13, B14 against their plain versions")
+        tp2_rows = check_shard_matmuls(torch)
+        phase(f"== phase 11: training across ranks, ChatGLM2-6B widths, {TM_LAYERS} layers, a "
+              "(1, 2) mesh and 2 pipeline stages of gloo ranks sharing this card")
+        _, train_perf = train_mesh_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "tp2_rows": tp2_rows,
+                                     "train_mesh": train_perf}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--quant" in sys.argv:  # phase 10 alone, then the 28-layer GPTQ
         phase("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
         _, quant_perf, _ = quant_slice(torch, smi)
@@ -4400,6 +4895,7 @@ def main() -> int:
     int8_rows = check_int8_matmul(torch)
     dyn_division = check_dyn_division(torch, smi)
     t_rows = check_transposed(torch)
+    tp2_rows = check_shard_matmuls(torch)
     att = check_attention(torch)
     att.update(check_paged_attention(torch))
     att["edge_cases_max_rel_err"] = check_attention_edges(torch)
@@ -4444,6 +4940,13 @@ def main() -> int:
 
     phase("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
     quant_counts, quant_perf, sweep_entries = quant_slice(torch, smi)
+    torch.cuda.empty_cache()
+
+    phase(f"== phase 11: training across ranks, ChatGLM2-6B widths, {TM_LAYERS} layers, a (1, 2) "
+          "mesh and 2 pipeline stages of gloo ranks sharing this card")
+    train_counts, train_perf = train_mesh_slice(torch, smi)
+    for kern in ("int4g32_mma", "int4g32_t_mma", "int8_mma", "int8_t_mma"):
+        require(train_counts.get(kern, 0) > 0, f"phase 11: no {kern} launch")
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -4525,7 +5028,8 @@ def main() -> int:
               "grad_parity": grads, "int4g32_28_layers": perf, "chat_28_layers": chat_perf,
               "engines_28_layers": engine_perf, "api_server_28_layers": api_perf,
               "fine_tune_28_layers": ft_perf,
-              "sharded_serving": sharded_perf, "quant_2_layers": quant_perf}
+              "sharded_serving": sharded_perf, "quant_2_layers": quant_perf,
+              "tp2_rows": tp2_rows, "train_mesh": train_perf}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

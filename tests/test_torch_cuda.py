@@ -1073,6 +1073,110 @@ def test_wgmma_kernels_are_deterministic_and_replay_in_a_graph(gen, kind, M, K, 
         assert torch.equal(captured, first)
 
 
+# The shard shapes of a tp = 2 training step at 6B widths (2 x 256 tokens a
+# rank; chip_smoke.py's TP2_SHAPES): q_proj's columns, o_proj's storage rows,
+# w_in's columns on rank 0 and on rank 1 (the split ends where the logical
+# 13696 do), w_out's storage rows on rank 1 (their last 128 the storage
+# padding) and the lm_head's columns.
+TP2_LINEARS = [(4096, 2048), (2048, 4096), (4096, 6912), (4096, 6784), (6912, 4096),
+               (4096, 32768)]
+
+
+@pytest.mark.parametrize("K,N", TP2_LINEARS)
+@pytest.mark.parametrize("kind", ["int4g32", "int8", "int4g32_t", "int8_t"])
+def test_tp2_shard_matmuls_error_is_their_bf16_rounding(gen, kind, K, N):
+    """B1 and B6 forward, B14 and B13 backward at M = 512 on every tp = 2
+    shard shape: one Hopper launch each, within the bf16 tolerance of the
+    plain version and 2^-23 of sum|terms| beyond the output's rounding."""
+    M = 512
+    if kind == "int4g32":
+        packed, scale = _int4_weights(gen, K, N)
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        w64 = QM.unpack_int4_tpu(packed, scale).double()
+        call, kernel = (lambda: QM.int4g32_matmul(x, packed, scale)), QM.int4g32_mma
+        plain = lambda: QM.int4g32_matmul_plain(x, packed, scale)  # noqa: E731
+        exact = lambda: (x.double() @ w64, x.double().abs() @ w64.abs())  # noqa: E731
+    else:
+        call, kernel, plain, exact = _wg_case(gen, kind, M, K, N)
+    before = kernel.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (M, K if kind.endswith("_t") else N)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, plain()) <= 1e-2
+    assert _beyond_sum(got, *exact()) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("quant", ["int4g32", "int8"])
+def test_quant_matmul_backward_through_a_padded_row_shard(gen, quant):
+    """The row shard of w_out that rank 1 of a tp = 2 mesh holds at 6B
+    widths: 6784 logical K rows stored as 6912 (the last 128 the storage
+    padding, zero).  QuantMatmul pads x to the storage K, runs B1 / B6, and
+    its backward runs B14 / B13 and strips grad_x back to 6784 columns,
+    within the bf16 tolerance of the plain path's grad."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.ops import linear as TL
+
+    K, Ks, N, M = 6784, 6912, 4096, 512
+    if quant == "int4g32":
+        w, scale = _int4_weights(gen, Ks, N)
+        w[K // 2:] = 0
+        fns = (QM.int4g32_mma, QM.int4g32_t_mma)
+    else:
+        w, scale = _int8_weights(gen, Ks, N)
+        w[K:] = 0
+        fns = (I8.int8_mma, I8.int8_t_mma)
+    params = {"weight": w, "weight_scale": scale}
+    x0 = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn((M, N), device="cuda", generator=gen).to(torch.bfloat16)
+    grads = {}
+    for use_kernels in (False, True):
+        before = [f.launches for f in fns]
+        x = x0.clone().requires_grad_(True)
+        y = TL.quant_linear(x, params, quant, TorchRuntimeConfig(use_kernels=use_kernels))
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert x.grad.shape == (M, K)
+        assert [f.launches - b for f, b in zip(fns, before)] == ([1, 1] if use_kernels
+                                                                 else [0, 0])
+        grads[use_kernels] = x.grad
+    assert _rel(grads[True], grads[False]) <= 1e-2
+
+
+def test_interpret_kernels_and_nan_checks_on_the_card(gen):
+    """Inside ``interpret_kernels`` a linear on CUDA tensors launches
+    nothing and equals the plain path bit for bit; under
+    ``enable_nan_checks`` a NaN in x makes the launch raise, naming B1's
+    Hopper kernel, and a capture refuses the check."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.ops import launch_counts
+    from chatglm_q_tpu_torch.ops import linear as TL
+    from chatglm_q_tpu_torch.utils import debug
+
+    packed, scale = _int4_weights(gen, 4096, 4096)
+    params = {"weight": packed, "weight_scale": scale}
+    x = torch.randn((128, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    before = launch_counts()
+    with debug.interpret_kernels():
+        got = TL.quant_linear(x, params, "int4g32", TorchRuntimeConfig(use_kernels=True))
+    assert launch_counts() == before
+    assert torch.equal(got, TL.quant_linear(x, params, "int4g32",
+                                            TorchRuntimeConfig(use_kernels=False)))
+    x[3, 7] = float("nan")
+    try:
+        debug.enable_nan_checks()
+        with pytest.raises(FloatingPointError, match="int4g32_mma"):
+            QM.int4g32_matmul(x, packed, scale)
+        x[3, 7] = 0.0
+        QM.int4g32_matmul(x, packed, scale)  # warm-up outside the capture
+        with pytest.raises(RuntimeError, match="NaN checks sync"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                QM.int4g32_matmul(x, packed, scale)
+    finally:
+        debug.enable_nan_checks(False)
+
+
 @pytest.mark.parametrize("entry", ["chatglm_int8_mma", "chatglm_int8_t_mma",
                                    "chatglm_int4_t_mma"])
 def test_wgmma_kernels_reject_a_plan_they_cannot_take(gen, entry):

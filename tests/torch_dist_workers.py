@@ -366,3 +366,258 @@ def _failing_worker(rank, eng, prompt, greedy):
         pass
     worker.join(timeout=60)
     return {"reason": worker.finish_reason(rid), "alive": worker.is_alive()}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp_train.py
+# ---------------------------------------------------------------------------
+
+def _dotted(tree, prefix=""):
+    """{dotted key path: leaf} of a nested dict, None leaves left out, in
+    ``utils.train.trainable_leaves`` order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, prefix + k + "."))
+        elif v is not None:
+            out[prefix + k] = v
+    return out
+
+
+def _train_setup(mesh, tree, cfg, quant, **cfg_kw):
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.convert import params_from_numpy
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg = ChatGLM2Config(**{**cfg, **cfg_kw})
+    params = SH.shard_params(params_from_numpy(tree, "cpu"), mesh, cfg, quant)
+    return (cfg,) + T.partition_params(params)
+
+
+def _train_rt(**kw):
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+
+    return TorchRuntimeConfig(use_kernels=True, **kw)
+
+
+def _rows(mesh, a):
+    from chatglm_q_tpu_torch.utils.distributed import local_batch_slice
+
+    return _t(a)[local_batch_slice(a.shape[0], mesh.n_data, mesh.data_index)].long()
+
+
+def _tp_forward(mesh, tree, cfg, quant, ids, labels):
+    """The mesh's parity forward on the data rank's rows: the loss (the
+    global mean), the rows' logits, and the control: the mean over this
+    rank's valid labels alone."""
+    import dataclasses
+
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, tr, fr = _train_setup(mesh, tree, cfg, quant)
+    rt = dataclasses.replace(_train_rt(), mesh=mesh)
+    loss, logits = M.forward(T.merge_params(tr, fr), cfg, _rows(mesh, ids),
+                             labels=_rows(mesh, labels), quant_type=quant, rt=rt)
+    own_mean = M.cross_entropy_loss(logits, _rows(mesh, labels))
+    return {"loss": float(loss), "logits": _np(logits), "own_mean": float(own_mean)}
+
+
+def _tp_grads(mesh, tree, cfg, quant, ids, labels, remat=False, seed=None, **cfg_kw):
+    """``loss_and_grads`` over the mesh (the rank's part of each trainable
+    leaf's gradient); with ``seed`` under dropout from that generator."""
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, tr, fr = _train_setup(mesh, tree, cfg, quant, **cfg_kw)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    loss, grads = T.loss_and_grads(cfg, quant, tr, fr, _t(ids).long(), _t(labels).long(),
+                                   torch.float32, _train_rt(remat_layers=remat), gen, mesh)
+    return {"loss": float(loss), "grads": dict(zip(_dotted(tr), [_np(g) for g in grads]))}
+
+
+def _tp_grads_unsummed(mesh, tree, cfg, quant, ids, labels):
+    """The control: the gradients with no sum over the model axis."""
+    from chatglm_q_tpu_torch.utils import train as T
+
+    keep, T.MODEL_PARTIAL = T.MODEL_PARTIAL, ()
+    try:
+        return _tp_grads(mesh, tree, cfg, quant, ids, labels)
+    finally:
+        T.MODEL_PARTIAL = keep
+
+
+def _tp_gather_summed(mesh, tree, cfg, quant, ids, labels):
+    """The control: ``gather_from_model`` whose backward sums the gradient
+    over the model axis before it takes the rank's columns (what
+    ``torch.distributed.nn``'s all-gather does)."""
+    from chatglm_q_tpu_torch.parallel import autograd_ops as AO
+
+    keep = AO.own_columns
+    AO.own_columns = lambda m, g: keep(m, m.all_reduce(g.contiguous(), "model"))
+    try:
+        return _tp_grads(mesh, tree, cfg, quant, ids, labels)
+    finally:
+        AO.own_columns = keep
+
+
+def _tp_sgd(mesh, tree, cfg, quant, ids, labels, steps=2, lr=1e-2):
+    """``steps`` SGD steps of ``make_train_step`` over the mesh: the losses,
+    the rank's updated trainable leaves, and whether every frozen leaf is
+    bit-unchanged."""
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, tr, fr = _train_setup(mesh, tree, cfg, quant)
+    before = {k: v.clone() for k, v in _dotted(fr).items()}
+    opt = torch.optim.SGD(T.trainable_leaves(tr), lr=lr)
+    step = T.make_train_step(cfg, quant, opt, torch.float32, _train_rt(), mesh)
+    losses = [float(step(tr, fr, _t(ids).long(), _t(labels).long())) for _ in range(steps)]
+    return {"losses": losses, "leaves": {k: _np(v) for k, v in _dotted(tr).items()},
+            "frozen_unchanged": all(torch.equal(v, before[k]) for k, v in _dotted(fr).items())}
+
+
+def _tp_past(mesh, tree, cfg, quant, ids, split):
+    """The data rank's rows: a prefix with ``return_kv``, then the rest over
+    ``past_key_values``; the second call's logits."""
+    import dataclasses
+
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, tr, fr = _train_setup(mesh, tree, cfg, quant)
+    rt = dataclasses.replace(_train_rt(), mesh=mesh)
+    params, x = T.merge_params(tr, fr), _rows(mesh, ids)
+    _, _, kv = M.forward(params, cfg, x[:, :split], quant_type=quant, rt=rt, return_kv=True)
+    _, logits, _ = M.forward(params, cfg, x[:, split:], quant_type=quant, rt=rt,
+                             past_key_values=kv)
+    return _np(logits)
+
+
+TP_TRAIN = {"forward": _tp_forward, "grads": _tp_grads, "grads_unsummed": _tp_grads_unsummed,
+            "gather_summed": _tp_gather_summed, "sgd": _tp_sgd, "past": _tp_past}
+
+
+def tp_train_cases(rank, nd, nm, cases):
+    """{name: (kind, kwargs)} → (data index, model index, {name: result})."""
+    mesh = _mesh(nd, nm)
+    return (mesh.data_index, mesh.model_index,
+            {name: TP_TRAIN[kind](mesh, **kw) for name, (kind, kw) in cases.items()})
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pipeline.py
+# ---------------------------------------------------------------------------
+
+def _pp_setup(mesh, tree, cfg):
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.convert import params_from_numpy
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+
+    return ChatGLM2Config(**cfg), PP.shard_layers(params_from_numpy(tree, "cpu"), mesh)
+
+
+def _pp_forward(mesh, tree, cfg, quant, ids, labels, n_micro):
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+
+    cfg, params = _pp_setup(mesh, tree, cfg)
+    with torch.no_grad():
+        loss, logits = PP.pp_forward(params, cfg, _t(ids).long(), _t(labels).long(), quant,
+                                     torch.float32, _train_rt(), mesh, n_micro)
+    return {"loss": float(loss), "logits": _np(logits)}
+
+
+def _pp_grads(mesh, tree, cfg, quant, ids, labels, n_micro):
+    """The gradient of pp_forward's loss for every trainable leaf of the
+    rank's tree (a layer leaf: its stage's layers)."""
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, params = _pp_setup(mesh, tree, cfg)
+    tr, fr = T.partition_params(params)
+    loss, _ = PP.pp_forward(T.merge_params(tr, fr), cfg, _t(ids).long(), _t(labels).long(),
+                            quant, torch.float32, _train_rt(), mesh, n_micro)
+    grads = torch.autograd.grad(loss, T.trainable_leaves(tr))
+    return {"loss": float(loss), "grads": dict(zip(_dotted(tr), [_np(g) for g in grads]))}
+
+
+def _pp_last_stage_summed(mesh, tree, cfg, quant, ids, labels, n_micro):
+    """The control: the pipeline's output gradient summed over the stages
+    (each stage's copy of it) before the last stage takes it."""
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+
+    keep = PP.last_stage_grad
+    PP.last_stage_grad = lambda g, m: m.all_reduce(g, "stage")
+    try:
+        return _pp_grads(mesh, tree, cfg, quant, ids, labels, n_micro)
+    finally:
+        PP.last_stage_grad = keep
+
+
+def _pp_step(mesh, tree, cfg, quant, ids, labels, n_micro, lr=1e-2):
+    """One SGD step through the pipeline: the loss, whether final_ln moved,
+    whether every frozen leaf is bit-unchanged."""
+    from chatglm_q_tpu_torch.parallel import pipeline as PP
+    from chatglm_q_tpu_torch.utils import train as T
+
+    cfg, params = _pp_setup(mesh, tree, cfg)
+    tr, fr = T.partition_params(params)
+    before = {k: v.clone() for k, v in _dotted(fr).items()}
+    ln = tr["final_ln"]["weight"].detach().clone()
+    opt = torch.optim.SGD(T.trainable_leaves(tr), lr=lr)
+    loss, _ = PP.pp_forward(T.merge_params(tr, fr), cfg, _t(ids).long(), _t(labels).long(),
+                            quant, torch.float32, _train_rt(), mesh, n_micro)
+    loss.backward()
+    opt.step()
+    return {"loss": float(loss),
+            "final_ln_moved": not torch.equal(ln, tr["final_ln"]["weight"].detach()),
+            "frozen_unchanged": all(torch.equal(v, before[k]) for k, v in _dotted(fr).items())}
+
+
+PIPELINE = {"forward": _pp_forward, "grads": _pp_grads, "summed": _pp_last_stage_summed,
+            "step": _pp_step}
+
+
+def pipeline_cases(rank, meshes):
+    """``meshes``: [(n_rep, n_stage, cases)], each mesh built in turn over
+    one process group; cases {name: (kind, kwargs)} → {name: (stage index,
+    result)}."""
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+
+    torch.set_num_threads(1)
+    out = {}
+    for n_rep, n_stage, cases in meshes:
+        mesh = SH.make_mesh(n_rep, 1, n_stage)
+        for name, (kind, kw) in cases.items():
+            out[name] = (mesh.stage_index, PIPELINE[kind](mesh, **kw))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_ckpt.py
+# ---------------------------------------------------------------------------
+
+def ckpt_cases(rank, tree, cfg, quant, whole_dir, mesh_dir):
+    """Save the (1, 2) mesh's slices to ``mesh_dir``; load them onto a (2, 1)
+    mesh and the whole save ``whole_dir`` onto the (1, 2) mesh.  Returns,
+    per load, the keys whose tensor is not ``shard_params``' slice bit for
+    bit (dtype included)."""
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.convert import params_from_numpy
+    from chatglm_q_tpu_torch.parallel import sharding as SH
+    from chatglm_q_tpu_torch.utils import dist_ckpt as C
+
+    cfg = ChatGLM2Config(**cfg)
+    full = params_from_numpy(tree, "cpu")
+
+    def differ(got, mesh):
+        want = _dotted(SH.shard_params(full, mesh, cfg, quant))
+        got = _dotted(got)
+        return sorted(k for k in want if k not in got or got[k].dtype != want[k].dtype
+                      or not torch.equal(got[k], want[k]))
+
+    m12 = _mesh(1, 2)
+    C.save_params(mesh_dir, SH.shard_params(full, m12, cfg, quant), m12, cfg, quant)
+    m21 = _mesh(2, 1)
+    on_21 = C.load_params(mesh_dir, mesh=m21, config=cfg, quant_type=quant, device="cpu")
+    on_12 = C.load_params(whole_dir, mesh=m12, config=cfg, quant_type=quant, device="cpu")
+    return {"mesh_to_21": differ(on_21, m21), "whole_to_12": differ(on_12, m12)}
