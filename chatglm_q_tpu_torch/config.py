@@ -139,15 +139,16 @@ class TorchRuntimeConfig:
     paged_shard_model: the paged pool splits its pages over the model axis
         by logical-block phase (``DistributedPagedServingEngine(
         shard_model_pages=True)`` sets it): decode through K2 and the merge.
-    cuda_graphs: the decode programs (``utils/graphs.py``: a decode step
-        and its sampler, a speculative verify or in-loop speculation step)
+    cuda_graphs: the step programs (``utils/graphs.py``: a decode step
+        and its sampler, a speculative verify or in-loop speculation step,
+        a prefill of one bucket, a compact prefill chunk, a training step)
         run as CUDA graphs, the counterpart of the JAX package's jitted
-        decode programs.  True (the default) captures CUDA decode on the
-        kernel path; False runs each step's launches from Python (an A/B
-        against the graphs, debugging).  A mesh refuses capture (gloo
-        collectives cannot be captured, and the sharded writes sync on
-        ``nonzero``), and so does the masked-softmax path on CUDA: both
-        decode eagerly and say so once (a warning).  On the CPU the
+        programs.  True (the default) captures them on the kernel path;
+        False runs each step's launches from Python (an A/B against the
+        graphs, debugging).  A gloo mesh refuses capture (its collectives
+        cannot be captured; an NCCL mesh captures its decode chunks and
+        runs its prefills eagerly), and so does the masked-softmax path on
+        CUDA: both run eagerly and say so once (a warning).  On the CPU the
         programs run eagerly through the same static buffers.
     The JAX package's block sizes (attn_block_q/k, decode_block_k) have no
     counterpart: the CUDA kernels' tiles are compile-time constants in

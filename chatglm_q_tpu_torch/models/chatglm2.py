@@ -25,7 +25,9 @@ Unlike the JAX package (pure functions), the cache tensors are updated in
 place: a step writes a few slots, never a whole new cache.  Where JAX jits
 its decode loop (``multi_step_decode``'s ``lax.scan``), the port captures one
 decode step with its sampler in a CUDA graph and replays it
-(``decode_program``, utils/graphs.py).  The paged pool
+(``decode_program``, utils/graphs.py), and likewise its prefill, one
+program a power-of-two bucket (``prefill_program``), and a compact prefill
+chunk (``chunk_program``).  The paged pool
 (models/paged_kv.py) goes through the same ``block_forward``.
 
 Under ``rt.mesh`` (tensor-parallel serving) ``block_forward`` runs each
@@ -176,7 +178,9 @@ def _attention_scores(q, k, v, mask_bias, dropout=None, kv_layout="btgd"):
     mask_bias additive f32, broadcastable to (B, G, Hg, S, T); ``dropout`` =
     (rate, generator) drops attention probabilities.  Returns (B, S, G·Hg·D)."""
     B, S, G, Hg, D = q.shape
-    q = q / torch.tensor(math.sqrt(D), dtype=q.dtype, device=q.device)
+    # the divisor rounded to q's dtype, a 0-dim tensor made once outside any
+    # capture (the training program's eager warm-up makes it)
+    q = Q.div_exact(q, math.sqrt(D))
     scores = torch.einsum(f"bsghd,{kv_layout}->bghst", q, k)
     scores = scores.float() + mask_bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -371,17 +375,53 @@ def local_kv_row(kv, g0: int, Gl: int, G: int, D: int):
                      dim=1)
 
 
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def masked_put(dst: torch.Tensor, index: tuple, new: torch.Tensor, owned: torch.Tensor) -> None:
+    """``dst[index] = new`` at the positions where ``owned`` (the index
+    tensors' shape, over dst's leading dims), in place, as a sequential
+    write would leave it, without selecting the positions on the host (no
+    ``nonzero``, so a CUDA graph can hold it).  The write is an accumulate
+    of ``new − old`` on the integer view of dst's bits, zeroed where not
+    owned: a position that is not owned adds 0 to the slot its (clamped)
+    index names, even a slot that an owned position writes in the same
+    call, where a plain ``index_put_`` with repeated indices leaves
+    undefined which write wins.  Of the owned positions that name one slot
+    the last (in the index's row-major order) writes it; an owned slot ends
+    with exactly new's bits (the integer adds wrap)."""
+    lin = index[0].long()
+    for dim, ix in enumerate(index[1:], 1):
+        lin = lin * dst.shape[dim] + ix.long()
+    lin, flat = lin.flatten(), owned.flatten()
+    n = lin.numel()
+    # a slot's last owned writer: a stable sort groups each slot's writers
+    # in order (the unowned positions get keys of their own)
+    key = torch.where(flat, lin, -1 - torch.arange(n, device=lin.device))
+    order = torch.sort(key, stable=True).indices
+    last = torch.ones(n, dtype=torch.bool, device=lin.device)
+    last[:-1] = key[order[:-1]] != key[order[1:]]
+    owned = flat & torch.empty_like(last).scatter_(0, order, last)
+    bits_t = _BITS[dst.element_size()]
+    bits = dst.view(bits_t)
+    new_bits = new.to(dst.dtype).contiguous().view(bits_t)
+    keep = owned.reshape(*index[0].shape, *([1] * (new.dim() - index[0].dim()))).to(bits_t)
+    bits.index_put_(index, (new_bits - bits[index]) * keep, accumulate=True)
+
+
 def write_rows_sharded(cache_layer, new, start, shard: "A.KVShard", rows=None) -> None:
     """``write_rows`` on a T-shard (Bc, G, T_local, D) of a cache of
     ``shard.total`` slots: the start clamps to [0, total − S] as on one
-    device, and only the positions this shard holds are written."""
+    device, and only the positions this shard holds are written
+    (``masked_put``: the others' bits stay as they were)."""
     B, G, S, D = new.shape
     dev = cache_layer.device
+    T_local = cache_layer.shape[2]
     pos = start.to(dev).long().clamp(0, shard.total - S)[:, None] + torch.arange(S, device=dev)
     t = pos - shard.offset
-    b, s = ((t >= 0) & (t < cache_layer.shape[2])).nonzero(as_tuple=True)
-    r = b if rows is None else rows.to(dev).long()[b]
-    cache_layer[r, :, t[b, s]] = new[b, :, s].to(cache_layer.dtype)
+    r = torch.arange(B, device=dev) if rows is None else rows.to(dev).long()
+    masked_put(cache_layer.transpose(1, 2), (r[:, None].expand(B, S), t.clamp(0, T_local - 1)),
+               new.transpose(1, 2), (t >= 0) & (t < T_local))
 
 
 def gather_t_shards(mesh, cache_layer):
@@ -770,6 +810,72 @@ def decode_step(params: dict, config: ChatGLM2Config, next_ids: torch.Tensor,
     h = rms_norm(h, params["final_ln"]["weight"], config.layernorm_epsilon)
     logits = lm_head_logits(h[:, 0], params, config, quant_type, rt)
     return logits, KVCache(cache.k, cache.v, cache.lengths + 1)
+
+
+def prompt_bucket(n: int, max_length: int, minimum: int = 16) -> int:
+    """The power-of-two width an ``n``-token prompt is prefilled at (JAX's
+    ``_bucket``, serving/decoder.py:33): at least ``minimum``, clamped to
+    ``max_length`` (the cache's slots).  One prefill program a bucket."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return min(b, max_length)
+
+
+def prefill_program(params: dict, config: ChatGLM2Config, cache: KVCache, bucket: int,
+                    quant_type: str, dtype, rt: TorchRuntimeConfig):
+    """``prefill`` of right-padded rows at one ``bucket`` width as a step
+    program (utils/graphs.py; JAX's jitted prefill of that bucket) over
+    ``cache``'s tensors: static "ids" (B, bucket) int64 and "lengths" (B,)
+    int32, output "logits" (B, V).  Call its step with ``(params, cache.k,
+    cache.v)``.  Padding changes no output at a valid position: a query
+    attends slots at or below it, the logits come from ``lengths − 1``, and
+    the padding's K/V lands in slots at or above the row's length."""
+    B = cache.k.shape[1]
+    dev = cache.k.device
+    key = ("prefill", G.tensor_key(cache.k), G.tensor_key(cache.v), B, bucket,
+           G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"ids": torch.zeros((B, bucket), dtype=torch.long, device=dev),
+                "lengths": torch.ones((B,), dtype=torch.int32, device=dev)}
+
+    def body(inp, params, k, v):
+        logits, _ = prefill(params, config, inp["ids"], inp["lengths"],
+                            KVCache(k, v, inp["lengths"]), quant_type, dtype, rt)
+        return {"logits": logits}
+
+    return G.programs(params, "prefill").get(key, "prefill", inputs, body, dev, rt,
+                                                 refused=G.mesh_prefill_refusal(rt))
+
+
+def chunk_program(params: dict, config: ChatGLM2Config, cache: KVCache, rows: int, width: int,
+                  quant_type: str, dtype, rt: TorchRuntimeConfig):
+    """``prefill_chunk`` of a compact batch (``slot_map``) of ``rows`` rows
+    of ``width`` tokens as a step program over ``cache``'s tensors: static
+    "ids" (rows, width) int64, "starts", "valid", "slot_map" (rows,) int32
+    and the cache's "lengths" (B,) int32; outputs "logits" (rows, V) and
+    the new "lengths" (B,).  Call its step with ``(params, cache.k,
+    cache.v)``."""
+    B = cache.k.shape[1]
+    dev = cache.k.device
+    key = ("prefill_chunk", G.tensor_key(cache.k), G.tensor_key(cache.v), rows, width,
+           G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"ids": torch.zeros((rows, width), dtype=torch.long, device=dev),
+                **{name: torch.zeros((rows,), dtype=torch.int32, device=dev)
+                   for name in ("starts", "valid", "slot_map")},
+                "lengths": torch.zeros((B,), dtype=torch.int32, device=dev)}
+
+    def body(inp, params, k, v):
+        logits, c = prefill_chunk(params, config, inp["ids"], inp["starts"], inp["valid"],
+                                  KVCache(k, v, inp["lengths"]), quant_type, dtype, rt,
+                                  slot_map=inp["slot_map"])
+        return {"logits": logits, "lengths": c.lengths}
+
+    return G.programs(params, "prefill").get(key, "prefill_chunk", inputs, body, dev, rt,
+                                                 refused=G.mesh_prefill_refusal(rt))
 
 
 def decode_program(params: dict, config: ChatGLM2Config, cache: KVCache, quant_type: str,

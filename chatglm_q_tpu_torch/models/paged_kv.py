@@ -212,7 +212,9 @@ def write_pages_sharded(pool, new, layer: int, table, start, shard: A.KVShard,
     """``write_pages`` on a model-sharded pool: the positions clamp as on one
     device (over the global table of ``shard.total // P`` blocks), and only
     the logical blocks of this rank's phase are written, at their column of
-    the strided local ``table``."""
+    the strided local ``table`` (``chatglm2.masked_put``: the others' bits
+    stay as they were; where the clamps or a shared garbage page fold
+    several positions onto one slot, the last of them writes it)."""
     B, G, S, D = new.shape
     P = pool.shape[3]
     dev = pool.device
@@ -223,9 +225,9 @@ def write_pages_sharded(pool, new, layer: int, table, start, shard: A.KVShard,
     else:
         blk = (pos // P).clamp(max=shard.total // P - 1)
     col = blk // shard.stride
-    b, s = ((blk % shard.stride == shard.phase) & (col < table.shape[1])).nonzero(as_tuple=True)
-    page = table.to(dev).long()[b, col[b, s]]
-    pool[layer][page, :, pos[b, s] % P] = new[b, :, s].to(pool.dtype)
+    owned = (blk % shard.stride == shard.phase) & (col < table.shape[1])
+    page = table.to(dev).long().gather(1, col.clamp(max=table.shape[1] - 1))
+    M.masked_put(pool[layer].transpose(1, 2), (page, pos % P), new.transpose(1, 2), owned)
     return pool
 
 
@@ -349,6 +351,65 @@ def prefill_chunk_paged(params: dict, config: ChatGLM2Config, input_ids: torch.T
     if not return_all_logits:
         h = h[torch.arange(B, device=dev), (chunk_valid - 1).long()]
     return _logits(params, config, quant_type, rt, h), cache.replace(lengths=new_lengths)
+
+
+def prefill_paged_program(params: dict, config: ChatGLM2Config, cache: PagedKVCache,
+                          rows: int, bucket: int, quant_type: str, dtype,
+                          rt: TorchRuntimeConfig):
+    """``prefill_paged`` of ``rows`` right-padded rows at one ``bucket``
+    width as a step program over ``cache``'s pools (JAX's jitted
+    ``_prefill_into_slot`` of that bucket): static "ids" (rows, bucket)
+    int64, "lengths" (rows,) int32 and "page_table" (rows, MP) int32, output
+    "logits" (rows, V).  Call its step with ``(params, cache.k_pool,
+    cache.v_pool)``."""
+    MP = cache.page_table.shape[1]
+    dev = cache.k_pool.device
+    key = ("prefill_paged", G.tensor_key(cache.k_pool), G.tensor_key(cache.v_pool), rows,
+           bucket, MP, G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"ids": torch.zeros((rows, bucket), dtype=torch.long, device=dev),
+                "lengths": torch.ones((rows,), dtype=torch.int32, device=dev),
+                "page_table": torch.zeros((rows, MP), dtype=torch.int32, device=dev)}
+
+    def body(inp, params, k_pool, v_pool):
+        logits, _ = prefill_paged(params, config, inp["ids"], inp["lengths"],
+                                  PagedKVCache(k_pool, v_pool, inp["page_table"], inp["lengths"]),
+                                  quant_type, dtype, rt)
+        return {"logits": logits}
+
+    return G.programs(params, "prefill").get(key, "prefill_paged", inputs, body, dev, rt,
+                                                 refused=G.mesh_prefill_refusal(rt))
+
+
+def chunk_paged_program(params: dict, config: ChatGLM2Config, cache: PagedKVCache, rows: int,
+                        width: int, quant_type: str, dtype, rt: TorchRuntimeConfig):
+    """``prefill_chunk_paged`` of ``rows`` compact rows of ``width`` tokens
+    (JAX's jitted ``_prefill_chunk_compact``) as a step program over
+    ``cache``'s pools: static "ids" (rows, width) int64, "starts", "valid"
+    (rows,) int32 and "page_table" (rows, MP) int32; outputs "logits" (rows,
+    V) and the rows' new "lengths".  A padding row sits on a garbage table
+    row at valid 0: it writes only garbage pages.  Call its step with
+    ``(params, cache.k_pool, cache.v_pool)``."""
+    MP = cache.page_table.shape[1]
+    dev = cache.k_pool.device
+    key = ("prefill_chunk_paged", G.tensor_key(cache.k_pool), G.tensor_key(cache.v_pool), rows,
+           width, MP, G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"ids": torch.zeros((rows, width), dtype=torch.long, device=dev),
+                "starts": torch.zeros((rows,), dtype=torch.int32, device=dev),
+                "valid": torch.zeros((rows,), dtype=torch.int32, device=dev),
+                "page_table": torch.zeros((rows, MP), dtype=torch.int32, device=dev)}
+
+    def body(inp, params, k_pool, v_pool):
+        logits, c = prefill_chunk_paged(
+            params, config, inp["ids"], inp["starts"], inp["valid"],
+            PagedKVCache(k_pool, v_pool, inp["page_table"], inp["starts"]), quant_type, dtype, rt)
+        return {"logits": logits, "lengths": c.lengths}
+
+    return G.programs(params, "prefill").get(key, "prefill_chunk_paged", inputs, body, dev, rt,
+                                                 refused=G.mesh_prefill_refusal(rt))
 
 
 def decode_step_paged(params: dict, config: ChatGLM2Config, next_ids: torch.Tensor,

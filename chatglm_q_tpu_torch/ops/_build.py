@@ -220,6 +220,22 @@ def on_card(t) -> bool:
     return t.is_cuda and not INTERPRET
 
 
+def exporting(t) -> bool:
+    """Whether a wrapper given ``t`` hands it to its custom op instead of
+    launching (ops/export_ops.py): t lies on the card and ``torch.export``
+    is tracing."""
+    import torch
+
+    return t.is_cuda and torch.compiler.is_exporting()
+
+
+def export_op(name: str):
+    """The custom op of wrapper ``name`` (ops/export_ops.py)."""
+    from . import export_ops
+
+    return export_ops.op(name)
+
+
 def launched(wrapper, out):
     """Count a launch of ``wrapper``'s kernel and return its output.  Under
     ``NAN_CHECKS`` the output (a tuple's first tensor: an lse form's m is

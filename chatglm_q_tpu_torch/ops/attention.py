@@ -511,6 +511,8 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
 def flash_attention_decode(q, k, v, lengths, sm_scale):
     """Ragged single-token attention over the layer's (B, G, T, D) cache
     view.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if _build.exporting(q):
+        return _build.export_op("flash_attention_decode")(q, k, v, lengths, sm_scale)
     if not _build.on_card(q):
         return flash_attention_decode_plain(q, k, v, lengths, sm_scale)
     out = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale, DECODE_BLOCK_K,
@@ -623,6 +625,9 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
     ``rope_kv_append_plain`` for the arguments); ``kv`` may be a view with a
     row stride.  Plain version on CPU tensors; the CUDA kernel on CUDA
     tensors.  Returns the rotated q (B, G, Hg, D)."""
+    if _build.exporting(q):
+        return _build.export_op("rope_kv_append")(q, kv, freqs, k_cache, v_cache, layer, starts,
+                                                   page_table)
     if not _build.on_card(q):
         return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
     out = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,

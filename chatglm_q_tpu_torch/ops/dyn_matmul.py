@@ -43,10 +43,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .quant import div_exact, unpack_int4_tpu_q
-from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, splitk_plan, splitk_scratch, wg_plan,
-                           wg_scratch)
+from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, mma_bucket, splitk_plan, splitk_scratch,
+                           wg_plan, wg_problem, wg_scratch)
 
 PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few launches)
 
@@ -137,13 +137,17 @@ def uses_mma(M: int, N: int) -> bool:
     return M > MMA_MIN_M and N % 16 == 0
 
 
-def dyn_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+def dyn_plan(M: int, K: int, N: int, int4: bool = False) -> tuple[int, int, int, int]:
     """(bm, nsplit, stages_per_split, ctas) of ``dyn_wgmma_kernel`` for xq
     (M, K) and N columns: ``wg_plan`` over stages of DYN_STEP s8 elements
     (csrc: DYN_STEP).  At the prefill M it splits K 4 ways where N is narrow:
     q/o/w_out's 32 column tiles become 128 blocks; kv_proj's 4 become 16,
-    since each further split adds more to its tile's merge than it saves."""
-    return wg_plan(M, K, N, step=DYN_STEP)
+    since each further split adds more to its tile's merge than it saves.
+    Or the plan table's "int4_dyn_mma" (B8, ``int4``) / "int8_dyn_mma" (B7)
+    entry (ops/autotune.py)."""
+    return autotune.plan("int4_dyn_mma" if int4 else "int8_dyn_mma", mma_bucket(M), K, N,
+                         lambda: wg_plan(M, K, N, step=DYN_STEP),
+                         lambda p: wg_problem(-(-K // DYN_STEP), p))
 
 
 def _splitk(entry, xq, sx, w, scale, out_dtype):
@@ -161,7 +165,7 @@ def _splitk(entry, xq, sx, w, scale, out_dtype):
 def _mma(entry, xq, sx, w, scale, out_dtype):
     M, K = xq.shape
     N = w.shape[1]
-    plan = dyn_plan(M, K, N)
+    plan = dyn_plan(M, K, N, int4=w.dtype == torch.uint8)
     bm, nsplit, sps, ctas = plan
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     part, arrivals = wg_scratch(xq.device, M, N, plan)

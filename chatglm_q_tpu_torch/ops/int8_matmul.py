@@ -42,8 +42,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .quant_matmul import (MMA_MIN_M, aligned, gemv_plan, splitk_call, splitk_plan, t_mma_plan,
-                           uses_mma, wg_call, wg_plan)
+from .quant_matmul import (MMA_MIN_M, aligned, gemv_plan, int8_mma_plan, splitk_call,
+                           splitk_plan, t_mma_plan, uses_mma, wg_call)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -113,7 +113,7 @@ def int8_mma(x, w, scale):
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, wg_plan(M, K, N))
+    wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, int8_mma_plan(M, K, N))
     return _build.launched(int8_mma, y)
 
 
@@ -126,6 +126,8 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises.  ``w``/``scale`` may be a layer's view ``stack[l]``."""
+    if _build.exporting(x):
+        return _build.export_op("int8_matmul")(x, w, scale)
     if not _build.on_card(x):
         return int8_matmul_plain(x, w, scale)
     _check(x, w, scale)
@@ -186,7 +188,8 @@ def int8_t_mma(g, w, scale):
     M, N = g.shape
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    wg_call("chatglm_int8_t_mma", g, w, scale, out, M, K, N, K, t_mma_plan(M, K, N))
+    wg_call("chatglm_int8_t_mma", g, w, scale, out, M, K, N, K,
+            t_mma_plan(M, K, N, kind="int8"))
     return _build.launched(int8_t_mma, out)
 
 

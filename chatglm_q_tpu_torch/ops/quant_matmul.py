@@ -47,10 +47,11 @@ are ``int4_route`` and ``mma_plan``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .quant import unpack_int4_tpu
 
 GEMV_BN = 256            # columns per gemv block (csrc: GEMV_LANES * GEMV_COLS)
@@ -126,8 +127,76 @@ def splitk_smem(M: int, cg: int, cols: int, xbytes: int = 2) -> int:
     return max(M * (cg * 32 + 32) * xbytes, SPLITK_KW * M * (8 * cols + 1) * 4)
 
 
+# the split-K kernels by (xbytes, int8 weights): table name and the most
+# m-tiles its entry takes (csrc: sk_dispatch<MAX_MT>)
+SPLITK_KERNELS = {(2, False): ("int4_splitk", 8), (2, True): ("int8_splitk", 2),
+                  (1, True): ("int8_dyn_splitk", 2), (1, False): ("int4_dyn_splitk", 2)}
+SPLITK_MTS = (1, 2, 3, 4, 5, 6, 8)
+
+
+def splitk_mt(M: int) -> int:
+    """The split-K kernels' m-tiles of 8 rows for M rows (no 7-tile form)."""
+    mt = -(-M // 8)
+    return mt + (mt == 7)
+
+
+def splitk_problem(M: int, K: int, N: int, plan, xbytes: int = 2,
+                   max_mt: int = 8) -> Optional[str]:
+    """What a split-K kernel refuses in ``plan`` (csrc: sk_dispatch's
+    checks) or leaves wrong (splits that do not cover K's groups), or None."""
+    mt, cols, nsplit, gps, cg = plan
+    G = K // 32
+    if mt not in SPLITK_MTS or mt > max_mt:
+        return f"mt {mt} is not one of {[t for t in SPLITK_MTS if t <= max_mt]}"
+    if not 1 <= M <= 8 * mt:
+        return f"M = {M} rows do not fit {mt} m-tiles"
+    if cols not in (8, 16) or (cols == 16 and (N % 16 or mt != 1)):
+        return f"cols {cols}: 8, or 16 at one m-tile where N % 16 == 0"
+    if nsplit < 1 or gps < 1 or (nsplit - 1) * gps >= G or nsplit * gps < G:
+        return f"{nsplit} splits of {gps} groups do not cover K's {G} groups"
+    if cg < 8 or cg % 8:
+        return f"groups a chunk {cg}: a multiple of 8"
+    if splitk_smem(M, cg, cols, xbytes) > SPLITK_SMEM_MAX:
+        return f"{splitk_smem(M, cg, cols, xbytes)} shared bytes over {SPLITK_SMEM_MAX}"
+    return None
+
+
+def wg_problem(steps: int, plan) -> Optional[str]:
+    """What a Hopper kernel refuses in (bm, nsplit, stages_per_split, ctas)
+    over ``steps`` contraction stages (csrc: wg_plan_ok), or None."""
+    bm, nsplit, sps, ctas = plan
+    if bm not in (64, 128):
+        return f"bm {bm}: 64 or 128"
+    if nsplit < 1 or sps < 1 or (nsplit - 1) * sps >= steps or nsplit * sps < steps:
+        return f"{nsplit} splits of {sps} stages do not cover {steps} stages"
+    if ctas < 1:
+        return f"{ctas} blocks"
+    return None
+
+
+def mma_bucket(M: int) -> int:
+    """A Hopper kernel's table rows: M padded to 64 (its plan depends on M
+    only through the tile counts at bm 64 and 128)."""
+    return -(-M // 64) * 64
+
+
 def splitk_plan(M: int, K: int, N: int, xbytes: int = 2,
                 int8_weights: bool = False) -> tuple[int, int, int, int, int]:
+    """``builtin_splitk_plan``, or this kernel's and shape's entry of the
+    plan table (ops/autotune.py: key rows 8 · mt), checked by
+    ``splitk_problem`` at the bucket's 8 · mt rows: an entry serves every M
+    of its bucket, and its shared memory grows with M."""
+    if not 1 <= M <= SMALL_M_MAX:
+        raise ValueError(f"splitk_plan: M = {M} outside 1..{SMALL_M_MAX}")
+    kernel, max_mt = SPLITK_KERNELS[(xbytes, int8_weights)]
+    rows = 8 * splitk_mt(M)
+    return autotune.plan(kernel, rows, K, N,
+                         lambda: builtin_splitk_plan(M, K, N, xbytes, int8_weights),
+                         lambda p: splitk_problem(rows, K, N, p, xbytes, max_mt))
+
+
+def builtin_splitk_plan(M: int, K: int, N: int, xbytes: int = 2,
+                        int8_weights: bool = False) -> tuple[int, int, int, int, int]:
     """(mt, cols, nsplit, groups_per_split, groups_per_chunk) of the split-K
     kernels (csrc/common.cuh: sk_body) for x (M ≤ SMALL_M_MAX, K) of
     ``xbytes`` an element (bf16: B1, and B6 at M ≤ MMA_MIN_M; s8: B7 and
@@ -149,8 +218,7 @@ def splitk_plan(M: int, K: int, N: int, xbytes: int = 2,
     16 and 16 splits.  The times behind these choices are in PERF.md."""
     if not 1 <= M <= SMALL_M_MAX:
         raise ValueError(f"splitk_plan: M = {M} outside 1..{SMALL_M_MAX}")
-    mt = -(-M // 8)
-    mt += mt == 7  # no 7-tile form
+    mt = splitk_mt(M)
     G = K // 32
 
     def splits(cols):  # (column tiles, groups a split)
@@ -254,19 +322,47 @@ def wg_plan(M: int, C: int, n_out: int, step: int = MMA_STEP) -> tuple[int, int,
     return best[1]
 
 
+def mma_problem(K: int, plan) -> Optional[str]:
+    """What B1's Hopper kernel refuses in (bm, nsplit, groups_per_split,
+    ctas) (csrc: chatglm_int4_wgmma's checks), or None."""
+    bm, nsplit, gps, ctas = plan
+    G = K // 32
+    steps = -(-G // MMA_STAGE_GROUPS)
+    if gps < 1 or (nsplit > 1 and gps % MMA_STAGE_GROUPS) or (nsplit - 1) * gps >= G \
+            or nsplit * gps < G:
+        return f"{nsplit} splits of {gps} groups do not cover K's {G} groups in whole stages"
+    return wg_problem(steps, (bm, nsplit, gps // MMA_STAGE_GROUPS if nsplit > 1 else steps,
+                              ctas))
+
+
 def mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
     """(bm, nsplit, groups_per_split, ctas) of B1's Hopper kernel for bf16 x
     (M, K) and N columns: ``wg_plan`` over K, each split's stages counted in
-    32-row groups (all K / 32 groups where K is not split)."""
-    bm, nsplit, sps, ctas = wg_plan(M, K, N)
-    return bm, nsplit, (MMA_STAGE_GROUPS * sps if nsplit > 1 else K // 32), ctas
+    32-row groups (all K / 32 groups where K is not split); or the plan
+    table's entry (ops/autotune.py, "int4_mma")."""
+    def builtin():
+        bm, nsplit, sps, ctas = wg_plan(M, K, N)
+        return bm, nsplit, (MMA_STAGE_GROUPS * sps if nsplit > 1 else K // 32), ctas
+
+    return autotune.plan("int4_mma", mma_bucket(M), K, N, builtin,
+                         lambda p: mma_problem(K, p))
 
 
-def t_mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+def int8_mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """B6's Hopper kernel: ``wg_plan`` over K, or the table's "int8_mma"
+    entry."""
+    return autotune.plan("int8_mma", mma_bucket(M), K, N, lambda: wg_plan(M, K, N),
+                         lambda p: wg_problem(-(-K // MMA_STEP), p))
+
+
+def t_mma_plan(M: int, K: int, N: int, kind: str = "int4g32") -> tuple[int, int, int, int]:
     """(bm, nsplit, stages_per_split, ctas) of the transposed Hopper kernel
-    (B13, B14) for g (M, N) and K output columns: ``wg_plan`` over the
-    contraction N."""
-    return wg_plan(M, N, K)
+    (B13 for ``kind`` "int8", B14 for "int4g32") for g (M, N) and K output
+    columns: ``wg_plan`` over the contraction N, or the table's
+    "{int8,int4}_t_mma" entry."""
+    name = "int8_t_mma" if kind == "int8" else "int4_t_mma"
+    return autotune.plan(name, mma_bucket(M), K, N, lambda: wg_plan(M, N, K),
+                         lambda p: wg_problem(-(-N // MMA_STEP), p))
 
 
 def wg_scratch(device, M: int, n_out: int, plan) -> tuple:
@@ -366,6 +462,8 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
     a kernel or raises.  ``packed``/``scale`` may be a layer's view
     ``stack[l]`` of the stacked (L, ...) weights: such views are contiguous,
     and their 64-bit addresses come from ``data_ptr()``."""
+    if _build.exporting(x):
+        return _build.export_op("int4g32_matmul")(x, packed, scale)
     if not _build.on_card(x):
         return int4g32_matmul_plain(x, packed, scale)
     _check(x, packed, scale)

@@ -12,13 +12,13 @@ chatglm_q_tpu/serving/decoder.py (``GLMDecoder``).
 
 What differs:
 
-* The prefill runs eagerly, so the JAX package's power-of-two prompt
-  buckets (which bound the number of ``jax.jit`` programs) are dropped: the
-  prompt is prefilled at its own length.  Right padding changes no output.
-  The decode step with its sampler and the speculative verify step (JAX's
-  jitted ``_decode`` and ``_verify``) are step programs over the decoder's
-  cache, replayed from CUDA graphs (utils/graphs.py); the cache is kept
-  across calls (a stream still open when another starts gets its own).
+* The prompt is right-padded to a power-of-two bucket, as in JAX, and
+  each bucket's prefill is a step program over the decoder's cache
+  (``chatglm2.prefill_program``), as are the decode step with its sampler
+  and the speculative verify step (JAX's jitted ``_prefill``, ``_decode``
+  and ``_verify``): replayed from CUDA graphs (utils/graphs.py).  The cache
+  is kept across calls (a stream still open when another starts gets its
+  own).
 * Sampling draws from a ``torch.Generator`` on the params' device that is
   kept with the cache and reseeded from ``seed`` each call; its draws
   differ from ``jax.random``'s.
@@ -123,7 +123,11 @@ class GLMDecoder:
         max_prefix = self.max_sequence_length - max(1, min(max_generated_tokens, 64))
         if len(prefix_ids) > max_prefix:
             prefix_ids = prefix_ids[-max_prefix:]
-        prompt = torch.tensor([prefix_ids], dtype=torch.long, device=self.device)
+        # the bucket clamps to the cache (a max_sequence_length that is not a
+        # power of two)
+        bucket = M.prompt_bucket(len(prefix_ids), self.max_sequence_length)
+        prompt = torch.zeros((1, bucket), dtype=torch.long)
+        prompt[0, : len(prefix_ids)] = torch.tensor(prefix_ids, dtype=torch.long)
         lengths = torch.tensor([len(prefix_ids)], dtype=torch.int32, device=self.device)
         # a kept cache and its generator; a stream still open elsewhere keeps
         # its own pair, so interleaved streams draw independently
@@ -150,7 +154,13 @@ class GLMDecoder:
         speculate = speculative_k > 0 and sampling.mode == "greedy"
         self.spec_stats = {"verify_steps": 0, "decode_steps": 0, "accepted_tokens": 0}
         start = time.perf_counter()
-        logits, cache = M.prefill(self.params, mc, prompt, lengths, cache, qt, self.dtype, self.rt)
+        prefill = M.prefill_program(self.params, mc, cache, prompt.shape[1], qt, self.dtype,
+                                    self.rt)
+        prefill.load(ids=prompt, lengths=lengths)
+        # the logits live in the programs' pool: sampled before the decode
+        # program replays
+        logits = prefill.step(self.params, cache.k, cache.v)["logits"]
+        cache = M.KVCache(cache.k, cache.v, lengths)
         step = M.decode_program(self.params, mc, cache, qt, self.dtype, self.rt, sampling)
         if sampling.mode == "rows":
             fill_rows(step.inputs, *setting)

@@ -39,9 +39,12 @@ through the rank's local table (on a model-sharded pool only its phase's
 blocks), and a step's drafts, accepts and next tokens are all-gathered as a
 plain chunk's tokens are.
 
-The decode chunks run from eager launches: a mesh refuses CUDA-graph
-capture (gloo collectives cannot be captured, and the sharded writes sync
-on ``nonzero``; utils/graphs.py ``MESH_REFUSAL``).
+The decode chunks are the single-process engines' decode programs over
+the rank's rows and cache (utils/graphs.py): over NCCL they are captured,
+each rank capturing the same collectives in the same order (the ranks run
+in lockstep); over gloo they run eagerly through the same buffers (gloo's
+collectives cannot be captured: ``MESH_REFUSAL``, warned once).  The
+prefills and chunks of a mesh run eagerly (``MESH_PREFILL_REFUSAL``).
 """
 from __future__ import annotations
 
@@ -217,16 +220,9 @@ class DistributedServingEngine(_MeshEngine, ServingEngine):
         rows = self._rows
         temperature, top_p, top_k_limit, any_sampled = sampling
         local_sampling = (temperature[rows], top_p[rows], top_k_limit[rows], any_sampled)
-        orig = self.cache.lengths
-        cache = M.KVCache(self.cache.k, self.cache.v, torch.where(free[rows], 0, orig))
-        tok, toks = first_tok[rows], []
-        for _ in range(n):
-            logits, cache = M.decode_step(self.params, self.mc, tok, cache,
-                                          self.config.quant_type, self.dtype, self.rt)
-            tok = self._sample(logits, local_sampling, top_k)
-            toks.append(tok)
-        self.cache = M.KVCache(cache.k, cache.v, torch.where(active[rows], cache.lengths, orig))
-        return torch.stack(toks, dim=1)
+        # the cache holds the group's rows: the base engine's program over it
+        return super()._decode_chunk(first_tok[rows], active[rows], free[rows], local_sampling,
+                                     n, top_k)
 
     def _chain(self, first, prev_toks, prev_active):
         """Lookahead: the group's rows continue from their own last device

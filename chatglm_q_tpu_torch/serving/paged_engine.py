@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models import chatglm2 as M
 from ..models import paged_kv as PK
 from ..models import spec_decode as SD
 from .engine import ServingEngine
@@ -227,27 +228,28 @@ class PagedServingEngine(ServingEngine):
         slot's table row; attention runs on the fresh K/V."""
         padded = np.zeros((1, bucket), np.int32)
         padded[0, : len(ids)] = ids
-        sub = PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool,
-                              self.cache.page_table[slot:slot + 1],
-                              torch.zeros((1,), dtype=torch.int32, device=self.device))
-        logits, _ = PK.prefill_paged(self.params, self.mc, self._ids(padded).long(),
-                                     self._ids([len(ids)]), sub, self.config.quant_type,
-                                     self.dtype, self.rt)
+        # the bucket's program (one for every slot: the table row is an input)
+        prog = PK.prefill_paged_program(self.params, self.mc, self.cache, 1, bucket,
+                                        self.config.quant_type, self.dtype, self.rt)
+        prog.load(ids=self._ids(padded).long(), lengths=self._ids([len(ids)]),
+                  page_table=self.cache.page_table[slot:slot + 1])
+        logits = prog.step(self.params, self.cache.k_pool, self.cache.v_pool)["logits"]
         self.cache.lengths[slot] = len(ids)
         return logits[0]
 
     def _prefill_chunk_compact(self, ids, starts, valids, slots) -> torch.Tensor:
-        """A compact chunk: only the mid-prefill slots' rows run, through
-        their own table rows; no pool copies."""
+        """A compact chunk, a program of its (rows, chunk) shape: only the
+        mid-prefill slots' rows run, through their own table rows (loaded
+        into the program's); no pool copies.  The rows are a power of two
+        (``_advance_prefills``)."""
         slots_t = self._ids(slots).long()
-        starts_t = self._ids(starts)
-        sub = PK.PagedKVCache(self.cache.k_pool, self.cache.v_pool,
-                              self.cache.page_table[slots_t], starts_t)
-        logits, sub = PK.prefill_chunk_paged(self.params, self.mc, self._ids(ids).long(),
-                                             starts_t, self._ids(valids), sub,
-                                             self.config.quant_type, self.dtype, self.rt)
-        self.cache.lengths[slots_t] = sub.lengths
-        return logits
+        prog = PK.chunk_paged_program(self.params, self.mc, self.cache, *ids.shape,
+                                      self.config.quant_type, self.dtype, self.rt)
+        prog.load(ids=self._ids(ids).long(), starts=self._ids(starts), valid=self._ids(valids),
+                  page_table=self.cache.page_table[slots_t])
+        out = prog.step(self.params, self.cache.k_pool, self.cache.v_pool)
+        self.cache.lengths[slots_t] = out["lengths"]
+        return out["logits"]
 
     def _decode_batch(self, active: list) -> tuple[list, list]:
         """The rows of a decode chunk: (slots, real).  Compact: the decoding
@@ -365,8 +367,8 @@ class PagedServingEngine(ServingEngine):
         # host rolls it back, and must stay inside owned pages (a speculative
         # step advances up to k + 1 positions)
         slack = self.chunk * (self.speculative_k + 1 if self.speculative_k else 1)
-        tokens = min(max(self._bucket(n_ids), n_ids + req.max_new_tokens + slack),
-                     self.max_seq_len)
+        bucket = M.prompt_bucket(n_ids, self.max_seq_len)
+        tokens = min(max(bucket, n_ids + req.max_new_tokens + slack), self.max_seq_len)
         return -(-tokens // self.page_size)
 
     def submit(self, prompt_ids: list, **kwargs) -> int:

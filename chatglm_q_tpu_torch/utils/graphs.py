@@ -2,12 +2,16 @@
 programs (``multi_step_decode``'s ``lax.scan``, ``GLMDecoder``'s ``_decode``
 and ``_verify``, the engines' decode and speculation chunks), as CUDA graphs.
 
-A step program is one step of a decode loop over static buffers:
+A step program is one step of a decode loop, or one prefill, prefill
+chunk or training step, over static buffers:
 
 * static inputs, owned by the program: the step's ids, lengths, page table,
   per-row sampling settings, token history;
 * a body: ``decode_step`` / ``decode_step_paged`` and the sampler, a
-  speculative verify, or an in-loop speculation step.  It reads the static
+  speculative verify, an in-loop speculation step, a prefill of one
+  (batch, bucket) shape (JAX's jitted prefill per power-of-two bucket), a
+  compact prefill chunk of one (rows, chunk) shape, or a whole training
+  step (forward, backward, the optimizer's step).  It reads the static
   inputs and writes its results back into them in place (the sampled token
   becomes the next step's ids, the lengths advance), so n steps are n
   replays with nothing copied in between;
@@ -17,13 +21,14 @@ The big tensors a body touches (params, the KV cache or page pool) are
 passed on each call, never held: a program is keyed by the addresses and
 shapes of the cache's tensors (``tensor_key``) and by what JAX would take as
 static arguments (batch, cache shape, quant mode, runtime flags, the
-sampler), in the registry of the params it was made for: ``programs(params)``
-is keyed by every leaf of the tree (``params_key``), so a call with other
-tensors, or a tree that differs in any one weight, finds another program.
-A registry's programs share one graph memory pool, and at most
-``MAX_PROGRAMS`` are kept (least recently used first out).  Under that
-shared pool a program's outputs are valid only until the next replay of
-any program of the registry: read (or copy) them before that.
+sampler), in the registry of the params it was made for: ``programs(params,
+family)`` is keyed by every leaf of the tree (``params_key``), so a call
+with other tensors, or a tree that differs in any one weight, finds another
+program.  A tree's programs share one graph memory pool, and each family
+(decode, prefill, train) keeps at most ``MAX_PROGRAMS`` (least recently
+used first out).  Under that shared pool a program's outputs are valid only
+until the next replay of any program of the tree: read (or copy) them
+before that.
 
 On CUDA a program runs its first step eagerly (the warm-up: every kernel
 built and loaded, every scratch buffer and table sized), captures the body
@@ -31,8 +36,15 @@ on its second call and replays from then on.  A capture that fails raises
 ``CaptureError``: the step never falls back to eager launches.  The kernel
 wrappers count launches in Python, which a replay does not run: the counts
 a capture made are added back on every replay.  On a CPU tensor, and where
-``TorchRuntimeConfig.cuda_graphs`` is False or capture is refused (a mesh,
-the masked-softmax path), the body runs eagerly through the same buffers.
+``TorchRuntimeConfig.cuda_graphs`` is False or capture is refused (a gloo
+mesh, the masked-softmax path, a training step with dropout or on a mesh),
+the body runs eagerly through the same buffers (and so does a training
+step over an optimizer that is not capturable).  A training step's
+capture bakes in its optimizer's float hyperparameters and state tensors:
+where they change (a float lr under a scheduler, ``load_state_dict``), the
+step is captured again before it replays.  An NCCL mesh captures: NCCL's
+collectives are captured into the graph, and every rank of a model group
+takes the same programs in the same order, so the ranks capture together.
 """
 from __future__ import annotations
 
@@ -47,10 +59,25 @@ import torch
 from .. import ops
 
 MAX_PROGRAMS = 32
-MESH_REFUSAL = ("a mesh decodes eagerly: gloo collectives cannot be captured in a CUDA graph, "
-                "and the sharded KV writes sync on nonzero")
+MESH_REFUSAL = ("a gloo mesh runs its programs eagerly: gloo collectives cannot be captured "
+                "in a CUDA graph")
 MASKED_REFUSAL = ("the masked-softmax path (use_flash_attention=False) decodes eagerly: it is "
                   "not the kernel path, and it copies a host scalar each step")
+DROPOUT_REFUSAL = ("a training step with dropout runs eagerly: the forward draws one seed a "
+                   "layer and reads them on the host (.tolist()), which a capture cannot hold")
+OPTIMIZER_REFUSAL = ("a training step over a non-capturable optimizer runs eagerly: build it "
+                     "with capturable=True (e.g. torch.optim.AdamW(..., capturable=True)) so "
+                     "that its step count stays on the device")
+MESH_PREFILL_REFUSAL = ("under a mesh the prefill and chunk programs run eagerly: only the "
+                        "decode chunks are captured over NCCL, and the ring prefill's "
+                        "point-to-point exchanges are not")
+MESH_TRAIN_REFUSAL = ("under a mesh the training step runs eagerly: only the decode chunks are "
+                      "captured over NCCL, not the gradients' all-reduces")
+RECAPTURE_NOTE = ("a captured training step's optimizer changed (a hyperparameter that is not a "
+                  "tensor, such as a float lr under a scheduler, or its state tensors after "
+                  "load_state_dict): the step is captured again at each change.  To change lr "
+                  "inside one graph, pass it as a tensor (torch.optim.AdamW(..., "
+                  "lr=torch.tensor(1e-3, device='cuda'), capturable=True))")
 
 
 class CaptureError(RuntimeError):
@@ -58,30 +85,43 @@ class CaptureError(RuntimeError):
 
 
 def refusal(rt, device) -> Optional[str]:
-    """Why capture is refused for ``rt`` on a CUDA ``device``, or None."""
-    if rt.mesh is not None:
+    """Why capture is refused for ``rt`` on a CUDA ``device``, or None.  A
+    mesh is refused by its transport: gloo's collectives stage through
+    host memory, NCCL's are captured."""
+    if rt.mesh is not None and rt.mesh.backend != "nccl":
         return MESH_REFUSAL
     if not rt.flash_enabled(device):
         return MASKED_REFUSAL
     return None
 
 
+def mesh_prefill_refusal(rt) -> Optional[str]:
+    """The prefill and chunk programs' own refusal: under a mesh they run
+    eagerly (the decode programs alone capture over NCCL)."""
+    return None if rt.mesh is None else MESH_PREFILL_REFUSAL
+
+
 _SAID: set = set()
 
 
-def capture_enabled(rt, device) -> bool:
-    """Whether programs on ``device`` capture under ``rt``: on CUDA unless
-    ``rt.cuda_graphs`` is False or capture is refused, which is said once
-    (a warning)."""
-    device = torch.device(device)
-    if device.type != "cuda" or not rt.cuda_graphs:
-        return False
-    reason = refusal(rt, device)
-    if reason is None:
-        return True
+def say_once(reason: str) -> None:
+    """Warn ``reason`` the first time it is given."""
     if reason not in _SAID:
         _SAID.add(reason)
         warnings.warn(reason, RuntimeWarning, stacklevel=3)
+
+
+def capture_enabled(rt, device, reason: Optional[str] = None) -> bool:
+    """Whether programs on ``device`` capture under ``rt``: on CUDA unless
+    ``rt.cuda_graphs`` is False or capture is refused (``refusal``, or the
+    caller's own ``reason``), which is said once (a warning)."""
+    device = torch.device(device)
+    if device.type != "cuda" or not rt.cuda_graphs:
+        return False
+    reason = reason or refusal(rt, device)
+    if reason is None:
+        return True
+    say_once(reason)
     return False
 
 
@@ -106,11 +146,20 @@ class StepProgram:
     the graph so that every replay draws anew.  ``outputs`` live in the
     registry's shared graph pool: they hold until the next replay of any
     program of the registry, when another graph's temporaries may reuse
-    their memory."""
+    their memory.  ``capture_mode``: ``torch.cuda.graph``'s
+    ``capture_error_mode`` ("global" where the body's backward runs on
+    autograd's device threads).  ``guard``: what else the capture bakes in
+    (a training step's optimizer settings and state tensors); where it reads
+    otherwise before a replay, the body is captured again (``RECAPTURE_NOTE``,
+    said once)."""
 
     def __init__(self, name: str, body: Callable, inputs: dict, capture: bool,
-                 registry: "Programs", generator: Optional[torch.Generator] = None):
+                 registry: "Programs", generator: Optional[torch.Generator] = None,
+                 capture_mode: str = "thread_local", guard: Optional[Callable[[], tuple]] = None):
         self.name = name
+        self.capture_mode = capture_mode
+        self.guard = guard
+        self.guarded = None
         self.body = body
         self.inputs = inputs
         self.capture = capture
@@ -132,7 +181,12 @@ class StepProgram:
     def step(self, *args) -> dict:
         """One step: eager (the first call, or a program that does not
         capture), the capture and its first replay, or a replay."""
-        if self.graph is None and self.capture and self.calls > 0:
+        if self.graph is not None and self.guard is not None and self.guard() != self.guarded:
+            say_once(RECAPTURE_NOTE)
+            # captured again over what the guard reads now, before the old
+            # graph goes: a pool whose last graph is freed takes no capture
+            self._capture(args)
+        elif self.graph is None and self.capture and self.calls > 0:
             self._capture(args)
         if self.graph is not None:
             self.graph.replay()
@@ -158,12 +212,13 @@ class StepProgram:
 
     def _capture(self, args) -> None:
         before = ops.launch_counts()
+        self.guarded = None if self.guard is None else self.guard()
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         try:
             with torch.cuda.graph(graph, pool=self._registry.pool(),
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode=self.capture_mode):
                 outputs = self.body(self.inputs, *args)
         except Exception as e:
             raise CaptureError(
@@ -178,32 +233,40 @@ class StepProgram:
 
 
 class Programs:
-    """A model's step programs by key, sharing one graph memory pool."""
+    """A model's step programs of one family by key, sharing one graph
+    memory pool with the model's other families (``shares``)."""
 
-    def __init__(self, limit: int = MAX_PROGRAMS):
+    def __init__(self, limit: int = MAX_PROGRAMS, shares: Optional["Programs"] = None):
         self.limit = limit
         self.captures = 0
         self._programs: collections.OrderedDict = collections.OrderedDict()
         self._pool = None
+        self._shares = shares
 
     def __len__(self) -> int:
         return len(self._programs)
 
     def pool(self):
+        if self._shares is not None:
+            return self._shares.pool()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
     def get(self, key: tuple, name: str, make_inputs: Callable[[], dict], body: Callable,
-            device, rt, generator: Optional[torch.Generator] = None) -> StepProgram:
+            device, rt, generator: Optional[torch.Generator] = None,
+            refused: Optional[str] = None, capture_mode: str = "thread_local",
+            guard: Optional[Callable[[], tuple]] = None) -> StepProgram:
         """The program of ``key``, built on first use (``make_inputs()`` its
-        static inputs; ``body`` as ``StepProgram`` takes it)."""
+        static inputs; ``body``, ``capture_mode`` and ``guard`` as
+        ``StepProgram`` takes them).  ``refused``: the caller's own reason to
+        run this program eagerly."""
         prog = self._programs.get(key)
         if prog is not None:
             self._programs.move_to_end(key)
             return prog
-        prog = StepProgram(name, body, make_inputs(), capture_enabled(rt, device), self,
-                           generator)
+        prog = StepProgram(name, body, make_inputs(), capture_enabled(rt, device, refused),
+                           self, generator, capture_mode, guard)
         self._programs[key] = prog
         while len(self._programs) > self.limit:
             self._programs.popitem(last=False)
@@ -229,15 +292,26 @@ def params_key(params: dict) -> tuple:
     return tuple(tensor_key(t) for t in _leaves(params))
 
 
-def programs(params: dict) -> Programs:
-    """The registry of the tree ``params``, keyed by all its leaves: two
-    trees that differ in any leaf have registries of their own.  It is
-    dropped when any of its leaves is freed (a program never holds the
-    params)."""
+FAMILIES = ("decode", "prefill", "train")
+
+
+def programs(params: dict, family: str = "decode") -> Programs:
+    """The registry of the tree ``params`` for one program ``family``
+    (FAMILIES: the decode-loop programs, the prefill and chunk programs,
+    the training step), keyed by all the tree's leaves: two trees that
+    differ in any leaf have registries of their own.  A family keeps its own
+    ``MAX_PROGRAMS`` (a prefill of a new bucket never evicts a decode
+    program); the families of a tree share one graph pool.  Dropped when any
+    leaf of the tree is freed (a program never holds the params)."""
+    if family not in FAMILIES:
+        raise ValueError(f"program family {family!r}: one of {FAMILIES}")
     key = params_key(params)
-    reg = _REGISTRIES.get(key)
-    if reg is None:
-        reg = _REGISTRIES[key] = Programs()
+    regs = _REGISTRIES.get(key)
+    if regs is None:
+        regs = _REGISTRIES[key] = {}
         for leaf in _leaves(params):
             weakref.finalize(leaf, _REGISTRIES.pop, key, None)
+    reg = regs.get(family)
+    if reg is None:
+        reg = regs[family] = Programs(shares=next(iter(regs.values()), None))
     return reg

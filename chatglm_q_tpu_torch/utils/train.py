@@ -10,6 +10,20 @@ masters, everything of a quantized layer → frozen), autograd through
 optimizer over the trainable leaves.  Over a (data, model) mesh of ranks
 the same step runs tensor and data parallel (JAX's ``make_train_step`` under
 GSPMD): see ``loss_and_grads``.
+
+``make_train_step``'s whole step (forward, backward, the optimizer's step
+and ``zero_grad``) is a step program (utils/graphs.py), the counterpart of
+JAX's jitted ``train_step``: on one CUDA device eager on its first call,
+captured in a CUDA graph on the second, replayed after, over static
+``input_ids`` and ``labels`` buffers; on the CPU its body runs eagerly
+through the same buffers.  The optimizer must be capturable
+(``torch.optim.AdamW(..., capturable=True)``: the step count stays on the
+device).  A step with dropout, over a non-capturable optimizer or on a mesh
+runs eagerly, with a stated reason (warned once).  The capture bakes in
+the optimizer's float hyperparameters and the addresses of its state
+(``optimizer_guard``): where a scheduler changes a float lr, or
+``load_state_dict`` swaps the state, the step is captured again before it
+replays; a tensor lr changes inside the one graph.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ import torch
 from ..config import ChatGLM2Config, TorchRuntimeConfig
 from ..models import chatglm2 as M
 from ..parallel.sharding import leaf_paths
+from . import graphs as G
 from .distributed import local_batch_slice
 
 
@@ -131,13 +146,52 @@ def loss_and_grads(config: ChatGLM2Config, quant_type: str, trainable: dict, fro
     return loss.detach(), reconcile_grads(trainable, grads, mesh)
 
 
+def step_refusal(config: ChatGLM2Config, optimizer, generator, mesh=None) -> Optional[str]:
+    """Why a training step runs eagerly on CUDA (dropout, an optimizer that
+    is not capturable, a mesh), or None."""
+    if mesh is not None:
+        return G.MESH_TRAIN_REFUSAL
+    if generator is not None and config.dropout_rate > 0:
+        return G.DROPOUT_REFUSAL
+    if any(group.get("capturable") is False for group in optimizer.param_groups):
+        return G.OPTIMIZER_REFUSAL
+    return None
+
+
+def _baked(v):
+    """What a captured optimizer step bakes in of a setting or state value:
+    a tensor's address (the graph reads its value on every replay), else
+    the value itself."""
+    if isinstance(v, torch.Tensor):
+        return G.tensor_key(v)
+    if isinstance(v, (tuple, list)):
+        return tuple(_baked(x) for x in v)
+    return v
+
+
+def optimizer_guard(optimizer) -> tuple:
+    """What a captured ``optimizer.step()`` bakes in: each group's settings
+    (a float lr, betas, weight decay as values; a tensor lr by its address)
+    and the addresses of its parameters and their state tensors.  It reads
+    otherwise after a scheduler sets a float lr or ``load_state_dict``
+    swaps the state, and then the step is captured again."""
+    out = []
+    for group in optimizer.param_groups:
+        out.append(tuple((k, _baked(v)) for k, v in sorted(group.items()) if k != "params"))
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            out.append((G.tensor_key(p),) + tuple((k, _baked(v)) for k, v in sorted(state.items())))
+    return tuple(out)
+
+
 def make_train_step(config: ChatGLM2Config, quant_type: str, optimizer: torch.optim.Optimizer,
                     dtype=torch.bfloat16, rt: Optional[TorchRuntimeConfig] = None,
                     mesh=None) -> Callable:
     """``optimizer`` is built over ``trainable_leaves(trainable)``.  Returns
     ``train_step(trainable, frozen, input_ids, labels, generator=None) ->
     loss``: forward, backward, ``optimizer.step()`` (the trainable leaves
-    update in place), ``zero_grad``.  ``generator`` turns on dropout.
+    update in place), ``zero_grad``, through ``train_program``.
+    ``generator`` turns on dropout.
 
     With ``mesh`` the step is ``loss_and_grads``' over the mesh: every rank
     passes the global batch and takes the same optimizer step on its leaves
@@ -146,13 +200,48 @@ def make_train_step(config: ChatGLM2Config, quant_type: str, optimizer: torch.op
     rule); the port's linears always run per shard under a mesh, and their
     backward is ``ops/linear.QuantMatmul``'s on the rank's shard."""
 
+    rt = rt or TorchRuntimeConfig()
+
     def train_step(trainable, frozen, input_ids, labels, generator=None):
-        loss, grads = loss_and_grads(config, quant_type, trainable, frozen, input_ids, labels,
-                                     dtype, rt, generator, mesh)
+        prog = train_program(config, quant_type, optimizer, trainable, frozen, input_ids.shape,
+                             labels.dtype, dtype, rt, generator, mesh)
+        prog.load(ids=input_ids, labels=labels)
+        # a copy: a captured graph's output is overwritten by the next replay
+        return prog.step(trainable, frozen)["loss"].clone()
+
+    return train_step
+
+
+def train_program(config: ChatGLM2Config, quant_type: str, optimizer, trainable: dict,
+                  frozen: dict, shape: tuple, labels_dtype, dtype, rt: TorchRuntimeConfig,
+                  generator: Optional[torch.Generator] = None, mesh=None) -> G.StepProgram:
+    """The training step as a step program (see the module note): static
+    "ids" and "labels" of ``shape``; output "loss".  Call its step with
+    ``(trainable, frozen)``.  The gradients are set as each leaf's
+    ``.grad`` for the optimizer's step and set to None after it (in a
+    capture they are the graph's temporaries)."""
+    leaves = trainable_leaves(trainable)
+    dev = leaves[0].device
+    params = merge_params(trainable, frozen)
+    key = ("train_step", id(optimizer), tuple(shape), labels_dtype,
+           None if generator is None else id(generator), id(mesh),
+           G.static_key(config, quant_type, dtype, rt))
+
+    def inputs():
+        return {"ids": torch.zeros(shape, dtype=torch.long, device=dev),
+                "labels": torch.zeros(shape, dtype=labels_dtype, device=dev)}
+
+    def body(inp, trainable, frozen):
+        loss, grads = loss_and_grads(config, quant_type, trainable, frozen, inp["ids"],
+                                     inp["labels"], dtype, rt, generator, mesh)
         for leaf, grad in zip(trainable_leaves(trainable), grads):
             leaf.grad = grad
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return loss
+        return {"loss": loss}
 
-    return train_step
+    refused = step_refusal(config, optimizer, generator, rt.mesh if mesh is None else mesh)
+    # backward runs on autograd's device threads: capture in global mode
+    return G.programs(params, "train").get(key, "train_step", inputs, body, dev, rt,
+                                           refused=refused, capture_mode="global",
+                                           guard=lambda: optimizer_guard(optimizer))

@@ -9,6 +9,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --train-mesh    # phase 2's tp = 2 rows and phase 11 alone
     python3 chip_smoke.py --serving    # phases 4, 5, 6 and 9 alone (the captured decode)
     python3 chip_smoke.py --quant    # phase 10 alone, then GPTQ int4g32 of the 28-layer model
+    python3 chip_smoke.py --programs    # phase 4's captured prefill, phase 7 and phase 12 alone
+    python3 chip_smoke.py --phase12    # phase 12 alone (the plan table, the export, the launchers)
 
 Phases (any failure raises and exits non-zero):
 
@@ -91,7 +93,12 @@ Phases (any failure raises and exits non-zero):
    (torch.profiler's device time by kernel, ``decode_attn_kernel``'s and
    ``int4_splitk_mma_kernel``'s apart, no ``splitk_reduce_kernel``;
    cProfile's host time by function), and a 1 x 128 and a 4 x 128 prefill
-   traced the same way, ``int4_wgmma_kernel``'s 168 launches apart.
+   traced the same way, ``int4_wgmma_kernel``'s 168 launches apart.  Then
+   the prefill program of a bucket (``prefill_program``) captured against
+   the same program run eagerly (``cuda_graphs=False``) at 1 x 128, 4 x 128
+   and a 57-token prompt (bucket 64), in turns: logits and valid cache
+   slots bit-equal, launches equal; ms a call (warm-up, capture, replays)
+   and the device ms of an eager call and a replay.
 5. The chat entry point at full size: ChatGLM2-6B (28 layers) int8, then
    int8 with dynamic int8 activations, then int4g32 with dynamic int8
    activations, then int4g32, each through ``GLMDecoder.generate`` (greedy,
@@ -112,7 +119,9 @@ Phases (any failure raises and exits non-zero):
    int8+dyn a 4 x 128 one), ``dyn_wgmma_kernel``'s 168 launches and the
    quantize prologue's device ms apart.  Then a round trip at 6B widths,
    depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
-   for int8 and int4g32, with identical tensors and equal logits.
+   for int8 and int4g32, with identical tensors and equal logits.  Each
+   mode's time to first token (its bucket's prefill program replayed)
+   against the eager decoder's, in turns.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights, no tokenizer (eos id 2), token-id prompts from a seeded
    generator.  (a) ``PagedServingEngine`` with 256-token chunked admission
@@ -140,9 +149,11 @@ Phases (any failure raises and exits non-zero):
    the three largest kernels; in (a) also one chunk step (four 256-token
    prompt chunks, 1024 rows) split into device and host time, with B1's
    Hopper kernel apart.  Every decode chunk replays captured programs (one
-   a compact batch; (b)'s speculation steps too); each run is driven again
-   from eager launches (``cuda_graphs=False``), its greedy tokens equal,
-   with its tokens/s, time to first token and (a), (c) busy share.
+   a compact batch; (b)'s speculation steps too), and so do the prefill
+   chunks of (a) and (c) (a program a (rows, chunk) shape); each run is
+   driven again from eager launches (``cuda_graphs=False``), its greedy
+   tokens equal, with its tokens/s, time to first token and (a), (c) busy
+   share, and (a), (c) one chunk step's (captured and eager).
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -152,7 +163,10 @@ Phases (any failure raises and exits non-zero):
    CUDA-core B14), every frozen leaf bit-unchanged; then the int8 tree for
    3 steps (B6 and B13).  ms and tokens/s a step, peak device memory, and
    for each tree a traced step's device time by kernel, with its forward
-   and backward Hopper kernels' shares (B1 and B14, B6 and B13).
+   and backward Hopper kernels' shares (B1 and B14, B6 and B13).  Then the
+   training step as a program captured on its second call against the same
+   program run eagerly, both with capturable AdamW from the same start, 4
+   steps in turns: losses and leaves bit-equal, ms a step, peak memory.
 
 8. Tensor-parallel serving at full width: an 8-layer int4g32 tree (28 layers
    under ``--nccl``; ``SHARD_LAYERS``) built
@@ -186,8 +200,11 @@ Phases (any failure raises and exits non-zero):
    Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
    (dense and paged, bit for bit) against their plain versions, the
    shards merged against the unsharded function in f32 within the
-   roundings the design allows (``hold_merge``).  The mesh decodes from
-   eager launches: it refuses CUDA-graph capture.
+   roundings the design allows (``hold_merge``).  Over gloo the mesh
+   decodes from eager launches (gloo's collectives cannot be captured);
+   under ``--nccl`` each run's decode chunks are captured, and the run is
+   driven again from eager launches: the same tokens on every rank, ms a
+   decode step of both.
 9. The OpenAI-style API server at full size: ``GLMAPIServer`` on a 28-layer
    int4g32 ``PagedServingEngine`` (whole-prompt admission) with phase 5's
    tokenizer, on localhost: a chat completion, the same streamed, a text
@@ -237,6 +254,20 @@ Phases (any failure raises and exits non-zero):
    backward launches (6 a layer and the lm_head's, a pass); step ms,
    collectives and their host ms per rank, peak device memory.  Under
    ``--nccl 4`` phase 11 runs on four cards: a (2, 2) mesh and 4 stages.
+
+12. The plan table, the export and the launchers: (a) with the packaged
+   table (``{}``) every plan at the main path's shapes is the built-in one;
+   a sweep of B1's q_proj at M = 1 and 128 (``utils/autotune_sweep.py``)
+   recorded into a table of its own, the recorded plan and another exact
+   one reaching the launch (the launch's arguments read), within
+   ``KERNEL_TOL`` and ``SUM_TOL``; an invalid entry raising.  (b)
+   ``torch.export`` of the decode step at 6B widths, depth 2, int4g32 and
+   int8: the reloaded program's logits, lengths and caches bit-equal to the
+   eager step's, through the kernels' custom ops.  (c) ``engine_demo``,
+   ``cli_chat`` (questions piped in) and ``api_server`` (one chat over
+   HTTP) each in a process of their own, over a saved 2-layer checkpoint.
+   (d) ``convert_weight`` on a synthetic 2-layer HF checkpoint, the result
+   loaded.
 
 The last lines are ``detail:`` and every measured row as one JSON object,
 the ``kernels`` JSON object (the matmul entries also name their CUDA kernel), the
@@ -1884,7 +1915,99 @@ def full_slice(torch, smi):
     perf["profile"]["device_busy_share_untraced"] = busy
     log(f"  batch-1 decode: device busy {100 * busy:.1f}% of the untraced step")
     perf["prefill_profile"] = {b: profile_prefill(torch, params, cfg, rt, b) for b in (1, B)}
+    perf["captured_prefill"] = captured_prefill(torch, params, cfg, smi)
     return counts, v2_counts, perf
+
+
+# the prefill programs phase 4 holds against the eager prefill: (name,
+# batch, prompt tokens); 57 tokens take the 64-token bucket
+PREFILL_CASES = (("1x128", 1, 128), ("4x128", 4, 128), ("1x57", 1, 57))
+PREFILL_TURNS = ("eager", "captured") * 4  # the captured calls: warm-up, capture, replays
+
+
+def device_ms_traced(torch, run):
+    """The device time of ``run()`` by torch.profiler: the sum of its CUDA
+    kernels' device ms (a graph replay's kernels included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def captured_prefill(torch, params, cfg, smi):
+    """The prefill program of a bucket (``prefill_program``: eager on its
+    first call, captured on its second, replayed after) against the same
+    program run eagerly (``cuda_graphs=False``) on the same right-padded
+    prompts, in turns: every call's logits and, after the last, every valid
+    cache slot bit-equal; every call's kernel launches equal.  ms a call
+    (host clock to a sync) by call, and the device ms of an eager call and
+    of a replay (torch.profiler; a replay also by CUDA events)."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    bf16 = torch.bfloat16
+    rts = {"captured": TorchRuntimeConfig(), "eager": TorchRuntimeConfig(cuda_graphs=False)}
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    out = {}
+    for name, B, n in PREFILL_CASES:
+        S = M.prompt_bucket(n, CACHE_LEN)
+        ids = torch.zeros((B, S), dtype=torch.long, device="cuda")
+        ids[:, :n] = torch.randint(0, cfg.vocab_size, (B, n), device="cuda", generator=gen)
+        lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        caches = {k: M.init_kv_cache(cfg, B, CACHE_LEN, bf16) for k in rts}
+        progs = {k: M.prefill_program(params, cfg, caches[k], S, "int4g32", bf16, r)
+                 for k, r in rts.items()}
+        require(progs["captured"].capture and not progs["eager"].capture,
+                f"prefill {name}: the programs' capture flags {progs['captured'].capture}, "
+                f"{progs['eager'].capture}")
+
+        def call(kind):
+            prog, cache = progs[kind], caches[kind]
+            prog.load(ids=ids, lengths=lengths)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prog.step(params, cache.k, cache.v)["logits"].clone()
+            torch.cuda.synchronize()
+            return logits, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+        calls = {k: [] for k in rts}
+        for kind in PREFILL_TURNS:
+            calls[kind].append(call(kind))
+        for i, ((le, _, ce), (lc, _, cc)) in enumerate(zip(calls["eager"], calls["captured"])):
+            require(torch.equal(le, lc), f"prefill {name}: call {i + 1}'s captured logits differ "
+                                         "from the eager ones")
+            require(ce == cc, f"prefill {name}: call {i + 1} launched {cc}, eager {ce}")
+        for part in ("k", "v"):
+            a, b = getattr(caches["eager"], part), getattr(caches["captured"], part)
+            require(torch.equal(a[:, :, :, :n], b[:, :, :, :n]),
+                    f"prefill {name}: the captured cache's valid {part} slots differ")
+        prog = progs["captured"]
+        require(prog.graph is not None and prog.replays >= 3,
+                f"prefill {name}: {prog.replays} replays of a captured graph")
+        replay = lambda i: prog.step(params, caches["captured"].k, caches["captured"].v)  # noqa
+        dev_eager = device_ms_traced(torch, lambda: progs["eager"].step(
+            params, caches["eager"].k, caches["eager"].v))
+        dev_replay = device_ms_traced(torch, lambda: replay(0))
+        event_ms = cuda_event_ms(replay, iters=5, warmup=1)
+        ms = {k: [c[1] for c in v] for k, v in calls.items()}
+        out[name] = {"bucket": S, "tokens": n, "batch": B, "ms_eager": ms["eager"],
+                     "ms_captured": ms["captured"], "device_ms_eager": dev_eager,
+                     "device_ms_replay": dev_replay, "replay_event_ms": event_ms,
+                     "launches": {k: v for k, v in calls["eager"][0][2].items() if v}}
+        log(f"  captured prefill {name} (bucket {S}): logits and valid cache slots bit-equal to "
+            f"the eager prefill, launches equal; ms a call in turns: eager "
+            + ", ".join(f"{x:.2f}" for x in ms["eager"]) + "; captured (warm-up, capture, "
+            "replays) " + ", ".join(f"{x:.2f}" for x in ms["captured"])
+            + f"; device ms eager {dev_eager:.3f}, replay {dev_replay:.3f} (CUDA events "
+            f"{event_ms:.3f})  [{smi}]")
+        del caches, progs
+    return out
 
 
 def require_fused_append(counts, cfg, what):
@@ -2137,6 +2260,21 @@ def run_generate(decoder, prompt, **kw):
             return stream, e.value, (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
 
 
+def first_token_ms(torch, decoder, prompt):
+    """Host ms from ``generate``'s call to its first streamed text (the
+    prompt's prefill program, the first token sampled and decoded to text)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = decoder.generate(prompt, max_generated_tokens=CHAT_TOKENS, temperature=0.0)
+    try:
+        next(it)
+    except StopIteration:
+        pass
+    ms = (time.perf_counter() - t0) * 1e3
+    it.close()
+    return ms
+
+
 def map_tree(tree, fn):
     return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -2262,6 +2400,20 @@ def chat_slice(torch, smi):
         log(f"  {name} GLMDecoder ms a token in turns: eager {tok_ms['eager'][0]:.3f}, captured "
             f"{tok_ms['captured'][0]:.3f} / {tok_ms['captured'][1]:.3f}, eager "
             f"{tok_ms['eager'][1]:.3f}  [{smi}]")
+        # time to first token: the bucket's prefill program replayed (its
+        # warm-up and capture fell in the runs above) against the eager one
+        ttft = {"eager": [], "captured": []}
+        for turn, d in (("eager", eager_decoder), ("captured", decoder),
+                        ("captured", decoder), ("eager", eager_decoder)):
+            ttft[turn].append(first_token_ms(torch, d, prompt))
+        pre = M.prefill_program(params, cfg, decoder._free_caches[0][0],
+                                M.prompt_bucket(len(ids), CACHE_LEN), quant, torch.bfloat16, rt)
+        require(pre.graph is not None and pre.replays >= 2,
+                f"{name}: GLMDecoder's prefill was not replayed from a graph ({pre.replays})")
+        log(f"  {name} GLMDecoder time to first token ({len(ids)}-token prompt, bucket "
+            f"{M.prompt_bucket(len(ids), CACHE_LEN)}) in turns: eager {ttft['eager'][0]:.2f}, "
+            f"captured {ttft['captured'][0]:.2f} / {ttft['captured'][1]:.2f}, eager "
+            f"{ttft['eager'][1]:.2f} ms  [{smi}]")
         spec = None
         if not dyn and quant == "int4g32":  # prompt-lookup speculation, its verify captured
             sd = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
@@ -2301,6 +2453,7 @@ def chat_slice(torch, smi):
         ms = {k: [x["decode_ms_per_step"] for x in v] for k, v in turns.items()}
         perf[name] = {**r, **launches, "weight_bytes_per_token": weight_bytes_per_token(params),
                       "decode_turns_ms_per_step": ms, "generate_turns_ms_per_token": tok_ms,
+                      "first_token_turns_ms": ttft,
                       "speculative": spec}
         log(f"  {name} batch 1: prefill 1x128 tokens {r['prefill_ms']:.2f} ms; decode ms/step in "
             f"turns: eager {ms['eager'][0]:.3f}, captured {ms['captured'][0]:.3f} / "
@@ -2508,11 +2661,15 @@ def chunk_step_busy(torch, engine, name, seed):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from chatglm_q_tpu_torch.utils import graphs as G
+
     g = torch.Generator().manual_seed(seed)
     ids = [engine.submit(torch.randint(3, 65000, (CHUNK_PROMPT,), generator=g).tolist(),
                          temperature=0.0, max_new_tokens=8) for _ in range(4)]
     engine.step()  # admission and the first chunks
     torch.cuda.synchronize()
+    progs = list(G.programs(engine.params, "prefill")._programs.values())
+    replays = sum(p.replays for p in progs)
     ts = time.perf_counter()
     engine.step()
     torch.cuda.synchronize()
@@ -2521,6 +2678,11 @@ def chunk_step_busy(torch, engine, name, seed):
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.step()
         torch.cuda.synchronize()
+    replays = sum(p.replays for p in progs) - replays
+    # a captured engine's two measured chunk steps replay its (4, 256) chunk
+    # program (captured in the run before): no capture in the measurement
+    require(replays == (2 if engine.rt.cuda_graphs else 0),
+            f"{name}: {replays} chunk-program replays in the two measured chunk steps")
     for rid in ids:
         engine.cancel(rid)
     while engine.has_work:
@@ -2532,9 +2694,11 @@ def chunk_step_busy(torch, engine, name, seed):
     b1_ms = sum(e.self_device_time_total for e in b1) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
     res = {"device_ms": dev_ms, "wall_ms": untraced * 1e3, "busy_share": dev_ms / (untraced * 1e3),
+           "chunk_replays": replays,
            "int4_wgmma_kernel_ms": b1_ms, "int4_wgmma_kernel_launches": sum(e.count for e in b1),
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
-    log(f"    {name}: one chunk step (4 x 256 prompt rows): device {dev_ms:.2f} ms of "
+    log(f"    {name}: one chunk step (4 x 256 prompt rows, {replays} replays in 2 steps): "
+        f"device {dev_ms:.2f} ms of "
         f"{res['wall_ms']:.2f} ms untraced wall, busy {100 * res['busy_share']:.1f}%, host "
         f"{res['wall_ms'] - dev_ms:.2f} ms; B1 int4_wgmma_kernel {b1_ms:.3f} ms in "
         f"{res['int4_wgmma_kernel_launches']} launches; largest (ms) "
@@ -2542,10 +2706,11 @@ def chunk_step_busy(torch, engine, name, seed):
     return res
 
 
-def eager_turn(torch, make, reqs, done, name, busy_reqs=None):
+def eager_turn(torch, make, reqs, done, name, busy_reqs=None, chunk_seed=None):
     """The same run from eager launches (``cuda_graphs=False``): its greedy
     tokens must equal the captured run's ``done``; tokens/s, time to first
-    token and (with ``busy_reqs``) the decode-only step's busy share."""
+    token and (with ``busy_reqs``) the decode-only step's busy share (with
+    ``chunk_seed`` also a chunk step's)."""
     from chatglm_q_tpu_torch import TorchRuntimeConfig
 
     eng = make(TorchRuntimeConfig(cuda_graphs=False))
@@ -2559,6 +2724,8 @@ def eager_turn(torch, make, reqs, done, name, busy_reqs=None):
         f"{'equal' if res['sampled_equal'] else 'differ'} on the same seed")
     if busy_reqs is not None:
         res["busy"] = chunk_busy(torch, eng, busy_reqs, f"{name} eager")
+    if chunk_seed is not None:
+        res["chunk_step"] = chunk_step_busy(torch, eng, f"{name} eager", chunk_seed)
     return res
 
 
@@ -2600,11 +2767,13 @@ def sampled_speculation(torch, make_d, b_reqs, b_done, params, smi):
     return res
 
 
-def captured_programs(params, name, kinds):
-    """The step programs of ``kinds`` that replayed from a graph."""
+def captured_programs(params, name, kinds, family="decode"):
+    """The step programs of ``kinds`` (of ``family``) that replayed from a
+    graph."""
     from chatglm_q_tpu_torch.utils import graphs as G
 
-    progs = [p for p in G.programs(params)._programs.values() if p.name in kinds and p.capture]
+    progs = [p for p in G.programs(params, family)._programs.values()
+             if p.name in kinds and p.capture]
     n = sum(p.replays for p in progs)
     require(n > 0 and all(p.graph is not None for p in progs if p.calls > 1),
             f"{name}: no captured {kinds} program replayed")
@@ -2704,6 +2873,8 @@ def engines_slice(torch, smi, seed=61, survey=False):
     eng = make_a(rt)
     a_done, out["a"] = drive(torch, eng, a_reqs, "(a) paged, chunked + prefix cache")
     out["a"]["replays"] = captured_programs(params, "(a)", ("decode_step_paged",))
+    out["a"]["chunk_replays"] = captured_programs(params, "(a)", ("prefill_chunk_paged",),
+                                                  "prefill")
     require(eng.pages_in_use == 0, f"(a): {eng.pages_in_use} pages in use after the drain")
     require(eng.stats["prefix_hits"] > 0, "(a): no prefix hit")
     eng.clear_prefix_cache()
@@ -2716,7 +2887,7 @@ def engines_slice(torch, smi, seed=61, survey=False):
         out["a"]["chunk_step"] = chunk_step_busy(torch, eng, "(a)", seed + 5)
     del eng
     if not survey:
-        out["a"]["eager"] = eager_turn(torch, make_a, a_reqs, a_done, "(a)", short)
+        out["a"]["eager"] = eager_turn(torch, make_a, a_reqs, a_done, "(a)", short, seed + 5)
 
     # (b) paged, whole-prompt admission, in-loop speculation, and the same
     # requests without it
@@ -2760,11 +2931,22 @@ def engines_slice(torch, smi, seed=61, survey=False):
     c_reqs = [a_reqs[i] for i in (0, 1, 2, 4)]
     c_done, out["c"] = drive(torch, eng, c_reqs, "(c) dense, chunked + lookahead")
     out["c"]["replays"] = captured_programs(params, "(c)", ("decode_step",))
+    out["c"]["chunk_replays"] = captured_programs(params, "(c)", ("prefill_chunk",), "prefill")
     if not survey:
         out["c"]["busy"] = chunk_busy(torch, eng, short, "(c)")
+        out["c"]["chunk_step"] = chunk_step_busy(torch, eng, "(c)", seed + 5)
     del eng
     if not survey:
-        out["c"]["eager"] = eager_turn(torch, make_c, c_reqs, c_done, "(c)", short)
+        out["c"]["eager"] = eager_turn(torch, make_c, c_reqs, c_done, "(c)", short, seed + 5)
+        for run in ("a", "c"):
+            cap, eag = out[run]["chunk_step"], out[run]["eager"]["chunk_step"]
+            log(f"    ({run}) chunk step (4 x 256 rows) busy share captured "
+                f"{100 * cap['busy_share']:.1f}% ({cap['wall_ms']:.2f} ms wall, "
+                f"{cap['device_ms']:.2f} ms device), eager {100 * eag['busy_share']:.1f}% "
+                f"({eag['wall_ms']:.2f} ms wall, {eag['device_ms']:.2f} ms device); time to "
+                f"first token (s) captured "
+                + ", ".join(f"{t:.2f}" for t in out[run]["ttft_s"]) + ", eager "
+                + ", ".join(f"{t:.2f}" for t in out[run]["eager"]["ttft_s"]) + f"  [{smi}]")
 
     gaps = {}
     for run, done, reqs in (("a", a_done, a_reqs), ("b", b_done, b_reqs),
@@ -3372,6 +3554,7 @@ def sharded_rank(rank, tree_path, prompts, tp, layers):
     from chatglm_q_tpu_torch.parallel import sharding as SH
     from chatglm_q_tpu_torch.serving import (DistributedPagedServingEngine,
                                              DistributedServingEngine)
+    from chatglm_q_tpu_torch.utils import graphs as G
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ChatGLM2Config(num_layers=layers)
@@ -3386,25 +3569,33 @@ def sharded_rank(rank, tree_path, prompts, tp, layers):
     spec = dict(pool, decode_chunk=4, speculative_k=8, speculative_ngram=3)
 
     def paged(**kw):
-        return lambda: DistributedPagedServingEngine(load, params, mesh=mesh, **kw)
+        return lambda graphs: DistributedPagedServingEngine(
+            load, params, mesh=mesh, rt=TorchRuntimeConfig(cuda_graphs=graphs), **kw)
 
     makers = {
-        "a": lambda: DistributedServingEngine(
+        "a": lambda graphs: DistributedServingEngine(
             load, params, mesh=mesh, max_batch=4, max_seq_len=SHARD_T, decode_chunk=16,
-            rt=TorchRuntimeConfig(kv_shard_t=True)),
+            rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs)),
         "b": paged(shard_model_pages=True, prefill_chunk_size=PAGE, prefix_cache=True,
                    decode_chunk=16, **pool),
         "c": paged(shard_model_pages=True, **spec),
         "d": paged(shard_model_pages=True, speculative_sampled=True, seed=SHARD_TP, **spec),
         "e": paged(**spec),
         "f": paged(speculative_sampled=True, seed=SHARD_TP, **spec),
-        "g": lambda: DistributedServingEngine(
+        "g": lambda graphs: DistributedServingEngine(
             load, params, mesh=mesh, max_batch=4, max_seq_len=SEQ, decode_chunk=4,
-            lookahead=True, rt=TorchRuntimeConfig(kv_shard_t=True)),
+            lookahead=True, rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs)),
     }
+    # over NCCL the decode chunks are captured (a gloo mesh refuses capture):
+    # each run is driven captured, then again from eager launches
+    modes = ((True, ""), (False, "_eager")) if mesh.backend == "nccl" else ((True, ""),)
+    runs = [(run, reqs, graphs, suffix) for run, reqs in prompts.items()
+            for graphs, suffix in modes]
+    registry = G.programs(params)
     merge = A.merge_lse_partials
-    for run, reqs in prompts.items():
-        eng = makers[run]()
+    for run, reqs, graphs, suffix in runs:
+        eng = makers[run](graphs)
+        captures = registry.captures
         live = torch.zeros(tp, dtype=torch.long, device="cuda")
 
         def probe(out, m, l, dtype):  # the decode merges only: count each shard's live (b, g)
@@ -3432,15 +3623,17 @@ def sharded_rank(rank, tree_path, prompts, tp, layers):
         wall = time.perf_counter() - t0
         by_id = {r.req_id: r.generated for r in eng.finished}
         walls = sorted(decode_walls)
-        res[run] = {"tokens": [by_id[i] for i in sorted(by_id)], "counts": ops.launch_counts(),
+        key = run + suffix
+        res[key] = {"tokens": [by_id[i] for i in sorted(by_id)], "counts": ops.launch_counts(),
                     "decode_steps": eng.stats["decode_chunks"] * eng.chunk, "wall_s": wall,
                     "decode_ms_per_step_median": (walls[len(walls) // 2] * 1e3 / eng.chunk
                                                   if walls else None),
-                    "live_per_shard": live.tolist(), "stats": dict(eng.stats)}
+                    "live_per_shard": live.tolist(), "stats": dict(eng.stats),
+                    "captures": registry.captures - captures}
         if hasattr(eng, "pages_in_use"):
-            res[run]["pages_in_use"] = eng.pages_in_use
+            res[key]["pages_in_use"] = eng.pages_in_use
         if run in ("a", "b"):
-            res[run]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
+            res[key]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
         del eng
         torch.cuda.empty_cache()
     res["http"] = sharded_http(rank, mesh, load, params)
@@ -3621,6 +3814,41 @@ def sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp)
     return out
 
 
+def nccl_capture_checks(ranks, prompts, smi):
+    """Over NCCL each run's decode chunks were captured (programs captured
+    on every rank) and the run driven again from eager launches: the same
+    tokens on every rank, and the ms a decode step of both."""
+    out = {}
+    for run in prompts:
+        for i, r in enumerate(ranks):
+            cap, eag = r[run], r[run + "_eager"]
+            require(cap["tokens"] == eag["tokens"],
+                    f"phase 8 ({run}) rank {i}: the captured run's tokens differ from the eager "
+                    "run's")
+            require(cap["captures"] > 0 and eag["captures"] == 0,
+                    f"phase 8 ({run}) rank {i}: {cap['captures']} captures in the captured run, "
+                    f"{eag['captures']} in the eager one")
+        r0 = ranks[0]
+        out[run] = {"captures": [r[run]["captures"] for r in ranks],
+                    "decode_ms_per_step_median": {
+                        "captured": [r[run]["decode_ms_per_step_median"] for r in ranks],
+                        "eager": [r[run + "_eager"]["decode_ms_per_step_median"] for r in ranks]},
+                    "wall_s": {"captured": r0[run]["wall_s"],
+                               "eager": r0[run + "_eager"]["wall_s"]}}
+        if "decode_timing" in r0[run]:
+            out[run]["decode_timing_ms"] = {
+                k: [r[run + sfx]["decode_timing"]["decode_ms_per_step"] for r in ranks]
+                for k, sfx in (("captured", ""), ("eager", "_eager"))}
+        med = out[run]["decode_ms_per_step_median"]
+        fmt = lambda xs: "/".join("-" if x is None else f"{x:.2f}" for x in xs)  # noqa: E731
+        log(f"  ({run}) over NCCL: decode chunks captured ({out[run]['captures']} programs a "
+            f"rank), tokens equal to the eager run's on every rank; median ms a decode step "
+            f"captured {fmt(med['captured'])}, eager {fmt(med['eager'])}; wall "
+            f"{out[run]['wall_s']['captured']:.1f} / {out[run]['wall_s']['eager']:.1f} s  "
+            f"[{smi}]")
+    return out
+
+
 def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD_LAYERS):
     """Phase 8: an int4g32 random tree of ``layers`` layers at ChatGLM2-6B's
     widths built once here, saved to
@@ -3726,6 +3954,8 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
         for k, v in r0["counts"].items():
             counts[k] = counts.get(k, 0) + v
     out.update(sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp))
+    if backend == "nccl":
+        out["captured_vs_eager"] = nccl_capture_checks(ranks, prompts, smi)
     counts["rope_kv_append_sharded"] = ranks[0]["a"]["counts"]["rope_kv_append_sharded"]
     counts["rope_kv_append_sharded paged"] = ranks[0]["b"]["counts"]["rope_kv_append_sharded"]
     log(f"  tree saved in {save_s:.1f} s; ranks done in {spmd_s:.1f} s (slices loaded in "
@@ -3813,6 +4043,7 @@ def fine_tune(torch, smi, quant, steps, seed):
 
     out["profile"] = profile_train_step(torch, step, trainable, frozen, ids, labels,
                                         out["steps"][-1]["ms"], quant)
+    out["captured"] = train_turns(torch, smi, cfg, quant, start, frozen, ids, labels)
     if quant == "int4g32":  # the first step again, with and without remat
         runs = {}
         for remat in (False, True):
@@ -3859,6 +4090,63 @@ def fine_tune(torch, smi, quant, steps, seed):
     log(f"  {quant}: all {len(frozen_before)} frozen leaves (packed weights, scales, biases, "
         f"embedding) bit-unchanged")
     return counts_total, out
+
+
+CAPTURED_TRAIN_STEPS = 4
+
+
+def train_turns(torch, smi, cfg, quant, start, frozen, ids, labels):
+    """The training step as a program captured on its second call
+    (``make_train_step`` on CUDA) against the same program run eagerly
+    (``cuda_graphs=False``), from copies of ``start`` with capturable AdamW
+    (lr 1e-3) in both, the steps in turns (eager, captured): every step's
+    loss bit-equal, and every trainable leaf after the last; ms a step by
+    step (the captured run's first is the eager warm-up, its second the
+    capture) and the peak device memory of each run's steps."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.utils import graphs as G
+    from chatglm_q_tpu_torch.utils.train import make_train_step, merge_params, trainable_leaves
+
+    bf16 = torch.bfloat16
+    runs = {}
+    for kind, r_t in (("eager", TorchRuntimeConfig(cuda_graphs=False)),
+                      ("captured", TorchRuntimeConfig())):
+        tr = map_tree(start, lambda t: None if t is None else
+                      t.detach().clone().requires_grad_(True))
+        opt = torch.optim.AdamW(trainable_leaves(tr), lr=1e-3, weight_decay=0.0, capturable=True)
+        runs[kind] = {"tr": tr, "step": make_train_step(cfg, quant, opt, bf16, r_t),
+                      "losses": [], "ms": [], "peak": 0}
+    for i in range(CAPTURED_TRAIN_STEPS):
+        for kind in ("eager", "captured"):
+            r = runs[kind]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = r["step"](r["tr"], frozen, ids, labels).item()
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["losses"].append(loss)
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+    le, lc = runs["eager"]["losses"], runs["captured"]["losses"]
+    require(le == lc, f"{quant}: the captured training step's losses {lc} differ from the "
+                      f"eager ones {le}")
+    for a, b in zip(trainable_leaves(runs["eager"]["tr"]),
+                    trainable_leaves(runs["captured"]["tr"])):
+        require(torch.equal(a.detach(), b.detach()),
+                f"{quant}: a trainable leaf differs after the captured steps")
+    reg = G.programs(merge_params(runs["captured"]["tr"], frozen), "train")
+    prog = next(p for p in reg._programs.values() if p.name == "train_step" and p.capture)
+    require(prog.graph is not None and prog.replays == CAPTURED_TRAIN_STEPS - 1,
+            f"{quant}: the training step replayed {prog.replays} times from a graph")
+    res = {k: {"losses": r["losses"], "ms": r["ms"], "peak_mem_bytes": r["peak"]}
+           for k, r in runs.items()}
+    log(f"  {quant} training step captured against eager (capturable AdamW, "
+        f"{CAPTURED_TRAIN_STEPS} steps in turns): losses bit-equal {lc}; ms a step eager "
+        + ", ".join(f"{x:.1f}" for x in runs["eager"]["ms"]) + "; captured (warm-up, capture, "
+        "replays) " + ", ".join(f"{x:.1f}" for x in runs["captured"]["ms"])
+        + f"; peak memory eager {runs['eager']['peak'] / 2**30:.2f} GiB, captured "
+        f"{runs['captured']['peak'] / 2**30:.2f} GiB  [{smi}]")
+    return res
 
 
 # the Hopper matmuls of a training step, by quantization: (ID, substrings of
@@ -4781,6 +5069,352 @@ def train_mesh_slice(torch, smi, backend="gloo", shape=(1, 2), n_stage=2):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the plan table, the exported decode step, the launchers
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_M = (1, 4, 36, 128, 512, 1024)  # the main path's rows: decode, verify, prefill, chunk
+
+
+def launch_args(fn):
+    """``fn()``'s result and every (entry, args) it handed ``_build.call``."""
+    from chatglm_q_tpu_torch.ops import _build
+
+    calls, call = [], _build.call
+
+    def spy(name, *args):
+        calls.append((name, args))
+        return call(name, *args)
+
+    _build.call = spy
+    try:
+        out = fn()
+        torch_sync()
+    finally:
+        _build.call = call
+    return out, calls
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def autotune_check(torch, smi):
+    """(a) With the packaged table (``{}``) and no user table every plan at
+    the main path's shapes is the built-in rule; a sweep of B1's q_proj at
+    M = 1 and 128 recorded into a table of its own (``$CHATGLM_Q_TPU_TORCH_
+    AUTOTUNE`` under the build directory): each launch then takes the
+    recorded plan, and so it does for a recorded exact plan that is not the
+    built-in one, its output within ``KERNEL_TOL`` and ``SUM_TOL``; the
+    split-K entry recorded at M = 1 also at its bucket's M = 8; an invalid
+    entry raises naming its key."""
+    import os
+    import tempfile
+
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.ops import autotune as AT
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+    from chatglm_q_tpu_torch.utils import autotune_sweep as S
+
+    with open(AT.packaged_path()) as f:
+        require(json.load(f) == {}, "the packaged autotune table is not empty")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    saved = os.environ.get(AT.ENV)
+    out = {"device_kind": AT.device_kind()}
+    try:
+        os.environ[AT.ENV] = os.path.join(tmp, "absent.json")
+        AT.reload()
+        n = 0
+        for _, K, N in MATMUL_SHAPES:
+            for M in AUTOTUNE_M:
+                pairs = [(QM.mma_plan(M, K, N), None), (QM.int8_mma_plan(M, K, N), None),
+                         (QM.t_mma_plan(M, K, N), QM.wg_plan(M, N, K)),
+                         (QM.t_mma_plan(M, K, N, kind="int8"), QM.wg_plan(M, N, K)),
+                         (D.dyn_plan(M, K, N), QM.wg_plan(M, K, N, step=QM.DYN_STEP)),
+                         (D.dyn_plan(M, K, N, int4=True), QM.wg_plan(M, K, N, step=QM.DYN_STEP))]
+                bm, ns, sps, ctas = QM.wg_plan(M, K, N)
+                pairs[0] = (pairs[0][0], (bm, ns, QM.MMA_STAGE_GROUPS * sps if ns > 1
+                                          else K // 32, ctas))
+                pairs[1] = (pairs[1][0], (bm, ns, sps, ctas))
+                if M <= QM.SMALL_M_MAX:
+                    for xb, i8 in QM.SPLITK_KERNELS:
+                        if xb == 2 and not i8 or M <= QM.MMA_MIN_M:
+                            pairs.append((QM.splitk_plan(M, K, N, xb, i8),
+                                          QM.builtin_splitk_plan(M, K, N, xb, i8)))
+                for got, want in pairs:
+                    require(tuple(got) == tuple(want), f"autotune: plan {got} at M={M} K={K} "
+                                                       f"N={N} is not the built-in {want}")
+                    n += 1
+        out["plans_unchanged"] = n
+        log(f"  (a) the packaged table is {{}}: {n} plans at the main path's shapes are the "
+            f"built-in rules")
+
+        os.environ[AT.ENV] = os.path.join(tmp, "autotune.json")
+        AT.reload()
+        swept = S.sweep("int4", ["q_proj"], [1, 128], record=True, seed=5,
+                        log=lambda m: log("  " + m))
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        out["sweep"] = []
+        for res in swept:
+            M, K, N = res["M"], res["K"], res["N"]
+            require(res["best"] is not None, f"autotune: no exact plan at M={M}")
+            packed = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, device="cuda",
+                                   generator=gen)
+            scale = (torch.rand((K // 32, N), device="cuda", generator=gen) * 0.02
+                     ).to(torch.bfloat16)
+            w64 = unpack_int4_tpu(packed, scale).double()
+            splitk = M <= QM.SMALL_M_MAX
+            span = slice(9, 14) if splitk else slice(9, 13)
+            # a split-K entry serves its whole bucket: launch it at the
+            # bucket's largest M too
+            launch_m = [M] + ([res["bucket"]] if splitk and res["bucket"] != M else [])
+            others = [c for c in res["candidates"]
+                      if c["exact_enough"] and c["fits_bucket"] and not c["builtin"]]
+            checks = [("recorded", res["best"]["plan"])] + (
+                [("non-built-in", others[0]["plan"])] if others else [])
+            row = {"M": M, "kernel": res["kernel"], "key": res["key"],
+                   "candidates": res["candidates"], "launched": []}
+            for label, plan in checks:
+                if label != "recorded":
+                    AT.record(res["kernel"], res["bucket"], K, N, plan)
+                for rows in launch_m:
+                    x = torch.randn((rows, K), device="cuda", generator=gen).to(torch.bfloat16)
+                    exact, terms = x.double() @ w64, x.double().abs() @ w64.abs()
+                    want = QM.int4g32_matmul_plain(x, packed, scale)
+                    got, calls = launch_args(lambda: QM.int4g32_matmul(x, packed, scale))
+                    require(len(calls) == 1 and list(calls[0][1][span]) == list(plan),
+                            f"autotune: the M={rows} launch took "
+                            f"{calls[0][1][span] if calls else None}, not the {label} plan {plan}")
+                    rel = rel_err(got, want)[1]
+                    b = hold_sum(torch, f"autotune {label} plan M={rows}", got, exact, terms)
+                    require(rel <= KERNEL_TOL, f"autotune {label} plan M={rows}: rel err {rel}")
+                    row["launched"].append({"which": label, "M": rows, "plan": list(plan),
+                                            "rel_err": rel, "beyond_sum": b})
+                    log(f"  (a) M={rows} (entry {res['key']}): the {label} plan {list(plan)} "
+                        f"reached the launch ({calls[0][0]}); rel err {rel:.2e}, beyond the bf16 "
+                        f"rounding {b:.2e} of sum|terms|")
+                    del exact, terms
+            del w64
+            out["sweep"].append(row)
+        # an entry the kernel refuses raises, naming its key
+        bad = AT.record("int4_splitk", 8, 4096, 4096, (1, 8, 1, 1, 8))
+        try:
+            QM.splitk_plan(1, 4096, 4096)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        require(raised is not None and bad in raised, f"autotune: an invalid entry gave {raised}")
+        log(f"  (a) an invalid entry raises: {raised[:120]}  [{smi}]")
+    finally:
+        if saved is None:
+            os.environ.pop(AT.ENV, None)
+        else:
+            os.environ[AT.ENV] = saved
+        AT.reload()
+    require(QM.splitk_plan(1, 4096, 4096) == QM.builtin_splitk_plan(1, 4096, 4096),
+            "autotune: the built-in plan did not come back")
+    return out
+
+
+def export_check(torch, smi):
+    """(b) ``torch.export`` of the decode step at ChatGLM2-6B widths, depth 2,
+    batch 2 over a 256-slot cache prefilled with 12-20 tokens a row, int4g32
+    and int8: saved, reloaded and run, its logits, lengths and both caches
+    bit-equal to the eager step's; the graph calls the kernels' custom ops."""
+    import tempfile
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, ops
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.examples import export as EX
+    from chatglm_q_tpu_torch.ops import _build
+
+    cfg = ChatGLM2Config(num_layers=2)
+    out = {}
+    for quant in ("int4g32", "int8"):
+        params = random_quantized_params(cfg, quant,
+                                         torch.Generator(device="cuda").manual_seed(111))
+        cache, ids = EX.prefilled_cache(params, cfg, quant, torch.bfloat16, 2, 256, "cuda")
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            res = EX.round_trip(params, cfg, quant, torch.bfloat16, cache, ids,
+                                f"{tmp}/decode_step.pt2")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            size = pathlib.Path(f"{tmp}/decode_step.pt2").stat().st_size
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        mm = "int4g32_matmul" if quant == "int4g32" else "int8_matmul"
+        want_ops = {f"chatglm_q_tpu_torch.{op}.default" for op in
+                    (mm, "rope_kv_append", "flash_attention_decode")}
+        require(all(res["equal"].values()), f"export {quant}: reloaded step differs: "
+                                            f"{res['equal']}")
+        require(want_ops <= set(res["ops"]), f"export {quant}: the graph's custom ops "
+                                             f"{res['ops']}")
+        out[quant] = {"equal": res["equal"], "ops": res["ops"], "seconds": secs, "bytes": size,
+                      "launches": counts}
+        log(f"  (b) export {quant}: the reloaded decode step's logits, lengths and caches "
+            f"bit-equal to the eager step's; custom ops {res['ops']}; {size / 1e3:.0f} kB, "
+            f"{secs:.1f} s (export, save, load, run); launches {json.dumps(counts)}")
+        del params, cache
+    return out
+
+
+def run_module(args, timeout, stdin=None):
+    """``python -m`` a module of the port from this checkout's root; its
+    (exit code, standard output, standard error)."""
+    root = pathlib.Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-m", *args], cwd=root, input=stdin,
+                         capture_output=True, text=True, timeout=timeout)
+    return res.returncode, res.stdout, res.stderr
+
+
+def launchers_check(torch, smi):
+    """(c) The launchers as a user runs them, each in a process of its own:
+    ``engine_demo`` (random weights at 6B widths, 2 layers), ``cli_chat``
+    with two questions piped in, and ``api_server`` answering
+    one chat request over HTTP, the last two over a saved 2-layer int4g32
+    checkpoint with the 65024-id tokenizer.  (d) ``convert_weight`` on a
+    synthetic two-shard ``pytorch_model*.bin`` of 2 layers, the result
+    loaded with its tokenizer, its tensors the source's."""
+    import tempfile
+    import urllib.request
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.loader import load_model_and_tokenizer, save_model_and_tokenizer
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.tokenizer.build import build_unigram_model
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        rc, so, se = run_module(["chatglm_q_tpu_torch.examples.engine_demo", "--requests", "4",
+                                 "--new-tokens", "16"], 600)
+        require(rc == 0 and "engine" in so.splitlines()[-1],
+                f"engine_demo: exit {rc}\n{so[-2000:]}\n{se[-2000:]}")
+        out["engine_demo"] = {"s": time.perf_counter() - t0, "stdout": so.splitlines()}
+        log("  (c) engine_demo: " + " | ".join(so.strip().splitlines()))
+
+        cfg = ChatGLM2Config(num_layers=2)
+        ckpt = f"{tmp}/ckpt"
+        params = random_quantized_params(cfg, "int4g32",
+                                         torch.Generator(device="cuda").manual_seed(121))
+        save_model_and_tokenizer(ckpt, GLMLoadConfig(model_config=cfg, quant_type="int4g32",
+                                                     torch_dtype="bfloat16"),
+                                 params, chat_tokenizer())
+        del params
+        t0 = time.perf_counter()
+        rc, so, se = run_module(["chatglm_q_tpu_torch.examples.cli_chat", "--model", ckpt,
+                                 "--max-tokens", "12", "--temperature", "0"], 600,
+                                stdin=f"{CHAT_QUESTION}\n/clear\n{CHAT_QUESTION}\n\n")
+        answers = [ln.split("答：", 1)[1] for ln in so.splitlines() if "答：" in ln]
+        require(rc == 0 and len(answers) == 2 and answers[0] == answers[1] and answers[0],
+                f"cli_chat: exit {rc}, answers {answers}\n{se[-2000:]}")
+        out["cli_chat"] = {"s": time.perf_counter() - t0, "answer": answers[0]}
+        log(f"  (c) cli_chat: two greedy answers after /clear, equal: {answers[0][:60]!r}")
+
+        root = pathlib.Path(__file__).resolve().parent
+        out_path, err_path = (pathlib.Path(tmp) / f"api_server.{x}" for x in ("out", "err"))
+        with open(out_path, "w") as so_f, open(err_path, "w") as se_f:
+            proc = subprocess.Popen([sys.executable, "-m",
+                                     "chatglm_q_tpu_torch.examples.api_server", "--model", ckpt,
+                                     "--port", "0", "--max-batch", "2", "--max-seq-len", "256",
+                                     "--decode-chunk", "4"], cwd=root, stdout=so_f, stderr=se_f)
+        try:
+            t0 = time.perf_counter()
+            line = ""
+            while "serving" not in line:
+                require(proc.poll() is None and time.perf_counter() - t0 < 300,
+                        f"api_server not serving after {time.perf_counter() - t0:.0f} s (exit "
+                        f"{proc.poll()}): {err_path.read_text()[-2000:]}")
+                time.sleep(0.5)
+                line = next((ln for ln in out_path.read_text().splitlines() if "serving" in ln),
+                            "")
+            url = line.split(" on ", 1)[1].strip()
+            body = {"messages": [{"role": "user", "content": CHAT_QUESTION}],
+                    "max_tokens": 12, "temperature": 0.0}
+            req = urllib.request.Request(f"{url}/chat/completions", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                obj = json.loads(resp.read())
+            text = obj["choices"][0]["message"]["content"]
+            require(obj["choices"][0]["finish_reason"] in ("stop", "length")
+                    and isinstance(text, str), f"api_server: {obj}")
+            out["api_server"] = {"s": time.perf_counter() - t0, "text": text,
+                                 "finish_reason": obj["choices"][0]["finish_reason"]}
+            log(f"  (c) api_server: one chat completion over HTTP: {text[:60]!r} "
+                f"({obj['choices'][0]['finish_reason']})")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+        # (d) convert_weight on a synthetic HF checkpoint of 2 layers
+        g = torch.Generator().manual_seed(131)
+        H, I, V, G_, D_ = 256, 512, 1024, 2, 32
+        src, dst = pathlib.Path(f"{tmp}/hf"), pathlib.Path(f"{tmp}/safe")
+        src.mkdir()
+        sd = {"transformer.embedding.word_embeddings.weight": torch.randn((V, H), generator=g),
+              "transformer.encoder.final_layernorm.weight": torch.randn((H,), generator=g),
+              "transformer.output_layer.weight": torch.randn((V, H), generator=g),
+              "transformer.rotary_pos_emb.inv_freq": torch.randn((D_ // 4,), generator=g)}
+        qkv = H + 2 * G_ * D_
+        for i in range(2):
+            pre = f"transformer.encoder.layers.{i}."
+            sd.update({pre + "input_layernorm.weight": torch.randn((H,), generator=g),
+                       pre + "self_attention.query_key_value.weight": torch.randn((qkv, H),
+                                                                                  generator=g),
+                       pre + "self_attention.query_key_value.bias": torch.randn((qkv,),
+                                                                                generator=g),
+                       pre + "self_attention.dense.weight": torch.randn((H, H), generator=g),
+                       pre + "post_attention_layernorm.weight": torch.randn((H,), generator=g),
+                       pre + "mlp.dense_h_to_4h.weight": torch.randn((2 * I, H), generator=g),
+                       pre + "mlp.dense_4h_to_h.weight": torch.randn((H, I), generator=g)})
+        sd = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+        shards = {f"pytorch_model-0000{j}-of-00002.bin": {k: v for k, v in sd.items()
+                                                          if ("layers.1." in k) == (j == 2)}
+                  for j in (1, 2)}
+        for name, part in shards.items():
+            torch.save(part, src / name)
+        (src / "pytorch_model.bin.index.json").write_text(json.dumps(
+            {"weight_map": {k: name for name, part in shards.items() for k in part}}))
+        (src / "tokenizer.model").write_bytes(build_unigram_model([f"w{i}" for i in range(200)]))
+        t0 = time.perf_counter()
+        rc, so, se = run_module(["chatglm_q_tpu_torch.examples.convert_weight", "--source",
+                                 str(src), "--target", str(dst)], 300)
+        require(rc == 0, f"convert_weight: exit {rc}\n{so}\n{se[-2000:]}")
+        conf = json.loads((dst / "config.json").read_text())
+        # the script writes ChatGLM2-6B's config, as the JAX one does: this
+        # synthetic checkpoint's widths and depth go in by hand
+        conf["model_config"].update(hidden_size=H, inner_hidden_size=I, head_hidden_size=D_,
+                                    num_multi_query_groups=G_, num_attention_heads=H // D_,
+                                    num_layers=2, vocab_size=V)
+        (dst / "config.json").write_text(json.dumps(conf))
+        config, loaded, tok = load_model_and_tokenizer(dst, device="cuda")
+        emb = sd["transformer.embedding.word_embeddings.weight"].cuda()
+        require(torch.equal(loaded["word_embedding"]["weight"].to(emb.dtype), emb)
+                and loaded["layers"]["attn_ln"]["weight"].shape[0] == 2 and tok is not None,
+                "convert_weight: the converted checkpoint does not load the source's tensors")
+        out["convert_weight"] = {"s": time.perf_counter() - t0,
+                                 "files": conf["weight_files"], "stdout": so.splitlines()}
+        log(f"  (d) convert_weight: {len(conf['weight_files'])} safetensors files; loaded with "
+            f"its tokenizer ({len(tok)} ids), the embedding and 2 layers the source's  [{smi}]")
+    return out
+
+
+def phase12(torch, smi):
+    return {"autotune": autotune_check(torch, smi), "export": export_check(torch, smi),
+            "launchers": launchers_check(torch, smi)}
+
+
 def gap_survey(torch, smi, seeds):
     """Phase 6's greedy readings alone, on each seed's tree and prompts, from
     bf16 and from f32 logits: the basis of GREEDY_GAP_TOL."""
@@ -4881,6 +5515,32 @@ def main() -> int:
                                      "train_mesh": train_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--phase12" in sys.argv:  # phase 12 alone
+        phase("== phase 12: the plan table, torch.export of the decode step, the launchers")
+        p12 = phase12(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "phase12": p12}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--programs" in sys.argv:  # phase 4's captured prefill, phase 7 and phase 12
+        from chatglm_q_tpu_torch import ChatGLM2Config
+        from chatglm_q_tpu_torch.bench import random_quantized_params
+
+        phase("== phase 4 (captured prefill): ChatGLM2-6B int4g32, 28 layers")
+        cfg = ChatGLM2Config()
+        params = random_quantized_params(cfg, "int4g32",
+                                         torch.Generator(device="cuda").manual_seed(31))
+        prefill = captured_prefill(torch, params, cfg, smi)
+        del params
+        torch.cuda.empty_cache()
+        phase("== phase 7: fine-tuning ChatGLM2-6B, 28 layers, int4g32 then int8")
+        ft = fine_tune_slice(torch, smi)[1]
+        torch.cuda.empty_cache()
+        phase("== phase 12: the plan table, torch.export of the decode step, the launchers")
+        p12 = phase12(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "captured_prefill": prefill,
+                                     "fine_tune_28_layers": ft, "phase12": p12}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--quant" in sys.argv:  # phase 10 alone, then the 28-layer GPTQ
         phase("== phase 10: the quantizers at ChatGLM2-6B widths, 2 layers")
         _, quant_perf, _ = quant_slice(torch, smi)
@@ -4947,6 +5607,10 @@ def main() -> int:
     train_counts, train_perf = train_mesh_slice(torch, smi)
     for kern in ("int4g32_mma", "int4g32_t_mma", "int8_mma", "int8_t_mma"):
         require(train_counts.get(kern, 0) > 0, f"phase 11: no {kern} launch")
+    torch.cuda.empty_cache()
+
+    phase("== phase 12: the plan table, torch.export of the decode step, the launchers")
+    p12 = phase12(torch, smi)
 
     # the kernels line: per kernel, its representative main-path shape, and
     # its launches from the main-path run that drives it
@@ -5029,7 +5693,7 @@ def main() -> int:
               "engines_28_layers": engine_perf, "api_server_28_layers": api_perf,
               "fine_tune_28_layers": ft_perf,
               "sharded_serving": sharded_perf, "quant_2_layers": quant_perf,
-              "tp2_rows": tp2_rows, "train_mesh": train_perf}
+              "tp2_rows": tp2_rows, "train_mesh": train_perf, "phase12": p12}
     log("detail: " + json.dumps(detail))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

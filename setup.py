@@ -15,7 +15,7 @@ setup(
                                     "chatglm_q_tpu_torch", "chatglm_q_tpu_torch.*"]),
     package_data={"chatglm_q_tpu": ["data/*.json"],
                   # the PyTorch/CUDA port builds its kernels from these at first use
-                  "chatglm_q_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "chatglm_q_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "data/*.json"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

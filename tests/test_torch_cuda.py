@@ -1881,3 +1881,194 @@ def test_gptq_sweep_rejects_what_it_cannot_take(gen):
         GS.gptq_sweep_block(w[:, :48], torch.eye(48, device="cuda"), None)
     with pytest.raises(ValueError):  # f16
         GS.gptq_sweep_block(w[:, :64].half(), torch.eye(64, device="cuda"), None)
+
+
+# ---------------------------------------------------------------------------
+# The prefill, chunk and training programs captured against eager; the
+# exported decode step; a plan-table entry at the launch
+# ---------------------------------------------------------------------------
+
+PROG_CFG = dict(hidden_size=512, inner_hidden_size=1024, head_hidden_size=128,
+                num_multi_query_groups=2, num_attention_heads=4, num_layers=2, vocab_size=1024,
+                max_sequence_length=512)
+
+
+def _prog_tree(gen, quant="int4g32"):
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+
+    cfg = ChatGLM2Config(**PROG_CFG)
+    return cfg, random_quantized_params(cfg, quant, gen)
+
+
+def _rts():
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+
+    return {"captured": TorchRuntimeConfig(), "eager": TorchRuntimeConfig(cuda_graphs=False)}
+
+
+def test_captured_prefill_equals_eager(gen):
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg, params = _prog_tree(gen)
+    ids = torch.zeros((2, 64), dtype=torch.long, device="cuda")
+    ids[:, :57] = torch.randint(0, 1024, (2, 57), device="cuda", generator=gen)
+    lengths = torch.tensor([57, 40], dtype=torch.int32, device="cuda")
+    caches = {k: M.init_kv_cache(cfg, 2, 256, torch.bfloat16) for k in ("captured", "eager")}
+    progs = {k: M.prefill_program(params, cfg, caches[k], 64, "int4g32", torch.bfloat16, r)
+             for k, r in _rts().items()}
+    for _ in range(3):  # warm-up, capture, replay
+        out = {}
+        for k, prog in progs.items():
+            prog.load(ids=ids, lengths=lengths)
+            out[k] = prog.step(params, caches[k].k, caches[k].v)["logits"].clone()
+        assert torch.equal(out["captured"], out["eager"])
+    assert progs["captured"].graph is not None and progs["captured"].replays == 2
+    for row, n in enumerate(lengths.tolist()):
+        for part in ("k", "v"):
+            a, b = getattr(caches["captured"], part), getattr(caches["eager"], part)
+            assert torch.equal(a[:, row, :, :n], b[:, row, :, :n])
+
+
+def test_captured_chunk_steps_equal_eager(gen):
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.models import paged_kv as PK
+
+    cfg, params = _prog_tree(gen)
+    ids = torch.randint(0, 1024, (2, 32), device="cuda", generator=gen)
+    starts = torch.tensor([0, 64], dtype=torch.int32, device="cuda")  # page-aligned
+    valid = torch.tensor([32, 20], dtype=torch.int32, device="cuda")
+    slots = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(2, 4)
+    out = {}
+    for k, rt in _rts().items():
+        cache = M.init_kv_cache(cfg, 4, 256, torch.bfloat16)
+        pool = PK.init_paged_kv_cache(cfg, 2, 12, 256, 64, torch.bfloat16)
+        dense = M.chunk_program(params, cfg, cache, 2, 32, "int4g32", torch.bfloat16, rt)
+        paged = PK.chunk_paged_program(params, cfg, pool, 2, 32, "int4g32", torch.bfloat16, rt)
+        res = []
+        for _ in range(3):
+            dense.load(ids=ids, starts=starts, valid=valid, slot_map=slots, lengths=cache.lengths)
+            paged.load(ids=ids, starts=starts, valid=valid, page_table=table)
+            res.append(dense.step(params, cache.k, cache.v)["logits"].clone())
+            res.append(paged.step(params, pool.k_pool, pool.v_pool)["logits"].clone())
+        out[k] = (res, cache, pool)
+        if k == "captured":
+            assert dense.replays == 2 and paged.replays == 2
+    for a, b in zip(out["captured"][0], out["eager"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["captured"][1].k, out["eager"][1].k)
+    assert torch.equal(out["captured"][2].v_pool[:, 1:9], out["eager"][2].v_pool[:, 1:9])
+
+
+def test_dense_engine_whole_prompts_one_captured_program_a_bucket(gen):
+    """The dense engine's whole-prompt admission over four slots: one
+    prefill program a bucket (a one-row chunk, the slot its map), captured
+    and replayed, and the greedy tokens of the eager engine."""
+    from chatglm_q_tpu_torch import GLMLoadConfig
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import ServingEngine
+    from chatglm_q_tpu_torch.utils import graphs as G
+
+    cfg, params = _prog_tree(gen)
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    lens = (9, 14, 40, 12, 50, 11)  # buckets 16 (4 prompts) and 64 (2)
+    prompts = [torch.randint(1, 1024, (n,), generator=torch.Generator().manual_seed(n)).tolist()
+               for n in lens]
+    out = {}
+    for k, rt in _rts().items():
+        eng = ServingEngine(load, params, None, max_batch=4, max_seq_len=256, decode_chunk=4,
+                            rt=rt, device="cuda")
+        reg = G.programs(params, "prefill")
+        before = set(reg._programs)
+        out[k] = eng.run(prompts, max_new_tokens=6, temperature=0.0)
+        new = [reg._programs[key] for key in reg._programs if key not in before]
+        assert len(new) == len({M.prompt_bucket(n, 256) for n in lens})
+        if k == "captured":
+            assert all(p.graph is not None for p in new) and sum(p.replays for p in new) == 4
+    assert out["captured"] == out["eager"] and all(len(t) == 6 for t in out["eager"])
+
+
+@pytest.mark.parametrize("quant", ["int4g32", "int8"])
+def test_captured_training_step_equals_eager_over_3_steps(gen, quant):
+    from chatglm_q_tpu_torch.utils.train import (make_train_step, partition_params,
+                                                 trainable_leaves)
+
+    cfg, params = _prog_tree(gen, quant)
+    ids = torch.randint(0, 1024, (2, 64), device="cuda", generator=gen)
+    labels = ids.clone()
+    labels[:, :8] = -100
+    losses = {}
+    for k, rt in _rts().items():
+        tr, fr = partition_params(params)
+        opt = torch.optim.AdamW(trainable_leaves(tr), lr=1e-3, capturable=True)
+        step = make_train_step(cfg, quant, opt, torch.bfloat16, rt)
+        losses[k] = [step(tr, fr, ids, labels).item() for _ in range(3)]
+    assert losses["captured"] == losses["eager"] and all(math.isfinite(x) for x in losses["eager"])
+
+
+@pytest.mark.parametrize("lr", ["float", "tensor"])
+def test_captured_training_step_follows_a_scheduled_lr(gen, lr):
+    """A LambdaLR stepped between calls: the captured step's losses and
+    leaves equal the eager step's over 4 steps.  A float lr is captured
+    again at each change (three more captures); a tensor lr, filled in
+    place by the scheduler, stays in the one graph."""
+    from chatglm_q_tpu_torch.utils import graphs as G
+    from chatglm_q_tpu_torch.utils.train import (make_train_step, merge_params,
+                                                 partition_params, trainable_leaves)
+
+    cfg, params = _prog_tree(gen)
+    ids = torch.randint(0, 1024, (2, 64), device="cuda", generator=gen)
+    labels = ids.clone()
+    labels[:, :8] = -100
+    out = {}
+    for k, rt in _rts().items():
+        tr, fr = partition_params(params)
+        opt = torch.optim.AdamW(trainable_leaves(tr), capturable=True,
+                                lr=1e-3 if lr == "float" else torch.tensor(1e-3, device="cuda"))
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda i: 1.0 / (1 + i))
+        step = make_train_step(cfg, "int4g32", opt, torch.bfloat16, rt)
+        reg = G.programs(merge_params(tr, fr), "train")
+        losses = []
+        for _ in range(4):
+            losses.append(step(tr, fr, ids, labels).item())
+            sched.step()
+        out[k] = (losses, trainable_leaves(tr), reg.captures)
+    assert out["captured"][0] == out["eager"][0]
+    for a, b in zip(out["captured"][1], out["eager"][1]):
+        assert torch.equal(a, b)
+    assert out["captured"][2] == (3 if lr == "float" else 1) and out["eager"][2] == 0
+
+
+@pytest.mark.parametrize("quant", ["int4g32", "int8"])
+def test_exported_decode_step_round_trips_bit_equal(gen, quant, tmp_path):
+    from chatglm_q_tpu_torch.examples import export as EX
+
+    cfg, params = _prog_tree(gen, quant)
+    cache, ids = EX.prefilled_cache(params, cfg, quant, torch.bfloat16, 2, 128, "cuda")
+    res = EX.round_trip(params, cfg, quant, torch.bfloat16, cache, ids, str(tmp_path / "s.pt2"))
+    assert all(res["equal"].values()), res["equal"]
+    assert "chatglm_q_tpu_torch.rope_kv_append.default" in res["ops"]
+
+
+def test_a_recorded_plan_reaches_the_launch(gen, tmp_path, monkeypatch):
+    from chatglm_q_tpu_torch.ops import autotune as AT
+
+    monkeypatch.setenv(AT.ENV, str(tmp_path / "table.json"))
+    AT.reload()
+    try:
+        plan = (1, 8, 8, 16, 16)
+        assert plan != QM.builtin_splitk_plan(1, 4096, 4096)
+        AT.record("int4_splitk", 8, 4096, 4096, plan)
+        calls, call = [], _build.call
+        monkeypatch.setattr(_build, "call", lambda name, *a: (calls.append(a), call(name, *a)))
+        packed = torch.randint(0, 256, (2048, 4096), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        scale = (torch.rand((128, 4096), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+        for M in (1, 8):  # the entry of bucket m8 serves M = 1 to 8
+            x = torch.randn((M, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+            got = QM.int4g32_matmul(x, packed, scale)
+            assert tuple(calls[-1][9:14]) == plan
+            assert _rel(got, QM.int4g32_matmul_plain(x, packed, scale)) <= 1e-2
+    finally:
+        AT.reload()

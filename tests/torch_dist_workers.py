@@ -621,3 +621,66 @@ def ckpt_cases(rank, tree, cfg, quant, whole_dir, mesh_dir):
     on_21 = C.load_params(mesh_dir, mesh=m21, config=cfg, quant_type=quant, device="cpu")
     on_12 = C.load_params(whole_dir, mesh=m12, config=cfg, quant_type=quant, device="cpu")
     return {"mesh_to_21": differ(on_21, m21), "whole_to_12": differ(on_12, m12)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sharded_writes.py
+# ---------------------------------------------------------------------------
+
+def _nonzero_rows_sharded(cache_layer, new, start, shard, rows=None):
+    """The T-sharded write as it selected its positions with ``nonzero``
+    (a host sync) before it became a masked accumulate."""
+    B, G, S, D = new.shape
+    pos = start.long().clamp(0, shard.total - S)[:, None] + torch.arange(S)
+    t = pos - shard.offset
+    b, s = ((t >= 0) & (t < cache_layer.shape[2])).nonzero(as_tuple=True)
+    r = b if rows is None else rows.long()[b]
+    cache_layer[r, :, t[b, s]] = new[b, :, s].to(cache_layer.dtype)
+
+
+def _nonzero_pages_sharded(pool, new, layer, table, start, shard, aligned=True):
+    """The model-sharded paged write, likewise, as it was."""
+    B, G, S, D = new.shape
+    P = pool.shape[3]
+    pos = start.long()[:, None] + torch.arange(S)[None, :]
+    if S == 1 or not aligned:
+        pos = pos.clamp(max=shard.total - 1)
+        blk = pos // P
+    else:
+        blk = (pos // P).clamp(max=shard.total // P - 1)
+    col = blk // shard.stride
+    b, s = ((blk % shard.stride == shard.phase) & (col < table.shape[1])).nonzero(as_tuple=True)
+    page = table.long()[b, col[b, s]]
+    pool[layer][page, :, pos[b, s] % P] = new[b, :, s].to(pool.dtype)
+
+
+def sharded_write_cases(rank, nd, nm, cases):
+    """{name: (kind, kwargs)} → {name: (the masked write's cache bits, the
+    nonzero write's, the cache's bits before)} on this rank's shard: "rows"
+    a T-shard of ``T_local`` slots at offset rank · T_local, "pages" the
+    pool of phase rank of a strided table."""
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.models import paged_kv as PK
+    from chatglm_q_tpu_torch.ops.attention import KVShard
+
+    mesh = _mesh(nd, nm)
+    m = mesh.model_index
+    out = {}
+    for name, (kind, kw) in cases.items():
+        before = _t(kw["cache"]).to(torch.bfloat16)
+        new = _t(kw["new"]).to(torch.bfloat16)
+        start = _t(kw["start"])
+        got, want = before.clone(), before.clone()
+        if kind == "rows":
+            T_local = before.shape[2]
+            shard = KVShard(offset=m * T_local, total=T_local * mesh.n_model)
+            rows = None if kw.get("rows") is None else _t(kw["rows"])
+            M.write_rows_sharded(got, new, start, shard, rows)
+            _nonzero_rows_sharded(want, new, start, shard, rows)
+        else:
+            shard = KVShard(stride=mesh.n_model, phase=m, total=kw["total"])
+            table = _t(kw["tables"][m])
+            PK.write_pages_sharded(got, new, kw["layer"], table, start, shard, kw["aligned"])
+            _nonzero_pages_sharded(want, new, kw["layer"], table, start, shard, kw["aligned"])
+        out[name] = tuple(x.view(torch.int16).numpy() for x in (got, want, before))
+    return out
