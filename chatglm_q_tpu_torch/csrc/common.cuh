@@ -672,29 +672,312 @@ int sk_dispatch(int M, int N, int mt, int cols, int nsplit, int gps, int cg, int
 // says how its rows become numbers; for t_gemv_kernel:
 //   W::kCols                  output columns (weight rows) one warp of
 //                             t_gemv_kernel owns, inside one scale group
-//   W::kFoldG                 the scale folds into g (B13) or into the
-//                             weights (B14)
-//   w.fold<T>(n, s)           (kFoldG) the 8 scales at n, rounded to T
-//   w.cols<T>(k0, n, N, wq)   the weights of columns k0..k0+kCols-1 at
-//                             n..n+7, as floats (with the scale rounded to T
-//                             under !kFoldG)
+//   W::kFoldG, w.scale        the f32 scale folds into g (B13), or into
+//                             the weights (B14)
+//   w.cols(k0, n, N, wq)      the weights of columns k0..k0+kCols-1 at
+//                             n..n+7, as floats (times the scale under
+//                             !kFoldG)
+// for t_splitk_mma_kernel:
+//   W::TskChunk               a lane's registers of one 64-element chunk of
+//                             the contraction for its warp's 32 output rows
+//   w.tsk_load<WIDE>(d, k0, n, N, valid)   those loads (lane quad t: the
+//                             16 elements n = 64c + 16t.., `valid` of them
+//                             below N, the rest zeros)
+//   w.tsk_frag(d, s, rt, a)   the m16n8k16 A registers of k16 step s of
+//                             16-row tile rt
+//   W::tsk_row(rt, gid, hi)   the warp's output row of D row gid + 8 hi
+//   w.tsk_scales(n, s)        (kFoldG) the 8 scales at n as bf16x2 pairs
 // and for t_wgmma_kernel the Hopper view of wg_consume below.
+
+// The transposed split-K tensor-core kernel (bf16 g at M <= 16, and at any
+// M where N % 16 != 0; the backward of a training step of <= 16 tokens).
+// Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_t_kernel (:653, its
+// pallas_call :708) and :_int4_t_kernel (:671, :745) at <= 16 rows, where
+// the CUDA-core t_gemv_kernel below took them.  Bound by the weight bytes:
+// at M <= 16 a weight serves at most 16 products, so the card has ~60
+// operations a byte to spare and the kernel is built to read each byte once
+// and convert each weight once.  out (M, K) = g (M, N) · Ŵᵀ: the mma's A is 16
+// weight rows (output columns k) by 16 contraction elements, straight from
+// the N-contiguous rows; its B is g's rows (8 an m-tile, zero past M) from
+// shared memory, so each weight converts once whatever M is.  The order of
+// the contraction is free while A and B agree: lane quad t reads 16
+// neighbouring bytes of a row at 64c + 16t (one 16-byte load a row, the
+// quads of a warp on 64 contiguous bytes), and k16 step s of chunk c takes
+// elements 64c + 16t + 4s .. + 3 (A registers 0 / 2: pairs 4s and 4s + 2),
+// so one load feeds the lane's A registers for all four steps of a chunk
+// and its B fragment of a step is 8 contiguous bytes of a staged g row.
+// A block is TSK_RW warps along the output rows (32 each: two A tiles)
+// times TSK_CW along the contraction (chunks c0 + h, c0 + h + 2, ... of
+// its split), TSK_ROWS output rows; g's rows over the split are staged cs
+// chunks at a time (B13's scale folded in while staging: bf16(g ·
+// bf16(s)), the function's own rounding) and serve all its warps.  Each
+// warp keeps two chunks' loads in flight (two register sets that
+// alternate).  Every two k16 steps (32 contraction elements) go into a
+// fresh f32 partial, added to the accumulator on the CUDA cores: one mma
+// chain over a whole split would drift from round-to-nearest.  The two
+// contraction warps' sums meet in shared memory in order; one split writes
+// out, more write f32 partials, and the last block of a tile to arrive sums
+// them in split order, writes out and resets its counter (sk_body's
+// protocol: deterministic, graph-safe).  grid.z takes 16-row blocks of g.
+// ops/quant_matmul.py::t_splitk_plan and t_splitk_smem mirror the constants.
+constexpr int TSK_RW = 4;                      // warps along the output rows
+constexpr int TSK_CW = 2;                      // warps along the contraction
+constexpr int TSK_THREADS = 32 * TSK_RW * TSK_CW;
+constexpr int TSK_ROWS = 32 * TSK_RW;          // output rows a block
+constexpr int TSK_CHUNK = 64;                  // contraction elements a chunk (4 k16 steps)
+constexpr int TSK_MROWS = 16;                  // g rows a block (grid.z: more)
+constexpr int TSK_SMEM_MAX = 46 * 1024;        // under the 48 KB that need no opt-in
+constexpr int TSK_RS = TSK_ROWS + 1;           // a row of the warps' sums (banks)
+
+// g's staged rows (8 mt of them, padded by 8 elements: the quads' 16-byte
+// reads of two rows then hit distinct banks), then the same bytes as the
+// TSK_CW warps' (8 mt, TSK_RS) f32 sums.
+__host__ __device__ constexpr int tsk_xs_stride(int cs) { return cs * TSK_CHUNK + 8; }
+__host__ __device__ constexpr int tsk_smem_bytes(int mt, int cs) {
+  return 8 * mt * tsk_xs_stride(cs) * 2 > TSK_CW * 8 * mt * TSK_RS * 4
+             ? 8 * mt * tsk_xs_stride(cs) * 2
+             : TSK_CW * 8 * mt * TSK_RS * 4;
+}
+
+// 16 bytes at p of which `valid` (16, 8 or 0) lie below N, zeros past: one
+// 16-byte load where rows are 16-byte aligned (WIDE: N % 16 == 0), else two
+// of 8 bytes.
+template <bool WIDE>
+__device__ __forceinline__ uint4 tsk_ld16(const void* p, int valid) {
+  if constexpr (WIDE) {
+    return valid > 0 ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 a = valid > 0 ? __ldg(q) : make_uint2(0u, 0u);
+    const uint2 b = valid > 8 ? __ldg(q + 1) : make_uint2(0u, 0u);
+    return make_uint4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// Word i (bytes 4i..4i+3) of v; i a constant once the loops unroll.
+__device__ __forceinline__ uint32_t word_at(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
 namespace {
 
-// CUDA-core form (f32 g, or M <= 16): one warp per kCols output columns.
+static_assert(TSK_CW == 2, "t_splitk_mma_kernel sums two contraction halves");
+
+template <typename W, int MT, bool WIDE>
+__global__ void __launch_bounds__(TSK_THREADS, 2)
+t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                    int* __restrict__ arrivals, int M, int K, int N, int cps, int cs) {
+  extern __shared__ __align__(16) unsigned char tsk_smem[];
+  __shared__ bool merge_here;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int rw = warp % TSK_RW, h = warp / TSK_RW;
+  const int tile = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int tiles = gridDim.x;
+  const int m0 = blockIdx.z * TSK_MROWS, Mb = min(TSK_MROWS, M - m0);
+  const int r0 = tile * TSK_ROWS, k0 = r0 + 32 * rw;  // K % 32 == 0: all 32 rows or none
+  const bool ok = k0 < K;
+  const int C = (N + TSK_CHUNK - 1) / TSK_CHUNK;
+  const int c_begin = split * cps, c_end = min(C, c_begin + cps);
+  const int xs_stride = tsk_xs_stride(cs);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tsk_smem);
+  float* red = reinterpret_cast<float*>(tsk_smem);  // after the loop: TSK_CW x (8 MT, TSK_RS)
+
+  float acc[2][MT][4];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[rt][mt][e] = 0.f;
+
+  auto load = [&](typename W::TskChunk& d, int c) {
+    const int n = c * TSK_CHUNK + 16 * t;
+    w.template tsk_load<WIDE>(d, k0, n, N, ok ? max(0, min(16, N - n)) : 0);
+  };
+  // chunk c's products with the staged rows (chunk lc of the stage)
+  auto chunk = [&](const typename W::TskChunk& d, int lc) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // k16 steps 2 hf, 2 hf + 1: one fresh partial
+      uint4 b[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        b[mt] = *reinterpret_cast<const uint4*>(xs + (mt * 8 + gid) * xs_stride +
+                                                lc * TSK_CHUNK + 16 * t + 8 * hf);
+      float part[2][MT][4];
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[rt][mt][e] = 0.f;
+#pragma unroll
+      for (int ss = 0; ss < 2; ++ss) {
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          uint32_t a[4];
+          w.tsk_frag(d, 2 * hf + ss, rt, a);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t bb[2] = {ss ? b[mt].z : b[mt].x, ss ? b[mt].w : b[mt].y};
+            mma_bf16_16816(part[rt][mt], a, bb);
+          }
+        }
+      }
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[rt][mt][e] += part[rt][mt][e];
+    }
+  };
+
+  typename W::TskChunk ga, gb;  // this warp's chunks c and c + 2: both in flight from the start
+  int c = c_begin + h;
+  if (c < c_end) load(ga, c);
+  if (c + TSK_CW < c_end) load(gb, c + TSK_CW);
+  for (int w0 = c_begin; w0 < c_end; w0 += cs) {
+    const int w1 = min(c_end, w0 + cs);
+    const int n0 = w0 * TSK_CHUNK;
+    const int kw = (w1 - w0) * (TSK_CHUNK / 8);  // 16-byte pieces of a staged row
+    for (int i = tid; i < 8 * MT * kw; i += TSK_THREADS) {
+      const int r = i / kw, col = (i % kw) * 8, n = n0 + col;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < Mb && n < N) {
+        v = *reinterpret_cast<const uint4*>(g + (size_t)(m0 + r) * N + n);
+        if constexpr (W::kFoldG) {  // bf16(g * bf16(s)), each product rounded once
+          uint32_t s[4];
+          w.tsk_scales(n, s);
+          v.x = bf16x2_mul(v.x, s[0]);
+          v.y = bf16x2_mul(v.y, s[1]);
+          v.z = bf16x2_mul(v.z, s[2]);
+          v.w = bf16x2_mul(v.w, s[3]);
+        }
+      }
+      *reinterpret_cast<uint4*>(xs + r * xs_stride + col) = v;
+    }
+    __syncthreads();
+    for (; c < w1; c += 2 * TSK_CW) {  // ga holds chunk c, gb chunk c + 2
+      chunk(ga, c - w0);
+      if (c + 2 * TSK_CW < c_end) load(ga, c + 2 * TSK_CW);
+      if (c + TSK_CW >= w1) break;  // the last stage's odd chunk
+      chunk(gb, c + TSK_CW - w0);
+      if (c + 3 * TSK_CW < c_end) load(gb, c + 3 * TSK_CW);
+    }
+    __syncthreads();
+  }
+
+  // each warp's sums into its contraction half's slab (g's rows are dead),
+  // then the halves in order
+  float* slab = red + h * 8 * MT * TSK_RS;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mt * 8 + 2 * t + (e & 1);
+        slab[m * TSK_RS + 32 * rw + W::tsk_row(rt, gid, e >> 1)] = acc[rt][mt][e];
+      }
+  __syncthreads();
+  auto block_sum = [&](int i) {  // element i of the block's (Mb, TSK_ROWS) tile
+    const int o = (i / TSK_ROWS) * TSK_RS + i % TSK_ROWS;
+    return red[o] + red[8 * MT * TSK_RS + o];
+  };
+  const int R = min(TSK_ROWS, K - r0);
+  if (nsplit == 1) {
+    for (int i = tid; i < Mb * TSK_ROWS; i += TSK_THREADS) {
+      const int m = i / TSK_ROWS, r = i % TSK_ROWS;
+      if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = __float2bfloat16_rn(block_sum(i));
+    }
+    return;
+  }
+  // (z, tile, split) slabs of min(M, 16) x TSK_ROWS partials
+  const int slab_m = min(M, TSK_MROWS);
+  const int ztile = blockIdx.z * tiles + tile;
+  float* part = ws + ((size_t)ztile * nsplit + split) * slab_m * TSK_ROWS;
+  for (int i = tid; i < Mb * TSK_ROWS; i += TSK_THREADS) part[i] = block_sum(i);
+  // the block that finishes this tile last sums its splits, in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) merge_here = atomicAdd(&arrivals[ztile], 1) == nsplit - 1;
+  __syncthreads();
+  if (!merge_here) return;
+  __threadfence();
+  const float* tp = ws + (size_t)ztile * nsplit * slab_m * TSK_ROWS;
+  const size_t stride = (size_t)slab_m * TSK_ROWS;
+  for (int i = tid; i < Mb * TSK_ROWS; i += TSK_THREADS) {
+    float s = 0.f;
+    int p = 0;
+    for (; p + 8 <= nsplit; p += 8) {  // eight loads in flight, then their sum in order
+      float u[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[k] = __ldcg(tp + (p + k) * stride + i);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += u[k];
+    }
+    for (; p < nsplit; ++p) s += __ldcg(tp + p * stride + i);
+    const int m = i / TSK_ROWS, r = i % TSK_ROWS;
+    if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = __float2bfloat16_rn(s);
+  }
+  if (tid == 0) arrivals[ztile] = 0;  // ready for the next launch (and a graph replay)
+}
+
+template <typename W, int MT, bool WIDE>
+int launch_t_splitk_mt(const W& w, const void* g, void* out, void* ws, void* arrivals, int M,
+                       int K, int N, int nsplit, int cps, int cs, cudaStream_t stream) {
+  const dim3 grid((K + TSK_ROWS - 1) / TSK_ROWS, nsplit, (M + TSK_MROWS - 1) / TSK_MROWS);
+  t_splitk_mma_kernel<W, MT, WIDE><<<grid, TSK_THREADS, tsk_smem_bytes(MT, cs), stream>>>(
+      static_cast<const __nv_bfloat16*>(g), w, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, cps, cs);
+  return (int)cudaGetLastError();
+}
+
+// g (M, N) bf16, view w, out (M, K) bf16; the plan of
+// ops/quant_matmul.py::t_splitk_plan: mt m-tiles of 8 rows (2 above 8 rows),
+// nsplit splits of cps 64-element chunks, g staged cs chunks at a time (cs
+// % 4 == 0: a stage gives each warp an even number of chunks); ws holds
+// ceil(M / 16) * ceil(K / 128) * nsplit * min(M, 16) * 128 floats (unused at
+// nsplit 1), arrivals ceil(M / 16) * ceil(K / 128) zeroed ints that every
+// launch leaves at 0; K % 32 == 0, N % 8 == 0, 16-byte aligned pointers.
+template <typename W>
+int launch_t_splitk(const W& w, const void* g, void* out, void* ws, void* arrivals, int M, int K,
+                    int N, int mt, int nsplit, int cps, int cs, cudaStream_t stream) {
+  const int C = (N + TSK_CHUNK - 1) / TSK_CHUNK;
+  if (M < 1 || K < 32 || K % 32 || N < 8 || N % 8 || (mt != 1 && mt != 2) ||
+      (M < TSK_MROWS ? M : TSK_MROWS) > 8 * mt || nsplit < 1 || cps < 1 || (nsplit - 1) * cps >= C ||
+      nsplit * cps < C || cs < 4 || cs % 4 || tsk_smem_bytes(mt, cs) > TSK_SMEM_MAX ||
+      (nsplit > 1 && ws == nullptr) || arrivals == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = N % 16 == 0;
+  if (mt == 1)
+    return wide ? launch_t_splitk_mt<W, 1, true>(w, g, out, ws, arrivals, M, K, N, nsplit, cps,
+                                                 cs, stream)
+                : launch_t_splitk_mt<W, 1, false>(w, g, out, ws, arrivals, M, K, N, nsplit, cps,
+                                                  cs, stream);
+  return wide ? launch_t_splitk_mt<W, 2, true>(w, g, out, ws, arrivals, M, K, N, nsplit, cps, cs,
+                                               stream)
+              : launch_t_splitk_mt<W, 2, false>(w, g, out, ws, arrivals, M, K, N, nsplit, cps,
+                                                cs, stream);
+}
+
+// CUDA-core form (f32 g): one warp per kCols output columns.
 // Weight row k is N-contiguous, so the lanes read 8 neighbouring elements of
 // each of the warp's rows (8-byte loads along N), every g load serves all
 // kCols columns, and the sums over N run in registers and then across lanes
-// in a fixed order.  Bound by the weight bytes.
-template <typename W, typename T, int MT>
+// in a fixed order, in IEEE f32.  Bound by the weight bytes.
+template <typename W, int MT>
 __global__ void __launch_bounds__(256)
-t_gemv_kernel(const T* __restrict__ g, const W w, T* __restrict__ out, int M, int K, int N) {
+t_gemv_kernel(const float* __restrict__ g, const W w, float* __restrict__ out, int M, int K,
+              int N) {
   constexpr int R = W::kCols;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k0 = (blockIdx.x * 8 + warp) * R;  // K % 32 == 0: all R columns exist
   const int m0 = blockIdx.y * MT;
   if (k0 >= K) return;
-  const T* gr[MT];
+  const float* gr[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) gr[m] = g + (size_t)min(m0 + m, M - 1) * N;
   float acc[R][MT];
@@ -704,8 +987,8 @@ t_gemv_kernel(const T* __restrict__ g, const W w, T* __restrict__ out, int M, in
     for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
   for (int n = lane * 8; n < N; n += 256) {
     float wq[R][8], s[8];
-    w.template cols<T>(k0, n, N, wq);
-    if constexpr (W::kFoldG) w.template fold<T>(n, s);
+    w.cols(k0, n, N, wq);
+    if constexpr (W::kFoldG) load8(w.scale + n, s);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       float gv[8];
@@ -713,7 +996,7 @@ t_gemv_kernel(const T* __restrict__ g, const W w, T* __restrict__ out, int M, in
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float gs = gv[j];
-        if constexpr (W::kFoldG) gs = round_to<T>(gv[j] * s[j]);  // g * scale in g's dtype
+        if constexpr (W::kFoldG) gs = gv[j] * s[j];  // g * scale, as the plain version
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r][m] = fmaf(gs, wq[r][j], acc[r][m]);
       }
@@ -724,26 +1007,27 @@ t_gemv_kernel(const T* __restrict__ g, const W w, T* __restrict__ out, int M, in
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       const float v = warp_sum(acc[r][m]);
-      if (lane == 0 && m0 + m < M) out[(size_t)(m0 + m) * K + k0 + r] = from_f32<T>(v);
+      if (lane == 0 && m0 + m < M) out[(size_t)(m0 + m) * K + k0 + r] = v;
     }
 }
 
-template <typename W, typename T, int MT>
-void launch_t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t stream) {
+template <typename W, int MT>
+void launch_t_gemv(const float* g, const W& w, float* out, int M, int K, int N,
+                   cudaStream_t stream) {
   const dim3 grid((K / W::kCols + 7) / 8, (M + MT - 1) / MT);
-  t_gemv_kernel<W, T, MT><<<grid, 256, 0, stream>>>(g, w, out, M, K, N);
+  t_gemv_kernel<W, MT><<<grid, 256, 0, stream>>>(g, w, out, M, K, N);
 }
 
-template <typename W, typename T>
-void t_gemv(const T* g, const W& w, T* out, int M, int K, int N, cudaStream_t stream) {
+template <typename W>
+void t_gemv(const float* g, const W& w, float* out, int M, int K, int N, cudaStream_t stream) {
   if (M == 1)
-    launch_t_gemv<W, T, 1>(g, w, out, M, K, N, stream);
+    launch_t_gemv<W, 1>(g, w, out, M, K, N, stream);
   else if (M == 2)
-    launch_t_gemv<W, T, 2>(g, w, out, M, K, N, stream);
+    launch_t_gemv<W, 2>(g, w, out, M, K, N, stream);
   else if (M <= 4)
-    launch_t_gemv<W, T, 4>(g, w, out, M, K, N, stream);
+    launch_t_gemv<W, 4>(g, w, out, M, K, N, stream);
   else
-    launch_t_gemv<W, T, 8>(g, w, out, M, K, N, stream);
+    launch_t_gemv<W, 8>(g, w, out, M, K, N, stream);
 }
 
 }  // namespace

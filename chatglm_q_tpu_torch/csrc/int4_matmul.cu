@@ -82,9 +82,15 @@
 // folds into neither g nor the output: each weight is dequantized to g's
 // dtype, bf16(q * s) under bf16, before the dot, as both JAX forms round it.
 // Byte row i of packed holds output columns 2i (low nibble) and 2i+1 (high).
-// Both are common.cuh's transposed bodies over Int4TView:
-// * t_gemv_kernel<Int4TView> (f32 g, or M <= 16): bound by the packed bytes;
-//   one warp per two byte rows (four output columns), 8-byte loads along N.
+// All three are common.cuh's transposed bodies over Int4TView:
+// * t_splitk_mma_kernel<Int4TView> (bf16 g, M <= MMA_MIN_M = 16, and bf16
+//   at any M where N % 16 != 0): bound by the packed bytes.  mma.sync with
+//   a warp's 32 output rows (16 byte rows, one scale group) as two A tiles
+//   built as t_wgmma_kernel's below, one 16-byte load a byte row feeding
+//   four k16 steps, g's rows as B from shared memory; the contraction split
+//   over blocks, merged in the launch (common.cuh).
+// * t_gemv_kernel<Int4TView> (f32 g): bound by the packed bytes; one warp
+//   per two byte rows (four output columns), 8-byte loads along N.
 // * t_wgmma_kernel<Int4TView> (bf16, M > 16; training's M = B*S): bound by
 //   operations.  common.cuh's Hopper mainloop (B1's ring, producer and
 //   orientation: the weights as wgmma's A from registers, g's rows as B
@@ -539,7 +545,6 @@ struct Int4TView {
   static constexpr int kCols = 4;  // two byte rows, inside one 32-row group
   static constexpr bool kFoldG = false;
 
-  template <typename T>
   __device__ __forceinline__ void cols(int k0, int n, int N, float (&wq)[kCols][8]) const {
     float s[8];
     load8(scale + (size_t)(k0 / 32) * N + n, s);
@@ -550,11 +555,47 @@ struct Int4TView {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t b = ((j < 4 ? pv.x : pv.y) >> (8 * (j & 3))) & 0xFFu;
-        wq[2 * br][j] = round_to<T>(nib_lo(b) * s[j]);  // the weight in g's dtype
-        wq[2 * br + 1][j] = round_to<T>(nib_hi(b) * s[j]);
+        wq[2 * br][j] = nib_lo(b) * s[j];  // q * s, exact in f32
+        wq[2 * br + 1][j] = nib_hi(b) * s[j];
       }
     }
   }
+
+  // t_splitk_mma_kernel's view.  The warp's 32 rows (k0 % 32 == 0: one
+  // scale group) are byte rows k0 / 2 + 8 rt + gid, rt 0 and 1; as in
+  // t_wgmma_kernel, D rows gid and gid + 8 are a byte row's low and high
+  // nibbles (output rows k0 + 16 rt + 2 gid and + 1), so each u16 of two
+  // neighbouring bytes gives both rows' A registers for two contraction
+  // elements (int4_rows_bf16x2), each weight bf16(q * s) by one bf16x2
+  // multiply with the pair's scales.  p[rt]: the lane's 16 bytes of byte
+  // row rt; s: the group's 16 scales at the same elements (32 bytes).
+  struct TskChunk {
+    uint4 p[2], s[2];
+  };
+  template <bool WIDE>
+  __device__ __forceinline__ void tsk_load(TskChunk& d, int k0, int n, int N, int valid) const {
+    const int gid = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+      d.p[rt] = tsk_ld16<WIDE>(packed + (size_t)(k0 / 2 + 8 * rt + gid) * N + n, valid);
+    const uint4* sp = reinterpret_cast<const uint4*>(scale + (size_t)(k0 / 32) * N + n);
+    d.s[0] = valid > 0 ? __ldg(sp) : make_uint4(0u, 0u, 0u, 0u);
+    d.s[1] = valid > 8 ? __ldg(sp + 1) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ void tsk_frag(const TskChunk& d, int s, int rt,
+                                           uint32_t (&a)[4]) const {
+    const uint32_t v = word_at(d.p[rt], s);  // bytes 4s..4s+3: elements 4s..4s+3
+    const uint32_t s01 = word_at(d.s[s >> 1], 2 * (s & 1));
+    const uint32_t s23 = word_at(d.s[s >> 1], 2 * (s & 1) + 1);
+    uint32_t lo, hi;
+    int4_rows_bf16x2(v, lo, hi);
+    a[0] = bf16x2_mul(lo, s01);
+    a[1] = bf16x2_mul(hi, s01);
+    int4_rows_bf16x2(v >> 16, lo, hi);
+    a[2] = bf16x2_mul(lo, s23);
+    a[3] = bf16x2_mul(hi, s23);
+  }
+  __device__ static int tsk_row(int rt, int gid, int hi) { return 16 * rt + 2 * gid + hi; }
 
   // t_wgmma_kernel's view.  A stage: 64 byte rows (128 output columns) x 64
   // contraction bytes of packed (64B swizzle: 16-byte chunk h of byte row r
@@ -684,19 +725,28 @@ int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, voi
 }
 
 // B14, CUDA-core form: out (M, K) = g (M, N) @ dequant(packed (K/2, N),
-// scale (K/32, N))ᵀ.  g bf16 (g_is_bf16) or f32, out the same; K % 32 == 0,
-// N % 8 == 0, aligned pointers.
+// scale (K/32, N))ᵀ, g and out f32; K % 32 == 0, N % 8 == 0, aligned
+// pointers.
 int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, void* out, int M,
-                        int K, int N, int g_is_bf16, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+                        int K, int N, void* stream) {
   const Int4TView wv{static_cast<const uint8_t*>(packed),
                      static_cast<const __nv_bfloat16*>(scale)};
-  if (g_is_bf16)
-    t_gemv(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
-           s);
-  else
-    t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N, s);
+  t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
+         reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// B14, split-K tensor-core form (t_splitk_mma_kernel), bf16 only, one
+// launch: the plan and buffers of common.cuh's launch_t_splitk
+// (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
+// aligned pointers.
+int chatglm_int4_t_splitk(const void* g, const void* packed, const void* scale, void* out,
+                          void* ws, void* arrivals, int M, int K, int N, int mt, int nsplit,
+                          int cps, int cs, void* stream) {
+  const Int4TView wv{static_cast<const uint8_t*>(packed),
+                     static_cast<const __nv_bfloat16*>(scale)};
+  return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
+                         reinterpret_cast<cudaStream_t>(stream));
 }
 
 // B14, tensor-core form (t_wgmma_kernel), bf16 only, one launch: tiles of

@@ -58,9 +58,18 @@
 // from the plain version (ops/int8_matmul.py::int8_matmul_t_plain) only in
 // the order of the f32 sums.  Output column k reads weight row k, which is
 // N-contiguous: no second weight layout is kept.
-// Both are common.cuh's transposed bodies over Int8TView:
-// * t_gemv_kernel<Int8TView> (f32 g, or M <= 16): bound by the weight bytes;
-//   one warp per 4 output columns, 8-byte loads along N.
+// All three are common.cuh's transposed bodies over Int8TView:
+// * t_splitk_mma_kernel<Int8TView> (bf16 g, M <= MMA_MIN_M = 16: a training
+//   step of <= 16 tokens; and bf16 at any M where N % 16 != 0): bound by the
+//   weight bytes (one byte a weight, two operations a byte per row of g).
+//   mma.sync m16n8k16 with 16 weight rows as A straight from the
+//   N-contiguous rows (each u16 of two neighbouring bytes one exact bf16x2
+//   register, four of them from one 16-byte load a row) and g's rows as B
+//   from shared memory, so each weight converts once whatever M is; the
+//   contraction split over blocks so that every linear fills the card, the
+//   splits merged in the launch; the scale folded into g as it is staged.
+// * t_gemv_kernel<Int8TView> (f32 g): bound by the weight bytes; one warp
+//   per 4 output columns, 8-byte loads along N, IEEE f32 sums (no TF32).
 // * t_wgmma_kernel<Int8TView> (bf16, M > 16, training's M = B*S): bound by
 //   operations; the Hopper mainloop above with the weight rows as A (each
 //   u16 load one exact bf16x2 register) and the scale folded into each g
@@ -344,13 +353,6 @@ struct Int8TView {
   static constexpr int kCols = 4;
   static constexpr bool kFoldG = true;
 
-  template <typename T>
-  __device__ __forceinline__ void fold(int n, float* s) const {
-    load8(scale + n, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = round_to<T>(s[j]);  // the scale in g's dtype
-  }
-  template <typename T>
   __device__ __forceinline__ void cols(int k0, int n, int N, float (&wq)[kCols][8]) const {
 #pragma unroll
     for (int r = 0; r < kCols; ++r) {
@@ -361,6 +363,36 @@ struct Int8TView {
         wq[r][4 + j] = s8_at(wv.y, j);
       }
     }
+  }
+
+  // t_splitk_mma_kernel's view.  The warp's 32 rows are two A tiles, rows
+  // k0 + 16 rt + gid (D row gid) and + 8 (gid + 8); r[i] holds row k0 + gid
+  // + 8 i at the lane's 16 contraction bytes, word s of it (bytes 4s..4s+3)
+  // k16 step s's two pairs: one s8x4_bf16x2 gives A registers 0 and 2 (or 1
+  // and 3), exactly.  The scale folds into g while it is staged.
+  struct TskChunk {
+    uint4 r[4];
+  };
+  template <bool WIDE>
+  __device__ __forceinline__ void tsk_load(TskChunk& d, int k0, int n, int N, int valid) const {
+    const int gid = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      d.r[i] = tsk_ld16<WIDE>(w + (size_t)(k0 + gid + 8 * i) * N + n, valid);
+  }
+  __device__ __forceinline__ void tsk_frag(const TskChunk& d, int s, int rt,
+                                           uint32_t (&a)[4]) const {
+    s8x4_bf16x2(word_at(d.r[2 * rt], s), a[0], a[2]);
+    s8x4_bf16x2(word_at(d.r[2 * rt + 1], s), a[1], a[3]);
+  }
+  __device__ static int tsk_row(int rt, int gid, int hi) { return 16 * rt + gid + 8 * hi; }
+  __device__ __forceinline__ void tsk_scales(int n, uint32_t (&s)[4]) const {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(scale + n));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(scale + n + 4));
+    s[0] = bf16x2_bits(a.x, a.y);
+    s[1] = bf16x2_bits(a.z, a.w);
+    s[2] = bf16x2_bits(b.x, b.y);
+    s[3] = bf16x2_bits(b.z, b.w);
   }
 
   // t_wgmma_kernel's view.  A stage: 128 weight rows (output columns) x 64
@@ -517,18 +549,26 @@ int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, v
   return launch_wgmma<64>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
 }
 
-// B13, CUDA-core form: out (M, K) = (g (M, N) * scale (N,)) @ w (K, N)ᵀ.  g
-// bf16 (g_is_bf16) or f32, out the same; N % 8 == 0, aligned pointers.
+// B13, CUDA-core form: out (M, K) = (g (M, N) * scale (N,)) @ w (K, N)ᵀ, g
+// and out f32; N % 8 == 0, aligned pointers.
 int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* out, int M, int K,
-                        int N, int g_is_bf16, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+                        int N, void* stream) {
   const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
-  if (g_is_bf16)
-    t_gemv(static_cast<const __nv_bfloat16*>(g), wv, static_cast<__nv_bfloat16*>(out), M, K, N,
-           s);
-  else
-    t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N, s);
+  t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
+         reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// B13, split-K tensor-core form (t_splitk_mma_kernel), bf16 only, one
+// launch: the plan and buffers of common.cuh's launch_t_splitk
+// (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
+// aligned pointers.
+int chatglm_int8_t_splitk(const void* g, const void* w, const void* scale, void* out, void* ws,
+                          void* arrivals, int M, int K, int N, int mt, int nsplit, int cps,
+                          int cs, void* stream) {
+  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+  return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
+                         reinterpret_cast<cudaStream_t>(stream));
 }
 
 // B13, tensor-core form (t_wgmma_kernel), bf16 only, one launch: the plan

@@ -25,8 +25,10 @@ def kernel_wrappers() -> dict:
         "int8_splitk": I8.int8_splitk,
         "int8_gemv": I8.int8_gemv,
         "int8_mma": I8.int8_mma,
+        "int4g32_t_splitk": QM.int4g32_t_splitk,
         "int4g32_t_gemv": QM.int4g32_t_gemv,
         "int4g32_t_mma": QM.int4g32_t_mma,
+        "int8_t_splitk": I8.int8_t_splitk,
         "int8_t_gemv": I8.int8_t_gemv,
         "int8_t_mma": I8.int8_t_mma,
         "int8_dyn_splitk": D.int8_dyn_splitk,

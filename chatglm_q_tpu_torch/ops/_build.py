@@ -49,11 +49,15 @@ SIGNATURES = {
     "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "chatglm_int8_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "chatglm_int4_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # the transposed split-K kernels (B13 / B14 at bf16 M <= 16): g, weights, scale, out,
+    # workspace, arrivals, M, K, N, mt, nsplit, chunks_per_split, chunks_per_stage, stream
+    "chatglm_int8_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "chatglm_int4_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # g, w (or packed), scale, out, M, K, N, g_is_bf16, stream (B13 / B14)
-    "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
-    "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
+    # g, w (or packed), scale, out, M, K, N, stream (B13 / B14 in f32)
+    "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, P],
+    "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, P],
     # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y_is_bf16, bm, nsplit,
     # 128-element stages per split, ctas, stream
     "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],

@@ -30,12 +30,15 @@ weights before the dot instead: the same function, rounded elsewhere.
 (``int8_matmul_t_pallas``): the backward of the int8 linear, grad_x =
 (g · scale) @ wᵀ, over the same (K, N) weights.  As the TPU kernel does, the
 scale folds into g in g's dtype before the dot; JAX's jnp fallback
-(``linear.py::_int8_matmul_t_fallback``) scales w instead.  Two kernels,
-split as B6's: ``int8_t_gemv`` (f32 g or M ≤ 16; ``csrc/int8_matmul.cu``)
-and ``int8_t_mma`` (bf16, M > 16): ``csrc/common.cuh``'s Hopper
-``t_wgmma_kernel`` over the int8 view, which folds the scale into each g
-stage in shared memory; ``t_mma_plan`` picks the tile and the contraction
-splits.
+(``linear.py::_int8_matmul_t_fallback``) scales w instead.  Three kernels,
+split as B6's (quant_matmul.py's ``t_route``): ``int8_t_splitk`` (bf16, M ≤
+MMA_MIN_M): ``csrc/common.cuh``'s ``t_splitk_mma_kernel`` over the int8
+view, mma.sync on the weight rows as read, the scale folded into g as g is
+staged in shared memory, the contraction split and merged in the launch
+(``t_splitk_plan``); ``int8_t_mma`` (bf16, M > 16): the Hopper
+``t_wgmma_kernel`` over the same view, which folds the scale into each g
+stage in shared memory (``t_mma_plan``); ``int8_t_gemv`` (f32 g;
+``csrc/int8_matmul.cu``): the CUDA cores in IEEE f32.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 
 from . import _build
 from .quant_matmul import (MMA_MIN_M, aligned, gemv_plan, int8_mma_plan, splitk_call,
-                           splitk_plan, t_mma_plan, uses_mma, wg_call)
+                           splitk_plan, t_mma_plan, t_route, t_splitk_call, uses_mma, wg_call)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -169,13 +172,25 @@ def _check_t(g, w, scale):
             raise ValueError(f"int8_matmul_t: {name} must be contiguous and 16-byte aligned")
 
 
+def int8_t_splitk(g, w, scale):
+    """Launch B13's split-K tensor-core kernel (checked bf16 inputs on the
+    card): one launch, the contraction splits merged inside it."""
+    out = t_splitk_call("chatglm_int8_t_splitk", g, w, scale, w.shape[0])
+    return _build.launched(int8_t_splitk, out)
+
+
+int8_t_splitk.launches = 0
+
+
 def int8_t_gemv(g, w, scale):
-    """Launch B13's CUDA-core kernel (checked inputs on the card)."""
+    """Launch B13's CUDA-core kernel (checked f32 inputs on the card)."""
+    if g.dtype != torch.float32:
+        raise TypeError(f"int8_t_gemv: g must be f32, not {g.dtype}")
     M, N = g.shape
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int8_t_gemv", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
+                out.data_ptr(), M, K, N, _build.stream_ptr(g))
     return _build.launched(int8_t_gemv, out)
 
 
@@ -206,6 +221,9 @@ def int8_matmul_t(g: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torc
         return int8_matmul_t_plain(g, w, scale)
     _check_t(g, w, scale)
     g = aligned(g)
-    if uses_mma(g.shape[0], g.shape[1], g.dtype):
+    route = t_route(g.shape[0], g.shape[1], g.dtype)
+    if route == "splitk":
+        return int8_t_splitk(g, w, scale)
+    if route == "mma":
         return int8_t_mma(g, w, scale)
     return int8_t_gemv(g, w, scale)

@@ -28,21 +28,31 @@ version only in the order of the f32 sums.
 (``int4_matmul_t_pallas``): the backward of the int4g32 linear, grad_x =
 g @ dequant(packed, scale)ᵀ over the same packed weights.  The scale varies
 along K/32 and N, so each weight is rounded once to g's dtype, bf16(q·s)
-under bf16, before the dot, as both JAX forms do.  Two kernels:
-``int4g32_t_gemv`` (f32 g or M ≤ 16; ``csrc/int4_matmul.cu``) and
-``int4g32_t_mma`` (bf16, M > 16): ``csrc/common.cuh``'s Hopper
-``t_wgmma_kernel`` over the int4g32 view, B1's mainloop with the weights as
-A from registers (each bf16(q·s) one bf16x2 multiply), each stage's f32
-partial added to the accumulator on the CUDA cores; ``t_mma_plan`` picks
-the tile and the contraction splits.
+under bf16, before the dot, as both JAX forms do.  Three kernels, chosen by
+``t_route``:
+
+* ``int4g32_t_splitk`` (bf16, M ≤ MMA_MIN_M: a training step of ≤ 16
+  tokens): ``csrc/common.cuh``'s ``t_splitk_mma_kernel`` over the int4g32
+  view, mma.sync with 16 weight rows as A straight from the N-contiguous
+  rows and g's rows as B from shared memory, the contraction split over
+  blocks and merged in the launch; ``t_splitk_plan``.  Bound by the packed
+  bytes.
+* ``int4g32_t_mma`` (bf16, M > 16): the Hopper ``t_wgmma_kernel`` over the
+  same view, B1's mainloop with the weights as A from registers (each
+  bf16(q·s) one bf16x2 multiply), each stage's f32 partial added to the
+  accumulator on the CUDA cores; ``t_mma_plan`` picks the tile and the
+  contraction splits.
+* ``int4g32_t_gemv`` (f32 g; ``csrc/int4_matmul.cu``): the CUDA cores in
+  IEEE f32.
 
 ``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and dynamic int8
 matmuls (B6/B7/B8) and the transposed kernels, ``gemv_plan`` with B6's
 CUDA-core kernel, ``splitk_plan``, ``splitk_scratch`` and ``splitk_call``
 with the split-K kernels of B6, B7 and B8 (bf16 or s8 rows at M ≤
 MMA_MIN_M: decode), and ``wg_plan``, ``mma_smem`` and ``wg_scratch`` with
-every Hopper kernel (B1, B6, B7, B8, B13, B14); B1's own routing and plans
-are ``int4_route`` and ``mma_plan``.
+every Hopper kernel (B1, B6, B7, B8, B13, B14), ``t_route``,
+``t_splitk_plan`` and ``t_splitk_call`` with B13; B1's own routing and
+plans are ``int4_route`` and ``mma_plan``.
 """
 from __future__ import annotations
 
@@ -65,6 +75,14 @@ SMALL_M_MAX = 64         # B1's bf16 rows up to which it runs (the JAX decode-M 
 SPLITK_KW = 4            # warps per block, along K
 SPLITK_SMEM_MAX = 72 * 1024  # shared bytes a block (csrc: SK_SMEM_MAX); 48 KB up to mt = 2
 SPLITK_SMS = 132         # H100 SXM
+
+# The transposed split-K kernel (csrc/common.cuh: TSK_*): B13 and B14 at bf16 M <= MMA_MIN_M
+TSK_ROWS = 128           # output rows a block: 4 warps of 32 rows, times 2 along the contraction
+TSK_CW = 2               # warps of a block along the contraction
+TSK_CHUNK = 64           # contraction elements a chunk (four k16 steps)
+TSK_MROWS = 16           # g rows a block (grid.z takes more, where N % 16 != 0)
+TSK_SMEM_MAX = 46 * 1024  # shared bytes a block (no opt-in)
+TSK_BLOCKS = 2 * SPLITK_SMS  # blocks to fill the card: two 8-warp blocks an SM
 
 # The Hopper kernels (csrc/common.cuh: WG_*): B1 above SMALL_M_MAX, B6, B13, B14
 MMA_BN = 128             # output columns a tile (two consumer warpgroups of 64)
@@ -365,6 +383,95 @@ def t_mma_plan(M: int, K: int, N: int, kind: str = "int4g32") -> tuple[int, int,
                          lambda p: wg_problem(-(-N // MMA_STEP), p))
 
 
+def t_route(M: int, N: int, dtype: torch.dtype) -> str:
+    """B13's and B14's kernel for g (M, N) of ``dtype``: "splitk" (bf16 at
+    M ≤ MMA_MIN_M, and at any M where N % 16 != 0, which the Hopper kernel
+    cannot take), "mma" (bf16 above it) or "gemv" (f32)."""
+    if dtype == torch.bfloat16 and (M <= MMA_MIN_M or N % 16):
+        return "splitk"
+    return "mma" if uses_mma(M, N, dtype) else "gemv"
+
+
+def t_splitk_smem(mt: int, cs: int) -> int:
+    """Shared bytes of a transposed split-K block (csrc: tsk_smem_bytes):
+    g's 8·mt rows over a stage of cs chunks, rows padded by 8 bf16; after
+    the loop the same bytes hold the two contraction warps' (8·mt, 129) f32
+    sums."""
+    return max(8 * mt * (cs * TSK_CHUNK + 8) * 2, TSK_CW * 8 * mt * (TSK_ROWS + 1) * 4)
+
+
+def t_splitk_problem(M: int, K: int, N: int, plan) -> Optional[str]:
+    """What the transposed split-K kernel refuses in ``plan`` (csrc:
+    launch_t_splitk's checks) or leaves wrong (splits that do not cover the
+    contraction's chunks), or None."""
+    mt, nsplit, cps, cs = plan
+    C = -(-N // TSK_CHUNK)
+    if mt not in (1, 2) or min(M, TSK_MROWS) > 8 * mt:
+        return f"mt {mt}: 1 or 2 m-tiles of 8 rows for {min(M, TSK_MROWS)} rows a block"
+    if nsplit < 1 or cps < 1 or (nsplit - 1) * cps >= C or nsplit * cps < C:
+        return f"{nsplit} splits of {cps} chunks do not cover N's {C} chunks"
+    if cs < 4 or cs % 4:
+        return f"chunks a stage {cs}: a multiple of 4"
+    if t_splitk_smem(mt, cs) > TSK_SMEM_MAX:
+        return f"{t_splitk_smem(mt, cs)} shared bytes over {TSK_SMEM_MAX}"
+    return None
+
+
+def t_splitk_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+    """(mt, nsplit, chunks_per_split, chunks_per_stage) of the transposed
+    split-K kernel (csrc/common.cuh: t_splitk_mma_kernel) for bf16 g (M, N)
+    and K output columns: one m-tile of 8 rows up to 8 rows, else two (16
+    rows a block, more in grid.z); the contraction's 64-element chunks in
+    as many splits as give the card TSK_BLOCKS blocks (two an SM) over the
+    K / 128 row tiles, at least eight chunks a split (four a contraction
+    warp: at M = 16 kv_proj's 8 chunks run 1.4-1.5x faster in one split
+    than in two, the merge costing more than the wider grid gives); g
+    staged in stages of as many chunks (a multiple of 4) as 46 KB hold.
+    The partials stay under TSK_BLOCKS · 16 · 128 floats (2.2 MB).  The
+    sweep behind these choices (``utils/t_splitk_sweep.py``) is in
+    PERF.md."""
+    if M < 1 or N < 8 or N % 8 or K < 32 or K % 32:
+        raise ValueError(f"t_splitk_plan: unsupported g ({M}, {N}) -> K = {K}")
+    mt = 1 if M <= 8 else 2
+    C = -(-N // TSK_CHUNK)
+    tiles = -(-K // TSK_ROWS) * -(-M // TSK_MROWS)
+    want = max(1, TSK_BLOCKS // tiles)
+    cps = max(-(-C // want), min(C, 4 * TSK_CW))
+    cs = 4
+    while cs < cps and t_splitk_smem(mt, cs + 4) <= TSK_SMEM_MAX:
+        cs += 4
+    return mt, -(-C // cps), cps, cs
+
+
+def t_splitk_scratch(device, M: int, K: int, plan) -> tuple:
+    """(split partials or None, arrival counters) of a transposed split-K
+    ``plan``: the split-K kernels' shared buffers (csrc: launch_t_splitk's
+    sizes: a (16-row block, row tile, split) slab of min(M, 16) × 128
+    partials, a counter a (16-row block, row tile))."""
+    _, nsplit, _, _ = plan
+    tiles = -(-K // TSK_ROWS) * -(-M // TSK_MROWS)
+    part = (_build.scratch("splitk_part", device, tiles * nsplit * min(M, TSK_MROWS) * TSK_ROWS,
+                           torch.float32).data_ptr() if nsplit > 1 else None)
+    return part, _build.scratch("splitk_arrivals", device, tiles, torch.int32).data_ptr()
+
+
+def t_splitk_call(name: str, g, w, scale, K: int, plan=None):
+    """Launch transposed split-K kernel ``name`` (csrc:
+    chatglm_int8_t_splitk, chatglm_int4_t_splitk) on checked bf16 tensors of
+    the card with ``plan`` (default ``t_splitk_plan``'s; another is checked
+    by ``t_splitk_problem``); returns out (M, K) in g's dtype."""
+    M, N = g.shape
+    if plan is None:
+        plan = t_splitk_plan(M, K, N)
+    elif t_splitk_problem(M, K, N, plan) is not None:
+        raise ValueError(f"t_splitk_call: plan {plan}: {t_splitk_problem(M, K, N, plan)}")
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    part, arrivals = t_splitk_scratch(g.device, M, K, plan)
+    _build.call(name, g.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
+                arrivals, M, K, N, *plan, _build.stream_ptr(g))
+    return out
+
+
 def wg_scratch(device, M: int, n_out: int, plan) -> tuple:
     """(split partials or None, arrival counters) of a Hopper kernel's
     ``plan``: the scratch buffers all these kernels share, 4-byte partials
@@ -508,13 +615,25 @@ def _check_t(g, packed, scale):
             raise ValueError(f"int4g32_matmul_t: {name} must be contiguous and 16-byte aligned")
 
 
+def int4g32_t_splitk(g, packed, scale):
+    """Launch B14's split-K tensor-core kernel (checked bf16 inputs on the
+    card): one launch, the contraction splits merged inside it."""
+    out = t_splitk_call("chatglm_int4_t_splitk", g, packed, scale, 2 * packed.shape[0])
+    return _build.launched(int4g32_t_splitk, out)
+
+
+int4g32_t_splitk.launches = 0
+
+
 def int4g32_t_gemv(g, packed, scale):
-    """Launch B14's CUDA-core kernel (checked inputs on the card)."""
+    """Launch B14's CUDA-core kernel (checked f32 inputs on the card)."""
+    if g.dtype != torch.float32:
+        raise TypeError(f"int4g32_t_gemv: g must be f32, not {g.dtype}")
     M, N = g.shape
     K = 2 * packed.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int4_t_gemv", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
+                out.data_ptr(), M, K, N, _build.stream_ptr(g))
     return _build.launched(int4g32_t_gemv, out)
 
 
@@ -545,6 +664,9 @@ def int4g32_matmul_t(g: torch.Tensor, packed: torch.Tensor,
         return int4g32_matmul_t_plain(g, packed, scale)
     _check_t(g, packed, scale)
     g = aligned(g)
-    if uses_mma(g.shape[0], g.shape[1], g.dtype):
+    route = t_route(g.shape[0], g.shape[1], g.dtype)
+    if route == "splitk":
+        return int4g32_t_splitk(g, packed, scale)
+    if route == "mma":
         return int4g32_t_mma(g, packed, scale)
     return int4g32_t_gemv(g, packed, scale)

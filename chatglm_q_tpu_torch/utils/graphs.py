@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import warnings
 import weakref
 from typing import Callable, Optional
@@ -216,6 +217,14 @@ class StepProgram:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
+        # A collection inside the capture may free a dead cycle that holds
+        # another graph (or a tree whose registry does): a graph freed while a
+        # stream captures invalidates the capture (seen on an H100 in the
+        # global mode of a training step).  So collect now, and keep the
+        # collector off until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._registry.pool(),
                                   capture_error_mode=self.capture_mode):
@@ -225,6 +234,8 @@ class StepProgram:
                 f"{self.name}: CUDA-graph capture failed ({type(e).__name__}: {e}); the step "
                 "did not run.  TorchRuntimeConfig(cuda_graphs=False) decodes eagerly") from e
         finally:
+            if collecting:
+                gc.enable()
             after = ops.launch_counts()
             ops.set_launch_counts(before)  # the capture launched nothing
         self.launch_delta = {k: n - before[k] for k, n in after.items() if n != before[k]}

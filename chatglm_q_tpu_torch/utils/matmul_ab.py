@@ -18,10 +18,13 @@ since its fourth slice.
 
 With ``--decode`` a turn times the decode forms instead, at M = 1, 4 and 16
 on the same linears: ``int4g32_matmul`` (B1's split-K kernel), B6's
-``int8_matmul``, and B7's and B8's kernels alone on activations quantized
+``int8_matmul``, B7's and B8's kernels alone on activations quantized
 beforehand (the wrapper under its name in either checkout:
 ``int8_dyn_splitk`` / ``int4_dyn_splitk``, or before them ``int8_dyn_gemv`` /
-``int4_dyn_gemv``, which include their second pass).
+``int4_dyn_gemv``, which include their second pass), and the backward
+forms ``int8_matmul_t`` (B13) and ``int4g32_matmul_t`` (B14) on bf16 g (M,
+N): the split-K tensor-core kernels, or before them the CUDA-core
+``t_gemv_kernel``.
 """
 from __future__ import annotations
 
@@ -71,7 +74,8 @@ M_ROWS, LINEARS = json.loads(sys.argv[1])
 b7 = getattr(D, "int8_dyn_splitk", None) or D.int8_dyn_gemv
 b8 = getattr(D, "int4_dyn_splitk", None) or D.int4_dyn_gemv
 gen = torch.Generator(device="cuda").manual_seed(3)
-out = {"int4g32_matmul": {}, "int8_matmul": {}, b7.__name__: {}, b8.__name__: {}}
+out = {"int4g32_matmul": {}, "int8_matmul": {}, b7.__name__: {}, b8.__name__: {},
+       "int8_matmul_t": {}, "int4g32_matmul_t": {}}
 for name, K, N in LINEARS:
     copies = max(2, min(64, math.ceil(160e6 / (K * N))))
     w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda", generator=gen)
@@ -83,12 +87,15 @@ for name, K, N in LINEARS:
         out[key][name] = {}
     for M in M_ROWS:
         x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn((M, N), device="cuda", generator=gen).to(torch.bfloat16)
         xq, sx = D.dyn_quantize_rows(x)
         for key, fn, (wt, st) in (
                 ("int4g32_matmul", lambda a, b: QM.int4g32_matmul(x, a, b), (packed, s4)),
                 ("int8_matmul", lambda a, b: I8.int8_matmul(x, a, b), (w, s8)),
                 (b7.__name__, lambda a, b: b7(xq, sx, a, b, x.dtype), (w, s8)),
-                (b8.__name__, lambda a, b: b8(xq, sx, a, b, x.dtype), (packed, s4))):
+                (b8.__name__, lambda a, b: b8(xq, sx, a, b, x.dtype), (packed, s4)),
+                ("int8_matmul_t", lambda a, b: I8.int8_matmul_t(g, a, b), (w, s8)),
+                ("int4g32_matmul_t", lambda a, b: QM.int4g32_matmul_t(g, a, b), (packed, s4))):
             out[key][name][M] = cuda_event_ms(lambda i: fn(wt[i % copies], st[i % copies]),
                                               iters=30)
     del w, s8, packed, s4

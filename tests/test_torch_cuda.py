@@ -889,8 +889,9 @@ def test_dyn_matmuls_refuse_many_rows_at_a_narrow_n(gen):
 
 
 # B13 / B14 (the backward matmuls): g (M, N) -> (M, K).  M across the
-# split-K / tensor-core switch, N = 264 (not a multiple of 16: the CUDA-core
-# kernel even in bf16), the storage K of w_out, and the lm_head's N.
+# split-K / tensor-core switch, N = 264 (not a multiple of 16: the split-K
+# kernel's 8-byte loads), the storage K of w_out, and the lm_head's N; the
+# split-K kernel's bf16 rows at the six linears follow (T_SPLITK_*).
 T_EDGES = [(1, 4096, 512), (3, 256, 264), (16, 13824, 4096), (17, 4096, 4096),
            (130, 13824, 4096), (70, 4096, 65536)]
 
@@ -935,8 +936,9 @@ def test_transposed_kernels_read_a_layer_view(gen):
 @pytest.mark.parametrize("quant", ["int8", "int4g32"])
 def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, quant):
     """On CUDA tensors quant_linear's backward launches B13/B14 (never their
-    plain versions) and its grad_x agrees with the plain path's; K = 4000
-    is stored padded to 4096 and comes back stripped."""
+    plain versions: the split-K tensor-core kernel at M = 8, the Hopper one
+    at 256) and its grad_x agrees with the plain path's; K = 4000 is stored
+    padded to 4096 and comes back stripped."""
     from chatglm_q_tpu_torch import TorchRuntimeConfig
     from chatglm_q_tpu_torch.ops import linear as TL
 
@@ -944,14 +946,14 @@ def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, qua
     if quant == "int8":
         w, scale = _int8_weights(gen, Ks, N)
         w[K:] = 0
-        params, kernels = {"weight": w, "weight_scale": scale}, ("int8_t_gemv", "int8_t_mma")
+        params, kernels = {"weight": w, "weight_scale": scale}, ("int8_t_splitk", "int8_t_mma")
         plain_name = "int8_matmul_t_plain"
     else:
         packed = torch.randint(0, 256, (Ks // 2, N), dtype=torch.uint8, device="cuda",
                                generator=gen)
         packed[K // 2:] = 0
         scale = (torch.rand((Ks // 32, N), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
-        params, kernels = {"weight": packed, "weight_scale": scale}, ("int4g32_t_gemv",
+        params, kernels = {"weight": packed, "weight_scale": scale}, ("int4g32_t_splitk",
                                                                       "int4g32_t_mma")
         plain_name = "int4g32_matmul_t_plain"
     fns = [getattr(I8 if quant == "int8" else QM, k) for k in kernels]
@@ -975,6 +977,98 @@ def test_autograd_backward_launches_the_transposed_kernels(gen, monkeypatch, qua
     monkeypatch.setattr(TL, plain_name, plain)
     for M in (8, 256):
         assert _rel(grads[True, M], grads[False, M]) <= 2e-2
+
+
+# T_EDGES' bf16 rows of the transposed split-K kernel (B13 / B14 at M <=
+# 16): the six linears' (K, N) at M = 2, 4, 8, 9 (two m-tiles) and 16
+T_SPLITK_LINEARS = [(4096, 4096), (4096, 512), (4096, 4096), (4096, 13824), (13824, 4096),
+                    (4096, 65536)]
+T_SPLITK_M = (2, 4, 8, 9, 16)
+
+
+def _t_splitk_case(gen, kind, M, K, N):
+    """(call, its wrapper, plain version, exact f64 value and f64
+    sum|terms|) of one transposed matmul at bf16 g (M, N) on random
+    inputs, with a zero row."""
+    g = _x(gen, M, N, torch.bfloat16)
+    if kind == "int8":
+        w, scale = _int8_weights(gen, K, N)
+        gs, w64 = (g * scale.to(torch.bfloat16)).double(), w.double()
+        return (lambda: I8.int8_matmul_t(g, w, scale), I8.int8_t_splitk,
+                lambda: I8.int8_matmul_t_plain(g, w, scale),
+                lambda: (gs @ w64.T, gs.abs() @ w64.abs().T))
+    packed, scale = _int4_t_weights(gen, K, N)
+    w64 = QM.unpack_int4_tpu(packed, scale).to(torch.bfloat16).double()  # bf16(q·s)
+    return (lambda: QM.int4g32_matmul_t(g, packed, scale), QM.int4g32_t_splitk,
+            lambda: QM.int4g32_matmul_t_plain(g, packed, scale),
+            lambda: (g.double() @ w64.T, g.double().abs() @ w64.abs().T))
+
+
+@pytest.mark.parametrize("K,N", T_SPLITK_LINEARS)
+@pytest.mark.parametrize("M", T_SPLITK_M)
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_t_splitk_error_is_its_bf16_rounding(gen, kind, M, K, N):
+    """One launch of the split-K kernel, within the bf16 tolerance of the
+    plain version and within 2^-23 of sum|terms| of the exact value beyond
+    half a bf16 ulp; the zero row stays zero."""
+    call, kernel, plain, exact = _t_splitk_case(gen, kind, M, K, N)
+    before = kernel.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, K)
+    assert torch.isfinite(got.float()).all() and not got[M // 2].any()
+    assert _rel(got, plain()) <= 1e-2
+    assert _beyond_sum(got, *exact()) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 4096, 4096), (1, 4096, 512), (9, 13824, 4096),
+                                   (3, 256, 264), (40, 4000, 264)])
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_t_splitk_is_deterministic_and_replays_in_a_graph(gen, kind, M, K, N):
+    """Two calls are bit-equal and leave every arrival counter at 0; one call
+    captured in a CUDA graph and replayed twice is bit-equal to the eager
+    call (N = 264: the 8-byte loads; M = 40: three 16-row blocks in
+    grid.z)."""
+    call, kernel, _, exact = _t_splitk_case(gen, kind, M, K, N)
+    before = kernel.launches
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(first, second)
+    assert _beyond_sum(first, *exact()) <= 2.0 ** -23
+    tiles = -(-K // QM.TSK_ROWS) * -(-M // QM.TSK_MROWS)
+    assert not _build.scratch("splitk_arrivals", first.device, tiles, torch.int32)[:tiles].any()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("entry", ["chatglm_int8_t_splitk", "chatglm_int4_t_splitk"])
+def test_t_splitk_refuses_a_plan_it_cannot_take(gen, entry):
+    """More rows than the plan's m-tiles hold, splits short of N, a stage
+    of other than 4k chunks: refused at the launch, never run."""
+    g = torch.zeros((16, 512), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((256, 512), dtype=torch.int8, device="cuda")
+    scale = torch.ones((256, 512), device="cuda")  # bytes enough for either scale
+    out = torch.empty((16, 256), dtype=torch.bfloat16, device="cuda")
+    ws = torch.zeros((1 << 16,), device="cuda")
+    arrivals = torch.zeros((16,), dtype=torch.int32, device="cuda")
+    for plan in ((1, 2, 4, 4), (2, 1, 4, 4), (2, 2, 4, 6)):
+        with pytest.raises(RuntimeError):
+            _build.call(entry, g.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                        ws.data_ptr(), arrivals.data_ptr(), 16, 256, 512, *plan,
+                        _build.stream_ptr(g))
 
 
 # The Hopper kernels of B6 (int8_mma), B13 (int8_t_mma) and B14

@@ -193,7 +193,8 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
 
 
-@pytest.mark.parametrize("M,dtype,kernel", [(1, torch.bfloat16, "gemv"), (16, torch.bfloat16, "gemv"),
+@pytest.mark.parametrize("M,dtype,kernel", [(1, torch.bfloat16, "splitk"),
+                                            (16, torch.bfloat16, "splitk"),
                                             (17, torch.bfloat16, "mma"), (512, torch.float32, "gemv")])
 def test_transposed_wrappers_launch_on_cuda(fake_launch, M, dtype, kernel):
     g = torch.zeros((M, 256), dtype=dtype).as_subclass(_FakeCuda)

@@ -425,6 +425,40 @@ def test_capture_protocol_and_launch_counts(monkeypatch):
     ops.reset_launch_counts()
 
 
+def test_the_collector_stays_off_during_a_capture(monkeypatch):
+    """A dead cycle is collected before the capture and the collector is
+    off while the body is captured (a graph freed then would invalidate
+    the capture), on again after it, a failed capture too."""
+    import gc
+    import weakref
+
+    _capturing(monkeypatch)
+    seen = []
+
+    class Cycle:
+        pass
+
+    def body(inp, fail):
+        seen.append((gc.isenabled(), alive() is None))
+        if fail:
+            raise RuntimeError("operation not permitted when stream is capturing")
+        return {}
+
+    dead = Cycle()
+    dead.me = dead
+    alive = weakref.ref(dead)
+    del dead
+    prog = G.StepProgram("gc", body, {}, True, G.Programs())
+    prog.step(False)  # eager: the collector as the process has it
+    prog.step(False)  # the capture: collected first, then off
+    assert seen[0][0] and seen[1] == (False, True) and gc.isenabled()
+    prog = G.StepProgram("gc_fail", body, {}, True, G.Programs())
+    prog.step(False)
+    with pytest.raises(G.CaptureError):
+        prog.step(True)
+    assert seen[-1][0] is False and gc.isenabled()
+
+
 def test_a_failed_capture_raises_and_runs_nothing(monkeypatch):
     """A body that syncs to the host cannot be captured: the capture raises
     ``CaptureError``, the step does not run eagerly in its place (the
