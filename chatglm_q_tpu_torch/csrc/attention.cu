@@ -123,11 +123,31 @@
 // merge weight is 0.  B11's numerics are B10's: q pre-scaled in bf16, p f32
 // through PV by hi/lo fragments (B5 rounds p to bf16, as it casts p to v's
 // dtype).  B5 runs as one span.  wgmma / TMA tiles are later work.
+//
+// The fp8 cache (kv_dtype float8_e4m3fn; every kernel above also takes it:
+// DenseKV / PagedKV over e4m3 bytes).  The TPU kernels cast K/V to the
+// cache's dtype on the write (_kv_write_kernel :432, _pool_write_kernel
+// :485) and upcast each tile after its DMA (_decode_kernel :239, the paged
+// decode and chunk kernels :839, :992).  Here the append stores 8 bytes a
+// vector of 8 where bf16 stores 16: each element rounded bf16 -> f32 ->
+// e4m3 by cvt.rn.satfinite after a clamp to +-448, every NaN stored as 0x7F
+// (ops/attention.py:kv_store_cast's bytes).  The readers copy 128-byte fp8
+// rows by cp.async into a ring of fp8 stages (half the bytes of a bf16
+// ring: the bytes are what bounds decode at long context), and once a stage
+// lands the block converts it exactly to bf16 into one padded tile that the
+// bf16 fragment code reads unchanged (e4m3 -> bf16 is exact: 4 exponent
+// bits and 3 mantissa bits fit bf16's 8 and 7, subnormals m * 2^-9
+// included): a pass through shared memory and a barrier a tile.  So an fp8
+// form computes exactly its bf16 form on the upcast cache.  q is not
+// quantized and no product runs in fp8 (an fp8 mma would compute another
+// function than the TPU's).  Converting in registers without the pass is
+// later work.
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using e4m3 = uint8_t;  // a float8_e4m3fn cache element, as its byte
 
 // ---------------------------------------------------------------------------
 // Tensor-core tiles of the decode and prefill kernels
@@ -147,16 +167,18 @@ constexpr int DA_SOLO_ROWS = 256;     // decode: a (b, g) with at most this many
 constexpr int PF_WARPS = 8;           // prefill: 16 folded query rows per warp
 constexpr int PF_ROWS = PF_WARPS * 16, PF_THREADS = PF_WARPS * 32;
 
-// The dense cache: the (Bk, G, T, D) layer view.  A T-shard of a cache of
-// `total` slots (kv_shard_t) holds global slots offset .. offset + T - 1;
-// the whole cache is offset 0, total T.
+// The dense cache: the (Bk, G, T, D) layer view of elements T_ (bf16, or
+// e4m3 bytes).  A T-shard of a cache of `total` slots (kv_shard_t) holds
+// global slots offset .. offset + T - 1; the whole cache is offset 0, total T.
+template <class T_>
 struct DenseKV {
-  const bf16* k;
-  const bf16* v;
+  using elem = T_;
+  const T_* k;
+  const T_* v;
   int G, T, offset, total;
   struct Slab {  // the T rows of one (row, group)
-    const bf16* k;
-    const bf16* v;
+    const T_* k;
+    const T_* v;
     __device__ __forceinline__ size_t row(int pos) const { return (size_t)pos * ATT_D; }
   };
   __device__ __forceinline__ int capacity() const { return T; }
@@ -181,14 +203,16 @@ struct DenseKV {
 // phase of a row of `total` logical positions; the whole pool is stride 1,
 // phase 0, total MP * P.  Local positions (column i, row t % P at i * P +
 // t % P) are what Slab::row reads.
+template <class T_>
 struct PagedKV {
-  const bf16* k;
-  const bf16* v;
+  using elem = T_;
+  const T_* k;
+  const T_* v;
   const int* page_table;
   int G, P, MP, stride, phase, total;
   struct Slab {  // the MP * P positions of one (table row, group)
-    const bf16* k;
-    const bf16* v;
+    const T_* k;
+    const T_* v;
     const int* pages;  // the row's MP page ids
     int G, g, P;
     __device__ __forceinline__ size_t row(int pos) const {
@@ -243,11 +267,82 @@ __device__ __forceinline__ uint4 rope8(uint4 x, uint4 f) {
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// The fp8 store: x (bf16, exact in f32) clamped to +-448 and rounded to
+// nearest even by the card's cvt.rn.satfinite, NaN stored as 0x7F
+// (ops/attention.py:kv_store_cast).  Two elements, lo in the low byte.
+constexpr float E4M3_MAX = 448.f;
+constexpr uint32_t E4M3_NAN = 0x7Fu;
+__device__ __forceinline__ uint32_t e4m3x2_store(float lo, float hi) {
+  uint16_t r;
+  asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
+      : "=h"(r)
+      : "f"(fminf(fmaxf(hi, -E4M3_MAX), E4M3_MAX)), "f"(fminf(fmaxf(lo, -E4M3_MAX), E4M3_MAX)));
+  uint32_t out = r;
+  if (lo != lo) out = (out & 0xFF00u) | E4M3_NAN;
+  if (hi != hi) out = (out & 0x00FFu) | (E4M3_NAN << 8);
+  return out;
+}
+
+// 8 bf16 (a 16-byte vector) stored as the cache's elements: as they are, or
+// 8 e4m3 bytes.
+__device__ __forceinline__ void store8(bf16* dst, uint4 x) {
+  *reinterpret_cast<uint4*>(dst) = x;
+}
+__device__ __forceinline__ void store8(e4m3* dst, uint4 x) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  uint32_t b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
+    b[j] = e4m3x2_store(f.x, f.y);
+  }
+  *reinterpret_cast<uint2*>(dst) = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+}
+
+// The exact upcast: two e4m3 bytes, each the low byte of a 16-bit half of
+// x, to bf16x2.  Their exponent and mantissa bits moved into bf16's places
+// give the value times 2^-120 (a subnormal e = 0, m * 2^-9, lands on bf16's
+// subnormal m * 2^-129), and one bf16 product by 2^120 rebiases it exactly
+// (the card's bf16 fma keeps subnormal inputs); the sign is or-ed back.
+// The NaN bytes 0x7F / 0xFF would come out as 480: the caller fixes them.
+__device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t x) {
+  const uint32_t mag = (x << 4) & 0x07F007F0u;
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(y) : "r"(mag), "r"(0x7B807B80u), "r"(0x80008000u));
+  return y | ((x << 8) & 0x80008000u);
+}
+
+// 8 e4m3 bytes to 8 bf16, exactly; a NaN byte to the quiet NaN of its sign
+// (0x7FC0 / 0xFFC0, JAX's upcast).
+__device__ __forceinline__ uint4 e4m3x8_bf16(uint2 w) {
+  uint4 o = make_uint4(e4m3x2_bf16x2(__byte_perm(w.x, 0u, 0x4140)),
+                       e4m3x2_bf16x2(__byte_perm(w.x, 0u, 0x4342)),
+                       e4m3x2_bf16x2(__byte_perm(w.y, 0u, 0x4140)),
+                       e4m3x2_bf16x2(__byte_perm(w.y, 0u, 0x4342)));
+  // a byte with e = 15, m = 7 (NaN) carries into bit 7 when 1 is added to its low 7 bits
+  if ((((w.x & 0x7F7F7F7Fu) + 0x01010101u) | ((w.y & 0x7F7F7F7Fu) + 0x01010101u)) &
+      0x80808080u) {
+    uint32_t h[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t byte = ((i < 4 ? w.x : w.y) >> ((i & 3) * 8)) & 0xFFu;
+      if ((byte & 0x7Fu) == E4M3_NAN) {
+        const uint32_t nan = 0x7FC0u | ((byte & 0x80u) << 8);
+        const int shift = (i & 1) * 16;
+        h[i / 2] = (h[i / 2] & ~(0xFFFFu << shift)) | (nan << shift);
+      }
+    }
+    o = make_uint4(h[0], h[1], h[2], h[3]);
+  }
+  return o;
+}
+
 // One block per row b, one 16-byte vector a thread (a loop where the row
 // has more vectors than a block has threads): first the row's G*Hg*D q
 // elements (kRope only), then its kv row, k's G*D elements and (kRope only)
 // v's.  The cache views are the attention kernels' read-only views; the
-// slot this kernel writes is read by no other thread of the launch.
+// slot this kernel writes is read by no other thread of the launch.  An
+// fp8 cache stores each vector as 8 bytes (store8).
 template <class KV, bool kRope>
 __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restrict__ q_out,
                                       const bf16* __restrict__ kv, int kv_stride,
@@ -274,8 +369,8 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
     uint4 x = *reinterpret_cast<const uint4*>(kv + (size_t)b * kv_stride + (size_t)j * VEC);
     if (kRope && is_k) x = rope8(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
     const auto slab = cache.slab(b, e / ATT_D);
-    bf16* dst = const_cast<bf16*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D;
-    *reinterpret_cast<uint4*>(dst) = x;
+    using T = typename KV::elem;
+    store8(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
   }
 }
 
@@ -293,25 +388,27 @@ int launch_append(const bf16* q, bf16* q_out, const bf16* kv, int kv_stride,
 }
 
 // Copy K/V rows t0 .. t0+KV_TK-1 of one slab into a ring stage with
-// cp.async; rows at or past `end` are zero-filled and read nothing (nor
-// their page id).  Every chunk's address first, so that a paged slab's page
-// lookups are in flight together.
-template <int NT, class Slab>
-__device__ __forceinline__ void stage_kv(bf16 (*ks)[KV_STRIDE], bf16 (*vs)[KV_STRIDE],
-                                         const Slab& src, int t0, int end) {
-  constexpr int CH = ATT_D / 8;  // 16-byte chunks per row
+// cp.async (rows of ROW elements T: bf16 rows padded for ldmatrix, or the
+// fp8 staging rows of ATT_D bytes); rows at or past `end` are zero-filled
+// (+0 in either type) and read nothing (nor their page id).  Every chunk's
+// address first, so that a paged slab's page lookups are in flight together.
+template <int NT, class Slab, class T, int ROW>
+__device__ __forceinline__ void stage_kv(T (*ks)[ROW], T (*vs)[ROW], const Slab& src, int t0,
+                                         int end) {
+  constexpr int EC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = ATT_D / EC;      // chunks per row
   constexpr int N = KV_TK * CH / NT;
   static_assert((KV_TK * CH) % NT == 0, "whole passes");
   size_t off[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const int i = threadIdx.x + j * NT, pos = t0 + i / CH;
-    off[j] = pos < end ? src.row(pos) + (i % CH) * 8 : 0;
+    off[j] = pos < end ? src.row(pos) + (i % CH) * EC : 0;
   }
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const int i = threadIdx.x + j * NT;
-    const int r = i / CH, c = (i % CH) * 8;
+    const int r = i / CH, c = (i % CH) * EC;
     const bool ok = t0 + r < end;
     cp_async16(&ks[r][c], src.k + off[j], ok);
     cp_async16(&vs[r][c], src.v + off[j], ok);
@@ -436,17 +533,63 @@ __device__ __forceinline__ void pv_step(float (*p)[4], bf16 (*vs)[KV_STRIDE], in
 // Ragged decode attention (B4, B12 dense; B10 paged)
 // ---------------------------------------------------------------------------
 
+// The K/V ring of a reader: bf16 stages that the fragments read in place,
+// or fp8 stages (k8, v8: rows of ATT_D bytes) and the one bf16 tile each
+// landed stage is converted into (k, v).  stage_k / stage_v name where a
+// copy lands, tile_k / tile_v what the fragments read.
+template <class T, int STAGES>
+struct KVRing {
+  bf16 k[STAGES][KV_TK][KV_STRIDE];
+  bf16 v[STAGES][KV_TK][KV_STRIDE];
+  __device__ __forceinline__ bf16 (*stage_k(int st))[KV_STRIDE] { return k[st]; }
+  __device__ __forceinline__ bf16 (*stage_v(int st))[KV_STRIDE] { return v[st]; }
+  __device__ __forceinline__ bf16 (*tile_k(int st))[KV_STRIDE] { return k[st]; }
+  __device__ __forceinline__ bf16 (*tile_v(int st))[KV_STRIDE] { return v[st]; }
+};
+template <int STAGES>
+struct KVRing<e4m3, STAGES> {
+  bf16 k[1][KV_TK][KV_STRIDE];
+  bf16 v[1][KV_TK][KV_STRIDE];
+  e4m3 k8[STAGES][KV_TK][ATT_D];
+  e4m3 v8[STAGES][KV_TK][ATT_D];
+  __device__ __forceinline__ e4m3 (*stage_k(int st))[ATT_D] { return k8[st]; }
+  __device__ __forceinline__ e4m3 (*stage_v(int st))[ATT_D] { return v8[st]; }
+  __device__ __forceinline__ bf16 (*tile_k(int))[KV_STRIDE] { return k[0]; }
+  __device__ __forceinline__ bf16 (*tile_v(int))[KV_STRIDE] { return v[0]; }
+};
+
+// After stage st landed (and every warp is done with the tile): an fp8 ring
+// converts it into the bf16 tile, 8 bytes a thread at a time, then waits for
+// the block; a bf16 ring has nothing to do.
+template <int NT, class T, int STAGES>
+__device__ __forceinline__ void land_stage(KVRing<T, STAGES>& ring, int st) {
+  if constexpr (std::is_same_v<T, e4m3>) {
+    constexpr int U = ATT_D / 8;  // 8-byte units per row
+#pragma unroll 4
+    for (int i = threadIdx.x; i < KV_TK * U; i += NT) {
+      const int r = i / U, c = (i % U) * 8;
+      *reinterpret_cast<uint4*>(&ring.k[0][r][c]) =
+          e4m3x8_bf16(*reinterpret_cast<const uint2*>(&ring.k8[st][r][c]));
+      *reinterpret_cast<uint4*>(&ring.v[0][r][c]) =
+          e4m3x8_bf16(*reinterpret_cast<const uint2*>(&ring.v8[st][r][c]));
+    }
+    __syncthreads();
+  }
+}
+
+template <class T>
 struct DecodeSmem {
   bf16 q[MMA_HEADS][KV_STRIDE];
-  bf16 k[DA_STAGES][KV_TK][KV_STRIDE];
-  bf16 v[DA_STAGES][KV_TK][KV_STRIDE];
+  KVRing<T, DA_STAGES> ring;
 };
 // after the tile loop the same bytes hold the warps' states for the block merge
 struct DecodeMergeSmem {
   float acc[DA_WARPS][MMA_HEADS][ATT_D];
   float m[DA_WARPS][MMA_HEADS], l[DA_WARPS][MMA_HEADS];
 };
-static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem), "merge state fits the ring");
+static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16>) &&
+                  sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<e4m3>),
+              "merge state fits the ring");
 
 // Block (b*G + g, sp) attends rows [sp*span, min((sp+1)*span, n_valid)) of
 // its (b, g) slab; a (b, g) with at most DA_SOLO_ROWS valid rows is one
@@ -461,7 +604,8 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
                    float* __restrict__ part, int* __restrict__ arrivals, int G, int Hg, int span,
                    int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DecodeSmem& sm = *reinterpret_cast<DecodeSmem*>(smem_raw);
+  using T = typename KV::elem;
+  DecodeSmem<T>& sm = *reinterpret_cast<DecodeSmem<T>*>(smem_raw);
   __shared__ bool merge_here;
 
   const int bg = blockIdx.x, sp = blockIdx.y, b = bg / G;
@@ -500,7 +644,9 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
   // the ring's first tiles in flight while q is staged (rows >= Hg zero)
 #pragma unroll
   for (int st = 0; st < DA_STAGES - 1; ++st) {
-    if (st < ntiles) stage_kv<DA_THREADS>(sm.k[st], sm.v[st], src, t_begin + st * KV_TK, t_end);
+    if (st < ntiles)
+      stage_kv<DA_THREADS>(sm.ring.stage_k(st), sm.ring.stage_v(st), src, t_begin + st * KV_TK,
+                           t_end);
     cp_async_commit();
   }
 #pragma unroll
@@ -524,12 +670,13 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
     __syncthreads();  // and every warp is done with the stage the next copy reuses
     const int nx = it + DA_STAGES - 1;
     if (nx < ntiles)
-      stage_kv<DA_THREADS>(sm.k[nx % DA_STAGES], sm.v[nx % DA_STAGES], src,
+      stage_kv<DA_THREADS>(sm.ring.stage_k(nx % DA_STAGES), sm.ring.stage_v(nx % DA_STAGES), src,
                            t_begin + nx * KV_TK, t_end);
     cp_async_commit();
+    land_stage<DA_THREADS>(sm.ring, st);
     if (t0 + r0 < t_end) {  // warp-uniform: the warp has a valid row
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      qk_16keys(qa, sm.k[st], r0, s);
+      qk_16keys(qa, sm.ring.tile_k(st), r0, s);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -538,7 +685,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
           s[j][e] = pos < t_end ? (kV2 ? s[j][e] : s[j][e] * sm_scale) : CHATGLM_MASK_VALUE;
         }
       online_softmax<2>(s, m_r, l_r, acc);
-      pv_step<kV2>(s, sm.v[st], r0, acc);
+      pv_step<kV2>(s, sm.ring.tile_v(st), r0, acc);
     }
   }
   cp_async_wait<0>();
@@ -665,17 +812,18 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
 // The launch checks of the decode forms: the kernel's head dim and heads,
 // whole-tile spans, and every span's (m, l) and weight of a (b, g) fit the
 // ring's bytes for the merge.
-bool decode_args_ok(int D, int Hg, int T, int span) {
-  const size_t nspan = (T + (size_t)span - 1) / (span > 0 ? span : 1);
+template <class T>
+bool decode_args_ok(int D, int Hg, int T_rows, int span) {
+  const size_t nspan = (T_rows + (size_t)span - 1) / (span > 0 ? span : 1);
   return D == ATT_D && Hg <= MMA_HEADS && span >= KV_TK && span % KV_TK == 0 &&
-         nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem);
+         nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem<T>);
 }
 
 template <bool kV2, class KV, bool kLse>
 int launch_decode_as(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
                      bf16* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
                      float sm_scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(DecodeSmem);
+  const int smem = (int)sizeof(DecodeSmem<typename KV::elem>);
   const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV, kLse>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int nspan = (T + span - 1) / span;
@@ -700,10 +848,10 @@ int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, 
 // Flash prefill attention (B5, whole-prompt and chunked; B11 paged)
 // ---------------------------------------------------------------------------
 
+template <class T>
 struct PrefillTileSmem {
   bf16 q[PF_ROWS][KV_STRIDE];
-  bf16 k[PF_STAGES][KV_TK][KV_STRIDE];
-  bf16 v[PF_STAGES][KV_TK][KV_STRIDE];
+  KVRing<T, PF_STAGES> ring;
 };
 
 // Block (sp * nqb + qb, g, b): query block qb (positions qb*qt ..) of (b, g)
@@ -721,7 +869,8 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
                     bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ arrivals,
                     int S, int G, int Hg, int span, int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  PrefillTileSmem& sm = *reinterpret_cast<PrefillTileSmem*>(smem_raw);
+  using T = typename KV::elem;
+  PrefillTileSmem<T>& sm = *reinterpret_cast<PrefillTileSmem<T>*>(smem_raw);
   __shared__ bool merge_here;
 
   const int qt = PF_ROWS / Hg;  // query positions per block
@@ -756,7 +905,9 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
   }
 #pragma unroll
   for (int st = 0; st < PF_STAGES - 1; ++st) {  // q lands with the first group
-    if (st < ntiles) stage_kv<PF_THREADS>(sm.k[st], sm.v[st], src, t_begin + st * KV_TK, t_end);
+    if (st < ntiles)
+      stage_kv<PF_THREADS>(sm.ring.stage_k(st), sm.ring.stage_v(st), src, t_begin + st * KV_TK,
+                           t_end);
     cp_async_commit();
   }
   cp_async_wait<PF_STAGES - 2>();
@@ -782,15 +933,16 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
     __syncthreads();  // and every warp is done with the stage the next copy reuses
     const int nx = it + PF_STAGES - 1;
     if (nx < ntiles)
-      stage_kv<PF_THREADS>(sm.k[nx % PF_STAGES], sm.v[nx % PF_STAGES], src,
+      stage_kv<PF_THREADS>(sm.ring.stage_k(nx % PF_STAGES), sm.ring.stage_v(nx % PF_STAGES), src,
                            t_begin + nx * KV_TK, t_end);
     cp_async_commit();
+    land_stage<PF_THREADS>(sm.ring, st);
     if (t0 <= warp_hi) {  // warp-uniform: skip a tile wholly above the warp's positions
       float s[KV_TK / 8][4];
 #pragma unroll
       for (int j = 0; j < KV_TK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int n0 = 0; n0 < KV_TK; n0 += 16) qk_16keys(qa, sm.k[st], n0, s + n0 / 8);
+      for (int n0 = 0; n0 < KV_TK; n0 += 16) qk_16keys(qa, sm.ring.tile_k(st), n0, s + n0 / 8);
 #pragma unroll
       for (int j = 0; j < KV_TK / 8; ++j)
 #pragma unroll
@@ -801,7 +953,8 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
         }
       online_softmax<KV_TK / 8>(s, m_r, l_r, acc);
 #pragma unroll
-      for (int k0 = 0; k0 < KV_TK; k0 += 16) pv_step<kV2>(s + k0 / 8, sm.v[st], k0, acc);
+      for (int k0 = 0; k0 < KV_TK; k0 += 16)
+        pv_step<kV2>(s + k0 / 8, sm.ring.tile_v(st), k0, acc);
     }
   }
   cp_async_wait<0>();
@@ -914,7 +1067,7 @@ template <class KV, bool kV2>
 int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q_starts,
                    const int* kv_row_map, bf16* out, float* part, int* arrivals, int B, int S,
                    int G, int Hg, int span, int nspan, float sm_scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(PrefillTileSmem);
+  const int smem = (int)sizeof(PrefillTileSmem<typename KV::elem>);
   const cudaError_t opt_in = smem_opt_in<prefill_attn_kernel<KV, kV2>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int qt = PF_ROWS / Hg;
@@ -923,6 +1076,15 @@ int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q
       q, kv, lengths, q_starts, kv_row_map, out, part, arrivals, S, G, Hg, span, nspan,
       sm_scale);
   return (int)cudaGetLastError();
+}
+
+// The entry points' cache dispatch: fn(T{}) with T the cache's element, bf16
+// (kv_fp8 = 0) or e4m3 (kv_fp8 = 1).
+template <class Fn>
+int with_kv_type(int kv_fp8, Fn&& fn) {
+  if (kv_fp8 == 0) return fn(bf16{});
+  if (kv_fp8 == 1) return fn(e4m3{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -934,8 +1096,9 @@ extern "C" {
 // rows kv_stride elements apart; freqs (B, D); k_layer, v_layer the (B, G,
 // T, D) views of one cache layer when page_table is null, else the (NP, G,
 // P, D) views of one pool layer, read through page_table (B, MP), with T =
-// P; starts (B,) int32.  All bf16,
-// 16-byte aligned (kv_stride a multiple of 8), D == 128.  A sharded cache
+// P; starts (B,) int32.  q, kv, freqs bf16; the cache bf16 (kv_fp8 = 0) or
+// float8_e4m3fn (kv_fp8 = 1: cast on the write); all 16-byte aligned
+// (kv_stride a multiple of 8), D == 128.  A sharded cache
 // (K3): the dense view holds global slots offset .. offset + T - 1, the
 // paged view's column i logical block i * stride + phase; total is the
 // global capacity the position clamps to (0: the view's own, unsharded:
@@ -944,45 +1107,56 @@ extern "C" {
 int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_stride,
                            const void* freqs, void* k_layer, void* v_layer, const void* page_table,
                            const void* starts, int B, int G, int Hq, int D, int T, int MP,
-                           int offset, int stride, int phase, int total, void* stream) {
+                           int offset, int stride, int phase, int total, int kv_fp8,
+                           void* stream) {
   if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC || offset < 0 ||
       stride < 1 || phase < 0 || phase >= stride || total < 0)
     return (int)cudaErrorInvalidValue;
   const bf16 *qb = static_cast<const bf16*>(q), *kvb = static_cast<const bf16*>(kv),
-             *fb = static_cast<const bf16*>(freqs), *kl = static_cast<const bf16*>(k_layer),
-             *vl = static_cast<const bf16*>(v_layer);
+             *fb = static_cast<const bf16*>(freqs);
   const int* st = static_cast<const int*>(starts);
   bf16* qo = static_cast<bf16*>(q_out);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!page_table) {
-    const DenseKV cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};
-    return launch_append<DenseKV, true>(qb, qo, kvb, kv_stride, fb, cache, st, B, G, Hq, s);
-  }
-  const PagedKV pool{kl, vl, static_cast<const int*>(page_table), G, T, MP, stride, phase,
-                     total > 0 ? total : MP * T};
-  return launch_append<PagedKV, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hq, s);
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    const T_ *kl = static_cast<const T_*>(k_layer), *vl = static_cast<const T_*>(v_layer);
+    if (!page_table) {
+      const DenseKV<T_> cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};
+      return launch_append<DenseKV<T_>, true>(qb, qo, kvb, kv_stride, fb, cache, st, B, G, Hq, s);
+    }
+    const PagedKV<T_> pool{kl, vl, static_cast<const int*>(page_table), G, T, MP, stride, phase,
+                           total > 0 ? total : MP * T};
+    return launch_append<PagedKV<T_>, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hq, s);
+  });
 }
 
 // The write-only form (kv_cache_write_idx, kv_pool_write_idx): src (B, G, D)
-// into the slot of dst_layer, a cache or pool layer view as above.
+// bf16 into the slot of dst_layer, a cache or pool layer view as above
+// (kv_fp8 as above).
 int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, const void* starts,
-                      int B, int G, int D, int T, int MP, void* stream) {
+                      int B, int G, int D, int T, int MP, int kv_fp8, void* stream) {
   if (D != ATT_D || T < 1 || (page_table && MP < 1)) return (int)cudaErrorInvalidValue;
-  const bf16 *dst = static_cast<const bf16*>(dst_layer), *sb = static_cast<const bf16*>(src);
+  const bf16* sb = static_cast<const bf16*>(src);
   const int* st = static_cast<const int*>(starts);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!page_table)
-    return launch_append<DenseKV, false>(nullptr, nullptr, sb, G * D, nullptr,
-                                         DenseKV{dst, dst, G, T, 0, T}, st, B, G, 0, s);
-  const PagedKV pool{dst, dst, static_cast<const int*>(page_table), G, T, MP, 1, 0, MP * T};
-  return launch_append<PagedKV, false>(nullptr, nullptr, sb, G * D, nullptr, pool, st, B, G, 0, s);
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    const T_* dst = static_cast<const T_*>(dst_layer);
+    if (!page_table)
+      return launch_append<DenseKV<T_>, false>(nullptr, nullptr, sb, G * D, nullptr,
+                                               DenseKV<T_>{dst, dst, G, T, 0, T}, st, B, G, 0, s);
+    const PagedKV<T_> pool{dst, dst, static_cast<const int*>(page_table), G, T, MP, 1, 0, MP * T};
+    return launch_append<PagedKV<T_>, false>(nullptr, nullptr, sb, G * D, nullptr, pool, st, B, G,
+                                             0, s);
+  });
 }
 
 // B4 (v2 = 0) and B12 (v2 = 1).  q, out (B, G, Hg, D); k, v (B, G, T, D)
 // layer views; lengths (B,) int32 = the cache length before this token;
 // part holds B*G*ceil(T/span)*Hg*(D+2) floats, and may be null when no
 // (b, g) can have more than one span (ceil(T/span) == 1 or T <= 256);
-// arrivals B*G int32 zeros (left zero).  All bf16; D == 128, Hg <= 16, span
+// arrivals B*G int32 zeros (left zero).  q bf16, k and v bf16 or (kv_fp8)
+// float8_e4m3fn; D == 128, Hg <= 16, span
 // a multiple of 64.  K1 (B4's return_lse form): m_out and l_out (B, G, Hg)
 // f32 receive the online softmax's max of the scaled scores (natural log)
 // and its sum (-inf and 0 for a (b, g) with no valid row), or are null;
@@ -991,56 +1165,68 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
 int chatglm_decode_attention(const void* q, const void* k, const void* v, const void* lengths,
                              void* part, void* arrivals, void* out, int B, int G, int Hg, int T,
                              int D, int span, int v2, float sm_scale, void* m_out, void* l_out,
-                             int offset, void* stream) {
-  if (!decode_args_ok(D, Hg, T, span) || offset < 0 || !m_out != !l_out)
-    return (int)cudaErrorInvalidValue;
-  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T, offset,
-                   offset + T};
-  auto launch = v2 ? launch_decode<true, DenseKV> : launch_decode<false, DenseKV>;
-  return launch(static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-                static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
-                static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, T, span,
-                sm_scale, reinterpret_cast<cudaStream_t>(stream));
+                             int offset, int kv_fp8, void* stream) {
+  if (offset < 0 || !m_out != !l_out) return (int)cudaErrorInvalidValue;
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    if (!decode_args_ok<T_>(D, Hg, T, span)) return (int)cudaErrorInvalidValue;
+    const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, offset,
+                         offset + T};
+    auto launch = v2 ? launch_decode<true, DenseKV<T_>> : launch_decode<false, DenseKV<T_>>;
+    return launch(static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
+                  static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
+                  static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, T, span,
+                  sm_scale, reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 // q, out (B, S, G, Hg, D); k, v (Bk, G, T, D) layer views; lengths (B,)
 // int32.  q_starts (B,) int32 or null (all 0: then T >= S); kv_row_map (B,)
-// int32 rows of k/v, or null (row b).  All bf16; D == 128, Hg <= 64.
+// int32 rows of k/v, or null (row b).  q bf16, k and v bf16 or (kv_fp8)
+// float8_e4m3fn; D == 128, Hg <= 64.
 int chatglm_prefill_attention(const void* q, const void* k, const void* v, const void* lengths,
                               const void* q_starts, const void* kv_row_map, void* out, int B,
-                              int S, int G, int Hg, int T, int D, float sm_scale,
+                              int S, int G, int Hg, int T, int D, float sm_scale, int kv_fp8,
                               void* stream) {
   if (D != ATT_D || Hg > 64) return (int)cudaErrorInvalidValue;
-  const DenseKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), G, T, 0, T};
   const int span = (T + KV_TK - 1) / KV_TK * KV_TK;  // one span: every row reads in one block
-  return launch_prefill<DenseKV, false>(
-      static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-      static_cast<const int*>(q_starts), static_cast<const int*>(kv_row_map),
-      static_cast<bf16*>(out), nullptr, nullptr, B, S, G, Hg, span, 1, sm_scale,
-      reinterpret_cast<cudaStream_t>(stream));
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, 0, T};
+    return launch_prefill<DenseKV<T_>, false>(
+        static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
+        static_cast<const int*>(q_starts), static_cast<const int*>(kv_row_map),
+        static_cast<bf16*>(out), nullptr, nullptr, B, S, G, Hg, span, 1, sm_scale,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 // B10.  q, out (B, G, Hg, D); k, v (NP, G, P, D) pool layer views;
 // page_table (B, MP) and lengths (B,) int32 = the cache length before this
 // token; part and arrivals as chatglm_decode_attention's with T = MP * P.
-// All bf16; D == 128, Hg <= 16, span a multiple of 64.  K2 (B10's strided
+// q bf16, the pool bf16 or (kv_fp8) float8_e4m3fn; D == 128, Hg <= 16, span
+// a multiple of 64.  K2 (B10's strided
 // return_lse form): table column i holds logical block i * stride + phase,
 // and m_out, l_out as chatglm_decode_attention's (or null; stride 1, phase
 // 0: the whole row).
 int chatglm_decode_paged(const void* q, const void* k, const void* v, const void* page_table,
                          const void* lengths, void* part, void* arrivals, void* out, int B, int G,
                          int Hg, int P, int D, int MP, int span, float sm_scale, void* m_out,
-                         void* l_out, int stride, int phase, void* stream) {
-  if (P < 1 || MP < 1 || !decode_args_ok(D, Hg, MP * P, span) || stride < 1 || phase < 0 ||
-      phase >= stride || !m_out != !l_out)
+                         void* l_out, int stride, int phase, int kv_fp8, void* stream) {
+  if (P < 1 || MP < 1 || stride < 1 || phase < 0 || phase >= stride || !m_out != !l_out)
     return (int)cudaErrorInvalidValue;
-  const PagedKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                   static_cast<const int*>(page_table), G, P, MP, stride, phase, MP * P * stride};
-  return launch_decode<true, PagedKV>(
-      static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths), static_cast<float*>(part),
-      static_cast<int*>(arrivals), static_cast<bf16*>(out), static_cast<float*>(m_out),
-      static_cast<float*>(l_out), B, G, Hg, MP * P, span, sm_scale,
-      reinterpret_cast<cudaStream_t>(stream));
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    if (!decode_args_ok<T_>(D, Hg, MP * P, span)) return (int)cudaErrorInvalidValue;
+    const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
+                         static_cast<const int*>(page_table), G, P, MP, stride, phase,
+                         MP * P * stride};
+    return launch_decode<true, PagedKV<T_>>(
+        static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
+        static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
+        static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, MP * P, span, sm_scale,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 // B11.  q, out (B, S, G, Hg, D); k, v (NP, G, P, D) pool layer views;
@@ -1048,23 +1234,27 @@ int chatglm_decode_paged(const void* q, const void* k, const void* v, const void
 // null: row b); starts (B,) int32.  span: K/V rows per block, a multiple of
 // 64; part holds B*G*nqb*ceil(MP*P/span)*128*(D+2) floats (nqb =
 // ceil(S / (128 / Hg))) and may be null when that is one span; arrivals
-// B*G*nqb int32 zeros (left zero).  All bf16; D == 128, Hg <= 64.
+// B*G*nqb int32 zeros (left zero).  q bf16, the pool bf16 or (kv_fp8)
+// float8_e4m3fn; D == 128, Hg <= 64.
 int chatglm_chunk_paged(const void* q, const void* k, const void* v, const void* page_table,
                         const void* row_map, const void* starts, void* part, void* arrivals,
                         void* out, int B, int S, int G, int Hg, int P, int D, int MP, int span,
-                        float sm_scale, void* stream) {
+                        float sm_scale, int kv_fp8, void* stream) {
   const int nspan = span > 0 ? (MP * P + span - 1) / span : 0;
   if (D != ATT_D || Hg > 64 || P < 1 || MP < 1 || span < KV_TK || span % KV_TK ||
       (nspan > 1 && (!part || !arrivals)) ||
-      (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem))
+      (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem<e4m3>))
     return (int)cudaErrorInvalidValue;
-  const PagedKV kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                   static_cast<const int*>(page_table), G, P, MP, 1, 0, MP * P};
-  return launch_prefill<PagedKV, true>(
-      static_cast<const bf16*>(q), kv, nullptr, static_cast<const int*>(starts),
-      static_cast<const int*>(row_map), static_cast<bf16*>(out), static_cast<float*>(part),
-      static_cast<int*>(arrivals), B, S, G, Hg, span, nspan, sm_scale,
-      reinterpret_cast<cudaStream_t>(stream));
+  return with_kv_type(kv_fp8, [&](auto t) {
+    using T_ = decltype(t);
+    const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
+                         static_cast<const int*>(page_table), G, P, MP, 1, 0, MP * P};
+    return launch_prefill<PagedKV<T_>, true>(
+        static_cast<const bf16*>(q), kv, nullptr, static_cast<const int*>(starts),
+        static_cast<const int*>(row_map), static_cast<bf16*>(out), static_cast<float*>(part),
+        static_cast<int*>(arrivals), B, S, G, Hg, span, nspan, sm_scale,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -136,13 +136,16 @@ class KVCache:
 def init_kv_cache(config: ChatGLM2Config, batch_size: int,
                   max_length: Optional[int] = None, dtype=torch.bfloat16,
                   device=None) -> KVCache:
-    """A zeroed cache.  ``device=None`` means CUDA (and raises without it)."""
+    """A zeroed cache.  ``device=None`` means CUDA (and raises without it).
+    ``dtype`` may be ``torch.float8_e4m3fn``: K/V are cast on the write
+    (``ops.attention.kv_store_cast``) and upcast exactly where they are
+    read, half the bytes of bf16."""
     device = resolve_device(device)
     shape = (config.num_layers, batch_size, config.num_multi_query_groups,
              max_length or config.max_sequence_length, config.head_hidden_size)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=A.kv_zeros(shape, dtype, device),
+        v=A.kv_zeros(shape, dtype, device),
         lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device),
     )
 
@@ -195,13 +198,14 @@ def write_rows(cache_layer: torch.Tensor, new: torch.Tensor, start: torch.Tensor
     """Write ``new`` (B, G, S, D) into ``cache_layer`` (Bc, G, T, D) at slots
     start[b]..start[b]+S-1 of cache row ``rows[b]`` (row b when None), in
     place.  The start clamps to [0, T − S], as JAX's dynamic_update_slice
-    clamps it.  Plain PyTorch indexing: JAX leaves this write to XLA."""
+    clamps it; ``new`` is stored through ``kv_store_cast``.  Plain PyTorch
+    indexing: JAX leaves this write to XLA."""
     B, G, S, D = new.shape
     T = cache_layer.shape[2]
     dev = cache_layer.device
     pos = start.to(dev).long().clamp(0, T - S)[:, None] + torch.arange(S, device=dev)[None, :]
     r = torch.arange(B, device=dev) if rows is None else rows.to(dev).long()
-    cache_layer[r[:, None], :, pos] = new.transpose(1, 2).to(cache_layer.dtype)
+    A.kv_put(cache_layer, (r[:, None], slice(None), pos), new.transpose(1, 2))
 
 
 def block_forward(layer_params: dict, x: torch.Tensor, freqs_cis: torch.Tensor,
@@ -389,7 +393,8 @@ def masked_put(dst: torch.Tensor, index: tuple, new: torch.Tensor, owned: torch.
     call, where a plain ``index_put_`` with repeated indices leaves
     undefined which write wins.  Of the owned positions that name one slot
     the last (in the index's row-major order) writes it; an owned slot ends
-    with exactly new's bits (the integer adds wrap)."""
+    with exactly the bits of new as dst stores it (``kv_store_cast``; the
+    integer adds wrap)."""
     lin = index[0].long()
     for dim, ix in enumerate(index[1:], 1):
         lin = lin * dst.shape[dim] + ix.long()
@@ -404,7 +409,7 @@ def masked_put(dst: torch.Tensor, index: tuple, new: torch.Tensor, owned: torch.
     owned = flat & torch.empty_like(last).scatter_(0, order, last)
     bits_t = _BITS[dst.element_size()]
     bits = dst.view(bits_t)
-    new_bits = new.to(dst.dtype).contiguous().view(bits_t)
+    new_bits = A.kv_store_cast(new, dst.dtype).contiguous().view(bits_t)
     keep = owned.reshape(*index[0].shape, *([1] * (new.dim() - index[0].dim()))).to(bits_t)
     bits.index_put_(index, (new_bits - bits[index]) * keep, accumulate=True)
 
@@ -426,9 +431,9 @@ def write_rows_sharded(cache_layer, new, start, shard: "A.KVShard", rows=None) -
 
 def gather_t_shards(mesh, cache_layer):
     """The whole (Bc, G, T, D) layer of a T-sharded cache on every rank."""
-    parts = mesh.all_gather(cache_layer, "model")  # (tp, Bc, G, T_local, D)
+    parts = A.kv_bytes(mesh.all_gather(cache_layer, "model"))  # (tp, Bc, G, T_local, D)
     return parts.permute(1, 2, 0, 3, 4).reshape(*cache_layer.shape[:2], -1,
-                                                  cache_layer.shape[3])
+                                                  cache_layer.shape[3]).view(cache_layer.dtype)
 
 
 def _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_scale):
@@ -478,8 +483,8 @@ def _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_sc
         write_rows_sharded(ck[layer], kw, start, shard, slot_map)
         write_rows_sharded(cv[layer], vw, start, shard, slot_map)
     elif start is None:
-        ck[layer, :, :, :S] = kw[:, own].to(ck.dtype)
-        cv[layer, :, :, :S] = vw[:, own].to(cv.dtype)
+        A.kv_put(ck[layer], (slice(None), slice(None), slice(None, S)), kw[:, own])
+        A.kv_put(cv[layer], (slice(None), slice(None), slice(None, S)), vw[:, own])
     else:
         write_rows(ck[layer], kw[:, own], start, slot_map)
         write_rows(cv[layer], vw[:, own], start, slot_map)
@@ -493,15 +498,16 @@ def _mesh_attention(q, kv, freqs_cis, attn, kv_write, config, rt, kernels, sm_sc
         mine = slice(mesh.model_index * S_loc, (mesh.model_index + 1) * S_loc)
         return RA.ring_attention_local(q, torch.arange(S, device=q.device), k[:, mine],
                                        v[:, mine], lengths, mesh, sm_scale, kv_groups=own)
+    # the cache as stored: the kernel (or the plain version) upcasts what it reads
     prefill = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
     if kind == "flash_prefill":
-        return prefill(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype), lengths, sm_scale)
+        return prefill(q, ck[layer], cv[layer], lengths, sm_scale)
     lengths, starts, row_map = lengths  # "flash_prefill_chunk"
     if rt.kv_shard_t:  # the whole cache layer of the rank's groups
-        kc = gather_t_shards(mesh, ck[layer])[:, own].contiguous().to(q.dtype)
-        vc = gather_t_shards(mesh, cv[layer])[:, own].contiguous().to(q.dtype)
+        kc = A.kv_contiguous(gather_t_shards(mesh, ck[layer])[:, own])
+        vc = A.kv_contiguous(gather_t_shards(mesh, cv[layer])[:, own])
     else:
-        kc, vc = ck[layer].to(q.dtype), cv[layer].to(q.dtype)
+        kc, vc = ck[layer], cv[layer]
     return prefill(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
 
 
@@ -512,8 +518,8 @@ def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
     slot_map = rest[0] if rest else None
     S = q.shape[1]
     if start is None:
-        ck[layer, :, :, :S] = kw.to(ck.dtype)
-        cv[layer, :, :, :S] = vw.to(cv.dtype)
+        A.kv_put(ck[layer], (slice(None), slice(None), slice(None, S)), kw)
+        A.kv_put(cv[layer], (slice(None), slice(None), slice(None, S)), vw)
     elif S == 1 and slot_map is None:
         write = A.kv_cache_write_idx if (kernels and isinstance(attn, tuple)) \
             else A.kv_cache_write_idx_plain
@@ -523,9 +529,9 @@ def _dense_attention(q, kw, vw, attn, kv_write, kernels, sm_scale):
         write_rows(ck[layer], kw, start, slot_map)
         write_rows(cv[layer], vw, start, slot_map)
 
-    kc = ck[layer].to(q.dtype)  # no-op view when the cache has q's dtype
-    vc = cv[layer].to(q.dtype)
+    kc, vc = ck[layer], cv[layer]  # as stored: the flash paths upcast what they read
     if not isinstance(attn, tuple):
+        kc, vc = kc.to(q.dtype), vc.to(q.dtype)  # the masked path upcasts the slab, as JAX's
         if slot_map is not None:  # a compact chunk: the mapped cache rows
             kc, vc = kc[slot_map.long()], vc[slot_map.long()]
         return _attention_scores(q, kc, vc, attn, kv_layout="bgtd")
@@ -551,7 +557,7 @@ def _dense_decode(q, kv, freqs, lengths, kv_write, kernels, sm_scale, decode_v2=
         fn = A.flash_attention_decode_v2 if kernels else A.flash_attention_decode_v2_plain
     else:
         fn = A.flash_attention_decode if kernels else A.flash_attention_decode_plain
-    return fn(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype), lengths, sm_scale)
+    return fn(q, ck[layer], cv[layer], lengths, sm_scale)
 
 
 def _layer(tree: dict, l: int) -> dict:

@@ -87,8 +87,8 @@ def init_paged_kv_cache(config: ChatGLM2Config, batch_size: int, num_pages: int,
     shape = (config.num_layers, num_pages, config.num_multi_query_groups, page_size,
              config.head_hidden_size)
     return PagedKVCache(
-        k_pool=torch.zeros(shape, dtype=dtype, device=device),
-        v_pool=torch.zeros(shape, dtype=dtype, device=device),
+        k_pool=A.kv_zeros(shape, dtype, device),
+        v_pool=A.kv_zeros(shape, dtype, device),
         page_table=torch.zeros((batch_size, mp), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch_size,), dtype=torch.int32, device=device),
     )
@@ -104,8 +104,9 @@ def write_pages(pool: torch.Tensor, new: torch.Tensor, layer: int, page_table: t
     last slot overwrites that slot (the host rolls those tokens back) and
     never wraps into a page's earlier, valid rows.  ``aligned`` S > 1 writes
     (prefill; starts page-aligned) clamp the logical block instead, as the
-    JAX package's page-by-page write does.  Plain PyTorch indexing: JAX
-    leaves this write to XLA."""
+    JAX package's page-by-page write does.  ``new`` is stored through
+    ``kv_store_cast``.  Plain PyTorch indexing: JAX leaves this write to
+    XLA."""
     B, G, S, D = new.shape
     P, MP = pool.shape[3], page_table.shape[1]
     dev = pool.device
@@ -116,7 +117,7 @@ def write_pages(pool: torch.Tensor, new: torch.Tensor, layer: int, page_table: t
     else:
         blk = (pos // P).clamp(max=MP - 1)
     page = page_table.to(dev).long().gather(1, blk)
-    pool[layer][page, :, pos % P] = new.transpose(1, 2).to(pool.dtype)
+    A.kv_put(pool[layer], (page, slice(None), pos % P), new.transpose(1, 2))
     return pool
 
 
@@ -154,8 +155,8 @@ def paged_attention(q, kw, vw, attn, kv_write: PagedWrite, kernels: bool, sm_sca
     if S * Hg <= CHUNK_KERNEL_MAX_ROWS:
         fn = A.flash_attention_chunk_paged if kernels else A.flash_attention_chunk_paged_plain
         return fn(q, kp, vp, layer, pt, starts, sm_scale, row_map)
-    kc = gather_layer(kp, layer, pt).to(q.dtype)
-    vc = gather_layer(vp, layer, pt).to(q.dtype)
+    # the gathered pages as stored: the chunked prefill upcasts what it reads
+    kc, vc = gather_layer(kp, layer, pt), gather_layer(vp, layer, pt)
     fn = A.flash_attention_prefill if kernels else A.flash_attention_prefill_plain
     return fn(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
 
@@ -239,8 +240,8 @@ def gather_msharded(mesh, pool, layer: int, table, max_length: int):
     own = A.gather_pages(pool[layer], table)  # (B, G, MPl·P, D)
     B, G, _, D = own.shape
     P, MPl = pool.shape[3], table.shape[1]
-    parts = mesh.all_gather(own, "model").reshape(mesh.n_model, B, G, MPl, P, D)
-    dense = parts.permute(1, 2, 3, 0, 4, 5).reshape(B, G, -1, D)
+    parts = A.kv_bytes(mesh.all_gather(own, "model")).reshape(mesh.n_model, B, G, MPl, P, D)
+    dense = parts.permute(1, 2, 3, 0, 4, 5).reshape(B, G, -1, D).view(own.dtype)
     return dense[:, :, :max_length]
 
 
@@ -291,10 +292,9 @@ def mesh_paged_attention(q, kv, freqs_cis, attn, kv_write: PagedWrite, config, r
     if shard is None:
         return paged_attention(q, None, None, ("flash_prefill_chunk", (lengths, starts, row_map)),
                                kv_write._replace(start=None), kernels, sm_scale)
-    kc = gather_msharded(mesh, kp, layer, table, shard.total)[:, own].contiguous()
-    vc = gather_msharded(mesh, vp, layer, table, shard.total)[:, own].contiguous()
-    return prefill(q, kc.to(q.dtype), vc.to(q.dtype), lengths, sm_scale, q_starts=starts,
-                   kv_row_map=row_map)
+    kc = A.kv_contiguous(gather_msharded(mesh, kp, layer, table, shard.total)[:, own])
+    vc = A.kv_contiguous(gather_msharded(mesh, vp, layer, table, shard.total)[:, own])
+    return prefill(q, kc, vc, lengths, sm_scale, q_starts=starts, kv_row_map=row_map)
 
 
 def prefill_paged(params: dict, config: ChatGLM2Config, input_ids: torch.Tensor,

@@ -6,7 +6,8 @@ launches its CUDA kernel and nowhere else; ``launch_counts`` reads them and
 main path went through.  A CUDA graph launches its kernels without running
 the wrappers: a step program (utils/graphs.py) records each wrapper's count
 during its capture and adds it back on every replay (``add_launch_counts``),
-so the counts stay the kernels' real launches.
+so the counts stay the kernels' real launches.  The attention wrappers'
+launches over a float8_e4m3fn cache also count apart, as ``<name>_fp8``.
 """
 
 
@@ -49,6 +50,7 @@ def kernel_wrappers() -> dict:
         "rope_kv_append_sharded": A.rope_kv_append_sharded,
         "gptq_sweep_int8": GS.gptq_sweep_int8,
         "gptq_sweep_int4": GS.gptq_sweep_int4,
+        **{f"{name}_fp8": getattr(A, name).fp8 for name in A.FP8_FORMS},
     }
 
 

@@ -64,23 +64,26 @@ SIGNATURES = {
     "chatglm_int4_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, q_out, kv, kv_stride, freqs, k_layer, v_layer, page_table, starts, B, G, Hq, D, T
     # (the pool's P), MP, offset, stride, phase, total, stream (bf16; page_table null for
-    # the dense cache; a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0)
-    "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
-    # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, stream (the write-only form)
-    "chatglm_kv_append": [P, P, P, P, I, I, I, I, I, P],
+    # the dense cache; a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0),
+    # kv_fp8, stream.  The attention entries' kv_fp8: 0 for a bf16 cache or pool, 1 for a
+    # float8_e4m3fn one (activations bf16 either way)
+    "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+    # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, kv_fp8, stream (the
+    # write-only form; src bf16)
+    "chatglm_kv_append": [P, P, P, P, I, I, I, I, I, I, P],
     # q, k, v, lengths, part, arrivals, out, B, G, Hg, T, D, span, v2, sm_scale, m_out, l_out,
-    # offset, stream (bf16; B4, B12 and K1; part, m_out and l_out may be null)
-    "chatglm_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, P],
-    # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale,
-    # stream (bf16; q_starts / kv_row_map may be null)
-    "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # offset, kv_fp8, stream (B4, B12 and K1; part, m_out and l_out may be null)
+    "chatglm_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, I, P],
+    # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale, kv_fp8,
+    # stream (q_starts / kv_row_map may be null)
+    "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     # q, k_layer, v_layer, page_table, lengths, part, arrivals, out, B, G, Hg, P, D, MP,
-    # span, sm_scale, m_out, l_out, stride, phase, stream (B10 and K2; part, m_out and l_out
-    # may be null)
-    "chatglm_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, I, P],
+    # span, sm_scale, m_out, l_out, stride, phase, kv_fp8, stream (B10 and K2; part, m_out
+    # and l_out may be null)
+    "chatglm_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, I, I, P],
     # q, k_layer, v_layer, page_table, row_map, starts, part, arrivals, out, B, S, G, Hg,
-    # P, D, MP, span, sm_scale, stream (row_map and part may be null)
-    "chatglm_chunk_paged": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    # P, D, MP, span, sm_scale, kv_fp8, stream (row_map and part may be null)
+    "chatglm_chunk_paged": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     # w, ld_w, hinv, ld_h, scale_n, q_out, err_out, loss_out, scales_out, N, bs, groupsize,
     # stream (GPTQ's column sweep; scale_n null for int4, scales_out null for int8)
     "chatglm_gptq_sweep": [P, I, P, I, P, P, P, P, P, I, I, I, P],

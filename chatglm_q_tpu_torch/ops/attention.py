@@ -61,6 +61,20 @@ counts.
   table row ``row_map[b]``), its K/V rows split into ``chunk_span`` spans
   merged in the same launch.
 
+The cache (or pool) may be stored in bf16 or in ``float8_e4m3fn`` (the
+``kv_dtype`` option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``).
+Every write into an fp8 cache goes through ``kv_store_cast``: JAX's
+``astype(float8_e4m3fn)`` wherever that gives a finite value, finite values
+past the range saturating to ±448 where JAX's give NaN, and every NaN stored
+as the one byte 0x7F.  Reads upcast the stored bytes exactly: the plain
+versions convert K and V to q's dtype before anything is rounded to v's
+dtype (as the TPU kernels upcast after their DMA), and the kernels convert
+each landed tile to bf16 in shared memory (csrc/attention.cu), so a
+kernel's fp8 form equals its bf16 form on the upcast cache.  A write-only
+or append launch casts on the write.  PyTorch implements few ops on fp8
+tensors, so the plain writes and gathers here move the cache's bytes
+(``kv_bytes``).
+
 Numerics shared with the TPU kernels.  Prefill and decode: scores in f32
 scaled by ``sm_scale``, masked scores at MASK_VALUE, probabilities cast to
 v's dtype before the PV product.  The paged decode and chunk kernels and
@@ -95,6 +109,57 @@ CHUNK_MAX_SPANS = 32  # and number at most this many (the merge holds every span
 
 
 
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0   # e4m3fn's largest finite value: the store saturates there
+FP8_NAN = 0x7F    # the byte every NaN is stored as
+KV_DTYPES = (torch.bfloat16, FP8)  # the cache dtypes the kernels take (bf16 activations)
+# the wrappers whose kernels read or write the cache, each with an fp8 form
+FP8_FORMS = ("rope_kv_append", "rope_kv_append_sharded", "kv_cache_write_idx",
+             "kv_pool_write_idx", "flash_attention_decode", "flash_attention_decode_v2",
+             "flash_attention_decode_lse", "flash_attention_prefill",
+             "flash_attention_prefill_chunk", "flash_attention_decode_paged",
+             "flash_attention_decode_paged_lse", "flash_attention_chunk_paged")
+
+
+def kv_store_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a cache of ``dtype`` stores it.  For ``float8_e4m3fn``:
+    x's value rounded to nearest even (from f32: a bf16 input is exact
+    there), bit-equal to JAX's ``astype(jnp.float8_e4m3fn)`` for every
+    input JAX maps to a finite value; finite values and ±inf past the range
+    saturate to ±448 (JAX's cast gives NaN from ±464 on, ROADMAP §C), and
+    every NaN is stored as 0x7F.  The kernels' cast on write (the card's
+    ``cvt.rn.satfinite`` after the same clamp) gives the same bytes.  Any
+    other ``dtype``: ``x.to(dtype)``."""
+    if dtype != FP8:
+        return x.to(dtype)
+    y = x.float().clamp(-FP8_MAX, FP8_MAX).to(FP8).view(torch.uint8)
+    return y.masked_fill(torch.isnan(x), FP8_NAN).view(FP8)
+
+
+def kv_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 cache tensor as its bytes (a view), for the indexing and
+    copies PyTorch does not implement on fp8; any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def kv_put(dst: torch.Tensor, index, new: torch.Tensor) -> None:
+    """``dst[index] = new`` in place, ``new`` stored through
+    ``kv_store_cast`` (on the bytes for an fp8 ``dst``)."""
+    kv_bytes(dst)[index] = kv_bytes(kv_store_cast(new, dst.dtype))
+
+
+def kv_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t.contiguous()``, through the bytes for an fp8 tensor."""
+    return kv_bytes(t).contiguous().view(t.dtype)
+
+
+def kv_zeros(shape, dtype, device) -> torch.Tensor:
+    """A zeroed cache tensor (an fp8 one made as bytes: +0 is byte 0)."""
+    if dtype == FP8:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(FP8)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 class KVShard(NamedTuple):
     """Which slots of a sharded cache a view holds (K3's write, K1's and K2's
     reads).  A T-shard of the dense cache holds global slots ``offset`` ..
@@ -118,6 +183,7 @@ def flash_attention_prefill_plain(q, k, v, lengths, sm_scale, q_starts=None,
     ``q_starts`` query s sits at position s and reads slots < S (T ≥ S);
     with it, at q_starts[b] + s over all T slots.  Returns (B, S, G, Hg, D)."""
     B, S, G, Hg, D = q.shape
+    k, v = k.to(q.dtype), v.to(q.dtype)  # the stored cache upcast, as the kernels read it
     if kv_row_map is not None:
         k, v = k[kv_row_map.long()], v[kv_row_map.long()]
     if q_starts is None:
@@ -140,6 +206,7 @@ def flash_attention_decode_plain(q, k, v, lengths, sm_scale):
     before this token.  A row with no valid slot (length −1) outputs 0, as
     the TPU kernel's l == 0 guard gives.  Returns (B, G, Hg, D)."""
     T = k.shape[2]
+    k, v = k.to(q.dtype), v.to(q.dtype)  # the stored cache upcast, as the kernels read it
     s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
     valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
     s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
@@ -165,6 +232,7 @@ def flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset: int =
     the scaled scores, l = Σ exp(s − m); a shard with no valid slot gives 0,
     −inf and 0."""
     T = k.shape[2]
+    k, v = k.to(q.dtype), v.to(q.dtype)  # the stored cache upcast, as the kernels read it
     s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
     n_local = (lengths.long() + 1 - t_offset).clamp(0, T)
     valid = (torch.arange(T, device=q.device)[None, :] < n_local[:, None])[:, None, None, :]
@@ -182,8 +250,8 @@ def flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer: int, page_t
     the table's MP hold none).  B10's numerics (q scaled in its dtype, p in
     f32).  Returns (out, m, l) as ``flash_attention_decode_lse_plain``."""
     P, MP = k_pool.shape[3], page_table.shape[1]
-    k = gather_pages(k_pool[layer], page_table).float()
-    v = gather_pages(v_pool[layer], page_table).float()
+    k = gather_pages(k_pool[layer], page_table).to(q.dtype).float()
+    v = gather_pages(v_pool[layer], page_table).to(q.dtype).float()
     s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k)
     t = torch.arange(MP * P, device=q.device)
     logical = ((t // P) * stride + phase) * P + t % P
@@ -224,7 +292,7 @@ def rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer: int, sta
         t = pos - shard.offset
         rows = ((t >= 0) & (t < k_cache.shape[3])).nonzero()[:, 0]
         for cache, new in ((k_cache, k), (v_cache, v)):
-            cache[layer][rows, :, t[rows]] = new[rows].to(cache.dtype)
+            kv_put(cache[layer], (rows, slice(None), t[rows]), new[rows])
     else:
         P = k_cache.shape[3]
         blk = pos // P
@@ -233,7 +301,7 @@ def rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer: int, sta
                 & (col < page_table.shape[1])).nonzero()[:, 0]
         page = page_table.long()[rows, col[rows]]
         for pool, new in ((k_cache, k), (v_cache, v)):
-            pool[layer][page, :, pos[rows] % P] = new[rows].to(pool.dtype)
+            kv_put(pool[layer], (page, slice(None), pos[rows] % P), new[rows])
     return apply_rotary_emb(q, f)
 
 
@@ -242,16 +310,17 @@ def kv_cache_write_idx_plain(cache, new, layer: int, starts):
     [0, T − 1].  In place."""
     B, T = new.shape[0], cache.shape[3]
     rows = torch.arange(B, device=cache.device)
-    cache[layer][rows, :, starts.long().clamp(0, T - 1)] = new.to(cache.dtype)
+    kv_put(cache[layer], (rows, slice(None), starts.long().clamp(0, T - 1)), new)
     return cache
 
 
 def gather_pages(pool_layer, page_table):
     """One pool layer (NP, G, P, D) read through ``page_table`` (B, MP) as a
-    dense (B, G, MP·P, D) view (a copy)."""
+    dense (B, G, MP·P, D) view (a copy, in the pool's dtype)."""
     NP, G, P, D = pool_layer.shape
     B, MP = page_table.shape
-    return pool_layer[page_table.long()].permute(0, 2, 1, 3, 4).reshape(B, G, MP * P, D)
+    rows = kv_bytes(pool_layer)[page_table.long()]
+    return rows.permute(0, 2, 1, 3, 4).reshape(B, G, MP * P, D).view(pool_layer.dtype)
 
 
 def kv_pool_write_idx_plain(pool, new, layer: int, page_table, starts):
@@ -261,7 +330,7 @@ def kv_pool_write_idx_plain(pool, new, layer: int, page_table, starts):
     pos = starts.long().clamp(0, MP * P - 1)
     rows = torch.arange(new.shape[0], device=pool.device)
     page = page_table.long()[rows, pos // P]
-    pool[layer][page, :, pos % P] = new.to(pool.dtype)
+    kv_put(pool[layer], (page, slice(None), pos % P), new)
     return pool
 
 
@@ -306,6 +375,7 @@ def flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k: int = 5
     the probabilities f32.  Rows 0..lengths[b] count; a row with none (length
     −1) outputs 0.  ``block_k`` only splits the kernel's work."""
     T = k.shape[2]
+    k, v = k.to(q.dtype), v.to(q.dtype)  # the stored cache upcast, as the kernels read it
     s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k.float())
     valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
     s = s.masked_fill(~valid[:, None, None, :], MASK_VALUE)
@@ -319,8 +389,8 @@ def flash_attention_decode_paged_plain(q, k_pool, v_pool, layer: int, page_table
     (B,) = the cache length before this token.  Row b attends logical
     positions < min(lengths[b] + 1, MP·P); a row with none (length −1)
     outputs 0, as the TPU kernel's l == 0 guard gives.  Returns (B, G, Hg, D)."""
-    k = gather_pages(k_pool[layer], page_table).float()
-    v = gather_pages(v_pool[layer], page_table).float()
+    k = gather_pages(k_pool[layer], page_table).to(q.dtype).float()
+    v = gather_pages(v_pool[layer], page_table).to(q.dtype).float()
     T = k.shape[2]
     s = torch.einsum("bghd,bgtd->bght", _prescaled(q, sm_scale), k)
     valid = torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None]
@@ -337,8 +407,8 @@ def flash_attention_chunk_paged_plain(q, k_pool, v_pool, layer: int, page_table,
     if row_map is not None:
         page_table = page_table[row_map.long()]
     B, S = q.shape[:2]
-    k = gather_pages(k_pool[layer], page_table).float()
-    v = gather_pages(v_pool[layer], page_table).float()
+    k = gather_pages(k_pool[layer], page_table).to(q.dtype).float()
+    v = gather_pages(v_pool[layer], page_table).to(q.dtype).float()
     T = k.shape[2]
     s = torch.einsum("bsghd,bgtd->bghst", _prescaled(q, sm_scale), k)
     qpos = starts.long()[:, None] + torch.arange(S, device=q.device)[None, :]  # (B, S)
@@ -361,11 +431,33 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _check_bf16(name, *tensors):
-    """The kernels are built for the main path's bf16 activations and cache."""
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 tensors only "
-                        f"(got {[t.dtype for t in tensors]})")
+def _check_types(name, acts, caches) -> int:
+    """The kernels take the main path's bf16 activations over a bf16 or
+    float8_e4m3fn cache (K and V of one dtype); returns the C entry points'
+    cache code (1: fp8).  Anything else raises."""
+    if (any(t.dtype != torch.bfloat16 for t in acts)
+            or any(t.dtype not in KV_DTYPES for t in caches)
+            or len({t.dtype for t in caches}) > 1):
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations over a bf16 or "
+                        f"float8_e4m3fn cache (got activations {[t.dtype for t in acts]}, "
+                        f"cache {[t.dtype for t in caches]})")
+    return int(caches[0].dtype == FP8)
+
+
+class _Fp8Form:
+    """The launch count of a wrapper's fp8-cache form.  Its launches count
+    in the wrapper's own ``launches`` too; this count says which of them
+    read or wrote a float8_e4m3fn cache (ops.kernel_wrappers lists it)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name + "_fp8"
+        self.launches = 0
+
+
+def _launched(wrapper, out, fp8: int):
+    if fp8:
+        wrapper.fp8.launches += 1
+    return _build.launched(wrapper, out)
 
 
 def _int32(t):
@@ -385,7 +477,7 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
     kv_row_map = None if kv_row_map is None else _int32(kv_row_map)
     _check_cuda("flash_attention_prefill", q, k, v, lengths,
                 *[t for t in (q_starts, kv_row_map) if t is not None])
-    _check_bf16("flash_attention_prefill", q, k, v)
+    fp8 = _check_types("flash_attention_prefill", [q], [k, v])
     if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or k.shape != (Bk, G, T, D)
             or v.shape != k.shape or (q_starts is None and T < S)
             or (kv_row_map is None and Bk != B)):
@@ -396,12 +488,13 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
     out = torch.empty_like(q)
     _build.call("chatglm_prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 lengths.data_ptr(), starts_ptr, rmap_ptr, out.data_ptr(), B, S, G, Hg, T, D,
-                float(sm_scale), _build.stream_ptr(q))
+                float(sm_scale), fp8, _build.stream_ptr(q))
     counter = flash_attention_prefill if q_starts is None else flash_attention_prefill_chunk
-    return _build.launched(counter, out)
+    return _launched(counter, out, fp8)
 
 
 flash_attention_prefill.launches = 0
+flash_attention_prefill.fp8 = _Fp8Form("flash_attention_prefill")
 
 
 def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_map=None):
@@ -412,6 +505,7 @@ def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_m
 
 
 flash_attention_prefill_chunk.launches = 0
+flash_attention_prefill_chunk.fp8 = _Fp8Form("flash_attention_prefill_chunk")
 
 
 def _tiles(n):
@@ -494,7 +588,7 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
     T = k.shape[2]
     lengths = _int32(lengths)
     _check_cuda(name, q, k, v, lengths)
-    _check_bf16(name, q, k, v)
+    fp8 = _check_types(name, [q], [k, v])
     if (D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape
             or t_offset < 0):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -504,8 +598,8 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
     _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 lengths.data_ptr(), _decode_part_ptr(q, T, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, T, D, span, int(v2), float(sm_scale),
-                *_ml_ptrs(ml), int(t_offset), _build.stream_ptr(q))
-    return out if ml is None else (out, *ml)
+                *_ml_ptrs(ml), int(t_offset), fp8, _build.stream_ptr(q))
+    return (out if ml is None else (out, *ml)), fp8
 
 
 def flash_attention_decode(q, k, v, lengths, sm_scale):
@@ -515,12 +609,13 @@ def flash_attention_decode(q, k, v, lengths, sm_scale):
         return _build.export_op("flash_attention_decode")(q, k, v, lengths, sm_scale)
     if not _build.on_card(q):
         return flash_attention_decode_plain(q, k, v, lengths, sm_scale)
-    out = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale, DECODE_BLOCK_K,
-                         False)
-    return _build.launched(flash_attention_decode, out)
+    out, fp8 = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale,
+                              DECODE_BLOCK_K, False)
+    return _launched(flash_attention_decode, out, fp8)
 
 
 flash_attention_decode.launches = 0
+flash_attention_decode.fp8 = _Fp8Form("flash_attention_decode")
 
 
 def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
@@ -529,11 +624,13 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
     tensors; the CUDA kernel on CUDA tensors."""
     if not _build.on_card(q):
         return flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k)
-    out = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k, True)
-    return _build.launched(flash_attention_decode_v2, out)
+    out, fp8 = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k,
+                              True)
+    return _launched(flash_attention_decode_v2, out, fp8)
 
 
 flash_attention_decode_v2.launches = 0
+flash_attention_decode_v2.fp8 = _Fp8Form("flash_attention_decode_v2")
 
 
 def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
@@ -542,12 +639,13 @@ def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
     version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if not _build.on_card(q):
         return flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset)
-    res = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
-                         DECODE_BLOCK_K, False, lse=True, t_offset=t_offset)
-    return _build.launched(flash_attention_decode_lse, res)
+    res, fp8 = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
+                              DECODE_BLOCK_K, False, lse=True, t_offset=t_offset)
+    return _launched(flash_attention_decode_lse, res, fp8)
 
 
 flash_attention_decode_lse.launches = 0
+flash_attention_decode_lse.fp8 = _Fp8Form("flash_attention_decode_lse")
 
 
 def _aligned(name, *tensors):
@@ -567,13 +665,15 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     pool (L, NP, G, P, D)."""
     L, _, G, T, D = dst.shape
     B = new.shape[0]
-    src = new.to(dst.dtype).contiguous()
+    # a bf16 cache takes new in its dtype; an fp8 one takes bf16 and the
+    # kernel casts on the write (kv_store_cast's bytes)
+    src = (new.to(dst.dtype) if dst.dtype == torch.bfloat16 else new).contiguous()
     if src.data_ptr() % 16:
         src = src.clone()
     starts = _int32(starts)
     page_table = None if page_table is None else _int32(page_table)
     _check_cuda(name, dst, src, starts, *([] if page_table is None else [page_table]))
-    _check_bf16(name, dst)
+    fp8 = _check_types(name, [src], [dst])
     if (src.shape != (B, G, D) or starts.shape != (B,) or D != HEAD_DIM
             or not 0 <= layer < L or (page_table is None and dst.shape[1] != B)
             or (page_table is not None and (page_table.dim() != 2
@@ -584,7 +684,8 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     MP = 0 if page_table is None else page_table.shape[1]
     _build.call("chatglm_kv_append", _layer_ptr(dst, layer), src.data_ptr(),
                 None if page_table is None else page_table.data_ptr(), starts.data_ptr(),
-                B, G, D, T, MP, _build.stream_ptr(dst))
+                B, G, D, T, MP, fp8, _build.stream_ptr(dst))
+    return fp8
 
 
 def kv_cache_write_idx(cache, new, layer: int, starts):
@@ -593,11 +694,12 @@ def kv_cache_write_idx(cache, new, layer: int, starts):
     write-only form on CUDA tensors."""
     if not _build.on_card(cache):
         return kv_cache_write_idx_plain(cache, new, layer, starts)
-    _write_one("kv_cache_write_idx", cache, new, layer, starts)
-    return _build.launched(kv_cache_write_idx, cache)
+    fp8 = _write_one("kv_cache_write_idx", cache, new, layer, starts)
+    return _launched(kv_cache_write_idx, cache, fp8)
 
 
 kv_cache_write_idx.launches = 0
+kv_cache_write_idx.fp8 = _Fp8Form("kv_cache_write_idx")
 
 
 def _check_pool(name, pool, page_table, L_idx):
@@ -613,11 +715,12 @@ def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
     form on CUDA tensors."""
     if not _build.on_card(pool):
         return kv_pool_write_idx_plain(pool, new, layer, page_table, starts)
-    _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
-    return _build.launched(kv_pool_write_idx, pool)
+    fp8 = _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
+    return _launched(kv_pool_write_idx, pool, fp8)
 
 
 kv_pool_write_idx.launches = 0
+kv_pool_write_idx.fp8 = _Fp8Form("kv_pool_write_idx")
 
 
 def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_table=None):
@@ -630,12 +733,13 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
                                                    page_table)
     if not _build.on_card(q):
         return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
-    out = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
-                         page_table, None)
-    return _build.launched(rope_kv_append, out)
+    out, fp8 = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
+                              page_table, None)
+    return _launched(rope_kv_append, out, fp8)
 
 
 rope_kv_append.launches = 0
+rope_kv_append.fp8 = _Fp8Form("rope_kv_append")
 
 
 def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, shard: KVShard,
@@ -647,12 +751,13 @@ def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, s
     if not _build.on_card(q):
         return rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer, starts, shard,
                                             page_table)
-    out = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
-                         starts, page_table, shard)
-    return _build.launched(rope_kv_append_sharded, out)
+    out, fp8 = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
+                              starts, page_table, shard)
+    return _launched(rope_kv_append_sharded, out, fp8)
 
 
 rope_kv_append_sharded.launches = 0
+rope_kv_append_sharded.fp8 = _Fp8Form("rope_kv_append_sharded")
 
 
 def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_table, shard):
@@ -666,7 +771,7 @@ def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_tab
     _check_cuda(name, q, freqs, k_cache, v_cache, starts, *([page_table] if paged else []))
     if not kv.is_cuda or kv.device != q.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    _check_bf16(name, q, kv, freqs, k_cache, v_cache)
+    fp8 = _check_types(name, [q, kv, freqs], [k_cache, v_cache])
     L, rows, G, T, Dc = k_cache.shape
     shard = shard or KVShard()
     if (D != HEAD_DIM or Dc != D or v_cache.shape != k_cache.shape
@@ -685,8 +790,8 @@ def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_tab
                 kv.stride(0), freqs.data_ptr(), _layer_ptr(k_cache, layer),
                 _layer_ptr(v_cache, layer), page_table.data_ptr() if paged else None,
                 starts.data_ptr(), B, G, Gq * Hq, D, T, MP, shard.offset, shard.stride,
-                shard.phase, shard.total, _build.stream_ptr(q))
-    return out
+                shard.phase, shard.total, fp8, _build.stream_ptr(q))
+    return out, fp8
 
 
 def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):
@@ -695,9 +800,9 @@ def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, leng
     if not _build.on_card(q):
         return flash_attention_decode_paged_plain(q, k_pool, v_pool, layer, page_table,
                                                   lengths, sm_scale)
-    out = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
-                               page_table, lengths, sm_scale)
-    return _build.launched(flash_attention_decode_paged, out)
+    out, fp8 = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
+                                    page_table, lengths, sm_scale)
+    return _launched(flash_attention_decode_paged, out, fp8)
 
 
 def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm_scale,
@@ -706,7 +811,7 @@ def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm
     L, NP, Gp, P, Dp = k_pool.shape
     page_table, lengths = _int32(page_table), _int32(lengths)
     _check_cuda(name, q, k_pool, v_pool, page_table, lengths)
-    _check_bf16(name, q, k_pool, v_pool)
+    fp8 = _check_types(name, [q], [k_pool, v_pool])
     _check_pool(name, k_pool, page_table, layer)
     if (D != HEAD_DIM or Hg > MAX_DECODE_HG or (Gp, Dp) != (G, D)
             or v_pool.shape != k_pool.shape or page_table.shape[0] != B
@@ -722,11 +827,12 @@ def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm
                 v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
                 _decode_part_ptr(q, MP * P, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, P, D, MP, span, float(sm_scale), *_ml_ptrs(ml),
-                int(stride), int(phase), _build.stream_ptr(q))
-    return out if ml is None else (out, *ml)
+                int(stride), int(phase), fp8, _build.stream_ptr(q))
+    return (out if ml is None else (out, *ml)), fp8
 
 
 flash_attention_decode_paged.launches = 0
+flash_attention_decode_paged.fp8 = _Fp8Form("flash_attention_decode_paged")
 
 
 def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, lengths,
@@ -738,12 +844,13 @@ def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, 
     if not _build.on_card(q):
         return flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer, page_table,
                                                       lengths, sm_scale, stride, phase)
-    res = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool, layer,
-                               page_table, lengths, sm_scale, stride, phase, lse=True)
-    return _build.launched(flash_attention_decode_paged_lse, res)
+    res, fp8 = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool,
+                                    layer, page_table, lengths, sm_scale, stride, phase, lse=True)
+    return _launched(flash_attention_decode_paged_lse, res, fp8)
 
 
 flash_attention_decode_paged_lse.launches = 0
+flash_attention_decode_paged_lse.fp8 = _Fp8Form("flash_attention_decode_paged_lse")
 
 
 def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
@@ -760,7 +867,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
     row_map = None if row_map is None else _int32(row_map)
     _check_cuda("flash_attention_chunk_paged", q, k_pool, v_pool, page_table, starts,
                 *([] if row_map is None else [row_map]))
-    _check_bf16("flash_attention_chunk_paged", q, k_pool, v_pool)
+    fp8 = _check_types("flash_attention_chunk_paged", [q], [k_pool, v_pool])
     _check_pool("flash_attention_chunk_paged", k_pool, page_table, layer)
     if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or (Gp, Dp) != (G, D)
             or v_pool.shape != k_pool.shape or starts.shape != (B,)
@@ -778,11 +885,12 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
                 v_pool[layer].data_ptr(), page_table.data_ptr(),
                 None if row_map is None else row_map.data_ptr(), starts.data_ptr(), part,
                 _arrivals_ptr(q.device, units), out.data_ptr(), B, S, G, Hg, P, D, MP, span,
-                float(sm_scale), _build.stream_ptr(q))
-    return _build.launched(flash_attention_chunk_paged, out)
+                float(sm_scale), fp8, _build.stream_ptr(q))
+    return _launched(flash_attention_chunk_paged, out, fp8)
 
 
 flash_attention_chunk_paged.launches = 0
+flash_attention_chunk_paged.fp8 = _Fp8Form("flash_attention_chunk_paged")
 
 
 # ---------------------------------------------------------------------------

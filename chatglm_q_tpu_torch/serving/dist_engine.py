@@ -58,6 +58,7 @@ import torch
 from ..config import GLMLoadConfig, TorchRuntimeConfig
 from ..models import chatglm2 as M
 from ..models import paged_kv as PK
+from ..ops import attention as A
 from ..parallel import sharding as SH
 from ..utils import distributed as dist_utils
 from .engine import ServingEngine
@@ -161,8 +162,8 @@ class DistributedServingEngine(_MeshEngine, ServingEngine):
     def _make_cache(self):
         shape = SH.kv_cache_shape(self.mc, self.mesh, self.max_batch, self.max_seq_len,
                                   self.rt.kv_shard_t)
-        return M.KVCache(torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
-                         torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
+        return M.KVCache(A.kv_zeros(shape, self.kv_dtype, self.device),
+                         A.kv_zeros(shape, self.kv_dtype, self.device),
                          torch.zeros((shape[1],), dtype=torch.int32, device=self.device))
 
     def _local(self, slot: int) -> int:
@@ -262,8 +263,8 @@ class DistributedPagedServingEngine(_MeshEngine, PagedServingEngine):
         shape = (self.mc.num_layers, pages, groups, self.page_size, self.mc.head_hidden_size)
         dev = self.device
         return PK.PagedKVCache(
-            torch.zeros(shape, dtype=self.kv_dtype, device=dev),
-            torch.zeros(shape, dtype=self.kv_dtype, device=dev),
+            A.kv_zeros(shape, self.kv_dtype, dev),
+            A.kv_zeros(shape, self.kv_dtype, dev),
             torch.zeros((self.max_batch, mp), dtype=torch.int32, device=dev),
             torch.zeros((self.max_batch,), dtype=torch.int32, device=dev))
 

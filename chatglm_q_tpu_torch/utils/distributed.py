@@ -104,9 +104,10 @@ def _back(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    """A 16-bit tensor moved as its bytes (exact, whatever the backend's
-    support for the type: gloo takes no int16).  Contiguous."""
-    if t.element_size() == 2:
+    """A 16-bit or 8-bit float tensor moved as its bytes (exact, whatever
+    the backend's support for the type: gloo takes no int16 and no fp8).
+    Contiguous."""
+    if t.element_size() == 2 or (t.element_size() == 1 and t.is_floating_point()):
         return t.view(torch.uint8)
     return t
 

@@ -12,6 +12,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --quant    # phase 10 alone, then GPTQ int4g32 of the 28-layer model
     python3 chip_smoke.py --programs    # phase 4's captured prefill, phase 7 and phase 12 alone
     python3 chip_smoke.py --phase12    # phase 12 alone (the plan table, the export, the launchers)
+    python3 chip_smoke.py --fp8    # the fp8 KV cache: phase 2's fp8 rows, its runs in phases 5,
+                                   # 6 and 8, the long-context step
 
 Phases (any failure raises and exits non-zero):
 
@@ -69,7 +71,15 @@ Phases (any failure raises and exits non-zero):
    = 512: q_proj's 2048 columns, o_proj's 2048 storage rows, w_in's 6912 /
    6784 columns on rank 0 / 1, w_out's 6912 storage rows with rank 1's 128
    rows of padding, the lm_head's 32768 columns), each within KERNEL_TOL
-   and SUM_TOL (``check_shard_matmuls``).
+   and SUM_TOL (``check_shard_matmuls``).  Every attention kernel's
+   float8_e4m3fn-cache form (``check_fp8_attention``: B3 / B9 at B = 4 and
+   1, B4 at B = 4 and 1, B12, B5 both forms, B10, B11 at S = 9, K1, K2, K3
+   dense and paged) at its bf16 row's shape: bit-equal to its bf16 form on
+   the upcast cache (the appends: to their plain versions), within
+   KERNEL_TOL of its plain version, timed beside its bf16 form, its plain
+   version and the cache cast to bf16 + SDPA, its bound counting K/V at one
+   byte; and the store: all 65,536 bf16 patterns through the write-only
+   append byte-equal to ``kv_store_cast`` on the card and on the CPU.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -126,7 +136,12 @@ Phases (any failure raises and exits non-zero):
    depth 2: ``save_pretrained`` → ``GLMDecoder.from_pretrained``
    for int8 and int4g32, with identical tensors and equal logits.  Each
    mode's time to first token (its bucket's prefill program replayed)
-   against the eager decoder's, in turns.
+   against the eager decoder's, in turns.  After int4g32, the same decoder
+   over a float8_e4m3fn cache (``chat_fp8``): captured = eager text; every
+   token within ``GREEDY_GAP_TOL`` of the plain path (``use_kernels=False``)
+   over an fp8 cache; the first decode step's logits within JAX's 0.15 of
+   max|logits| of the bf16 cache's; ms a token beside the bf16 decoder's, in
+   turns.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights, no tokenizer (eos id 2), token-id prompts from a seeded
    generator.  (a) ``PagedServingEngine`` with 256-token chunked admission
@@ -158,7 +173,16 @@ Phases (any failure raises and exits non-zero):
    chunks of (a) and (c) (a program a (rows, chunk) shape); each run is
    driven again from eager launches (``cuda_graphs=False``), its greedy
    tokens equal, with its tokens/s, time to first token and (a), (c) busy
-   share, and (a), (c) one chunk step's (captured and eager).
+   share, and (a), (c) one chunk step's (captured and eager).  Then over an
+   fp8 pool (``engines_fp8``): (a8) run (a)'s engine and requests, (b8) the
+   speculative engine with chunked admission on (b)'s prompts (its verify
+   through B11): page accounting, the fp8 forms launched, the greedy rule
+   against the dense ``prefill_chunk`` over an fp8 cache, tok/s and the
+   busy share.  Last, the long-context step (``long_context_fp8``): batch 32
+   over an 8192-slot cache at lengths near 8000, random K/V written through
+   the store, the captured step over a bf16 cache, an fp8 cache and an fp8
+   cache under ``decode_attn_v2``, timed in turns, each traced for its device
+   ms and the decode attention's share.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -205,6 +229,10 @@ Phases (any failure raises and exits non-zero):
    The ranks token-equal in every run, the verify steps through the
    attention their pool takes, every greedy token within ``GREEDY_GAP_TOL``
    of the same reference.
+   (a8) and (b8): (a) and (b) over an fp8 cache and pool with chunked
+   admission, 16 tokens a request: the ranks token-equal, K1 / K2 and K3 fp8
+   forms once a layer a decode step, the greedy rule against the fp8-cache
+   reference.
    Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
    (dense and paged, bit for bit) against their plain versions, the
    shards merged against the unsharded function in f32 within the
@@ -2533,6 +2561,9 @@ def chat_slice(torch, smi):
             if quant == "int8":
                 perf[name]["prefill_profile_4x128"] = profile_prefill(
                     torch, params, cfg, rt, 4, quant, "dyn_wgmma_kernel")
+        if name == "int4g32":
+            counts["int4g32 fp8"], perf["int4g32 fp8 cache"] = chat_fp8(
+                torch, smi, params, cfg, tokenizer, prompt, ids, decoder)
         del decoder, eager_decoder
     del params
     torch.cuda.empty_cache()
@@ -2840,9 +2871,10 @@ def captured_programs(params, name, kinds, family="decode"):
     return {p.name: p.replays for p in progs}
 
 
-def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ):
+def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ, kv_dtype=None, rt=None):
     """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
-    fresh dense cache (one chunk, all logits), and the largest relative gap
+    fresh dense cache (one chunk, all logits; of ``kv_dtype``, bf16 by
+    default, through ``rt``, the kernels by default), and the largest relative gap
     between each position's max logit and the emitted token's logit; and the
     same over the stream shifted by one token (the control).  Read two ways:
     from the bf16 logits prefill_chunk returns, and from the same final
@@ -2869,11 +2901,11 @@ def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ):
             if kw["temperature"] > 0 or len(req.generated) < 2:
                 continue
             seq = prompt + req.generated[:-1]
-            cache = M.init_kv_cache(cfg, 1, cache_len, torch.bfloat16, dev)
+            cache = M.init_kv_cache(cfg, 1, cache_len, kv_dtype or torch.bfloat16, dev)
             ids = torch.tensor([seq], device=dev)
             zero = torch.zeros((1,), dtype=torch.int32, device=dev)
             logits, _ = M.prefill_chunk(params, cfg, ids, zero, zero + len(seq), cache,
-                                        "int4g32", torch.bfloat16, TorchRuntimeConfig(),
+                                        "int4g32", torch.bfloat16, rt or TorchRuntimeConfig(),
                                         return_all_logits=True)
             h = seen.pop("h")[0, len(prompt) - 1:]  # row i predicts generated[i]
             f32 = int4g32_matmul_plain(h.float(), head["weight"], head["weight_scale"])
@@ -3053,6 +3085,14 @@ def engines_slice(torch, smi, seed=61, survey=False):
     counts = {k: ca[k] + cb[k] + cc[k] + cd[k] for k in PAGED_KERNELS + ("int4g32_splitk",)}
     counts["rope_kv_append paged"] = ca["rope_kv_append"] + cb["rope_kv_append"] + cd[
         "rope_kv_append"]
+    fp8_counts, out["fp8"] = engines_fp8(torch, smi, params, cfg, load, a_reqs, b_reqs, short,
+                                         seed)
+    for k in PAGED_KERNELS[:3]:
+        counts[k + " fp8"] = fp8_counts[k + "_fp8"]
+    counts["rope_kv_append paged fp8"] = fp8_counts["rope_kv_append_fp8"]
+    long_counts, out["long_context"] = long_context_fp8(torch, smi, params, cfg)
+    counts["flash_attention_decode_v2 fp8"] = \
+        long_counts["fp8 decode_attn_v2"]["flash_attention_decode_v2_fp8"]
     return counts, out
 
 
@@ -3547,6 +3587,7 @@ SHARD_LAYERS = 8
 SHARD_SPEC_TOKENS = 8  # runs (c)-(g)
 SHARD_LOOP_TOKENS = 32  # the greedy rows of (c)-(f) on short cycles, which drafts must hit
 SHARD_HTTP_TOKENS = 12
+SHARD_FP8_TOKENS = 16  # runs (a8), (b8): the fp8 cache and pool
 # what each run's verify steps must launch, once a layer a step: the
 # model-sharded pool's verify attends the all-gathered pages (B5's chunked
 # form), the data-sharded pool's through the chunk kernel (B11)
@@ -3586,8 +3627,10 @@ def sharded_prompts(torch, seed):
             for n in (1100, 300, 700, 500)]
     loops = [(p, dict(greedy, max_new_tokens=SHARD_LOOP_TOKENS)) for p in cycles(torch)]
     mixed = loops + [(spec[2][0], sampled), (spec[0][0], sampled)]
+    short = dict(kw, max_new_tokens=SHARD_FP8_TOKENS)
     return {"a": a, "b": b, "c": spec[:2] + loops, "d": mixed, "e": spec[:2] + loops,
-            "f": mixed, "g": look}
+            "f": mixed, "g": look, "a8": [(p, short) for p, _ in a[1:4]],
+            "b8": [(p, short) for p, _ in b[:4]]}
 
 
 def cycles(torch, seed=5):
@@ -3599,7 +3642,7 @@ def cycles(torch, seed=5):
     return [torch.randint(3, 65000, (n,), generator=g).tolist() * (120 // n) for n in (1, 2)]
 
 
-def sharded_rank(rank, tree_path, prompts, tp, layers):
+def sharded_rank(rank, tree_path, prompts, tp, layers, http=True):
     """One rank of phase 8 on a (1, tp) mesh: its slice of the memory-mapped
     tree on its card (gloo: every rank on this one; NCCL: card ``rank``),
     then each run of ``prompts`` on its engine, each draining its requests
@@ -3645,6 +3688,14 @@ def sharded_rank(rank, tree_path, prompts, tp, layers):
         "g": lambda graphs: DistributedServingEngine(
             load, params, mesh=mesh, max_batch=4, max_seq_len=SEQ, decode_chunk=4,
             lookahead=True, rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs)),
+        # (a) and (b) over an fp8 cache and pool, with chunked admission: every
+        # prefill reads the stored bytes, as the single-device reference does
+        "a8": lambda graphs: DistributedServingEngine(
+            load, params, mesh=mesh, max_batch=4, max_seq_len=SHARD_T, decode_chunk=16,
+            prefill_chunk_size=PAGE, kv_dtype=torch.float8_e4m3fn,
+            rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs)),
+        "b8": paged(shard_model_pages=True, prefill_chunk_size=PAGE, prefix_cache=True,
+                    decode_chunk=16, kv_dtype=torch.float8_e4m3fn, **pool),
     }
     # over NCCL the decode chunks are captured (a gloo mesh refuses capture):
     # each run is driven captured, then again from eager launches
@@ -3696,7 +3747,8 @@ def sharded_rank(rank, tree_path, prompts, tp, layers):
             res[key]["decode_timing"] = sharded_decode_timing(torch, eng, mesh)
         del eng
         torch.cuda.empty_cache()
-    res["http"] = sharded_http(rank, mesh, load, params)
+    if http:
+        res["http"] = sharded_http(rank, mesh, load, params)
     return res
 
 
@@ -3909,7 +3961,8 @@ def nccl_capture_checks(ranks, prompts, smi):
     return out
 
 
-def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD_LAYERS):
+def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD_LAYERS,
+                  runs=None):
     """Phase 8: an int4g32 random tree of ``layers`` layers at ChatGLM2-6B's
     widths built once here, saved to
     the build directory and memory-mapped by ``tp`` spawned ranks (gloo: all
@@ -3934,7 +3987,8 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
     params = random_quantized_params(cfg, "int4g32",
                                      torch.Generator(device="cuda").manual_seed(seed + 2))
     prompts = sharded_prompts(torch, seed)
-    a_reqs, b_reqs = prompts["a"], prompts["b"]
+    if runs is not None:  # a part of the phase (``--fp8``: the fp8 runs)
+        prompts = {k: v for k, v in prompts.items() if k in runs}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = _build.BUILD_DIR / f"sharded_tree_{seed}.pt"
     t0 = time.perf_counter()
@@ -3943,7 +3997,7 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
     try:
         t0 = time.perf_counter()
         ranks = run_spmd(sharded_rank, tp, backend, timeout=900,
-                         args=(str(path), prompts, tp, layers))
+                         args=(str(path), prompts, tp, layers, runs is None))
         spmd_s = time.perf_counter() - t0
     finally:
         path.unlink(missing_ok=True)
@@ -3951,7 +4005,7 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
            "ranks_s": spmd_s,
            "load_s": [r["load_s"] for r in ranks]}
     counts = {}
-    for run, reqs in (("a", a_reqs), ("b", b_reqs)):
+    for run, reqs in ((k, prompts[k]) for k in ("a", "b") if k in prompts):
         r0 = ranks[0][run]
         require(all(r[run]["tokens"] == r0["tokens"] for r in ranks),
                 f"phase 8 ({run}): the ranks' tokens differ")
@@ -4013,11 +4067,15 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
                 f"phase 8 ({run}): the shifted control passes ({gaps['f32'][1]})")
         for k, v in r0["counts"].items():
             counts[k] = counts.get(k, 0) + v
-    out.update(sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp))
+    counts.update(sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out))
+    if "c" in prompts:
+        out.update(sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp))
     if backend == "nccl":
         out["captured_vs_eager"] = nccl_capture_checks(ranks, prompts, smi)
-    counts["rope_kv_append_sharded"] = ranks[0]["a"]["counts"]["rope_kv_append_sharded"]
-    counts["rope_kv_append_sharded paged"] = ranks[0]["b"]["counts"]["rope_kv_append_sharded"]
+    if "a" in prompts:
+        counts["rope_kv_append_sharded"] = ranks[0]["a"]["counts"]["rope_kv_append_sharded"]
+        counts["rope_kv_append_sharded paged"] = \
+            ranks[0]["b"]["counts"]["rope_kv_append_sharded"]
     log(f"  tree saved in {save_s:.1f} s; ranks done in {spmd_s:.1f} s (slices loaded in "
         + " / ".join(f"{x:.1f}" for x in out["load_s"]) + " s)")
     return counts, out
@@ -5608,6 +5666,710 @@ def gap_survey(torch, smi, seeds):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The float8_e4m3fn cache: every attention kernel's fp8 form (phase 2)
+# ---------------------------------------------------------------------------
+
+def fp8_cache(torch, gen, shape):
+    """A random fp8 cache tensor written through the port's store
+    (``kv_store_cast``) and its exact bf16 upcast."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    k8 = A.kv_store_cast(torch.randn(shape, device="cuda", generator=gen), torch.float8_e4m3fn)
+    return k8, k8.to(torch.bfloat16)
+
+
+def fp8_equal(a, b):
+    """Bit-equal outputs (a tuple's every tensor), fp8 tensors by their bytes."""
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch_equal_bytes(x, y) for x, y in zip(a, b))
+
+
+def torch_equal_bytes(x, y):
+    import torch
+
+    if x.dtype == torch.float8_e4m3fn:
+        x, y = x.view(torch.uint8), y.view(torch.uint8)
+    return torch.equal(x, y)
+
+
+def fp8_row(torch, name, fp8_fn, bf16_fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False,
+            plain_iters=5, plain_syncs=False):
+    """One fp8 form of a kernel: ``fp8_fn(i)`` over layer i of an fp8 cache,
+    ``bf16_fn(i)`` its bf16 form over the same cache upcast, ``plain_fn()``
+    the plain version on layer 0 of the fp8 cache.  Required: the fp8 form
+    bit-equal to the bf16 form (``bf16_fn`` None: an append, bit-equal to
+    its plain version instead) and within KERNEL_TOL of its plain version
+    (``exact``: bit-equal).  Timed over the 28 layers: the fp8 form, the
+    bf16 form, the plain version, and the library yardstick (``lib_fn``: the
+    cache cast to bf16 and SDPA; None where no call computes it); the bound
+    counts each K/V byte read once at 1 B.  ``plain_syncs``: the plain
+    version reads a device value on the host, so it is timed on the host's
+    clock (``synced_ms``)."""
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    got = fp8_fn(0)
+    same = bf16_fn(0) if bf16_fn is not None else None
+    torch.cuda.synchronize()
+    want = plain_fn()
+    if exact:
+        require(fp8_equal(got, want), f"{name}: differs from its plain version")
+        err = rel = 0.0
+    else:
+        g0, w0 = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        err, rel = rel_err(g0, w0)
+        require(torch.isfinite(g0.float()).all() and rel <= KERNEL_TOL, f"{name} rel err {rel}")
+    if same is not None:
+        require(fp8_equal(got, same), f"{name}: differs from the bf16 form on the upcast cache")
+    ms = cuda_event_ms(fp8_fn, iters=56)
+    bf16_ms = cuda_event_ms(bf16_fn, iters=56) if bf16_fn is not None else None
+    if plain_syncs:
+        plain = synced_ms(torch, lambda i: plain_fn(), plain_iters)
+    else:
+        plain = cuda_event_ms(lambda i: plain_fn(), iters=plain_iters)
+    lib = cuda_event_ms(lib_fn, iters=56) if lib_fn is not None else None
+    b, by = bound_ms(nbytes, ops)
+    return dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib, bf16_ms=bf16_ms, bit_equal_to_bf16_form=same is not None,
+                shape=shape)
+
+
+def fp8_store_line(torch):
+    """All 65,536 bf16 bit patterns through the write-only append into an
+    fp8 cache, byte for byte against ``kv_store_cast`` on the card and on
+    the CPU."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    fp8 = torch.float8_e4m3fn
+    x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(
+        torch.bfloat16).reshape(256, 2, 128)
+    want = A.kv_store_cast(x, fp8)
+    cache = A.kv_zeros((1, 256, 2, 4, 128), fp8, "cuda")
+    A.kv_cache_write_idx(cache, x, 0, torch.full((256,), 2, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    card = torch_equal_bytes(cache[0, :, :, 2], want)
+    cpu = torch_equal_bytes(want.cpu(), A.kv_store_cast(x.cpu(), fp8))
+    nan = int(torch.isnan(x.float()).sum())
+    sat = int(((x.float().abs() > A.FP8_MAX) & ~torch.isnan(x.float())).sum())
+    require(card and cpu, f"the fp8 store: kernel == kv_store_cast on the card {card}, "
+                          f"card == CPU {cpu}")
+    log(f"  fp8 store: all 65536 bf16 patterns through the write-only append equal "
+        f"kv_store_cast byte for byte on the card and on the CPU ({nan} NaN patterns stored "
+        f"0x7F, {sat} past +-448 saturated)")
+    return {"patterns": 65536, "equal_on_card": card, "card_equals_cpu": cpu,
+            "nan_patterns": nan, "saturated_patterns": sat}
+
+
+def check_fp8_attention(torch):
+    """Every attention kernel's fp8-cache form at the shapes of its bf16 row:
+    B3 / B9 (the fused append, B = 4 and 1, dense and paged), B4 (B = 4 and
+    1), B12, B5 (both forms), B10, B11 (S = 9), K1, K2, K3 (dense and
+    paged), and the store over every bf16 pattern."""
+    import torch.nn.functional as F
+
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf = torch.bfloat16
+    L, G, Hg, D = 28, 2, 16, 128
+    sm = 1.0 / math.sqrt(D)
+    out = {"store": fp8_store_line(torch)}
+    rows = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(bf)
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    def kv_bytes_read(n):  # K and V at one byte an element
+        return n * G * D * 2
+
+    # the dense cache of phase 2's B4 row: (L, 4, G, 1024, D)
+    B, T = len(PROMPT_LENGTHS), CACHE_LEN
+    (k8, k16), (v8, v16) = fp8_cache(torch, gen, (L, B, G, T, D)), \
+        fp8_cache(torch, gen, (L, B, G, T, D))
+    q = rnd(B, G, Hg, D)
+    lens = i32(1000, 600, 200, 0)
+    n = [min(int(x) + 1, T) for x in lens.tolist()]
+    mask = (torch.arange(T, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+
+    def lib_decode(qq, kk, vv, mm):
+        return lambda i: F.scaled_dot_product_attention(
+            qq.reshape(qq.shape[0], G * Hg, 1, D), kk[i % L].to(bf), vv[i % L].to(bf),
+            attn_mask=mm, scale=sm, enable_gqa=True)
+
+    for key, fn, plain in (("flash_attention_decode", A.flash_attention_decode,
+                            A.flash_attention_decode_plain),
+                           ("flash_attention_decode_v2", A.flash_attention_decode_v2,
+                            A.flash_attention_decode_v2_plain)):
+        rows[key + " fp8"] = fp8_row(
+            torch, key + " fp8", lambda i, fn=fn: fn(q, k8[i % L], v8[i % L], lens, sm),
+            lambda i, fn=fn: fn(q, k16[i % L], v16[i % L], lens, sm),
+            lambda plain=plain: plain(q, k8[0], v8[0], lens, sm),
+            2 * q.numel() * 2 + kv_bytes_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
+            lib_decode(q, k8, v8, mask),
+            f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} fp8 cache")
+    q1, l1 = q[:1].contiguous(), i32(140)
+    mask1 = (torch.arange(T, device="cuda") <= 140)[None, None, None, :]
+    rows["flash_attention_decode B=1 fp8"] = fp8_row(
+        torch, "flash_attention_decode B=1 fp8",
+        lambda i: A.flash_attention_decode(q1, k8[i % L][:1], v8[i % L][:1], l1, sm),
+        lambda i: A.flash_attention_decode(q1, k16[i % L][:1], v16[i % L][:1], l1, sm),
+        lambda: A.flash_attention_decode_plain(q1, k8[0][:1], v8[0][:1], l1, sm),
+        2 * q1.numel() * 2 + kv_bytes_read(141) + 4, 4.0 * 141 * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            q1.reshape(1, G * Hg, 1, D), k8[i % L][:1].to(bf), v8[i % L][:1].to(bf),
+            attn_mask=mask1, scale=sm, enable_gqa=True),
+        f"B=1 G={G} Hg={Hg} D={D} T={T} lengths=[140] fp8 cache")
+
+    # B5, whole prompts over the same cache
+    S = max(PROMPT_LENGTHS)
+    qp = rnd(B, S, G, Hg, D)
+    lp = i32(*PROMPT_LENGTHS)
+    pos = torch.arange(S, device="cuda")
+    pmask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lp[:, None, None]))
+    qsp = qp.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, S, D)
+    pairs = sum(min(s + 1, lb) for lb in PROMPT_LENGTHS for s in range(S))
+    rows["flash_attention_prefill fp8"] = fp8_row(
+        torch, "flash_attention_prefill fp8",
+        lambda i: A.flash_attention_prefill(qp, k8[i % L], v8[i % L], lp, sm),
+        lambda i: A.flash_attention_prefill(qp, k16[i % L], v16[i % L], lp, sm),
+        lambda: A.flash_attention_prefill_plain(qp, k8[0], v8[0], lp, sm),
+        2 * qp.numel() * 2 + kv_bytes_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
+        4.0 * pairs * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            qsp, k8[i % L][:, :, :S].to(bf), v8[i % L][:, :, :S].to(bf), attn_mask=pmask[:, None],
+            scale=sm, enable_gqa=True),
+        f"B={B} S={S} G={G} Hg={Hg} D={D} lengths={list(PROMPT_LENGTHS)} fp8 cache")
+
+    # B3 with the RoPE: bit-equal to its plain version (RoPE in bf16, then the store)
+    freqs_table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", bf)
+
+    def append_row(key, kk, vv, pt, st, shard=None):
+        Bq = st.shape[0]
+        qa = rnd(Bq, G, Hg, D)
+        kv = rnd(Bq, 2 * G * D)
+        fr = freqs_table[torch.tensor([5, 700, 1500, 2048], device="cuda")[:Bq]]
+        kr, vr = (t.view(torch.uint8).clone().view(torch.float8_e4m3fn) for t in (kk, vv))
+        kb, vb = kk.to(bf), vv.to(bf)  # a bf16 cache for the bf16 form's time
+
+        def run(i, k_, v_):
+            if shard is None:
+                return A.rope_kv_append(qa, kv, fr, k_, v_, i % L, st, pt)
+            return A.rope_kv_append_sharded(qa, kv, fr, k_, v_, i % L, st, shard, pt)
+
+        def plain():
+            if shard is None:
+                return A.rope_kv_append_plain(qa, kv, fr, kr, vr, 3, st, pt)
+            return A.rope_kv_append_sharded_plain(qa, kv, fr, kr, vr, 3, st, shard, pt)
+
+        got = run(3, kk, vv)
+        torch.cuda.synchronize()
+        want = plain()
+        require(torch.equal(got, want) and torch_equal_bytes(kk, kr) and
+                torch_equal_bytes(vv, vr), f"{key}: differs from its plain version")
+        nbytes = Bq * (2 * qa[0].numel() * 2 + kv[0].numel() * 2 + D * 2 + 2 * G * D + 4) \
+            + (0 if pt is None else Bq * 4)
+        row = fp8_row(torch, key, lambda i: run(i, kk, vv), None, plain, nbytes,
+                      6.0 * Bq * (G * Hg + G) * D / 2, None,
+                      f"q (B={Bq}, G={G}, Hg={Hg}, D={D}), fp8 "
+                      + (f"cache (L={L}, B={kk.shape[1]}, G={G}, T={kk.shape[3]}, D={D})"
+                         if pt is None else f"pool (L={L}, NP={kk.shape[1]}, G={G}, "
+                                            f"P={kk.shape[3]}, D={D}), MP={pt.shape[1]}")
+                      + f", starts {st.tolist()}" + ("" if shard is None else f", {shard}"),
+                      exact=True, plain_iters=14, plain_syncs=shard is not None)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 6.0 * Bq * (G * Hg + G) * D / 2,
+                                                    PEAK_F32_FLOPS)
+        from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+        row["bf16_ms"] = cuda_event_ms(lambda i: run(i, kb, vb), iters=56)
+        del kb, vb, kr, vr
+        return row
+
+    rows["rope_kv_append fp8"] = append_row("rope_kv_append fp8", k8, v8, None,
+                                            i32(T - 1, T, T + 5, 2))
+    k1, v1 = (fp8_cache(torch, gen, (L, 1, G, T, D))[0] for _ in range(2))
+    rows["rope_kv_append B=1 fp8"] = append_row("rope_kv_append B=1 fp8", k1, v1, None, i32(140))
+    del k1, v1
+
+    # B5's chunked form: 4 compact rows x 256 against a 2048-slot cache
+    Sc = 256
+    (c8, c16), (d8, d16) = fp8_cache(torch, gen, (L, B, G, SEQ, D)), \
+        fp8_cache(torch, gen, (L, B, G, SEQ, D))
+    qc = rnd(B, Sc, G, Hg, D)
+    cstarts = i32(768, 512, 256, 0)
+    clens = cstarts + i32(256, 256, 200, 256)
+    rmap = i32(2, 0, 3, 1)
+    qpos = cstarts.long()[:, None] + torch.arange(Sc, device="cuda")[None, :]
+    cols = torch.arange(SEQ, device="cuda")[None, None, :]
+    cmask = (cols <= qpos[:, :, None]) & (cols < clens.long()[:, None, None])
+    qcs = qc.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, Sc, D)
+    kv_rows = sum(min(int(ln), int(st) + Sc) for st, ln in zip(cstarts.tolist(), clens.tolist()))
+    cpairs = sum(min(st + t + 1, ln) for st, ln in zip(cstarts.tolist(), clens.tolist())
+                 for t in range(Sc))
+    rows["flash_attention_prefill_chunk fp8"] = fp8_row(
+        torch, "flash_attention_prefill_chunk fp8",
+        lambda i: A.flash_attention_prefill_chunk(qc, c8[i % L], d8[i % L], clens, cstarts, sm,
+                                                  rmap),
+        lambda i: A.flash_attention_prefill_chunk(qc, c16[i % L], d16[i % L], clens, cstarts, sm,
+                                                  rmap),
+        lambda: A.flash_attention_prefill_plain(qc, c8[0], d8[0], clens, sm, cstarts, rmap),
+        2 * qc.numel() * 2 + kv_bytes_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            qcs, c8[i % L].to(bf)[rmap.long()], d8[i % L].to(bf)[rmap.long()],
+            attn_mask=cmask[:, None], scale=sm, enable_gqa=True),
+        f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
+        f"lengths={clens.tolist()} kv_row_map={rmap.tolist()} fp8 cache")
+    del c8, c16, d8, d16, k16, v16
+
+    # K1 on shard 0 of phase 8's 8192-slot cache (4096 a rank): the first
+    # 4096 slots of a fresh fp8 cache
+    Tl = SHARD_T // SHARD_TP
+    (s8, s16), (t8, t16) = fp8_cache(torch, gen, (L, B, G, Tl, D)), \
+        fp8_cache(torch, gen, (L, B, G, Tl, D))
+    slen = i32(*SHARD_LENGTHS)
+    sn = [max(0, min(int(x) + 1, Tl)) for x in SHARD_LENGTHS]
+    smask = (torch.arange(Tl, device="cuda")[None, :] <= slen[:, None])[:, None, None, :]
+    rows["flash_attention_decode_lse fp8"] = fp8_row(
+        torch, "flash_attention_decode_lse fp8",
+        lambda i: A.flash_attention_decode_lse(q, s8[i % L], t8[i % L], slen, sm, 0),
+        lambda i: A.flash_attention_decode_lse(q, s16[i % L], t16[i % L], slen, sm, 0),
+        lambda: A.flash_attention_decode_lse_plain(q, s8[0], t8[0], slen, sm, 0),
+        2 * q.numel() * 2 + kv_bytes_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
+        4.0 * sum(sn) * G * Hg * D, lib_decode(q, s8, t8, smask),
+        f"B={B} G={G} Hg={Hg} D={D} shard 0 of T={SHARD_T} (T_local={Tl}) "
+        f"lengths={list(SHARD_LENGTHS)} fp8 cache")
+    rows["rope_kv_append_sharded fp8"] = append_row(
+        "rope_kv_append_sharded fp8", s8, t8, None, i32(100, Tl - 1, Tl, SHARD_T + 3),
+        A.KVShard(offset=0, total=SHARD_T))
+    del s8, s16, t8, t16, k8, v8
+
+    # the pool of phase 2's paged rows: (L, 64, G, 256, D), 2048-slot rows
+    MP = SEQ // PAGE
+    (p8, p16), (w8, w16) = fp8_cache(torch, gen, (L, POOL_PAGES, G, PAGE, D)), \
+        fp8_cache(torch, gen, (L, POOL_PAGES, G, PAGE, D))
+    pt = (torch.randperm(POOL_PAGES - 1, device="cuda", generator=gen)[: B * MP] + 1
+          ).reshape(B, MP).to(torch.int32)
+    plens = i32(*PAGED_LENGTHS)
+    pn = [min(x + 1, MP * PAGE) for x in PAGED_LENGTHS]
+    dmask = (torch.arange(MP * PAGE, device="cuda")[None, :] <= plens[:, None])[:, None, None]
+
+    def lib_paged(qq, mm):
+        def call(i):
+            kd = A.gather_pages(p8[i % L], pt).to(bf)
+            vd = A.gather_pages(w8[i % L], pt).to(bf)
+            if qq.dim() == 4:
+                qs = qq.reshape(qq.shape[0], G * Hg, 1, D)
+            else:
+                qs = qq.permute(0, 2, 3, 1, 4).reshape(qq.shape[0], G * Hg, qq.shape[1], D)
+            return F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mm, scale=sm,
+                                                  enable_gqa=True)
+        return call
+
+    rows["flash_attention_decode_paged fp8"] = fp8_row(
+        torch, "flash_attention_decode_paged fp8",
+        lambda i: A.flash_attention_decode_paged(q, p8, w8, i % L, pt, plens, sm),
+        lambda i: A.flash_attention_decode_paged(q, p16, w16, i % L, pt, plens, sm),
+        lambda: A.flash_attention_decode_paged_plain(q, p8, w8, 0, pt, plens, sm),
+        2 * q.numel() * 2 + kv_bytes_read(sum(pn)) + B * MP * 4 + B * 4,
+        4.0 * sum(pn) * G * Hg * D, lib_paged(q, dmask),
+        f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)} fp8 pool")
+    S9 = 9
+    q9 = rnd(B, S9, G, Hg, D)
+    qpos9 = plens.long()[:, None] + torch.arange(S9, device="cuda")[None, :]
+    cmask9 = (torch.arange(MP * PAGE, device="cuda")[None, None, :] <= qpos9[:, :, None])
+    rows9 = [min(st + S9, MP * PAGE) for st in PAGED_LENGTHS]
+    pairs9 = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S9))
+    rows["flash_attention_chunk_paged S=9 fp8"] = fp8_row(
+        torch, "flash_attention_chunk_paged S=9 fp8",
+        lambda i: A.flash_attention_chunk_paged(q9, p8, w8, i % L, pt, plens, sm),
+        lambda i: A.flash_attention_chunk_paged(q9, p16, w16, i % L, pt, plens, sm),
+        lambda: A.flash_attention_chunk_paged_plain(q9, p8, w8, 0, pt, plens, sm),
+        2 * q9.numel() * 2 + kv_bytes_read(sum(rows9)) + B * MP * 4 + B * 4,
+        4.0 * pairs9 * G * Hg * D, lib_paged(q9, cmask9[:, None]),
+        f"B={B} S={S9} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} fp8 pool")
+    cap = MP * PAGE
+    rows["rope_kv_append paged fp8"] = append_row("rope_kv_append paged fp8", p8, w8, pt,
+                                                  i32(cap - 1, cap, cap + 100, 5))
+    # K2 / K3 on phase 0 of a stride-2 local table: the table's even columns
+    half = pt[:, ::2].contiguous()
+    rows["flash_attention_decode_paged_lse fp8"] = fp8_row(
+        torch, "flash_attention_decode_paged_lse fp8",
+        lambda i: A.flash_attention_decode_paged_lse(q, p8, w8, i % L, half, plens, sm, 2, 0),
+        lambda i: A.flash_attention_decode_paged_lse(q, p16, w16, i % L, half, plens, sm, 2, 0),
+        lambda: A.flash_attention_decode_paged_lse_plain(q, p8, w8, 0, half, plens, sm, 2, 0),
+        2 * q.numel() * 2 + kv_bytes_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
+        4.0 * sum(pn) / 2 * G * Hg * D, None,
+        f"B={B} G={G} Hg={Hg} D={D} P={PAGE}, phase 0 of a stride-2 table (B, {MP // 2}), "
+        f"lengths={list(PAGED_LENGTHS)} fp8 pool")
+    rows["rope_kv_append_sharded paged fp8"] = append_row(
+        "rope_kv_append_sharded paged fp8", p8, w8, half, i32(100, PAGE + 3, cap - 1, cap + 9),
+        A.KVShard(stride=2, phase=0, total=cap))
+    del p8, p16, w8, w16
+    width = max(len(k) for k in rows)
+    for k, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms (bf16 form "
+            f"{r['bf16_ms']:.4f} ms)  bound {r['bound_ms']:.6f} ms ({r['bound_by']})  plain "
+            f"{r['plain_ms']:.4f} ms  cast + SDPA {lib}  "
+            f"{'= bf16 form on the upcast cache' if r['bit_equal_to_bf16_form'] else '= plain'}"
+            f"  [{r['shape']}]")
+    out.update(rows)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fp8 cache end to end: phases 5, 6 and 8, and a long-context step
+# ---------------------------------------------------------------------------
+
+FP8_REL_TOL = 0.15  # JAX's own limit on fp8-cache logits (tests/test_attention.py:168)
+
+
+def fp8_logit_drift(torch, params, cfg, ids, rt):
+    """max|Δlogits| / max|logits| of the first decode step after the chat
+    prompt's prefill over an fp8 cache against a bf16 one (the same input
+    token: the bf16 run's greedy token)."""
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    bf = torch.bfloat16
+    prompt = torch.tensor([ids], device="cuda")
+    lengths = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    out, tok = [], None
+    for dt in (bf, torch.float8_e4m3fn):
+        cache = M.init_kv_cache(cfg, 1, CACHE_LEN, dt)
+        logits, cache = M.prefill(params, cfg, prompt, lengths, cache, "int4g32", bf, rt)
+        tok = torch.argmax(logits, -1).to(torch.int32) if tok is None else tok
+        out.append(M.decode_step(params, cfg, tok, cache, "int4g32", bf, rt)[0].float())
+        del cache
+    return ((out[1] - out[0]).abs().max() / out[0].abs().max()).item()
+
+
+def chat_fp8(torch, smi, params, cfg, tokenizer, prompt, ids, bf16_decoder):
+    """Phase 5's fp8 run: ``GLMDecoder(kv_dtype=torch.float8_e4m3fn)`` on the
+    28-layer int4g32 tree, the chat prompt, 32 greedy tokens, captured and
+    eager (equal texts); every token within GREEDY_GAP_TOL of the argmax of
+    the plain path (``use_kernels=False``) over the same fp8 cache; the
+    first decode step's logits against the bf16 cache's within JAX's 0.15;
+    ms a token beside the bf16 decoder's, in turns."""
+    from types import SimpleNamespace
+
+    from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import GLMDecoder
+
+    fp8 = torch.float8_e4m3fn
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    rt, eager = TorchRuntimeConfig(), TorchRuntimeConfig(cuda_graphs=False)
+    dec = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt, kv_dtype=fp8)
+    dec_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=eager,
+                           kv_dtype=fp8)
+    ops.reset_launch_counts()
+    _, final, _ = run_generate(dec, prompt)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    step = M.decode_program(params, cfg, dec._free_caches[0][0], "int4g32", torch.bfloat16, rt)
+    require(dec._free_caches[0][0].k.dtype == fp8 and step.graph is not None
+            and step.replays >= CHAT_TOKENS - 3,
+            f"int4g32 fp8: the decode step was not replayed from a graph ({step.replays})")
+    _, final_eager, _ = run_generate(dec_eager, prompt)
+    require(final_eager == final, f"int4g32 fp8: the captured decoder's text differs from the "
+                                  f"eager one's: {final[:60]!r} / {final_eager[:60]!r}")
+    for k in ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill"):
+        require(counts[k + "_fp8"] > 0 and counts[k + "_fp8"] == counts[k],
+                f"int4g32 fp8: {k} launched {counts[k]} times, {counts[k + '_fp8']} in fp8")
+    # the tokens: the model-level loop over an fp8 cache gives the decoder's text
+    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, fp8)
+    logits, cache = M.prefill(params, cfg, torch.tensor([ids], device="cuda"),
+                              torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), cache,
+                              "int4g32", torch.bfloat16, rt)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    toks, _ = M.multi_step_decode(params, cfg, first, cache, CHAT_TOKENS - 1, None, "int4g32",
+                                  torch.bfloat16, rt)
+    out = [int(first[0])] + toks[0].tolist()
+    del cache
+    plain = TorchRuntimeConfig(use_kernels=False, use_flash_attention=True, cuda_graphs=False)
+    gaps = greedy_gaps(torch, params, cfg, [SimpleNamespace(generated=out)],
+                       [(ids, dict(temperature=0.0))], cache_len=CACHE_LEN, kv_dtype=fp8,
+                       rt=plain)
+    require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
+            f"int4g32 fp8: greedy gap {gaps['f32'][0]} against the plain path over the fp8 "
+            f"cache (shifted control {gaps['f32'][1]})")
+    drift = fp8_logit_drift(torch, params, cfg, ids, rt)
+    require(drift <= FP8_REL_TOL, f"int4g32 fp8: logits {drift} from the bf16 cache's")
+    tok_ms = {"bf16": [], "fp8": []}
+    for turn, d in (("bf16", bf16_decoder), ("fp8", dec), ("fp8", dec), ("bf16", bf16_decoder)):
+        tok_ms[turn].append(run_generate(d, prompt)[2])
+    log(f"  int4g32 fp8 cache: GLMDecoder.generate captured = eager ({len(out)} tokens): "
+        f"{final[:60]!r}; greedy gap f32 against the plain path over the fp8 cache "
+        f"{gaps['f32'][0]:.4e} (shifted control {gaps['f32'][1]:.3e}); the first decode step's "
+        f"max|dlogits| / max|logits| against the bf16 cache {drift:.4e} (limit {FP8_REL_TOL})")
+    log(f"  int4g32 GLMDecoder ms a token in turns: bf16 cache {tok_ms['bf16'][0]:.3f}, fp8 "
+        f"{tok_ms['fp8'][0]:.3f} / {tok_ms['fp8'][1]:.3f}, bf16 {tok_ms['bf16'][1]:.3f}  [{smi}]")
+    log(f"  int4g32 fp8 launch counts of the generate run: "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del dec, dec_eager
+    return counts, {"gaps": gaps, "logit_drift_vs_bf16": drift, "ms_per_token_turns": tok_ms,
+                    "replays": step.replays, "text": final[:80]}
+
+
+def engines_fp8(torch, smi, params, cfg, load, a_reqs, b_reqs, short, seed):
+    """Phase 6 over an fp8 pool: (a8) (a)'s engine (chunked admission, the
+    prefix cache, the top-p row) and (b8) in-loop speculation (k = 8) with
+    chunked admission, whose verify steps read the pool through B11.  Each:
+    budgets, page accounting, the fp8 forms launched (B3 / B4 never), every
+    greedy token within GREEDY_GAP_TOL of the dense ``prefill_chunk`` over an
+    fp8 cache, tok/s and the busy share of a decode-only step."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig
+    from chatglm_q_tpu_torch.serving import PagedServingEngine
+
+    fp8 = torch.float8_e4m3fn
+    rt = TorchRuntimeConfig()
+    out, counts = {}, {}
+    makers = {
+        "a8": lambda: PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                                         prefill_chunk_size=PAGE, prefix_cache=True, rt=rt,
+                                         seed=seed + 3, kv_dtype=fp8, **ENGINE_KW),
+        "b8": lambda: PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                                         prefill_chunk_size=PAGE, speculative_k=8,
+                                         speculative_ngram=3, rt=rt, kv_dtype=fp8, **ENGINE_KW)}
+    names = {"a8": "(a8) paged, chunked + prefix cache, fp8 pool",
+             "b8": "(b8) paged, chunked, speculative k=8, fp8 pool"}
+    for run, reqs in (("a8", a_reqs), ("b8", b_reqs)):
+        eng = makers[run]()
+        require(eng.cache.k_pool.dtype == fp8, f"({run}) the pool is {eng.cache.k_pool.dtype}")
+        done, res = drive(torch, eng, reqs, names[run])
+        require(eng.pages_in_use == 0, f"({run}): {eng.pages_in_use} pages in use after the drain")
+        if run == "a8":
+            require(eng.stats["prefix_hits"] > 0, "(a8): no prefix hit")
+            eng.clear_prefix_cache()
+            require(len(eng._free_pages) == POOL_PAGES - 1,
+                    f"(a8): {len(eng._free_pages)} pages free after clearing the prefix cache")
+        c = res["launches"]
+        # (b8)'s every decode chunk verifies: B11, no B9 append
+        want = (("rope_kv_append", "flash_attention_decode_paged", "flash_attention_prefill_chunk")
+                if run == "a8" else ("flash_attention_chunk_paged", "flash_attention_prefill_chunk"))
+        for kern in want:
+            require(c[kern + "_fp8"] > 0 and c[kern + "_fp8"] == c[kern],
+                    f"({run}): {kern} launched {c[kern]} times, {c[kern + '_fp8']} in fp8")
+        require(c["kv_cache_write_idx"] == 0 and c["flash_attention_decode"] == 0,
+                f"({run}) launched B3/B4")
+        if run == "b8":
+            require(eng.stats["spec_accepted"] > 0, "(b8): no drafted token accepted")
+        busy_reqs = short if run == "a8" else [(p, {**kw, "max_new_tokens": 256})
+                                               for p, kw in reqs]
+        res["busy"] = chunk_busy(torch, eng, busy_reqs, f"({run})")
+        del eng
+        res["gaps"] = greedy_gaps(torch, params, cfg, done, reqs, kv_dtype=fp8)
+        g = res["gaps"]["f32"]
+        require(g[0] <= GREEDY_GAP_TOL and g[1] > GREEDY_GAP_TOL,
+                f"({run}): greedy gap {g[0]} against the dense fp8-cache prefill_chunk "
+                f"(shifted control {g[1]})")
+        log(f"    ({run}) greedy gap f32 {g[0]:.4e} (shifted control {g[1]:.3e}); "
+            f"{res['tok_per_s']:.1f} tok/s, busy share of a decode-only step "
+            f"{100 * res['busy']['busy_share']:.1f}%; spec accepted "
+            f"{res['stats'].get('spec_accepted')}  [{smi}]")
+        out[run] = res
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, out
+
+
+def long_context_fp8(torch, smi, params, cfg):
+    """A decode step at long context: int4g32, 28 layers, batch 32 over an
+    8192-slot cache at lengths near 8000, K/V random and written through
+    the store (no 8K prefill: only time is read).  The captured step timed
+    with a bf16 cache, an fp8 cache and an fp8 cache under
+    ``decode_attn_v2`` (B12), in turns in this process; each step's traced
+    device ms and the decode attention's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    B, T, steps = LONG_BATCH, LONG_T, 8
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lengths = (LONG_T - 200 + torch.randint(0, 64, (B,), device="cuda", generator=gen)
+               ).to(torch.int32)
+    ids = torch.randint(3, 65000, (B,), device="cuda", generator=gen).to(torch.int32)
+    fp8, bf = torch.float8_e4m3fn, torch.bfloat16
+    caches = {}
+    for dt in (bf, fp8):
+        c = M.init_kv_cache(cfg, B, T, dt)
+        for t in (c.k, c.v):
+            for layer in range(cfg.num_layers):
+                A.kv_put(t[layer], (slice(None),), torch.randn(t.shape[1:], device="cuda",
+                                                               generator=gen, dtype=bf))
+        caches[dt] = c
+    torch.cuda.synchronize()
+    kinds = {"bf16": (bf, TorchRuntimeConfig()), "fp8": (fp8, TorchRuntimeConfig()),
+             "fp8 decode_attn_v2": (fp8, TorchRuntimeConfig(decode_attn_v2=True))}
+    progs = {}
+    for name, (dt, rt) in kinds.items():
+        c = caches[dt]
+        prog = M.decode_program(params, cfg, c, "int4g32", bf, rt)
+        progs[name] = prog
+        prog.load(ids=ids, lengths=lengths)
+        ops.reset_launch_counts()
+        prog.run(3, params, c.k, c.v)  # the warm-up step, the capture, a replay
+        torch.cuda.synchronize()
+        require(prog.graph is not None, f"long context {name}: the step was not captured")
+
+    def timed(name):
+        dt = kinds[name][0]
+        prog = progs[name]
+        prog.load(ids=ids, lengths=lengths)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.run(steps, params, caches[dt].k, caches[dt].v)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    order = ["bf16", "fp8", "fp8 decode_attn_v2", "fp8 decode_attn_v2", "fp8", "bf16"]
+    turns = {k: [] for k in kinds}
+    for name in order:
+        turns[name].append(timed(name))
+    res, counts = {"turns_ms_per_step": turns}, {}
+    for name in kinds:
+        dt = kinds[name][0]
+        prog = progs[name]
+        prog.load(ids=ids, lengths=lengths)
+        ops.reset_launch_counts()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prog.run(steps, params, caches[dt].k, caches[dt].v)
+            torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        dev = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+        attn = sum(e.self_device_time_total for e in ev if "decode_attn_kernel" in e.key) \
+            / 1e3 / steps
+        res[name] = {"device_ms_per_step": dev, "decode_attn_ms_per_step": attn,
+                     "decode_attn_share": attn / dev}
+    n_rows = int((lengths.long() + 1).sum())
+    att_bytes = {bf: n_rows * cfg.num_multi_query_groups * cfg.head_hidden_size * 2 * 2,
+                 fp8: n_rows * cfg.num_multi_query_groups * cfg.head_hidden_size * 2}
+    for name in kinds:
+        nb = att_bytes[kinds[name][0]] * cfg.num_layers
+        res[name]["attention_bytes_per_step"] = nb
+        res[name]["attention_bound_ms"] = nb / PEAK_HBM_BYTES_PER_S * 1e3
+        log(f"  long context ({name} cache): batch {B}, {T}-slot cache, lengths "
+            f"{int(lengths.min())}-{int(lengths.max())}, 28 layers: captured step "
+            + " / ".join(f"{x:.3f}" for x in turns[name]) + " ms (host, in turns); traced "
+            f"device {res[name]['device_ms_per_step']:.3f} ms a step, decode_attn_kernel "
+            f"{res[name]['decode_attn_ms_per_step']:.3f} ms "
+            f"({100 * res[name]['decode_attn_share']:.1f}%; its K/V bytes at the HBM rate "
+            f"{res[name]['attention_bound_ms']:.3f} ms)  [{smi}]")
+    req = {"fp8": "flash_attention_decode_fp8", "fp8 decode_attn_v2": "flash_attention_decode_v2_fp8"}
+    for name, kern in req.items():
+        require(counts[name][kern] == cfg.num_layers * steps,
+                f"long context {name}: {kern} launched {counts[name][kern]} times")
+    res["cache_bytes"] = {str(dt): caches[dt].k.numel() * caches[dt].k.element_size() * 2
+                          for dt in caches}
+    del caches, progs
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out):
+    """Phase 8's runs over an fp8 cache: (a8) the T-sharded cache (K3 writes,
+    K1 over each shard, the merge) and (b8) the model-sharded pool (K3, K2),
+    both with chunked admission, 16 tokens a request.  The ranks
+    token-equal, every request within its budget, K1 / K2 and K3 once a
+    layer a decode step on every rank and all of them fp8 forms, the
+    unsharded forms never, no page in use after (b8)'s drain; every greedy
+    token within GREEDY_GAP_TOL of the single-device dense ``prefill_chunk``
+    over an fp8 cache, the shifted stream not.  Returns the fp8 forms'
+    launches on rank 0."""
+    from types import SimpleNamespace
+
+    counts = {}
+    kinds = {"a8": "a", "b8": "b"}
+    for run in (k for k in kinds if k in prompts):
+        reqs, r0 = prompts[run], ranks[0][run]
+        require(all(r[run]["tokens"] == r0["tokens"] for r in ranks),
+                f"phase 8 ({run}): the ranks' tokens differ")
+        require(len(r0["tokens"]) == len(reqs) and all(
+            0 < len(t) <= kw["max_new_tokens"] for t, (_, kw) in zip(r0["tokens"], reqs)),
+            f"phase 8 ({run}): unfinished or over budget: {[len(t) for t in r0['tokens']]}")
+        for i, r in enumerate(ranks):
+            c, steps = r[run]["counts"], r[run]["decode_steps"]
+            for kern in SHARDED_DECODE[kinds[run]]:
+                require(c[kern] == cfg.num_layers * steps and c[kern + "_fp8"] == c[kern],
+                        f"phase 8 ({run}) rank {i}: {kern} launched {c[kern]} times "
+                        f"({c[kern + '_fp8']} fp8) in {steps} decode steps")
+            bad = {k: c[k] for k in UNSHARDED_DECODE if c[k]}
+            require(not bad, f"phase 8 ({run}) rank {i}: launched unsharded decode forms {bad}")
+            require(r[run].get("pages_in_use", 0) == 0,
+                    f"phase 8 ({run}) rank {i}: pages in use after the drain")
+        done = [SimpleNamespace(generated=t) for t in r0["tokens"]]
+        gaps = greedy_gaps(torch, params, cfg, done, reqs,
+                           cache_len=max(len(p) for p, _ in reqs) + SHARD_FP8_TOKENS,
+                           kv_dtype=torch.float8_e4m3fn)
+        require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
+                f"phase 8 ({run}): greedy gap {gaps['f32'][0]} against the fp8-cache reference "
+                f"(shifted control {gaps['f32'][1]})")
+        per_step = {k: r0["counts"][k + "_fp8"] / r0["decode_steps"]
+                    for k in SHARDED_DECODE[kinds[run]]}
+        out[run] = {"gaps": gaps, "decode_steps": r0["decode_steps"],
+                    "launches_per_decode_step_fp8": per_step,
+                    "wall_s": [r[run]["wall_s"] for r in ranks],
+                    "decode_ms_per_step_median": [r[run]["decode_ms_per_step_median"]
+                                                  for r in ranks],
+                    "counts": {k: v for k, v in r0["counts"].items() if v}, "stats": r0["stats"]}
+        log(f"  ({run}) fp8 {'cache' if run == 'a8' else 'pool'}: {len(reqs)} requests, "
+            f"{sum(len(t) for t in r0['tokens'])} tokens on {tp} ranks ({backend}) in "
+            f"{out[run]['wall_s'][0]:.1f} s, ranks token-equal; fp8 launches a decode step "
+            f"{json.dumps(per_step)}; greedy gap f32 {gaps['f32'][0]:.4e} against the "
+            f"fp8-cache reference, shifted control {gaps['f32'][1]:.3e}  [{smi}]")
+        for k in SHARDED_DECODE[kinds[run]]:
+            name = k + (" paged" if run == "b8" and k == "rope_kv_append_sharded" else "")
+            counts[name + " fp8"] = r0["counts"][k + "_fp8"]
+    return counts
+
+
+LONG_BATCH, LONG_T = 32, 8192  # the long-context step: batch 32 over an 8192-slot cache
+
+
+def fp8_slice(torch, smi):
+    """``--fp8``: phase 2's fp8 rows and the fp8 runs of phases 5, 6 and 8
+    and the long-context step, on their own."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+
+    rows = check_fp8_attention(torch)
+    cfg = ChatGLM2Config()
+    params = random_quantized_params(cfg, "int4g32", torch.Generator(device="cuda").manual_seed(41))
+    tokenizer = chat_tokenizer()
+    prompt = chat_template([], CHAT_QUESTION)
+    ids = tokenizer.encode(prompt)
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                         rt=TorchRuntimeConfig())
+    run_generate(decoder, prompt)  # its programs captured before the turns
+    chat_counts, chat = chat_fp8(torch, smi, params, cfg, tokenizer, prompt, ids, decoder)
+    del decoder
+    a_reqs, b_reqs = engine_prompts(torch, 61)
+    short = [(p[:128], {**kw, "temperature": 0.0, "max_new_tokens": 256})
+             for p, kw in a_reqs[:4]]
+    engine_counts, engines = engines_fp8(torch, smi, params, cfg, load, a_reqs, b_reqs, short, 61)
+    long_counts, long = long_context_fp8(torch, smi, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    sharded_counts, sharded = sharded_slice(torch, smi, runs=("a8", "b8"))
+    return {"rows": rows, "chat": chat, "engines": engines, "long_context": long,
+            "sharded": sharded,
+            "counts": {"chat": {k: v for k, v in chat_counts.items() if v},
+                       "engines": {k: v for k, v in engine_counts.items() if v},
+                       "sharded": sharded_counts,
+                       "long_context": {k: {n: v for n, v in c.items() if v}
+                                        for k, c in long_counts.items()}}}
+
+
 def main() -> int:
     import torch
 
@@ -5733,6 +6495,13 @@ def main() -> int:
         log("detail: " + json.dumps({"card": smi, "quant_2_layers": quant_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--fp8" in sys.argv:  # the fp8 cache's rows and runs alone
+        phase("== the float8_e4m3fn KV cache: phase 2's fp8 rows, the fp8 runs of phases 5, 6 "
+              "and 8, the long-context step")
+        res = fp8_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "fp8": res}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     phase("== phase 2: kernels against their plain versions (bf16, main-path shapes)")
     mm_rows, crossover, splitk_crossover = check_matmul(torch)
@@ -5744,6 +6513,10 @@ def main() -> int:
     att.update(check_paged_attention(torch))
     att["edge_cases_max_rel_err"] = check_attention_edges(torch)
     att.update(check_sharded_attention(torch))
+    phase("== phase 2 (fp8 cache): every attention kernel's float8_e4m3fn form")
+    att_fp8 = check_fp8_attention(torch)
+    att["fp8_store"] = att_fp8.pop("store")
+    att.update(att_fp8)
 
     phase("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -5855,6 +6628,28 @@ def main() -> int:
         ("gptq_sweep_int4", gq, f"{jg}:141", {**sweep_entries["int4"], "library_ms": None},
          quant_counts["int4g32"]),
     ]
+    # the fp8-cache forms: launches from the runs over an fp8 cache (phase 5's
+    # GLMDecoder, phase 6's (a8) / (b8) and long-context step, phase 8's (a8) / (b8))
+    cf = chat_counts["int4g32 fp8"]
+    fp8_runs = {"rope_kv_append fp8": cf["rope_kv_append_fp8"],
+                "flash_attention_decode fp8": cf["flash_attention_decode_fp8"],
+                "flash_attention_prefill fp8": cf["flash_attention_prefill_fp8"],
+                **{k: v for k, v in engine_counts.items() if k.endswith(" fp8")},
+                **{k: v for k, v in sharded_counts.items() if k.endswith(" fp8")}}
+    for name, line, row in (
+            ("rope_kv_append fp8", 427, "rope_kv_append fp8"),
+            ("flash_attention_decode fp8", 207, "flash_attention_decode fp8"),
+            ("flash_attention_decode_v2 fp8", 662, "flash_attention_decode_v2 fp8"),
+            ("flash_attention_prefill fp8", 43, "flash_attention_prefill fp8"),
+            ("flash_attention_prefill_chunk fp8", 43, "flash_attention_prefill_chunk fp8"),
+            ("rope_kv_append paged fp8", 480, "rope_kv_append paged fp8"),
+            ("flash_attention_decode_paged fp8", 787, "flash_attention_decode_paged fp8"),
+            ("flash_attention_chunk_paged fp8", 951, "flash_attention_chunk_paged S=9 fp8"),
+            ("flash_attention_decode_lse fp8", 207, "flash_attention_decode_lse fp8"),
+            ("flash_attention_decode_paged_lse fp8", 787, "flash_attention_decode_paged_lse fp8"),
+            ("rope_kv_append_sharded fp8", 427, "rope_kv_append_sharded fp8"),
+            ("rope_kv_append_sharded paged fp8", 480, "rope_kv_append_sharded paged fp8")):
+        specs.append((name, att_src, f"{pa}:{line}", att[row], fp8_runs))
     entries = []
     for name, src, replaces, r, run_counts in specs:
         require(run_counts[name] > 0, f"{name}: no launch on its main-path run")
@@ -5872,6 +6667,8 @@ def main() -> int:
             entries[-1]["kernel"] = CUDA_KERNEL[name]
         if "old_path_ms" in r:
             entries[-1]["old_path_ms"] = r["old_path_ms"]
+        if r.get("bf16_ms") is not None:  # an fp8 form: its bf16 form's time beside it
+            entries[-1]["bf16_form_ms"] = r["bf16_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "dyn_division": dyn_division,

@@ -10,7 +10,10 @@ the tile, f32 activations for the matmuls, fewer heads per group, the M
 where a matmul switches from its split-K kernel to its tensor-core kernel,
 and an all-zero activation row (the 1e-10 clamp of the dynamic scale).
 B7 (``int8_dyn_matmul``) is held bit-exact: its int32 sums are exact.  The
-attention kernels and the KV write take bf16 only.  The tolerance is the
+attention kernels and the KV write take bf16 activations over a bf16 or
+float8_e4m3fn cache; each fp8 form is bit-equal to its bf16 form on the
+upcast cache, and the cast on write byte-equal to ``kv_store_cast``.  The
+tolerance is the
 bf16 one of chip_smoke.py (1e-2 of max|plain|; f32 1e-5): kernels and plain
 versions sum the same exact products in another order.
 """
@@ -2166,3 +2169,280 @@ def test_a_recorded_plan_reaches_the_launch(gen, tmp_path, monkeypatch):
             assert _rel(got, QM.int4g32_matmul_plain(x, packed, scale)) <= 1e-2
     finally:
         AT.reload()
+
+
+# ---------------------------------------------------------------------------
+# The float8_e4m3fn cache: every attention kernel's fp8 form
+# ---------------------------------------------------------------------------
+
+FP8 = torch.float8_e4m3fn
+
+
+def _fp8(gen, shape, scale=1.0):
+    """A random fp8 cache tensor (through the port's store) and its exact
+    bf16 upcast."""
+    x = torch.randn(shape, device="cuda", generator=gen) * scale
+    k8 = A.kv_store_cast(x, FP8)
+    return k8, k8.to(torch.bfloat16)
+
+
+def _bytes_equal(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_fp8_store_on_the_card_equals_kv_store_cast_over_every_bf16_pattern(gen):
+    """All 65,536 bf16 patterns (NaN, inf, past ±448, subnormals, ±0)
+    through the write-only append (B3) and the fused append's v (B9's
+    pool), byte for byte against ``kv_store_cast`` on the card and on the
+    CPU."""
+    bits = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16)
+    x = bits.view(torch.bfloat16).reshape(256, 2, 128)
+    want = A.kv_store_cast(x, FP8)
+    assert _bytes_equal(want.cpu(), A.kv_store_cast(x.cpu(), FP8))
+    cache = A.kv_zeros((2, 256, 2, 4, 128), FP8, "cuda")
+    starts = torch.full((256,), 3, dtype=torch.int32, device="cuda")
+    before = A.kv_cache_write_idx.fp8.launches
+    A.kv_cache_write_idx(cache, x, 1, starts)
+    torch.cuda.synchronize()
+    assert A.kv_cache_write_idx.fp8.launches == before + 1
+    assert _bytes_equal(cache[1, :, :, 3], want)
+    assert not cache[0].view(torch.uint8).any() and not cache[1, :, :, :3].view(torch.uint8).any()
+    # the fused append's v half (v is not rotated) into a pool of one page a row
+    q = torch.zeros((256, 2, 16, 128), dtype=torch.bfloat16, device="cuda")
+    kv = torch.cat([torch.zeros_like(x), x], dim=1).reshape(256, 512)
+    freqs = torch.zeros((256, 128), dtype=torch.bfloat16, device="cuda")
+    kp, vp = (A.kv_zeros((1, 257, 2, 16, 128), FP8, "cuda") for _ in range(2))
+    pt = torch.arange(1, 257, dtype=torch.int32, device="cuda")[:, None]
+    A.rope_kv_append(q, kv, freqs, kp, vp, 0, torch.full((256,), 5, dtype=torch.int32,
+                                                          device="cuda"), pt)
+    torch.cuda.synchronize()
+    assert _bytes_equal(vp[0, 1:, :, 5], want)
+
+
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "paged", "chunk", "prefill"])
+def test_fp8_read_is_exact_for_all_256_bytes(gen, kind):
+    """V slot 0 of two groups holds all 256 bytes, K is 0, one valid slot:
+    p = 1 exactly, so each head outputs its group's V row as the kernel
+    read it: the exact upcast of every non-NaN byte (subnormals included),
+    NaN where the byte is NaN."""
+    B, G, Hg, D, T = 1, 2, 4, 128, 64
+    v8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    v8.view(torch.uint8)[0, :, 0] = torch.arange(256, device="cuda").to(torch.uint8).reshape(2, 128)
+    k8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    want = v8[0, :, 0].to(torch.bfloat16)  # (G, D)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    if kind in ("decode", "decode_v2"):
+        fn = A.flash_attention_decode if kind == "decode" else A.flash_attention_decode_v2
+        out = fn(q, k8, v8, zero, 0.1)[0]  # (G, Hg, D)
+    elif kind == "prefill":
+        out = A.flash_attention_prefill(q[:, None], k8, v8, zero + 1, 0.1)[0, 0]
+    else:
+        kp, vp = k8[None], v8[None]  # a pool of one page of T rows
+        pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+        if kind == "paged":
+            out = A.flash_attention_decode_paged(q, kp, vp, 0, pt, zero, 0.1)[0]
+        else:
+            out = A.flash_attention_chunk_paged(q[:, None], kp, vp, 0, pt, zero, 0.1)[0, 0]
+    torch.cuda.synchronize()
+    got = out.float()
+    ref = want.float()[:, None].expand_as(got)
+    nan = torch.isnan(ref)
+    assert nan.sum() == 2 * Hg  # 0x7F and 0xFF, in every head of their group
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("B,T", [(6, 200), (10, 1000)])
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "lse"])
+def test_fp8_decode_forms_equal_the_bf16_form_on_the_upcast_cache(gen, kind, B, T):
+    """B4, B12 and K1 over an fp8 cache: bit-equal to the same kernel over
+    the cache upcast to bf16 (the tiling is shared), and within the bf16
+    forms' limit of the plain version."""
+    G, Hg, D = 2, 16, 128
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    (k8, k16), (v8, v16) = _fp8(gen, (B, G, T, D)), _fp8(gen, (B, G, T, D))
+    lengths = _decode_edges(B, T, A.decode_span(B * G, T, A.DECODE_BLOCK_K))
+    sm = 1 / math.sqrt(D)
+    fn, plain = {"decode": (A.flash_attention_decode, A.flash_attention_decode_plain),
+                 "decode_v2": (A.flash_attention_decode_v2, A.flash_attention_decode_v2_plain),
+                 "lse": (lambda *a: A.flash_attention_decode_lse(*a, T // 2),
+                         lambda *a: A.flash_attention_decode_lse_plain(*a, T // 2))}[kind]
+    wrapper = {"decode": A.flash_attention_decode, "decode_v2": A.flash_attention_decode_v2,
+               "lse": A.flash_attention_decode_lse}[kind]
+    before = wrapper.fp8.launches
+    got = fn(q, k8, v8, lengths, sm)
+    same = fn(q, k16, v16, lengths, sm)
+    torch.cuda.synchronize()
+    assert wrapper.fp8.launches == before + 1
+    pairs = zip(got, same) if kind == "lse" else [(got, same)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    want = plain(q, k8, v8, lengths, sm)
+    if kind == "lse":
+        _hold_lse(got, want)
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("P,MP", [(16, 64), (256, 4)])
+def test_fp8_paged_forms_equal_the_bf16_form_on_the_upcast_pool(gen, P, MP):
+    """B10, K2 (each phase of a stride-2 table) and B11 (S = 1, 9, 32, with
+    a row map) over an fp8 pool: bit-equal to the bf16 form on the upcast
+    pool, within their limits of the plain version."""
+    L, G, Hg, D = 2, 2, 16, 128
+    B = 10
+    NP = B * MP + 1
+    (kp8, kp16), (vp8, vp16) = _fp8(gen, (L, NP, G, P, D)), _fp8(gen, (L, NP, G, P, D))
+    pt = _scattered_table(gen, B, MP, NP)
+    lengths = _paged_decode_edges(P, MP, B)
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    got = A.flash_attention_decode_paged(q, kp8, vp8, 1, pt, lengths, sm)
+    assert torch.equal(got, A.flash_attention_decode_paged(q, kp16, vp16, 1, pt, lengths, sm))
+    assert _rel(got, A.flash_attention_decode_paged_plain(q, kp8, vp8, 1, pt, lengths, sm)) <= 1e-2
+    half = pt[:, ::2].contiguous()
+    for phase in (0, 1):
+        got = A.flash_attention_decode_paged_lse(q, kp8, vp8, 1, half, lengths, sm, 2, phase)
+        same = A.flash_attention_decode_paged_lse(q, kp16, vp16, 1, half, lengths, sm, 2, phase)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        _hold_lse(got, A.flash_attention_decode_paged_lse_plain(q, kp8, vp8, 1, half, lengths,
+                                                                sm, 2, phase))
+    starts = torch.tensor([0, P - 2, 300, MP * P - 40, 7], dtype=torch.int32, device="cuda")
+    rmap = torch.tensor([5, 0, 3, 1, 2], dtype=torch.int32, device="cuda")
+    for S in (1, 9, 32):
+        qc = torch.randn((5, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+        got = A.flash_attention_chunk_paged(qc, kp8, vp8, 0, pt, starts, sm, rmap)
+        same = A.flash_attention_chunk_paged(qc, kp16, vp16, 0, pt, starts, sm, rmap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, same), S
+        want32 = _chunk_paged_f32(qc, kp16, vp16, 0, pt, starts, sm, rmap)
+        assert _beyond_rounding(got, want32) <= B11_TOL
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("Hg", [16, 4])
+def test_fp8_prefill_forms_equal_the_bf16_form_on_the_upcast_cache(gen, Hg, chunked):
+    """B5 (whole prompt, and the chunked form with a row map) over an fp8
+    cache: bit-equal to the bf16 form on the upcast cache."""
+    G, D, T, S = 2, 128, 512, 64 if chunked else 130
+    Bk = 4 if chunked else 3
+    (k8, k16), (v8, v16) = _fp8(gen, (Bk, G, T, D)), _fp8(gen, (Bk, G, T, D))
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((3, S, G, Hg, D), device="cuda", generator=gen).to(torch.bfloat16)
+    if chunked:
+        starts = torch.tensor([200, 3, 447], dtype=torch.int32, device="cuda")
+        lengths = starts + torch.tensor([40, 64, 0], dtype=torch.int32, device="cuda")
+        rmap = torch.tensor([3, 1, 0], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill_chunk(q, k8, v8, lengths, starts, sm, rmap)
+        same = A.flash_attention_prefill_chunk(q, k16, v16, lengths, starts, sm, rmap)
+        want = A.flash_attention_prefill_plain(q, k8, v8, lengths, sm, starts, rmap)
+    else:
+        lengths = torch.tensor([S, 0, 12], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill(q, k8, v8, lengths, sm)
+        same = A.flash_attention_prefill(q, k16, v16, lengths, sm)
+        want = A.flash_attention_prefill_plain(q, k8, v8, lengths, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same) and _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+def test_fp8_rope_kv_append_is_bit_equal_to_plain(gen, B, paged):
+    """B3 / B9 with the RoPE into an fp8 cache or pool: the rotated q and
+    every stored byte equal the plain sequence's (RoPE in bf16, then
+    ``kv_store_cast``), at the wall and past it; K3 on each shard of a
+    2-way split likewise."""
+    q, kv, freqs, k, v, pt, cap = _rope_case(gen, B, paged)
+    k, v = A.kv_store_cast(k, FP8), A.kv_store_cast(v, FP8)
+    starts = torch.tensor([7, cap - 1, cap, cap + 300][:B], dtype=torch.int32, device="cuda")
+    kr, vr = (t.view(torch.uint8).clone().view(FP8) for t in (k, v))
+    got = A.rope_kv_append(q, kv, freqs, k, v, 2, starts, pt)
+    want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 2, starts, pt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and _bytes_equal(k, kr) and _bytes_equal(v, vr)
+    for r in range(2):
+        shard = (A.KVShard(stride=2, phase=r, total=cap) if paged
+                 else A.KVShard(offset=r * (cap // 2), total=cap))
+        own = slice(r * (cap // 2), (r + 1) * (cap // 2))  # a T-shard, or the whole pool
+        hk8, hv8 = ((t if paged else t[:, :, :, own]).view(torch.uint8).contiguous().view(FP8)
+                    for t in (k, v))
+        kk, vv = (t.view(torch.uint8).clone().view(FP8) for t in (hk8, hv8))
+        table = None if pt is None else pt[:, r::2].contiguous()
+        got = A.rope_kv_append_sharded(q, kv, freqs, hk8, hv8, 1, starts, shard, table)
+        want = A.rope_kv_append_sharded_plain(q, kv, freqs, kk, vv, 1, starts, shard, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _bytes_equal(hk8, kk) and _bytes_equal(hv8, vv), r
+
+
+def test_fp8_captured_decode_steps_are_bit_equal_to_eager(gen):
+    """``multi_step_decode`` and the paged decode program at depth 2, 6B
+    widths, over an fp8 cache and pool: captured against eager over 8
+    steps, the tokens and every cache byte equal; the fp8 forms launched."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.models import paged_kv as PK
+
+    cfg, params = _depth2_tree(gen)
+    bf16 = torch.bfloat16
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 40, 17, 3], dtype=torch.int32, device="cuda")
+    cache = M.init_kv_cache(cfg, 4, 256, FP8)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def copy(t):
+        return t.view(torch.uint8).clone().view(FP8)
+
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(copy(cache.k), copy(cache.v), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, "int4g32", bf16,
+                                        TorchRuntimeConfig(cuda_graphs=graphs))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and torch.equal(c0.lengths, c1.lengths)
+    assert _bytes_equal(c0.k, c1.k) and _bytes_equal(c0.v, c1.v)
+    assert n0 == n1 and n1["rope_kv_append_fp8"] == n1["rope_kv_append"] == 8 * cfg.num_layers
+    assert n1["flash_attention_decode_fp8"] == 8 * cfg.num_layers
+
+    P, MP = 256, 2
+    pool = PK.init_paged_kv_cache(cfg, 4, 9, MP * P, P, FP8)
+    pool.page_table.copy_(torch.arange(1, 9, dtype=torch.int32, device="cuda").flip(0)
+                          .reshape(4, 2))
+    logits, pool = PK.prefill_paged(params, cfg, ids, lengths, pool, "int4g32", bf16)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    outs = []
+    for graphs in (False, True):
+        p = pool.replace(k_pool=copy(pool.k_pool), v_pool=copy(pool.v_pool))
+        ops.reset_launch_counts()
+        prog = PK.decode_paged_program(params, cfg, p, "int4g32", bf16,
+                                       TorchRuntimeConfig(cuda_graphs=graphs))
+        prog.load(ids=first, lengths=p.lengths, page_table=p.page_table)
+        toks = prog.run(8, params, p.k_pool, p.v_pool, collect=("ids",))["ids"]
+        torch.cuda.synchronize()
+        outs.append((toks, prog.inputs["lengths"].clone(), p, prog.graph is not None,
+                     ops.launch_counts()))
+    assert not outs[0][3] and outs[1][3]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert _bytes_equal(outs[0][2].k_pool, outs[1][2].k_pool)
+    assert _bytes_equal(outs[0][2].v_pool, outs[1][2].v_pool)
+    assert outs[1][4]["flash_attention_decode_paged_fp8"] == 8 * cfg.num_layers
+
+
+def test_attention_kernels_refuse_other_cache_and_activation_dtypes(gen):
+    """bf16 activations over a bf16 or fp8 cache, nothing else: an f32 or
+    f16 cache, f16 q, or K and V of two dtypes raise, naming the pair."""
+    q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen).to(torch.bfloat16)
+    k8, _ = _fp8(gen, (1, 2, 64, 128))
+    lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    for kk, vv, qq in ((k8.to(torch.bfloat16).float(),) * 2 + (q,),
+                       (k8.to(torch.float16),) * 2 + (q,), (k8, k8, q.half()),
+                       (k8, k8.to(torch.bfloat16), q)):
+        with pytest.raises(TypeError, match="bf16 or float8_e4m3fn"):
+            A.flash_attention_decode(qq, kk, vv, lengths, 0.1)
+        with pytest.raises(TypeError, match="bf16 or float8_e4m3fn"):
+            A.flash_attention_prefill(qq[:, None], kk, vv, lengths + 1, 0.1)
+    with pytest.raises(TypeError):  # f32 new into an fp8 cache would round twice
+        A.kv_cache_write_idx(k8[None], q[:, :, 0].float(), 0, lengths)
