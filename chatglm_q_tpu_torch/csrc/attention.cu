@@ -142,12 +142,30 @@
 // quantized and no product runs in fp8 (an fp8 mma would compute another
 // function than the TPU's).  Converting in registers without the pass is
 // later work.
+//
+// float16 (a float16 checkpoint's activations over a float16 cache: every
+// kernel above also takes it).  The TPU kernels are dtype-generic: K/V are
+// read in q's dtype (pallas_attention.py:239-261) and p is cast to v's
+// dtype.  Here each kernel is a template over the cache element T (bf16,
+// e4m3 or f16), whose activations are ActOf<T> (bf16, bf16, f16): the f16
+// forms stage f16 tiles as the bf16 forms stage theirs and run mma.sync
+// .f32.f16.f16, at bf16's rate.  The rounding points stay the TPU's, now
+// in f16: B4 and B5 round p to f16 for PV; B10, B11 and B12 round the
+// pre-scaled q to f16 and keep p in f32 through PV as hi = f16(p) and lo =
+// f16(p - hi); the append rounds each RoPE product and sum to f16.  f16
+// activations over an fp8 cache are not ported (the wrappers refuse them).
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 using e4m3 = uint8_t;  // a float8_e4m3fn cache element, as its byte
+
+// The activations (q, the output, the append's inputs) over a cache of
+// element T: f16 over an f16 cache, bf16 over a bf16 or an fp8 one.
+template <class T>
+using ActOf = std::conditional_t<std::is_same_v<T, f16>, f16, bf16>;
 
 // ---------------------------------------------------------------------------
 // Tensor-core tiles of the decode and prefill kernels
@@ -167,8 +185,8 @@ constexpr int DA_SOLO_ROWS = 256;     // decode: a (b, g) with at most this many
 constexpr int PF_WARPS = 8;           // prefill: 16 folded query rows per warp
 constexpr int PF_ROWS = PF_WARPS * 16, PF_THREADS = PF_WARPS * 32;
 
-// The dense cache: the (Bk, G, T, D) layer view of elements T_ (bf16, or
-// e4m3 bytes).  A T-shard of a cache of `total` slots (kv_shard_t) holds
+// The dense cache: the (Bk, G, T, D) layer view of elements T_ (bf16, f16,
+// or e4m3 bytes).  A T-shard of a cache of `total` slots (kv_shard_t) holds
 // global slots offset .. offset + T - 1; the whole cache is offset 0, total T.
 template <class T_>
 struct DenseKV {
@@ -246,23 +264,25 @@ struct PagedKV {
 // Decode KV append (B3, B9), with the RoPE of q and k
 // ---------------------------------------------------------------------------
 
-constexpr int VEC = 8;  // bf16 per 16-byte vector
+constexpr int VEC = 8;  // 16-bit elements per 16-byte vector
 
-// Four interleaved (x0, x1) pairs rotated by their (f0, f1) table entries,
-// rounded as the plain bf16 ops round them: o_r = bf16(bf16(x0*f0) -
-// bf16(x1*f1)), o_i = bf16(bf16(x0*f1) + bf16(x1*f0)), each operation in f32.
+// Four interleaved (x0, x1) pairs of A (bf16 or f16) rotated by their (f0,
+// f1) table entries, rounded as the plain ops in A round them: o_r =
+// A(A(x0*f0) - A(x1*f1)), o_i = A(A(x0*f1) + A(x1*f0)), each operation in
+// f32.
+template <class A>
 __device__ __forceinline__ uint4 rope8(uint4 x, uint4 f) {
   const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, fs[4] = {f.x, f.y, f.z, f.w};
   uint32_t o[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float2 xp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
-    const float2 fp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&fs[j]));
-    const float rr = __fsub_rn(round_to<bf16>(__fmul_rn(xp.x, fp.x)),
-                               round_to<bf16>(__fmul_rn(xp.y, fp.y)));
-    const float ri = __fadd_rn(round_to<bf16>(__fmul_rn(xp.x, fp.y)),
-                               round_to<bf16>(__fmul_rn(xp.y, fp.x)));
-    o[j] = bf16x2_bits(rr, ri);
+    const float2 xp = unpack2<A>(xs[j]);
+    const float2 fp = unpack2<A>(fs[j]);
+    const float rr = __fsub_rn(round_to<A>(__fmul_rn(xp.x, fp.x)),
+                               round_to<A>(__fmul_rn(xp.y, fp.y)));
+    const float ri = __fadd_rn(round_to<A>(__fmul_rn(xp.x, fp.y)),
+                               round_to<A>(__fmul_rn(xp.y, fp.x)));
+    o[j] = pack2<A>(rr, ri);
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
@@ -283,9 +303,12 @@ __device__ __forceinline__ uint32_t e4m3x2_store(float lo, float hi) {
   return out;
 }
 
-// 8 bf16 (a 16-byte vector) stored as the cache's elements: as they are, or
-// 8 e4m3 bytes.
+// 8 activations (a 16-byte vector) stored as the cache's elements: as they
+// are (bf16 or f16), or 8 e4m3 bytes (from bf16).
 __device__ __forceinline__ void store8(bf16* dst, uint4 x) {
+  *reinterpret_cast<uint4*>(dst) = x;
+}
+__device__ __forceinline__ void store8(f16* dst, uint4 x) {
   *reinterpret_cast<uint4*>(dst) = x;
 }
 __device__ __forceinline__ void store8(e4m3* dst, uint4 x) {
@@ -343,13 +366,13 @@ __device__ __forceinline__ uint4 e4m3x8_bf16(uint2 w) {
 // v's.  The cache views are the attention kernels' read-only views; the
 // slot this kernel writes is read by no other thread of the launch.  An
 // fp8 cache stores each vector as 8 bytes (store8).
-template <class KV, bool kRope>
-__global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restrict__ q_out,
-                                      const bf16* __restrict__ kv, int kv_stride,
-                                      const bf16* __restrict__ freqs, const KV cache,
+template <class KV, bool kRope, class A = ActOf<typename KV::elem>>
+__global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q_out,
+                                      const A* __restrict__ kv, int kv_stride,
+                                      const A* __restrict__ freqs, const KV cache,
                                       const int* __restrict__ starts, int nq, int nkv) {
   const int b = blockIdx.x;
-  const bf16* f_row = freqs + (size_t)b * ATT_D;
+  const A* f_row = freqs + (size_t)b * ATT_D;
   // B3's / B9's clamp of the global position, then its row in this view:
   // a shard that does not hold the slot rotates q and writes nothing
   int pos;
@@ -359,7 +382,7 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
       const int e = i * VEC;
       const uint4 x = *reinterpret_cast<const uint4*>(q + (size_t)b * nq * VEC + e);
       const uint4 f = *reinterpret_cast<const uint4*>(f_row + e % ATT_D);
-      *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * VEC + e) = rope8(x, f);
+      *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * VEC + e) = rope8<A>(x, f);
       continue;
     }
     if (!own) break;  // block-uniform: the q vectors come first
@@ -367,23 +390,25 @@ __global__ void rope_kv_append_kernel(const bf16* __restrict__ q, bf16* __restri
     const bool is_k = j < nkv;
     const int e = (is_k ? j : j - nkv) * VEC;  // element of k (or v): group e / D, lane e % D
     uint4 x = *reinterpret_cast<const uint4*>(kv + (size_t)b * kv_stride + (size_t)j * VEC);
-    if (kRope && is_k) x = rope8(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
+    if (kRope && is_k) x = rope8<A>(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
     const auto slab = cache.slab(b, e / ATT_D);
     using T = typename KV::elem;
     store8(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
   }
 }
 
-// Hq: the q heads of a row (G * Hg; a rank's heads under tensor parallelism)
+// Hq: the q heads of a row (G * Hg; a rank's heads under tensor parallelism);
+// q, q_out, kv and freqs in the cache's activation type ActOf<KV::elem>
 template <class KV, bool kRope>
-int launch_append(const bf16* q, bf16* q_out, const bf16* kv, int kv_stride,
-                  const bf16* freqs, const KV& cache, const int* starts, int B, int G, int Hq,
-                  cudaStream_t stream) {
+int launch_append(const void* q, void* q_out, const void* kv, int kv_stride, const void* freqs,
+                  const KV& cache, const int* starts, int B, int G, int Hq, cudaStream_t stream) {
+  using A = ActOf<typename KV::elem>;
   const int nq = kRope ? Hq * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
   const int n = nq + (kRope ? 2 : 1) * nkv;
   const int threads = n < 1024 ? (n + 31) / 32 * 32 : 1024;
-  rope_kv_append_kernel<KV, kRope><<<B, threads, 0, stream>>>(q, q_out, kv, kv_stride, freqs,
-                                                             cache, starts, nq, nkv);
+  rope_kv_append_kernel<KV, kRope><<<B, threads, 0, stream>>>(
+      static_cast<const A*>(q), static_cast<A*>(q_out), static_cast<const A*>(kv), kv_stride,
+      static_cast<const A*>(freqs), cache, starts, nq, nkv);
   return (int)cudaGetLastError();
 }
 
@@ -416,50 +441,54 @@ __device__ __forceinline__ void stage_kv(T (*ks)[ROW], T (*vs)[ROW], const Slab&
 }
 
 // A fragments of a warp's 16 query rows (row-major, KV_STRIDE apart), once.
-__device__ __forceinline__ void load_q_frags(bf16 (*qs)[KV_STRIDE], uint32_t (&qa)[ATT_D / 16][4]) {
+template <class A>
+__device__ __forceinline__ void load_q_frags(A (*qs)[KV_STRIDE], uint32_t (&qa)[ATT_D / 16][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < ATT_D / 16; ++kk)
     ldmatrix_x4(qa[kk], &qs[lane & 15][kk * 16 + (lane >> 4) * 8]);
 }
 
-// q * sm_scale rounded to bf16, element by element in the fragments: B10,
-// B11 and B12 scale q in its dtype before the dot, as the TPU kernels'
-// wrappers do.
+// q * sm_scale rounded to q's type A (bf16 or f16), element by element in
+// the fragments: B10, B11 and B12 scale q in its dtype before the dot, as
+// the TPU kernels' wrappers do.
+template <class A>
 __device__ __forceinline__ void scale_q_frags(uint32_t (&qa)[ATT_D / 16][4], float sm_scale) {
 #pragma unroll
   for (int kk = 0; kk < ATT_D / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][i]));
-      qa[kk][i] = bf16x2_bits(f.x * sm_scale, f.y * sm_scale);
+      const float2 f = unpack2<A>(qa[kk][i]);
+      qa[kk][i] = pack2<A>(f.x * sm_scale, f.y * sm_scale);
     }
 }
 
 // s[2j], s[2j+1] += q (16 x D) . K rows n0 .. n0+15 of the tile, transposed:
 // the m16n8 score tiles of 16 keys.
+template <class A>
 __device__ __forceinline__ void qk_16keys(const uint32_t (&qa)[ATT_D / 16][4],
-                                          bf16 (*ks)[KV_STRIDE], int n0, float (*s)[4]) {
+                                          A (*ks)[KV_STRIDE], int n0, float (*s)[4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < ATT_D / 16; ++kk) {
     uint32_t kf[4];
     ldmatrix_x4(kf, &ks[n0 + (lane & 7) + ((lane >> 4) << 3)][kk * 16 + ((lane >> 3) & 1) * 8]);
-    mma_bf16_16816(s[0], qa[kk], kf);
-    mma_bf16_16816(s[1], qa[kk], kf + 2);
+    mma_16816<A>(s[0], qa[kk], kf);
+    mma_16816<A>(s[1], qa[kk], kf + 2);
   }
 }
 
 // acc (16 x D) += p (16 x 16, an A fragment) . V rows k0 .. k0+15 of the tile.
-__device__ __forceinline__ void pv_16keys(const uint32_t (&pa)[4], bf16 (*vs)[KV_STRIDE],
+template <class A>
+__device__ __forceinline__ void pv_16keys(const uint32_t (&pa)[4], A (*vs)[KV_STRIDE],
                                           int k0, float (&acc)[ATT_D / 8][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int n2 = 0; n2 < ATT_D / 16; ++n2) {
     uint32_t vf[4];
     ldmatrix_x4_trans(vf, &vs[k0 + (lane & 7) + (((lane >> 3) & 1) << 3)][n2 * 16 + (lane >> 4) * 8]);
-    mma_bf16_16816(acc[2 * n2], pa, vf);
-    mma_bf16_16816(acc[2 * n2 + 1], pa, vf + 2);
+    mma_16816<A>(acc[2 * n2], pa, vf);
+    mma_16816<A>(acc[2 * n2 + 1], pa, vf + 2);
   }
 }
 
@@ -499,32 +528,36 @@ __device__ __forceinline__ void online_softmax(float (*s)[4], float (&m)[2], flo
 }
 
 // The A fragment of 16 keys from their two m16n8 score tiles (the C layout
-// of two m16n8 tiles is the A layout of one m16k16): p rounded to bf16
-// (p_frag), or the bf16 of its remainder p - bf16(p) (p_frag_lo).
+// of two m16n8 tiles is the A layout of one m16k16): p rounded to A (bf16
+// or f16: v's dtype; p_frag), or the A of its remainder p - A(p)
+// (p_frag_lo).
+template <class A>
 __device__ __forceinline__ void p_frag(float (*p)[4], uint32_t (&pa)[4]) {
-  pa[0] = bf16x2_bits(p[0][0], p[0][1]);
-  pa[1] = bf16x2_bits(p[0][2], p[0][3]);
-  pa[2] = bf16x2_bits(p[1][0], p[1][1]);
-  pa[3] = bf16x2_bits(p[1][2], p[1][3]);
+  pa[0] = pack2<A>(p[0][0], p[0][1]);
+  pa[1] = pack2<A>(p[0][2], p[0][3]);
+  pa[2] = pack2<A>(p[1][0], p[1][1]);
+  pa[3] = pack2<A>(p[1][2], p[1][3]);
 }
-__device__ __forceinline__ float bf16_remainder(float x) { return x - round_to<bf16>(x); }
+template <class A>
+__device__ __forceinline__ float remainder_of(float x) { return x - round_to<A>(x); }
+template <class A>
 __device__ __forceinline__ void p_frag_lo(float (*p)[4], uint32_t (&pa)[4]) {
-  pa[0] = bf16x2_bits(bf16_remainder(p[0][0]), bf16_remainder(p[0][1]));
-  pa[1] = bf16x2_bits(bf16_remainder(p[0][2]), bf16_remainder(p[0][3]));
-  pa[2] = bf16x2_bits(bf16_remainder(p[1][0]), bf16_remainder(p[1][1]));
-  pa[3] = bf16x2_bits(bf16_remainder(p[1][2]), bf16_remainder(p[1][3]));
+  pa[0] = pack2<A>(remainder_of<A>(p[0][0]), remainder_of<A>(p[0][1]));
+  pa[1] = pack2<A>(remainder_of<A>(p[0][2]), remainder_of<A>(p[0][3]));
+  pa[2] = pack2<A>(remainder_of<A>(p[1][0]), remainder_of<A>(p[1][1]));
+  pa[3] = pack2<A>(remainder_of<A>(p[1][2]), remainder_of<A>(p[1][3]));
 }
 
-// acc += p . V over 16 keys: p rounded to bf16 (B4, B5), or p in f32 as two
-// bf16 fragments, the remainder in a second product (B10, B11, B12).
-template <bool kF32P>
-__device__ __forceinline__ void pv_step(float (*p)[4], bf16 (*vs)[KV_STRIDE], int k0,
+// acc += p . V over 16 keys: p rounded to A (B4, B5), or p in f32 as two A
+// fragments, the remainder in a second product (B10, B11, B12).
+template <bool kF32P, class A>
+__device__ __forceinline__ void pv_step(float (*p)[4], A (*vs)[KV_STRIDE], int k0,
                                         float (&acc)[ATT_D / 8][4]) {
   uint32_t pa[4];
-  p_frag(p, pa);
+  p_frag<A>(p, pa);
   pv_16keys(pa, vs, k0, acc);
   if (kF32P) {
-    p_frag_lo(p, pa);
+    p_frag_lo<A>(p, pa);
     pv_16keys(pa, vs, k0, acc);
   }
 }
@@ -533,18 +566,18 @@ __device__ __forceinline__ void pv_step(float (*p)[4], bf16 (*vs)[KV_STRIDE], in
 // Ragged decode attention (B4, B12 dense; B10 paged)
 // ---------------------------------------------------------------------------
 
-// The K/V ring of a reader: bf16 stages that the fragments read in place,
-// or fp8 stages (k8, v8: rows of ATT_D bytes) and the one bf16 tile each
-// landed stage is converted into (k, v).  stage_k / stage_v name where a
-// copy lands, tile_k / tile_v what the fragments read.
+// The K/V ring of a reader: bf16 or f16 stages that the fragments read in
+// place, or fp8 stages (k8, v8: rows of ATT_D bytes) and the one bf16 tile
+// each landed stage is converted into (k, v).  stage_k / stage_v name where
+// a copy lands, tile_k / tile_v what the fragments read.
 template <class T, int STAGES>
 struct KVRing {
-  bf16 k[STAGES][KV_TK][KV_STRIDE];
-  bf16 v[STAGES][KV_TK][KV_STRIDE];
-  __device__ __forceinline__ bf16 (*stage_k(int st))[KV_STRIDE] { return k[st]; }
-  __device__ __forceinline__ bf16 (*stage_v(int st))[KV_STRIDE] { return v[st]; }
-  __device__ __forceinline__ bf16 (*tile_k(int st))[KV_STRIDE] { return k[st]; }
-  __device__ __forceinline__ bf16 (*tile_v(int st))[KV_STRIDE] { return v[st]; }
+  T k[STAGES][KV_TK][KV_STRIDE];
+  T v[STAGES][KV_TK][KV_STRIDE];
+  __device__ __forceinline__ T (*stage_k(int st))[KV_STRIDE] { return k[st]; }
+  __device__ __forceinline__ T (*stage_v(int st))[KV_STRIDE] { return v[st]; }
+  __device__ __forceinline__ T (*tile_k(int st))[KV_STRIDE] { return k[st]; }
+  __device__ __forceinline__ T (*tile_v(int st))[KV_STRIDE] { return v[st]; }
 };
 template <int STAGES>
 struct KVRing<e4m3, STAGES> {
@@ -560,7 +593,7 @@ struct KVRing<e4m3, STAGES> {
 
 // After stage st landed (and every warp is done with the tile): an fp8 ring
 // converts it into the bf16 tile, 8 bytes a thread at a time, then waits for
-// the block; a bf16 ring has nothing to do.
+// the block; a bf16 or f16 ring has nothing to do.
 template <int NT, class T, int STAGES>
 __device__ __forceinline__ void land_stage(KVRing<T, STAGES>& ring, int st) {
   if constexpr (std::is_same_v<T, e4m3>) {
@@ -579,7 +612,7 @@ __device__ __forceinline__ void land_stage(KVRing<T, STAGES>& ring, int st) {
 
 template <class T>
 struct DecodeSmem {
-  bf16 q[MMA_HEADS][KV_STRIDE];
+  ActOf<T> q[MMA_HEADS][KV_STRIDE];
   KVRing<T, DA_STAGES> ring;
 };
 // after the tile loop the same bytes hold the warps' states for the block merge
@@ -597,10 +630,10 @@ static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16>) &&
 // part: (B*G, nspan, Hg, D) f32 unnormalised acc, then (B*G, nspan, Hg, 2)
 // f32 (m, l), or null when no (b, g) has two spans; arrivals: B*G int32
 // counters, 0 between launches.
-template <bool kV2, class KV, bool kLse>
+template <bool kV2, class KV, bool kLse, class A = ActOf<typename KV::elem>>
 __global__ void __launch_bounds__(DA_THREADS)
-decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
-                   bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__ lengths,
+                   A* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                    float* __restrict__ part, int* __restrict__ arrivals, int G, int Hg, int span,
                    int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -613,7 +646,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
   const int gid = lane >> 2, tig = lane & 3;
   // this thread's 16-byte chunks of q, in flight with the read of lengths
   constexpr int QCH = MMA_HEADS * (ATT_D / 8) / DA_THREADS;
-  const bf16* qb = q + (size_t)bg * Hg * ATT_D;
+  const A* qb = q + (size_t)bg * Hg * ATT_D;
   uint4 qv[QCH];
 #pragma unroll
   for (int j = 0; j < QCH; ++j) {
@@ -625,10 +658,10 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
   const int n_valid = kv.valid(lengths[b] + 1);
   if (n_valid <= DA_SOLO_ROWS) span = max(span, (n_valid + KV_TK - 1) / KV_TK * KV_TK);
   const int ran = n_valid > 0 ? (n_valid + span - 1) / span : 0;  // spans with rows
-  bf16* ob = out + (size_t)bg * Hg * ATT_D;
+  A* ob = out + (size_t)bg * Hg * ATT_D;
   if (ran == 0) {  // no valid slot: 0, as the TPU kernels' l == 0 guard gives
     if (sp == 0) {
-      for (int i = tid; i < Hg * ATT_D; i += DA_THREADS) ob[i] = from_f32<bf16>(0.f);
+      for (int i = tid; i < Hg * ATT_D; i += DA_THREADS) ob[i] = from_f32<A>(0.f);
       if (kLse && tid < Hg) {  // and (m, l) = (-inf, 0): its merge weight is 0
         m_out[(size_t)bg * Hg + tid] = -INFINITY;
         l_out[(size_t)bg * Hg + tid] = 0.f;
@@ -657,7 +690,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
   __syncthreads();
   uint32_t qa[ATT_D / 16][4];
   load_q_frags(sm.q, qa);
-  if (kV2) scale_q_frags(qa, sm_scale);
+  if (kV2) scale_q_frags<A>(qa, sm_scale);
 
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   float acc[ATT_D / 8][4];
@@ -721,7 +754,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
       a = fmaf(ms.acc[w][h][d], wt, a);
     }
     if (ran == 1) {
-      ob[i] = from_f32<bf16>(a / l);
+      ob[i] = from_f32<A>(a / l);
       if (kLse && d == 0) {  // the scaled scores' natural-log max and the sum under it
         m_out[(size_t)bg * Hg + h] = mx;
         l_out[(size_t)bg * Hg + h] = l;
@@ -803,8 +836,8 @@ decode_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restric
     const int i = (tid + j * DA_THREADS) * 4;
     if (i >= Hg * ATT_D) break;
     const float l = lsum[i / ATT_D];
-    *reinterpret_cast<uint2*>(ob + i) = make_uint2(bf16x2_bits(a[j].x / l, a[j].y / l),
-                                                   bf16x2_bits(a[j].z / l, a[j].w / l));
+    *reinterpret_cast<uint2*>(ob + i) = make_uint2(pack2<A>(a[j].x / l, a[j].y / l),
+                                                   pack2<A>(a[j].z / l, a[j].w / l));
   }
   if (tid == 0) arrivals[bg] = 0;  // ready for the next launch (and a graph replay)
 }
@@ -819,23 +852,26 @@ bool decode_args_ok(int D, int Hg, int T_rows, int span) {
          nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem<T>);
 }
 
+// q and out in the cache's activation type ActOf<KV::elem>
 template <bool kV2, class KV, bool kLse>
-int launch_decode_as(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
-                     bf16* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
+int launch_decode_as(const void* q, const KV& kv, const int* lengths, float* part, int* arrivals,
+                     void* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
                      float sm_scale, cudaStream_t stream) {
+  using A = ActOf<typename KV::elem>;
   const int smem = (int)sizeof(DecodeSmem<typename KV::elem>);
   const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV, kLse>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int nspan = (T + span - 1) / span;
   decode_attn_kernel<kV2, KV, kLse><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
-      q, kv, lengths, out, m_out, l_out, part, arrivals, G, Hg, span, nspan, sm_scale);
+      static_cast<const A*>(q), kv, lengths, static_cast<A*>(out), m_out, l_out, part, arrivals,
+      G, Hg, span, nspan, sm_scale);
   return (int)cudaGetLastError();
 }
 
 // the (m, l) form where m_out and l_out are given (K1, K2), else the output only
 template <bool kV2, class KV>
-int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, int* arrivals,
-                  bf16* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
+int launch_decode(const void* q, const KV& kv, const int* lengths, float* part, int* arrivals,
+                  void* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
                   float sm_scale, cudaStream_t stream) {
   if (m_out && l_out)
     return launch_decode_as<kV2, KV, true>(q, kv, lengths, part, arrivals, out, m_out, l_out, B,
@@ -850,7 +886,7 @@ int launch_decode(const bf16* q, const KV& kv, const int* lengths, float* part, 
 
 template <class T>
 struct PrefillTileSmem {
-  bf16 q[PF_ROWS][KV_STRIDE];
+  ActOf<T> q[PF_ROWS][KV_STRIDE];
   KVRing<T, PF_STAGES> ring;
 };
 
@@ -862,11 +898,11 @@ struct PrefillTileSmem {
 // (B*G*nqb, nspan, PF_ROWS, 2) f32 (m, l), or null when nspan == 1;
 // arrivals: B*G*nqb int32 counters, 0 between launches.  lengths may be
 // null (B11: every row reads up to its causal bound and the capacity).
-template <class KV, bool kV2>
+template <class KV, bool kV2, class A = ActOf<typename KV::elem>>
 __global__ void __launch_bounds__(PF_THREADS)
-prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
+prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__ lengths,
                     const int* __restrict__ q_starts, const int* __restrict__ kv_row_map,
-                    bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ arrivals,
+                    A* __restrict__ out, float* __restrict__ part, int* __restrict__ arrivals,
                     int S, int G, int Hg, int span, int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using T = typename KV::elem;
@@ -900,7 +936,7 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
     const int r = i / (ATT_D / 8), c = (i % (ATT_D / 8)) * 8;
     const int s = q0 + r / Hg, h = r % Hg;
     const bool ok = r < rows;
-    const bf16* qsrc = ok ? q + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D + c : q;
+    const A* qsrc = ok ? q + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D + c : q;
     cp_async16(&sm.q[r][c], qsrc, ok);
   }
 #pragma unroll
@@ -921,7 +957,7 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
   for (int hh = 0; hh < 2; ++hh) qpos[hh] = q_start + q0 + (r0 + gid + 8 * hh) / Hg;
   uint32_t qa[ATT_D / 16][4];
   load_q_frags(sm.q + r0, qa);
-  if (kV2) scale_q_frags(qa, sm_scale);
+  if (kV2) scale_q_frags<A>(qa, sm_scale);
 
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   float acc[ATT_D / 8][4];
@@ -966,11 +1002,11 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
       if (r >= rows) continue;
       const int s = q0 + r / Hg, h = r % Hg;
       const float l = l_r[hh] == 0.f ? 1.f : l_r[hh];  // a length-0 row: acc 0, output 0
-      bf16* o = out + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D;
+      A* o = out + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D;
 #pragma unroll
       for (int n = 0; n < ATT_D / 8; ++n)
         *reinterpret_cast<uint32_t*>(o + n * 8 + tig * 2) =
-            bf16x2_bits(acc[n][2 * hh] / l, acc[n][2 * hh + 1] / l);
+            pack2<A>(acc[n][2 * hh] / l, acc[n][2 * hh + 1] / l);
     }
     return;
   }
@@ -1056,34 +1092,39 @@ prefill_attn_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
     if (i >= rows * ATT_D) break;
     const int r = i / ATT_D, d = i % ATT_D;
     const float l = lsum[r];
-    bf16* o = out + (((size_t)b * S + q0 + r / Hg) * G + g) * Hg * ATT_D + (r % Hg) * ATT_D + d;
-    *reinterpret_cast<uint2*>(o) = make_uint2(bf16x2_bits(a[j].x / l, a[j].y / l),
-                                              bf16x2_bits(a[j].z / l, a[j].w / l));
+    A* o = out + (((size_t)b * S + q0 + r / Hg) * G + g) * Hg * ATT_D + (r % Hg) * ATT_D + d;
+    *reinterpret_cast<uint2*>(o) = make_uint2(pack2<A>(a[j].x / l, a[j].y / l),
+                                              pack2<A>(a[j].z / l, a[j].w / l));
   }
   if (tid == 0) arrivals[unit] = 0;  // ready for the next launch (and a graph replay)
 }
 
+// q and out in the cache's activation type ActOf<KV::elem>
 template <class KV, bool kV2>
-int launch_prefill(const bf16* q, const KV& kv, const int* lengths, const int* q_starts,
-                   const int* kv_row_map, bf16* out, float* part, int* arrivals, int B, int S,
+int launch_prefill(const void* q, const KV& kv, const int* lengths, const int* q_starts,
+                   const int* kv_row_map, void* out, float* part, int* arrivals, int B, int S,
                    int G, int Hg, int span, int nspan, float sm_scale, cudaStream_t stream) {
+  using A = ActOf<typename KV::elem>;
   const int smem = (int)sizeof(PrefillTileSmem<typename KV::elem>);
   const cudaError_t opt_in = smem_opt_in<prefill_attn_kernel<KV, kV2>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int qt = PF_ROWS / Hg;
   const dim3 grid((S + qt - 1) / qt * nspan, G, B);
   prefill_attn_kernel<KV, kV2><<<grid, PF_THREADS, smem, stream>>>(
-      q, kv, lengths, q_starts, kv_row_map, out, part, arrivals, S, G, Hg, span, nspan,
-      sm_scale);
+      static_cast<const A*>(q), kv, lengths, q_starts, kv_row_map, static_cast<A*>(out), part,
+      arrivals, S, G, Hg, span, nspan, sm_scale);
   return (int)cudaGetLastError();
 }
 
-// The entry points' cache dispatch: fn(T{}) with T the cache's element, bf16
-// (kv_fp8 = 0) or e4m3 (kv_fp8 = 1).
+// The entry points' dispatch on the form code: fn(T{}) with T the cache's
+// element and ActOf<T> the activations': 0 bf16 over a bf16 cache, 1 bf16
+// over a float8_e4m3fn cache, 2 f16 over an f16 cache (ops/attention.py:
+// FORM_CODES).
 template <class Fn>
-int with_kv_type(int kv_fp8, Fn&& fn) {
-  if (kv_fp8 == 0) return fn(bf16{});
-  if (kv_fp8 == 1) return fn(e4m3{});
+int with_kv_type(int form, Fn&& fn) {
+  if (form == 0) return fn(bf16{});
+  if (form == 1) return fn(e4m3{});
+  if (form == 2) return fn(f16{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1091,14 +1132,17 @@ int with_kv_type(int kv_fp8, Fn&& fn) {
 
 extern "C" {
 
+// The attention entries' form code: 0 for bf16 activations over a bf16
+// cache or pool, 1 for bf16 over a float8_e4m3fn one (cast on the write,
+// upcast on the read), 2 for f16 activations over an f16 one.
+//
 // B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, Hq, D)
 // contiguous (Hq = G * Hg, or a rank's heads); kv (B, 2*G*D), k then v,
 // rows kv_stride elements apart; freqs (B, D); k_layer, v_layer the (B, G,
 // T, D) views of one cache layer when page_table is null, else the (NP, G,
 // P, D) views of one pool layer, read through page_table (B, MP), with T =
-// P; starts (B,) int32.  q, kv, freqs bf16; the cache bf16 (kv_fp8 = 0) or
-// float8_e4m3fn (kv_fp8 = 1: cast on the write); all 16-byte aligned
-// (kv_stride a multiple of 8), D == 128.  A sharded cache
+// P; starts (B,) int32.  q, kv, freqs and the cache as the form says; all
+// 16-byte aligned (kv_stride a multiple of 8), D == 128.  A sharded cache
 // (K3): the dense view holds global slots offset .. offset + T - 1, the
 // paged view's column i logical block i * stride + phase; total is the
 // global capacity the position clamps to (0: the view's own, unsharded:
@@ -1107,47 +1151,45 @@ extern "C" {
 int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_stride,
                            const void* freqs, void* k_layer, void* v_layer, const void* page_table,
                            const void* starts, int B, int G, int Hq, int D, int T, int MP,
-                           int offset, int stride, int phase, int total, int kv_fp8,
+                           int offset, int stride, int phase, int total, int form,
                            void* stream) {
   if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC || offset < 0 ||
       stride < 1 || phase < 0 || phase >= stride || total < 0)
     return (int)cudaErrorInvalidValue;
-  const bf16 *qb = static_cast<const bf16*>(q), *kvb = static_cast<const bf16*>(kv),
-             *fb = static_cast<const bf16*>(freqs);
   const int* st = static_cast<const int*>(starts);
-  bf16* qo = static_cast<bf16*>(q_out);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     const T_ *kl = static_cast<const T_*>(k_layer), *vl = static_cast<const T_*>(v_layer);
     if (!page_table) {
       const DenseKV<T_> cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};
-      return launch_append<DenseKV<T_>, true>(qb, qo, kvb, kv_stride, fb, cache, st, B, G, Hq, s);
+      return launch_append<DenseKV<T_>, true>(q, q_out, kv, kv_stride, freqs, cache, st, B, G,
+                                              Hq, s);
     }
     const PagedKV<T_> pool{kl, vl, static_cast<const int*>(page_table), G, T, MP, stride, phase,
                            total > 0 ? total : MP * T};
-    return launch_append<PagedKV<T_>, true>(qb, qo, kvb, kv_stride, fb, pool, st, B, G, Hq, s);
+    return launch_append<PagedKV<T_>, true>(q, q_out, kv, kv_stride, freqs, pool, st, B, G, Hq,
+                                            s);
   });
 }
 
 // The write-only form (kv_cache_write_idx, kv_pool_write_idx): src (B, G, D)
-// bf16 into the slot of dst_layer, a cache or pool layer view as above
-// (kv_fp8 as above).
+// in the form's activation type into the slot of dst_layer, a cache or pool
+// layer view as above.
 int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, const void* starts,
-                      int B, int G, int D, int T, int MP, int kv_fp8, void* stream) {
+                      int B, int G, int D, int T, int MP, int form, void* stream) {
   if (D != ATT_D || T < 1 || (page_table && MP < 1)) return (int)cudaErrorInvalidValue;
-  const bf16* sb = static_cast<const bf16*>(src);
   const int* st = static_cast<const int*>(starts);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     const T_* dst = static_cast<const T_*>(dst_layer);
     if (!page_table)
-      return launch_append<DenseKV<T_>, false>(nullptr, nullptr, sb, G * D, nullptr,
+      return launch_append<DenseKV<T_>, false>(nullptr, nullptr, src, G * D, nullptr,
                                                DenseKV<T_>{dst, dst, G, T, 0, T}, st, B, G, 0, s);
     const PagedKV<T_> pool{dst, dst, static_cast<const int*>(page_table), G, T, MP, 1, 0, MP * T};
-    return launch_append<PagedKV<T_>, false>(nullptr, nullptr, sb, G * D, nullptr, pool, st, B, G,
-                                             0, s);
+    return launch_append<PagedKV<T_>, false>(nullptr, nullptr, src, G * D, nullptr, pool, st, B,
+                                             G, 0, s);
   });
 }
 
@@ -1155,8 +1197,8 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
 // layer views; lengths (B,) int32 = the cache length before this token;
 // part holds B*G*ceil(T/span)*Hg*(D+2) floats, and may be null when no
 // (b, g) can have more than one span (ceil(T/span) == 1 or T <= 256);
-// arrivals B*G int32 zeros (left zero).  q bf16, k and v bf16 or (kv_fp8)
-// float8_e4m3fn; D == 128, Hg <= 16, span
+// arrivals B*G int32 zeros (left zero).  q, out, k and v as the form says;
+// D == 128, Hg <= 16, span
 // a multiple of 64.  K1 (B4's return_lse form): m_out and l_out (B, G, Hg)
 // f32 receive the online softmax's max of the scaled scores (natural log)
 // and its sum (-inf and 0 for a (b, g) with no valid row), or are null;
@@ -1165,67 +1207,65 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
 int chatglm_decode_attention(const void* q, const void* k, const void* v, const void* lengths,
                              void* part, void* arrivals, void* out, int B, int G, int Hg, int T,
                              int D, int span, int v2, float sm_scale, void* m_out, void* l_out,
-                             int offset, int kv_fp8, void* stream) {
+                             int offset, int form, void* stream) {
   if (offset < 0 || !m_out != !l_out) return (int)cudaErrorInvalidValue;
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     if (!decode_args_ok<T_>(D, Hg, T, span)) return (int)cudaErrorInvalidValue;
     const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, offset,
                          offset + T};
     auto launch = v2 ? launch_decode<true, DenseKV<T_>> : launch_decode<false, DenseKV<T_>>;
-    return launch(static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-                  static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
-                  static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, T, span,
-                  sm_scale, reinterpret_cast<cudaStream_t>(stream));
+    return launch(q, kv, static_cast<const int*>(lengths), static_cast<float*>(part),
+                  static_cast<int*>(arrivals), out, static_cast<float*>(m_out),
+                  static_cast<float*>(l_out), B, G, Hg, T, span, sm_scale,
+                  reinterpret_cast<cudaStream_t>(stream));
   });
 }
 
 // q, out (B, S, G, Hg, D); k, v (Bk, G, T, D) layer views; lengths (B,)
 // int32.  q_starts (B,) int32 or null (all 0: then T >= S); kv_row_map (B,)
-// int32 rows of k/v, or null (row b).  q bf16, k and v bf16 or (kv_fp8)
-// float8_e4m3fn; D == 128, Hg <= 64.
+// int32 rows of k/v, or null (row b).  q, out, k and v as the form says;
+// D == 128, Hg <= 64.
 int chatglm_prefill_attention(const void* q, const void* k, const void* v, const void* lengths,
                               const void* q_starts, const void* kv_row_map, void* out, int B,
-                              int S, int G, int Hg, int T, int D, float sm_scale, int kv_fp8,
+                              int S, int G, int Hg, int T, int D, float sm_scale, int form,
                               void* stream) {
   if (D != ATT_D || Hg > 64) return (int)cudaErrorInvalidValue;
   const int span = (T + KV_TK - 1) / KV_TK * KV_TK;  // one span: every row reads in one block
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, 0, T};
     return launch_prefill<DenseKV<T_>, false>(
-        static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-        static_cast<const int*>(q_starts), static_cast<const int*>(kv_row_map),
-        static_cast<bf16*>(out), nullptr, nullptr, B, S, G, Hg, span, 1, sm_scale,
-        reinterpret_cast<cudaStream_t>(stream));
+        q, kv, static_cast<const int*>(lengths), static_cast<const int*>(q_starts),
+        static_cast<const int*>(kv_row_map), out, nullptr, nullptr, B, S, G, Hg, span, 1,
+        sm_scale, reinterpret_cast<cudaStream_t>(stream));
   });
 }
 
 // B10.  q, out (B, G, Hg, D); k, v (NP, G, P, D) pool layer views;
 // page_table (B, MP) and lengths (B,) int32 = the cache length before this
 // token; part and arrivals as chatglm_decode_attention's with T = MP * P.
-// q bf16, the pool bf16 or (kv_fp8) float8_e4m3fn; D == 128, Hg <= 16, span
-// a multiple of 64.  K2 (B10's strided
+// q, out and the pool as the form says; D == 128, Hg <= 16, span a
+// multiple of 64.  K2 (B10's strided
 // return_lse form): table column i holds logical block i * stride + phase,
 // and m_out, l_out as chatglm_decode_attention's (or null; stride 1, phase
 // 0: the whole row).
 int chatglm_decode_paged(const void* q, const void* k, const void* v, const void* page_table,
                          const void* lengths, void* part, void* arrivals, void* out, int B, int G,
                          int Hg, int P, int D, int MP, int span, float sm_scale, void* m_out,
-                         void* l_out, int stride, int phase, int kv_fp8, void* stream) {
+                         void* l_out, int stride, int phase, int form, void* stream) {
   if (P < 1 || MP < 1 || stride < 1 || phase < 0 || phase >= stride || !m_out != !l_out)
     return (int)cudaErrorInvalidValue;
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     if (!decode_args_ok<T_>(D, Hg, MP * P, span)) return (int)cudaErrorInvalidValue;
     const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
                          static_cast<const int*>(page_table), G, P, MP, stride, phase,
                          MP * P * stride};
     return launch_decode<true, PagedKV<T_>>(
-        static_cast<const bf16*>(q), kv, static_cast<const int*>(lengths),
-        static_cast<float*>(part), static_cast<int*>(arrivals), static_cast<bf16*>(out),
-        static_cast<float*>(m_out), static_cast<float*>(l_out), B, G, Hg, MP * P, span, sm_scale,
-        reinterpret_cast<cudaStream_t>(stream));
+        q, kv, static_cast<const int*>(lengths), static_cast<float*>(part),
+        static_cast<int*>(arrivals), out, static_cast<float*>(m_out), static_cast<float*>(l_out),
+        B, G, Hg, MP * P, span, sm_scale, reinterpret_cast<cudaStream_t>(stream));
   });
 }
 
@@ -1234,26 +1274,25 @@ int chatglm_decode_paged(const void* q, const void* k, const void* v, const void
 // null: row b); starts (B,) int32.  span: K/V rows per block, a multiple of
 // 64; part holds B*G*nqb*ceil(MP*P/span)*128*(D+2) floats (nqb =
 // ceil(S / (128 / Hg))) and may be null when that is one span; arrivals
-// B*G*nqb int32 zeros (left zero).  q bf16, the pool bf16 or (kv_fp8)
-// float8_e4m3fn; D == 128, Hg <= 64.
+// B*G*nqb int32 zeros (left zero).  q, out and the pool as the form says;
+// D == 128, Hg <= 64.
 int chatglm_chunk_paged(const void* q, const void* k, const void* v, const void* page_table,
                         const void* row_map, const void* starts, void* part, void* arrivals,
                         void* out, int B, int S, int G, int Hg, int P, int D, int MP, int span,
-                        float sm_scale, int kv_fp8, void* stream) {
+                        float sm_scale, int form, void* stream) {
   const int nspan = span > 0 ? (MP * P + span - 1) / span : 0;
   if (D != ATT_D || Hg > 64 || P < 1 || MP < 1 || span < KV_TK || span % KV_TK ||
       (nspan > 1 && (!part || !arrivals)) ||
       (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem<e4m3>))
     return (int)cudaErrorInvalidValue;
-  return with_kv_type(kv_fp8, [&](auto t) {
+  return with_kv_type(form, [&](auto t) {
     using T_ = decltype(t);
     const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
                          static_cast<const int*>(page_table), G, P, MP, 1, 0, MP * P};
     return launch_prefill<PagedKV<T_>, true>(
-        static_cast<const bf16*>(q), kv, nullptr, static_cast<const int*>(starts),
-        static_cast<const int*>(row_map), static_cast<bf16*>(out), static_cast<float*>(part),
-        static_cast<int*>(arrivals), B, S, G, Hg, span, nspan, sm_scale,
-        reinterpret_cast<cudaStream_t>(stream));
+        q, kv, nullptr, static_cast<const int*>(starts), static_cast<const int*>(row_map), out,
+        static_cast<float*>(part), static_cast<int*>(arrivals), B, S, G, Hg, span, nspan,
+        sm_scale, reinterpret_cast<cudaStream_t>(stream));
   });
 }
 

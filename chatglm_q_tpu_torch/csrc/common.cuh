@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #include <math.h>
@@ -14,6 +15,7 @@
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -22,6 +24,48 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// The 16-bit activation types the tensor-core kernels take: E is
+// __nv_bfloat16 or __half (the main path's bf16, or a float16 checkpoint's
+// activations).  Both go through the tensor cores at one rate.
+template <typename E>
+constexpr bool kIsF16 = std::is_same_v<E, __half>;
+
+// The activation dtype codes of the matmul C entry points (ops/_build.py:
+// dtype_code): fn(T{}) with T the activations' element type, or
+// cudaErrorInvalidValue for another code.
+constexpr int DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2;
+template <class Fn>
+int with_act_type(int code, Fn&& fn) {
+  if (code == DT_F32) return fn(float{});
+  if (code == DT_BF16) return fn(__nv_bfloat16{});
+  if (code == DT_F16) return fn(__half{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Two floats as the E x2 pair of a register (lo in bits 0-15), each
+// rounded to nearest even; and back.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (kIsF16<E>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // Round to T and back: the "probabilities are cast to v's dtype before the
@@ -71,15 +115,25 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-
-// d += a @ b, bf16 in, f32 accumulate; the m16n8k16 fragment layout.
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ float2 load_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
+
+// d += a @ b, E (bf16 or f16) in, f32 accumulate; the m16n8k16 fragment
+// layout.
+#define CHATGLM_MMA_16816(TY)                                                          \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"              \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                         \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+template <typename E>
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  if constexpr (kIsF16<E>)
+    CHATGLM_MMA_16816("f16");
+  else
+    CHATGLM_MMA_16816("bf16");
+}
+#undef CHATGLM_MMA_16816
 
 // d += a @ b, s8 in, s32 accumulate (exact); the m16n8k32 fragment layout:
 // a0 / a1 rows gid / gid + 8 at K 4t..4t+3, a2 / a3 the same at K 16 + 4t..,
@@ -217,51 +271,66 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) : : "memory"); }
 __device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r) : : "memory"); }
 
-// d (64 x N, f32) = a (64 x 16, bf16, registers: the m16n8k16 A fragment of
-// each warp's 16 rows) · b (16 x N, bf16, K-major in shared memory, desc)
-// + (scale_d ? d : 0); asynchronous: wgmma_commit, then wgmma_wait.  The
-// accumulator of warp w: rows 16w + gid (d[4j], d[4j+1]) and 16w + gid + 8
-// (d[4j+2], d[4j+3]), columns 8j + 2t and 8j + 2t + 1.
+// d (64 x N, f32) = a (64 x 16, E = bf16 or f16, registers: the m16n8k16
+// A fragment of each warp's 16 rows) · b (16 x N, E, K-major in shared
+// memory, desc) + (scale_d ? d : 0); asynchronous: wgmma_commit, then
+// wgmma_wait.  The accumulator of warp w: rows 16w + gid (d[4j], d[4j+1])
+// and 16w + gid + 8 (d[4j+2], d[4j+3]), columns 8j + 2t and 8j + 2t + 1.
+#define CHATGLM_WGMMA_RS_N64(TY)                                                           \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\n"                                                                 \
+      "setp.ne.b32 p, %37, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31])                                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  if constexpr (kIsF16<E>)
+    CHATGLM_WGMMA_RS_N64("f16");
+  else
+    CHATGLM_WGMMA_RS_N64("bf16");
 }
+#undef CHATGLM_WGMMA_RS_N64
+#define CHATGLM_WGMMA_RS_N128(TY)                                                          \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\n"                                                                 \
+      "setp.ne.b32 p, %69, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  if constexpr (kIsF16<E>)
+    CHATGLM_WGMMA_RS_N128("f16");
+  else
+    CHATGLM_WGMMA_RS_N128("bf16");
 }
+#undef CHATGLM_WGMMA_RS_N128
 
 // d (64 x N, s32, exact) = a (64 x 32, s8, registers) · b (32 x N, s8,
 // K-major in shared memory, desc) + (scale_d ? d : 0); asynchronous, as the
@@ -331,22 +400,31 @@ __device__ __forceinline__ void transpose4x4_bytes(uint32_t* r) {
 // and writes them over the mantissa of bf16 128 with the nibble's sign bit
 // flipped, (v & 0x000F000F) ^ 0x43084308, which is the bf16 value 136 + q
 // for the nibble q; one bf16x2 FMA subtracts 136.  Exact for all 16 values.
-__device__ __forceinline__ uint32_t nibble_pair_bf16x2(uint32_t v) {
+// The f16 form (nibble_pair<__half>) writes them over f16 1024, whose ulp
+// is 1: (v & 0x000F000F) ^ 0x64086408 is 1032 + q, and one f16x2 FMA
+// subtracts 1032.
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t v) {
+  constexpr uint32_t kBias = kIsF16<E> ? 0x64086408u : 0x43084308u;  // 1032 / 136 + the nibble
   uint32_t m, r;
   // (a & b) ^ c as one LOP3 (LUT 0x6a): written out, ptxas splits it in two
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(m) : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(m), "r"(0x3F803F80u), "r"(0xC308C308u));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(m) : "r"(v), "r"(0x000F000Fu), "r"(kBias));
+  if constexpr (kIsF16<E>)
+    asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(m), "r"(0x3C003C00u), "r"(0xE408E408u));
+  else
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(m), "r"(0x3F803F80u), "r"(0xC308C308u));
   return r;
 }
 
-// Byte p (0..3) of w, two tpu-order int4 nibbles, as the bf16x2 pair of an
+// Byte p (0..3) of w, two tpu-order int4 nibbles, as the E x2 pair of an
 // mma fragment (low nibble, the lower K row, in bits 0-15): one PRMT puts
 // the low nibble of byte p of w at bits 0-3 and that of w >> 4 (the byte's
 // high nibble) at bits 16-19.  w_shr4 is w >> 4, shared by the word's four
 // bytes.
-__device__ __forceinline__ uint32_t int4_pair_bf16x2(uint32_t w, uint32_t w_shr4, int p) {
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t w_shr4, int p) {
   const uint32_t sel = p | (p << 4) | ((4 + p) << 8) | ((4 + p) << 12);
-  return nibble_pair_bf16x2(__byte_perm(w, w_shr4, sel));
+  return nibble_pair<E>(__byte_perm(w, w_shr4, sel));
 }
 
 // Two packed bytes b0 (bits 0-7 of v) and b1 (bits 8-15), neighbours along
@@ -356,8 +434,8 @@ __device__ __forceinline__ uint32_t int4_pair_bf16x2(uint32_t w, uint32_t w_shr4
 // bytes two neighbouring contraction elements.
 __device__ __forceinline__ void int4_rows_bf16x2(uint32_t v, uint32_t& lo, uint32_t& hi) {
   const uint32_t v4 = v >> 4;
-  lo = nibble_pair_bf16x2(__byte_perm(v, v4, 0x4140));  // b0 -> bits 0-7, b1 -> bits 16-23
-  hi = nibble_pair_bf16x2(__byte_perm(v, v4, 0x0504));  // b0 >> 4, b1 >> 4 likewise
+  lo = nibble_pair(__byte_perm(v, v4, 0x4140));  // b0 -> bits 0-7, b1 -> bits 16-23
+  hi = nibble_pair(__byte_perm(v, v4, 0x0504));  // b0 >> 4, b1 >> 4 likewise
 }
 
 // Four int8 bytes of w as two exact bf16x2 pairs (lo: bytes 0, 1; hi:
@@ -375,6 +453,24 @@ __device__ __forceinline__ void s8x4_bf16x2(uint32_t w, uint32_t& lo, uint32_t& 
                            8388736.f);
   lo = __byte_perm(f[0], f[1], 0x7632);
   hi = __byte_perm(f[2], f[3], 0x7632);
+}
+
+// The same as two exact f16x2 pairs: f16's 11 significant bits take the
+// bias trick directly.  One PRMT per pair writes the biased bytes b + 128
+// under the high byte 0x64 of f16 1024 (ulp 1), which is 1024 + 128 + b,
+// and one f16x2 FMA subtracts 1152.
+__device__ __forceinline__ void s8x4_f16x2(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = w ^ 0x80808080u;
+  const uint32_t l = __byte_perm(x, 0x64646464u, 0x4140), h = __byte_perm(x, 0x64646464u, 0x4342);
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(l), "r"(0x3C003C00u), "r"(0xE480E480u));
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(h), "r"(0x3C003C00u), "r"(0xE480E480u));
+}
+template <typename E>
+__device__ __forceinline__ void s8x4_pair(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (kIsF16<E>)
+    s8x4_f16x2(w, lo, hi);
+  else
+    s8x4_bf16x2(w, lo, hi);
 }
 
 // a * b for two bf16x2 pairs, each product rounded once to bf16
@@ -821,7 +917,7 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             const uint32_t bb[2] = {ss ? b[mt].z : b[mt].x, ss ? b[mt].w : b[mt].y};
-            mma_bf16_16816(part[rt][mt], a, bb);
+            mma_16816<__nv_bfloat16>(part[rt][mt], a, bb);
           }
         }
       }
@@ -1153,11 +1249,14 @@ inline bool tensor_map_2d(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap*
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The activation tiles: bf16 (rows, cols) in boxes of bm rows x 64.
+// The activation tiles: E (bf16 or f16) (rows, cols) in boxes of bm rows x 64.
+template <typename E = __nv_bfloat16>
 inline bool act_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, const void* base,
                     int rows, int cols, int bm) {
-  return tensor_map_2d(encode, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols,
-                       (size_t)cols * 2, bm, WG_STEP, CU_TENSOR_MAP_SWIZZLE_128B);
+  const CUtensorMapDataType type =
+      kIsF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return tensor_map_2d(encode, map, type, base, rows, cols, (size_t)cols * 2, bm, WG_STEP,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Align the ring, initialise its barriers; every thread returns the base.
@@ -1215,9 +1314,10 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtens
 // gid for e < 2, gid + 8 for e >= 2, and activation row 8j + 2t + (e & 1).
 // D row gid is output column c, D row gid + 8 column c + STEP: STEP 1 (the
 // two columns of a bf16x2 store) or 8.  With SCALE, column n's output is
-// multiplied by col_scale[n] first (B6's per-column scale).
-template <int BM, int STEP, bool SCALE>
-__device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat16* __restrict__ y,
+// multiplied by col_scale[n] first (B6's per-column scale).  E: the output's
+// element, bf16 or f16.
+template <int BM, int STEP, bool SCALE, typename E>
+__device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], E* __restrict__ y,
                                          int m0, int c, int M, int N, const float* col_scale) {
   if (c >= N) return;  // N % 16 == 0: a 16-column slab is all in or all out
   const int t = threadIdx.x & 3;
@@ -1233,13 +1333,12 @@ __device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], __nv_bfloat
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (m + e >= M) continue;
-      __nv_bfloat16* row = y + (size_t)(m + e) * N + c;
+      E* row = y + (size_t)(m + e) * N + c;
       if constexpr (STEP == 1) {
-        *reinterpret_cast<__nv_bfloat162*>(row) =
-            __floats2bfloat162_rn(v(4 * j + e, s0), v(4 * j + 2 + e, s1));
+        *reinterpret_cast<uint32_t*>(row) = pack2<E>(v(4 * j + e, s0), v(4 * j + 2 + e, s1));
       } else {
-        row[0] = __float2bfloat16_rn(v(4 * j + e, s0));
-        row[STEP] = __float2bfloat16_rn(v(4 * j + 2 + e, s1));
+        row[0] = from_f32<E>(v(4 * j + e, s0));
+        row[STEP] = from_f32<E>(v(4 * j + 2 + e, s1));
       }
     }
   }
@@ -1285,10 +1384,10 @@ __device__ __forceinline__ void wg_merge(Acc (&acc)[BM / 2], Acc* __restrict__ w
 }
 
 // The end of a unit of B1, B6, B13, B14: the output tile's columns c (and c
-// + STEP) of this thread, bf16.
-template <int BM, typename V>
+// + STEP) of this thread, in the output's element E (bf16 or f16).
+template <int BM, typename V, typename E>
 __device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
-                                               __nv_bfloat16* __restrict__ y,
+                                               E* __restrict__ y,
                                                float* __restrict__ ws, int* __restrict__ arrivals,
                                                int* merge_flag, const WgSchedule& sc, int mt,
                                                int sp, int nt, int c, int M, int N) {
@@ -1299,23 +1398,23 @@ __device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
                });
 }
 
-template <int BM>
+template <int BM, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wg_mma(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc,
                                        int scale_d) {
   if constexpr (BM == 128)
-    wgmma_rs_n128(d, a, desc, scale_d);
+    wgmma_rs_n128<E>(d, a, desc, scale_d);
   else
-    wgmma_rs_n64(d, a, desc, scale_d);
+    wgmma_rs_n64<E>(d, a, desc, scale_d);
 }
 
 // Half a stage (two k16 steps, fragments f) into the stage's partial P, the
 // first half with scale-d = 0 (nothing carried over); asynchronous.
-template <int BM>
+template <int BM, typename E>
 __device__ __forceinline__ void wg_issue_half(float (&P)[BM / 2], const uint32_t (&f)[2][4],
                                               uint64_t desc, int first) {
   wgmma_fence();
-  wg_mma<BM>(P, f[0], desc, first ? 0 : 1);
-  wg_mma<BM>(P, f[1], desc + 2, 1);
+  wg_mma<BM, E>(P, f[0], desc, first ? 0 : 1);
+  wg_mma<BM, E>(P, f[1], desc + 2, 1);
   wgmma_commit();
 }
 
@@ -1344,6 +1443,7 @@ __device__ __forceinline__ void wg_fold(float (&acc)[BM / 2], float (&P)[BM / 2]
 template <int BM, typename V>
 struct WgConsumer {
   using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  using E = typename V::E;
   const V& v;
   const typename V::Lane ln;
   uint8_t* smem;
@@ -1367,9 +1467,9 @@ struct WgConsumer {
   __device__ __forceinline__ void first(float (&P)[BM / 2]) {
     ready(st, ph);
     v.template load<0>(fa, wt(st), stile(st), ln);
-    wg_issue_half<BM>(P, fa, desc(st), 1);
+    wg_issue_half<BM, E>(P, fa, desc(st), 1);
     v.template load<1>(fb, wt(st), stile(st), ln);
-    wg_issue_half<BM>(P, fb, desc(st) + 4, 0);  // the stage's k16 steps 2, 3
+    wg_issue_half<BM, E>(P, fb, desc(st) + 4, 0);  // the stage's k16 steps 2, 3
     wg_release_half<1>(fa);
   }
   // the next stage into P while the previous one's partial Q (its half 1
@@ -1380,12 +1480,12 @@ struct WgConsumer {
     const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
     ready(nst, nph);
     v.template load<0>(fa, wt(nst), stile(nst), ln);
-    wg_issue_half<BM>(P, fa, desc(nst), 1);
+    wg_issue_half<BM, E>(P, fa, desc(nst), 1);
     wg_release_half<1>(fb);  // the previous stage is done
     wg_fold<BM>(acc, Q);     // on the CUDA cores, while this stage's half 0 runs
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
     v.template load<1>(fb, wt(nst), stile(nst), ln);
-    wg_issue_half<BM>(P, fb, desc(nst) + 4, 0);
+    wg_issue_half<BM, E>(P, fb, desc(nst) + 4, 0);
     wg_release_half<1>(fa);
     st = nst;
     ph = nph;
@@ -1412,6 +1512,8 @@ struct WgConsumer {
 //   kFoldG, v.fold_tile<BM>(xs, st)  (B13) fold the scale into the
 //                              activation tile before any wgmma reads it
 //   kColScale, v.col_scale()   (B6) the per-column scale of the epilogue
+//   V::E                       the activations' and the output's element
+//                              (bf16, or f16 for B6)
 // No scale changes inside these contractions, so the f32 sum needs no
 // per-group fold; but the tensor cores' accumulation over one long wgmma
 // chain drifts from round-to-nearest (on an H100 the error grew with the
@@ -1424,7 +1526,7 @@ struct WgConsumer {
 template <int BM, typename V>
 __device__ __forceinline__ void wg_consume(const V& v, uint8_t* smem, uint64_t* full,
                                            uint64_t* empty, int* merge_flag, const WgSchedule& sc,
-                                           __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                                           typename V::E* __restrict__ y, float* __restrict__ ws,
                                            int* __restrict__ arrivals, int M, int N) {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
   WgConsumer<BM, V> cs{v, V::lane(threadIdx.x), smem, full, empty, 0, 0, {}, {}};
@@ -1455,7 +1557,7 @@ __device__ __forceinline__ void wg_consume(const V& v, uint8_t* smem, uint64_t* 
 template <int BM, typename V>
 __device__ __forceinline__ void wg_body(uint8_t* raw, const CUtensorMap* amap,
                                         const CUtensorMap* wmap, const CUtensorMap* smap,
-                                        const V& v, __nv_bfloat16* __restrict__ y,
+                                        const V& v, typename V::E* __restrict__ y,
                                         float* __restrict__ ws, int* __restrict__ arrivals, int M,
                                         int N, const WgSchedule& sc) {
   using R = WgRing<BM, V::kWBytes, V::kSBytes>;
@@ -1512,7 +1614,7 @@ int launch_t_wgmma(const W& w, const void* g, const void* weights, const void* s
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap gmap, wmap, smap;
-  if (!act_map(encode, &gmap, g, M, N, bm) ||
+  if (!act_map<typename W::E>(encode, &gmap, g, M, N, bm) ||
       !W::maps(encode, &wmap, &smap, weights, scale, K, N))
     return (int)cudaErrorInvalidValue;
   const WgSchedule sc = wg_schedule(M, bm, K, steps, nsplit, sps);

@@ -211,13 +211,16 @@ dyn_splitk_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ s
   sk_body<V, T, MT, COLS>(V{w, scale, sx}, xq, y, ws, arrivals, M, K, N, gps, cg, sk_smem);
 }
 
-// xq (M, K) s8, sx (M,) f32, view V's weights and scale, y (M, N) bf16
-// (y_is_bf16) or f32; the plan of ops/quant_matmul.py::splitk_plan (mt 1
+// xq (M, K) s8, sx (M,) f32, view V's weights and scale, y (M, N) of dtype
+// code y_dtype (DT_BF16 or DT_F32: the f16 epilogue is not ported, and
+// DT_F16 is refused); the plan of ops/quant_matmul.py::splitk_plan (mt 1
 // or 2) over s8 rows.
 template <typename V>
 int launch_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale, void* y,
-                      void* ws, void* arrivals, int M, int K, int N, int y_is_bf16, int mt,
+                      void* ws, void* arrivals, int M, int K, int N, int y_dtype, int mt,
                       int cols, int nsplit, int gps, int cg, cudaStream_t stream) {
+  if (y_dtype != DT_BF16 && y_dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  const bool y_is_bf16 = y_dtype == DT_BF16;
   using Acc = typename V::Acc;
   return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 1, [&](auto MT, auto COLS) {
     constexpr int kMT = decltype(MT)::value, kCOLS = decltype(COLS)::value;
@@ -611,15 +614,17 @@ int launch_dyn_bm(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtens
 }
 
 // xq (M, K) s8 and sx (M,) f32, the weights and scale of view v, y (M, N)
-// bf16 (y_is_bf16) or f32; the plan of ops/dyn_matmul.py::dyn_plan.
+// of dtype code y_dtype (DT_BF16 or DT_F32; DT_F16 refused); the plan of
+// ops/dyn_matmul.py::dyn_plan.
 template <typename V>
 int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
                      const void* scale, void* y, void* ws, void* arrivals, int M, int K, int N,
-                     int y_is_bf16, int bm, int nsplit, int sps, int ctas, cudaStream_t stream) {
+                     int y_dtype, int bm, int nsplit, int sps, int ctas, cudaStream_t stream) {
   const int steps = (K + DYN_STEP - 1) / DYN_STEP;
   if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 ||
-      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws))
+      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws) || (y_dtype != DT_BF16 && y_dtype != DT_F32))
     return (int)cudaErrorInvalidValue;
+  const bool y_is_bf16 = y_dtype == DT_BF16;
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, wmap, smap;
@@ -644,13 +649,14 @@ int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
 extern "C" {
 
 // B7, split-K tensor-core kernel (dyn_splitk_mma_kernel), one launch.  xq
-// (M,K) s8, sx (M,) f32, w (K,N) s8, scale (N,) f32, y (M,N) bf16
-// (y_is_bf16) or f32; the plan and buffers of chatglm_int8_splitk_mma, ws as
-// int32 partials; K % 32 == 0, N % 8 == 0, 16-byte aligned pointers.
+// (M,K) s8, sx (M,) f32, w (K,N) s8, scale (N,) f32, y (M,N) of dtype code
+// y_dtype (DT_BF16 or DT_F32); the plan and buffers of
+// chatglm_int8_splitk_mma, ws as int32 partials; K % 32 == 0, N % 8 == 0,
+// 16-byte aligned pointers.
 int chatglm_int8_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale,
-                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_dtype,
                             int mt, int cols, int nsplit, int gps, int cg, void* stream) {
-  return launch_dyn_splitk<Int8DynSkView>(xq, sx, w, scale, y, ws, arrivals, M, K, N, y_is_bf16,
+  return launch_dyn_splitk<Int8DynSkView>(xq, sx, w, scale, y, ws, arrivals, M, K, N, y_dtype,
                                           mt, cols, nsplit, gps, cg,
                                           reinterpret_cast<cudaStream_t>(stream));
 }
@@ -662,10 +668,10 @@ int chatglm_int8_dyn_splitk(const void* xq, const void* sx, const void* w, const
 // tiles zeroed ints that every launch leaves at 0; K % 32 == 0, N % 16 == 0,
 // 16-byte aligned pointers.
 int chatglm_int8_dyn_mma(const void* xq, const void* sx, const void* w, const void* scale,
-                         void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                         void* y, void* ws, void* arrivals, int M, int K, int N, int y_dtype,
                          int bm, int nsplit, int sps, int ctas, void* stream) {
   const Int8DynView v{static_cast<const float*>(scale)};
-  return launch_dyn_wgmma(v, xq, sx, w, scale, y, ws, arrivals, M, K, N, y_is_bf16, bm, nsplit,
+  return launch_dyn_wgmma(v, xq, sx, w, scale, y, ws, arrivals, M, K, N, y_dtype, bm, nsplit,
                           sps, ctas, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -673,10 +679,10 @@ int chatglm_int8_dyn_mma(const void* xq, const void* sx, const void* w, const vo
 // packed (K/2, N) u8 tpu order, scale (K/32, N) bf16; the plan and buffers
 // of chatglm_int8_dyn_splitk, ws as f32 partials.
 int chatglm_int4_dyn_splitk(const void* xq, const void* sx, const void* packed, const void* scale,
-                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                            void* y, void* ws, void* arrivals, int M, int K, int N, int y_dtype,
                             int mt, int cols, int nsplit, int gps, int cg, void* stream) {
   return launch_dyn_splitk<Int4DynSkView>(xq, sx, packed, scale, y, ws, arrivals, M, K, N,
-                                          y_is_bf16, mt, cols, nsplit, gps, cg,
+                                          y_dtype, mt, cols, nsplit, gps, cg,
                                           reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -684,10 +690,10 @@ int chatglm_int4_dyn_splitk(const void* xq, const void* sx, const void* packed, 
 // N) u8 tpu order, scale (K/32, N) bf16; the plan and buffers of
 // chatglm_int8_dyn_mma, ws as f32 partials.
 int chatglm_int4_dyn_mma(const void* xq, const void* sx, const void* packed, const void* scale,
-                         void* y, void* ws, void* arrivals, int M, int K, int N, int y_is_bf16,
+                         void* y, void* ws, void* arrivals, int M, int K, int N, int y_dtype,
                          int bm, int nsplit, int sps, int ctas, void* stream) {
   return launch_dyn_wgmma(Int4DynView{}, xq, sx, packed, scale, y, ws, arrivals, M, K, N,
-                          y_is_bf16, bm, nsplit, sps, ctas, reinterpret_cast<cudaStream_t>(stream));
+                          y_dtype, bm, nsplit, sps, ctas, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

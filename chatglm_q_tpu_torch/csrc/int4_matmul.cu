@@ -11,10 +11,23 @@
 // nibbles are sign-extended in registers, each 32-row group's partial sum is
 // taken in f32 on the unscaled integers, and the group scale multiplies that
 // f32 partial (the "grouped" scheme, pallas_matmul.py:316-323).  Integer
-// weights and bf16 activations are exact in the products, so the kernels
-// differ from the plain version only in summation order.
+// weights and bf16 or f16 activations are exact in the products, so the
+// kernels differ from the plain version only in summation order.
 //
-// * int4_splitk_mma_kernel (bf16, M <= SMALL_M_MAX = 64: decode at batch
+// The activations (and the output) are bf16, f16 or f32; the C entries take
+// the dtype code of common.cuh (DT_F32 / DT_BF16 / DT_F16).  The two
+// tensor-core kernels are templates over the 16-bit element E: their f16
+// forms (a float16 checkpoint's activations) run mma.sync / wgmma
+// .f32.f16.f16 at bf16's rate, each nibble turned into an f16x2 pair over
+// f16 1024 (common.cuh: nibble_pair<__half>), the same f32 sums and scale
+// folds.  The JAX package's Pallas kernel takes f16 x through the same
+// function (pallas_matmul.py:278 casts q to x's dtype, :382 writes x's
+// dtype).  The per-group scale stays f32 on the f32 partial, so at a scale
+// whose q·s falls among f16's subnormals (below 2^-14) or past 65504 the
+// kernels keep q·s exactly where the JAX package's jnp fallback
+// (linear.py:119-121) rounds it to f16 first.
+//
+// * int4_splitk_mma_kernel (bf16 / f16, M <= SMALL_M_MAX = 64: decode at batch
 //   1-4 and the speculative verify step; the TPU package's decode-M form,
 //   _int4_pipelined_kernel, serves the same M <= 64).  Bound by the weight
 //   bytes.  What keeps it near them:
@@ -22,8 +35,8 @@
 //     (16 columns x 16 K) and x as B (8 rows a tile, zero past M), so a
 //     weight is dequantized once whatever M is; each packed byte is one A
 //     register (its two nibbles are neighbouring K rows), and
-//     int4_pair_bf16x2 (common.cuh) turns it into bf16x2 with one PRMT, one
-//     LOP3 and one bf16x2 FMA, no int-to-float conversion;
+//     int4_pair (common.cuh) turns it into bf16x2 (f16x2) with one PRMT,
+//     one LOP3 and one bf16x2 (f16x2) FMA, no int-to-float conversion;
 //   - each lane reads 16 contiguous bytes (8 where N is narrow or M > 8) of
 //     four byte rows of a group by ld.global.nc, into two register sets
 //     that alternate, so two groups' loads are in flight while one is
@@ -39,8 +52,8 @@
 //     can replay it.
 //   The body is common.cuh's sk_body over Int4SkView, shared with B6's, B7's
 //   and B8's decode kernels.
-// * int4_gemv_kernel (f32 activations, and bf16 above SMALL_M_MAX where
-//   N % 16 != 0): bound by bytes — every weight byte is read once per call
+// * int4_gemv_kernel (f32 activations, and bf16 / f16 above SMALL_M_MAX
+//   where N % 16 != 0): bound by bytes — every weight byte is read once per call
 //   and there are only ~2 operations per byte.  Each lane
 //   reads 8 neighbouring N bytes of a byte row (one 8-byte load; a warp reads
 //   256 contiguous bytes), so loads coalesce along the N-contiguous layout.
@@ -50,14 +63,14 @@
 //   block.  Warps reduce in shared memory in a fixed order, blocks write f32
 //   partials to a workspace, and splitk_reduce_kernel (common.cuh) sums the
 //   splits in a fixed order and casts: deterministic, no atomics.
-// * int4_wgmma_kernel (bf16 above SMALL_M_MAX: prefill, engine chunks,
+// * int4_wgmma_kernel (bf16 / f16 above SMALL_M_MAX: prefill, engine chunks,
 //   training): bound by operations (each weight serves every row of x).
 //   A persistent Hopper kernel: a producer warpgroup keeps an 8-stage ring
 //   of TMA tiles in flight (x's rows, the packed bytes, the scales),
 //   ordered by mbarriers; two consumer warpgroups each take 64 of a tile's
 //   128 columns and run wgmma with the weights as A from registers (the
 //   split-K kernel's orientation: each packed byte one A register through
-//   int4_pair_bf16x2, no int-to-float conversion; a thread's two columns
+//   int4_pair, no int-to-float conversion; a thread's two columns
 //   are neighbours, so a u16 load feeds two registers and a bf16x2 store
 //   writes two outputs) and x's rows as B straight from the 128B-swizzled
 //   TMA tile, so each weight is dequantized once per block and stage.  Numerics are the exact
@@ -234,7 +247,7 @@ void gemv(const T* x, const uint8_t* packed, const __nv_bfloat16* scale, T* y, f
 }
 
 // ---------------------------------------------------------------------------
-// Hopper tensor-core kernel (bf16 activations, M > SMALL_M_MAX: prefill,
+// Hopper tensor-core kernel (bf16 / f16 activations, M > SMALL_M_MAX: prefill,
 // training)
 // ---------------------------------------------------------------------------
 
@@ -271,6 +284,7 @@ struct WgGroup {
   float s_lo, s_hi;
 };
 
+template <typename E>
 __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __nv_bfloat16* ss,
                                         int o0, int o1, int c, int gi) {
   const uint8_t* p = ps + gi * 16 * WG_N;
@@ -282,10 +296,10 @@ __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __n
   for (int h = 0; h < 2; ++h) {
     const uint32_t lo = v[2 * h], hi = v[2 * h + 1];
     const uint32_t lo4 = lo >> 4, hi4 = hi >> 4;
-    g.a[h][0] = int4_pair_bf16x2(lo, lo4, 0);  // column c
-    g.a[h][1] = int4_pair_bf16x2(lo, lo4, 1);  // column c + 1
-    g.a[h][2] = int4_pair_bf16x2(hi, hi4, 0);
-    g.a[h][3] = int4_pair_bf16x2(hi, hi4, 1);
+    g.a[h][0] = int4_pair<E>(lo, lo4, 0);  // column c
+    g.a[h][1] = int4_pair<E>(lo, lo4, 1);  // column c + 1
+    g.a[h][2] = int4_pair<E>(hi, hi4, 0);
+    g.a[h][3] = int4_pair<E>(hi, hi4, 1);
   }
   const uint32_t s = *reinterpret_cast<const uint32_t*>(ss + gi * WG_N + c);
   g.s_lo = __uint_as_float(s << 16);
@@ -294,11 +308,11 @@ __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __n
 
 // The group's f32 partial (its first wgmma with scale-d = 0, so nothing is
 // carried over) into part; asynchronous, waited for by wg_finish.
-template <int BM>
+template <int BM, typename E>
 __device__ __forceinline__ void wg_issue(float (&part)[BM / 2], WgGroup& g, uint64_t desc) {
   wgmma_fence();
-  wg_mma<BM>(part, g.a[0], desc, 0);
-  wg_mma<BM>(part, g.a[1], desc + 2, 1);
+  wg_mma<BM, E>(part, g.a[0], desc, 0);
+  wg_mma<BM, E>(part, g.a[1], desc + 2, 1);
   wgmma_commit();
 }
 // Wait until at most PENDING groups are in flight (this one done), then acc
@@ -329,11 +343,12 @@ __device__ __forceinline__ void wg_finish(float (&acc)[BM / 2], float (&part)[BM
 // from registers, x's K-major rows as B from the swizzled tile) into one of
 // two partial accumulators, and while they run the CUDA cores fold the
 // other partial, the previous group's, into acc with that group's scale.
-template <int BM>
+// E: x's and y's element, bf16 or f16.
+template <int BM, typename E>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap pmap,
-                  const __grid_constant__ CUtensorMap smap, __nv_bfloat16* __restrict__ y,
+                  const __grid_constant__ CUtensorMap smap, E* __restrict__ y,
                   float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
                   const WgSchedule sc) {
   using L = WgSmem<BM>;
@@ -378,25 +393,25 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // and out of it and keeps the wgmmas asynchronous.
     WgGroup ga, gb;
     mbar_wait(&full[st], ph);
-    wg_load(ga, stage_p(st), stage_s(st), o0, o1, c, 0);
-    wg_issue<BM>(p0, ga, sw128_desc(smem + st * L::XS));
+    wg_load<E>(ga, stage_p(st), stage_s(st), o0, o1, c, 0);
+    wg_issue<BM, E>(p0, ga, sw128_desc(smem + st * L::XS));
     for (int i = 0; i + 1 < nstages; ++i) {
       const int nst = st + 1 == WG_STAGES ? 0 : st + 1;
       const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
-      wg_load(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
-      wg_issue<BM>(p1, gb, sw128_desc(smem + st * L::XS) + 4);  // the stage's k16 steps 2, 3
+      wg_load<E>(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
+      wg_issue<BM, E>(p1, gb, sw128_desc(smem + st * L::XS) + 4);  // the stage's k16 steps 2, 3
       wg_finish<BM, 1>(acc, p0, ga);
       mbar_wait(&full[nst], nph);
-      wg_load(ga, stage_p(nst), stage_s(nst), o0, o1, c, 0);
-      wg_issue<BM>(p0, ga, sw128_desc(smem + nst * L::XS));
+      wg_load<E>(ga, stage_p(nst), stage_s(nst), o0, o1, c, 0);
+      wg_issue<BM, E>(p0, ga, sw128_desc(smem + nst * L::XS));
       wg_finish<BM, 1>(acc, p1, gb);
       if (lane == 0) mbar_arrive(&empty[st]);  // this warp's wgmmas and loads of it are done
       st = nst;
       ph = nph;
     }
     if (ng % WG_STAGE_GROUPS == 0) {
-      wg_load(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
-      wg_issue<BM>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
+      wg_load<E>(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
+      wg_issue<BM, E>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
       wg_finish<BM, 1>(acc, p0, ga);
       wg_finish<BM, 0>(acc, p1, gb);
     } else {
@@ -412,29 +427,29 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int BM>
+template <int BM, typename E>
 int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
                  void* arrivals, int M, int K, int N, const WgSchedule& sc, int ctas,
                  cudaStream_t stream) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, pmap, smap;
-  if (!act_map(encode, &xmap, x, M, K, BM) ||
+  if (!act_map<E>(encode, &xmap, x, M, K, BM) ||
       !tensor_map_2d(encode, &pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, K / 2, N, (size_t)N,
                      16 * WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map_2d(encode, &smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, K / 32, N,
                      (size_t)N * 2, WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM>>(WgSmem<BM>::BYTES);
+  const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM, E>>(WgSmem<BM>::BYTES);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  int4_wgmma_kernel<BM><<<ctas, WG_THREADS, WgSmem<BM>::BYTES, stream>>>(
-      xmap, pmap, smap, static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+  int4_wgmma_kernel<BM, E><<<ctas, WG_THREADS, WgSmem<BM>::BYTES, stream>>>(
+      xmap, pmap, smap, static_cast<E*>(y), static_cast<float*>(ws),
       static_cast<int*>(arrivals), M, K, N, sc);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Split-K tensor-core kernel (bf16 activations, M <= 64: decode, verify)
+// Split-K tensor-core kernel (bf16 / f16 activations, M <= 64: decode, verify)
 // ---------------------------------------------------------------------------
 
 // B1's view of common.cuh's split-K body.  A group is SkGroup: its packed
@@ -444,9 +459,10 @@ int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, 
 // mma's k16 step) takes byte rows 4t + 2h (A regs 0/1, B reg 0) and 4t + 2h
 // + 1 (A regs 2/3, B reg 1); each packed byte is one A register (its two
 // nibbles neighbouring K rows); each group's f32 partial is multiplied by
-// its scale into the accumulator.
+// its scale into the accumulator.  E: x's element, bf16 or f16.
+template <typename E>
 struct Int4SkView {
-  using X = __nv_bfloat16;
+  using X = E;
   using Acc = float;
   template <int COLS>
   using Group = SkGroup<COLS>;
@@ -467,7 +483,7 @@ struct Int4SkView {
   // acc += the group's products, its f32 partial of each column pair times
   // the pair's scales
   template <int MT, int COLS>
-  __device__ __forceinline__ void group(const SkGroup<COLS>& d, const __nv_bfloat16* xs,
+  __device__ __forceinline__ void group(const SkGroup<COLS>& d, const E* xs,
                                         int xs_stride, int kl, int M,
                                         float (&acc)[MT][COLS / 2][4]) const {
     const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
@@ -493,14 +509,14 @@ struct Int4SkView {
         for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint32_t a[4] = {int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p),
-                               int4_pair_bf16x2(d.w[2 * h][q], wsh[2 * h][q], p + 1),
-                               int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p),
-                               int4_pair_bf16x2(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p + 1)};
+        const uint32_t a[4] = {int4_pair<E>(d.w[2 * h][q], wsh[2 * h][q], p),
+                               int4_pair<E>(d.w[2 * h][q], wsh[2 * h][q], p + 1),
+                               int4_pair<E>(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p),
+                               int4_pair<E>(d.w[2 * h + 1][q], wsh[2 * h + 1][q], p + 1)};
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const uint32_t bb[2] = {h ? b[mt].z : b[mt].x, h ? b[mt].w : b[mt].y};
-          mma_bf16_16816(part[mt], a, bb);
+          mma_16816<E>(part[mt], a, bb);
         }
       }
       const float s_lo = __uint_as_float(d.s[j] << 16);          // column 2j
@@ -516,19 +532,19 @@ struct Int4SkView {
   }
   template <typename T>
   __device__ __forceinline__ T out(float v, int, int) const {
-    return __float2bfloat16_rn(v);
+    return from_f32<T>(v);
   }
 };
 
-template <int MT, int COLS>
+template <int MT, int COLS, typename E>
 __global__ void __launch_bounds__(SK_THREADS, MT <= 2 ? 4 : 2)
-int4_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                       const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+int4_splitk_mma_kernel(const E* __restrict__ x, const uint8_t* __restrict__ packed,
+                       const __nv_bfloat16* __restrict__ scale, E* __restrict__ y,
                        float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
                        int gps, int cg) {
   extern __shared__ __align__(16) unsigned char sk_smem[];
-  sk_body<Int4SkView, __nv_bfloat16, MT, COLS>(Int4SkView{packed, scale}, x, y, ws, arrivals, M,
-                                               K, N, gps, cg, sk_smem);
+  sk_body<Int4SkView<E>, E, MT, COLS>(Int4SkView<E>{packed, scale}, x, y, ws, arrivals, M, K, N,
+                                      gps, cg, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -540,6 +556,7 @@ int4_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __res
 // dtype, before the dot.  Output columns 2i and 2i+1 are the low and high
 // nibbles of byte row i.
 struct Int4TView {
+  using E = __nv_bfloat16;  // g's element (the transposed kernels take bf16 g)
   const uint8_t* packed;
   const __nv_bfloat16* scale;
   static constexpr int kCols = 4;  // two byte rows, inside one 32-row group
@@ -665,52 +682,60 @@ struct Int4TView {
 
 extern "C" {
 
-// Split-K CUDA-core kernel.  x is bf16 (x_is_bf16) or f32, y the same type;
-// ws holds nsplit * M * N floats; K % 32 == 0, N % 8 == 0, 16-byte aligned
-// pointers (checked by the wrapper).
+// Split-K CUDA-core kernel.  x of dtype code x_dtype (DT_F32, DT_BF16 or
+// DT_F16), y the same type; ws holds nsplit * M * N floats; K % 32 == 0,
+// N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
 int chatglm_int4_gemv(const void* x, const void* packed, const void* scale, void* y, void* ws,
-                      int M, int K, int N, int x_is_bf16, int nsplit, int groups_per_split,
+                      int M, int K, int N, int x_dtype, int nsplit, int groups_per_split,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scale);
   float* w = static_cast<float*>(ws);
-  if (x_is_bf16)
-    gemv<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), p, sc,
-                        static_cast<__nv_bfloat16*>(y), w, M, K, N, nsplit, groups_per_split, s);
-  else
-    gemv<float>(static_cast<const float*>(x), p, sc, static_cast<float*>(y), w, M, K, N, nsplit,
-                groups_per_split, s);
-  return (int)cudaGetLastError();
-}
-
-// Split-K tensor-core kernel, bf16 only, one launch: M <= 8 * mt (mt 1-6
-// or 8), cols 16 (N % 16 == 0) or 8 columns a lane, nsplit splits of gps
-// groups, x staged cg groups at a time (cg % 8 == 0); ws holds
-// N/(8 cols) * nsplit * M * 8 cols floats (unused at nsplit 1), arrivals
-// N/(8 cols) zeroed ints that every launch leaves at 0; K % 32 == 0,
-// N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
-int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale, void* y,
-                            void* ws, void* arrivals, int M, int K, int N, int mt, int cols,
-                            int nsplit, int gps, int cg, void* stream) {
-  return sk_dispatch<8>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
-    return sk_launch<int4_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value>>(
-        N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y),
-        static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, gps, cg);
+  return with_act_type(x_dtype, [&](auto t) {
+    using T = decltype(t);
+    gemv<T>(static_cast<const T*>(x), p, sc, static_cast<T*>(y), w, M, K, N, nsplit,
+            groups_per_split, s);
+    return (int)cudaGetLastError();
   });
 }
 
-// Hopper tensor-core kernel, bf16 only, one launch: tiles of bm (64 or 128)
-// rows x 128 columns, nsplit K splits of gps groups (even where nsplit > 1:
-// a split starts on a stage) over ctas persistent blocks
-// (ops/quant_matmul.py::mma_plan); ws holds tiles * nsplit * bm * 128
-// floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
-// launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+// Split-K tensor-core kernel, bf16 or f16 (x_dtype DT_BF16 / DT_F16, y the
+// same type), one launch: M <= 8 * mt (mt 1-6 or 8), cols 16 (N % 16 == 0)
+// or 8 columns a lane, nsplit splits of gps groups, x staged cg groups at a
+// time (cg % 8 == 0); ws holds N/(8 cols) * nsplit * M * 8 cols floats
+// (unused at nsplit 1), arrivals N/(8 cols) zeroed ints that every launch
+// leaves at 0; K % 32 == 0, N % 8 == 0, 16-byte aligned pointers (checked
+// by the wrapper).
+int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale, void* y,
+                            void* ws, void* arrivals, int M, int K, int N, int x_dtype, int mt,
+                            int cols, int nsplit, int gps, int cg, void* stream) {
+  return with_act_type(x_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return sk_dispatch<8>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+        return sk_launch<int4_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value, E>>(
+            N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
+            static_cast<const E*>(x), static_cast<const uint8_t*>(packed),
+            static_cast<const __nv_bfloat16*>(scale), static_cast<E*>(y),
+            static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, gps, cg);
+      });
+    }
+  });
+}
+
+// Hopper tensor-core kernel, bf16 or f16 (x_dtype DT_BF16 / DT_F16, y the
+// same type), one launch: tiles of bm (64 or 128) rows x 128 columns,
+// nsplit K splits of gps groups (even where nsplit > 1: a split starts on a
+// stage) over ctas persistent blocks (ops/quant_matmul.py::mma_plan); ws
+// holds tiles * nsplit * bm * 128 floats (unused at nsplit 1), arrivals 2 *
+// tiles zeroed ints that every launch leaves at 0; K % 32 == 0, N % 16 ==
+// 0, 16-byte aligned pointers.
 int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
-                       void* arrivals, int M, int K, int N, int bm, int nsplit, int gps, int ctas,
-                       void* stream) {
+                       void* arrivals, int M, int K, int N, int x_dtype, int bm, int nsplit,
+                       int gps, int ctas, void* stream) {
   const int G = K / 32, steps = (G + WG_STAGE_GROUPS - 1) / WG_STAGE_GROUPS;
   if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 || gps < 1 || (nsplit > 1 && gps % 2) ||
       (nsplit - 1) * gps >= G || nsplit * gps < G)
@@ -719,16 +744,24 @@ int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, voi
   if (!wg_plan_ok(steps, bm, nsplit, sps, ctas, ws)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
-  if (bm == 128)
-    return launch_wgmma<128>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
-  return launch_wgmma<64>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+  return with_act_type(x_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (bm == 128)
+        return launch_wgmma<128, E>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+      return launch_wgmma<64, E>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+    }
+  });
 }
 
 // B14, CUDA-core form: out (M, K) = g (M, N) @ dequant(packed (K/2, N),
 // scale (K/32, N))ᵀ, g and out f32; K % 32 == 0, N % 8 == 0, aligned
 // pointers.
 int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, void* out, int M,
-                        int K, int N, void* stream) {
+                        int K, int N, int g_dtype, void* stream) {
+  if (g_dtype != DT_F32) return (int)cudaErrorInvalidValue;
   const Int4TView wv{static_cast<const uint8_t*>(packed),
                      static_cast<const __nv_bfloat16*>(scale)};
   t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
@@ -741,8 +774,9 @@ int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, vo
 // (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
 // aligned pointers.
 int chatglm_int4_t_splitk(const void* g, const void* packed, const void* scale, void* out,
-                          void* ws, void* arrivals, int M, int K, int N, int mt, int nsplit,
-                          int cps, int cs, void* stream) {
+                          void* ws, void* arrivals, int M, int K, int N, int g_dtype, int mt,
+                          int nsplit, int cps, int cs, void* stream) {
+  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
   const Int4TView wv{static_cast<const uint8_t*>(packed),
                      static_cast<const __nv_bfloat16*>(scale)};
   return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
@@ -756,8 +790,9 @@ int chatglm_int4_t_splitk(const void* g, const void* packed, const void* scale, 
 // floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
 // launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
 int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, void* out,
-                         void* ws, void* arrivals, int M, int K, int N, int bm, int nsplit,
-                         int sps, int ctas, void* stream) {
+                         void* ws, void* arrivals, int M, int K, int N, int g_dtype, int bm,
+                         int nsplit, int sps, int ctas, void* stream) {
+  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
   const Int4TView wv{static_cast<const uint8_t*>(packed),
                      static_cast<const __nv_bfloat16*>(scale)};
   return launch_t_wgmma(wv, g, packed, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,

@@ -10,7 +10,20 @@
 // The TPU's "bt" scheme (a workaround for the TPU's int-to-float convert) is
 // not carried: the card converts natively.
 //
-// * int8_splitk_mma_kernel (bf16, M <= MMA_MIN_M = 16: decode at batch 1-16):
+// The activations (and the output) are bf16, f16 or f32; the C entries take
+// common.cuh's dtype code.  The tensor-core kernels are templates over the
+// 16-bit element E: their f16 forms (a float16 checkpoint's activations)
+// run mma.sync / wgmma .f32.f16.f16, each weight byte converted exactly to
+// f16 by the bias trick f16's 11 significant bits allow (common.cuh:
+// s8x4_f16x2), the f32 scale on the f32 sum as in bf16.  This is the
+// Pallas kernel's function in f16 (pallas_matmul.py:_int8_fwd_kernel's
+// convert scheme: q cast to x's dtype, the f32 scale on the f32
+// accumulator); the JAX package's jnp fallback (linear.py:65-67) rounds
+// the scale and w·s to x's dtype instead: the same function, rounded
+// elsewhere.
+//
+// * int8_splitk_mma_kernel (bf16 / f16, M <= MMA_MIN_M = 16: decode at batch
+//   1-16):
 //   bound by the weight bytes (one byte a weight, two operations a byte per
 //   row of x).  common.cuh's split-K body, B1's decode design, over
 //   Int8SkView: mma.sync m16n8k16 bf16 with the weights as A and x's rows as
@@ -31,15 +44,15 @@
 //   round-to-nearest (~17 x 2^-23 of sum|terms| over 4096 k16 steps), so
 //   each 32-row group's products go to a fresh partial, added to the f32
 //   sum.
-// * int8_gemv_kernel (f32 activations, and bf16 above 16 rows where N % 16
-//   != 0): the CUDA-core split-K form, each
+// * int8_gemv_kernel (f32 activations, and bf16 / f16 above 16 rows where
+//   N % 16 != 0): the CUDA-core split-K form, each
 //   lane reading 8 neighbouring N bytes of a weight row (one 8-byte load; a
 //   warp reads 256 contiguous bytes), K split across blocks (grid.y) and the
 //   4 warps of a block in chunks of 32 rows, warps reduced in shared memory
 //   in a fixed order, and splitk_reduce_kernel (common.cuh) summing the f32
 //   partials of the splits in a fixed order, applying the scale and
 //   casting.  Deterministic, no atomics.
-// * int8_wgmma_kernel (bf16, M > MMA_MIN_M: prefill, engine chunks,
+// * int8_wgmma_kernel (bf16 / f16, M > MMA_MIN_M: prefill, engine chunks,
 //   training): bound by operations.  common.cuh's Hopper mainloop (B1's
 //   persistent TMA + mbarrier ring and producer warpgroup, wgmma with the
 //   weights as A from registers and x's rows as B from the swizzled tile,
@@ -179,7 +192,7 @@ void gemv(const T* x, const int8_t* w, const float* scale, T* y, float* ws, int 
 }
 
 // ---------------------------------------------------------------------------
-// Split-K tensor-core kernel (bf16 activations, M <= MMA_MIN_M: decode)
+// Split-K tensor-core kernel (bf16 / f16 activations, M <= MMA_MIN_M: decode)
 // ---------------------------------------------------------------------------
 
 // B6's view of common.cuh's split-K body.  A group is Int8SkGroup: K rows
@@ -190,9 +203,10 @@ void gemv(const T* x, const int8_t* w, const float* scale, T* y, float* ws, int 
 // two rows' pairs, (r0.c, r1.c, r0.c1, r1.c1), and s8x4_bf16x2 makes them A
 // registers 0 and 1 (or 2 and 3).  Each group's products go to a fresh f32
 // partial (two k16 steps), added to the accumulator; the scale multiplies
-// the merged sum.
+// the merged sum.  E: x's element, bf16 or f16.
+template <typename E>
 struct Int8SkView {
-  using X = __nv_bfloat16;
+  using X = E;
   using Acc = float;
   template <int COLS>
   using Group = Int8SkGroup<COLS>;
@@ -207,7 +221,7 @@ struct Int8SkView {
     int8_sk_load<COLS>(d, wcol, g, t, N, ok);
   }
   template <int MT, int COLS>
-  __device__ __forceinline__ void group(const Int8SkGroup<COLS>& d, const __nv_bfloat16* xs,
+  __device__ __forceinline__ void group(const Int8SkGroup<COLS>& d, const E* xs,
                                         int xs_stride, int kl, int M,
                                         float (&acc)[MT][COLS / 2][4]) const {
     const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
@@ -230,12 +244,12 @@ struct Int8SkView {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t a[4];
-        s8x4_bf16x2(__byte_perm(d.w[4 * h][q], d.w[4 * h + 1][q], sel), a[0], a[1]);
-        s8x4_bf16x2(__byte_perm(d.w[4 * h + 2][q], d.w[4 * h + 3][q], sel), a[2], a[3]);
+        s8x4_pair<E>(__byte_perm(d.w[4 * h][q], d.w[4 * h + 1][q], sel), a[0], a[1]);
+        s8x4_pair<E>(__byte_perm(d.w[4 * h + 2][q], d.w[4 * h + 3][q], sel), a[2], a[3]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const uint32_t bb[2] = {h ? b[mt].z : b[mt].x, h ? b[mt].w : b[mt].y};
-          mma_bf16_16816(part[mt], a, bb);
+          mma_16816<E>(part[mt], a, bb);
         }
       }
 #pragma unroll
@@ -246,23 +260,23 @@ struct Int8SkView {
   }
   template <typename T>
   __device__ __forceinline__ T out(float v, int, int n) const {
-    return __float2bfloat16_rn(v * __ldg(scale + n));
+    return from_f32<T>(v * __ldg(scale + n));
   }
 };
 
-template <int MT, int COLS>
+template <int MT, int COLS, typename E>
 __global__ void __launch_bounds__(SK_THREADS, 4)
-int8_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                       const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+int8_splitk_mma_kernel(const E* __restrict__ x, const int8_t* __restrict__ w,
+                       const float* __restrict__ scale, E* __restrict__ y,
                        float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
                        int gps, int cg) {
   extern __shared__ __align__(16) unsigned char sk_smem[];
-  sk_body<Int8SkView, __nv_bfloat16, MT, COLS>(Int8SkView{w, scale}, x, y, ws, arrivals, M, K, N,
-                                               gps, cg, sk_smem);
+  sk_body<Int8SkView<E>, E, MT, COLS>(Int8SkView<E>{w, scale}, x, y, ws, arrivals, M, K, N, gps,
+                                      cg, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
-// Hopper tensor-core kernel (bf16 activations, M > MMA_MIN_M)
+// Hopper tensor-core kernel (bf16 / f16 activations, M > MMA_MIN_M)
 // ---------------------------------------------------------------------------
 
 // B6's view of common.cuh's mainloop.  A stage: 64 K rows x 128 columns of w
@@ -270,8 +284,11 @@ int8_splitk_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
 // rows gid and gid + 8 of a warp are columns c and c + 1, so the u16 loads
 // of K rows k and k + 1 at columns c, c + 1 hold both rows' K pairs: one
 // PRMT interleaves them and s8x4_bf16x2 converts them exactly.  No scale
-// tile: the per-column scale multiplies the f32 sum in the epilogue.
+// tile: the per-column scale multiplies the f32 sum in the epilogue.  E:
+// x's and y's element, bf16 or f16.
+template <typename E_>
 struct Int8FwdView {
+  using E = E_;
   const float* scale;
   static constexpr int kWBytes = WG_STEP * WG_N;
   static constexpr int kSBytes = 0;
@@ -312,31 +329,31 @@ struct Int8FwdView {
 #pragma unroll
       for (int e = 0; e < 4; ++e) r[e] = *reinterpret_cast<const uint16_t*>(p + ln.o[e]);
       // (k, c), (k + 1, c), (k, c + 1), (k + 1, c + 1): D row gid's pair, then gid + 8's
-      s8x4_bf16x2(__byte_perm(r[0], r[1], 0x5140), f[i][0], f[i][1]);
-      s8x4_bf16x2(__byte_perm(r[2], r[3], 0x5140), f[i][2], f[i][3]);
+      s8x4_pair<E>(__byte_perm(r[0], r[1], 0x5140), f[i][0], f[i][1]);
+      s8x4_pair<E>(__byte_perm(r[2], r[3], 0x5140), f[i][2], f[i][3]);
     }
   }
 };
 
-template <int BM>
+template <int BM, typename E>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap wmap, const Int8FwdView v,
-                  __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                  const __grid_constant__ CUtensorMap wmap, const Int8FwdView<E> v,
+                  E* __restrict__ y, float* __restrict__ ws,
                   int* __restrict__ arrivals, int M, int N, const WgSchedule sc) {
   extern __shared__ uint8_t wg_smem_raw[];
-  wg_body<BM, Int8FwdView>(wg_smem_raw, &xmap, &wmap, &wmap, v, y, ws, arrivals, M, N, sc);
+  wg_body<BM, Int8FwdView<E>>(wg_smem_raw, &xmap, &wmap, &wmap, v, y, ws, arrivals, M, N, sc);
 }
 
-template <int BM>
-int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8FwdView& v, void* y,
-                 void* ws, void* arrivals, int M, int N, const WgSchedule& sc, int ctas,
+template <int BM, typename E>
+int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8FwdView<E>& v,
+                 void* y, void* ws, void* arrivals, int M, int N, const WgSchedule& sc, int ctas,
                  cudaStream_t stream) {
-  constexpr int bytes = WgRing<BM, Int8FwdView::kWBytes, Int8FwdView::kSBytes>::BYTES;
-  const cudaError_t opt_in = smem_opt_in<int8_wgmma_kernel<BM>>(bytes);
+  constexpr int bytes = WgRing<BM, Int8FwdView<E>::kWBytes, Int8FwdView<E>::kSBytes>::BYTES;
+  const cudaError_t opt_in = smem_opt_in<int8_wgmma_kernel<BM, E>>(bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  int8_wgmma_kernel<BM><<<ctas, WG_THREADS, bytes, stream>>>(
-      xmap, wmap, v, static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+  int8_wgmma_kernel<BM, E><<<ctas, WG_THREADS, bytes, stream>>>(
+      xmap, wmap, v, static_cast<E*>(y), static_cast<float*>(ws),
       static_cast<int*>(arrivals), M, N, sc);
   return (int)cudaGetLastError();
 }
@@ -348,6 +365,7 @@ int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8Fwd
 // The int8 weight view of common.cuh's transposed kernels: the scale folds
 // into g; the int8 rows convert to floats / bf16 exactly.
 struct Int8TView {
+  using E = __nv_bfloat16;  // g's element (the transposed kernels take bf16 g)
   const int8_t* w;
   const float* scale;
   static constexpr int kCols = 4;
@@ -485,74 +503,91 @@ struct Int8TView {
 
 extern "C" {
 
-// Split-K CUDA-core kernel.  x is bf16 (x_is_bf16) or f32, y the same type;
-// scale f32; ws holds nsplit * M * N floats; K % 32 == 0, N % 8 == 0,
-// 16-byte aligned pointers (checked by the wrapper).
+// Split-K CUDA-core kernel.  x of dtype code x_dtype (DT_F32, DT_BF16 or
+// DT_F16), y the same type; scale f32; ws holds nsplit * M * N floats;
+// K % 32 == 0, N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
 int chatglm_int8_gemv(const void* x, const void* w, const void* scale, void* y, void* ws, int M,
-                      int K, int N, int x_is_bf16, int nsplit, int chunks_per_split,
+                      int K, int N, int x_dtype, int nsplit, int chunks_per_split,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   float* part = static_cast<float*>(ws);
-  if (x_is_bf16)
-    gemv<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), wq, sc,
-                        static_cast<__nv_bfloat16*>(y), part, M, K, N, nsplit, chunks_per_split, s);
-  else
-    gemv<float>(static_cast<const float*>(x), wq, sc, static_cast<float*>(y), part, M, K, N,
-                nsplit, chunks_per_split, s);
-  return (int)cudaGetLastError();
-}
-
-// Split-K tensor-core kernel (int8_splitk_mma_kernel), bf16 only, one
-// launch: M <= 8 * mt (mt 1 or 2), cols 16 (mt 1, N % 16 == 0) or 8 columns
-// a lane, nsplit splits of gps groups, x staged cg groups at a time (cg % 8
-// == 0); ws holds N/(8 cols) * nsplit * M * 8 cols floats (unused at nsplit
-// 1), arrivals N/(8 cols) zeroed ints that every launch leaves at 0; K % 32
-// == 0, N % 8 == 0, 16-byte aligned pointers (checked by the wrapper).
-int chatglm_int8_splitk_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
-                            void* arrivals, int M, int K, int N, int mt, int cols, int nsplit,
-                            int gps, int cg, void* stream) {
-  return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
-    return sk_launch<int8_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value>>(
-        N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
-        static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, gps, cg);
+  return with_act_type(x_dtype, [&](auto t) {
+    using T = decltype(t);
+    gemv<T>(static_cast<const T*>(x), wq, sc, static_cast<T*>(y), part, M, K, N, nsplit,
+            chunks_per_split, s);
+    return (int)cudaGetLastError();
   });
 }
 
-// Hopper tensor-core kernel (int8_wgmma_kernel), bf16 only, one launch:
-// tiles of bm (64 or 128) rows x 128 columns, nsplit K splits of sps
-// 64-row stages over ctas persistent blocks (ops/quant_matmul.py::wg_plan);
-// ws holds tiles * nsplit * bm * 128 floats (unused at nsplit 1), arrivals
-// 2 * tiles zeroed ints that every launch leaves at 0; K % 32 == 0,
-// N % 16 == 0, 16-byte aligned pointers.
+// Split-K tensor-core kernel (int8_splitk_mma_kernel), bf16 or f16 (x_dtype
+// DT_BF16 / DT_F16, y the same type), one launch: M <= 8 * mt (mt 1 or 2),
+// cols 16 (mt 1, N % 16 == 0) or 8 columns a lane, nsplit splits of gps
+// groups, x staged cg groups at a time (cg % 8 == 0); ws holds N/(8 cols)
+// * nsplit * M * 8 cols floats (unused at nsplit 1), arrivals N/(8 cols)
+// zeroed ints that every launch leaves at 0; K % 32 == 0, N % 8 == 0,
+// 16-byte aligned pointers (checked by the wrapper).
+int chatglm_int8_splitk_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
+                            void* arrivals, int M, int K, int N, int x_dtype, int mt, int cols,
+                            int nsplit, int gps, int cg, void* stream) {
+  return with_act_type(x_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+        return sk_launch<int8_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value, E>>(
+            N, cols, nsplit, sk_smem_bytes(M, cg, cols, 2), reinterpret_cast<cudaStream_t>(stream),
+            static_cast<const E*>(x), static_cast<const int8_t*>(w),
+            static_cast<const float*>(scale), static_cast<E*>(y), static_cast<float*>(ws),
+            static_cast<int*>(arrivals), M, K, N, gps, cg);
+      });
+    }
+  });
+}
+
+// Hopper tensor-core kernel (int8_wgmma_kernel), bf16 or f16 (x_dtype
+// DT_BF16 / DT_F16, y the same type), one launch: tiles of bm (64 or 128)
+// rows x 128 columns, nsplit K splits of sps 64-row stages over ctas
+// persistent blocks (ops/quant_matmul.py::wg_plan); ws holds tiles *
+// nsplit * bm * 128 floats (unused at nsplit 1), arrivals 2 * tiles zeroed
+// ints that every launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte
+// aligned pointers.
 int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
-                       void* arrivals, int M, int K, int N, int bm, int nsplit, int sps, int ctas,
-                       void* stream) {
+                       void* arrivals, int M, int K, int N, int x_dtype, int bm, int nsplit,
+                       int sps, int ctas, void* stream) {
   const int steps = (K + WG_STEP - 1) / WG_STEP;
   if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 ||
       !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws))
     return (int)cudaErrorInvalidValue;
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap xmap, wmap;
-  if (!act_map(encode, &xmap, x, M, K, bm) ||
-      !tensor_map_2d(encode, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N, WG_STEP,
-                     WG_N, CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
-  const Int8FwdView v{static_cast<const float*>(scale)};
   const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (bm == 128) return launch_wgmma<128>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
-  return launch_wgmma<64>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
+  return with_act_type(x_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      CUtensorMap xmap, wmap;
+      if (!act_map<E>(encode, &xmap, x, M, K, bm) ||
+          !tensor_map_2d(encode, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N,
+                         WG_STEP, WG_N, CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+      const Int8FwdView<E> v{static_cast<const float*>(scale)};
+      if (bm == 128)
+        return launch_wgmma<128, E>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
+      return launch_wgmma<64, E>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
+    }
+  });
 }
 
 // B13, CUDA-core form: out (M, K) = (g (M, N) * scale (N,)) @ w (K, N)ᵀ, g
 // and out f32; N % 8 == 0, aligned pointers.
 int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* out, int M, int K,
-                        int N, void* stream) {
+                        int N, int g_dtype, void* stream) {
+  if (g_dtype != DT_F32) return (int)cudaErrorInvalidValue;
   const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
   t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
          reinterpret_cast<cudaStream_t>(stream));
@@ -564,8 +599,9 @@ int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* o
 // (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
 // aligned pointers.
 int chatglm_int8_t_splitk(const void* g, const void* w, const void* scale, void* out, void* ws,
-                          void* arrivals, int M, int K, int N, int mt, int nsplit, int cps,
-                          int cs, void* stream) {
+                          void* arrivals, int M, int K, int N, int g_dtype, int mt, int nsplit,
+                          int cps, int cs, void* stream) {
+  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
   const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
   return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
                          reinterpret_cast<cudaStream_t>(stream));
@@ -575,8 +611,9 @@ int chatglm_int8_t_splitk(const void* g, const void* w, const void* scale, void*
 // and buffers of chatglm_int4_t_mma (ops/quant_matmul.py::t_mma_plan);
 // K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
 int chatglm_int8_t_mma(const void* g, const void* w, const void* scale, void* out, void* ws,
-                         void* arrivals, int M, int K, int N, int bm, int nsplit, int sps,
-                         int ctas, void* stream) {
+                         void* arrivals, int M, int K, int N, int g_dtype, int bm, int nsplit,
+                         int sps, int ctas, void* stream) {
+  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
   const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
   return launch_t_wgmma(wv, g, w, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
                         reinterpret_cast<cudaStream_t>(stream));

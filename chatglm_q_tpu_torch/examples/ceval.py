@@ -17,7 +17,7 @@ Rows may carry the THUDM evaluation-set fields (``inputs_pretokenized``,
 int ``label``) or the raw C-Eval fields (``question``/``A``-``D``/
 ``answer``); the question text is rebuilt from the raw fields when absent.
 Activations are bfloat16 unless ``--dtype`` says otherwise (the card's
-kernels take bfloat16 or float32).
+forward kernels take bfloat16, float16 or float32).
 """
 from __future__ import annotations
 
@@ -90,7 +90,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="../models/chatglm2-6b-int4g32")
     p.add_argument("--ceval-dir", required=True)
-    p.add_argument("--dtype", default="bfloat16", help="float32 / bfloat16 activations")
+    p.add_argument("--dtype", default="bfloat16",
+                   help="float32 / float16 / bfloat16 activations")
     p.add_argument("--cot", action="store_true", help="chain-of-thought 2-pass evaluation")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)

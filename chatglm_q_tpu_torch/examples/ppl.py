@@ -9,8 +9,9 @@ exp(mean of the batches' mean losses), from ``models.chatglm2.forward``
 with labels (through the quantized kernels on the card).  Texts: a local
 C-Eval directory or a text file, every text of it; else the synthetic
 corpus (``--num-prompts``, default 200).  Activations are bfloat16 unless
-``--dtype`` says otherwise: the card's kernels take bfloat16 or float32,
-and the reference's checkpoints say float16.
+``--dtype`` says otherwise: the card's forward kernels take bfloat16,
+float16 (the dtype the reference's checkpoints and the quantize scripts'
+say) or float32.
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--num-prompts", type=int, default=None,
                    help="texts to evaluate (default: all of a given source, 200 synthetic)")
     p.add_argument("--batch-size", type=int, default=20)
-    p.add_argument("--dtype", default="bfloat16", help="float32 / bfloat16 activations")
+    p.add_argument("--dtype", default="bfloat16",
+                   help="float32 / float16 / bfloat16 activations")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 

@@ -6,8 +6,10 @@ launches its CUDA kernel and nowhere else; ``launch_counts`` reads them and
 main path went through.  A CUDA graph launches its kernels without running
 the wrappers: a step program (utils/graphs.py) records each wrapper's count
 during its capture and adds it back on every replay (``add_launch_counts``),
-so the counts stay the kernels' real launches.  The attention wrappers'
-launches over a float8_e4m3fn cache also count apart, as ``<name>_fp8``.
+so the counts stay the kernels' real launches.  Launches in a form of a
+kernel also count apart: the attention wrappers' over a float8_e4m3fn cache
+as ``<name>_fp8``, and theirs and B1's / B6's on float16 activations as
+``<name>_f16``.
 """
 
 
@@ -19,7 +21,7 @@ def kernel_wrappers() -> dict:
     from . import int8_matmul as I8
     from . import quant_matmul as QM
 
-    return {
+    wrappers = {
         "int4g32_splitk": QM.int4g32_splitk,
         "int4g32_gemv": QM.int4g32_gemv,
         "int4g32_mma": QM.int4g32_mma,
@@ -50,8 +52,11 @@ def kernel_wrappers() -> dict:
         "rope_kv_append_sharded": A.rope_kv_append_sharded,
         "gptq_sweep_int8": GS.gptq_sweep_int8,
         "gptq_sweep_int4": GS.gptq_sweep_int4,
-        **{f"{name}_fp8": getattr(A, name).fp8 for name in A.FP8_FORMS},
     }
+    forms = [(name, form) for name, fn in wrappers.items() for form in ("fp8", "f16")
+             if hasattr(fn, form)]
+    wrappers.update({f"{name}_{form}": getattr(wrappers[name], form) for name, form in forms})
+    return wrappers
 
 
 def launch_counts() -> dict:

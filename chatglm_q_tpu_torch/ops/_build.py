@@ -30,59 +30,72 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# The activation dtype codes of the matmul entry points (csrc/common.cuh:
+# DT_F32, DT_BF16, DT_F16).  Each entry checks the code it is given and
+# refuses one it has no kernel for.
+DTYPE_NAMES = ("float32", "bfloat16", "float16")
+
+
+def dtype_code(dtype) -> int:
+    """The entry points' code of a torch dtype: 0 f32, 1 bf16, 2 f16."""
+    return DTYPE_NAMES.index(str(dtype).split(".")[-1])
+
+
 # C entry points (csrc/*.cu) and their argument types.  Pointers and the
 # stream are c_void_p: a default ctypes int would cut them to 32 bits.
 SIGNATURES = {
-    # x, packed, scale, y, workspace, M, K, N, x_is_bf16, nsplit, groups_per_split, stream
+    # x, packed, scale, y, workspace, M, K, N, x dtype code, nsplit, groups_per_split, stream
     "chatglm_int4_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # the split-K kernels: x, weights, scale, y, workspace, arrivals, M, K, N, mt, cols,
-    # nsplit, groups_per_split, groups_per_chunk, stream
-    "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "chatglm_int8_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y_is_bf16, mt, cols, nsplit,
-    # groups_per_split, groups_per_chunk, stream
+    # the split-K kernels: x, weights, scale, y, workspace, arrivals, M, K, N, x dtype code
+    # (bf16 or f16), mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
+    "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "chatglm_int8_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y dtype code (bf16 or f32),
+    # mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
     "chatglm_int8_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N, bm,
-    # nsplit, per split (B1: groups, the others: 64-element stages), ctas, stream
-    "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "chatglm_int8_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "chatglm_int4_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N,
+    # activation dtype code (B1 / B6: bf16 or f16; B13 / B14: bf16), bm, nsplit, per split
+    # (B1: groups, the others: 64-element stages), ctas, stream
+    "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int8_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int4_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # the transposed split-K kernels (B13 / B14 at bf16 M <= 16): g, weights, scale, out,
-    # workspace, arrivals, M, K, N, mt, nsplit, chunks_per_split, chunks_per_stage, stream
-    "chatglm_int8_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "chatglm_int4_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # x, w, scale, y, workspace, M, K, N, x_is_bf16, nsplit, chunks_per_split, stream
+    # workspace, arrivals, M, K, N, g dtype code (bf16), mt, nsplit, chunks_per_split,
+    # chunks_per_stage, stream
+    "chatglm_int8_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "chatglm_int4_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # x, w, scale, y, workspace, M, K, N, x dtype code, nsplit, chunks_per_split, stream
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # g, w (or packed), scale, out, M, K, N, stream (B13 / B14 in f32)
-    "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, P],
-    "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, P],
-    # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y_is_bf16, bm, nsplit,
-    # 128-element stages per split, ctas, stream
+    # g, w (or packed), scale, out, M, K, N, g dtype code (f32), stream (B13 / B14 in f32)
+    "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
+    "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
+    # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y dtype code (bf16 or f32), bm,
+    # nsplit, 128-element stages per split, ctas, stream
     "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # q, q_out, kv, kv_stride, freqs, k_layer, v_layer, page_table, starts, B, G, Hq, D, T
-    # (the pool's P), MP, offset, stride, phase, total, stream (bf16; page_table null for
-    # the dense cache; a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0),
-    # kv_fp8, stream.  The attention entries' kv_fp8: 0 for a bf16 cache or pool, 1 for a
-    # float8_e4m3fn one (activations bf16 either way)
+    # (the pool's P), MP, offset, stride, phase, total (page_table null for the dense cache;
+    # a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0), form, stream.
+    # The attention entries' form (ops/attention.py: FORM_CODES): 0 for bf16 activations
+    # over a bf16 cache or pool, 1 for bf16 over a float8_e4m3fn one, 2 for f16 over f16
     "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
-    # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, kv_fp8, stream (the
-    # write-only form; src bf16)
+    # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, form, stream (the
+    # write-only form; src in the form's activation dtype)
     "chatglm_kv_append": [P, P, P, P, I, I, I, I, I, I, P],
     # q, k, v, lengths, part, arrivals, out, B, G, Hg, T, D, span, v2, sm_scale, m_out, l_out,
-    # offset, kv_fp8, stream (B4, B12 and K1; part, m_out and l_out may be null)
+    # offset, form, stream (B4, B12 and K1; part, m_out and l_out may be null)
     "chatglm_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, I, P],
-    # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale, kv_fp8,
+    # q, k, v, lengths, q_starts, kv_row_map, out, B, S, G, Hg, T, D, sm_scale, form,
     # stream (q_starts / kv_row_map may be null)
     "chatglm_prefill_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     # q, k_layer, v_layer, page_table, lengths, part, arrivals, out, B, G, Hg, P, D, MP,
-    # span, sm_scale, m_out, l_out, stride, phase, kv_fp8, stream (B10 and K2; part, m_out
+    # span, sm_scale, m_out, l_out, stride, phase, form, stream (B10 and K2; part, m_out
     # and l_out may be null)
     "chatglm_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P, P, I, I, I, P],
     # q, k_layer, v_layer, page_table, row_map, starts, part, arrivals, out, B, S, G, Hg,
-    # P, D, MP, span, sm_scale, kv_fp8, stream (row_map and part may be null)
+    # P, D, MP, span, sm_scale, form, stream (row_map and part may be null)
     "chatglm_chunk_paged": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     # w, ld_w, hinv, ld_h, scale_n, q_out, err_out, loss_out, scales_out, N, bs, groupsize,
     # stream (GPTQ's column sweep; scale_n null for int4, scales_out null for int8)
@@ -243,8 +256,28 @@ def export_op(name: str):
     return export_ops.op(name)
 
 
-def launched(wrapper, out):
-    """Count a launch of ``wrapper``'s kernel and return its output.  Under
+class Form:
+    """The launch count of one form of a wrapper's kernel (its float8 cache
+    or its float16 activations: ``<wrapper>_fp8``, ``<wrapper>_f16``).  A
+    form's launches count in the wrapper's own ``launches`` too; this count
+    says which of them took that form (ops.kernel_wrappers lists it)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+def with_forms(wrapper, *suffixes):
+    """Give ``wrapper`` a ``Form`` counter attribute for each suffix ("fp8",
+    "f16"), named ``<wrapper>_<suffix>``; returns the wrapper."""
+    for suffix in suffixes:
+        setattr(wrapper, suffix, Form(f"{wrapper.__name__}_{suffix}"))
+    return wrapper
+
+
+def launched(wrapper, out, form: str = ""):
+    """Count a launch of ``wrapper``'s kernel (and of its ``form``, a suffix
+    that ``with_forms`` gave it, where one is named) and return its output.  Under
     ``NAN_CHECKS`` the output (a tuple's first tensor: an lse form's m is
     −inf by design on a row with no valid slot) must be finite, or this
     raises naming the kernel; that check syncs, so a CUDA-graph capture
@@ -252,6 +285,8 @@ def launched(wrapper, out):
     import torch
 
     wrapper.launches += 1
+    if form:
+        getattr(wrapper, form).launches += 1
     if NAN_CHECKS:
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{wrapper.__name__}: NaN checks sync with the host, which a "

@@ -61,8 +61,18 @@ counts.
   table row ``row_map[b]``), its K/V rows split into ``chunk_span`` spans
   merged in the same launch.
 
-The cache (or pool) may be stored in bf16 or in ``float8_e4m3fn`` (the
-``kv_dtype`` option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``).
+The kernels take three forms: bf16 activations over a bf16 cache (or
+pool), bf16 activations over a ``float8_e4m3fn`` one (the ``kv_dtype``
+option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``), and float16
+activations over a float16 one (a float16 checkpoint: the cache takes the
+activations' dtype by default).  ``FORM_CODES`` names them; any other pair
+(f32, or f16 over fp8) raises ``TypeError``.  Launches in the fp8 and f16
+forms also count as ``<wrapper>_fp8`` / ``<wrapper>_f16``.  The f16 forms
+keep the TPU kernels' rounding points in f16: p rounded to v's dtype (B4,
+B5), q pre-scaled in its dtype and p in f32 (B10, B11, B12), the RoPE's
+products and sums rounded to f16.
+
+The fp8 cache:
 Every write into an fp8 cache goes through ``kv_store_cast``: JAX's
 ``astype(float8_e4m3fn)`` wherever that gives a finite value, finite values
 past the range saturating to ±448 where JAX's give NaN, and every NaN stored
@@ -112,13 +122,18 @@ CHUNK_MAX_SPANS = 32  # and number at most this many (the merge holds every span
 FP8 = torch.float8_e4m3fn
 FP8_MAX = 448.0   # e4m3fn's largest finite value: the store saturates there
 FP8_NAN = 0x7F    # the byte every NaN is stored as
-KV_DTYPES = (torch.bfloat16, FP8)  # the cache dtypes the kernels take (bf16 activations)
-# the wrappers whose kernels read or write the cache, each with an fp8 form
-FP8_FORMS = ("rope_kv_append", "rope_kv_append_sharded", "kv_cache_write_idx",
-             "kv_pool_write_idx", "flash_attention_decode", "flash_attention_decode_v2",
-             "flash_attention_decode_lse", "flash_attention_prefill",
-             "flash_attention_prefill_chunk", "flash_attention_decode_paged",
-             "flash_attention_decode_paged_lse", "flash_attention_chunk_paged")
+# (activation dtype, cache dtype) -> the C entry points' form code
+# (csrc/attention.cu: with_kv_type), and the counter suffix of each form
+FORM_CODES = {(torch.bfloat16, torch.bfloat16): 0, (torch.bfloat16, FP8): 1,
+              (torch.float16, torch.float16): 2}
+FORM_SUFFIX = {0: "", 1: "fp8", 2: "f16"}
+# the wrappers whose kernels read or write the cache, each with an fp8 and
+# an f16 form
+CACHE_FORMS = ("rope_kv_append", "rope_kv_append_sharded", "kv_cache_write_idx",
+               "kv_pool_write_idx", "flash_attention_decode", "flash_attention_decode_v2",
+               "flash_attention_decode_lse", "flash_attention_prefill",
+               "flash_attention_prefill_chunk", "flash_attention_decode_paged",
+               "flash_attention_decode_paged_lse", "flash_attention_chunk_paged")
 
 
 def kv_store_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -432,32 +447,22 @@ def _check_cuda(name, *tensors):
 
 
 def _check_types(name, acts, caches) -> int:
-    """The kernels take the main path's bf16 activations over a bf16 or
-    float8_e4m3fn cache (K and V of one dtype); returns the C entry points'
-    cache code (1: fp8).  Anything else raises."""
-    if (any(t.dtype != torch.bfloat16 for t in acts)
-            or any(t.dtype not in KV_DTYPES for t in caches)
-            or len({t.dtype for t in caches}) > 1):
+    """The form the kernels take the activations ``acts`` (one dtype) over
+    the cache ``caches`` (K and V of one dtype) in: its code in
+    ``FORM_CODES`` (bf16 over bf16 or float8_e4m3fn, f16 over f16).  Any
+    other pair raises, naming the dtypes."""
+    act, kv = {t.dtype for t in acts}, {t.dtype for t in caches}
+    code = FORM_CODES.get((act.pop(), kv.pop())) if len(act) == len(kv) == 1 else None
+    if code is None:
         raise TypeError(f"{name}: the CUDA kernel takes bf16 activations over a bf16 or "
-                        f"float8_e4m3fn cache (got activations {[t.dtype for t in acts]}, "
-                        f"cache {[t.dtype for t in caches]})")
-    return int(caches[0].dtype == FP8)
+                        f"float8_e4m3fn cache, or float16 activations over a float16 cache "
+                        f"(got activations {[t.dtype for t in acts]}, cache "
+                        f"{[t.dtype for t in caches]})")
+    return code
 
 
-class _Fp8Form:
-    """The launch count of a wrapper's fp8-cache form.  Its launches count
-    in the wrapper's own ``launches`` too; this count says which of them
-    read or wrote a float8_e4m3fn cache (ops.kernel_wrappers lists it)."""
-
-    def __init__(self, name: str):
-        self.__name__ = name + "_fp8"
-        self.launches = 0
-
-
-def _launched(wrapper, out, fp8: int):
-    if fp8:
-        wrapper.fp8.launches += 1
-    return _build.launched(wrapper, out)
+def _launched(wrapper, out, form: int):
+    return _build.launched(wrapper, out, FORM_SUFFIX[form])
 
 
 def _int32(t):
@@ -477,7 +482,7 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
     kv_row_map = None if kv_row_map is None else _int32(kv_row_map)
     _check_cuda("flash_attention_prefill", q, k, v, lengths,
                 *[t for t in (q_starts, kv_row_map) if t is not None])
-    fp8 = _check_types("flash_attention_prefill", [q], [k, v])
+    form = _check_types("flash_attention_prefill", [q], [k, v])
     if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or k.shape != (Bk, G, T, D)
             or v.shape != k.shape or (q_starts is None and T < S)
             or (kv_row_map is None and Bk != B)):
@@ -488,13 +493,13 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
     out = torch.empty_like(q)
     _build.call("chatglm_prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 lengths.data_ptr(), starts_ptr, rmap_ptr, out.data_ptr(), B, S, G, Hg, T, D,
-                float(sm_scale), fp8, _build.stream_ptr(q))
+                float(sm_scale), form, _build.stream_ptr(q))
     counter = flash_attention_prefill if q_starts is None else flash_attention_prefill_chunk
-    return _launched(counter, out, fp8)
+    return _launched(counter, out, form)
 
 
 flash_attention_prefill.launches = 0
-flash_attention_prefill.fp8 = _Fp8Form("flash_attention_prefill")
+_build.with_forms(flash_attention_prefill, "fp8", "f16")
 
 
 def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_map=None):
@@ -505,7 +510,7 @@ def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_m
 
 
 flash_attention_prefill_chunk.launches = 0
-flash_attention_prefill_chunk.fp8 = _Fp8Form("flash_attention_prefill_chunk")
+_build.with_forms(flash_attention_prefill_chunk, "fp8", "f16")
 
 
 def _tiles(n):
@@ -588,7 +593,7 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
     T = k.shape[2]
     lengths = _int32(lengths)
     _check_cuda(name, q, k, v, lengths)
-    fp8 = _check_types(name, [q], [k, v])
+    form = _check_types(name, [q], [k, v])
     if (D != HEAD_DIM or Hg > MAX_DECODE_HG or k.shape != (B, G, T, D) or v.shape != k.shape
             or t_offset < 0):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -598,8 +603,8 @@ def _decode_launch(name, q, k, v, lengths, sm_scale, block_k, v2, lse=False, t_o
     _build.call("chatglm_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 lengths.data_ptr(), _decode_part_ptr(q, T, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, T, D, span, int(v2), float(sm_scale),
-                *_ml_ptrs(ml), int(t_offset), fp8, _build.stream_ptr(q))
-    return (out if ml is None else (out, *ml)), fp8
+                *_ml_ptrs(ml), int(t_offset), form, _build.stream_ptr(q))
+    return (out if ml is None else (out, *ml)), form
 
 
 def flash_attention_decode(q, k, v, lengths, sm_scale):
@@ -609,13 +614,13 @@ def flash_attention_decode(q, k, v, lengths, sm_scale):
         return _build.export_op("flash_attention_decode")(q, k, v, lengths, sm_scale)
     if not _build.on_card(q):
         return flash_attention_decode_plain(q, k, v, lengths, sm_scale)
-    out, fp8 = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale,
+    out, form = _decode_launch("flash_attention_decode", q, k, v, lengths, sm_scale,
                               DECODE_BLOCK_K, False)
-    return _launched(flash_attention_decode, out, fp8)
+    return _launched(flash_attention_decode, out, form)
 
 
 flash_attention_decode.launches = 0
-flash_attention_decode.fp8 = _Fp8Form("flash_attention_decode")
+_build.with_forms(flash_attention_decode, "fp8", "f16")
 
 
 def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
@@ -624,13 +629,13 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
     tensors; the CUDA kernel on CUDA tensors."""
     if not _build.on_card(q):
         return flash_attention_decode_v2_plain(q, k, v, lengths, sm_scale, block_k)
-    out, fp8 = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k,
+    out, form = _decode_launch("flash_attention_decode_v2", q, k, v, lengths, sm_scale, block_k,
                               True)
-    return _launched(flash_attention_decode_v2, out, fp8)
+    return _launched(flash_attention_decode_v2, out, form)
 
 
 flash_attention_decode_v2.launches = 0
-flash_attention_decode_v2.fp8 = _Fp8Form("flash_attention_decode_v2")
+_build.with_forms(flash_attention_decode_v2, "fp8", "f16")
 
 
 def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
@@ -639,13 +644,13 @@ def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
     version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if not _build.on_card(q):
         return flash_attention_decode_lse_plain(q, k, v, lengths, sm_scale, t_offset)
-    res, fp8 = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
+    res, form = _decode_launch("flash_attention_decode_lse", q, k, v, lengths, sm_scale,
                               DECODE_BLOCK_K, False, lse=True, t_offset=t_offset)
-    return _launched(flash_attention_decode_lse, res, fp8)
+    return _launched(flash_attention_decode_lse, res, form)
 
 
 flash_attention_decode_lse.launches = 0
-flash_attention_decode_lse.fp8 = _Fp8Form("flash_attention_decode_lse")
+_build.with_forms(flash_attention_decode_lse, "fp8", "f16")
 
 
 def _aligned(name, *tensors):
@@ -665,15 +670,15 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     pool (L, NP, G, P, D)."""
     L, _, G, T, D = dst.shape
     B = new.shape[0]
-    # a bf16 cache takes new in its dtype; an fp8 one takes bf16 and the
-    # kernel casts on the write (kv_store_cast's bytes)
-    src = (new.to(dst.dtype) if dst.dtype == torch.bfloat16 else new).contiguous()
+    # a bf16 or f16 cache takes new in its dtype; an fp8 one takes bf16 and
+    # the kernel casts on the write (kv_store_cast's bytes)
+    src = (new if dst.dtype == FP8 else new.to(dst.dtype)).contiguous()
     if src.data_ptr() % 16:
         src = src.clone()
     starts = _int32(starts)
     page_table = None if page_table is None else _int32(page_table)
     _check_cuda(name, dst, src, starts, *([] if page_table is None else [page_table]))
-    fp8 = _check_types(name, [src], [dst])
+    form = _check_types(name, [src], [dst])
     if (src.shape != (B, G, D) or starts.shape != (B,) or D != HEAD_DIM
             or not 0 <= layer < L or (page_table is None and dst.shape[1] != B)
             or (page_table is not None and (page_table.dim() != 2
@@ -684,8 +689,8 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     MP = 0 if page_table is None else page_table.shape[1]
     _build.call("chatglm_kv_append", _layer_ptr(dst, layer), src.data_ptr(),
                 None if page_table is None else page_table.data_ptr(), starts.data_ptr(),
-                B, G, D, T, MP, fp8, _build.stream_ptr(dst))
-    return fp8
+                B, G, D, T, MP, form, _build.stream_ptr(dst))
+    return form
 
 
 def kv_cache_write_idx(cache, new, layer: int, starts):
@@ -694,12 +699,12 @@ def kv_cache_write_idx(cache, new, layer: int, starts):
     write-only form on CUDA tensors."""
     if not _build.on_card(cache):
         return kv_cache_write_idx_plain(cache, new, layer, starts)
-    fp8 = _write_one("kv_cache_write_idx", cache, new, layer, starts)
-    return _launched(kv_cache_write_idx, cache, fp8)
+    form = _write_one("kv_cache_write_idx", cache, new, layer, starts)
+    return _launched(kv_cache_write_idx, cache, form)
 
 
 kv_cache_write_idx.launches = 0
-kv_cache_write_idx.fp8 = _Fp8Form("kv_cache_write_idx")
+_build.with_forms(kv_cache_write_idx, "fp8", "f16")
 
 
 def _check_pool(name, pool, page_table, L_idx):
@@ -715,12 +720,12 @@ def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
     form on CUDA tensors."""
     if not _build.on_card(pool):
         return kv_pool_write_idx_plain(pool, new, layer, page_table, starts)
-    fp8 = _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
-    return _launched(kv_pool_write_idx, pool, fp8)
+    form = _write_one("kv_pool_write_idx", pool, new, layer, starts, page_table)
+    return _launched(kv_pool_write_idx, pool, form)
 
 
 kv_pool_write_idx.launches = 0
-kv_pool_write_idx.fp8 = _Fp8Form("kv_pool_write_idx")
+_build.with_forms(kv_pool_write_idx, "fp8", "f16")
 
 
 def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_table=None):
@@ -733,13 +738,13 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
                                                    page_table)
     if not _build.on_card(q):
         return rope_kv_append_plain(q, kv, freqs, k_cache, v_cache, layer, starts, page_table)
-    out, fp8 = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
+    out, form = _append_launch("rope_kv_append", q, kv, freqs, k_cache, v_cache, layer, starts,
                               page_table, None)
-    return _launched(rope_kv_append, out, fp8)
+    return _launched(rope_kv_append, out, form)
 
 
 rope_kv_append.launches = 0
-rope_kv_append.fp8 = _Fp8Form("rope_kv_append")
+_build.with_forms(rope_kv_append, "fp8", "f16")
 
 
 def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, shard: KVShard,
@@ -751,13 +756,13 @@ def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, s
     if not _build.on_card(q):
         return rope_kv_append_sharded_plain(q, kv, freqs, k_cache, v_cache, layer, starts, shard,
                                             page_table)
-    out, fp8 = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
+    out, form = _append_launch("rope_kv_append_sharded", q, kv, freqs, k_cache, v_cache, layer,
                               starts, page_table, shard)
-    return _launched(rope_kv_append_sharded, out, fp8)
+    return _launched(rope_kv_append_sharded, out, form)
 
 
 rope_kv_append_sharded.launches = 0
-rope_kv_append_sharded.fp8 = _Fp8Form("rope_kv_append_sharded")
+_build.with_forms(rope_kv_append_sharded, "fp8", "f16")
 
 
 def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_table, shard):
@@ -771,7 +776,7 @@ def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_tab
     _check_cuda(name, q, freqs, k_cache, v_cache, starts, *([page_table] if paged else []))
     if not kv.is_cuda or kv.device != q.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    fp8 = _check_types(name, [q, kv, freqs], [k_cache, v_cache])
+    form = _check_types(name, [q, kv, freqs], [k_cache, v_cache])
     L, rows, G, T, Dc = k_cache.shape
     shard = shard or KVShard()
     if (D != HEAD_DIM or Dc != D or v_cache.shape != k_cache.shape
@@ -790,8 +795,8 @@ def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_tab
                 kv.stride(0), freqs.data_ptr(), _layer_ptr(k_cache, layer),
                 _layer_ptr(v_cache, layer), page_table.data_ptr() if paged else None,
                 starts.data_ptr(), B, G, Gq * Hq, D, T, MP, shard.offset, shard.stride,
-                shard.phase, shard.total, fp8, _build.stream_ptr(q))
-    return out, fp8
+                shard.phase, shard.total, form, _build.stream_ptr(q))
+    return out, form
 
 
 def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, lengths, sm_scale):
@@ -800,9 +805,9 @@ def flash_attention_decode_paged(q, k_pool, v_pool, layer: int, page_table, leng
     if not _build.on_card(q):
         return flash_attention_decode_paged_plain(q, k_pool, v_pool, layer, page_table,
                                                   lengths, sm_scale)
-    out, fp8 = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
+    out, form = _decode_paged_launch("flash_attention_decode_paged", q, k_pool, v_pool, layer,
                                     page_table, lengths, sm_scale)
-    return _launched(flash_attention_decode_paged, out, fp8)
+    return _launched(flash_attention_decode_paged, out, form)
 
 
 def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm_scale,
@@ -811,7 +816,7 @@ def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm
     L, NP, Gp, P, Dp = k_pool.shape
     page_table, lengths = _int32(page_table), _int32(lengths)
     _check_cuda(name, q, k_pool, v_pool, page_table, lengths)
-    fp8 = _check_types(name, [q], [k_pool, v_pool])
+    form = _check_types(name, [q], [k_pool, v_pool])
     _check_pool(name, k_pool, page_table, layer)
     if (D != HEAD_DIM or Hg > MAX_DECODE_HG or (Gp, Dp) != (G, D)
             or v_pool.shape != k_pool.shape or page_table.shape[0] != B
@@ -827,12 +832,12 @@ def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm
                 v_pool[layer].data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
                 _decode_part_ptr(q, MP * P, span), _arrivals_ptr(q.device, B * G),
                 out.data_ptr(), B, G, Hg, P, D, MP, span, float(sm_scale), *_ml_ptrs(ml),
-                int(stride), int(phase), fp8, _build.stream_ptr(q))
-    return (out if ml is None else (out, *ml)), fp8
+                int(stride), int(phase), form, _build.stream_ptr(q))
+    return (out if ml is None else (out, *ml)), form
 
 
 flash_attention_decode_paged.launches = 0
-flash_attention_decode_paged.fp8 = _Fp8Form("flash_attention_decode_paged")
+_build.with_forms(flash_attention_decode_paged, "fp8", "f16")
 
 
 def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, lengths,
@@ -844,13 +849,13 @@ def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, 
     if not _build.on_card(q):
         return flash_attention_decode_paged_lse_plain(q, k_pool, v_pool, layer, page_table,
                                                       lengths, sm_scale, stride, phase)
-    res, fp8 = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool,
+    res, form = _decode_paged_launch("flash_attention_decode_paged_lse", q, k_pool, v_pool,
                                     layer, page_table, lengths, sm_scale, stride, phase, lse=True)
-    return _launched(flash_attention_decode_paged_lse, res, fp8)
+    return _launched(flash_attention_decode_paged_lse, res, form)
 
 
 flash_attention_decode_paged_lse.launches = 0
-flash_attention_decode_paged_lse.fp8 = _Fp8Form("flash_attention_decode_paged_lse")
+_build.with_forms(flash_attention_decode_paged_lse, "fp8", "f16")
 
 
 def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
@@ -867,7 +872,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
     row_map = None if row_map is None else _int32(row_map)
     _check_cuda("flash_attention_chunk_paged", q, k_pool, v_pool, page_table, starts,
                 *([] if row_map is None else [row_map]))
-    fp8 = _check_types("flash_attention_chunk_paged", [q], [k_pool, v_pool])
+    form = _check_types("flash_attention_chunk_paged", [q], [k_pool, v_pool])
     _check_pool("flash_attention_chunk_paged", k_pool, page_table, layer)
     if (D != HEAD_DIM or Hg > MAX_PREFILL_HG or (Gp, Dp) != (G, D)
             or v_pool.shape != k_pool.shape or starts.shape != (B,)
@@ -885,12 +890,12 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
                 v_pool[layer].data_ptr(), page_table.data_ptr(),
                 None if row_map is None else row_map.data_ptr(), starts.data_ptr(), part,
                 _arrivals_ptr(q.device, units), out.data_ptr(), B, S, G, Hg, P, D, MP, span,
-                float(sm_scale), fp8, _build.stream_ptr(q))
-    return _launched(flash_attention_chunk_paged, out, fp8)
+                float(sm_scale), form, _build.stream_ptr(q))
+    return _launched(flash_attention_chunk_paged, out, form)
 
 
 flash_attention_chunk_paged.launches = 0
-flash_attention_chunk_paged.fp8 = _Fp8Form("flash_attention_chunk_paged")
+_build.with_forms(flash_attention_chunk_paged, "fp8", "f16")
 
 
 # ---------------------------------------------------------------------------

@@ -125,7 +125,7 @@ def _check(name, x, w, scale, int4):
     if not ok or K % 32 or N % 8 or (x.shape[0] > MMA_MIN_M and N % 16):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, weights "
                          f"{tuple(w.shape)} {w.dtype}, scale {tuple(scale.shape)} {scale.dtype}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in (torch.bfloat16, torch.float32):  # f16: its epilogue is not ported
         raise TypeError(f"{name}: x must be bf16 or f32, not {x.dtype}")
     for label, t in (("weights", w), ("scale", scale)):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -157,7 +157,7 @@ def _splitk(entry, xq, sx, w, scale, out_dtype):
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     part, arrivals = splitk_scratch(xq.device, M, N, plan)
     _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), part, arrivals, M, K, N, int(out_dtype == torch.bfloat16), *plan,
+                y.data_ptr(), part, arrivals, M, K, N, _build.dtype_code(out_dtype), *plan,
                 _build.stream_ptr(xq))
     return y
 
@@ -170,7 +170,7 @@ def _mma(entry, xq, sx, w, scale, out_dtype):
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     part, arrivals = wg_scratch(xq.device, M, N, plan)
     _build.call(entry, xq.data_ptr(), sx.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), part, arrivals, M, K, N, int(out_dtype == torch.bfloat16), bm,
+                y.data_ptr(), part, arrivals, M, K, N, _build.dtype_code(out_dtype), bm,
                 nsplit, sps, ctas, _build.stream_ptr(xq))
     return y
 

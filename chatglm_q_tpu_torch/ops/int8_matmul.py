@@ -6,14 +6,14 @@ Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
 ``int8_matmul``, over three kernels in ``csrc/int8_matmul.cu`` chosen by
 ``int8_route``:
 
-* ``int8_splitk`` — bf16 activations at M ≤ MMA_MIN_M (decode):
+* ``int8_splitk`` — bf16 or f16 activations at M ≤ MMA_MIN_M (decode):
   ``int8_splitk_mma_kernel``, B1's split-K design on common.cuh's split-K
   body: mma.sync with the weights as A (each int8 converted exactly to
   bf16 once, whatever M is) and x's rows as B, K split so a narrow N fills
   the card, the splits' f32 partials summed in split order by the last
   block of each column tile to arrive, in the same launch.  Bound by the
   weight bytes; plan ``splitk_plan``.
-* ``int8_mma`` — bf16 activations above it (prefill, ``uses_mma``):
+* ``int8_mma`` — bf16 or f16 activations above it (prefill, ``uses_mma``):
   ``int8_wgmma_kernel``, a persistent Hopper kernel on B1's mainloop (TMA
   tiles in an mbarrier ring, wgmma with the weights as A from registers,
   each int8 converted exactly to bf16); ``wg_plan`` picks the tile and the
@@ -24,7 +24,10 @@ Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
 
 All multiply the f32 accumulator by the per-column scale once, after the K
 sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
-weights before the dot instead: the same function, rounded elsewhere.
+weights before the dot instead (in x's dtype: the f32 scale rounded to it,
+then w·s rounded to it): the same function, rounded elsewhere.  The f16
+forms (a float16 checkpoint's activations) are the same kernels over f16
+tiles, counted apart too as ``<wrapper>_f16``.
 
 ``int8_matmul_t`` (B13) replaces pallas_matmul.py:_int8_t_kernel
 (``int8_matmul_t_pallas``): the backward of the int8 linear, grad_x =
@@ -45,8 +48,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .quant_matmul import (MMA_MIN_M, aligned, gemv_plan, int8_mma_plan, splitk_call,
-                           splitk_plan, t_mma_plan, t_route, t_splitk_call, uses_mma, wg_call)
+from .quant_matmul import (MMA_DTYPES, MMA_MIN_M, aligned, f16_form, gemv_plan, int8_mma_plan,
+                           splitk_call, splitk_plan, t_mma_plan, t_route, t_splitk_call,
+                           uses_mma, wg_call)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -64,8 +68,8 @@ def _check(x, w, scale):
     if w.shape[0] != K or K % 32 or scale.shape[0] != w.shape[1] or w.shape[1] % 8:
         raise ValueError(f"int8_matmul: unsupported shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, scale {tuple(scale.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int8_matmul: x must be bf16 or f32, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"int8_matmul: x must be bf16, f16 or f32, not {x.dtype}")
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError("int8_matmul: w must be int8 and scale f32")
     for name, t in (("w", w), ("scale", scale)):
@@ -74,21 +78,21 @@ def _check(x, w, scale):
 
 
 def int8_route(M: int, N: int, dtype: torch.dtype) -> str:
-    """B6's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16,
-    M ≤ MMA_MIN_M), "mma" (bf16 above it, N % 16 == 0) or "gemv" (f32, and
-    bf16 above it where N % 16 != 0)."""
-    if dtype == torch.bfloat16 and M <= MMA_MIN_M:
+    """B6's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16
+    or f16, M ≤ MMA_MIN_M), "mma" (bf16 or f16 above it, N % 16 == 0) or
+    "gemv" (f32, and bf16 / f16 above it where N % 16 != 0)."""
+    if dtype in MMA_DTYPES and M <= MMA_MIN_M:
         return "splitk"
     return "mma" if uses_mma(M, N, dtype) else "gemv"
 
 
 def int8_splitk(x, w, scale):
-    """Launch the split-K tensor-core kernel (checked bf16 inputs on the
-    card, M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
+    """Launch the split-K tensor-core kernel (checked bf16 or f16 inputs on
+    the card, M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
     M, K = x.shape
     y = splitk_call("chatglm_int8_splitk_mma", x, w, scale,
                     splitk_plan(M, K, w.shape[1], int8_weights=True))
-    return _build.launched(int8_splitk, y)
+    return _build.launched(int8_splitk, y, f16_form(x))
 
 
 int8_splitk.launches = 0
@@ -102,30 +106,32 @@ def int8_gemv(x, w, scale):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ws = torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
     _build.call("chatglm_int8_gemv", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16), nsplit, cps,
+                ws.data_ptr(), M, K, N, _build.dtype_code(x.dtype), nsplit, cps,
                 _build.stream_ptr(x))
-    return _build.launched(int8_gemv, y)
+    return _build.launched(int8_gemv, y, f16_form(x))
 
 
 int8_gemv.launches = 0
 
 
 def int8_mma(x, w, scale):
-    """Launch the Hopper tensor-core kernel (checked bf16 inputs on the card,
-    N % 16 == 0): one launch, any K splits merged inside it."""
+    """Launch the Hopper tensor-core kernel (checked bf16 or f16 inputs on
+    the card, N % 16 == 0): one launch, any K splits merged inside it."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, int8_mma_plan(M, K, N))
-    return _build.launched(int8_mma, y)
+    return _build.launched(int8_mma, y, f16_form(x))
 
 
 int8_mma.launches = 0
+for _fn in (int8_splitk, int8_gemv, int8_mma):
+    _build.with_forms(_fn, "f16")
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16/f32 @ (w (K, N) int8 · scale (N,) f32) → (M, N) in x's
-    dtype.
+    """x (M, K) bf16/f16/f32 @ (w (K, N) int8 · scale (N,) f32) → (M, N) in
+    x's dtype.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises.  ``w``/``scale`` may be a layer's view ``stack[l]``."""
@@ -163,7 +169,7 @@ def _check_t(g, w, scale):
     if g.shape[1] != N or K % 32 or scale.shape[0] != N or N % 8:
         raise ValueError(f"int8_matmul_t: unsupported shapes g {tuple(g.shape)}, "
                          f"w {tuple(w.shape)}, scale {tuple(scale.shape)}")
-    if g.dtype not in (torch.bfloat16, torch.float32):
+    if g.dtype not in (torch.bfloat16, torch.float32):  # f16 g: not ported
         raise TypeError(f"int8_matmul_t: g must be bf16 or f32, not {g.dtype}")
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError("int8_matmul_t: w must be int8 and scale f32")
@@ -190,7 +196,7 @@ def int8_t_gemv(g, w, scale):
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int8_t_gemv", g.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+                out.data_ptr(), M, K, N, _build.dtype_code(g.dtype), _build.stream_ptr(g))
     return _build.launched(int8_t_gemv, out)
 
 

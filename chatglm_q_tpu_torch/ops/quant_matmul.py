@@ -6,13 +6,13 @@ Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int4_fwd_kernel (grid form) and
 they are one wrapper, ``int4g32_matmul``, over three kernels in
 ``csrc/int4_matmul.cu`` chosen by ``int4_route``:
 
-* ``int4g32_splitk`` — bf16 activations at M ≤ SMALL_M_MAX (decode at batch
-  1-4, the speculative verify step): mma.sync with the weights as A and x's
+* ``int4g32_splitk`` — bf16 or f16 activations at M ≤ SMALL_M_MAX (decode
+  at batch 1-4, the speculative verify step): mma.sync with the weights as A and x's
   rows as B, split over K so a narrow N still fills the card, the splits'
   f32 partials summed in split order by the last block of each column tile
   to arrive, in the same launch.  Bound by the weight bytes.
-* ``int4g32_mma`` — bf16 activations above it (prefill, engine chunks,
-  training): a persistent Hopper kernel, TMA tiles in an mbarrier ring and
+* ``int4g32_mma`` — bf16 or f16 activations above it (prefill, engine
+  chunks, training): a persistent Hopper kernel, TMA tiles in an mbarrier ring and
   wgmma with the weights as A from registers, each group's f32 partial
   folded in with its scale while the next group's MMAs run; ``mma_plan``
   picks the tile and the K splits (merged in the same launch).  Bound by
@@ -21,8 +21,12 @@ they are one wrapper, ``int4g32_matmul``, over three kernels in
   pass sums the f32 partials in a fixed order.
 
 All apply each 32-row group's scale to the f32 partial of that group, so
-with integer weights and bf16 activations they differ from the plain
-version only in the order of the f32 sums.
+with integer weights and bf16 or f16 activations they differ from the plain
+version only in the order of the f32 sums.  The f16 forms (a float16
+checkpoint's activations: the loader gives the model the checkpoint's
+``torch_dtype``) are the same kernels over f16 tiles, counted apart too as
+``<wrapper>_f16``; each C entry takes the activations' dtype code
+(``_build.dtype_code``) and refuses one it has no kernel for.
 
 ``int4g32_matmul_t`` (B14) replaces pallas_matmul.py:_int4_t_kernel
 (``int4_matmul_t_pallas``): the backward of the int4g32 linear, grad_x =
@@ -124,15 +128,20 @@ def gemv_plan(M: int, K: int, N: int) -> tuple[int, int]:
     return math.ceil(G / gps), gps
 
 
+# the 16-bit activation dtypes the forward tensor-core kernels take (B1, B6)
+MMA_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def uses_mma(M: int, N: int, dtype: torch.dtype) -> bool:
-    return dtype == torch.bfloat16 and M > MMA_MIN_M and N % 16 == 0
+    """B1's and B6's Hopper kernel (bf16 or f16, M > MMA_MIN_M, N % 16 == 0)."""
+    return dtype in MMA_DTYPES and M > MMA_MIN_M and N % 16 == 0
 
 
 def int4_route(M: int, N: int, dtype: torch.dtype) -> str:
-    """B1's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16,
-    M ≤ SMALL_M_MAX), "mma" (bf16 above it) or "gemv" (f32, and bf16 where
-    the tensor-core kernel cannot take N)."""
-    if dtype == torch.bfloat16 and M <= SMALL_M_MAX:
+    """B1's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16
+    or f16, M ≤ SMALL_M_MAX), "mma" (bf16 or f16 above it) or "gemv" (f32,
+    and bf16 / f16 where the tensor-core kernel cannot take N)."""
+    if dtype in MMA_DTYPES and M <= SMALL_M_MAX:
         return "splitk"
     return "mma" if uses_mma(M, N, dtype) else "gemv"
 
@@ -269,14 +278,14 @@ def splitk_scratch(device, M: int, N: int, plan) -> tuple:
 
 def splitk_call(name: str, x, w, scale, plan):
     """Launch split-K kernel ``name`` (csrc: chatglm_int4_splitk_mma,
-    chatglm_int8_splitk_mma) on checked bf16 tensors of the card with
-    ``plan``; returns y (M, N) in x's dtype."""
+    chatglm_int8_splitk_mma) on checked bf16 or f16 tensors of the card
+    with ``plan``; returns y (M, N) in x's dtype."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part, arrivals = splitk_scratch(x.device, M, N, plan)
     _build.call(name, x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
-                arrivals, M, K, N, *plan, _build.stream_ptr(x))
+                arrivals, M, K, N, _build.dtype_code(x.dtype), *plan, _build.stream_ptr(x))
     return y
 
 
@@ -386,10 +395,13 @@ def t_mma_plan(M: int, K: int, N: int, kind: str = "int4g32") -> tuple[int, int,
 def t_route(M: int, N: int, dtype: torch.dtype) -> str:
     """B13's and B14's kernel for g (M, N) of ``dtype``: "splitk" (bf16 at
     M ≤ MMA_MIN_M, and at any M where N % 16 != 0, which the Hopper kernel
-    cannot take), "mma" (bf16 above it) or "gemv" (f32)."""
+    cannot take), "mma" (bf16 above it) or "gemv" (f32).  f16 g has no
+    kernel yet (the wrappers refuse it)."""
     if dtype == torch.bfloat16 and (M <= MMA_MIN_M or N % 16):
         return "splitk"
-    return "mma" if uses_mma(M, N, dtype) else "gemv"
+    if dtype == torch.bfloat16 and uses_mma(M, N, dtype):
+        return "mma"
+    return "gemv"
 
 
 def t_splitk_smem(mt: int, cs: int) -> int:
@@ -468,7 +480,7 @@ def t_splitk_call(name: str, g, w, scale, K: int, plan=None):
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     part, arrivals = t_splitk_scratch(g.device, M, K, plan)
     _build.call(name, g.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
-                arrivals, M, K, N, *plan, _build.stream_ptr(g))
+                arrivals, M, K, N, _build.dtype_code(g.dtype), *plan, _build.stream_ptr(g))
     return out
 
 
@@ -490,7 +502,8 @@ def wg_call(name: str, a, w, scale, out, M: int, K: int, N: int, n_out: int, pla
     bm, nsplit, per_split, ctas = plan
     part, arrivals = wg_scratch(a.device, M, n_out, plan)
     _build.call(name, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
-                arrivals, M, K, N, bm, nsplit, per_split, ctas, _build.stream_ptr(a))
+                arrivals, M, K, N, _build.dtype_code(a.dtype), bm, nsplit, per_split, ctas,
+                _build.stream_ptr(a))
 
 
 def _check(x, packed, scale):
@@ -503,8 +516,8 @@ def _check(x, packed, scale):
     if K != 2 * K2 or K % 32 or scale.shape != (K // 32, N) or N % 8:
         raise ValueError(f"int4g32_matmul: unsupported shapes x {tuple(x.shape)}, "
                          f"packed {tuple(packed.shape)}, scale {tuple(scale.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int4g32_matmul: x must be bf16 or f32, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"int4g32_matmul: x must be bf16, f16 or f32, not {x.dtype}")
     if packed.dtype != torch.uint8 or scale.dtype != torch.bfloat16:
         raise TypeError("int4g32_matmul: packed must be uint8 and scale bf16")
     for name, t in (("packed", packed), ("scale", scale)):
@@ -519,6 +532,12 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def f16_form(x) -> str:
+    """The form a launch on ``x`` counts as: "f16" for float16 activations
+    (``<wrapper>_f16``), else none."""
+    return "f16" if x.dtype == torch.float16 else ""
+
+
 def int4g32_gemv(x, packed, scale):
     """Launch the split-K kernel (checked inputs on the card)."""
     M, K = x.shape
@@ -527,43 +546,45 @@ def int4g32_gemv(x, packed, scale):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ws = torch.empty((nsplit, M, N), dtype=torch.float32, device=x.device)
     _build.call("chatglm_int4_gemv", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                y.data_ptr(), ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16),
+                y.data_ptr(), ws.data_ptr(), M, K, N, _build.dtype_code(x.dtype),
                 nsplit, gps, _build.stream_ptr(x))
-    return _build.launched(int4g32_gemv, y)
+    return _build.launched(int4g32_gemv, y, f16_form(x))
 
 
 int4g32_gemv.launches = 0
 
 
 def int4g32_mma(x, packed, scale):
-    """Launch the Hopper tensor-core kernel (checked bf16 inputs on the card,
-    N % 16 == 0): one launch, any K splits merged inside it."""
+    """Launch the Hopper tensor-core kernel (checked bf16 or f16 inputs on
+    the card, N % 16 == 0): one launch, any K splits merged inside it."""
     M, K = x.shape
     N = packed.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     wg_call("chatglm_int4_wgmma", x, packed, scale, y, M, K, N, N, mma_plan(M, K, N))
-    return _build.launched(int4g32_mma, y)
+    return _build.launched(int4g32_mma, y, f16_form(x))
 
 
 int4g32_mma.launches = 0
 
 
 def int4g32_splitk(x, packed, scale):
-    """Launch the split-K tensor-core kernel (checked bf16 inputs on the
-    card, M ≤ SMALL_M_MAX): one launch, the splits merged inside it."""
+    """Launch the split-K tensor-core kernel (checked bf16 or f16 inputs on
+    the card, M ≤ SMALL_M_MAX): one launch, the splits merged inside it."""
     M, K = x.shape
     y = splitk_call("chatglm_int4_splitk_mma", x, packed, scale,
                     splitk_plan(M, K, packed.shape[1]))
-    return _build.launched(int4g32_splitk, y)
+    return _build.launched(int4g32_splitk, y, f16_form(x))
 
 
 int4g32_splitk.launches = 0
+for _fn in (int4g32_gemv, int4g32_mma, int4g32_splitk):
+    _build.with_forms(_fn, "f16")
 
 
 def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16/f32 @ dequant(packed (K/2, N) u8, scale (K/32, N) bf16)
-    → (M, N) in x's dtype.
+    """x (M, K) bf16/f16/f32 @ dequant(packed (K/2, N) u8, scale (K/32, N)
+    bf16) → (M, N) in x's dtype.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises.  ``packed``/``scale`` may be a layer's view
@@ -606,7 +627,7 @@ def _check_t(g, packed, scale):
     if g.shape[1] != N or K % 32 or scale.shape != (K // 32, N) or N % 8:
         raise ValueError(f"int4g32_matmul_t: unsupported shapes g {tuple(g.shape)}, "
                          f"packed {tuple(packed.shape)}, scale {tuple(scale.shape)}")
-    if g.dtype not in (torch.bfloat16, torch.float32):
+    if g.dtype not in (torch.bfloat16, torch.float32):  # f16 g: not ported
         raise TypeError(f"int4g32_matmul_t: g must be bf16 or f32, not {g.dtype}")
     if packed.dtype != torch.uint8 or scale.dtype != torch.bfloat16:
         raise TypeError("int4g32_matmul_t: packed must be uint8 and scale bf16")
@@ -633,7 +654,7 @@ def int4g32_t_gemv(g, packed, scale):
     K = 2 * packed.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _build.call("chatglm_int4_t_gemv", g.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, N, _build.stream_ptr(g))
+                out.data_ptr(), M, K, N, _build.dtype_code(g.dtype), _build.stream_ptr(g))
     return _build.launched(int4g32_t_gemv, out)
 
 

@@ -14,6 +14,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phase12    # phase 12 alone (the plan table, the export, the launchers)
     python3 chip_smoke.py --fp8    # the fp8 KV cache: phase 2's fp8 rows, its runs in phases 5,
                                    # 6 and 8, the long-context step
+    python3 chip_smoke.py --fp16    # float16 activations: phase 2's f16 rows, the f16 runs of
+                                    # phases 5 and 6, the float16-checkpoint launcher run
+    python3 chip_smoke.py --fp16-seeds 17,27,37    # phase 2's f16 readings per seed (F16_*)
 
 Phases (any failure raises and exits non-zero):
 
@@ -79,7 +82,15 @@ Phases (any failure raises and exits non-zero):
    KERNEL_TOL of its plain version, timed beside its bf16 form, its plain
    version and the cache cast to bf16 + SDPA, its bound counting K/V at one
    byte; and the store: all 65,536 bf16 patterns through the write-only
-   append byte-equal to ``kv_store_cast`` on the card and on the CPU.
+   append byte-equal to ``kv_store_cast`` on the card and on the CPU.  The
+   float16 forms (``check_f16_kernels``): B1 at M = 1, 4, 36 (split-K) and
+   512 (wgmma) and B6 at M = 1, 4 and 512 on the six linears, within
+   ``F16_KERNEL_TOL`` of the plain version and ``SUM_TOL`` beyond half an
+   f16 ulp; every attention kernel's f16 form over an f16 cache at its bf16
+   row's shape (the appends bit-equal to plain, B4 / B12 / B10 / B11 also
+   beyond the output's f16 rounding against a bf16-p control); each timed
+   beside its bf16 form on the same shapes, its plain version and the
+   library call in f16.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -141,7 +152,15 @@ Phases (any failure raises and exits non-zero):
    token within ``GREEDY_GAP_TOL`` of the plain path (``use_kernels=False``)
    over an fp8 cache; the first decode step's logits within JAX's 0.15 of
    max|logits| of the bf16 cache's; ms a token beside the bf16 decoder's, in
-   turns.
+   turns.  After int8 and int4g32, the same tree as a float16 checkpoint
+   loads it (``chat_f16``, ``f16_tree``) under a float16 config: captured =
+   eager text, the f16 forms launched, every token within
+   ``GREEDY_GAP_TOL`` of the plain path in f16, the first decode step's
+   logits against the bf16 model's (a reading), ms a token beside the bf16
+   decoder's in turns, and (int4g32) one f16 step through B12.  Last, the
+   launch path (``launcher_f16``): a 2-layer float tree at 6B widths saved
+   as a float16 checkpoint, ``examples/quantize_naive`` to int4g32, and
+   ``GLMDecoder.from_pretrained`` generating through the f16 kernels.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights, no tokenizer (eos id 2), token-id prompts from a seeded
    generator.  (a) ``PagedServingEngine`` with 256-token chunked admission
@@ -182,7 +201,9 @@ Phases (any failure raises and exits non-zero):
    over an 8192-slot cache at lengths near 8000, random K/V written through
    the store, the captured step over a bf16 cache, an fp8 cache and an fp8
    cache under ``decode_attn_v2``, timed in turns, each traced for its device
-   ms and the decode attention's share.
+   ms and the decode attention's share.  Then (a16) (``engines_f16``): (a)'s
+   engine and requests under a float16 config over an f16 pool, its greedy
+   tokens against the dense ``prefill_chunk`` in f16.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -491,17 +512,18 @@ def bound_ms(nbytes, ops, peak=PEAK_BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def beyond_sum(torch, got, exact, terms) -> float:
-    """The largest error of a bf16 output beyond half a bf16 ulp of its
-    exact value (f64), over the sum of its terms' magnitudes (f64)."""
-    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - 9)
+def beyond_sum(torch, got, exact, terms, bits=8) -> float:
+    """The largest error of a bf16 output (``bits`` significant bits: bf16
+    8, f16 11) beyond half an ulp of its exact value (f64), over the sum of
+    its terms' magnitudes (f64)."""
+    half_ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - (bits + 1))
     excess = ((got.double() - exact).abs() - half_ulp).clamp_min(0.0)
     return (excess / terms.clamp_min(1e-300)).max().item()
 
 
-def hold_sum(torch, name, got, exact, terms) -> float:
-    b = beyond_sum(torch, got, exact, terms)
-    require(b <= SUM_TOL, f"{name}: error beyond the bf16 rounding {b:.3e} of sum|terms| "
+def hold_sum(torch, name, got, exact, terms, bits=8) -> float:
+    b = beyond_sum(torch, got, exact, terms, bits)
+    require(b <= SUM_TOL, f"{name}: error beyond the output's rounding {b:.3e} of sum|terms| "
                           f"> {SUM_TOL:.3e}")
     return b
 
@@ -1055,24 +1077,29 @@ def decode_v2_f32(torch, q, k, v, lengths, sm_scale, p_bf16=False):
     return torch.einsum("bght,bgtd->bghd", pv, v.float()) / torch.where(l > 0, l, 1.0)
 
 
-def beyond_rounding(torch, got, want32) -> float:
-    """max(|got - want32| - half a bf16 ulp of want32) over max|want32|: the
-    error of a bf16 output beyond its own rounding of the f32 result."""
-    half_ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32).exponent - 9)
+def beyond_rounding(torch, got, want32, bits=8) -> float:
+    """max(|got - want32| - half an ulp of want32) over max|want32|: the
+    error of a bf16 output (``bits`` significant bits; f16: 11) beyond its
+    own rounding of the f32 result."""
+    half_ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32).exponent - (bits + 1))
     half_ulp = torch.where(want32 == 0, 0.0, half_ulp)
     excess = ((got.float() - want32).abs() - half_ulp).clamp_min(0.0).max().item()
     return excess / max(want32.abs().max().item(), 1e-30)
 
 
-def hold_beyond(torch, name, got, want32, control32, limit, where) -> tuple[float, float]:
-    """A kernel that keeps p in f32 through PV, held to its own limit: its
+def hold_beyond(torch, name, got, want32, control32, limit, where, hold=True
+                ) -> tuple[float, float]:
+    """A kernel held to its own limit beyond the output's rounding: its
     error beyond the output's rounding of ``want32`` (its function in f32)
     within ``limit``, and the control's (``control32``: the same function
-    with p rounded to bf16) beyond it.  Returns (kernel, control)."""
-    err = beyond_rounding(torch, got, want32)
-    ctrl = beyond_rounding(torch, control32.to(torch.bfloat16), want32)
-    require(err <= limit < ctrl, f"{name} {where}: error beyond the bf16 rounding {err} "
-                                 f"(limit {limit}), control {ctrl}")
+    with p rounded to bf16) beyond it, each in the output's dtype (bf16, or
+    f16).  Returns (kernel, control); ``hold`` False only reads them."""
+    bits = 11 if got.dtype == torch.float16 else 8
+    err = beyond_rounding(torch, got, want32, bits)
+    ctrl = beyond_rounding(torch, control32.to(got.dtype), want32, bits)
+    require(not hold or err <= limit < ctrl,
+            f"{name} {where}: error beyond the output's rounding {err} (limit {limit}), "
+            f"control {ctrl}")
     return err, ctrl
 
 
@@ -2564,10 +2591,14 @@ def chat_slice(torch, smi):
         if name == "int4g32":
             counts["int4g32 fp8"], perf["int4g32 fp8 cache"] = chat_fp8(
                 torch, smi, params, cfg, tokenizer, prompt, ids, decoder)
+        if not dyn:  # the float16 config of the same tree
+            counts[f"{quant} f16"], perf[f"{quant} f16"] = chat_f16(
+                torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder)
         del decoder, eager_decoder
     del params
     torch.cuda.empty_cache()
     perf["round_trip"] = {q: round_trip(torch, q, tokenizer) for q in ("int8", "int4g32")}
+    perf["launcher_f16"] = launcher_f16(torch, smi, tokenizer, prompt)
     return counts, perf
 
 
@@ -2871,20 +2902,27 @@ def captured_programs(params, name, kinds, family="decode"):
     return {p.name: p.replays for p in progs}
 
 
-def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ, kv_dtype=None, rt=None):
+def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ, kv_dtype=None, rt=None,
+                quant="int4g32", dtype=None):
     """For each greedy request, prefill_chunk over prompt + generated[:-1] on a
-    fresh dense cache (one chunk, all logits; of ``kv_dtype``, bf16 by
-    default, through ``rt``, the kernels by default), and the largest relative gap
+    fresh dense cache (one chunk, all logits; activations of ``dtype`` and a
+    cache of ``kv_dtype``, both bf16 by default, through ``rt``, the kernels
+    by default), and the largest relative gap
     between each position's max logit and the emitted token's logit; and the
     same over the stream shifted by one token (the control).  Read two ways:
     from the bf16 logits prefill_chunk returns, and from the same final
-    hidden states through the lm_head in f32 (``int4g32_matmul_plain`` on h
-    in f32: the logits before their rounding to bf16, which makes every bf16
-    gap a whole number of ulps of the top logit).  Returns {"bf16": (worst,
-    control), "f32": (worst, control)}."""
+    hidden states through the lm_head in f32 (the plain matmul of ``quant``
+    on h in f32: the logits before their rounding to bf16, which makes every
+    bf16 gap a whole number of ulps of the top logit; "bf16" is the
+    activations' dtype, f16 where ``dtype`` says so).  Returns {"bf16":
+    (worst, control), "f32": (worst, control)}."""
     from chatglm_q_tpu_torch import TorchRuntimeConfig
     from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops.int8_matmul import int8_matmul_plain
     from chatglm_q_tpu_torch.ops.quant_matmul import int4g32_matmul_plain
+
+    head_plain = int8_matmul_plain if quant == "int8" else int4g32_matmul_plain
+    act = dtype or torch.bfloat16
 
     head, linear, seen = params["lm_head"], M.quant_linear, {}
 
@@ -2905,10 +2943,10 @@ def greedy_gaps(torch, params, cfg, reqs_done, prompts, cache_len=SEQ, kv_dtype=
             ids = torch.tensor([seq], device=dev)
             zero = torch.zeros((1,), dtype=torch.int32, device=dev)
             logits, _ = M.prefill_chunk(params, cfg, ids, zero, zero + len(seq), cache,
-                                        "int4g32", torch.bfloat16, rt or TorchRuntimeConfig(),
+                                        quant, act, rt or TorchRuntimeConfig(),
                                         return_all_logits=True)
             h = seen.pop("h")[0, len(prompt) - 1:]  # row i predicts generated[i]
-            f32 = int4g32_matmul_plain(h.float(), head["weight"], head["weight_scale"])
+            f32 = head_plain(h.float(), head["weight"], head["weight_scale"])
             toks = torch.tensor(req.generated, device=dev)
             for key, lg in (("bf16", logits[0, len(prompt) - 1:].float()),
                             ("f32", f32[:, : cfg.vocab_size])):
@@ -3093,6 +3131,10 @@ def engines_slice(torch, smi, seed=61, survey=False):
     long_counts, out["long_context"] = long_context_fp8(torch, smi, params, cfg)
     counts["flash_attention_decode_v2 fp8"] = \
         long_counts["fp8 decode_attn_v2"]["flash_attention_decode_v2_fp8"]
+    f16_counts, out["f16"] = engines_f16(torch, smi, params, cfg, a_reqs, short, seed)
+    for k in ("flash_attention_decode_paged", "flash_attention_prefill_chunk", "int4g32_mma"):
+        counts[k + " f16"] = f16_counts[k + "_f16"]
+    counts["rope_kv_append paged f16"] = f16_counts["rope_kv_append_f16"]
     return counts, out
 
 
@@ -3225,9 +3267,9 @@ class _MeshAt:
         self.n_data, self.n_model, self.data_index, self.model_index = 1, tp, 0, r
 
 
-def hold_lse(torch, name, got, want, where):
+def hold_lse(torch, name, got, want, where, tol=KERNEL_TOL):
     """K1's / K2's (out, m, l) against the plain version's: out within
-    KERNEL_TOL of max|plain|, m and l within LSE_TOL relative, −inf and 0
+    ``tol`` of max|plain|, m and l within LSE_TOL relative, −inf and 0
     exactly where the shard holds no row of a (b, g).  Returns (max |Δout|,
     its relative error, m's, l's)."""
     (out, m, l), (out_p, m_p, l_p) = got, want
@@ -3240,7 +3282,7 @@ def hold_lse(torch, name, got, want, where):
     dm = ((m[fin] - m_p[fin]).abs() / m_p[fin].abs().clamp_min(1.0)).max().item() \
         if fin.any() else 0.0
     dl = ((l[fin] - l_p[fin]).abs() / l_p[fin]).max().item() if fin.any() else 0.0
-    require(torch.isfinite(out.float()).all() and rel <= KERNEL_TOL and dm <= LSE_TOL
+    require(torch.isfinite(out.float()).all() and rel <= tol and dm <= LSE_TOL
             and dl <= LSE_TOL, f"{name} {where}: out {rel}, m {dm}, l {dl}")
     return rel_err(out, out_p)[0], rel, dm, dl
 
@@ -5408,7 +5450,7 @@ def autotune_check(torch, smi):
                      ).to(torch.bfloat16)
             w64 = unpack_int4_tpu(packed, scale).double()
             splitk = M <= QM.SMALL_M_MAX
-            span = slice(9, 14) if splitk else slice(9, 13)
+            span = slice(10, 15) if splitk else slice(10, 14)  # after M, K, N and the dtype code
             # a split-K entry serves its whole bucket: launch it at the
             # bucket's largest M too
             launch_m = [M] + ([res["bucket"]] if splitk and res["bucket"] != M else [])
@@ -6370,6 +6412,699 @@ def fp8_slice(torch, smi):
                                         for k, c in long_counts.items()}}}
 
 
+# ---------------------------------------------------------------------------
+# float16 activations: phase 2's f16 rows, the f16 runs of phases 5 and 6,
+# and the float16-checkpoint launcher run (``--fp16`` runs them alone)
+# ---------------------------------------------------------------------------
+
+# Phase 2's f16 limits, each 1.5x the largest reading over the seeds of
+# ``--fp16-seeds`` (F16_SURVEY_SEEDS) on an H100 80GB HBM3 at 700 W.  An f16
+# output against its plain version, max|Δ| / max|plain|: one f16 rounding
+# (2^-11) apart where both sum exact products in another order; largest
+# 7.01e-4 (B6's wgmma at M = 512).  The matmuls are also held to SUM_TOL
+# beyond half an f16 ulp of their exact value (largest 5.24e-8).
+F16_KERNEL_TOL = 1.05e-3
+# The error beyond the output's f16 rounding of the kernel's function in
+# f32, each with its control, the same function with p rounded to bf16,
+# which must land above the limit: B4 (p rounded to f16, v's dtype, per
+# tile where the function rounds it per row: largest 3.31e-5, control
+# 2.16e-4), B12 and B10 (p in f32 through PV as two f16 fragments: 4.49e-8
+# and 7.86e-8, controls 1.86e-4 and 1.85e-4), B11 at S = 9 (1.21e-7,
+# control 8.92e-4).
+F16_B4_TOL = 5e-5
+F16_B12_TOL = 6.8e-8
+F16_B10_TOL = 1.2e-7
+F16_B11_TOL = 1.8e-7
+F16_SEED = 17
+F16_SURVEY_SEEDS = (17, 27, 37)
+# phase 2's f16 rows of B1 (split-K at decode and the verify step's 36
+# rows, wgmma at a 4 x 128 prefill) and of B6 (split-K, wgmma)
+F16_MATMUL_M = {"int4g32": (1, 4, 36, 512), "int8": (1, 4, 512)}
+
+
+def f16_matmul_rows(torch, seed, hold):
+    """B1 and B6 in f16 at F16_MATMUL_M on the six linears: one launch of
+    the route's kernel counted in its f16 form, within F16_KERNEL_TOL of the
+    plain version and within SUM_TOL of sum|terms| beyond half an f16 ulp
+    of the exact value; timed beside the same kernel on the rows in bf16,
+    the plain version and the library call where this torch has one in f16.
+    ``hold`` False: the readings only, untimed (``--fp16-seeds``)."""
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    f16, bf = torch.float16, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, K, N in MATMUL_SHAPES:
+        for kind in ("int4g32", "int8"):
+            if kind == "int4g32":
+                wbytes = K // 2 * N + K // 32 * N * 2
+                copies = weight_copies(wbytes) if hold else 1
+                w = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                                  generator=gen)
+                scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
+                         ).to(bf)
+                fn, plain, route = QM.int4g32_matmul, QM.int4g32_matmul_plain, QM.int4_route
+                w64, s64 = unpack_int4_tpu(w[0], scale[0]).double(), 1.0
+            else:
+                wbytes = K * N + 4 * N
+                copies = weight_copies(wbytes) if hold else 1
+                w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
+                                  generator=gen)
+                scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+                fn, plain, route = I8.int8_matmul, I8.int8_matmul_plain, I8.int8_route
+                w64, s64 = w[0].double(), scale[0].double()
+            mod = QM if kind == "int4g32" else I8
+            # the library call in f16: tinygemm's weights made once a shape (it
+            # takes bf16 x only, so its first refusal stands for the shape)
+            lib_w = library_weights(torch, w[:1], scale[:1]) if (
+                hold and kind == "int4g32") else None
+            for M in F16_MATMUL_M[kind]:
+                x = torch.randn((M, K), device="cuda", generator=gen).to(f16)
+                kernel = f"{'int4g32' if kind == 'int4g32' else 'int8'}_{route(M, N, f16)}"
+                wrapper = getattr(mod, kernel)
+                before = wrapper.f16.launches
+                got = fn(x, w[0], scale[0])
+                torch.cuda.synchronize()
+                require(wrapper.f16.launches == before + 1, f"{kernel} f16 {name} M={M}: "
+                                                            "not one launch of its f16 form")
+                err, rel = rel_err(got, plain(x, w[0], scale[0]))
+                exact = (x.double() @ w64) * s64
+                terms = (x.double().abs() @ w64.abs()) * s64
+                beyond = beyond_sum(torch, got, exact, terms, 11)
+                del exact, terms
+                require(torch.isfinite(got).all() and (not hold or (
+                    rel <= F16_KERNEL_TOL and beyond <= SUM_TOL)),
+                    f"{kernel} f16 {name} M={M}: rel err {rel}, beyond the f16 rounding {beyond}")
+                r = {"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+                     "x_dtype": "float16", "max_abs_err": err, "rel_err": rel,
+                     "beyond_sum": beyond}
+                if hold:
+                    xb = x.to(bf)
+                    r["ms"] = cuda_event_ms(lambda i: fn(x, w[i % copies], scale[i % copies]),
+                                            iters=30)
+                    r["bf16_ms"] = cuda_event_ms(lambda i: fn(xb, w[i % copies],
+                                                              scale[i % copies]), iters=30)
+                    r["plain_ms"] = cuda_event_ms(lambda i: plain(x, w[0], scale[0]), iters=3,
+                                                  warmup=1)
+                    r["bound_ms"], r["bound_by"] = bound_ms(M * K * 2 + wbytes + M * N * 2,
+                                                            2.0 * M * K * N)
+                    want = plain(x, w[0], scale[0])
+                    if kind == "int4g32":
+                        r["library_ms"] = int4_library(torch, x, lib_w, want)
+                        lib_w = lib_w if r["library_ms"] is not None else None
+                    else:  # _weight_int8pack_mm takes 60-300 ms at M = 512: three calls
+                        r["library_ms"] = int8_library(
+                            torch, x, w[:1].transpose(1, 2).contiguous(), scale[:1].to(f16),
+                            want, iters=30 if M <= 16 else 3)
+                    log_row("f16 " + ("int4g32_matmul" if kind == "int4g32" else "int8_matmul"),
+                            r)
+                    log(f"    bf16 form {r['bf16_ms']:.5f} ms; beyond the f16 rounding "
+                        f"{beyond:.2e} of sum|terms|")
+                rows.append(r)
+            del w, scale, w64
+    return rows
+
+
+def b4_f32(torch, q, k, v, lengths, sm_scale, p_dtype):
+    """B4's function in f32 before the output's rounding: scores scaled in
+    f32, p rounded to ``p_dtype`` (v's dtype, f16; bf16 for the control),
+    l from f32 p."""
+    from chatglm_q_tpu_torch.ops import attention as A
+
+    s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * (lengths >= 0).float()[:, None, None, None]
+    l = p.sum(-1, keepdim=True)
+    return torch.einsum("bght,bgtd->bghd", p.to(p_dtype).float(), v.float()) / \
+        torch.where(l > 0, l, 1.0)
+
+
+def f16_attention_rows(torch, seed, hold):
+    """Every attention kernel's f16 form (f16 activations over an f16 cache)
+    at the shapes of its bf16 row: B3 / B9 with the RoPE (B = 4, dense and
+    paged) and K3 (dense and paged), bit-equal to their plain versions; B4,
+    B12, B5 (both forms), B10, B11 (S = 9), K1, K2 within F16_KERNEL_TOL of
+    theirs (K1, K2: and their (m, l) within LSE_TOL); B4, B12, B10 and B11
+    also beyond the output's f16 rounding of their function in f32, against
+    the control with p rounded to bf16.  Timed over the 28 layers beside
+    the bf16 form on the same shapes, the plain version, and SDPA in f16."""
+    import torch.nn.functional as F
+
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+    from chatglm_q_tpu_torch.ops import attention as A
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f16, bf = torch.float16, torch.bfloat16
+    L, G, Hg, D = (28 if hold else 2), 2, 16, 128
+    sm = 1.0 / math.sqrt(D)
+    rows, controls = {}, {}
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(f16)
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    def kv_read(n):  # K and V rows at two bytes an element
+        return n * G * D * 2 * 2
+
+    def row(key, fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False, plain_iters=5,
+            peak=PEAK_BF16_FLOPS, plain_syncs=False):
+        """fn(i, dtype): the kernel over layer i in f16 (or bf16 for the
+        bf16 form's time); plain_fn(): the plain version on layer 0."""
+        got = fn(0, f16)
+        torch.cuda.synchronize()
+        want = plain_fn()
+        if exact:
+            g, w_ = (got, want) if not isinstance(got, tuple) else (got[0], want[0])
+            require(torch.equal(g, w_), f"{key}: differs from its plain version")
+            err = rel = 0.0
+        elif isinstance(got, tuple):
+            err, rel, _, _ = hold_lse(torch, key, got, want, "f16",
+                                      tol=F16_KERNEL_TOL if hold else math.inf)
+        else:
+            err, rel = rel_err(got, want)
+            require(torch.isfinite(got.float()).all() and (not hold or rel <= F16_KERNEL_TOL),
+                    f"{key} rel err {rel}")
+        r = {"max_abs_err": err, "rel_err": rel, "shape": shape, "bit_equal_to_plain": exact}
+        if hold:
+            r["ms"] = cuda_event_ms(lambda i: fn(i, f16), iters=56)
+            r["bf16_ms"] = cuda_event_ms(lambda i: fn(i, bf), iters=56)
+            r["plain_ms"] = (synced_ms(torch, lambda i: plain_fn(), plain_iters) if plain_syncs
+                             else cuda_event_ms(lambda i: plain_fn(), iters=plain_iters))
+            r["library_ms"] = cuda_event_ms(lib_fn, iters=56) if lib_fn is not None else None
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, peak)
+        rows[key] = r
+        return got
+
+    # the dense cache of phase 2's B4 row: (L, 4, G, 1024, D), in f16 and bf16
+    B, T = len(PROMPT_LENGTHS), CACHE_LEN
+    kc, vc = rnd(L, B, G, T, D), rnd(L, B, G, T, D)
+    caches = {f16: (kc, vc), bf: (kc.to(bf), vc.to(bf))}
+    q = rnd(B, G, Hg, D)
+    qs = {f16: q, bf: q.to(bf)}
+    lens = i32(1000, 600, 200, 0)
+    n = [min(int(x) + 1, T) for x in lens.tolist()]
+    mask = (torch.arange(T, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+
+    def lib_decode(qq, kk, vv, mm):
+        return lambda i: F.scaled_dot_product_attention(
+            qq.reshape(qq.shape[0], G * Hg, 1, D), kk[i % L], vv[i % L], attn_mask=mm, scale=sm,
+            enable_gqa=True)
+
+    for key, fn, plain in (("flash_attention_decode", A.flash_attention_decode,
+                            A.flash_attention_decode_plain),
+                           ("flash_attention_decode_v2", A.flash_attention_decode_v2,
+                            A.flash_attention_decode_v2_plain)):
+        got = row(key + " f16",
+                  lambda i, dt, fn=fn: fn(qs[dt], caches[dt][0][i % L], caches[dt][1][i % L],
+                                          lens, sm),
+                  lambda plain=plain: plain(q, kc[0], vc[0], lens, sm),
+                  2 * q.numel() * 2 + kv_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
+                  lib_decode(q, kc, vc, mask),
+                  f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} f16 cache")
+        if key == "flash_attention_decode":
+            want32 = b4_f32(torch, q, kc[0], vc[0], lens, sm, f16)
+            control = b4_f32(torch, q, kc[0], vc[0], lens, sm, bf)
+            controls[key + " f16"] = hold_beyond(torch, key + " f16", got, want32, control,
+                                                 F16_B4_TOL, "main shape", hold)
+        else:
+            controls[key + " f16"] = hold_beyond(
+                torch, key + " f16", got, decode_v2_f32(torch, q, kc[0], vc[0], lens, sm),
+                decode_v2_f32(torch, q, kc[0], vc[0], lens, sm, p_bf16=True), F16_B12_TOL,
+                "main shape", hold)
+
+    # B5, whole prompts over the same cache
+    S = max(PROMPT_LENGTHS)
+    qp = rnd(B, S, G, Hg, D)
+    qps = {f16: qp, bf: qp.to(bf)}
+    lp = i32(*PROMPT_LENGTHS)
+    pos = torch.arange(S, device="cuda")
+    pmask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lp[:, None, None]))
+    qsp = qp.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, S, D)
+    pairs = sum(min(s + 1, lb) for lb in PROMPT_LENGTHS for s in range(S))
+    row("flash_attention_prefill f16",
+        lambda i, dt: A.flash_attention_prefill(qps[dt], caches[dt][0][i % L],
+                                                caches[dt][1][i % L], lp, sm),
+        lambda: A.flash_attention_prefill_plain(qp, kc[0], vc[0], lp, sm),
+        2 * qp.numel() * 2 + kv_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
+        4.0 * pairs * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            qsp, kc[i % L][:, :, :S], vc[i % L][:, :, :S], attn_mask=pmask[:, None], scale=sm,
+            enable_gqa=True),
+        f"B={B} S={S} G={G} Hg={Hg} D={D} lengths={list(PROMPT_LENGTHS)} f16 cache")
+
+    # B3 with the RoPE, and K3 on shard 1 of a 2048-slot cache, bit-equal
+    table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda")
+    fr = table[torch.tensor([5, 700, 1500, 2048], device="cuda")]
+    kv = rnd(B, 2 * G * D)
+
+    def append_row(key, kk, vv, pt, st, shard=None):
+        ins = {dt: (q.to(dt), kv.to(dt), fr.to(dt)) for dt in (f16, bf)}
+        ab = {f16: (kk, vv), bf: (kk.to(bf), vv.to(bf))}
+        kr, vr = kk.clone(), vv.clone()
+
+        def run(i, dt):
+            if shard is None:
+                return A.rope_kv_append(*ins[dt], *ab[dt], i % L, st, pt)
+            return A.rope_kv_append_sharded(*ins[dt], *ab[dt], i % L, st, shard, pt)
+
+        def plain():
+            if shard is None:
+                return A.rope_kv_append_plain(*ins[f16], kr, vr, 0, st, pt)
+            return A.rope_kv_append_sharded_plain(*ins[f16], kr, vr, 0, st, shard, pt)
+
+        nbytes = B * (2 * q[0].numel() * 2 + kv[0].numel() * 2 + D * 2 + 2 * G * D * 2 + 4) \
+            + (0 if pt is None else B * 4)
+        row(key, run, plain, nbytes, 6.0 * B * (G * Hg + G) * D / 2, None,
+            f"q (B={B}, G={G}, Hg={Hg}, D={D}), f16 "
+            + (f"cache (L={L}, B={kk.shape[1]}, G={G}, T={kk.shape[3]}, D={D})" if pt is None
+               else f"pool (L={L}, NP={kk.shape[1]}, G={G}, P={kk.shape[3]}, D={D}), "
+                    f"MP={pt.shape[1]}") + f", starts {st.tolist()}"
+            + ("" if shard is None else f", {shard}"),
+            exact=True, plain_iters=14, peak=PEAK_F32_FLOPS, plain_syncs=shard is not None)
+        require(torch.equal(kk[0], kr[0]) and torch.equal(vv[0], vr[0]),
+                f"{key}: the cache differs from the plain version's")
+
+    append_row("rope_kv_append f16", kc, vc, None, i32(T - 1, T, T + 5, 2))
+    append_row("rope_kv_append_sharded f16", kc, vc, None, i32(100, T - 1, T + 7, 2 * T + 3),
+               A.KVShard(offset=T, total=2 * T))
+    del caches
+
+    # B5's chunked form: 4 compact rows x 256 against a 2048-slot cache
+    Sc = 256
+    cc, dc = rnd(L, B, G, SEQ, D), rnd(L, B, G, SEQ, D)
+    ccs = {f16: (cc, dc), bf: (cc.to(bf), dc.to(bf))}
+    qc = rnd(B, Sc, G, Hg, D)
+    qcs = {f16: qc, bf: qc.to(bf)}
+    cstarts = i32(768, 512, 256, 0)
+    clens = cstarts + i32(256, 256, 200, 256)
+    rmap = i32(2, 0, 3, 1)
+    qpos = cstarts.long()[:, None] + torch.arange(Sc, device="cuda")[None, :]
+    cols = torch.arange(SEQ, device="cuda")[None, None, :]
+    cmask = (cols <= qpos[:, :, None]) & (cols < clens.long()[:, None, None])
+    kv_rows = sum(min(int(ln), int(st) + Sc) for st, ln in zip(cstarts.tolist(), clens.tolist()))
+    cpairs = sum(min(st + t + 1, ln) for st, ln in zip(cstarts.tolist(), clens.tolist())
+                 for t in range(Sc))
+    row("flash_attention_prefill_chunk f16",
+        lambda i, dt: A.flash_attention_prefill_chunk(qcs[dt], ccs[dt][0][i % L],
+                                                      ccs[dt][1][i % L], clens, cstarts, sm,
+                                                      rmap),
+        lambda: A.flash_attention_prefill_plain(qc, cc[0], dc[0], clens, sm, cstarts, rmap),
+        2 * qc.numel() * 2 + kv_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            qc.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, Sc, D), cc[i % L][rmap.long()],
+            dc[i % L][rmap.long()], attn_mask=cmask[:, None], scale=sm, enable_gqa=True),
+        f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
+        f"lengths={clens.tolist()} kv_row_map={rmap.tolist()} f16 cache")
+    del ccs, cc, dc
+
+    # K1 on shard 0 of phase 8's 8192-slot cache (4096 a rank)
+    Tl = SHARD_T // SHARD_TP
+    sk, sv = rnd(L, B, G, Tl, D), rnd(L, B, G, Tl, D)
+    sks = {f16: (sk, sv), bf: (sk.to(bf), sv.to(bf))}
+    slen = i32(*SHARD_LENGTHS)
+    sn = [max(0, min(int(x) + 1, Tl)) for x in SHARD_LENGTHS]
+    smask = (torch.arange(Tl, device="cuda")[None, :] <= slen[:, None])[:, None, None, :]
+    row("flash_attention_decode_lse f16",
+        lambda i, dt: A.flash_attention_decode_lse(qs[dt], sks[dt][0][i % L], sks[dt][1][i % L],
+                                                   slen, sm, 0),
+        lambda: A.flash_attention_decode_lse_plain(q, sk[0], sv[0], slen, sm, 0),
+        2 * q.numel() * 2 + kv_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
+        4.0 * sum(sn) * G * Hg * D, lib_decode(q, sk, sv, smask),
+        f"B={B} G={G} Hg={Hg} D={D} shard 0 of T={SHARD_T} (T_local={Tl}) "
+        f"lengths={list(SHARD_LENGTHS)} f16 cache")
+    del sks, sk, sv
+
+    # the pool of phase 2's paged rows: (L, 64, G, 256, D), 2048-slot rows
+    MP = SEQ // PAGE
+    kp, vp = rnd(L, POOL_PAGES, G, PAGE, D), rnd(L, POOL_PAGES, G, PAGE, D)
+    pools = {f16: (kp, vp), bf: (kp.to(bf), vp.to(bf))}
+    pt = (torch.randperm(POOL_PAGES - 1, device="cuda", generator=gen)[: B * MP] + 1
+          ).reshape(B, MP).to(torch.int32)
+    plens = i32(*PAGED_LENGTHS)
+    pn = [min(x + 1, MP * PAGE) for x in PAGED_LENGTHS]
+    dmask = (torch.arange(MP * PAGE, device="cuda")[None, :] <= plens[:, None])[:, None, None]
+
+    def lib_paged(qq, mm):
+        def call(i):
+            kd, vd = A.gather_pages(kp[i % L], pt), A.gather_pages(vp[i % L], pt)
+            if qq.dim() == 4:
+                qx = qq.reshape(qq.shape[0], G * Hg, 1, D)
+            else:
+                qx = qq.permute(0, 2, 3, 1, 4).reshape(qq.shape[0], G * Hg, qq.shape[1], D)
+            return F.scaled_dot_product_attention(qx, kd, vd, attn_mask=mm, scale=sm,
+                                                  enable_gqa=True)
+        return call
+
+    got = row("flash_attention_decode_paged f16",
+              lambda i, dt: A.flash_attention_decode_paged(qs[dt], *pools[dt], i % L, pt, plens,
+                                                           sm),
+              lambda: A.flash_attention_decode_paged_plain(q, kp, vp, 0, pt, plens, sm),
+              2 * q.numel() * 2 + kv_read(sum(pn)) + B * MP * 4 + B * 4,
+              4.0 * sum(pn) * G * Hg * D, lib_paged(q, dmask),
+              f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)} "
+              "f16 pool")
+    kd, vd = A.gather_pages(kp[0], pt), A.gather_pages(vp[0], pt)
+    controls["flash_attention_decode_paged f16"] = hold_beyond(
+        torch, "flash_attention_decode_paged f16", got,
+        decode_v2_f32(torch, q, kd, vd, plens, sm),
+        decode_v2_f32(torch, q, kd, vd, plens, sm, p_bf16=True), F16_B10_TOL, "main shape", hold)
+    del kd, vd
+    S9 = 9
+    q9 = rnd(B, S9, G, Hg, D)
+    q9s = {f16: q9, bf: q9.to(bf)}
+    qpos9 = plens.long()[:, None] + torch.arange(S9, device="cuda")[None, :]
+    cmask9 = (torch.arange(MP * PAGE, device="cuda")[None, None, :] <= qpos9[:, :, None])
+    rows9 = [min(st + S9, MP * PAGE) for st in PAGED_LENGTHS]
+    pairs9 = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S9))
+    got = row("flash_attention_chunk_paged S=9 f16",
+              lambda i, dt: A.flash_attention_chunk_paged(q9s[dt], *pools[dt], i % L, pt, plens,
+                                                          sm),
+              lambda: A.flash_attention_chunk_paged_plain(q9, kp, vp, 0, pt, plens, sm),
+              2 * q9.numel() * 2 + kv_read(sum(rows9)) + B * MP * 4 + B * 4,
+              4.0 * pairs9 * G * Hg * D, lib_paged(q9, cmask9[:, None]),
+              f"B={B} S={S9} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} "
+              "f16 pool")
+    args = (torch, q9, kp, vp, 0, pt, plens, sm, None)
+    controls["flash_attention_chunk_paged S=9 f16"] = hold_beyond(
+        torch, "flash_attention_chunk_paged f16", got, chunk_paged_f32(*args),
+        chunk_paged_f32(*args, p_bf16=True), F16_B11_TOL, "S=9", hold)
+    cap = MP * PAGE
+    append_row("rope_kv_append paged f16", kp, vp, pt, i32(cap - 1, cap, cap + 100, 5))
+    half = pt[:, ::2].contiguous()
+    row("flash_attention_decode_paged_lse f16",
+        lambda i, dt: A.flash_attention_decode_paged_lse(qs[dt], *pools[dt], i % L, half, plens,
+                                                         sm, 2, 0),
+        lambda: A.flash_attention_decode_paged_lse_plain(q, kp, vp, 0, half, plens, sm, 2, 0),
+        2 * q.numel() * 2 + kv_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
+        4.0 * sum(pn) / 2 * G * Hg * D, None,
+        f"B={B} G={G} Hg={Hg} D={D} P={PAGE}, phase 0 of a stride-2 table (B, {MP // 2}), "
+        f"lengths={list(PAGED_LENGTHS)} f16 pool")
+    append_row("rope_kv_append_sharded paged f16", kp, vp, half,
+               i32(100, PAGE + 3, cap - 1, cap + 9), A.KVShard(stride=2, phase=0, total=cap))
+    del pools, kp, vp
+    for key, (err, ctrl) in controls.items():
+        rows[key]["beyond_rounding"], rows[key]["control"] = err, ctrl
+    if hold:
+        width = max(len(k) for k in rows)
+        for k, r in rows.items():
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            extra = (f"  beyond the f16 rounding {r['beyond_rounding']:.2e} (bf16-p control "
+                     f"{r['control']:.2e})" if "control" in r else "")
+            log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms (bf16 form "
+                f"{r['bf16_ms']:.4f} ms)  bound {r['bound_ms']:.6f} ms ({r['bound_by']})  plain "
+                f"{r['plain_ms']:.4f} ms  SDPA f16 {lib}"
+                f"{'  = plain' if r['bit_equal_to_plain'] else ''}{extra}  [{r['shape']}]")
+    return rows
+
+
+def check_f16_kernels(torch, seed=F16_SEED, hold=True):
+    """Phase 2's f16 rows: B1 and B6 (``f16_matmul_rows``) and every
+    attention kernel's f16 form (``f16_attention_rows``)."""
+    return {"matmul": f16_matmul_rows(torch, seed, hold),
+            "attention": f16_attention_rows(torch, seed, hold)}
+
+
+def f16_survey(torch, smi, seeds):
+    """``--fp16-seeds``: phase 2's f16 readings per seed, untimed and
+    unheld, and their largest over the seeds (the basis of the f16
+    limits)."""
+    worst = {}
+    for seed in seeds:
+        res = check_f16_kernels(torch, seed, hold=False)
+        for r in res["matmul"]:
+            for key in ("rel_err", "beyond_sum"):
+                k = f"{r['kernel']} M={r['M']} {key}"
+                worst[k] = max(worst.get(k, 0.0), r[key])
+        for name, r in res["attention"].items():
+            for key in ("rel_err", "beyond_rounding", "control"):
+                if key in r:
+                    k = f"{name} {key}"
+                    fn = min if key == "control" else max
+                    worst[k] = fn(worst.get(k, r[key]), r[key])
+        log(f"  seed {seed}: " + json.dumps({k: v for k, v in worst.items()}))
+    log("detail: " + json.dumps({"card": smi, "f16_survey_seeds": list(seeds),
+                                 "largest (controls: smallest)": worst}))
+    return 0
+
+
+def f16_tree(torch, params):
+    """The tree a float16 checkpoint of ``params`` loads into (loader.py):
+    every float leaf in f16 but the quantized weights' scales (int4g32's
+    bf16, int8's f32), which the kernels take as they are."""
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else
+                v.to(torch.float16) if v.is_floating_point() and k != "weight_scale" else v
+                for k, v in tree.items()}
+    return conv(params)
+
+
+def f16_logit_drift(torch, params, p16, cfg, quant, ids, rt):
+    """max|Δlogits| / max|logits| of the first decode step after the chat
+    prompt's prefill in f16 (the f16 tree ``p16``, an f16 cache) against
+    bf16 (``params``; the same input token: the bf16 run's greedy token).
+    A reading only."""
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    prompt = torch.tensor([ids], device="cuda")
+    lengths = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    out, tok = [], None
+    for dt, p in ((torch.bfloat16, params), (torch.float16, p16)):
+        cache = M.init_kv_cache(cfg, 1, CACHE_LEN, dt)
+        logits, cache = M.prefill(p, cfg, prompt, lengths, cache, quant, dt, rt)
+        tok = torch.argmax(logits, -1).to(torch.int32) if tok is None else tok
+        out.append(M.decode_step(p, cfg, tok, cache, quant, dt, rt)[0].float())
+        del cache
+    return ((out[1] - out[0]).abs().max() / out[0].abs().max()).item()
+
+
+def chat_f16(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decoder):
+    """Phase 5's f16 run of one quantization: ``GLMDecoder`` with a float16
+    config (f16 activations over an f16 cache) on the 28-layer tree as a
+    float16 checkpoint of it loads (``f16_tree``), the
+    chat prompt, 32 greedy tokens, captured and eager (equal texts), the f16
+    forms launched; every token within GREEDY_GAP_TOL of the argmax of the
+    plain path (``use_kernels=False``) in f16; the first decode step's
+    logits against the bf16 model's (a reading); ms a token beside the bf16
+    decoder's, in turns.  int4g32 also takes one f16 decode step through
+    B12 (``decode_attn_v2``)."""
+    from types import SimpleNamespace
+
+    from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import GLMDecoder
+
+    f16 = torch.float16
+    name = f"{quant} f16"
+    bf16_params, params = params, f16_tree(torch, params)
+    load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="float16")
+    rt, eager = TorchRuntimeConfig(), TorchRuntimeConfig(cuda_graphs=False)
+    dec = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
+    dec_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=eager)
+    require(dec.dtype == f16 and dec.kv_dtype == f16, f"{name}: decoder in {dec.dtype}")
+    ops.reset_launch_counts()
+    _, final, _ = run_generate(dec, prompt)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    step = M.decode_program(params, cfg, dec._free_caches[0][0], quant, f16, rt)
+    require(dec._free_caches[0][0].k.dtype == f16 and step.graph is not None
+            and step.replays >= CHAT_TOKENS - 3,
+            f"{name}: the decode step was not replayed from a graph ({step.replays})")
+    _, final_eager, _ = run_generate(dec_eager, prompt)
+    require(final_eager == final, f"{name}: the captured decoder's text differs from the eager "
+                                  f"one's: {final[:60]!r} / {final_eager[:60]!r}")
+    kernels = (("int8_splitk", "int8_mma") if quant == "int8" else ("int4g32_splitk",)) + \
+        ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill")
+    for k in kernels:
+        require(counts[k + "_f16"] > 0 and counts[k + "_f16"] == counts[k],
+                f"{name}: {k} launched {counts[k]} times, {counts[k + '_f16']} in f16")
+    # the tokens: the model-level loop over an f16 cache gives the decoder's text
+    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, f16)
+    logits, cache = M.prefill(params, cfg, torch.tensor([ids], device="cuda"),
+                              torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), cache,
+                              quant, f16, rt)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    toks, cache = M.multi_step_decode(params, cfg, first, cache, CHAT_TOKENS - 1, None, quant,
+                                      f16, rt)
+    out = [int(first[0])] + toks[0].tolist()
+    if quant == "int4g32":  # one f16 step through B12
+        v2 = TorchRuntimeConfig(decode_attn_v2=True, cuda_graphs=False)
+        before = ops.launch_counts()["flash_attention_decode_v2_f16"]
+        M.decode_step(params, cfg, toks[:, -1], cache, quant, f16, v2)
+        torch.cuda.synchronize()
+        counts["flash_attention_decode_v2_f16"] = \
+            ops.launch_counts()["flash_attention_decode_v2_f16"] - before
+        require(counts["flash_attention_decode_v2_f16"] == cfg.num_layers,
+                f"{name}: decode_attn_v2 launched B12 in f16 "
+                f"{counts['flash_attention_decode_v2_f16']} times")
+    del cache
+    plain = TorchRuntimeConfig(use_kernels=False, use_flash_attention=True, cuda_graphs=False)
+    gaps = greedy_gaps(torch, params, cfg, [SimpleNamespace(generated=out)],
+                       [(ids, dict(temperature=0.0))], cache_len=CACHE_LEN, kv_dtype=f16,
+                       rt=plain, quant=quant, dtype=f16)
+    require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
+            f"{name}: greedy gap {gaps['f32'][0]} against the plain path in f16 (shifted "
+            f"control {gaps['f32'][1]})")
+    drift = f16_logit_drift(torch, bf16_params, params, cfg, quant, ids, rt)
+    tok_ms = {"bf16": [], "f16": []}
+    for turn, d in (("bf16", bf16_decoder), ("f16", dec), ("f16", dec), ("bf16", bf16_decoder)):
+        tok_ms[turn].append(run_generate(d, prompt)[2])
+    log(f"  {name}: GLMDecoder.generate (float16 config, f16 cache) captured = eager "
+        f"({len(out)} tokens): {final[:60]!r}; greedy gap f32 against the plain path in f16 "
+        f"{gaps['f32'][0]:.4e} (shifted control {gaps['f32'][1]:.3e}); the first decode step's "
+        f"max|dlogits| / max|logits| against the bf16 model {drift:.4e} (a reading)")
+    log(f"  {quant} GLMDecoder ms a token in turns: bf16 {tok_ms['bf16'][0]:.3f}, f16 "
+        f"{tok_ms['f16'][0]:.3f} / {tok_ms['f16'][1]:.3f}, bf16 {tok_ms['bf16'][1]:.3f}  [{smi}]")
+    log(f"  {name} launch counts of the generate run: "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del dec, dec_eager
+    return counts, {"gaps": gaps, "logit_drift_vs_bf16": drift, "ms_per_token_turns": tok_ms,
+                    "replays": step.replays, "text": final[:80]}
+
+
+def engines_f16(torch, smi, params, cfg, a_reqs, short, seed):
+    """Phase 6 over an f16 pool, (a16): (a)'s engine (chunked admission, the
+    prefix cache, the top-p row) with a float16 config: budgets, page
+    accounting, prefix hits, the f16 forms launched (B3 / B4 never), every
+    greedy token within GREEDY_GAP_TOL of the dense ``prefill_chunk`` in f16
+    over an f16 cache (its logits read in f32), tok/s and the busy share of
+    a decode-only step."""
+    from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.serving import PagedServingEngine
+
+    f16 = torch.float16
+    params = f16_tree(torch, params)  # as a float16 checkpoint of the tree loads
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="float16")
+    eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
+                             prefill_chunk_size=PAGE, prefix_cache=True, rt=TorchRuntimeConfig(),
+                             seed=seed + 3, **ENGINE_KW)
+    require(eng.cache.k_pool.dtype == f16, f"(a16) the pool is {eng.cache.k_pool.dtype}")
+    done, res = drive(torch, eng, a_reqs, "(a16) paged, chunked + prefix cache, f16")
+    require(eng.pages_in_use == 0, f"(a16): {eng.pages_in_use} pages in use after the drain")
+    require(eng.stats["prefix_hits"] > 0, "(a16): no prefix hit")
+    eng.clear_prefix_cache()
+    require(len(eng._free_pages) == POOL_PAGES - 1,
+            f"(a16): {len(eng._free_pages)} pages free after clearing the prefix cache")
+    c = res["launches"]
+    for kern in ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
+                 "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
+        require(c[kern + "_f16"] > 0 and c[kern + "_f16"] == c[kern],
+                f"(a16): {kern} launched {c[kern]} times, {c[kern + '_f16']} in f16")
+    require(c["kv_cache_write_idx"] == 0 and c["flash_attention_decode"] == 0,
+            "(a16) launched B3/B4")
+    res["busy"] = chunk_busy(torch, eng, short, "(a16)")
+    del eng
+    res["gaps"] = greedy_gaps(torch, params, cfg, done, a_reqs, kv_dtype=f16, dtype=f16)
+    g = res["gaps"]["f32"]
+    require(g[0] <= GREEDY_GAP_TOL and g[1] > GREEDY_GAP_TOL,
+            f"(a16): greedy gap {g[0]} against the dense f16 prefill_chunk (shifted control "
+            f"{g[1]})")
+    log(f"    (a16) greedy gap f32 {g[0]:.4e} (shifted control {g[1]:.3e}); "
+        f"{res['tok_per_s']:.1f} tok/s, busy share of a decode-only step "
+        f"{100 * res['busy']['busy_share']:.1f}%  [{smi}]")
+    return c, res
+
+
+F16_LAUNCH_LAYERS = 2  # the launcher run's depth: phase 5 holds the full 28
+
+
+def launcher_f16(torch, smi, tokenizer, prompt):
+    """The launch path on a float16 checkpoint: a float tree at ChatGLM2-6B
+    widths, F16_LAUNCH_LAYERS layers, saved as a float16 checkpoint (as the
+    reference's are), quantized to int4g32 by ``examples/quantize_naive``
+    on the card (a float16-config checkpoint), then
+    ``GLMDecoder.from_pretrained`` with no dtype generates on the card
+    through the f16 kernels, in a temporary directory under the
+    (gitignored) build directory."""
+    import tempfile
+
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, ops
+    from chatglm_q_tpu_torch import loader as TLD
+    from chatglm_q_tpu_torch.examples import quantize_naive
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.ops import _build
+    from chatglm_q_tpu_torch.serving import GLMDecoder
+
+    cfg = ChatGLM2Config(num_layers=F16_LAUNCH_LAYERS)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        params = M.init_params(torch.Generator(device="cuda").manual_seed(61), cfg, "none",
+                               torch.float32, "cuda")
+        TLD.save_model_and_tokenizer(f"{tmp}/float", GLMLoadConfig(model_config=cfg,
+                                                                   torch_dtype="float16"),
+                                     params, tokenizer)
+        del params
+        t1 = time.perf_counter()
+        quantize_naive.main(["--quant", "int4g32", "--source", f"{tmp}/float", "--target",
+                             f"{tmp}/int4g32"])
+        t2 = time.perf_counter()
+        dec = GLMDecoder.from_pretrained(f"{tmp}/int4g32")
+        t3 = time.perf_counter()
+        require(dec.config.torch_dtype == "float16" and dec.dtype == torch.float16
+                and dec.device.type == "cuda", f"launcher: {dec.config.torch_dtype}, {dec.dtype}")
+        ops.reset_launch_counts()
+        stream, final, ms = run_generate(dec, prompt)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        del dec
+    for k in ("int4g32_splitk_f16", "rope_kv_append_f16", "flash_attention_decode_f16",
+              "flash_attention_prefill_f16"):
+        require(counts[k] > 0, f"launcher: no {k} launch")
+    require(len(final) > 0, "launcher: empty text")
+    log(f"  launcher: a float16 ChatGLM2-6B-width checkpoint ({F16_LAUNCH_LAYERS} layers) saved "
+        f"in {t1 - t0:.1f} s, quantize_naive int4g32 in {t2 - t1:.1f} s, "
+        f"GLMDecoder.from_pretrained in {t3 - t2:.1f} s (float16 config, f16 activations and "
+        f"cache); generate gave {len(stream)} streamed texts, {ms:.3f} ms a token: "
+        f"{final[:60]!r}  [{smi}]")
+    return {"save_s": t1 - t0, "quantize_s": t2 - t1, "load_s": t3 - t2,
+            "ms_per_token": ms, "text": final[:80],
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def f16_slice(torch, smi):
+    """``--fp16``: phase 2's f16 rows, the f16 runs of phases 5 and 6 and the
+    launcher run, on their own."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+
+    rows = check_f16_kernels(torch)
+    cfg = ChatGLM2Config()
+    tokenizer = chat_tokenizer()
+    prompt = chat_template([], CHAT_QUESTION)
+    ids = tokenizer.encode(prompt)
+    chat, counts = {}, {}
+    for quant in ("int8", "int4g32"):
+        params = random_quantized_params(cfg, quant,
+                                         torch.Generator(device="cuda").manual_seed(41))
+        load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="bfloat16")
+        decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                             rt=TorchRuntimeConfig())
+        run_generate(decoder, prompt)  # its programs captured before the turns
+        counts[quant], chat[quant] = chat_f16(torch, smi, params, cfg, quant, tokenizer,
+                                              prompt, ids, decoder)
+        del decoder
+        if quant == "int8":
+            del params
+            torch.cuda.empty_cache()
+    a_reqs, _ = engine_prompts(torch, 61)
+    short = [(p[:128], {**kw, "temperature": 0.0, "max_new_tokens": 256})
+             for p, kw in a_reqs[:4]]
+    counts["a16"], engines = engines_f16(torch, smi, params, cfg, a_reqs, short, 61)
+    del params
+    torch.cuda.empty_cache()
+    launcher = launcher_f16(torch, smi, tokenizer, prompt)
+    return {"rows": rows, "chat": chat, "a16": engines, "launcher": launcher,
+            "counts": {k: {n: v for n, v in c.items() if v} for k, c in counts.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -6495,6 +7230,16 @@ def main() -> int:
         log("detail: " + json.dumps({"card": smi, "quant_2_layers": quant_perf}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--fp16-seeds" in sys.argv:  # phase 2's f16 readings per seed (the f16 limits)
+        seeds = sys.argv[sys.argv.index("--fp16-seeds") + 1]
+        return f16_survey(torch, smi, [int(v) for v in seeds.split(",")])
+    if "--fp16" in sys.argv:  # the float16 rows and runs alone
+        phase("== float16 activations: phase 2's f16 rows, the f16 runs of phases 5 and 6, the "
+              "float16-checkpoint launcher")
+        res = f16_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "f16": res}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--fp8" in sys.argv:  # the fp8 cache's rows and runs alone
         phase("== the float8_e4m3fn KV cache: phase 2's fp8 rows, the fp8 runs of phases 5, 6 "
               "and 8, the long-context step")
@@ -6517,6 +7262,9 @@ def main() -> int:
     att_fp8 = check_fp8_attention(torch)
     att["fp8_store"] = att_fp8.pop("store")
     att.update(att_fp8)
+    phase("== phase 2 (f16): B1, B6 and every attention kernel's float16 form")
+    f16_rows = check_f16_kernels(torch)
+    att.update(f16_rows["attention"])
 
     phase("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -6636,6 +7384,38 @@ def main() -> int:
                 "flash_attention_prefill fp8": cf["flash_attention_prefill_fp8"],
                 **{k: v for k, v in engine_counts.items() if k.endswith(" fp8")},
                 **{k: v for k, v in sharded_counts.items() if k.endswith(" fp8")}}
+    # the float16 forms: launches from the f16 runs (phase 5's float16-config
+    # GLMDecoder in int4g32 and int8, phase 6's (a16)); their rows phase 2's
+    c16, c8 = chat_counts["int4g32 f16"], chat_counts["int8 f16"]
+    f16_runs = {"int4g32_splitk f16": c16["int4g32_splitk_f16"],
+                "int4g32_mma f16": engine_counts["int4g32_mma f16"],
+                "int8_splitk f16": c8["int8_splitk_f16"], "int8_mma f16": c8["int8_mma_f16"],
+                **{k + " f16": c16[k + "_f16"] for k in (
+                    "rope_kv_append", "flash_attention_decode", "flash_attention_decode_v2",
+                    "flash_attention_prefill")},
+                **{k: v for k, v in engine_counts.items() if k.endswith(" f16")}}
+
+    def pick16(kernel, M, name="w_in_h/w_in_gate"):
+        return next(r for r in f16_rows["matmul"] if r["kernel"] == kernel and r["M"] == M
+                    and r["linear"] == name)
+
+    for name, src, line, row in (
+            ("int4g32_splitk f16", mm4, f"{pm}:826", pick16("int4g32_splitk", 1)),
+            ("int4g32_mma f16", mm4, f"{pm}:244", pick16("int4g32_mma", 512)),
+            ("int8_splitk f16", mm8, f"{pm}:188", pick16("int8_splitk", 1)),
+            ("int8_mma f16", mm8, f"{pm}:188", pick16("int8_mma", 512)),
+            ("rope_kv_append f16", att_src, f"{pa}:427", att["rope_kv_append f16"]),
+            ("flash_attention_decode f16", att_src, f"{pa}:207", att["flash_attention_decode f16"]),
+            ("flash_attention_decode_v2 f16", att_src, f"{pa}:662",
+             att["flash_attention_decode_v2 f16"]),
+            ("flash_attention_prefill f16", att_src, f"{pa}:43",
+             att["flash_attention_prefill f16"]),
+            ("flash_attention_prefill_chunk f16", att_src, f"{pa}:43",
+             att["flash_attention_prefill_chunk f16"]),
+            ("rope_kv_append paged f16", att_src, f"{pa}:480", att["rope_kv_append paged f16"]),
+            ("flash_attention_decode_paged f16", att_src, f"{pa}:787",
+             att["flash_attention_decode_paged f16"])):
+        specs.append((name, src, line, row, f16_runs))
     for name, line, row in (
             ("rope_kv_append fp8", 427, "rope_kv_append fp8"),
             ("flash_attention_decode fp8", 207, "flash_attention_decode fp8"),
@@ -6656,20 +7436,22 @@ def main() -> int:
         shape = r.get("shape") or f"M={r['M']} K={r['K']} N={r['N']} ({r['linear']})"
         if "dtype" in r:  # a backward matmul: g (M, N) → (M, K)
             shape = f"g (M={r['M']}, N={r['N']}) {r['dtype']} -> K={r['K']} ({r['linear']})"
-        elif r.get("x_dtype") == "float32":
-            shape += " f32"
+        elif r.get("x_dtype") in ("float32", "float16"):
+            shape += " f32" if r["x_dtype"] == "float32" else " f16"
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": run_counts[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
-        if name in CUDA_KERNEL:
-            entries[-1]["kernel"] = CUDA_KERNEL[name]
+        base = name.removesuffix(" f16")
+        if base in CUDA_KERNEL:
+            entries[-1]["kernel"] = CUDA_KERNEL[base] + (" (f16 form)" if base != name else "")
         if "old_path_ms" in r:
             entries[-1]["old_path_ms"] = r["old_path_ms"]
-        if r.get("bf16_ms") is not None:  # an fp8 form: its bf16 form's time beside it
+        if r.get("bf16_ms") is not None:  # an fp8 or f16 form: its bf16 form's time beside it
             entries[-1]["bf16_form_ms"] = r["bf16_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
+              "f16_matmul_rows": f16_rows["matmul"],
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "dyn_division": dyn_division,
               "attention": att, "e2e_rel_err": e2e,

@@ -11,11 +11,12 @@ where a matmul switches from its split-K kernel to its tensor-core kernel,
 and an all-zero activation row (the 1e-10 clamp of the dynamic scale).
 B7 (``int8_dyn_matmul``) is held bit-exact: its int32 sums are exact.  The
 attention kernels and the KV write take bf16 activations over a bf16 or
-float8_e4m3fn cache; each fp8 form is bit-equal to its bf16 form on the
-upcast cache, and the cast on write byte-equal to ``kv_store_cast``.  The
-tolerance is the
-bf16 one of chip_smoke.py (1e-2 of max|plain|; f32 1e-5): kernels and plain
-versions sum the same exact products in another order.
+float8_e4m3fn cache, or f16 activations over an f16 cache; each fp8 form is
+bit-equal to its bf16 form on the upcast cache, and the cast on write
+byte-equal to ``kv_store_cast``.  The tolerance is the bf16 one of
+chip_smoke.py (1e-2 of max|plain|; f32 1e-5): kernels and plain versions
+sum the same exact products in another order.  The f16 forms (the last
+section) are held to chip_smoke.py's f16 limits.
 """
 import math
 
@@ -255,8 +256,8 @@ def test_int4g32_mma_rejects_a_plan_it_cannot_take(gen):
     for bm, nsplit, gps in ((128, 2, 8), (128, 4, 16), (96, 1, 32)):  # groups uncovered,
         with pytest.raises(RuntimeError):                            # an empty split, no tile
             _build.call("chatglm_int4_wgmma", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                        y.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), 100, 1024, 512, bm,
-                        nsplit, gps, 8, _build.stream_ptr(x))
+                        y.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), 100, 1024, 512,
+                        _build.dtype_code(x.dtype), bm, nsplit, gps, 8, _build.stream_ptr(x))
 
 
 def test_int4g32_routes_by_m_and_dtype(gen):
@@ -289,7 +290,8 @@ def test_int4g32_splitk_rejects_what_it_cannot_take(gen):
     with pytest.raises(RuntimeError):  # a plan the kernel refuses: M over mt's rows
         _build.call("chatglm_int4_splitk_mma", x9.data_ptr(), packed.data_ptr(),
                     scale.data_ptr(), y9.data_ptr(), None, arrivals.data_ptr(),
-                    9, 64, 16, 1, 16, 1, 2, 8, _build.stream_ptr(x9))
+                    9, 64, 16, _build.dtype_code(x9.dtype), 1, 16, 1, 2, 8,
+                    _build.stream_ptr(x9))
 
 
 def _decode_edges(B, T, span, past_end=False):
@@ -873,7 +875,7 @@ def test_int8_splitk_kernels_reject_a_plan_they_cannot_take(gen, entry):
     arrivals = torch.zeros((16,), dtype=torch.int32, device="cuda")
     for M, mt, cols in ((9, 1, 8), (24, 3, 8), (9, 2, 16)):
         lead = [x.data_ptr()] if "dyn" not in entry else [x.data_ptr(), sx.data_ptr()]
-        mid = [] if "dyn" not in entry else [1]
+        mid = [_build.dtype_code(y.dtype)]  # x's (B6) or y's (B7 / B8) dtype code
         with pytest.raises(RuntimeError):
             _build.call(entry, *lead, w.data_ptr(), scale.data_ptr(), y.data_ptr(), None,
                         arrivals.data_ptr(), M, 64, 16, *mid, mt, cols, 1, 2, 8,
@@ -1070,8 +1072,8 @@ def test_t_splitk_refuses_a_plan_it_cannot_take(gen, entry):
     for plan in ((1, 2, 4, 4), (2, 1, 4, 4), (2, 2, 4, 6)):
         with pytest.raises(RuntimeError):
             _build.call(entry, g.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                        ws.data_ptr(), arrivals.data_ptr(), 16, 256, 512, *plan,
-                        _build.stream_ptr(g))
+                        ws.data_ptr(), arrivals.data_ptr(), 16, 256, 512,
+                        _build.dtype_code(g.dtype), *plan, _build.stream_ptr(g))
 
 
 # The Hopper kernels of B6 (int8_mma), B13 (int8_t_mma) and B14
@@ -1289,7 +1291,8 @@ def test_wgmma_kernels_reject_a_plan_they_cannot_take(gen, entry):
         with pytest.raises(RuntimeError):
             _build.call(entry, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
                         None if part is None else part.data_ptr(), arrivals.data_ptr(), 100,
-                        1024, 1024, bm, nsplit, sps, 8, _build.stream_ptr(a))
+                        1024, 1024, _build.dtype_code(a.dtype), bm, nsplit, sps, 8,
+                        _build.stream_ptr(a))
 
 
 # B7 / B8 above 16 rows (dyn_wgmma_kernel): every main-path linear (q/o,
@@ -2165,7 +2168,7 @@ def test_a_recorded_plan_reaches_the_launch(gen, tmp_path, monkeypatch):
         for M in (1, 8):  # the entry of bucket m8 serves M = 1 to 8
             x = torch.randn((M, 4096), device="cuda", generator=gen).to(torch.bfloat16)
             got = QM.int4g32_matmul(x, packed, scale)
-            assert tuple(calls[-1][9:14]) == plan
+            assert tuple(calls[-1][10:15]) == plan  # after M, K, N and the dtype code
             assert _rel(got, QM.int4g32_matmul_plain(x, packed, scale)) <= 1e-2
     finally:
         AT.reload()
@@ -2432,8 +2435,9 @@ def test_fp8_captured_decode_steps_are_bit_equal_to_eager(gen):
 
 
 def test_attention_kernels_refuse_other_cache_and_activation_dtypes(gen):
-    """bf16 activations over a bf16 or fp8 cache, nothing else: an f32 or
-    f16 cache, f16 q, or K and V of two dtypes raise, naming the pair."""
+    """bf16 activations over a bf16 or fp8 cache, or f16 over f16, nothing
+    else: an f32 cache, an f16 cache under bf16 q, f16 q over an fp8
+    cache, or K and V of two dtypes raise, naming the pair."""
     q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen).to(torch.bfloat16)
     k8, _ = _fp8(gen, (1, 2, 64, 128))
     lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
@@ -2446,3 +2450,332 @@ def test_attention_kernels_refuse_other_cache_and_activation_dtypes(gen):
             A.flash_attention_prefill(qq[:, None], kk, vv, lengths + 1, 0.1)
     with pytest.raises(TypeError):  # f32 new into an fp8 cache would round twice
         A.kv_cache_write_idx(k8[None], q[:, :, 0].float(), 0, lengths)
+
+
+# ---------------------------------------------------------------------------
+# float16 activations (a float16 checkpoint): B1 / B6 and every attention
+# kernel's f16 form, against their plain versions in f16
+# ---------------------------------------------------------------------------
+
+F16 = torch.float16
+# The f16 limits: max|Δ| / max|plain| of an f16 output (chip_smoke.py's
+# F16_KERNEL_TOL: f32 sums in another order, one f16 rounding apart, at most
+# 2^-10 of the top binade) and B4's error beyond the output's f16 rounding
+# of its function with p rounded to f16 by row (chip_smoke.py's F16_B4_TOL:
+# the kernel rounds p per tile).  At these edge shapes B10, B11 and B12 in
+# f16 are held to the bf16 forms' B12_TOL beyond the output's rounding
+# (chip_smoke.py holds the main shapes to its tighter F16_B1x_TOL); the
+# control, p rounded to bf16, must land above each.
+F16_TOL = 1.05e-3
+F16_B4_BEYOND_TOL = 5e-5
+
+
+def _beyond_rounding_f16(got, want32):
+    """max(|got − want32| − half an f16 ulp of want32) / max|want32|."""
+    half_ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32).exponent - 12)
+    half_ulp = torch.where(want32 == 0, 0.0, half_ulp)
+    excess = ((got.float() - want32).abs() - half_ulp).clamp_min(0.0).max().item()
+    return excess / want32.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["int4g32", "int8"])
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (4, 4096, 512), (16, 13824, 4096),
+                                   (36, 4096, 264), (64, 4096, 13824), (65, 1024, 512),
+                                   (80, 1024, 264), (128, 4096, 4096), (512, 4096, 512)])
+def test_f16_matmuls_match_plain(gen, kind, M, K, N):
+    """B1 (split-K to 64 rows, wgmma above) and B6 (split-K to 16 rows,
+    wgmma above; the CUDA-core gemv where N % 16 != 0 above them) in f16:
+    one launch of the route's kernel, counted in its f16 form; within
+    F16_TOL of the plain version and within 2^-23 of sum|terms| of the
+    exact value beyond half an f16 ulp."""
+    x = torch.randn((M, K), device="cuda", generator=gen).to(F16)
+    if kind == "int4g32":
+        w, scale = _int4_weights(gen, K, N)
+        fn, plain, route = QM.int4g32_matmul, QM.int4g32_matmul_plain, QM.int4_route
+        wrap = {"splitk": QM.int4g32_splitk, "mma": QM.int4g32_mma, "gemv": QM.int4g32_gemv}
+        w64 = QM.unpack_int4_tpu(w, scale).double()
+        s64 = 1.0
+    else:
+        w = torch.randint(-128, 128, (K, N), dtype=torch.int8, device="cuda", generator=gen)
+        scale = (0.5 + torch.rand((N,), device="cuda", generator=gen)) * 0.01
+        fn, plain, route = I8.int8_matmul, I8.int8_matmul_plain, I8.int8_route
+        wrap = {"splitk": I8.int8_splitk, "mma": I8.int8_mma, "gemv": I8.int8_gemv}
+        w64, s64 = w.double(), scale.double()
+    kernel = wrap[route(M, N, F16)]
+    assert route(M, N, F16) == route(M, N, torch.bfloat16)
+    before = kernel.launches, kernel.f16.launches
+    got = fn(x, w, scale)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.f16.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == F16 and torch.isfinite(got).all()
+    assert _rel(got, plain(x, w, scale)) <= F16_TOL
+    exact, terms = (x.double() @ w64) * s64, (x.double().abs() @ w64.abs()) * s64
+    assert _beyond_sum_of(got, exact, terms, 11) <= 2.0 ** -23
+
+
+def test_f16_matmul_entries_refuse_what_has_no_kernel(gen):
+    """The dtype code is checked at the entry: f16 at the dynamic and the
+    transposed entries, f32 at the tensor-core ones, an unknown code."""
+    packed, scale = _int4_weights(gen, 64, 16)
+    x = torch.zeros((2, 64), dtype=F16, device="cuda")
+    y = torch.empty((2, 16), dtype=F16, device="cuda")
+    arrivals = torch.zeros((16,), dtype=torch.int32, device="cuda")
+    for code in (0, 3):
+        with pytest.raises(RuntimeError):
+            _build.call("chatglm_int4_splitk_mma", x.data_ptr(), packed.data_ptr(),
+                        scale.data_ptr(), y.data_ptr(), None, arrivals.data_ptr(), 2, 64, 16,
+                        code, 1, 8, 1, 2, 8, _build.stream_ptr(x))
+    sx = torch.ones((2,), device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.call("chatglm_int4_dyn_splitk", x.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+                    scale.data_ptr(), y.data_ptr(), None, arrivals.data_ptr(), 2, 64, 16, 2, 1,
+                    8, 1, 2, 8, _build.stream_ptr(x))
+    with pytest.raises(RuntimeError):
+        _build.call("chatglm_int4_t_splitk", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), None, arrivals.data_ptr(), 2, 32, 64, 2, 1, 1, 1, 4,
+                    _build.stream_ptr(x))
+    with pytest.raises(TypeError):
+        D.int4_dyn_matmul(x, packed, scale)
+    with pytest.raises(TypeError):
+        QM.int4g32_matmul_t(torch.zeros((2, 16), dtype=F16, device="cuda"), packed, scale)
+
+
+def _f16_cache(gen, shape):
+    return torch.randn(shape, device="cuda", generator=gen).to(F16)
+
+
+def _decode_b4_f32(q, k, v, lengths, sm_scale, p_dtype):
+    """B4's function in f32 before the output's rounding: scores scaled in
+    f32, p rounded to ``p_dtype`` (f16: v's dtype; bf16: the control), l
+    from f32 p."""
+    s = torch.einsum("bghd,bgtd->bght", q.float(), k.float()) * sm_scale
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] <= lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], A.MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * (lengths >= 0).float()[:, None, None, None]
+    l = p.sum(-1, keepdim=True)
+    return torch.einsum("bght,bgtd->bghd", p.to(p_dtype).float(), v.float()) / \
+        torch.where(l > 0, l, 1.0)
+
+
+@pytest.mark.parametrize("B,T", [(4, 1024), (10, 1000)])
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "lse"])
+def test_f16_decode_forms_match_plain(gen, kind, B, T):
+    """B4, B12 and K1 over an f16 cache at the decode edges: counted in
+    their f16 form, within F16_TOL of the plain version, and (B4, B12)
+    within B12_TOL beyond the output's f16 rounding of their
+    function in f32, where the same function with p rounded to bf16 lands
+    above it."""
+    G, Hg, D = 2, 16, 128
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    k, v = _f16_cache(gen, (B, G, T, D)), _f16_cache(gen, (B, G, T, D))
+    lengths = _decode_edges(B, T, A.decode_span(B * G, T, A.DECODE_BLOCK_K))
+    sm = 1 / math.sqrt(D)
+    wrapper = {"decode": A.flash_attention_decode, "decode_v2": A.flash_attention_decode_v2,
+               "lse": A.flash_attention_decode_lse}[kind]
+    before = wrapper.f16.launches
+    if kind == "lse":
+        got = A.flash_attention_decode_lse(q, k, v, lengths, sm, T // 2)
+        torch.cuda.synchronize()
+        _hold_lse(got, A.flash_attention_decode_lse_plain(q, k, v, lengths, sm, T // 2))
+    else:
+        got = wrapper(q, k, v, lengths, sm)
+        torch.cuda.synchronize()
+        plain = (A.flash_attention_decode_plain if kind == "decode"
+                 else A.flash_attention_decode_v2_plain)
+        assert got.dtype == F16 and _rel(got, plain(q, k, v, lengths, sm)) <= F16_TOL
+        if kind == "decode":  # p rounded to f16 by tile (the kernel) or by row (want32)
+            want32 = _decode_b4_f32(q, k, v, lengths, sm, F16)
+            control = _decode_b4_f32(q, k, v, lengths, sm, torch.bfloat16)
+            limit = F16_B4_BEYOND_TOL
+        else:
+            want32 = _decode_v2_f32(q, k, v, lengths, sm)
+            control = _decode_v2_f32(q, k, v, lengths, sm, p_bf16=True)
+            limit = B12_TOL
+        assert _beyond_rounding_f16(got, want32) <= limit < \
+            _beyond_rounding_f16(control.to(F16), want32)
+    assert wrapper.f16.launches == before + 1
+
+
+@pytest.mark.parametrize("P,MP", [(16, 64), (256, 4)])
+def test_f16_paged_forms_match_plain(gen, P, MP):
+    """B10, K2 (each phase of a stride-2 table) and B11 (S = 1, 9, 32, with
+    a row map) over an f16 pool, within their f16 limits of the plain
+    version (B10, B11: beyond the output's rounding of their f32 function,
+    against the bf16-p control)."""
+    L, G, Hg, D, B = 2, 2, 16, 128, 10
+    NP = B * MP + 1
+    kp, vp = _f16_cache(gen, (L, NP, G, P, D)), _f16_cache(gen, (L, NP, G, P, D))
+    pt = _scattered_table(gen, B, MP, NP)
+    lengths = _paged_decode_edges(P, MP, B)
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    before = A.flash_attention_decode_paged.f16.launches
+    got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
+    torch.cuda.synchronize()
+    assert A.flash_attention_decode_paged.f16.launches == before + 1
+    assert _rel(got, A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm)) <= F16_TOL
+    want32 = _paged_decode_f32(q, kp, vp, 1, pt, lengths, sm)
+    control = _paged_decode_f32(q, kp, vp, 1, pt, lengths, sm, p_bf16=True).to(F16)
+    assert _beyond_rounding_f16(got, want32) <= B12_TOL < \
+        _beyond_rounding_f16(control, want32)
+    for phase in (0, 1):
+        table = pt[:, phase::2].contiguous()
+        _hold_lse(A.flash_attention_decode_paged_lse(q, kp, vp, 1, table, lengths, sm, 2, phase),
+                  A.flash_attention_decode_paged_lse_plain(q, kp, vp, 1, table, lengths, sm, 2,
+                                                           phase))
+    cap = MP * P
+    for S in (1, 9, 32):
+        qs = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(F16)
+        starts = torch.tensor([0, P - 1, 700 % cap, cap - S] + [(97 * i) % (cap - S)
+                                                               for i in range(B - 4)],
+                              dtype=torch.int32, device="cuda")
+        rmap = torch.randperm(B, device="cuda", generator=gen).to(torch.int32)
+        for row_map in (None, rmap):
+            got = A.flash_attention_chunk_paged(qs, kp, vp, 1, pt, starts, sm, row_map)
+            torch.cuda.synchronize()
+            want = A.flash_attention_chunk_paged_plain(qs, kp, vp, 1, pt, starts, sm, row_map)
+            assert got.dtype == F16 and _rel(got, want) <= F16_TOL
+            want32 = _chunk_paged_f32(qs, kp, vp, 1, pt, starts, sm, row_map)
+            control = _chunk_paged_f32(qs, kp, vp, 1, pt, starts, sm, row_map, p_bf16=True)
+            assert _beyond_rounding_f16(got, want32) <= B12_TOL < \
+                _beyond_rounding_f16(control.to(F16), want32)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_f16_prefill_matches_plain(gen, chunked):
+    """B5 in f16, whole prompts (lengths 128, 77, 0, 5) and its chunked form
+    (starts and a row map over a 512-slot cache)."""
+    B, G, Hg, D, T = 4, 2, 16, 128, 512
+    S = 128 if not chunked else 96
+    q = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen).to(F16)
+    k, v = _f16_cache(gen, (B, G, T, D)), _f16_cache(gen, (B, G, T, D))
+    sm = 1 / math.sqrt(D)
+    if chunked:
+        starts = torch.tensor([0, 96, 300, 416], dtype=torch.int32, device="cuda")
+        lengths = starts + torch.tensor([96, 50, 96, 96], dtype=torch.int32, device="cuda")
+        rmap = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill_chunk(q, k, v, lengths, starts, sm, rmap)
+        want = A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap)
+    else:
+        lengths = torch.tensor([128, 77, 0, 5], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill(q, k, v, lengths, sm)
+        want = A.flash_attention_prefill_plain(q, k, v, lengths, sm)
+    torch.cuda.synchronize()
+    assert got.dtype == F16 and torch.isfinite(got).all() and _rel(got, want) <= F16_TOL
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_f16_appends_bit_equal_to_plain(gen, paged):
+    """B3 / B9 with the RoPE, the write-only forms and K3 into f16 caches:
+    bit-equal to their plain versions (each RoPE product and sum rounded
+    to f16 at once)."""
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+
+    L, B, G, Hg, D = 3, 4, 2, 16, 128
+    table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", F16)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    kv = torch.randn((B, 2 * G * D), device="cuda", generator=gen).to(F16)
+    freqs = table[torch.tensor([5, 700, 1500, 2048], device="cuda")]
+    if paged:
+        P, MP = 16, 4
+        k, v = _f16_cache(gen, (L, 4 * MP + 1, G, P, D)), _f16_cache(gen, (L, 4 * MP + 1, G, P, D))
+        pt = _scattered_table(gen, B, MP, 4 * MP + 1)
+        starts = torch.tensor([0, P, MP * P - 1, MP * P + 9], dtype=torch.int32, device="cuda")
+        shard, spt = A.KVShard(stride=2, phase=1, total=MP * P), pt[:, 1::2].contiguous()
+    else:
+        T = 64
+        k, v = _f16_cache(gen, (L, B, G, T, D)), _f16_cache(gen, (L, B, G, T, D))
+        pt, spt = None, None
+        starts = torch.tensor([0, 31, 63, 70], dtype=torch.int32, device="cuda")
+        shard = A.KVShard(offset=32, total=96)
+    kk, vv = k.clone(), v.clone()
+    got = A.rope_kv_append(q, kv, freqs, k, v, 1, starts, pt)
+    want = A.rope_kv_append_plain(q, kv, freqs, kk, vv, 1, starts, pt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(k, kk) and torch.equal(v, vv)
+    got = A.rope_kv_append_sharded(q, kv, freqs, k, v, 2, starts, shard, spt)
+    want = A.rope_kv_append_sharded_plain(q, kv, freqs, kk, vv, 2, starts, shard, spt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(k, kk) and torch.equal(v, vv)
+    new = torch.randn((B, G, D), device="cuda", generator=gen).to(F16)
+    if paged:
+        A.kv_pool_write_idx(k, new, 0, pt, starts)
+        A.kv_pool_write_idx_plain(kk, new, 0, pt, starts)
+    else:
+        A.kv_cache_write_idx(k, new, 0, starts)
+        A.kv_cache_write_idx_plain(kk, new, 0, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(k, kk)
+
+
+def test_f16_captured_decode_steps_equal_eager(gen):
+    """``multi_step_decode`` at depth 2, 6B widths, f16 activations over an
+    f16 cache: captured against eager over 8 steps, the tokens and every
+    cache element equal; B1's and the attention kernels' f16 forms
+    launched, 8 steps' worth."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg, params = _depth2_tree(gen)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 40, 17, 3], dtype=torch.int32, device="cuda")
+    cache = M.init_kv_cache(cfg, 4, 256, F16)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", F16)
+    assert logits.dtype == F16 and torch.isfinite(logits).all()
+    first = torch.argmax(logits, -1).to(torch.int32)
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, "int4g32", F16,
+                                        TorchRuntimeConfig(cuda_graphs=graphs))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and torch.equal(c0.k, c1.k) and torch.equal(c0.v, c1.v)
+    assert n0 == n1 and n1["int4g32_splitk_f16"] == n1["int4g32_splitk"] == \
+        8 * (6 * cfg.num_layers + 1)
+    assert n1["rope_kv_append_f16"] == n1["flash_attention_decode_f16"] == 8 * cfg.num_layers
+    prog = M.decode_program(params, cfg, c1, "int4g32", F16, TorchRuntimeConfig())
+    assert prog.graph is not None and prog.replays == 7
+
+
+def test_f16_checkpoint_serves_through_the_launch_path(gen, tmp_path):
+    """A float32 checkpoint (head dim 128, as the kernels take) quantized by
+    ``examples/quantize_naive`` into a float16-config checkpoint, loaded by
+    ``GLMDecoder.from_pretrained`` with no dtype, generates on the card
+    through the f16 kernels (no TypeError), captured equal to eager."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch import loader as TLD
+    from chatglm_q_tpu_torch.examples import quantize_naive
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import GLMDecoder
+    from chatglm_q_tpu_torch.tokenizer import ChatGLM2Tokenizer
+    from chatglm_q_tpu_torch.tokenizer.build import build_unigram_model
+
+    vocab = {f"tok{i}": -float(i) for i in range(200)}
+    (tmp_path / "sp.model").write_bytes(build_unigram_model(vocab))
+    tok = ChatGLM2Tokenizer(tmp_path / "sp.model")
+    cfg = ChatGLM2Config(hidden_size=512, inner_hidden_size=1024, head_hidden_size=128,
+                         num_multi_query_groups=2, num_attention_heads=4, num_layers=2,
+                         vocab_size=((len(tok) + 63) // 64) * 64, max_sequence_length=256)
+    params = M.init_params(torch.Generator().manual_seed(5), cfg, "none", torch.float32, "cpu")
+    TLD.save_model_and_tokenizer(tmp_path / "fp", GLMLoadConfig(model_config=cfg,
+                                                                torch_dtype="float32"),
+                                 params, tok)
+    texts = {}
+    for quant in ("int8", "int4g32"):
+        quantize_naive.main(["--quant", quant, "--source", str(tmp_path / "fp"),
+                             "--target", str(tmp_path / quant)])
+        for graphs in (True, False):
+            dec = GLMDecoder.from_pretrained(tmp_path / quant,
+                                             rt=TorchRuntimeConfig(cuda_graphs=graphs))
+            assert dec.dtype == F16 and dec.device.type == "cuda"
+            ops.reset_launch_counts()
+            out = list(dec.generate("tok1 tok2 tok3", max_generated_tokens=12, temperature=0.0))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert out and counts["flash_attention_decode_f16"] > 0
+            assert counts["int8_splitk_f16" if quant == "int8" else "int4g32_splitk_f16"] > 0
+            texts[(quant, graphs)] = out
+        assert texts[(quant, True)] == texts[(quant, False)]

@@ -176,8 +176,9 @@ def test_wrappers_launch_their_route(monkeypatch, M, N, dtype, kernel):
     with pytest.raises(_Launched, match=f"chatglm_int4_t_{kernel}$"):
         QM.int4g32_matmul_t(g, torch.zeros((64, N), dtype=torch.uint8),
                             torch.ones((4, N), dtype=torch.bfloat16))
-    if kernel == "splitk":  # (..., M, K, N, mt, nsplit, cps, cs, stream)
-        assert all(tuple(a[6:13]) == (M, 128, N, *QM.t_splitk_plan(M, 128, N)) for a in seen)
+    if kernel == "splitk":  # (..., M, K, N, g's dtype code, mt, nsplit, cps, cs, stream)
+        assert all(tuple(a[6:14]) == (M, 128, N, _build.dtype_code(dtype),
+                                      *QM.t_splitk_plan(M, 128, N)) for a in seen)
 
 
 def test_wrappers_are_counted_kernels():

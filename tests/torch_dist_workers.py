@@ -226,6 +226,7 @@ def _engine_cases(rank, mesh, tree, cfg, quant, cases):
         res["prefix_hits"] = eng.stats.get("prefix_hits")
         res["spec_accepted"] = eng.stats.get("spec_accepted")
         res["spec_steps"] = eng.stats.get("spec_steps")
+        res["dtypes"] = (str(eng.dtype), str(eng.kv_dtype))
         out[name] = res
     return out
 
