@@ -143,17 +143,21 @@
 // function than the TPU's).  Converting in registers without the pass is
 // later work.
 //
-// float16 (a float16 checkpoint's activations over a float16 cache: every
-// kernel above also takes it).  The TPU kernels are dtype-generic: K/V are
-// read in q's dtype (pallas_attention.py:239-261) and p is cast to v's
-// dtype.  Here each kernel is a template over the cache element T (bf16,
-// e4m3 or f16), whose activations are ActOf<T> (bf16, bf16, f16): the f16
-// forms stage f16 tiles as the bf16 forms stage theirs and run mma.sync
-// .f32.f16.f16, at bf16's rate.  The rounding points stay the TPU's, now
-// in f16: B4 and B5 round p to f16 for PV; B10, B11 and B12 round the
-// pre-scaled q to f16 and keep p in f32 through PV as hi = f16(p) and lo =
-// f16(p - hi); the append rounds each RoPE product and sum to f16.  f16
-// activations over an fp8 cache are not ported (the wrappers refuse them).
+// float16 (a float16 checkpoint's activations, over a float16 cache or an
+// fp8 one: every kernel above also takes both).  The TPU kernels are
+// dtype-generic: K/V are read in q's dtype (pallas_attention.py:239-261,
+// an fp8 cache upcast to it after the load) and p is cast to v's dtype.
+// Here each kernel is a template over the activations' element A (bf16 or
+// f16) and the cache's element T (A itself, or e4m3), the pair the entry's
+// form code names (with_kv_type): the f16 forms stage f16 tiles as the
+// bf16 forms stage theirs and run mma.sync .f32.f16.f16, at bf16's rate;
+// over an fp8 cache each landed stage converts exactly to the f16 tile
+// (e4m3x8_f16: every e4m3 value is an f16 value).  The rounding points
+// stay the TPU's, now in f16: B4 and B5 round p to f16 for PV; B10, B11
+// and B12 round the pre-scaled q to f16 and keep p in f32 through PV as hi
+// = f16(p) and lo = f16(p - hi); the append rounds each RoPE product and
+// sum to f16, and over an fp8 cache stores f16 -> f32 -> e4m3 as from
+// bf16.
 #include "common.cuh"
 
 namespace {
@@ -161,11 +165,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using f16 = __half;
 using e4m3 = uint8_t;  // a float8_e4m3fn cache element, as its byte
-
-// The activations (q, the output, the append's inputs) over a cache of
-// element T: f16 over an f16 cache, bf16 over a bf16 or an fp8 one.
-template <class T>
-using ActOf = std::conditional_t<std::is_same_v<T, f16>, f16, bf16>;
 
 // ---------------------------------------------------------------------------
 // Tensor-core tiles of the decode and prefill kernels
@@ -287,7 +286,7 @@ __device__ __forceinline__ uint4 rope8(uint4 x, uint4 f) {
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// The fp8 store: x (bf16, exact in f32) clamped to +-448 and rounded to
+// The fp8 store: x (bf16 or f16, exact in f32) clamped to +-448 and rounded to
 // nearest even by the card's cvt.rn.satfinite, NaN stored as 0x7F
 // (ops/attention.py:kv_store_cast).  Two elements, lo in the low byte.
 constexpr float E4M3_MAX = 448.f;
@@ -303,23 +302,24 @@ __device__ __forceinline__ uint32_t e4m3x2_store(float lo, float hi) {
   return out;
 }
 
-// 8 activations (a 16-byte vector) stored as the cache's elements: as they
-// are (bf16 or f16), or 8 e4m3 bytes (from bf16).
-__device__ __forceinline__ void store8(bf16* dst, uint4 x) {
-  *reinterpret_cast<uint4*>(dst) = x;
-}
-__device__ __forceinline__ void store8(f16* dst, uint4 x) {
-  *reinterpret_cast<uint4*>(dst) = x;
-}
-__device__ __forceinline__ void store8(e4m3* dst, uint4 x) {
-  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-  uint32_t b[4];
+// 8 activations of A (a 16-byte vector) stored as the cache's elements T:
+// as they are (T = A, bf16 or f16), or 8 e4m3 bytes (each element exact in
+// f32 first).
+template <class A, class T>
+__device__ __forceinline__ void store8(T* dst, uint4 x) {
+  if constexpr (std::is_same_v<T, e4m3>) {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t b[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
-    b[j] = e4m3x2_store(f.x, f.y);
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = unpack2<A>(xs[j]);
+      b[j] = e4m3x2_store(f.x, f.y);
+    }
+    *reinterpret_cast<uint2*>(dst) = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+  } else {
+    static_assert(std::is_same_v<T, A>, "a 16-bit cache holds the activations' type");
+    *reinterpret_cast<uint4*>(dst) = x;
   }
-  *reinterpret_cast<uint2*>(dst) = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
 }
 
 // The exact upcast: two e4m3 bytes, each the low byte of a 16-bit half of
@@ -335,22 +335,41 @@ __device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t x) {
   return y | ((x << 8) & 0x80008000u);
 }
 
-// 8 e4m3 bytes to 8 bf16, exactly; a NaN byte to the quiet NaN of its sign
-// (0x7FC0 / 0xFFC0, JAX's upcast).
-__device__ __forceinline__ uint4 e4m3x8_bf16(uint2 w) {
-  uint4 o = make_uint4(e4m3x2_bf16x2(__byte_perm(w.x, 0u, 0x4140)),
-                       e4m3x2_bf16x2(__byte_perm(w.x, 0u, 0x4342)),
-                       e4m3x2_bf16x2(__byte_perm(w.y, 0u, 0x4140)),
-                       e4m3x2_bf16x2(__byte_perm(w.y, 0u, 0x4342)));
+// The same to f16x2: the exponent and mantissa bits moved into f16's
+// places give the value times 2^-8 (a subnormal m * 2^-9 lands on f16's
+// subnormal m * 2^-17), and one f16 product by 2^8 rebiases it exactly (the
+// card's f16 arithmetic keeps subnormals); the sign is or-ed back.  The
+// NaN bytes would come out as 480: the caller fixes them.
+__device__ __forceinline__ uint32_t e4m3x2_f16x2(uint32_t x) {
+  const uint32_t mag = (x << 7) & 0x3F803F80u;
+  uint32_t y;
+  asm("mul.rn.f16x2 %0, %1, %2;" : "=r"(y) : "r"(mag), "r"(0x5C005C00u));
+  return y | ((x << 8) & 0x80008000u);
+}
+
+// 8 e4m3 bytes to 8 elements of A (bf16 or f16), exactly; a NaN byte to the
+// quiet NaN of its sign (bf16 0x7FC0 / 0xFFC0, f16 0x7E00 / 0xFE00: JAX's
+// upcast).
+template <class A>
+__device__ __forceinline__ uint4 e4m3x8_act(uint2 w) {
+  const auto up = [](uint32_t x) {
+    if constexpr (kIsF16<A>)
+      return e4m3x2_f16x2(x);
+    else
+      return e4m3x2_bf16x2(x);
+  };
+  uint4 o = make_uint4(up(__byte_perm(w.x, 0u, 0x4140)), up(__byte_perm(w.x, 0u, 0x4342)),
+                       up(__byte_perm(w.y, 0u, 0x4140)), up(__byte_perm(w.y, 0u, 0x4342)));
   // a byte with e = 15, m = 7 (NaN) carries into bit 7 when 1 is added to its low 7 bits
   if ((((w.x & 0x7F7F7F7Fu) + 0x01010101u) | ((w.y & 0x7F7F7F7Fu) + 0x01010101u)) &
       0x80808080u) {
+    constexpr uint32_t kQuietNaN = kIsF16<A> ? 0x7E00u : 0x7FC0u;
     uint32_t h[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const uint32_t byte = ((i < 4 ? w.x : w.y) >> ((i & 3) * 8)) & 0xFFu;
       if ((byte & 0x7Fu) == E4M3_NAN) {
-        const uint32_t nan = 0x7FC0u | ((byte & 0x80u) << 8);
+        const uint32_t nan = kQuietNaN | ((byte & 0x80u) << 8);
         const int shift = (i & 1) * 16;
         h[i / 2] = (h[i / 2] & ~(0xFFFFu << shift)) | (nan << shift);
       }
@@ -365,8 +384,9 @@ __device__ __forceinline__ uint4 e4m3x8_bf16(uint2 w) {
 // elements (kRope only), then its kv row, k's G*D elements and (kRope only)
 // v's.  The cache views are the attention kernels' read-only views; the
 // slot this kernel writes is read by no other thread of the launch.  An
-// fp8 cache stores each vector as 8 bytes (store8).
-template <class KV, bool kRope, class A = ActOf<typename KV::elem>>
+// fp8 cache stores each vector as 8 bytes (store8).  A: the activations'
+// element (bf16 or f16).
+template <class KV, bool kRope, class A>
 __global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q_out,
                                       const A* __restrict__ kv, int kv_stride,
                                       const A* __restrict__ freqs, const KV cache,
@@ -393,20 +413,19 @@ __global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q
     if (kRope && is_k) x = rope8<A>(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
     const auto slab = cache.slab(b, e / ATT_D);
     using T = typename KV::elem;
-    store8(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
+    store8<A>(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
   }
 }
 
 // Hq: the q heads of a row (G * Hg; a rank's heads under tensor parallelism);
-// q, q_out, kv and freqs in the cache's activation type ActOf<KV::elem>
-template <class KV, bool kRope>
+// q, q_out, kv and freqs of the activations' element A
+template <class KV, bool kRope, class A>
 int launch_append(const void* q, void* q_out, const void* kv, int kv_stride, const void* freqs,
                   const KV& cache, const int* starts, int B, int G, int Hq, cudaStream_t stream) {
-  using A = ActOf<typename KV::elem>;
   const int nq = kRope ? Hq * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
   const int n = nq + (kRope ? 2 : 1) * nkv;
   const int threads = n < 1024 ? (n + 31) / 32 * 32 : 1024;
-  rope_kv_append_kernel<KV, kRope><<<B, threads, 0, stream>>>(
+  rope_kv_append_kernel<KV, kRope, A><<<B, threads, 0, stream>>>(
       static_cast<const A*>(q), static_cast<A*>(q_out), static_cast<const A*>(kv), kv_stride,
       static_cast<const A*>(freqs), cache, starts, nq, nkv);
   return (int)cudaGetLastError();
@@ -566,12 +585,14 @@ __device__ __forceinline__ void pv_step(float (*p)[4], A (*vs)[KV_STRIDE], int k
 // Ragged decode attention (B4, B12 dense; B10 paged)
 // ---------------------------------------------------------------------------
 
-// The K/V ring of a reader: bf16 or f16 stages that the fragments read in
-// place, or fp8 stages (k8, v8: rows of ATT_D bytes) and the one bf16 tile
-// each landed stage is converted into (k, v).  stage_k / stage_v name where
-// a copy lands, tile_k / tile_v what the fragments read.
-template <class T, int STAGES>
+// The K/V ring of a reader with activations A over a cache of element T:
+// stages of A (T = A, bf16 or f16) that the fragments read in place, or fp8
+// stages (k8, v8: rows of ATT_D bytes) and the one tile of A each landed
+// stage is converted into (k, v).  stage_k / stage_v name where a copy
+// lands, tile_k / tile_v what the fragments read.
+template <class A, class T, int STAGES>
 struct KVRing {
+  static_assert(std::is_same_v<T, A>, "a 16-bit cache holds the activations' type");
   T k[STAGES][KV_TK][KV_STRIDE];
   T v[STAGES][KV_TK][KV_STRIDE];
   __device__ __forceinline__ T (*stage_k(int st))[KV_STRIDE] { return k[st]; }
@@ -579,49 +600,49 @@ struct KVRing {
   __device__ __forceinline__ T (*tile_k(int st))[KV_STRIDE] { return k[st]; }
   __device__ __forceinline__ T (*tile_v(int st))[KV_STRIDE] { return v[st]; }
 };
-template <int STAGES>
-struct KVRing<e4m3, STAGES> {
-  bf16 k[1][KV_TK][KV_STRIDE];
-  bf16 v[1][KV_TK][KV_STRIDE];
+template <class A, int STAGES>
+struct KVRing<A, e4m3, STAGES> {
+  A k[1][KV_TK][KV_STRIDE];
+  A v[1][KV_TK][KV_STRIDE];
   e4m3 k8[STAGES][KV_TK][ATT_D];
   e4m3 v8[STAGES][KV_TK][ATT_D];
   __device__ __forceinline__ e4m3 (*stage_k(int st))[ATT_D] { return k8[st]; }
   __device__ __forceinline__ e4m3 (*stage_v(int st))[ATT_D] { return v8[st]; }
-  __device__ __forceinline__ bf16 (*tile_k(int))[KV_STRIDE] { return k[0]; }
-  __device__ __forceinline__ bf16 (*tile_v(int))[KV_STRIDE] { return v[0]; }
+  __device__ __forceinline__ A (*tile_k(int))[KV_STRIDE] { return k[0]; }
+  __device__ __forceinline__ A (*tile_v(int))[KV_STRIDE] { return v[0]; }
 };
 
 // After stage st landed (and every warp is done with the tile): an fp8 ring
-// converts it into the bf16 tile, 8 bytes a thread at a time, then waits for
-// the block; a bf16 or f16 ring has nothing to do.
-template <int NT, class T, int STAGES>
-__device__ __forceinline__ void land_stage(KVRing<T, STAGES>& ring, int st) {
+// converts it into the tile of A, 8 bytes a thread at a time, then waits
+// for the block; a bf16 or f16 ring has nothing to do.
+template <int NT, class A, class T, int STAGES>
+__device__ __forceinline__ void land_stage(KVRing<A, T, STAGES>& ring, int st) {
   if constexpr (std::is_same_v<T, e4m3>) {
     constexpr int U = ATT_D / 8;  // 8-byte units per row
 #pragma unroll 4
     for (int i = threadIdx.x; i < KV_TK * U; i += NT) {
       const int r = i / U, c = (i % U) * 8;
       *reinterpret_cast<uint4*>(&ring.k[0][r][c]) =
-          e4m3x8_bf16(*reinterpret_cast<const uint2*>(&ring.k8[st][r][c]));
+          e4m3x8_act<A>(*reinterpret_cast<const uint2*>(&ring.k8[st][r][c]));
       *reinterpret_cast<uint4*>(&ring.v[0][r][c]) =
-          e4m3x8_bf16(*reinterpret_cast<const uint2*>(&ring.v8[st][r][c]));
+          e4m3x8_act<A>(*reinterpret_cast<const uint2*>(&ring.v8[st][r][c]));
     }
     __syncthreads();
   }
 }
 
-template <class T>
+template <class A, class T>
 struct DecodeSmem {
-  ActOf<T> q[MMA_HEADS][KV_STRIDE];
-  KVRing<T, DA_STAGES> ring;
+  A q[MMA_HEADS][KV_STRIDE];
+  KVRing<A, T, DA_STAGES> ring;
 };
 // after the tile loop the same bytes hold the warps' states for the block merge
 struct DecodeMergeSmem {
   float acc[DA_WARPS][MMA_HEADS][ATT_D];
   float m[DA_WARPS][MMA_HEADS], l[DA_WARPS][MMA_HEADS];
 };
-static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16>) &&
-                  sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<e4m3>),
+static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16, bf16>) &&
+                  sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16, e4m3>),
               "merge state fits the ring");
 
 // Block (b*G + g, sp) attends rows [sp*span, min((sp+1)*span, n_valid)) of
@@ -630,7 +651,7 @@ static_assert(sizeof(DecodeMergeSmem) <= sizeof(DecodeSmem<bf16>) &&
 // part: (B*G, nspan, Hg, D) f32 unnormalised acc, then (B*G, nspan, Hg, 2)
 // f32 (m, l), or null when no (b, g) has two spans; arrivals: B*G int32
 // counters, 0 between launches.
-template <bool kV2, class KV, bool kLse, class A = ActOf<typename KV::elem>>
+template <bool kV2, class KV, bool kLse, class A>
 __global__ void __launch_bounds__(DA_THREADS)
 decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__ lengths,
                    A* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
@@ -638,7 +659,7 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
                    int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using T = typename KV::elem;
-  DecodeSmem<T>& sm = *reinterpret_cast<DecodeSmem<T>*>(smem_raw);
+  DecodeSmem<A, T>& sm = *reinterpret_cast<DecodeSmem<A, T>*>(smem_raw);
   __shared__ bool merge_here;
 
   const int bg = blockIdx.x, sp = blockIdx.y, b = bg / G;
@@ -845,49 +866,48 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
 // The launch checks of the decode forms: the kernel's head dim and heads,
 // whole-tile spans, and every span's (m, l) and weight of a (b, g) fit the
 // ring's bytes for the merge.
-template <class T>
+template <class A, class T>
 bool decode_args_ok(int D, int Hg, int T_rows, int span) {
   const size_t nspan = (T_rows + (size_t)span - 1) / (span > 0 ? span : 1);
   return D == ATT_D && Hg <= MMA_HEADS && span >= KV_TK && span % KV_TK == 0 &&
-         nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem<T>);
+         nspan * MMA_HEADS * 12 + MMA_HEADS * 4 <= sizeof(DecodeSmem<A, T>);
 }
 
-// q and out in the cache's activation type ActOf<KV::elem>
-template <bool kV2, class KV, bool kLse>
+// q and out of the activations' element A
+template <bool kV2, class KV, bool kLse, class A>
 int launch_decode_as(const void* q, const KV& kv, const int* lengths, float* part, int* arrivals,
                      void* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
                      float sm_scale, cudaStream_t stream) {
-  using A = ActOf<typename KV::elem>;
-  const int smem = (int)sizeof(DecodeSmem<typename KV::elem>);
-  const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV, kLse>>(smem);
+  const int smem = (int)sizeof(DecodeSmem<A, typename KV::elem>);
+  const cudaError_t opt_in = smem_opt_in<decode_attn_kernel<kV2, KV, kLse, A>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int nspan = (T + span - 1) / span;
-  decode_attn_kernel<kV2, KV, kLse><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
+  decode_attn_kernel<kV2, KV, kLse, A><<<dim3(B * G, nspan), DA_THREADS, smem, stream>>>(
       static_cast<const A*>(q), kv, lengths, static_cast<A*>(out), m_out, l_out, part, arrivals,
       G, Hg, span, nspan, sm_scale);
   return (int)cudaGetLastError();
 }
 
 // the (m, l) form where m_out and l_out are given (K1, K2), else the output only
-template <bool kV2, class KV>
+template <bool kV2, class KV, class A>
 int launch_decode(const void* q, const KV& kv, const int* lengths, float* part, int* arrivals,
                   void* out, float* m_out, float* l_out, int B, int G, int Hg, int T, int span,
                   float sm_scale, cudaStream_t stream) {
   if (m_out && l_out)
-    return launch_decode_as<kV2, KV, true>(q, kv, lengths, part, arrivals, out, m_out, l_out, B,
-                                           G, Hg, T, span, sm_scale, stream);
-  return launch_decode_as<kV2, KV, false>(q, kv, lengths, part, arrivals, out, nullptr, nullptr,
-                                          B, G, Hg, T, span, sm_scale, stream);
+    return launch_decode_as<kV2, KV, true, A>(q, kv, lengths, part, arrivals, out, m_out, l_out,
+                                              B, G, Hg, T, span, sm_scale, stream);
+  return launch_decode_as<kV2, KV, false, A>(q, kv, lengths, part, arrivals, out, nullptr,
+                                             nullptr, B, G, Hg, T, span, sm_scale, stream);
 }
 
 // ---------------------------------------------------------------------------
 // Flash prefill attention (B5, whole-prompt and chunked; B11 paged)
 // ---------------------------------------------------------------------------
 
-template <class T>
+template <class A, class T>
 struct PrefillTileSmem {
-  ActOf<T> q[PF_ROWS][KV_STRIDE];
-  KVRing<T, PF_STAGES> ring;
+  A q[PF_ROWS][KV_STRIDE];
+  KVRing<A, T, PF_STAGES> ring;
 };
 
 // Block (sp * nqb + qb, g, b): query block qb (positions qb*qt ..) of (b, g)
@@ -898,7 +918,7 @@ struct PrefillTileSmem {
 // (B*G*nqb, nspan, PF_ROWS, 2) f32 (m, l), or null when nspan == 1;
 // arrivals: B*G*nqb int32 counters, 0 between launches.  lengths may be
 // null (B11: every row reads up to its causal bound and the capacity).
-template <class KV, bool kV2, class A = ActOf<typename KV::elem>>
+template <class KV, bool kV2, class A>
 __global__ void __launch_bounds__(PF_THREADS)
 prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__ lengths,
                     const int* __restrict__ q_starts, const int* __restrict__ kv_row_map,
@@ -906,7 +926,7 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
                     int S, int G, int Hg, int span, int nspan, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using T = typename KV::elem;
-  PrefillTileSmem<T>& sm = *reinterpret_cast<PrefillTileSmem<T>*>(smem_raw);
+  PrefillTileSmem<A, T>& sm = *reinterpret_cast<PrefillTileSmem<A, T>*>(smem_raw);
   __shared__ bool merge_here;
 
   const int qt = PF_ROWS / Hg;  // query positions per block
@@ -1099,32 +1119,32 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
   if (tid == 0) arrivals[unit] = 0;  // ready for the next launch (and a graph replay)
 }
 
-// q and out in the cache's activation type ActOf<KV::elem>
-template <class KV, bool kV2>
+// q and out of the activations' element A
+template <class KV, bool kV2, class A>
 int launch_prefill(const void* q, const KV& kv, const int* lengths, const int* q_starts,
                    const int* kv_row_map, void* out, float* part, int* arrivals, int B, int S,
                    int G, int Hg, int span, int nspan, float sm_scale, cudaStream_t stream) {
-  using A = ActOf<typename KV::elem>;
-  const int smem = (int)sizeof(PrefillTileSmem<typename KV::elem>);
-  const cudaError_t opt_in = smem_opt_in<prefill_attn_kernel<KV, kV2>>(smem);
+  const int smem = (int)sizeof(PrefillTileSmem<A, typename KV::elem>);
+  const cudaError_t opt_in = smem_opt_in<prefill_attn_kernel<KV, kV2, A>>(smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int qt = PF_ROWS / Hg;
   const dim3 grid((S + qt - 1) / qt * nspan, G, B);
-  prefill_attn_kernel<KV, kV2><<<grid, PF_THREADS, smem, stream>>>(
+  prefill_attn_kernel<KV, kV2, A><<<grid, PF_THREADS, smem, stream>>>(
       static_cast<const A*>(q), kv, lengths, q_starts, kv_row_map, static_cast<A*>(out), part,
       arrivals, S, G, Hg, span, nspan, sm_scale);
   return (int)cudaGetLastError();
 }
 
-// The entry points' dispatch on the form code: fn(T{}) with T the cache's
-// element and ActOf<T> the activations': 0 bf16 over a bf16 cache, 1 bf16
-// over a float8_e4m3fn cache, 2 f16 over an f16 cache (ops/attention.py:
-// FORM_CODES).
+// The entry points' dispatch on the form code: fn(A{}, T{}) with A the
+// activations' element and T the cache's: 0 bf16 over a bf16 cache, 1 bf16
+// over a float8_e4m3fn cache, 2 f16 over an f16 cache, 3 f16 over a
+// float8_e4m3fn cache (ops/attention.py: FORM_CODES).
 template <class Fn>
 int with_kv_type(int form, Fn&& fn) {
-  if (form == 0) return fn(bf16{});
-  if (form == 1) return fn(e4m3{});
-  if (form == 2) return fn(f16{});
+  if (form == 0) return fn(bf16{}, bf16{});
+  if (form == 1) return fn(bf16{}, e4m3{});
+  if (form == 2) return fn(f16{}, f16{});
+  if (form == 3) return fn(f16{}, e4m3{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1134,7 +1154,8 @@ extern "C" {
 
 // The attention entries' form code: 0 for bf16 activations over a bf16
 // cache or pool, 1 for bf16 over a float8_e4m3fn one (cast on the write,
-// upcast on the read), 2 for f16 activations over an f16 one.
+// upcast on the read), 2 for f16 activations over an f16 one, 3 for f16
+// over a float8_e4m3fn one.
 //
 // B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, Hq, D)
 // contiguous (Hq = G * Hg, or a rank's heads); kv (B, 2*G*D), k then v,
@@ -1158,18 +1179,19 @@ int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_st
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
     const T_ *kl = static_cast<const T_*>(k_layer), *vl = static_cast<const T_*>(v_layer);
     if (!page_table) {
       const DenseKV<T_> cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};
-      return launch_append<DenseKV<T_>, true>(q, q_out, kv, kv_stride, freqs, cache, st, B, G,
-                                              Hq, s);
+      return launch_append<DenseKV<T_>, true, A>(q, q_out, kv, kv_stride, freqs, cache, st, B,
+                                                 G, Hq, s);
     }
     const PagedKV<T_> pool{kl, vl, static_cast<const int*>(page_table), G, T, MP, stride, phase,
                            total > 0 ? total : MP * T};
-    return launch_append<PagedKV<T_>, true>(q, q_out, kv, kv_stride, freqs, pool, st, B, G, Hq,
-                                            s);
+    return launch_append<PagedKV<T_>, true, A>(q, q_out, kv, kv_stride, freqs, pool, st, B, G,
+                                               Hq, s);
   });
 }
 
@@ -1181,15 +1203,17 @@ int chatglm_kv_append(void* dst_layer, const void* src, const void* page_table, 
   if (D != ATT_D || T < 1 || (page_table && MP < 1)) return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
     const T_* dst = static_cast<const T_*>(dst_layer);
     if (!page_table)
-      return launch_append<DenseKV<T_>, false>(nullptr, nullptr, src, G * D, nullptr,
-                                               DenseKV<T_>{dst, dst, G, T, 0, T}, st, B, G, 0, s);
+      return launch_append<DenseKV<T_>, false, A>(nullptr, nullptr, src, G * D, nullptr,
+                                                  DenseKV<T_>{dst, dst, G, T, 0, T}, st, B, G, 0,
+                                                  s);
     const PagedKV<T_> pool{dst, dst, static_cast<const int*>(page_table), G, T, MP, 1, 0, MP * T};
-    return launch_append<PagedKV<T_>, false>(nullptr, nullptr, src, G * D, nullptr, pool, st, B,
-                                             G, 0, s);
+    return launch_append<PagedKV<T_>, false, A>(nullptr, nullptr, src, G * D, nullptr, pool, st,
+                                                B, G, 0, s);
   });
 }
 
@@ -1209,12 +1233,14 @@ int chatglm_decode_attention(const void* q, const void* k, const void* v, const 
                              int D, int span, int v2, float sm_scale, void* m_out, void* l_out,
                              int offset, int form, void* stream) {
   if (offset < 0 || !m_out != !l_out) return (int)cudaErrorInvalidValue;
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
-    if (!decode_args_ok<T_>(D, Hg, T, span)) return (int)cudaErrorInvalidValue;
+    if (!decode_args_ok<A, T_>(D, Hg, T, span)) return (int)cudaErrorInvalidValue;
     const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, offset,
                          offset + T};
-    auto launch = v2 ? launch_decode<true, DenseKV<T_>> : launch_decode<false, DenseKV<T_>>;
+    auto launch =
+        v2 ? launch_decode<true, DenseKV<T_>, A> : launch_decode<false, DenseKV<T_>, A>;
     return launch(q, kv, static_cast<const int*>(lengths), static_cast<float*>(part),
                   static_cast<int*>(arrivals), out, static_cast<float*>(m_out),
                   static_cast<float*>(l_out), B, G, Hg, T, span, sm_scale,
@@ -1232,10 +1258,11 @@ int chatglm_prefill_attention(const void* q, const void* k, const void* v, const
                               void* stream) {
   if (D != ATT_D || Hg > 64) return (int)cudaErrorInvalidValue;
   const int span = (T + KV_TK - 1) / KV_TK * KV_TK;  // one span: every row reads in one block
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
     const DenseKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v), G, T, 0, T};
-    return launch_prefill<DenseKV<T_>, false>(
+    return launch_prefill<DenseKV<T_>, false, A>(
         q, kv, static_cast<const int*>(lengths), static_cast<const int*>(q_starts),
         static_cast<const int*>(kv_row_map), out, nullptr, nullptr, B, S, G, Hg, span, 1,
         sm_scale, reinterpret_cast<cudaStream_t>(stream));
@@ -1256,13 +1283,14 @@ int chatglm_decode_paged(const void* q, const void* k, const void* v, const void
                          void* l_out, int stride, int phase, int form, void* stream) {
   if (P < 1 || MP < 1 || stride < 1 || phase < 0 || phase >= stride || !m_out != !l_out)
     return (int)cudaErrorInvalidValue;
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
-    if (!decode_args_ok<T_>(D, Hg, MP * P, span)) return (int)cudaErrorInvalidValue;
+    if (!decode_args_ok<A, T_>(D, Hg, MP * P, span)) return (int)cudaErrorInvalidValue;
     const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
                          static_cast<const int*>(page_table), G, P, MP, stride, phase,
                          MP * P * stride};
-    return launch_decode<true, PagedKV<T_>>(
+    return launch_decode<true, PagedKV<T_>, A>(
         q, kv, static_cast<const int*>(lengths), static_cast<float*>(part),
         static_cast<int*>(arrivals), out, static_cast<float*>(m_out), static_cast<float*>(l_out),
         B, G, Hg, MP * P, span, sm_scale, reinterpret_cast<cudaStream_t>(stream));
@@ -1283,13 +1311,14 @@ int chatglm_chunk_paged(const void* q, const void* k, const void* v, const void*
   const int nspan = span > 0 ? (MP * P + span - 1) / span : 0;
   if (D != ATT_D || Hg > 64 || P < 1 || MP < 1 || span < KV_TK || span % KV_TK ||
       (nspan > 1 && (!part || !arrivals)) ||
-      (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem<e4m3>))
+      (size_t)nspan * PF_ROWS * 12 + PF_ROWS * 4 > sizeof(PrefillTileSmem<bf16, e4m3>))
     return (int)cudaErrorInvalidValue;
-  return with_kv_type(form, [&](auto t) {
+  return with_kv_type(form, [&](auto a, auto t) {
+    using A = decltype(a);
     using T_ = decltype(t);
     const PagedKV<T_> kv{static_cast<const T_*>(k), static_cast<const T_*>(v),
                          static_cast<const int*>(page_table), G, P, MP, 1, 0, MP * P};
-    return launch_prefill<PagedKV<T_>, true>(
+    return launch_prefill<PagedKV<T_>, true, A>(
         q, kv, nullptr, static_cast<const int*>(starts), static_cast<const int*>(row_map), out,
         static_cast<float*>(part), static_cast<int*>(arrivals), B, S, G, Hg, span, nspan,
         sm_scale, reinterpret_cast<cudaStream_t>(stream));

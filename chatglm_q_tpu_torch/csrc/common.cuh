@@ -428,14 +428,15 @@ __device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t w_shr4, int p
 }
 
 // Two packed bytes b0 (bits 0-7 of v) and b1 (bits 8-15), neighbours along
-// a byte row, as two bf16x2 pairs: lo = (low nibble of b0, of b1), hi =
-// (high nibble of b0, of b1).  The transposed kernel's A fragment: a byte
-// row holds two output rows (its low and high nibbles), its neighbouring
-// bytes two neighbouring contraction elements.
-__device__ __forceinline__ void int4_rows_bf16x2(uint32_t v, uint32_t& lo, uint32_t& hi) {
+// a byte row, as two E x2 pairs (bf16 or f16, exact): lo = (low nibble of
+// b0, of b1), hi = (high nibble of b0, of b1).  The transposed kernel's A
+// fragment: a byte row holds two output rows (its low and high nibbles),
+// its neighbouring bytes two neighbouring contraction elements.
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ void int4_rows_pair(uint32_t v, uint32_t& lo, uint32_t& hi) {
   const uint32_t v4 = v >> 4;
-  lo = nibble_pair(__byte_perm(v, v4, 0x4140));  // b0 -> bits 0-7, b1 -> bits 16-23
-  hi = nibble_pair(__byte_perm(v, v4, 0x0504));  // b0 >> 4, b1 >> 4 likewise
+  lo = nibble_pair<E>(__byte_perm(v, v4, 0x4140));  // b0 -> bits 0-7, b1 -> bits 16-23
+  hi = nibble_pair<E>(__byte_perm(v, v4, 0x0504));  // b0 >> 4, b1 >> 4 likewise
 }
 
 // Four int8 bytes of w as two exact bf16x2 pairs (lo: bytes 0, 1; hi:
@@ -473,11 +474,28 @@ __device__ __forceinline__ void s8x4_pair(uint32_t w, uint32_t& lo, uint32_t& hi
     s8x4_bf16x2(w, lo, hi);
 }
 
-// a * b for two bf16x2 pairs, each product rounded once to bf16
-__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+// a * b for two E x2 pairs (bf16 or f16), each product rounded once to E
+// (f16: subnormal products kept, no flush)
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
   uint32_t r;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  if constexpr (kIsF16<E>)
+    asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  else
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
   return r;
+}
+
+// A bf16x2 pair (an int4g32 scale pair as stored) as an E x2 pair: itself
+// for bf16; for f16 each value rounded once to f16 (the JAX kernels'
+// s.astype(g.dtype): exact in f16's normal range, else a subnormal, 0 or
+// inf).
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ uint32_t bf16x2_as(uint32_t s) {
+  if constexpr (kIsF16<E>)
+    return pack2<E>(__uint_as_float(s << 16), __uint_as_float(s & 0xFFFF0000u));
+  else
+    return s;
 }
 
 // Eight neighbouring elements of a row (16 bytes of bf16, 32 of f32) as
@@ -497,11 +515,6 @@ __device__ __forceinline__ void load8(const float* p, float* dst) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -782,11 +795,13 @@ int sk_dispatch(int M, int N, int mt, int cols, int nsplit, int gps, int cg, int
 //   w.tsk_frag(d, s, rt, a)   the m16n8k16 A registers of k16 step s of
 //                             16-row tile rt
 //   W::tsk_row(rt, gid, hi)   the warp's output row of D row gid + 8 hi
-//   w.tsk_scales(n, s)        (kFoldG) the 8 scales at n as bf16x2 pairs
+//   w.tsk_scales(n, s)        (kFoldG) the 8 scales at n as W::E x2 pairs
+//   W::E                      g's and the output's element (bf16 or f16)
 // and for t_wgmma_kernel the Hopper view of wg_consume below.
 
-// The transposed split-K tensor-core kernel (bf16 g at M <= 16, and at any
-// M where N % 16 != 0; the backward of a training step of <= 16 tokens).
+// The transposed split-K tensor-core kernel (bf16 or f16 g, W::E, at M <=
+// 16, and at any M where N % 16 != 0; the backward of a training step of
+// <= 16 tokens).
 // Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_t_kernel (:653, its
 // pallas_call :708) and :_int4_t_kernel (:671, :745) at <= 16 rows, where
 // the CUDA-core t_gemv_kernel below took them.  Bound by the weight bytes:
@@ -815,6 +830,9 @@ int sk_dispatch(int M, int N, int mt, int cols, int nsplit, int gps, int cg, int
 // out, more write f32 partials, and the last block of a tile to arrive sums
 // them in split order, writes out and resets its counter (sk_body's
 // protocol: deterministic, graph-safe).  grid.z takes 16-row blocks of g.
+// The f16 form (a float16 checkpoint's fine-tuning) is the same body over
+// f16 tiles: B13's fold f16(g · f16(s)), B14's weights f16(f16(q) · f16(s))
+// by one f16x2 multiply, the JAX kernels' roundings in g's dtype.
 // ops/quant_matmul.py::t_splitk_plan and t_splitk_smem mirror the constants.
 constexpr int TSK_RW = 4;                      // warps along the output rows
 constexpr int TSK_CW = 2;                      // warps along the contraction
@@ -861,9 +879,10 @@ static_assert(TSK_CW == 2, "t_splitk_mma_kernel sums two contraction halves");
 
 template <typename W, int MT, bool WIDE>
 __global__ void __launch_bounds__(TSK_THREADS, 2)
-t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+t_splitk_mma_kernel(const typename W::E* __restrict__ g, const W w,
+                    typename W::E* __restrict__ out, float* __restrict__ ws,
                     int* __restrict__ arrivals, int M, int K, int N, int cps, int cs) {
+  using E = typename W::E;
   extern __shared__ __align__(16) unsigned char tsk_smem[];
   __shared__ bool merge_here;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -877,7 +896,7 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
   const int C = (N + TSK_CHUNK - 1) / TSK_CHUNK;
   const int c_begin = split * cps, c_end = min(C, c_begin + cps);
   const int xs_stride = tsk_xs_stride(cs);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tsk_smem);
+  E* xs = reinterpret_cast<E*>(tsk_smem);
   float* red = reinterpret_cast<float*>(tsk_smem);  // after the loop: TSK_CW x (8 MT, TSK_RS)
 
   float acc[2][MT][4];
@@ -917,7 +936,7 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             const uint32_t bb[2] = {ss ? b[mt].z : b[mt].x, ss ? b[mt].w : b[mt].y};
-            mma_16816<__nv_bfloat16>(part[rt][mt], a, bb);
+            mma_16816<E>(part[rt][mt], a, bb);
           }
         }
       }
@@ -943,13 +962,13 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (r < Mb && n < N) {
         v = *reinterpret_cast<const uint4*>(g + (size_t)(m0 + r) * N + n);
-        if constexpr (W::kFoldG) {  // bf16(g * bf16(s)), each product rounded once
+        if constexpr (W::kFoldG) {  // E(g * E(s)), each product rounded once
           uint32_t s[4];
           w.tsk_scales(n, s);
-          v.x = bf16x2_mul(v.x, s[0]);
-          v.y = bf16x2_mul(v.y, s[1]);
-          v.z = bf16x2_mul(v.z, s[2]);
-          v.w = bf16x2_mul(v.w, s[3]);
+          v.x = mul2<E>(v.x, s[0]);
+          v.y = mul2<E>(v.y, s[1]);
+          v.z = mul2<E>(v.z, s[2]);
+          v.w = mul2<E>(v.w, s[3]);
         }
       }
       *reinterpret_cast<uint4*>(xs + r * xs_stride + col) = v;
@@ -986,7 +1005,7 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
   if (nsplit == 1) {
     for (int i = tid; i < Mb * TSK_ROWS; i += TSK_THREADS) {
       const int m = i / TSK_ROWS, r = i % TSK_ROWS;
-      if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = __float2bfloat16_rn(block_sum(i));
+      if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = from_f32<E>(block_sum(i));
     }
     return;
   }
@@ -1016,7 +1035,7 @@ t_splitk_mma_kernel(const __nv_bfloat16* __restrict__ g, const W w,
     }
     for (; p < nsplit; ++p) s += __ldcg(tp + p * stride + i);
     const int m = i / TSK_ROWS, r = i % TSK_ROWS;
-    if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = __float2bfloat16_rn(s);
+    if (r < R) out[(size_t)(m0 + m) * K + r0 + r] = from_f32<E>(s);
   }
   if (tid == 0) arrivals[ztile] = 0;  // ready for the next launch (and a graph replay)
 }
@@ -1026,12 +1045,13 @@ int launch_t_splitk_mt(const W& w, const void* g, void* out, void* ws, void* arr
                        int K, int N, int nsplit, int cps, int cs, cudaStream_t stream) {
   const dim3 grid((K + TSK_ROWS - 1) / TSK_ROWS, nsplit, (M + TSK_MROWS - 1) / TSK_MROWS);
   t_splitk_mma_kernel<W, MT, WIDE><<<grid, TSK_THREADS, tsk_smem_bytes(MT, cs), stream>>>(
-      static_cast<const __nv_bfloat16*>(g), w, static_cast<__nv_bfloat16*>(out),
+      static_cast<const typename W::E*>(g), w, static_cast<typename W::E*>(out),
       static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, cps, cs);
   return (int)cudaGetLastError();
 }
 
-// g (M, N) bf16, view w, out (M, K) bf16; the plan of
+// g (M, N) and out (M, K) in the view's element W::E (bf16 or f16), view
+// w; the plan of
 // ops/quant_matmul.py::t_splitk_plan: mt m-tiles of 8 rows (2 above 8 rows),
 // nsplit splits of cps 64-element chunks, g staged cs chunks at a time (cs
 // % 4 == 0: a stage gives each warp an even number of chunks); ws holds
@@ -1513,7 +1533,7 @@ struct WgConsumer {
 //                              activation tile before any wgmma reads it
 //   kColScale, v.col_scale()   (B6) the per-column scale of the epilogue
 //   V::E                       the activations' and the output's element
-//                              (bf16, or f16 for B6)
+//                              (bf16 or f16)
 // No scale changes inside these contractions, so the f32 sum needs no
 // per-group fold; but the tensor cores' accumulation over one long wgmma
 // chain drifts from round-to-nearest (on an H100 the error grew with the
@@ -1572,17 +1592,17 @@ __device__ __forceinline__ void wg_body(uint8_t* raw, const CUtensorMap* amap,
 
 namespace {
 
-// The transposed tensor-core kernel (bf16 g, M > 16; training's M = B*S):
-// out (M, K) = g (M, N) · Ŵᵀ, the contraction over N, on wg_consume's
-// mainloop.  D's rows are output columns k (weight rows), its columns g's
-// rows; the weight view turns a stage's weight rows into bf16 fragments
-// (B14: bf16(q * s), B13: the exact int8 values, with the scale folded into
-// the g tile).
+// The transposed tensor-core kernel (bf16 or f16 g, W::E, M > 16;
+// training's M = B*S): out (M, K) = g (M, N) · Ŵᵀ, the contraction over N,
+// on wg_consume's mainloop.  D's rows are output columns k (weight rows),
+// its columns g's rows; the weight view turns a stage's weight rows into E
+// fragments (B14: E(E(q) * E(s)), B13: the exact int8 values, with the
+// scale folded into the g tile).
 template <typename W, int BM>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 t_wgmma_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap wmap,
                const __grid_constant__ CUtensorMap smap, const W w,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+               typename W::E* __restrict__ out, float* __restrict__ ws,
                int* __restrict__ arrivals, int M, int K, const WgSchedule sc) {
   extern __shared__ uint8_t wg_smem_raw[];
   wg_body<BM, W>(wg_smem_raw, &gmap, &wmap, &smap, w, out, ws, arrivals, M, K, sc);
@@ -1596,13 +1616,14 @@ int launch_t_wgmma_bm(const CUtensorMap& gmap, const CUtensorMap& wmap, const CU
   const cudaError_t opt_in = smem_opt_in<t_wgmma_kernel<W, BM>>(bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
   t_wgmma_kernel<W, BM><<<ctas, WG_THREADS, bytes, stream>>>(
-      gmap, wmap, smap, w, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      gmap, wmap, smap, w, static_cast<typename W::E*>(out), static_cast<float*>(ws),
       static_cast<int*>(arrivals), M, K, sc);
   return (int)cudaGetLastError();
 }
 
-// g (M, N) bf16, the weights and scales of view w (their tensor maps from
-// W::maps), out (M, K); the plan of ops/quant_matmul.py::t_mma_plan.
+// g (M, N) and out (M, K) in W::E (bf16 or f16), the weights and scales of
+// view w (their tensor maps from W::maps); the plan of
+// ops/quant_matmul.py::t_mma_plan.
 template <typename W>
 int launch_t_wgmma(const W& w, const void* g, const void* weights, const void* scale, void* out,
                    void* ws, void* arrivals, int M, int K, int N, int bm, int nsplit, int sps,

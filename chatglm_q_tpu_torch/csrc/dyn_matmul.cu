@@ -16,6 +16,9 @@
 //   g over groups of 32 along K.  Each group dot is an exact int32; the f32
 //   sum over groups differs from the plain version only in its order.
 //   Padded K rows (nibble 0, scale 1, zero activations) add exactly 0.
+// Both outputs take x's dtype, f32, bf16 or f16 (the JAX kernels' astype,
+// :1015, :1118): the s8 products and their sums are the same, and only the
+// epilogue's store type differs, the f32 result rounded once.
 //
 // Kernels, two per function:
 // * dyn_splitk_mma_kernel (M <= 16: decode), one for both over common.cuh's
@@ -212,32 +215,23 @@ dyn_splitk_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ s
 }
 
 // xq (M, K) s8, sx (M,) f32, view V's weights and scale, y (M, N) of dtype
-// code y_dtype (DT_BF16 or DT_F32: the f16 epilogue is not ported, and
-// DT_F16 is refused); the plan of ops/quant_matmul.py::splitk_plan (mt 1
-// or 2) over s8 rows.
+// code y_dtype (DT_F32, DT_BF16 or DT_F16: only the epilogue's store type
+// differs); the plan of ops/quant_matmul.py::splitk_plan (mt 1 or 2) over
+// s8 rows.
 template <typename V>
 int launch_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale, void* y,
                       void* ws, void* arrivals, int M, int K, int N, int y_dtype, int mt,
                       int cols, int nsplit, int gps, int cg, cudaStream_t stream) {
-  if (y_dtype != DT_BF16 && y_dtype != DT_F32) return (int)cudaErrorInvalidValue;
-  const bool y_is_bf16 = y_dtype == DT_BF16;
   using Acc = typename V::Acc;
-  return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 1, [&](auto MT, auto COLS) {
-    constexpr int kMT = decltype(MT)::value, kCOLS = decltype(COLS)::value;
-    const int smem = sk_smem_bytes(M, cg, cols, 1);
-    const auto* x = static_cast<const int8_t*>(xq);
-    const auto* sxf = static_cast<const float*>(sx);
-    const auto wv = static_cast<typename V::W>(w);
-    const auto sv = static_cast<typename V::S>(scale);
-    auto* part = static_cast<Acc*>(ws);
-    auto* arr = static_cast<int*>(arrivals);
-    if (y_is_bf16)
-      return sk_launch<dyn_splitk_mma_kernel<V, __nv_bfloat16, kMT, kCOLS>>(
-          N, cols, nsplit, smem, stream, x, sxf, wv, sv, static_cast<__nv_bfloat16*>(y), part,
-          arr, M, K, N, gps, cg);
-    return sk_launch<dyn_splitk_mma_kernel<V, float, kMT, kCOLS>>(
-        N, cols, nsplit, smem, stream, x, sxf, wv, sv, static_cast<float*>(y), part, arr, M, K,
-        N, gps, cg);
+  return with_act_type(y_dtype, [&](auto t) {
+    using T = decltype(t);
+    return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 1, [&](auto MT, auto COLS) {
+      return sk_launch<dyn_splitk_mma_kernel<V, T, decltype(MT)::value, decltype(COLS)::value>>(
+          N, cols, nsplit, sk_smem_bytes(M, cg, cols, 1), stream, static_cast<const int8_t*>(xq),
+          static_cast<const float*>(sx), static_cast<typename V::W>(w),
+          static_cast<typename V::S>(scale), static_cast<T*>(y), static_cast<Acc*>(ws),
+          static_cast<int*>(arrivals), M, K, N, gps, cg);
+    });
   });
 }
 
@@ -528,7 +522,8 @@ __device__ __forceinline__ void dyn_unit(float (&acc)[BM / 2], const Int4DynView
 
 // y (M, N) of this thread's columns n, n + 1, rows m0 + 8j + 2t + e: B7
 // (float(acc) * sx[m]) * scale[n], B8 acc * sx[m] (the plain versions'
-// operations in their order), as T.
+// operations in their order), rounded once to T (f32, bf16 or f16: past
+// 65504 an f16 output is inf, as the JAX kernels' astype gives).
 template <int BM, typename Acc, typename T>
 __device__ __forceinline__ void dyn_store(const Acc (&acc)[BM / 2], T* __restrict__ y,
                                           const float* __restrict__ sx,
@@ -561,7 +556,7 @@ __device__ __forceinline__ void dyn_store(const Acc (&acc)[BM / 2], T* __restric
       if constexpr (std::is_same_v<T, float>)
         *reinterpret_cast<float2*>(row) = make_float2(v0, v1);
       else
-        *reinterpret_cast<__nv_bfloat162*>(row) = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<uint32_t*>(row) = pack2<T>(v0, v1);
     }
   }
 }
@@ -614,7 +609,7 @@ int launch_dyn_bm(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtens
 }
 
 // xq (M, K) s8 and sx (M,) f32, the weights and scale of view v, y (M, N)
-// of dtype code y_dtype (DT_BF16 or DT_F32; DT_F16 refused); the plan of
+// of dtype code y_dtype (DT_F32, DT_BF16 or DT_F16); the plan of
 // ops/dyn_matmul.py::dyn_plan.
 template <typename V>
 int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
@@ -622,9 +617,8 @@ int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
                      int y_dtype, int bm, int nsplit, int sps, int ctas, cudaStream_t stream) {
   const int steps = (K + DYN_STEP - 1) / DYN_STEP;
   if (M < 1 || K < 32 || K % 32 || N < 16 || N % 16 ||
-      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws) || (y_dtype != DT_BF16 && y_dtype != DT_F32))
+      !wg_plan_ok(steps, bm, nsplit, sps, ctas, ws))
     return (int)cudaErrorInvalidValue;
-  const bool y_is_bf16 = y_dtype == DT_BF16;
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, wmap, smap;
@@ -633,15 +627,14 @@ int launch_dyn_wgmma(const V& v, const void* xq, const void* sx, const void* w,
       !V::maps(encode, &wmap, &smap, w, scale, K, N))
     return (int)cudaErrorInvalidValue;
   const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
-  if (bm == 128)
-    return y_is_bf16 ? launch_dyn_bm<128, V, __nv_bfloat16>(xmap, wmap, smap, v, sx, y, ws,
-                                                            arrivals, M, N, sc, ctas, stream)
-                     : launch_dyn_bm<128, V, float>(xmap, wmap, smap, v, sx, y, ws, arrivals, M,
-                                                    N, sc, ctas, stream);
-  return y_is_bf16 ? launch_dyn_bm<64, V, __nv_bfloat16>(xmap, wmap, smap, v, sx, y, ws, arrivals,
-                                                         M, N, sc, ctas, stream)
-                   : launch_dyn_bm<64, V, float>(xmap, wmap, smap, v, sx, y, ws, arrivals, M, N,
-                                                 sc, ctas, stream);
+  return with_act_type(y_dtype, [&](auto t) {
+    using T = decltype(t);
+    if (bm == 128)
+      return launch_dyn_bm<128, V, T>(xmap, wmap, smap, v, sx, y, ws, arrivals, M, N, sc, ctas,
+                                      stream);
+    return launch_dyn_bm<64, V, T>(xmap, wmap, smap, v, sx, y, ws, arrivals, M, N, sc, ctas,
+                                   stream);
+  });
 }
 
 }  // namespace
@@ -650,7 +643,7 @@ extern "C" {
 
 // B7, split-K tensor-core kernel (dyn_splitk_mma_kernel), one launch.  xq
 // (M,K) s8, sx (M,) f32, w (K,N) s8, scale (N,) f32, y (M,N) of dtype code
-// y_dtype (DT_BF16 or DT_F32); the plan and buffers of
+// y_dtype (DT_F32, DT_BF16 or DT_F16); the plan and buffers of
 // chatglm_int8_splitk_mma, ws as int32 partials; K % 32 == 0, N % 8 == 0,
 // 16-byte aligned pointers.
 int chatglm_int8_dyn_splitk(const void* xq, const void* sx, const void* w, const void* scale,

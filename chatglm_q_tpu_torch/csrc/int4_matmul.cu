@@ -93,10 +93,14 @@
 // (int4_matmul_t_pallas): grad_x (M,K) = g (M,N) @ dequant(packed, scale)ᵀ,
 // the contraction over N.  The scale changes along both K/32 and N, so it
 // folds into neither g nor the output: each weight is dequantized to g's
-// dtype, bf16(q * s) under bf16, before the dot, as both JAX forms round it.
+// dtype, bf16(q * s) under bf16, before the dot, as both JAX forms round it;
+// f16(f16(q) * f16(s)) under f16 (a float16 checkpoint's fine-tuning: the
+// bf16 scale rounded to f16 first, a subnormal, 0 or inf outside f16's
+// normal range, as the JAX kernel's s.astype(g.dtype) gives; not B1's f32
+// q * s).  The tensor-core kernels take Int4TView<E> over g's element E.
 // Byte row i of packed holds output columns 2i (low nibble) and 2i+1 (high).
 // All three are common.cuh's transposed bodies over Int4TView:
-// * t_splitk_mma_kernel<Int4TView> (bf16 g, M <= MMA_MIN_M = 16, and bf16
+// * t_splitk_mma_kernel<Int4TView> (bf16 / f16 g, M <= MMA_MIN_M = 16, and
 //   at any M where N % 16 != 0): bound by the packed bytes.  mma.sync with
 //   a warp's 32 output rows (16 byte rows, one scale group) as two A tiles
 //   built as t_wgmma_kernel's below, one 16-byte load a byte row feeding
@@ -104,7 +108,7 @@
 //   over blocks, merged in the launch (common.cuh).
 // * t_gemv_kernel<Int4TView> (f32 g): bound by the packed bytes; one warp
 //   per two byte rows (four output columns), 8-byte loads along N.
-// * t_wgmma_kernel<Int4TView> (bf16, M > 16; training's M = B*S): bound by
+// * t_wgmma_kernel<Int4TView> (bf16 / f16, M > 16; training's M = B*S): bound by
 //   operations.  common.cuh's Hopper mainloop (B1's ring, producer and
 //   orientation: the weights as wgmma's A from registers, g's rows as B
 //   from the swizzled TMA tile); no per-group fold, since each weight is
@@ -113,8 +117,8 @@
 //   holds two output columns (its nibbles), so D rows gid and gid + 8 of a
 //   warp are made those two columns: one u16 load of two neighbouring
 //   bytes gives both rows' A registers for two contraction elements, each
-//   weight bf16(q * s) by one bf16x2 multiply of the exact nibble value
-//   (int4_rows_bf16x2), one scale pair for both rows.
+//   weight E(q * s) by one E x2 multiply of the exact nibble value
+//   (int4_rows_pair), one scale pair for both rows.
 #include "common.cuh"
 
 namespace {
@@ -552,11 +556,13 @@ int4_splitk_mma_kernel(const E* __restrict__ x, const uint8_t* __restrict__ pack
 // ---------------------------------------------------------------------------
 
 // The int4g32 weight view of common.cuh's transposed kernels: the scale
-// changes along K/32 and N, so each weight is dequantized, bf16(q * s) in g's
-// dtype, before the dot.  Output columns 2i and 2i+1 are the low and high
-// nibbles of byte row i.
+// changes along K/32 and N, so each weight is dequantized, E(E(q) * E(s))
+// in g's element E (bf16 or f16), before the dot.  Output columns 2i and
+// 2i+1 are the low and high nibbles of byte row i.  t_gemv_kernel (f32 g)
+// reads only its floats.
+template <typename E_ = __nv_bfloat16>
 struct Int4TView {
-  using E = __nv_bfloat16;  // g's element (the transposed kernels take bf16 g)
+  using E = E_;
   const uint8_t* packed;
   const __nv_bfloat16* scale;
   static constexpr int kCols = 4;  // two byte rows, inside one 32-row group
@@ -583,7 +589,7 @@ struct Int4TView {
   // t_wgmma_kernel, D rows gid and gid + 8 are a byte row's low and high
   // nibbles (output rows k0 + 16 rt + 2 gid and + 1), so each u16 of two
   // neighbouring bytes gives both rows' A registers for two contraction
-  // elements (int4_rows_bf16x2), each weight bf16(q * s) by one bf16x2
+  // elements (int4_rows_pair), each weight E(q * E(s)) by one E x2
   // multiply with the pair's scales.  p[rt]: the lane's 16 bytes of byte
   // row rt; s: the group's 16 scales at the same elements (32 bytes).
   struct TskChunk {
@@ -602,15 +608,15 @@ struct Int4TView {
   __device__ __forceinline__ void tsk_frag(const TskChunk& d, int s, int rt,
                                            uint32_t (&a)[4]) const {
     const uint32_t v = word_at(d.p[rt], s);  // bytes 4s..4s+3: elements 4s..4s+3
-    const uint32_t s01 = word_at(d.s[s >> 1], 2 * (s & 1));
-    const uint32_t s23 = word_at(d.s[s >> 1], 2 * (s & 1) + 1);
+    const uint32_t s01 = bf16x2_as<E>(word_at(d.s[s >> 1], 2 * (s & 1)));
+    const uint32_t s23 = bf16x2_as<E>(word_at(d.s[s >> 1], 2 * (s & 1) + 1));
     uint32_t lo, hi;
-    int4_rows_bf16x2(v, lo, hi);
-    a[0] = bf16x2_mul(lo, s01);
-    a[1] = bf16x2_mul(hi, s01);
-    int4_rows_bf16x2(v >> 16, lo, hi);
-    a[2] = bf16x2_mul(lo, s23);
-    a[3] = bf16x2_mul(hi, s23);
+    int4_rows_pair<E>(v, lo, hi);
+    a[0] = mul2<E>(lo, s01);
+    a[1] = mul2<E>(hi, s01);
+    int4_rows_pair<E>(v >> 16, lo, hi);
+    a[2] = mul2<E>(lo, s23);
+    a[3] = mul2<E>(hi, s23);
   }
   __device__ static int tsk_row(int rt, int gid, int hi) { return 16 * rt + 2 * gid + hi; }
 
@@ -620,7 +626,7 @@ struct Int4TView {
   // gid and gid + 8 of a warp are the low and high nibbles of one byte row
   // (output columns c and c + 1): a u16 load of two neighbouring bytes gives
   // both rows' A registers for two contraction elements, each weight
-  // bf16(q * s) by one bf16x2 multiply of the exact q, one scale pair for
+  // E(q * E(s)) by one E x2 multiply of the exact q, one scale pair for
   // both rows (they share a group).
   static constexpr int kWBytes = (WG_N / 2) * WG_STEP;
   static constexpr int kSBytes = (WG_N / 32) * WG_STEP * 2;
@@ -665,15 +671,16 @@ struct Int4TView {
       const int h = 2 * H + i;
       const uint32_t v0 = *reinterpret_cast<const uint16_t*>(wt + ln.o[h]);
       const uint32_t v1 = *reinterpret_cast<const uint16_t*>(wt + ln.o[h] + 8);
-      const uint32_t s0 = *reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h);
-      const uint32_t s1 = *reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h + 16);
+      const uint32_t s0 = bf16x2_as<E>(*reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h));
+      const uint32_t s1 =
+          bf16x2_as<E>(*reinterpret_cast<const uint32_t*>(st + ln.so + 32 * h + 16));
       uint32_t lo, hi;
-      int4_rows_bf16x2(v0, lo, hi);
-      f[i][0] = bf16x2_mul(lo, s0);
-      f[i][1] = bf16x2_mul(hi, s0);
-      int4_rows_bf16x2(v1, lo, hi);
-      f[i][2] = bf16x2_mul(lo, s1);
-      f[i][3] = bf16x2_mul(hi, s1);
+      int4_rows_pair<E>(v0, lo, hi);
+      f[i][0] = mul2<E>(lo, s0);
+      f[i][1] = mul2<E>(hi, s0);
+      int4_rows_pair<E>(v1, lo, hi);
+      f[i][2] = mul2<E>(lo, s1);
+      f[i][3] = mul2<E>(hi, s1);
     }
   }
 };
@@ -762,41 +769,54 @@ int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, voi
 int chatglm_int4_t_gemv(const void* g, const void* packed, const void* scale, void* out, int M,
                         int K, int N, int g_dtype, void* stream) {
   if (g_dtype != DT_F32) return (int)cudaErrorInvalidValue;
-  const Int4TView wv{static_cast<const uint8_t*>(packed),
-                     static_cast<const __nv_bfloat16*>(scale)};
+  const Int4TView<> wv{static_cast<const uint8_t*>(packed),
+                       static_cast<const __nv_bfloat16*>(scale)};
   t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
          reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
-// B14, split-K tensor-core form (t_splitk_mma_kernel), bf16 only, one
-// launch: the plan and buffers of common.cuh's launch_t_splitk
-// (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
-// aligned pointers.
+// B14, split-K tensor-core form (t_splitk_mma_kernel), g and out of dtype
+// code g_dtype (DT_BF16 or DT_F16), one launch: the plan and buffers of
+// common.cuh's launch_t_splitk (ops/quant_matmul.py::t_splitk_plan); K %
+// 32 == 0, N % 8 == 0, 16-byte aligned pointers.
 int chatglm_int4_t_splitk(const void* g, const void* packed, const void* scale, void* out,
                           void* ws, void* arrivals, int M, int K, int N, int g_dtype, int mt,
                           int nsplit, int cps, int cs, void* stream) {
-  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
-  const Int4TView wv{static_cast<const uint8_t*>(packed),
-                     static_cast<const __nv_bfloat16*>(scale)};
-  return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
-                         reinterpret_cast<cudaStream_t>(stream));
+  return with_act_type(g_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const Int4TView<E> wv{static_cast<const uint8_t*>(packed),
+                            static_cast<const __nv_bfloat16*>(scale)};
+      return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
+                             reinterpret_cast<cudaStream_t>(stream));
+    }
+  });
 }
 
-// B14, tensor-core form (t_wgmma_kernel), bf16 only, one launch: tiles of
-// bm (64 or 128) rows of g x 128 output columns, nsplit splits of sps
-// 64-column stages of N over ctas persistent blocks
-// (ops/quant_matmul.py::t_mma_plan); ws holds tiles * nsplit * bm * 128
-// floats (unused at nsplit 1), arrivals 2 * tiles zeroed ints that every
-// launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+// B14, tensor-core form (t_wgmma_kernel), g and out of dtype code g_dtype
+// (DT_BF16 or DT_F16), one launch: tiles of bm (64 or 128) rows of g x 128
+// output columns, nsplit splits of sps 64-column stages of N over ctas
+// persistent blocks (ops/quant_matmul.py::t_mma_plan); ws holds tiles *
+// nsplit * bm * 128 floats (unused at nsplit 1), arrivals 2 * tiles zeroed
+// ints that every launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte
+// aligned pointers.
 int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, void* out,
                          void* ws, void* arrivals, int M, int K, int N, int g_dtype, int bm,
                          int nsplit, int sps, int ctas, void* stream) {
-  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
-  const Int4TView wv{static_cast<const uint8_t*>(packed),
-                     static_cast<const __nv_bfloat16*>(scale)};
-  return launch_t_wgmma(wv, g, packed, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
-                        reinterpret_cast<cudaStream_t>(stream));
+  return with_act_type(g_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const Int4TView<E> wv{static_cast<const uint8_t*>(packed),
+                            static_cast<const __nv_bfloat16*>(scale)};
+      return launch_t_wgmma(wv, g, packed, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps,
+                            ctas, reinterpret_cast<cudaStream_t>(stream));
+    }
+  });
 }
 
 const char* chatglm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -70,10 +70,12 @@
 // dtype (rounded to bf16 under bf16) before the dot, so the kernels differ
 // from the plain version (ops/int8_matmul.py::int8_matmul_t_plain) only in
 // the order of the f32 sums.  Output column k reads weight row k, which is
-// N-contiguous: no second weight layout is kept.
+// N-contiguous: no second weight layout is kept.  g may be bf16 or f16 (a
+// float16 checkpoint's fine-tuning): the tensor-core kernels take Int8TView<E>
+// over g's element E, f16(g · f16(s)) and the int8 weights exactly in f16.
 // All three are common.cuh's transposed bodies over Int8TView:
-// * t_splitk_mma_kernel<Int8TView> (bf16 g, M <= MMA_MIN_M = 16: a training
-//   step of <= 16 tokens; and bf16 at any M where N % 16 != 0): bound by the
+// * t_splitk_mma_kernel<Int8TView> (bf16 / f16 g, M <= MMA_MIN_M = 16: a
+//   training step of <= 16 tokens; and at any M where N % 16 != 0): bound by the
 //   weight bytes (one byte a weight, two operations a byte per row of g).
 //   mma.sync m16n8k16 with 16 weight rows as A straight from the
 //   N-contiguous rows (each u16 of two neighbouring bytes one exact bf16x2
@@ -83,7 +85,7 @@
 //   splits merged in the launch; the scale folded into g as it is staged.
 // * t_gemv_kernel<Int8TView> (f32 g): bound by the weight bytes; one warp
 //   per 4 output columns, 8-byte loads along N, IEEE f32 sums (no TF32).
-// * t_wgmma_kernel<Int8TView> (bf16, M > 16, training's M = B*S): bound by
+// * t_wgmma_kernel<Int8TView> (bf16 / f16, M > 16, training's M = B*S): bound by
 //   operations; the Hopper mainloop above with the weight rows as A (each
 //   u16 load one exact bf16x2 register) and the scale folded into each g
 //   stage in shared memory before its wgmmas (Int8TView::fold_tile).
@@ -363,9 +365,11 @@ int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8Fwd
 // ---------------------------------------------------------------------------
 
 // The int8 weight view of common.cuh's transposed kernels: the scale folds
-// into g; the int8 rows convert to floats / bf16 exactly.
+// into g; the int8 rows convert to floats / E (bf16 or f16, g's element)
+// exactly.  t_gemv_kernel (f32 g) reads only its floats.
+template <typename E_ = __nv_bfloat16>
 struct Int8TView {
-  using E = __nv_bfloat16;  // g's element (the transposed kernels take bf16 g)
+  using E = E_;
   const int8_t* w;
   const float* scale;
   static constexpr int kCols = 4;
@@ -386,8 +390,9 @@ struct Int8TView {
   // t_splitk_mma_kernel's view.  The warp's 32 rows are two A tiles, rows
   // k0 + 16 rt + gid (D row gid) and + 8 (gid + 8); r[i] holds row k0 + gid
   // + 8 i at the lane's 16 contraction bytes, word s of it (bytes 4s..4s+3)
-  // k16 step s's two pairs: one s8x4_bf16x2 gives A registers 0 and 2 (or 1
-  // and 3), exactly.  The scale folds into g while it is staged.
+  // k16 step s's two pairs: one s8x4_pair gives A registers 0 and 2 (or 1
+  // and 3), exactly.  The scale, rounded to E, folds into g while it is
+  // staged.
   struct TskChunk {
     uint4 r[4];
   };
@@ -400,17 +405,17 @@ struct Int8TView {
   }
   __device__ __forceinline__ void tsk_frag(const TskChunk& d, int s, int rt,
                                            uint32_t (&a)[4]) const {
-    s8x4_bf16x2(word_at(d.r[2 * rt], s), a[0], a[2]);
-    s8x4_bf16x2(word_at(d.r[2 * rt + 1], s), a[1], a[3]);
+    s8x4_pair<E>(word_at(d.r[2 * rt], s), a[0], a[2]);
+    s8x4_pair<E>(word_at(d.r[2 * rt + 1], s), a[1], a[3]);
   }
   __device__ static int tsk_row(int rt, int gid, int hi) { return 16 * rt + gid + 8 * hi; }
   __device__ __forceinline__ void tsk_scales(int n, uint32_t (&s)[4]) const {
     const float4 a = __ldg(reinterpret_cast<const float4*>(scale + n));
     const float4 b = __ldg(reinterpret_cast<const float4*>(scale + n + 4));
-    s[0] = bf16x2_bits(a.x, a.y);
-    s[1] = bf16x2_bits(a.z, a.w);
-    s[2] = bf16x2_bits(b.x, b.y);
-    s[3] = bf16x2_bits(b.z, b.w);
+    s[0] = pack2<E>(a.x, a.y);
+    s[1] = pack2<E>(a.z, a.w);
+    s[2] = pack2<E>(b.x, b.y);
+    s[3] = pack2<E>(b.z, b.w);
   }
 
   // t_wgmma_kernel's view.  A stage: 128 weight rows (output columns) x 64
@@ -418,8 +423,8 @@ struct Int8TView {
   // h ^ ((r >> 1) & 3)) and the 64 f32 scales of those contraction columns.
   // D rows gid and gid + 8 are output columns c and c + 8 (neighbouring
   // rows would meet in one bank), each u16 load one A register.  The scale
-  // folds into g: the consumers rewrite each g stage in place as bf16(g *
-  // bf16(s)) before its wgmmas (fold_tile); a pre-pass kernel would cost a
+  // folds into g: the consumers rewrite each g stage in place as E(g *
+  // E(s)) before its wgmmas (fold_tile); a pre-pass kernel would cost a
   // launch and an M x N read and write, and g as A from registers an int8
   // -> bf16 B tile written back to shared memory.
   static constexpr int kWBytes = WG_N * WG_STEP;
@@ -465,13 +470,13 @@ struct Int8TView {
       const uint32_t r1 = *reinterpret_cast<const uint16_t*>(p + 8 * WG_STEP);  // row c + 8
       const uint32_t r2 = *reinterpret_cast<const uint16_t*>(p + 8);
       const uint32_t r3 = *reinterpret_cast<const uint16_t*>(p + 8 * WG_STEP + 8);
-      s8x4_bf16x2(__byte_perm(r0, r1, 0x5410), f[i][0], f[i][1]);
-      s8x4_bf16x2(__byte_perm(r2, r3, 0x5410), f[i][2], f[i][3]);
+      s8x4_pair<E>(__byte_perm(r0, r1, 0x5410), f[i][0], f[i][1]);
+      s8x4_pair<E>(__byte_perm(r2, r3, 0x5410), f[i][2], f[i][3]);
     }
   }
-  // g's stage tile (BM rows x 64 bf16, 128B swizzle) times the stage's
-  // scales rounded to bf16, each product rounded once to bf16 (the plain
-  // version's g * scale.to(bf16)), in place.  Thread i of the 256 consumers
+  // g's stage tile (BM rows x 64 E, 128B swizzle) times the stage's scales
+  // rounded to E, each product rounded once to E (the plain version's g *
+  // scale.to(g.dtype)), in place.  Thread i of the 256 consumers
   // takes 16-byte chunk i % 8 of rows i / 8 + 32j: the same logical columns
   // on each row (the swizzle repeats every 8 rows), so its 8 scales load
   // once.  Then the writes are made visible to the wgmmas' async proxy and
@@ -482,16 +487,16 @@ struct Int8TView {
     const int q = p ^ (r0 & 7);  // columns 8q .. 8q + 7
     const float4 a = *reinterpret_cast<const float4*>(st + 32 * q);
     const float4 b = *reinterpret_cast<const float4*>(st + 32 * q + 16);
-    const uint32_t s[4] = {bf16x2_bits(a.x, a.y), bf16x2_bits(a.z, a.w), bf16x2_bits(b.x, b.y),
-                           bf16x2_bits(b.z, b.w)};
+    const uint32_t s[4] = {pack2<E>(a.x, a.y), pack2<E>(a.z, a.w), pack2<E>(b.x, b.y),
+                           pack2<E>(b.z, b.w)};
 #pragma unroll
     for (int j = 0; j < BM / 32; ++j) {
       uint4* chunk = reinterpret_cast<uint4*>(xs + (r0 + 32 * j) * 128 + 16 * p);
       uint4 v = *chunk;
-      v.x = bf16x2_mul(v.x, s[0]);
-      v.y = bf16x2_mul(v.y, s[1]);
-      v.z = bf16x2_mul(v.z, s[2]);
-      v.w = bf16x2_mul(v.w, s[3]);
+      v.x = mul2<E>(v.x, s[0]);
+      v.y = mul2<E>(v.y, s[1]);
+      v.z = mul2<E>(v.z, s[2]);
+      v.w = mul2<E>(v.w, s[3]);
       *chunk = v;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -588,35 +593,48 @@ int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, v
 int chatglm_int8_t_gemv(const void* g, const void* w, const void* scale, void* out, int M, int K,
                         int N, int g_dtype, void* stream) {
   if (g_dtype != DT_F32) return (int)cudaErrorInvalidValue;
-  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+  const Int8TView<> wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
   t_gemv(static_cast<const float*>(g), wv, static_cast<float*>(out), M, K, N,
          reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
-// B13, split-K tensor-core form (t_splitk_mma_kernel), bf16 only, one
-// launch: the plan and buffers of common.cuh's launch_t_splitk
-// (ops/quant_matmul.py::t_splitk_plan); K % 32 == 0, N % 8 == 0, 16-byte
-// aligned pointers.
+// B13, split-K tensor-core form (t_splitk_mma_kernel), g and out of dtype
+// code g_dtype (DT_BF16 or DT_F16), one launch: the plan and buffers of
+// common.cuh's launch_t_splitk (ops/quant_matmul.py::t_splitk_plan); K %
+// 32 == 0, N % 8 == 0, 16-byte aligned pointers.
 int chatglm_int8_t_splitk(const void* g, const void* w, const void* scale, void* out, void* ws,
                           void* arrivals, int M, int K, int N, int g_dtype, int mt, int nsplit,
                           int cps, int cs, void* stream) {
-  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
-  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
-  return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
-                         reinterpret_cast<cudaStream_t>(stream));
+  return with_act_type(g_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const Int8TView<E> wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+      return launch_t_splitk(wv, g, out, ws, arrivals, M, K, N, mt, nsplit, cps, cs,
+                             reinterpret_cast<cudaStream_t>(stream));
+    }
+  });
 }
 
-// B13, tensor-core form (t_wgmma_kernel), bf16 only, one launch: the plan
-// and buffers of chatglm_int4_t_mma (ops/quant_matmul.py::t_mma_plan);
-// K % 32 == 0, N % 16 == 0, 16-byte aligned pointers.
+// B13, tensor-core form (t_wgmma_kernel), g and out of dtype code g_dtype
+// (DT_BF16 or DT_F16), one launch: the plan and buffers of
+// chatglm_int4_t_mma (ops/quant_matmul.py::t_mma_plan); K % 32 == 0, N %
+// 16 == 0, 16-byte aligned pointers.
 int chatglm_int8_t_mma(const void* g, const void* w, const void* scale, void* out, void* ws,
                          void* arrivals, int M, int K, int N, int g_dtype, int bm, int nsplit,
                          int sps, int ctas, void* stream) {
-  if (g_dtype != DT_BF16) return (int)cudaErrorInvalidValue;
-  const Int8TView wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
-  return launch_t_wgmma(wv, g, w, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
-                        reinterpret_cast<cudaStream_t>(stream));
+  return with_act_type(g_dtype, [&](auto t) {
+    using E = decltype(t);
+    if constexpr (std::is_same_v<E, float>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const Int8TView<E> wv{static_cast<const int8_t*>(w), static_cast<const float*>(scale)};
+      return launch_t_wgmma(wv, g, w, scale, out, ws, arrivals, M, K, N, bm, nsplit, sps, ctas,
+                            reinterpret_cast<cudaStream_t>(stream));
+    }
+  });
 }
 
 }  // extern "C"

@@ -8,8 +8,9 @@ the wrappers: a step program (utils/graphs.py) records each wrapper's count
 during its capture and adds it back on every replay (``add_launch_counts``),
 so the counts stay the kernels' real launches.  Launches in a form of a
 kernel also count apart: the attention wrappers' over a float8_e4m3fn cache
-as ``<name>_fp8``, and theirs and B1's / B6's on float16 activations as
-``<name>_f16``.
+as ``<name>_fp8``, and theirs and the matmuls' on float16 activations as
+``<name>_f16``, the attention wrappers' on float16 activations over a
+float8_e4m3fn cache as ``<name>_fp8_f16``.
 """
 
 
@@ -53,8 +54,8 @@ def kernel_wrappers() -> dict:
         "gptq_sweep_int8": GS.gptq_sweep_int8,
         "gptq_sweep_int4": GS.gptq_sweep_int4,
     }
-    forms = [(name, form) for name, fn in wrappers.items() for form in ("fp8", "f16")
-             if hasattr(fn, form)]
+    forms = [(name, form) for name, fn in wrappers.items()
+             for form in ("fp8", "f16", "fp8_f16") if hasattr(fn, form)]
     wrappers.update({f"{name}_{form}": getattr(wrappers[name], form) for name, form in forms})
     return wrappers
 

@@ -50,19 +50,19 @@ SIGNATURES = {
     # (bf16 or f16), mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
     "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "chatglm_int8_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y dtype code (bf16 or f32),
-    # mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
+    # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y dtype code (f32, bf16 or
+    # f16), mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
     "chatglm_int8_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N,
-    # activation dtype code (B1 / B6: bf16 or f16; B13 / B14: bf16), bm, nsplit, per split
+    # activation dtype code (bf16 or f16), bm, nsplit, per split
     # (B1: groups, the others: 64-element stages), ctas, stream
     "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int8_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_t_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    # the transposed split-K kernels (B13 / B14 at bf16 M <= 16): g, weights, scale, out,
-    # workspace, arrivals, M, K, N, g dtype code (bf16), mt, nsplit, chunks_per_split,
+    # the transposed split-K kernels (B13 / B14 at M <= 16): g, weights, scale, out,
+    # workspace, arrivals, M, K, N, g dtype code (bf16 or f16), mt, nsplit, chunks_per_split,
     # chunks_per_stage, stream
     "chatglm_int8_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
@@ -71,7 +71,7 @@ SIGNATURES = {
     # g, w (or packed), scale, out, M, K, N, g dtype code (f32), stream (B13 / B14 in f32)
     "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
     "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],
-    # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y dtype code (bf16 or f32), bm,
+    # xq, sx, w, scale, y, workspace, arrivals, M, K, N, y dtype code (f32, bf16 or f16), bm,
     # nsplit, 128-element stages per split, ctas, stream
     "chatglm_int8_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_mma": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
@@ -79,7 +79,8 @@ SIGNATURES = {
     # (the pool's P), MP, offset, stride, phase, total (page_table null for the dense cache;
     # a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0), form, stream.
     # The attention entries' form (ops/attention.py: FORM_CODES): 0 for bf16 activations
-    # over a bf16 cache or pool, 1 for bf16 over a float8_e4m3fn one, 2 for f16 over f16
+    # over a bf16 cache or pool, 1 for bf16 over a float8_e4m3fn one, 2 for f16 over f16,
+    # 3 for f16 over float8_e4m3fn
     "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
     # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, form, stream (the
     # write-only form; src in the form's activation dtype)

@@ -61,27 +61,32 @@ counts.
   table row ``row_map[b]``), its K/V rows split into ``chunk_span`` spans
   merged in the same launch.
 
-The kernels take three forms: bf16 activations over a bf16 cache (or
+The kernels take four forms: bf16 activations over a bf16 cache (or
 pool), bf16 activations over a ``float8_e4m3fn`` one (the ``kv_dtype``
-option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``), and float16
+option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``), float16
 activations over a float16 one (a float16 checkpoint: the cache takes the
-activations' dtype by default).  ``FORM_CODES`` names them; any other pair
-(f32, or f16 over fp8) raises ``TypeError``.  Launches in the fp8 and f16
-forms also count as ``<wrapper>_fp8`` / ``<wrapper>_f16``.  The f16 forms
-keep the TPU kernels' rounding points in f16: p rounded to v's dtype (B4,
-B5), q pre-scaled in its dtype and p in f32 (B10, B11, B12), the RoPE's
-products and sums rounded to f16.
+activations' dtype by default), and float16 activations over a
+``float8_e4m3fn`` one (a float16 checkpoint with ``kv_dtype``).
+``FORM_CODES`` names them; any other pair (f32 activations, or a 16-bit
+cache of the other 16-bit type) raises ``TypeError``.  Launches in the
+three other forms also count as ``<wrapper>_fp8``, ``<wrapper>_f16`` and
+``<wrapper>_fp8_f16`` (f16 over fp8: in neither of the two before).  The
+f16 forms keep the TPU kernels' rounding points in f16: p rounded to v's
+dtype (B4, B5), q pre-scaled in its dtype and p in f32 (B10, B11, B12),
+the RoPE's products and sums rounded to f16; over an fp8 cache the same
+on the cache upcast exactly to f16.
 
 The fp8 cache:
 Every write into an fp8 cache goes through ``kv_store_cast``: JAX's
 ``astype(float8_e4m3fn)`` wherever that gives a finite value, finite values
 past the range saturating to ±448 where JAX's give NaN, and every NaN stored
-as the one byte 0x7F.  Reads upcast the stored bytes exactly: the plain
-versions convert K and V to q's dtype before anything is rounded to v's
-dtype (as the TPU kernels upcast after their DMA), and the kernels convert
-each landed tile to bf16 in shared memory (csrc/attention.cu), so a
-kernel's fp8 form equals its bf16 form on the upcast cache.  A write-only
-or append launch casts on the write.  PyTorch implements few ops on fp8
+as the one byte 0x7F (from bf16 or f16 alike: both are exact in f32).
+Reads upcast the stored bytes exactly: the plain versions convert K and V
+to q's dtype before anything is rounded to v's dtype (as the TPU kernels
+upcast after their DMA), and the kernels convert each landed tile to q's
+dtype, bf16 or f16, in shared memory (csrc/attention.cu), so a kernel's fp8
+form equals its 16-bit form on the upcast cache.  A write-only or append
+launch casts on the write.  PyTorch implements few ops on fp8
 tensors, so the plain writes and gathers here move the cache's bytes
 (``kv_bytes``).
 
@@ -125,10 +130,11 @@ FP8_NAN = 0x7F    # the byte every NaN is stored as
 # (activation dtype, cache dtype) -> the C entry points' form code
 # (csrc/attention.cu: with_kv_type), and the counter suffix of each form
 FORM_CODES = {(torch.bfloat16, torch.bfloat16): 0, (torch.bfloat16, FP8): 1,
-              (torch.float16, torch.float16): 2}
-FORM_SUFFIX = {0: "", 1: "fp8", 2: "f16"}
-# the wrappers whose kernels read or write the cache, each with an fp8 and
-# an f16 form
+              (torch.float16, torch.float16): 2, (torch.float16, FP8): 3}
+FORM_SUFFIX = {0: "", 1: "fp8", 2: "f16", 3: "fp8_f16"}
+CACHE_FORM_SUFFIXES = tuple(s for s in FORM_SUFFIX.values() if s)
+# the wrappers whose kernels read or write the cache, each with a counter of
+# every form but the first
 CACHE_FORMS = ("rope_kv_append", "rope_kv_append_sharded", "kv_cache_write_idx",
                "kv_pool_write_idx", "flash_attention_decode", "flash_attention_decode_v2",
                "flash_attention_decode_lse", "flash_attention_prefill",
@@ -138,8 +144,8 @@ CACHE_FORMS = ("rope_kv_append", "rope_kv_append_sharded", "kv_cache_write_idx",
 
 def kv_store_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` as a cache of ``dtype`` stores it.  For ``float8_e4m3fn``:
-    x's value rounded to nearest even (from f32: a bf16 input is exact
-    there), bit-equal to JAX's ``astype(jnp.float8_e4m3fn)`` for every
+    x's value rounded to nearest even (from f32: a bf16 or f16 input is
+    exact there), bit-equal to JAX's ``astype(jnp.float8_e4m3fn)`` for every
     input JAX maps to a finite value; finite values and ±inf past the range
     saturate to ±448 (JAX's cast gives NaN from ±464 on, ROADMAP §C), and
     every NaN is stored as 0x7F.  The kernels' cast on write (the card's
@@ -449,15 +455,14 @@ def _check_cuda(name, *tensors):
 def _check_types(name, acts, caches) -> int:
     """The form the kernels take the activations ``acts`` (one dtype) over
     the cache ``caches`` (K and V of one dtype) in: its code in
-    ``FORM_CODES`` (bf16 over bf16 or float8_e4m3fn, f16 over f16).  Any
-    other pair raises, naming the dtypes."""
+    ``FORM_CODES`` (bf16 over bf16 or float8_e4m3fn, f16 over f16 or
+    float8_e4m3fn).  Any other pair raises, naming the dtypes."""
     act, kv = {t.dtype for t in acts}, {t.dtype for t in caches}
     code = FORM_CODES.get((act.pop(), kv.pop())) if len(act) == len(kv) == 1 else None
     if code is None:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations over a bf16 or "
-                        f"float8_e4m3fn cache, or float16 activations over a float16 cache "
-                        f"(got activations {[t.dtype for t in acts]}, cache "
-                        f"{[t.dtype for t in caches]})")
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 or float16 activations over a "
+                        f"cache of their dtype or of float8_e4m3fn (got activations "
+                        f"{[t.dtype for t in acts]}, cache {[t.dtype for t in caches]})")
     return code
 
 
@@ -499,7 +504,7 @@ def flash_attention_prefill(q, k, v, lengths, sm_scale, q_starts=None, kv_row_ma
 
 
 flash_attention_prefill.launches = 0
-_build.with_forms(flash_attention_prefill, "fp8", "f16")
+_build.with_forms(flash_attention_prefill, *CACHE_FORM_SUFFIXES)
 
 
 def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_map=None):
@@ -510,7 +515,7 @@ def flash_attention_prefill_chunk(q, k, v, lengths, q_starts, sm_scale, kv_row_m
 
 
 flash_attention_prefill_chunk.launches = 0
-_build.with_forms(flash_attention_prefill_chunk, "fp8", "f16")
+_build.with_forms(flash_attention_prefill_chunk, *CACHE_FORM_SUFFIXES)
 
 
 def _tiles(n):
@@ -620,7 +625,7 @@ def flash_attention_decode(q, k, v, lengths, sm_scale):
 
 
 flash_attention_decode.launches = 0
-_build.with_forms(flash_attention_decode, "fp8", "f16")
+_build.with_forms(flash_attention_decode, *CACHE_FORM_SUFFIXES)
 
 
 def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
@@ -635,7 +640,7 @@ def flash_attention_decode_v2(q, k, v, lengths, sm_scale, block_k: int = 512):
 
 
 flash_attention_decode_v2.launches = 0
-_build.with_forms(flash_attention_decode_v2, "fp8", "f16")
+_build.with_forms(flash_attention_decode_v2, *CACHE_FORM_SUFFIXES)
 
 
 def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
@@ -650,7 +655,7 @@ def flash_attention_decode_lse(q, k, v, lengths, sm_scale, t_offset: int = 0):
 
 
 flash_attention_decode_lse.launches = 0
-_build.with_forms(flash_attention_decode_lse, "fp8", "f16")
+_build.with_forms(flash_attention_decode_lse, *CACHE_FORM_SUFFIXES)
 
 
 def _aligned(name, *tensors):
@@ -670,8 +675,9 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     pool (L, NP, G, P, D)."""
     L, _, G, T, D = dst.shape
     B = new.shape[0]
-    # a bf16 or f16 cache takes new in its dtype; an fp8 one takes bf16 and
-    # the kernel casts on the write (kv_store_cast's bytes)
+    # a bf16 or f16 cache takes new in its dtype; an fp8 one takes new as it
+    # is, bf16 or f16, and the kernel casts on the write (kv_store_cast's
+    # bytes)
     src = (new if dst.dtype == FP8 else new.to(dst.dtype)).contiguous()
     if src.data_ptr() % 16:
         src = src.clone()
@@ -704,7 +710,7 @@ def kv_cache_write_idx(cache, new, layer: int, starts):
 
 
 kv_cache_write_idx.launches = 0
-_build.with_forms(kv_cache_write_idx, "fp8", "f16")
+_build.with_forms(kv_cache_write_idx, *CACHE_FORM_SUFFIXES)
 
 
 def _check_pool(name, pool, page_table, L_idx):
@@ -725,7 +731,7 @@ def kv_pool_write_idx(pool, new, layer: int, page_table, starts):
 
 
 kv_pool_write_idx.launches = 0
-_build.with_forms(kv_pool_write_idx, "fp8", "f16")
+_build.with_forms(kv_pool_write_idx, *CACHE_FORM_SUFFIXES)
 
 
 def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_table=None):
@@ -744,7 +750,7 @@ def rope_kv_append(q, kv, freqs, k_cache, v_cache, layer: int, starts, page_tabl
 
 
 rope_kv_append.launches = 0
-_build.with_forms(rope_kv_append, "fp8", "f16")
+_build.with_forms(rope_kv_append, *CACHE_FORM_SUFFIXES)
 
 
 def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, shard: KVShard,
@@ -762,7 +768,7 @@ def rope_kv_append_sharded(q, kv, freqs, k_cache, v_cache, layer: int, starts, s
 
 
 rope_kv_append_sharded.launches = 0
-_build.with_forms(rope_kv_append_sharded, "fp8", "f16")
+_build.with_forms(rope_kv_append_sharded, *CACHE_FORM_SUFFIXES)
 
 
 def _append_launch(name, q, kv, freqs, k_cache, v_cache, layer, starts, page_table, shard):
@@ -837,7 +843,7 @@ def _decode_paged_launch(name, q, k_pool, v_pool, layer, page_table, lengths, sm
 
 
 flash_attention_decode_paged.launches = 0
-_build.with_forms(flash_attention_decode_paged, "fp8", "f16")
+_build.with_forms(flash_attention_decode_paged, *CACHE_FORM_SUFFIXES)
 
 
 def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, lengths,
@@ -855,7 +861,7 @@ def flash_attention_decode_paged_lse(q, k_pool, v_pool, layer: int, page_table, 
 
 
 flash_attention_decode_paged_lse.launches = 0
-_build.with_forms(flash_attention_decode_paged_lse, "fp8", "f16")
+_build.with_forms(flash_attention_decode_paged_lse, *CACHE_FORM_SUFFIXES)
 
 
 def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, starts, sm_scale,
@@ -895,7 +901,7 @@ def flash_attention_chunk_paged(q, k_pool, v_pool, layer: int, page_table, start
 
 
 flash_attention_chunk_paged.launches = 0
-_build.with_forms(flash_attention_chunk_paged, "fp8", "f16")
+_build.with_forms(flash_attention_chunk_paged, *CACHE_FORM_SUFFIXES)
 
 
 # ---------------------------------------------------------------------------

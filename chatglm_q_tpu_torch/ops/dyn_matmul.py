@@ -18,7 +18,10 @@ then take s8 × s8 products with int32 sums:
   groups of 32 along K.  Each group dot is exact; the f32 sum over groups
   is taken in another order than the plain version's.
 
-Each has two kernels, in bf16 or f32 output alike (their inputs are s8):
+Each has two kernels, in f32, bf16 or f16 output alike (their inputs are s8;
+only the epilogue's store differs, the f32 result rounded once to x's dtype
+as the JAX kernels' ``astype`` rounds it, inf past f16's 65504).  Launches
+with an f16 output also count as ``<wrapper>_f16``:
 
 * at M ≤ MMA_MIN_M (decode), ``dyn_splitk_mma_kernel``: B1's split-K design
   on common.cuh's split-K body with s8 mma.sync (the weights as A, xq's rows
@@ -45,8 +48,8 @@ import torch
 
 from . import _build, autotune
 from .quant import div_exact, unpack_int4_tpu_q
-from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, mma_bucket, splitk_plan, splitk_scratch,
-                           wg_plan, wg_problem, wg_scratch)
+from .quant_matmul import (DYN_STEP, MMA_MIN_M, aligned, f16_form, mma_bucket, splitk_plan,
+                           splitk_scratch, wg_plan, wg_problem, wg_scratch)
 
 PLAIN_CHUNK_BYTES = 1 << 31  # the int4 plain version's f64 group-dot block (few launches)
 
@@ -125,8 +128,8 @@ def _check(name, x, w, scale, int4):
     if not ok or K % 32 or N % 8 or (x.shape[0] > MMA_MIN_M and N % 16):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, weights "
                          f"{tuple(w.shape)} {w.dtype}, scale {tuple(scale.shape)} {scale.dtype}")
-    if x.dtype not in (torch.bfloat16, torch.float32):  # f16: its epilogue is not ported
-        raise TypeError(f"{name}: x must be bf16 or f32, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"{name}: x must be bf16, f16 or f32, not {x.dtype}")
     for label, t in (("weights", w), ("scale", scale)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
@@ -179,36 +182,37 @@ def int8_dyn_splitk(xq, sx, w, scale, out_dtype):
     """Launch B7's split-K tensor-core kernel (checked inputs on the card,
     M ≤ MMA_MIN_M): one launch, the splits merged inside it in int32."""
     y = _splitk("chatglm_int8_dyn_splitk", xq, sx, w, scale, out_dtype)
-    return _build.launched(int8_dyn_splitk, y)
+    return _build.launched(int8_dyn_splitk, y, f16_form(y))
 
 
 def int8_dyn_mma(xq, sx, w, scale, out_dtype):
     """Launch B7's Hopper kernel (checked inputs on the card, N % 16 == 0):
     one launch, any K splits merged inside it in int32."""
     y = _mma("chatglm_int8_dyn_mma", xq, sx, w, scale, out_dtype)
-    return _build.launched(int8_dyn_mma, y)
+    return _build.launched(int8_dyn_mma, y, f16_form(y))
 
 
 def int4_dyn_splitk(xq, sx, packed, scale, out_dtype):
     """Launch B8's split-K tensor-core kernel (checked inputs on the card,
     M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
     y = _splitk("chatglm_int4_dyn_splitk", xq, sx, packed, scale, out_dtype)
-    return _build.launched(int4_dyn_splitk, y)
+    return _build.launched(int4_dyn_splitk, y, f16_form(y))
 
 
 def int4_dyn_mma(xq, sx, packed, scale, out_dtype):
     """Launch B8's Hopper kernel (checked inputs on the card, N % 16 == 0):
     one launch, any K splits merged inside it."""
     y = _mma("chatglm_int4_dyn_mma", xq, sx, packed, scale, out_dtype)
-    return _build.launched(int4_dyn_mma, y)
+    return _build.launched(int4_dyn_mma, y, f16_form(y))
 
 
 for _fn in (int8_dyn_splitk, int8_dyn_mma, int4_dyn_splitk, int4_dyn_mma):
     _fn.launches = 0
+    _build.with_forms(_fn, "f16")
 
 
 def int8_dyn_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16/f32, quantized per row, @ w (K, N) int8, times sx and
+    """x (M, K) bf16/f16/f32, quantized per row, @ w (K, N) int8, times sx and
     scale (N,) f32 → (M, N) in x's dtype.  On a CPU tensor this is the plain
     version; on a CUDA tensor it launches a kernel or raises."""
     if not _build.on_card(x):
@@ -221,7 +225,7 @@ def int8_dyn_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> to
 
 
 def int4_dyn_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16/f32, quantized per row, @ s8(packed (K/2, N) tpu order)
+    """x (M, K) bf16/f16/f32, quantized per row, @ s8(packed (K/2, N) tpu order)
     in groups of 32 rows with scale (K/32, N) bf16 → (M, N) in x's dtype.
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
     a kernel or raises."""

@@ -34,14 +34,16 @@ tiles, counted apart too as ``<wrapper>_f16``.
 (g · scale) @ wᵀ, over the same (K, N) weights.  As the TPU kernel does, the
 scale folds into g in g's dtype before the dot; JAX's jnp fallback
 (``linear.py::_int8_matmul_t_fallback``) scales w instead.  Three kernels,
-split as B6's (quant_matmul.py's ``t_route``): ``int8_t_splitk`` (bf16, M ≤
-MMA_MIN_M): ``csrc/common.cuh``'s ``t_splitk_mma_kernel`` over the int8
-view, mma.sync on the weight rows as read, the scale folded into g as g is
-staged in shared memory, the contraction split and merged in the launch
-(``t_splitk_plan``); ``int8_t_mma`` (bf16, M > 16): the Hopper
-``t_wgmma_kernel`` over the same view, which folds the scale into each g
-stage in shared memory (``t_mma_plan``); ``int8_t_gemv`` (f32 g;
-``csrc/int8_matmul.cu``): the CUDA cores in IEEE f32.
+split as B6's (quant_matmul.py's ``t_route``): ``int8_t_splitk`` (bf16 or
+f16, M ≤ MMA_MIN_M): ``csrc/common.cuh``'s ``t_splitk_mma_kernel`` over the
+int8 view, mma.sync on the weight rows as read, the scale folded into g as
+g is staged in shared memory, the contraction split and merged in the
+launch (``t_splitk_plan``); ``int8_t_mma`` (bf16 or f16, M > 16): the
+Hopper ``t_wgmma_kernel`` over the same view, which folds the scale into
+each g stage in shared memory (``t_mma_plan``); ``int8_t_gemv`` (f32 g;
+``csrc/int8_matmul.cu``): the CUDA cores in IEEE f32.  Under f16 g (a
+float16 checkpoint's fine-tuning) the fold is f16(g · f16(s)), JAX's
+``_int8_t_kernel`` in f16; those launches also count as ``<wrapper>_f16``.
 """
 from __future__ import annotations
 
@@ -169,8 +171,8 @@ def _check_t(g, w, scale):
     if g.shape[1] != N or K % 32 or scale.shape[0] != N or N % 8:
         raise ValueError(f"int8_matmul_t: unsupported shapes g {tuple(g.shape)}, "
                          f"w {tuple(w.shape)}, scale {tuple(scale.shape)}")
-    if g.dtype not in (torch.bfloat16, torch.float32):  # f16 g: not ported
-        raise TypeError(f"int8_matmul_t: g must be bf16 or f32, not {g.dtype}")
+    if g.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"int8_matmul_t: g must be bf16, f16 or f32, not {g.dtype}")
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError("int8_matmul_t: w must be int8 and scale f32")
     for name, t in (("w", w), ("scale", scale)):
@@ -179,13 +181,10 @@ def _check_t(g, w, scale):
 
 
 def int8_t_splitk(g, w, scale):
-    """Launch B13's split-K tensor-core kernel (checked bf16 inputs on the
-    card): one launch, the contraction splits merged inside it."""
+    """Launch B13's split-K tensor-core kernel (checked bf16 or f16 inputs on
+    the card): one launch, the contraction splits merged inside it."""
     out = t_splitk_call("chatglm_int8_t_splitk", g, w, scale, w.shape[0])
-    return _build.launched(int8_t_splitk, out)
-
-
-int8_t_splitk.launches = 0
+    return _build.launched(int8_t_splitk, out, f16_form(g))
 
 
 def int8_t_gemv(g, w, scale):
@@ -204,21 +203,24 @@ int8_t_gemv.launches = 0
 
 
 def int8_t_mma(g, w, scale):
-    """Launch B13's Hopper tensor-core kernel (checked bf16 inputs on the
-    card, N % 16 == 0): one launch, any contraction splits merged inside it."""
+    """Launch B13's Hopper tensor-core kernel (checked bf16 or f16 inputs on
+    the card, N % 16 == 0): one launch, any contraction splits merged inside
+    it."""
     M, N = g.shape
     K = w.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     wg_call("chatglm_int8_t_mma", g, w, scale, out, M, K, N, K,
             t_mma_plan(M, K, N, kind="int8"))
-    return _build.launched(int8_t_mma, out)
+    return _build.launched(int8_t_mma, out, f16_form(g))
 
 
-int8_t_mma.launches = 0
+for _fn in (int8_t_splitk, int8_t_mma):
+    _fn.launches = 0
+    _build.with_forms(_fn, "f16")
 
 
 def int8_matmul_t(g: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """g (M, N) bf16/f32 @ (w (K, N) int8 · scale (N,) f32)ᵀ → (M, K) in g's
+    """g (M, N) bf16/f16/f32 @ (w (K, N) int8 · scale (N,) f32)ᵀ → (M, K) in g's
     dtype: the int8 linear's grad_x at the weights' storage K.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches

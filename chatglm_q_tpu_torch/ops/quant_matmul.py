@@ -32,16 +32,20 @@ checkpoint's activations: the loader gives the model the checkpoint's
 (``int4_matmul_t_pallas``): the backward of the int4g32 linear, grad_x =
 g @ dequant(packed, scale)ᵀ over the same packed weights.  The scale varies
 along K/32 and N, so each weight is rounded once to g's dtype, bf16(q·s)
-under bf16, before the dot, as both JAX forms do.  Three kernels, chosen by
-``t_route``:
+under bf16, f16(f16(q)·f16(s)) under f16 (JAX's ``_int4_t_kernel`` casts
+the bf16 scale to g's dtype first: a subnormal, 0 or inf outside f16's
+normal range, where B1 keeps q·s in f32), before the dot, as both JAX forms
+do.  Three kernels, chosen by ``t_route`` (the f16 forms, a float16
+checkpoint's fine-tuning, are the bf16 kernels over f16 tiles, counted
+apart too as ``<wrapper>_f16``):
 
-* ``int4g32_t_splitk`` (bf16, M ≤ MMA_MIN_M: a training step of ≤ 16
+* ``int4g32_t_splitk`` (bf16 / f16, M ≤ MMA_MIN_M: a training step of ≤ 16
   tokens): ``csrc/common.cuh``'s ``t_splitk_mma_kernel`` over the int4g32
   view, mma.sync with 16 weight rows as A straight from the N-contiguous
   rows and g's rows as B from shared memory, the contraction split over
   blocks and merged in the launch; ``t_splitk_plan``.  Bound by the packed
   bytes.
-* ``int4g32_t_mma`` (bf16, M > 16): the Hopper ``t_wgmma_kernel`` over the
+* ``int4g32_t_mma`` (bf16 / f16, M > 16): the Hopper ``t_wgmma_kernel`` over the
   same view, B1's mainloop with the weights as A from registers (each
   bf16(q·s) one bf16x2 multiply), each stage's f32 partial added to the
   accumulator on the CUDA cores; ``t_mma_plan`` picks the tile and the
@@ -66,7 +70,7 @@ from typing import Optional
 import torch
 
 from . import _build, autotune
-from .quant import unpack_int4_tpu
+from .quant import unpack_int4_tpu, unpack_int4_tpu_q
 
 GEMV_BN = 256            # columns per gemv block (csrc: GEMV_LANES * GEMV_COLS)
 GEMV_KW = 4              # K warps per gemv block
@@ -393,13 +397,12 @@ def t_mma_plan(M: int, K: int, N: int, kind: str = "int4g32") -> tuple[int, int,
 
 
 def t_route(M: int, N: int, dtype: torch.dtype) -> str:
-    """B13's and B14's kernel for g (M, N) of ``dtype``: "splitk" (bf16 at
-    M ≤ MMA_MIN_M, and at any M where N % 16 != 0, which the Hopper kernel
-    cannot take), "mma" (bf16 above it) or "gemv" (f32).  f16 g has no
-    kernel yet (the wrappers refuse it)."""
-    if dtype == torch.bfloat16 and (M <= MMA_MIN_M or N % 16):
+    """B13's and B14's kernel for g (M, N) of ``dtype``: "splitk" (bf16 or
+    f16 at M ≤ MMA_MIN_M, and at any M where N % 16 != 0, which the Hopper
+    kernel cannot take), "mma" (bf16 or f16 above it) or "gemv" (f32)."""
+    if dtype in MMA_DTYPES and (M <= MMA_MIN_M or N % 16):
         return "splitk"
-    if dtype == torch.bfloat16 and uses_mma(M, N, dtype):
+    if uses_mma(M, N, dtype):
         return "mma"
     return "gemv"
 
@@ -469,7 +472,7 @@ def t_splitk_scratch(device, M: int, K: int, plan) -> tuple:
 
 def t_splitk_call(name: str, g, w, scale, K: int, plan=None):
     """Launch transposed split-K kernel ``name`` (csrc:
-    chatglm_int8_t_splitk, chatglm_int4_t_splitk) on checked bf16 tensors of
+    chatglm_int8_t_splitk, chatglm_int4_t_splitk) on checked bf16 or f16 tensors of
     the card with ``plan`` (default ``t_splitk_plan``'s; another is checked
     by ``t_splitk_problem``); returns out (M, K) in g's dtype."""
     M, N = g.shape
@@ -611,9 +614,14 @@ def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,
 def int4g32_matmul_t_plain(g: torch.Tensor, packed: torch.Tensor,
                            scale: torch.Tensor) -> torch.Tensor:
     """g (M, N) @ dequant(packed (K/2, N), scale (K/32, N))ᵀ → (M, K): each
-    weight rounded to g's dtype, the dot in f32, cast to g's dtype.  The
-    function the B14 kernels are held against."""
-    w = unpack_int4_tpu(packed, scale).to(g.dtype).float()
+    weight q·s in g's dtype, q and the scale cast to it first and the
+    product rounded once (JAX's ``_int4_t_kernel``: in bf16 and f32 the
+    exact q·s rounded; in f16 the scale may first round to a subnormal, 0 or
+    inf), the dot in f32, cast to g's dtype.  The function the B14 kernels
+    are held against."""
+    K, N, G = 2 * packed.shape[0], packed.shape[1], scale.shape[0]
+    q = unpack_int4_tpu_q(packed).reshape(G, K // G, N).to(g.dtype)
+    w = (q * scale.to(g.dtype)[:, None, :]).reshape(K, N).float()
     return (g.float() @ w.T).to(g.dtype)
 
 
@@ -627,8 +635,8 @@ def _check_t(g, packed, scale):
     if g.shape[1] != N or K % 32 or scale.shape != (K // 32, N) or N % 8:
         raise ValueError(f"int4g32_matmul_t: unsupported shapes g {tuple(g.shape)}, "
                          f"packed {tuple(packed.shape)}, scale {tuple(scale.shape)}")
-    if g.dtype not in (torch.bfloat16, torch.float32):  # f16 g: not ported
-        raise TypeError(f"int4g32_matmul_t: g must be bf16 or f32, not {g.dtype}")
+    if g.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"int4g32_matmul_t: g must be bf16, f16 or f32, not {g.dtype}")
     if packed.dtype != torch.uint8 or scale.dtype != torch.bfloat16:
         raise TypeError("int4g32_matmul_t: packed must be uint8 and scale bf16")
     for name, t in (("packed", packed), ("scale", scale)):
@@ -637,13 +645,10 @@ def _check_t(g, packed, scale):
 
 
 def int4g32_t_splitk(g, packed, scale):
-    """Launch B14's split-K tensor-core kernel (checked bf16 inputs on the
-    card): one launch, the contraction splits merged inside it."""
+    """Launch B14's split-K tensor-core kernel (checked bf16 or f16 inputs on
+    the card): one launch, the contraction splits merged inside it."""
     out = t_splitk_call("chatglm_int4_t_splitk", g, packed, scale, 2 * packed.shape[0])
-    return _build.launched(int4g32_t_splitk, out)
-
-
-int4g32_t_splitk.launches = 0
+    return _build.launched(int4g32_t_splitk, out, f16_form(g))
 
 
 def int4g32_t_gemv(g, packed, scale):
@@ -662,21 +667,24 @@ int4g32_t_gemv.launches = 0
 
 
 def int4g32_t_mma(g, packed, scale):
-    """Launch B14's Hopper tensor-core kernel (checked bf16 inputs on the
-    card, N % 16 == 0): one launch, any contraction splits merged inside it."""
+    """Launch B14's Hopper tensor-core kernel (checked bf16 or f16 inputs on
+    the card, N % 16 == 0): one launch, any contraction splits merged inside
+    it."""
     M, N = g.shape
     K = 2 * packed.shape[0]
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     wg_call("chatglm_int4_t_mma", g, packed, scale, out, M, K, N, K, t_mma_plan(M, K, N))
-    return _build.launched(int4g32_t_mma, out)
+    return _build.launched(int4g32_t_mma, out, f16_form(g))
 
 
-int4g32_t_mma.launches = 0
+for _fn in (int4g32_t_splitk, int4g32_t_mma):
+    _fn.launches = 0
+    _build.with_forms(_fn, "f16")
 
 
 def int4g32_matmul_t(g: torch.Tensor, packed: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
-    """g (M, N) bf16/f32 @ dequant(packed (K/2, N) u8, scale (K/32, N) bf16)ᵀ
+    """g (M, N) bf16/f16/f32 @ dequant(packed (K/2, N) u8, scale (K/32, N) bf16)ᵀ
     → (M, K) in g's dtype: the int4g32 linear's grad_x at the storage K.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches

@@ -15,8 +15,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --fp8    # the fp8 KV cache: phase 2's fp8 rows, its runs in phases 5,
                                    # 6 and 8, the long-context step
     python3 chip_smoke.py --fp16    # float16 activations: phase 2's f16 rows, the f16 runs of
-                                    # phases 5 and 6, the float16-checkpoint launcher run
+                                    # phases 5, 6 and 7, the float16-checkpoint launcher run
     python3 chip_smoke.py --fp16-seeds 17,27,37    # phase 2's f16 readings per seed (F16_*)
+    python3 chip_smoke.py --f16-train-seeds 41,71,72,73,74,75    # phase 7's f16 grad readings
 
 Phases (any failure raises and exits non-zero):
 
@@ -90,7 +91,13 @@ Phases (any failure raises and exits non-zero):
    row's shape (the appends bit-equal to plain, B4 / B12 / B10 / B11 also
    beyond the output's f16 rounding against a bf16-p control); each timed
    beside its bf16 form on the same shapes, its plain version and the
-   library call in f16.
+   library call in f16.  Also B7 / B8 with f16 outputs at B6's
+   / B1's f16 rows (B7 bit-equal to plain) and B13 / B14 on f16 g at M = 1,
+   16 and 512, each counted in its f16 form; and every attention kernel's
+   f16 form over an fp8 cache (``check_fp8_attention`` in f16, the same
+   caches as the fp8 rows): bit-equal to its f16 form on the upcast cache,
+   within ``F16_KERNEL_TOL`` of plain, the store over all 65,536 f16
+   patterns.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -155,9 +162,12 @@ Phases (any failure raises and exits non-zero):
    turns.  After int8 and int4g32, the same tree as a float16 checkpoint
    loads it (``chat_f16``, ``f16_tree``) under a float16 config: captured =
    eager text, the f16 forms launched, every token within
-   ``GREEDY_GAP_TOL`` of the plain path in f16, the first decode step's
+   ``GREEDY_GAP_TOL`` (dynamic int8: ``F16_DYN_GAP_TOL``) of the plain path
+   in f16, the first decode step's
    logits against the bf16 model's (a reading), ms a token beside the bf16
-   decoder's in turns, and (int4g32) one f16 step through B12.  Last, the
+   decoder's in turns, and (int4g32) one f16 step through B12; the same
+   under dynamic int8 (int8 + dyn, int4g32 + dyn) and int4g32
+   over an fp8 cache, ``F16_NEW_TOKENS`` tokens each.  Last, the
    launch path (``launcher_f16``): a 2-layer float tree at 6B widths saved
    as a float16 checkpoint, ``examples/quantize_naive`` to int4g32, and
    ``GLMDecoder.from_pretrained`` generating through the f16 kernels.
@@ -203,7 +213,8 @@ Phases (any failure raises and exits non-zero):
    cache under ``decode_attn_v2``, timed in turns, each traced for its device
    ms and the decode attention's share.  Then (a16) (``engines_f16``): (a)'s
    engine and requests under a float16 config over an f16 pool, its greedy
-   tokens against the dense ``prefill_chunk`` in f16.
+   tokens against the dense ``prefill_chunk`` in f16; and (a16f8), the same
+   over an fp8 pool, ``F16_NEW_TOKENS`` a request.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -220,6 +231,13 @@ Phases (any failure raises and exits non-zero):
    training step as a program captured on its second call against the same
    program run eagerly, both with capturable AdamW from the same start, 4
    steps in turns: losses and leaves bit-equal, ms a step, peak memory.
+   Then each tree in float16 (``f16_fine_tune``, the frozen leaves as a
+   float16 checkpoint loads them): at 2 x 512 tokens (the Hopper B13 / B14
+   in f16) and 1 x 16 (the split-K ones) the loss and grads against the
+   plain path within ``F16_TRAIN_TOL`` and, the forward fixed, against the
+   plain backward within ``F16_BWD_TOL``, and the step
+   program captured against eager over ``F16_TRAIN_STEPS`` steps, losses
+   and leaves bit-equal.
 
 8. Tensor-parallel serving at full width: an 8-layer int4g32 tree (28 layers
    under ``--nccl``; ``SHARD_LAYERS``) built
@@ -2361,10 +2379,10 @@ def model_level_text(torch, params, cfg, quant, rt, tokenizer, ids, eos):
     return process_response(tokenizer.decode(out)), out, launches
 
 
-def run_generate(decoder, prompt, **kw):
+def run_generate(decoder, prompt, tokens=CHAT_TOKENS, **kw):
     """(the streamed texts, the final text, host ms a token between the
-    first and the last streamed text)."""
-    it = decoder.generate(prompt, max_generated_tokens=CHAT_TOKENS, temperature=0.0, **kw)
+    first and the last streamed text) of ``tokens`` greedy tokens."""
+    it = decoder.generate(prompt, max_generated_tokens=tokens, temperature=0.0, **kw)
     stream, stamps = [], []
     while True:
         try:
@@ -2591,9 +2609,15 @@ def chat_slice(torch, smi):
         if name == "int4g32":
             counts["int4g32 fp8"], perf["int4g32 fp8 cache"] = chat_fp8(
                 torch, smi, params, cfg, tokenizer, prompt, ids, decoder)
-        if not dyn:  # the float16 config of the same tree
-            counts[f"{quant} f16"], perf[f"{quant} f16"] = chat_f16(
-                torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder)
+        # the float16 config of the same tree (also under dynamic int8, and
+        # int4g32 over an fp8 cache: those with F16_NEW_TOKENS)
+        counts[f"{name} f16"], perf[f"{name} f16"] = chat_f16(
+            torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder, dyn=dyn,
+            tokens=F16_NEW_TOKENS if dyn else CHAT_TOKENS)
+        if name == "int4g32":
+            counts["int4g32 f16 fp8"], perf["int4g32 f16 fp8"] = chat_f16(
+                torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder,
+                kv_dtype=torch.float8_e4m3fn, tokens=F16_NEW_TOKENS)
         del decoder, eager_decoder
     del params
     torch.cuda.empty_cache()
@@ -3135,6 +3159,11 @@ def engines_slice(torch, smi, seed=61, survey=False):
     for k in ("flash_attention_decode_paged", "flash_attention_prefill_chunk", "int4g32_mma"):
         counts[k + " f16"] = f16_counts[k + "_f16"]
     counts["rope_kv_append paged f16"] = f16_counts["rope_kv_append_f16"]
+    f8_counts, out["f16_fp8"] = engines_f16(torch, smi, params, cfg, a_reqs, short, seed,
+                                            torch.float8_e4m3fn)
+    for k in ("flash_attention_decode_paged", "flash_attention_prefill_chunk"):
+        counts[k + " fp8_f16"] = f8_counts[k + "_fp8_f16"]
+    counts["rope_kv_append paged fp8_f16"] = f8_counts["rope_kv_append_fp8_f16"]
     return counts, out
 
 
@@ -4235,6 +4264,7 @@ def fine_tune(torch, smi, quant, steps, seed):
     out["short_step"] = short_step(torch, smi, cfg, quant, trainable, frozen,
                                    ids[:1, FT_IGNORED:FT_IGNORED + 16],
                                    labels[:1, FT_IGNORED:FT_IGNORED + 16], add)
+    out["f16"] = f16_fine_tune(torch, smi, cfg, quant, start, frozen, ids, labels, add)
     for k, v in tree_leaves(frozen):
         if v is not None:
             require(torch.equal(v, frozen_before[k]), f"{quant}: frozen leaf {k} changed")
@@ -4428,6 +4458,173 @@ def train_turns(torch, smi, cfg, quant, start, frozen, ids, labels):
         + f"; peak memory eager {runs['eager']['peak'] / 2**30:.2f} GiB, captured "
         f"{runs['captured']['peak'] / 2**30:.2f} GiB  [{smi}]")
     return res
+
+
+# Phase 7's float16 fine-tuning: the loss and grads of the kernel
+# path against the plain path in f16 (the f32 masters cast to f16, the
+# frozen leaves as a float16 checkpoint loads them), |Δloss| / |loss| and
+# the largest over leaves of max|Δgrad| / max|grad|, each 1.5x the largest
+# reading of ``--f16-train-seeds 41,71,72,73,74,75`` (28 layers; an H100 80GB HBM3 at
+# 700 W), at 2 x 512 tokens (the Hopper B13 / B14) and 1 x 16 (the split-K
+# ones), per quantization.  Without loss scaling (JAX's numerics too) most
+# of an f16 step's gradients are f16 subnormals, and int8's fold of the
+# scale into g, f16(g · f16(s)), flushes most of the lm_head's to 0: at 16
+# tokens what remains is a few subnormal steps, so two correct forwards one
+# f16 ulp apart move int8's norm grads by 0.7-1.1 of their max (the full
+# path's reading is then no check of the kernels).  So each case is also
+# held with the forward fixed (``F16_BWD_TOL``): the kernel path's grads
+# against the same forward with the plain backward (B13 / B14's plain
+# versions), which isolates the backward kernels.
+# Readings (largest over seeds 41 and 71-75): the full path, loss / grads,
+# int4g32 1.14e-5 / 4.26e-2 (2 x 512) and 1.67e-4 / 4.96e-3 (1 x 16), int8
+# 1.32e-5 / 3.45e-3 and 7.11e-5 / 1.08; the backward alone, the loss 0 (the
+# same forward), the grads int4g32 4.18e-2 and 3.22e-3 (B14's f16 outputs
+# one ulp apart, carried through subnormal gradients), int8 0 (B13's outputs
+# took the plain backward's bits on every seed): its limit is one f16
+# rounding, 2^-11 of max|grad|, where 1.5x a zero reading would be none.
+F16_TRAIN_TOL = {("int4g32", "2x512"): (1.7e-5, 6.4e-2), ("int8", "2x512"): (2.0e-5, 5.2e-3),
+                 ("int4g32", "1x16"): (2.5e-4, 7.4e-3), ("int8", "1x16"): (1.1e-4, 1.62)}
+F16_BWD_TOL = {("int4g32", "2x512"): (0.0, 6.3e-2), ("int8", "2x512"): (0.0, 2.0 ** -11),
+               ("int4g32", "1x16"): (0.0, 4.8e-3), ("int8", "1x16"): (0.0, 2.0 ** -11)}
+F16_TRAIN_STEPS = 3  # a step program's eager warm-up, its capture, one replay
+
+
+def f16_parity(torch, cfg, quant, trainable, frozen, ids, labels):
+    """The f16 loss and grads of ``ids`` through the kernels (B13 / B14 in
+    f16: PER_STEP launches of the route's kernel, counted in its f16 form)
+    against the plain path from the same state, and against the kernels'
+    forward with the plain backward (``ops/linear.py``'s transposed wrapper
+    swapped for its plain version: the backward kernels alone): two
+    (|Δloss| / |loss|, max |Δgrad| / max |grad|) readings, and the kernel
+    run's launch counts."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.ops import linear as L
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.utils.train import loss_and_grads
+
+    f16 = torch.float16
+    M, N = ids.numel(), cfg.hidden_size
+    name = ("int8_t_" if quant == "int8" else "int4g32_t_") + QM.t_route(M, N, f16)
+    ops.reset_launch_counts()
+    kern = loss_and_grads(cfg, quant, trainable, frozen, ids, labels, f16, TorchRuntimeConfig())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(counts[name + "_f16"] == counts[name] == PER_STEP,
+            f"{quant} f16 grads ({tuple(ids.shape)}): {counts[name]} {name} launches, "
+            f"{counts[name + '_f16']} in f16")
+    plain = loss_and_grads(cfg, quant, trainable, frozen, ids, labels, f16,
+                           TorchRuntimeConfig(use_kernels=False))
+    attr = "int8_matmul_t" if quant == "int8" else "int4g32_matmul_t"
+    wrapper = getattr(L, attr)
+    setattr(L, attr, getattr(L, attr + "_plain"))
+    try:
+        bwd_plain = loss_and_grads(cfg, quant, trainable, frozen, ids, labels, f16,
+                                   TorchRuntimeConfig())
+    finally:
+        setattr(L, attr, wrapper)
+    for lo, gr in (kern, plain, bwd_plain):
+        require(math.isfinite(lo.item()) and all(torch.isfinite(g).all() for g in gr),
+                f"{quant} f16 grads: non-finite loss or grads")
+    return grad_rel(torch, kern, plain), grad_rel(torch, kern, bwd_plain), counts
+
+
+def f16_fine_tune(torch, smi, cfg, quant, start, frozen, ids, labels, add):
+    """Phase 7 in float16 (``make_train_step(dtype=torch.float16)``) from
+    ``start`` over ``frozen`` cast as a float16 checkpoint loads it: at 2 x
+    512 tokens (the Hopper B13 / B14 in f16) and at 1 x 16 (the split-K
+    ones), the loss and grads against the plain path within F16_TRAIN_TOL
+    and against the plain backward within F16_BWD_TOL (``f16_parity``), then
+    F16_TRAIN_STEPS steps of the step program
+    captured against the same steps eager (capturable AdamW), in turns: the
+    losses bit-equal, every trainable leaf after them."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.utils.train import make_train_step, trainable_leaves
+
+    f16 = torch.float16
+    fr16 = f16_tree(torch, frozen)
+    res = {}
+    for label, ii, ll in (("2x512", ids, labels),
+                          ("1x16", ids[:1, FT_IGNORED:FT_IGNORED + 16],
+                           labels[:1, FT_IGNORED:FT_IGNORED + 16])):
+        (dl, dg), (bl, bg), counts = f16_parity(torch, cfg, quant, start, fr16, ii, ll)
+        add(counts)
+        tols, btols = F16_TRAIN_TOL[(quant, label)], F16_BWD_TOL[(quant, label)]
+        require(dl <= tols[0] and dg <= tols[1] and bl <= btols[0] and bg <= btols[1],
+                f"{quant} f16 {label}: kernel vs plain path loss {dl}, grads {dg}; against "
+                f"the plain backward loss {bl}, grads {bg}")
+        runs = {}
+        for kind, r_t in (("eager", TorchRuntimeConfig(cuda_graphs=False)),
+                          ("captured", TorchRuntimeConfig())):
+            tr = map_tree(start, lambda t: None if t is None else
+                          t.detach().clone().requires_grad_(True))
+            opt = torch.optim.AdamW(trainable_leaves(tr), lr=1e-3, weight_decay=0.0,
+                                    capturable=True)
+            runs[kind] = {"tr": tr, "step": make_train_step(cfg, quant, opt, f16, r_t),
+                          "losses": [], "ms": []}
+        ops.reset_launch_counts()
+        for _ in range(F16_TRAIN_STEPS):
+            for kind in ("eager", "captured"):
+                r = runs[kind]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r["losses"].append(r["step"](r["tr"], fr16, ii, ll).item())
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+        add(ops.launch_counts())
+        le, lc = runs["eager"]["losses"], runs["captured"]["losses"]
+        require(le == lc and all(math.isfinite(x) for x in le),
+                f"{quant} f16 {label}: captured losses {lc}, eager {le}")
+        for a_, b_ in zip(trainable_leaves(runs["eager"]["tr"]),
+                          trainable_leaves(runs["captured"]["tr"])):
+            require(torch.equal(a_.detach(), b_.detach()),
+                    f"{quant} f16 {label}: a trainable leaf differs after the captured steps")
+        res[label] = {"vs_plain": {"loss": dl, "grads": dg},
+                      "vs_plain_backward": {"loss": bl, "grads": bg}, "losses": lc,
+                      "ms": {k: r["ms"] for k, r in runs.items()}}
+        log(f"  {quant} f16 {label}: kernels vs plain path |Δloss|/|loss| {dl:.3e}, grads "
+            f"{dg:.3e} (limits {tols[0]:.1e}, {tols[1]:.1e}); against the plain backward "
+            f"{bl:.3e}, {bg:.3e} (limits {btols[0]:.1e}, {btols[1]:.1e}); captured = eager over "
+            f"{F16_TRAIN_STEPS} steps, losses {lc}; ms a step eager "
+            + ", ".join(f"{x:.1f}" for x in runs["eager"]["ms"]) + "; captured "
+            + ", ".join(f"{x:.1f}" for x in runs["captured"]["ms"]) + f"  [{smi}]")
+        del runs
+    return res
+
+
+def f16_train_survey(torch, smi, seeds):
+    """``--f16-train-seeds``: the f16 loss and grads of a 28-layer tree in
+    int4g32 and int8 through the kernels against the plain path
+    (``f16_parity``) at 2 x 512 and 1 x 16 tokens per seed, the readings
+    behind the F16_TRAIN_TOL / F16_BWD_TOL limits."""
+    from chatglm_q_tpu_torch import ChatGLM2Config
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.utils.train import partition_params
+
+    cfg = ChatGLM2Config()
+    out = {}
+    for quant in ("int4g32", "int8"):
+        for seed in seeds:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            trainable, frozen = partition_params(random_quantized_params(cfg, quant, gen))
+            frozen = f16_tree(torch, frozen)
+            ids = torch.randint(0, cfg.vocab_size, (FT_BATCH, FT_SEQ), device="cuda",
+                                generator=gen)
+            labels = ids.clone()
+            labels[:, :FT_IGNORED] = -100
+            for label, ii, ll in (("2x512", ids, labels),
+                                  ("1x16", ids[:1, FT_IGNORED:FT_IGNORED + 16],
+                                   labels[:1, FT_IGNORED:FT_IGNORED + 16])):
+                (dl, dg), (bl, bg), _ = f16_parity(torch, cfg, quant, trainable, frozen, ii,
+                                                   ll)
+                out[f"{quant} {label} seed {seed}"] = {"loss": dl, "grads": dg,
+                                                       "bwd_loss": bl, "bwd_grads": bg}
+                log(f"  {quant} {label} seed {seed}: f16 grads, kernels vs plain: "
+                    f"|Δloss|/|loss| {dl:.3e}, grads {dg:.3e}; vs the plain backward "
+                    f"{bl:.3e}, {bg:.3e}  [{smi}]")
+            del trainable, frozen
+            torch.cuda.empty_cache()
+    log("detail: " + json.dumps({"card": smi, "f16_train_readings": out}))
+    return 0
 
 
 # the Hopper matmuls of a training step, by quantization: (ID, substrings of
@@ -5712,13 +5909,13 @@ def gap_survey(torch, smi, seeds):
 # The float8_e4m3fn cache: every attention kernel's fp8 form (phase 2)
 # ---------------------------------------------------------------------------
 
-def fp8_cache(torch, gen, shape):
+def fp8_cache(torch, gen, shape, act=None):
     """A random fp8 cache tensor written through the port's store
-    (``kv_store_cast``) and its exact bf16 upcast."""
+    (``kv_store_cast``) and its exact upcast to ``act`` (default bf16)."""
     from chatglm_q_tpu_torch.ops import attention as A
 
     k8 = A.kv_store_cast(torch.randn(shape, device="cuda", generator=gen), torch.float8_e4m3fn)
-    return k8, k8.to(torch.bfloat16)
+    return k8, k8.to(act or torch.bfloat16)
 
 
 def fp8_equal(a, b):
@@ -5735,23 +5932,24 @@ def torch_equal_bytes(x, y):
     return torch.equal(x, y)
 
 
-def fp8_row(torch, name, fp8_fn, bf16_fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False,
-            plain_iters=5, plain_syncs=False):
-    """One fp8 form of a kernel: ``fp8_fn(i)`` over layer i of an fp8 cache,
-    ``bf16_fn(i)`` its bf16 form over the same cache upcast, ``plain_fn()``
-    the plain version on layer 0 of the fp8 cache.  Required: the fp8 form
-    bit-equal to the bf16 form (``bf16_fn`` None: an append, bit-equal to
-    its plain version instead) and within KERNEL_TOL of its plain version
-    (``exact``: bit-equal).  Timed over the 28 layers: the fp8 form, the
-    bf16 form, the plain version, and the library yardstick (``lib_fn``: the
-    cache cast to bf16 and SDPA; None where no call computes it); the bound
-    counts each K/V byte read once at 1 B.  ``plain_syncs``: the plain
-    version reads a device value on the host, so it is timed on the host's
-    clock (``synced_ms``)."""
+def fp8_row(torch, name, fp8_fn, same_fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False,
+            plain_iters=5, plain_syncs=False, act="bf16", tol=KERNEL_TOL):
+    """One fp8 form of a kernel under ``act`` activations ("bf16" or
+    "f16"): ``fp8_fn(i)`` over layer i of an fp8 cache, ``same_fn(i)`` its
+    16-bit form (activations and cache in ``act``) over the same cache
+    upcast, ``plain_fn()`` the plain version on layer 0 of the fp8 cache.
+    Required: the fp8 form bit-equal to the 16-bit form (``same_fn`` None:
+    an append, bit-equal to its plain version instead) and within ``tol``
+    of its plain version (``exact``: bit-equal).  Timed over the 28 layers:
+    the fp8 form, the 16-bit form (``<act>_ms``), the plain version, and the
+    library yardstick (``lib_fn``: the cache cast to ``act`` and SDPA; None
+    where no call computes it); the bound counts each K/V byte read once at
+    1 B.  ``plain_syncs``: the plain version reads a device value on the
+    host, so it is timed on the host's clock (``synced_ms``)."""
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     got = fp8_fn(0)
-    same = bf16_fn(0) if bf16_fn is not None else None
+    same = same_fn(0) if same_fn is not None else None
     torch.cuda.synchronize()
     want = plain_fn()
     if exact:
@@ -5760,31 +5958,31 @@ def fp8_row(torch, name, fp8_fn, bf16_fn, plain_fn, nbytes, ops, lib_fn, shape, 
     else:
         g0, w0 = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
         err, rel = rel_err(g0, w0)
-        require(torch.isfinite(g0.float()).all() and rel <= KERNEL_TOL, f"{name} rel err {rel}")
+        require(torch.isfinite(g0.float()).all() and rel <= tol, f"{name} rel err {rel}")
     if same is not None:
-        require(fp8_equal(got, same), f"{name}: differs from the bf16 form on the upcast cache")
+        require(fp8_equal(got, same), f"{name}: differs from the {act} form on the upcast cache")
     ms = cuda_event_ms(fp8_fn, iters=56)
-    bf16_ms = cuda_event_ms(bf16_fn, iters=56) if bf16_fn is not None else None
+    same_ms = cuda_event_ms(same_fn, iters=56) if same_fn is not None else None
     if plain_syncs:
         plain = synced_ms(torch, lambda i: plain_fn(), plain_iters)
     else:
         plain = cuda_event_ms(lambda i: plain_fn(), iters=plain_iters)
     lib = cuda_event_ms(lib_fn, iters=56) if lib_fn is not None else None
     b, by = bound_ms(nbytes, ops)
-    return dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                library_ms=lib, bf16_ms=bf16_ms, bit_equal_to_bf16_form=same is not None,
-                shape=shape)
+    return {"max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": lib, f"{act}_ms": same_ms,
+            "bit_equal_to_16bit_form": same is not None, "shape": shape}
 
 
-def fp8_store_line(torch):
-    """All 65,536 bf16 bit patterns through the write-only append into an
-    fp8 cache, byte for byte against ``kv_store_cast`` on the card and on
-    the CPU."""
+def fp8_store_line(torch, act):
+    """All 65,536 bit patterns of ``act`` (bf16 or f16) through the
+    write-only append into an fp8 cache, byte for byte against
+    ``kv_store_cast`` on the card and on the CPU."""
     from chatglm_q_tpu_torch.ops import attention as A
 
     fp8 = torch.float8_e4m3fn
     x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(
-        torch.bfloat16).reshape(256, 2, 128)
+        act).reshape(256, 2, 128)
     want = A.kv_store_cast(x, fp8)
     cache = A.kv_zeros((1, 256, 2, 4, 128), fp8, "cuda")
     A.kv_cache_write_idx(cache, x, 0, torch.full((256,), 2, dtype=torch.int32, device="cuda"))
@@ -5795,32 +5993,44 @@ def fp8_store_line(torch):
     sat = int(((x.float().abs() > A.FP8_MAX) & ~torch.isnan(x.float())).sum())
     require(card and cpu, f"the fp8 store: kernel == kv_store_cast on the card {card}, "
                           f"card == CPU {cpu}")
-    log(f"  fp8 store: all 65536 bf16 patterns through the write-only append equal "
+    log(f"  fp8 store: all 65536 {str(act)[6:]} patterns through the write-only append equal "
         f"kv_store_cast byte for byte on the card and on the CPU ({nan} NaN patterns stored "
         f"0x7F, {sat} past +-448 saturated)")
     return {"patterns": 65536, "equal_on_card": card, "card_equals_cpu": cpu,
             "nan_patterns": nan, "saturated_patterns": sat}
 
 
-def check_fp8_attention(torch):
-    """Every attention kernel's fp8-cache form at the shapes of its bf16 row:
-    B3 / B9 (the fused append, B = 4 and 1, dense and paged), B4 (B = 4 and
-    1), B12, B5 (both forms), B10, B11 (S = 9), K1, K2, K3 (dense and
-    paged), and the store over every bf16 pattern."""
+def check_fp8_attention(torch, act=None):
+    """Every attention kernel's fp8-cache form under ``act`` activations
+    (bf16, the default, or f16: the f16-over-fp8 form, rows keyed
+    "... fp8_f16") at the shapes of its bf16 row: B3 / B9 (the fused
+    append, B = 4 and 1, dense and paged), B4 (B = 4 and 1), B12, B5 (both
+    forms), B10, B11 (S = 9), K1, K2, K3 (dense and paged), and the store
+    over every pattern of ``act``.  The same seed as the bf16 rows: the
+    same fp8 caches, q rounded to ``act``."""
     import torch.nn.functional as F
 
     from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
     from chatglm_q_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    bf = torch.bfloat16
+    act = act or torch.bfloat16
+    f16 = act == torch.float16
+    tag, form = (" fp8_f16", "f16") if f16 else (" fp8", "bf16")
     L, G, Hg, D = 28, 2, 16, 128
     sm = 1.0 / math.sqrt(D)
-    out = {"store": fp8_store_line(torch)}
+    out = {"store": fp8_store_line(torch, act)}
     rows = {}
 
+    def row_of(name, *args, **kw):  # fp8_row with this form's 16-bit twin and limit
+        return fp8_row(torch, name, *args, act=form, tol=F16_KERNEL_TOL if f16 else KERNEL_TOL,
+                       **kw)
+
+    def cache_of(shape):
+        return fp8_cache(torch, gen, shape, act)
+
     def rnd(*shape):
-        return torch.randn(shape, device="cuda", generator=gen).to(bf)
+        return torch.randn(shape, device="cuda", generator=gen).to(act)
 
     def i32(*xs):
         return torch.tensor(xs, dtype=torch.int32, device="cuda")
@@ -5830,8 +6040,8 @@ def check_fp8_attention(torch):
 
     # the dense cache of phase 2's B4 row: (L, 4, G, 1024, D)
     B, T = len(PROMPT_LENGTHS), CACHE_LEN
-    (k8, k16), (v8, v16) = fp8_cache(torch, gen, (L, B, G, T, D)), \
-        fp8_cache(torch, gen, (L, B, G, T, D))
+    (k8, k16), (v8, v16) = cache_of((L, B, G, T, D)), \
+        cache_of((L, B, G, T, D))
     q = rnd(B, G, Hg, D)
     lens = i32(1000, 600, 200, 0)
     n = [min(int(x) + 1, T) for x in lens.tolist()]
@@ -5839,15 +6049,15 @@ def check_fp8_attention(torch):
 
     def lib_decode(qq, kk, vv, mm):
         return lambda i: F.scaled_dot_product_attention(
-            qq.reshape(qq.shape[0], G * Hg, 1, D), kk[i % L].to(bf), vv[i % L].to(bf),
+            qq.reshape(qq.shape[0], G * Hg, 1, D), kk[i % L].to(act), vv[i % L].to(act),
             attn_mask=mm, scale=sm, enable_gqa=True)
 
     for key, fn, plain in (("flash_attention_decode", A.flash_attention_decode,
                             A.flash_attention_decode_plain),
                            ("flash_attention_decode_v2", A.flash_attention_decode_v2,
                             A.flash_attention_decode_v2_plain)):
-        rows[key + " fp8"] = fp8_row(
-            torch, key + " fp8", lambda i, fn=fn: fn(q, k8[i % L], v8[i % L], lens, sm),
+        rows[key + tag] = row_of(
+            key + tag, lambda i, fn=fn: fn(q, k8[i % L], v8[i % L], lens, sm),
             lambda i, fn=fn: fn(q, k16[i % L], v16[i % L], lens, sm),
             lambda plain=plain: plain(q, k8[0], v8[0], lens, sm),
             2 * q.numel() * 2 + kv_bytes_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
@@ -5855,14 +6065,14 @@ def check_fp8_attention(torch):
             f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} fp8 cache")
     q1, l1 = q[:1].contiguous(), i32(140)
     mask1 = (torch.arange(T, device="cuda") <= 140)[None, None, None, :]
-    rows["flash_attention_decode B=1 fp8"] = fp8_row(
-        torch, "flash_attention_decode B=1 fp8",
+    rows[f"flash_attention_decode B=1{tag}"] = row_of(
+        f"flash_attention_decode B=1{tag}",
         lambda i: A.flash_attention_decode(q1, k8[i % L][:1], v8[i % L][:1], l1, sm),
         lambda i: A.flash_attention_decode(q1, k16[i % L][:1], v16[i % L][:1], l1, sm),
         lambda: A.flash_attention_decode_plain(q1, k8[0][:1], v8[0][:1], l1, sm),
         2 * q1.numel() * 2 + kv_bytes_read(141) + 4, 4.0 * 141 * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
-            q1.reshape(1, G * Hg, 1, D), k8[i % L][:1].to(bf), v8[i % L][:1].to(bf),
+            q1.reshape(1, G * Hg, 1, D), k8[i % L][:1].to(act), v8[i % L][:1].to(act),
             attn_mask=mask1, scale=sm, enable_gqa=True),
         f"B=1 G={G} Hg={Hg} D={D} T={T} lengths=[140] fp8 cache")
 
@@ -5874,20 +6084,20 @@ def check_fp8_attention(torch):
     pmask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lp[:, None, None]))
     qsp = qp.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, S, D)
     pairs = sum(min(s + 1, lb) for lb in PROMPT_LENGTHS for s in range(S))
-    rows["flash_attention_prefill fp8"] = fp8_row(
-        torch, "flash_attention_prefill fp8",
+    rows[f"flash_attention_prefill{tag}"] = row_of(
+        f"flash_attention_prefill{tag}",
         lambda i: A.flash_attention_prefill(qp, k8[i % L], v8[i % L], lp, sm),
         lambda i: A.flash_attention_prefill(qp, k16[i % L], v16[i % L], lp, sm),
         lambda: A.flash_attention_prefill_plain(qp, k8[0], v8[0], lp, sm),
         2 * qp.numel() * 2 + kv_bytes_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
         4.0 * pairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
-            qsp, k8[i % L][:, :, :S].to(bf), v8[i % L][:, :, :S].to(bf), attn_mask=pmask[:, None],
+            qsp, k8[i % L][:, :, :S].to(act), v8[i % L][:, :, :S].to(act), attn_mask=pmask[:, None],
             scale=sm, enable_gqa=True),
         f"B={B} S={S} G={G} Hg={Hg} D={D} lengths={list(PROMPT_LENGTHS)} fp8 cache")
 
     # B3 with the RoPE: bit-equal to its plain version (RoPE in bf16, then the store)
-    freqs_table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", bf)
+    freqs_table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda", act)
 
     def append_row(key, kk, vv, pt, st, shard=None):
         Bq = st.shape[0]
@@ -5895,7 +6105,7 @@ def check_fp8_attention(torch):
         kv = rnd(Bq, 2 * G * D)
         fr = freqs_table[torch.tensor([5, 700, 1500, 2048], device="cuda")[:Bq]]
         kr, vr = (t.view(torch.uint8).clone().view(torch.float8_e4m3fn) for t in (kk, vv))
-        kb, vb = kk.to(bf), vv.to(bf)  # a bf16 cache for the bf16 form's time
+        kb, vb = kk.to(act), vv.to(act)  # a 16-bit cache for the 16-bit form's time
 
         def run(i, k_, v_):
             if shard is None:
@@ -5914,7 +6124,7 @@ def check_fp8_attention(torch):
                 torch_equal_bytes(vv, vr), f"{key}: differs from its plain version")
         nbytes = Bq * (2 * qa[0].numel() * 2 + kv[0].numel() * 2 + D * 2 + 2 * G * D + 4) \
             + (0 if pt is None else Bq * 4)
-        row = fp8_row(torch, key, lambda i: run(i, kk, vv), None, plain, nbytes,
+        row = row_of(key, lambda i: run(i, kk, vv), None, plain, nbytes,
                       6.0 * Bq * (G * Hg + G) * D / 2, None,
                       f"q (B={Bq}, G={G}, Hg={Hg}, D={D}), fp8 "
                       + (f"cache (L={L}, B={kk.shape[1]}, G={G}, T={kk.shape[3]}, D={D})"
@@ -5926,20 +6136,21 @@ def check_fp8_attention(torch):
                                                     PEAK_F32_FLOPS)
         from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
-        row["bf16_ms"] = cuda_event_ms(lambda i: run(i, kb, vb), iters=56)
+        row[f"{form}_ms"] = cuda_event_ms(lambda i: run(i, kb, vb), iters=56)
         del kb, vb, kr, vr
         return row
 
-    rows["rope_kv_append fp8"] = append_row("rope_kv_append fp8", k8, v8, None,
+    rows[f"rope_kv_append{tag}"] = append_row(f"rope_kv_append{tag}", k8, v8, None,
                                             i32(T - 1, T, T + 5, 2))
-    k1, v1 = (fp8_cache(torch, gen, (L, 1, G, T, D))[0] for _ in range(2))
-    rows["rope_kv_append B=1 fp8"] = append_row("rope_kv_append B=1 fp8", k1, v1, None, i32(140))
+    k1, v1 = (cache_of((L, 1, G, T, D))[0] for _ in range(2))
+    rows[f"rope_kv_append B=1{tag}"] = append_row(f"rope_kv_append B=1{tag}", k1, v1, None,
+                                                  i32(140))
     del k1, v1
 
     # B5's chunked form: 4 compact rows x 256 against a 2048-slot cache
     Sc = 256
-    (c8, c16), (d8, d16) = fp8_cache(torch, gen, (L, B, G, SEQ, D)), \
-        fp8_cache(torch, gen, (L, B, G, SEQ, D))
+    (c8, c16), (d8, d16) = cache_of((L, B, G, SEQ, D)), \
+        cache_of((L, B, G, SEQ, D))
     qc = rnd(B, Sc, G, Hg, D)
     cstarts = i32(768, 512, 256, 0)
     clens = cstarts + i32(256, 256, 200, 256)
@@ -5951,8 +6162,8 @@ def check_fp8_attention(torch):
     kv_rows = sum(min(int(ln), int(st) + Sc) for st, ln in zip(cstarts.tolist(), clens.tolist()))
     cpairs = sum(min(st + t + 1, ln) for st, ln in zip(cstarts.tolist(), clens.tolist())
                  for t in range(Sc))
-    rows["flash_attention_prefill_chunk fp8"] = fp8_row(
-        torch, "flash_attention_prefill_chunk fp8",
+    rows[f"flash_attention_prefill_chunk{tag}"] = row_of(
+        f"flash_attention_prefill_chunk{tag}",
         lambda i: A.flash_attention_prefill_chunk(qc, c8[i % L], d8[i % L], clens, cstarts, sm,
                                                   rmap),
         lambda i: A.flash_attention_prefill_chunk(qc, c16[i % L], d16[i % L], clens, cstarts, sm,
@@ -5960,7 +6171,7 @@ def check_fp8_attention(torch):
         lambda: A.flash_attention_prefill_plain(qc, c8[0], d8[0], clens, sm, cstarts, rmap),
         2 * qc.numel() * 2 + kv_bytes_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
-            qcs, c8[i % L].to(bf)[rmap.long()], d8[i % L].to(bf)[rmap.long()],
+            qcs, c8[i % L].to(act)[rmap.long()], d8[i % L].to(act)[rmap.long()],
             attn_mask=cmask[:, None], scale=sm, enable_gqa=True),
         f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
         f"lengths={clens.tolist()} kv_row_map={rmap.tolist()} fp8 cache")
@@ -5969,13 +6180,13 @@ def check_fp8_attention(torch):
     # K1 on shard 0 of phase 8's 8192-slot cache (4096 a rank): the first
     # 4096 slots of a fresh fp8 cache
     Tl = SHARD_T // SHARD_TP
-    (s8, s16), (t8, t16) = fp8_cache(torch, gen, (L, B, G, Tl, D)), \
-        fp8_cache(torch, gen, (L, B, G, Tl, D))
+    (s8, s16), (t8, t16) = cache_of((L, B, G, Tl, D)), \
+        cache_of((L, B, G, Tl, D))
     slen = i32(*SHARD_LENGTHS)
     sn = [max(0, min(int(x) + 1, Tl)) for x in SHARD_LENGTHS]
     smask = (torch.arange(Tl, device="cuda")[None, :] <= slen[:, None])[:, None, None, :]
-    rows["flash_attention_decode_lse fp8"] = fp8_row(
-        torch, "flash_attention_decode_lse fp8",
+    rows[f"flash_attention_decode_lse{tag}"] = row_of(
+        f"flash_attention_decode_lse{tag}",
         lambda i: A.flash_attention_decode_lse(q, s8[i % L], t8[i % L], slen, sm, 0),
         lambda i: A.flash_attention_decode_lse(q, s16[i % L], t16[i % L], slen, sm, 0),
         lambda: A.flash_attention_decode_lse_plain(q, s8[0], t8[0], slen, sm, 0),
@@ -5983,15 +6194,15 @@ def check_fp8_attention(torch):
         4.0 * sum(sn) * G * Hg * D, lib_decode(q, s8, t8, smask),
         f"B={B} G={G} Hg={Hg} D={D} shard 0 of T={SHARD_T} (T_local={Tl}) "
         f"lengths={list(SHARD_LENGTHS)} fp8 cache")
-    rows["rope_kv_append_sharded fp8"] = append_row(
-        "rope_kv_append_sharded fp8", s8, t8, None, i32(100, Tl - 1, Tl, SHARD_T + 3),
+    rows[f"rope_kv_append_sharded{tag}"] = append_row(
+        f"rope_kv_append_sharded{tag}", s8, t8, None, i32(100, Tl - 1, Tl, SHARD_T + 3),
         A.KVShard(offset=0, total=SHARD_T))
     del s8, s16, t8, t16, k8, v8
 
     # the pool of phase 2's paged rows: (L, 64, G, 256, D), 2048-slot rows
     MP = SEQ // PAGE
-    (p8, p16), (w8, w16) = fp8_cache(torch, gen, (L, POOL_PAGES, G, PAGE, D)), \
-        fp8_cache(torch, gen, (L, POOL_PAGES, G, PAGE, D))
+    (p8, p16), (w8, w16) = cache_of((L, POOL_PAGES, G, PAGE, D)), \
+        cache_of((L, POOL_PAGES, G, PAGE, D))
     pt = (torch.randperm(POOL_PAGES - 1, device="cuda", generator=gen)[: B * MP] + 1
           ).reshape(B, MP).to(torch.int32)
     plens = i32(*PAGED_LENGTHS)
@@ -6000,8 +6211,8 @@ def check_fp8_attention(torch):
 
     def lib_paged(qq, mm):
         def call(i):
-            kd = A.gather_pages(p8[i % L], pt).to(bf)
-            vd = A.gather_pages(w8[i % L], pt).to(bf)
+            kd = A.gather_pages(p8[i % L], pt).to(act)
+            vd = A.gather_pages(w8[i % L], pt).to(act)
             if qq.dim() == 4:
                 qs = qq.reshape(qq.shape[0], G * Hg, 1, D)
             else:
@@ -6010,8 +6221,8 @@ def check_fp8_attention(torch):
                                                   enable_gqa=True)
         return call
 
-    rows["flash_attention_decode_paged fp8"] = fp8_row(
-        torch, "flash_attention_decode_paged fp8",
+    rows[f"flash_attention_decode_paged{tag}"] = row_of(
+        f"flash_attention_decode_paged{tag}",
         lambda i: A.flash_attention_decode_paged(q, p8, w8, i % L, pt, plens, sm),
         lambda i: A.flash_attention_decode_paged(q, p16, w16, i % L, pt, plens, sm),
         lambda: A.flash_attention_decode_paged_plain(q, p8, w8, 0, pt, plens, sm),
@@ -6024,8 +6235,8 @@ def check_fp8_attention(torch):
     cmask9 = (torch.arange(MP * PAGE, device="cuda")[None, None, :] <= qpos9[:, :, None])
     rows9 = [min(st + S9, MP * PAGE) for st in PAGED_LENGTHS]
     pairs9 = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S9))
-    rows["flash_attention_chunk_paged S=9 fp8"] = fp8_row(
-        torch, "flash_attention_chunk_paged S=9 fp8",
+    rows[f"flash_attention_chunk_paged S=9{tag}"] = row_of(
+        f"flash_attention_chunk_paged S=9{tag}",
         lambda i: A.flash_attention_chunk_paged(q9, p8, w8, i % L, pt, plens, sm),
         lambda i: A.flash_attention_chunk_paged(q9, p16, w16, i % L, pt, plens, sm),
         lambda: A.flash_attention_chunk_paged_plain(q9, p8, w8, 0, pt, plens, sm),
@@ -6033,12 +6244,12 @@ def check_fp8_attention(torch):
         4.0 * pairs9 * G * Hg * D, lib_paged(q9, cmask9[:, None]),
         f"B={B} S={S9} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} fp8 pool")
     cap = MP * PAGE
-    rows["rope_kv_append paged fp8"] = append_row("rope_kv_append paged fp8", p8, w8, pt,
+    rows[f"rope_kv_append paged{tag}"] = append_row(f"rope_kv_append paged{tag}", p8, w8, pt,
                                                   i32(cap - 1, cap, cap + 100, 5))
     # K2 / K3 on phase 0 of a stride-2 local table: the table's even columns
     half = pt[:, ::2].contiguous()
-    rows["flash_attention_decode_paged_lse fp8"] = fp8_row(
-        torch, "flash_attention_decode_paged_lse fp8",
+    rows[f"flash_attention_decode_paged_lse{tag}"] = row_of(
+        f"flash_attention_decode_paged_lse{tag}",
         lambda i: A.flash_attention_decode_paged_lse(q, p8, w8, i % L, half, plens, sm, 2, 0),
         lambda i: A.flash_attention_decode_paged_lse(q, p16, w16, i % L, half, plens, sm, 2, 0),
         lambda: A.flash_attention_decode_paged_lse_plain(q, p8, w8, 0, half, plens, sm, 2, 0),
@@ -6046,17 +6257,18 @@ def check_fp8_attention(torch):
         4.0 * sum(pn) / 2 * G * Hg * D, None,
         f"B={B} G={G} Hg={Hg} D={D} P={PAGE}, phase 0 of a stride-2 table (B, {MP // 2}), "
         f"lengths={list(PAGED_LENGTHS)} fp8 pool")
-    rows["rope_kv_append_sharded paged fp8"] = append_row(
-        "rope_kv_append_sharded paged fp8", p8, w8, half, i32(100, PAGE + 3, cap - 1, cap + 9),
+    rows[f"rope_kv_append_sharded paged{tag}"] = append_row(
+        f"rope_kv_append_sharded paged{tag}", p8, w8, half,
+        i32(100, PAGE + 3, cap - 1, cap + 9),
         A.KVShard(stride=2, phase=0, total=cap))
     del p8, p16, w8, w16
     width = max(len(k) for k in rows)
     for k, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms (bf16 form "
-            f"{r['bf16_ms']:.4f} ms)  bound {r['bound_ms']:.6f} ms ({r['bound_by']})  plain "
+        log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms ({form} form "
+            f"{r[form + '_ms']:.4f} ms)  bound {r['bound_ms']:.6f} ms ({r['bound_by']})  plain "
             f"{r['plain_ms']:.4f} ms  cast + SDPA {lib}  "
-            f"{'= bf16 form on the upcast cache' if r['bit_equal_to_bf16_form'] else '= plain'}"
+            f"{f'= {form} form on the upcast cache' if r['bit_equal_to_16bit_form'] else '= plain'}"
             f"  [{r['shape']}]")
     out.update(rows)
     return out
@@ -6528,6 +6740,141 @@ def f16_matmul_rows(torch, seed, hold):
     return rows
 
 
+# phase 2's f16 rows of B7 / B8 (F16_MATMUL_M of the same weights: B7 on
+# the int8 weights, B8 on the int4g32 ones) and of B13 / B14 (a 1-token and
+# a 16-token step's split-K kernel, a 2 x 256-token step's wgmma one)
+F16_DYN_M = {"int8": F16_MATMUL_M["int8"], "int4g32": F16_MATMUL_M["int4g32"]}
+F16_T_M = (1, 16, 512)
+
+
+def f16_dyn_t_rows(torch, seed, hold):
+    """B7 / B8 with f16 outputs and B13 / B14 on f16 g at F16_DYN_M /
+    F16_T_M on the six linears: one launch of the route's kernel counted in
+    its f16 form; B7 bit-equal to its plain version, B8, B13 and B14 within
+    F16_KERNEL_TOL of theirs and within SUM_TOL of sum|terms| beyond half an
+    f16 ulp of their exact value (B8: q·s exact; B13: f16(g · f16(s)) and the
+    exact int8; B14: f16(f16(q) · f16(s))); timed beside the same kernel in
+    bf16 (B7 / B8: the same s8 rows, a bf16 output), the plain version, and
+    the library call where one computes the function (``_int_mm`` for B7's
+    accumulator, ``_weight_int8pack_mm`` for B13).  ``hold`` False: the
+    readings only, untimed (``--fp16-seeds``)."""
+    from chatglm_q_tpu_torch.ops import dyn_matmul as D
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu, unpack_int4_tpu_q
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    f16, bf = torch.float16, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows = []
+
+    def hold_row(r, got, want, exact, terms, label, equal=False):
+        err, rel = rel_err(got, want)
+        beyond = beyond_sum(torch, got, exact, terms, 11)
+        ok = torch.equal(got, want) if equal else (rel <= F16_KERNEL_TOL and beyond <= SUM_TOL)
+        require(torch.isfinite(got).all() and (not hold or ok),
+                f"{label}: rel err {rel}, beyond the f16 rounding {beyond}"
+                + (", not bit-equal to plain" if equal else ""))
+        r.update(max_abs_err=err, rel_err=rel, beyond_sum=beyond)
+
+    for name, K, N in MATMUL_SHAPES:
+        for kind in ("int8", "int4g32"):
+            if kind == "int4g32":
+                wbytes = K // 2 * N + K // 32 * N * 2
+                copies = weight_copies(wbytes) if hold else 1
+                w = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                                  generator=gen)
+                scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
+                         ).to(bf)
+                dyn, plain_dyn, tfn, tplain = (D.int4_dyn_matmul, D.int4_dyn_matmul_plain,
+                                               QM.int4g32_matmul_t, QM.int4g32_matmul_t_plain)
+                w64 = unpack_int4_tpu(w[0], scale[0]).double()  # q·s, exact
+                q16 = unpack_int4_tpu_q(w[0]).to(f16).reshape(K // 32, 32, N)
+                wt64 = (q16 * scale[0].to(f16)[:, None]).reshape(K, N).double()  # B14's weights
+                del q16
+            else:
+                wbytes = K * N + 4 * N
+                copies = weight_copies(wbytes) if hold else 1
+                w = torch.randint(-128, 128, (copies, K, N), dtype=torch.int8, device="cuda",
+                                  generator=gen)
+                scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+                dyn, plain_dyn, tfn, tplain = (D.int8_dyn_matmul, D.int8_dyn_matmul_plain,
+                                               I8.int8_matmul_t, I8.int8_matmul_t_plain)
+                w64 = wt64 = w[0].double()
+            pre = "int8" if kind == "int8" else "int4"
+            for M in F16_DYN_M[kind]:
+                x = torch.randn((M, K), device="cuda", generator=gen).to(f16)
+                kernel = f"{pre}_dyn_{'mma' if D.uses_mma(M, N) else 'splitk'}"
+                kfn = getattr(D, kernel)
+                before = kfn.f16.launches
+                got = dyn(x, w[0], scale[0])
+                torch.cuda.synchronize()
+                require(kfn.f16.launches == before + 1,
+                        f"{kernel} f16 {name} M={M}: not one launch of its f16 form")
+                xq, sx = D.dyn_quantize_rows(x)
+                if kind == "int8":
+                    s64 = sx.double() * scale[0].double()
+                else:
+                    s64 = sx.double()
+                r = {"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+                     "x_dtype": "float16"}
+                hold_row(r, got, plain_dyn(x, w[0], scale[0]), (xq.double() @ w64) * s64,
+                         (xq.double().abs() @ w64.abs()) * s64,
+                         f"{kernel} f16 {name} M={M}", equal=kind == "int8")
+                if hold:
+                    r["ms"] = cuda_event_ms(lambda i: kfn(xq, sx, w[i % copies], scale[i % copies],
+                                                          f16), iters=30)
+                    r["bf16_ms"] = cuda_event_ms(lambda i: kfn(xq, sx, w[i % copies],
+                                                               scale[i % copies], bf), iters=30)
+                    r["plain_ms"] = cuda_event_ms(lambda i: plain_dyn(x, w[0], scale[0]), iters=3,
+                                                  warmup=1)
+                    r["bound_ms"], r["bound_by"] = bound_ms(M * K + 4 * M + wbytes + M * N * 2,
+                                                            2.0 * M * K * N, PEAK_INT8_OPS)
+                    r["library_ms"] = (int_mm_library(torch, xq, w, D.int8_dyn_acc_plain(xq, w[0]))
+                                       if kind == "int8" else None)
+                    log_row(f"f16 {pre}_dyn_matmul", {**r, "kernel": kernel + " f16"})
+                    log(f"    bf16 form {r['bf16_ms']:.5f} ms; beyond the f16 rounding "
+                        f"{r['beyond_sum']:.2e} of sum|terms|")
+                rows.append(r)
+            for M in F16_T_M:
+                g = torch.randn((M, N), device="cuda", generator=gen).to(f16)
+                kernel = ("int8_t_" if kind == "int8" else "int4g32_t_") + QM.t_route(M, N, f16)
+                mod = I8 if kind == "int8" else QM
+                kfn = getattr(mod, kernel)
+                before = kfn.f16.launches
+                got = tfn(g, w[0], scale[0])
+                torch.cuda.synchronize()
+                require(kfn.f16.launches == before + 1,
+                        f"{kernel} f16 {name} M={M}: not one launch of its f16 form")
+                gs = (g * scale[0].to(f16)).double() if kind == "int8" else g.double()
+                r = {"kernel": kernel, "linear": name, "M": M, "K": K, "N": N,
+                     "dtype": "float16"}
+                want = tplain(g, w[0], scale[0])
+                hold_row(r, got, want, gs @ wt64.T, gs.abs() @ wt64.abs().T,
+                         f"{kernel} f16 {name} M={M}")
+                if hold:
+                    gb = g.to(bf)
+                    r["ms"] = cuda_event_ms(lambda i: tfn(g, w[i % copies], scale[i % copies]),
+                                            iters=30)
+                    r["bf16_ms"] = cuda_event_ms(lambda i: tfn(gb, w[i % copies],
+                                                               scale[i % copies]), iters=30)
+                    r["plain_ms"] = cuda_event_ms(lambda i: tplain(g, w[0], scale[0]), iters=3,
+                                                  warmup=1)
+                    r["bound_ms"], r["bound_by"] = bound_ms(M * N * 2 + wbytes + M * K * 2,
+                                                            2.0 * M * K * N)
+                    # _weight_int8pack_mm takes 60-300 ms at M = 512: three calls
+                    r["library_ms"] = (int8_t_library(torch, g, w, scale, want,
+                                                      iters=30 if M <= 16 else 3)
+                                       if kind == "int8" else None)
+                    log_row(f"f16 {'int8' if kind == 'int8' else 'int4g32'}_matmul_t",
+                            {**r, "kernel": kernel + " f16"})
+                    log(f"    bf16 form {r['bf16_ms']:.5f} ms; beyond the f16 rounding "
+                        f"{r['beyond_sum']:.2e} of sum|terms|")
+                rows.append(r)
+            del w, scale, w64, wt64
+    return rows
+
+
 def b4_f32(torch, q, k, v, lengths, sm_scale, p_dtype):
     """B4's function in f32 before the output's rounding: scores scaled in
     f32, p rounded to ``p_dtype`` (v's dtype, f16; bf16 for the control),
@@ -6825,10 +7172,18 @@ def f16_attention_rows(torch, seed, hold):
 
 
 def check_f16_kernels(torch, seed=F16_SEED, hold=True):
-    """Phase 2's f16 rows: B1 and B6 (``f16_matmul_rows``) and every
-    attention kernel's f16 form (``f16_attention_rows``)."""
-    return {"matmul": f16_matmul_rows(torch, seed, hold),
-            "attention": f16_attention_rows(torch, seed, hold)}
+    """Phase 2's f16 rows: B1 and B6 (``f16_matmul_rows``), B7 / B8 / B13 /
+    B14 (``f16_dyn_t_rows``), every attention kernel's f16 form over an f16
+    cache (``f16_attention_rows``) and, where ``hold``, over an fp8 cache
+    (``check_fp8_attention`` in f16: each bit-equal to its f16 form on the
+    upcast cache)."""
+    out = {"matmul": f16_matmul_rows(torch, seed, hold) + f16_dyn_t_rows(torch, seed, hold),
+           "attention": f16_attention_rows(torch, seed, hold)}
+    if hold:
+        fp8 = check_fp8_attention(torch, torch.float16)
+        out["fp8_store"] = fp8.pop("store")
+        out["attention"].update(fp8)
+    return out
 
 
 def f16_survey(torch, smi, seeds):
@@ -6858,25 +7213,27 @@ def f16_tree(torch, params):
     """The tree a float16 checkpoint of ``params`` loads into (loader.py):
     every float leaf in f16 but the quantized weights' scales (int4g32's
     bf16, int8's f32), which the kernels take as they are."""
-    def conv(tree):
+    def conv(tree):  # None: a leaf held elsewhere (a partition's other half)
         return {k: conv(v) if isinstance(v, dict) else
-                v.to(torch.float16) if v.is_floating_point() and k != "weight_scale" else v
+                v.to(torch.float16) if v is not None and v.is_floating_point()
+                and k != "weight_scale" else v
                 for k, v in tree.items()}
     return conv(params)
 
 
-def f16_logit_drift(torch, params, p16, cfg, quant, ids, rt):
+def f16_logit_drift(torch, params, p16, cfg, quant, ids, rt, kv_dtype=None):
     """max|Δlogits| / max|logits| of the first decode step after the chat
-    prompt's prefill in f16 (the f16 tree ``p16``, an f16 cache) against
-    bf16 (``params``; the same input token: the bf16 run's greedy token).
-    A reading only."""
+    prompt's prefill in f16 (the f16 tree ``p16``, a cache of ``kv_dtype``,
+    f16 by default) against bf16 (``params``; a bf16 cache, or the same
+    ``kv_dtype``; the same input token: the bf16 run's greedy token).  A
+    reading only."""
     from chatglm_q_tpu_torch.models import chatglm2 as M
 
     prompt = torch.tensor([ids], device="cuda")
     lengths = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
     out, tok = [], None
     for dt, p in ((torch.bfloat16, params), (torch.float16, p16)):
-        cache = M.init_kv_cache(cfg, 1, CACHE_LEN, dt)
+        cache = M.init_kv_cache(cfg, 1, CACHE_LEN, kv_dtype or dt)
         logits, cache = M.prefill(p, cfg, prompt, lengths, cache, quant, dt, rt)
         tok = torch.argmax(logits, -1).to(torch.int32) if tok is None else tok
         out.append(M.decode_step(p, cfg, tok, cache, quant, dt, rt)[0].float())
@@ -6884,16 +7241,38 @@ def f16_logit_drift(torch, params, p16, cfg, quant, ids, rt):
     return ((out[1] - out[0]).abs().max() / out[0].abs().max()).item()
 
 
-def chat_f16(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decoder):
-    """Phase 5's f16 run of one quantization: ``GLMDecoder`` with a float16
-    config (f16 activations over an f16 cache) on the 28-layer tree as a
-    float16 checkpoint of it loads (``f16_tree``), the
-    chat prompt, 32 greedy tokens, captured and eager (equal texts), the f16
-    forms launched; every token within GREEDY_GAP_TOL of the argmax of the
-    plain path (``use_kernels=False``) in f16; the first decode step's
-    logits against the bf16 model's (a reading); ms a token beside the bf16
-    decoder's, in turns.  int4g32 also takes one f16 decode step through
-    B12 (``decode_attn_v2``)."""
+# phase 5's float16-config runs under dynamic int8 and over an fp8 cache:
+# greedy tokens a generate, shortened to fit the whole run's time
+F16_NEW_TOKENS = 16
+# The greedy gap of a dynamic-int8 run against the plain path: dynamic int8
+# rounds each activation row to steps of 1/127 of its max, so two correct
+# paths sit about 4x further apart than weight-only ones (E2E_DYN_TOL's
+# reasoning), and the limit is E2E_DYN_TOL, the dynamic modes' logit limit
+# between the kernel and plain paths (a gap is at most twice the logits'
+# difference).  First reading 3.91e-2 (int8 + dyn in f16, 28 layers; the
+# stream shifted by one reads 0.84).
+F16_DYN_GAP_TOL = E2E_DYN_TOL
+# the matmul kernels a float16-config GLMDecoder.generate must launch in f16
+F16_CHAT_MATMULS = {("int8", False): ("int8_splitk", "int8_mma"),
+                    ("int4g32", False): ("int4g32_splitk",),
+                    ("int8", True): ("int8_dyn_splitk", "int8_dyn_mma"),
+                    ("int4g32", True): ("int4_dyn_splitk", "int4_dyn_mma")}
+
+
+def chat_f16(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decoder, dyn=False,
+             kv_dtype=None, tokens=CHAT_TOKENS):
+    """Phase 5's f16 run of one mode: ``GLMDecoder`` with a float16 config
+    (f16 activations over an f16 cache, or over ``kv_dtype``, fp8; with
+    ``dyn`` the dynamic int8 kernels) on the 28-layer tree as a float16
+    checkpoint of it loads (``f16_tree``), the chat prompt, ``tokens``
+    greedy tokens, captured and eager (equal texts), the f16 forms launched
+    (``<k>_f16``; the attention kernels over fp8 ``<k>_fp8_f16``); every
+    token within GREEDY_GAP_TOL (F16_DYN_GAP_TOL with ``dyn``) of the argmax
+    of the plain path (``use_kernels=False``) in f16 over the same cache;
+    the first decode step's logits against the bf16 model's (the same mode
+    and cache dtype; a reading); ms a token beside the bf16 decoder's, in
+    turns.  int4g32 also takes one f16 decode step through B12
+    (``decode_attn_v2``)."""
     from types import SimpleNamespace
 
     from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig, ops
@@ -6901,66 +7280,73 @@ def chat_f16(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decode
     from chatglm_q_tpu_torch.serving import GLMDecoder
 
     f16 = torch.float16
-    name = f"{quant} f16"
+    kv = kv_dtype or f16
+    form = "fp8_f16" if kv_dtype else "f16"
+    name = f"{mode_name(quant, dyn)} f16" + (" fp8" if kv_dtype else "")
     bf16_params, params = params, f16_tree(torch, params)
     load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="float16")
-    rt, eager = TorchRuntimeConfig(), TorchRuntimeConfig(cuda_graphs=False)
-    dec = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt)
-    dec_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=eager)
-    require(dec.dtype == f16 and dec.kv_dtype == f16, f"{name}: decoder in {dec.dtype}")
+    rt = TorchRuntimeConfig(dynamic_int8=dyn)
+    eager = TorchRuntimeConfig(dynamic_int8=dyn, cuda_graphs=False)
+    dec = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt,
+                     kv_dtype=kv_dtype)
+    dec_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=eager,
+                           kv_dtype=kv_dtype)
+    require(dec.dtype == f16 and dec.kv_dtype == kv, f"{name}: decoder in {dec.dtype}")
     ops.reset_launch_counts()
-    _, final, _ = run_generate(dec, prompt)
+    _, final, _ = run_generate(dec, prompt, tokens)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     step = M.decode_program(params, cfg, dec._free_caches[0][0], quant, f16, rt)
-    require(dec._free_caches[0][0].k.dtype == f16 and step.graph is not None
-            and step.replays >= CHAT_TOKENS - 3,
+    require(dec._free_caches[0][0].k.dtype == kv and step.graph is not None
+            and step.replays >= tokens - 3,
             f"{name}: the decode step was not replayed from a graph ({step.replays})")
-    _, final_eager, _ = run_generate(dec_eager, prompt)
+    _, final_eager, _ = run_generate(dec_eager, prompt, tokens)
     require(final_eager == final, f"{name}: the captured decoder's text differs from the eager "
                                   f"one's: {final[:60]!r} / {final_eager[:60]!r}")
-    kernels = (("int8_splitk", "int8_mma") if quant == "int8" else ("int4g32_splitk",)) + \
-        ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill")
-    for k in kernels:
+    for k in F16_CHAT_MATMULS[(quant, dyn)]:
         require(counts[k + "_f16"] > 0 and counts[k + "_f16"] == counts[k],
                 f"{name}: {k} launched {counts[k]} times, {counts[k + '_f16']} in f16")
-    # the tokens: the model-level loop over an f16 cache gives the decoder's text
-    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, f16)
+    for k in ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill"):
+        require(counts[f"{k}_{form}"] > 0 and counts[f"{k}_{form}"] == counts[k],
+                f"{name}: {k} launched {counts[k]} times, {counts[f'{k}_{form}']} as {form}")
+    # the tokens: the model-level loop over the same cache dtype
+    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, kv)
     logits, cache = M.prefill(params, cfg, torch.tensor([ids], device="cuda"),
                               torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), cache,
                               quant, f16, rt)
     first = torch.argmax(logits, -1).to(torch.int32)
-    toks, cache = M.multi_step_decode(params, cfg, first, cache, CHAT_TOKENS - 1, None, quant,
-                                      f16, rt)
+    toks, cache = M.multi_step_decode(params, cfg, first, cache, tokens - 1, None, quant, f16, rt)
     out = [int(first[0])] + toks[0].tolist()
-    if quant == "int4g32":  # one f16 step through B12
+    if quant == "int4g32" and not dyn:  # one f16 step through B12
         v2 = TorchRuntimeConfig(decode_attn_v2=True, cuda_graphs=False)
-        before = ops.launch_counts()["flash_attention_decode_v2_f16"]
+        key = f"flash_attention_decode_v2_{form}"
+        before = ops.launch_counts()[key]
         M.decode_step(params, cfg, toks[:, -1], cache, quant, f16, v2)
         torch.cuda.synchronize()
-        counts["flash_attention_decode_v2_f16"] = \
-            ops.launch_counts()["flash_attention_decode_v2_f16"] - before
-        require(counts["flash_attention_decode_v2_f16"] == cfg.num_layers,
-                f"{name}: decode_attn_v2 launched B12 in f16 "
-                f"{counts['flash_attention_decode_v2_f16']} times")
+        counts[key] = ops.launch_counts()[key] - before
+        require(counts[key] == cfg.num_layers,
+                f"{name}: decode_attn_v2 launched B12 as {form} {counts[key]} times")
     del cache
-    plain = TorchRuntimeConfig(use_kernels=False, use_flash_attention=True, cuda_graphs=False)
+    plain = TorchRuntimeConfig(use_kernels=False, use_flash_attention=True, cuda_graphs=False,
+                               dynamic_int8=dyn)
     gaps = greedy_gaps(torch, params, cfg, [SimpleNamespace(generated=out)],
-                       [(ids, dict(temperature=0.0))], cache_len=CACHE_LEN, kv_dtype=f16,
+                       [(ids, dict(temperature=0.0))], cache_len=CACHE_LEN, kv_dtype=kv,
                        rt=plain, quant=quant, dtype=f16)
-    require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
-            f"{name}: greedy gap {gaps['f32'][0]} against the plain path in f16 (shifted "
-            f"control {gaps['f32'][1]})")
-    drift = f16_logit_drift(torch, bf16_params, params, cfg, quant, ids, rt)
+    gap_tol = F16_DYN_GAP_TOL if dyn else GREEDY_GAP_TOL
+    require(gaps["f32"][0] <= gap_tol < gaps["f32"][1],
+            f"{name}: greedy gap {gaps['f32'][0]} against the plain path in f16 (limit "
+            f"{gap_tol}; shifted control {gaps['f32'][1]})")
+    drift = f16_logit_drift(torch, bf16_params, params, cfg, quant, ids, rt, kv_dtype)
     tok_ms = {"bf16": [], "f16": []}
     for turn, d in (("bf16", bf16_decoder), ("f16", dec), ("f16", dec), ("bf16", bf16_decoder)):
-        tok_ms[turn].append(run_generate(d, prompt)[2])
-    log(f"  {name}: GLMDecoder.generate (float16 config, f16 cache) captured = eager "
-        f"({len(out)} tokens): {final[:60]!r}; greedy gap f32 against the plain path in f16 "
-        f"{gaps['f32'][0]:.4e} (shifted control {gaps['f32'][1]:.3e}); the first decode step's "
-        f"max|dlogits| / max|logits| against the bf16 model {drift:.4e} (a reading)")
-    log(f"  {quant} GLMDecoder ms a token in turns: bf16 {tok_ms['bf16'][0]:.3f}, f16 "
-        f"{tok_ms['f16'][0]:.3f} / {tok_ms['f16'][1]:.3f}, bf16 {tok_ms['bf16'][1]:.3f}  [{smi}]")
+        tok_ms[turn].append(run_generate(d, prompt, tokens)[2])
+    log(f"  {name}: GLMDecoder.generate (float16 config, {str(kv)[6:]} cache) captured = "
+        f"eager ({len(out)} tokens): {final[:60]!r}; greedy gap f32 against the plain path in "
+        f"f16 {gaps['f32'][0]:.4e} (shifted control {gaps['f32'][1]:.3e}); the first decode "
+        f"step's max|dlogits| / max|logits| against the bf16 model {drift:.4e} (a reading)")
+    log(f"  {name} GLMDecoder ms a token in turns ({tokens} tokens): bf16 "
+        f"{tok_ms['bf16'][0]:.3f}, f16 {tok_ms['f16'][0]:.3f} / {tok_ms['f16'][1]:.3f}, bf16 "
+        f"{tok_ms['bf16'][1]:.3f}  [{smi}]")
     log(f"  {name} launch counts of the generate run: "
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
     del dec, dec_eager
@@ -6968,46 +7354,57 @@ def chat_f16(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decode
                     "replays": step.replays, "text": final[:80]}
 
 
-def engines_f16(torch, smi, params, cfg, a_reqs, short, seed):
+def engines_f16(torch, smi, params, cfg, a_reqs, short, seed, kv_dtype=None):
     """Phase 6 over an f16 pool, (a16): (a)'s engine (chunked admission, the
     prefix cache, the top-p row) with a float16 config: budgets, page
     accounting, prefix hits, the f16 forms launched (B3 / B4 never), every
     greedy token within GREEDY_GAP_TOL of the dense ``prefill_chunk`` in f16
     over an f16 cache (its logits read in f32), tok/s and the busy share of
-    a decode-only step."""
+    a decode-only step.  With ``kv_dtype`` fp8, (a16f8): the same over an
+    fp8 pool (the attention forms as ``<k>_fp8_f16``), F16_NEW_TOKENS a
+    request and no busy-share run."""
     from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig
     from chatglm_q_tpu_torch.serving import PagedServingEngine
 
     f16 = torch.float16
+    kv = kv_dtype or f16
+    tag, form = ("(a16f8)", "fp8_f16") if kv_dtype else ("(a16)", "f16")
+    if kv_dtype:
+        a_reqs = [(p, {**kw, "max_new_tokens": F16_NEW_TOKENS}) for p, kw in a_reqs]
     params = f16_tree(torch, params)  # as a float16 checkpoint of the tree loads
     load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="float16")
     eng = PagedServingEngine(load, params, num_pages=POOL_PAGES, page_size=PAGE,
                              prefill_chunk_size=PAGE, prefix_cache=True, rt=TorchRuntimeConfig(),
-                             seed=seed + 3, **ENGINE_KW)
-    require(eng.cache.k_pool.dtype == f16, f"(a16) the pool is {eng.cache.k_pool.dtype}")
-    done, res = drive(torch, eng, a_reqs, "(a16) paged, chunked + prefix cache, f16")
-    require(eng.pages_in_use == 0, f"(a16): {eng.pages_in_use} pages in use after the drain")
-    require(eng.stats["prefix_hits"] > 0, "(a16): no prefix hit")
+                             seed=seed + 3, kv_dtype=kv_dtype, **ENGINE_KW)
+    require(eng.cache.k_pool.dtype == kv, f"{tag} the pool is {eng.cache.k_pool.dtype}")
+    done, res = drive(torch, eng, a_reqs, f"{tag} paged, chunked + prefix cache, f16 over "
+                                          f"{str(kv)[6:]}")
+    require(eng.pages_in_use == 0, f"{tag}: {eng.pages_in_use} pages in use after the drain")
+    require(eng.stats["prefix_hits"] > 0, f"{tag}: no prefix hit")
     eng.clear_prefix_cache()
     require(len(eng._free_pages) == POOL_PAGES - 1,
-            f"(a16): {len(eng._free_pages)} pages free after clearing the prefix cache")
+            f"{tag}: {len(eng._free_pages)} pages free after clearing the prefix cache")
     c = res["launches"]
-    for kern in ("int4g32_splitk", "int4g32_mma", "rope_kv_append",
-                 "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
+    for kern in ("int4g32_splitk", "int4g32_mma"):
         require(c[kern + "_f16"] > 0 and c[kern + "_f16"] == c[kern],
-                f"(a16): {kern} launched {c[kern]} times, {c[kern + '_f16']} in f16")
+                f"{tag}: {kern} launched {c[kern]} times, {c[kern + '_f16']} in f16")
+    for kern in ("rope_kv_append", "flash_attention_decode_paged", "flash_attention_prefill_chunk"):
+        require(c[f"{kern}_{form}"] > 0 and c[f"{kern}_{form}"] == c[kern],
+                f"{tag}: {kern} launched {c[kern]} times, {c[f'{kern}_{form}']} as {form}")
     require(c["kv_cache_write_idx"] == 0 and c["flash_attention_decode"] == 0,
-            "(a16) launched B3/B4")
-    res["busy"] = chunk_busy(torch, eng, short, "(a16)")
+            f"{tag} launched B3/B4")
+    if not kv_dtype:
+        res["busy"] = chunk_busy(torch, eng, short, tag)
     del eng
-    res["gaps"] = greedy_gaps(torch, params, cfg, done, a_reqs, kv_dtype=f16, dtype=f16)
+    res["gaps"] = greedy_gaps(torch, params, cfg, done, a_reqs, kv_dtype=kv, dtype=f16)
     g = res["gaps"]["f32"]
     require(g[0] <= GREEDY_GAP_TOL and g[1] > GREEDY_GAP_TOL,
-            f"(a16): greedy gap {g[0]} against the dense f16 prefill_chunk (shifted control "
-            f"{g[1]})")
-    log(f"    (a16) greedy gap f32 {g[0]:.4e} (shifted control {g[1]:.3e}); "
-        f"{res['tok_per_s']:.1f} tok/s, busy share of a decode-only step "
-        f"{100 * res['busy']['busy_share']:.1f}%  [{smi}]")
+            f"{tag}: greedy gap {g[0]} against the dense f16 prefill_chunk over "
+            f"{str(kv)[6:]} (shifted control {g[1]})")
+    busy = (f", busy share of a decode-only step {100 * res['busy']['busy_share']:.1f}%"
+            if "busy" in res else "")
+    log(f"    {tag} greedy gap f32 {g[0]:.4e} (shifted control {g[1]:.3e}); "
+        f"{res['tok_per_s']:.1f} tok/s{busy}  [{smi}]")
     return c, res
 
 
@@ -7069,28 +7466,48 @@ def launcher_f16(torch, smi, tokenizer, prompt):
 
 
 def f16_slice(torch, smi):
-    """``--fp16``: phase 2's f16 rows, the f16 runs of phases 5 and 6 and the
-    launcher run, on their own."""
-    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    """``--fp16``: phase 2's f16 rows, the f16 runs of phases 5, 6 and 7 and
+    the launcher run, on their own."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig, ops
     from chatglm_q_tpu_torch.bench import random_quantized_params
     from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+    from chatglm_q_tpu_torch.utils.train import partition_params
 
     rows = check_f16_kernels(torch)
     cfg = ChatGLM2Config()
     tokenizer = chat_tokenizer()
     prompt = chat_template([], CHAT_QUESTION)
     ids = tokenizer.encode(prompt)
-    chat, counts = {}, {}
+    chat, counts, train = {}, {}, {}
     for quant in ("int8", "int4g32"):
         params = random_quantized_params(cfg, quant,
                                          torch.Generator(device="cuda").manual_seed(41))
         load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="bfloat16")
-        decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
-                             rt=TorchRuntimeConfig())
-        run_generate(decoder, prompt)  # its programs captured before the turns
-        counts[quant], chat[quant] = chat_f16(torch, smi, params, cfg, quant, tokenizer,
-                                              prompt, ids, decoder)
-        del decoder
+        for dyn in (False, True):
+            decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                                 rt=TorchRuntimeConfig(dynamic_int8=dyn))
+            run_generate(decoder, prompt)  # its programs captured before the turns
+            name = mode_name(quant, dyn)
+            counts[name], chat[name] = chat_f16(
+                torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder, dyn=dyn,
+                tokens=F16_NEW_TOKENS if dyn else CHAT_TOKENS)
+            if name == "int4g32":
+                counts["int4g32 fp8"], chat["int4g32 fp8"] = chat_f16(
+                    torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder,
+                    kv_dtype=torch.float8_e4m3fn, tokens=F16_NEW_TOKENS)
+            del decoder
+        # phase 7's f16 fine-tuning on the same tree
+        trainable, frozen = partition_params(params)
+        start = map_tree(trainable, lambda t: None if t is None else
+                         t.detach().clone().requires_grad_(True))
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        tids = torch.randint(0, cfg.vocab_size, (FT_BATCH, FT_SEQ), device="cuda", generator=gen)
+        tlabels = tids.clone()
+        tlabels[:, :FT_IGNORED] = -100
+        tc = counts[f"{quant} train"] = dict.fromkeys(ops.launch_counts(), 0)
+        train[quant] = f16_fine_tune(torch, smi, cfg, quant, start, frozen, tids, tlabels,
+                                     lambda c: tc.update({k: tc[k] + v for k, v in c.items()}))
+        del trainable, frozen, start
         if quant == "int8":
             del params
             torch.cuda.empty_cache()
@@ -7098,10 +7515,13 @@ def f16_slice(torch, smi):
     short = [(p[:128], {**kw, "temperature": 0.0, "max_new_tokens": 256})
              for p, kw in a_reqs[:4]]
     counts["a16"], engines = engines_f16(torch, smi, params, cfg, a_reqs, short, 61)
+    counts["a16f8"], engines_fp8 = engines_f16(torch, smi, params, cfg, a_reqs, short, 61,
+                                               torch.float8_e4m3fn)
     del params
     torch.cuda.empty_cache()
     launcher = launcher_f16(torch, smi, tokenizer, prompt)
-    return {"rows": rows, "chat": chat, "a16": engines, "launcher": launcher,
+    return {"rows": rows, "chat": chat, "a16": engines, "a16f8": engines_fp8,
+            "launcher": launcher, "fine_tune_f16": train,
             "counts": {k: {n: v for n, v in c.items() if v} for k, c in counts.items()}}
 
 
@@ -7137,6 +7557,9 @@ def main() -> int:
     if "--gap-seeds" in sys.argv:
         seeds = sys.argv[sys.argv.index("--gap-seeds") + 1]
         return gap_survey(torch, smi, [int(v) for v in seeds.split(",")])
+    if "--f16-train-seeds" in sys.argv:  # phase 7's f16 grads against the plain path
+        seeds = sys.argv[sys.argv.index("--f16-train-seeds") + 1]
+        return f16_train_survey(torch, smi, [int(v) for v in seeds.split(",")])
     if "--short-seeds" in sys.argv:  # phase 7's 16-token grads against the plain path
         seeds = sys.argv[sys.argv.index("--short-seeds") + 1]
         return short_survey(torch, smi, [int(v) for v in seeds.split(",")])
@@ -7234,8 +7657,8 @@ def main() -> int:
         seeds = sys.argv[sys.argv.index("--fp16-seeds") + 1]
         return f16_survey(torch, smi, [int(v) for v in seeds.split(",")])
     if "--fp16" in sys.argv:  # the float16 rows and runs alone
-        phase("== float16 activations: phase 2's f16 rows, the f16 runs of phases 5 and 6, the "
-              "float16-checkpoint launcher")
+        phase("== float16 activations: phase 2's f16 rows, the f16 runs of phases 5, 6 and 7, "
+              "the float16-checkpoint launcher")
         res = f16_slice(torch, smi)
         log("detail: " + json.dumps({"card": smi, "f16": res}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -7262,9 +7685,11 @@ def main() -> int:
     att_fp8 = check_fp8_attention(torch)
     att["fp8_store"] = att_fp8.pop("store")
     att.update(att_fp8)
-    phase("== phase 2 (f16): B1, B6 and every attention kernel's float16 form")
+    phase("== phase 2 (f16): B1, B6, B7, B8, B13, B14 and every attention kernel's float16 "
+          "form, over an f16 and an fp8 cache")
     f16_rows = check_f16_kernels(torch)
     att.update(f16_rows["attention"])
+    att["f16_fp8_store"] = f16_rows["fp8_store"]
 
     phase("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -7395,6 +7820,25 @@ def main() -> int:
                     "flash_attention_prefill")},
                 **{k: v for k, v in engine_counts.items() if k.endswith(" f16")}}
 
+    # the other float16 forms: B7 / B8 from phase 5's float16-config dynamic
+    # GLMDecoder runs, B13 / B14 from phase 7's f16 fine-tuning, and the
+    # attention kernels over an fp8 cache from phase 5's int4g32 f16 fp8 run
+    # and phase 6's (a16f8)
+    c8d, c4d, c16f8 = (chat_counts["int8+dyn f16"], chat_counts["int4g32+dyn f16"],
+                       chat_counts["int4g32 f16 fp8"])
+    f16_runs.update({
+        "int8_dyn_splitk f16": c8d["int8_dyn_splitk_f16"],
+        "int8_dyn_mma f16": c8d["int8_dyn_mma_f16"],
+        "int4_dyn_splitk f16": c4d["int4_dyn_splitk_f16"],
+        "int4_dyn_mma f16": c4d["int4_dyn_mma_f16"],
+        **{f"{k} f16": ft_counts[q][k + "_f16"] for q, k in (
+            ("int8", "int8_t_splitk"), ("int8", "int8_t_mma"),
+            ("int4g32", "int4g32_t_splitk"), ("int4g32", "int4g32_t_mma"))},
+        **{k + " fp8_f16": c16f8[k + "_fp8_f16"] for k in (
+            "rope_kv_append", "flash_attention_decode", "flash_attention_decode_v2",
+            "flash_attention_prefill")},
+        **{k: v for k, v in engine_counts.items() if k.endswith(" fp8_f16")}})
+
     def pick16(kernel, M, name="w_in_h/w_in_gate"):
         return next(r for r in f16_rows["matmul"] if r["kernel"] == kernel and r["M"] == M
                     and r["linear"] == name)
@@ -7414,8 +7858,27 @@ def main() -> int:
              att["flash_attention_prefill_chunk f16"]),
             ("rope_kv_append paged f16", att_src, f"{pa}:480", att["rope_kv_append paged f16"]),
             ("flash_attention_decode_paged f16", att_src, f"{pa}:787",
-             att["flash_attention_decode_paged f16"])):
+             att["flash_attention_decode_paged f16"]),
+            ("int8_dyn_splitk f16", dyn, f"{pm}:960", pick16("int8_dyn_splitk", 1)),
+            ("int8_dyn_mma f16", dyn, f"{pm}:960", pick16("int8_dyn_mma", 512)),
+            ("int4_dyn_splitk f16", dyn, f"{pm}:1040", pick16("int4_dyn_splitk", 1)),
+            ("int4_dyn_mma f16", dyn, f"{pm}:1040", pick16("int4_dyn_mma", 36)),
+            ("int8_t_splitk f16", mm8, f"{pm}:653", pick16("int8_t_splitk", 16)),
+            ("int8_t_mma f16", mm8, f"{pm}:653", pick16("int8_t_mma", 512)),
+            ("int4g32_t_splitk f16", mm4, f"{pm}:671", pick16("int4g32_t_splitk", 16)),
+            ("int4g32_t_mma f16", mm4, f"{pm}:671", pick16("int4g32_t_mma", 512))):
         specs.append((name, src, line, row, f16_runs))
+    for name, line, row in (
+            ("rope_kv_append fp8_f16", 427, "rope_kv_append fp8_f16"),
+            ("flash_attention_decode fp8_f16", 207, "flash_attention_decode fp8_f16"),
+            ("flash_attention_decode_v2 fp8_f16", 662, "flash_attention_decode_v2 fp8_f16"),
+            ("flash_attention_prefill fp8_f16", 43, "flash_attention_prefill fp8_f16"),
+            ("flash_attention_prefill_chunk fp8_f16", 43, "flash_attention_prefill_chunk fp8_f16"),
+            ("rope_kv_append paged fp8_f16", 480, "rope_kv_append paged fp8_f16"),
+            ("flash_attention_decode_paged fp8_f16", 787, "flash_attention_decode_paged fp8_f16")):
+        r = att[row]
+        r["bf16_ms"] = att[row.replace(" fp8_f16", " fp8")]["ms"]  # bf16 over the same fp8 cache
+        specs.append((name, att_src, f"{pa}:{line}", r, f16_runs))
     for name, line, row in (
             ("rope_kv_append fp8", 427, "rope_kv_append fp8"),
             ("flash_attention_decode fp8", 207, "flash_attention_decode fp8"),
@@ -7450,6 +7913,8 @@ def main() -> int:
             entries[-1]["old_path_ms"] = r["old_path_ms"]
         if r.get("bf16_ms") is not None:  # an fp8 or f16 form: its bf16 form's time beside it
             entries[-1]["bf16_form_ms"] = r["bf16_ms"]
+        if r.get("f16_ms") is not None:  # f16 over fp8: the f16 form on the upcast cache
+            entries[-1]["f16_form_ms"] = r["f16_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "f16_matmul_rows": f16_rows["matmul"],
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,

@@ -2435,18 +2435,18 @@ def test_fp8_captured_decode_steps_are_bit_equal_to_eager(gen):
 
 
 def test_attention_kernels_refuse_other_cache_and_activation_dtypes(gen):
-    """bf16 activations over a bf16 or fp8 cache, or f16 over f16, nothing
-    else: an f32 cache, an f16 cache under bf16 q, f16 q over an fp8
-    cache, or K and V of two dtypes raise, naming the pair."""
+    """bf16 or f16 activations over a cache of their dtype or of fp8,
+    nothing else: an f32 cache, an f16 cache under bf16 q, f32 q over an
+    fp8 cache, or K and V of two dtypes raise, naming the pair."""
     q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen).to(torch.bfloat16)
     k8, _ = _fp8(gen, (1, 2, 64, 128))
     lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
     for kk, vv, qq in ((k8.to(torch.bfloat16).float(),) * 2 + (q,),
-                       (k8.to(torch.float16),) * 2 + (q,), (k8, k8, q.half()),
+                       (k8.to(torch.float16),) * 2 + (q,), (k8, k8, q.float()),
                        (k8, k8.to(torch.bfloat16), q)):
-        with pytest.raises(TypeError, match="bf16 or float8_e4m3fn"):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
             A.flash_attention_decode(qq, kk, vv, lengths, 0.1)
-        with pytest.raises(TypeError, match="bf16 or float8_e4m3fn"):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
             A.flash_attention_prefill(qq[:, None], kk, vv, lengths + 1, 0.1)
     with pytest.raises(TypeError):  # f32 new into an fp8 cache would round twice
         A.kv_cache_write_idx(k8[None], q[:, :, 0].float(), 0, lengths)
@@ -2514,8 +2514,9 @@ def test_f16_matmuls_match_plain(gen, kind, M, K, N):
 
 
 def test_f16_matmul_entries_refuse_what_has_no_kernel(gen):
-    """The dtype code is checked at the entry: f16 at the dynamic and the
-    transposed entries, f32 at the tensor-core ones, an unknown code."""
+    """The dtype code is checked at the entry: f32 at the tensor-core ones
+    (the transposed split-K kernel too), an unknown code at the dynamic
+    one; the wrappers send f16 to B8 and B14's kernels."""
     packed, scale = _int4_weights(gen, 64, 16)
     x = torch.zeros((2, 64), dtype=F16, device="cuda")
     y = torch.empty((2, 16), dtype=F16, device="cuda")
@@ -2528,16 +2529,16 @@ def test_f16_matmul_entries_refuse_what_has_no_kernel(gen):
     sx = torch.ones((2,), device="cuda")
     with pytest.raises(RuntimeError):
         _build.call("chatglm_int4_dyn_splitk", x.data_ptr(), sx.data_ptr(), packed.data_ptr(),
-                    scale.data_ptr(), y.data_ptr(), None, arrivals.data_ptr(), 2, 64, 16, 2, 1,
+                    scale.data_ptr(), y.data_ptr(), None, arrivals.data_ptr(), 2, 64, 16, 3, 1,
                     8, 1, 2, 8, _build.stream_ptr(x))
+    g32 = torch.zeros((2, 16), device="cuda")
     with pytest.raises(RuntimeError):
-        _build.call("chatglm_int4_t_splitk", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), None, arrivals.data_ptr(), 2, 32, 64, 2, 1, 1, 1, 4,
+        _build.call("chatglm_int4_t_splitk", g32.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                    x.data_ptr(), None, arrivals.data_ptr(), 2, 64, 16, 0, 1, 1, 1, 4,
                     _build.stream_ptr(x))
-    with pytest.raises(TypeError):
-        D.int4_dyn_matmul(x, packed, scale)
-    with pytest.raises(TypeError):
-        QM.int4g32_matmul_t(torch.zeros((2, 16), dtype=F16, device="cuda"), packed, scale)
+    assert D.int4_dyn_matmul(x, packed, scale).dtype == F16
+    assert QM.int4g32_matmul_t(torch.zeros((2, 16), dtype=F16, device="cuda"), packed,
+                               scale).dtype == F16
 
 
 def _f16_cache(gen, shape):
@@ -2779,3 +2780,397 @@ def test_f16_checkpoint_serves_through_the_launch_path(gen, tmp_path):
             assert counts["int8_splitk_f16" if quant == "int8" else "int4g32_splitk_f16"] > 0
             texts[(quant, graphs)] = out
         assert texts[(quant, True)] == texts[(quant, False)]
+
+
+# ---------------------------------------------------------------------------
+# The last float16 forms: dynamic int8 (B7 / B8) with f16 outputs,
+# fine-tuning's backward (B13 / B14) on f16 gradients, and every attention
+# kernel under f16 activations over an fp8 cache
+# ---------------------------------------------------------------------------
+
+F16_DYN_EDGES = [(1, 4096, 4096), (4, 13824, 512), (16, 4096, 13824), (17, 4096, 512),
+                 (57, 4096, 4096), (64, 13824, 4096), (128, 4096, 65536), (512, 4096, 512)]
+
+
+@pytest.mark.parametrize("M,K,N", F16_DYN_EDGES)
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_f16_dyn_matmuls_match_plain(gen, kind, M, K, N):
+    """B7 and B8 with f16 outputs (split-K to 16 rows, wgmma above): one
+    launch of the route's kernel counted in its f16 form; B7 bit-equal to
+    its plain version, B8 within F16_TOL of it and within 2^-23 of
+    sum|terms| of its exact value beyond half an f16 ulp."""
+    call, _, plain, exact = _dyn_case(gen, kind, M, K, N, F16)
+    name = ("int8" if kind == "int8" else "int4") + ("_dyn_mma" if D.uses_mma(M, N)
+                                                    else "_dyn_splitk")
+    kernel = getattr(D, name)
+    before = kernel.launches, kernel.f16.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.f16.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == F16 and torch.isfinite(got).all() and not got[M // 2].any()
+    want = plain()
+    if kind == "int8":
+        assert torch.equal(got, want), _rel(got, want)
+    else:
+        assert _rel(got, want) <= F16_TOL
+        assert _beyond_sum_of(got, *exact(), 11) <= 2.0 ** -23
+
+
+@pytest.mark.parametrize("M", [1, 40])
+def test_f16_dyn_output_overflows_to_inf_as_plain(gen, M):
+    """Past 65,504 B7's f16 output is inf, as the plain version's (and
+    JAX's) astype gives: the kernels' epilogue rounds the f32 result once."""
+    K, N = 4096, 512
+    w, _ = _int8_weights(gen, K, N)
+    scale = torch.full((N,), 60.0, device="cuda")
+    x = torch.randn((M, K), device="cuda", generator=gen).to(F16)
+    got = D.int8_dyn_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    want = D.int8_dyn_matmul_plain(x, w, scale)
+    assert torch.isinf(want).any() and torch.equal(got, want)
+
+
+def _t_f16_case(gen, kind, M, K, N):
+    """(call, plain version, exact f64 value and sum|terms|) of one
+    transposed matmul on f16 g (M, N) with a zero row: B13's g · f16(s) and
+    B14's f16(f16(q) · f16(s)) in f16, the function the kernels compute."""
+    g = _x(gen, M, N, F16)
+    if kind == "int8":
+        w, scale = _int8_weights(gen, K, N)
+        gs, w64 = (g * scale.to(F16)).double(), w.double()
+        return (lambda: I8.int8_matmul_t(g, w, scale), lambda: I8.int8_matmul_t_plain(g, w, scale),
+                lambda: (gs @ w64.T, gs.abs() @ w64.abs().T))
+    packed, scale = _int4_t_weights(gen, K, N)
+    q = QM.unpack_int4_tpu(packed, torch.ones_like(scale)).to(F16)
+    w64 = (q.reshape(K // 32, 32, N) * scale.to(F16)[:, None]).reshape(K, N).double()
+    return (lambda: QM.int4g32_matmul_t(g, packed, scale),
+            lambda: QM.int4g32_matmul_t_plain(g, packed, scale),
+            lambda: (g.double() @ w64.T, g.double().abs() @ w64.abs().T))
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 512), (13824, 4096), (4096, 13824),
+                                 (4096, 65536), (256, 264)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 128, 512])
+@pytest.mark.parametrize("kind", ["int8", "int4g32"])
+def test_f16_t_matmuls_match_plain(gen, kind, M, K, N):
+    """B13 and B14 on f16 g (split-K to 16 rows and where N % 16 != 0,
+    wgmma above): one launch counted in its f16 form, within F16_TOL of the
+    plain version and within 2^-23 of sum|terms| of the exact value beyond
+    half an f16 ulp, the zero row zero; a second call bit-equal."""
+    call, plain, exact = _t_f16_case(gen, kind, M, K, N)
+    route = QM.t_route(M, N, F16)
+    kernel = {("int8", "splitk"): I8.int8_t_splitk, ("int8", "mma"): I8.int8_t_mma,
+              ("int4g32", "splitk"): QM.int4g32_t_splitk,
+              ("int4g32", "mma"): QM.int4g32_t_mma}[(kind, route)]
+    before = kernel.launches, kernel.f16.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.f16.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == F16 and got.shape == (M, K)
+    assert torch.isfinite(got).all() and not got[M // 2].any()
+    assert _rel(got, plain()) <= F16_TOL
+    assert _beyond_sum_of(got, *exact(), 11) <= 2.0 ** -23
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.parametrize("e", [-20, -27, 17])
+def test_f16_int4_t_follows_jax_past_the_normal_range(gen, e):
+    """B14's f16(s) below 2^-14 (a subnormal), below 2^-25 (0) and past
+    65,504 (inf: q · inf, 0 · inf = NaN): the kernels equal the plain
+    version, which follows JAX's kernel, at 1 and 128 rows."""
+    K, N = 4096, 512
+    packed, scale = _int4_t_weights(gen, K, N)
+    scale = (scale.float() * 50 * 2.0 ** e).to(torch.bfloat16)
+    for M in (1, 128):
+        g = torch.randn((M, N), device="cuda", generator=gen).to(F16)
+        got = QM.int4g32_matmul_t(g, packed, scale)
+        torch.cuda.synchronize()
+        want = QM.int4g32_matmul_t_plain(g, packed, scale)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        fin = ~torch.isnan(want)
+        if fin.any() and want[fin].abs().max() > 0:
+            assert _rel(got[fin], want[fin]) <= F16_TOL
+        else:
+            assert not got[fin].any()
+
+
+def test_f16_store_into_fp8_equals_kv_store_cast_over_every_f16_pattern(gen):
+    """All 65,536 f16 patterns through the write-only append (B3) and the
+    fused append's v (B9's pool) into fp8, byte for byte against
+    ``kv_store_cast`` on the card and on the CPU; counted in the
+    f16-over-fp8 form."""
+    bits = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16)
+    x = bits.view(F16).reshape(256, 2, 128)
+    want = A.kv_store_cast(x, FP8)
+    assert _bytes_equal(want.cpu(), A.kv_store_cast(x.cpu(), FP8))
+    cache = A.kv_zeros((2, 256, 2, 4, 128), FP8, "cuda")
+    starts = torch.full((256,), 3, dtype=torch.int32, device="cuda")
+    before = A.kv_cache_write_idx.fp8_f16.launches
+    A.kv_cache_write_idx(cache, x, 1, starts)
+    torch.cuda.synchronize()
+    assert A.kv_cache_write_idx.fp8_f16.launches == before + 1
+    assert _bytes_equal(cache[1, :, :, 3], want)
+    assert not cache[0].view(torch.uint8).any() and not cache[1, :, :, :3].view(torch.uint8).any()
+    q = torch.zeros((256, 2, 16, 128), dtype=F16, device="cuda")
+    kv = torch.cat([torch.zeros_like(x), x], dim=1).reshape(256, 512)
+    freqs = torch.zeros((256, 128), dtype=F16, device="cuda")
+    kp, vp = (A.kv_zeros((1, 257, 2, 16, 128), FP8, "cuda") for _ in range(2))
+    pt = torch.arange(1, 257, dtype=torch.int32, device="cuda")[:, None]
+    A.rope_kv_append(q, kv, freqs, kp, vp, 0, torch.full((256,), 5, dtype=torch.int32,
+                                                          device="cuda"), pt)
+    torch.cuda.synchronize()
+    assert _bytes_equal(vp[0, 1:, :, 5], want)
+
+
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "paged", "chunk", "prefill"])
+def test_f16_over_fp8_read_is_exact_for_all_256_bytes(gen, kind):
+    """As the bf16 readers' test: V slot 0 of two groups holds all 256
+    bytes, one valid slot, p = 1, so each head outputs the f16 upcast of
+    every byte; NaN where the byte is NaN."""
+    B, G, Hg, D, T = 1, 2, 4, 128, 64
+    v8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    v8.view(torch.uint8)[0, :, 0] = torch.arange(256, device="cuda").to(torch.uint8).reshape(2, 128)
+    k8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    want = v8[0, :, 0].to(F16)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    if kind in ("decode", "decode_v2"):
+        fn = A.flash_attention_decode if kind == "decode" else A.flash_attention_decode_v2
+        out = fn(q, k8, v8, zero, 0.1)[0]
+    elif kind == "prefill":
+        out = A.flash_attention_prefill(q[:, None], k8, v8, zero + 1, 0.1)[0, 0]
+    else:
+        kp, vp = k8[None], v8[None]
+        pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+        if kind == "paged":
+            out = A.flash_attention_decode_paged(q, kp, vp, 0, pt, zero, 0.1)[0]
+        else:
+            out = A.flash_attention_chunk_paged(q[:, None], kp, vp, 0, pt, zero, 0.1)[0, 0]
+    torch.cuda.synchronize()
+    got = out.float()
+    ref = want.float()[:, None].expand_as(got)
+    nan = torch.isnan(ref)
+    assert nan.sum() == 2 * Hg
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan])
+
+
+def _fp8_f16(gen, shape):
+    """A random fp8 cache tensor and its exact f16 upcast."""
+    k8, _ = _fp8(gen, shape)
+    return k8, k8.to(F16)
+
+
+@pytest.mark.parametrize("B,T", [(6, 200), (10, 1000)])
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "lse"])
+def test_f16_over_fp8_decode_forms_equal_the_f16_form_on_the_upcast_cache(gen, kind, B, T):
+    """B4, B12 and K1 under f16 over an fp8 cache: counted in that form,
+    bit-equal to the f16 form over the cache upcast to f16, within F16_TOL
+    of the plain version."""
+    G, Hg, D = 2, 16, 128
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    (k8, k16), (v8, v16) = _fp8_f16(gen, (B, G, T, D)), _fp8_f16(gen, (B, G, T, D))
+    lengths = _decode_edges(B, T, A.decode_span(B * G, T, A.DECODE_BLOCK_K))
+    sm = 1 / math.sqrt(D)
+    fn, plain = {"decode": (A.flash_attention_decode, A.flash_attention_decode_plain),
+                 "decode_v2": (A.flash_attention_decode_v2, A.flash_attention_decode_v2_plain),
+                 "lse": (lambda *a: A.flash_attention_decode_lse(*a, T // 2),
+                         lambda *a: A.flash_attention_decode_lse_plain(*a, T // 2))}[kind]
+    wrapper = {"decode": A.flash_attention_decode, "decode_v2": A.flash_attention_decode_v2,
+               "lse": A.flash_attention_decode_lse}[kind]
+    before = wrapper.fp8_f16.launches
+    got = fn(q, k8, v8, lengths, sm)
+    same = fn(q, k16, v16, lengths, sm)
+    torch.cuda.synchronize()
+    assert wrapper.fp8_f16.launches == before + 1
+    pairs = zip(got, same) if kind == "lse" else [(got, same)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    want = plain(q, k8, v8, lengths, sm)
+    if kind == "lse":
+        _hold_lse(got, want)
+    else:
+        assert got.dtype == F16 and _rel(got, want) <= F16_TOL
+
+
+@pytest.mark.parametrize("P,MP", [(16, 64), (256, 4)])
+def test_f16_over_fp8_paged_forms_equal_the_f16_form_on_the_upcast_pool(gen, P, MP):
+    """B10, K2 (each phase of a stride-2 table) and B11 (S = 1, 9, 32, with
+    a row map) under f16 over an fp8 pool: bit-equal to the f16 form on the
+    upcast pool, within F16_TOL of the plain version."""
+    L, G, Hg, D, B = 2, 2, 16, 128, 10
+    NP = B * MP + 1
+    (kp8, kp16), (vp8, vp16) = _fp8_f16(gen, (L, NP, G, P, D)), _fp8_f16(gen, (L, NP, G, P, D))
+    pt = _scattered_table(gen, B, MP, NP)
+    lengths = _paged_decode_edges(P, MP, B)
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen).to(F16)
+    got = A.flash_attention_decode_paged(q, kp8, vp8, 1, pt, lengths, sm)
+    assert torch.equal(got, A.flash_attention_decode_paged(q, kp16, vp16, 1, pt, lengths, sm))
+    assert _rel(got, A.flash_attention_decode_paged_plain(q, kp8, vp8, 1, pt, lengths,
+                                                          sm)) <= F16_TOL
+    half = pt[:, ::2].contiguous()
+    for phase in (0, 1):
+        got = A.flash_attention_decode_paged_lse(q, kp8, vp8, 1, half, lengths, sm, 2, phase)
+        same = A.flash_attention_decode_paged_lse(q, kp16, vp16, 1, half, lengths, sm, 2, phase)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        _hold_lse(got, A.flash_attention_decode_paged_lse_plain(q, kp8, vp8, 1, half, lengths,
+                                                                sm, 2, phase))
+    starts = torch.tensor([0, P - 2, 300, MP * P - 40, 7], dtype=torch.int32, device="cuda")
+    rmap = torch.tensor([5, 0, 3, 1, 2], dtype=torch.int32, device="cuda")
+    for S in (1, 9, 32):
+        qc = torch.randn((5, S, G, Hg, D), device="cuda", generator=gen).to(F16)
+        got = A.flash_attention_chunk_paged(qc, kp8, vp8, 0, pt, starts, sm, rmap)
+        same = A.flash_attention_chunk_paged(qc, kp16, vp16, 0, pt, starts, sm, rmap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, same), S
+        want = A.flash_attention_chunk_paged_plain(qc, kp8, vp8, 0, pt, starts, sm, rmap)
+        assert _rel(got, want) <= F16_TOL
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_f16_over_fp8_prefill_forms_equal_the_f16_form_on_the_upcast_cache(gen, chunked):
+    """B5 (whole prompt, and the chunked form with a row map) under f16
+    over an fp8 cache: bit-equal to the f16 form on the upcast cache."""
+    G, Hg, D, T, S = 2, 16, 128, 512, 64 if chunked else 130
+    Bk = 4 if chunked else 3
+    (k8, k16), (v8, v16) = _fp8_f16(gen, (Bk, G, T, D)), _fp8_f16(gen, (Bk, G, T, D))
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((3, S, G, Hg, D), device="cuda", generator=gen).to(F16)
+    if chunked:
+        starts = torch.tensor([200, 3, 447], dtype=torch.int32, device="cuda")
+        lengths = starts + torch.tensor([40, 64, 0], dtype=torch.int32, device="cuda")
+        rmap = torch.tensor([3, 1, 0], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill_chunk(q, k8, v8, lengths, starts, sm, rmap)
+        same = A.flash_attention_prefill_chunk(q, k16, v16, lengths, starts, sm, rmap)
+        want = A.flash_attention_prefill_plain(q, k8, v8, lengths, sm, starts, rmap)
+    else:
+        lengths = torch.tensor([S, 0, 12], dtype=torch.int32, device="cuda")
+        got = A.flash_attention_prefill(q, k8, v8, lengths, sm)
+        same = A.flash_attention_prefill(q, k16, v16, lengths, sm)
+        want = A.flash_attention_prefill_plain(q, k8, v8, lengths, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same) and _rel(got, want) <= F16_TOL
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+def test_f16_over_fp8_rope_kv_append_is_bit_equal_to_plain(gen, B, paged):
+    """B3 / B9 with the RoPE in f16 into an fp8 cache or pool, and K3 on
+    each shard of a 2-way split: the rotated q and every stored byte equal
+    the plain sequence's (RoPE in f16, then ``kv_store_cast``)."""
+    q, kv, freqs, k, v, pt, cap = _rope_case(gen, B, paged)
+    q, kv, freqs = q.to(F16), kv.to(F16), freqs.to(F16)
+    k, v = A.kv_store_cast(k, FP8), A.kv_store_cast(v, FP8)
+    starts = torch.tensor([7, cap - 1, cap, cap + 300][:B], dtype=torch.int32, device="cuda")
+    kr, vr = (t.view(torch.uint8).clone().view(FP8) for t in (k, v))
+    before = A.rope_kv_append.fp8_f16.launches
+    got = A.rope_kv_append(q, kv, freqs, k, v, 2, starts, pt)
+    want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 2, starts, pt)
+    torch.cuda.synchronize()
+    assert A.rope_kv_append.fp8_f16.launches == before + 1
+    assert got.dtype == F16 and torch.equal(got, want)
+    assert _bytes_equal(k, kr) and _bytes_equal(v, vr)
+    for r in range(2):
+        shard = (A.KVShard(stride=2, phase=r, total=cap) if paged
+                 else A.KVShard(offset=r * (cap // 2), total=cap))
+        own = slice(r * (cap // 2), (r + 1) * (cap // 2))
+        hk8, hv8 = ((t if paged else t[:, :, :, own]).view(torch.uint8).contiguous().view(FP8)
+                    for t in (k, v))
+        kk, vv = (t.view(torch.uint8).clone().view(FP8) for t in (hk8, hv8))
+        table = None if pt is None else pt[:, r::2].contiguous()
+        got = A.rope_kv_append_sharded(q, kv, freqs, hk8, hv8, 1, starts, shard, table)
+        want = A.rope_kv_append_sharded_plain(q, kv, freqs, kk, vv, 1, starts, shard, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _bytes_equal(hk8, kk) and _bytes_equal(hv8, vv), r
+
+
+def test_f16_over_fp8_captured_decode_steps_equal_eager(gen):
+    """``multi_step_decode`` at depth 2, 6B widths, f16 activations over an
+    fp8 cache: captured against eager over 8 steps, the tokens and every
+    cache byte equal; the f16-over-fp8 attention forms launched."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg, params = _depth2_tree(gen)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 40, 17, 3], dtype=torch.int32, device="cuda")
+    cache = M.init_kv_cache(cfg, 4, 256, FP8)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", F16)
+    assert logits.dtype == F16 and torch.isfinite(logits).all()
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def copy(t):
+        return t.view(torch.uint8).clone().view(FP8)
+
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(copy(cache.k), copy(cache.v), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, "int4g32", F16,
+                                        TorchRuntimeConfig(cuda_graphs=graphs))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and _bytes_equal(c0.k, c1.k) and _bytes_equal(c0.v, c1.v)
+    assert n0 == n1 and n1["rope_kv_append_fp8_f16"] == n1["rope_kv_append"] == \
+        8 * cfg.num_layers
+    assert n1["flash_attention_decode_fp8_f16"] == 8 * cfg.num_layers
+
+
+@pytest.mark.parametrize("quant", ["int4g32", "int8"])
+def test_f16_captured_dyn_decode_steps_equal_eager(gen, quant):
+    """``multi_step_decode`` with ``dynamic_int8`` at depth 2, f16: captured
+    against eager over 8 steps, tokens and cache equal, B7 / B8's f16 forms
+    launched."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg = ChatGLM2Config(num_layers=2)
+    params = random_quantized_params(cfg, quant, gen)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda", generator=gen)
+    lengths = torch.tensor([64, 40, 17, 3], dtype=torch.int32, device="cuda")
+    rt = dict(dynamic_int8=True)
+    cache = M.init_kv_cache(cfg, 4, 256, F16)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, quant, F16,
+                              TorchRuntimeConfig(**rt))
+    first = torch.argmax(logits, -1).to(torch.int32)
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, quant, F16,
+                                        TorchRuntimeConfig(cuda_graphs=graphs, **rt))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and torch.equal(c0.k, c1.k) and torch.equal(c0.v, c1.v)
+    kern = "int8_dyn_splitk" if quant == "int8" else "int4_dyn_splitk"
+    assert n0 == n1 and n1[kern + "_f16"] == n1[kern] > 0
+
+
+@pytest.mark.parametrize("quant", ["int4g32", "int8"])
+def test_f16_captured_training_step_equals_eager_over_3_steps(gen, quant):
+    """The training step in f16 (B13 / B14 on f16 g): captured against
+    eager, the losses bit-equal over 3 steps, the backward's f16 forms
+    launched."""
+    from chatglm_q_tpu_torch import ops
+    from chatglm_q_tpu_torch.utils.train import (make_train_step, partition_params,
+                                                 trainable_leaves)
+
+    cfg, params = _prog_tree(gen, quant)
+    losses, counts = {}, {}
+    for S in (64, 8):  # 2 x 64 rows: the Hopper backward; 1 x 8: the split-K one
+        ids = torch.randint(0, 1024, (2 if S == 64 else 1, S), device="cuda", generator=gen)
+        labels = ids.clone()
+        labels[:, :2] = -100
+        for k, rt in _rts().items():
+            tr, fr = partition_params(params)
+            opt = torch.optim.AdamW(trainable_leaves(tr), lr=1e-3, capturable=True)
+            step = make_train_step(cfg, quant, opt, F16, rt)
+            ops.reset_launch_counts()
+            losses[(S, k)] = [step(tr, fr, ids, labels).item() for _ in range(3)]
+            counts[(S, k)] = ops.launch_counts()
+        assert losses[(S, "captured")] == losses[(S, "eager")]
+        assert all(math.isfinite(x) for x in losses[(S, "eager")])
+    t = "int8_t" if quant == "int8" else "int4g32_t"
+    assert counts[(64, "eager")][t + "_mma_f16"] > 0 and counts[(8, "eager")][t + "_splitk_f16"] > 0

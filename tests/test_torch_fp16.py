@@ -5,11 +5,12 @@ against the JAX package, on the CPU, fed the same numpy inputs.
   its f16x2 pair over f16 1024 (csrc/common.cuh ``nibble_pair<__half>``),
   over all 256 bytes at each byte position of a word, and four int8 bytes
   to two f16x2 pairs (``s8x4_f16x2``), over all 256 values.
-* Routing and refusal on tensors that say they are on CUDA: B1 / B6 send
-  f16 to their tensor-core kernels, every matmul entry receives the
-  activations' dtype code, every attention entry the f16 form's code;
-  f16 to B7 / B8 / B13 / B14, f32 or f16 over fp8 to an attention kernel,
-  raise ``TypeError``.
+* Routing and refusal on tensors that say they are on CUDA: B1 / B6 (and
+  B13 / B14) send f16 to their tensor-core kernels, every matmul entry
+  receives the activations' dtype code, every attention entry the f16
+  form's code; f32 attention, or f16 activations over a bf16 cache, raise
+  ``TypeError`` (B7 / B8 / B13 / B14 in f16 and f16 over fp8 are ported:
+  tests/test_torch_fp16_rest.py).
 * Each plain version in f16 against JAX's function in f16 (its Pallas
   kernel in interpret mode): B1 / B2 and B6 at M = 1, 4, 36, 128; B4, B12,
   B10, B11, B5 (both forms), K1, K2; the writes B3 / B9, the fused RoPE +
@@ -189,8 +190,8 @@ def test_routes_send_f16_to_the_tensor_cores():
     for M in (17, 36, 128):
         assert I8.int8_route(M, 4096, F16) == "mma"
     assert QM.uses_mma(17, 4096, F16) and not QM.uses_mma(17, 4096, torch.float32)
-    # the backward keeps bf16 / f32 only (f16 g: not ported)
-    assert QM.t_route(512, 4096, F16) == "gemv"
+    # the backward takes f16 g as bf16 g: the Hopper kernel above 16 rows
+    assert QM.t_route(512, 4096, F16) == "mma" and QM.t_route(16, 4096, F16) == "splitk"
 
 
 # (wrapper, M, N, entry, index of M among its arguments: M, K, N, then the
@@ -219,21 +220,28 @@ def test_matmul_entries_receive_the_f16_dtype_code(fake_launch, kind, M, N, entr
 
 
 def test_unported_f16_forms_raise_naming_the_dtype(fake_launch):
+    """What stays unported raises naming the dtype pair: f16 activations
+    over a bf16 cache (two 16-bit types) and f32 attention over any cache.
+    The f16 forms of B7 / B8 / B13 / B14 (and f16 over an fp8
+    cache, tests/test_torch_fp16_rest.py) reach their kernels."""
     x = _fake(torch.zeros((4, 256), dtype=F16))
     w8, s8 = torch.zeros((256, 256), dtype=torch.int8), torch.ones(256)
     p4, s4 = torch.zeros((128, 256), dtype=torch.uint8), torch.ones((8, 256), dtype=torch.bfloat16)
-    for fn, args in ((D.int8_dyn_matmul, (x, w8, s8)), (D.int4_dyn_matmul, (x, p4, s4)),
-                     (I8.int8_matmul_t, (x, w8, s8)), (QM.int4g32_matmul_t, (x, p4, s4))):
-        with pytest.raises(TypeError, match="float16"):
+    for fn, args, entry in ((D.int8_dyn_matmul, (x, w8, s8), "chatglm_int8_dyn_splitk"),
+                            (D.int4_dyn_matmul, (x, p4, s4), "chatglm_int4_dyn_splitk"),
+                            (I8.int8_matmul_t, (x, w8, s8), "chatglm_int8_t_splitk"),
+                            (QM.int4g32_matmul_t, (x, p4, s4), "chatglm_int4_t_splitk")):
+        with pytest.raises(_Launched) as launched:  # the f16 forms: ported
             fn(*args)
+        assert launched.value.args[0] == entry
     q = _fake(torch.zeros((2, 2, 4, 128)))
     k = _fake(torch.zeros((2, 2, 64, 128)))
     lens = _fake(torch.zeros((2,), dtype=torch.int32))
     with pytest.raises(TypeError, match="float32"):  # f32 attention: not ported
         A.flash_attention_decode(q, k, k, lens, 0.1)
-    with pytest.raises(TypeError, match="float8_e4m3fn"):  # f16 over an fp8 cache: not ported
-        A.flash_attention_decode(q.to(F16), k.to(A.FP8), k.to(A.FP8), lens, 0.1)
-    with pytest.raises(TypeError):  # the activations and the cache in two 16-bit types
+    with pytest.raises(TypeError, match="float8_e4m3fn"):  # f32 over an fp8 cache: not ported
+        A.flash_attention_decode(q, k.to(A.FP8), k.to(A.FP8), lens, 0.1)
+    with pytest.raises(TypeError, match="bfloat16"):  # two 16-bit types
         A.flash_attention_decode(q.to(F16), k.to(torch.bfloat16), k.to(torch.bfloat16), lens, 0.1)
 
 

@@ -6,7 +6,7 @@ CPU, fed the same numpy inputs.
   wherever JAX's cast is finite; where JAX gives NaN (±464 and beyond, ±inf)
   the port saturates to ±448, and every NaN is stored as 0x7F.
 * The read: the kernels' e4m3 -> bf16 conversion (csrc/attention.cu
-  ``e4m3x8_bf16``) emulated with its bit operations over all 256 bytes,
+  ``e4m3x8_act<bf16>``) emulated with its bit operations over all 256 bytes,
   against JAX's upcast and ``Tensor.to(torch.bfloat16)``, NaN bytes
   included.
 * C4: each plain attention version on fp8 K/V against JAX's Pallas kernel
@@ -145,7 +145,7 @@ def _e4m3x2_bf16x2(x):
 
 
 def e4m3_to_bf16_emulated(b):
-    """csrc e4m3x8_bf16 over bytes b (a multiple of 8): bf16 bit patterns."""
+    """csrc e4m3x8_act<bf16> over bytes b (a multiple of 8): bf16 bit patterns."""
     w = b.reshape(-1, 2, 4).view(np.uint32).reshape(-1, 2)  # little endian words
     words = []
     for wi in (w[:, 0], w[:, 1]):

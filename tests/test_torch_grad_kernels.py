@@ -210,7 +210,7 @@ def test_transposed_wrappers_refuse_what_they_cannot_take(fake_launch):
     g = torch.zeros((4, 12)).as_subclass(_FakeCuda)  # N % 8 != 0
     with pytest.raises(ValueError):
         I8.int8_matmul_t(g, torch.zeros((32, 12), dtype=torch.int8), torch.ones(12))
-    g = torch.zeros((4, 16), dtype=torch.float16).as_subclass(_FakeCuda)
+    g = torch.zeros((4, 16), dtype=torch.float64).as_subclass(_FakeCuda)  # f16 g: ported
     with pytest.raises(TypeError):
         QM.int4g32_matmul_t(g, torch.zeros((16, 16), dtype=torch.uint8),
                             torch.ones((1, 16), dtype=torch.bfloat16))

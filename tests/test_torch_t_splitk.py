@@ -15,7 +15,7 @@ int4g32 views.  What can be checked without the card:
   wrappers reach that launch.
 * The fragments, emulated in numpy from each lane's loads: the int8 rows'
   words through ``s8x4_bf16x2`` and the packed rows through
-  ``int4_rows_bf16x2`` times the group's scale pair into m16n8k16 A
+  ``int4_rows_pair<bf16>`` times the group's scale pair into m16n8k16 A
   registers, g's staged rows as B in the permuted contraction order; every
   (output row, g row) product of a chunk lands in the D element the
   epilogue stores for that row.
@@ -233,7 +233,7 @@ def nibble_pair_bf16x2(v):
 
 
 def int4_rows_bf16x2(v):
-    """common.cuh int4_rows_bf16x2: bytes b0, b1 (bits 0-15 of v) → (lo, hi)
+    """common.cuh int4_rows_pair<bf16>: bytes b0, b1 (bits 0-15 of v) → (lo, hi)
     = (low nibbles of b0, b1), (high nibbles of b0, b1)."""
     v4 = v >> 4
     return (nibble_pair_bf16x2(byte_perm(v, v4, 0x4140)),

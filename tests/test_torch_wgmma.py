@@ -13,8 +13,8 @@ the card:
   H100's opt-in limit; ``kv_proj``'s 4 column tiles split to fill the card.
 * Routing unchanged: bf16 above MMA_MIN_M with N % 16 == 0.
 * The conversions (csrc/common.cuh), emulated bit for bit:
-  ``s8x4_bf16x2`` exact over all 256 bytes; B14's ``int4_rows_bf16x2``
-  times ``bf16x2_mul`` equal to ``unpack_int4_tpu(...).to(bf16)`` over all
+  ``s8x4_bf16x2`` exact over all 256 bytes; B14's ``int4_rows_pair<bf16>``
+  times ``mul2<bf16>`` equal to ``unpack_int4_tpu(...).to(bf16)`` over all
   16 nibbles in both nibble positions and a sweep of scales; B13's fold
   bf16(g · bf16(s)) equal to the plain version's ``g * scale.to(bf16)``,
   its 256 threads covering every (row, 16-byte chunk) of a g stage once
