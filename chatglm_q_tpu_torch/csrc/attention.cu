@@ -158,6 +158,35 @@
 // = f16(p) and lo = f16(p - hi); the append rounds each RoPE product and
 // sum to f16, and over an fp8 cache stores f16 -> f32 -> e4m3 as from
 // bf16.
+//
+// float32 (a float32 checkpoint, GLMLoadConfig's default dtype: f32
+// activations over an f32 cache, or over an fp8 one; forms 4 and 5).  The
+// TPU kernels run f32 as they run any dtype, and the limit is f32's (1e-5
+// of max|out|), which TF32 (10 mantissa bits) cannot meet, so the f32 forms
+// take no tensor-core path: A = float instantiates CUDA-core bodies
+// (kIsF32) inside the same kernels.  Each thread computes by FFMA exactly
+// the elements the m16n8 mma tiles would hand it (qk_16keys: scores of rows
+// gid, gid + 8 and keys 2 tig + {0, 1} of each 8-key tile; pv_16keys_f32:
+// acc's columns n * 8 + 2 tig + {0, 1}, p shuffled across the quad), so
+// the online softmax, the warps' merge, the span merges, the masks and the
+// epilogues are the 16-bit forms' code; q stays in shared memory (QRows<
+// float>) instead of fragments.  The rounding points are the TPU's in f32:
+// B4 scales the f32 score by sm_scale, B10 / B11 / B12 round q * sm_scale to
+// f32 first (decode while staging q, the chunk kernel in place in each
+// warp's rows), p stays f32 through PV everywhere.  Staged rows are 528
+// bytes (kRow<float>: one 16-byte chunk of padding, so a quarter-warp's
+// float4 loads of 4 K rows or 2 q rows hit distinct banks).  Shared memory:
+// f32 tiles are twice as large, and both rings still fit a block's 227 KB,
+// so the 16-bit forms' depths stay: decode keeps its 3-stage ring (16 q
+// rows + 3 x (K, V) x 64 rows = 211,200 bytes; over fp8 125,184), prefill
+// its 2 stages beside its 128 q rows (202,752 bytes; over fp8 167,936); one
+// block per SM either way.  Over an fp8 cache each landed stage converts
+// exactly to the f32 tile (land8: e4m3 -> bf16 exactly, then widened).
+// The append's vectors hold 4 floats (rope_vec rotates two pairs, each
+// product and sum the f32 op PyTorch runs), and into an fp8 cache it
+// rounds f32 -> e4m3 once (store_vec: the clamp, then cvt.rn.satfinite
+// from f32), as JAX's new.astype(float8_e4m3fn) does.  3xTF32 or split
+// bf16 on the tensor cores is later work.
 #include "common.cuh"
 
 namespace {
@@ -171,8 +200,16 @@ using e4m3 = uint8_t;  // a float8_e4m3fn cache element, as its byte
 // ---------------------------------------------------------------------------
 
 constexpr int ATT_D = 128;            // head dim the kernels are built for
-constexpr int KV_STRIDE = ATT_D + 8;  // bf16 per staged row: 272 bytes, so the 8 rows
-                                      // of one ldmatrix phase fall in distinct banks
+template <class E>
+constexpr bool kIsF32 = std::is_same_v<E, float>;
+template <class E>
+constexpr int kVec = 16 / sizeof(E);  // elements of E in a 16-byte vector
+// Elements of E per staged row: the head dim and one 16-byte chunk of
+// padding.  16-bit rows are 272 bytes, so the 8 rows of one ldmatrix phase
+// fall in distinct banks; f32 rows 528 bytes, so the 4 K rows (2 q rows) of
+// a quarter-warp's 16-byte loads do.
+template <class E>
+constexpr int kRow = ATT_D + kVec<E>;
 constexpr int KV_TK = 64;             // K/V rows per tile
 constexpr int DA_STAGES = 3;          // cp.async ring depth of decode (two tiles ahead)
 constexpr int PF_STAGES = 2;          // and of prefill (one tile ahead)
@@ -263,32 +300,43 @@ struct PagedKV {
 // Decode KV append (B3, B9), with the RoPE of q and k
 // ---------------------------------------------------------------------------
 
-constexpr int VEC = 8;  // 16-bit elements per 16-byte vector
-
-// Four interleaved (x0, x1) pairs of A (bf16 or f16) rotated by their (f0,
-// f1) table entries, rounded as the plain ops in A round them: o_r =
-// A(A(x0*f0) - A(x1*f1)), o_i = A(A(x0*f1) + A(x1*f0)), each operation in
-// f32.
+// One 16-byte vector of (x0, x1) pairs of A rotated by their (f0, f1)
+// table entries, rounded as the plain ops in A round them: o_r = A(A(x0*f0)
+// - A(x1*f1)), o_i = A(A(x0*f1) + A(x1*f0)), each operation in f32 (four
+// pairs of bf16 or f16, two of f32: there every product and sum is the f32
+// op PyTorch runs, with no contraction into an FMA).
 template <class A>
-__device__ __forceinline__ uint4 rope8(uint4 x, uint4 f) {
-  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, fs[4] = {f.x, f.y, f.z, f.w};
-  uint32_t o[4];
+__device__ __forceinline__ uint4 rope_vec(uint4 x, uint4 f) {
+  if constexpr (kIsF32<A>) {
+    const float x0 = __uint_as_float(x.x), x1 = __uint_as_float(x.y);
+    const float x2 = __uint_as_float(x.z), x3 = __uint_as_float(x.w);
+    const float f0 = __uint_as_float(f.x), f1 = __uint_as_float(f.y);
+    const float f2 = __uint_as_float(f.z), f3 = __uint_as_float(f.w);
+    return make_uint4(__float_as_uint(__fsub_rn(__fmul_rn(x0, f0), __fmul_rn(x1, f1))),
+                      __float_as_uint(__fadd_rn(__fmul_rn(x0, f1), __fmul_rn(x1, f0))),
+                      __float_as_uint(__fsub_rn(__fmul_rn(x2, f2), __fmul_rn(x3, f3))),
+                      __float_as_uint(__fadd_rn(__fmul_rn(x2, f3), __fmul_rn(x3, f2))));
+  } else {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, fs[4] = {f.x, f.y, f.z, f.w};
+    uint32_t o[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 xp = unpack2<A>(xs[j]);
-    const float2 fp = unpack2<A>(fs[j]);
-    const float rr = __fsub_rn(round_to<A>(__fmul_rn(xp.x, fp.x)),
-                               round_to<A>(__fmul_rn(xp.y, fp.y)));
-    const float ri = __fadd_rn(round_to<A>(__fmul_rn(xp.x, fp.y)),
-                               round_to<A>(__fmul_rn(xp.y, fp.x)));
-    o[j] = pack2<A>(rr, ri);
+    for (int j = 0; j < 4; ++j) {
+      const float2 xp = unpack2<A>(xs[j]);
+      const float2 fp = unpack2<A>(fs[j]);
+      const float rr = __fsub_rn(round_to<A>(__fmul_rn(xp.x, fp.x)),
+                                 round_to<A>(__fmul_rn(xp.y, fp.y)));
+      const float ri = __fadd_rn(round_to<A>(__fmul_rn(xp.x, fp.y)),
+                                 round_to<A>(__fmul_rn(xp.y, fp.x)));
+      o[j] = pack2<A>(rr, ri);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
   }
-  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// The fp8 store: x (bf16 or f16, exact in f32) clamped to +-448 and rounded to
-// nearest even by the card's cvt.rn.satfinite, NaN stored as 0x7F
-// (ops/attention.py:kv_store_cast).  Two elements, lo in the low byte.
+// The fp8 store: x (bf16 or f16, exact in f32; or f32 itself) clamped to
+// +-448 and rounded to nearest even from f32 by the card's
+// cvt.rn.satfinite, once, NaN stored as 0x7F (ops/attention.py:
+// kv_store_cast).  Two elements, lo in the low byte.
 constexpr float E4M3_MAX = 448.f;
 constexpr uint32_t E4M3_NAN = 0x7Fu;
 __device__ __forceinline__ uint32_t e4m3x2_store(float lo, float hi) {
@@ -302,12 +350,16 @@ __device__ __forceinline__ uint32_t e4m3x2_store(float lo, float hi) {
   return out;
 }
 
-// 8 activations of A (a 16-byte vector) stored as the cache's elements T:
-// as they are (T = A, bf16 or f16), or 8 e4m3 bytes (each element exact in
-// f32 first).
+// One 16-byte vector of activations A stored as the cache's elements T: as
+// they are (T = A), or as e4m3 bytes, 8 of them from bf16 or f16 (each
+// element exact in f32 first), 4 from f32.
 template <class A, class T>
-__device__ __forceinline__ void store8(T* dst, uint4 x) {
-  if constexpr (std::is_same_v<T, e4m3>) {
+__device__ __forceinline__ void store_vec(T* dst, uint4 x) {
+  if constexpr (std::is_same_v<T, e4m3> && kIsF32<A>) {
+    *reinterpret_cast<uint32_t*>(dst) =
+        e4m3x2_store(__uint_as_float(x.x), __uint_as_float(x.y)) |
+        (e4m3x2_store(__uint_as_float(x.z), __uint_as_float(x.w)) << 16);
+  } else if constexpr (std::is_same_v<T, e4m3>) {
     const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
     uint32_t b[4];
 #pragma unroll
@@ -317,7 +369,7 @@ __device__ __forceinline__ void store8(T* dst, uint4 x) {
     }
     *reinterpret_cast<uint2*>(dst) = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
   } else {
-    static_assert(std::is_same_v<T, A>, "a 16-bit cache holds the activations' type");
+    static_assert(std::is_same_v<T, A>, "a cache that is not fp8 holds the activations' type");
     *reinterpret_cast<uint4*>(dst) = x;
   }
 }
@@ -379,13 +431,29 @@ __device__ __forceinline__ uint4 e4m3x8_act(uint2 w) {
   return o;
 }
 
+// 8 e4m3 bytes landed as 8 elements of A at dst, exactly: bf16 or f16 as
+// e4m3x8_act gives them, f32 as the bf16 values widened (a bf16 value is
+// the high half of its f32; a NaN byte to the f32 quiet NaN of its sign).
+template <class A>
+__device__ __forceinline__ void land8(A* dst, uint2 w) {
+  if constexpr (kIsF32<A>) {
+    const uint4 h = e4m3x8_act<bf16>(w);
+    reinterpret_cast<uint4*>(dst)[0] =
+        make_uint4(h.x << 16, h.x & 0xFFFF0000u, h.y << 16, h.y & 0xFFFF0000u);
+    reinterpret_cast<uint4*>(dst)[1] =
+        make_uint4(h.z << 16, h.z & 0xFFFF0000u, h.w << 16, h.w & 0xFFFF0000u);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = e4m3x8_act<A>(w);
+  }
+}
+
 // One block per row b, one 16-byte vector a thread (a loop where the row
 // has more vectors than a block has threads): first the row's G*Hg*D q
 // elements (kRope only), then its kv row, k's G*D elements and (kRope only)
 // v's.  The cache views are the attention kernels' read-only views; the
 // slot this kernel writes is read by no other thread of the launch.  An
-// fp8 cache stores each vector as 8 bytes (store8).  A: the activations'
-// element (bf16 or f16).
+// fp8 cache stores each vector as its bytes (store_vec).  A: the
+// activations' element (bf16, f16 or f32), V of them a vector.
 template <class KV, bool kRope, class A>
 __global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q_out,
                                       const A* __restrict__ kv, int kv_stride,
@@ -397,23 +465,24 @@ __global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q
   // a shard that does not hold the slot rotates q and writes nothing
   int pos;
   const bool own = cache.owns(cache.clamp_pos(starts[b]), pos);
+  constexpr int V = kVec<A>;
   for (int i = threadIdx.x; i < nq + (kRope ? 2 : 1) * nkv; i += blockDim.x) {
     if (i < nq) {
-      const int e = i * VEC;
-      const uint4 x = *reinterpret_cast<const uint4*>(q + (size_t)b * nq * VEC + e);
+      const int e = i * V;
+      const uint4 x = *reinterpret_cast<const uint4*>(q + (size_t)b * nq * V + e);
       const uint4 f = *reinterpret_cast<const uint4*>(f_row + e % ATT_D);
-      *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * VEC + e) = rope8<A>(x, f);
+      *reinterpret_cast<uint4*>(q_out + (size_t)b * nq * V + e) = rope_vec<A>(x, f);
       continue;
     }
     if (!own) break;  // block-uniform: the q vectors come first
     const int j = i - nq;  // vector j of the kv row
     const bool is_k = j < nkv;
-    const int e = (is_k ? j : j - nkv) * VEC;  // element of k (or v): group e / D, lane e % D
-    uint4 x = *reinterpret_cast<const uint4*>(kv + (size_t)b * kv_stride + (size_t)j * VEC);
-    if (kRope && is_k) x = rope8<A>(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
+    const int e = (is_k ? j : j - nkv) * V;  // element of k (or v): group e / D, lane e % D
+    uint4 x = *reinterpret_cast<const uint4*>(kv + (size_t)b * kv_stride + (size_t)j * V);
+    if (kRope && is_k) x = rope_vec<A>(x, *reinterpret_cast<const uint4*>(f_row + e % ATT_D));
     const auto slab = cache.slab(b, e / ATT_D);
     using T = typename KV::elem;
-    store8<A>(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
+    store_vec<A>(const_cast<T*>((is_k ? slab.k : slab.v) + slab.row(pos)) + e % ATT_D, x);
   }
 }
 
@@ -422,7 +491,7 @@ __global__ void rope_kv_append_kernel(const A* __restrict__ q, A* __restrict__ q
 template <class KV, bool kRope, class A>
 int launch_append(const void* q, void* q_out, const void* kv, int kv_stride, const void* freqs,
                   const KV& cache, const int* starts, int B, int G, int Hq, cudaStream_t stream) {
-  const int nq = kRope ? Hq * ATT_D / VEC : 0, nkv = G * ATT_D / VEC;
+  const int nq = kRope ? Hq * ATT_D / kVec<A> : 0, nkv = G * ATT_D / kVec<A>;
   const int n = nq + (kRope ? 2 : 1) * nkv;
   const int threads = n < 1024 ? (n + 31) / 32 * 32 : 1024;
   rope_kv_append_kernel<KV, kRope, A><<<B, threads, 0, stream>>>(
@@ -459,9 +528,9 @@ __device__ __forceinline__ void stage_kv(T (*ks)[ROW], T (*vs)[ROW], const Slab&
   }
 }
 
-// A fragments of a warp's 16 query rows (row-major, KV_STRIDE apart), once.
+// A fragments of a warp's 16 query rows (row-major, kRow<A> apart), once.
 template <class A>
-__device__ __forceinline__ void load_q_frags(A (*qs)[KV_STRIDE], uint32_t (&qa)[ATT_D / 16][4]) {
+__device__ __forceinline__ void load_q_frags(A (*qs)[kRow<A>], uint32_t (&qa)[ATT_D / 16][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < ATT_D / 16; ++kk)
@@ -482,24 +551,109 @@ __device__ __forceinline__ void scale_q_frags(uint32_t (&qa)[ATT_D / 16][4], flo
     }
 }
 
-// s[2j], s[2j+1] += q (16 x D) . K rows n0 .. n0+15 of the tile, transposed:
-// the m16n8 score tiles of 16 keys.
+// The query rows a warp multiplies: its 16 rows' A fragments, loaded once
+// into registers (bf16, f16); f32 rows stay in shared memory and the
+// CUDA-core products read them there.  With kScale, q * sm_scale rounded to
+// A first (B10, B11, B12): in the fragments, or (f32) in place in shared
+// memory, where the rows must be the warp's own.
 template <class A>
-__device__ __forceinline__ void qk_16keys(const uint32_t (&qa)[ATT_D / 16][4],
-                                          A (*ks)[KV_STRIDE], int n0, float (*s)[4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < ATT_D / 16; ++kk) {
-    uint32_t kf[4];
-    ldmatrix_x4(kf, &ks[n0 + (lane & 7) + ((lane >> 4) << 3)][kk * 16 + ((lane >> 3) & 1) * 8]);
-    mma_16816<A>(s[0], qa[kk], kf);
-    mma_16816<A>(s[1], qa[kk], kf + 2);
+struct QRows {
+  uint32_t a[ATT_D / 16][4];
+  template <bool kScale>
+  __device__ __forceinline__ void load(A (*qs)[kRow<A>], float sm_scale) {
+    load_q_frags(qs, a);
+    if (kScale) scale_q_frags<A>(a, sm_scale);
   }
+};
+template <>
+struct QRows<float> {
+  const float (*q)[kRow<float>];
+  template <bool kScale>
+  __device__ __forceinline__ void load(float (*qs)[kRow<float>], float sm_scale) {
+    if (kScale) {
+      for (int i = threadIdx.x & 31; i < 16 * ATT_D; i += 32)
+        qs[i / ATT_D][i % ATT_D] = __fmul_rn(qs[i / ATT_D][i % ATT_D], sm_scale);
+      __syncwarp();
+    }
+    q = qs;
+  }
+};
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// s[2j], s[2j+1] += q (16 x D) . K rows n0 .. n0+15 of the tile, transposed:
+// the m16n8 score tiles of 16 keys.  bf16 / f16: mma.sync.  f32: each
+// thread computes its own elements of those tiles by FFMA from the f32
+// tiles (rows gid and gid + 8, keys n0 + 8 j + 2 tig + (e & 1)), so the
+// softmax, PV and the merges take the same layout.
+template <class A>
+__device__ __forceinline__ void qk_16keys(const QRows<A>& q, A (*ks)[kRow<A>], int n0,
+                                          float (*s)[4]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kIsF32<A>) {
+    const int gid = lane >> 2, tig = lane & 3;
+    const float* qr[2] = {q.q[gid], q.q[gid + 8]};
+    const float* kr[4] = {ks[n0 + 2 * tig], ks[n0 + 2 * tig + 1], ks[n0 + 8 + 2 * tig],
+                          ks[n0 + 9 + 2 * tig]};
+#pragma unroll 4
+    for (int d = 0; d < ATT_D; d += 4) {
+      float4 qv[2], kv[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) qv[h] = *reinterpret_cast<const float4*>(qr[h] + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = *reinterpret_cast<const float4*>(kr[c] + d);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[c >> 1][2 * h + (c & 1)] = dot4(qv[h], kv[c], s[c >> 1][2 * h + (c & 1)]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < ATT_D / 16; ++kk) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, &ks[n0 + (lane & 7) + ((lane >> 4) << 3)][kk * 16 + ((lane >> 3) & 1) * 8]);
+      mma_16816<A>(s[0], q.a[kk], kf);
+      mma_16816<A>(s[1], q.a[kk], kf + 2);
+    }
+  }
+}
+
+// f32: acc (16 x D) += p (16 x 16, f32 in the two m16n8 score tiles) . V
+// rows k0 .. k0+15 by FFMA.  The p of a key sits in one lane of each quad;
+// a shuffle brings it to the quad's other lanes, which hold the other
+// columns of its rows (acc's C layout: rows gid, gid + 8, columns n * 8 + 2
+// tig + {0, 1}).
+__device__ __forceinline__ void pv_16keys_f32(float (*p)[4], float (*vs)[kRow<float>], int k0,
+                                              float (&acc)[ATT_D / 8][4]) {
+  const int lane = threadIdx.x & 31, tig = lane & 3, quad = lane & ~3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float pj[4];  // keys 8 j + 2 t + {0, 1} of rows gid (0, 1) and gid + 8 (2, 3)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pj[e] = __shfl_sync(0xffffffffu, p[j][e], quad | t);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* v = vs[k0 + 8 * j + 2 * t + u] + 2 * tig;
+#pragma unroll
+        for (int n = 0; n < ATT_D / 8; ++n) {
+          const float2 vv = *reinterpret_cast<const float2*>(v + n * 8);
+          acc[n][0] = fmaf(pj[u], vv.x, acc[n][0]);
+          acc[n][1] = fmaf(pj[u], vv.y, acc[n][1]);
+          acc[n][2] = fmaf(pj[2 + u], vv.x, acc[n][2]);
+          acc[n][3] = fmaf(pj[2 + u], vv.y, acc[n][3]);
+        }
+      }
+    }
 }
 
 // acc (16 x D) += p (16 x 16, an A fragment) . V rows k0 .. k0+15 of the tile.
 template <class A>
-__device__ __forceinline__ void pv_16keys(const uint32_t (&pa)[4], A (*vs)[KV_STRIDE],
+__device__ __forceinline__ void pv_16keys(const uint32_t (&pa)[4], A (*vs)[kRow<A>],
                                           int k0, float (&acc)[ATT_D / 8][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -568,17 +722,38 @@ __device__ __forceinline__ void p_frag_lo(float (*p)[4], uint32_t (&pa)[4]) {
 }
 
 // acc += p . V over 16 keys: p rounded to A (B4, B5), or p in f32 as two A
-// fragments, the remainder in a second product (B10, B11, B12).
+// fragments, the remainder in a second product (B10, B11, B12); in f32 p
+// is v's dtype and both are one FFMA product.
 template <bool kF32P, class A>
-__device__ __forceinline__ void pv_step(float (*p)[4], A (*vs)[KV_STRIDE], int k0,
+__device__ __forceinline__ void pv_step(float (*p)[4], A (*vs)[kRow<A>], int k0,
                                         float (&acc)[ATT_D / 8][4]) {
-  uint32_t pa[4];
-  p_frag<A>(p, pa);
-  pv_16keys(pa, vs, k0, acc);
-  if (kF32P) {
-    p_frag_lo<A>(p, pa);
+  if constexpr (kIsF32<A>) {
+    pv_16keys_f32(p, vs, k0, acc);
+  } else {
+    uint32_t pa[4];
+    p_frag<A>(p, pa);
     pv_16keys(pa, vs, k0, acc);
+    if (kF32P) {
+      p_frag_lo<A>(p, pa);
+      pv_16keys(pa, vs, k0, acc);
+    }
   }
+}
+
+// 2 and 4 f32 results stored as the activations' element A.
+template <class A>
+__device__ __forceinline__ void store2(A* dst, float a, float b) {
+  if constexpr (kIsF32<A>)
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = pack2<A>(a, b);
+}
+template <class A>
+__device__ __forceinline__ void store4(A* dst, float4 x) {
+  if constexpr (kIsF32<A>)
+    *reinterpret_cast<float4*>(dst) = x;
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pack2<A>(x.x, x.y), pack2<A>(x.z, x.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -586,30 +761,30 @@ __device__ __forceinline__ void pv_step(float (*p)[4], A (*vs)[KV_STRIDE], int k
 // ---------------------------------------------------------------------------
 
 // The K/V ring of a reader with activations A over a cache of element T:
-// stages of A (T = A, bf16 or f16) that the fragments read in place, or fp8
+// stages of A (T = A: bf16, f16 or f32) that the products read in place, or fp8
 // stages (k8, v8: rows of ATT_D bytes) and the one tile of A each landed
 // stage is converted into (k, v).  stage_k / stage_v name where a copy
 // lands, tile_k / tile_v what the fragments read.
 template <class A, class T, int STAGES>
 struct KVRing {
-  static_assert(std::is_same_v<T, A>, "a 16-bit cache holds the activations' type");
-  T k[STAGES][KV_TK][KV_STRIDE];
-  T v[STAGES][KV_TK][KV_STRIDE];
-  __device__ __forceinline__ T (*stage_k(int st))[KV_STRIDE] { return k[st]; }
-  __device__ __forceinline__ T (*stage_v(int st))[KV_STRIDE] { return v[st]; }
-  __device__ __forceinline__ T (*tile_k(int st))[KV_STRIDE] { return k[st]; }
-  __device__ __forceinline__ T (*tile_v(int st))[KV_STRIDE] { return v[st]; }
+  static_assert(std::is_same_v<T, A>, "a cache that is not fp8 holds the activations' type");
+  T k[STAGES][KV_TK][kRow<A>];
+  T v[STAGES][KV_TK][kRow<A>];
+  __device__ __forceinline__ T (*stage_k(int st))[kRow<A>] { return k[st]; }
+  __device__ __forceinline__ T (*stage_v(int st))[kRow<A>] { return v[st]; }
+  __device__ __forceinline__ T (*tile_k(int st))[kRow<A>] { return k[st]; }
+  __device__ __forceinline__ T (*tile_v(int st))[kRow<A>] { return v[st]; }
 };
 template <class A, int STAGES>
 struct KVRing<A, e4m3, STAGES> {
-  A k[1][KV_TK][KV_STRIDE];
-  A v[1][KV_TK][KV_STRIDE];
+  A k[1][KV_TK][kRow<A>];
+  A v[1][KV_TK][kRow<A>];
   e4m3 k8[STAGES][KV_TK][ATT_D];
   e4m3 v8[STAGES][KV_TK][ATT_D];
   __device__ __forceinline__ e4m3 (*stage_k(int st))[ATT_D] { return k8[st]; }
   __device__ __forceinline__ e4m3 (*stage_v(int st))[ATT_D] { return v8[st]; }
-  __device__ __forceinline__ A (*tile_k(int))[KV_STRIDE] { return k[0]; }
-  __device__ __forceinline__ A (*tile_v(int))[KV_STRIDE] { return v[0]; }
+  __device__ __forceinline__ A (*tile_k(int))[kRow<A>] { return k[0]; }
+  __device__ __forceinline__ A (*tile_v(int))[kRow<A>] { return v[0]; }
 };
 
 // After stage st landed (and every warp is done with the tile): an fp8 ring
@@ -622,10 +797,8 @@ __device__ __forceinline__ void land_stage(KVRing<A, T, STAGES>& ring, int st) {
 #pragma unroll 4
     for (int i = threadIdx.x; i < KV_TK * U; i += NT) {
       const int r = i / U, c = (i % U) * 8;
-      *reinterpret_cast<uint4*>(&ring.k[0][r][c]) =
-          e4m3x8_act<A>(*reinterpret_cast<const uint2*>(&ring.k8[st][r][c]));
-      *reinterpret_cast<uint4*>(&ring.v[0][r][c]) =
-          e4m3x8_act<A>(*reinterpret_cast<const uint2*>(&ring.v8[st][r][c]));
+      land8<A>(&ring.k[0][r][c], *reinterpret_cast<const uint2*>(&ring.k8[st][r][c]));
+      land8<A>(&ring.v[0][r][c], *reinterpret_cast<const uint2*>(&ring.v8[st][r][c]));
     }
     __syncthreads();
   }
@@ -633,7 +806,7 @@ __device__ __forceinline__ void land_stage(KVRing<A, T, STAGES>& ring, int st) {
 
 template <class A, class T>
 struct DecodeSmem {
-  A q[MMA_HEADS][KV_STRIDE];
+  A q[MMA_HEADS][kRow<A>];
   KVRing<A, T, DA_STAGES> ring;
 };
 // after the tile loop the same bytes hold the warps' states for the block merge
@@ -666,13 +839,13 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   // this thread's 16-byte chunks of q, in flight with the read of lengths
-  constexpr int QCH = MMA_HEADS * (ATT_D / 8) / DA_THREADS;
+  constexpr int EC = kVec<A>, QCH = MMA_HEADS * (ATT_D / EC) / DA_THREADS;
   const A* qb = q + (size_t)bg * Hg * ATT_D;
   uint4 qv[QCH];
 #pragma unroll
   for (int j = 0; j < QCH; ++j) {
-    const int i = tid + j * DA_THREADS, h = i / (ATT_D / 8);
-    qv[j] = h < Hg ? *reinterpret_cast<const uint4*>(qb + i * 8) : make_uint4(0u, 0u, 0u, 0u);
+    const int i = tid + j * DA_THREADS, h = i / (ATT_D / EC);
+    qv[j] = h < Hg ? *reinterpret_cast<const uint4*>(qb + i * EC) : make_uint4(0u, 0u, 0u, 0u);
   }
   // slots 0..lengths[b] inclusive that this view holds: a prefix of its
   // rows, clamped to its capacity (T, or MP * P)
@@ -705,13 +878,19 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
   }
 #pragma unroll
   for (int j = 0; j < QCH; ++j) {
-    const int i = tid + j * DA_THREADS, h = i / (ATT_D / 8), c = (i % (ATT_D / 8)) * 8;
+    const int i = tid + j * DA_THREADS, h = i / (ATT_D / EC), c = (i % (ATT_D / EC)) * EC;
+    if constexpr (kIsF32<A>) {  // the 4 warps share the rows: B12's / B10's scale here
+      if (kV2)
+        qv[j] = make_uint4(__float_as_uint(__fmul_rn(__uint_as_float(qv[j].x), sm_scale)),
+                           __float_as_uint(__fmul_rn(__uint_as_float(qv[j].y), sm_scale)),
+                           __float_as_uint(__fmul_rn(__uint_as_float(qv[j].z), sm_scale)),
+                           __float_as_uint(__fmul_rn(__uint_as_float(qv[j].w), sm_scale)));
+    }
     *reinterpret_cast<uint4*>(&sm.q[h][c]) = qv[j];
   }
   __syncthreads();
-  uint32_t qa[ATT_D / 16][4];
-  load_q_frags(sm.q, qa);
-  if (kV2) scale_q_frags<A>(qa, sm_scale);
+  QRows<A> qr;
+  qr.template load<kV2 && !kIsF32<A>>(sm.q, sm_scale);
 
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   float acc[ATT_D / 8][4];
@@ -730,7 +909,7 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
     land_stage<DA_THREADS>(sm.ring, st);
     if (t0 + r0 < t_end) {  // warp-uniform: the warp has a valid row
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      qk_16keys(qa, sm.ring.tile_k(st), r0, s);
+      qk_16keys(qr, sm.ring.tile_k(st), r0, s);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -857,8 +1036,7 @@ decode_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict__
     const int i = (tid + j * DA_THREADS) * 4;
     if (i >= Hg * ATT_D) break;
     const float l = lsum[i / ATT_D];
-    *reinterpret_cast<uint2*>(ob + i) = make_uint2(pack2<A>(a[j].x / l, a[j].y / l),
-                                                   pack2<A>(a[j].z / l, a[j].w / l));
+    store4<A>(ob + i, make_float4(a[j].x / l, a[j].y / l, a[j].z / l, a[j].w / l));
   }
   if (tid == 0) arrivals[bg] = 0;  // ready for the next launch (and a graph replay)
 }
@@ -906,7 +1084,7 @@ int launch_decode(const void* q, const KV& kv, const int* lengths, float* part, 
 
 template <class A, class T>
 struct PrefillTileSmem {
-  A q[PF_ROWS][KV_STRIDE];
+  A q[PF_ROWS][kRow<A>];
   KVRing<A, T, PF_STAGES> ring;
 };
 
@@ -952,8 +1130,9 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
   const auto src = kv.slab(kv_row, g);
 
   // row r = (position q0 + r / Hg, head r % Hg); q and out are (B, S, G, Hg, D)
-  for (int i = tid; i < PF_ROWS * (ATT_D / 8); i += PF_THREADS) {
-    const int r = i / (ATT_D / 8), c = (i % (ATT_D / 8)) * 8;
+  constexpr int EC = kVec<A>;
+  for (int i = tid; i < PF_ROWS * (ATT_D / EC); i += PF_THREADS) {
+    const int r = i / (ATT_D / EC), c = (i % (ATT_D / EC)) * EC;
     const int s = q0 + r / Hg, h = r % Hg;
     const bool ok = r < rows;
     const A* qsrc = ok ? q + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D + c : q;
@@ -975,9 +1154,8 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
   int qpos[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) qpos[hh] = q_start + q0 + (r0 + gid + 8 * hh) / Hg;
-  uint32_t qa[ATT_D / 16][4];
-  load_q_frags(sm.q + r0, qa);
-  if (kV2) scale_q_frags<A>(qa, sm_scale);
+  QRows<A> qr;  // the warp's rows (f32: scaled in place, the warp's own)
+  qr.template load<kV2>(sm.q + r0, sm_scale);
 
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   float acc[ATT_D / 8][4];
@@ -998,7 +1176,7 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
 #pragma unroll
       for (int j = 0; j < KV_TK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int n0 = 0; n0 < KV_TK; n0 += 16) qk_16keys(qa, sm.ring.tile_k(st), n0, s + n0 / 8);
+      for (int n0 = 0; n0 < KV_TK; n0 += 16) qk_16keys(qr, sm.ring.tile_k(st), n0, s + n0 / 8);
 #pragma unroll
       for (int j = 0; j < KV_TK / 8; ++j)
 #pragma unroll
@@ -1025,8 +1203,7 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
       A* o = out + (((size_t)b * S + s) * G + g) * Hg * ATT_D + h * ATT_D;
 #pragma unroll
       for (int n = 0; n < ATT_D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(o + n * 8 + tig * 2) =
-            pack2<A>(acc[n][2 * hh] / l, acc[n][2 * hh + 1] / l);
+        store2<A>(o + n * 8 + tig * 2, acc[n][2 * hh] / l, acc[n][2 * hh + 1] / l);
     }
     return;
   }
@@ -1113,8 +1290,7 @@ prefill_attn_kernel(const A* __restrict__ q, const KV kv, const int* __restrict_
     const int r = i / ATT_D, d = i % ATT_D;
     const float l = lsum[r];
     A* o = out + (((size_t)b * S + q0 + r / Hg) * G + g) * Hg * ATT_D + (r % Hg) * ATT_D + d;
-    *reinterpret_cast<uint2*>(o) = make_uint2(pack2<A>(a[j].x / l, a[j].y / l),
-                                              pack2<A>(a[j].z / l, a[j].w / l));
+    store4<A>(o, make_float4(a[j].x / l, a[j].y / l, a[j].z / l, a[j].w / l));
   }
   if (tid == 0) arrivals[unit] = 0;  // ready for the next launch (and a graph replay)
 }
@@ -1138,13 +1314,17 @@ int launch_prefill(const void* q, const KV& kv, const int* lengths, const int* q
 // The entry points' dispatch on the form code: fn(A{}, T{}) with A the
 // activations' element and T the cache's: 0 bf16 over a bf16 cache, 1 bf16
 // over a float8_e4m3fn cache, 2 f16 over an f16 cache, 3 f16 over a
-// float8_e4m3fn cache (ops/attention.py: FORM_CODES).
+// float8_e4m3fn cache, 4 f32 over an f32 cache, 5 f32 over a float8_e4m3fn
+// cache (ops/attention.py: FORM_CODES).  The f32 forms instantiate the
+// CUDA-core bodies (kIsF32), never the mma.sync ones.
 template <class Fn>
 int with_kv_type(int form, Fn&& fn) {
   if (form == 0) return fn(bf16{}, bf16{});
   if (form == 1) return fn(bf16{}, e4m3{});
   if (form == 2) return fn(f16{}, f16{});
   if (form == 3) return fn(f16{}, e4m3{});
+  if (form == 4) return fn(float{}, float{});
+  if (form == 5) return fn(float{}, e4m3{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1155,7 +1335,9 @@ extern "C" {
 // The attention entries' form code: 0 for bf16 activations over a bf16
 // cache or pool, 1 for bf16 over a float8_e4m3fn one (cast on the write,
 // upcast on the read), 2 for f16 activations over an f16 one, 3 for f16
-// over a float8_e4m3fn one.
+// over a float8_e4m3fn one, 4 for f32 activations over an f32 one, 5 for
+// f32 over a float8_e4m3fn one; any other code returns
+// cudaErrorInvalidValue.
 //
 // B3 / B9 with the RoPE of q and k (the decode step).  q, q_out (B, Hq, D)
 // contiguous (Hq = G * Hg, or a rank's heads); kv (B, 2*G*D), k then v,
@@ -1163,7 +1345,8 @@ extern "C" {
 // T, D) views of one cache layer when page_table is null, else the (NP, G,
 // P, D) views of one pool layer, read through page_table (B, MP), with T =
 // P; starts (B,) int32.  q, kv, freqs and the cache as the form says; all
-// 16-byte aligned (kv_stride a multiple of 8), D == 128.  A sharded cache
+// 16-byte aligned (kv_stride a multiple of a 16-byte vector's elements),
+// D == 128.  A sharded cache
 // (K3): the dense view holds global slots offset .. offset + T - 1, the
 // paged view's column i logical block i * stride + phase; total is the
 // global capacity the position clamps to (0: the view's own, unsharded:
@@ -1174,7 +1357,7 @@ int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_st
                            const void* starts, int B, int G, int Hq, int D, int T, int MP,
                            int offset, int stride, int phase, int total, int form,
                            void* stream) {
-  if (D != ATT_D || T < 1 || (page_table && MP < 1) || kv_stride % VEC || offset < 0 ||
+  if (D != ATT_D || T < 1 || (page_table && MP < 1) || offset < 0 ||
       stride < 1 || phase < 0 || phase >= stride || total < 0)
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
@@ -1182,6 +1365,7 @@ int chatglm_rope_kv_append(const void* q, void* q_out, const void* kv, int kv_st
   return with_kv_type(form, [&](auto a, auto t) {
     using A = decltype(a);
     using T_ = decltype(t);
+    if (kv_stride % kVec<A>) return (int)cudaErrorInvalidValue;  // 16-byte rows
     const T_ *kl = static_cast<const T_*>(k_layer), *vl = static_cast<const T_*>(v_layer);
     if (!page_table) {
       const DenseKV<T_> cache{kl, vl, G, T, offset, total > 0 ? total : offset + T};

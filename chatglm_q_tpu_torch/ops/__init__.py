@@ -10,7 +10,8 @@ so the counts stay the kernels' real launches.  Launches in a form of a
 kernel also count apart: the attention wrappers' over a float8_e4m3fn cache
 as ``<name>_fp8``, and theirs and the matmuls' on float16 activations as
 ``<name>_f16``, the attention wrappers' on float16 activations over a
-float8_e4m3fn cache as ``<name>_fp8_f16``.
+float8_e4m3fn cache as ``<name>_fp8_f16``, on float32 activations as
+``<name>_f32`` and on float32 over float8_e4m3fn as ``<name>_fp8_f32``.
 """
 
 
@@ -55,7 +56,7 @@ def kernel_wrappers() -> dict:
         "gptq_sweep_int4": GS.gptq_sweep_int4,
     }
     forms = [(name, form) for name, fn in wrappers.items()
-             for form in ("fp8", "f16", "fp8_f16") if hasattr(fn, form)]
+             for form in A.CACHE_FORM_SUFFIXES if hasattr(fn, form)]
     wrappers.update({f"{name}_{form}": getattr(wrappers[name], form) for name, form in forms})
     return wrappers
 

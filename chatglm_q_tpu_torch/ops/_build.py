@@ -80,7 +80,7 @@ SIGNATURES = {
     # a shard's offset / stride, phase and global capacity, or 0, 1, 0, 0), form, stream.
     # The attention entries' form (ops/attention.py: FORM_CODES): 0 for bf16 activations
     # over a bf16 cache or pool, 1 for bf16 over a float8_e4m3fn one, 2 for f16 over f16,
-    # 3 for f16 over float8_e4m3fn
+    # 3 for f16 over float8_e4m3fn, 4 for f32 over f32, 5 for f32 over float8_e4m3fn
     "chatglm_rope_kv_append": [P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
     # dst_layer, src, page_table, starts, B, G, D, T (or P), MP, form, stream (the
     # write-only form; src in the form's activation dtype)

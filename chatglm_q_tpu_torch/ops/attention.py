@@ -61,31 +61,39 @@ counts.
   table row ``row_map[b]``), its K/V rows split into ``chunk_span`` spans
   merged in the same launch.
 
-The kernels take four forms: bf16 activations over a bf16 cache (or
+The kernels take six forms: bf16 activations over a bf16 cache (or
 pool), bf16 activations over a ``float8_e4m3fn`` one (the ``kv_dtype``
 option; JAX's ``init_kv_cache(..., jnp.float8_e4m3fn)``), float16
 activations over a float16 one (a float16 checkpoint: the cache takes the
-activations' dtype by default), and float16 activations over a
-``float8_e4m3fn`` one (a float16 checkpoint with ``kv_dtype``).
-``FORM_CODES`` names them; any other pair (f32 activations, or a 16-bit
-cache of the other 16-bit type) raises ``TypeError``.  Launches in the
-three other forms also count as ``<wrapper>_fp8``, ``<wrapper>_f16`` and
-``<wrapper>_fp8_f16`` (f16 over fp8: in neither of the two before).  The
-f16 forms keep the TPU kernels' rounding points in f16: p rounded to v's
-dtype (B4, B5), q pre-scaled in its dtype and p in f32 (B10, B11, B12),
-the RoPE's products and sums rounded to f16; over an fp8 cache the same
-on the cache upcast exactly to f16.
+activations' dtype by default), float16 activations over a
+``float8_e4m3fn`` one (a float16 checkpoint with ``kv_dtype``), float32
+activations over a float32 one (a float32 checkpoint, the loaders' default
+dtype) and float32 activations over a ``float8_e4m3fn`` one.
+``FORM_CODES`` names them; any other pair (f32 activations over a bf16 or
+f16 cache, a 16-bit cache of the other 16-bit type, K and V of two dtypes)
+raises ``TypeError``, naming it.  Launches in the five other forms also
+count as ``<wrapper>_fp8``, ``<wrapper>_f16``, ``<wrapper>_fp8_f16``,
+``<wrapper>_f32`` and ``<wrapper>_fp8_f32`` (f16 or f32 over fp8: in none
+of the others).  The f16 forms keep the TPU kernels' rounding points in
+f16: p rounded to v's dtype (B4, B5), q pre-scaled in its dtype and p in
+f32 (B10, B11, B12), the RoPE's products and sums rounded to f16; over an
+fp8 cache the same on the cache upcast exactly to f16.  The f32 forms keep
+them in f32 (p is f32 throughout; B10, B11, B12 round q · sm_scale to f32
+before the dot) on CUDA-core kernels: TF32 would miss f32's limit.  Into
+an fp8 cache an f32 value is rounded to e4m3 once, as JAX's
+``astype(float8_e4m3fn)`` rounds it.
 
 The fp8 cache:
 Every write into an fp8 cache goes through ``kv_store_cast``: JAX's
 ``astype(float8_e4m3fn)`` wherever that gives a finite value, finite values
 past the range saturating to ±448 where JAX's give NaN, and every NaN stored
-as the one byte 0x7F (from bf16 or f16 alike: both are exact in f32).
+as the one byte 0x7F (from bf16 or f16 alike, both exact in f32, and from
+f32 itself: one rounding, never through a 16-bit type).
 Reads upcast the stored bytes exactly: the plain versions convert K and V
 to q's dtype before anything is rounded to v's dtype (as the TPU kernels
 upcast after their DMA), and the kernels convert each landed tile to q's
-dtype, bf16 or f16, in shared memory (csrc/attention.cu), so a kernel's fp8
-form equals its 16-bit form on the upcast cache.  A write-only or append
+dtype, bf16, f16 or f32, in shared memory (csrc/attention.cu), so a
+kernel's fp8 form equals its 16-bit or f32 form on the upcast cache.  A write-only or append
 launch casts on the write.  PyTorch implements few ops on fp8
 tensors, so the plain writes and gathers here move the cache's bytes
 (``kv_bytes``).
@@ -130,8 +138,9 @@ FP8_NAN = 0x7F    # the byte every NaN is stored as
 # (activation dtype, cache dtype) -> the C entry points' form code
 # (csrc/attention.cu: with_kv_type), and the counter suffix of each form
 FORM_CODES = {(torch.bfloat16, torch.bfloat16): 0, (torch.bfloat16, FP8): 1,
-              (torch.float16, torch.float16): 2, (torch.float16, FP8): 3}
-FORM_SUFFIX = {0: "", 1: "fp8", 2: "f16", 3: "fp8_f16"}
+              (torch.float16, torch.float16): 2, (torch.float16, FP8): 3,
+              (torch.float32, torch.float32): 4, (torch.float32, FP8): 5}
+FORM_SUFFIX = {0: "", 1: "fp8", 2: "f16", 3: "fp8_f16", 4: "f32", 5: "fp8_f32"}
 CACHE_FORM_SUFFIXES = tuple(s for s in FORM_SUFFIX.values() if s)
 # the wrappers whose kernels read or write the cache, each with a counter of
 # every form but the first
@@ -455,13 +464,13 @@ def _check_cuda(name, *tensors):
 def _check_types(name, acts, caches) -> int:
     """The form the kernels take the activations ``acts`` (one dtype) over
     the cache ``caches`` (K and V of one dtype) in: its code in
-    ``FORM_CODES`` (bf16 over bf16 or float8_e4m3fn, f16 over f16 or
+    ``FORM_CODES`` (bf16, f16 or f32 over a cache of their own dtype or of
     float8_e4m3fn).  Any other pair raises, naming the dtypes."""
     act, kv = {t.dtype for t in acts}, {t.dtype for t in caches}
     code = FORM_CODES.get((act.pop(), kv.pop())) if len(act) == len(kv) == 1 else None
     if code is None:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 or float16 activations over a "
-                        f"cache of their dtype or of float8_e4m3fn (got activations "
+        raise TypeError(f"{name}: the CUDA kernel takes bf16, float16 or float32 activations "
+                        f"over a cache of their dtype or of float8_e4m3fn (got activations "
                         f"{[t.dtype for t in acts]}, cache {[t.dtype for t in caches]})")
     return code
 
@@ -675,9 +684,9 @@ def _write_one(name, dst, new, layer: int, starts, page_table=None):
     pool (L, NP, G, P, D)."""
     L, _, G, T, D = dst.shape
     B = new.shape[0]
-    # a bf16 or f16 cache takes new in its dtype; an fp8 one takes new as it
-    # is, bf16 or f16, and the kernel casts on the write (kv_store_cast's
-    # bytes)
+    # a bf16, f16 or f32 cache takes new in its dtype; an fp8 one takes new
+    # as it is, bf16, f16 or f32, and the kernel casts on the write
+    # (kv_store_cast's bytes)
     src = (new if dst.dtype == FP8 else new.to(dst.dtype)).contiguous()
     if src.data_ptr() % 16:
         src = src.clone()

@@ -17,6 +17,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --fp16    # float16 activations: phase 2's f16 rows, the f16 runs of
                                     # phases 5, 6 and 7, the float16-checkpoint launcher run
     python3 chip_smoke.py --fp16-seeds 17,27,37    # phase 2's f16 readings per seed (F16_*)
+    python3 chip_smoke.py --fp32    # float32 activations: phase 2's f32 attention rows, the f32
+                                    # runs of phases 5, 6 and 8
     python3 chip_smoke.py --f16-train-seeds 41,71,72,73,74,75    # phase 7's f16 grad readings
 
 Phases (any failure raises and exits non-zero):
@@ -97,7 +99,15 @@ Phases (any failure raises and exits non-zero):
    f16 form over an fp8 cache (``check_fp8_attention`` in f16, the same
    caches as the fp8 rows): bit-equal to its f16 form on the upcast cache,
    within ``F16_KERNEL_TOL`` of plain, the store over all 65,536 f16
-   patterns.
+   patterns.  Then the float32 forms (``check_f32_kernels``, TF32 off and
+   printed): every attention kernel's f32 form (the CUDA-core kernels) over
+   an f32 cache at its bf16 row's shapes (and B4 at B = 1, the write-only
+   B3 / B9) within ``F32_TOL`` of its plain version, the appends and writes
+   bit-equal, each timed beside its bf16 form, its plain version and SDPA in
+   f32; over an fp8 cache (``check_fp8_attention`` in f32), each bit-equal
+   to its f32 form on the upcast cache, and the f32 -> e4m3 store over a
+   sweep of every binade's rounding midpoints, one rounding from f32 (a
+   bf16 hop, the control, changes some bytes); and the edge cases in f32.
 3. End to end at full width and depth 2: the kernel path against the plain
    path on the same random weights, prefill then 8 teacher-forced decode
    steps, for int4g32, int8, int8 with dynamic int8 activations and
@@ -171,6 +181,13 @@ Phases (any failure raises and exits non-zero):
    launch path (``launcher_f16``): a 2-layer float tree at 6B widths saved
    as a float16 checkpoint, ``examples/quantize_naive`` to int4g32, and
    ``GLMDecoder.from_pretrained`` generating through the f16 kernels.
+   And the tree as a float32 checkpoint loads it under a float32 config
+   (``chat_f32``): int4g32 and int8 over an f32 cache, int4g32 over fp8,
+   ``F32_NEW_TOKENS`` tokens each: captured = eager = ``prefill`` +
+   ``multi_step_decode`` text, the f32 attention forms launched and one f32
+   step through B12, every token within ``GREEDY_GAP_TOL`` of the plain
+   path in f32, ms a token and the prompt's prefill ms beside the bf16
+   decoder's in turns.
 6. The serving engines at full size: ChatGLM2-6B (28 layers) int4g32 with
    random weights, no tokenizer (eos id 2), token-id prompts from a seeded
    generator.  (a) ``PagedServingEngine`` with 256-token chunked admission
@@ -214,7 +231,13 @@ Phases (any failure raises and exits non-zero):
    ms and the decode attention's share.  Then (a16) (``engines_f16``): (a)'s
    engine and requests under a float16 config over an f16 pool, its greedy
    tokens against the dense ``prefill_chunk`` in f16; and (a16f8), the same
-   over an fp8 pool, ``F16_NEW_TOKENS`` a request.
+   over an fp8 pool, ``F16_NEW_TOKENS`` a request.  Then the float32 runs
+   (``engines_f32``: 40-72-token prompts, 16-row pages, ``F32_NEW_TOKENS``
+   a request): (a32) chunked admission through the prefix cache and (b32)
+   in-loop speculation (k = 4, the verify through B11) over an f32 pool,
+   (a32f8) and (b32f8) the same over an fp8 pool: page accounting, prefix
+   hits, the f32 forms launched, every greedy token against the dense
+   ``prefill_chunk`` in f32.
 7. Fine-tuning at full size through the frozen quantized weights
    (``utils/train.py``): ChatGLM2-6B (28 layers) int4g32, AdamW (lr 1e-3)
    over the 233,472 f32 norm values, 4 steps on one seeded batch of 2 x 512
@@ -271,7 +294,9 @@ Phases (any failure raises and exits non-zero):
    (a8) and (b8): (a) and (b) over an fp8 cache and pool with chunked
    admission, 16 tokens a request: the ranks token-equal, K1 / K2 and K3 fp8
    forms once a layer a decode step, the greedy rule against the fp8-cache
-   reference.
+   reference; (a32), (b32), (a32f8), (b32f8): the same under a float32
+   config (48-80-token prompts) over an f32 and an fp8 cache and pool, the
+   f32 (fp8_f32) forms once a layer a decode step.
    Phase 2 holds K1 (a T-shard), K2 (each phase of a strided table) and K3
    (dense and paged, bit for bit) against their plain versions, the
    shards merged against the unsharded function in f32 within the
@@ -1166,7 +1191,7 @@ def hold_b11(torch, got, q, kp, vp, layer, pt, starts, sm, row_map, where) -> tu
                        chunk_paged_f32(*args, p_bf16=True), B11_TOL, where)
 
 
-def check_attention_edges(torch):
+def check_attention_edges(torch, act=None):
     """B4, B12, B5 (both forms), B10 and B11 against their plain versions at
     the edges the main-path shapes miss: decode at lengths -1 (outputs 0),
     0, span - 1, span, span + 1, T - 1 (and T + 5 for B12), 255 and 256 (the
@@ -1180,22 +1205,27 @@ def check_attention_edges(torch):
     512), starts 0, across a page edge, at capacity - S and past it, and 700
     (split over spans), with and without a row map.  Each within KERNEL_TOL
     of max|plain| and finite; B12, B10 and B11 also within their own limits
-    beyond the output's rounding, with their controls above them."""
+    beyond the output's rounding, with their controls above them.  With
+    ``act`` float32: the same cases in f32 (the CUDA-core forms), each
+    within F32_TOL, and no rounding to read beyond."""
     from chatglm_q_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     G, D = 2, 128
     sm = 1.0 / math.sqrt(D)
     worst = {}
+    act = act or torch.bfloat16
+    f32 = act == torch.float32
+    tol = F32_TOL if f32 else KERNEL_TOL
 
     def bf(*shape):
-        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        return torch.randn(shape, device="cuda", generator=gen).to(act)
 
     def hold(name, got, want, zero_rows):
         torch.cuda.synchronize()
         _, rel = rel_err(got, want)
-        require(torch.isfinite(got.float()).all() and rel <= KERNEL_TOL,
-                f"{name} edge case: rel err {rel}")
+        require(got.dtype == act and torch.isfinite(got.float()).all() and rel <= tol,
+                f"{name} edge case ({str(act)[6:]}): rel err {rel}")
         for r in zero_rows:
             require(not got[r].float().any(), f"{name} edge case: row {r} is not 0")
         worst[name] = max(worst.get(name, 0.0), rel)
@@ -1217,7 +1247,7 @@ def check_attention_edges(torch):
                                        dtype=torch.int32, device="cuda")
                 got = fn(q, k, v, lengths, sm)
                 hold(name, got, plain(q, k, v, lengths, sm), [0])
-                if v2:
+                if v2 and not f32:
                     err, ctrl = hold_b12(torch, got, q, k, v, lengths, sm,
                                          f"edge case B={B} Hg={Hg}")
                     b12 = [max(b12[0], err), min(b12[1], ctrl)]
@@ -1255,6 +1285,8 @@ def check_attention_edges(torch):
             got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
             hold("flash_attention_decode_paged", got,
                  A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm), [0])
+            if f32:
+                continue
             err, ctrl = hold_b10(torch, got, q, kp, vp, 1, pt, lengths, sm,
                                  f"edge case P={P} Hg={Hg}")
             b10 = [max(b10[0], err), min(b10[1], ctrl)]
@@ -1267,6 +1299,8 @@ def check_attention_edges(torch):
                 got = A.flash_attention_chunk_paged(q, kp, vp, 1, table, starts, sm, row_map)
                 hold("flash_attention_chunk_paged", got, A.flash_attention_chunk_paged_plain(
                     q, kp, vp, 1, table, starts, sm, row_map), [])
+                if f32:
+                    continue
                 err, ctrl = hold_b11(torch, got, q, kp, vp, 1, table, starts, sm, row_map,
                                      f"edge case P={P} S={S} Hg={Hg} "
                                      f"row_map={row_map is not None}")
@@ -1275,9 +1309,11 @@ def check_attention_edges(torch):
     for name, (err, ctrl) in (("flash_attention_decode_v2", b12),
                               ("flash_attention_decode_paged", b10),
                               ("flash_attention_chunk_paged", b11)):
+        if f32:
+            continue
         worst[f"{name} beyond rounding"] = err
         worst[f"{name} control beyond rounding"] = ctrl
-    log(f"  attention edge cases: max rel err {json.dumps(worst)}")
+    log(f"  attention edge cases{' (f32)' if f32 else ''}: max rel err {json.dumps(worst)}")
     return worst
 
 
@@ -2618,6 +2654,13 @@ def chat_slice(torch, smi):
             counts["int4g32 f16 fp8"], perf["int4g32 f16 fp8"] = chat_f16(
                 torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder,
                 kv_dtype=torch.float8_e4m3fn, tokens=F16_NEW_TOKENS)
+        # the float32 config of the same tree (the CUDA-core attention forms)
+        for q, kv_name in F32_CHAT:
+            if q == name:
+                kv = None if kv_name == "float32" else getattr(torch, kv_name)
+                f32_name = f"{name} f32" + (" fp8" if kv else "")
+                counts[f32_name], perf[f32_name] = chat_f32(
+                    torch, smi, params, cfg, quant, tokenizer, prompt, ids, decoder, kv)
         del decoder, eager_decoder
     del params
     torch.cuda.empty_cache()
@@ -3164,6 +3207,8 @@ def engines_slice(torch, smi, seed=61, survey=False):
     for k in ("flash_attention_decode_paged", "flash_attention_prefill_chunk"):
         counts[k + " fp8_f16"] = f8_counts[k + "_fp8_f16"]
     counts["rope_kv_append paged fp8_f16"] = f8_counts["rope_kv_append_fp8_f16"]
+    f32_counts, out["f32"] = engines_f32(torch, smi, params, cfg, seed)
+    counts.update(f32_counts)
     return counts, out
 
 
@@ -3658,7 +3703,9 @@ SHARD_LAYERS = 8
 SHARD_SPEC_TOKENS = 8  # runs (c)-(g)
 SHARD_LOOP_TOKENS = 32  # the greedy rows of (c)-(f) on short cycles, which drafts must hit
 SHARD_HTTP_TOKENS = 12
-SHARD_FP8_TOKENS = 16  # runs (a8), (b8): the fp8 cache and pool
+SHARD_FP8_TOKENS = 16  # runs (a8), (b8): the fp8 cache and pool; and (a32) ... (b32f8) in f32
+SHARD_F32_PROMPTS = (48, 64, 80, 56)  # the f32 runs' prompt lengths: f32 prefills take the
+                                      # CUDA-core gemvs
 # what each run's verify steps must launch, once a layer a step: the
 # model-sharded pool's verify attends the all-gathered pages (B5's chunked
 # form), the data-sharded pool's through the chunk kernel (B11)
@@ -3699,9 +3746,12 @@ def sharded_prompts(torch, seed):
     loops = [(p, dict(greedy, max_new_tokens=SHARD_LOOP_TOKENS)) for p in cycles(torch)]
     mixed = loops + [(spec[2][0], sampled), (spec[0][0], sampled)]
     short = dict(kw, max_new_tokens=SHARD_FP8_TOKENS)
+    a32 = [(p[:n], short) for (p, _), n in zip(a[1:4], SHARD_F32_PROMPTS)]
+    b32 = [(p[:n], short) for (p, _), n in zip(b[:4], SHARD_F32_PROMPTS)]
     return {"a": a, "b": b, "c": spec[:2] + loops, "d": mixed, "e": spec[:2] + loops,
             "f": mixed, "g": look, "a8": [(p, short) for p, _ in a[1:4]],
-            "b8": [(p, short) for p, _ in b[:4]]}
+            "b8": [(p, short) for p, _ in b[:4]], "a32": a32, "b32": b32, "a32f8": a32,
+            "b32f8": b32}
 
 
 def cycles(torch, seed=5):
@@ -3739,12 +3789,19 @@ def sharded_rank(rank, tree_path, prompts, tp, layers, http=True):
     torch.cuda.synchronize()
     res = {"load_s": time.perf_counter() - t0}
     load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="bfloat16")
+    load32 = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="float32")
     pool = dict(num_pages=POOL_PAGES, page_size=PAGE, max_batch=4, max_seq_len=SEQ)
     spec = dict(pool, decode_chunk=4, speculative_k=8, speculative_ngram=3)
 
-    def paged(**kw):
+    def paged(load=load, **kw):
         return lambda graphs: DistributedPagedServingEngine(
             load, params, mesh=mesh, rt=TorchRuntimeConfig(cuda_graphs=graphs), **kw)
+
+    def dense32(kv_dtype=None):  # (a) in f32 (a float32 config), chunked admission
+        return lambda graphs: DistributedServingEngine(
+            load32, params, mesh=mesh, max_batch=4, max_seq_len=SHARD_T, decode_chunk=16,
+            prefill_chunk_size=PAGE, kv_dtype=kv_dtype,
+            rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs))
 
     makers = {
         "a": lambda graphs: DistributedServingEngine(
@@ -3767,6 +3824,13 @@ def sharded_rank(rank, tree_path, prompts, tp, layers, http=True):
             rt=TorchRuntimeConfig(kv_shard_t=True, cuda_graphs=graphs)),
         "b8": paged(shard_model_pages=True, prefill_chunk_size=PAGE, prefix_cache=True,
                     decode_chunk=16, kv_dtype=torch.float8_e4m3fn, **pool),
+        # (a) and (b) with a float32 config over an f32 cache and pool, and over fp8
+        "a32": dense32(),
+        "b32": paged(load32, shard_model_pages=True, prefill_chunk_size=PAGE, prefix_cache=True,
+                     decode_chunk=16, **pool),
+        "a32f8": dense32(torch.float8_e4m3fn),
+        "b32f8": paged(load32, shard_model_pages=True, prefill_chunk_size=PAGE,
+                       prefix_cache=True, decode_chunk=16, kv_dtype=torch.float8_e4m3fn, **pool),
     }
     # over NCCL the decode chunks are captured (a gloo mesh refuses capture):
     # each run is driven captured, then again from eager launches
@@ -4138,7 +4202,7 @@ def sharded_slice(torch, smi, seed=81, backend="gloo", tp=SHARD_TP, layers=SHARD
                 f"phase 8 ({run}): the shifted control passes ({gaps['f32'][1]})")
         for k, v in r0["counts"].items():
             counts[k] = counts.get(k, 0) + v
-    counts.update(sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out))
+    counts.update(sharded_form_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out))
     if "c" in prompts:
         out.update(sharded_serving_checks(torch, params, cfg, ranks, prompts, smi, backend, tp))
     if backend == "nccl":
@@ -5933,10 +5997,11 @@ def torch_equal_bytes(x, y):
 
 
 def fp8_row(torch, name, fp8_fn, same_fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False,
-            plain_iters=5, plain_syncs=False, act="bf16", tol=KERNEL_TOL):
-    """One fp8 form of a kernel under ``act`` activations ("bf16" or
-    "f16"): ``fp8_fn(i)`` over layer i of an fp8 cache, ``same_fn(i)`` its
-    16-bit form (activations and cache in ``act``) over the same cache
+            plain_iters=5, plain_syncs=False, act="bf16", tol=KERNEL_TOL, peak=PEAK_BF16_FLOPS,
+            lib_syncs=False):
+    """One fp8 form of a kernel under ``act`` activations ("bf16", "f16" or
+    "f32"): ``fp8_fn(i)`` over layer i of an fp8 cache, ``same_fn(i)`` its
+    16-bit (f32) form (activations and cache in ``act``) over the same cache
     upcast, ``plain_fn()`` the plain version on layer 0 of the fp8 cache.
     Required: the fp8 form bit-equal to the 16-bit form (``same_fn`` None:
     an append, bit-equal to its plain version instead) and within ``tol``
@@ -5945,7 +6010,8 @@ def fp8_row(torch, name, fp8_fn, same_fn, plain_fn, nbytes, ops, lib_fn, shape, 
     library yardstick (``lib_fn``: the cache cast to ``act`` and SDPA; None
     where no call computes it); the bound counts each K/V byte read once at
     1 B.  ``plain_syncs``: the plain version reads a device value on the
-    host, so it is timed on the host's clock (``synced_ms``)."""
+    host, so it is timed on the host's clock (``synced_ms``); ``lib_syncs``
+    likewise the library call."""
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     got = fp8_fn(0)
@@ -5967,25 +6033,49 @@ def fp8_row(torch, name, fp8_fn, same_fn, plain_fn, nbytes, ops, lib_fn, shape, 
         plain = synced_ms(torch, lambda i: plain_fn(), plain_iters)
     else:
         plain = cuda_event_ms(lambda i: plain_fn(), iters=plain_iters)
-    lib = cuda_event_ms(lib_fn, iters=56) if lib_fn is not None else None
-    b, by = bound_ms(nbytes, ops)
+    lib = (None if lib_fn is None else synced_ms(torch, lib_fn, 8) if lib_syncs
+           else cuda_event_ms(lib_fn, iters=56))
+    b, by = bound_ms(nbytes, ops, peak)
     return {"max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain, "bound_ms": b,
             "bound_by": by, "library_ms": lib, f"{act}_ms": same_ms,
             "bit_equal_to_16bit_form": same is not None, "shape": shape}
 
 
+def f32_store_sweep(torch):
+    """f32 values at 64 points of every e4m3 binade (subnormals included),
+    each nudged 2^-9 below, onto and above (across the e4m3 rounding
+    midpoints, where a bf16 hop rounds a second time), random values, the
+    top of the range and past it, +-inf, NaN, their negatives: (N, 2, 128)
+    rows on the card."""
+    e = torch.arange(-12, 9, device="cuda").float()
+    grid = (torch.linspace(1, 2, 64, device="cuda")[None, :] * torch.exp2(e)[:, None]).flatten()
+    nudge = torch.tensor([1 - 2 ** -9, 1, 1 + 2 ** -9], device="cuda")
+    edge = torch.tensor([448.0, 449.0, 463.9, 464.0, 1e30, math.inf, math.nan, 0.0],
+                        device="cuda")
+    x = torch.cat([(grid[:, None] * nudge).flatten(),
+                   torch.randn(8192, device="cuda", generator=torch.Generator(
+                       device="cuda").manual_seed(5)) * 40, edge])
+    x = torch.cat([x, -x])
+    return torch.cat([x, x.new_zeros(-x.numel() % 256)]).reshape(-1, 2, 128)
+
+
 def fp8_store_line(torch, act):
-    """All 65,536 bit patterns of ``act`` (bf16 or f16) through the
-    write-only append into an fp8 cache, byte for byte against
-    ``kv_store_cast`` on the card and on the CPU."""
+    """The write-only append into an fp8 cache, byte for byte against
+    ``kv_store_cast`` on the card and on the CPU: all 65,536 bit patterns
+    of ``act`` (bf16 or f16), or for f32 ``f32_store_sweep``, whose bytes a
+    bf16 hop first (two roundings) must change somewhere (the control)."""
     from chatglm_q_tpu_torch.ops import attention as A
 
     fp8 = torch.float8_e4m3fn
-    x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(
-        act).reshape(256, 2, 128)
+    if act == torch.float32:
+        x = f32_store_sweep(torch)
+    else:
+        x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(
+            act).reshape(256, 2, 128)
+    n = x.shape[0]
     want = A.kv_store_cast(x, fp8)
-    cache = A.kv_zeros((1, 256, 2, 4, 128), fp8, "cuda")
-    A.kv_cache_write_idx(cache, x, 0, torch.full((256,), 2, dtype=torch.int32, device="cuda"))
+    cache = A.kv_zeros((1, n, 2, 4, 128), fp8, "cuda")
+    A.kv_cache_write_idx(cache, x, 0, torch.full((n,), 2, dtype=torch.int32, device="cuda"))
     torch.cuda.synchronize()
     card = torch_equal_bytes(cache[0, :, :, 2], want)
     cpu = torch_equal_bytes(want.cpu(), A.kv_store_cast(x.cpu(), fp8))
@@ -5993,17 +6083,28 @@ def fp8_store_line(torch, act):
     sat = int(((x.float().abs() > A.FP8_MAX) & ~torch.isnan(x.float())).sum())
     require(card and cpu, f"the fp8 store: kernel == kv_store_cast on the card {card}, "
                           f"card == CPU {cpu}")
+    res = {"patterns": x.numel(), "equal_on_card": card, "card_equals_cpu": cpu,
+           "nan_patterns": nan, "saturated_patterns": sat}
+    if act == torch.float32:
+        hop = A.kv_store_cast(x.to(torch.bfloat16), fp8)
+        res["bf16_hop_differs"] = int((hop.view(torch.uint8) != want.view(torch.uint8)).sum())
+        require(res["bf16_hop_differs"] > 0, "the f32 store: no value where a bf16 hop differs")
+        log(f"  fp8 store: {x.numel()} f32 values (every e4m3 binade across its rounding "
+            f"midpoints) through the write-only append equal kv_store_cast byte for byte on the "
+            f"card and on the CPU, one rounding from f32 ({nan} NaN stored 0x7F, {sat} past "
+            f"+-448 saturated); a bf16 hop first gives other bytes for "
+            f"{res['bf16_hop_differs']} of them")
+        return res
     log(f"  fp8 store: all 65536 {str(act)[6:]} patterns through the write-only append equal "
         f"kv_store_cast byte for byte on the card and on the CPU ({nan} NaN patterns stored "
         f"0x7F, {sat} past +-448 saturated)")
-    return {"patterns": 65536, "equal_on_card": card, "card_equals_cpu": cpu,
-            "nan_patterns": nan, "saturated_patterns": sat}
+    return res
 
 
 def check_fp8_attention(torch, act=None):
     """Every attention kernel's fp8-cache form under ``act`` activations
-    (bf16, the default, or f16: the f16-over-fp8 form, rows keyed
-    "... fp8_f16") at the shapes of its bf16 row: B3 / B9 (the fused
+    (bf16, the default; f16: the f16-over-fp8 form, rows keyed "...
+    fp8_f16"; f32: "... fp8_f32") at the shapes of its bf16 row: B3 / B9 (the fused
     append, B = 4 and 1, dense and paged), B4 (B = 4 and 1), B12, B5 (both
     forms), B10, B11 (S = 9), K1, K2, K3 (dense and paged), and the store
     over every pattern of ``act``.  The same seed as the bf16 rows: the
@@ -6015,16 +6116,19 @@ def check_fp8_attention(torch, act=None):
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     act = act or torch.bfloat16
-    f16 = act == torch.float16
-    tag, form = (" fp8_f16", "f16") if f16 else (" fp8", "bf16")
+    tag, form, tol = {torch.bfloat16: (" fp8", "bf16", KERNEL_TOL),
+                      torch.float16: (" fp8_f16", "f16", F16_KERNEL_TOL),
+                      torch.float32: (" fp8_f32", "f32", F32_TOL)}[act]
+    esz = act.itemsize  # bytes of a q or output element
+    peak = PEAK_F32_FLOPS if act == torch.float32 else PEAK_BF16_FLOPS
     L, G, Hg, D = 28, 2, 16, 128
     sm = 1.0 / math.sqrt(D)
     out = {"store": fp8_store_line(torch, act)}
     rows = {}
 
-    def row_of(name, *args, **kw):  # fp8_row with this form's 16-bit twin and limit
-        return fp8_row(torch, name, *args, act=form, tol=F16_KERNEL_TOL if f16 else KERNEL_TOL,
-                       **kw)
+    def row_of(name, *args, **kw):  # fp8_row with this form's twin (16-bit or f32) and limit
+        return fp8_row(torch, name, *args, act=form, tol=tol, peak=peak,
+                       lib_syncs=act == torch.float32, **kw)
 
     def cache_of(shape):
         return fp8_cache(torch, gen, shape, act)
@@ -6060,7 +6164,7 @@ def check_fp8_attention(torch, act=None):
             key + tag, lambda i, fn=fn: fn(q, k8[i % L], v8[i % L], lens, sm),
             lambda i, fn=fn: fn(q, k16[i % L], v16[i % L], lens, sm),
             lambda plain=plain: plain(q, k8[0], v8[0], lens, sm),
-            2 * q.numel() * 2 + kv_bytes_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
+            2 * q.numel() * esz + kv_bytes_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
             lib_decode(q, k8, v8, mask),
             f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} fp8 cache")
     q1, l1 = q[:1].contiguous(), i32(140)
@@ -6070,7 +6174,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_decode(q1, k8[i % L][:1], v8[i % L][:1], l1, sm),
         lambda i: A.flash_attention_decode(q1, k16[i % L][:1], v16[i % L][:1], l1, sm),
         lambda: A.flash_attention_decode_plain(q1, k8[0][:1], v8[0][:1], l1, sm),
-        2 * q1.numel() * 2 + kv_bytes_read(141) + 4, 4.0 * 141 * G * Hg * D,
+        2 * q1.numel() * esz + kv_bytes_read(141) + 4, 4.0 * 141 * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
             q1.reshape(1, G * Hg, 1, D), k8[i % L][:1].to(act), v8[i % L][:1].to(act),
             attn_mask=mask1, scale=sm, enable_gqa=True),
@@ -6089,7 +6193,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_prefill(qp, k8[i % L], v8[i % L], lp, sm),
         lambda i: A.flash_attention_prefill(qp, k16[i % L], v16[i % L], lp, sm),
         lambda: A.flash_attention_prefill_plain(qp, k8[0], v8[0], lp, sm),
-        2 * qp.numel() * 2 + kv_bytes_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
+        2 * qp.numel() * esz + kv_bytes_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
         4.0 * pairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
             qsp, k8[i % L][:, :, :S].to(act), v8[i % L][:, :, :S].to(act), attn_mask=pmask[:, None],
@@ -6122,7 +6226,7 @@ def check_fp8_attention(torch, act=None):
         want = plain()
         require(torch.equal(got, want) and torch_equal_bytes(kk, kr) and
                 torch_equal_bytes(vv, vr), f"{key}: differs from its plain version")
-        nbytes = Bq * (2 * qa[0].numel() * 2 + kv[0].numel() * 2 + D * 2 + 2 * G * D + 4) \
+        nbytes = Bq * (2 * qa[0].numel() * esz + kv[0].numel() * esz + D * esz + 2 * G * D + 4) \
             + (0 if pt is None else Bq * 4)
         row = row_of(key, lambda i: run(i, kk, vv), None, plain, nbytes,
                       6.0 * Bq * (G * Hg + G) * D / 2, None,
@@ -6169,7 +6273,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_prefill_chunk(qc, c16[i % L], d16[i % L], clens, cstarts, sm,
                                                   rmap),
         lambda: A.flash_attention_prefill_plain(qc, c8[0], d8[0], clens, sm, cstarts, rmap),
-        2 * qc.numel() * 2 + kv_bytes_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
+        2 * qc.numel() * esz + kv_bytes_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
             qcs, c8[i % L].to(act)[rmap.long()], d8[i % L].to(act)[rmap.long()],
             attn_mask=cmask[:, None], scale=sm, enable_gqa=True),
@@ -6190,7 +6294,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_decode_lse(q, s8[i % L], t8[i % L], slen, sm, 0),
         lambda i: A.flash_attention_decode_lse(q, s16[i % L], t16[i % L], slen, sm, 0),
         lambda: A.flash_attention_decode_lse_plain(q, s8[0], t8[0], slen, sm, 0),
-        2 * q.numel() * 2 + kv_bytes_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
+        2 * q.numel() * esz + kv_bytes_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
         4.0 * sum(sn) * G * Hg * D, lib_decode(q, s8, t8, smask),
         f"B={B} G={G} Hg={Hg} D={D} shard 0 of T={SHARD_T} (T_local={Tl}) "
         f"lengths={list(SHARD_LENGTHS)} fp8 cache")
@@ -6226,7 +6330,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_decode_paged(q, p8, w8, i % L, pt, plens, sm),
         lambda i: A.flash_attention_decode_paged(q, p16, w16, i % L, pt, plens, sm),
         lambda: A.flash_attention_decode_paged_plain(q, p8, w8, 0, pt, plens, sm),
-        2 * q.numel() * 2 + kv_bytes_read(sum(pn)) + B * MP * 4 + B * 4,
+        2 * q.numel() * esz + kv_bytes_read(sum(pn)) + B * MP * 4 + B * 4,
         4.0 * sum(pn) * G * Hg * D, lib_paged(q, dmask),
         f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)} fp8 pool")
     S9 = 9
@@ -6240,7 +6344,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_chunk_paged(q9, p8, w8, i % L, pt, plens, sm),
         lambda i: A.flash_attention_chunk_paged(q9, p16, w16, i % L, pt, plens, sm),
         lambda: A.flash_attention_chunk_paged_plain(q9, p8, w8, 0, pt, plens, sm),
-        2 * q9.numel() * 2 + kv_bytes_read(sum(rows9)) + B * MP * 4 + B * 4,
+        2 * q9.numel() * esz + kv_bytes_read(sum(rows9)) + B * MP * 4 + B * 4,
         4.0 * pairs9 * G * Hg * D, lib_paged(q9, cmask9[:, None]),
         f"B={B} S={S9} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} fp8 pool")
     cap = MP * PAGE
@@ -6253,7 +6357,7 @@ def check_fp8_attention(torch, act=None):
         lambda i: A.flash_attention_decode_paged_lse(q, p8, w8, i % L, half, plens, sm, 2, 0),
         lambda i: A.flash_attention_decode_paged_lse(q, p16, w16, i % L, half, plens, sm, 2, 0),
         lambda: A.flash_attention_decode_paged_lse_plain(q, p8, w8, 0, half, plens, sm, 2, 0),
-        2 * q.numel() * 2 + kv_bytes_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
+        2 * q.numel() * esz + kv_bytes_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
         4.0 * sum(pn) / 2 * G * Hg * D, None,
         f"B={B} G={G} Hg={Hg} D={D} P={PAGE}, phase 0 of a stride-2 table (B, {MP // 2}), "
         f"lengths={list(PAGED_LENGTHS)} fp8 pool")
@@ -6528,21 +6632,32 @@ def long_context_fp8(torch, smi, params, cfg):
     return counts, res
 
 
-def sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out):
-    """Phase 8's runs over an fp8 cache: (a8) the T-sharded cache (K3 writes,
-    K1 over each shard, the merge) and (b8) the model-sharded pool (K3, K2),
-    both with chunked admission, 16 tokens a request.  The ranks
-    token-equal, every request within its budget, K1 / K2 and K3 once a
-    layer a decode step on every rank and all of them fp8 forms, the
-    unsharded forms never, no page in use after (b8)'s drain; every greedy
-    token within GREEDY_GAP_TOL of the single-device dense ``prefill_chunk``
-    over an fp8 cache, the shifted stream not.  Returns the fp8 forms'
-    launches on rank 0."""
+# phase 8's runs over another cache or activation dtype: (run, its base
+# run's kernels, the launch form, the cache dtype's name, the activations')
+SHARDED_FORM_RUNS = (("a8", "a", "fp8", "float8_e4m3fn", "bfloat16"),
+                     ("b8", "b", "fp8", "float8_e4m3fn", "bfloat16"),
+                     ("a32", "a", "f32", "float32", "float32"),
+                     ("b32", "b", "f32", "float32", "float32"),
+                     ("a32f8", "a", "fp8_f32", "float8_e4m3fn", "float32"),
+                     ("b32f8", "b", "fp8_f32", "float8_e4m3fn", "float32"))
+
+
+def sharded_form_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out):
+    """Phase 8's runs over an fp8 cache and in f32 (``SHARDED_FORM_RUNS``):
+    (a8) / (a32) / (a32f8) the T-sharded cache (K3 writes, K1 over each
+    shard, the merge) and (b8) / (b32) / (b32f8) the model-sharded pool (K3,
+    K2), all with chunked admission, 16 tokens a request (the f32 runs on
+    48-80-token prompts).  The ranks token-equal, every request within its
+    budget, K1 / K2 and K3 once a layer a decode step on every rank and all
+    of them in the run's form, the unsharded forms never, no page in use
+    after a paged drain; every greedy token within GREEDY_GAP_TOL of the
+    single-device dense ``prefill_chunk`` with the run's activations and
+    cache dtype, the shifted stream not.  Returns the forms' launches on
+    rank 0."""
     from types import SimpleNamespace
 
     counts = {}
-    kinds = {"a8": "a", "b8": "b"}
-    for run in (k for k in kinds if k in prompts):
+    for run, base, form, kv_name, act_name in (r for r in SHARDED_FORM_RUNS if r[0] in prompts):
         reqs, r0 = prompts[run], ranks[0][run]
         require(all(r[run]["tokens"] == r0["tokens"] for r in ranks),
                 f"phase 8 ({run}): the ranks' tokens differ")
@@ -6551,10 +6666,10 @@ def sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out
             f"phase 8 ({run}): unfinished or over budget: {[len(t) for t in r0['tokens']]}")
         for i, r in enumerate(ranks):
             c, steps = r[run]["counts"], r[run]["decode_steps"]
-            for kern in SHARDED_DECODE[kinds[run]]:
-                require(c[kern] == cfg.num_layers * steps and c[kern + "_fp8"] == c[kern],
+            for kern in SHARDED_DECODE[base]:
+                require(c[kern] == cfg.num_layers * steps and c[f"{kern}_{form}"] == c[kern],
                         f"phase 8 ({run}) rank {i}: {kern} launched {c[kern]} times "
-                        f"({c[kern + '_fp8']} fp8) in {steps} decode steps")
+                        f"({c[f'{kern}_{form}']} {form}) in {steps} decode steps")
             bad = {k: c[k] for k in UNSHARDED_DECODE if c[k]}
             require(not bad, f"phase 8 ({run}) rank {i}: launched unsharded decode forms {bad}")
             require(r[run].get("pages_in_use", 0) == 0,
@@ -6562,26 +6677,26 @@ def sharded_fp8_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, out
         done = [SimpleNamespace(generated=t) for t in r0["tokens"]]
         gaps = greedy_gaps(torch, params, cfg, done, reqs,
                            cache_len=max(len(p) for p, _ in reqs) + SHARD_FP8_TOKENS,
-                           kv_dtype=torch.float8_e4m3fn)
+                           kv_dtype=getattr(torch, kv_name), dtype=getattr(torch, act_name))
         require(gaps["f32"][0] <= GREEDY_GAP_TOL and gaps["f32"][1] > GREEDY_GAP_TOL,
-                f"phase 8 ({run}): greedy gap {gaps['f32'][0]} against the fp8-cache reference "
+                f"phase 8 ({run}): greedy gap {gaps['f32'][0]} against the {form} reference "
                 f"(shifted control {gaps['f32'][1]})")
-        per_step = {k: r0["counts"][k + "_fp8"] / r0["decode_steps"]
-                    for k in SHARDED_DECODE[kinds[run]]}
+        per_step = {k: r0["counts"][f"{k}_{form}"] / r0["decode_steps"]
+                    for k in SHARDED_DECODE[base]}
         out[run] = {"gaps": gaps, "decode_steps": r0["decode_steps"],
-                    "launches_per_decode_step_fp8": per_step,
+                    f"launches_per_decode_step_{form}": per_step,
                     "wall_s": [r[run]["wall_s"] for r in ranks],
                     "decode_ms_per_step_median": [r[run]["decode_ms_per_step_median"]
                                                   for r in ranks],
                     "counts": {k: v for k, v in r0["counts"].items() if v}, "stats": r0["stats"]}
-        log(f"  ({run}) fp8 {'cache' if run == 'a8' else 'pool'}: {len(reqs)} requests, "
-            f"{sum(len(t) for t in r0['tokens'])} tokens on {tp} ranks ({backend}) in "
-            f"{out[run]['wall_s'][0]:.1f} s, ranks token-equal; fp8 launches a decode step "
-            f"{json.dumps(per_step)}; greedy gap f32 {gaps['f32'][0]:.4e} against the "
-            f"fp8-cache reference, shifted control {gaps['f32'][1]:.3e}  [{smi}]")
-        for k in SHARDED_DECODE[kinds[run]]:
-            name = k + (" paged" if run == "b8" and k == "rope_kv_append_sharded" else "")
-            counts[name + " fp8"] = r0["counts"][k + "_fp8"]
+        log(f"  ({run}) {act_name} over a {kv_name} {'cache' if base == 'a' else 'pool'}: "
+            f"{len(reqs)} requests, {sum(len(t) for t in r0['tokens'])} tokens on {tp} ranks "
+            f"({backend}) in {out[run]['wall_s'][0]:.1f} s, ranks token-equal; {form} launches a "
+            f"decode step {json.dumps(per_step)}; greedy gap f32 {gaps['f32'][0]:.4e} against "
+            f"the {form} reference, shifted control {gaps['f32'][1]:.3e}  [{smi}]")
+        for k in SHARDED_DECODE[base]:
+            name = k + (" paged" if base == "b" and k == "rope_kv_append_sharded" else "")
+            counts[f"{name} {form}"] = r0["counts"][f"{k}_{form}"]
     return counts
 
 
@@ -6890,15 +7005,18 @@ def b4_f32(torch, q, k, v, lengths, sm_scale, p_dtype):
         torch.where(l > 0, l, 1.0)
 
 
-def f16_attention_rows(torch, seed, hold):
-    """Every attention kernel's f16 form (f16 activations over an f16 cache)
-    at the shapes of its bf16 row: B3 / B9 with the RoPE (B = 4, dense and
-    paged) and K3 (dense and paged), bit-equal to their plain versions; B4,
-    B12, B5 (both forms), B10, B11 (S = 9), K1, K2 within F16_KERNEL_TOL of
-    theirs (K1, K2: and their (m, l) within LSE_TOL); B4, B12, B10 and B11
-    also beyond the output's f16 rounding of their function in f32, against
-    the control with p rounded to bf16.  Timed over the 28 layers beside
-    the bf16 form on the same shapes, the plain version, and SDPA in f16."""
+def act_attention_rows(torch, act, seed, hold):
+    """Every attention kernel's form over a cache of the activations' dtype
+    ``act`` (f16, or f32: the CUDA-core forms) at the shapes of its bf16
+    row: B3 / B9 with the RoPE (B = 4, dense and paged; B = 1 dense), K3
+    (dense and paged) and the write-only B3 / B9, bit-equal to their plain
+    versions; B4 (B = 4 and 1), B12, B5 (both forms), B10, B11 (S = 9), K1,
+    K2 within F16_KERNEL_TOL (f32: F32_TOL) of theirs (K1, K2: and their (m,
+    l) within LSE_TOL); in f16, B4, B12, B10 and B11 also beyond the
+    output's f16 rounding of their function in f32, against the control
+    with p rounded to bf16.  Timed over the 28 layers beside the bf16 form
+    on the same shapes, the plain version, and SDPA in ``act``; the bounds
+    count ``act``'s bytes and, in f32, the CUDA cores' f32 peak."""
     import torch.nn.functional as F
 
     from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
@@ -6906,25 +7024,32 @@ def f16_attention_rows(torch, seed, hold):
     from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    f16, bf = torch.float16, torch.bfloat16
+    bf = torch.bfloat16
+    f16 = act == torch.float16
+    label = "f16" if f16 else "f32"
+    tol = (F16_KERNEL_TOL if hold else math.inf) if f16 else F32_TOL
+    esz = 2 if f16 else 4  # bytes an activation or cache element
+    att_peak = PEAK_BF16_FLOPS if f16 else PEAK_F32_FLOPS
     L, G, Hg, D = (28 if hold else 2), 2, 16, 128
     sm = 1.0 / math.sqrt(D)
     rows, controls = {}, {}
 
     def rnd(*shape):
-        return torch.randn(shape, device="cuda", generator=gen).to(f16)
+        return torch.randn(shape, device="cuda", generator=gen).to(act)
 
     def i32(*xs):
         return torch.tensor(xs, dtype=torch.int32, device="cuda")
 
-    def kv_read(n):  # K and V rows at two bytes an element
-        return n * G * D * 2 * 2
+    def kv_read(n):  # K and V rows at ``esz`` bytes an element
+        return n * G * D * esz * 2
 
     def row(key, fn, plain_fn, nbytes, ops, lib_fn, shape, exact=False, plain_iters=5,
-            peak=PEAK_BF16_FLOPS, plain_syncs=False):
-        """fn(i, dtype): the kernel over layer i in f16 (or bf16 for the
-        bf16 form's time); plain_fn(): the plain version on layer 0."""
-        got = fn(0, f16)
+            peak=att_peak, plain_syncs=False):
+        """fn(i, dtype): the kernel over layer i in ``act`` (or bf16 for the
+        bf16 form's time); plain_fn(): the plain version on layer 0.  In f32
+        the library call is timed on the host's clock, synchronized: SDPA's
+        f32 path outlasts the event timer's hold while it is enqueued."""
+        got = fn(0, act)
         torch.cuda.synchronize()
         want = plain_fn()
         if exact:
@@ -6932,29 +7057,28 @@ def f16_attention_rows(torch, seed, hold):
             require(torch.equal(g, w_), f"{key}: differs from its plain version")
             err = rel = 0.0
         elif isinstance(got, tuple):
-            err, rel, _, _ = hold_lse(torch, key, got, want, "f16",
-                                      tol=F16_KERNEL_TOL if hold else math.inf)
+            err, rel, _, _ = hold_lse(torch, key, got, want, label, tol=tol)
         else:
             err, rel = rel_err(got, want)
-            require(torch.isfinite(got.float()).all() and (not hold or rel <= F16_KERNEL_TOL),
-                    f"{key} rel err {rel}")
+            require(torch.isfinite(got.float()).all() and rel <= tol, f"{key} rel err {rel}")
         r = {"max_abs_err": err, "rel_err": rel, "shape": shape, "bit_equal_to_plain": exact}
         if hold:
-            r["ms"] = cuda_event_ms(lambda i: fn(i, f16), iters=56)
+            r["ms"] = cuda_event_ms(lambda i: fn(i, act), iters=56)
             r["bf16_ms"] = cuda_event_ms(lambda i: fn(i, bf), iters=56)
             r["plain_ms"] = (synced_ms(torch, lambda i: plain_fn(), plain_iters) if plain_syncs
                              else cuda_event_ms(lambda i: plain_fn(), iters=plain_iters))
-            r["library_ms"] = cuda_event_ms(lib_fn, iters=56) if lib_fn is not None else None
+            r["library_ms"] = (None if lib_fn is None else cuda_event_ms(lib_fn, iters=56)
+                               if f16 else synced_ms(torch, lib_fn, 8))
             r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, peak)
         rows[key] = r
         return got
 
-    # the dense cache of phase 2's B4 row: (L, 4, G, 1024, D), in f16 and bf16
+    # the dense cache of phase 2's B4 row: (L, 4, G, 1024, D), in act and bf16
     B, T = len(PROMPT_LENGTHS), CACHE_LEN
     kc, vc = rnd(L, B, G, T, D), rnd(L, B, G, T, D)
-    caches = {f16: (kc, vc), bf: (kc.to(bf), vc.to(bf))}
+    caches = {act: (kc, vc), bf: (kc.to(bf), vc.to(bf))}
     q = rnd(B, G, Hg, D)
-    qs = {f16: q, bf: q.to(bf)}
+    qs = {act: q, bf: q.to(bf)}
     lens = i32(1000, 600, 200, 0)
     n = [min(int(x) + 1, T) for x in lens.tolist()]
     mask = (torch.arange(T, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
@@ -6968,15 +7092,17 @@ def f16_attention_rows(torch, seed, hold):
                             A.flash_attention_decode_plain),
                            ("flash_attention_decode_v2", A.flash_attention_decode_v2,
                             A.flash_attention_decode_v2_plain)):
-        got = row(key + " f16",
+        got = row(f"{key} {label}",
                   lambda i, dt, fn=fn: fn(qs[dt], caches[dt][0][i % L], caches[dt][1][i % L],
                                           lens, sm),
                   lambda plain=plain: plain(q, kc[0], vc[0], lens, sm),
-                  2 * q.numel() * 2 + kv_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
+                  2 * q.numel() * esz + kv_read(sum(n)) + B * 4, 4.0 * sum(n) * G * Hg * D,
                   lib_decode(q, kc, vc, mask),
-                  f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} f16 cache")
+                  f"B={B} G={G} Hg={Hg} D={D} T={T} lengths={lens.tolist()} {label} cache")
+        if not f16:
+            continue
         if key == "flash_attention_decode":
-            want32 = b4_f32(torch, q, kc[0], vc[0], lens, sm, f16)
+            want32 = b4_f32(torch, q, kc[0], vc[0], lens, sm, act)
             control = b4_f32(torch, q, kc[0], vc[0], lens, sm, bf)
             controls[key + " f16"] = hold_beyond(torch, key + " f16", got, want32, control,
                                                  F16_B4_TOL, "main shape", hold)
@@ -6985,26 +7111,38 @@ def f16_attention_rows(torch, seed, hold):
                 torch, key + " f16", got, decode_v2_f32(torch, q, kc[0], vc[0], lens, sm),
                 decode_v2_f32(torch, q, kc[0], vc[0], lens, sm, p_bf16=True), F16_B12_TOL,
                 "main shape", hold)
+    q1, l1 = q[:1].contiguous(), i32(140)
+    q1s = {act: q1, bf: q1.to(bf)}
+    row(f"flash_attention_decode B=1 {label}",
+        lambda i, dt: A.flash_attention_decode(q1s[dt], caches[dt][0][i % L][:1],
+                                               caches[dt][1][i % L][:1], l1, sm),
+        lambda: A.flash_attention_decode_plain(q1, kc[0][:1], vc[0][:1], l1, sm),
+        2 * q1.numel() * esz + kv_read(141) + 4, 4.0 * 141 * G * Hg * D,
+        lambda i: F.scaled_dot_product_attention(
+            q1.reshape(1, G * Hg, 1, D), kc[i % L][:1], vc[i % L][:1],
+            attn_mask=(torch.arange(T, device="cuda") <= 140)[None, None, None, :], scale=sm,
+            enable_gqa=True),
+        f"B=1 G={G} Hg={Hg} D={D} T={T} lengths=[140] {label} cache")
 
     # B5, whole prompts over the same cache
     S = max(PROMPT_LENGTHS)
     qp = rnd(B, S, G, Hg, D)
-    qps = {f16: qp, bf: qp.to(bf)}
+    qps = {act: qp, bf: qp.to(bf)}
     lp = i32(*PROMPT_LENGTHS)
     pos = torch.arange(S, device="cuda")
     pmask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lp[:, None, None]))
     qsp = qp.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, S, D)
     pairs = sum(min(s + 1, lb) for lb in PROMPT_LENGTHS for s in range(S))
-    row("flash_attention_prefill f16",
+    row(f"flash_attention_prefill {label}",
         lambda i, dt: A.flash_attention_prefill(qps[dt], caches[dt][0][i % L],
                                                 caches[dt][1][i % L], lp, sm),
         lambda: A.flash_attention_prefill_plain(qp, kc[0], vc[0], lp, sm),
-        2 * qp.numel() * 2 + kv_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
+        2 * qp.numel() * esz + kv_read(sum(min(S, lb) for lb in PROMPT_LENGTHS)) + B * 4,
         4.0 * pairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
             qsp, kc[i % L][:, :, :S], vc[i % L][:, :, :S], attn_mask=pmask[:, None], scale=sm,
             enable_gqa=True),
-        f"B={B} S={S} G={G} Hg={Hg} D={D} lengths={list(PROMPT_LENGTHS)} f16 cache")
+        f"B={B} S={S} G={G} Hg={Hg} D={D} lengths={list(PROMPT_LENGTHS)} {label} cache")
 
     # B3 with the RoPE, and K3 on shard 1 of a 2048-slot cache, bit-equal
     table = torch.from_numpy(precompute_freqs_cis(D, 2049)).to("cuda")
@@ -7012,8 +7150,10 @@ def f16_attention_rows(torch, seed, hold):
     kv = rnd(B, 2 * G * D)
 
     def append_row(key, kk, vv, pt, st, shard=None):
-        ins = {dt: (q.to(dt), kv.to(dt), fr.to(dt)) for dt in (f16, bf)}
-        ab = {f16: (kk, vv), bf: (kk.to(bf), vv.to(bf))}
+        Bq = st.shape[0]
+        ins = {dt: (q[:Bq].to(dt).contiguous(), kv[:Bq].to(dt), fr[:Bq].to(dt))
+               for dt in (act, bf)}
+        ab = {act: (kk, vv), bf: (kk.to(bf), vv.to(bf))}
         kr, vr = kk.clone(), vv.clone()
 
         def run(i, dt):
@@ -7023,13 +7163,13 @@ def f16_attention_rows(torch, seed, hold):
 
         def plain():
             if shard is None:
-                return A.rope_kv_append_plain(*ins[f16], kr, vr, 0, st, pt)
-            return A.rope_kv_append_sharded_plain(*ins[f16], kr, vr, 0, st, shard, pt)
+                return A.rope_kv_append_plain(*ins[act], kr, vr, 0, st, pt)
+            return A.rope_kv_append_sharded_plain(*ins[act], kr, vr, 0, st, shard, pt)
 
-        nbytes = B * (2 * q[0].numel() * 2 + kv[0].numel() * 2 + D * 2 + 2 * G * D * 2 + 4) \
-            + (0 if pt is None else B * 4)
-        row(key, run, plain, nbytes, 6.0 * B * (G * Hg + G) * D / 2, None,
-            f"q (B={B}, G={G}, Hg={Hg}, D={D}), f16 "
+        nbytes = Bq * (2 * q[0].numel() * esz + kv[0].numel() * esz + D * esz
+                       + 2 * G * D * esz + 4) + (0 if pt is None else Bq * 4)
+        row(key, run, plain, nbytes, 6.0 * Bq * (G * Hg + G) * D / 2, None,
+            f"q (B={Bq}, G={G}, Hg={Hg}, D={D}), {label} "
             + (f"cache (L={L}, B={kk.shape[1]}, G={G}, T={kk.shape[3]}, D={D})" if pt is None
                else f"pool (L={L}, NP={kk.shape[1]}, G={G}, P={kk.shape[3]}, D={D}), "
                     f"MP={pt.shape[1]}") + f", starts {st.tolist()}"
@@ -7038,17 +7178,48 @@ def f16_attention_rows(torch, seed, hold):
         require(torch.equal(kk[0], kr[0]) and torch.equal(vv[0], vr[0]),
                 f"{key}: the cache differs from the plain version's")
 
-    append_row("rope_kv_append f16", kc, vc, None, i32(T - 1, T, T + 5, 2))
-    append_row("rope_kv_append_sharded f16", kc, vc, None, i32(100, T - 1, T + 7, 2 * T + 3),
+    def write_row(key, dst, pt, st):
+        """The write-only B3 (``pt`` None) / B9 form: (B, G, D) into the slot."""
+        Bq = st.shape[0]
+        new = rnd(Bq, G, D)
+        ab = {act: dst, bf: dst.to(bf)}
+        ref = dst.clone()
+
+        def run(i, dt):
+            if pt is None:
+                return A.kv_cache_write_idx(ab[dt], new.to(dt), i % L, st)
+            return A.kv_pool_write_idx(ab[dt], new.to(dt), i % L, pt, st)
+
+        def plain():
+            if pt is None:
+                return A.kv_cache_write_idx_plain(ref, new, 0, st)
+            return A.kv_pool_write_idx_plain(ref, new, 0, pt, st)
+
+        ar, slot = torch.arange(Bq, device="cuda"), st.long().clamp(0, T - 1)
+
+        def lib(i):  # index_put_ of the dense cache's slots
+            dst[i % L][ar, :, slot] = new
+
+        row(key, run, plain, Bq * (2 * G * D * esz + 4) + (0 if pt is None else Bq * 4), 0.0,
+            lib if pt is None else None,
+            f"new (B={Bq}, G={G}, D={D}) into a {label} "
+            + ("cache" if pt is None else "pool") + f", starts {st.tolist()}", exact=True,
+            plain_iters=14, peak=PEAK_F32_FLOPS)
+
+    append_row(f"rope_kv_append {label}", kc, vc, None, i32(T - 1, T, T + 5, 2))
+    append_row(f"rope_kv_append B=1 {label}", kc[:, :1].contiguous(), vc[:, :1].contiguous(),
+               None, i32(140))
+    append_row(f"rope_kv_append_sharded {label}", kc, vc, None, i32(100, T - 1, T + 7, 2 * T + 3),
                A.KVShard(offset=T, total=2 * T))
+    write_row(f"kv_cache_write_idx {label}", kc, None, i32(T - 1, T, T + 5, 2))
     del caches
 
     # B5's chunked form: 4 compact rows x 256 against a 2048-slot cache
     Sc = 256
     cc, dc = rnd(L, B, G, SEQ, D), rnd(L, B, G, SEQ, D)
-    ccs = {f16: (cc, dc), bf: (cc.to(bf), dc.to(bf))}
+    ccs = {act: (cc, dc), bf: (cc.to(bf), dc.to(bf))}
     qc = rnd(B, Sc, G, Hg, D)
-    qcs = {f16: qc, bf: qc.to(bf)}
+    qcs = {act: qc, bf: qc.to(bf)}
     cstarts = i32(768, 512, 256, 0)
     clens = cstarts + i32(256, 256, 200, 256)
     rmap = i32(2, 0, 3, 1)
@@ -7058,40 +7229,40 @@ def f16_attention_rows(torch, seed, hold):
     kv_rows = sum(min(int(ln), int(st) + Sc) for st, ln in zip(cstarts.tolist(), clens.tolist()))
     cpairs = sum(min(st + t + 1, ln) for st, ln in zip(cstarts.tolist(), clens.tolist())
                  for t in range(Sc))
-    row("flash_attention_prefill_chunk f16",
+    row(f"flash_attention_prefill_chunk {label}",
         lambda i, dt: A.flash_attention_prefill_chunk(qcs[dt], ccs[dt][0][i % L],
                                                       ccs[dt][1][i % L], clens, cstarts, sm,
                                                       rmap),
         lambda: A.flash_attention_prefill_plain(qc, cc[0], dc[0], clens, sm, cstarts, rmap),
-        2 * qc.numel() * 2 + kv_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
+        2 * qc.numel() * esz + kv_read(kv_rows) + 3 * B * 4, 4.0 * cpairs * G * Hg * D,
         lambda i: F.scaled_dot_product_attention(
             qc.permute(0, 2, 3, 1, 4).reshape(B, G * Hg, Sc, D), cc[i % L][rmap.long()],
             dc[i % L][rmap.long()], attn_mask=cmask[:, None], scale=sm, enable_gqa=True),
         f"B={B} Sc={Sc} G={G} Hg={Hg} D={D} T={SEQ} starts={cstarts.tolist()} "
-        f"lengths={clens.tolist()} kv_row_map={rmap.tolist()} f16 cache")
+        f"lengths={clens.tolist()} kv_row_map={rmap.tolist()} {label} cache")
     del ccs, cc, dc
 
     # K1 on shard 0 of phase 8's 8192-slot cache (4096 a rank)
     Tl = SHARD_T // SHARD_TP
     sk, sv = rnd(L, B, G, Tl, D), rnd(L, B, G, Tl, D)
-    sks = {f16: (sk, sv), bf: (sk.to(bf), sv.to(bf))}
+    sks = {act: (sk, sv), bf: (sk.to(bf), sv.to(bf))}
     slen = i32(*SHARD_LENGTHS)
     sn = [max(0, min(int(x) + 1, Tl)) for x in SHARD_LENGTHS]
     smask = (torch.arange(Tl, device="cuda")[None, :] <= slen[:, None])[:, None, None, :]
-    row("flash_attention_decode_lse f16",
+    row(f"flash_attention_decode_lse {label}",
         lambda i, dt: A.flash_attention_decode_lse(qs[dt], sks[dt][0][i % L], sks[dt][1][i % L],
                                                    slen, sm, 0),
         lambda: A.flash_attention_decode_lse_plain(q, sk[0], sv[0], slen, sm, 0),
-        2 * q.numel() * 2 + kv_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
+        2 * q.numel() * esz + kv_read(sum(sn)) + B * 4 + 2 * B * G * Hg * 4,
         4.0 * sum(sn) * G * Hg * D, lib_decode(q, sk, sv, smask),
         f"B={B} G={G} Hg={Hg} D={D} shard 0 of T={SHARD_T} (T_local={Tl}) "
-        f"lengths={list(SHARD_LENGTHS)} f16 cache")
+        f"lengths={list(SHARD_LENGTHS)} {label} cache")
     del sks, sk, sv
 
     # the pool of phase 2's paged rows: (L, 64, G, 256, D), 2048-slot rows
     MP = SEQ // PAGE
     kp, vp = rnd(L, POOL_PAGES, G, PAGE, D), rnd(L, POOL_PAGES, G, PAGE, D)
-    pools = {f16: (kp, vp), bf: (kp.to(bf), vp.to(bf))}
+    pools = {act: (kp, vp), bf: (kp.to(bf), vp.to(bf))}
     pt = (torch.randperm(POOL_PAGES - 1, device="cuda", generator=gen)[: B * MP] + 1
           ).reshape(B, MP).to(torch.int32)
     plens = i32(*PAGED_LENGTHS)
@@ -7109,51 +7280,55 @@ def f16_attention_rows(torch, seed, hold):
                                                   enable_gqa=True)
         return call
 
-    got = row("flash_attention_decode_paged f16",
+    got = row(f"flash_attention_decode_paged {label}",
               lambda i, dt: A.flash_attention_decode_paged(qs[dt], *pools[dt], i % L, pt, plens,
                                                            sm),
               lambda: A.flash_attention_decode_paged_plain(q, kp, vp, 0, pt, plens, sm),
-              2 * q.numel() * 2 + kv_read(sum(pn)) + B * MP * 4 + B * 4,
+              2 * q.numel() * esz + kv_read(sum(pn)) + B * MP * 4 + B * 4,
               4.0 * sum(pn) * G * Hg * D, lib_paged(q, dmask),
               f"B={B} G={G} Hg={Hg} D={D} P={PAGE} MP={MP} lengths={list(PAGED_LENGTHS)} "
-              "f16 pool")
-    kd, vd = A.gather_pages(kp[0], pt), A.gather_pages(vp[0], pt)
-    controls["flash_attention_decode_paged f16"] = hold_beyond(
-        torch, "flash_attention_decode_paged f16", got,
-        decode_v2_f32(torch, q, kd, vd, plens, sm),
-        decode_v2_f32(torch, q, kd, vd, plens, sm, p_bf16=True), F16_B10_TOL, "main shape", hold)
-    del kd, vd
+              f"{label} pool")
+    if f16:
+        kd, vd = A.gather_pages(kp[0], pt), A.gather_pages(vp[0], pt)
+        controls["flash_attention_decode_paged f16"] = hold_beyond(
+            torch, "flash_attention_decode_paged f16", got,
+            decode_v2_f32(torch, q, kd, vd, plens, sm),
+            decode_v2_f32(torch, q, kd, vd, plens, sm, p_bf16=True), F16_B10_TOL, "main shape",
+            hold)
+        del kd, vd
     S9 = 9
     q9 = rnd(B, S9, G, Hg, D)
-    q9s = {f16: q9, bf: q9.to(bf)}
+    q9s = {act: q9, bf: q9.to(bf)}
     qpos9 = plens.long()[:, None] + torch.arange(S9, device="cuda")[None, :]
     cmask9 = (torch.arange(MP * PAGE, device="cuda")[None, None, :] <= qpos9[:, :, None])
     rows9 = [min(st + S9, MP * PAGE) for st in PAGED_LENGTHS]
     pairs9 = sum(min(st + t + 1, MP * PAGE) for st in PAGED_LENGTHS for t in range(S9))
-    got = row("flash_attention_chunk_paged S=9 f16",
+    got = row(f"flash_attention_chunk_paged S=9 {label}",
               lambda i, dt: A.flash_attention_chunk_paged(q9s[dt], *pools[dt], i % L, pt, plens,
                                                           sm),
               lambda: A.flash_attention_chunk_paged_plain(q9, kp, vp, 0, pt, plens, sm),
-              2 * q9.numel() * 2 + kv_read(sum(rows9)) + B * MP * 4 + B * 4,
+              2 * q9.numel() * esz + kv_read(sum(rows9)) + B * MP * 4 + B * 4,
               4.0 * pairs9 * G * Hg * D, lib_paged(q9, cmask9[:, None]),
               f"B={B} S={S9} G={G} Hg={Hg} D={D} P={PAGE} starts={list(PAGED_LENGTHS)} "
-              "f16 pool")
-    args = (torch, q9, kp, vp, 0, pt, plens, sm, None)
-    controls["flash_attention_chunk_paged S=9 f16"] = hold_beyond(
-        torch, "flash_attention_chunk_paged f16", got, chunk_paged_f32(*args),
-        chunk_paged_f32(*args, p_bf16=True), F16_B11_TOL, "S=9", hold)
+              f"{label} pool")
+    if f16:
+        args = (torch, q9, kp, vp, 0, pt, plens, sm, None)
+        controls["flash_attention_chunk_paged S=9 f16"] = hold_beyond(
+            torch, "flash_attention_chunk_paged f16", got, chunk_paged_f32(*args),
+            chunk_paged_f32(*args, p_bf16=True), F16_B11_TOL, "S=9", hold)
     cap = MP * PAGE
-    append_row("rope_kv_append paged f16", kp, vp, pt, i32(cap - 1, cap, cap + 100, 5))
+    append_row(f"rope_kv_append paged {label}", kp, vp, pt, i32(cap - 1, cap, cap + 100, 5))
+    write_row(f"kv_pool_write_idx {label}", kp, pt, i32(cap - 1, cap, cap + 100, 5))
     half = pt[:, ::2].contiguous()
-    row("flash_attention_decode_paged_lse f16",
+    row(f"flash_attention_decode_paged_lse {label}",
         lambda i, dt: A.flash_attention_decode_paged_lse(qs[dt], *pools[dt], i % L, half, plens,
                                                          sm, 2, 0),
         lambda: A.flash_attention_decode_paged_lse_plain(q, kp, vp, 0, half, plens, sm, 2, 0),
-        2 * q.numel() * 2 + kv_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
+        2 * q.numel() * esz + kv_read(sum(pn) // 2) + B * MP * 2 + B * 4 + 2 * B * G * Hg * 4,
         4.0 * sum(pn) / 2 * G * Hg * D, None,
         f"B={B} G={G} Hg={Hg} D={D} P={PAGE}, phase 0 of a stride-2 table (B, {MP // 2}), "
-        f"lengths={list(PAGED_LENGTHS)} f16 pool")
-    append_row("rope_kv_append_sharded paged f16", kp, vp, half,
+        f"lengths={list(PAGED_LENGTHS)} {label} pool")
+    append_row(f"rope_kv_append_sharded paged {label}", kp, vp, half,
                i32(100, PAGE + 3, cap - 1, cap + 9), A.KVShard(stride=2, phase=0, total=cap))
     del pools, kp, vp
     for key, (err, ctrl) in controls.items():
@@ -7166,19 +7341,21 @@ def f16_attention_rows(torch, seed, hold):
                      f"{r['control']:.2e})" if "control" in r else "")
             log(f"  {k:{width}s} rel_err {r['rel_err']:.2e}  {r['ms']:.4f} ms (bf16 form "
                 f"{r['bf16_ms']:.4f} ms)  bound {r['bound_ms']:.6f} ms ({r['bound_by']})  plain "
-                f"{r['plain_ms']:.4f} ms  SDPA f16 {lib}"
-                f"{'  = plain' if r['bit_equal_to_plain'] else ''}{extra}  [{r['shape']}]")
+                f"{r['plain_ms']:.4f} ms  "
+                + ("index_put_" if k.startswith("kv_cache_write") else f"SDPA {label}")
+                + f" {lib}{'  = plain' if r['bit_equal_to_plain'] else ''}{extra}  "
+                f"[{r['shape']}]")
     return rows
 
 
 def check_f16_kernels(torch, seed=F16_SEED, hold=True):
     """Phase 2's f16 rows: B1 and B6 (``f16_matmul_rows``), B7 / B8 / B13 /
     B14 (``f16_dyn_t_rows``), every attention kernel's f16 form over an f16
-    cache (``f16_attention_rows``) and, where ``hold``, over an fp8 cache
+    cache (``act_attention_rows`` in f16) and, where ``hold``, over an fp8 cache
     (``check_fp8_attention`` in f16: each bit-equal to its f16 form on the
     upcast cache)."""
     out = {"matmul": f16_matmul_rows(torch, seed, hold) + f16_dyn_t_rows(torch, seed, hold),
-           "attention": f16_attention_rows(torch, seed, hold)}
+           "attention": act_attention_rows(torch, torch.float16, seed, hold)}
     if hold:
         fp8 = check_fp8_attention(torch, torch.float16)
         out["fp8_store"] = fp8.pop("store")
@@ -7209,13 +7386,16 @@ def f16_survey(torch, smi, seeds):
     return 0
 
 
-def f16_tree(torch, params):
+def f16_tree(torch, params, dtype=None):
     """The tree a float16 checkpoint of ``params`` loads into (loader.py):
-    every float leaf in f16 but the quantized weights' scales (int4g32's
-    bf16, int8's f32), which the kernels take as they are."""
+    every float leaf in f16 (or ``dtype``: float32 for a float32
+    checkpoint) but the quantized weights' scales (int4g32's bf16, int8's
+    f32), which the kernels take as they are."""
+    dtype = dtype or torch.float16
+
     def conv(tree):  # None: a leaf held elsewhere (a partition's other half)
         return {k: conv(v) if isinstance(v, dict) else
-                v.to(torch.float16) if v is not None and v.is_floating_point()
+                v.to(dtype) if v is not None and v.is_floating_point()
                 and k != "weight_scale" else v
                 for k, v in tree.items()}
     return conv(params)
@@ -7525,6 +7705,293 @@ def f16_slice(torch, smi):
             "counts": {k: {n: v for n, v in c.items() if v} for k, c in counts.items()}}
 
 
+# ---------------------------------------------------------------------------
+# float32 activations (a float32 checkpoint, the loaders' default dtype):
+# phase 2's f32 attention rows and the f32 runs of phases 5, 6 and 8
+# (``--fp32`` runs them alone)
+# ---------------------------------------------------------------------------
+
+F32_SEED = 19
+F32_NEW_TOKENS = 16  # greedy tokens a request of the f32 runs of phases 5 and 6
+# phase 5's float32-config GLMDecoder runs: (quant, cache dtype name)
+F32_CHAT = (("int4g32", "float32"), ("int8", "float32"), ("int4g32", "float8_e4m3fn"))
+
+
+def tf32_off(torch) -> dict:
+    """TF32 off for both of PyTorch's f32 paths, set and printed before an
+    f32 comparison (the plain versions' einsums then sum in IEEE f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flags = {"torch.backends.cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "torch.backends.cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    log(f"  TF32 off before the f32 comparisons: {json.dumps(flags)}")
+    return flags
+
+
+def check_f32_kernels(torch):
+    """Phase 2's f32 rows: every attention kernel's f32 form over an f32
+    cache (``act_attention_rows`` in f32, within F32_TOL of its plain
+    version; the appends and writes bit-equal), over an fp8 cache
+    (``check_fp8_attention`` in f32: each bit-equal to its f32 form on the
+    upcast cache; the f32 -> e4m3 store byte-equal to ``kv_store_cast``),
+    and the attention edge cases in f32."""
+    flags = tf32_off(torch)
+    rows = act_attention_rows(torch, torch.float32, F32_SEED, True)
+    fp8 = check_fp8_attention(torch, torch.float32)
+    store = fp8.pop("store")
+    rows.update(fp8)
+    return {"attention": rows, "fp8_store": store, "tf32": flags,
+            "edge_cases_max_rel_err": check_attention_edges(torch, torch.float32)}
+
+
+def chat_f32(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decoder, kv_dtype=None):
+    """Phase 5's f32 run of one mode: ``GLMDecoder`` with a float32 config
+    (f32 activations over an f32 cache, or over ``kv_dtype``, fp8) on the
+    28-layer tree as a float32 checkpoint of it loads, the chat prompt,
+    F32_NEW_TOKENS greedy tokens, captured and eager (equal texts); its text
+    that of ``prefill`` + ``multi_step_decode``; the f32 gemv and the
+    attention kernels' f32 (fp8_f32) forms launched, and one f32 decode step
+    through B12 (``decode_attn_v2``); every token within GREEDY_GAP_TOL of
+    the argmax of the plain path (``use_kernels=False``) in f32 over the same
+    cache dtype; ms a token and the prompt's prefill ms (time to first
+    token) beside the bf16 decoder of the same mode, in turns."""
+    from types import SimpleNamespace
+
+    from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+    from chatglm_q_tpu_torch.serving import GLMDecoder, process_response
+
+    f32, tokens = torch.float32, F32_NEW_TOKENS
+    kv = kv_dtype or f32
+    form = "fp8_f32" if kv_dtype else "f32"
+    name = f"{quant} f32" + (" fp8" if kv_dtype else "")
+    params = f16_tree(torch, params, f32)  # as a float32 checkpoint of the tree loads
+    load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="float32")
+    rt = TorchRuntimeConfig()
+    dec = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN, rt=rt,
+                     kv_dtype=kv_dtype)
+    dec_eager = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                           rt=TorchRuntimeConfig(cuda_graphs=False), kv_dtype=kv_dtype)
+    require(dec.dtype == f32 and dec.kv_dtype == kv, f"{name}: decoder in {dec.dtype}")
+    ops.reset_launch_counts()
+    _, final, _ = run_generate(dec, prompt, tokens)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    step = M.decode_program(params, cfg, dec._free_caches[0][0], quant, f32, rt)
+    require(dec._free_caches[0][0].k.dtype == kv and step.graph is not None
+            and step.replays >= tokens - 3,
+            f"{name}: the decode step was not replayed from a graph ({step.replays})")
+    _, final_eager, _ = run_generate(dec_eager, prompt, tokens)
+    require(final_eager == final, f"{name}: the captured decoder's text differs from the eager "
+                                  f"one's: {final[:60]!r} / {final_eager[:60]!r}")
+    gemv = "int4g32_gemv" if quant == "int4g32" else "int8_gemv"
+    require(counts[gemv] > 0, f"{name}: no {gemv} launch")
+    for k in ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill"):
+        require(counts[f"{k}_{form}"] > 0 and counts[f"{k}_{form}"] == counts[k],
+                f"{name}: {k} launched {counts[k]} times, {counts[f'{k}_{form}']} as {form}")
+    # the model-level loop over the same cache dtype: the same text
+    cache = M.init_kv_cache(cfg, 1, CACHE_LEN, kv)
+    logits, cache = M.prefill(params, cfg, torch.tensor([ids], device="cuda"),
+                              torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), cache,
+                              quant, f32, rt)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    toks, cache = M.multi_step_decode(params, cfg, first, cache, tokens - 1, None, quant, f32, rt)
+    out = [int(first[0])] + toks[0].tolist()
+    cut = out[: out.index(dec.eos_token_id) + 1] if dec.eos_token_id in out else out
+    require(process_response(tokenizer.decode(cut)) == final,
+            f"{name}: GLMDecoder text {final[:60]!r} differs from the model-level text")
+    key = f"flash_attention_decode_v2_{form}"  # one f32 step through B12
+    before = ops.launch_counts()[key]
+    M.decode_step(params, cfg, toks[:, -1], cache, quant, f32,
+                  TorchRuntimeConfig(decode_attn_v2=True, cuda_graphs=False))
+    torch.cuda.synchronize()
+    counts[key] = ops.launch_counts()[key] - before
+    require(counts[key] == cfg.num_layers,
+            f"{name}: decode_attn_v2 launched B12 as {form} {counts[key]} times")
+    del cache
+    plain = TorchRuntimeConfig(use_kernels=False, use_flash_attention=True, cuda_graphs=False)
+    gaps = greedy_gaps(torch, params, cfg, [SimpleNamespace(generated=out)],
+                       [(ids, dict(temperature=0.0))], cache_len=CACHE_LEN, kv_dtype=kv,
+                       rt=plain, quant=quant, dtype=f32)
+    require(gaps["f32"][0] <= GREEDY_GAP_TOL < gaps["f32"][1],
+            f"{name}: greedy gap {gaps['f32'][0]} against the plain path in f32 (limit "
+            f"{GREEDY_GAP_TOL}; shifted control {gaps['f32'][1]})")
+    tok_ms, ttft = {"bf16": [], "f32": []}, {"bf16": [], "f32": []}
+    for turn, d in (("bf16", bf16_decoder), ("f32", dec), ("f32", dec), ("bf16", bf16_decoder)):
+        tok_ms[turn].append(run_generate(d, prompt, tokens)[2])
+        ttft[turn].append(first_token_ms(torch, d, prompt))
+    log(f"  {name}: GLMDecoder.generate (float32 config, {str(kv)[6:]} cache) captured = "
+        f"eager = prefill + multi_step_decode ({len(out)} tokens): {final[:60]!r}; greedy gap "
+        f"f32 against the plain path in f32 {gaps['f32'][0]:.4e} (shifted control "
+        f"{gaps['f32'][1]:.3e})")
+    log(f"  {name} GLMDecoder in turns ({tokens} tokens): ms a token bf16 "
+        f"{tok_ms['bf16'][0]:.3f}, f32 {tok_ms['f32'][0]:.3f} / {tok_ms['f32'][1]:.3f}, bf16 "
+        f"{tok_ms['bf16'][1]:.3f}; prefill of the {len(ids)}-token prompt (time to first token) "
+        f"ms bf16 {ttft['bf16'][0]:.2f}, f32 {ttft['f32'][0]:.2f} / {ttft['f32'][1]:.2f}, bf16 "
+        f"{ttft['bf16'][1]:.2f}  [{smi}]")
+    log(f"  {name} launch counts of the generate run: "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del dec, dec_eager
+    return counts, {"gaps": gaps, "ms_per_token_turns": tok_ms, "first_token_ms_turns": ttft,
+                    "replays": step.replays, "text": final[:80]}
+
+
+def f32_engine_prompts(torch, seed):
+    """(a32)'s six greedy prompts of 40-72 tokens, four sharing a 32-token
+    head (two 16-row pages: prefix hits), and one sampled; (b32)'s three
+    prompts, each repeating an 8-token span (drafts the verify steps test)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ids(n):
+        return torch.randint(3, 65000, (n,), generator=g).tolist()
+
+    head = ids(32)
+    greedy = dict(temperature=0.0, max_new_tokens=F32_NEW_TOKENS)
+    a = [(head + ids(25), greedy), (ids(40), greedy), (ids(72), greedy),
+         (ids(50), dict(temperature=0.8, top_p=0.8, max_new_tokens=F32_NEW_TOKENS)),
+         (head + ids(40), greedy), (head + ids(9), greedy), (head + ids(33), greedy)]
+    b = []
+    for _ in range(3):
+        span = ids(8)
+        b.append((ids(20) + span * 4 + ids(5), greedy))
+    return a, b
+
+
+F32_PAGE, F32_POOL_PAGES, F32_SEQ = 16, 96, 256  # the f32 engines' pool: 16-row pages
+# (a32)'s chunks: a chunk of more than 32 rows (S·Hg > 512) attends through
+# B5's chunked form over the gathered pages, a shorter one through B11
+F32_CHUNK = 64
+
+
+def engines_f32(torch, smi, params, cfg, seed):
+    """Phase 6 in f32 (a float32 config on the tree as a float32 checkpoint
+    of it loads), F32_NEW_TOKENS a request on f32_engine_prompts, a pool of
+    16-row pages: (a32) chunked admission (64-token chunks: B5's chunked
+    form, B11 for a short rest) through the prefix cache, and (b32)
+    whole-prompt admission with in-loop speculation
+    (k = 4), whose verify steps read the pool through B11, over an f32 pool;
+    (a32f8) and (b32f8) the same over an fp8 pool.  Each: budgets, page
+    accounting, prefix hits ((a32), (a32f8)), the run's forms launched (B3 /
+    B4 never), every greedy token within GREEDY_GAP_TOL of the dense f32
+    ``prefill_chunk`` over a cache of the pool's dtype, the shifted stream
+    not; tok/s."""
+    from chatglm_q_tpu_torch import GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.serving import PagedServingEngine
+
+    f32, fp8 = torch.float32, torch.float8_e4m3fn
+    params = f16_tree(torch, params, f32)
+    load = GLMLoadConfig(model_config=cfg, quant_type="int4g32", torch_dtype="float32")
+    a_reqs, b_reqs = f32_engine_prompts(torch, seed)
+    pool = dict(num_pages=F32_POOL_PAGES, page_size=F32_PAGE, max_batch=4, max_seq_len=F32_SEQ,
+                decode_chunk=16, rt=TorchRuntimeConfig())
+    out, counts = {}, {}
+    for run, kv in (("a32", None), ("b32", None), ("a32f8", fp8), ("b32f8", fp8)):
+        form = "fp8_f32" if kv else "f32"
+        if run.startswith("a"):
+            reqs = a_reqs
+            eng = PagedServingEngine(load, params, prefill_chunk_size=F32_CHUNK,
+                                     prefix_cache=True, seed=seed + 3, kv_dtype=kv, **pool)
+            want = ("rope_kv_append", "flash_attention_decode_paged",
+                    "flash_attention_prefill_chunk")
+        else:
+            reqs = b_reqs
+            eng = PagedServingEngine(load, params, speculative_k=4, speculative_ngram=3,
+                                     kv_dtype=kv, **pool)
+            want = ("flash_attention_chunk_paged",)
+        require(eng.cache.k_pool.dtype == (kv or f32), f"({run}) the pool is "
+                                                       f"{eng.cache.k_pool.dtype}")
+        done, res = drive(torch, eng, reqs, f"({run}) paged, f32 over {str(kv or f32)[6:]}, "
+                          + ("chunked + prefix cache" if run.startswith("a")
+                             else "speculative k=4"))
+        require(eng.pages_in_use == 0, f"({run}): {eng.pages_in_use} pages in use after the drain")
+        if run.startswith("a"):
+            require(eng.stats["prefix_hits"] > 0, f"({run}): no prefix hit")
+            eng.clear_prefix_cache()
+            require(len(eng._free_pages) == F32_POOL_PAGES - 1,
+                    f"({run}): {len(eng._free_pages)} pages free after clearing the prefix cache")
+        c = res["launches"]
+        require(c["int4g32_gemv"] > 0 and c["int4g32_splitk"] == c["int4g32_mma"] == 0,
+                f"({run}): the f32 linears did not all take B1's gemv")
+        for kern in want:
+            require(c[f"{kern}_{form}"] > 0 and c[f"{kern}_{form}"] == c[kern],
+                    f"({run}): {kern} launched {c[kern]} times, {c[f'{kern}_{form}']} as {form}")
+        if run.startswith("b"):  # a whole prompt attends its fresh K/V, in f32 whatever the pool
+            require(c["flash_attention_prefill_f32"] > 0
+                    and c["flash_attention_prefill_f32"] == c["flash_attention_prefill"],
+                    f"({run}): B5 launched {c['flash_attention_prefill']} times, "
+                    f"{c['flash_attention_prefill_f32']} as f32")
+        require(c["kv_cache_write_idx"] == 0 and c["flash_attention_decode"] == 0,
+                f"({run}) launched B3/B4")
+        del eng
+        res["gaps"] = greedy_gaps(torch, params, cfg, done, reqs, cache_len=F32_SEQ,
+                                  kv_dtype=kv or f32, dtype=f32)
+        g = res["gaps"]["f32"]
+        require(g[0] <= GREEDY_GAP_TOL and g[1] > GREEDY_GAP_TOL,
+                f"({run}): greedy gap {g[0]} against the dense f32 prefill_chunk over "
+                f"{str(kv or f32)[6:]} (shifted control {g[1]})")
+        log(f"    ({run}) greedy gap f32 {g[0]:.4e} (shifted control {g[1]:.3e}); "
+            f"{res['tok_per_s']:.1f} tok/s; prefix hits {res['stats'].get('prefix_hits')}, spec "
+            f"accepted {res['stats'].get('spec_accepted')}  [{smi}]")
+        out[run] = res
+        for k in ("flash_attention_decode_paged", "flash_attention_chunk_paged",
+                  "flash_attention_prefill_chunk"):
+            counts[f"{k} {form}"] = counts.get(f"{k} {form}", 0) + c[f"{k}_{form}"]
+        counts["flash_attention_prefill f32"] = (counts.get("flash_attention_prefill f32", 0)
+                                                 + c["flash_attention_prefill_f32"])
+        counts[f"rope_kv_append paged {form}"] = (counts.get(f"rope_kv_append paged {form}", 0)
+                                                  + c[f"rope_kv_append_{form}"])
+    return counts, out
+
+
+def f32_slice(torch, smi):
+    """``--fp32``: phase 2's f32 rows and the f32 runs of phases 5, 6 and 8,
+    on their own, with the seconds each part took."""
+    from chatglm_q_tpu_torch import ChatGLM2Config, GLMLoadConfig, TorchRuntimeConfig
+    from chatglm_q_tpu_torch.bench import random_quantized_params
+    from chatglm_q_tpu_torch.serving import GLMDecoder, chat_template
+
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[part] = seconds.get(part, 0.0) + time.perf_counter() - t0
+        return res
+
+    rows = timed("phase 2", check_f32_kernels, torch)
+    cfg = ChatGLM2Config()
+    tokenizer = chat_tokenizer()
+    prompt = chat_template([], CHAT_QUESTION)
+    ids = tokenizer.encode(prompt)
+    chat, counts = {}, {}
+    for quant in ("int4g32", "int8"):
+        params = random_quantized_params(cfg, quant,
+                                         torch.Generator(device="cuda").manual_seed(41))
+        load = GLMLoadConfig(model_config=cfg, quant_type=quant, torch_dtype="bfloat16")
+        decoder = GLMDecoder(load, params, tokenizer, max_sequence_length=CACHE_LEN,
+                             rt=TorchRuntimeConfig())
+        run_generate(decoder, prompt)  # its programs captured before the turns
+        for q, kv_name in F32_CHAT:
+            if q == quant:
+                kv = None if kv_name == "float32" else getattr(torch, kv_name)
+                name = f"{quant} f32" + (" fp8" if kv else "")
+                counts[name], chat[name] = timed("phase 5", chat_f32, torch, smi, params, cfg,
+                                                 quant, tokenizer, prompt, ids, decoder, kv)
+        del decoder
+        if quant == "int4g32":
+            counts["engines"], engines = timed("phase 6", engines_f32, torch, smi, params, cfg,
+                                               61)
+        del params
+        torch.cuda.empty_cache()
+    sharded_counts, sharded = timed("phase 8", lambda: sharded_slice(
+        torch, smi, runs=tuple(r[0] for r in SHARDED_FORM_RUNS if "32" in r[0])))
+    log(f"  the f32 parts' seconds: {json.dumps(seconds)}")
+    return {"rows": rows, "chat": chat, "engines": engines, "sharded": sharded,
+            "seconds": seconds,
+            "counts": {**{k: {n: v for n, v in c.items() if v} for k, c in counts.items()},
+                       "sharded": sharded_counts}}
+
+
 def main() -> int:
     import torch
 
@@ -7663,6 +8130,13 @@ def main() -> int:
         log("detail: " + json.dumps({"card": smi, "f16": res}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--fp32" in sys.argv:  # the float32 rows and runs alone
+        phase("== float32 activations: phase 2's f32 attention rows, the f32 runs of phases 5, "
+              "6 and 8")
+        res = f32_slice(torch, smi)
+        log("detail: " + json.dumps({"card": smi, "f32": res}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--fp8" in sys.argv:  # the fp8 cache's rows and runs alone
         phase("== the float8_e4m3fn KV cache: phase 2's fp8 rows, the fp8 runs of phases 5, 6 "
               "and 8, the long-context step")
@@ -7690,6 +8164,12 @@ def main() -> int:
     f16_rows = check_f16_kernels(torch)
     att.update(f16_rows["attention"])
     att["f16_fp8_store"] = f16_rows["fp8_store"]
+    phase("== phase 2 (f32): every attention kernel's float32 form (the CUDA-core kernels), "
+          "over an f32 and an fp8 cache")
+    f32_rows = check_f32_kernels(torch)
+    att.update(f32_rows["attention"])
+    att["f32_fp8_store"] = f32_rows["fp8_store"]
+    att["edge_cases_f32_max_rel_err"] = f32_rows["edge_cases_max_rel_err"]
 
     phase("== phase 3: end to end, 6B widths at depth 2, kernel path vs plain path")
     e2e = {mode_name(q, d): end_to_end_parity(torch, q, d) for q, d in PARITY_MODES}
@@ -7893,6 +8373,37 @@ def main() -> int:
             ("rope_kv_append_sharded fp8", 427, "rope_kv_append_sharded fp8"),
             ("rope_kv_append_sharded paged fp8", 480, "rope_kv_append_sharded paged fp8")):
         specs.append((name, att_src, f"{pa}:{line}", att[row], fp8_runs))
+    # the float32 forms (the CUDA-core kernels): launches from the f32 runs
+    # (phase 5's float32-config GLMDecoder in int4g32, int8 and int4g32 over
+    # fp8, phase 6's (a32), (b32), (a32f8), (b32f8), phase 8's (a32), (b32),
+    # (a32f8), (b32f8)); their rows phase 2's
+    c4, c8f, c48 = (chat_counts["int4g32 f32"], chat_counts["int8 f32"],
+                    chat_counts["int4g32 f32 fp8"])
+    f32_runs = {**{k: v for k, v in engine_counts.items() if k.endswith(("f32", "fp8_f32"))},
+                **{k: v for k, v in sharded_counts.items() if k.endswith(("f32", "fp8_f32"))}}
+    for form, cc in (("f32", (c4, c8f)), ("fp8_f32", (c48,))):
+        for k in ("rope_kv_append", "flash_attention_decode", "flash_attention_decode_v2"):
+            f32_runs[f"{k} {form}"] = sum(c[f"{k}_{form}"] for c in cc)
+        f32_runs[f"flash_attention_prefill {form}"] = (
+            f32_runs.get(f"flash_attention_prefill {form}", 0)
+            + sum(c[f"flash_attention_prefill_{form}"] for c in cc))
+        for name, line, row in (
+                ("rope_kv_append", 427, "rope_kv_append"),
+                ("flash_attention_decode", 207, "flash_attention_decode"),
+                ("flash_attention_decode_v2", 662, "flash_attention_decode_v2"),
+                ("flash_attention_prefill", 43, "flash_attention_prefill"),
+                ("flash_attention_prefill_chunk", 43, "flash_attention_prefill_chunk"),
+                ("rope_kv_append paged", 480, "rope_kv_append paged"),
+                ("flash_attention_decode_paged", 787, "flash_attention_decode_paged"),
+                ("flash_attention_chunk_paged", 951, "flash_attention_chunk_paged S=9"),
+                ("flash_attention_decode_lse", 207, "flash_attention_decode_lse"),
+                ("flash_attention_decode_paged_lse", 787, "flash_attention_decode_paged_lse"),
+                ("rope_kv_append_sharded", 427, "rope_kv_append_sharded"),
+                ("rope_kv_append_sharded paged", 480, "rope_kv_append_sharded paged")):
+            r = att[f"{row} {form}"]
+            if form == "fp8_f32":  # bf16 over the same fp8 cache
+                r["bf16_ms"] = att[f"{row} fp8"]["ms"]
+            specs.append((f"{name} {form}", att_src, f"{pa}:{line}", r, f32_runs))
     entries = []
     for name, src, replaces, r, run_counts in specs:
         require(run_counts[name] > 0, f"{name}: no launch on its main-path run")
@@ -7915,6 +8426,8 @@ def main() -> int:
             entries[-1]["bf16_form_ms"] = r["bf16_ms"]
         if r.get("f16_ms") is not None:  # f16 over fp8: the f16 form on the upcast cache
             entries[-1]["f16_form_ms"] = r["f16_ms"]
+        if r.get("f32_ms") is not None:  # f32 over fp8: the f32 form on the upcast cache
+            entries[-1]["f32_form_ms"] = r["f32_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "f16_matmul_rows": f16_rows["matmul"],
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,

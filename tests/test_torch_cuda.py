@@ -10,13 +10,13 @@ the tile, f32 activations for the matmuls, fewer heads per group, the M
 where a matmul switches from its split-K kernel to its tensor-core kernel,
 and an all-zero activation row (the 1e-10 clamp of the dynamic scale).
 B7 (``int8_dyn_matmul``) is held bit-exact: its int32 sums are exact.  The
-attention kernels and the KV write take bf16 activations over a bf16 or
-float8_e4m3fn cache, or f16 activations over an f16 cache; each fp8 form is
-bit-equal to its bf16 form on the upcast cache, and the cast on write
+attention kernels and the KV write take bf16, f16 or f32 activations over
+a cache of their dtype or of float8_e4m3fn; each fp8 form is bit-equal to
+its bf16 (f16, f32) form on the upcast cache, and the cast on write
 byte-equal to ``kv_store_cast``.  The tolerance is the bf16 one of
 chip_smoke.py (1e-2 of max|plain|; f32 1e-5): kernels and plain versions
-sum the same exact products in another order.  The f16 forms (the last
-section) are held to chip_smoke.py's f16 limits.
+sum the same exact products in another order.  The f16 forms are held to
+chip_smoke.py's f16 limits, the f32 forms (the last section) to 1e-5.
 """
 import math
 
@@ -652,15 +652,27 @@ def test_prefill_chunk_form_matches_plain(gen, Hg, starts):
 
 
 def test_attention_kernels_take_bf16_only(gen):
+    """Named for the refusal it held until float32 was ported: f32
+    activations over an f32 cache now run the kernels' f32 form (form 4):
+    decode, prefill and the write-only store against their plain versions
+    (within the f32 limit; the store bit-equal)."""
     q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen)
     k = torch.randn((1, 2, 8, 128), device="cuda", generator=gen)
-    lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    with pytest.raises(TypeError):
-        A.flash_attention_decode(q, k, k, lengths, 0.1)
-    with pytest.raises(TypeError):
-        A.flash_attention_prefill(q[:, None], k, k, lengths, 0.1)
-    with pytest.raises(TypeError):
-        A.kv_cache_write_idx(k[None], q[:, :, 0], 0, lengths)
+    v = torch.randn((1, 2, 8, 128), device="cuda", generator=gen)
+    lengths = torch.tensor([5], dtype=torch.int32, device="cuda")
+    got = A.flash_attention_decode(q, k, v, lengths, 0.1)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _rel(got, A.flash_attention_decode_plain(q, k, v, lengths, 0.1)) <= 1e-5
+    qp = torch.randn((1, 8, 2, 16, 128), device="cuda", generator=gen)
+    got = A.flash_attention_prefill(qp, k, v, lengths + 1, 0.1)
+    torch.cuda.synchronize()
+    assert _rel(got, A.flash_attention_prefill_plain(qp, k, v, lengths + 1, 0.1)) <= 1e-5
+    cache, ref = k[None].clone(), k[None].clone()
+    A.kv_cache_write_idx(cache, q[:, :, 0], 0, lengths)
+    A.kv_cache_write_idx_plain(ref, q[:, :, 0], 0, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
 
 
 # M across the split-K / tensor-core switch (16 | 17) and the int4-dyn
@@ -2435,21 +2447,29 @@ def test_fp8_captured_decode_steps_are_bit_equal_to_eager(gen):
 
 
 def test_attention_kernels_refuse_other_cache_and_activation_dtypes(gen):
-    """bf16 or f16 activations over a cache of their dtype or of fp8,
-    nothing else: an f32 cache, an f16 cache under bf16 q, f32 q over an
-    fp8 cache, or K and V of two dtypes raise, naming the pair."""
+    """bf16, f16 or f32 activations over a cache of their dtype or of fp8,
+    nothing else: an f32 cache under bf16 q, an f16 cache under bf16 q, a
+    bf16 cache under f32 q, or K and V of two dtypes raise, naming the pair.
+    f32 into an fp8 cache is stored with one rounding from f32, as
+    ``kv_store_cast`` stores it (a bf16 hop would round twice)."""
     q = torch.randn((1, 2, 16, 128), device="cuda", generator=gen).to(torch.bfloat16)
     k8, _ = _fp8(gen, (1, 2, 64, 128))
     lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
     for kk, vv, qq in ((k8.to(torch.bfloat16).float(),) * 2 + (q,),
-                       (k8.to(torch.float16),) * 2 + (q,), (k8, k8, q.float()),
+                       (k8.to(torch.float16),) * 2 + (q,),
+                       (k8.to(torch.bfloat16),) * 2 + (q.float(),),
                        (k8, k8.to(torch.bfloat16), q)):
         with pytest.raises(TypeError, match="float8_e4m3fn"):
             A.flash_attention_decode(qq, kk, vv, lengths, 0.1)
         with pytest.raises(TypeError, match="float8_e4m3fn"):
             A.flash_attention_prefill(qq[:, None], kk, vv, lengths + 1, 0.1)
-    with pytest.raises(TypeError):  # f32 new into an fp8 cache would round twice
-        A.kv_cache_write_idx(k8[None], q[:, :, 0].float(), 0, lengths)
+    x = torch.randn((64, 2, 128), device="cuda", generator=gen) * 8
+    cache = A.kv_zeros((1, 64, 2, 4, 128), FP8, "cuda")
+    A.kv_cache_write_idx(cache, x, 0, torch.full((64,), 1, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    want = A.kv_store_cast(x, FP8)
+    assert _bytes_equal(cache[0, :, :, 1], want)
+    assert not _bytes_equal(want, A.kv_store_cast(x.to(torch.bfloat16), FP8))
 
 
 # ---------------------------------------------------------------------------
@@ -3174,3 +3194,303 @@ def test_f16_captured_training_step_equals_eager_over_3_steps(gen, quant):
         assert all(math.isfinite(x) for x in losses[(S, "eager")])
     t = "int8_t" if quant == "int8" else "int4g32_t"
     assert counts[(64, "eager")][t + "_mma_f16"] > 0 and counts[(8, "eager")][t + "_splitk_f16"] > 0
+
+
+# ---------------------------------------------------------------------------
+# float32 activations (a float32 checkpoint): every attention kernel's f32
+# form over an f32 and an fp8 cache, on the CUDA cores
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+F32_TOL = 1e-5  # chip_smoke.py's: the order of f32 sums alone
+
+
+def _f32_decode(kind, T):
+    fn, plain = {"decode": (A.flash_attention_decode, A.flash_attention_decode_plain),
+                 "decode_v2": (A.flash_attention_decode_v2, A.flash_attention_decode_v2_plain),
+                 "lse": (lambda *a: A.flash_attention_decode_lse(*a, T // 2),
+                         lambda *a: A.flash_attention_decode_lse_plain(*a, T // 2))}[kind]
+    wrapper = {"decode": A.flash_attention_decode, "decode_v2": A.flash_attention_decode_v2,
+               "lse": A.flash_attention_decode_lse}[kind]
+    return fn, plain, wrapper
+
+
+def _hold_f32(got, want):
+    """An f32 output (or K1 / K2's (out, m, l)) within F32_TOL of its plain
+    version; (m, l) within F32_TOL too, an empty row 0, -inf, 0."""
+    if isinstance(got, tuple):
+        (o, m, l), (op, mp, lp) = got, want
+        empty = torch.isinf(mp)
+        assert torch.equal(torch.isinf(m), empty) and not l[empty].any() and not o[empty].any()
+        fin = ~empty
+        assert ((m[fin] - mp[fin]).abs() / mp[fin].abs().clamp_min(1.0)).max() <= F32_TOL
+        assert ((l[fin] - lp[fin]).abs() / lp[fin]).max() <= F32_TOL
+        got, want = o, op
+    assert got.dtype == F32 and torch.isfinite(got).all() and _rel(got, want) <= F32_TOL
+
+
+@pytest.mark.parametrize("B,T", [(6, 200), (10, 1000), (66, 1000)])
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "lse"])
+def test_f32_decode_forms_match_plain(gen, kind, B, T):
+    """B4, B12 and K1 in f32 over an f32 cache at the decode edges (one span,
+    merged spans, a row of length -1): counted in their f32 form, within
+    F32_TOL of the plain version; over an fp8 cache bit-equal to the f32
+    form on the upcast cache, counted as fp8_f32."""
+    G, Hg, D = 2, 16, 128
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen)
+    (k8, k32), (v8, v32) = ((t, t.float()) for t in (_fp8(gen, (B, G, T, D))[0],
+                                                     _fp8(gen, (B, G, T, D))[0]))
+    k, v = torch.randn_like(k32), torch.randn_like(v32)
+    lengths = _decode_edges(B, T, A.decode_span(B * G, T, A.DECODE_BLOCK_K))
+    sm = 1 / math.sqrt(D)
+    fn, plain, wrapper = _f32_decode(kind, T)
+    before, before8 = wrapper.f32.launches, wrapper.fp8_f32.launches
+    got = fn(q, k, v, lengths, sm)
+    torch.cuda.synchronize()
+    _hold_f32(got, plain(q, k, v, lengths, sm))
+    got8, same = fn(q, k8, v8, lengths, sm), fn(q, k32, v32, lengths, sm)
+    torch.cuda.synchronize()
+    pairs = zip(got8, same) if kind == "lse" else [(got8, same)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    _hold_f32(got8, plain(q, k8, v8, lengths, sm))
+    assert (wrapper.f32.launches, wrapper.fp8_f32.launches) == (before + 2, before8 + 1)
+
+
+@pytest.mark.parametrize("P,MP", [(16, 64), (256, 4)])
+def test_f32_paged_forms_match_plain(gen, P, MP):
+    """B10, K2 (each phase of a stride-2 table) and B11 (S = 1, 9, 32, with
+    and without a row map) in f32 over an f32 pool within F32_TOL of their
+    plain versions, and over an fp8 pool bit-equal to the f32 form on the
+    upcast pool."""
+    L, G, Hg, D, B = 2, 2, 16, 128, 10
+    NP = B * MP + 1
+    kp8, vp8 = _fp8(gen, (L, NP, G, P, D))[0], _fp8(gen, (L, NP, G, P, D))[0]
+    kp32, vp32 = kp8.float(), vp8.float()
+    kp, vp = torch.randn_like(kp32), torch.randn_like(vp32)
+    pt = _scattered_table(gen, B, MP, NP)
+    lengths = _paged_decode_edges(P, MP, B)
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen)
+    before = A.flash_attention_decode_paged.f32.launches
+    got = A.flash_attention_decode_paged(q, kp, vp, 1, pt, lengths, sm)
+    torch.cuda.synchronize()
+    assert A.flash_attention_decode_paged.f32.launches == before + 1
+    _hold_f32(got, A.flash_attention_decode_paged_plain(q, kp, vp, 1, pt, lengths, sm))
+    assert torch.equal(A.flash_attention_decode_paged(q, kp8, vp8, 1, pt, lengths, sm),
+                       A.flash_attention_decode_paged(q, kp32, vp32, 1, pt, lengths, sm))
+    for phase in (0, 1):
+        table = pt[:, phase::2].contiguous()
+        _hold_f32(A.flash_attention_decode_paged_lse(q, kp, vp, 1, table, lengths, sm, 2, phase),
+                  A.flash_attention_decode_paged_lse_plain(q, kp, vp, 1, table, lengths, sm, 2,
+                                                           phase))
+        got = A.flash_attention_decode_paged_lse(q, kp8, vp8, 1, table, lengths, sm, 2, phase)
+        same = A.flash_attention_decode_paged_lse(q, kp32, vp32, 1, table, lengths, sm, 2, phase)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+    cap = MP * P
+    starts = torch.tensor([0, P - 1, 700 % cap, cap - 32] + [(97 * i) % (cap - 32)
+                                                            for i in range(B - 4)],
+                          dtype=torch.int32, device="cuda")
+    rmap = torch.randperm(B, device="cuda", generator=gen).to(torch.int32)
+    for S in (1, 9, 32):
+        qs = torch.randn((B, S, G, Hg, D), device="cuda", generator=gen)
+        for row_map in (None, rmap):
+            got = A.flash_attention_chunk_paged(qs, kp, vp, 1, pt, starts, sm, row_map)
+            torch.cuda.synchronize()
+            _hold_f32(got, A.flash_attention_chunk_paged_plain(qs, kp, vp, 1, pt, starts, sm,
+                                                               row_map))
+            got8 = A.flash_attention_chunk_paged(qs, kp8, vp8, 0, pt, starts, sm, row_map)
+            same = A.flash_attention_chunk_paged(qs, kp32, vp32, 0, pt, starts, sm, row_map)
+            torch.cuda.synchronize()
+            assert torch.equal(got8, same), S
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_f32_prefill_matches_plain(gen, chunked):
+    """B5 in f32, whole prompts (lengths 130, 0, 12) and its chunked form
+    (starts and a row map over a 512-slot cache), within F32_TOL of the
+    plain version; over an fp8 cache bit-equal to the f32 form on the
+    upcast cache."""
+    G, Hg, D, T, S = 2, 16, 128, 512, 64 if chunked else 130
+    Bk = 4 if chunked else 3
+    k8, v8 = _fp8(gen, (Bk, G, T, D))[0], _fp8(gen, (Bk, G, T, D))[0]
+    k, v = torch.randn((Bk, G, T, D), device="cuda", generator=gen), \
+        torch.randn((Bk, G, T, D), device="cuda", generator=gen)
+    sm = 1 / math.sqrt(D)
+    q = torch.randn((3, S, G, Hg, D), device="cuda", generator=gen)
+    if chunked:
+        starts = torch.tensor([200, 3, 447], dtype=torch.int32, device="cuda")
+        lengths = starts + torch.tensor([40, 64, 0], dtype=torch.int32, device="cuda")
+        rmap = torch.tensor([3, 1, 0], dtype=torch.int32, device="cuda")
+
+        def run(kk, vv):
+            return A.flash_attention_prefill_chunk(q, kk, vv, lengths, starts, sm, rmap)
+
+        want = A.flash_attention_prefill_plain(q, k, v, lengths, sm, starts, rmap)
+    else:
+        lengths = torch.tensor([S, 0, 12], dtype=torch.int32, device="cuda")
+
+        def run(kk, vv):
+            return A.flash_attention_prefill(q, kk, vv, lengths, sm)
+
+        want = A.flash_attention_prefill_plain(q, k, v, lengths, sm)
+    got = run(k, v)
+    torch.cuda.synchronize()
+    _hold_f32(got, want)
+    assert torch.equal(run(k8, v8), run(k8.float(), v8.float()))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("fp8", [False, True], ids=["f32", "fp8"])
+def test_f32_appends_bit_equal_to_plain(gen, paged, fp8):
+    """B3 / B9 with the RoPE, K3 on each shard of a 2-way split and the
+    write-only forms in f32, into an f32 or an fp8 cache: the rotated q and
+    every stored element (byte) equal the plain sequence's (each RoPE
+    product and sum the f32 op; into fp8 one rounding from f32)."""
+    from chatglm_q_tpu_torch.models.chatglm2 import precompute_freqs_cis
+
+    q, _, _, k, v, pt, cap = _rope_case(gen, 4, paged)
+    q = q.float()
+    kv = torch.randn((4, 2 * 2 * 128 + 64), device="cuda", generator=gen)[:, :512]  # strided
+    table = torch.from_numpy(precompute_freqs_cis(128, 2049)).to("cuda")
+    freqs = table[torch.tensor([5, 700, 1500, 2048], device="cuda")]
+    k, v = ((A.kv_store_cast(t.float() * 3, FP8) if fp8 else t.float()) for t in (k, v))
+
+    def copy(t):
+        return A.kv_bytes(t).clone().view(t.dtype)
+
+    starts = torch.tensor([7, cap - 1, cap, cap + 300], dtype=torch.int32, device="cuda")
+    kr, vr = copy(k), copy(v)
+    form = "fp8_f32" if fp8 else "f32"
+    before = getattr(A.rope_kv_append, form).launches
+    got = A.rope_kv_append(q, kv, freqs, k, v, 2, starts, pt)
+    want = A.rope_kv_append_plain(q, kv, freqs, kr, vr, 2, starts, pt)
+    torch.cuda.synchronize()
+    assert getattr(A.rope_kv_append, form).launches == before + 1
+    assert got.dtype == F32 and torch.equal(got, want)
+    assert _bytes_equal(k, kr) and _bytes_equal(v, vr)
+    for r in range(2):
+        shard = (A.KVShard(stride=2, phase=r, total=cap) if paged
+                 else A.KVShard(offset=r * (cap // 2), total=cap))
+        own = slice(r * (cap // 2), (r + 1) * (cap // 2))
+        hk, hv = (copy(A.kv_contiguous(t if paged else t[:, :, :, own])) for t in (k, v))
+        kk, vv = copy(hk), copy(hv)
+        table = None if pt is None else pt[:, r::2].contiguous()
+        got = A.rope_kv_append_sharded(q, kv, freqs, hk, hv, 1, starts, shard, table)
+        want = A.rope_kv_append_sharded_plain(q, kv, freqs, kk, vv, 1, starts, shard, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _bytes_equal(hk, kk) and _bytes_equal(hv, vv), r
+    new = torch.randn((4, k.shape[2], 128), device="cuda", generator=gen) * 100
+    if paged:
+        A.kv_pool_write_idx(k, new, 0, pt, starts)
+        A.kv_pool_write_idx_plain(kr, new, 0, pt, starts)
+    else:
+        A.kv_cache_write_idx(k, new, 0, starts)
+        A.kv_cache_write_idx_plain(kr, new, 0, starts)
+    torch.cuda.synchronize()
+    assert _bytes_equal(k, kr)
+
+
+def test_f32_store_into_fp8_rounds_once_as_kv_store_cast(gen):
+    """f32 values at every e4m3 exponent and around every rounding midpoint
+    (and past ±448, ±inf, NaN) through the write-only append (B3) and the
+    fused append's v (B9's pool) into fp8: byte for byte ``kv_store_cast``
+    on the card and on the CPU; a bf16 hop first gives other bytes (the
+    control)."""
+    e = torch.arange(-12, 10, device="cuda").float()
+    m = torch.linspace(1, 2, 64, device="cuda")
+    grid = (m[None, :] * torch.exp2(e)[:, None]).flatten()
+    nudge = torch.tensor([1 - 2 ** -9, 1, 1 + 2 ** -9], device="cuda")
+    x = torch.cat([(grid[:, None] * nudge).flatten(), torch.randn(4096, device="cuda",
+                                                                  generator=gen) * 64,
+                   torch.tensor([448.0, 449.0, 464.0, 1e30, float("inf"), float("nan")],
+                                device="cuda")])
+    x = torch.cat([x, -x])
+    x = torch.cat([x, x.new_zeros(-x.numel() % 256)]).reshape(-1, 2, 128)
+    want = A.kv_store_cast(x, FP8)
+    assert _bytes_equal(want.cpu(), A.kv_store_cast(x.cpu(), FP8))
+    assert not _bytes_equal(want, A.kv_store_cast(x.to(torch.bfloat16), FP8))
+    n = x.shape[0]
+    cache = A.kv_zeros((1, n, 2, 4, 128), FP8, "cuda")
+    before = A.kv_cache_write_idx.fp8_f32.launches
+    A.kv_cache_write_idx(cache, x, 0, torch.full((n,), 3, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert A.kv_cache_write_idx.fp8_f32.launches == before + 1
+    assert _bytes_equal(cache[0, :, :, 3], want)
+    q = torch.zeros((n, 2, 16, 128), device="cuda")
+    kv = torch.cat([torch.zeros_like(x), x], dim=1).reshape(n, 512)
+    freqs = torch.zeros((n, 128), device="cuda")
+    kp, vp = (A.kv_zeros((1, n + 1, 2, 16, 128), FP8, "cuda") for _ in range(2))
+    pt = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[:, None]
+    A.rope_kv_append(q, kv, freqs, kp, vp, 0, torch.full((n,), 5, dtype=torch.int32,
+                                                          device="cuda"), pt)
+    torch.cuda.synchronize()
+    assert _bytes_equal(vp[0, 1:, :, 5], want)
+
+
+@pytest.mark.parametrize("kind", ["decode", "decode_v2", "paged", "chunk", "prefill"])
+def test_f32_over_fp8_read_is_exact_for_all_256_bytes(gen, kind):
+    """As the 16-bit readers' test: V slot 0 of two groups holds all 256
+    bytes, one valid slot, p = 1, so each head outputs the f32 upcast of
+    every byte; NaN where the byte is NaN."""
+    B, G, Hg, D, T = 1, 2, 4, 128, 64
+    v8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    v8.view(torch.uint8)[0, :, 0] = torch.arange(256, device="cuda").to(torch.uint8).reshape(2, 128)
+    k8 = A.kv_zeros((B, G, T, D), FP8, "cuda")
+    want = v8[0, :, 0].float()
+    q = torch.randn((B, G, Hg, D), device="cuda", generator=gen)
+    zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    if kind in ("decode", "decode_v2"):
+        fn = A.flash_attention_decode if kind == "decode" else A.flash_attention_decode_v2
+        out = fn(q, k8, v8, zero, 0.1)[0]
+    elif kind == "prefill":
+        out = A.flash_attention_prefill(q[:, None], k8, v8, zero + 1, 0.1)[0, 0]
+    else:
+        kp, vp = k8[None], v8[None]
+        pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+        if kind == "paged":
+            out = A.flash_attention_decode_paged(q, kp, vp, 0, pt, zero, 0.1)[0]
+        else:
+            out = A.flash_attention_chunk_paged(q[:, None], kp, vp, 0, pt, zero, 0.1)[0, 0]
+    torch.cuda.synchronize()
+    ref = want[:, None].expand_as(out)
+    nan = torch.isnan(ref)
+    assert nan.sum() == 2 * Hg
+    assert torch.equal(torch.isnan(out), nan) and torch.equal(out[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("kv_dtype", [F32, FP8], ids=["f32", "fp8"])
+def test_f32_captured_decode_steps_equal_eager(gen, kv_dtype):
+    """``multi_step_decode`` at depth 2, 6B widths, f32 activations over an
+    f32 or an fp8 cache: captured against eager over 8 steps, the tokens
+    and every cache byte equal; B1's f32 gemv and the attention kernels'
+    f32 (fp8_f32) forms launched, 8 steps' worth."""
+    from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
+    from chatglm_q_tpu_torch.models import chatglm2 as M
+
+    cfg, params = _depth2_tree(gen)
+    ids = torch.randint(0, cfg.vocab_size, (4, 16), device="cuda", generator=gen)
+    lengths = torch.tensor([16, 11, 7, 3], dtype=torch.int32, device="cuda")
+    cache = M.init_kv_cache(cfg, 4, 256, kv_dtype)
+    logits, cache = M.prefill(params, cfg, ids, lengths, cache, "int4g32", F32)
+    assert logits.dtype == F32 and torch.isfinite(logits).all()
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def copy(t):
+        return A.kv_bytes(t).clone().view(t.dtype)
+
+    runs = {}
+    for graphs in (False, True):
+        c = M.KVCache(copy(cache.k), copy(cache.v), cache.lengths.clone())
+        ops.reset_launch_counts()
+        toks, out = M.multi_step_decode(params, cfg, first, c, 8, None, "int4g32", F32,
+                                        TorchRuntimeConfig(cuda_graphs=graphs))
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, out, ops.launch_counts())
+    (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
+    assert torch.equal(t0, t1) and _bytes_equal(c0.k, c1.k) and _bytes_equal(c0.v, c1.v)
+    form = "f32" if kv_dtype == F32 else "fp8_f32"
+    assert n0 == n1 and n1["int4g32_gemv"] == 8 * (6 * cfg.num_layers + 1)
+    assert n1[f"rope_kv_append_{form}"] == n1[f"flash_attention_decode_{form}"] == \
+        n1["flash_attention_decode"] == 8 * cfg.num_layers
+    prog = M.decode_program(params, cfg, c1, "int4g32", F32, TorchRuntimeConfig())
+    assert prog.graph is not None and prog.replays == 7

@@ -92,8 +92,12 @@ def test_v2_wrapper_launches_on_cuda_and_splits_over_t(monkeypatch):
         A.flash_attention_decode_v2(q, k, k, lens, 0.1)
     span, v2 = launched.value.args[1][12:14]  # one launch of B4's entry, B12's flag
     assert (span, v2) == (64, 1)
-    with pytest.raises(TypeError):
+    # f32 launches B4's entry too, in form 4; f32 over a bf16 cache raises
+    with pytest.raises(_Launched, match="chatglm_decode_attention") as launched:
         A.flash_attention_decode_v2(q.float(), k.float(), k.float(), lens, 0.1)
+    assert launched.value.args[1][13] == 1 and launched.value.args[1][-2] == 4
+    with pytest.raises(TypeError, match="float32"):
+        A.flash_attention_decode_v2(q.float(), k, k, lens, 0.1)
     # the span: block_k, halved until the grid covers the card, down to one
     # 64-row tile, and always whole tiles
     assert A.decode_span(8, 1024, 512) == 64

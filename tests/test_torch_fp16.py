@@ -221,9 +221,11 @@ def test_matmul_entries_receive_the_f16_dtype_code(fake_launch, kind, M, N, entr
 
 def test_unported_f16_forms_raise_naming_the_dtype(fake_launch):
     """What stays unported raises naming the dtype pair: f16 activations
-    over a bf16 cache (two 16-bit types) and f32 attention over any cache.
-    The f16 forms of B7 / B8 / B13 / B14 (and f16 over an fp8
-    cache, tests/test_torch_fp16_rest.py) reach their kernels."""
+    over a bf16 cache (two 16-bit types), f32 activations over a 16-bit
+    cache.  The f16 forms of B7 / B8 / B13 / B14 (and f16 over an fp8
+    cache, tests/test_torch_fp16_rest.py) reach their kernels, and so does
+    f32 attention over an f32 or an fp8 cache (forms 4 and 5,
+    tests/test_torch_fp32.py)."""
     x = _fake(torch.zeros((4, 256), dtype=F16))
     w8, s8 = torch.zeros((256, 256), dtype=torch.int8), torch.ones(256)
     p4, s4 = torch.zeros((128, 256), dtype=torch.uint8), torch.ones((8, 256), dtype=torch.bfloat16)
@@ -237,10 +239,13 @@ def test_unported_f16_forms_raise_naming_the_dtype(fake_launch):
     q = _fake(torch.zeros((2, 2, 4, 128)))
     k = _fake(torch.zeros((2, 2, 64, 128)))
     lens = _fake(torch.zeros((2,), dtype=torch.int32))
-    with pytest.raises(TypeError, match="float32"):  # f32 attention: not ported
-        A.flash_attention_decode(q, k, k, lens, 0.1)
-    with pytest.raises(TypeError, match="float8_e4m3fn"):  # f32 over an fp8 cache: not ported
-        A.flash_attention_decode(q, k.to(A.FP8), k.to(A.FP8), lens, 0.1)
+    for cache, form in ((k, 4), (k.to(A.FP8), 5)):  # f32 attention: ported
+        with pytest.raises(_Launched) as launched:
+            A.flash_attention_decode(q, cache, cache, lens, 0.1)
+        assert launched.value.args[0] == "chatglm_decode_attention"
+        assert launched.value.args[1][-2] == form
+    with pytest.raises(TypeError, match="bfloat16"):  # f32 over a 16-bit cache
+        A.flash_attention_decode(q, k.to(torch.bfloat16), k.to(torch.bfloat16), lens, 0.1)
     with pytest.raises(TypeError, match="bfloat16"):  # two 16-bit types
         A.flash_attention_decode(q.to(F16), k.to(torch.bfloat16), k.to(torch.bfloat16), lens, 0.1)
 

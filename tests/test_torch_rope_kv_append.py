@@ -151,7 +151,7 @@ def _r(x):
 
 
 def _rope8(x, f):
-    """The kernel's rope8 on 16-byte vectors (8 bf16, 4 interleaved pairs):
+    """The kernel's rope_vec<bf16> on 16-byte vectors (8 bf16, 4 interleaved pairs):
     each product and each sum in f32, rounded to bf16 at once (no FMA)."""
     x, f = x.float(), f.float()
     x0, x1, f0, f1 = x[..., 0::2], x[..., 1::2], f[..., 0::2], f[..., 1::2]
