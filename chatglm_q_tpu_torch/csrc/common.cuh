@@ -498,6 +498,48 @@ __device__ __forceinline__ uint32_t bf16x2_as(uint32_t s) {
     return s;
 }
 
+// The three bf16 pieces of an f32 x, hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid), each residual exact in f32: three 8-bit pieces hold
+// f32's 24 significant bits and bf16 has f32's exponent range, so hi + mid
+// + lo == x for |x| >= 2^-110 (below it lo falls among bf16's subnormals:
+// |x - (hi + mid + lo)| <= 2^-134).  Each piece times a small integer weight
+// is exact in an f32 accumulator, so three bf16 products a term give the
+// f32 product (the f32 forms of B1 and B6).  Above bf16's largest finite
+// value, where bf16(x) is inf, hi is x truncated toward zero; a non-finite
+// x gives hi = x and mid = lo = 0, so inf · q and NaN propagate as the f32
+// product does.  ops/quant.py::split_bf16x3 is the plain version.
+__device__ __forceinline__ void split_bf16x3(float x, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                             __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  if (!isfinite(x)) {
+    mid = lo = __float2bfloat16_rn(0.f);
+    return;
+  }
+  if (isinf(__bfloat162float(hi))) hi = __float2bfloat16_rz(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+// Eight neighbouring f32 (a, b) as their pieces, eight bf16 a piece:
+// pc[0] hi, pc[1] mid, pc[2] lo.
+__device__ __forceinline__ void split8_bf16x3(const float4& a, const float4& b, uint4 (&pc)[3]) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t w[3][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat16 h0, m0, l0, h1, m1, l1;
+    split_bf16x3(v[2 * i], h0, m0, l0);
+    split_bf16x3(v[2 * i + 1], h1, m1, l1);
+    const __nv_bfloat162 ph(h0, h1), pm(m0, m1), pl(l0, l1);
+    w[0][i] = *reinterpret_cast<const uint32_t*>(&ph);
+    w[1][i] = *reinterpret_cast<const uint32_t*>(&pm);
+    w[2][i] = *reinterpret_cast<const uint32_t*>(&pl);
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p) pc[p] = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+}
+
 // Eight neighbouring elements of a row (16 bytes of bf16, 32 of f32) as
 // floats; p is 16-byte aligned.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
@@ -519,12 +561,14 @@ __device__ __forceinline__ void load8(const float* p, float* dst) {
 
 // ---------------------------------------------------------------------------
 // Split-K tensor-core kernels (decode and the verify step): B1 at bf16 M <=
-// 64 (int4_matmul.cu), B6 at bf16 M <= 16 (int8_matmul.cu), B7 and B8 at
-// M <= 16 on s8 activations (dyn_matmul.cu).  Bound by the weight bytes.
+// 64 (int4_matmul.cu), B6 at bf16 M <= 16 (int8_matmul.cu), B1 and B6 on
+// f32 x at M <= their f32 limits (the f32 views below), B7 and B8 at M <=
+// 16 on s8 activations (dyn_matmul.cu).  Bound by the weight bytes.
 //
 // One body, sk_body, over a weight view V:
-//   V::X, V::Acc        x's element as staged (bf16, or s8 for B7/B8) and
-//                       the accumulator (f32, or B7's exact int32)
+//   V::X, V::Acc        x's element (bf16 or f16, s8 for B7/B8, or f32,
+//                       staged as its three bf16 pieces) and the
+//                       accumulator (f32, or B7's exact int32)
 //   V::Group<COLS>      one 32-row K group's weights (and scales) of a
 //                       lane's COLS columns, in registers
 //   V::Lane, v.lane(n)  the lane's column pointers at column n
@@ -552,7 +596,9 @@ constexpr int SK_SMEM_MAX = 72 * 1024;   // opted in once per instantiation
 // The block's shared memory: x's M rows over a chunk of cg groups (rows
 // padded by 32 elements, so that the lanes' fragment reads hit distinct
 // banks); after the loop, the same bytes hold each warp's (M, 8 * cols + 1)
-// 4-byte sum.  ops/quant_matmul.py::splitk_smem mirrors it.
+// 4-byte sum.  xbytes: 2 (bf16, f16, and the f32 views' staged pieces), 1
+// (s8).
+// ops/quant_matmul.py::splitk_smem mirrors it.
 __host__ __device__ constexpr int sk_xs_stride(int cg) { return cg * 32 + 32; }
 __host__ __device__ constexpr int sk_smem_bytes(int M, int cg, int cols, int xbytes) {
   return M * sk_xs_stride(cg) * xbytes > SK_KW * M * (8 * cols + 1) * 4
@@ -619,6 +665,17 @@ __device__ __forceinline__ void int8_sk_load(Int8SkGroup<COLS>& d,
   }
 }
 
+// The f32 views (int4_matmul.cu's Int4SkF32View, int8_matmul.cu's
+// Int8SkF32View: V::X float) stage x's three bf16 pieces (split_bf16x3)
+// instead of x: x row m as staged rows 3m (hi), 3m + 1 (mid) and 3m + 2
+// (lo), 3M rows through the bf16 view's group (free while 3M fits the two
+// m-tiles of the f32 split-K limit), each staged row summed over K on its
+// own and the three summed lo, mid, hi in the epilogue.
+template <typename V>
+constexpr bool kSkF32 = std::is_same_v<typename V::X, float>;
+template <typename V>
+using SkStaged = std::conditional_t<kSkF32<V>, __nv_bfloat16, typename V::X>;
+
 // Grid (N / (8 COLS) column tiles, nsplit K splits of gps groups); a
 // block's 4 warps take its groups in turn (warp w: groups g0 + w, g0 + w +
 // 4, ...), through two register sets, so that two groups' loads are in
@@ -636,9 +693,11 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
                                         int* __restrict__ arrivals, int M, int K, int N, int gps,
                                         int cg, unsigned char* smem) {
   using X = typename V::X;
+  using XS = SkStaged<V>;
   using Acc = typename V::Acc;
   constexpr int BN = 8 * COLS, RS = BN + 1;
   constexpr int EPC = 16 / (int)sizeof(X);  // x elements a 16-byte chunk
+  constexpr int P = kSkF32<V> ? 3 : 1;      // staged rows an x row
   __shared__ bool merge_here;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, t = lane & 3;
@@ -646,8 +705,9 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
   const int n0 = tile * BN;
   const int g0 = split * gps, g1 = min(K / 32, g0 + gps);
   const int xs_stride = sk_xs_stride(cg);
-  X* xs = reinterpret_cast<X*>(smem);
-  Acc* red = reinterpret_cast<Acc*>(smem);  // after the loop: 4 warps' (M, BN + 1)
+  const int MS = P * M;  // staged rows
+  XS* xs = reinterpret_cast<XS*>(smem);
+  Acc* red = reinterpret_cast<Acc*>(smem);  // after the loop: 4 warps' (MS, BN + 1)
 
   const int n = n0 + gid * COLS;  // N % COLS == 0: all COLS columns or none
   const bool ok = n < N;
@@ -666,18 +726,31 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
   if (g + SK_KW < g1) v.load(gb, ln, g + SK_KW, t, N, ok);
   for (int c0 = g0; c0 < g1; c0 += cg) {
     const int c1 = min(g1, c0 + cg);
-    const int kwc = (c1 - c0) * 32 / EPC;  // 16-byte chunks of a staged x row
-    for (int i = tid; i < M * kwc; i += SK_THREADS) {
-      const int r = i / kwc, c = (i % kwc) * EPC;
-      *reinterpret_cast<uint4*>(xs + r * xs_stride + c) =
-          *reinterpret_cast<const uint4*>(x + (size_t)r * K + c0 * 32 + c);
+    if constexpr (kSkF32<V>) {  // 8 elements (32 bytes) a step, as their three pieces
+      const int kw8 = (c1 - c0) * 4;
+      for (int i = tid; i < M * kw8; i += SK_THREADS) {
+        const int r = i / kw8, c = (i % kw8) * 8;
+        const float4* src = reinterpret_cast<const float4*>(x + (size_t)r * K + c0 * 32 + c);
+        uint4 pc[3];
+        split8_bf16x3(src[0], src[1], pc);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)  // staged row 3r + p
+          *reinterpret_cast<uint4*>(xs + (3 * r + p) * xs_stride + c) = pc[p];
+      }
+    } else {
+      const int kwc = (c1 - c0) * 32 / EPC;  // 16-byte chunks of a staged x row
+      for (int i = tid; i < M * kwc; i += SK_THREADS) {
+        const int r = i / kwc, c = (i % kwc) * EPC;
+        *reinterpret_cast<uint4*>(xs + r * xs_stride + c) =
+            *reinterpret_cast<const uint4*>(x + (size_t)r * K + c0 * 32 + c);
+      }
     }
     __syncthreads();
     for (; g < c1; g += 2 * SK_KW) {  // ga holds group g, gb group g + 4
-      v.template group<MT>(ga, xs, xs_stride, (g - c0) * 32, M, acc);
+      v.template group<MT>(ga, xs, xs_stride, (g - c0) * 32, MS, acc);
       if (g + 2 * SK_KW < g1) v.load(ga, ln, g + 2 * SK_KW, t, N, ok);
       if (g + SK_KW >= c1) break;  // the last chunk's odd group
-      v.template group<MT>(gb, xs, xs_stride, (g + SK_KW - c0) * 32, M, acc);
+      v.template group<MT>(gb, xs, xs_stride, (g + SK_KW - c0) * 32, MS, acc);
       if (g + 3 * SK_KW < g1) v.load(gb, ln, g + 3 * SK_KW, t, N, ok);
     }
     __syncthreads();
@@ -685,7 +758,7 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
 
   // each warp's sum into a slab of its own (x's rows are dead: every warp
   // is past the chunk loop's last barrier), then the four in warp order
-  Acc* slab = red + warp * M * RS;
+  Acc* slab = red + warp * MS * RS;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -693,23 +766,32 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = mt * 8 + 2 * t + (e & 1);
-        if (m < M) slab[m * RS + gid * COLS + 2 * j + (e >> 1)] = acc[mt][j][e];
+        if (m < MS) slab[m * RS + gid * COLS + 2 * j + (e >> 1)] = acc[mt][j][e];
       }
   __syncthreads();
-  auto block_sum = [&](int i) {  // element i of the block's (M, BN) tile
+  auto block_sum = [&](int i) {  // element i of the block's (MS, BN) tile
     const int o = (i / BN) * RS + i % BN;
-    return ((red[o] + red[M * RS + o]) + red[2 * M * RS + o]) + red[3 * M * RS + o];
+    return ((red[o] + red[MS * RS + o]) + red[2 * MS * RS + o]) + red[3 * MS * RS + o];
+  };
+  // output element (m, c) from the sums s(i) of staged element i: one row,
+  // or x row m's three piece rows, lo + mid, then + hi
+  auto combine = [&](const auto& s, int m, int c) {
+    if constexpr (P == 3)
+      return (s((3 * m + 2) * BN + c) + s((3 * m + 1) * BN + c)) + s(3 * m * BN + c);
+    else
+      return s(m * BN + c);
   };
 
   if (nsplit == 1) {
     for (int i = tid; i < M * BN; i += SK_THREADS) {
       const int m = i / BN, c = i % BN;
-      if (n0 + c < N) y[(size_t)m * N + n0 + c] = v.template out<T>(block_sum(i), m, n0 + c);
+      if (n0 + c < N)
+        y[(size_t)m * N + n0 + c] = v.template out<T>(combine(block_sum, m, c), m, n0 + c);
     }
     return;
   }
-  Acc* part = ws + ((size_t)tile * nsplit + split) * M * BN;
-  for (int i = tid; i < M * BN; i += SK_THREADS) part[i] = block_sum(i);
+  Acc* part = ws + ((size_t)tile * nsplit + split) * MS * BN;
+  for (int i = tid; i < MS * BN; i += SK_THREADS) part[i] = block_sum(i);
   // the block that finishes this tile last sums its splits, in split order
   __threadfence();
   __syncthreads();
@@ -717,9 +799,9 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
   __syncthreads();
   if (!merge_here) return;
   __threadfence();
-  const Acc* tp = ws + (size_t)tile * nsplit * M * BN;
-  const size_t stride = (size_t)M * BN;
-  for (int i = tid; i < M * BN; i += SK_THREADS) {
+  const Acc* tp = ws + (size_t)tile * nsplit * MS * BN;
+  const size_t stride = (size_t)MS * BN;
+  auto split_sum = [&](int i) {  // staged element i over the splits, in order
     Acc s = 0;
     int p = 0;
     for (; p + 8 <= nsplit; p += 8) {  // eight loads in flight, then their sum in order
@@ -730,8 +812,12 @@ __device__ __forceinline__ void sk_body(const V& v, const typename V::X* __restr
       for (int k = 0; k < 8; ++k) s += u[k];
     }
     for (; p < nsplit; ++p) s += __ldcg(tp + p * stride + i);
+    return s;
+  };
+  for (int i = tid; i < M * BN; i += SK_THREADS) {
     const int m = i / BN, c = i % BN;
-    if (n0 + c < N) y[(size_t)m * N + n0 + c] = v.template out<T>(s, m, n0 + c);
+    if (n0 + c < N)
+      y[(size_t)m * N + n0 + c] = v.template out<T>(combine(split_sum, m, c), m, n0 + c);
   }
   if (tid == 0) arrivals[tile] = 0;  // ready for the next launch (and a graph replay)
 }
@@ -1188,16 +1274,19 @@ constexpr int WG_CONSUMER_REGS = 240;      // consumers (3 x 128 x 168 >= 2 x 12
 constexpr int WG_FOLD_BAR = 3;             // named barrier of B13's fold (1 + wg: the merge)
 
 // The ring: per stage the activation tile (BM rows x 128 bytes: 64 bf16,
-// or 128 s8 for the dynamic kernels; 128B swizzle), WB bytes of weights and
-// SB of scales; then a full and an empty barrier per stage and two merge
-// flags.  The base is aligned to 1024 bytes (the swizzle's period) in the
-// dynamic shared memory.  STAGES stages: WG_STAGES, or as many as fit
-// (dyn_matmul.cu's 32 KB stages at BM = 128).
+// or 128 s8 for the dynamic kernels; 128B swizzle; PIECES of them, one a
+// bf16 piece of f32 x, for the f32 forms), WB bytes of weights and SB of
+// scales; then a full and an empty barrier per stage and two merge flags.
+// The base is aligned to 1024 bytes (the swizzle's period) in the dynamic
+// shared memory.  STAGES stages: WG_STAGES, or as many as fit (wg_stages:
+// the f32 forms' three tiles; dyn_matmul.cu's 32 KB stages at BM = 128).
 constexpr int WG_SMEM_MAX = 232448;  // the H100's opt-in limit a block
-template <int BM, int WB, int SB, int STAGES = WG_STAGES>
+template <int BM, int WB, int SB, int STAGES = WG_STAGES, int PIECES = 1>
 struct WgRing {
   static constexpr int kStages = STAGES;
-  static constexpr int XS = BM * 128;
+  static constexpr int kPieces = PIECES;
+  static constexpr int XT = BM * 128;  // one activation tile (a piece's)
+  static constexpr int XS = PIECES * XT;
   static constexpr int W_OFF = STAGES * XS;
   static constexpr int S_OFF = W_OFF + STAGES * WB;
   static constexpr int BAR_OFF = S_OFF + STAGES * SB;
@@ -1208,9 +1297,12 @@ struct WgRing {
 
 // The persistent schedule: unit u is activation tile u % mtiles, split
 // (u / mtiles) % nsplit, weight tile u / (mtiles * nsplit); a split takes
-// contraction stages [sp * sps, min(steps, (sp + 1) * sps)).
+// contraction stages [sp * sps, min(steps, (sp + 1) * sps)).  plane: the
+// rows between two pieces' planes of the f32 forms' activations (the
+// (3, M, K) pieces of f32 x: M), 0 for the others.
 struct WgSchedule {
   int mtiles, nsplit, sps, steps, units;
+  int plane = 0;
   __device__ __forceinline__ void unit(int u, int& mt, int& sp, int& nt, int& s0,
                                        int& s1) const {
     mt = u % mtiles;
@@ -1279,6 +1371,30 @@ inline bool act_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, 
                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// What the Hopper kernels read of a view V: its pieces (V::kPieces: 3 for
+// the f32 forms, whose activations are f32 x's three bf16 pieces, else 1),
+// its output element (V::Y: f32 for the f32 forms, else V::E) and the
+// stages of its ring (as many as fit, at most WG_STAGES).
+template <typename V, typename = void>
+struct WgForm {
+  static constexpr int kPieces = 1;
+  using Y = typename V::E;
+};
+template <typename V>
+struct WgForm<V, std::void_t<decltype(V::kPieces)>> {
+  static constexpr int kPieces = V::kPieces;
+  using Y = typename V::Y;
+};
+__host__ __device__ constexpr int wg_stages(int bm, int wb, int sb, int pieces) {
+  return (WG_SMEM_MAX - 1024 - 16) / (pieces * bm * 128 + wb + sb + 16) < WG_STAGES
+             ? (WG_SMEM_MAX - 1024 - 16) / (pieces * bm * 128 + wb + sb + 16)
+             : WG_STAGES;
+}
+template <int BM, typename V>
+using WgRingOf = WgRing<BM, V::kWBytes, V::kSBytes,
+                        wg_stages(BM, V::kWBytes, V::kSBytes, WgForm<V>::kPieces),
+                        WgForm<V>::kPieces>;
+
 // Align the ring, initialise its barriers; every thread returns the base.
 template <typename R>
 __device__ __forceinline__ uint8_t* wg_setup(uint8_t* raw, uint64_t*& full, uint64_t*& empty,
@@ -1301,14 +1417,16 @@ __device__ __forceinline__ uint8_t* wg_setup(uint8_t* raw, uint64_t*& full, uint
 
 // The producer warpgroup (threads 256-383): lane 0 of its first warp loads
 // every stage of every unit of this block, STEP activation columns a stage
-// (WG_STEP bf16; dyn_matmul.cu: DYN_STEP s8) into a ring of STAGES.  V::tma
-// issues the weight and scale tiles of weight tile nt, stage s.
-template <int BM, typename V, int STEP = WG_STEP, int STAGES = WG_STAGES>
+// (WG_STEP bf16; dyn_matmul.cu: DYN_STEP s8) into a ring of STAGES, one
+// activation tile a piece (the f32 forms: hi, mid, lo, sc.plane rows
+// apart).  V::tma issues the weight and scale tiles of weight tile nt,
+// stage s.
+template <int BM, typename V, int STEP = WG_STEP, int STAGES = WG_STAGES, int PIECES = 1>
 __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtensorMap* wmap,
                                            const CUtensorMap* smap, uint8_t* smem,
                                            uint64_t* full, uint64_t* empty,
                                            const WgSchedule& sc) {
-  using R = WgRing<BM, V::kWBytes, V::kSBytes, STAGES>;
+  using R = WgRing<BM, V::kWBytes, V::kSBytes, STAGES, PIECES>;
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
   if (threadIdx.x != WG_CONSUMER_WARPS * 32) return;
   int st = 0;
@@ -1319,7 +1437,10 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtens
     for (int s = s0; s < s1; ++s) {
       mbar_wait(&empty[st], ph ^ 1);
       mbar_arrive_expect_tx(&full[st], R::XS + V::kWBytes + V::kSBytes);
-      tma_load_2d(smem + st * R::XS, amap, s * STEP, mt * BM, &full[st]);
+#pragma unroll
+      for (int p = 0; p < PIECES; ++p)
+        tma_load_2d(smem + st * R::XS + p * R::XT, amap, s * STEP, p * sc.plane + mt * BM,
+                    &full[st]);
       V::tma(wmap, smap, smem + R::W_OFF + st * V::kWBytes, smem + R::S_OFF + st * V::kSBytes,
              nt, s, &full[st]);
       if (++st == STAGES) {
@@ -1335,7 +1456,7 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* amap, const CUtens
 // D row gid is output column c, D row gid + 8 column c + STEP: STEP 1 (the
 // two columns of a bf16x2 store) or 8.  With SCALE, column n's output is
 // multiplied by col_scale[n] first (B6's per-column scale).  E: the output's
-// element, bf16 or f16.
+// element, bf16, f16 or (the f32 forms) f32.
 template <int BM, int STEP, bool SCALE, typename E>
 __device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], E* __restrict__ y,
                                          int m0, int c, int M, int N, const float* col_scale) {
@@ -1354,7 +1475,9 @@ __device__ __forceinline__ void wg_store(const float (&acc)[BM / 2], E* __restri
     for (int e = 0; e < 2; ++e) {
       if (m + e >= M) continue;
       E* row = y + (size_t)(m + e) * N + c;
-      if constexpr (STEP == 1) {
+      if constexpr (STEP == 1 && std::is_same_v<E, float>) {
+        *reinterpret_cast<float2*>(row) = make_float2(v(4 * j + e, s0), v(4 * j + 2 + e, s1));
+      } else if constexpr (STEP == 1) {
         *reinterpret_cast<uint32_t*>(row) = pack2<E>(v(4 * j + e, s0), v(4 * j + 2 + e, s1));
       } else {
         row[0] = from_f32<E>(v(4 * j + e, s0));
@@ -1404,7 +1527,7 @@ __device__ __forceinline__ void wg_merge(Acc (&acc)[BM / 2], Acc* __restrict__ w
 }
 
 // The end of a unit of B1, B6, B13, B14: the output tile's columns c (and c
-// + STEP) of this thread, in the output's element E (bf16 or f16).
+// + STEP) of this thread, in the output's element E (bf16, f16 or f32).
 template <int BM, typename V, typename E>
 __device__ __forceinline__ void wg_finish_unit(float (&acc)[BM / 2], const V& v,
                                                E* __restrict__ y,
@@ -1428,13 +1551,25 @@ __device__ __forceinline__ void wg_mma(float (&d)[BM / 2], const uint32_t (&a)[4
 }
 
 // Half a stage (two k16 steps, fragments f) into the stage's partial P, the
-// first half with scale-d = 0 (nothing carried over); asynchronous.
-template <int BM, typename E>
+// first half with scale-d = 0 (nothing carried over); asynchronous.  With
+// PIECES 3 (the f32 forms) both steps take the three pieces' tiles, lo,
+// then mid, then hi (a tile is BM rows of 128 bytes, BM * 8 in the
+// descriptor's 16-byte units).  The smallest pieces go first because the
+// tensor cores align each product to the largest addend of a wgmma and cut
+// what falls below f32's 24 bits: lo's products (2^-16 of their terms)
+// added after hi's would lose their low bits.  A stage's second half still
+// meets the first half's sum in the partial; on an H100 that read within
+// the f32 forms' limit as a fresh partial a half did (PERF.md §6, PR 24).
+template <int BM, typename E, int PIECES = 1>
 __device__ __forceinline__ void wg_issue_half(float (&P)[BM / 2], const uint32_t (&f)[2][4],
                                               uint64_t desc, int first) {
   wgmma_fence();
-  wg_mma<BM, E>(P, f[0], desc, first ? 0 : 1);
-  wg_mma<BM, E>(P, f[1], desc + 2, 1);
+#pragma unroll
+  for (int p = PIECES - 1; p >= 0; --p)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      wg_mma<BM, E>(P, f[k], desc + 2 * k + p * (BM * 8),
+                    first && k == 0 && p == PIECES - 1 ? 0 : 1);
   wgmma_commit();
 }
 
@@ -1462,8 +1597,9 @@ __device__ __forceinline__ void wg_fold(float (&acc)[BM / 2], float (&P)[BM / 2]
 // The state a consumer thread carries from stage to stage.
 template <int BM, typename V>
 struct WgConsumer {
-  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  using R = WgRingOf<BM, V>;
   using E = typename V::E;
+  static constexpr int kPieces = R::kPieces;
   const V& v;
   const typename V::Lane ln;
   uint8_t* smem;
@@ -1487,25 +1623,25 @@ struct WgConsumer {
   __device__ __forceinline__ void first(float (&P)[BM / 2]) {
     ready(st, ph);
     v.template load<0>(fa, wt(st), stile(st), ln);
-    wg_issue_half<BM, E>(P, fa, desc(st), 1);
+    wg_issue_half<BM, E, kPieces>(P, fa, desc(st), 1);
     v.template load<1>(fb, wt(st), stile(st), ln);
-    wg_issue_half<BM, E>(P, fb, desc(st) + 4, 0);  // the stage's k16 steps 2, 3
+    wg_issue_half<BM, E, kPieces>(P, fb, desc(st) + 4, 0);  // the stage's k16 steps 2, 3
     wg_release_half<1>(fa);
   }
   // the next stage into P while the previous one's partial Q (its half 1
   // still in flight) is finished and folded into acc
   __device__ __forceinline__ void next(float (&acc)[BM / 2], float (&P)[BM / 2],
                                        float (&Q)[BM / 2]) {
-    const int nst = st + 1 == WG_STAGES ? 0 : st + 1;
+    const int nst = st + 1 == R::kStages ? 0 : st + 1;
     const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
     ready(nst, nph);
     v.template load<0>(fa, wt(nst), stile(nst), ln);
-    wg_issue_half<BM, E>(P, fa, desc(nst), 1);
+    wg_issue_half<BM, E, kPieces>(P, fa, desc(nst), 1);
     wg_release_half<1>(fb);  // the previous stage is done
     wg_fold<BM>(acc, Q);     // on the CUDA cores, while this stage's half 0 runs
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
     v.template load<1>(fb, wt(nst), stile(nst), ln);
-    wg_issue_half<BM, E>(P, fb, desc(nst) + 4, 0);
+    wg_issue_half<BM, E, kPieces>(P, fb, desc(nst) + 4, 0);
     wg_release_half<1>(fa);
     st = nst;
     ph = nph;
@@ -1515,7 +1651,7 @@ struct WgConsumer {
     wg_release_half<0>(fb);
     wg_fold<BM>(acc, P);
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
-    if (++st == WG_STAGES) {
+    if (++st == R::kStages) {
       st = 0;
       ph ^= 1;
     }
@@ -1533,7 +1669,9 @@ struct WgConsumer {
 //                              activation tile before any wgmma reads it
 //   kColScale, v.col_scale()   (B6) the per-column scale of the epilogue
 //   V::E                       the activations' and the output's element
-//                              (bf16 or f16)
+//                              (bf16 or f16); the f32 forms: the pieces'
+//                              element bf16, with V::kPieces 3 and V::Y
+//                              float (WgForm)
 // No scale changes inside these contractions, so the f32 sum needs no
 // per-group fold; but the tensor cores' accumulation over one long wgmma
 // chain drifts from round-to-nearest (on an H100 the error grew with the
@@ -1546,7 +1684,8 @@ struct WgConsumer {
 template <int BM, typename V>
 __device__ __forceinline__ void wg_consume(const V& v, uint8_t* smem, uint64_t* full,
                                            uint64_t* empty, int* merge_flag, const WgSchedule& sc,
-                                           typename V::E* __restrict__ y, float* __restrict__ ws,
+                                           typename WgForm<V>::Y* __restrict__ y,
+                                           float* __restrict__ ws,
                                            int* __restrict__ arrivals, int M, int N) {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
   WgConsumer<BM, V> cs{v, V::lane(threadIdx.x), smem, full, empty, 0, 0, {}, {}};
@@ -1577,15 +1716,15 @@ __device__ __forceinline__ void wg_consume(const V& v, uint8_t* smem, uint64_t* 
 template <int BM, typename V>
 __device__ __forceinline__ void wg_body(uint8_t* raw, const CUtensorMap* amap,
                                         const CUtensorMap* wmap, const CUtensorMap* smap,
-                                        const V& v, typename V::E* __restrict__ y,
+                                        const V& v, typename WgForm<V>::Y* __restrict__ y,
                                         float* __restrict__ ws, int* __restrict__ arrivals, int M,
                                         int N, const WgSchedule& sc) {
-  using R = WgRing<BM, V::kWBytes, V::kSBytes>;
+  using R = WgRingOf<BM, V>;
   uint64_t *full, *empty;
   int* merge_flag;
   uint8_t* smem = wg_setup<R>(raw, full, empty, merge_flag);
   if (threadIdx.x >= WG_CONSUMER_WARPS * 32)
-    wg_produce<BM, V>(amap, wmap, smap, smem, full, empty, sc);
+    wg_produce<BM, V, WG_STEP, R::kStages, R::kPieces>(amap, wmap, smap, smem, full, empty, sc);
   else
     wg_consume<BM, V>(v, smem, full, empty, merge_flag, sc, y, ws, arrivals, M, N);
 }
@@ -1612,7 +1751,7 @@ template <typename W, int BM>
 int launch_t_wgmma_bm(const CUtensorMap& gmap, const CUtensorMap& wmap, const CUtensorMap& smap,
                       const W& w, void* out, void* ws, void* arrivals, int M, int K,
                       const WgSchedule& sc, int ctas, cudaStream_t stream) {
-  constexpr int bytes = WgRing<BM, W::kWBytes, W::kSBytes>::BYTES;
+  constexpr int bytes = WgRingOf<BM, W>::BYTES;
   const cudaError_t opt_in = smem_opt_in<t_wgmma_kernel<W, BM>>(bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
   t_wgmma_kernel<W, BM><<<ctas, WG_THREADS, bytes, stream>>>(

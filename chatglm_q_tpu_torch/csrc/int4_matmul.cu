@@ -52,8 +52,25 @@
 //     can replay it.
 //   The body is common.cuh's sk_body over Int4SkView, shared with B6's, B7's
 //   and B8's decode kernels.
-// * int4_gemv_kernel (f32 activations, and bf16 / f16 above SMALL_M_MAX
-//   where N % 16 != 0): bound by bytes — every weight byte is read once per call
+// * The f32 forms (f32 x and y; a float32 checkpoint's activations, the
+//   loaders' default dtype) run the two tensor-core kernels above and below
+//   exactly: an f32 x is the sum of three bf16 pieces (common.cuh:
+//   split_bf16x3), each piece times an int4 weight is exact in the f32
+//   accumulator, so three bf16 products a term give the f32 product, and
+//   the sums differ from the plain version only in order, as in bf16.
+//   int4_splitk_f32_kernel (M <= the f32 split-K limit: decode, verify) is
+//   sk_body over Int4SkF32View, which stages the pieces as it stages x,
+//   as three rows an x row (3M rows through the bf16 body's mma: free
+//   while 3M fits the m-tiles M needs anyway); one launch, merged in the
+//   launch as the bf16 form.
+//   int4_wgmma_kernel<BM, bf16, 3> (above it: prefill, chunks) reads the
+//   pieces from a (3, M, K) bf16 buffer that chatglm_split_bf16x3 writes
+//   first (a second launch of 10 bytes an element), three tiles a stage,
+//   six wgmmas a group into the group's partial.  TF32, with 10 bits,
+//   could not give this.
+// * int4_gemv_kernel (bf16 / f16 / f32 above the split-K limits where N %
+//   16 != 0; callable by name for the f32 forms' comparison): bound by
+//   bytes — every weight byte is read once per call
 //   and there are only ~2 operations per byte.  Each lane
 //   reads 8 neighbouring N bytes of a byte row (one 8-byte load; a warp reads
 //   256 contiguous bytes), so loads coalesce along the N-contiguous layout.
@@ -274,8 +291,11 @@ struct Int4FwdTiles {
   }
   __device__ const float* col_scale() const { return nullptr; }
 };
-template <int BM>
-using WgSmem = WgRing<BM, Int4FwdTiles::kWBytes, Int4FwdTiles::kSBytes>;
+// The ring of the bf16 / f16 form (PIECES 1) or of the f32 form (PIECES 3:
+// x's three bf16 pieces a stage, fewer stages).
+template <int BM, int PIECES = 1>
+using WgSmem = WgRing<BM, Int4FwdTiles::kWBytes, Int4FwdTiles::kSBytes,
+                      wg_stages(BM, Int4FwdTiles::kWBytes, Int4FwdTiles::kSBytes, PIECES), PIECES>;
 
 // One group's A fragments and scales for this thread: the weights of D rows
 // gid and gid + 8 (tile columns c and c + 1), from the packed stage tile
@@ -311,12 +331,19 @@ __device__ __forceinline__ void wg_load(WgGroup& g, const uint8_t* ps, const __n
 }
 
 // The group's f32 partial (its first wgmma with scale-d = 0, so nothing is
-// carried over) into part; asynchronous, waited for by wg_finish.
-template <int BM, typename E>
+// carried over) into part; asynchronous, waited for by wg_finish.  The f32
+// form (PIECES 3) takes both k16 steps against the lo tile, then the mid
+// tile, then the hi tile, into the same partial (the smallest pieces first:
+// common.cuh, wg_issue_half).
+template <int BM, typename E, int PIECES>
 __device__ __forceinline__ void wg_issue(float (&part)[BM / 2], WgGroup& g, uint64_t desc) {
   wgmma_fence();
-  wg_mma<BM, E>(part, g.a[0], desc, 0);
-  wg_mma<BM, E>(part, g.a[1], desc + 2, 1);
+#pragma unroll
+  for (int p = PIECES - 1; p >= 0; --p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      wg_mma<BM, E>(part, g.a[h], desc + 2 * h + p * (BM * 8),
+                    h == 0 && p == PIECES - 1 ? 0 : 1);
   wgmma_commit();
 }
 // Wait until at most PENDING groups are in flight (this one done), then acc
@@ -347,21 +374,25 @@ __device__ __forceinline__ void wg_finish(float (&acc)[BM / 2], float (&part)[BM
 // from registers, x's K-major rows as B from the swizzled tile) into one of
 // two partial accumulators, and while they run the CUDA cores fold the
 // other partial, the previous group's, into acc with that group's scale.
-// E: x's and y's element, bf16 or f16.
-template <int BM, typename E>
+// E: x's and y's element, bf16 or f16; or (PIECES 3, the f32 form) E bf16,
+// x f32 x's three bf16 pieces (a (3, M, K) buffer, sc.plane = M: each group
+// six wgmmas into its partial, lo's, mid's, hi's) and y f32.
+template <int BM, typename E, int PIECES>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap pmap,
-                  const __grid_constant__ CUtensorMap smap, E* __restrict__ y,
+                  const __grid_constant__ CUtensorMap smap,
+                  std::conditional_t<PIECES == 3, float, E>* __restrict__ y,
                   float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
                   const WgSchedule sc) {
-  using L = WgSmem<BM>;
+  using L = WgSmem<BM, PIECES>;
   extern __shared__ uint8_t wg_smem_raw[];
   uint64_t *full, *empty;
   int* merge_flag;
   uint8_t* smem = wg_setup<L>(wg_smem_raw, full, empty, merge_flag);
   if (threadIdx.x >= WG_CONSUMER_WARPS * 32) {
-    wg_produce<BM, Int4FwdTiles>(&xmap, &pmap, &smap, smem, full, empty, sc);
+    wg_produce<BM, Int4FwdTiles, WG_STEP, L::kStages, PIECES>(&xmap, &pmap, &smap, smem, full,
+                                                              empty, sc);
     return;
   }
 
@@ -398,16 +429,17 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     WgGroup ga, gb;
     mbar_wait(&full[st], ph);
     wg_load<E>(ga, stage_p(st), stage_s(st), o0, o1, c, 0);
-    wg_issue<BM, E>(p0, ga, sw128_desc(smem + st * L::XS));
+    wg_issue<BM, E, PIECES>(p0, ga, sw128_desc(smem + st * L::XS));
     for (int i = 0; i + 1 < nstages; ++i) {
-      const int nst = st + 1 == WG_STAGES ? 0 : st + 1;
+      const int nst = st + 1 == L::kStages ? 0 : st + 1;
       const uint32_t nph = nst == 0 ? ph ^ 1 : ph;
       wg_load<E>(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
-      wg_issue<BM, E>(p1, gb, sw128_desc(smem + st * L::XS) + 4);  // the stage's k16 steps 2, 3
+      // the stage's k16 steps 2, 3
+      wg_issue<BM, E, PIECES>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
       wg_finish<BM, 1>(acc, p0, ga);
       mbar_wait(&full[nst], nph);
       wg_load<E>(ga, stage_p(nst), stage_s(nst), o0, o1, c, 0);
-      wg_issue<BM, E>(p0, ga, sw128_desc(smem + nst * L::XS));
+      wg_issue<BM, E, PIECES>(p0, ga, sw128_desc(smem + nst * L::XS));
       wg_finish<BM, 1>(acc, p1, gb);
       if (lane == 0) mbar_arrive(&empty[st]);  // this warp's wgmmas and loads of it are done
       st = nst;
@@ -415,14 +447,14 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     if (ng % WG_STAGE_GROUPS == 0) {
       wg_load<E>(gb, stage_p(st), stage_s(st), o0, o1, c, 1);
-      wg_issue<BM, E>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
+      wg_issue<BM, E, PIECES>(p1, gb, sw128_desc(smem + st * L::XS) + 4);
       wg_finish<BM, 1>(acc, p0, ga);
       wg_finish<BM, 0>(acc, p1, gb);
     } else {
       wg_finish<BM, 0>(acc, p0, ga);
     }
     if (lane == 0) mbar_arrive(&empty[st]);
-    if (++st == WG_STAGES) {
+    if (++st == L::kStages) {
       st = 0;
       ph ^= 1;
     }
@@ -431,23 +463,25 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int BM, typename E>
+template <int BM, typename E, int PIECES>
 int launch_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
                  void* arrivals, int M, int K, int N, const WgSchedule& sc, int ctas,
                  cudaStream_t stream) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, pmap, smap;
-  if (!act_map<E>(encode, &xmap, x, M, K, BM) ||
+  if (!act_map<E>(encode, &xmap, x, PIECES * M, K, BM) ||
       !tensor_map_2d(encode, &pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, K / 2, N, (size_t)N,
                      16 * WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map_2d(encode, &smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, K / 32, N,
                      (size_t)N * 2, WG_STAGE_GROUPS, WG_N, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM, E>>(WgSmem<BM>::BYTES);
+  using T = std::conditional_t<PIECES == 3, float, E>;
+  constexpr int bytes = WgSmem<BM, PIECES>::BYTES;
+  const cudaError_t opt_in = smem_opt_in<int4_wgmma_kernel<BM, E, PIECES>>(bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  int4_wgmma_kernel<BM, E><<<ctas, WG_THREADS, WgSmem<BM>::BYTES, stream>>>(
-      xmap, pmap, smap, static_cast<E*>(y), static_cast<float*>(ws),
+  int4_wgmma_kernel<BM, E, PIECES><<<ctas, WG_THREADS, bytes, stream>>>(
+      xmap, pmap, smap, static_cast<T*>(y), static_cast<float*>(ws),
       static_cast<int*>(arrivals), M, K, N, sc);
   return (int)cudaGetLastError();
 }
@@ -549,6 +583,23 @@ int4_splitk_mma_kernel(const E* __restrict__ x, const uint8_t* __restrict__ pack
   extern __shared__ __align__(16) unsigned char sk_smem[];
   sk_body<Int4SkView<E>, E, MT, COLS>(Int4SkView<E>{packed, scale}, x, y, ws, arrivals, M, K, N,
                                       gps, cg, sk_smem);
+}
+
+// The f32 form's view (f32 x and y): sk_body stages x's three bf16 pieces
+// as three rows an x row, which the bf16 view's group takes as 3M rows.
+struct Int4SkF32View : Int4SkView<__nv_bfloat16> {
+  using X = float;
+};
+
+template <int MT, int COLS>
+__global__ void __launch_bounds__(SK_THREADS, 4)
+int4_splitk_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                       const __nv_bfloat16* __restrict__ scale, float* __restrict__ y,
+                       float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
+                       int gps, int cg) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  sk_body<Int4SkF32View, float, MT, COLS>(Int4SkF32View{{packed, scale}}, x, y, ws, arrivals, M,
+                                          K, N, gps, cg, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -685,6 +736,19 @@ struct Int4TView {
   }
 };
 
+// The split pass: each thread eight elements (two 16-byte reads, a 16-byte
+// write a piece).
+__global__ void split_bf16x3_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ pieces,
+                                    long long n) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= n) return;
+  const float4* src = reinterpret_cast<const float4*>(x + i);
+  uint4 pc[3];
+  split8_bf16x3(__ldg(src), __ldg(src + 1), pc);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) *reinterpret_cast<uint4*>(pieces + p * n + i) = pc[p];
+}
+
 }  // namespace
 
 extern "C" {
@@ -713,14 +777,22 @@ int chatglm_int4_gemv(const void* x, const void* packed, const void* scale, void
 // time (cg % 8 == 0); ws holds N/(8 cols) * nsplit * M * 8 cols floats
 // (unused at nsplit 1), arrivals N/(8 cols) zeroed ints that every launch
 // leaves at 0; K % 32 == 0, N % 8 == 0, 16-byte aligned pointers (checked
-// by the wrapper).
+// by the wrapper).  f32 x and y (x_dtype DT_F32): x's pieces as 3M staged
+// rows, 3M <= 8 mt, mt 1 or 2; ws holds the staged rows' partials.
 int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale, void* y,
                             void* ws, void* arrivals, int M, int K, int N, int x_dtype, int mt,
                             int cols, int nsplit, int gps, int cg, void* stream) {
   return with_act_type(x_dtype, [&](auto t) {
     using E = decltype(t);
-    if constexpr (std::is_same_v<E, float>) {
-      return (int)cudaErrorInvalidValue;
+    if constexpr (std::is_same_v<E, float>) {  // 3M staged rows, at most 2 m-tiles
+      return sk_dispatch<2>(3 * M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+        return sk_launch<int4_splitk_f32_kernel<decltype(MT)::value, decltype(COLS)::value>>(
+            N, cols, nsplit, sk_smem_bytes(3 * M, cg, cols, 2),
+            reinterpret_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+            static_cast<const uint8_t*>(packed), static_cast<const __nv_bfloat16*>(scale),
+            static_cast<float*>(y), static_cast<float*>(ws), static_cast<int*>(arrivals), M, K,
+            N, gps, cg);
+      });
     } else {
       return sk_dispatch<8>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
         return sk_launch<int4_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value, E>>(
@@ -739,7 +811,8 @@ int chatglm_int4_splitk_mma(const void* x, const void* packed, const void* scale
 // stage) over ctas persistent blocks (ops/quant_matmul.py::mma_plan); ws
 // holds tiles * nsplit * bm * 128 floats (unused at nsplit 1), arrivals 2 *
 // tiles zeroed ints that every launch leaves at 0; K % 32 == 0, N % 16 ==
-// 0, 16-byte aligned pointers.
+// 0, 16-byte aligned pointers.  x_dtype DT_F32: the f32 form, x the (3, M,
+// K) bf16 pieces of f32 x (chatglm_split_bf16x3) and y f32.
 int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, void* y, void* ws,
                        void* arrivals, int M, int K, int N, int x_dtype, int bm, int nsplit,
                        int gps, int ctas, void* stream) {
@@ -750,15 +823,19 @@ int chatglm_int4_wgmma(const void* x, const void* packed, const void* scale, voi
   const int sps = nsplit > 1 ? gps / WG_STAGE_GROUPS : steps;
   if (!wg_plan_ok(steps, bm, nsplit, sps, ctas, ws)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
+  WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
   return with_act_type(x_dtype, [&](auto t) {
     using E = decltype(t);
     if constexpr (std::is_same_v<E, float>) {
-      return (int)cudaErrorInvalidValue;
+      sc.plane = M;
+      using B = __nv_bfloat16;
+      if (bm == 128)
+        return launch_wgmma<128, B, 3>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+      return launch_wgmma<64, B, 3>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
     } else {
       if (bm == 128)
-        return launch_wgmma<128, E>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
-      return launch_wgmma<64, E>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+        return launch_wgmma<128, E, 1>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
+      return launch_wgmma<64, E, 1>(x, packed, scale, y, ws, arrivals, M, K, N, sc, ctas, s);
     }
   });
 }
@@ -817,6 +894,19 @@ int chatglm_int4_t_mma(const void* g, const void* packed, const void* scale, voi
                             ctas, reinterpret_cast<cudaStream_t>(stream));
     }
   });
+}
+
+// The f32 forms' split pass (B1's and B6's Hopper kernels on f32 x): x (n
+// f32, n % 8 == 0, 16-byte aligned) into pieces (3, n) bf16, hi, mid, lo
+// (split_bf16x3), which the kernels' TMA then reads.  One read of x and
+// one write of its pieces: bound by those 10 bytes an element.
+int chatglm_split_bf16x3(const void* x, void* pieces, long long n, void* stream) {
+  if (n < 8 || n % 8) return (int)cudaErrorInvalidValue;
+  const long long chunks = n / 8;
+  split_bf16x3_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(pieces), n);
+  return (int)cudaGetLastError();
 }
 
 const char* chatglm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -44,8 +44,17 @@
 //   round-to-nearest (~17 x 2^-23 of sum|terms| over 4096 k16 steps), so
 //   each 32-row group's products go to a fresh partial, added to the f32
 //   sum.
-// * int8_gemv_kernel (f32 activations, and bf16 / f16 above 16 rows where
-//   N % 16 != 0): the CUDA-core split-K form, each
+// * The f32 forms (f32 x and y) run both tensor-core kernels exactly on x's
+//   three bf16 pieces (common.cuh: split_bf16x3; each piece times an int8
+//   weight is exact in the f32 accumulator): int8_splitk_f32_kernel, sk_body
+//   over Int8SkF32View (the pieces staged as three rows an x row: see
+//   int4_matmul.cu), and int8_wgmma_kernel over Int8FwdF32View, which reads
+//   the (3, M, K) pieces that chatglm_split_bf16x3 writes, three tiles a
+//   stage into the stage's fresh partial, lo's wgmmas first; the scale on
+//   the f32 sum as in bf16.
+// * int8_gemv_kernel (bf16 / f16 / f32 above the split-K limits where N %
+//   16 != 0; callable by name for the f32 forms' comparison): the CUDA-core
+//   split-K form, each
 //   lane reading 8 neighbouring N bytes of a weight row (one 8-byte load; a
 //   warp reads 256 contiguous bytes), K split across blocks (grid.y) and the
 //   4 warps of a block in chunks of 32 rows, warps reduced in shared memory
@@ -277,6 +286,23 @@ int8_splitk_mma_kernel(const E* __restrict__ x, const int8_t* __restrict__ w,
                                       cg, sk_smem);
 }
 
+// The f32 form's view (f32 x and y): sk_body stages x's three bf16 pieces
+// as three rows an x row, which the bf16 view's group takes as 3M rows.
+struct Int8SkF32View : Int8SkView<__nv_bfloat16> {
+  using X = float;
+};
+
+template <int MT, int COLS>
+__global__ void __launch_bounds__(SK_THREADS, 4)
+int8_splitk_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                       const float* __restrict__ scale, float* __restrict__ y,
+                       float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N,
+                       int gps, int cg) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  sk_body<Int8SkF32View, float, MT, COLS>(Int8SkF32View{{w, scale}}, x, y, ws, arrivals, M, K, N,
+                                          gps, cg, sk_smem);
+}
+
 // ---------------------------------------------------------------------------
 // Hopper tensor-core kernel (bf16 / f16 activations, M > MMA_MIN_M)
 // ---------------------------------------------------------------------------
@@ -337,25 +363,34 @@ struct Int8FwdView {
   }
 };
 
-template <int BM, typename E>
+// The f32 form: x's three bf16 pieces (a (3, M, K) buffer that
+// chatglm_split_bf16x3 writes) as three activation tiles a stage; each half
+// stage's wgmmas, lo's, mid's, then hi's, into the stage's fresh partial
+// (common.cuh: wg_issue_half); y f32.
+struct Int8FwdF32View : Int8FwdView<__nv_bfloat16> {
+  static constexpr int kPieces = 3;
+  using Y = float;
+};
+
+template <int BM, typename V>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap wmap, const Int8FwdView<E> v,
-                  E* __restrict__ y, float* __restrict__ ws,
+                  const __grid_constant__ CUtensorMap wmap, const V v,
+                  typename WgForm<V>::Y* __restrict__ y, float* __restrict__ ws,
                   int* __restrict__ arrivals, int M, int N, const WgSchedule sc) {
   extern __shared__ uint8_t wg_smem_raw[];
-  wg_body<BM, Int8FwdView<E>>(wg_smem_raw, &xmap, &wmap, &wmap, v, y, ws, arrivals, M, N, sc);
+  wg_body<BM, V>(wg_smem_raw, &xmap, &wmap, &wmap, v, y, ws, arrivals, M, N, sc);
 }
 
-template <int BM, typename E>
-int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const Int8FwdView<E>& v,
-                 void* y, void* ws, void* arrivals, int M, int N, const WgSchedule& sc, int ctas,
+template <int BM, typename V>
+int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, const V& v, void* y, void* ws,
+                 void* arrivals, int M, int N, const WgSchedule& sc, int ctas,
                  cudaStream_t stream) {
-  constexpr int bytes = WgRing<BM, Int8FwdView<E>::kWBytes, Int8FwdView<E>::kSBytes>::BYTES;
-  const cudaError_t opt_in = smem_opt_in<int8_wgmma_kernel<BM, E>>(bytes);
+  constexpr int bytes = WgRingOf<BM, V>::BYTES;
+  const cudaError_t opt_in = smem_opt_in<int8_wgmma_kernel<BM, V>>(bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
-  int8_wgmma_kernel<BM, E><<<ctas, WG_THREADS, bytes, stream>>>(
-      xmap, wmap, v, static_cast<E*>(y), static_cast<float*>(ws),
+  int8_wgmma_kernel<BM, V><<<ctas, WG_THREADS, bytes, stream>>>(
+      xmap, wmap, v, static_cast<typename WgForm<V>::Y*>(y), static_cast<float*>(ws),
       static_cast<int*>(arrivals), M, N, sc);
   return (int)cudaGetLastError();
 }
@@ -532,14 +567,23 @@ int chatglm_int8_gemv(const void* x, const void* w, const void* scale, void* y, 
 // groups, x staged cg groups at a time (cg % 8 == 0); ws holds N/(8 cols)
 // * nsplit * M * 8 cols floats (unused at nsplit 1), arrivals N/(8 cols)
 // zeroed ints that every launch leaves at 0; K % 32 == 0, N % 8 == 0,
-// 16-byte aligned pointers (checked by the wrapper).
+// 16-byte aligned pointers (checked by the wrapper).  f32 x and y (x_dtype
+// DT_F32): x's pieces as 3M staged rows, 3M <= 8 mt, as
+// chatglm_int4_splitk_mma's f32 form.
 int chatglm_int8_splitk_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
                             void* arrivals, int M, int K, int N, int x_dtype, int mt, int cols,
                             int nsplit, int gps, int cg, void* stream) {
   return with_act_type(x_dtype, [&](auto t) {
     using E = decltype(t);
-    if constexpr (std::is_same_v<E, float>) {
-      return (int)cudaErrorInvalidValue;
+    if constexpr (std::is_same_v<E, float>) {  // 3M staged rows
+      return sk_dispatch<2>(3 * M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
+        return sk_launch<int8_splitk_f32_kernel<decltype(MT)::value, decltype(COLS)::value>>(
+            N, cols, nsplit, sk_smem_bytes(3 * M, cg, cols, 2),
+            reinterpret_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+            static_cast<const int8_t*>(w), static_cast<const float*>(scale),
+            static_cast<float*>(y), static_cast<float*>(ws), static_cast<int*>(arrivals), M, K,
+            N, gps, cg);
+      });
     } else {
       return sk_dispatch<2>(M, N, mt, cols, nsplit, gps, cg, 2, [&](auto MT, auto COLS) {
         return sk_launch<int8_splitk_mma_kernel<decltype(MT)::value, decltype(COLS)::value, E>>(
@@ -558,7 +602,8 @@ int chatglm_int8_splitk_mma(const void* x, const void* w, const void* scale, voi
 // persistent blocks (ops/quant_matmul.py::wg_plan); ws holds tiles *
 // nsplit * bm * 128 floats (unused at nsplit 1), arrivals 2 * tiles zeroed
 // ints that every launch leaves at 0; K % 32 == 0, N % 16 == 0, 16-byte
-// aligned pointers.
+// aligned pointers.  x_dtype DT_F32: the f32 form, x the (3, M, K) bf16
+// pieces of f32 x (chatglm_split_bf16x3) and y f32.
 int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, void* ws,
                        void* arrivals, int M, int K, int N, int x_dtype, int bm, int nsplit,
                        int sps, int ctas, void* stream) {
@@ -568,23 +613,22 @@ int chatglm_int8_mma(const void* x, const void* w, const void* scale, void* y, v
     return (int)cudaErrorInvalidValue;
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
+  WgSchedule sc = wg_schedule(M, bm, N, steps, nsplit, sps);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return with_act_type(x_dtype, [&](auto t) {
-    using E = decltype(t);
-    if constexpr (std::is_same_v<E, float>) {
+    constexpr bool f32 = std::is_same_v<decltype(t), float>;
+    using E = std::conditional_t<f32, __nv_bfloat16, decltype(t)>;  // the tiles' element
+    using V = std::conditional_t<f32, Int8FwdF32View, Int8FwdView<E>>;
+    CUtensorMap xmap, wmap;
+    if (!act_map<E>(encode, &xmap, x, (f32 ? 3 : 1) * M, K, bm) ||
+        !tensor_map_2d(encode, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N,
+                       WG_STEP, WG_N, CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
-    } else {
-      CUtensorMap xmap, wmap;
-      if (!act_map<E>(encode, &xmap, x, M, K, bm) ||
-          !tensor_map_2d(encode, &wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)N,
-                         WG_STEP, WG_N, CU_TENSOR_MAP_SWIZZLE_128B))
-        return (int)cudaErrorInvalidValue;
-      const Int8FwdView<E> v{static_cast<const float*>(scale)};
-      if (bm == 128)
-        return launch_wgmma<128, E>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
-      return launch_wgmma<64, E>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
-    }
+    if (f32) sc.plane = M;
+    V v{};
+    v.scale = static_cast<const float*>(scale);
+    if (bm == 128) return launch_wgmma<128, V>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
+    return launch_wgmma<64, V>(xmap, wmap, v, y, ws, arrivals, M, N, sc, ctas, s);
   });
 }
 

@@ -10,8 +10,9 @@ so the counts stay the kernels' real launches.  Launches in a form of a
 kernel also count apart: the attention wrappers' over a float8_e4m3fn cache
 as ``<name>_fp8``, and theirs and the matmuls' on float16 activations as
 ``<name>_f16``, the attention wrappers' on float16 activations over a
-float8_e4m3fn cache as ``<name>_fp8_f16``, on float32 activations as
-``<name>_f32`` and on float32 over float8_e4m3fn as ``<name>_fp8_f32``.
+float8_e4m3fn cache as ``<name>_fp8_f16``, theirs and B1's / B6's on
+float32 activations as ``<name>_f32`` and the attention wrappers' on
+float32 over float8_e4m3fn as ``<name>_fp8_f32``.
 """
 
 
@@ -30,6 +31,7 @@ def kernel_wrappers() -> dict:
         "int8_splitk": I8.int8_splitk,
         "int8_gemv": I8.int8_gemv,
         "int8_mma": I8.int8_mma,
+        "split_bf16x3_pass": QM.split_bf16x3_pass,
         "int4g32_t_splitk": QM.int4g32_t_splitk,
         "int4g32_t_gemv": QM.int4g32_t_gemv,
         "int4g32_t_mma": QM.int4g32_t_mma,

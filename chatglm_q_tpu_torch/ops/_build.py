@@ -47,7 +47,7 @@ SIGNATURES = {
     # x, packed, scale, y, workspace, M, K, N, x dtype code, nsplit, groups_per_split, stream
     "chatglm_int4_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
     # the split-K kernels: x, weights, scale, y, workspace, arrivals, M, K, N, x dtype code
-    # (bf16 or f16), mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
+    # (bf16, f16 or f32), mt, cols, nsplit, groups_per_split, groups_per_chunk, stream
     "chatglm_int4_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "chatglm_int8_splitk_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # xq, sx, weights, scale, y, workspace, arrivals, M, K, N, y dtype code (f32, bf16 or
@@ -55,7 +55,8 @@ SIGNATURES = {
     "chatglm_int8_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "chatglm_int4_dyn_splitk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     # the Hopper kernels: activations, weights, scale, out, workspace, arrivals, M, K, N,
-    # activation dtype code (bf16 or f16), bm, nsplit, per split
+    # activation dtype code (bf16 or f16; B1 and B6 also f32, the activations then x's
+    # (3, M, K) bf16 pieces), bm, nsplit, per split
     # (B1: groups, the others: 64-element stages), ctas, stream
     "chatglm_int4_wgmma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "chatglm_int8_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
@@ -68,6 +69,8 @@ SIGNATURES = {
     "chatglm_int4_t_splitk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # x, w, scale, y, workspace, M, K, N, x dtype code, nsplit, chunks_per_split, stream
     "chatglm_int8_gemv": [P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, pieces, n (elements, as a 64-bit int), stream: the f32 forms' split pass
+    "chatglm_split_bf16x3": [P, P, ctypes.c_longlong, P],
     # g, w (or packed), scale, out, M, K, N, g dtype code (f32), stream (B13 / B14 in f32)
     "chatglm_int8_t_gemv": [P, P, P, P, I, I, I, I, P],
     "chatglm_int4_t_gemv": [P, P, P, P, I, I, I, I, P],

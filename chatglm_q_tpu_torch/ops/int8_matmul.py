@@ -18,9 +18,14 @@ Replaces chatglm_q_tpu/ops/pallas_matmul.py:_int8_fwd_kernel
   tiles in an mbarrier ring, wgmma with the weights as A from registers,
   each int8 converted exactly to bf16); ``wg_plan`` picks the tile and the
   K splits, merged in the same launch.
-* ``int8_gemv`` — f32 activations (and bf16 above MMA_MIN_M where N % 16
-  != 0): split-K CUDA-core kernel with a fixed-order second pass that sums
-  the f32 partials and applies the per-column scale.
+* ``int8_gemv`` — bf16, f16 or f32 activations above the split-K limits
+  where N % 16 != 0: split-K CUDA-core kernel with a fixed-order second
+  pass that sums the f32 partials and applies the per-column scale.
+
+f32 activations take both tensor-core kernels in their f32 forms (counted
+apart too as ``<wrapper>_f32``), exactly, on x's three bf16 pieces
+(quant_matmul.py: ``split_bf16x3_pass``, ``splitk_f32_plan``):
+``int8_splitk`` up to ``F32_SPLITK_MAX`` rows, ``int8_mma`` above it.  The CUDA-core gemv stays callable by name.
 
 All multiply the f32 accumulator by the per-column scale once, after the K
 sum, as the TPU kernel does.  The JAX package's jnp fallback scales the
@@ -50,9 +55,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .quant_matmul import (MMA_DTYPES, MMA_MIN_M, aligned, f16_form, gemv_plan, int8_mma_plan,
-                           splitk_call, splitk_plan, t_mma_plan, t_route, t_splitk_call,
-                           uses_mma, wg_call)
+from .quant_matmul import (MMA_MIN_M, act_form, aligned, f16_form, gemv_plan, int8_mma_plan,
+                           matmul_route, splitk_call, splitk_f32_plan, splitk_plan, t_mma_plan,
+                           t_route, t_splitk_call, wg_call)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -81,20 +86,21 @@ def _check(x, w, scale):
 
 def int8_route(M: int, N: int, dtype: torch.dtype) -> str:
     """B6's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16
-    or f16, M ≤ MMA_MIN_M), "mma" (bf16 or f16 above it, N % 16 == 0) or
-    "gemv" (f32, and bf16 / f16 above it where N % 16 != 0)."""
-    if dtype in MMA_DTYPES and M <= MMA_MIN_M:
-        return "splitk"
-    return "mma" if uses_mma(M, N, dtype) else "gemv"
+    or f16 at M ≤ MMA_MIN_M, f32 at M ≤ F32_SPLITK_MAX), "mma" above it
+    (N % 16 == 0) or "gemv" (N % 16 != 0)."""
+    return matmul_route(M, N, dtype, MMA_MIN_M)
 
 
 def int8_splitk(x, w, scale):
     """Launch the split-K tensor-core kernel (checked bf16 or f16 inputs on
-    the card, M ≤ MMA_MIN_M): one launch, the splits merged inside it."""
+    the card at M ≤ MMA_MIN_M, f32 at M ≤ F32_SPLITK_MAX): one launch, the
+    splits merged inside it."""
     M, K = x.shape
-    y = splitk_call("chatglm_int8_splitk_mma", x, w, scale,
-                    splitk_plan(M, K, w.shape[1], int8_weights=True))
-    return _build.launched(int8_splitk, y, f16_form(x))
+    N = w.shape[1]
+    plan = (splitk_f32_plan(M, K, N, int8_weights=True) if x.dtype == torch.float32
+            else splitk_plan(M, K, N, int8_weights=True))
+    y = splitk_call("chatglm_int8_splitk_mma", x, w, scale, plan)
+    return _build.launched(int8_splitk, y, act_form(x))
 
 
 int8_splitk.launches = 0
@@ -110,25 +116,27 @@ def int8_gemv(x, w, scale):
     _build.call("chatglm_int8_gemv", x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
                 ws.data_ptr(), M, K, N, _build.dtype_code(x.dtype), nsplit, cps,
                 _build.stream_ptr(x))
-    return _build.launched(int8_gemv, y, f16_form(x))
+    return _build.launched(int8_gemv, y, act_form(x))
 
 
 int8_gemv.launches = 0
 
 
 def int8_mma(x, w, scale):
-    """Launch the Hopper tensor-core kernel (checked bf16 or f16 inputs on
-    the card, N % 16 == 0): one launch, any K splits merged inside it."""
+    """Launch the Hopper tensor-core kernel (checked bf16, f16 or f32 inputs
+    on the card, N % 16 == 0): one launch, any K splits merged inside it;
+    f32 x after the split pass (a launch of its own)."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N, int8_mma_plan(M, K, N))
-    return _build.launched(int8_mma, y, f16_form(x))
+    wg_call("chatglm_int8_mma", x, w, scale, y, M, K, N, N,
+            int8_mma_plan(M, K, N, x.dtype == torch.float32))
+    return _build.launched(int8_mma, y, act_form(x))
 
 
 int8_mma.launches = 0
 for _fn in (int8_splitk, int8_gemv, int8_mma):
-    _build.with_forms(_fn, "f16")
+    _build.with_forms(_fn, "f16", "f32")
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -170,6 +170,28 @@ def unpack_int4_tpu(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.reshape(K, N)
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as three bf16 tensors (hi, mid, lo): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each residual exact in f32.  The
+    plain version of the f32 matmul kernels' split (csrc/common.cuh:
+    ``split_bf16x3``): three 8-bit pieces hold f32's 24 significant bits
+    and bf16 keeps f32's exponent range, so hi + mid + lo == x exactly for
+    |x| ≥ 2^-110; below that lo lands among bf16's subnormals and
+    |x - (hi + mid + lo)| ≤ 2^-134.  Where bf16(x) overflows to inf (|x|
+    above bf16's largest finite value) hi is x truncated toward zero; a
+    non-finite x gives hi = x, mid = lo = 0 (so inf·q and NaN propagate as
+    the f32 product does)."""
+    x = x.float()
+    finite = torch.isfinite(x)
+    hi = x.to(torch.bfloat16)
+    toward_zero = (x.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+    hi = torch.where(finite & torch.isinf(hi), toward_zero, hi)
+    r = torch.where(finite, x - hi.float(), torch.zeros_like(x))
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def repack_ref_to_tpu(packed_ref: torch.Tensor) -> torch.Tensor:
     """Reference-order packed uint8 → tpu order (an involution: ``^ 0x88``)."""
     return packed_ref ^ 0x88

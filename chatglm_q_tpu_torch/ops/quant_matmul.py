@@ -17,12 +17,23 @@ they are one wrapper, ``int4g32_matmul``, over three kernels in
   folded in with its scale while the next group's MMAs run; ``mma_plan``
   picks the tile and the K splits (merged in the same launch).  Bound by
   operations.
-* ``int4g32_gemv`` — f32 activations: CUDA cores, split over K; a second
-  pass sums the f32 partials in a fixed order.
+* ``int4g32_gemv`` — bf16, f16 or f32 activations above the split-K
+  limits where N % 16 != 0 (the Hopper kernel cannot take N): CUDA cores,
+  split over K; a second pass sums the f32 partials in a fixed order.
+
+f32 activations (a float32 checkpoint's: the loaders' default dtype) take
+the same two tensor-core kernels in their f32 forms, counted apart too as
+``<wrapper>_f32``: an f32 x is the exact sum of three bf16 pieces
+(``split_bf16x3``), each piece times an integer weight is exact in f32, so
+three bf16 products a term give the f32 product.  ``int4g32_splitk`` up to
+``F32_SPLITK_MAX`` rows stages the pieces itself, as three rows an x row;
+``int4g32_mma`` above it reads them from a (3, M, K) buffer that
+``split_bf16x3_pass`` writes first.  The CUDA-core gemv stays callable by
+name (phase 2 of ``chip_smoke.py`` times it beside them).
 
 All apply each 32-row group's scale to the f32 partial of that group, so
-with integer weights and bf16 or f16 activations they differ from the plain
-version only in the order of the f32 sums.  The f16 forms (a float16
+with integer weights and bf16, f16 or f32 activations they differ from the
+plain version only in the order of the f32 sums.  The f16 forms (a float16
 checkpoint's activations: the loader gives the model the checkpoint's
 ``torch_dtype``) are the same kernels over f16 tiles, counted apart too as
 ``<wrapper>_f16``; each C entry takes the activations' dtype code
@@ -53,7 +64,8 @@ apart too as ``<wrapper>_f16``):
 * ``int4g32_t_gemv`` (f32 g; ``csrc/int4_matmul.cu``): the CUDA cores in
   IEEE f32.
 
-``uses_mma`` and ``MMA_MIN_M`` are shared with the int8 and dynamic int8
+``matmul_route``, ``splitk_f32_plan`` and ``split_bf16x3_pass`` are shared
+with B6's f32 forms; ``uses_mma`` and ``MMA_MIN_M`` with the int8 and dynamic int8
 matmuls (B6/B7/B8) and the transposed kernels, ``gemv_plan`` with B6's
 CUDA-core kernel, ``splitk_plan``, ``splitk_scratch`` and ``splitk_call``
 with the split-K kernels of B6, B7 and B8 (bf16 or s8 rows at M ≤
@@ -108,6 +120,9 @@ MMA_TILE_BYTES = {
     "int8_dyn": (DYN_STEP * MMA_BN, 0),                                          # B7
     "int4g32_dyn": (DYN_STEP // 2 * MMA_BN, DYN_STEP // 32 * MMA_BN * 2),       # B8
 }
+MMA_TILE_BYTES["int4g32_f32"] = MMA_TILE_BYTES["int4g32"]  # the f32 forms of B1 and B6:
+MMA_TILE_BYTES["int8_f32"] = MMA_TILE_BYTES["int8"]        # three activation tiles a stage
+MMA_PIECES = {"int4g32_f32": 3, "int8_f32": 3}
 # wg_plan's cost model, in stages of a 128-row tile
 MMA_FILL = 3.0           # a work unit's pipeline fill and epilogue
 MMA_MERGE = 1.25         # each split's share of its tile's merge, per 128 rows
@@ -135,31 +150,51 @@ def gemv_plan(M: int, K: int, N: int) -> tuple[int, int]:
 # the 16-bit activation dtypes the forward tensor-core kernels take (B1, B6)
 MMA_DTYPES = (torch.bfloat16, torch.float16)
 
+# The f32 forms of B1 and B6 (f32 x as its three bf16 pieces): the rows up
+# to which each takes its split-K kernel, the Hopper kernel above.  The
+# split-K kernels stage the pieces as three rows an x row, 3M rows through
+# the bf16 body, in at most two m-tiles (3M ≤ 16); the crossover sweep of
+# chip_smoke.py's phase 2 on an H100 (PERF.md) puts the Hopper kernel
+# behind them on every linear up to that limit.
+F32_SPLITK_MAX = 5
+
 
 def uses_mma(M: int, N: int, dtype: torch.dtype) -> bool:
     """B1's and B6's Hopper kernel (bf16 or f16, M > MMA_MIN_M, N % 16 == 0)."""
     return dtype in MMA_DTYPES and M > MMA_MIN_M and N % 16 == 0
 
 
-def int4_route(M: int, N: int, dtype: torch.dtype) -> str:
-    """B1's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16
-    or f16, M ≤ SMALL_M_MAX), "mma" (bf16 or f16 above it) or "gemv" (f32,
-    and bf16 / f16 where the tensor-core kernel cannot take N)."""
-    if dtype in MMA_DTYPES and M <= SMALL_M_MAX:
+def matmul_route(M: int, N: int, dtype: torch.dtype, splitk_max: int) -> str:
+    """B1's or B6's kernel for x (M, K) of ``dtype`` and N columns:
+    "splitk" at M ≤ ``splitk_max`` (bf16 or f16) or ≤ F32_SPLITK_MAX (f32),
+    "mma" above it where N % 16 == 0, else "gemv"."""
+    if dtype == torch.float32:
+        if M <= F32_SPLITK_MAX:
+            return "splitk"
+        return "mma" if N % 16 == 0 else "gemv"
+    if dtype in MMA_DTYPES and M <= splitk_max:
         return "splitk"
     return "mma" if uses_mma(M, N, dtype) else "gemv"
+
+
+def int4_route(M: int, N: int, dtype: torch.dtype) -> str:
+    """B1's kernel for x (M, K) of ``dtype`` and N columns: "splitk" (bf16
+    or f16 at M ≤ SMALL_M_MAX, f32 at M ≤ F32_SPLITK_MAX), "mma" above it,
+    or "gemv" where the Hopper kernel cannot take N."""
+    return matmul_route(M, N, dtype, SMALL_M_MAX)
 
 
 def splitk_smem(M: int, cg: int, cols: int, xbytes: int = 2) -> int:
     """Shared bytes of a split-K block (csrc: sk_smem_bytes): x's M rows over
     a chunk of cg groups, rows padded by 32 elements of ``xbytes`` (bf16 2,
-    B7/B8's s8 1); after the loop the same bytes hold each of the 4 warps'
-    (M, 8·cols + 1) 4-byte sum."""
+    B7/B8's s8 1; the f32 forms stage 3M bf16 rows); after the loop the
+    same bytes hold each of the 4 warps' (M, 8·cols + 1) 4-byte sum."""
     return max(M * (cg * 32 + 32) * xbytes, SPLITK_KW * M * (8 * cols + 1) * 4)
 
 
 # the split-K kernels by (xbytes, int8 weights): table name and the most
-# m-tiles its entry takes (csrc: sk_dispatch<MAX_MT>)
+# m-tiles its entry takes (csrc: sk_dispatch<MAX_MT>; the f32 forms:
+# splitk_f32_plan)
 SPLITK_KERNELS = {(2, False): ("int4_splitk", 8), (2, True): ("int8_splitk", 2),
                   (1, True): ("int8_dyn_splitk", 2), (1, False): ("int4_dyn_splitk", 2)}
 SPLITK_MTS = (1, 2, 3, 4, 5, 6, 8)
@@ -268,11 +303,26 @@ def builtin_splitk_plan(M: int, K: int, N: int, xbytes: int = 2,
     return mt, cols, -(-G // gps), gps, cg
 
 
+def splitk_f32_plan(M: int, K: int, N: int,
+                    int8_weights: bool = False) -> tuple[int, int, int, int, int]:
+    """B1's (or, ``int8_weights``, B6's) split-K kernel on f32 x (M, K): x's
+    pieces as 3M staged rows, so the bf16 plan at 3M rows (two m-tiles at
+    most), or the plan table's entry under the f32 form's own name,
+    "int4_splitk_f32" or "int8_splitk_f32"."""
+    if not 1 <= M <= F32_SPLITK_MAX:
+        raise ValueError(f"splitk_f32_plan: M = {M} outside 1..{F32_SPLITK_MAX}")
+    kernel = ("int8" if int8_weights else "int4") + "_splitk_f32"
+    staged = 8 * splitk_mt(3 * M)
+    return autotune.plan(kernel, staged, K, N,
+                         lambda: builtin_splitk_plan(3 * M, K, N, 2, int8_weights),
+                         lambda p: splitk_problem(staged, K, N, p, 2, 2))
+
+
 def splitk_scratch(device, M: int, N: int, plan) -> tuple:
     """(split partials or None, arrival counters) of a split-K ``plan``: the
     buffers every split-K kernel shares, 4-byte partials (f32, or B7's
     int32) and counters that each launch leaves at 0 (launches on a stream
-    run in order)."""
+    run in order).  M: the staged rows (3M in the f32 forms)."""
     _, cols, nsplit, _, _ = plan
     tiles = -(-N // (8 * cols))
     part = (_build.scratch("splitk_part", device, tiles * nsplit * M * 8 * cols,
@@ -282,12 +332,13 @@ def splitk_scratch(device, M: int, N: int, plan) -> tuple:
 
 def splitk_call(name: str, x, w, scale, plan):
     """Launch split-K kernel ``name`` (csrc: chatglm_int4_splitk_mma,
-    chatglm_int8_splitk_mma) on checked bf16 or f16 tensors of the card
-    with ``plan``; returns y (M, N) in x's dtype."""
+    chatglm_int8_splitk_mma) on checked bf16, f16 or f32 tensors of the
+    card with ``plan``; returns y (M, N) in x's dtype."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part, arrivals = splitk_scratch(x.device, M, N, plan)
+    staged = 3 * M if x.dtype == torch.float32 else M
+    part, arrivals = splitk_scratch(x.device, staged, N, plan)
     _build.call(name, x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
                 arrivals, M, K, N, _build.dtype_code(x.dtype), *plan, _build.stream_ptr(x))
     return y
@@ -295,9 +346,11 @@ def splitk_call(name: str, x, w, scale, plan):
 
 def mma_stages(bm: int, kind: str = "int4g32") -> int:
     """Stages of a Hopper kernel's ring (csrc: WgRing's STAGES): MMA_STAGES,
-    or as many as fit the opt-in limit (csrc: dyn_stages; B7 at bm 128)."""
+    or as many as fit the opt-in limit (csrc: wg_stages, dyn_stages; B7 at
+    bm 128, the f32 forms' three activation tiles a stage)."""
     wbytes, sbytes = MMA_TILE_BYTES[kind]
-    return min(MMA_STAGES, (MMA_SMEM_MAX - 16 - 1024) // (bm * 128 + wbytes + sbytes + 16))
+    xbytes = MMA_PIECES.get(kind, 1) * bm * 128
+    return min(MMA_STAGES, (MMA_SMEM_MAX - 16 - 1024) // (xbytes + wbytes + sbytes + 16))
 
 
 def mma_smem(bm: int, kind: str = "int4g32") -> int:
@@ -307,11 +360,14 @@ def mma_smem(bm: int, kind: str = "int4g32") -> int:
     packed byte rows × 128 and 2 × 128 scales; B6 64 × 128 int8 bytes; B14
     64 byte rows × 64 and 4 × 64 scales; B13 128 × 64 int8 bytes and 64 f32
     scales; B7 128 × 128 int8 bytes; B8 64 packed byte rows × 128 and 4 ×
-    128 scales); a full and an empty barrier per stage, two merge flags,
-    and the slack that aligns the ring to 1024 bytes."""
+    128 scales; the f32 forms "int4g32_f32" and "int8_f32" three
+    activation tiles, one a bf16 piece of x); a full and an empty barrier
+    per stage, two merge flags, and the slack that aligns the ring to 1024
+    bytes."""
     wbytes, sbytes = MMA_TILE_BYTES[kind]
     stages = mma_stages(bm, kind)
-    return stages * (bm * 128 + wbytes + sbytes) + 2 * stages * 8 + 16 + 1024
+    xbytes = MMA_PIECES.get(kind, 1) * bm * 128
+    return stages * (xbytes + wbytes + sbytes) + 2 * stages * 8 + 16 + 1024
 
 
 def wg_plan(M: int, C: int, n_out: int, step: int = MMA_STEP) -> tuple[int, int, int, int]:
@@ -366,24 +422,25 @@ def mma_problem(K: int, plan) -> Optional[str]:
                               ctas))
 
 
-def mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+def mma_plan(M: int, K: int, N: int, f32: bool = False) -> tuple[int, int, int, int]:
     """(bm, nsplit, groups_per_split, ctas) of B1's Hopper kernel for bf16 x
     (M, K) and N columns: ``wg_plan`` over K, each split's stages counted in
     32-row groups (all K / 32 groups where K is not split); or the plan
-    table's entry (ops/autotune.py, "int4_mma")."""
+    table's entry (ops/autotune.py, "int4_mma"; the f32 form's own,
+    "int4_mma_f32", so that no bf16 entry plans an f32 launch)."""
     def builtin():
         bm, nsplit, sps, ctas = wg_plan(M, K, N)
         return bm, nsplit, (MMA_STAGE_GROUPS * sps if nsplit > 1 else K // 32), ctas
 
-    return autotune.plan("int4_mma", mma_bucket(M), K, N, builtin,
+    return autotune.plan("int4_mma_f32" if f32 else "int4_mma", mma_bucket(M), K, N, builtin,
                          lambda p: mma_problem(K, p))
 
 
-def int8_mma_plan(M: int, K: int, N: int) -> tuple[int, int, int, int]:
+def int8_mma_plan(M: int, K: int, N: int, f32: bool = False) -> tuple[int, int, int, int]:
     """B6's Hopper kernel: ``wg_plan`` over K, or the table's "int8_mma"
-    entry."""
-    return autotune.plan("int8_mma", mma_bucket(M), K, N, lambda: wg_plan(M, K, N),
-                         lambda p: wg_problem(-(-K // MMA_STEP), p))
+    (f32: "int8_mma_f32") entry."""
+    return autotune.plan("int8_mma_f32" if f32 else "int8_mma", mma_bucket(M), K, N,
+                         lambda: wg_plan(M, K, N), lambda p: wg_problem(-(-K // MMA_STEP), p))
 
 
 def t_mma_plan(M: int, K: int, N: int, kind: str = "int4g32") -> tuple[int, int, int, int]:
@@ -501,12 +558,32 @@ def wg_scratch(device, M: int, n_out: int, plan) -> tuple:
 
 def wg_call(name: str, a, w, scale, out, M: int, K: int, N: int, n_out: int, plan) -> None:
     """Launch Hopper kernel ``name`` (csrc: chatglm_*_wgmma) on checked
-    tensors of the card with ``plan`` (bm, nsplit, per_split, ctas)."""
+    tensors of the card with ``plan`` (bm, nsplit, per_split, ctas).  An
+    f32 ``a`` (B1's and B6's f32 forms) goes in as its pieces, which
+    ``split_bf16x3_pass`` writes first."""
     bm, nsplit, per_split, ctas = plan
     part, arrivals = wg_scratch(a.device, M, n_out, plan)
+    code = _build.dtype_code(a.dtype)
+    if a.dtype == torch.float32:
+        a = split_bf16x3_pass(a)
     _build.call(name, a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
-                arrivals, M, K, N, _build.dtype_code(a.dtype), bm, nsplit, per_split, ctas,
-                _build.stream_ptr(a))
+                arrivals, M, K, N, code, bm, nsplit, per_split, ctas, _build.stream_ptr(a))
+
+
+def split_bf16x3_pass(x):
+    """Launch the f32 forms' split pass (csrc: chatglm_split_bf16x3) on a
+    checked f32 x (M, K) of the card: its three bf16 pieces (hi, mid, lo),
+    a (3, M, K) view of a scratch buffer that every call reuses (launches
+    on a stream run in order), which B1's and B6's Hopper kernels then
+    read.  Its plain version is ``split_bf16x3`` (ops/quant.py)."""
+    M, K = x.shape
+    n = M * K
+    buf = _build.scratch("f32_pieces", x.device, 3 * n, torch.bfloat16)
+    _build.call("chatglm_split_bf16x3", x.data_ptr(), buf.data_ptr(), n, _build.stream_ptr(x))
+    return _build.launched(split_bf16x3_pass, buf[:3 * n].view(3, M, K))
+
+
+split_bf16x3_pass.launches = 0
 
 
 def _check(x, packed, scale):
@@ -541,6 +618,12 @@ def f16_form(x) -> str:
     return "f16" if x.dtype == torch.float16 else ""
 
 
+def act_form(x) -> str:
+    """The form a forward matmul's launch on ``x`` counts as: "f16" or, for
+    float32 activations (B1's and B6's f32 forms), "f32"; else none."""
+    return "f32" if x.dtype == torch.float32 else f16_form(x)
+
+
 def int4g32_gemv(x, packed, scale):
     """Launch the split-K kernel (checked inputs on the card)."""
     M, K = x.shape
@@ -551,20 +634,23 @@ def int4g32_gemv(x, packed, scale):
     _build.call("chatglm_int4_gemv", x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                 y.data_ptr(), ws.data_ptr(), M, K, N, _build.dtype_code(x.dtype),
                 nsplit, gps, _build.stream_ptr(x))
-    return _build.launched(int4g32_gemv, y, f16_form(x))
+    return _build.launched(int4g32_gemv, y, act_form(x))
 
 
 int4g32_gemv.launches = 0
 
 
 def int4g32_mma(x, packed, scale):
-    """Launch the Hopper tensor-core kernel (checked bf16 or f16 inputs on
-    the card, N % 16 == 0): one launch, any K splits merged inside it."""
+    """Launch the Hopper tensor-core kernel (checked bf16, f16 or f32 inputs
+    on the card, N % 16 == 0): one launch, any K splits merged inside it;
+    f32 x after the split pass (``split_bf16x3_pass``, a launch of its
+    own)."""
     M, K = x.shape
     N = packed.shape[1]
+    f32 = x.dtype == torch.float32
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    wg_call("chatglm_int4_wgmma", x, packed, scale, y, M, K, N, N, mma_plan(M, K, N))
-    return _build.launched(int4g32_mma, y, f16_form(x))
+    wg_call("chatglm_int4_wgmma", x, packed, scale, y, M, K, N, N, mma_plan(M, K, N, f32))
+    return _build.launched(int4g32_mma, y, act_form(x))
 
 
 int4g32_mma.launches = 0
@@ -572,16 +658,18 @@ int4g32_mma.launches = 0
 
 def int4g32_splitk(x, packed, scale):
     """Launch the split-K tensor-core kernel (checked bf16 or f16 inputs on
-    the card, M ≤ SMALL_M_MAX): one launch, the splits merged inside it."""
+    the card at M ≤ SMALL_M_MAX, f32 at M ≤ F32_SPLITK_MAX): one launch, the
+    splits merged inside it."""
     M, K = x.shape
-    y = splitk_call("chatglm_int4_splitk_mma", x, packed, scale,
-                    splitk_plan(M, K, packed.shape[1]))
-    return _build.launched(int4g32_splitk, y, f16_form(x))
+    N = packed.shape[1]
+    plan = splitk_f32_plan(M, K, N) if x.dtype == torch.float32 else splitk_plan(M, K, N)
+    y = splitk_call("chatglm_int4_splitk_mma", x, packed, scale, plan)
+    return _build.launched(int4g32_splitk, y, act_form(x))
 
 
 int4g32_splitk.launches = 0
 for _fn in (int4g32_gemv, int4g32_mma, int4g32_splitk):
-    _build.with_forms(_fn, "f16")
+    _build.with_forms(_fn, "f16", "f32")
 
 
 def int4g32_matmul(x: torch.Tensor, packed: torch.Tensor,

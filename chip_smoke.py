@@ -17,8 +17,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py --fp16    # float16 activations: phase 2's f16 rows, the f16 runs of
                                     # phases 5, 6 and 7, the float16-checkpoint launcher run
     python3 chip_smoke.py --fp16-seeds 17,27,37    # phase 2's f16 readings per seed (F16_*)
-    python3 chip_smoke.py --fp32    # float32 activations: phase 2's f32 attention rows, the f32
-                                    # runs of phases 5, 6 and 8
+    python3 chip_smoke.py --fp32    # float32 activations: phase 2's f32 rows (B1's and B6's
+                                    # f32 forms, the attention kernels'), the f32 runs of
+                                    # phases 5, 6 and 8
+    python3 chip_smoke.py --fp32-readings    # B1's and B6's f32 rows and their readings
+                                             # (F32_SUM_C), unheld, and the crossover sweep
     python3 chip_smoke.py --f16-train-seeds 41,71,72,73,74,75    # phase 7's f16 grad readings
 
 Phases (any failure raises and exits non-zero):
@@ -28,7 +31,9 @@ Phases (any failure raises and exits non-zero):
    copy bandwidth (for comparison with the published rate the bounds use).
 2. Each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the ChatGLM2-6B main paths (B1 at M = 1, 4, 16, 20, 32, 36, 48,
-   128, 512 and 1024 in bf16 and M = 1 in f32; the paged kernels at a 64-page pool
+   128, 512 and 1024 in bf16, and B1's and B6's f32 forms at M = 1, 4, 16,
+   36, 57, 128 and 512 beside the CUDA-core gemvs in turns, with the
+   split-K / Hopper crossover sweep; the paged kernels at a 64-page pool
    of 256-row pages, 2048-slot rows): error, kernel time (CUDA events),
    plain time, the bound (the least time for the same work: bytes over the
    published HBM rate, or operations over the tensor-core peak of their
@@ -40,7 +45,7 @@ Phases (any failure raises and exits non-zero):
    repacked into its layout, ``torch._weight_int8pack_mm`` for the int8
    matmul and ``torch._int_mm`` for the dynamic int8 accumulator).  The
    int4 matmul with dynamic int8 activations (B8) has no such call.  B6 at
-   B1's M in bf16 and M = 1 in f32, its bf16 rows (the split-K kernel at M
+   B1's M in bf16, its bf16 rows (the split-K kernel at M
    <= 16, the Hopper kernel above) also within ``SUM_TOL`` of their exact
    value beyond the bf16 rounding.  B7 at M = 1, 4, 64, 128, 512, 1024 and
    B8 at M = 1, 4, 32, 48, 64, 512, each with ``call_ms`` (the wrapper with
@@ -114,8 +119,9 @@ Phases (any failure raises and exits non-zero):
    int4g32 with dynamic int8 activations, and int4g32 with
    ``decode_attn_v2`` (B12, never B4), with control bugs that must fail
    the same limit; then the f32 parity forward (``models.chatglm2.forward``)
-   in int4g32 and in int8, whose linears take B1's and B6's CUDA-core
-   gemvs, within ``F32_E2E_TOL`` of the plain path, and its f32 loss and
+   in int4g32 and in int8, whose linears take B1's and B6's f32 forms (the
+   Hopper kernels on x's three bf16 pieces), within ``F32_E2E_TOL`` of the
+   plain path, and its f32 loss and
    grads, whose backward takes B14's and B13's CUDA-core t_gemv_kernel,
    within ``F32_GRAD_TOL`` of the plain path's (the launches of those
    kernels' lines).
@@ -396,9 +402,10 @@ F32_TOL = 1e-5  # f32 outputs: the order of f32 sums alone
 # of its terms' magnitudes (f64) of its exact value beyond half a bf16 ulp,
 # i.e. an f32 sum of exact products, one rounding to bf16.
 SUM_TOL = 2.0 ** -23
-# The f32 parity forward (phase 3) at depth 2 through B1's CUDA-core gemv
-# against the plain path: f32 sums in another order, carried through two
-# layers of norms, attention and six linears.  On an H100 it read 1.35e-6,
+# The f32 parity forward (phase 3) at depth 2 through B1's f32 form (the
+# CUDA-core gemv before the split-bf16 Hopper form) against the plain
+# path: f32 sums in another order, carried through two layers of norms,
+# attention and six linears.  On an H100 it read 1.35e-6 through the gemv,
 # the wrong-scale control 2.0e-1.
 F32_E2E_TOL = 1e-5
 # The same forward's f32 loss and grads (every trainable leaf; the backward
@@ -674,7 +681,8 @@ CUDA_KERNEL = {"int4g32_splitk": "int4_splitk_mma_kernel", "int4g32_mma": "int4_
                "rope_kv_append": "rope_kv_append_kernel<DenseKV, true>",
                "rope_kv_append paged": "rope_kv_append_kernel<PagedKV, true>",
                "gptq_sweep_int8": "gptq_sweep_kernel<false>",
-               "gptq_sweep_int4": "gptq_sweep_kernel<true>"}
+               "gptq_sweep_int4": "gptq_sweep_kernel<true>",
+               "split_bf16x3_pass": "split_bf16x3_kernel"}
 
 
 def check_matmul(torch):
@@ -701,7 +709,7 @@ def check_matmul(torch):
                  ).to(torch.bfloat16)
         lib_w = library_weights(torch, packed, scale)
         w_deq = unpack_int4_tpu(packed[0], scale[0]).to(torch.bfloat16)  # dense_ms only
-        for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M] + [(1, torch.float32)]:
+        for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M]:
             x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
             kernel = B1_KERNELS[QM.int4_route(M, N, dtype)]
             fn = getattr(QM, kernel)
@@ -862,7 +870,7 @@ def check_int8_matmul(torch):
         scale_bf16 = scale.to(torch.bfloat16)
         w64 = w[0].double()  # the exact function of the Hopper rows
         w_deq = (w[0].float() * scale[0]).to(torch.bfloat16)  # dense_ms only
-        for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M] + [(1, torch.float32)]:
+        for M, dtype in [(m, torch.bfloat16) for m in MATMUL_M]:
             x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
             kernel = "int8_" + I8.int8_route(M, N, dtype)
             fn = getattr(I8, kernel)
@@ -1812,10 +1820,11 @@ def end_to_end_parity(torch, quant, dyn, seed=21, v2=False):
     return worst
 
 
-# the CUDA-core gemv each quantization's f32 forward takes, and the kernels
-# of the same matmul it must not launch
-F32_KERNELS = {"int4g32": ("int4g32_gemv", ("int4g32_splitk", "int4g32_mma")),
-               "int8": ("int8_gemv", ("int8_splitk", "int8_mma"))}
+# the f32 form each quantization's f32 forward takes at its 128 rows (the
+# Hopper kernel's, after the split pass), and the kernels of the same
+# matmul it must not launch
+F32_KERNELS = {"int4g32": ("int4g32_mma_f32", ("int4g32_splitk", "int4g32_gemv")),
+               "int8": ("int8_mma_f32", ("int8_splitk", "int8_gemv"))}
 # and the backward's: the CUDA-core t_gemv, never the bf16 forms
 F32_T_KERNELS = {"int4g32": ("int4g32_t_gemv", ("int4g32_t_splitk", "int4g32_t_mma")),
                  "int8": ("int8_t_gemv", ("int8_t_splitk", "int8_t_mma"))}
@@ -1824,8 +1833,9 @@ F32_T_KERNELS = {"int4g32": ("int4g32_t_gemv", ("int4g32_t_splitk", "int4g32_t_m
 def f32_forward_parity(torch, quant, seed=24):
     """The parity forward (``models.chatglm2.forward``, the reference's
     semantics; f32 activations by default) at 6B widths, depth 2, in
-    ``quant``, 2 x 64 tokens: the kernel path, whose linears take the
-    CUDA-core gemv (f32 x; B1's or B6's), against the plain path, max
+    ``quant``, 2 x 64 tokens: the kernel path, whose linears take B1's or
+    B6's f32 form (the Hopper kernel after the split pass), against the
+    plain path, max
     |Δlogits| / max|logits| within F32_E2E_TOL, and the plain path on a tree
     with a wrong scale index (the control) outside it; then the f32 loss
     and grads of the same tree through the kernels (the backward's t_gemv)
@@ -1852,15 +1862,15 @@ def f32_forward_parity(torch, quant, seed=24):
                          dtype=torch.float32, rt=plain_rt)
     require(got.dtype == torch.float32 and torch.isfinite(got).all(), "f32 forward: bad logits")
     rel, control = rel_err(got, want)[1], rel_err(got, wrong)[1]
-    gemv, others = F32_KERNELS[quant]
+    form, others = F32_KERNELS[quant]
     log(f"  {quant} f32 parity forward, 6B widths, 2 layers, 2 x 64 tokens: max rel logits err "
         f"of the kernel path vs plain {rel:.3e}, vs the wrong-scale control {control:.3e} (limit "
-        f"{F32_E2E_TOL:.0e}); launches: {json.dumps({k: counts[k] for k in (gemv,) + others})}")
+        f"{F32_E2E_TOL:.0e}); launches: {json.dumps({k: counts[k] for k in (form,) + others})}")
     require(rel <= F32_E2E_TOL, f"{quant} f32 forward: kernel path vs plain {rel} > {F32_E2E_TOL}")
     require(control > F32_E2E_TOL,
             f"{quant} f32 forward: the wrong-scale control passes ({control})")
-    require(counts[gemv] == 6 * cfg.num_layers + 1 and not any(counts[k] for k in others),
-            f"{quant} f32 forward: launches {counts}")
+    require(counts[form] == counts["split_bf16x3_pass"] == 6 * cfg.num_layers + 1
+            and not any(counts[k] for k in others), f"{quant} f32 forward: launches {counts}")
     trainable, frozen = partition_params(params)
     labels = ids.clone()
     labels[:, :8] = -100
@@ -3704,8 +3714,7 @@ SHARD_SPEC_TOKENS = 8  # runs (c)-(g)
 SHARD_LOOP_TOKENS = 32  # the greedy rows of (c)-(f) on short cycles, which drafts must hit
 SHARD_HTTP_TOKENS = 12
 SHARD_FP8_TOKENS = 16  # runs (a8), (b8): the fp8 cache and pool; and (a32) ... (b32f8) in f32
-SHARD_F32_PROMPTS = (48, 64, 80, 56)  # the f32 runs' prompt lengths: f32 prefills take the
-                                      # CUDA-core gemvs
+SHARD_F32_PROMPTS = (48, 64, 80, 56)  # the f32 runs' prompt lengths
 # what each run's verify steps must launch, once a layer a step: the
 # model-sharded pool's verify attends the all-gathered pages (B5's chunked
 # form), the data-sharded pool's through the chunk kernel (B11)
@@ -6674,6 +6683,12 @@ def sharded_form_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, ou
             require(not bad, f"phase 8 ({run}) rank {i}: launched unsharded decode forms {bad}")
             require(r[run].get("pages_in_use", 0) == 0,
                     f"phase 8 ({run}) rank {i}: pages in use after the drain")
+            if act_name == "float32":  # the shards' linears through B1's f32 forms
+                require(c["int4g32_gemv"] == 0 and c["int4g32_splitk_f32"] > 0
+                        and all(c[f"{k}_f32"] == c[k] for k in ("int4g32_splitk", "int4g32_mma")),
+                        f"phase 8 ({run}) rank {i}: B1 launched {c['int4g32_splitk']} split-K "
+                        f"({c['int4g32_splitk_f32']} f32), {c['int4g32_mma']} Hopper "
+                        f"({c['int4g32_mma_f32']} f32), {c['int4g32_gemv']} gemv")
         done = [SimpleNamespace(generated=t) for t in r0["tokens"]]
         gaps = greedy_gaps(torch, params, cfg, done, reqs,
                            cache_len=max(len(p) for p, _ in reqs) + SHARD_FP8_TOKENS,
@@ -6697,6 +6712,10 @@ def sharded_form_checks(torch, params, cfg, ranks, prompts, smi, backend, tp, ou
         for k in SHARDED_DECODE[base]:
             name = k + (" paged" if base == "b" and k == "rope_kv_append_sharded" else "")
             counts[f"{name} {form}"] = r0["counts"][f"{k}_{form}"]
+        if act_name == "float32":
+            for k in ("int4g32_splitk", "int4g32_mma", "split_bf16x3_pass"):
+                key = k if k == "split_bf16x3_pass" else f"{k} f32"
+                counts[key] = counts.get(key, 0) + r0["counts"][k if k == key else f"{k}_f32"]
     return counts
 
 
@@ -7728,20 +7747,270 @@ def tf32_off(torch) -> dict:
     return flags
 
 
+# B1's and B6's f32 forms (phase 2): the rows of F32_MATMUL_M on the six
+# linears, with the CUDA-core gemv they replace timed in turns; and every
+# output held, besides F32_TOL, within F32_SUM_C · 2^-24 · Σ|x_k·w_k| of the
+# plain version, c fixed at 1.5x the largest reading of F32_SUM_SEEDS (of
+# random inputs against the plain version, and of lo-coherent ones,
+# ``lo_coherent``, against the exact value); a control, the exact value of
+# x without its lo pieces, must exceed it there.
+F32_MATMUL_M = (1, 4, 16, 36, 57, 128, 512)
+F32_SUM_SEEDS = (31, 32, 33)
+F32_SUM_C = 25.0
+# the lo-coherent rows: split-K, Hopper with a tile past M's rows, Hopper
+F32_COHERENT_M = (4, 8, 57)
+# the split-K / Hopper crossover sweep of the f32 forms (both forced; split-K
+# up to F32_SPLITK_MAX, the most rows whose pieces fit its two m-tiles)
+F32_SWEEP_M = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32, 57, 128)
+
+
+def lo_coherent(torch, gen, M, K):
+    """(M, K) positive f32 x whose lo pieces (``split_bf16x3``) are positive,
+    63 · 2^-23 of x's binade (about 2^-17.6 of x): mantissa bit 15 clear (hi
+    truncates), bit 14 set (mid takes bits 14-7), bit 6 clear (mid
+    truncates) and bits 5-0 set (lo).  With positive weights the dropped lo
+    then adds up instead of cancelling: the control that must exceed the
+    limit."""
+    e = torch.randint(-3, 3, (M, K), device="cuda", generator=gen)
+    m = torch.randint(0, 1 << 23, (M, K), device="cuda", generator=gen)
+    m = (m & ~((1 << 15) | (1 << 6))) | (1 << 14) | 63
+    return (((127 + e) << 23) | m).to(torch.int32).view(torch.float32)
+
+
+def f32_matmul_kind(kind):
+    """(weights maker, matmul, plain, route, its wrappers by route) of B1
+    ("int4g32") or B6 ("int8")."""
+    from chatglm_q_tpu_torch.ops import int8_matmul as I8
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+
+    def int4_weights(torch, gen, copies, K, N, positive=False):
+        packed = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        if positive:  # nibbles 0..7
+            packed &= 0x77
+        scale = (torch.rand((copies, K // 32, N), device="cuda", generator=gen) * 0.02
+                 ).to(torch.bfloat16)
+        return packed, scale, K // 2 * N + K // 32 * N * 2
+
+    def int8_weights(torch, gen, copies, K, N, positive=False):
+        w = torch.randint(0 if positive else -128, 128, (copies, K, N), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        scale = (0.5 + torch.rand((copies, N), device="cuda", generator=gen)) * 0.01
+        return w, scale, K * N + 4 * N
+
+    if kind == "int4g32":
+        return (int4_weights, QM.int4g32_matmul, QM.int4g32_matmul_plain, QM.int4_route,
+                {"splitk": QM.int4g32_splitk, "mma": QM.int4g32_mma, "gemv": QM.int4g32_gemv})
+    return (int8_weights, I8.int8_matmul, I8.int8_matmul_plain, I8.int8_route,
+            {"splitk": I8.int8_splitk, "mma": I8.int8_mma, "gemv": I8.int8_gemv})
+
+
+def f32_terms(torch, kind, x, w, s):
+    """Σ_k |x_k · w_k| of each output, f64 (int8: times the column scale)."""
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+
+    if kind == "int4g32":
+        return x.double().abs() @ unpack_int4_tpu(w, s).double().abs()
+    return (x.double().abs() @ w.double().abs()) * s.double()
+
+
+def f32_exact(torch, kind, x, w, s):
+    """The exact value of x @ w in f64 (int8: times the column scale)."""
+    from chatglm_q_tpu_torch.ops.quant import unpack_int4_tpu
+
+    if kind == "int4g32":
+        return x.double() @ unpack_int4_tpu(w, s).double()
+    return (x.double() @ w.double()) * s.double()
+
+
+def f32_reading(torch, got, want, terms) -> float:
+    """max |got - want| / (2^-24 · Σ|terms|) over the outputs."""
+    return ((got.double() - want.double()).abs() / (2.0 ** -24 * terms).clamp_min(1e-300)
+            ).max().item()
+
+
+def check_f32_matmul(torch, calibrate=False):
+    """Phase 2's f32 rows of B1 and B6 (f32 x as its three bf16 pieces on
+    the tensor cores): at F32_MATMUL_M on the six linears, one launch of the
+    route's f32 form (the Hopper form after one split pass), within F32_TOL
+    of the plain version (TF32 off), and the CUDA-core gemv too; the form's
+    ms and the gemv's in turns (form, gemv, gemv, form), the plain
+    version's and (B6) ``_weight_int8pack_mm``'s in f32; the readings of
+    the timing seed, of F32_SUM_SEEDS and of lo-coherent inputs, all within
+    F32_SUM_C · 2^-24 · Σ|x·w| of the plain version, and the drop-lo control
+    above that limit (``calibrate``: the readings alone, for
+    ``--fp32-readings``); the split-K / Hopper sweep over F32_SWEEP_M; the
+    split pass alone, bit-equal to ``split_bf16x3``, its input rotated as
+    the weights are.  Returns (rows, readings, sweep, split pass row)."""
+    from chatglm_q_tpu_torch.ops import quant_matmul as QM
+    from chatglm_q_tpu_torch.ops.quant import split_bf16x3
+    from chatglm_q_tpu_torch.utils.timing import cuda_event_ms
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "f32 matmul rows: TF32 is on")
+    gen = torch.Generator(device="cuda").manual_seed(F32_SEED)
+    rows, readings, sweep = [], [], []
+    for kind in ("int4g32", "int8"):
+        make, fn, plain, route, wrappers = f32_matmul_kind(kind)
+        for name, K, N in MATMUL_SHAPES:
+            probe = make(torch, gen, 1, K, N)
+            copies = weight_copies(probe[2])
+            del probe
+            w, s, wbytes = make(torch, gen, copies, K, N)
+            w_t = w.transpose(1, 2).contiguous() if kind == "int8" else None
+            for M in F32_MATMUL_M:
+                x = torch.randn((M, K), device="cuda", generator=gen)
+                r = route(M, N, torch.float32)
+                require(r in ("splitk", "mma"), f"{kind} f32 {name} M={M}: route {r}")
+                before = {k: f.f32.launches for k, f in wrappers.items()}
+                passes = QM.split_bf16x3_pass.launches
+                got = fn(x, w[0], s[0])
+                torch.cuda.synchronize()
+                launched = {k: f.f32.launches - before[k] for k, f in wrappers.items()}
+                require(launched == {k: int(k == r) for k in wrappers}
+                        and QM.split_bf16x3_pass.launches - passes == int(r == "mma"),
+                        f"{kind} f32 {name} M={M}: launches {launched}")
+                want = plain(x, w[0], s[0])
+                err, rel = rel_err(got, want)
+                reading = f32_reading(torch, got, want, f32_terms(torch, kind, x, w[0], s[0]))
+                require(torch.isfinite(got).all() and rel <= F32_TOL,
+                        f"{kind} f32 {name} M={M}: rel err {rel} > {F32_TOL}")
+                gemv_rel = rel_err(wrappers["gemv"](x, w[0], s[0]), want)[1]
+                require(gemv_rel <= F32_TOL,
+                        f"{kind} f32 {name} M={M}: the gemv's rel err {gemv_rel} > {F32_TOL}")
+                readings.append({"kind": kind, "linear": name, "M": M, "seed": F32_SEED,
+                                 "reading": reading, "route": r})
+                turns = []
+                for turn in ("form", "gemv", "gemv", "form"):
+                    f = fn if turn == "form" else wrappers["gemv"]
+                    turns.append(cuda_event_ms(lambda i: f(x, w[i % copies], s[i % copies]),
+                                               iters=30))
+                plain_ms = cuda_event_ms(lambda i: plain(x, w[0], s[0]), iters=3, warmup=1)
+                refusal = []
+                lib = (int8_library(torch, x, w_t, s, want, refusal) if kind == "int8"
+                       else None)
+                b, by = bound_ms(M * K * 4 + wbytes + M * N * 4, 3 * 2.0 * M * K * N)
+                kernel = f"{'int4g32' if kind == 'int4g32' else 'int8'}_{r}"
+                row = {"kernel": kernel, "form": "f32", "linear": name, "M": M, "K": K, "N": N,
+                       "x_dtype": "float32", "max_abs_err": err, "rel_err": rel,
+                       "sum_reading": reading, "ms": (turns[0] + turns[3]) / 2,
+                       "gemv_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                       "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                       "cuda_core_ops_ms": 2.0 * M * K * N / PEAK_F32_FLOPS * 1e3,
+                       "library_ms": lib}
+                if refusal:
+                    row["library_refusal"] = refusal[0]
+                if r == "splitk":
+                    row["plan"] = list(QM.splitk_f32_plan(M, K, N, kind == "int8"))
+                else:
+                    row["plan"] = (QM.mma_plan(M, K, N, True) if kind == "int4g32"
+                                   else QM.int8_mma_plan(M, K, N, True))
+                rows.append(row)
+                lib_s = "none" if lib is None else f"{lib:.5f} ms"
+                log(f"  {kind} f32 {name:17s} M={M:4d} [{kernel}_f32] rel_err {rel:.2e}, "
+                    f"{reading:.3f} x 2^-24 sum|terms|; {row['ms']:.5f} ms (gemv in turns "
+                    f"{row['gemv_ms']:.5f}; turns {', '.join(f'{t:.5f}' for t in turns)})  "
+                    f"bound {b:.5f} ms ({by}; CUDA-core ops {row['cuda_core_ops_ms']:.5f})  "
+                    f"plain {plain_ms:.3f} ms  library {lib_s}  plan {row['plan']}")
+                del x, got, want
+            # the readings of the other seeds, and the lo-coherent inputs with the control
+            for seed in F32_SUM_SEEDS:
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                for M in F32_MATMUL_M:
+                    x = torch.randn((M, K), device="cuda", generator=g)
+                    got, want = fn(x, w[0], s[0]), plain(x, w[0], s[0])
+                    rd = f32_reading(torch, got, want, f32_terms(torch, kind, x, w[0], s[0]))
+                    readings.append({"kind": kind, "linear": name, "M": M, "seed": seed,
+                                     "reading": rd, "route": route(M, N, torch.float32)})
+            # lo-coherent inputs at each form's rows (split-K, Hopper): every
+            # term positive, where the plain version's own f32
+            # sums drift (its reading is logged), so held against the exact
+            # value; the control is the exact value of x without its lo pieces
+            wp, sp, _ = make(torch, gen, 1, K, N, positive=True)
+            for seed in F32_SUM_SEEDS:
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                for M in F32_COHERENT_M:
+                    x = lo_coherent(torch, g, M, K)
+                    hi, mid, _ = split_bf16x3(x)
+                    exact = f32_exact(torch, kind, x, wp[0], sp[0])
+                    terms = f32_terms(torch, kind, x, wp[0], sp[0])
+                    rd = f32_reading(torch, fn(x, wp[0], sp[0]), exact, terms)
+                    plain_rd = f32_reading(torch, plain(x, wp[0], sp[0]), exact, terms)
+                    control = f32_reading(torch, f32_exact(torch, kind, hi.double() + mid.double(),
+                                                           wp[0], sp[0]), exact, terms)
+                    readings.append({"kind": kind, "linear": name, "M": M, "seed": seed,
+                                     "inputs": "lo-coherent", "reading": rd,
+                                     "plain_reading": plain_rd, "drop_lo_control": control,
+                                     "route": route(M, N, torch.float32)})
+                    log(f"  {kind} f32 {name:17s} M={M:4d} lo-coherent seed {seed}: {rd:.3f} x "
+                        f"2^-24 sum|terms| of the exact value (plain {plain_rd:.3f}), the drop-lo "
+                        f"control {control:.3f}")
+            del wp, sp
+            # the crossover sweep
+            for M in F32_SWEEP_M:
+                x = torch.randn((M, K), device="cuda", generator=gen)
+                got = {}
+                if M <= QM.F32_SPLITK_MAX:
+                    got["splitk"] = lambda i: wrappers["splitk"](x, w[i % copies], s[i % copies])
+                if N % 16 == 0:
+                    got["mma"] = lambda i: wrappers["mma"](x, w[i % copies], s[i % copies])
+                ms = {k: cuda_event_ms(f, iters=20) for k, f in got.items()}
+                sweep.append({"kind": kind, "linear": name, "M": M, "ms": ms,
+                              "route": route(M, N, torch.float32)})
+                log(f"  {kind} f32 sweep {name:17s} M={M:4d}: "
+                    + ", ".join(f"{k} {v:.5f} ms" for k, v in ms.items())
+                    + f"  (route: {route(M, N, torch.float32)})")
+            del w, s, w_t
+    # the split pass alone, at a 1 x 512 prefill's w_in input, x rotated
+    # over copies that exceed the L2 as the weights are (its pieces go to the
+    # one scratch buffer every call reuses, as on the main path)
+    n = 512 * 4096
+    copies = weight_copies(4 * n)
+    xs = torch.randn((copies, 512, 4096), device="cuda", generator=gen)
+    pieces = QM.split_bf16x3_pass(xs[0])
+    want = torch.stack(split_bf16x3(xs[0]))
+    require(torch.equal(pieces.view(torch.int16), want.view(torch.int16)),
+            "split_bf16x3_pass: pieces differ from split_bf16x3's")
+    b, by = bound_ms(10 * n, 0)
+    split_row = {"kernel": "split_bf16x3_pass", "shape": f"x (512, 4096) f32 -> (3, 512, 4096) "
+                 f"bf16, x rotated over {copies} copies", "max_abs_err": 0.0,
+                 "ms": cuda_event_ms(lambda i: QM.split_bf16x3_pass(xs[i % copies]), iters=50),
+                 "plain_ms": cuda_event_ms(lambda i: split_bf16x3(xs[0]), iters=5, warmup=1),
+                 "bound_ms": b, "bound_by": by, "library_ms": None}
+    log(f"  split_bf16x3_pass x (512, 4096) over {copies} copies: bit-equal to split_bf16x3; "
+        f"{split_row['ms']:.5f} ms, bound {b:.5f} ms ({by}), plain "
+        f"{split_row['plain_ms']:.4f} ms")
+    del xs
+    worst = max(readings, key=lambda rd: rd["reading"])
+    least = min(rd["drop_lo_control"] for rd in readings if "drop_lo_control" in rd)
+    log(f"  f32 forms: largest reading over seeds {F32_SUM_SEEDS} (random inputs against the "
+        f"plain version, lo-coherent ones against the exact value) and the timing seed "
+        f"{F32_SEED} {worst['reading']:.3f} x 2^-24 sum|terms| ({worst}); limit F32_SUM_C "
+        f"{F32_SUM_C}; least drop-lo control {least:.3f}")
+    if not calibrate:
+        require(worst["reading"] <= F32_SUM_C < least,
+                f"f32 forms: largest reading {worst['reading']:.3f}, least drop-lo control "
+                f"{least:.3f} x 2^-24 sum|terms| (limit F32_SUM_C {F32_SUM_C})")
+    return rows, readings, sweep, split_row
+
+
 def check_f32_kernels(torch):
-    """Phase 2's f32 rows: every attention kernel's f32 form over an f32
+    """Phase 2's f32 rows: B1's and B6's f32 forms (``check_f32_matmul``);
+    every attention kernel's f32 form over an f32
     cache (``act_attention_rows`` in f32, within F32_TOL of its plain
     version; the appends and writes bit-equal), over an fp8 cache
     (``check_fp8_attention`` in f32: each bit-equal to its f32 form on the
     upcast cache; the f32 -> e4m3 store byte-equal to ``kv_store_cast``),
     and the attention edge cases in f32."""
     flags = tf32_off(torch)
+    mm_rows, mm_readings, sweep, split_row = check_f32_matmul(torch)
     rows = act_attention_rows(torch, torch.float32, F32_SEED, True)
     fp8 = check_fp8_attention(torch, torch.float32)
     store = fp8.pop("store")
     rows.update(fp8)
     return {"attention": rows, "fp8_store": store, "tf32": flags,
-            "edge_cases_max_rel_err": check_attention_edges(torch, torch.float32)}
+            "edge_cases_max_rel_err": check_attention_edges(torch, torch.float32),
+            "matmul": mm_rows, "matmul_readings": mm_readings, "matmul_sweep": sweep,
+            "split_pass": split_row}
 
 
 def chat_f32(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decoder, kv_dtype=None):
@@ -7749,7 +8018,8 @@ def chat_f32(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decode
     (f32 activations over an f32 cache, or over ``kv_dtype``, fp8) on the
     28-layer tree as a float32 checkpoint of it loads, the chat prompt,
     F32_NEW_TOKENS greedy tokens, captured and eager (equal texts); its text
-    that of ``prefill`` + ``multi_step_decode``; the f32 gemv and the
+    that of ``prefill`` + ``multi_step_decode``; B1's or B6's f32 forms
+    (split-K in decode, Hopper in the prefill; never the gemv) and the
     attention kernels' f32 (fp8_f32) forms launched, and one f32 decode step
     through B12 (``decode_attn_v2``); every token within GREEDY_GAP_TOL of
     the argmax of the plain path (``use_kernels=False``) in f32 over the same
@@ -7784,8 +8054,11 @@ def chat_f32(torch, smi, params, cfg, quant, tokenizer, prompt, ids, bf16_decode
     _, final_eager, _ = run_generate(dec_eager, prompt, tokens)
     require(final_eager == final, f"{name}: the captured decoder's text differs from the eager "
                                   f"one's: {final[:60]!r} / {final_eager[:60]!r}")
-    gemv = "int4g32_gemv" if quant == "int4g32" else "int8_gemv"
-    require(counts[gemv] > 0, f"{name}: no {gemv} launch")
+    # the f32 forms: split-K in decode, the Hopper kernel in the prompt's prefill
+    for k in [f"{quant}_{r}" for r in ("splitk", "mma")]:
+        require(counts[f"{k}_f32"] > 0 and counts[f"{k}_f32"] == counts[k],
+                f"{name}: {k} launched {counts[k]} times, {counts[f'{k}_f32']} as f32")
+    require(counts[f"{quant}_gemv"] == 0, f"{name}: {quant}'s gemv launched")
     for k in ("rope_kv_append", "flash_attention_decode", "flash_attention_prefill"):
         require(counts[f"{k}_{form}"] > 0 and counts[f"{k}_{form}"] == counts[k],
                 f"{name}: {k} launched {counts[k]} times, {counts[f'{k}_{form}']} as {form}")
@@ -7910,8 +8183,13 @@ def engines_f32(torch, smi, params, cfg, seed):
             require(len(eng._free_pages) == F32_POOL_PAGES - 1,
                     f"({run}): {len(eng._free_pages)} pages free after clearing the prefix cache")
         c = res["launches"]
-        require(c["int4g32_gemv"] > 0 and c["int4g32_splitk"] == c["int4g32_mma"] == 0,
-                f"({run}): the f32 linears did not all take B1's gemv")
+        require(c["int4g32_splitk_f32"] > 0 and c["int4g32_gemv"] == 0
+                and c["int4g32_splitk_f32"] == c["int4g32_splitk"]
+                and c["int4g32_mma_f32"] == c["int4g32_mma"],
+                f"({run}): the f32 linears did not all take B1's f32 forms")
+        for k in ("int4g32_splitk", "int4g32_mma"):
+            counts[f"{k} f32"] = counts.get(f"{k} f32", 0) + c[f"{k}_f32"]
+        counts["split_bf16x3_pass"] = counts.get("split_bf16x3_pass", 0) + c["split_bf16x3_pass"]
         for kern in want:
             require(c[f"{kern}_{form}"] > 0 and c[f"{kern}_{form}"] == c[kern],
                     f"({run}): {kern} launched {c[kern]} times, {c[f'{kern}_{form}']} as {form}")
@@ -8131,10 +8409,18 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--fp32" in sys.argv:  # the float32 rows and runs alone
-        phase("== float32 activations: phase 2's f32 attention rows, the f32 runs of phases 5, "
-              "6 and 8")
+        phase("== float32 activations: phase 2's f32 rows, the f32 runs of phases 5, 6 and 8")
         res = f32_slice(torch, smi)
         log("detail: " + json.dumps({"card": smi, "f32": res}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--fp32-readings" in sys.argv:  # phase 2's f32 matmul rows, readings unheld (F32_SUM_C)
+        phase("== float32 activations: B1's and B6's f32 rows, the sweep, the readings")
+        tf32_off(torch)
+        rows, readings, sweep, split = check_f32_matmul(torch, calibrate=True)
+        log("detail: " + json.dumps({"card": smi, "f32_matmul_rows": rows,
+                                     "f32_matmul_readings": readings, "f32_matmul_sweep": sweep,
+                                     "f32_split_pass": split}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--fp8" in sys.argv:  # the fp8 cache's rows and runs alone
@@ -8164,8 +8450,8 @@ def main() -> int:
     f16_rows = check_f16_kernels(torch)
     att.update(f16_rows["attention"])
     att["f16_fp8_store"] = f16_rows["fp8_store"]
-    phase("== phase 2 (f32): every attention kernel's float32 form (the CUDA-core kernels), "
-          "over an f32 and an fp8 cache")
+    phase("== phase 2 (f32): B1's and B6's float32 forms (x's bf16 pieces on the tensor cores) "
+          "and every attention kernel's float32 form, over an f32 and an fp8 cache")
     f32_rows = check_f32_kernels(torch)
     att.update(f32_rows["attention"])
     att["f32_fp8_store"] = f32_rows["fp8_store"]
@@ -8237,9 +8523,7 @@ def main() -> int:
     specs = [
         ("int4g32_splitk", mm4, f"{pm}:826", pick("int4g32_splitk", 1), counts),
         ("int4g32_mma", mm4, f"{pm}:244", pick("int4g32_mma", 512), counts),
-        ("int4g32_gemv", mm4, f"{pm}:244", pick("int4g32_gemv", 1), f32_counts["int4g32"]),
         ("int8_splitk", mm8, f"{pm}:188", pick("int8_splitk", 1), chat_counts["int8"]),
-        ("int8_gemv", mm8, f"{pm}:188", pick("int8_gemv", 1), f32_counts["int8"]),
         ("int8_mma", mm8, f"{pm}:188", pick("int8_mma", 512), chat_counts["int8"]),
         ("int8_dyn_splitk", dyn, f"{pm}:960", pick("int8_dyn_splitk", 1),
          chat_counts["int8+dyn"]),
@@ -8379,6 +8663,27 @@ def main() -> int:
     # (a32f8), (b32f8)); their rows phase 2's
     c4, c8f, c48 = (chat_counts["int4g32 f32"], chat_counts["int8 f32"],
                     chat_counts["int4g32 f32 fp8"])
+    # B1's and B6's f32 forms and their split pass: launches from the same
+    # f32 runs (phase 5's decoders, phase 6's and phase 8's int4g32 engines)
+    f32_mm = {f"{k} f32": sum(c[f"{k}_f32"] for c in (c4, c8f, c48))
+              + engine_counts.get(f"{k} f32", 0) + sharded_counts.get(f"{k} f32", 0)
+              for k in ("int4g32_splitk", "int4g32_mma", "int8_splitk", "int8_mma")}
+    f32_mm["split_bf16x3_pass"] = (sum(c["split_bf16x3_pass"] for c in (c4, c8f, c48))
+                                   + engine_counts.get("split_bf16x3_pass", 0)
+                                   + sharded_counts.get("split_bf16x3_pass", 0))
+
+    def pick32(kernel, M, name="w_in_h/w_in_gate"):
+        return next(r for r in f32_rows["matmul"] if r["kernel"] == kernel and r["M"] == M
+                    and r["linear"] == name)
+
+    for name, src, line, row in (
+            ("int4g32_splitk f32", mm4, f"{pm}:826", pick32("int4g32_splitk", 1)),
+            ("int4g32_mma f32", mm4, f"{pm}:244", pick32("int4g32_mma", 512)),
+            ("int8_splitk f32", mm8, f"{pm}:188", pick32("int8_splitk", 1)),
+            ("int8_mma f32", mm8, f"{pm}:188", pick32("int8_mma", 512)),
+            # no pallas_call of its own: part of the f32 forms of :244 and :188
+            ("split_bf16x3_pass", mm4, f"{pm}:244", f32_rows["split_pass"])):
+        specs.append((name, src, line, row, f32_mm))
     f32_runs = {**{k: v for k, v in engine_counts.items() if k.endswith(("f32", "fp8_f32"))},
                 **{k: v for k, v in sharded_counts.items() if k.endswith(("f32", "fp8_f32"))}}
     for form, cc in (("f32", (c4, c8f)), ("fp8_f32", (c48,))):
@@ -8417,9 +8722,13 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
-        base = name.removesuffix(" f16")
+        base = name.removesuffix(" f16").removesuffix(" f32")
         if base in CUDA_KERNEL:
-            entries[-1]["kernel"] = CUDA_KERNEL[base] + (" (f16 form)" if base != name else "")
+            entries[-1]["kernel"] = CUDA_KERNEL[base] + (f" ({name[len(base) + 1:]} form)"
+                                                         if base != name else "")
+        if "gemv_ms" in r:  # an f32 form: the CUDA-core gemv's time in turns beside it
+            entries[-1]["gemv_ms"] = r["gemv_ms"]
+            entries[-1]["cuda_core_ops_ms"] = r["cuda_core_ops_ms"]
         if "old_path_ms" in r:
             entries[-1]["old_path_ms"] = r["old_path_ms"]
         if r.get("bf16_ms") is not None:  # an fp8 or f16 form: its bf16 form's time beside it
@@ -8430,6 +8739,9 @@ def main() -> int:
             entries[-1]["f32_form_ms"] = r["f32_ms"]
     detail = {"card": smi, "matmul_rows": mm_rows + int8_rows, "transposed_rows": t_rows,
               "f16_matmul_rows": f16_rows["matmul"],
+              "f32_matmul_rows": f32_rows["matmul"], "f32_matmul_sweep": f32_rows["matmul_sweep"],
+              "f32_matmul_readings": f32_rows["matmul_readings"],
+              "f32_split_pass": f32_rows["split_pass"],
               "b8_b1_crossover": crossover, "b1_splitk_mma_crossover": splitk_crossover,
               "dyn_division": dyn_division,
               "attention": att, "e2e_rel_err": e2e,

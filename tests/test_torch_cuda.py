@@ -264,7 +264,8 @@ def test_int4g32_routes_by_m_and_dtype(gen):
     packed, scale = _int4_weights(gen, 1024, 512)
     cases = [(QM.SMALL_M_MAX, torch.bfloat16, QM.int4g32_splitk),
              (QM.SMALL_M_MAX + 1, torch.bfloat16, QM.int4g32_mma),
-             (1, torch.float32, QM.int4g32_gemv)]
+             (1, torch.float32, QM.int4g32_splitk),
+             (QM.F32_SPLITK_MAX + 1, torch.float32, QM.int4g32_mma)]
     for M, dtype, fn in cases:
         x = torch.randn((M, 1024), device="cuda", generator=gen).to(dtype)
         before = fn.launches
@@ -3462,8 +3463,8 @@ def test_f32_over_fp8_read_is_exact_for_all_256_bytes(gen, kind):
 def test_f32_captured_decode_steps_equal_eager(gen, kv_dtype):
     """``multi_step_decode`` at depth 2, 6B widths, f32 activations over an
     f32 or an fp8 cache: captured against eager over 8 steps, the tokens
-    and every cache byte equal; B1's f32 gemv and the attention kernels'
-    f32 (fp8_f32) forms launched, 8 steps' worth."""
+    and every cache byte equal; B1's f32 split-K form (never the gemv) and
+    the attention kernels' f32 (fp8_f32) forms launched, 8 steps' worth."""
     from chatglm_q_tpu_torch import TorchRuntimeConfig, ops
     from chatglm_q_tpu_torch.models import chatglm2 as M
 
@@ -3489,8 +3490,170 @@ def test_f32_captured_decode_steps_equal_eager(gen, kv_dtype):
     (t0, c0, n0), (t1, c1, n1) = runs[False], runs[True]
     assert torch.equal(t0, t1) and _bytes_equal(c0.k, c1.k) and _bytes_equal(c0.v, c1.v)
     form = "f32" if kv_dtype == F32 else "fp8_f32"
-    assert n0 == n1 and n1["int4g32_gemv"] == 8 * (6 * cfg.num_layers + 1)
+    assert n0 == n1 and n1["int4g32_splitk_f32"] == 8 * (6 * cfg.num_layers + 1)
+    assert n1["int4g32_gemv"] == 0
     assert n1[f"rope_kv_append_{form}"] == n1[f"flash_attention_decode_{form}"] == \
         n1["flash_attention_decode"] == 8 * cfg.num_layers
     prog = M.decode_program(params, cfg, c1, "int4g32", F32, TorchRuntimeConfig())
     assert prog.graph is not None and prog.replays == 7
+
+
+# ---------------------------------------------------------------------------
+# B1's and B6's f32 forms: f32 x as its three bf16 pieces on the tensor cores
+# (the split-K kernels, the Hopper kernels after the split pass), held to F32_TOL and to F32_SUM_C · 2^-24 · Σ|x·w| of the plain
+# version per element
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's: 1.5x the largest reading of |kernel - plain| / (2^-24
+# Σ|x_k w_k|) over its three seeds; a control without lo exceeds it
+F32_SUM_C = 25.0
+F32_LINEARS = [(4096, 4096), (4096, 512), (13824, 4096), (4096, 13824), (4096, 65536)]
+F32_MATMUL_M = (1, 4, 16, 36, 57, 128, 512)
+
+
+def _f32_kind(kind):
+    """(weights, matmul, plain, route, wrappers by route) of B1 or B6."""
+    if kind == "int4g32":
+        return (_int4_weights, QM.int4g32_matmul, QM.int4g32_matmul_plain, QM.int4_route,
+                {"splitk": QM.int4g32_splitk, "mma": QM.int4g32_mma, "gemv": QM.int4g32_gemv})
+    return (_int8_weights, I8.int8_matmul, I8.int8_matmul_plain, I8.int8_route,
+            {"splitk": I8.int8_splitk, "mma": I8.int8_mma, "gemv": I8.int8_gemv})
+
+
+def _f32_terms(kind, x, w, s):
+    """Σ_k |x_k · w_k| of each output in f64 (int8: times the column scale)."""
+    if kind == "int4g32":
+        return x.double().abs() @ QM.unpack_int4_tpu(w, s).double().abs()
+    return (x.double().abs() @ w.double().abs()) * s.double()
+
+
+def _f32_reading(got, want, terms):
+    """max |got - want| / (2^-24 Σ|terms|) over the outputs."""
+    return ((got.double() - want.double()).abs() / (2.0 ** -24 * terms).clamp_min(1e-300)
+            ).max().item()
+
+
+def _f32_counts(wrappers):
+    return {**{k: fn.f32.launches for k, fn in wrappers.items()},
+            "pass": QM.split_bf16x3_pass.launches}
+
+
+@pytest.mark.parametrize("M", F32_MATMUL_M)
+@pytest.mark.parametrize("K,N", F32_LINEARS)
+@pytest.mark.parametrize("kind", ["int4g32", "int8"])
+def test_f32_forms_match_plain(gen, kind, K, N, M):
+    """One launch of the route's f32 form (the Hopper form after one split
+    pass), none of the gemv; within F32_TOL of max|plain| and F32_SUM_C ·
+    2^-24 · Σ|x·w| of plain per output, TF32 off."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    weights, fn, plain, route, wrappers = _f32_kind(kind)
+    w, s = weights(gen, K, N)
+    x = torch.randn((M, K), device="cuda", generator=gen)
+    r = route(M, N, F32)
+    assert r in ("splitk", "mma")
+    before = _f32_counts(wrappers)
+    got = fn(x, w, s)
+    torch.cuda.synchronize()
+    after = _f32_counts(wrappers)
+    want = {k: int(k == r) for k in wrappers}
+    want["pass"] = int(r == "mma")
+    assert {k: after[k] - before[k] for k in after} == want
+    ref = plain(x, w, s)
+    assert got.dtype == F32 and got.shape == (M, N) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= F32_TOL
+    assert _f32_reading(got, ref, _f32_terms(kind, x, w, s)) <= F32_SUM_C
+
+
+@pytest.mark.parametrize("M", range(1, QM.F32_SPLITK_MAX + 1))
+@pytest.mark.parametrize("kind", ["int4g32", "int8"])
+def test_f32_splitk_agrees_with_plain(gen, kind, M):
+    """The split-K kernel's f32 form at every row count it takes, on one
+    narrow and one wide linear: within the f32 limits."""
+    weights, _, plain, _, wrappers = _f32_kind(kind)
+    for K, N in ((4096, 512), (4096, 4096)):
+        w, s = weights(gen, K, N)
+        x = torch.randn((M, K), device="cuda", generator=gen)
+        got = wrappers["splitk"](x, w, s)
+        ref = plain(x, w, s)
+        assert _rel(got, ref) <= F32_TOL
+        assert _f32_reading(got, ref, _f32_terms(kind, x, w, s)) <= F32_SUM_C
+
+
+def _f32_edge_rows(gen, M, K, kind):
+    """f32 rows across 2^-60 .. 2^60, a row of subnormals, a row each with
+    one inf, one -inf, one NaN, and (int8) two rows each with one f32 value
+    above bf16's largest finite one.  (int4g32 takes no such row: its
+    group partial of unscaled integers overflows there where the plain
+    version's x · (q·s) does not, the grouped scheme's range.)"""
+    x = torch.randn((M, K), device="cuda", generator=gen)
+    e = torch.linspace(-60, 60, M, device="cuda").round()
+    x = x * torch.exp2(e)[:, None]
+    x[1] = torch.randn(K, device="cuda", generator=gen) * 2.0 ** -130  # subnormal
+    x[2, 5], x[3, 77], x[4, 300] = float("inf"), float("-inf"), float("nan")
+    if kind == "int8":
+        x[5, 0], x[6, 0] = 3.4e38, -3.3896e38
+    return x
+
+
+@pytest.mark.parametrize("M", (8, 40, 200))
+@pytest.mark.parametrize("kind", ["int4g32", "int8"])
+def test_f32_forms_on_edge_rows(gen, kind, M):
+    """Wide-range, subnormal and non-finite rows: the plain version's NaN and
+    inf positions exactly; each finite output within F32_SUM_C · 2^-24 ·
+    Σ|x·w| of its exact value, plus 2^-134 · Σ|w| where x's split is not
+    exact (|x| < 2^-110).  The Hopper form takes the M rows in one call,
+    the split-K form (at M = 8) F32_SPLITK_MAX rows a call."""
+    weights, fn, plain, route, _ = _f32_kind(kind)
+    K, N = 4096, 512
+    w, s = weights(gen, K, N)
+    if kind == "int8":  # |w| <= 1 under the near-max values: finite outputs there
+        w[0, :256] = torch.randint(-1, 2, (256,), device="cuda", generator=gen).to(torch.int8)
+    x = _f32_edge_rows(gen, M, K, kind)
+    outs = [fn(x, w, s)]
+    if M == 8:
+        step = QM.F32_SPLITK_MAX
+        outs.append(torch.cat([fn(x[i:i + step], w, s) for i in range(0, M, step)]))
+        assert route(step, N, F32) == "splitk" and route(M, N, F32) == "mma"
+    torch.cuda.synchronize()
+    ref = plain(x, w, s)
+    fin = torch.isfinite(ref)
+    xd = torch.where(torch.isfinite(x), x, torch.zeros_like(x)).double()
+    if kind == "int4g32":
+        wd = QM.unpack_int4_tpu(w, s).double()
+        exact, terms = xd @ wd, xd.abs() @ wd.abs()
+        wsum = wd.abs().sum(0)[None, :]
+    else:
+        exact = (xd @ w.double()) * s.double()
+        terms = (xd.abs() @ w.double().abs()) * s.double()
+        wsum = (w.double().abs().sum(0) * s.double())[None, :]
+    limit = F32_SUM_C * 2.0 ** -24 * terms + 2.0 ** -134 * wsum
+    for got in outs:
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(got), test(ref))
+        err = (got.double() - exact).abs()
+        assert (err[fin] <= limit[fin]).all(), (err / limit)[fin].max().item()
+
+
+@pytest.mark.parametrize("M", (1, 4, 16, 36, 128))
+@pytest.mark.parametrize("kind", ["int4g32", "int8"])
+def test_f32_forms_replay_in_a_graph_bit_equal(gen, kind, M):
+    """The f32 forms captured in a CUDA graph (after an eager call sizes the
+    scratch) replay the eager call's output bit for bit, on new inputs
+    copied in place."""
+    weights, fn, _, _, _ = _f32_kind(kind)
+    w, s = weights(gen, 4096, 512)
+    x = torch.randn((M, 4096), device="cuda", generator=gen)
+    fn(x, w, s)  # sizes the scratch buffers
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn(x, w, s)
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn(x, w, s)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        x.copy_(torch.randn((M, 4096), device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(x, w, s))

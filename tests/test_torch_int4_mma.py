@@ -109,7 +109,7 @@ def test_routing_is_unchanged():
         assert QM.int4_route(M, 4096, bf16) == "mma"
         assert QM.int4_route(M, 512, bf16) == "mma"
         assert QM.int4_route(M, 264, bf16) == "gemv"  # the tile kernel needs N % 16 == 0
-        assert QM.int4_route(M, 4096, f32) == "gemv"
+        assert QM.int4_route(M, 4096, f32) == "mma"
     assert QM.int4_route(QM.SMALL_M_MAX, 4096, bf16) == "splitk"
 
 

@@ -103,12 +103,12 @@ def test_routing():
     for M in (1, 4, 16, 17, 27, QM.SMALL_M_MAX):
         assert QM.int4_route(M, 4096, bf16) == "splitk"
         assert QM.int4_route(M, 264, bf16) == "splitk"
-        assert QM.int4_route(M, 4096, f32) == "gemv"
+        assert QM.int4_route(M, 4096, f32) == ("splitk" if M <= QM.F32_SPLITK_MAX else "mma")
     assert QM.SMALL_M_MAX <= 64  # the JAX decode-M kernel's own limit
     assert QM.int4_route(QM.SMALL_M_MAX + 1, 4096, bf16) == "mma"
     assert QM.int4_route(512, 4096, bf16) == "mma"
     assert QM.int4_route(512, 264, bf16) == "gemv"  # the tile kernel needs N % 16 == 0
-    assert QM.int4_route(512, 4096, f32) == "gemv"
+    assert QM.int4_route(512, 4096, f32) == "mma"
     # B6/B7/B8 (and B13/B14) keep their switch at MMA_MIN_M and their plan
     assert QM.MMA_MIN_M == 16
     assert not QM.uses_mma(16, 4096, bf16) and QM.uses_mma(17, 4096, bf16)

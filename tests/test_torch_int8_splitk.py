@@ -9,8 +9,9 @@ split-K body (B1's decode design).  What can be checked without the card:
   chunks the kernel takes, shared memory within 48 KB (four blocks an SM),
   partials bounded, the grid filling the card where two groups a warp
   allow; int8 weights take 16 columns a lane only with four groups a warp.
-* Routing: bf16 M ≤ 16 to the split-K kernels, f32 to B6's CUDA-core
-  ``int8_gemv``, M > 16 to the Hopper kernels, B1 unchanged.
+* Routing: bf16 M ≤ 16 to the split-K kernels, M > 16 to the Hopper
+  kernels, f32 to the f32 forms of the same two (test_torch_f32_matmul.py),
+  B1 unchanged.
 * The fragment arrangements, emulated in numpy from each lane's loads: B6's
   PRMT pairing and ``s8x4_bf16x2`` into m16n8k16 bf16 A registers, B7's
   4x4 byte transposes into m16n8k32 s8 A registers, B8's nibbles moved to
@@ -103,11 +104,12 @@ def test_routing():
     for M in DECODE_M:
         for N in (4096, 512, 264):
             assert I8.int8_route(M, N, bf16) == "splitk"
-            assert I8.int8_route(M, N, f32) == "gemv"
+            assert I8.int8_route(M, N, f32) == ("splitk" if M <= QM.F32_SPLITK_MAX
+                                                else "mma" if N % 16 == 0 else "gemv")
             assert not D.uses_mma(M, N)  # B7/B8: the split-K kernels
     assert I8.int8_route(17, 4096, bf16) == "mma" and D.uses_mma(17, 4096)
     assert I8.int8_route(17, 264, bf16) == "gemv" and not D.uses_mma(17, 264)
-    assert I8.int8_route(512, 4096, f32) == "gemv"
+    assert I8.int8_route(512, 4096, f32) == "mma"
     for M in (1, 16, 17, 64):  # B1 unchanged
         assert QM.int4_route(M, 4096, bf16) == "splitk"
     assert QM.int4_route(65, 4096, bf16) == "mma"

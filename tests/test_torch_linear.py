@@ -140,7 +140,7 @@ def _int8_on_fake_cuda(monkeypatch, dynamic_int8):
 def test_int8_on_cuda_is_not_ported(monkeypatch):
     """int8 on a CUDA tensor no longer raises NotImplementedError: it goes to
     the B6 kernel (the split-K kernel at M = 1), never the plain version."""
-    assert _int8_on_fake_cuda(monkeypatch, False) == "chatglm_int8_gemv"
+    assert _int8_on_fake_cuda(monkeypatch, False) == "chatglm_int8_splitk_mma"
 
 
 def test_dynamic_int8_on_cuda_goes_to_the_b7_kernel(monkeypatch):

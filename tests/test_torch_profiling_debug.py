@@ -106,7 +106,7 @@ def test_interpret_kernels_runs_the_plain_versions(monkeypatch):
     assert _build.on_card(on_card) and not _build.on_card(x)
     monkeypatch.setattr(_build, "call", _no_launch)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
-    with pytest.raises(_Launch, match="chatglm_int4_gemv"):  # f32 x: B1's gemv
+    with pytest.raises(_Launch, match="chatglm_int4_splitk_mma"):  # f32 x: B1's f32 split-K
         QM.int4g32_matmul(on_card, packed, scale)
     before = launch_counts()
     with TD.interpret_kernels():
